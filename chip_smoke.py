@@ -1,0 +1,432 @@
+"""Chip smoke test of the PyTorch/CUDA port (yolosharp_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+  1. the card's name and power limit; build every CUDA kernel from the
+     sources in yolosharp_tpu_torch/csrc.
+  2. each kernel against its plain PyTorch version at every v8s-640
+     main-path shape (B=2), in float32 (TF32 off for cuDNN and matmul) and
+     bfloat16, with times (CUDA events, turns plain/kernel/kernel/plain).
+  3. the slice: a v8s nc=80 YoloTask on cuda with seeded weights answers
+     image_predict and batch_predict requests, with end2end False and True;
+     every kernel must have launched during it.
+  4. the card's float32 predict of one image against the CPU's float32
+     predict through the plain versions.
+
+The second-to-last line is a JSON object of the kernels; the last line is
+{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# (H, W, Ci, Co) of every 3x3 conv on the v8s-640 predict path
+S2_SHAPES = [(640, 640, 3, 32), (320, 320, 32, 64), (160, 160, 64, 128),
+             (80, 80, 128, 256), (40, 40, 256, 512), (80, 80, 128, 128),
+             (40, 40, 256, 256)]
+S1_SHAPES = [(80, 80, 64, 64), (40, 40, 128, 128), (20, 20, 256, 256)]
+for _hw, _ch in ((80, 128), (40, 256), (20, 512)):   # head towers
+    S1_SHAPES += [(_hw, _hw, _ch, 64), (_hw, _hw, 64, 64),
+                  (_hw, _hw, _ch, 128), (_hw, _hw, 128, 128)]
+S1_SHAPES = list(dict.fromkeys(S1_SHAPES))
+# (H, W, Cin, c, C2) of the fused C2f blocks (layers 2 and 8)
+C2F_SHAPES = [(160, 160, 64, 32, 64), (20, 20, 512, 256, 512)]
+BATCH = 2
+CANDIDATES = 300    # above-threshold anchors per image in phase 3 (bench.py:8-13)
+# float32: the kernels sum 9*Ci <= 4608 products in another order than
+# cuDNN; bfloat16: the JAX package's own bf16 criterion (max error / max
+# |reference| < 1e-2, tests/test_pallas_conv.py), doubled for the C2f block,
+# whose four layers round to bf16 at different points in the two versions.
+TOL_F32 = (1e-4, 1e-4)             # atol, rtol
+TOL_BF16 = {"conv": 1e-2, "c2f": 2e-2}
+SOURCES = {
+    "conv3x3_silu": ("yolosharp_tpu_torch/csrc/conv3x3.cu",
+                     "yolosharp_tpu/kernels/conv3x3.py:112"),
+    "conv3x3s2_silu": ("yolosharp_tpu_torch/csrc/conv3x3.cu",
+                       "yolosharp_tpu/kernels/conv3x3.py:198"),
+    "c2f_fused": ("yolosharp_tpu_torch/csrc/c2f.cu",
+                  "yolosharp_tpu/kernels/c2f.py:138"),
+}
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return out[0]
+
+
+def time_pair(plain, kernel, iters: int = 10):
+    """(kernel ms, plain ms) per call, turns plain/kernel/kernel/plain."""
+    for fn in (plain, kernel):
+        fn()
+    torch.cuda.synchronize()
+    times = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        fn = plain if name == "plain" else kernel
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end) / iters)
+    return float(np.mean(times["kernel"])), float(np.mean(times["plain"]))
+
+
+def compare(name, got, want, dtype, kind):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_abs = float(err.max())
+    rel = max_abs / (float(want.abs().max()) + 1e-6)
+    if dtype == torch.float32:
+        atol, rtol = TOL_F32
+        bad = int((err > atol + rtol * want.abs()).sum())
+        ok = bad == 0 and bool(torch.isfinite(got).all())
+        rule = f"|k-p| <= {atol} + {rtol}|p| ({bad} outside)"
+    else:
+        ok = rel < TOL_BF16[kind] and bool(torch.isfinite(got).all())
+        rule = f"max|k-p|/max|p| = {rel:.3e} < {TOL_BF16[kind]}"
+    print(f"  {name}: max_abs_err {max_abs:.3e} max_rel {rel:.3e} {rule} "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return max_abs
+
+
+def f64_errors(got, want, ref64):
+    """Both float32 versions against a float64 evaluation of the plain
+    version: each should be off by float32 rounding only."""
+    k = float((got.double() - ref64).abs().max())
+    p = float((want.double() - ref64).abs().max())
+    print(f"    vs float64: kernel {k:.3e}, plain {p:.3e}", flush=True)
+
+
+def phase_kernels(dev):
+    from yolosharp_tpu_torch.kernels import (c2f_fused, c2f_plain,
+                                             conv3x3_plain, conv3x3_silu,
+                                             conv3x3s2_silu)
+
+    print("phase 2: kernels against their plain versions, B=2", flush=True)
+    print("  torch.backends.cudnn.allow_tf32 = False, "
+          "torch.backends.cuda.matmul.allow_tf32 = False", flush=True)
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    stats = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "ms": 0.0,
+                 "plain_ms": 0.0, "ms_f32": 0.0, "plain_ms_f32": 0.0,
+                 "shapes": 0} for k in SOURCES}
+
+    def record(name, dtype, err, ms, plain_ms):
+        s = stats[name]
+        if dtype == torch.float32:
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s["ms_f32"] += ms
+            s["plain_ms_f32"] += plain_ms
+        else:
+            s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
+            s["ms"] += ms
+            s["plain_ms"] += plain_ms
+            s["shapes"] += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for wrapper, stride, shapes in ((conv3x3s2_silu, 2, S2_SHAPES),
+                                        (conv3x3_silu, 1, S1_SHAPES)):
+            for H, W, ci, co in shapes:
+                x = randn(BATCH, H, W, ci).to(dtype)
+                w = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype)
+                b = randn(co, scale=0.1).to(dtype)
+                got = wrapper(x, w, b)
+                want = conv3x3_plain(x, w, b, "silu", stride)
+                torch.cuda.synchronize()
+                tag = (f"{wrapper.__name__} {str(dtype)[6:]} "
+                       f"{H}x{W} {ci}->{co}")
+                err = compare(tag, got, want, dtype, "conv")
+                if dtype == torch.float32:
+                    f64_errors(got, want, conv3x3_plain(
+                        x.double(), w.double(), b.double(), "silu", stride))
+                ms, plain_ms = time_pair(
+                    lambda: conv3x3_plain(x, w, b, "silu", stride),
+                    lambda: wrapper(x, w, b))
+                print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain",
+                      flush=True)
+                record(wrapper.__name__, dtype, err, ms, plain_ms)
+        for H, W, cin, c, c2 in C2F_SHAPES:
+            args = [randn(BATCH, H, W, cin), randn(cin, 2 * c, scale=cin ** -0.5),
+                    randn(2 * c, scale=0.1),
+                    randn(3, 3, c, c, scale=(9 * c) ** -0.5), randn(c, scale=0.1),
+                    randn(3, 3, c, c, scale=(9 * c) ** -0.5), randn(c, scale=0.1),
+                    randn(3 * c, c2, scale=(3 * c) ** -0.5), randn(c2, scale=0.1)]
+            args = [a.to(dtype) for a in args]
+            got = c2f_fused(*args)
+            want = c2f_plain(*args)
+            torch.cuda.synchronize()
+            tag = f"c2f_fused {str(dtype)[6:]} {H}x{W} {cin}/{c}/{c2}"
+            err = compare(tag, got, want, dtype, "c2f")
+            if dtype == torch.float32:
+                f64_errors(got, want, c2f_plain(*[a.double() for a in args]))
+            ms, plain_ms = time_pair(lambda: c2f_plain(*args),
+                                     lambda: c2f_fused(*args))
+            print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain",
+                  flush=True)
+            record("c2f_fused", dtype, err, ms, plain_ms)
+    return stats
+
+
+def synthetic_images(n, h, w, seed):
+    """Smooth blobs plus noise, uint8 RGB, made from a seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        low = rng.uniform(0, 255, (h // 16 + 1, w // 16 + 1, 3))
+        img = np.kron(low, np.ones((16, 16, 1), np.float32))[:h, :w]
+        img += rng.normal(0, 20, img.shape)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+@torch.no_grad()
+def seed_weights(net, seed: int = 3):
+    """Random weights that give NMS-visible detections, the recipe of
+    tests/test_golden_bus_predict.py:115-137: ConvBN kernels x2.5, the
+    head's final convs re-drawn from U(-0.3, 0.3), and BN statistics
+    jittered so that folding does real work."""
+    from yolosharp_tpu_torch.ckpt import clone_one2one
+    from yolosharp_tpu_torch.nn import ConvBN
+
+    rng = np.random.default_rng(seed)
+
+    def draw(t, fn):
+        t.copy_(torch.from_numpy(fn(t.shape).astype(np.float32)))
+
+    for m in net.modules():
+        if isinstance(m, ConvBN):
+            m.conv.weight.mul_(2.5)
+            c = m.bn.num_features
+            m.bn.running_mean.add_(torch.from_numpy(
+                rng.normal(0, 0.05, c).astype(np.float32)).to(m.bn.running_mean))
+            m.bn.running_var.mul_(torch.from_numpy(
+                rng.uniform(0.8, 1.5, c).astype(np.float32)).to(
+                    m.bn.running_var)).add_(0.02)
+    head = net.model[-1]
+    for tower in (head.cv2, head.cv3):
+        for branch in tower:
+            for p in (branch[2].weight, branch[2].bias):
+                draw(p, lambda s: rng.uniform(-0.3, 0.3, s))
+    clone_one2one(net)
+
+
+def match(got, want):
+    """Rows (boxes, scores, classes) of got against want: counts within 2
+    (threshold-edge flips), each wanted row within 0.5 px and 1e-3 score.
+    Returns (n_want, n_got, unmatched)."""
+    gb, gs, gc = got
+    wb, ws, wc = want
+    used = np.zeros(len(gb), bool)
+    unmatched = 0
+    for b, s, c in zip(wb, ws, wc):
+        if not len(gb):
+            unmatched += 1
+            continue
+        d = np.abs(gb - b).max(1) + 1e3 * (gc != c)
+        j = int(np.argmin(d + 1e6 * used))
+        if d[j] < 0.5 and abs(gs[j] - s) < 1e-3:
+            used[j] = True
+        else:
+            unmatched += 1
+    return len(wb), len(gb), unmatched
+
+
+def rows_of(out, end2end, conf, i=0):
+    if end2end:
+        r = out[i]
+        r = r[r[:, 4] > conf]
+        return r[:, :4], r[:, 4], r[:, 5].astype(int)
+    v = out.valid[i]
+    return out.boxes[i][v], out.scores[i][v], out.classes[i][v]
+
+
+def build_tasks(dev, state, **cfg):
+    from yolosharp_tpu_torch import Config, YoloSize, YoloTask
+
+    tasks = {}
+    for e2e in (False, True):
+        task = YoloTask(Config(yolo_size=YoloSize.s, number_class=80,
+                               end2end=e2e, nms_pre_topk=512, **cfg),
+                        device=dev)
+        net = task.task._ensure_variables()
+        net.load_state_dict({k: v for k, v in state.items()
+                             if e2e or "one2one" not in k}, strict=True)
+        tasks[e2e] = task
+    return tasks
+
+
+def phase_slice(dev):
+    """v8s-640, nc=80, bf16 (the Config default), seeded weights: a few
+    image_predict and batch_predict requests in both End2End modes."""
+    from yolosharp_tpu_torch import Config, YoloSize, YoloTask
+    from yolosharp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+    from yolosharp_tpu_torch.loss import flatten_levels
+
+    print("phase 3: v8s-640 nc=80 YoloTask on cuda, bf16, seeded weights",
+          flush=True)
+    master = YoloTask(Config(yolo_size=YoloSize.s, number_class=80,
+                             end2end=True), device=dev)
+    net = master.task._ensure_variables()
+    seed_weights(net)
+    state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    tasks = build_tasks(dev, state)
+
+    singles = [synthetic_images(1, 640, 640, 10)[0],
+               synthetic_images(1, 480, 640, 11)[0],
+               synthetic_images(1, 500, 375, 12)[0]]    # not a multiple of 32
+    batch = synthetic_images(32, 640, 640, 20)
+
+    # conf: every image of the batch has at most CANDIDATES above it
+    det = tasks[False].task
+    x = torch.from_numpy(np.stack(batch)).to(dev).permute(0, 3, 1, 2)
+    x = (x.float() / 255.0).to(det.dtype).contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        preds = det._predict_variables()(x)
+    flat = flatten_levels(preds["one2many"]["cls"]).float().sigmoid()
+    flat = flat.amax(-1).cpu().numpy()
+    a = flat.shape[1]
+    conf = float(np.quantile(flat, 1 - CANDIDATES / a, axis=1).max())
+    counts = (flat > conf).sum(1)
+    print(f"  conf {conf:.6f}: candidates per image min {counts.min()} mean "
+          f"{counts.mean():.1f} max {counts.max()} of {a} anchors", flush=True)
+    del preds, x
+
+    launches = {}
+    for e2e, task in tasks.items():
+        mode = "end2end" if e2e else "nms"
+        task.image_predict(singles[0], conf)        # fold + warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for img in singles:
+            t0 = time.perf_counter()
+            res = task.image_predict(img, conf)
+            ms = (time.perf_counter() - t0) * 1e3
+            print(f"  [{mode}] image_predict {img.shape[0]}x{img.shape[1]}: "
+                  f"{len(res)} detections, {ms:.2f} ms", flush=True)
+            if not res:
+                raise SystemExit(f"[{mode}] image_predict found nothing")
+        for rep in range(3):
+            t0 = time.perf_counter()
+            res = task.batch_predict(batch, conf)
+            s = time.perf_counter() - t0
+            n = [len(r) for r in res]
+            print(f"  [{mode}] batch_predict {len(batch)}x640x640 #{rep}: "
+                  f"detections per image min {min(n)} mean {np.mean(n):.1f} "
+                  f"max {max(n)}, {s * 1e3:.2f} ms, {len(batch) / s:.1f} "
+                  f"img/s", flush=True)
+            if len(res) != len(batch) or min(n) == 0 or not all(
+                    np.isfinite([r.score, r.center_x, r.center_y, r.width,
+                                 r.height]).all() for rs in res for r in rs):
+                raise SystemExit(f"[{mode}] batch_predict results are wrong")
+        counts = launch_counts()
+        print(f"  [{mode}] kernel launches: {counts}", flush=True)
+        for name, cnt in counts.items():
+            if cnt <= 0:
+                raise SystemExit(f"{name} was not launched in {mode} predict")
+            launches[name] = launches.get(name, 0) + cnt
+    # truncation is checked per request: the NMS pool (512) held every
+    # candidate
+    out = tasks[False].task._predict_fn(
+        tasks[False].task._predict_variables(),
+        torch.from_numpy(np.stack(batch)).to(dev), conf, 0.7)
+    if bool(out.truncated.any()):
+        raise SystemExit("NMS candidate pool truncated")
+    print(f"  truncated: False for all {len(batch)} images", flush=True)
+    return launches, state, conf
+
+
+def phase_cpu_match(dev, state, conf):
+    """The same model, float32, one 640x640 image: the card against the
+    CPU's plain versions."""
+    from yolosharp_tpu_torch import ScalarType
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from yolosharp_tpu_torch.tasks import _to_host
+
+    print("phase 4: float32 on the card against float32 on the CPU "
+          "(plain versions)", flush=True)
+    img = torch.from_numpy(synthetic_images(1, 640, 640, 30)[0][None])
+    cuda = build_tasks(dev, state, scalar_type=ScalarType.float32)
+    cpu = build_tasks("cpu", {k: v.cpu() for k, v in state.items()},
+                      scalar_type=ScalarType.float32)
+    for e2e in (False, True):
+        c = 0.0 if e2e else conf
+        reset_launch_counts()
+        got = _to_host(cuda[e2e].task._predict_fn(
+            cuda[e2e].task._predict_variables(), img.to(dev), c, 0.7))
+        used = launch_counts()
+        want = _to_host(cpu[e2e].task._predict_fn(
+            cpu[e2e].task._predict_variables(), img, c, 0.7))
+        n_want, n_got, unmatched = match(rows_of(got, e2e, conf),
+                                         rows_of(want, e2e, conf))
+        mode = "end2end" if e2e else "nms"
+        print(f"  [{mode}] cpu {n_want} detections, card {n_got}, unmatched "
+              f"{unmatched} (kernel launches on the card: {used})",
+              flush=True)
+        if n_want < 5 or abs(n_got - n_want) > 2 or unmatched > 2:
+            raise SystemExit(f"[{mode}] card and CPU disagree")
+        if min(used.values()) <= 0:
+            raise SystemExit(f"[{mode}] a kernel did not run in float32")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(card(), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    from yolosharp_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    for name in ("conv3x3", "c2f"):
+        build.load(name)
+    print(f"phase 1: built kernels from {build.SRC_DIR} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in build.build_logs.items():
+        print(f"  nvcc {name}:\n" + "\n".join(
+            "    " + ln for ln in log.strip().splitlines()), flush=True)
+
+    stats = phase_kernels(dev)
+    launches, state, conf = phase_slice(dev)
+    phase_cpu_match(dev, state, conf)
+
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches[name]}
+        entry.update(stats[name])
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,130 @@
+"""The port's CUDA kernels and its predict on a CUDA card. Every test here
+needs the card: it skips without one. The file imports no JAX (the GPU
+machine has none), so it runs there with
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yolosharp_tpu_torch import Config, ScalarType, YoloSize, YoloTask
+from yolosharp_tpu_torch.kernels import (c2f_fused, c2f_plain, conv3x3_plain,
+                                         conv3x3_silu, conv3x3s2_silu,
+                                         launch_counts, reset_launch_counts)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(rng, *shape, scale=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * scale)
+                            .astype(np.float32))
+
+
+# float32: another summation order; bf16: one rounding vs the plain
+# version's per-op roundings (max error relative to the largest value)
+TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": 1e-2}
+
+
+def _check(got, want, dtype):
+    got, want = got.float(), want.float()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, **TOL[dtype])
+    else:
+        rel = (got - want).abs().max() / want.abs().max()
+        assert rel < TOL[dtype], float(rel)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 17, 23, 3, 16), (1, 40, 40, 64, 96),
+                                   (3, 9, 33, 20, 70)])
+def test_conv_kernels_match_plain_on_ragged_shapes(cuda, dtype, shape):
+    B, H, W, ci, co = shape
+    rng = np.random.default_rng(sum(shape))
+    dt = getattr(torch, dtype)
+    x = _rand(rng, B, H, W, ci).to(cuda, dt)
+    w = _rand(rng, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(cuda, dt)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    for act in ("silu", "relu", "identity"):
+        _check(conv3x3_silu(x, w, b, act), conv3x3_plain(x, w, b, act, 1),
+               dtype)
+        _check(conv3x3s2_silu(x, w, b, act), conv3x3_plain(x, w, b, act, 2),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 21, 19, 48, 32, 40),
+                                   (1, 13, 11, 200, 128, 96)])
+def test_c2f_kernel_matches_plain_on_ragged_shapes(cuda, dtype, shape):
+    B, H, W, cin, c, c2 = shape
+    rng = np.random.default_rng(sum(shape))
+    args = [_rand(rng, B, H, W, cin), _rand(rng, cin, 2 * c, scale=cin ** -0.5),
+            _rand(rng, 2 * c, scale=0.1),
+            _rand(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
+            _rand(rng, c, scale=0.1),
+            _rand(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
+            _rand(rng, c, scale=0.1), _rand(rng, 3 * c, c2, scale=(3 * c) ** -0.5),
+            _rand(rng, c2, scale=0.1)]
+    args = [a.to(cuda, getattr(torch, dtype)) for a in args]
+    got = c2f_fused(*args)
+    want = c2f_plain(*args)
+    if dtype == "float32":
+        _check(got, want, dtype)
+    else:   # four layers round to bf16 at different points
+        assert (got.float() - want.float()).abs().max() \
+            / want.float().abs().max() < 2e-2
+
+
+def test_kernels_reject_what_they_cannot_take(cuda):
+    x = torch.zeros(1, 8, 8, 4, device=cuda)
+    w = torch.zeros(3, 3, 4, 8, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        conv3x3_silu(x.half(), w.half(), b.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_silu(x.transpose(1, 2), w, b)
+    with pytest.raises(ValueError):
+        conv3x3_silu(x, w[:, :, :2], b)
+    with pytest.raises(ValueError):
+        conv3x3_silu(x, w, b.cpu())
+
+
+@pytest.mark.parametrize("end2end", [False, True])
+def test_predict_on_the_card_matches_the_cpu(cuda, end2end):
+    """v8n float32: the card's predict (through the kernels) against the
+    CPU's (through the plain versions), same seeded weights."""
+    cfg = Config(yolo_size=YoloSize.n, number_class=17, end2end=end2end,
+                 scalar_type=ScalarType.float32)
+    cpu = YoloTask(cfg, device="cpu")
+    net = cpu.task._ensure_variables()
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(".conv.weight"):
+                p.mul_(2.5)
+            elif ".2." in name and name.startswith("model.22."):
+                p.copy_(torch.from_numpy(rng.uniform(-0.3, 0.3, p.shape)
+                                         .astype(np.float32)))
+    card = YoloTask(cfg, device=cuda)
+    card.task._ensure_variables().load_state_dict(net.state_dict())
+    img = rng.integers(0, 255, (200, 264, 3), dtype=np.uint8)
+    reset_launch_counts()
+    got = card.image_predict(img, 0.5, 0.45)
+    assert min(launch_counts().values()) > 0
+    want = cpu.image_predict(img, 0.5, 0.45)
+    assert len(want) > 5 and abs(len(got) - len(want)) <= 2
+    key = lambda r: (-r.score, r.center_x, r.center_y)  # noqa: E731
+    for g, w in zip(sorted(got, key=key)[:10], sorted(want, key=key)[:10]):
+        assert g.class_id == w.class_id and abs(g.score - w.score) < 1e-3
+        assert abs(g.center_x - w.center_x) <= 1
+        assert abs(g.center_y - w.center_y) <= 1

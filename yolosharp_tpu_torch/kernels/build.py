@@ -1,0 +1,106 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, cached under
+``yolosharp_tpu_torch/_build/`` by a hash of the sources and flags, and
+loaded with ``ctypes``. A missing ``nvcc`` or a failed compile raises with
+the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# compiler output of each build in this process (ptxas register / spill /
+# shared-memory report), for chip_smoke.py to print
+build_logs: Dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then $PATH, then /usr/local/cuda/bin."""
+    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+             if os.environ.get("CUDA_HOME") else None,
+             shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for cand in cands:
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of yolosharp_tpu_torch are "
+        "compiled from yolosharp_tpu_torch/csrc on first use and need the "
+        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def launch_args(name: str, *tensors):
+    """Check what every CUDA kernel of the port takes (one CUDA device, one
+    dtype of float32 / bfloat16, contiguous, 16-byte aligned) and return
+    (dtype code, current stream handle). Raises on anything else."""
+    x = tensors[0]
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
+                         f"{x.device}")
+    code = DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"{name}: takes float32 or bfloat16, got {x.dtype}")
+    for t in tensors:
+        if t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(f"{name}: all tensors must be {x.dtype} on "
+                             f"{x.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous "
+                             f"(shape {tuple(t.shape)}, "
+                             f"strides {t.stride()})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    return code, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def check_status(name: str, status: int) -> None:
+    """Raise on the CUDA error code a kernel entry point returned."""
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError {status}")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
+    if name in _libs:
+        return _libs[name]
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(SRC_DIR.glob("*.cuh"))]:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        build_logs[name] = proc.stdout + proc.stderr
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    _libs[name] = lib
+    return lib

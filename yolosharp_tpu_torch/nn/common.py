@@ -1,0 +1,183 @@
+"""Conv / CSP building blocks of the v8 detector as torch modules
+(counterpart of yolosharp_tpu/nn/common.py, v8 subset).
+
+Modules run NCHW tensors in ``torch.channels_last`` memory, so
+``x.permute(0, 2, 3, 1)`` is a free NHWC view for the kernels. Submodule
+names follow the Ultralytics state dict (``conv``, ``bn``, ``cv1``, ``m.0``
+...), so checkpoints load with ``load_state_dict(strict=True)``.
+
+Two forward modes, as in the JAX package:
+- plain: ``Conv2d`` + ``BatchNorm2d`` (eps 1e-3, momentum 0.03) + activation,
+  in train or eval BN mode;
+- folded (after ``ckpt.fuse.fold_bn``): BN is folded into the conv weights
+  and becomes a bias. Then every 3x3 ConvBN the conv kernel takes, and every
+  C2f the fused C2f kernel takes, runs through those kernels; on CPU tensors
+  the kernels' wrappers run their plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import c2f as c2f_kernel
+from ..kernels import conv3x3
+
+ACTS = {"silu": F.silu, "relu": F.relu, "identity": lambda x: x}
+
+
+def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
+    if d > 1:
+        k = d * (k - 1) + 1
+    return k // 2 if p is None else p
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NHWC view of an NCHW tensor, made contiguous when it is a channel
+    slice (the C2f split) or not channels-last."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+class ConvBN(nn.Module):
+    """Conv + BatchNorm + activation (the reference's Convs.Conv)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 p: Optional[int] = None, g: int = 1, d: int = 1,
+                 act: str = "silu"):
+        super().__init__()
+        self.k, self.s, self.p, self.g, self.d = k, s, autopad(k, p, d), g, d
+        self.act = act
+        self.conv = nn.Conv2d(c1, c2, k, s, self.p, dilation=d, groups=g,
+                              bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
+        # folded weight (HWIO when the 3x3 kernel takes this conv, OIHW
+        # otherwise) and bias, set by ckpt.fuse.fold_bn; not checkpointed
+        self.register_buffer("w_fold", None, persistent=False)
+        self.register_buffer("b_fold", None, persistent=False)
+
+    @property
+    def kernel_route(self) -> bool:
+        return conv3x3.supported(self.k, self.s, self.p, self.d, self.g)
+
+    def set_folded(self, w_oihw: torch.Tensor, bias: torch.Tensor) -> None:
+        """Store folded weights in the layout this conv's route reads."""
+        self.w_fold = (w_oihw.permute(2, 3, 1, 0).contiguous()
+                       if self.kernel_route else w_oihw.contiguous())
+        self.b_fold = bias.contiguous()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.b_fold is None:
+            return ACTS[self.act](self.bn(self.conv(x)))
+        if self.kernel_route:
+            fn = conv3x3.conv3x3_silu if self.s == 1 else conv3x3.conv3x3s2_silu
+            return fn(_nhwc(x), self.w_fold, self.b_fold,
+                      self.act).permute(0, 3, 1, 2)
+        y = F.conv2d(x, self.w_fold, self.b_fold, self.s, self.p, self.d,
+                     self.g)
+        return ACTS[self.act](y)
+
+
+class Bottleneck(nn.Module):
+    """Standard bottleneck (Block.cs:572-608)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
+                 k: Tuple[int, int] = (3, 3), e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, k[0], 1)
+        self.cv2 = ConvBN(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Fast CSP bottleneck with n cascaded splits (Block.cs:371-399)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBN((2 + n) * self.c, c2, 1)
+        # e=1.0 matches the reference's C# argument-order quirk
+        # (Block.cs:383 `e = 1.0f` inside the ctor call)
+        self.m = nn.ModuleList(
+            Bottleneck(self.c, self.c, shortcut, g, (3, 3), 1.0)
+            for _ in range(n))
+        self.kernel_route = c2f_kernel.c2f_supported(n, shortcut, g, c1,
+                                                     self.c, c2)
+        # kernel-layout weights packed by ckpt.fuse.fold_bn: w1 (Cin, 2c),
+        # wm1 / wm2 (3, 3, c, c), w2 (3c, C2) and their biases
+        self.fused_weights: Tuple[str, ...] = ()
+
+    def pack_folded(self) -> None:
+        """After the child ConvBNs are folded: pack the kernel's weights."""
+        if not self.kernel_route:
+            return
+        cv1, cv2, m = self.cv1, self.cv2, self.m[0]
+        packed = {
+            "w1": cv1.w_fold.flatten(1).t(), "b1": cv1.b_fold,
+            "wm1": m.cv1.w_fold, "bm1": m.cv1.b_fold,
+            "wm2": m.cv2.w_fold, "bm2": m.cv2.b_fold,
+            "w2": cv2.w_fold.flatten(1).t(), "b2": cv2.b_fold,
+        }
+        for name, t in packed.items():
+            self.register_buffer(f"k_{name}", t.contiguous(), persistent=False)
+        self.fused_weights = tuple(f"k_{n}" for n in packed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused_weights:
+            args = [getattr(self, n) for n in self.fused_weights]
+            return c2f_kernel.c2f_fused(_nhwc(x), *args).permute(0, 3, 1, 2)
+        y = list(self.cv1(x).split(self.c, dim=1))
+        for m in self.m:
+            y.append(m(y[-1]))
+        return self.cv2(torch.cat(y, 1))
+
+
+def max_pool_same(x: torch.Tensor, k: int, s: int = 1) -> torch.Tensor:
+    """MaxPool with torch 'pad k//2' semantics (pads with -inf)."""
+    return F.max_pool2d(x, k, s, k // 2)
+
+
+class SPPF(nn.Module):
+    """SPP-Fast: chained max pools (Block.cs:236-285). The reference's cv1
+    has identity activation (Block.cs:257), kept for output parity."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5, n: int = 3):
+        super().__init__()
+        c_ = c1 // 2
+        self.k, self.n = k, n
+        self.cv1 = ConvBN(c1, c_, 1, 1, act="identity")
+        self.cv2 = ConvBN(c_ * (n + 1), c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = [self.cv1(x)]
+        for _ in range(self.n):
+            y.append(max_pool_same(y[-1], self.k))
+        return self.cv2(torch.cat(y, 1))
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample (exact torch Upsample nearest)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class Upsample(nn.Module):
+    """Parameter-free layer placeholder for upsample2x."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return upsample2x(x)
+
+
+class Concat(nn.Module):
+    """Parameter-free layer placeholder: channel concat with a skip."""
+
+    def forward(self, xs) -> torch.Tensor:
+        return torch.cat(xs, 1)

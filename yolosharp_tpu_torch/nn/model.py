@@ -1,0 +1,142 @@
+"""Model assembly for the v8 detector (counterpart of
+yolosharp_tpu/nn/model.py: _v8_layers, build_arch, YoloNet).
+
+Layers live in ``self.model`` (an ``nn.ModuleList`` with parameter-free
+placeholders at the Upsample and Concat indices), so state-dict keys read
+``model.{i}.…`` as in Ultralytics checkpoints; the v8 head is index 22.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .common import C2f, Concat, ConvBN, SPPF, Upsample
+from .heads import DFL, Detect
+
+
+class ArchCfg(NamedTuple):
+    """Static architecture configuration."""
+
+    version: str = "v8"
+    size: str = "n"
+    task: str = "detect"
+    nc: int = 80
+    reg_max: int = 16
+    end2end: bool = False
+
+
+def _widths(wm: float, max_channels: Optional[int]) -> Tuple[int, ...]:
+    base = (64, 128, 256, 512, 1024)
+    if max_channels is None:
+        return tuple(int(w * wm) for w in base)
+    return tuple(min(int(w * wm), max_channels) for w in base)
+
+
+def _v8_layers(size: str):
+    """(layers, out_idx, concat_idx, widths) of the v8 backbone + neck.
+    Each layer is a constructor taking the input channels, or "up" / "cat"."""
+    dm, wm, maxc = {
+        "n": (0.34, 0.25, 1024), "s": (0.34, 0.5, 1024),
+        "m": (0.67, 0.75, 576), "l": (1.0, 1.0, 512), "x": (1.0, 1.25, 640),
+    }[size]
+    w = _widths(wm, maxc)
+    d = tuple(int(x * dm) for x in (3, 6, 9))
+
+    def conv(c2, k, s):
+        return lambda c1: ConvBN(c1, c2, k, s)
+
+    def c2f(c2, n, shortcut=False):
+        return lambda c1: C2f(c1, c2, n, shortcut)
+
+    layers = [
+        conv(w[0], 3, 2), conv(w[1], 3, 2), c2f(w[1], d[0], True),
+        conv(w[2], 3, 2), c2f(w[2], d[1], True),
+        conv(w[3], 3, 2), c2f(w[3], d[1], True),
+        conv(w[4], 3, 2), c2f(w[4], d[0], True),
+        lambda c1: SPPF(c1, w[4], 5),
+        "up", "cat", c2f(w[3], d[0]),
+        "up", "cat", c2f(w[2], d[0]),
+        conv(w[2], 3, 2), "cat", c2f(w[3], d[0]),
+        conv(w[3], 3, 2), "cat", c2f(w[4], d[0]),
+    ]
+    return layers, (4, 6, 9, 12, 15, 18, 21), (1, 0, 3, 2), w
+
+
+def build_arch(cfg: ArchCfg):
+    """(layers, out_idx, concat_idx, head) for the detect task."""
+    if cfg.version != "v8" or cfg.task != "detect":
+        raise NotImplementedError(
+            f"the torch port has only v8 detect so far, not "
+            f"{cfg.version} {cfg.task}")
+    layers, out_idx, concat_idx, w = _v8_layers(cfg.size)
+    head = Detect(cfg.nc, cfg.reg_max, (w[2], w[3], w[4]), cfg.end2end)
+    return layers, out_idx, concat_idx, head
+
+
+STRIDES = (8, 16, 32)
+
+
+def init_weights(net: nn.Module, generator: torch.Generator) -> None:
+    """torch.nn.Conv2d's default init (U(+-1/sqrt(fan_in)) for weights and
+    biases, as the JAX package's torch_kernel_init), drawn from
+    `generator`; BatchNorm stays at identity statistics."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, DFL):
+                continue
+            if isinstance(m, nn.Conv2d) and m.weight.requires_grad:
+                fan_in = m.weight[0].numel()
+                bound = 1.0 / math.sqrt(fan_in)
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+
+
+class YoloNet(nn.Module):
+    """v8 detection network. forward(x) takes (B, 3, H, W) in [0, 1] and
+    returns the head's raw maps {"one2many": {"box", "cls"}, ["one2one"]}."""
+
+    def __init__(self, cfg: ArchCfg, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        layers, out_idx, concat_idx, head = build_arch(cfg)
+        self.out_idx, self.concat_idx = set(out_idx), concat_idx
+        mods, chans, outputs = [], 3, []
+        cat_count = 0
+        for i, layer in enumerate(layers):
+            if layer == "up":
+                mods.append(Upsample())
+            elif layer == "cat":
+                mods.append(Concat())
+                chans += outputs[concat_idx[cat_count]]
+                cat_count += 1
+            else:
+                mod = layer(chans)
+                mods.append(mod)
+                chans = mod.cv2.conv.out_channels if hasattr(mod, "cv2") \
+                    else mod.conv.out_channels
+            if i in self.out_idx:
+                outputs.append(chans)
+        mods.append(head)
+        self.model = nn.ModuleList(mods)
+        init_weights(self, generator if generator is not None
+                     else torch.Generator().manual_seed(0))
+
+    def forward(self, x: torch.Tensor, skip_one2many: bool = False):
+        """skip_one2many: End2End predict runs only the one2one towers."""
+        outputs, cat_count = [], 0
+        for i, m in enumerate(self.model):
+            if isinstance(m, Detect):
+                return m(outputs[-3:], skip_one2many=skip_one2many)
+            if isinstance(m, Concat):
+                x = m([x, outputs[self.concat_idx[cat_count]]])
+                cat_count += 1
+            else:
+                x = m(x)
+            if i in self.out_idx:
+                outputs.append(x)
+        raise AssertionError("architecture has no head layer")

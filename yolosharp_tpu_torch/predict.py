@@ -1,0 +1,87 @@
+"""Head-output decoding: DFL + anchors + sigmoid, select-then-decode top-k,
+and the End2End top-k postprocess (counterpart of
+yolosharp_tpu/predict.py, detect subset). Decoding runs in float32 whatever
+the network's dtype, as in the JAX package."""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .loss.losses import flatten_levels
+from .nn.model import STRIDES
+from .ops.anchors import dfl_decode, dist2bbox, make_anchors
+
+
+def _anchors(branch: Dict):
+    shapes = [tuple(m.shape[2:4]) for m in branch["box"]]
+    return make_anchors(shapes, STRIDES, device=branch["box"][0].device)
+
+
+def decode_inference(branch: Dict, *, reg_max: int = 16,
+                     end2end: bool = False) -> torch.Tensor:
+    """Raw head maps -> (B, 4 + nc, A): boxes (xywh, or xyxy when e2e) in
+    image pixels and sigmoided class scores."""
+    anchors, strides = _anchors(branch)
+    dist = dfl_decode(flatten_levels(branch["box"]), reg_max)
+    dbox = dist2bbox(dist, anchors, xywh=not end2end) * strides
+    scores = flatten_levels(branch["cls"]).float().sigmoid()
+    return torch.cat([dbox, scores], -1).transpose(-1, -2)
+
+
+def decode_inference_topk(branch: Dict, *, conf_thres: float, k: int,
+                          reg_max: int = 16
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Select-then-decode: top-k on the RAW class logits, then the DFL and
+    anchor decode of the K selected anchors only (exact: sigmoid is
+    monotone). Returns (pred (B, 4 + nc, K), truncated (B,)), truncated
+    flagging images with more than K above-threshold candidates."""
+    cls_l = flatten_levels(branch["cls"])                  # (B, A, nc)
+    conf_l = cls_l.amax(-1).float()                        # (B, A)
+    k = min(k, conf_l.shape[-1])
+    _, top_idx = conf_l.topk(k, dim=-1)                    # (B, K)
+    ct = torch.tensor(conf_thres, dtype=torch.float32)
+    thr_logit = (torch.log(ct) - torch.log1p(-ct)).to(conf_l.device)
+    truncated = (conf_l > thr_logit).sum(-1) > k
+
+    anchors, strides = _anchors(branch)
+    anc_k, str_k = anchors[top_idx], strides[top_idx]      # (B, K, 2|1)
+
+    def gather(levels):
+        flat = flatten_levels(levels)
+        return flat.gather(1, top_idx[..., None].expand(-1, -1, flat.shape[-1]))
+
+    dist = dfl_decode(gather(branch["box"]), reg_max)      # (B, K, 4)
+    dbox = dist2bbox(dist, anc_k, xywh=True) * str_k
+    scores = gather(branch["cls"]).float().sigmoid()
+    return torch.cat([dbox, scores], -1).transpose(-1, -2), truncated
+
+
+def e2e_postprocess(pred: torch.Tensor, *, nc: int,
+                    max_det: int = 300) -> torch.Tensor:
+    """NMS-free top-k select (Head.cs postprocess/get_topk_index:117-196).
+    pred: (B, A, 4 + nc) with xyxy boxes. Returns (B, min(max_det, A), 6):
+    [x1, y1, x2, y2, score, cls]."""
+    boxes, scores = pred[..., :4], pred[..., 4:4 + nc]
+    b, a, _ = scores.shape
+    k = min(max_det, a)
+    _, ori_index = scores.amax(-1).topk(k, dim=-1)                # (B, K)
+    sel = scores.gather(1, ori_index[..., None].expand(-1, -1, nc))
+    flat_scores, flat_idx = sel.reshape(b, -1).topk(k, dim=-1)
+    anchor_of = ori_index.gather(1, flat_idx // nc)
+    cls_of = (flat_idx % nc).to(pred.dtype)
+    out_boxes = boxes.gather(1, anchor_of[..., None].expand(-1, -1, 4))
+    return torch.cat([out_boxes, flat_scores[..., None], cls_of[..., None]],
+                     -1)
+
+
+def pad_to_multiple(img: torch.Tensor, multiple: int = 32,
+                    value: float = 114.0) -> torch.Tensor:
+    """Bottom/right pad (B, H, W, C) to a stride multiple (Detector.cs:35-41)."""
+    h, w = img.shape[1:3]
+    ph, pw = (-h) % multiple, (-w) % multiple
+    if ph or pw:
+        img = F.pad(img, (0, 0, 0, pw, 0, ph), value=value)
+    return img
