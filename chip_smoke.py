@@ -2,17 +2,24 @@
 
     python3 chip_smoke.py
 
+Two serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused C2f)
+and v12s detection (conv3x3 s1/s2 and the fused attention).
+
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build every CUDA kernel from the
-     sources in yolosharp_tpu_torch/csrc.
-  2. each kernel against its plain PyTorch version at every v8s-640
-     main-path shape (B=2), in float32 (TF32 off for cuDNN and matmul) and
-     bfloat16, with times (CUDA events, turns plain/kernel/kernel/plain).
-  3. the slice: a v8s nc=80 YoloTask on cuda with seeded weights answers
+     sources in yolosharp_tpu_torch/csrc (one nvcc per source, in parallel).
+  2. each kernel against its plain PyTorch version at every shape either
+     path gives it (recorded with forward hooks on the folded v8s and v12s
+     nets: 640x640 for the convs; 640x640, 480x640, 500x375 and 1280x1280
+     for the attention), B=2, in float32 (TF32 off for cuDNN and matmul)
+     and bfloat16, with times (CUDA events, turns plain/kernel/kernel/plain).
+  3. the v8s slice: a v8s nc=80 YoloTask on cuda with seeded weights answers
      image_predict and batch_predict requests, with end2end False and True;
-     every kernel must have launched during it.
-  4. the card's float32 predict of one image against the CPU's float32
-     predict through the plain versions.
+     conv3x3 s1/s2 and c2f_fused must have launched during it.
+  3b. the v12s slice, the same way; conv3x3 s1/s2 and fused_attention must
+     have launched during it.
+  4. / 4b. each path's float32 predict of one image on the card against the
+     CPU's float32 predict through the plain versions.
 
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -24,29 +31,23 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-# (H, W, Ci, Co) of every 3x3 conv on the v8s-640 predict path
-S2_SHAPES = [(640, 640, 3, 32), (320, 320, 32, 64), (160, 160, 64, 128),
-             (80, 80, 128, 256), (40, 40, 256, 512), (80, 80, 128, 128),
-             (40, 40, 256, 256)]
-S1_SHAPES = [(80, 80, 64, 64), (40, 40, 128, 128), (20, 20, 256, 256)]
-for _hw, _ch in ((80, 128), (40, 256), (20, 512)):   # head towers
-    S1_SHAPES += [(_hw, _hw, _ch, 64), (_hw, _hw, 64, 64),
-                  (_hw, _hw, _ch, 128), (_hw, _hw, 128, 128)]
-S1_SHAPES = list(dict.fromkeys(S1_SHAPES))
-# (H, W, Cin, c, C2) of the fused C2f blocks (layers 2 and 8)
-C2F_SHAPES = [(160, 160, 64, 32, 64), (20, 20, 512, 256, 512)]
 BATCH = 2
 CANDIDATES = 300    # above-threshold anchors per image in phase 3 (bench.py:8-13)
-# float32: the kernels sum 9*Ci <= 4608 products in another order than
-# cuDNN; bfloat16: the JAX package's own bf16 criterion (max error / max
-# |reference| < 1e-2, tests/test_pallas_conv.py), doubled for the C2f block,
-# whose four layers round to bf16 at different points in the two versions.
-TOL_F32 = (1e-4, 1e-4)             # atol, rtol
-TOL_BF16 = {"conv": 1e-2, "c2f": 2e-2}
+CONV_CANVAS = (640, 640)
+# the request canvases of phase 3 (500x375 pads to 512x384) and v12s at 1280
+ATTN_CANVASES = ((640, 640), (480, 640), (512, 384), (1280, 1280))
+# float32: the conv kernels sum 9*Ci <= 4608 products in another order than
+# cuDNN; the attention kernel as tests/test_pallas_attention.py. bfloat16:
+# the JAX package's own bf16 criterion (max error / max |reference| < 1e-2,
+# tests/test_pallas_conv.py), doubled for the C2f block, whose four layers
+# round to bf16 at different points in the two versions.
+TOL_F32 = {"conv": (1e-4, 1e-4), "c2f": (1e-4, 1e-4), "attn": (2e-5, 2e-4)}
+TOL_BF16 = {"conv": 1e-2, "c2f": 2e-2, "attn": 1e-2}
 SOURCES = {
     "conv3x3_silu": ("yolosharp_tpu_torch/csrc/conv3x3.cu",
                      "yolosharp_tpu/kernels/conv3x3.py:112"),
@@ -54,7 +55,12 @@ SOURCES = {
                        "yolosharp_tpu/kernels/conv3x3.py:198"),
     "c2f_fused": ("yolosharp_tpu_torch/csrc/c2f.cu",
                   "yolosharp_tpu/kernels/c2f.py:138"),
+    "fused_attention": ("yolosharp_tpu_torch/csrc/attention.cu",
+                        "yolosharp_tpu/kernels/attention.py:57"),
 }
+# the kernels each path must launch
+PATHS = {"v8": ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
+         "v12": ("conv3x3_silu", "conv3x3s2_silu", "fused_attention")}
 
 
 def card() -> str:
@@ -90,7 +96,7 @@ def compare(name, got, want, dtype, kind):
     max_abs = float(err.max())
     rel = max_abs / (float(want.abs().max()) + 1e-6)
     if dtype == torch.float32:
-        atol, rtol = TOL_F32
+        atol, rtol = TOL_F32[kind]
         bad = int((err > atol + rtol * want.abs()).sum())
         ok = bad == 0 and bool(torch.isfinite(got).all())
         rule = f"|k-p| <= {atol} + {rtol}|p| ({bad} outside)"
@@ -112,14 +118,68 @@ def f64_errors(got, want, ref64):
     print(f"    vs float64: kernel {k:.3e}, plain {p:.3e}", flush=True)
 
 
+@torch.no_grad()
+def record_shapes(version: str) -> dict:
+    """The shapes each kernel of one path takes, from forward hooks on the
+    folded v{version}s net run at B=1 on the CPU (the routing is the same as
+    on the card; the CPU runs the plain versions and launches nothing):
+    {"s1" / "s2": {(H, W, Ci, Co)}, "c2f": {(H, W, Cin, c, C2)},
+     "attn": {(areas, heads, N, D)}}."""
+    from yolosharp_tpu_torch.ckpt import fold_bn
+    from yolosharp_tpu_torch.nn import AAttn, ArchCfg, C2f, ConvBN, YoloNet
+
+    net = fold_bn(YoloNet(ArchCfg(version=version, size="s", nc=80)).eval())
+    shapes = {"s1": set(), "s2": set(), "c2f": set(), "attn": set()}
+
+    def conv_hook(m, inp, out):
+        _, ci, h, w = inp[0].shape
+        shapes[f"s{m.s}"].add((h, w, ci, m.conv.out_channels))
+
+    def c2f_hook(m, inp, out):
+        _, cin, h, w = inp[0].shape
+        shapes["c2f"].add((h, w, cin, m.c, m.cv2.conv.out_channels))
+
+    def attn_hook(m, inp, out):
+        _, _, h, w = inp[0].shape
+        shapes["attn"].add((m.area, m.num_heads, h * w // m.area,
+                            m.head_dim))
+
+    conv_hooks = []
+    for m in net.modules():
+        if isinstance(m, ConvBN) and m.kernel_route:
+            conv_hooks.append(m.register_forward_hook(conv_hook))
+        elif isinstance(m, C2f) and m.fused_weights:
+            conv_hooks.append(m.register_forward_hook(c2f_hook))
+        elif isinstance(m, AAttn):
+            m.register_forward_hook(attn_hook)
+    canvases = [CONV_CANVAS] + [c for c in ATTN_CANVASES if c != CONV_CANVAS]
+    for h, w in canvases if version == "v12" else canvases[:1]:
+        net(torch.zeros(1, 3, h, w).contiguous(
+            memory_format=torch.channels_last))
+        for hook in conv_hooks:     # convs at 640x640 only
+            hook.remove()
+    return shapes
+
+
 def phase_kernels(dev):
-    from yolosharp_tpu_torch.kernels import (c2f_fused, c2f_plain,
+    from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
+                                             c2f_fused, c2f_plain,
                                              conv3x3_plain, conv3x3_silu,
-                                             conv3x3s2_silu)
+                                             conv3x3s2_silu, fused_attention)
 
     print("phase 2: kernels against their plain versions, B=2", flush=True)
     print("  torch.backends.cudnn.allow_tf32 = False, "
           "torch.backends.cuda.matmul.allow_tf32 = False", flush=True)
+    paths = {v: record_shapes(v) for v in PATHS}
+    union = {}
+    for kind in ("s1", "s2", "c2f", "attn"):
+        tagged = {}
+        for v, shapes in paths.items():
+            for s in shapes[kind]:
+                tagged.setdefault(s, []).append(v)
+        union[kind] = sorted(tagged.items(), key=lambda t: (-t[0][0], t[0]))
+        print(f"  {kind} shapes recorded: " + ", ".join(
+            f"{s} {'+'.join(vs)}" for s, vs in union[kind]), flush=True)
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -130,6 +190,7 @@ def phase_kernels(dev):
                  "shapes": 0} for k in SOURCES}
 
     def record(name, dtype, err, ms, plain_ms):
+        print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
         s = stats[name]
         if dtype == torch.float32:
             s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -142,28 +203,26 @@ def phase_kernels(dev):
             s["shapes"] += 1
 
     for dtype in (torch.float32, torch.bfloat16):
-        for wrapper, stride, shapes in ((conv3x3s2_silu, 2, S2_SHAPES),
-                                        (conv3x3_silu, 1, S1_SHAPES)):
-            for H, W, ci, co in shapes:
+        dt = str(dtype)[6:]
+        for wrapper, stride, shapes in ((conv3x3s2_silu, 2, union["s2"]),
+                                        (conv3x3_silu, 1, union["s1"])):
+            for (H, W, ci, co), vs in shapes:
                 x = randn(BATCH, H, W, ci).to(dtype)
                 w = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype)
                 b = randn(co, scale=0.1).to(dtype)
                 got = wrapper(x, w, b)
                 want = conv3x3_plain(x, w, b, "silu", stride)
                 torch.cuda.synchronize()
-                tag = (f"{wrapper.__name__} {str(dtype)[6:]} "
-                       f"{H}x{W} {ci}->{co}")
+                tag = (f"{wrapper.__name__} {dt} {H}x{W} {ci}->{co} "
+                       f"[{'+'.join(vs)}]")
                 err = compare(tag, got, want, dtype, "conv")
                 if dtype == torch.float32:
                     f64_errors(got, want, conv3x3_plain(
                         x.double(), w.double(), b.double(), "silu", stride))
-                ms, plain_ms = time_pair(
+                record(wrapper.__name__, dtype, err, *time_pair(
                     lambda: conv3x3_plain(x, w, b, "silu", stride),
-                    lambda: wrapper(x, w, b))
-                print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain",
-                      flush=True)
-                record(wrapper.__name__, dtype, err, ms, plain_ms)
-        for H, W, cin, c, c2 in C2F_SHAPES:
+                    lambda: wrapper(x, w, b)))
+        for (H, W, cin, c, c2), vs in union["c2f"]:
             args = [randn(BATCH, H, W, cin), randn(cin, 2 * c, scale=cin ** -0.5),
                     randn(2 * c, scale=0.1),
                     randn(3, 3, c, c, scale=(9 * c) ** -0.5), randn(c, scale=0.1),
@@ -173,15 +232,34 @@ def phase_kernels(dev):
             got = c2f_fused(*args)
             want = c2f_plain(*args)
             torch.cuda.synchronize()
-            tag = f"c2f_fused {str(dtype)[6:]} {H}x{W} {cin}/{c}/{c2}"
+            tag = f"c2f_fused {dt} {H}x{W} {cin}/{c}/{c2} [{'+'.join(vs)}]"
             err = compare(tag, got, want, dtype, "c2f")
             if dtype == torch.float32:
                 f64_errors(got, want, c2f_plain(*[a.double() for a in args]))
-            ms, plain_ms = time_pair(lambda: c2f_plain(*args),
-                                     lambda: c2f_fused(*args))
-            print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain",
-                  flush=True)
-            record("c2f_fused", dtype, err, ms, plain_ms)
+            record("c2f_fused", dtype, err, *time_pair(
+                lambda: c2f_plain(*args), lambda: c2f_fused(*args)))
+        for (areas, nh, n, d), vs in union["attn"]:
+            # as AAttn hands them over: strided q, k, v of one (B, N, H, 3D)
+            # qkv tensor, B = BATCH images x areas
+            qkv = randn(BATCH * areas, n, nh, 3 * d).to(dtype)
+            q, k, v = qkv.split(d, dim=-1)
+            bhnd = [t.transpose(1, 2) for t in (q, k, v)]
+            scale = d ** -0.5
+            got = attention_bihd(q, k, v, scale)
+            want = attention_plain(*bhnd, scale).transpose(1, 2)
+            got_c = fused_attention(*[t.contiguous() for t in bhnd], scale)
+            torch.cuda.synchronize()
+            tag = (f"fused_attention {dt} ({BATCH * areas}, {nh}, {n}, {d}) "
+                   f"[{'+'.join(vs)}]")
+            err = compare(tag, got, want, dtype, "attn")
+            compare(tag + " contiguous (B, H, N, D)", got_c,
+                    want.transpose(1, 2), dtype, "attn")
+            if dtype == torch.float32:
+                f64_errors(got, want, attention_plain(
+                    *[t.double() for t in bhnd], scale).transpose(1, 2))
+            record("fused_attention", dtype, err, *time_pair(
+                lambda: attention_plain(*bhnd, scale),
+                lambda: attention_bihd(q, k, v, scale)))
     return stats
 
 
@@ -201,30 +279,33 @@ def synthetic_images(n, h, w, seed):
 def seed_weights(net, seed: int = 3):
     """Random weights that give NMS-visible detections, the recipe of
     tests/test_golden_bus_predict.py:115-137: ConvBN kernels x2.5, the
-    head's final convs re-drawn from U(-0.3, 0.3), and BN statistics
-    jittered so that folding does real work."""
+    head's final convs re-drawn from U(-0.3, 0.3), and BN statistics (and
+    the conv biases of biased ConvBNs) jittered so that folding does real
+    work."""
     from yolosharp_tpu_torch.ckpt import clone_one2one
     from yolosharp_tpu_torch.nn import ConvBN
 
     rng = np.random.default_rng(seed)
 
-    def draw(t, fn):
-        t.copy_(torch.from_numpy(fn(t.shape).astype(np.float32)))
+    def noise(t, fn):
+        return torch.from_numpy(fn(t.shape).astype(np.float32)).to(t)
 
     for m in net.modules():
         if isinstance(m, ConvBN):
             m.conv.weight.mul_(2.5)
-            c = m.bn.num_features
-            m.bn.running_mean.add_(torch.from_numpy(
-                rng.normal(0, 0.05, c).astype(np.float32)).to(m.bn.running_mean))
-            m.bn.running_var.mul_(torch.from_numpy(
-                rng.uniform(0.8, 1.5, c).astype(np.float32)).to(
-                    m.bn.running_var)).add_(0.02)
+            if m.conv.bias is not None:
+                m.conv.bias.add_(noise(m.conv.bias,
+                                       lambda s: rng.normal(0, 0.1, s)))
+            m.bn.running_mean.add_(noise(m.bn.running_mean,
+                                         lambda s: rng.normal(0, 0.05, s)))
+            m.bn.running_var.mul_(noise(m.bn.running_var,
+                                        lambda s: rng.uniform(0.8, 1.5, s))
+                                  ).add_(0.02)
     head = net.model[-1]
     for tower in (head.cv2, head.cv3):
         for branch in tower:
             for p in (branch[2].weight, branch[2].bias):
-                draw(p, lambda s: rng.uniform(-0.3, 0.3, s))
+                p.copy_(noise(p, lambda s: rng.uniform(-0.3, 0.3, s)))
     clone_one2one(net)
 
 
@@ -258,12 +339,13 @@ def rows_of(out, end2end, conf, i=0):
     return out.boxes[i][v], out.scores[i][v], out.classes[i][v]
 
 
-def build_tasks(dev, state, **cfg):
-    from yolosharp_tpu_torch import Config, YoloSize, YoloTask
+def build_tasks(dev, version, state, **cfg):
+    from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
 
     tasks = {}
     for e2e in (False, True):
-        task = YoloTask(Config(yolo_size=YoloSize.s, number_class=80,
+        task = YoloTask(Config(yolo_type=YoloType(version),
+                               yolo_size=YoloSize.s, number_class=80,
                                end2end=e2e, nms_pre_topk=512, **cfg),
                         device=dev)
         net = task.task._ensure_variables()
@@ -273,22 +355,25 @@ def build_tasks(dev, state, **cfg):
     return tasks
 
 
-def phase_slice(dev):
-    """v8s-640, nc=80, bf16 (the Config default), seeded weights: a few
-    image_predict and batch_predict requests in both End2End modes."""
-    from yolosharp_tpu_torch import Config, YoloSize, YoloTask
+def phase_slice(dev, version):
+    """{version}s-640, nc=80, bf16 (the Config default), seeded weights: a
+    few image_predict and batch_predict requests in both End2End modes.
+    Returns (launches of the path's kernels, state dict, conf)."""
+    from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
     from yolosharp_tpu_torch.kernels import (launch_counts,
                                              reset_launch_counts)
     from yolosharp_tpu_torch.loss import flatten_levels
 
-    print("phase 3: v8s-640 nc=80 YoloTask on cuda, bf16, seeded weights",
-          flush=True)
-    master = YoloTask(Config(yolo_size=YoloSize.s, number_class=80,
+    phase = "3" if version == "v8" else "3b"
+    print(f"phase {phase}: {version}s-640 nc=80 YoloTask on cuda, bf16, "
+          f"seeded weights", flush=True)
+    master = YoloTask(Config(yolo_type=YoloType(version),
+                             yolo_size=YoloSize.s, number_class=80,
                              end2end=True), device=dev)
     net = master.task._ensure_variables()
     seed_weights(net)
     state = {k: v.detach().clone() for k, v in net.state_dict().items()}
-    tasks = build_tasks(dev, state)
+    tasks = build_tasks(dev, version, state)
 
     singles = [synthetic_images(1, 640, 640, 10)[0],
                synthetic_images(1, 480, 640, 11)[0],
@@ -313,7 +398,7 @@ def phase_slice(dev):
 
     launches = {}
     for e2e, task in tasks.items():
-        mode = "end2end" if e2e else "nms"
+        mode = f"{version} {'end2end' if e2e else 'nms'}"
         task.image_predict(singles[0], conf)        # fold + warm-up
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -340,10 +425,10 @@ def phase_slice(dev):
                 raise SystemExit(f"[{mode}] batch_predict results are wrong")
         counts = launch_counts()
         print(f"  [{mode}] kernel launches: {counts}", flush=True)
-        for name, cnt in counts.items():
-            if cnt <= 0:
+        for name in PATHS[version]:
+            if counts[name] <= 0:
                 raise SystemExit(f"{name} was not launched in {mode} predict")
-            launches[name] = launches.get(name, 0) + cnt
+            launches[name] = launches.get(name, 0) + counts[name]
     # truncation is checked per request: the NMS pool (512) held every
     # candidate
     out = tasks[False].task._predict_fn(
@@ -355,18 +440,19 @@ def phase_slice(dev):
     return launches, state, conf
 
 
-def phase_cpu_match(dev, state, conf):
+def phase_cpu_match(dev, version, state, conf):
     """The same model, float32, one 640x640 image: the card against the
     CPU's plain versions."""
     from yolosharp_tpu_torch import ScalarType
     from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
     from yolosharp_tpu_torch.tasks import _to_host
 
-    print("phase 4: float32 on the card against float32 on the CPU "
-          "(plain versions)", flush=True)
+    phase = "4" if version == "v8" else "4b"
+    print(f"phase {phase}: {version}s float32 on the card against float32 on "
+          f"the CPU (plain versions)", flush=True)
     img = torch.from_numpy(synthetic_images(1, 640, 640, 30)[0][None])
-    cuda = build_tasks(dev, state, scalar_type=ScalarType.float32)
-    cpu = build_tasks("cpu", {k: v.cpu() for k, v in state.items()},
+    cuda = build_tasks(dev, version, state, scalar_type=ScalarType.float32)
+    cpu = build_tasks("cpu", version, {k: v.cpu() for k, v in state.items()},
                       scalar_type=ScalarType.float32)
     for e2e in (False, True):
         c = 0.0 if e2e else conf
@@ -378,13 +464,13 @@ def phase_cpu_match(dev, state, conf):
             cpu[e2e].task._predict_variables(), img, c, 0.7))
         n_want, n_got, unmatched = match(rows_of(got, e2e, conf),
                                          rows_of(want, e2e, conf))
-        mode = "end2end" if e2e else "nms"
+        mode = f"{version} {'end2end' if e2e else 'nms'}"
         print(f"  [{mode}] cpu {n_want} detections, card {n_got}, unmatched "
               f"{unmatched} (kernel launches on the card: {used})",
               flush=True)
         if n_want < 5 or abs(n_got - n_want) > 2 or unmatched > 2:
             raise SystemExit(f"[{mode}] card and CPU disagree")
-        if min(used.values()) <= 0:
+        if any(used[name] <= 0 for name in PATHS[version]):
             raise SystemExit(f"[{mode}] a kernel did not run in float32")
 
 
@@ -403,17 +489,22 @@ def main() -> int:
     from yolosharp_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    for name in ("conv3x3", "c2f"):
-        build.load(name)
-    print(f"phase 1: built kernels from {build.SRC_DIR} in "
+    names = ("conv3x3", "c2f", "attention")
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(build.load, names))
+    print(f"phase 1: built kernels {names} from {build.SRC_DIR} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.build_logs.items():
         print(f"  nvcc {name}:\n" + "\n".join(
             "    " + ln for ln in log.strip().splitlines()), flush=True)
 
     stats = phase_kernels(dev)
-    launches, state, conf = phase_slice(dev)
-    phase_cpu_match(dev, state, conf)
+    launches = {}
+    for version in PATHS:
+        path_launches, state, conf = phase_slice(dev, version)
+        phase_cpu_match(dev, version, state, conf)
+        for name, n in path_launches.items():
+            launches[name] = launches.get(name, 0) + n
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -1,0 +1,78 @@
+"""The port's attention kernel module (yolosharp_tpu_torch/kernels/attention):
+its plain version, reached through the wrappers on CPU tensors, against the
+JAX package's Pallas ``fused_attention`` (interpret mode) and its
+``attention_bihd``; the wrappers' routing. The CUDA kernel itself is checked
+on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yolosharp_tpu.kernels.attention import attention_bihd as jax_bihd
+from yolosharp_tpu.kernels.attention import fused_attention as jax_fused
+from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
+                                         fused_attention, launch_counts)
+
+# the tolerance of tests/test_pallas_attention.py: float32 sums in another
+# order
+ATOL, RTOL = 2e-5, 2e-4
+
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,h,n,d", [(2, 1, 400, 32), (1, 2, 100, 64),
+                                     (1, 1, 300, 32), (2, 4, 192, 32),
+                                     (1, 4, 300, 32)])
+def test_fused_attention_matches_pallas(b, h, n, d):
+    q, k, v = _qkv((b, h, n, d), n + d)
+    scale = d ** -0.5
+    want = np.asarray(jax_fused(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), scale=scale, block_rows=128,
+                                interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = fused_attention(tq, tk, tv, scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    np.testing.assert_array_equal(got.numpy(),
+                                  attention_plain(tq, tk, tv, scale).numpy())
+
+
+@pytest.mark.parametrize("b,n,h,d", [(2, 35, 2, 32), (1, 99, 3, 16)])
+def test_attention_bihd_matches_jax(b, n, h, d):
+    """(B, N, H, D) layout, with q, k and v strided views of one qkv tensor
+    split per head, as AAttn gives them."""
+    rng = np.random.default_rng(n)
+    qkv = rng.standard_normal((b, n, h, 3 * d)).astype(np.float32)
+    q, k, v = np.split(qkv, 3, axis=-1)
+    scale = d ** -0.5
+    want = np.asarray(jax_bihd(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), scale))
+    tq, tk, tv = torch.from_numpy(qkv).split(d, dim=-1)
+    assert not tq.is_contiguous()
+    got = attention_bihd(tq, tk, tv, scale)
+    assert got.shape == (b, n, h, d)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    before = launch_counts()
+    q, k, v = map(torch.from_numpy, _qkv((1, 2, 50, 16), 0))
+    torch.testing.assert_close(fused_attention(q, k, v, 0.25),
+                               attention_plain(q, k, v, 0.25))
+    attention_bihd(q, k, v, 0.25)
+    assert launch_counts() == before
+
+
+@pytest.mark.parametrize("wrapper", [fused_attention, attention_bihd])
+def test_non_cpu_tensors_never_fall_back(wrapper):
+    """A tensor off the CPU goes to the kernel path, which raises here (a
+    meta tensor is not a CUDA tensor) instead of running the plain
+    version."""
+    q = torch.empty(1, 2, 64, 32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(q, q, q, 0.2)
+    with pytest.raises(ValueError, match="head dim"):
+        wrapper(*(torch.empty(1, 2, 64, 24, device="meta"),) * 3, 0.2)

@@ -9,10 +9,16 @@ import numpy as np
 import pytest
 import torch
 
-from yolosharp_tpu_torch import Config, ScalarType, YoloSize, YoloTask
-from yolosharp_tpu_torch.kernels import (c2f_fused, c2f_plain, conv3x3_plain,
+from yolosharp_tpu_torch import (Config, ScalarType, YoloSize, YoloTask,
+                                 YoloType)
+from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
+                                         c2f_fused, c2f_plain, conv3x3_plain,
                                          conv3x3_silu, conv3x3s2_silu,
-                                         launch_counts, reset_launch_counts)
+                                         fused_attention, launch_counts,
+                                         reset_launch_counts)
+from yolosharp_tpu_torch.loss import flatten_levels
+from yolosharp_tpu_torch.nn import ConvBN
+from yolosharp_tpu_torch.predict import pad_to_multiple
 
 pytestmark = pytest.mark.cuda
 
@@ -85,6 +91,33 @@ def test_c2f_kernel_matches_plain_on_ragged_shapes(cuda, dtype, shape):
             / want.float().abs().max() < 2e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 1, 400, 32), (1, 2, 100, 64),
+                                   (3, 2, 35, 16), (1, 3, 129, 128),
+                                   (2, 4, 1, 32)])
+def test_attention_kernel_matches_plain_on_ragged_shapes(cuda, dtype, shape):
+    """Both wrappers: contiguous (B, H, N, D), and strided (B, N, H, D)
+    views of one qkv tensor as AAttn gives them. N is ragged against the
+    64-row and 64-key tiles."""
+    B, H, N, D = shape
+    rng = np.random.default_rng(sum(shape))
+    dt = getattr(torch, dtype)
+    q, k, v = (_rand(rng, B, H, N, D).to(cuda, dt) for _ in range(3))
+    want = attention_plain(q, k, v, D ** -0.5)
+    got = fused_attention(q, k, v, D ** -0.5)
+    qkv = _rand(rng, B, N, H, 3 * D).to(cuda, dt)
+    sq, sk, sv = qkv.split(D, dim=-1)
+    got_s = attention_bihd(sq, sk, sv, D ** -0.5)
+    want_s = attention_plain(sq.transpose(1, 2), sk.transpose(1, 2),
+                             sv.transpose(1, 2), D ** -0.5).transpose(1, 2)
+    if dtype == "float32":   # the tolerance of tests/test_pallas_attention.py
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-4)
+        torch.testing.assert_close(got_s, want_s, atol=2e-5, rtol=2e-4)
+    else:
+        _check(got, want, dtype)
+        _check(got_s, want_s, dtype)
+
+
 def test_kernels_reject_what_they_cannot_take(cuda):
     x = torch.zeros(1, 8, 8, 4, device=cuda)
     w = torch.zeros(3, 3, 4, 8, device=cuda)
@@ -97,6 +130,14 @@ def test_kernels_reject_what_they_cannot_take(cuda):
         conv3x3_silu(x, w[:, :, :2], b)
     with pytest.raises(ValueError):
         conv3x3_silu(x, w, b.cpu())
+    q = torch.zeros(1, 2, 16, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_attention(q[..., :24], q[..., :24], q[..., :24], 0.2)
+    with pytest.raises(ValueError, match="unit stride"):
+        fused_attention(torch.zeros(1, 2, 32, 16, device=cuda).transpose(
+            2, 3), q, q, 0.2)
+    with pytest.raises(TypeError):
+        fused_attention(q.half(), q.half(), q.half(), 0.2)
 
 
 @pytest.mark.parametrize("end2end", [False, True])
@@ -120,8 +161,55 @@ def test_predict_on_the_card_matches_the_cpu(cuda, end2end):
     img = rng.integers(0, 255, (200, 264, 3), dtype=np.uint8)
     reset_launch_counts()
     got = card.image_predict(img, 0.5, 0.45)
-    assert min(launch_counts().values()) > 0
+    counts = launch_counts()
+    assert min(counts[k] for k in ("conv3x3_silu", "conv3x3s2_silu",
+                                   "c2f_fused")) > 0, counts
     want = cpu.image_predict(img, 0.5, 0.45)
+    assert len(want) > 5 and abs(len(got) - len(want)) <= 2
+    key = lambda r: (-r.score, r.center_x, r.center_y)  # noqa: E731
+    for g, w in zip(sorted(got, key=key)[:10], sorted(want, key=key)[:10]):
+        assert g.class_id == w.class_id and abs(g.score - w.score) < 1e-3
+        assert abs(g.center_x - w.center_x) <= 1
+        assert abs(g.center_y - w.center_y) <= 1
+
+
+@pytest.mark.parametrize("end2end", [False, True])
+def test_v12_predict_on_the_card_matches_the_cpu(cuda, end2end):
+    """v12n float32: the card's predict (through the conv and attention
+    kernels) against the CPU's, same seeded weights."""
+    cfg = Config(yolo_type=YoloType.v12, yolo_size=YoloSize.n,
+                 number_class=17, end2end=end2end,
+                 scalar_type=ScalarType.float32)
+    cpu = YoloTask(cfg, device="cpu")
+    net = cpu.task._ensure_variables()
+    rng = np.random.default_rng(0)
+    head = net.model[21]
+    towers = [head.cv2, head.cv3] + ([head.one2one_cv2, head.one2one_cv3]
+                                     if end2end else [])
+    with torch.no_grad():
+        # x2.5, as for v8, saturates the untrained v12n's scores
+        for m in net.modules():
+            if isinstance(m, ConvBN):
+                m.conv.weight.mul_(2.0)
+        for p in (t for tower in towers for branch in tower
+                  for t in (branch[2].weight, branch[2].bias)):
+            p.copy_(torch.from_numpy(rng.uniform(-0.3, 0.3, p.shape)
+                                     .astype(np.float32)))
+    card = YoloTask(cfg, device=cuda)
+    card.task._ensure_variables().load_state_dict(net.state_dict())
+    img = rng.integers(0, 255, (200, 264, 3), dtype=np.uint8)
+    # conf: ~100 of the 1260 anchors of the 224x288 canvas clear it
+    x = pad_to_multiple(torch.from_numpy(img)[None]).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        preds = cpu.task._predict_variables()(x.float() / 255.0)
+    flat = flatten_levels(preds["one2many"]["cls"]).sigmoid().amax(-1)
+    conf = float(np.quantile(flat.numpy(), 1 - 100 / flat.shape[1]))
+    reset_launch_counts()
+    got = card.image_predict(img, conf, 0.45)
+    counts = launch_counts()
+    assert min(counts[k] for k in ("conv3x3_silu", "conv3x3s2_silu",
+                                   "fused_attention")) > 0, counts
+    want = cpu.image_predict(img, conf, 0.45)
     assert len(want) > 5 and abs(len(got) - len(want)) <= 2
     key = lambda r: (-r.score, r.center_x, r.center_y)  # noqa: E731
     for g, w in zip(sorted(got, key=key)[:10], sorted(want, key=key)[:10]):

@@ -5,10 +5,13 @@ bias_init: the Ultralytics prior the reference intends (Head.cs:129-150):
 box-tower final bias 1.0, class-tower final bias log(5/nc/(640/stride)^2)
 per level, one2one towers included.
 
-fold_bn: kernel' = kernel * gamma/sqrt(var+eps), bias' = beta - mean *
-gamma/sqrt(var+eps), computed once in float32 and stored on the modules in
-the layout their route reads (HWIO for the 3x3 kernel, the packed C2f
-kernel weights); the checkpointed parameters are left as they are.
+fold_bn: kernel' = kernel * mul, bias' = beta + (conv_bias - mean) * mul
+with mul = gamma/sqrt(var+eps) (conv_bias 0 for a conv without one),
+computed once in float32 and stored on the modules in the layout their
+route reads (HWIO for the 3x3 kernel, the packed C2f kernel weights); the
+checkpointed parameters are left as they are. The JAX package's fold_bn
+leaves a conv bias unscaled (beta - mean * mul + conv_bias), which differs
+from the eval-BN forward wherever mul != 1; this one equals it.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ def fold_bn(net: nn.Module) -> nn.Module:
             mul = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
             w = m.conv.weight.float() * mul[:, None, None, None]
             b = bn.bias.float() - bn.running_mean.float() * mul
+            if m.conv.bias is not None:
+                b = b + m.conv.bias.float() * mul
             m.set_folded(w, b)
     for m in net.modules():
         if isinstance(m, C2f):

@@ -48,10 +48,12 @@ def find_nvcc() -> str:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def launch_args(name: str, *tensors):
+def launch_args(name: str, *tensors, strided: bool = False):
     """Check what every CUDA kernel of the port takes (one CUDA device, one
     dtype of float32 / bfloat16, contiguous, 16-byte aligned) and return
-    (dtype code, current stream handle). Raises on anything else."""
+    (dtype code, current stream handle). Raises on anything else.
+    strided: the kernel takes element strides, so instead of contiguity it
+    needs unit stride in the last dimension and 16-byte aligned rows."""
     x = tensors[0]
     if not x.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs CUDA tensors, got "
@@ -63,7 +65,14 @@ def launch_args(name: str, *tensors):
         if t.device != x.device or t.dtype != x.dtype:
             raise ValueError(f"{name}: all tensors must be {x.dtype} on "
                              f"{x.device}, got {t.dtype} on {t.device}")
-        if not t.is_contiguous():
+        if strided:
+            if t.stride(-1) != 1 or any(s * t.element_size() % 16
+                                        for s in t.stride()[:-1]):
+                raise ValueError(f"{name}: tensors need unit stride in the "
+                                 f"last dimension and 16-byte aligned rows "
+                                 f"(shape {tuple(t.shape)}, "
+                                 f"strides {t.stride()})")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous "
                              f"(shape {tuple(t.shape)}, "
                              f"strides {t.stride()})")

@@ -1,0 +1,100 @@
+"""Area-attention blocks of the v12 detector (counterpart of
+yolosharp_tpu/nn/attention.py: AAttn, ABlock, A2C2f).
+
+The attention itself runs ``kernels.attention_bihd``: the hand-written CUDA
+kernel on CUDA tensors, its plain version on CPU tensors. As in the JAX
+package, qkv / proj / pe are the reference's Conv blocks with SiLU (a
+deliberate deviation from Ultralytics, docs/IMPLEMENTATION_STATUS.md), and
+the 7x7 depthwise ``pe`` conv has a conv bias.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..kernels import attention_bihd
+from .common import C3k, ConvBN
+
+
+class AAttn(nn.Module):
+    """Area attention (Block.cs:1029-1118): full attention within `area`
+    chunks of the flattened H*W sequence. The chunks are contiguous runs of
+    the row-major sequence, not spatial tiles; area=1 is global attention.
+    The qkv channels are per head [q | k | v] (channel = head*3hd + slot)."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.area, self.num_heads = area, num_heads
+        self.head_dim = dim // num_heads
+        self.scale = self.head_dim ** -0.5
+        all_dim = self.head_dim * num_heads
+        self.qkv = ConvBN(dim, all_dim * 3, 1)
+        self.proj = ConvBN(all_dim, dim, 1)
+        self.pe = ConvBN(all_dim, dim, 7, 1, 3, g=dim, use_bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        n = h * w
+        if n % self.area:
+            raise ValueError(
+                f"AAttn: {h}x{w} = {n} positions do not split into "
+                f"{self.area} areas (an input canvas that is a multiple of "
+                f"32 always does)")
+        nh, hd = self.num_heads, self.head_dim
+        # NHWC view of the channels-last qkv map, cut into area chunks
+        qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(
+            b * self.area, n // self.area, nh, 3 * hd)
+        q, k, v = qkv.split(hd, dim=-1)
+        out = attention_bihd(q, k, v, self.scale).reshape(b, h, w, c)
+        v_map = v.reshape(b, h, w, c)      # a copy: v is a strided slice
+        nchw = (0, 3, 1, 2)
+        out = out.permute(nchw) + self.pe(v_map.permute(nchw))
+        return self.proj(out)
+
+
+class ABlock(nn.Module):
+    """Area-attention block (Block.cs:991-1020): AAttn and a conv MLP,
+    both residual; both MLP convs have SiLU."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2,
+                 area: int = 1):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.attn = AAttn(dim, num_heads, area)
+        self.mlp = nn.Sequential(ConvBN(dim, hidden, 1), ConvBN(hidden, dim, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """Area-attention C2f (Block.cs:891-983): n pairs of ABlocks
+    (``m.{i}.0`` / ``m.{i}.1``), or n C3k blocks when a2 is False; with
+    a2 and residual, the output is x + gamma * out (gamma starts at 0.01)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True,
+                 area: int = 1, residual: bool = False,
+                 mlp_ratio: float = 2.0, e: float = 0.5, g: int = 1,
+                 shortcut: bool = True):
+        super().__init__()
+        c_ = int(c2 * e)
+        assert c_ % 32 == 0, "A2C2f hidden dim must be a multiple of 32"
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN((1 + n) * c_, c2, 1)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area)
+                            for _ in range(2))) if a2
+            else C3k(c_, c_, 2, shortcut, g) for _ in range(n))
+        self.gamma = (nn.Parameter(torch.full((c2,), 0.01))
+                      if a2 and residual else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = [self.cv1(x)]
+        for m in self.m:
+            y.append(m(y[-1]))
+        out = self.cv2(torch.cat(y, 1))
+        if self.gamma is None:
+            return out
+        return x + self.gamma.to(out.dtype).view(1, -1, 1, 1) * out

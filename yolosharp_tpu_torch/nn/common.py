@@ -1,5 +1,5 @@
-"""Conv / CSP building blocks of the v8 detector as torch modules
-(counterpart of yolosharp_tpu/nn/common.py, v8 subset).
+"""Conv / CSP building blocks of the v8 and v12 detectors as torch modules
+(counterpart of yolosharp_tpu/nn/common.py, plain branches only).
 
 Modules run NCHW tensors in ``torch.channels_last`` memory, so
 ``x.permute(0, 2, 3, 1)`` is a free NHWC view for the kernels. Submodule
@@ -17,6 +17,7 @@ Two forward modes, as in the JAX package:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -46,12 +47,12 @@ class ConvBN(nn.Module):
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, g: int = 1, d: int = 1,
-                 act: str = "silu"):
+                 use_bias: bool = False, act: str = "silu"):
         super().__init__()
         self.k, self.s, self.p, self.g, self.d = k, s, autopad(k, p, d), g, d
         self.act = act
         self.conv = nn.Conv2d(c1, c2, k, s, self.p, dilation=d, groups=g,
-                              bias=False)
+                              bias=use_bias)
         self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         # folded weight (HWIO when the 3x3 kernel takes this conv, OIHW
         # otherwise) and bias, set by ckpt.fuse.fold_bn; not checkpointed
@@ -78,6 +79,16 @@ class ConvBN(nn.Module):
         y = F.conv2d(x, self.w_fold, self.b_fold, self.s, self.p, self.d,
                      self.g)
         return ACTS[self.act](y)
+
+
+class DWConv(ConvBN):
+    """Depthwise conv: groups = gcd(c1, c2). Its groups keep it off the 3x3
+    kernel, so folded it runs F.conv2d."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 d: int = 1, use_bias: bool = False, act: str = "silu"):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), d=d,
+                         use_bias=use_bias, act=act)
 
 
 class Bottleneck(nn.Module):
@@ -135,6 +146,54 @@ class C2f(nn.Module):
         if self.fused_weights:
             args = [getattr(self, n) for n in self.fused_weights]
             return c2f_kernel.c2f_fused(_nhwc(x), *args).permute(0, 3, 1, 2)
+        y = list(self.cv1(x).split(self.c, dim=1))
+        for m in self.m:
+            y.append(m(y[-1]))
+        return self.cv2(torch.cat(y, 1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck, 3 convs (Block.cs:404-442); bottlenecks with e=1.0."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5, k: Tuple[int, int] = (1, 3)):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c1, c_, 1, 1)
+        self.cv3 = ConvBN(2 * c_, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k, 1.0)
+                                 for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C3k(C3):
+    """C3 with (3, 3) bottleneck kernels (Block.cs:611-620)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, (3, 3))
+
+
+class C3k2(nn.Module):
+    """C2f whose inner blocks are C3k or Bottleneck(e=0.5) (Block.cs:623-662).
+    Its bottlenecks are not the fused C2f kernel's (e=1.0), so its 3x3s run
+    one by one through the conv kernel."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False,
+                 e: float = 0.5, g: int = 1, shortcut: bool = True):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBN((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            C3k(self.c, self.c, 2, shortcut, g) if c3k
+            else Bottleneck(self.c, self.c, shortcut, g, (3, 3), 0.5)
+            for _ in range(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = list(self.cv1(x).split(self.c, dim=1))
         for m in self.m:
             y.append(m(y[-1]))

@@ -10,15 +10,24 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
-from .common import ConvBN
+from .common import ConvBN, DWConv
 
 
 class _Branch(nn.Sequential):
-    """Conv-Conv-Conv2d tower ending in `out` channels (legacy v8 form)."""
+    """A tower ending in `out` channels; ``self[2]`` is the final Conv2d.
+    legacy (v8): ConvBN 3x3 -> ConvBN 3x3 -> Conv2d 1x1. Otherwise (v12
+    class towers): (DWConv 3x3 -> ConvBN 1x1) twice -> Conv2d 1x1, with keys
+    ``{i}.0.0`` ... ``{i}.1.1`` as in the JAX tree."""
 
-    def __init__(self, cin: int, mid: int, out: int):
-        super().__init__(ConvBN(cin, mid, 3), ConvBN(mid, mid, 3),
-                         nn.Conv2d(mid, out, 1))
+    def __init__(self, cin: int, mid: int, out: int, legacy: bool = True):
+        if legacy:
+            super().__init__(ConvBN(cin, mid, 3), ConvBN(mid, mid, 3),
+                             nn.Conv2d(mid, out, 1))
+        else:
+            super().__init__(
+                nn.Sequential(DWConv(cin, cin, 3), ConvBN(cin, mid, 1)),
+                nn.Sequential(DWConv(mid, mid, 3), ConvBN(mid, mid, 1)),
+                nn.Conv2d(mid, out, 1))
 
 
 class DFL(nn.Module):
@@ -36,20 +45,24 @@ class DFL(nn.Module):
 
 
 class Detect(nn.Module):
-    """Anchor-free detection head (box DFL + cls towers per level)."""
+    """Anchor-free detection head (box DFL + cls towers per level). The
+    box towers are always legacy; `legacy` picks the class towers' form."""
 
     def __init__(self, nc: int = 80, reg_max: int = 16,
-                 ch: Sequence[int] = (64, 128, 256), end2end: bool = False):
+                 ch: Sequence[int] = (64, 128, 256), legacy: bool = True,
+                 end2end: bool = False):
         super().__init__()
         self.nc, self.reg_max, self.ch = nc, reg_max, tuple(ch)
-        self.end2end = end2end
+        self.legacy, self.end2end = legacy, end2end
         c2, c3 = self.head_dims()
-        self.cv2 = nn.ModuleList(_Branch(c, c2, 4 * reg_max) for c in ch)
-        self.cv3 = nn.ModuleList(_Branch(c, c3, nc) for c in ch)
+
+        def towers():
+            return (nn.ModuleList(_Branch(c, c2, 4 * reg_max) for c in ch),
+                    nn.ModuleList(_Branch(c, c3, nc, legacy) for c in ch))
+
+        self.cv2, self.cv3 = towers()
         if end2end:
-            self.one2one_cv2 = nn.ModuleList(
-                _Branch(c, c2, 4 * reg_max) for c in ch)
-            self.one2one_cv3 = nn.ModuleList(_Branch(c, c3, nc) for c in ch)
+            self.one2one_cv2, self.one2one_cv3 = towers()
         self.dfl = DFL(reg_max)
 
     def head_dims(self):

@@ -1,9 +1,10 @@
-"""Model assembly for the v8 detector (counterpart of
-yolosharp_tpu/nn/model.py: _v8_layers, build_arch, YoloNet).
+"""Model assembly for the v8 and v12 detectors (counterpart of
+yolosharp_tpu/nn/model.py: _v8_layers, _v12_layers, build_arch, YoloNet).
 
 Layers live in ``self.model`` (an ``nn.ModuleList`` with parameter-free
 placeholders at the Upsample and Concat indices), so state-dict keys read
-``model.{i}.…`` as in Ultralytics checkpoints; the v8 head is index 22.
+``model.{i}.…`` as in Ultralytics checkpoints; the head is index 22 (v8)
+or 21 (v12).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from .common import C2f, Concat, ConvBN, SPPF, Upsample
+from .attention import A2C2f
+from .common import C2f, C3k2, Concat, ConvBN, SPPF, Upsample
 from .heads import DFL, Detect
 
 
@@ -66,14 +68,53 @@ def _v8_layers(size: str):
     return layers, (4, 6, 9, 12, 15, 18, 21), (1, 0, 3, 2), w
 
 
+def _v12_layers(size: str):
+    """(layers, out_idx, concat_idx, widths) of the v12 backbone + neck."""
+    dm, wm, maxc, use_c3k, n_mult, residual, mlp_ratio = {
+        "n": (0.5, 0.25, 1024, False, 1, False, 2.0),
+        "s": (0.5, 0.5, 1024, False, 1, False, 2.0),
+        "m": (0.5, 1.0, 512, True, 1, False, 2.0),
+        "l": (1.0, 1.0, 512, True, 2, True, 1.2),
+        "x": (1.0, 1.5, 768, True, 2, True, 1.2),
+    }[size]
+    w = _widths(wm, maxc)
+    ds = int(2 * dm)
+
+    def conv(c2, k, s):
+        return lambda c1: ConvBN(c1, c2, k, s)
+
+    def c3k2(c2, c3k, e=0.5):
+        return lambda c1: C3k2(c1, c2, ds, c3k, e)
+
+    def a2c2f(c2, n, a2, area):
+        return lambda c1: A2C2f(c1, c2, n, a2, area, residual, mlp_ratio)
+
+    layers = [
+        conv(w[0], 3, 2), conv(w[1], 3, 2), c3k2(w[2], use_c3k, 0.25),
+        conv(w[2], 3, 2), c3k2(w[3], use_c3k, 0.25),
+        conv(w[3], 3, 2), a2c2f(w[3], 2 * n_mult, True, 4),
+        conv(w[4], 3, 2), a2c2f(w[4], 2 * n_mult, True, 1),
+        "up", "cat", a2c2f(w[3], n_mult, False, -1),
+        "up", "cat", a2c2f(w[2], n_mult, False, -1),
+        conv(w[2], 3, 2), "cat", a2c2f(w[3], n_mult, False, -1),
+        conv(w[3], 3, 2), "cat", c3k2(w[4], True),
+    ]
+    return layers, (4, 6, 8, 11, 14, 17, 20), (1, 0, 3, 2), w
+
+
+_BUILDERS = {"v8": (_v8_layers, True), "v12": (_v12_layers, False)}
+
+
 def build_arch(cfg: ArchCfg):
     """(layers, out_idx, concat_idx, head) for the detect task."""
-    if cfg.version != "v8" or cfg.task != "detect":
+    if cfg.version not in _BUILDERS or cfg.task != "detect":
         raise NotImplementedError(
-            f"the torch port has only v8 detect so far, not "
+            f"the torch port has only v8 and v12 detect so far, not "
             f"{cfg.version} {cfg.task}")
-    layers, out_idx, concat_idx, w = _v8_layers(cfg.size)
-    head = Detect(cfg.nc, cfg.reg_max, (w[2], w[3], w[4]), cfg.end2end)
+    builder, legacy = _BUILDERS[cfg.version]
+    layers, out_idx, concat_idx, w = builder(cfg.size)
+    head = Detect(cfg.nc, cfg.reg_max, (w[2], w[3], w[4]), legacy,
+                  cfg.end2end)
     return layers, out_idx, concat_idx, head
 
 
@@ -83,7 +124,8 @@ STRIDES = (8, 16, 32)
 def init_weights(net: nn.Module, generator: torch.Generator) -> None:
     """torch.nn.Conv2d's default init (U(+-1/sqrt(fan_in)) for weights and
     biases, as the JAX package's torch_kernel_init), drawn from
-    `generator`; BatchNorm stays at identity statistics."""
+    `generator`; BatchNorm stays at identity statistics and A2C2f's gamma
+    at 0.01."""
     with torch.no_grad():
         for m in net.modules():
             if isinstance(m, DFL):
@@ -97,7 +139,7 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
 
 
 class YoloNet(nn.Module):
-    """v8 detection network. forward(x) takes (B, 3, H, W) in [0, 1] and
+    """v8 / v12 detection network. forward(x) takes (B, 3, H, W) in [0, 1] and
     returns the head's raw maps {"one2many": {"box", "cls"}, ["one2one"]}."""
 
     def __init__(self, cfg: ArchCfg, generator: Optional[torch.Generator] = None):

@@ -47,7 +47,8 @@ def _to_host(out):
 
 
 class Detector:
-    """v8 detection: predict, load and save (YoloTask's detect task)."""
+    """v8 / v12 detection: predict, load and save (YoloTask's detect
+    task)."""
 
     def __init__(self, config: Config, device=None):
         self.config = config
