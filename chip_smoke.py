@@ -12,8 +12,17 @@ Phases (any failure exits non-zero; nothing is caught):
      path gives it (recorded with forward hooks on the folded v8s and v12s
      nets: 640x640 for the convs; 640x640, 480x640, 500x375 and 1280x1280
      for the attention), B=2, in float32 (TF32 off for cuDNN and matmul)
-     and bfloat16, with times (CUDA events, turns plain/kernel/kernel/plain).
-  3. the v8s slice: a v8s nc=80 YoloTask on cuda with seeded weights answers
+     and bfloat16, with times (CUDA events, turns plain/kernel/kernel/plain)
+     and the TFLOP/s each reaches (convs 2*Ho*Wo*9*Ci*Co*B; the C2f block's
+     four GEMMs; attention's two products). bfloat16 takes the tensor-core
+     conv and C2f kernels, float32 their CUDA-core kernels. Then the 640x640
+     shapes again at B=32 in bfloat16, timed, and at last every kernel
+     variant the served requests of phases 3 and 4 take (the bf16 conv's N
+     tile or stem, the C2f block's tile; they depend on the batch) that was
+     not checked yet, at the first request that takes it. Each check prints
+     the variant it ran.
+  3. the v8s slice: a v8s nc=80 YoloTask on cuda with seeded weights times
+     its bf16 batch-32 640x640 network forward (CUDA events) and answers
      image_predict and batch_predict requests, with end2end False and True;
      conv3x3 s1/s2 and c2f_fused must have launched during it.
   3b. the v12s slice, the same way; conv3x3 s1/s2 and fused_attention must
@@ -39,8 +48,16 @@ import torch
 BATCH = 2
 CANDIDATES = 300    # above-threshold anchors per image in phase 3 (bench.py:8-13)
 CONV_CANVAS = (640, 640)
-# the request canvases of phase 3 (500x375 pads to 512x384) and v12s at 1280
-ATTN_CANVASES = ((640, 640), (480, 640), (512, 384), (1280, 1280))
+# the request canvases of phase 3 (500x375 pads to 512x384) and, for the
+# attention only, v12s at 1280
+CANVASES = ((640, 640), (480, 640), (512, 384), (1280, 1280))
+# the batches and canvases of the served requests: phase 3 in bfloat16,
+# phase 4 one 640x640 image in float32
+SERVED_BATCH = 32
+SERVED = {torch.bfloat16: ((SERVED_BATCH, 640, 640), (1, 640, 640),
+                           (1, 480, 640), (1, 512, 384)),
+          torch.float32: ((1, 640, 640),)}
+KINDS = ("s2", "s1", "c2f", "attn")
 # float32: the conv kernels sum 9*Ci <= 4608 products in another order than
 # cuDNN; the attention kernel as tests/test_pallas_attention.py. bfloat16:
 # the JAX package's own bf16 criterion (max error / max |reference| < 1e-2,
@@ -120,16 +137,16 @@ def f64_errors(got, want, ref64):
 
 @torch.no_grad()
 def record_shapes(version: str) -> dict:
-    """The shapes each kernel of one path takes, from forward hooks on the
-    folded v{version}s net run at B=1 on the CPU (the routing is the same as
-    on the card; the CPU runs the plain versions and launches nothing):
-    {"s1" / "s2": {(H, W, Ci, Co)}, "c2f": {(H, W, Cin, c, C2)},
-     "attn": {(areas, heads, N, D)}}."""
+    """The shapes each kernel of one path takes on each canvas, from forward
+    hooks on the folded v{version}s net run at B=1 on the CPU (the routing
+    is the same as on the card; the CPU runs the plain versions and launches
+    nothing): {(h, w): {"s1" / "s2": {(H, W, Ci, Co)},
+    "c2f": {(H, W, Cin, c, C2)}, "attn": {(areas, heads, N, D)}}}."""
     from yolosharp_tpu_torch.ckpt import fold_bn
     from yolosharp_tpu_torch.nn import AAttn, ArchCfg, C2f, ConvBN, YoloNet
 
     net = fold_bn(YoloNet(ArchCfg(version=version, size="s", nc=80)).eval())
-    shapes = {"s1": set(), "s2": set(), "c2f": set(), "attn": set()}
+    shapes = {}
 
     def conv_hook(m, inp, out):
         _, ci, h, w = inp[0].shape
@@ -144,21 +161,38 @@ def record_shapes(version: str) -> dict:
         shapes["attn"].add((m.area, m.num_heads, h * w // m.area,
                             m.head_dim))
 
-    conv_hooks = []
     for m in net.modules():
         if isinstance(m, ConvBN) and m.kernel_route:
-            conv_hooks.append(m.register_forward_hook(conv_hook))
+            m.register_forward_hook(conv_hook)
         elif isinstance(m, C2f) and m.fused_weights:
-            conv_hooks.append(m.register_forward_hook(c2f_hook))
+            m.register_forward_hook(c2f_hook)
         elif isinstance(m, AAttn):
             m.register_forward_hook(attn_hook)
-    canvases = [CONV_CANVAS] + [c for c in ATTN_CANVASES if c != CONV_CANVAS]
-    for h, w in canvases if version == "v12" else canvases[:1]:
+    by_canvas = {}
+    for h, w in CANVASES if version == "v12" else CANVASES[:-1]:
+        # the hooks fill this canvas's sets
+        shapes = by_canvas[(h, w)] = {k: set() for k in KINDS}
         net(torch.zeros(1, 3, h, w).contiguous(
             memory_format=torch.channels_last))
-        for hook in conv_hooks:     # convs at 640x640 only
-            hook.remove()
-    return shapes
+    return by_canvas
+
+
+def variant(kind, dtype, batch, shape, sms) -> str:
+    """What the launch picks for one call, as the wrappers pick it for a
+    card of sms SMs: the bf16 conv's N tile (or its stem kernel) and the
+    C2f block's tile; '' where the kernel is the same for every call."""
+    from yolosharp_tpu_torch.kernels.c2f import launch_tile
+    from yolosharp_tpu_torch.kernels.conv3x3 import n_tile
+
+    bf16 = dtype == torch.bfloat16
+    if kind in ("s1", "s2") and bf16:
+        H, W, ci, co = shape
+        bn = n_tile(batch, H, W, ci, co, int(kind[1]), sms)
+        return f"BN {bn}" if bn else "stem"
+    if kind == "c2f":
+        H, W, _, c, _ = shape
+        return f"c={c} tile {launch_tile(batch, H, W, c, bf16, sms)}"
+    return ""
 
 
 def phase_kernels(dev):
@@ -167,99 +201,152 @@ def phase_kernels(dev):
                                              conv3x3_plain, conv3x3_silu,
                                              conv3x3s2_silu, fused_attention)
 
-    print("phase 2: kernels against their plain versions, B=2", flush=True)
+    print(f"phase 2: kernels against their plain versions: every shape at "
+          f"B={BATCH} in float32 and bfloat16, the batch-32 shapes in "
+          f"bfloat16, then any tile the served requests take that was not "
+          f"checked yet", flush=True)
     print("  torch.backends.cudnn.allow_tf32 = False, "
           "torch.backends.cuda.matmul.allow_tf32 = False", flush=True)
-    paths = {v: record_shapes(v) for v in PATHS}
-    union = {}
-    for kind in ("s1", "s2", "c2f", "attn"):
+    recorded = {v: record_shapes(v) for v in PATHS}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def union(kind, canvases):
+        """[(shape, [paths])] that kind takes on these canvases."""
         tagged = {}
-        for v, shapes in paths.items():
-            for s in shapes[kind]:
-                tagged.setdefault(s, []).append(v)
-        union[kind] = sorted(tagged.items(), key=lambda t: (-t[0][0], t[0]))
+        for v, by_canvas in recorded.items():
+            for cv in canvases:
+                for s in by_canvas.get(cv, {}).get(kind, ()):
+                    tagged.setdefault(s, []).append(v)
+        return sorted(((s, sorted(set(vs), key=list(PATHS).index))
+                       for s, vs in tagged.items()),
+                      key=lambda t: (-t[0][0], t[0]))
+
+    # the convs and the C2f block at 640x640; the attention on every canvas
+    shapes = {k: union(k, CANVASES if k == "attn" else [CONV_CANVAS])
+              for k in KINDS}
+    for kind in KINDS:
         print(f"  {kind} shapes recorded: " + ", ".join(
-            f"{s} {'+'.join(vs)}" for s, vs in union[kind]), flush=True)
-    g = torch.Generator(device="cpu").manual_seed(0)
+            f"{s} {'+'.join(vs)}" for s, vs in shapes[kind]), flush=True)
+    g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=g) * scale).to(dev)
+        return torch.randn(*shape, generator=g, device=dev) * scale
 
     stats = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "ms": 0.0,
                  "plain_ms": 0.0, "ms_f32": 0.0, "plain_ms_f32": 0.0,
-                 "shapes": 0} for k in SOURCES}
+                 "shapes": 0, "ms_b32": 0.0, "plain_ms_b32": 0.0}
+             for k in SOURCES}
+    checked = set()     # (kind, dtype, variant) held against the plain version
 
-    def record(name, dtype, err, ms, plain_ms):
-        print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain", flush=True)
-        s = stats[name]
-        if dtype == torch.float32:
-            s["max_abs_err"] = max(s["max_abs_err"], err)
-            s["ms_f32"] += ms
-            s["plain_ms_f32"] += plain_ms
-        else:
-            s["max_abs_err_bf16"] = max(s["max_abs_err_bf16"], err)
-            s["ms"] += ms
-            s["plain_ms"] += plain_ms
-            s["shapes"] += 1
-
-    for dtype in (torch.float32, torch.bfloat16):
+    def check(kind, dtype, batch, shape, vs, timed=True):
+        """One kernel against its plain version at one shape: its error,
+        the variant it ran and (timed) both times and TFLOP/s."""
         dt = str(dtype)[6:]
-        for wrapper, stride, shapes in ((conv3x3s2_silu, 2, union["s2"]),
-                                        (conv3x3_silu, 1, union["s1"])):
-            for (H, W, ci, co), vs in shapes:
-                x = randn(BATCH, H, W, ci).to(dtype)
-                w = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype)
-                b = randn(co, scale=0.1).to(dtype)
-                got = wrapper(x, w, b)
-                want = conv3x3_plain(x, w, b, "silu", stride)
-                torch.cuda.synchronize()
-                tag = (f"{wrapper.__name__} {dt} {H}x{W} {ci}->{co} "
-                       f"[{'+'.join(vs)}]")
-                err = compare(tag, got, want, dtype, "conv")
-                if dtype == torch.float32:
-                    f64_errors(got, want, conv3x3_plain(
-                        x.double(), w.double(), b.double(), "silu", stride))
-                record(wrapper.__name__, dtype, err, *time_pair(
-                    lambda: conv3x3_plain(x, w, b, "silu", stride),
-                    lambda: wrapper(x, w, b)))
-        for (H, W, cin, c, c2), vs in union["c2f"]:
-            args = [randn(BATCH, H, W, cin), randn(cin, 2 * c, scale=cin ** -0.5),
+        var = variant(kind, dtype, batch, shape, sms)
+        extra = None
+        if kind in ("s1", "s2"):
+            stride = int(kind[1])
+            wrapper = conv3x3_silu if stride == 1 else conv3x3s2_silu
+            H, W, ci, co = shape
+            x = randn(batch, H, W, ci).to(dtype)
+            w = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype)
+            b = randn(co, scale=0.1).to(dtype)
+            name, tol, desc = wrapper.__name__, "conv", f"{H}x{W} {ci}->{co}"
+            kernel = lambda: wrapper(x, w, b)  # noqa: E731
+            plain = lambda: conv3x3_plain(x, w, b, "silu", stride)  # noqa: E731
+            ref64 = lambda: conv3x3_plain(  # noqa: E731
+                x.double(), w.double(), b.double(), "silu", stride)
+            flop = (2 * batch * ((H - 1) // stride + 1)
+                    * ((W - 1) // stride + 1) * 9 * ci * co)
+        elif kind == "c2f":
+            H, W, cin, c, c2 = shape
+            args = [randn(batch, H, W, cin),
+                    randn(cin, 2 * c, scale=cin ** -0.5),
                     randn(2 * c, scale=0.1),
-                    randn(3, 3, c, c, scale=(9 * c) ** -0.5), randn(c, scale=0.1),
-                    randn(3, 3, c, c, scale=(9 * c) ** -0.5), randn(c, scale=0.1),
-                    randn(3 * c, c2, scale=(3 * c) ** -0.5), randn(c2, scale=0.1)]
+                    randn(3, 3, c, c, scale=(9 * c) ** -0.5),
+                    randn(c, scale=0.1),
+                    randn(3, 3, c, c, scale=(9 * c) ** -0.5),
+                    randn(c, scale=0.1),
+                    randn(3 * c, c2, scale=(3 * c) ** -0.5),
+                    randn(c2, scale=0.1)]
             args = [a.to(dtype) for a in args]
-            got = c2f_fused(*args)
-            want = c2f_plain(*args)
-            torch.cuda.synchronize()
-            tag = f"c2f_fused {dt} {H}x{W} {cin}/{c}/{c2} [{'+'.join(vs)}]"
-            err = compare(tag, got, want, dtype, "c2f")
-            if dtype == torch.float32:
-                f64_errors(got, want, c2f_plain(*[a.double() for a in args]))
-            record("c2f_fused", dtype, err, *time_pair(
-                lambda: c2f_plain(*args), lambda: c2f_fused(*args)))
-        for (areas, nh, n, d), vs in union["attn"]:
+            name, tol, desc = "c2f_fused", "c2f", f"{H}x{W} {cin}/{c}/{c2}"
+            kernel = lambda: c2f_fused(*args)  # noqa: E731
+            plain = lambda: c2f_plain(*args)  # noqa: E731
+            ref64 = lambda: c2f_plain(*[a.double() for a in args])  # noqa
+            # the block's GEMMs: cv1, the two 3x3s, cv2 over the concat
+            flop = 2 * batch * H * W * (cin * 2 * c + 18 * c * c + 3 * c * c2)
+        else:
             # as AAttn hands them over: strided q, k, v of one (B, N, H, 3D)
-            # qkv tensor, B = BATCH images x areas
-            qkv = randn(BATCH * areas, n, nh, 3 * d).to(dtype)
+            # qkv tensor, B = batch images x areas
+            areas, nh, n, d = shape
+            qkv = randn(batch * areas, n, nh, 3 * d).to(dtype)
             q, k, v = qkv.split(d, dim=-1)
             bhnd = [t.transpose(1, 2) for t in (q, k, v)]
             scale = d ** -0.5
-            got = attention_bihd(q, k, v, scale)
-            want = attention_plain(*bhnd, scale).transpose(1, 2)
-            got_c = fused_attention(*[t.contiguous() for t in bhnd], scale)
-            torch.cuda.synchronize()
-            tag = (f"fused_attention {dt} ({BATCH * areas}, {nh}, {n}, {d}) "
-                   f"[{'+'.join(vs)}]")
-            err = compare(tag, got, want, dtype, "attn")
-            compare(tag + " contiguous (B, H, N, D)", got_c,
-                    want.transpose(1, 2), dtype, "attn")
-            if dtype == torch.float32:
-                f64_errors(got, want, attention_plain(
-                    *[t.double() for t in bhnd], scale).transpose(1, 2))
-            record("fused_attention", dtype, err, *time_pair(
-                lambda: attention_plain(*bhnd, scale),
-                lambda: attention_bihd(q, k, v, scale)))
+            name, tol = "fused_attention", "attn"
+            desc = f"({batch * areas}, {nh}, {n}, {d})"
+            kernel = lambda: attention_bihd(q, k, v, scale)  # noqa: E731
+            plain = lambda: attention_plain(  # noqa: E731
+                *bhnd, scale).transpose(1, 2)
+            ref64 = lambda: attention_plain(  # noqa: E731
+                *[t.double() for t in bhnd], scale).transpose(1, 2)
+            extra = fused_attention(*[t.contiguous() for t in bhnd], scale)
+            flop = 4 * batch * areas * nh * n * n * d   # q k^T and p v
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        tag = (f"{name} {dt} B={batch} {desc}" + (f" [{var}]" if var else "")
+               + f" [{'+'.join(vs)}]")
+        err = compare(tag, got, want, dtype, tol)
+        if extra is not None:
+            compare(tag + " contiguous (B, H, N, D)", extra,
+                    want.transpose(1, 2), dtype, tol)
+        if dtype == torch.float32:
+            f64_errors(got, want, ref64())
+        checked.add((kind, dt, var))
+        s = stats[name]
+        key = "max_abs_err" if dtype == torch.float32 else "max_abs_err_bf16"
+        s[key] = max(s[key], err)
+        if not timed:
+            return
+        ms, plain_ms = time_pair(plain, kernel)
+        print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain; "
+              f"{flop / ms / 1e9:.1f} / {flop / plain_ms / 1e9:.1f} TFLOP/s",
+              flush=True)
+        suffix = ("_b32" if batch == SERVED_BATCH else
+                  "_f32" if dtype == torch.float32 else "")
+        s["ms" + suffix] += ms
+        s["plain_ms" + suffix] += plain_ms
+        if suffix == "":
+            s["shapes"] += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in KINDS:
+            for shape, vs in shapes[kind]:
+                check(kind, dtype, BATCH, shape, vs)
+    print(f"  bfloat16 at B={SERVED_BATCH}, the shapes of the served "
+          f"batch_predict", flush=True)
+    for kind in KINDS:
+        for shape, vs in union(kind, [CONV_CANVAS]):
+            check(kind, torch.bfloat16, SERVED_BATCH, shape, vs)
+    # every (kind, dtype, variant) the served requests take, at the first
+    # request that takes it
+    served = {}
+    for dtype, requests in SERVED.items():
+        for batch, h, w in requests:
+            for kind in KINDS:
+                for shape, vs in union(kind, [(h, w)]):
+                    served.setdefault(
+                        (kind, str(dtype)[6:],
+                         variant(kind, dtype, batch, shape, sms)),
+                        (dtype, batch, shape, vs))
+    missing = [key for key in served if key not in checked]
+    print(f"  variants the served requests take: {len(served)}, not yet "
+          f"checked: {len(missing)}", flush=True)
+    for key in missing:
+        check(key[0], *served[key], timed=False)
+    if any(key not in checked for key in served):
+        raise SystemExit("a variant of the served path was not checked")
     return stats
 
 
@@ -378,7 +465,7 @@ def phase_slice(dev, version):
     singles = [synthetic_images(1, 640, 640, 10)[0],
                synthetic_images(1, 480, 640, 11)[0],
                synthetic_images(1, 500, 375, 12)[0]]    # not a multiple of 32
-    batch = synthetic_images(32, 640, 640, 20)
+    batch = synthetic_images(SERVED_BATCH, 640, 640, 20)
 
     # conf: every image of the batch has at most CANDIDATES above it
     det = tasks[False].task
@@ -394,6 +481,20 @@ def phase_slice(dev, version):
     counts = (flat > conf).sum(1)
     print(f"  conf {conf:.6f}: candidates per image min {counts.min()} mean "
           f"{counts.mean():.1f} max {counts.max()} of {a} anchors", flush=True)
+    # the network forward alone, bf16, batch 32 at 640x640
+    fwd = det._predict_variables()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        fwd(x)
+        start.record()
+        for _ in range(5):
+            fwd(x)
+        end.record()
+    torch.cuda.synchronize()
+    print(f"  [{version}] network forward bf16 batch 32 640x640: "
+          f"{start.elapsed_time(end) / 5:.2f} ms (CUDA events, mean of 5)",
+          flush=True)
     del preds, x
 
     launches = {}

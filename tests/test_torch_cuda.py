@@ -16,6 +16,8 @@ from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
                                          conv3x3_silu, conv3x3s2_silu,
                                          fused_attention, launch_counts,
                                          reset_launch_counts)
+from yolosharp_tpu_torch.kernels.c2f import launch_tile
+from yolosharp_tpu_torch.kernels.conv3x3 import n_tile
 from yolosharp_tpu_torch.loss import flatten_levels
 from yolosharp_tpu_torch.nn import ConvBN
 from yolosharp_tpu_torch.predict import pad_to_multiple
@@ -89,6 +91,111 @@ def test_c2f_kernel_matches_plain_on_ragged_shapes(cuda, dtype, shape):
     else:   # four layers round to bf16 at different points
         assert (got.float() - want.float()).abs().max() \
             / want.float().abs().max() < 2e-2
+
+
+def _check_conv(cuda, dtype, B, H, W, ci, co, acts=("silu", "identity")):
+    """Both strides of the conv kernel against the plain version."""
+    rng = np.random.default_rng(B * H * W + ci + co)
+    dt = getattr(torch, dtype)
+    x = _rand(rng, B, H, W, ci).to(cuda, dt)
+    w = _rand(rng, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(cuda, dt)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    for act in acts:
+        _check(conv3x3_silu(x, w, b, act), conv3x3_plain(x, w, b, act, 1),
+               dtype)
+        _check(conv3x3s2_silu(x, w, b, act), conv3x3_plain(x, w, b, act, 2),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [(9, 33), (17, 23)])
+@pytest.mark.parametrize("ci", [3, 20, 24])
+def test_conv_kernels_on_chunk_and_tile_edges(cuda, dtype, hw, ci):
+    """Ci not a multiple of the 32-channel chunk (3 and 20 not even of 8:
+    the scalar zero-padded fill), Co = 70 not a multiple of the N tile,
+    ragged H and W, B=3; stride 1 and 2."""
+    _check_conv(cuda, dtype, 3, *hw, ci, 70)
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 150, 142, 40, 200),
+                                   (2, 200, 200, 64, 130)])
+def test_conv_kernels_on_the_128_channel_tile(cuda, dtype, shape):
+    """Grids large enough that the bf16 kernel takes its 128-channel tile at
+    both strides: Ci = 40 ends in a chunk of 8 channels, Co = 200 leaves a
+    ragged second tile, Co = 130 is not a multiple of 8 (the scalar fill)."""
+    B, H, W, ci, co = shape
+    for s in (1, 2):
+        assert n_tile(B, H, W, ci, co, s, _sms(cuda)) == 128
+    _check_conv(cuda, dtype, *shape)
+
+
+def _c2f_args(rng, B, H, W, cin, c, c2):
+    return [_rand(rng, B, H, W, cin), _rand(rng, cin, 2 * c, scale=cin ** -0.5),
+            _rand(rng, 2 * c, scale=0.1),
+            _rand(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
+            _rand(rng, c, scale=0.1),
+            _rand(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
+            _rand(rng, c, scale=0.1), _rand(rng, 3 * c, c2, scale=(3 * c) ** -0.5),
+            _rand(rng, c2, scale=0.1)]
+
+
+def _check_c2f(cuda, dtype, shape):
+    rng = np.random.default_rng(sum(shape))
+    args = [a.to(cuda, getattr(torch, dtype))
+            for a in _c2f_args(rng, *shape)]
+    got = c2f_fused(*args)
+    want = c2f_plain(*args)
+    if dtype == "float32":
+        _check(got, want, dtype)
+    else:   # four layers round to bf16 at different points
+        assert (got.float() - want.float()).abs().max() \
+            / want.float().abs().max() < 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 80, 80, 32, 16, 32),      # v8n layer 2
+                                   (2, 20, 20, 512, 256, 512),   # v8s layer 8
+                                   (2, 13, 11, 200, 128, 96)])
+def test_c2f_kernel_on_model_widths(cuda, dtype, shape):
+    _check_c2f(cuda, dtype, shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(32, 20, 20, 512, 256, 512),  # v8s layer 8
+                                   (32, 20, 20, 256, 128, 256),  # v8n layer 8
+                                   (1, 160, 160, 64, 32, 64)])   # v8s layer 2
+def test_c2f_kernel_on_the_served_tiles(cuda, dtype, shape):
+    """The bf16 tile 8 that the served batch of 32 (c = 256, 128) and a
+    single 640x640 request (c = 32) take."""
+    B, H, W, _, c, _ = shape
+    if dtype == "bfloat16":
+        assert launch_tile(B, H, W, c, True, _sms(cuda)) == 8
+    _check_c2f(cuda, dtype, shape)
+
+
+def test_float32_stays_on_the_cuda_cores(cuda):
+    """float32 sums in float32 end to end: both kernels stay within 1e-4 of
+    the plain version and within float32 rounding (1e-5) of a float64
+    evaluation, which a TF32 or bf16 tensor-core route (~1e-3) would not."""
+    rng = np.random.default_rng(7)
+    x = _rand(rng, 2, 17, 23, 64).to(cuda)
+    w = _rand(rng, 3, 3, 64, 96, scale=(9 * 64) ** -0.5).to(cuda)
+    b = _rand(rng, 96, scale=0.1).to(cuda)
+    for fn, s in ((conv3x3_silu, 1), (conv3x3s2_silu, 2)):
+        got = fn(x, w, b)
+        _check(got, conv3x3_plain(x, w, b, "silu", s), "float32")
+        ref = conv3x3_plain(x.double(), w.double(), b.double(), "silu", s)
+        assert (got.double() - ref).abs().max() < 1e-5
+    args = [a.to(cuda) for a in _c2f_args(rng, 1, 20, 20, 128, 64, 128)]
+    got = c2f_fused(*args)
+    _check(got, c2f_plain(*args), "float32")
+    ref = c2f_plain(*[a.double() for a in args])
+    assert (got.double() - ref).abs().max() < 1e-5
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

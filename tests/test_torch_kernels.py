@@ -15,6 +15,10 @@ from yolosharp_tpu_torch.kernels import (build, c2f_fused, c2f_plain,
                                          c2f_supported, conv3x3_plain,
                                          conv3x3_silu, conv3x3s2_silu,
                                          launch_counts)
+from yolosharp_tpu_torch.kernels.c2f import (SMEM_LIMIT, launch_tile,
+                                             smem_bytes, tile_for)
+from yolosharp_tpu_torch.kernels.conv3x3 import n_tile
+from yolosharp_tpu_torch.nn import ArchCfg, C2f, YoloNet
 
 # the tolerance of tests/test_pallas_conv.py: float32 sums in another order
 ATOL, RTOL = 2e-5, 1e-4
@@ -128,3 +132,71 @@ def test_c2f_supported_covers_v8s_layers():
     assert not c2f_supported(1, True, 2, 64, 32, 64)
     assert not c2f_supported(1, True, 1, 64, 30, 64)
     assert not c2f_supported(1, True, 1, 1024, 512, 1024)
+
+
+@pytest.mark.parametrize("size", ["n", "s"])
+def test_c2f_route_takes_v8_layers_2_and_8(size):
+    """The static route, as the model builds it: the C2f blocks of layers 2
+    and 8 (c = 16 / 128 for v8n, 32 / 256 for v8s) take the fused kernel."""
+    net = YoloNet(ArchCfg(version="v8", size=size, nc=80))
+    routed = sorted(n for n, m in net.named_modules()
+                    if isinstance(m, C2f) and m.kernel_route)
+    assert routed == ["model.2", "model.8"]
+    widths = [net.get_submodule(n).c for n in routed]
+    assert widths == ([16, 128] if size == "n" else [32, 256])
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_c2f_tiles_fit_shared_memory_for_every_admitted_width(bf16):
+    """Every (Cin, c, C2) that c2f_supported admits has a tile whose block
+    fits the 232,448 bytes of shared memory in both types, and (bf16) a
+    window of at most 640 pixels, the kernel's 8 warps x 5 m16 tiles."""
+    admitted = 0
+    for c in range(4, 520, 4):
+        for cin, c2 in ((c, 2 * c), (2 * c, c), (8, 8)):
+            if not c2f_supported(1, True, 1, cin, c, c2):
+                continue
+            admitted += 1
+            tile = tile_for(c, bf16)
+            assert smem_bytes(tile, c, bf16) <= SMEM_LIMIT == 232448
+            assert not bf16 or (tile + 4) ** 2 <= 640
+    assert admitted > 3 * 20
+
+
+def test_c2f_bf16_tile_for_v8s_layer8_is_the_stated_one():
+    """The bf16 tile the source note states: 16 for c <= 32, 8 for c = 256,
+    whose bf16 block takes 219,456 bytes (float32: 4 for c > 64)."""
+    assert tile_for(16, True) == tile_for(32, True) == 16
+    assert tile_for(256, True) == 8
+    assert smem_bytes(8, 256, True) == 219456
+    assert tile_for(256) == 4 and tile_for(32) == 8
+
+
+@pytest.mark.parametrize("shape,stride,want", [
+    ((2, 640, 640, 3, 32), 2, 0),        # the stem kernel
+    ((32, 80, 80, 128, 128), 1, 128),    # 1600 blocks of 128 x 128
+    ((2, 80, 80, 128, 128), 1, 64),      # 100 blocks: too few for 132 SMs
+    ((32, 20, 20, 512, 64), 1, 64),      # Co <= 64
+    ((32, 160, 160, 64, 128), 2, 128),
+    ((2, 160, 160, 128, 128), 2, 64),
+    ((3, 150, 142, 40, 200), 2, 128),    # a card test's ragged shape
+])
+def test_conv_n_tile_covers_the_sms(shape, stride, want):
+    """The bf16 conv's N tile on a 132-SM card: 128 channels where that
+    grid of 128-pixel blocks still gives every SM a block, else 64."""
+    assert n_tile(*shape, stride, 132) == want
+
+
+@pytest.mark.parametrize("shape,bf16,want", [
+    ((2, 20, 20, 256), True, 4),     # v8s layer 8 at B=2: 18 blocks of 8x8
+    ((32, 20, 20, 256), True, 8),    # ... at the served batch of 32
+    ((2, 160, 160, 32), True, 16),   # v8s layer 2 at B=2: 200 blocks
+    ((1, 160, 160, 32), True, 8),    # one 640x640 request
+    ((1, 4, 4, 32), True, 4),        # halved down to 4, no further
+    ((1, 20, 20, 256), False, 4),    # float32 takes tile_for as it is
+    ((1, 80, 80, 32), False, 8),
+])
+def test_c2f_launch_tile_halves_while_sms_idle(shape, bf16, want):
+    """The C2f tile the wrapper passes to the kernel on a 132-SM card."""
+    assert launch_tile(*shape, bf16, 132) == want
+    assert smem_bytes(want, shape[3], bf16) <= SMEM_LIMIT

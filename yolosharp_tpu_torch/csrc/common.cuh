@@ -1,7 +1,10 @@
 // Shared helpers of the port's hand-written Hopper kernels: element types,
-// conversions and the activation epilogue. Every kernel takes float32 or
-// bfloat16 tensors and accumulates in float32.
+// conversions, the activation epilogue, and the tensor-core building blocks
+// of the bfloat16 routes (cp.async, ldmatrix, mma.sync). Every kernel takes
+// float32 or bfloat16 tensors and accumulates in float32.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,6 +44,18 @@ __device__ __forceinline__ float apply_act(float v, int act) {
   return v;
 }
 
+// SiLU on the special-function unit (exp2 and reciprocal approximations, a
+// few float32 ulp): the bfloat16 routes round it to 8 bits right after. The
+// precise silu costs ~70 instructions, which made it the largest cost of the
+// fused C2f block's epilogues at c = 32.
+__device__ __forceinline__ float silu_fast(float v) { return __fdividef(v, 1.f + __expf(-v)); }
+
+__device__ __forceinline__ float apply_act_fast(float v, int act) {
+  if (act == kSilu) return silu_fast(v);
+  if (act == kRelu) return fmaxf(v, 0.f);
+  return v;
+}
+
 // Four consecutive elements (16-byte aligned for float, 8 for bf16).
 __device__ __forceinline__ void load4(const float* p, float o[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -63,6 +78,54 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float o[4]) {
 template <typename K>
 inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// ---- tensor-core building blocks (bfloat16 in, float32 sums) ----------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy device -> shared; src_ok false zero-fills the
+// 16 bytes (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool src_ok) {
+  const int n = src_ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the row address of
+// matrix l / 8, row l % 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a (16x16, row) * b (16x8, col), bfloat16 products, float32 sums.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace ys

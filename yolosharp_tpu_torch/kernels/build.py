@@ -10,6 +10,7 @@ the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -79,6 +80,13 @@ def launch_args(name: str, *tensors, strided: bool = False):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
     return code, torch.cuda.current_stream(x.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the wrappers size
+    their tiles so that a grid covers them."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_status(name: str, status: int) -> None:

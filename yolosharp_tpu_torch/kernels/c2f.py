@@ -10,12 +10,23 @@ re-reads four intermediates (cv1's 2c channels, the two bottleneck convs,
 the 3c concat) through device memory; the two 3x3 convs are compute bound.
 Design: a block owns a spatial tile with a 2-pixel halo and keeps cv1's
 output, the bottleneck intermediates and the concat in shared memory, so
-only the block output goes back to device memory. Shared memory (227 KB a
-block) is what limits the tile: it holds about (tile+4)^2 * 2c float32
-values, so the tile is 8x8 for c <= 64 and 4x4 above (the v8s layer-8
-block has c = 256). The halo ring is recomputed by neighbouring tiles;
-weights stream from L2. Unlike the TPU kernel there is no flat-row im2col
-and no H % R limit.
+only the block output goes back to device memory. The halo ring is
+recomputed by neighbouring tiles; weights stream from L2.
+
+- bfloat16: the five GEMMs (cv1 on the window, the two 3x3s through shifted
+  ``ldmatrix`` rows, cv1's other half, cv2 over ``[a | bh | z]``) run on the
+  tensor cores, with weight and input chunks double-buffered through
+  ``cp.async``. The intermediates are bf16 (as the plain chain rounds them),
+  which halves their footprint: the tile is 16x16 for c <= 32 and 8x8 up to
+  c = 256 (219,456 bytes of shared memory at c = 256, one block per SM),
+  halved by ``launch_tile`` while the grid has fewer blocks than SMs (v8s
+  layer 8 at batch 2: 18 blocks of 8x8, so 4x4). The tile's cost is the halo:
+  8x8 at 20x20 computes 1.83x the block's FLOPs (the halo and the ragged
+  third tile), 16x16 at 160x160 1.13x.
+- float32: the CUDA-core kernel; its float32 intermediates make the tile
+  8x8 for c <= 64 and 4x4 above.
+
+Unlike the TPU kernel there is no flat-row im2col and no H % R limit.
 
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises.
@@ -33,29 +44,54 @@ from . import build
 from .conv3x3 import conv3x3_plain
 
 SMEM_LIMIT = 232448   # shared memory one block may use on Hopper
-_CHUNK = 32           # input channels staged per chunk (kKC in csrc/c2f.cu)
+# the bf16 layout of csrc/c2f.cu (tc_bytes), which checks the tile it is given
+_CHUNK = 32           # input channels staged per chunk (kKC)
+_WPITCH = 256 + 8     # weight chunk row pitch of the bf16 route (kWP)
 
 
-def tile_for(c: int) -> int:
-    """Output tile edge the kernel uses for hidden width c."""
-    return 8 if c <= 64 else 4
+def tile_for(c: int, bf16: bool = False) -> int:
+    """Widest output tile edge for hidden width c: float32 8 for c <= 64 and
+    4 above; bfloat16 16 for c <= 32, then 8 while it fits shared memory,
+    then 4."""
+    if not bf16:
+        return 8 if c <= 64 else 4
+    if c <= 32:
+        return 16
+    return 8 if smem_bytes(8, c, True) <= SMEM_LIMIT else 4
 
 
-def smem_bytes(tile: int, c: int) -> int:
-    """Shared memory of one block (Geom::floats in csrc/c2f.cu, float32)."""
+def launch_tile(B: int, H: int, W: int, c: int, bf16: bool, sms: int) -> int:
+    """The tile edge the kernel runs: ``tile_for``, and for bfloat16 halved
+    (down to 4) while the grid of tiles x B leaves some of the card's sms
+    SMs without a block."""
+    tile = tile_for(c, bf16)
+    while bf16 and tile >= 8 and -(-H // tile) * -(-W // tile) * B < sms:
+        tile //= 2
+    return tile
+
+
+def smem_bytes(tile: int, c: int, bf16: bool = False) -> int:
+    """Shared memory of one block: float32 Geom::floats, bfloat16 tc_bytes
+    (csrc/c2f.cu)."""
     r2, r1, r0 = (tile + 4) ** 2, (tile + 2) ** 2, tile ** 2
-    return 4 * (r2 * _CHUNK + c * (r2 + r1 + 2 * r0))
+    if not bf16:
+        return 4 * (r2 * _CHUNK + c * (r2 + r1 + 2 * r0))
+    return (2 * (c + 8) * (r2 + r1 + r0) + 2 * r2 * (_CHUNK + 8) * 2
+            + 2 * _CHUNK * _WPITCH * 2)
 
 
 def c2f_supported(n: int, shortcut: bool, g: int, cin: int, c: int,
                   c2: int) -> bool:
-    """Static statement of what the kernel takes: a C2f with one shortcut
-    bottleneck, no groups, hidden width and output width multiples of 4,
-    and a tile that fits shared memory (c <= 424). Covers the v8 layers 2
-    and 8 (v8s: c = 32 and c = 256)."""
-    return (n == 1 and shortcut and g == 1 and cin > 0 and c > 0
-            and c % 4 == 0 and c2 % 4 == 0
-            and smem_bytes(tile_for(c), c) <= SMEM_LIMIT)
+    """Static statement of what the kernel takes, in both types: a C2f with
+    one shortcut bottleneck, no groups, c % 16 == 0, C2 and Cin multiples of
+    8 (16-byte rows for the bf16 route's copies), and widest tiles of both
+    routes that fit shared memory (c <= 424). Covers the v8n and v8s layers
+    2 and 8 (c = 16, 32, 128, 256)."""
+    if not (n == 1 and shortcut and g == 1 and cin > 0 and c > 0
+            and c % 16 == 0 and c2 % 8 == 0 and cin % 8 == 0):
+        return False
+    return (smem_bytes(tile_for(c), c) <= SMEM_LIMIT
+            and smem_bytes(tile_for(c, True), c, True) <= SMEM_LIMIT)
 
 
 def c2f_plain(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2) -> torch.Tensor:
@@ -95,16 +131,17 @@ def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2) -> torch.Tensor:
         if tuple(t.shape) != want:
             raise ValueError(f"c2f_fused: {name} must be {want}, got "
                              f"{tuple(t.shape)}")
-    if not c2f_supported(1, True, 1, cin, c, C2):
-        raise ValueError(f"c2f_fused: the kernel does not take c={c}, "
-                         f"C2={C2}")
     code, stream = build.launch_args("c2f_fused", x, w1, b1, wm1, bm1, wm2,
                                      bm2, w2, b2)
+    if not c2f_supported(1, True, 1, cin, c, C2):
+        raise ValueError(f"c2f_fused: the kernel does not take Cin={cin}, "
+                         f"c={c}, C2={C2}")
+    tile = launch_tile(B, H, W, c, x.dtype == torch.bfloat16,
+                       build.sm_count(x.device.index))
     y = torch.empty((B, H, W, C2), dtype=x.dtype, device=x.device)
     ptrs = [t.data_ptr() for t in (x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, y)]
     with torch.cuda.device(x.device):
-        status = _lib().ys_c2f(*ptrs, B, H, W, cin, c, C2, tile_for(c),
-                               code, stream)
+        status = _lib().ys_c2f(*ptrs, B, H, W, cin, c, C2, tile, code, stream)
     build.check_status("c2f_fused", status)
     c2f_fused.launches += 1
     return y

@@ -8,16 +8,28 @@ functions keep the JAX signatures: NHWC ``x``, HWIO ``w``, ``(Co,)`` bias
 (the folded BatchNorm), activation ``silu`` / ``relu`` / ``identity``.
 
 What bounds it on the card: a YOLO 3x3 conv does 9*Ci multiply-adds per
-output value and reads each input value once per tap, so it is compute
-bound; the kernel's limit is how many multiply-adds it issues per
-shared-memory load. Design: an implicit GEMM on the CUDA cores. A block
-owns 8x16 output pixels x 64 channels, stages the input tile with its halo
-and the weight slice in shared memory one 16-channel chunk at a time, and
-each thread keeps a 4-pixel x 8-channel float32 micro-tile in registers
-(32 multiply-adds per 6 shared loads), with bias and activation in the
-epilogue. It needs none of the TPU kernel's layout tricks (flat-row im2col,
-junk columns, parity planes for stride 2, H % R == 0): edges are masked.
-Tensor cores (``wgmma``) are later work.
+output value, so the limit is how fast the operands reach the multipliers.
+The route goes by dtype, statically, with no fallback:
+
+- bfloat16: a flat-M implicit GEMM on Hopper's warpgroup MMA
+  (``wgmma.m64nBNk16``, float32 sums). M runs over the flat output pixels
+  of the batch, N over Co, K over (tap, 32 channels). A block owns 128
+  pixels x BN channels, BN = 128 where that grid still covers every SM,
+  else 64 (``n_tile``). Each k step's A rows (the pixel each output pixel
+  reads at that tap, zero-filled outside the image) and weight rows are
+  copied with 16-byte ``cp.async`` into a 5-slot shared-memory ring three
+  steps ahead, stored in the swizzled layouts that wgmma reads through
+  shared-memory descriptors: no ldmatrix, no im2col, and stride 2 only
+  changes the addresses. Bound by the L2 -> shared copies: 64 flop per
+  copied byte at BN = 128, A copied once per tap. The stem (Ci <= 7)
+  packs its 9 taps x Ci channels into one K <= 64 on ``mma.sync``.
+- float32: the CUDA-core kernel (TF32 would break the float32 contract). A
+  block owns 8x16 output pixels x 64 channels, stages the halo tile and the
+  weight slice 16 channels at a time, and each thread keeps a 4-pixel x
+  8-channel micro-tile (32 multiply-adds per 6 shared loads).
+
+Neither needs the TPU kernel's layout tricks (flat-row im2col, junk
+columns, parity planes for stride 2, H % R == 0): edges are masked.
 
 On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA
 tensor they launch the kernel or raise.
@@ -43,6 +55,19 @@ def supported(k: int, s: int, p: int, d: int, g: int) -> bool:
     return k == 3 and s in (1, 2) and p == 1 and d == 1 and g == 1
 
 
+def n_tile(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
+           sms: int) -> int:
+    """Output channels of one block of the bfloat16 kernel: 0 for the stem
+    (Ci <= 7, its own kernel), 128 where the grid of 128-pixel x 128-channel
+    blocks still covers the card's sms SMs, else 64."""
+    if Ci <= 7:
+        return 0
+    m = B * ((H - 1) // stride + 1) * ((W - 1) // stride + 1)
+    if Co > 64 and -(-m // 128) * -(-Co // 128) >= sms:
+        return 128
+    return 64
+
+
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   act: str = "silu", stride: int = 1) -> torch.Tensor:
     """The plain PyTorch version: NHWC in, NHWC out (a view of a
@@ -57,7 +82,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("conv3x3")
     fn = lib.ys_conv3x3
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     return lib
 
@@ -75,11 +100,13 @@ def _launch(name: str, x, w, b, act: str, stride: int) -> torch.Tensor:
         raise ValueError(f"{name}: unknown activation {act!r}")
     code, stream = build.launch_args(name, x, w, b)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    bn = (n_tile(B, H, W, Ci, Co, stride, build.sm_count(x.device.index))
+          if x.dtype == torch.bfloat16 else 0)
     y = torch.empty((B, Ho, Wo, Co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         status = _lib().ys_conv3x3(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, H, W,
-            Ci, Co, stride, ACT_CODES[act], code, stream)
+            Ci, Co, stride, ACT_CODES[act], code, bn, stream)
     build.check_status(name, status)
     return y
 
