@@ -31,7 +31,7 @@ def family(name):
         return "conv3x3"
     if "c2f" in name:
         return "c2f"
-    if "attention_kernel" in name:
+    if "attention" in name:
         return "attention"
     if name.startswith("Memcpy") or name.startswith("Memset"):
         return "memcpy/memset"

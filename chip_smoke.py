@@ -12,24 +12,35 @@ Phases (any failure exits non-zero; nothing is caught):
      path gives it (recorded with forward hooks on the folded v8s and v12s
      nets: 640x640 for the convs; 640x640, 480x640, 500x375 and 1280x1280
      for the attention), B=2, in float32 (TF32 off for cuDNN and matmul)
-     and bfloat16, with times (CUDA events, turns plain/kernel/kernel/plain)
-     and the TFLOP/s each reaches (convs 2*Ho*Wo*9*Ci*Co*B; the C2f block's
-     four GEMMs; attention's two products). bfloat16 takes the tensor-core
-     conv and C2f kernels, float32 their CUDA-core kernels. Then the 640x640
+     and bfloat16, with device times (CUDA events around a CUDA graph of 10
+     calls, in turns plain / kernel / library / library / kernel / plain),
+     the eager times of the same calls made from Python (host launch cost
+     included), and the TFLOP/s each reaches (convs
+     2*Ho*Wo*9*Ci*Co*B; the C2f block's four GEMMs; attention's two
+     products). Beside them each shape's bound, max(FLOP / peak, bytes /
+     3.35 TB/s) with each input read once and the output written once
+     (peaks 989 TFLOP/s bf16, 67 TFLOP/s f32), and the library time: one
+     PyTorch call computing the same function, timed and never used by the
+     port (F.conv2d with bias and without the activation for the convs,
+     F.scaled_dot_product_attention for the attention, none for the C2f
+     block). bfloat16 takes the tensor-core kernels, float32 the CUDA-core
+     kernels. Then the 640x640
      shapes again at B=32 in bfloat16, timed, and at last every kernel
      variant the served requests of phases 3 and 4 take (the bf16 conv's N
-     tile or stem, the C2f block's tile; they depend on the batch) that was
-     not checked yet, at the first request that takes it. Each check prints
-     the variant it ran.
+     tile or stem, the C2f block's tile, the attention's route and splits;
+     they depend on the batch) that was not checked yet, at the first request
+     that takes it. Each check prints the variant it ran.
   3. the v8s slice: a v8s nc=80 YoloTask on cuda with seeded weights times
-     its bf16 batch-32 640x640 network forward (CUDA events) and answers
-     image_predict and batch_predict requests, with end2end False and True;
-     conv3x3 s1/s2 and c2f_fused must have launched during it.
+     its bf16 batch-32 640x640 network forward (CUDA events), counts the
+     kernel launches of one such forward, and answers image_predict and
+     batch_predict requests, with end2end False and True; conv3x3 s1/s2 and
+     c2f_fused must have launched during them.
   3b. the v12s slice, the same way; conv3x3 s1/s2 and fused_attention must
      have launched during it.
   4. / 4b. each path's float32 predict of one image on the card against the
      CPU's float32 predict through the plain versions.
 
+The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -44,6 +55,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 BATCH = 2
 CANDIDATES = 300    # above-threshold anchors per image in phase 3 (bench.py:8-13)
@@ -64,6 +76,10 @@ KINDS = ("s2", "s1", "c2f", "attn")
 # tests/test_pallas_conv.py), doubled for the C2f block, whose four layers
 # round to bf16 at different points in the two versions.
 TOL_F32 = {"conv": (1e-4, 1e-4), "c2f": (1e-4, 1e-4), "attn": (2e-5, 2e-4)}
+# the roofline of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor
+# cores, f32 CUDA cores, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM_BYTES = 3.35e12
 TOL_BF16 = {"conv": 1e-2, "c2f": 2e-2, "attn": 1e-2}
 SOURCES = {
     "conv3x3_silu": ("yolosharp_tpu_torch/csrc/conv3x3.cu",
@@ -88,23 +104,44 @@ def card() -> str:
     return out[0]
 
 
-def time_pair(plain, kernel, iters: int = 10):
-    """(kernel ms, plain ms) per call, turns plain/kernel/kernel/plain."""
-    for fn in (plain, kernel):
+def time_calls(fns: dict, iters: int = 10):
+    """({name: device ms per call}, {name: eager ms per call}), CUDA events
+    around iters calls, in turns forward then backward (plain / kernel /
+    library / library / kernel / plain). Device: the iters calls replayed
+    as one CUDA graph, so the time is the device's alone. Eager: the calls
+    made from Python, where at small shapes the host's launch cost (the
+    wrappers' checks and ctypes, ~50-90 us a call) is what is measured."""
+    for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    times = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        fn = plain if name == "plain" else kernel
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times[name].append(start.elapsed_time(end) / iters)
-    return float(np.mean(times["kernel"])), float(np.mean(times["plain"]))
+    graphs = {}
+    for name, fn in fns.items():
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(iters):
+                fn()
+    out = []
+    for run in ((lambda n: graphs[n].replay()),
+                (lambda n: [fns[n]() for _ in range(iters)])):
+        times = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(name)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
+        out.append({name: float(np.mean(t)) for name, t in times.items()})
+    del graphs
+    return out[0], out[1]
+
+
+def bound(flop: int, nbytes: int, dtype):
+    """(ms, 'bytes' or 'operations'): the least time the card could take."""
+    ops = flop / PEAK_FLOPS[dtype] * 1e3
+    mem = nbytes / HBM_BYTES * 1e3
+    return max(ops, mem), ("bytes" if mem >= ops else "operations")
 
 
 def compare(name, got, want, dtype, kind):
@@ -179,8 +216,11 @@ def record_shapes(version: str) -> dict:
 
 def variant(kind, dtype, batch, shape, sms) -> str:
     """What the launch picks for one call, as the wrappers pick it for a
-    card of sms SMs: the bf16 conv's N tile (or its stem kernel) and the
-    C2f block's tile; '' where the kernel is the same for every call."""
+    card of sms SMs: the bf16 conv's N tile (or its stem kernel), the C2f
+    block's tile, the attention's route by type and its bf16 splits,
+    staged keys and warps; '' where the kernel is the same for every
+    call."""
+    from yolosharp_tpu_torch.kernels.attention import launch_geometry
     from yolosharp_tpu_torch.kernels.c2f import launch_tile
     from yolosharp_tpu_torch.kernels.conv3x3 import n_tile
 
@@ -192,6 +232,12 @@ def variant(kind, dtype, batch, shape, sms) -> str:
     if kind == "c2f":
         H, W, _, c, _ = shape
         return f"c={c} tile {launch_tile(batch, H, W, c, bf16, sms)}"
+    if kind == "attn":
+        if not bf16:
+            return "CUDA cores"
+        areas, nh, n, d = shape
+        splits, keys, warps = launch_geometry(batch * areas * nh, n, d, sms)
+        return f"mma.sync splits {splits} keys {keys} warps {warps}"
     return ""
 
 
@@ -232,18 +278,27 @@ def phase_kernels(dev):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    stats = {k: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "ms": 0.0,
-                 "plain_ms": 0.0, "ms_f32": 0.0, "plain_ms_f32": 0.0,
-                 "shapes": 0, "ms_b32": 0.0, "plain_ms_b32": 0.0}
-             for k in SOURCES}
+    stats = {}
+    for name in SOURCES:
+        s = stats[name] = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0,
+                           "shapes": 0}
+        for suffix in ("", "_f32", "_b32"):
+            s.update({"ms" + suffix: 0.0, "plain_ms" + suffix: 0.0,
+                      "ms_eager" + suffix: 0.0, "bound_ms" + suffix: 0.0,
+                      "library_ms" + suffix: None if name == "c2f_fused"
+                      else 0.0})
+    # per kernel and sum: the bound ms that bytes / operations set
+    bound_parts = {}
     checked = set()     # (kind, dtype, variant) held against the plain version
 
     def check(kind, dtype, batch, shape, vs, timed=True):
         """One kernel against its plain version at one shape: its error,
-        the variant it ran and (timed) both times and TFLOP/s."""
+        the variant it ran and (timed) its, the plain version's and the
+        library call's times, TFLOP/s and its bound."""
         dt = str(dtype)[6:]
         var = variant(kind, dtype, batch, shape, sms)
-        extra = None
+        extra = library = None
+        size = torch.finfo(dtype).bits // 8
         if kind in ("s1", "s2"):
             stride = int(kind[1])
             wrapper = conv3x3_silu if stride == 1 else conv3x3s2_silu
@@ -256,8 +311,14 @@ def phase_kernels(dev):
             plain = lambda: conv3x3_plain(x, w, b, "silu", stride)  # noqa: E731
             ref64 = lambda: conv3x3_plain(  # noqa: E731
                 x.double(), w.double(), b.double(), "silu", stride)
-            flop = (2 * batch * ((H - 1) // stride + 1)
-                    * ((W - 1) // stride + 1) * 9 * ci * co)
+            ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+            flop = 2 * batch * ho * wo * 9 * ci * co
+            nbytes = size * (x.numel() + w.numel() + co + batch * ho * wo * co)
+            # cuDNN on the channels-last NCHW view: conv + bias, no SiLU
+            xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            library = lambda: F.conv2d(xc, wc, b, stride=stride,  # noqa: E731
+                                       padding=1)
         elif kind == "c2f":
             H, W, cin, c, c2 = shape
             args = [randn(batch, H, W, cin),
@@ -276,6 +337,7 @@ def phase_kernels(dev):
             ref64 = lambda: c2f_plain(*[a.double() for a in args])  # noqa
             # the block's GEMMs: cv1, the two 3x3s, cv2 over the concat
             flop = 2 * batch * H * W * (cin * 2 * c + 18 * c * c + 3 * c * c2)
+            nbytes = size * (sum(a.numel() for a in args) + batch * H * W * c2)
         else:
             # as AAttn hands them over: strided q, k, v of one (B, N, H, 3D)
             # qkv tensor, B = batch images x areas
@@ -293,6 +355,9 @@ def phase_kernels(dev):
                 *[t.double() for t in bhnd], scale).transpose(1, 2)
             extra = fused_attention(*[t.contiguous() for t in bhnd], scale)
             flop = 4 * batch * areas * nh * n * n * d   # q k^T and p v
+            nbytes = size * (qkv.numel() + qkv.numel() // 3)   # qkv and o
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *bhnd, scale=scale)
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         tag = (f"{name} {dt} B={batch} {desc}" + (f" [{var}]" if var else "")
@@ -309,14 +374,32 @@ def phase_kernels(dev):
         s[key] = max(s[key], err)
         if not timed:
             return
-        ms, plain_ms = time_pair(plain, kernel)
-        print(f"    {ms:.4f} ms kernel, {plain_ms:.4f} ms plain; "
-              f"{flop / ms / 1e9:.1f} / {flop / plain_ms / 1e9:.1f} TFLOP/s",
+        fns = {"plain": plain, "kernel": kernel}
+        if library is not None:
+            fns["library"] = library
+        t, eager = time_calls(fns)
+        ms, plain_ms = t["kernel"], t["plain"]
+        bound_ms, by = bound(flop, nbytes, dtype)
+        lib = (f"{t['library']:.4f} ms library"
+               if library is not None else "no library call")
+        print(f"    device (CUDA graph): {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+              f"plain, {lib}; bound {bound_ms:.4f} ms by {by} "
+              f"({nbytes / 1e6:.2f} MB, {flop / 1e9:.3f} GFLOP), "
+              f"{bound_ms / ms:.3f} of it; {flop / ms / 1e9:.1f} / "
+              f"{flop / plain_ms / 1e9:.1f} TFLOP/s", flush=True)
+        print("    eager: " + ", ".join(f"{v:.4f} ms {k}"
+                                        for k, v in eager.items()),
               flush=True)
         suffix = ("_b32" if batch == SERVED_BATCH else
                   "_f32" if dtype == torch.float32 else "")
         s["ms" + suffix] += ms
         s["plain_ms" + suffix] += plain_ms
+        s["ms_eager" + suffix] += eager["kernel"]
+        s["bound_ms" + suffix] += bound_ms
+        if library is not None:
+            s["library_ms" + suffix] += t["library"]
+        part = bound_parts.setdefault((name, suffix), {})
+        part[by] = part.get(by, 0.0) + bound_ms
         if suffix == "":
             s["shapes"] += 1
 
@@ -347,6 +430,9 @@ def phase_kernels(dev):
         check(key[0], *served[key], timed=False)
     if any(key not in checked for key in served):
         raise SystemExit("a variant of the served path was not checked")
+    # what bounds each sum: the larger share of its bound
+    for (name, suffix), part in bound_parts.items():
+        stats[name]["bound_by" + suffix] = max(part, key=part.get)
     return stats
 
 
@@ -445,7 +531,8 @@ def build_tasks(dev, version, state, **cfg):
 def phase_slice(dev, version):
     """{version}s-640, nc=80, bf16 (the Config default), seeded weights: a
     few image_predict and batch_predict requests in both End2End modes.
-    Returns (launches of the path's kernels, state dict, conf)."""
+    Returns (launches of the path's kernels, their launches in one b32
+    forward, state dict, conf)."""
     from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
     from yolosharp_tpu_torch.kernels import (launch_counts,
                                              reset_launch_counts)
@@ -486,7 +573,11 @@ def phase_slice(dev, version):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
+        reset_launch_counts()
         fwd(x)
+        per_forward = launch_counts()
+        print(f"  [{version}] kernel launches of one b32 forward: "
+              f"{per_forward}", flush=True)
         start.record()
         for _ in range(5):
             fwd(x)
@@ -538,7 +629,7 @@ def phase_slice(dev, version):
     if bool(out.truncated.any()):
         raise SystemExit("NMS candidate pool truncated")
     print(f"  truncated: False for all {len(batch)} images", flush=True)
-    return launches, state, conf
+    return launches, per_forward, state, conf
 
 
 def phase_cpu_match(dev, version, state, conf):
@@ -600,17 +691,24 @@ def main() -> int:
             "    " + ln for ln in log.strip().splitlines()), flush=True)
 
     stats = phase_kernels(dev)
-    launches = {}
+    launches, per_forward = {}, {}
     for version in PATHS:
-        path_launches, state, conf = phase_slice(dev, version)
+        path_launches, forward, state, conf = phase_slice(dev, version)
         phase_cpu_match(dev, version, state, conf)
         for name, n in path_launches.items():
             launches[name] = launches.get(name, 0) + n
+            per_forward.setdefault(name, {})[version] = forward[name]
 
+    foreign = sorted(m for m in sys.modules
+                     if m in ("jax", "flax", "yolosharp_tpu")
+                     or m.startswith(("jax.", "flax.", "yolosharp_tpu.")))
+    if foreign:
+        raise SystemExit(f"the run imported JAX or the JAX package: {foreign}")
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": launches[name]}
+                 "replaces": replaces, "launches": launches[name],
+                 "launches_per_b32_forward": per_forward[name]}
         entry.update(stats[name])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,6 +16,7 @@ from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
                                          conv3x3_silu, conv3x3s2_silu,
                                          fused_attention, launch_counts,
                                          reset_launch_counts)
+from yolosharp_tpu_torch.kernels.attention import launch_geometry
 from yolosharp_tpu_torch.kernels.c2f import launch_tile
 from yolosharp_tpu_torch.kernels.conv3x3 import n_tile
 from yolosharp_tpu_torch.loss import flatten_levels
@@ -223,6 +224,31 @@ def test_attention_kernel_matches_plain_on_ragged_shapes(cuda, dtype, shape):
     else:
         _check(got, want, dtype)
         _check(got_s, want_s, dtype)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 15, 63, 65, 300, 400, 1600])
+def test_bf16_attention_on_the_tensor_cores(cuda, d, n):
+    """The bf16 tensor-core kernel at every head dim and ragged N, against
+    the plain version: strided q, k, v of one qkv tensor as AAttn gives them
+    and contiguous (B, H, N, D) tensors, at B=1 (a sequence's query tiles
+    split over blocks) and B=32 (one or two blocks a sequence). N=1600 at
+    D >= 64 does not fit one block's shared memory and is streamed."""
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + d)
+    scale = d ** -0.5
+    for B, H in ((1, 4), (32, 4)):
+        splits = launch_geometry(B * H, n, d, _sms(cuda))[0]
+        if B == 1 and n > 16:
+            assert splits > 1
+        qkv = torch.randn(B, n, H, 3 * d, generator=g, device=cuda).to(
+            torch.bfloat16)
+        q, k, v = qkv.split(d, dim=-1)
+        bhnd = [t.transpose(1, 2) for t in (q, k, v)]
+        want = attention_plain(*bhnd, scale)
+        _check(attention_bihd(q, k, v, scale).transpose(1, 2), want,
+               "bfloat16")
+        _check(fused_attention(*[t.contiguous() for t in bhnd], scale), want,
+               "bfloat16")
 
 
 def test_kernels_reject_what_they_cannot_take(cuda):

@@ -2,7 +2,8 @@
 float32) against the JAX Detector with the same seeded weights on a
 synthetic 236x316 image: the NMS path (select-then-decode top-k + greedy
 NMS), the End2End path, and the YoloResults of image_predict and
-batch_predict. Plus: importing and running the port loads no JAX."""
+batch_predict. Plus: importing and running the port loads no JAX and
+nothing of the JAX package."""
 
 import os
 import subprocess
@@ -21,6 +22,9 @@ from yolosharp_tpu.config import Config as JaxConfig
 from yolosharp_tpu.tasks import YoloTask as JaxYoloTask
 from yolosharp_tpu.types import TaskType, YoloSize, YoloType
 from yolosharp_tpu_torch import Config, ScalarType, YoloTask
+from yolosharp_tpu_torch import TaskType as PortTaskType
+from yolosharp_tpu_torch import YoloSize as PortYoloSize
+from yolosharp_tpu_torch import YoloType as PortYoloType
 from yolosharp_tpu_torch.ckpt import state_dict_from_jax
 from yolosharp_tpu_torch.loss import flatten_levels
 from yolosharp_tpu_torch.tasks import _to_host
@@ -60,7 +64,11 @@ def tasks(request):
         variables = jax_clone_one2one(variables)
     det.variables = variables
 
-    port = YoloTask(Config(scalar_type=ScalarType.float32, **kw),
+    # the port's config from the port's own enums
+    port_kw = dict(kw, task_type=PortTaskType(kw["task_type"].value),
+                   yolo_type=PortYoloType(kw["yolo_type"].value),
+                   yolo_size=PortYoloSize(kw["yolo_size"].value))
+    port = YoloTask(Config(scalar_type=ScalarType.float32, **port_kw),
                     device="cpu")
     port.task._ensure_variables().load_state_dict(
         state_dict_from_jax(variables), strict=True)
@@ -153,18 +161,25 @@ def test_image_and_batch_predict_results_match_jax(tasks):
         conf, IOU))
 
 
-def test_port_runs_without_jax():
-    """Importing the port and predicting on the CPU loads neither jax nor
-    flax nor cv2 (the GPU machine has none of them)."""
+def test_port_runs_without_jax(tmp_path):
+    """Importing the port, predicting on the CPU and saving and loading a
+    checkpoint loads neither jax nor flax nor cv2 (the GPU machine has none
+    of them), nor any module of the JAX package yolosharp_tpu."""
+    path = str(tmp_path / "v8n.bin")
     code = (
         "import sys, numpy as np\n"
         "from yolosharp_tpu_torch import Config, ScalarType, YoloSize, "
         "YoloTask\n"
+        "assert 'yolosharp_tpu_torch' in sys.modules\n"
         "t = YoloTask(Config(yolo_size=YoloSize.n, number_class=5, "
         "scalar_type=ScalarType.float32, end2end=False), device='cpu')\n"
         "r = t.image_predict(np.zeros((64, 96, 3), np.uint8), 0.0)\n"
         "assert isinstance(r, list) and r\n"
-        "bad = [m for m in ('jax', 'flax', 'cv2') if m in sys.modules]\n"
+        f"t.save_weight({path!r})\n"
+        f"t.load_model({path!r})\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
+        "'ml_dtypes', 'yolosharp_tpu') or m.startswith(('jax.', 'flax.', "
+        "'yolosharp_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

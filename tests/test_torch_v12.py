@@ -31,6 +31,9 @@ from yolosharp_tpu.nn import common as jc
 from yolosharp_tpu.tasks import YoloTask as JaxYoloTask
 from yolosharp_tpu.types import TaskType, YoloSize, YoloType
 from yolosharp_tpu_torch import Config, ScalarType, YoloTask
+from yolosharp_tpu_torch import TaskType as PortTaskType
+from yolosharp_tpu_torch import YoloSize as PortYoloSize
+from yolosharp_tpu_torch import YoloType as PortYoloType
 from yolosharp_tpu_torch.ckpt import (bias_init, clone_one2one, fold_bn,
                                       state_dict_from_jax)
 from yolosharp_tpu_torch.loss import flatten_levels
@@ -241,7 +244,7 @@ def test_v12_load_model_skips_the_head_classes_on_nc_mismatch(tmp_path):
     """save_weight of a v12n, then load_model into an nc=5 v12n with
     skip_nc_not_equal_layers: only the class towers of head 21 are
     skipped."""
-    kw = dict(yolo_type=YoloType.v12, yolo_size=YoloSize.n,
+    kw = dict(yolo_type=PortYoloType.v12, yolo_size=PortYoloSize.n,
               scalar_type=ScalarType.float32, end2end=False)
     path = str(tmp_path / "v12n.bin")
     YoloTask(Config(number_class=NC, **kw), device="cpu").save_weight(path)
@@ -269,7 +272,11 @@ def tasks(request):
         variables = jax_clone_one2one(variables)
     det.variables = variables
 
-    port = YoloTask(Config(scalar_type=ScalarType.float32, **kw),
+    # the port's config from the port's own enums
+    port_kw = dict(kw, task_type=PortTaskType(kw["task_type"].value),
+                   yolo_type=PortYoloType(kw["yolo_type"].value),
+                   yolo_size=PortYoloSize(kw["yolo_size"].value))
+    port = YoloTask(Config(scalar_type=ScalarType.float32, **port_kw),
                     device="cpu")
     port.task._ensure_variables().load_state_dict(
         state_dict_from_jax(variables), strict=True)

@@ -7,17 +7,16 @@ so far:
     task = YoloTask(Config(...))            # device="cuda" by default
     results = task.image_predict(rgb_uint8_array)
 
-It imports torch and never jax; it reuses the JAX package's numpy-only
-modules (Config, result types, checkpoint file formats). The 3x3 conv,
-fused C2f and attention layers run hand-written CUDA kernels (``kernels/``,
+It imports torch and nothing of jax or of the JAX package: the numpy-only
+modules it shares with that package (Config, result types, checkpoint file
+formats and name map) are copies under the same names. The 3x3 conv, fused
+C2f and attention layers run hand-written CUDA kernels (``kernels/``,
 ``csrc/``).
 """
 
-from yolosharp_tpu.types import (ScalarType, TaskType, YoloResult, YoloSize,
-                                 YoloType)
-
 from .config import Config
 from .tasks import Detector, YoloTask
+from .types import ScalarType, TaskType, YoloResult, YoloSize, YoloType
 
 __all__ = ["Config", "Detector", "ScalarType", "TaskType", "YoloResult",
            "YoloSize", "YoloTask", "YoloType"]

@@ -2,32 +2,147 @@
 modules (counterpart of yolosharp_tpu/ckpt/mapping.py).
 
 The port's modules already carry Ultralytics state-dict names, so a JAX
-variables tree crosses over through the JAX package's own numpy exporter
-(``variables_to_state_dict``) and checkpoint files load by name.
+variables tree crosses over by the JAX package's rename + layout transpose
+(``variables_to_state_dict``, copied here with ``flatten``, ``head_index``,
+``LoadReport`` and ``skip_patterns_for_nc_mismatch``) and checkpoint files
+load by name.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from yolosharp_tpu.ckpt.mapping import LoadReport, variables_to_state_dict
+_TRANSPOSE_CT = ("upsample", "conv_transpose")  # torch (cin,cout,kh,kw)
+
+
+def flatten(tree, prefix=()) -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, prefix + (k,)))
+        else:
+            out[".".join(prefix + (k,))] = v
+    return out
+
+
+class LoadReport:
+    def __init__(self):
+        self.loaded = []
+        self.skipped = []
+        self.missing = []
+        self.unexpected = []
+
+    def __repr__(self):
+        return (f"LoadReport(loaded={len(self.loaded)}, "
+                f"skipped={len(self.skipped)}, missing={len(self.missing)}, "
+                f"unexpected={len(self.unexpected)})")
+
+
+def head_index(params: dict) -> int:
+    """Layer index of the task head (largest numeric top-level name)."""
+    return max(int(k) for k in params.keys() if k.isdigit())
+
+
+def skip_patterns_for_nc_mismatch(task: str, head_idx: int,
+                                  state_dict, nc: int,
+                                  nk: Optional[int] = None
+                                  ) -> Tuple[str, ...]:
+    """Reference skipNcNotEqualLayers semantics (YoloBaseTaskModel.cs:41-98)."""
+    pats = []
+    if task == "classify":
+        pat = rf"model\.{head_idx}\.linear"
+        keys = [k for k in state_dict if re.search(pat + r".+bias", k)
+                or re.search(pat + r"\.bias", k)]
+        if keys and state_dict[keys[-1]].shape[0] != nc:
+            pats.append(pat)
+        return tuple(pats)
+    pat_cv3 = rf"model\.{head_idx}\.cv3"
+    keys = [k for k in state_dict if re.search(pat_cv3 + r".+bias", k)]
+    if keys and state_dict[keys[-1]].shape[0] != nc:
+        pats.append(pat_cv3)
+    if task == "pose" and nk is not None:
+        pat_cv4 = rf"model\.{head_idx}\.cv4"
+        keys4 = [k for k in state_dict if re.search(pat_cv4 + r".+bias", k)]
+        if keys4 and state_dict[keys4[-1]].shape[0] != nk:
+            pats.append(pat_cv4)
+    return tuple(pats)
+
+
+def variables_to_state_dict(variables, reg_max: int = 16,
+                            include_one2one: bool = False,
+                            dtype=np.float32) -> Dict[str, np.ndarray]:
+    """Export a JAX variables tree ({"params", "batch_stats"} of arrays, or
+    of anything ``np.asarray`` takes) as a torch-named state dict.
+
+    Emits synthetic `dfl.conv.weight` (the fixed arange projection) and
+    `num_batches_tracked` buffers so the tensor COUNT matches what the C#
+    reference expects on load (it falls back to random weights on count
+    mismatch, YoloBaseTaskModel.cs:32-35). one2one branches are excluded by
+    default, as in SaveWeight (YoloBaseTaskModel.cs:474-480).
+    """
+    params_flat = flatten(variables["params"])
+    stats_flat = flatten(variables.get("batch_stats", {}))
+    head_idx = head_index(variables["params"])
+    out: Dict[str, np.ndarray] = {}
+
+    def put(key, val):
+        out["model." + key] = np.asarray(val).astype(dtype)
+
+    for key, val in params_flat.items():
+        if not include_one2one and "one2one" in key:
+            continue
+        stem, leaf = key.rsplit(".", 1)
+        parent = stem.rsplit(".", 1)[-1]
+        val = np.asarray(val)
+        if leaf == "scale":
+            put(f"{stem}.weight", val)
+        elif leaf == "kernel":
+            if val.ndim == 4:
+                perm = (2, 3, 0, 1) if parent in _TRANSPOSE_CT else (3, 2, 0, 1)
+                put(f"{stem}.weight", np.transpose(val, perm))
+            else:
+                put(f"{stem}.weight", val.T)
+        elif leaf == "weight" and val.ndim == 2:
+            # torch-named linear weights stored (in, out) -> save (out, in)
+            put(key, val.T)
+        else:
+            put(key, val)
+    for key, val in stats_flat.items():
+        if not include_one2one and "one2one" in key:
+            continue
+        stem, leaf = key.rsplit(".", 1)
+        name = {"mean": "running_mean", "var": "running_var"}[leaf]
+        put(f"{stem}.{name}", val)
+        put(f"{stem}.num_batches_tracked",
+            np.zeros((), dtype=np.int64))
+    # fixed DFL projection conv (Block.cs DFL ctor, Modules/Block.cs:26-33)
+    if any(k.startswith(f"{head_idx}.cv2.") for k in params_flat):
+        put(f"{head_idx}.dfl.conv.weight",
+            np.arange(reg_max, dtype=np.float32).reshape(1, reg_max, 1, 1))
+    return out
 
 
 def _tensor(arr) -> torch.Tensor:
+    """A state-dict entry as a torch tensor: floating types (bf16 / fp16
+    files) as float32, integers and bools as they are; always a copy."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).clone()
     a = np.asarray(arr)
-    if a.dtype.kind not in "iub":   # bf16 / fp16 files load as float32
+    if a.dtype.kind not in "iub":
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a))   # a copy; keeps 0-d shapes
 
 
 def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """A JAX variables tree as a torch state dict (one2one towers included)
-    that ``YoloNet.load_state_dict(..., strict=True)`` takes."""
+    """A JAX variables tree (of numpy arrays, or of anything ``np.asarray``
+    takes) as a torch state dict (one2one towers included) that
+    ``YoloNet.load_state_dict(..., strict=True)`` takes."""
     sd = variables_to_state_dict(variables, include_one2one=True)
     return {k: _tensor(v) for k, v in sd.items()}
 
@@ -60,7 +175,7 @@ def load_state_dict_into(net: nn.Module, state_dict,
         if any(c.search(key) for c in compiled):
             report.skipped.append(key)
             continue
-        t = arr if isinstance(arr, torch.Tensor) else _tensor(arr)
+        t = _tensor(arr)
         if key not in own or tuple(own[key].shape) != tuple(t.shape):
             report.unexpected.append(key)
             continue

@@ -1,24 +1,129 @@
-"""Config for the port: the JAX package's ``Config`` (numpy-only, reused by
-import) plus the torch dtype map and device resolution.
+"""Config for the port: a copy of the JAX package's ``Config`` dataclass
+(yolosharp_tpu/config.py; same fields, same defaults) plus the torch dtype
+map and device resolution.
 
-``Config.compute_dtype`` imports jax.numpy, so the port never calls it and
-maps ``Config.scalar_type`` itself. ``Config.pallas_conv`` is a TPU routing
-knob: the port keeps the field and ignores it (on CUDA every layer its
-kernels can compute goes through them)."""
+Parity target: Data/Config.cs:10-355. ``compute_dtype`` (a jax.numpy dtype)
+is not copied: ``torch_dtype`` takes its place. The fields under "TPU-only
+knobs" are routing and layout switches of the JAX package; the port keeps
+them so that a config carries over unchanged, and ignores them (on CUDA
+every layer its kernels can compute goes through them)."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import dataclasses
+import os
+from typing import Optional, Tuple, Union
 
 import torch
 
-from yolosharp_tpu.config import Config
-from yolosharp_tpu.types import ScalarType
+from .types import (AutoAugmentType, ImageProcessType, ScalarType, TaskType,
+                    YoloSize, YoloType)
+
+
+@dataclasses.dataclass
+class Config:
+    root_path: str = "Assets/DataSets/coco128"
+    train_data_path: str = "train.txt"
+    val_data_path: str = "val.txt"
+    output_path: str = ""
+
+    image_size: int = 640
+    batch_size: int = 16
+    number_class: int = 80
+    epochs: int = 100
+    predict_threshold: float = 0.3
+    iou_threshold: float = 0.7
+    # parity field: the reference's only consumer is a commented-out SGD
+    # (YoloBaseTaskModel.cs:140)
+    learning_rate: float = 1e-4
+    use_cos_lr: bool = False
+    lrf: float = 0.01
+    workers: int = min((os.cpu_count() or 8) // 2, 4)
+
+    yolo_type: YoloType = YoloType.v8
+    yolo_size: YoloSize = YoloSize.n
+    task_type: TaskType = TaskType.detect
+    # reference default is Float16 (Config.cs:105); computed in bfloat16
+    # unless true_fp16
+    scalar_type: ScalarType = ScalarType.float16
+    image_process_type: ImageProcessType = ImageProcessType.mosaic
+
+    patience: int = 50
+    keypoint_num: int = 17
+    keypoint_dim: int = 3
+
+    hsv_v: float = 0.4
+    hsv_s: float = 0.7
+    hsv_h: float = 0.015
+    mask_ratio: int = 4
+    mosaic: float = 1.0
+    # parity field: the reference's Mosaic always runs _mosaic4
+    mosaic_count: int = 4
+    degrees: float = 0.0
+    translate: float = 0.1
+    scale: float = 0.5
+    shear: float = 0.0
+    perspective: float = 0.0
+    flip_lr: float = 0.5
+    flip_ud: float = 0.0
+
+    classify_ratio_max: float = 4.0 / 3
+    classify_ratio_min: float = 0.75
+    classify_scale_max: float = 1.0
+    classify_scale_min: float = 0.08
+    erasing: float = 0.4
+    auto_augment: AutoAugmentType = AutoAugmentType.autoaugment
+
+    warm_up_epochs: int = 3
+    warm_up_bias_lr: float = 0.1
+    close_mosaic: int = 0
+    end2end: bool = True
+
+    # ---- additions of the JAX package (no reference counterpart) ----
+    # candidate cap of predict-time NMS; NMSOutput.truncated flags images
+    # with more above-threshold anchors. None = all anchors (exact).
+    nms_pre_topk: Optional[int] = 2048
+    # fold BatchNorm into the conv weights for predict (Convs.cs:58-61)
+    fuse_inference: bool = True
+    # ---- TPU-only knobs: kept so configs carry over, ignored by the port
+    pallas_conv: bool = False
+    s2d_max_cin: int = 0
+    int8_predict: bool = False
+    device_augment: bool = True
+    mosaic_partner_pool: int = 0
+    fsdp: bool = False
+    # True fp16 compute with dynamic loss scaling (Amp.cs:3-176); the
+    # port's kernels take float32 and bfloat16 only
+    true_fp16: bool = False
+    host_s2d: Optional[bool] = None
+    host_s2d_deep: bool = True
+    host_s2d_deeper: bool = True
+    head_tower_fuse: bool = False
+    train_packed_render: bool = True
+    train_packed_depth: int = 2
+    separable_render: bool = True
+    xla_predict_tuning: bool = True
+    profile_dir: Optional[str] = None
+    resume_format: str = "npz"
+    val_shape_buckets: int = 4
+    occupancy_hint: bool = True
+    max_labels: Optional[int] = None   # per-image gt padding (None = auto)
+    mesh_shape: Optional[Tuple[int, ...]] = None  # data-parallel mesh (auto)
+    cache_images: bool = True          # eager RAM cache like the reference
+
+    @property
+    def kpt_shape(self) -> Tuple[int, int]:
+        return (self.keypoint_num, self.keypoint_dim)
+
+    def describe(self) -> str:
+        return "\n".join(f"{f.name}: {getattr(self, f.name)}"
+                         for f in dataclasses.fields(self))
 
 
 def torch_dtype(config: Config) -> torch.dtype:
     """float32 -> torch.float32; float16 / bfloat16 -> torch.bfloat16
-    (torch.float16 when ``config.true_fp16``), as Config.compute_dtype."""
+    (torch.float16 when ``config.true_fp16``), as the JAX package's
+    ``Config.compute_dtype``."""
     if config.scalar_type == ScalarType.float32:
         return torch.float32
     return torch.float16 if config.true_fp16 else torch.bfloat16
@@ -28,7 +133,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device to run on; None means ``cuda``. Asking for CUDA where
     there is none raises: there is no silent CPU fallback (pass
-    ``device="cpu"`` to run on the CPU)."""
+    ``device="cpu"`` to run the port on the CPU)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

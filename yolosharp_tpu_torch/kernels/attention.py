@@ -3,21 +3,33 @@
 (``nn.attention.AAttn``) hands it.
 
 Replaces the Pallas kernel ``yolosharp_tpu/kernels/attention.py``
-``fused_attention`` (``_attn_kernel``) with one hand-written CUDA kernel,
-``csrc/attention.cu``. The functions keep the JAX signatures and compute what
-the TPU kernel body computes: q, k and v in float32, softmax(q*scale @ k^T)
-@ v with float32 probabilities, the output rounded to q's type once.
+``fused_attention`` (``_attn_kernel``) with hand-written CUDA,
+``csrc/attention.cu``. The functions keep the JAX signatures and compute
+what the TPU kernel body computes: softmax(q*scale @ k^T) @ v with float32
+scores and sums, the output rounded to q's type once. The kernels read q, k
+and v as strided views (unit stride in D), so AAttn's qkv split costs no
+copies; edges are masked, so there is no limit on N and none of the TPU
+kernel's row padding.
 
-What bounds it on the card: a sequence of N rows does 4*N*N*D operations on
-3*N*D inputs (at N=400, D=32: ~20 MFLOP over ~77 KB of bf16), so it is
-compute bound; the (N, N) scores are what a plain version pays for in device
-memory. Design: a flash-style forward on the CUDA cores. A block owns 64
-query rows of one sequence; each row keeps its running max, running sum and
-float32 output in registers, key/value tiles of 64 are staged in shared
-memory, and the scores never leave the block. Edges are masked, so there is
-no limit on N and none of the TPU kernel's row padding. The kernel reads q,
-k and v as strided views (unit stride in D), so the qkv split costs no
-copies. Tensor cores (``mma.sync`` / ``wgmma``) are later work.
+What bounds it on an H100 (v12s at 640x640, batch 32, D = 32, N = 400):
+the layer-6 call (512 sequences) reads its strided qkv and writes o, 52 MB
+(15.6 us at 3.35 TB/s), for 10.5 GFLOP (10.6 us at 989 TFLOP/s in bf16) and
+82 M exponentials (~22 us at 16 ex2 a clock per SM): bound by bytes, with
+the exp unit the practical floor. The layer-8 call is half of that.
+
+- bfloat16: a tensor-core kernel (``mma.sync`` m16n8k16, f32 sums). A block
+  stages its sequence's K and V once as bf16 in shared memory (cp.async,
+  16-byte chunks XOR-swizzled for conflict-free ``ldmatrix``: 51 KB at
+  N = 400, four blocks an SM) and its warps walk their 16-row query tiles
+  against it, P held in registers as the A operand of P V, exponentials by
+  ``ex2.approx`` with log2(e) folded into the scale. Sequences too long for
+  one block's shared memory (``kv_keys``) are streamed in chunks.
+  ``launch_geometry`` spreads each sequence's query tiles over ``splits``
+  blocks so that small batches still fill the SMs, with 8 warps a block
+  where a staged sequence takes a whole SM (N = 1600 at D = 32). P is rounded to bf16
+  for P V, as the JAX package's off-TPU einsum path does.
+- float32: the flash-style CUDA-core kernel (64 query rows a block, 64-key
+  float32 tiles, online softmax); TF32 would break the float32 contract.
 
 On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA tensor
 they launch the kernel or raise. Both count launches in
@@ -28,12 +40,49 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from . import build
+from .build import SMEM_LIMIT
 
 HEAD_DIMS = (16, 32, 64, 128)
+# the bfloat16 kernel's layout (csrc/attention.cu), which checks what it gets
+KEY_TILE = 64          # keys a softmax step (kKT)
+SM_SMEM = 233472       # shared memory of an SM (each block also takes 1 KB)
+STREAM_SMEM = 96 * 1024  # staged K and V of a sequence that does not fit
+MAX_BLOCKS = 4         # resident blocks an SM that the splits aim at
+
+
+def smem_bytes(keys: int, D: int) -> int:
+    """Shared memory of one bf16 block: K and V rows of D bf16."""
+    return 2 * keys * D * 2
+
+
+def kv_keys(N: int, D: int) -> int:
+    """Keys of K and V the bf16 kernel stages at once: all N (rounded up to
+    16) where they fit one block's shared memory, else chunks of a multiple
+    of the key tile that fit ``STREAM_SMEM``."""
+    whole = -(-N // 16) * 16
+    if smem_bytes(whole, D) <= SMEM_LIMIT:
+        return whole
+    return STREAM_SMEM // smem_bytes(KEY_TILE, D) * KEY_TILE
+
+
+def launch_geometry(BH: int, N: int, D: int,
+                    sms: int) -> Tuple[int, int, int]:
+    """(splits, staged keys, warps a block) of the bf16 kernel for BH
+    sequences of N rows on a card of sms SMs: each sequence's 16-row query
+    tiles are spread over ``splits`` blocks so that the grid fills the
+    blocks the SMs hold at once (by shared memory, at most MAX_BLOCKS an SM)
+    without a second wave, one block per sequence where the batch alone does
+    that, and never more blocks than tiles. A block has 4 warps, or 8 where
+    its staged keys leave room for only one block an SM."""
+    keys = kv_keys(N, D)
+    per_sm = max(1, min(MAX_BLOCKS, SM_SMEM // (smem_bytes(keys, D) + 1024)))
+    splits = max(1, min(-(-N // 16), sms * per_sm // BH))
+    return splits, keys, 8 if per_sm == 1 else 4
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,7 +100,8 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
     return lib
 
 
@@ -66,10 +116,12 @@ def _launch(name: str, q, k, v, o, scale: float) -> None:
         raise ValueError(f"{name}: head dim {D} is not one of {HEAD_DIMS}")
     code, stream = build.launch_args(name, q, k, v, o, strided=True)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    geometry = (launch_geometry(B * H, N, D, build.sm_count(q.device.index))
+                if q.dtype == torch.bfloat16 else (0, 0, 0))
     with torch.cuda.device(q.device):
         status = _lib().ys_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, N,
-            D, *strides, float(scale), code, stream)
+            D, *strides, float(scale), code, *geometry, stream)
     build.check_status(name, status)
 
 

@@ -47,6 +47,7 @@ def find_nvcc() -> str:
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232448   # shared memory one block may use on Hopper
 
 
 def launch_args(name: str, *tensors, strided: bool = False):

@@ -41,9 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .build import SMEM_LIMIT
 from .conv3x3 import conv3x3_plain
 
-SMEM_LIMIT = 232448   # shared memory one block may use on Hopper
 # the bf16 layout of csrc/c2f.cu (tc_bytes), which checks the tile it is given
 _CHUNK = 32           # input channels staged per chunk (kKC)
 _WPITCH = 256 + 8     # weight chunk row pitch of the bf16 route (kWP)

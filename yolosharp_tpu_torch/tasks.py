@@ -19,17 +19,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from yolosharp_tpu.ckpt import (load_state_dict_file, save_bin,
-                                skip_patterns_for_nc_mismatch)
-from yolosharp_tpu.types import TaskType, YoloResult
-
 from .ckpt import (bias_init, clone_one2one, export_state_dict, fold_bn,
-                   load_state_dict_into)
+                   load_state_dict_file, load_state_dict_into, save_bin,
+                   skip_patterns_for_nc_mismatch)
 from .config import Config, resolve_device, torch_dtype
 from .nn import ArchCfg, YoloNet
 from .ops.nms import NMSOutput, non_max_suppression
 from .predict import (decode_inference, decode_inference_topk,
                       e2e_postprocess, pad_to_multiple)
+from .types import TaskType, YoloResult
 
 
 def _warn_if_truncated(nms_out) -> None:
