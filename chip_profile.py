@@ -1,12 +1,17 @@
 """Where the time goes (PERF.md section 5): v8s / v12s-640 bf16 batch_predict
-of 32 on one GPU, with chip_smoke.py's seeded weights, images and conf.
+of 32 on one GPU, with chip_smoke.py's seeded weights, images and conf, or
+their bf16 train step at batch 16.
 
-    python3 chip_profile.py [v8] [v12]
+    python3 chip_profile.py [v8] [v12] [train]
 
 For each path and End2End mode: 5 unprofiled walls, the network forward
 alone (CUDA events), and a torch.profiler trace of 3 calls: the device's
 busy time and idle share of the traced window, and device time by kernel
-family and by kernel name. Exits non-zero without a CUDA device.
+family and by kernel name. `train`: for v8s and v12s (End2End, the Config
+default), the train step of train.py on one in-memory batch of 16 640x640
+images with 1-32 boxes each in 32 label slots (no loader): 5 unprofiled
+steps (each ends in its host sync), then a trace of 3 steps, reported the
+same way. Exits non-zero without a CUDA device.
 """
 import sys
 import time
@@ -38,8 +43,86 @@ def family(name):
     return "other"
 
 
+def report(mode, prof, window, calls):
+    """Device busy time and idle share of the traced window, device time
+    by kernel family and the largest kernels by name."""
+    # device events, without the GPU spans of record_function ranges such
+    # as "Optimizer.step#AdamW.step", which cover kernels and the gaps
+    # between them
+    kern = [ev for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in kern)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    busy /= 1e3
+    print(f"[{mode}] profiled window {window:.2f} ms for {calls} calls; "
+          f"device busy {busy:.2f} ms ({busy / calls:.2f} per call); idle "
+          f"share {1 - busy / window:.3f}", flush=True)
+    fam, names = {}, {}
+    for ev in kern:
+        d = (ev.time_range.end - ev.time_range.start) / 1e3
+        fam[family(ev.name)] = fam.get(family(ev.name), 0.0) + d
+        k = names.setdefault(ev.name, [0.0, 0])
+        k[0] += d
+        k[1] += 1
+    tot = sum(fam.values())
+    for f, d in sorted(fam.items(), key=lambda t: -t[1]):
+        print(f"    {f}: {d / calls:.3f} ms per call, {d / tot:.3f} of "
+              f"kernel time", flush=True)
+    for n, (d, c) in sorted(names.items(), key=lambda t: -t[1][0])[:14]:
+        print(f"        {d / calls:8.3f} ms/call  x{c // calls:<4d} "
+              f"{n[:110]}", flush=True)
+
+
+def profile_train(version):
+    from yolosharp_tpu_torch.data import to_device
+    from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
+                                           make_train_step)
+
+    det = YoloTask(Config(yolo_type=YoloType(version), yolo_size=YoloSize.s,
+                          number_class=80), device=dev).task
+    net = det._ensure_variables().to(memory_format=torch.channels_last)
+    opt, scheds = make_optimizer(net, nc=80, epochs=1, steps_per_epoch=10)
+    state = TrainState(net, opt, scheds)
+    step = make_train_step(det._loss_fns()[0], compute_dtype=det.dtype)
+    batch = to_device(cs.train_batch(cs.TRAIN_BATCH, cs.TRAIN_SIZE, 60,
+                                     slots=32), dev)
+    mode = f"{version}s train b{cs.TRAIN_BATCH} {cs.TRAIN_SIZE}"
+    for _ in range(2):
+        step(state, batch, {})
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step(state, batch, {})
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[{mode}] unprofiled steps ms: {[round(w, 2) for w in walls]}",
+          flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch, {})
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    report(mode, prof, window, 3)
+
+
 versions = sys.argv[1:] or ["v8", "v12"]
 for version in versions:
+    if version == "train":
+        for v in ("v8", "v12"):
+            profile_train(v)
+        continue
     master = YoloTask(Config(yolo_type=YoloType(version),
                              yolo_size=YoloSize.s, number_class=80,
                              end2end=True), device=dev)
@@ -89,35 +172,4 @@ for version in versions:
                 task.batch_predict(batch, conf)
             torch.cuda.synchronize()
             window = (time.perf_counter() - t0) * 1e3
-        kern = [ev for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((ev.time_range.start, ev.time_range.end)
-                       for ev in kern)
-        busy, cur_s, cur_e = 0.0, None, None
-        for a, b in spans:
-            if cur_e is None or a > cur_e:
-                if cur_e is not None:
-                    busy += cur_e - cur_s
-                cur_s, cur_e = a, b
-            else:
-                cur_e = max(cur_e, b)
-        if cur_e is not None:
-            busy += cur_e - cur_s
-        busy /= 1e3
-        print(f"[{mode}] profiled window {window:.2f} ms for 3 calls; device "
-              f"busy {busy:.2f} ms ({busy / 3:.2f} per call); idle share "
-              f"{1 - busy / window:.3f}", flush=True)
-        fam, names = {}, {}
-        for ev in kern:
-            d = (ev.time_range.end - ev.time_range.start) / 1e3
-            fam[family(ev.name)] = fam.get(family(ev.name), 0.0) + d
-            k = names.setdefault(ev.name, [0.0, 0])
-            k[0] += d
-            k[1] += 1
-        tot = sum(fam.values())
-        for f, d in sorted(fam.items(), key=lambda t: -t[1]):
-            print(f"    {f}: {d / 3:.3f} ms per call, {d / tot:.3f} of kernel "
-                  f"time", flush=True)
-        for n, (d, c) in sorted(names.items(), key=lambda t: -t[1][0])[:14]:
-            print(f"        {d / 3:8.3f} ms/call  x{c // 3:<4d} {n[:110]}",
-                  flush=True)
+        report(mode, prof, window, 3)

@@ -40,6 +40,43 @@ Phases (any failure exits non-zero; nothing is caught):
   4. / 4b. each path's float32 predict of one image on the card against the
      CPU's float32 predict through the plain versions.
 
+Training (the attention is the only kernel on the train path; the conv and
+C2f kernels serve predict only and must not launch there):
+  5. the attention under autograd at the v12s batch-16 640x640 train
+     shapes, (64, 400, 4, 32) and (16, 400, 8, 32) in (B, N, H, D), each
+     with the variant it takes: the kernel's forward (an output with a
+     grad_fn, one launch) against the plain version's output at the
+     tolerances of phase 2, and with the plain backward against full plain
+     autograd, gradients of q, k and v: float32 |d| <= 1e-4 + 1e-4|ref|,
+     bfloat16 max|d| / max|ref| < 2e-2; forward + backward ms of the kernel
+     route, plain autograd and SDPA (CUDA events).
+  6. one float32 train step of v8n and v12n (End2End) at 128x128, batch 2,
+     card against CPU, same seeded weights and uint8 batch: loss items to
+     1e-4 relative. The leaves whose gradient is 0 by construction (a conv
+     bias that a train-mode BN removes, as in AAttn's pe; SPPF's cv1 BN
+     bias) must read |g| <= 1e-6 G on both devices, G the net's largest
+     gradient, and are printed. Every other leaf: gradients |g_card - g_cpu|
+     <= 1e-3 max|g_cpu| per tensor; each parameter's change |dp_card -
+     dp_cpu| <= 1e-3 max|dp_cpu| + 1e-8 wherever the two gradients fix
+     AdamW's first update, lr * g / (|g| + eps) (the count of elements
+     outside the rule where they do not, a near-zero gradient whose sign or
+     size the other device's rounding moves, is printed); BN running
+     statistics |d| <= 1e-5 (|ref| + max|ref|) per tensor (running means near
+     0 sit within the rounding of far larger sums; the plain |d| / |ref| is
+     printed beside it).
+  7. YoloTask.train() of v8s at full width, 640x640, batch 16, bfloat16,
+     one epoch, on a synthetic dataset that this script writes as PNG with
+     adaptive row filters (the filter mix is printed; 160 train and 32 val
+     images of 480-800 px a side, 1-8 solid rectangles each, YOLO txt
+     labels): steps, median ms a step after the
+     first two (each step ends in its host sync), img/s, the share of the
+     step loop spent waiting on the loader, val seconds and metrics, peak
+     device memory; finite losses, the five output files, and best.bin
+     loaded into a fresh YoloTask whose image_predict runs.
+  7b. v12s on the same data: the seconds to build its train YoloDataset
+     (PNG decode without cv2 and resize), one epoch (10 steps) through the
+     port's train step, ms a step, and 8 attention launches a forward.
+
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
 The second-to-last line is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -47,10 +84,14 @@ The second-to-last line is a JSON object of the kernels; the last line is
 
 from __future__ import annotations
 
+import csv
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -666,6 +707,405 @@ def phase_cpu_match(dev, version, state, conf):
             raise SystemExit(f"[{mode}] a kernel did not run in float32")
 
 
+# ------------------------------------------------------------------ train
+# the attention shapes of a v12s batch-16 640x640 train forward, (B, N, H, D)
+TRAIN_ATTN = {"layer 6": (16 * 4, 400, 4, 32), "layer 8": (16, 400, 8, 32)}
+TRAIN_BATCH, TRAIN_SIZE = 16, 640
+
+
+def time_eager(fns: dict, iters: int = 5) -> dict:
+    """{name: ms a call}: CUDA events around iters eager calls, in turns
+    (forward then backward order of fns), after one warm-up call each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for name in [*fns, *reversed(fns)]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fns[name]()
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end) / iters)
+    return {name: float(np.mean(t)) for name, t in times.items()}
+
+
+def phase_attention_autograd(dev, tag: str) -> dict:
+    """Phase 5; returns the bf16 sums of the three routes' forward +
+    backward ms over the two shapes."""
+    from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
+                                             fused_attention)
+
+    print("phase 5: fused_attention under autograd (kernel forward, plain "
+          "backward) against plain autograd, v12s b16 640x640 train shapes",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sums = {"autograd_ms": 0.0, "autograd_plain_ms": 0.0,
+            "autograd_library_ms": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for layer, (b, n, h, d) in TRAIN_ATTN.items():
+            var = variant("attn", dtype, b, (1, h, n, d), sms)
+            scale = d ** -0.5
+            qkv = torch.randn(b, n, h, 3 * d, generator=g,
+                              device=dev).to(dtype)
+            grad_out = torch.randn(b, n, h, d, generator=g,
+                                   device=dev).to(dtype)
+
+            def bhnd(q, k, v):
+                return [x.transpose(1, 2) for x in (q, k, v)]
+
+            routes = {
+                "plain": lambda q, k, v: attention_plain(
+                    *bhnd(q, k, v), scale).transpose(1, 2),
+                "kernel": lambda q, k, v: attention_bihd(q, k, v, scale),
+                "library": lambda q, k, v: F.scaled_dot_product_attention(
+                    *bhnd(q, k, v), scale=scale).transpose(1, 2)}
+
+            def run(route):
+                t = qkv.clone().requires_grad_()
+                out = routes[route](*t.split(d, dim=-1))
+                out.backward(grad_out)
+                return out, t.grad
+
+            before = fused_attention.launches
+            out, got = run("kernel")
+            if out.grad_fn is None or fused_attention.launches != before + 1:
+                raise SystemExit("attention under autograd: no grad_fn or "
+                                 "no kernel launch")
+            want_out, want = run("plain")
+            # the forward under autograd, at the tolerances of phase 2
+            compare(f"{layer} {str(dtype)[6:]} (B, N, H, D) = {(b, n, h, d)} "
+                    f"[{var}] output", out.detach(), want_out.detach(), dtype,
+                    "attn")
+            got, want = got.float(), want.float()
+            err = (got - want).abs()
+            if dtype == torch.float32:
+                bad = int((err > 1e-4 + 1e-4 * want.abs()).sum())
+                ok, rule = bad == 0, f"|k-p| <= 1e-4 + 1e-4|p| ({bad} outside)"
+            else:
+                rel = float(err.max() / want.abs().max())
+                ok, rule = rel < 2e-2, f"max|k-p|/max|p| = {rel:.3e} < 2e-2"
+            ok = ok and bool(torch.isfinite(got).all())
+            print(f"  {layer} {str(dtype)[6:]} (B, N, H, D) = {(b, n, h, d)} "
+                  f"[{var}]: dq dk dv max_abs_err {float(err.max()):.3e} {rule} "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SystemExit("attention gradients disagree with plain "
+                                 "autograd")
+            t = time_eager({r: (lambda r=r: run(r)) for r in routes})
+            print(f"    {tag}: forward + backward {t['kernel']:.3f} ms "
+                  f"kernel route, {t['plain']:.3f} ms plain autograd, "
+                  f"{t['library']:.3f} ms SDPA (CUDA events, eager, mean "
+                  f"of 10)", flush=True)
+            if dtype == torch.bfloat16:
+                sums["autograd_ms"] += t["kernel"]
+                sums["autograd_plain_ms"] += t["plain"]
+                sums["autograd_library_ms"] += t["library"]
+    return sums
+
+
+def train_batch(n, size, seed, slots=3):
+    """A uint8 batch with padded labels (1 to `slots` valid), numpy."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.25, 0.75, (n, slots, 2))
+    wh = rng.uniform(0.1, 0.5, (n, slots, 2))
+    mask = np.arange(slots)[None] < rng.integers(1, slots + 1, (n, 1))
+    return {"images": np.stack(synthetic_images(n, size, size, seed)),
+            "cls": rng.integers(0, 80, (n, slots)).astype(np.int32),
+            "bboxes": np.where(mask[..., None], np.concatenate([c, wh], -1),
+                               0).astype(np.float32),
+            "mask_gt": mask}
+
+
+def zero_gradient_leaves(net) -> set:
+    """Parameters whose gradient in a train-mode step is 0 by construction:
+    the bias of a conv that a train-mode BN follows (the BN subtracts the
+    batch mean, bias included), and the BN bias of SPPF's cv1, which has no
+    activation (the max pools commute with a per-channel shift, and cv2's
+    train-mode BN removes the shift that its 1x1 conv makes of it)."""
+    from yolosharp_tpu_torch.nn.common import SPPF, ConvBN
+
+    names = set()
+    for name, m in net.named_modules():
+        if isinstance(m, ConvBN) and m.conv.bias is not None:
+            names.add(f"{name}.conv.bias")
+        elif isinstance(m, SPPF) and m.cv1.act == "identity":
+            names.add(f"{name}.cv1.bn.bias")
+    return names
+
+
+def phase_train_step_cpu_match(dev):
+    """Phase 6."""
+    from yolosharp_tpu_torch import (Config, ScalarType, YoloSize, YoloTask,
+                                     YoloType)
+    from yolosharp_tpu_torch.data import to_device
+    from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
+                                           make_train_step)
+
+    print("phase 6: one float32 train step (End2End) at 128x128, batch 2, "
+          "card against CPU, same seeded weights and batch", flush=True)
+    batch = train_batch(2, 128, 40)
+    for version in PATHS:
+        cfg = Config(yolo_type=YoloType(version), yolo_size=YoloSize.n,
+                     number_class=80, scalar_type=ScalarType.float32)
+        res = []
+        for d in (dev, torch.device("cpu")):
+            task = YoloTask(cfg, device=d)
+            net = task.task._ensure_variables().to(
+                memory_format=torch.channels_last)
+            opt, scheds = make_optimizer(net, nc=80, epochs=1,
+                                         steps_per_epoch=1)
+            state = TrainState(net, opt, scheds)
+            before = {n: p.detach().clone() for n, p in net.named_parameters()
+                      if p.requires_grad}
+            _, items = make_train_step(task.task._loss_fns()[0])(
+                state, to_device(batch, d), {})
+            res.append({
+                "items": items.cpu(),
+                "delta": {n: (p.detach() - before[n]).cpu()
+                          for n, p in net.named_parameters() if n in before},
+                "grad": {n: p.grad.cpu() for n, p in net.named_parameters()
+                         if n in before},
+                "stats": {k: v.cpu() for k, v in net.state_dict().items()
+                          if k.endswith(("running_mean", "running_var"))}})
+        card, cpu = res
+        rel = ((card["items"] - cpu["items"]).abs()
+               / cpu["items"].abs()).max()
+        print(f"  [{version}n] loss items card {card['items'].tolist()} cpu "
+              f"{cpu['items'].tolist()}: max rel {float(rel):.3e} < 1e-4",
+              flush=True)
+        zero = zero_gradient_leaves(net)
+        g_all = max(float(g.abs().max()) for g in cpu["grad"].values())
+        # the leaves whose gradient is 0 by construction: rounding noise on
+        # both devices, held to 1e-6 G, their updates lr * sign(noise)
+        noise = {n: (float(card["grad"][n].abs().max()),
+                     float(cpu["grad"][n].abs().max())) for n in sorted(zero)}
+        noise_bad = sum(max(v) > 1e-6 * g_all for v in noise.values())
+        print(f"  [{version}n] {len(zero)} leaves with a zero gradient by "
+              f"construction, max|g| card / cpu in units of G = {g_all:.3e} "
+              f"(the net's largest gradient), <= 1e-6: " + ", ".join(
+                  f"{n} {c / g_all:.1e} / {h / g_all:.1e}"
+                  for n, (c, h) in noise.items()), flush=True)
+        outside = unexplained = grad_bad = 0
+        worst = 0.0
+        grad_worst = (0.0, "")
+        for name, want in cpu["delta"].items():
+            if name in zero:
+                continue
+            g_cpu, g_card = cpu["grad"][name], card["grad"][name]
+            dg = (g_card - g_cpu).abs()
+            gmax = float(g_cpu.abs().max())
+            grad_bad += int((dg > 1e-3 * gmax).sum())
+            grad_worst = max(grad_worst, (float(dg.max()) / (gmax + 1e-30),
+                                          name))
+            err = (card["delta"][name] - want).abs()
+            worst = max(worst, float((err / (want.abs().max() + 1e-30))
+                                     .max()))
+            bad = err > 1e-3 * want.abs().max() + 1e-8
+            # AdamW's first update is lr * g / (|g| + 1e-8): it is fixed to
+            # the rule where the two gradients' difference dg can neither
+            # flip the sign (|g| > 2 dg) nor move g / (|g| + eps) by 5e-4
+            # (eps * dg / g^2 < 5e-4)
+            g = g_cpu.abs()
+            fixed = (g > 2 * dg) & (2e3 * 1e-8 * dg < g * g)
+            outside += int(bad.sum())
+            unexplained += int((bad & fixed).sum())
+        # running means near 0 (a channel's batch mean times 0.03) differ by
+        # float32 rounding of sums far larger than themselves: each tensor
+        # is held at its own scale, |d| <= 1e-5 (|ref| + max|ref|)
+        stat_err, stat_rel = {}, {}
+        for kind in ("running_mean", "running_var"):
+            errs = [(float(((card["stats"][k] - v).abs()
+                            / (v.abs() + v.abs().max())).max()),
+                     float(((card["stats"][k] - v).abs()
+                            / v.abs().clamp_min(1e-30)).max()), k)
+                    for k, v in cpu["stats"].items() if k.endswith(kind)]
+            stat_err[kind] = max(errs)
+            stat_rel[kind] = max(e[1:] for e in errs)
+        n_params = sum(v.numel() for n, v in cpu["delta"].items()
+                       if n not in zero)
+        print(f"  [{version}n] the other leaves: gradients {grad_bad} elements "
+              f"outside |g_card - g_cpu| <= 1e-3 max|g_cpu| per tensor "
+              f"(largest |g_card - g_cpu| / max|g_cpu| {grad_worst[0]:.3e}, "
+              f"{grad_worst[1]}); parameter changes: max |dp_card - "
+              f"dp_cpu| / max|dp_cpu| {worst:.3e}, {outside} of {n_params} "
+              f"elements outside 1e-3 max|dp| + 1e-8, {unexplained} of them "
+              f"where the gradients fix the update", flush=True)
+        for kind in stat_err:
+            print(f"  [{version}n] BN {kind}: max |d| / (|ref| + max|ref|) "
+                  f"{stat_err[kind][0]:.3e} < 1e-5 ({stat_err[kind][2]}); "
+                  f"max |d| / |ref| {stat_rel[kind][0]:.3e} "
+                  f"({stat_rel[kind][1]})", flush=True)
+        if rel >= 1e-4 or noise_bad or grad_bad or unexplained or max(
+                e[0] for e in stat_err.values()) >= 1e-5 or not all(
+                torch.isfinite(v).all() for v in card["delta"].values()):
+            raise SystemExit(f"[{version}n] card train step disagrees with "
+                             f"the CPU's")
+
+
+def write_dataset(root, n_train, n_val, seed=7) -> np.ndarray:
+    """Images of 480-800 px a side, a noisy background and 1-8 solid
+    rectangles, with YOLO txt labels (80 classes), under
+    root/images/{train,val} and root/labels/{train,val}, as PNG with
+    adaptive row filters (the port's encode_png, zlib level 1). Returns the
+    count of rows of each filter type."""
+    from yolosharp_tpu_torch.data.image_ops import encode_png
+
+    rng = np.random.default_rng(seed)
+    mix = np.zeros(5, np.int64)
+    for split, n in (("train", n_train), ("val", n_val)):
+        os.makedirs(os.path.join(root, "images", split))
+        os.makedirs(os.path.join(root, "labels", split))
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(480, 801, 2))
+            img = np.clip(rng.normal(rng.uniform(40, 215), 20, (h, w, 3)),
+                          0, 255).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 9))):
+                bw, bh = rng.uniform(0.05, 0.5, 2)
+                cx = rng.uniform(bw / 2, 1 - bw / 2)
+                cy = rng.uniform(bh / 2, 1 - bh / 2)
+                img[int((cy - bh / 2) * h):int((cy + bh / 2) * h),
+                    int((cx - bw / 2) * w):int((cx + bw / 2) * w)] = \
+                    rng.integers(0, 256, 3)
+                rows.append(f"{rng.integers(80)} {cx:.6f} {cy:.6f} "
+                            f"{bw:.6f} {bh:.6f}")
+            data = encode_png(img, level=1)
+            with open(os.path.join(root, "images", split, f"{i:04d}.png"),
+                      "wb") as f:
+                f.write(data)
+            mix += np.bincount(np.frombuffer(zlib.decompress(
+                data[data.index(b"IDAT") + 4:]), np.uint8).reshape(
+                h, 3 * w + 1)[:, 0], minlength=5)
+            with open(os.path.join(root, "labels", split, f"{i:04d}.txt"),
+                      "w") as f:
+                f.write("\n".join(rows) + "\n")
+    return mix
+
+
+def _train_config(root, version, **kw):
+    from yolosharp_tpu_torch import Config, YoloSize, YoloType
+
+    return Config(root_path=root, train_data_path="images/train",
+                  val_data_path="images/val", yolo_type=YoloType(version),
+                  yolo_size=YoloSize.s, number_class=80,
+                  image_size=TRAIN_SIZE, batch_size=TRAIN_BATCH, epochs=1,
+                  **kw)
+
+
+def phase_train(dev, root, tag: str) -> dict:
+    """Phase 7: YoloTask.train() of v8s. Returns its launch counts."""
+    from yolosharp_tpu_torch import Config, YoloSize, YoloTask
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 7: YoloTask.train() of v8s, {TRAIN_SIZE}x{TRAIN_SIZE}, "
+          f"batch {TRAIN_BATCH}, bf16, 1 epoch", flush=True)
+    out = os.path.join(root, "run_v8s")
+    task = YoloTask(_train_config(root, "v8", output_path=out), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    task.train()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = task.task.epoch_stats[0]
+    steps = len(st["step_s"])
+    med = float(np.median(st["step_s"][2:])) * 1e3
+    wait, loop = sum(st["wait_s"]), st["loop_s"]
+    tail = sum(st["wait_s"][2:]) / (sum(st["wait_s"][2:])
+                                    + sum(st["step_s"][2:]))
+    print(f"  {tag}: v8s train {steps} steps, {med:.1f} ms a step (median "
+          f"after the first two; first two {st['step_s'][0] * 1e3:.0f}, "
+          f"{st['step_s'][1] * 1e3:.0f} ms), {TRAIN_BATCH / med * 1e3:.1f} "
+          f"img/s at that median, {steps * TRAIN_BATCH / loop:.1f} img/s "
+          f"over the step loop ({loop:.2f} s); loader wait {wait:.2f} s = "
+          f"{wait / loop:.3f} of the loop (the first batch "
+          f"{st['wait_s'][0]:.2f} s; after the first two steps "
+          f"{tail:.3f}, median {np.median(st['wait_s'][2:]) * 1e3:.1f} ms a "
+          f"step); val {st['val_s']:.2f} s, train() {wall:.1f} s, peak "
+          f"device memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"  kernel launches during train(): {counts}", flush=True)
+    with open(os.path.join(out, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    values = dict(zip([h.strip() for h in rows[0]], rows[-1]))
+    print(f"  log.csv: {values}", flush=True)
+    losses = [float(v) for k, v in values.items() if "loss" in k]
+    files = ["config.txt", "log.csv", "weights/best.bin", "weights/last.bin",
+             "weights/last_state.npz"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    if missing or not np.isfinite(losses).all() or steps != 10:
+        raise SystemExit(f"v8s train(): missing {missing}, losses {losses}, "
+                         f"{steps} steps")
+    if counts["conv3x3_silu"] or counts["conv3x3s2_silu"] or \
+            counts["c2f_fused"]:
+        raise SystemExit("an unfolded train-mode conv ran through a "
+                         "predict kernel")
+    fresh = YoloTask(Config(yolo_size=YoloSize.s, number_class=80),
+                     device=dev)
+    fresh.load_model(os.path.join(out, "weights", "best.bin"))
+    res = fresh.image_predict(synthetic_images(1, 640, 640, 50)[0], 0.0)
+    print(f"  best.bin in a fresh YoloTask: image_predict gave {len(res)} "
+          f"rows", flush=True)
+    if not res:
+        raise SystemExit("image_predict of the trained weights returned "
+                         "nothing")
+    return counts
+
+
+def phase_train_v12(dev, root, tag: str) -> dict:
+    """Phase 7b: an epoch of v12s through the port's train step. Returns
+    its launch counts."""
+    from yolosharp_tpu_torch import YoloTask
+    from yolosharp_tpu_torch.data import (DataLoader, YoloDataset,
+                                          device_prefetch)
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
+                                           make_train_step)
+
+    print(f"phase 7b: v12s train steps, {TRAIN_SIZE}x{TRAIN_SIZE}, batch "
+          f"{TRAIN_BATCH}, bf16, through the port's train step", flush=True)
+    cfg = _train_config(root, "v12")
+    det = YoloTask(cfg, device=dev).task
+    t0 = time.perf_counter()
+    ds = YoloDataset(cfg)
+    print(f"  {tag}: YoloDataset of {len(ds)} train PNGs (decode without "
+          f"cv2, resize to {TRAIN_SIZE}) built in "
+          f"{time.perf_counter() - t0:.2f} s on the host", flush=True)
+    loader = DataLoader(ds, cfg.batch_size, workers=cfg.workers,
+                        max_labels=ds.max_label_count)
+    ds.close_mosaic(True)
+    net = det._ensure_variables().to(memory_format=torch.channels_last)
+    opt, scheds = make_optimizer(net, nc=80, epochs=1,
+                                 steps_per_epoch=len(loader))
+    state = TrainState(net, opt, scheds)
+    step = make_train_step(det._loss_fns()[0], compute_dtype=det.dtype)
+    times, items = [], []
+    reset_launch_counts()
+    for batch in device_prefetch(loader, det._to_device):
+        t0 = time.perf_counter()
+        _, it = step(state, batch, {})
+        times.append(time.perf_counter() - t0)
+        items.append(it)
+    counts = launch_counts()
+    net.eval()
+    items = torch.stack(items).cpu()
+    med = float(np.median(times[2:])) * 1e3
+    print(f"  {tag}: v12s {len(times)} steps, {med:.1f} ms a step (median "
+          f"after the first two; each ends in its host sync), "
+          f"{TRAIN_BATCH / med * 1e3:.1f} img/s; loss items of the last "
+          f"step {items[-1].tolist()}", flush=True)
+    print(f"  kernel launches: {counts} ({len(times)} forwards)", flush=True)
+    if counts["fused_attention"] != 8 * len(times) or not bool(
+            torch.isfinite(items).all()) or len(times) != 10:
+        raise SystemExit("v12s train: not 8 attention launches a forward, "
+                         "or a loss not finite")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -674,7 +1114,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(card(), flush=True)
+    tag = card()
+    print(tag, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -698,6 +1139,18 @@ def main() -> int:
         for name, n in path_launches.items():
             launches[name] = launches.get(name, 0) + n
             per_forward.setdefault(name, {})[version] = forward[name]
+    stats["fused_attention"].update(phase_attention_autograd(dev, tag))
+    phase_train_step_cpu_match(dev)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        mix = write_dataset(root, 160, 32)
+        print(f"wrote the synthetic PNG dataset (160 train, 32 val) in "
+              f"{time.perf_counter() - t0:.1f} s; rows by filter None / Sub / "
+              f"Up / Average / Paeth: {mix.tolist()}", flush=True)
+        train_counts = [phase_train(dev, root, tag),
+                        phase_train_v12(dev, root, tag)]
+    train_launches = {name: sum(c[name] for c in train_counts)
+                      for name in SOURCES}
 
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "flax", "yolosharp_tpu")
@@ -707,7 +1160,10 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": launches[name],
+                 "replaces": replaces,
+                 "launches": launches[name] + train_launches[name],
+                 "launches_by_path": {"predict": launches[name],
+                                      "train": train_launches[name]},
                  "launches_per_b32_forward": per_forward[name]}
         entry.update(stats[name])
         kernels.append(entry)

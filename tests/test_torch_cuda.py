@@ -349,3 +349,90 @@ def test_v12_predict_on_the_card_matches_the_cpu(cuda, end2end):
         assert g.class_id == w.class_id and abs(g.score - w.score) < 1e-3
         assert abs(g.center_x - w.center_x) <= 1
         assert abs(g.center_y - w.center_y) <= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [65, 400])
+def test_attention_under_autograd(cuda, dtype, d, n):
+    """With grad on, both wrappers run the kernel's forward (one launch,
+    an output with a grad_fn) and the plain backward. Their outputs against
+    the plain version's, as in the grad-free tests (float32 |d| <= 2e-5 +
+    2e-4|ref|, bfloat16 max|d| / max|ref| < 1e-2); the gradients of q, k
+    and v (strided views of one qkv tensor) against full plain autograd:
+    float32 |d| <= 1e-4 + 1e-4|ref|, bfloat16 max|d| / max|ref| < 2e-2."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + d)
+    B, H, scale = 3, 2, d ** -0.5
+    qkv = torch.randn(B, n, H, 3 * d, generator=g, device=cuda).to(dt)
+    grad_out = torch.randn(B, n, H, d, generator=g, device=cuda).to(dt)
+
+    def grads(fn):
+        t = qkv.clone().requires_grad_()
+        out = fn(*t.split(d, dim=-1))
+        out.backward(grad_out)
+        return out, t.grad
+
+    before = fused_attention.launches
+    out, got = grads(lambda q, k, v: attention_bihd(q, k, v, scale))
+    assert out.grad_fn is not None and fused_attention.launches == before + 1
+    out_h, got_h = grads(lambda q, k, v: fused_attention(
+        *(x.transpose(1, 2) for x in (q, k, v)), scale).transpose(1, 2))
+    assert out_h.grad_fn is not None
+    assert fused_attention.launches == before + 2
+    want_out, want = grads(lambda q, k, v: attention_plain(
+        *(x.transpose(1, 2) for x in (q, k, v)), scale).transpose(1, 2))
+    for o in (out, out_h):
+        if dtype == "float32":
+            torch.testing.assert_close(o, want_out, atol=2e-5, rtol=2e-4)
+        else:
+            _check(o.detach(), want_out.detach(), dtype)
+    for g_ in (got, got_h):
+        if dtype == "float32":
+            torch.testing.assert_close(g_, want, atol=1e-4, rtol=1e-4)
+        else:
+            rel = (g_.float() - want.float()).abs().max() / want.float(
+            ).abs().max()
+            assert rel < 2e-2, float(rel)
+
+
+@pytest.mark.parametrize("version", ["v8", "v12"])
+def test_bf16_train_step_on_the_card(cuda, version):
+    """One bfloat16 train step of v8n / v12n at 128x128, batch 2, on the
+    card: finite loss items, every parameter with a gradient updated, the
+    attention kernel's forward (8 AAttn a v12 forward) launched under
+    autograd and no conv or C2f kernel launched."""
+    from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
+                                           make_train_step)
+
+    cfg = Config(yolo_type=YoloType(version), yolo_size=YoloSize.n,
+                 number_class=17)
+    task = YoloTask(cfg, device=cuda)
+    net = task.task._ensure_variables().to(memory_format=torch.channels_last)
+    opt, scheds = make_optimizer(net, nc=17, epochs=1, steps_per_epoch=1)
+    state = TrainState(net, opt, scheds)
+    rng = np.random.default_rng(0)
+    batch = {"images": torch.from_numpy(rng.integers(
+                 0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(cuda),
+             "cls": torch.tensor([[1, 5, 0], [16, 0, 0]], dtype=torch.int32,
+                                 device=cuda),
+             "bboxes": torch.tensor(
+                 [[[0.5, 0.5, 0.3, 0.4], [0.3, 0.6, 0.2, 0.2], [0, 0, 0, 0]],
+                  [[0.4, 0.4, 0.5, 0.5], [0, 0, 0, 0], [0, 0, 0, 0]]],
+                 device=cuda),
+             "mask_gt": torch.tensor([[True, True, False],
+                                      [True, False, False]], device=cuda)}
+    before = [p.detach().clone() for p in state.params]
+    reset_launch_counts()
+    loss, items = make_train_step(task.task._loss_fns()[0],
+                                  compute_dtype=torch.bfloat16)(
+        state, batch, {})
+    counts = launch_counts()
+    assert torch.isfinite(items).all() and float(items.sum()) > 0
+    assert state.count == 1
+    # a parameter with a gradient moves (weights also decay without one)
+    for p, q in zip(state.params, before):
+        if p.grad.abs().max() > 0:
+            assert not torch.equal(p, q)
+    assert counts["fused_attention"] == (8 if version == "v12" else 0)
+    assert counts["conv3x3_silu"] == counts["c2f_fused"] == 0

@@ -162,12 +162,26 @@ def test_image_and_batch_predict_results_match_jax(tasks):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Importing the port, predicting on the CPU and saving and loading a
-    checkpoint loads neither jax nor flax nor cv2 (the GPU machine has none
-    of them), nor any module of the JAX package yolosharp_tpu."""
+    """Importing every module of the port, predicting on the CPU and saving
+    and loading a checkpoint loads neither jax nor flax nor cv2 (the GPU
+    machine has none of them), nor any module of the JAX package
+    yolosharp_tpu."""
     path = str(tmp_path / "v8n.bin")
+    pkg = os.path.join(REPO, "yolosharp_tpu_torch")
+    modules = sorted(
+        "yolosharp_tpu_torch." + os.path.relpath(
+            os.path.join(d, f), pkg)[:-3].replace(os.sep, ".")
+        .replace(".__init__", "")
+        for d, _, files in os.walk(pkg) for f in files
+        if f.endswith(".py") and f != "__init__.py")
+    assert {"yolosharp_tpu_torch.train", "yolosharp_tpu_torch.loss.tal",
+            "yolosharp_tpu_torch.data.image_ops",
+            "yolosharp_tpu_torch.ckpt.resume",
+            "yolosharp_tpu_torch.utils.metrics"} <= set(modules)
     code = (
-        "import sys, numpy as np\n"
+        "import importlib, sys, numpy as np\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
         "from yolosharp_tpu_torch import Config, ScalarType, YoloSize, "
         "YoloTask\n"
         "assert 'yolosharp_tpu_torch' in sys.modules\n"

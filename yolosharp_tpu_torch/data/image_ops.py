@@ -1,0 +1,279 @@
+"""The host pixel work of the data path without a hard dependency on cv2
+(the port's own module; the JAX package does this with cv2).
+
+- ``read_image_rgb``: cv2 where it imports (the only JPEG decoder there
+  could be); otherwise PNG decoded here with zlib and numpy (8-bit gray, RGB
+  and RGBA, not interlaced, all five row filters). Anything else raises an
+  error that names the file; no image is ever substituted.
+- ``resize_linear``: cv2.resize(INTER_LINEAR) geometry (half-pixel centres,
+  clamped edges) through F.interpolate(bilinear, align_corners=False) on a
+  CPU tensor, rounded back to uint8. cv2 rounds its 11-bit fixed-point
+  weights, so the two differ by at most one level.
+- ``rgb_to_hsv_u8`` / ``hsv_to_rgb_u8``: OpenCV's 8-bit HSV (H in [0, 180)),
+  with its fixed-point division tables one way and its float formula the
+  other, evaluated once a process for every 8-bit input into a table, so
+  that a conversion is one gather (numpy's elementwise passes took ~50 ms
+  for a 640x480 image on one host core; cv2 takes under 1 ms).
+"""
+
+from __future__ import annotations
+
+import struct
+import threading
+import zlib
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 6: 4}      # PNG colour type -> samples a pixel
+
+
+def read_image_rgb(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of an image file."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise FileNotFoundError(f"failed to read image {path}")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    with open(path, "rb") as f:
+        data = f.read()
+    return decode_png_rgb(data, path)
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """The Paeth predictor of left a, up b and upper-left c (int16)."""
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter_rows(ftypes: np.ndarray, lines: np.ndarray,
+                   bpp: int) -> np.ndarray:
+    """Scanlines of None, Sub and Up filters reconstructed row by row."""
+    out = np.empty_like(lines)
+    prev = np.zeros(lines.shape[1], np.uint8)
+    for y, ftype in enumerate(ftypes.tolist()):
+        line = lines[y]
+        if ftype == 1:      # Sub: a running sum per channel, mod 256
+            line = line.reshape(-1, bpp).cumsum(0, dtype=np.uint8).reshape(-1)
+        elif ftype == 2:    # Up
+            line = line + prev
+        prev = out[y] = line
+    return out
+
+
+def _unfilter_diagonals(ftypes: np.ndarray, lines: np.ndarray,
+                        bpp: int) -> np.ndarray:
+    """Scanlines of any filters, Average and Paeth among them, reconstructed
+    together along the anti-diagonals x + y = d of the pixel grid: a
+    pixel's predictor reads its left, upper and upper-left neighbours, which
+    lie on the two diagonals before its own, so h + w - 1 numpy steps over
+    a diagonal's pixels replace a loop over every byte."""
+    h, stride = lines.shape
+    w = stride // bpp
+    # the grid skewed: pixel (y, x) at [x + y + 2, y + 1], so that a
+    # diagonal's pixels are contiguous; the zeros before both axes are the
+    # neighbours outside the image
+    yy, xx = np.mgrid[0:h, 0:w]
+    skew = np.zeros((h + w + 1, h + 1, bpp), np.int16)
+    raw = np.zeros_like(skew)
+    raw[xx + yy + 2, yy + 1] = lines.reshape(h, w, bpp)
+    rows = {f: np.concatenate([[0], ftypes == f]).astype(np.int16)[:, None]
+            for f in range(1, 5) if (ftypes == f).any()}
+    for d in range(h + w - 1):
+        y0, y1 = max(0, d - w + 1) + 1, min(h - 1, d) + 2
+        left, up = skew[d + 1, y0:y1], skew[d + 1, y0 - 1:y1 - 1]
+        acc = raw[d + 2, y0:y1].copy()
+        for f, row in rows.items():
+            if f == 1:
+                pred = left
+            elif f == 2:
+                pred = up
+            elif f == 3:
+                pred = (left + up) >> 1
+            else:
+                pred = _paeth(left, up, skew[d, y0 - 1:y1 - 1])
+            acc += row[y0:y1] * pred
+        skew[d + 2, y0:y1] = acc & 0xFF
+    return skew[xx + yy + 2, yy + 1].reshape(h, stride).astype(np.uint8)
+
+
+def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 RGB of an 8-bit gray, RGB or RGBA PNG that is not
+    interlaced (gray repeated to three channels, alpha dropped, as
+    cv2.imread(IMREAD_COLOR) returns them)."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file; JPEG and the other "
+                         f"formats need cv2")
+    pos, idat, header = 8, [], None
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        chunk = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", chunk)
+        elif kind == b"IDAT":
+            idat.append(chunk)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{name}: PNG without an IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _CHANNELS or interlace:
+        raise ValueError(
+            f"{name}: PNG with bit depth {depth}, colour type {color}, "
+            f"interlace {interlace}; without cv2 only 8-bit gray, RGB and "
+            f"RGBA that are not interlaced are read")
+    bpp = _CHANNELS[color]
+    stride = w * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (stride + 1):
+        raise ValueError(f"{name}: PNG image data has {raw.size} bytes, "
+                         f"expected {h * (stride + 1)}")
+    rows = raw.reshape(h, stride + 1)
+    ftypes = rows[:, 0]
+    if ftypes.max() > 4:
+        raise ValueError(f"{name}: PNG filter type {ftypes.max()} does not "
+                         f"exist")
+    unfilter = (_unfilter_diagonals if (ftypes >= 3).any()
+                else _unfilter_rows)
+    img = unfilter(ftypes, rows[:, 1:], bpp).reshape(h, w, bpp)
+    if bpp == 1:
+        return np.repeat(img, 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """An 8-bit gray (H, W), RGB or RGBA (H, W, 3 or 4) uint8 image as PNG
+    bytes, each row filtered as libpng's adaptive filtering picks: the
+    filter whose output has the least sum of bytes taken as signed. Writes
+    datasets where cv2 is absent."""
+    img = img[..., None] if img.ndim == 2 else img
+    h, w, bpp = img.shape
+    x = img.reshape(h, w * bpp).astype(np.int16)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, bpp:] = x[:, :-bpp]
+    b[1:] = x[:-1]
+    c[1:, bpp:] = x[:-1, :-bpp]
+    filtered = np.stack([x, x - a, x - b, x - ((a + b) >> 1),
+                         x - _paeth(a, b, c)]).astype(np.uint8)
+    cost = np.abs(filtered.astype(np.int8).astype(np.int32)).sum(-1)
+    ftypes = cost.argmin(0)
+    raw = np.concatenate([ftypes[:, None].astype(np.uint8),
+                          filtered[ftypes, np.arange(h)]], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    color = {v: k for k, v in _CHANNELS.items()}[bpp]
+    return (PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + chunk(b"IEND", b""))
+
+
+def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """uint8 (H, W, C) -> (h, w, C), bilinear with cv2's INTER_LINEAR
+    geometry."""
+    if img.shape[:2] == (h, w):
+        return img.copy()
+    t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
+    out = F.interpolate(t.float(), size=(h, w), mode="bilinear",
+                        align_corners=False, antialias=False)
+    return (out[0].permute(1, 2, 0).round().clamp(0, 255)
+            .to(torch.uint8).numpy())
+
+
+# OpenCV's RGB2HSV_b tables (hsv_shift = 12): round((255 << 12) / v) and
+# round((180 << 12) / (6 * diff)), 0 at 0
+_HSV_SHIFT = 12
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT)
+                                     / np.arange(1, 256))]).astype(np.int32)
+_HDIV = np.concatenate([[0], np.rint((180 << _HSV_SHIFT)
+                                     / (6.0 * np.arange(1, 256)))]
+                       ).astype(np.int32)
+
+
+def _rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
+    """OpenCV's RGB2HSV_b arithmetic, uint8 (..., 3) -> uint8 (..., 3)."""
+    r, g, b = (rgb[..., i].astype(np.int32) for i in range(3))
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b,
+                 np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + half) >> _HSV_SHIFT
+    h[h < 0] += 180
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """OpenCV's HSV2RGB_b: the float formula (H scaled by 6/180, S and V by
+    1/255), each channel rounded from x * 255; uint8 (..., 3) -> (..., 3)."""
+    f32 = np.float32
+    h = hsv[..., 0].astype(f32) * f32(6.0 / 180.0)
+    s = hsv[..., 1].astype(f32) * f32(1.0 / 255.0)
+    v = hsv[..., 2].astype(f32) * f32(1.0 / 255.0)
+    h = np.fmod(h, f32(6.0))            # h >= 0 for uint8 input
+    sector = h.astype(np.int32)         # floor
+    h -= sector
+    p = v * (f32(1) - s)
+    q = v * (f32(1) - s * h)
+    t = v * (f32(1) - s * (f32(1) - h))
+    rgb = (np.choose(sector, [v, q, p, p, t, v]),
+           np.choose(sector, [t, v, v, q, p, p]),
+           np.choose(sector, [p, p, t, v, v, q]))
+    out = np.empty(hsv.shape, np.uint8)
+    for i, c in enumerate(rgb):
+        c = np.where(s == 0, v, c) * f32(255.0)
+        out[..., i] = np.clip(np.rint(c), 0, 255)
+    return out
+
+
+_tables: Dict[str, np.ndarray] = {}
+_tables_lock = threading.Lock()
+
+
+def _table(name: str) -> np.ndarray:
+    """Every 8-bit input's conversion, built once a process: 2^24 uint32
+    (64 MiB), each the three output bytes packed as the input's index
+    packs them; a conversion is then one gather."""
+    with _tables_lock:
+        if name not in _tables:
+            every = np.arange(1 << 24, dtype=np.uint32)
+            triples = np.stack([every >> 16, (every >> 8) & 255,
+                                every & 255], -1).astype(np.uint8)
+            fn = _rgb_to_hsv if name == "rgb2hsv" else _hsv_to_rgb
+            packed = np.zeros((1 << 24, 4), np.uint8)
+            for i in range(0, 1 << 24, 1 << 18):
+                packed[i:i + (1 << 18), :3] = fn(triples[i:i + (1 << 18)])
+            _tables[name] = packed.view(np.uint32).reshape(-1)
+        return _tables[name]
+
+
+def _convert(name: str, img: np.ndarray) -> np.ndarray:
+    a = img.astype(np.int32)
+    out = np.take(_table(name), (a[..., 0] << 16) | (a[..., 1] << 8)
+                  | a[..., 2])
+    return np.ascontiguousarray(
+        out.view(np.uint8).reshape(*img.shape[:-1], 4)[..., :3])
+
+
+def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """uint8 RGB -> uint8 HSV, as cv2.cvtColor(img, COLOR_RGB2HSV)."""
+    return _convert("rgb2hsv", img)
+
+
+def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """uint8 HSV (H in [0, 180); larger H wraps as in OpenCV) -> uint8 RGB,
+    as cv2.cvtColor(hsv, COLOR_HSV2RGB)."""
+    return _convert("hsv2rgb", hsv)

@@ -2,7 +2,8 @@
 version. Every kernel counts its launches in ``<wrapper>.launches``
 (``attention_bihd`` counts into ``fused_attention.launches``)."""
 
-from .attention import attention_bihd, attention_plain, fused_attention
+from .attention import (attention_bihd, attention_grads_plain, attention_plain,
+                        fused_attention)
 from .c2f import c2f_fused, c2f_plain, c2f_supported
 from .conv3x3 import conv3x3_plain, conv3x3_silu, conv3x3s2_silu
 
@@ -19,7 +20,8 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
-__all__ = ["KERNELS", "attention_bihd", "attention_plain", "c2f_fused",
+__all__ = ["KERNELS", "attention_bihd", "attention_grads_plain",
+           "attention_plain", "c2f_fused",
            "c2f_plain", "c2f_supported", "conv3x3_plain", "conv3x3_silu",
            "conv3x3s2_silu", "fused_attention", "launch_counts",
            "reset_launch_counts"]

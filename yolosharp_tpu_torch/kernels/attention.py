@@ -31,9 +31,16 @@ the exp unit the practical floor. The layer-8 call is half of that.
 - float32: the flash-style CUDA-core kernel (64 query rows a block, 64-key
   float32 tiles, online softmax); TF32 would break the float32 contract.
 
-On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA tensor
-they launch the kernel or raise. Both count launches in
-``fused_attention.launches``.
+On a CPU tensor the wrappers run the plain PyTorch version (autograd runs
+through it); on a CUDA tensor they launch the kernel or raise. Both count
+launches in ``fused_attention.launches``.
+
+Training: where grad mode is on and an input requires grad, the wrappers
+run the kernel inside ``KernelAttention``, a ``torch.autograd.Function``
+whose backward is plain PyTorch with the math of the JAX package's
+``_pallas_attn_bwd`` (yolosharp_tpu/kernels/attention.py:100-113), which is
+einsum code and not a Pallas kernel: S recomputed in float32 from q and k,
+softmax, then dV, dP, dS, dQ and dK, each cast back to its input's type.
 """
 
 from __future__ import annotations
@@ -125,11 +132,61 @@ def _launch(name: str, q, k, v, o, scale: float) -> None:
     build.check_status(name, status)
 
 
+def attention_grads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          g: torch.Tensor, scale: float):
+    """(dq, dk, dv) of softmax(q k^T scale) v over (B, N, H, D) tensors for
+    the output gradient g, in float32, each cast to its input's type (the
+    math of _pallas_attn_bwd)."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = torch.einsum("bihd,bjhd->bhij", qf * scale, kf)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhij,bihd->bjhd", p, gf)
+    dp = torch.einsum("bihd,bjhd->bhij", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = scale * torch.einsum("bhij,bjhd->bihd", ds, kf)
+    dk = scale * torch.einsum("bhij,bihd->bjhd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_bihd(q, k, v, scale: float) -> torch.Tensor:
+    """One launch over (B, N, H, D) views; a contiguous (B, N, H, D)
+    output."""
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch("fused_attention", q.transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2), o.transpose(1, 2), scale)
+    fused_attention.launches += 1
+    return o
+
+
+class KernelAttention(torch.autograd.Function):
+    """The kernel's forward over (B, N, H, D) tensors with the plain
+    backward ``attention_grads_plain``; q, k and v are kept for it (the
+    backward recomputes the scores, as the JAX custom VJP does)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _kernel_bihd(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_grads_plain(q, k, v, g, ctx.scale), None)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """softmax(q @ k^T * scale) @ v over (B, H, N, D) tensors."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
+    if _needs_grad(q, k, v):
+        return KernelAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), scale).transpose(1, 2)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("fused_attention", q, k, v, o, scale)
     fused_attention.launches += 1
@@ -143,11 +200,9 @@ def attention_bihd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), scale).transpose(1, 2)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("fused_attention", q.transpose(1, 2), k.transpose(1, 2),
-            v.transpose(1, 2), o.transpose(1, 2), scale)
-    fused_attention.launches += 1
-    return o
+    if _needs_grad(q, k, v):
+        return KernelAttention.apply(q, k, v, scale)
+    return _kernel_bihd(q, k, v, scale)
 
 
 fused_attention.launches = 0

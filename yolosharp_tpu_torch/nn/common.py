@@ -7,12 +7,17 @@ names follow the Ultralytics state dict (``conv``, ``bn``, ``cv1``, ``m.0``
 ...), so checkpoints load with ``load_state_dict(strict=True)``.
 
 Two forward modes, as in the JAX package:
-- plain: ``Conv2d`` + ``BatchNorm2d`` (eps 1e-3, momentum 0.03) + activation,
-  in train or eval BN mode;
+- plain: ``Conv2d`` + BatchNorm (eps 1e-3, momentum 0.03) + activation, in
+  train or eval BN mode, with the JAX package's numerics (``FastBN``): the
+  train-mode running variance is the *biased* batch variance, and both
+  modes keep the statistics in float32 and apply them in the activations'
+  type. Convs cast their float32 weights to the input's type, so a float32
+  master network runs a bfloat16 forward;
 - folded (after ``ckpt.fuse.fold_bn``): BN is folded into the conv weights
   and becomes a bias. Then every 3x3 ConvBN the conv kernel takes, and every
   C2f the fused C2f kernel takes, runs through those kernels; on CPU tensors
-  the kernels' wrappers run their plain versions.
+  the kernels' wrappers run their plain versions. Only the predict copy is
+  folded: training never routes a conv through the kernels.
 """
 
 from __future__ import annotations
@@ -42,6 +47,47 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in its input's type: float32 master weights (and bias) are
+    cast to the input's type, as the JAX Conv2d casts its kernel
+    (yolosharp_tpu/nn/common.py:673)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train-mode BatchNorm with the JAX package's statistics
+    (yolosharp_tpu/nn/common.py:185-200): y normalised by its batch mean and
+    biased variance, gradients through both (F.batch_norm), and the running
+    statistics moved ``bn.momentum`` (0.03) of the way to the batch mean and
+    the *biased* batch variance in float32. nn.BatchNorm2d would use the
+    unbiased one."""
+    c = y.shape[1]
+    dtype = torch.promote_types(y.dtype, torch.float32)
+    mean = torch.zeros(c, dtype=dtype, device=y.device)
+    var = torch.ones(c, dtype=dtype, device=y.device)
+    # momentum 1: the buffers take the batch mean and unbiased variance
+    out = F.batch_norm(y, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
+    n = y.numel() // c
+    m = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var * ((n - 1) / n), alpha=m)
+    return out
+
+
+def batch_norm_eval(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Eval-mode BatchNorm as the JAX FastBN applies it: k = gamma /
+    sqrt(var + eps) and b = beta - mean * k in float32, then y * k + b in
+    y's type."""
+    k = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+    b = bn.bias.float() - bn.running_mean.float() * k
+    shape = (1, -1, 1, 1)
+    return y * k.to(y.dtype).view(shape) + b.to(y.dtype).view(shape)
+
+
 class ConvBN(nn.Module):
     """Conv + BatchNorm + activation (the reference's Convs.Conv)."""
 
@@ -51,8 +97,8 @@ class ConvBN(nn.Module):
         super().__init__()
         self.k, self.s, self.p, self.g, self.d = k, s, autopad(k, p, d), g, d
         self.act = act
-        self.conv = nn.Conv2d(c1, c2, k, s, self.p, dilation=d, groups=g,
-                              bias=use_bias)
+        self.conv = Conv2d(c1, c2, k, s, self.p, dilation=d, groups=g,
+                           bias=use_bias)
         self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         # folded weight (HWIO when the 3x3 kernel takes this conv, OIHW
         # otherwise) and bias, set by ckpt.fuse.fold_bn; not checkpointed
@@ -71,7 +117,8 @@ class ConvBN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.b_fold is None:
-            return ACTS[self.act](self.bn(self.conv(x)))
+            bn = batch_norm_train if self.training else batch_norm_eval
+            return ACTS[self.act](bn(self.conv(x), self.bn))
         if self.kernel_route:
             fn = conv3x3.conv3x3_silu if self.s == 1 else conv3x3.conv3x3s2_silu
             return fn(_nhwc(x), self.w_fold, self.b_fold,

@@ -10,7 +10,7 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
-from .common import ConvBN, DWConv
+from .common import Conv2d, ConvBN, DWConv
 
 
 class _Branch(nn.Sequential):
@@ -22,12 +22,12 @@ class _Branch(nn.Sequential):
     def __init__(self, cin: int, mid: int, out: int, legacy: bool = True):
         if legacy:
             super().__init__(ConvBN(cin, mid, 3), ConvBN(mid, mid, 3),
-                             nn.Conv2d(mid, out, 1))
+                             Conv2d(mid, out, 1))
         else:
             super().__init__(
                 nn.Sequential(DWConv(cin, cin, 3), ConvBN(cin, mid, 1)),
                 nn.Sequential(DWConv(mid, mid, 3), ConvBN(mid, mid, 1)),
-                nn.Conv2d(mid, out, 1))
+                Conv2d(mid, out, 1))
 
 
 class DFL(nn.Module):

@@ -1,6 +1,9 @@
-"""Pairwise box IoU (counterpart of yolosharp_tpu/ops/iou.py::box_iou)."""
+"""IoU of boxes: pairwise ``box_iou`` and elementwise ``bbox_iou`` with
+CIoU / DIoU / GIoU (counterpart of yolosharp_tpu/ops/iou.py:16-65)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -16,3 +19,47 @@ def box_iou(box1: torch.Tensor, box2: torch.Tensor,
     area1 = (a2 - a1).prod(-1)
     area2 = (b2 - b1).prod(-1)
     return inter / (area1 + area2 - inter + eps)
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
+             GIoU: bool = False, DIoU: bool = False, CIoU: bool = False,
+             eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise IoU of broadcast boxes (..., 4) -> (..., 1). CIoU's alpha
+    is computed without gradient, as the JAX version's stop_gradient and
+    the Ultralytics formula's torch.no_grad."""
+    if xywh:
+        x1, y1, w1, h1 = box1.chunk(4, -1)
+        x2, y2, w2, h2 = box2.chunk(4, -1)
+        b1_x1, b1_x2 = x1 - w1 / 2, x1 + w1 / 2
+        b1_y1, b1_y2 = y1 - h1 / 2, y1 + h1 / 2
+        b2_x1, b2_x2 = x2 - w2 / 2, x2 + w2 / 2
+        b2_y1, b2_y2 = y2 - h2 / 2, y2 + h2 / 2
+    else:
+        b1_x1, b1_y1, b1_x2, b1_y2 = box1.chunk(4, -1)
+        b2_x1, b2_y1, b2_x2, b2_y2 = box2.chunk(4, -1)
+        w1, h1 = b1_x2 - b1_x1, (b1_y2 - b1_y1).clamp(min=eps)
+        w2, h2 = b2_x2 - b2_x1, (b2_y2 - b2_y1).clamp(min=eps)
+
+    inter = ((torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1))
+             .clamp(min=0)
+             * (torch.minimum(b1_y2, b2_y2) - torch.maximum(b1_y1, b2_y1))
+             .clamp(min=0))
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if CIoU or DIoU or GIoU:
+        cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)
+        ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)
+        if CIoU or DIoU:
+            c2 = cw ** 2 + ch ** 2 + eps
+            rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2
+                    + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+            if CIoU:
+                v = 4 / math.pi ** 2 * (torch.atan(w2 / h2)
+                                        - torch.atan(w1 / h1)) ** 2
+                with torch.no_grad():
+                    alpha = v / (v - iou + (1 + eps))
+                return iou - (rho2 / c2 + v * alpha)
+            return iou - rho2 / c2
+        c_area = cw * ch + eps
+        return iou - (c_area - union) / c_area
+    return iou

@@ -1,12 +1,22 @@
-"""Predict half of the task layer for detection, plus the YoloTask facade
-(counterpart of yolosharp_tpu/tasks.py: BaseTask / Detector / YoloTask,
-predict, load and save only).
+"""The task layer for detection and the YoloTask facade (counterpart of
+yolosharp_tpu/tasks.py: BaseTask / Detector / YoloTask): train, val,
+predict, load and save.
 
-Requests arrive as uint8 HWC RGB numpy arrays, are padded with 114 to a
-multiple of 32 on the host, shipped as uint8 and normalised (/255) on the
-device. Results come back in one bulk transfer as YoloResults in canvas
+Predict: requests arrive as uint8 HWC RGB numpy arrays, are padded with 114
+to a multiple of 32 on the host, shipped as uint8 and normalised (/255) on
+the device. Results come back in one bulk transfer as YoloResults in canvas
 pixels. With End2End the NMS-free top-k runs with conf 0 and rows are
-filtered on the host.
+filtered on the host. Predict runs a BN-folded copy of the master network
+in the compute dtype, refolded whenever a master parameter or buffer has
+changed (training bumps their versions).
+
+Train: the float32 master network in train mode, batches from the host
+letterbox pipeline (data/) copied to the device ahead of the step, the
+train step of train.py, then val on the unfolded eval-mode master, which
+matches each batch's predictions to its ground truths in one device call,
+and the outputs of the JAX package: config.txt, log.csv, weights/best.bin,
+weights/last.bin and weights/last_state.npz. The master stays in eval mode
+outside train().
 """
 
 from __future__ import annotations
@@ -14,7 +24,10 @@ from __future__ import annotations
 import copy
 import itertools
 import os
-from typing import List, Optional, Tuple
+import time
+from datetime import datetime
+from functools import partial
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,12 +35,23 @@ import torch
 from .ckpt import (bias_init, clone_one2one, export_state_dict, fold_bn,
                    load_state_dict_file, load_state_dict_into, save_bin,
                    skip_patterns_for_nc_mismatch)
+from .ckpt.resume import restore_train_state, save_train_state
 from .config import Config, resolve_device, torch_dtype
+from .data import DataLoader, YoloDataset, device_prefetch, to_device
+from .data.dataset import MOSAIC_TODO
+from .data.image_ops import read_image_rgb
+from .loss import detection_loss, e2e_gain_schedule, e2e_wrap
 from .nn import ArchCfg, YoloNet
+from .ops.boxes import xywh2xyxy
+from .ops.iou import box_iou
 from .ops.nms import NMSOutput, non_max_suppression
 from .predict import (decode_inference, decode_inference_topk,
                       e2e_postprocess, pad_to_multiple)
-from .types import TaskType, YoloResult
+from .train import (MAX_LOSS_SCALE, TrainState, make_eval_step,
+                    make_optimizer, make_train_step)
+from .types import ImageProcessType, TaskType, YoloResult
+from .utils import (EarlyStopping, TrainLogger, ap_per_class,
+                    match_predictions, summarize)
 
 
 def _warn_if_truncated(nms_out) -> None:
@@ -45,8 +69,13 @@ def _to_host(out):
 
 
 class Detector:
-    """v8 / v12 detection: predict, load and save (YoloTask's detect
-    task)."""
+    """v8 / v12 detection: train, val, predict, load and save (YoloTask's
+    detect task)."""
+
+    loss_names: Tuple[str, ...] = ("box_loss", "cls_loss", "dfl_loss")
+    metric_names: Tuple[str, ...] = ("precision(B)", "recall(B)", "mAP50(B)",
+                                     "mAP50-95(B)")
+    val_conf: float = 0.1
 
     def __init__(self, config: Config, device=None):
         self.config = config
@@ -57,6 +86,10 @@ class Detector:
             task="detect", nc=config.number_class, end2end=config.end2end)
         self.net: Optional[YoloNet] = None
         self._fused: Optional[Tuple[tuple, YoloNet]] = None
+        # per epoch of the last train(): each step's wall seconds (each
+        # ends in the step's host sync) and seconds waiting on the loader
+        # before it, the seconds of the step loop and of val
+        self.epoch_stats: List[Dict] = []
 
     # ------------------------------------------------------------- setup
     def _ensure_variables(self) -> YoloNet:
@@ -204,11 +237,238 @@ class Detector:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         save_bin(path, sd)
 
+    # -------------------------------------------------------------- losses
+    def _loss_fns(self):
+        """(train loss, eval loss). End2End sums one2many (TAL top-k 10)
+        and one2one (top-k 1)."""
+        nc = self.config.number_class
+        if self.arch.end2end:
+            fn = e2e_wrap(partial(detection_loss, nc=nc, tal_topk=10),
+                          partial(detection_loss, nc=nc, tal_topk=1))
+        else:
+            base = partial(detection_loss, nc=nc)
+
+            def fn(preds, batch, **kw):
+                return base(preds["one2many"], batch)
+        return fn, fn
+
+    def _loss_kwargs(self, epoch: int) -> Dict:
+        """The End2End o2m / o2o gain schedule, for tasks other than detect:
+        End2End detection sums both branches at gain 1.0, as the JAX package
+        does (yolosharp_tpu/tasks.py:326-330)."""
+        if self.arch.end2end and self.arch.task != "detect":
+            o2m, o2o = e2e_gain_schedule(epoch - 1, self.config.epochs)
+            return {"o2m_gain": o2m, "o2o_gain": o2o}
+        return {}
+
+    # --------------------------------------------------------------- train
+    def _make_datasets(self):
+        return (YoloDataset(self.config, is_val=False),
+                YoloDataset(self.config, is_val=True))
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict:
+        return to_device(batch, self.device)
+
+    def _check_mosaic(self, start_epoch: int) -> None:
+        """Raise before the first step if an epoch from start_epoch on would
+        take the mosaic (epoch <= close_mosaic), which is not ported."""
+        cfg = self.config
+        if (cfg.image_process_type == ImageProcessType.mosaic
+                and cfg.mosaic > 0
+                and start_epoch <= min(cfg.close_mosaic, cfg.epochs)):
+            raise NotImplementedError(
+                f"epochs {start_epoch}-{min(cfg.close_mosaic, cfg.epochs)} "
+                f"take the mosaic (close_mosaic = {cfg.close_mosaic}): "
+                + MOSAIC_TODO)
+
+    def train(self, resume_from: Optional[str] = None) -> TrainState:
+        """Train for Config.epochs (YoloBaseTaskModel.cs Train/TrainEpoch);
+        resume_from: a last_state.npz, continued at its epoch + 1."""
+        cfg = self.config
+        print("Start Training:")
+        print(cfg.describe())
+        out_dir = cfg.output_path or os.path.join(
+            "result", "detect", datetime.now().strftime("%y%m%d%H%M%S"))
+        cfg.output_path = out_dir
+        logger = TrainLogger(out_dir, self._log_headers())
+        logger.write_config(cfg)
+
+        train_ds, val_ds = self._make_datasets()
+        if len(train_ds) == 0 or len(val_ds) == 0:
+            raise FileNotFoundError(f"No data found in {cfg.root_path}")
+        max_labels = cfg.max_labels or train_ds.max_label_count
+        train_dl = DataLoader(train_ds, cfg.batch_size, shuffle=True,
+                              workers=cfg.workers, max_labels=max_labels)
+        val_dl = DataLoader(val_ds, cfg.batch_size, shuffle=False,
+                            workers=cfg.workers, max_labels=max_labels)
+        nb = len(train_dl)
+
+        net = self._ensure_variables().to(memory_format=torch.channels_last)
+        opt, scheds = make_optimizer(
+            net, nc=cfg.number_class, epochs=cfg.epochs, steps_per_epoch=nb,
+            warmup_epochs=cfg.warm_up_epochs,
+            warmup_bias_lr=cfg.warm_up_bias_lr, use_cos_lr=cfg.use_cos_lr,
+            lrf=cfg.lrf)
+        state = TrainState(
+            net, opt, scheds,
+            init_scale=MAX_LOSS_SCALE if cfg.true_fp16 else 1.0)
+        start_epoch = 1
+        if resume_from:
+            meta = restore_train_state(resume_from, state)
+            start_epoch = int(meta.get("epoch", 0)) + 1
+            print(f"Resumed full train state from {resume_from} "
+                  f"(continuing at epoch {start_epoch}).")
+        self._check_mosaic(start_epoch)
+        train_loss_fn, _ = self._loss_fns()
+        step_fn = make_train_step(train_loss_fn, compute_dtype=self.dtype,
+                                  dynamic_loss_scale=cfg.true_fp16)
+
+        stopper = EarlyStopping(cfg.patience)
+        best_fitness = -float("inf")
+        weights_dir = os.path.join(out_dir, "weights")
+        os.makedirs(weights_dir, exist_ok=True)
+        self.epoch_stats = []
+        try:
+            for epoch in range(start_epoch, cfg.epochs + 1):
+                t0 = time.time()
+                train_ds.close_mosaic(epoch > cfg.close_mosaic)
+                loss_kwargs = self._loss_kwargs(epoch)
+                items_sum = None
+                stats = {"epoch": epoch, "step_s": [], "wait_s": []}
+                t_loop = t_prev = time.perf_counter()
+                for batch in device_prefetch(train_dl, self._to_device):
+                    t_got = time.perf_counter()
+                    stats["wait_s"].append(t_got - t_prev)
+                    _, items = step_fn(state, batch, loss_kwargs)
+                    items_sum = (items if items_sum is None
+                                 else items_sum + items)
+                    t_prev = time.perf_counter()
+                    stats["step_s"].append(t_prev - t_got)
+                stats["loop_s"] = t_prev - t_loop
+                # the reference's items: per-batch means summed over the
+                # epoch, divided by the dataset size in the log
+                train_items = (items_sum.cpu().numpy() if items_sum is not None
+                               else np.zeros(len(self.loss_names)))
+
+                t_val = time.perf_counter()
+                val_items, metrics = self.val(val_dl, epoch)
+                stats["val_s"] = time.perf_counter() - t_val
+                self.epoch_stats.append(stats)
+                fitness = -float(np.sum(val_items))
+                if fitness > best_fitness:
+                    best_fitness = fitness
+                    self.save_weight(os.path.join(weights_dir, "best.bin"))
+                if stopper.should_stop(fitness, epoch):
+                    break
+                self.save_weight(os.path.join(weights_dir, "last.bin"))
+                save_train_state(os.path.join(weights_dir, "last_state.npz"),
+                                 state, {"epoch": epoch})
+                dt = time.time() - t0
+                loss_str = " ".join(
+                    f"{n}={v / max(len(train_ds), 1):.3f}"
+                    for n, v in zip(self.loss_names, train_items))
+                met_str = " ".join(f"{v:.3f}" for v in metrics)
+                print(f"epoch {epoch}/{cfg.epochs} {dt:.1f}s {loss_str} "
+                      f"| val metrics: {met_str}")
+                logger.log_epoch(epoch, dt, list(train_items),
+                                 list(val_items), list(metrics),
+                                 len(train_ds), len(val_ds))
+        finally:
+            net.eval()
+        logger.draw_curves()
+        print("Train Done.")
+        return state
+
+    def _log_headers(self) -> str:
+        train_cols = ", ".join(f"train/{n}" for n in self.loss_names)
+        val_cols = ", ".join(f"val/{n}" for n in self.loss_names)
+        met_cols = ", ".join(f"metrics/{n}" for n in self.metric_names)
+        return (f"Epoch, Time, {train_cols}, {val_cols}, {met_cols}, "
+                f"train/loss, val/loss")
+
+    # ----------------------------------------------------------------- val
+    def val(self, val_dl: Optional[DataLoader] = None, epoch: int = 0):
+        """(loss items summed over the batches, [P, R, mAP50, mAP50-95]) of
+        the unfolded eval-mode master network on `val_dl` (default: the
+        configured val split)."""
+        cfg = self.config
+        if val_dl is None:
+            ds = YoloDataset(cfg, is_val=True)
+            val_dl = DataLoader(ds, cfg.batch_size, shuffle=False,
+                                workers=cfg.workers,
+                                max_labels=cfg.max_labels
+                                or ds.max_label_count)
+        net = self._ensure_variables()
+        _, eval_loss_fn = self._loss_fns()
+        eval_step = make_eval_step(eval_loss_fn, self._decode_for_val,
+                                   compute_dtype=self.dtype)
+        loss_kwargs = self._loss_kwargs(epoch)
+        acc = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        items_sum = None
+        count = 0
+        for batch, dbatch in device_prefetch(
+                val_dl, lambda b: (b, self._to_device(b))):
+            items, decoded = eval_step(net, dbatch, loss_kwargs)
+            items_sum = items if items_sum is None else items_sum + items
+            self._accumulate_val(acc, batch, dbatch, decoded)
+            count += batch["images"].shape[0]
+        val_items = (items_sum.cpu().numpy() if items_sum is not None
+                     else np.zeros(len(self.loss_names)))
+        return val_items, self._finalize_val(acc, count)
+
+    def _decode_for_val(self, preds):
+        dec = self._decode_branch(preds)
+        if self.arch.end2end:
+            return dec
+        return non_max_suppression(dec, self.val_conf, 0.7,
+                                   nc=self.config.number_class)
+
+    def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
+        """Match one batch's predictions to its ground truths: the IoU of
+        every (gt, prediction) pair of the batch in one device call, then
+        match_predictions per image on the host."""
+        h, w = batch["images"].shape[1:3]
+        scale = torch.tensor([w, h, w, h], dtype=torch.float32,
+                             device=self.device)
+        gt = xywh2xyxy(dbatch["bboxes"][..., :4] * scale)     # (B, M, 4)
+        pred = decoded[..., :4] if self.arch.end2end else decoded.boxes
+        iou = box_iou(gt, pred.float()).cpu().numpy()         # (B, M, K)
+        decoded = _to_host(decoded)
+        for i in range(batch["images"].shape[0]):
+            if self.arch.end2end:
+                rows = decoded[i]
+                keep = rows[:, 4] > self.val_conf
+                scores, classes = rows[keep, 4], rows[keep, 5].astype(int)
+            else:
+                keep = decoded.valid[i]
+                scores = decoded.scores[i][keep]
+                classes = decoded.classes[i][keep]
+            gmask = batch["mask_gt"][i]
+            gcls = batch["cls"][i][gmask].astype(float)
+            tp = match_predictions(classes.astype(float), gcls,
+                                   iou[i][gmask][:, keep])
+            acc["tp"].append(tp)
+            acc["conf"].append(scores)
+            acc["pred_cls"].append(classes.astype(float))
+            acc["target_cls"].append(gcls)
+
+    def _finalize_val(self, acc, count) -> List[float]:
+        if not acc["tp"]:
+            return [0.0, 0.0, 0.0, 0.0]
+        tp, conf, pred_cls, target_cls = (
+            np.concatenate(acc[k]) for k in ("tp", "conf", "pred_cls",
+                                             "target_cls"))
+        p, r, m50, m5095 = summarize(ap_per_class(tp, conf, pred_cls,
+                                                  target_cls))
+        print(f"{'All':>10}{count:>10}{len(target_cls):>10}"
+              f"{p:>10.3f}{r:>10.3f}{m50:>10.3f}{m5095:>10.3f}")
+        return [p, r, m50, m5095]
+
 
 class YoloTask:
-    """Public facade (Models/YoloTask.cs:10-107): predict, load and save.
-    device: None means cuda (raises where there is none); pass "cpu" to run
-    the plain versions on the CPU."""
+    """Public facade (Models/YoloTask.cs:10-107): train, val, predict, load
+    and save. device: None means cuda (raises where there is none); pass
+    "cpu" to run the plain versions on the CPU."""
 
     def __init__(self, config: Config, device=None):
         if config.task_type != TaskType.detect:
@@ -224,13 +484,16 @@ class YoloTask:
     def save_weight(self, path: str):
         return self.task.save_weight(path)
 
+    def train(self, resume_from: Optional[str] = None) -> TrainState:
+        return self.task.train(resume_from=resume_from)
+
+    def val(self, val_dl: Optional[DataLoader] = None, epoch: int = 0):
+        return self.task.val(val_dl, epoch)
+
     def image_predict(self, image, predict_threshold: Optional[float] = None,
                       iou_threshold: Optional[float] = None):
         if isinstance(image, str):
-            import cv2   # only for file paths; arrays need no cv2
-
-            image = cv2.cvtColor(cv2.imread(image, cv2.IMREAD_COLOR),
-                                 cv2.COLOR_BGR2RGB)
+            image = read_image_rgb(image)   # PNG without cv2; JPEG needs it
         return self.task.image_predict(image, predict_threshold,
                                        iou_threshold)
 

@@ -1,0 +1,231 @@
+"""Training machinery: AdamW in three parameter groups, the LR schedules
+(warm-up into LambdaLR / OneCycle), the train and eval steps, the train
+state (counterpart of yolosharp_tpu/train.py:30-134, :181-359).
+
+Parity targets: Models/YoloBaseTaskModel.cs:116-356 (AdamW groups with
+lr_fit = 0.002*5/(4+nc), per-step warm-up with the bias group starting at
+warm_up_bias_lr, per-epoch LambdaLR / OneCycle) and Utils/Amp.cs (the fp16
+dynamic loss scale and the skipped non-finite step).
+
+The master network is float32; a bfloat16 forward casts the conv weights to
+the activations' type (``nn.common.Conv2d``), keeps BatchNorm statistics in
+float32 and applies them in bfloat16, and the loss runs in float32, as the
+JAX package's numerics. ``torch.optim.AdamW`` with each group's learning
+rate set before every update is optax's ``adamw`` (decoupled decay
+``lr * wd * p``, bias-corrected moments, eps outside the root).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List
+
+import torch
+from torch import nn
+
+
+def lr_fit(nc: int) -> float:
+    """lr0 fit equation (YoloBaseTaskModel.cs:142)."""
+    return round(0.002 * 5 / (4 + nc), 6)
+
+
+def linear_lambda(y1: float, y2: float, steps: int) -> Callable:
+    """LrLambda (YoloBaseTaskModel.cs:504-512) of a float32 tensor epoch."""
+
+    def fn(epoch: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(1 - epoch / steps, min=0) * (y1 - y2) + y2
+
+    return fn
+
+
+def one_cycle(y1: float, y2: float, steps: int) -> Callable:
+    """OneCycle cosine (YoloBaseTaskModel.cs:492-502) of a float32 tensor
+    epoch."""
+
+    def fn(epoch: torch.Tensor) -> torch.Tensor:
+        factor = torch.clamp((1 - torch.cos(epoch * math.pi / steps)) / 2,
+                             min=0)
+        return factor * (y2 - y1) + y1
+
+    return fn
+
+
+def make_lr_schedule(*, nc: int, epochs: int, steps_per_epoch: int,
+                     warmup_epochs: int = 3, warmup_bias_lr: float = 0.1,
+                     use_cos_lr: bool = False, lrf: float = 0.01,
+                     bias_group: bool = False) -> Callable[[int], float]:
+    """LR of update number `step` (0-based): during ni <= nw a linear ramp
+    from (warmup_bias_lr for the bias group, else 0) to lr0 * lambda(epoch),
+    afterwards the LambdaLR value (TrainEpoch's warm-up,
+    YoloBaseTaskModel.cs:306-319). ni = i + nb * epoch with the 1-based
+    epoch, the JAX package's index: the ramp starts one epoch in. Computed
+    in float32 as the JAX schedule is: the bias group's ramp from 0.1 down
+    to ~1e-3 cancels, so float64 would differ by ~1e-6 relative."""
+    lr0 = lr_fit(nc)
+    nb = steps_per_epoch
+    nw = max(warmup_epochs * nb, 100)
+    lam = (one_cycle(1.0, lrf, epochs) if use_cos_lr
+           else linear_lambda(1.0, lrf, epochs))
+    start = warmup_bias_lr if bias_group else 0.0
+
+    def sched(step: int) -> float:
+        s = torch.tensor(float(step), dtype=torch.float32)
+        epoch = torch.floor(s / nb) + 1.0
+        ni = s - (epoch - 1.0) * nb + nb * epoch
+        if ni <= nw:
+            # LambdaLR has stepped (epoch - 1) times; the ramp aims at the
+            # value after this epoch's step
+            return float(start + torch.clamp(ni / nw, 0.0, 1.0)
+                         * (lr0 * lam(epoch) - start))
+        return float(lr0 * lam(epoch - 1.0))
+
+    return sched
+
+
+def param_group(name: str) -> str:
+    """bias | bn | weight for a parameter's state-dict name: every bias,
+    then the BN scales, then the rest (conv weights, A2C2f's gamma); the
+    disjoint split of the JAX package's param_group."""
+    if name.endswith(".bias"):
+        return "bias"
+    if name.endswith(".bn.weight"):
+        return "bn"
+    return "weight"
+
+
+GROUPS = ("bias", "bn", "weight")
+WEIGHT_DECAY = 5e-4         # the weight group's; the other two do not decay
+# the fp16 dynamic loss scale (Amp.cs:94-135)
+LOSS_SCALE_GROWTH_INTERVAL = 2000
+MAX_LOSS_SCALE = 65536.0
+
+
+def make_optimizer(net: nn.Module, *, nc: int, epochs: int,
+                   steps_per_epoch: int, warmup_epochs: int = 3,
+                   warmup_bias_lr: float = 0.1, use_cos_lr: bool = False,
+                   lrf: float = 0.01):
+    """(AdamW over the three groups of `net`'s trainable parameters, their
+    LR schedules in GROUPS order). Only the weight group decays, by
+    WEIGHT_DECAY."""
+    params: Dict[str, List[nn.Parameter]] = {g: [] for g in GROUPS}
+    for name, p in net.named_parameters():
+        if p.requires_grad:
+            params[param_group(name)].append(p)
+    opt = torch.optim.AdamW(
+        [{"params": params[g], "name": g,
+          "weight_decay": WEIGHT_DECAY if g == "weight" else 0.0}
+         for g in GROUPS],
+        lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+    common = dict(nc=nc, epochs=epochs, steps_per_epoch=steps_per_epoch,
+                  warmup_epochs=warmup_epochs, warmup_bias_lr=warmup_bias_lr,
+                  use_cos_lr=use_cos_lr, lrf=lrf)
+    scheds = [make_lr_schedule(bias_group=g == "bias", **common)
+              for g in GROUPS]
+    return opt, scheds
+
+
+def normalize_images(images: torch.Tensor, dtype) -> torch.Tensor:
+    """uint8 (B, H, W, 3) -> (B, 3, H, W) channels-last in `dtype`, /255 on
+    the device (4x less host-to-device traffic than floats); float batches
+    are taken as normalised."""
+    x = images.permute(0, 3, 1, 2)
+    if images.dtype == torch.uint8:
+        return x.to(dtype) / 255.0
+    return x.to(dtype)
+
+
+class TrainState:
+    """What a step changes: the float32 master network (parameters and BN
+    statistics), the optimizer (moments and per-parameter update counts),
+    `count` (updates applied: the LR schedules' step, which a skipped step
+    keeps, as optax's count), `step` (steps taken), and the fp16 dynamic
+    loss scale and its count of finite steps."""
+
+    def __init__(self, net: nn.Module, optimizer: torch.optim.Optimizer,
+                 schedules, init_scale: float = 1.0):
+        self.net = net
+        self.optimizer = optimizer
+        self.schedules = list(schedules)
+        self.step = 0
+        self.count = 0
+        self.loss_scale = float(init_scale)
+        self.grow_count = 0
+
+    @property
+    def params(self) -> List[nn.Parameter]:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+
+def next_loss_scale(scale: float, grow_count: int, finite: bool):
+    """(scale, grow_count) after a step (Amp.cs:94-135): halved (at least 1)
+    after a non-finite step, doubled (at most MAX_LOSS_SCALE) after
+    LOSS_SCALE_GROWTH_INTERVAL finite steps in a row."""
+    if not finite:
+        return max(scale * 0.5, 1.0), 0
+    grown = grow_count + 1
+    if grown >= LOSS_SCALE_GROWTH_INTERVAL:
+        return min(scale * 2.0, MAX_LOSS_SCALE), 0
+    return scale, grown
+
+
+def all_finite(tensors) -> bool:
+    """Whether every tensor is finite, in one host sync: the norm of x * 0
+    is 0 for a finite tensor and NaN for one with a NaN or an infinity."""
+    zeros = torch._foreach_mul(tensors, 0.0)
+    return bool(torch.stack(torch._foreach_norm(zeros)).isfinite().all())
+
+
+def make_train_step(loss_fn, *, compute_dtype=torch.float32,
+                    dynamic_loss_scale: bool = False):
+    """step(state, batch, loss_kwargs) -> (loss, items), on the device.
+
+    loss_fn(preds, batch, **loss_kwargs) -> (scalar loss, items). The
+    network runs in train mode (BN on batch statistics, running statistics
+    updated). Where a gradient is not finite the optimizer does not step, so parameters, moments and the schedules' count stay as
+    they were (Amp.cs:350-361); the BN statistics of the step stay updated,
+    as in the JAX step. dynamic_loss_scale: backward on loss * scale, the
+    gradients unscaled before the check and the update, the scale moved by
+    next_loss_scale. One host sync a step (the finite check)."""
+
+    def step_fn(state: TrainState, batch: Dict, loss_kwargs: Dict):
+        net, opt = state.net, state.optimizer
+        net.train()
+        scale = state.loss_scale if dynamic_loss_scale else 1.0
+        opt.zero_grad(set_to_none=True)
+        preds = net(normalize_images(batch["images"], compute_dtype))
+        loss, items = loss_fn(preds, batch, **loss_kwargs)
+        (loss * scale).backward()
+        params = state.params
+        for p in params:
+            if p.grad is None:      # unused this step: a zero gradient
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if dynamic_loss_scale:
+            torch._foreach_div_(grads, scale)
+        finite = all_finite(grads)
+        if finite:
+            for group, sched in zip(opt.param_groups, state.schedules):
+                group["lr"] = sched(state.count)
+            opt.step()
+            state.count += 1
+        if dynamic_loss_scale:
+            state.loss_scale, state.grow_count = next_loss_scale(
+                state.loss_scale, state.grow_count, finite)
+        state.step += 1
+        return loss.detach(), items.detach()
+
+    return step_fn
+
+
+def make_eval_step(loss_fn, decode_fn, *, compute_dtype=torch.float32):
+    """step(net, batch, loss_kwargs) -> (loss items, decoded inference):
+    the eval-mode (running BN statistics, unfolded) network, no gradient."""
+
+    @torch.no_grad()
+    def step_fn(net: nn.Module, batch: Dict, loss_kwargs: Dict):
+        net.eval()
+        preds = net(normalize_images(batch["images"], compute_dtype))
+        _, items = loss_fn(preds, batch, **loss_kwargs)
+        return items, decode_fn(preds)
+
+    return step_fn
