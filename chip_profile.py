@@ -1,6 +1,6 @@
 """Where the time goes (PERF.md section 5): v8s / v12s-640 bf16 batch_predict
 of 32 on one GPU, with chip_smoke.py's seeded weights, images and conf, or
-their bf16 train step at batch 16.
+their bf16 train step at batch 16, and v11s's on the mosaic.
 
     python3 chip_profile.py [v8] [v12] [train]
 
@@ -11,8 +11,14 @@ family and by kernel name. `train`: for v8s and v12s (End2End, the Config
 default), the train step of train.py on one in-memory batch of 16 640x640
 images with 1-32 boxes each in 32 label slots (no loader): 5 unprofiled
 steps (each ends in its host sync), then a trace of 3 steps, reported the
-same way. Exits non-zero without a CUDA device.
+same way; then v11s's step on one planned batch of the mosaic (a
+YoloDataset.device_batch of 16 images that chip_smoke.write_dataset
+writes), whose device render runs inside the step, traced the same way,
+and beside it a trace of the render alone, so that the render's kernels
+can be told by name among the step's. Exits non-zero without a CUDA
+device.
 """
+import tempfile
 import sys
 import time
 
@@ -83,7 +89,34 @@ def report(mode, prof, window, calls):
               f"{n[:110]}", flush=True)
 
 
-def profile_train(version):
+def trace(mode, fn, unprofiled=True):
+    """2 warm-up calls of fn, 5 unprofiled walls (each call ends in a host
+    sync), then a torch.profiler trace of 3 calls, reported."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    if unprofiled:
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"[{mode}] unprofiled calls ms: {[round(w, 2) for w in walls]}",
+              flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    report(mode, prof, window, 3)
+
+
+def profile_train(version, batch=None):
+    """The train step of {version}s on `batch` (a device batch; default one
+    in-memory letterbox batch)."""
     from yolosharp_tpu_torch.data import to_device
     from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
                                            make_train_step)
@@ -94,27 +127,29 @@ def profile_train(version):
     opt, scheds = make_optimizer(net, nc=80, epochs=1, steps_per_epoch=10)
     state = TrainState(net, opt, scheds)
     step = make_train_step(det._loss_fns()[0], compute_dtype=det.dtype)
-    batch = to_device(cs.train_batch(cs.TRAIN_BATCH, cs.TRAIN_SIZE, 60,
-                                     slots=32), dev)
-    mode = f"{version}s train b{cs.TRAIN_BATCH} {cs.TRAIN_SIZE}"
-    for _ in range(2):
-        step(state, batch, {})
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step(state, batch, {})
-        walls.append((time.perf_counter() - t0) * 1e3)
-    print(f"[{mode}] unprofiled steps ms: {[round(w, 2) for w in walls]}",
-          flush=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step(state, batch, {})
-        torch.cuda.synchronize()
-        window = (time.perf_counter() - t0) * 1e3
-    report(mode, prof, window, 3)
+    mosaic = batch is not None
+    if not mosaic:
+        batch = to_device(cs.train_batch(cs.TRAIN_BATCH, cs.TRAIN_SIZE, 60,
+                                         slots=32), dev)
+    mode = (f"{version}s train b{cs.TRAIN_BATCH} {cs.TRAIN_SIZE}"
+            + (" mosaic (device render in the step)" if mosaic else ""))
+    trace(mode, lambda: step(state, batch, {}))
+
+
+def profile_mosaic_train():
+    """v11s's step on one planned batch of the device render, and the
+    render alone."""
+    from yolosharp_tpu_torch.data import YoloDataset, to_device
+    from yolosharp_tpu_torch.data.device_augment import render_batch
+
+    with tempfile.TemporaryDirectory() as root:
+        cs.write_dataset(root, cs.TRAIN_BATCH, 2)
+        ds = YoloDataset(cs._train_config(root, "v11"))
+        batch = to_device(ds.device_batch(np.arange(cs.TRAIN_BATCH),
+                                          ds.max_label_count), dev)
+    profile_train("v11", batch)
+    trace(f"render alone b{cs.TRAIN_BATCH} {cs.TRAIN_SIZE}",
+          lambda: render_batch(batch))
 
 
 versions = sys.argv[1:] or ["v8", "v12"]
@@ -122,6 +157,7 @@ for version in versions:
     if version == "train":
         for v in ("v8", "v12"):
             profile_train(v)
+        profile_mosaic_train()
         continue
     master = YoloTask(Config(yolo_type=YoloType(version),
                              yolo_size=YoloSize.s, number_class=80,

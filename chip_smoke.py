@@ -2,30 +2,36 @@
 
     python3 chip_smoke.py
 
-Two serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused C2f)
-and v12s detection (conv3x3 s1/s2 and the fused attention).
+Four serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
+C2f), v12s detection (conv3x3 s1/s2 and the fused attention), v11s and
+v5us detection (conv3x3 s1/s2 only: v11's PSA attention takes the einsum
+path, and neither has a C2f block). Training: v8s and v12s on letterbox
+batches, v11s through the mosaic (the device render) and v8s through the
+host mosaic.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build every CUDA kernel from the
      sources in yolosharp_tpu_torch/csrc (one nvcc per source, in parallel).
-  2. each kernel against its plain PyTorch version at every shape either
-     path gives it (recorded with forward hooks on the folded v8s and v12s
-     nets: 640x640 for the convs; 640x640, 480x640, 500x375 and 1280x1280
-     for the attention), B=2, in float32 (TF32 off for cuDNN and matmul)
-     and bfloat16, with device times (CUDA events around a CUDA graph of 10
+  2. each kernel against its plain PyTorch version at every shape any
+     path gives it (recorded with forward hooks on the folded v8s, v12s,
+     v11s and v5us nets: 640x640 for the convs; 640x640, 480x640, 500x375
+     and 1280x1280 for the attention), B=2, in float32 (TF32 off for cuDNN
+     and matmul), bfloat16 and float16, with device times (CUDA events around a CUDA graph of 10
      calls, in turns plain / kernel / library / library / kernel / plain),
      the eager times of the same calls made from Python (host launch cost
      included), and the TFLOP/s each reaches (convs
      2*Ho*Wo*9*Ci*Co*B; the C2f block's four GEMMs; attention's two
      products). Beside them each shape's bound, max(FLOP / peak, bytes /
      3.35 TB/s) with each input read once and the output written once
-     (peaks 989 TFLOP/s bf16, 67 TFLOP/s f32), and the library time: one
+     (peaks 989 TFLOP/s bf16 and f16, 67 TFLOP/s f32), and the library
+     time: one
      PyTorch call computing the same function, timed and never used by the
      port (F.conv2d with bias and without the activation for the convs,
      F.scaled_dot_product_attention for the attention, none for the C2f
-     block). bfloat16 takes the tensor-core kernels, float32 the CUDA-core
-     kernels. Then the 640x640
-     shapes again at B=32 in bfloat16, timed, and at last every kernel
+     block). bfloat16 and float16 take the tensor-core kernels, float32 the
+     CUDA-core kernels; float16 is held to the bf16 rule. Then the 640x640
+     shapes again at B=32 in bfloat16 and float16, timed, and at last every
+     kernel
      variant the served requests of phases 3 and 4 take (the bf16 conv's N
      tile or stem, the C2f block's tile, the attention's route and splits;
      they depend on the batch) that was not checked yet, at the first request
@@ -37,8 +43,12 @@ Phases (any failure exits non-zero; nothing is caught):
      c2f_fused must have launched during them.
   3b. the v12s slice, the same way; conv3x3 s1/s2 and fused_attention must
      have launched during it.
-  4. / 4b. each path's float32 predict of one image on the card against the
-     CPU's float32 predict through the plain versions.
+  3c. the v11s slice, the same way; conv3x3 s1/s2 must have launched,
+     c2f_fused and fused_attention must not (in every slice a kernel off
+     the path must not launch).
+  3d. v5us: one b32 batch_predict (NMS), the same launch check.
+  4. / 4b. / 4c. the v8s, v12s and v11s float32 predict of one image on
+     the card against the CPU's float32 predict through the plain versions.
 
 Training (the attention is the only kernel on the train path; the conv and
 C2f kernels serve predict only and must not launch there):
@@ -73,9 +83,31 @@ C2f kernels serve predict only and must not launch there):
      step loop spent waiting on the loader, val seconds and metrics, peak
      device memory; finite losses, the five output files, and best.bin
      loaded into a fresh YoloTask whose image_predict runs.
+  6b. true_fp16 (float16 compute): v8s and v12s b32 640x640 batch_predict,
+     every kernel of each path launched in float16 (the largest |x| a
+     layer of the float16 forward reaches is printed, and any layer past
+     float16's 65504); then v12n true_fp16 train steps at 128x128, batch 2,
+     from the loss scale 65536 until two updates have been applied (the
+     scale halves after each step whose float16 gradients overflow), with
+     the attention kernel in float16 under autograd (its output has a
+     grad_fn), finite loss items, and the loss scale printed after each
+     step.
   7b. v12s on the same data: the seconds to build its train YoloDataset
      (PNG decode without cv2 and resize), one epoch (10 steps) through the
      port's train step, ms a step, and 8 attention launches a forward.
+  8a. the mosaic: one planned b16 640x640 batch of the data (degrees 10,
+     shear 2, perspective 5e-4: the full warp) rendered on the card and on
+     the CPU in float32: at most 0.1% of the values more than 1e-2 apart
+     (the fraction is printed); the render's ms a batch (CUDA events). Then
+     YoloTask.train() of v11s at full width, 640x640, batch 16, bf16,
+     close_mosaic=1 and 2 epochs: epoch 1 on the device render (a render a
+     step), epoch 2 on letterbox batches; per epoch the median step ms,
+     img/s, the loader-wait share and peak device memory; finite losses;
+     best.bin served by a fresh v11s YoloTask through the conv kernels.
+  8b. one epoch of v8s with device_augment=False and mosaic=0.5: the host
+     mosaic (mosaic4 + random_perspective) and letterbox mix; ms a step and
+     the loader-wait share.
+Each phase prints its wall seconds.
 
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
 The second-to-last line is a JSON object of the kernels; the last line is
@@ -109,17 +141,21 @@ CANVASES = ((640, 640), (480, 640), (512, 384), (1280, 1280))
 SERVED_BATCH = 32
 SERVED = {torch.bfloat16: ((SERVED_BATCH, 640, 640), (1, 640, 640),
                            (1, 480, 640), (1, 512, 384)),
+          torch.float16: ((SERVED_BATCH, 640, 640),),
           torch.float32: ((1, 640, 640),)}
+HALF = (torch.bfloat16, torch.float16)
 KINDS = ("s2", "s1", "c2f", "attn")
 # float32: the conv kernels sum 9*Ci <= 4608 products in another order than
 # cuDNN; the attention kernel as tests/test_pallas_attention.py. bfloat16:
 # the JAX package's own bf16 criterion (max error / max |reference| < 1e-2,
 # tests/test_pallas_conv.py), doubled for the C2f block, whose four layers
-# round to bf16 at different points in the two versions.
+# round to bf16 at different points in the two versions; float16 (three
+# more mantissa bits) is held to the same rule.
 TOL_F32 = {"conv": (1e-4, 1e-4), "c2f": (1e-4, 1e-4), "attn": (2e-5, 2e-4)}
 # the roofline of one H100 SXM (NVIDIA's data sheet): dense bf16 tensor
 # cores, f32 CUDA cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 HBM_BYTES = 3.35e12
 TOL_BF16 = {"conv": 1e-2, "c2f": 2e-2, "attn": 1e-2}
 SOURCES = {
@@ -132,9 +168,17 @@ SOURCES = {
     "fused_attention": ("yolosharp_tpu_torch/csrc/attention.cu",
                         "yolosharp_tpu/kernels/attention.py:57"),
 }
-# the kernels each path must launch
+# the kernels each path must launch (and no other)
 PATHS = {"v8": ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
-         "v12": ("conv3x3_silu", "conv3x3s2_silu", "fused_attention")}
+         "v12": ("conv3x3_silu", "conv3x3s2_silu", "fused_attention"),
+         "v11": ("conv3x3_silu", "conv3x3s2_silu"),
+         "v5u": ("conv3x3_silu", "conv3x3s2_silu")}
+PHASE = {"v8": "3", "v12": "3b", "v11": "3c", "v5u": "3d"}
+# the paths held card against CPU in float32 (phases 4, 4b, 4c)
+CPU_MATCH = {"v8": "4", "v12": "4b", "v11": "4c"}
+# the stats suffix of each (dtype, batch) phase 2 times
+ERR_KEY = {torch.float32: "max_abs_err", torch.bfloat16: "max_abs_err_bf16",
+           torch.float16: "max_abs_err_f16"}
 
 
 def card() -> str:
@@ -195,7 +239,7 @@ def compare(name, got, want, dtype, kind):
         bad = int((err > atol + rtol * want.abs()).sum())
         ok = bad == 0 and bool(torch.isfinite(got).all())
         rule = f"|k-p| <= {atol} + {rtol}|p| ({bad} outside)"
-    else:
+    else:   # bfloat16 and float16
         ok = rel < TOL_BF16[kind] and bool(torch.isfinite(got).all())
         rule = f"max|k-p|/max|p| = {rel:.3e} < {TOL_BF16[kind]}"
     print(f"  {name}: max_abs_err {max_abs:.3e} max_rel {rel:.3e} {rule} "
@@ -257,24 +301,24 @@ def record_shapes(version: str) -> dict:
 
 def variant(kind, dtype, batch, shape, sms) -> str:
     """What the launch picks for one call, as the wrappers pick it for a
-    card of sms SMs: the bf16 conv's N tile (or its stem kernel), the C2f
-    block's tile, the attention's route by type and its bf16 splits,
+    card of sms SMs: the 16-bit conv's N tile (or its stem kernel), the C2f
+    block's tile, the attention's route by type and its 16-bit splits,
     staged keys and warps; '' where the kernel is the same for every
     call."""
     from yolosharp_tpu_torch.kernels.attention import launch_geometry
     from yolosharp_tpu_torch.kernels.c2f import launch_tile
     from yolosharp_tpu_torch.kernels.conv3x3 import n_tile
 
-    bf16 = dtype == torch.bfloat16
-    if kind in ("s1", "s2") and bf16:
+    half = dtype in HALF
+    if kind in ("s1", "s2") and half:
         H, W, ci, co = shape
         bn = n_tile(batch, H, W, ci, co, int(kind[1]), sms)
         return f"BN {bn}" if bn else "stem"
     if kind == "c2f":
         H, W, _, c, _ = shape
-        return f"c={c} tile {launch_tile(batch, H, W, c, bf16, sms)}"
+        return f"c={c} tile {launch_tile(batch, H, W, c, half, sms)}"
     if kind == "attn":
-        if not bf16:
+        if not half:
             return "CUDA cores"
         areas, nh, n, d = shape
         splits, keys, warps = launch_geometry(batch * areas * nh, n, d, sms)
@@ -289,9 +333,9 @@ def phase_kernels(dev):
                                              conv3x3s2_silu, fused_attention)
 
     print(f"phase 2: kernels against their plain versions: every shape at "
-          f"B={BATCH} in float32 and bfloat16, the batch-32 shapes in "
-          f"bfloat16, then any tile the served requests take that was not "
-          f"checked yet", flush=True)
+          f"B={BATCH} in float32, bfloat16 and float16, the batch-32 shapes "
+          f"in bfloat16 and float16, then any tile the served requests take "
+          f"that was not checked yet", flush=True)
     print("  torch.backends.cudnn.allow_tf32 = False, "
           "torch.backends.cuda.matmul.allow_tf32 = False", flush=True)
     recorded = {v: record_shapes(v) for v in PATHS}
@@ -322,8 +366,8 @@ def phase_kernels(dev):
     stats = {}
     for name in SOURCES:
         s = stats[name] = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0,
-                           "shapes": 0}
-        for suffix in ("", "_f32", "_b32"):
+                           "max_abs_err_f16": 0.0, "shapes": 0}
+        for suffix in ("", "_f32", "_b32", "_f16", "_f16_b32"):
             s.update({"ms" + suffix: 0.0, "plain_ms" + suffix: 0.0,
                       "ms_eager" + suffix: 0.0, "bound_ms" + suffix: 0.0,
                       "library_ms" + suffix: None if name == "c2f_fused"
@@ -411,8 +455,7 @@ def phase_kernels(dev):
             f64_errors(got, want, ref64())
         checked.add((kind, dt, var))
         s = stats[name]
-        key = "max_abs_err" if dtype == torch.float32 else "max_abs_err_bf16"
-        s[key] = max(s[key], err)
+        s[ERR_KEY[dtype]] = max(s[ERR_KEY[dtype]], err)
         if not timed:
             return
         fns = {"plain": plain, "kernel": kernel}
@@ -431,8 +474,10 @@ def phase_kernels(dev):
         print("    eager: " + ", ".join(f"{v:.4f} ms {k}"
                                         for k, v in eager.items()),
               flush=True)
-        suffix = ("_b32" if batch == SERVED_BATCH else
-                  "_f32" if dtype == torch.float32 else "")
+        suffix = {torch.float32: "_f32", torch.bfloat16: "",
+                  torch.float16: "_f16"}[dtype]
+        if batch == SERVED_BATCH:
+            suffix = "_f16_b32" if dtype == torch.float16 else "_b32"
         s["ms" + suffix] += ms
         s["plain_ms" + suffix] += plain_ms
         s["ms_eager" + suffix] += eager["kernel"]
@@ -444,15 +489,16 @@ def phase_kernels(dev):
         if suffix == "":
             s["shapes"] += 1
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for kind in KINDS:
             for shape, vs in shapes[kind]:
                 check(kind, dtype, BATCH, shape, vs)
-    print(f"  bfloat16 at B={SERVED_BATCH}, the shapes of the served "
-          f"batch_predict", flush=True)
-    for kind in KINDS:
-        for shape, vs in union(kind, [CONV_CANVAS]):
-            check(kind, torch.bfloat16, SERVED_BATCH, shape, vs)
+    for dtype in HALF:
+        print(f"  {str(dtype)[6:]} at B={SERVED_BATCH}, the shapes of the "
+              f"served batch_predict", flush=True)
+        for kind in KINDS:
+            for shape, vs in union(kind, [CONV_CANVAS]):
+                check(kind, dtype, SERVED_BATCH, shape, vs)
     # every (kind, dtype, variant) the served requests take, at the first
     # request that takes it
     served = {}
@@ -569,19 +615,27 @@ def build_tasks(dev, version, state, **cfg):
     return tasks
 
 
-def phase_slice(dev, version):
+def check_path_launches(version, counts, mode):
+    """The path's kernels launched, and no other kernel."""
+    for name in SOURCES:
+        if (counts[name] > 0) != (name in PATHS[version]):
+            raise SystemExit(f"[{mode}] {name} launched {counts[name]} "
+                             f"times; the {version} path takes "
+                             f"{PATHS[version]}")
+
+
+def phase_slice(dev, version, light=False):
     """{version}s-640, nc=80, bf16 (the Config default), seeded weights: a
-    few image_predict and batch_predict requests in both End2End modes.
-    Returns (launches of the path's kernels, their launches in one b32
-    forward, state dict, conf)."""
+    few image_predict and batch_predict requests in both End2End modes
+    (light: one NMS batch_predict). Returns (launches of the path's
+    kernels, their launches in one b32 forward, state dict, conf)."""
     from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
     from yolosharp_tpu_torch.kernels import (launch_counts,
                                              reset_launch_counts)
     from yolosharp_tpu_torch.loss import flatten_levels
 
-    phase = "3" if version == "v8" else "3b"
-    print(f"phase {phase}: {version}s-640 nc=80 YoloTask on cuda, bf16, "
-          f"seeded weights", flush=True)
+    print(f"phase {PHASE[version]}: {version}s-640 nc=80 YoloTask on cuda, "
+          f"bf16, seeded weights", flush=True)
     master = YoloTask(Config(yolo_type=YoloType(version),
                              yolo_size=YoloSize.s, number_class=80,
                              end2end=True), device=dev)
@@ -631,11 +685,13 @@ def phase_slice(dev, version):
 
     launches = {}
     for e2e, task in tasks.items():
+        if light and e2e:
+            continue
         mode = f"{version} {'end2end' if e2e else 'nms'}"
         task.image_predict(singles[0], conf)        # fold + warm-up
         torch.cuda.synchronize()
         reset_launch_counts()
-        for img in singles:
+        for img in singles[:0] if light else singles:
             t0 = time.perf_counter()
             res = task.image_predict(img, conf)
             ms = (time.perf_counter() - t0) * 1e3
@@ -643,7 +699,7 @@ def phase_slice(dev, version):
                   f"{len(res)} detections, {ms:.2f} ms", flush=True)
             if not res:
                 raise SystemExit(f"[{mode}] image_predict found nothing")
-        for rep in range(3):
+        for rep in range(1 if light else 3):
             t0 = time.perf_counter()
             res = task.batch_predict(batch, conf)
             s = time.perf_counter() - t0
@@ -658,9 +714,8 @@ def phase_slice(dev, version):
                 raise SystemExit(f"[{mode}] batch_predict results are wrong")
         counts = launch_counts()
         print(f"  [{mode}] kernel launches: {counts}", flush=True)
+        check_path_launches(version, counts, mode)
         for name in PATHS[version]:
-            if counts[name] <= 0:
-                raise SystemExit(f"{name} was not launched in {mode} predict")
             launches[name] = launches.get(name, 0) + counts[name]
     # truncation is checked per request: the NMS pool (512) held every
     # candidate
@@ -680,9 +735,8 @@ def phase_cpu_match(dev, version, state, conf):
     from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
     from yolosharp_tpu_torch.tasks import _to_host
 
-    phase = "4" if version == "v8" else "4b"
-    print(f"phase {phase}: {version}s float32 on the card against float32 on "
-          f"the CPU (plain versions)", flush=True)
+    print(f"phase {CPU_MATCH[version]}: {version}s float32 on the card "
+          f"against float32 on the CPU (plain versions)", flush=True)
     img = torch.from_numpy(synthetic_images(1, 640, 640, 30)[0][None])
     cuda = build_tasks(dev, version, state, scalar_type=ScalarType.float32)
     cpu = build_tasks("cpu", version, {k: v.cpu() for k, v in state.items()},
@@ -703,8 +757,7 @@ def phase_cpu_match(dev, version, state, conf):
               flush=True)
         if n_want < 5 or abs(n_got - n_want) > 2 or unmatched > 2:
             raise SystemExit(f"[{mode}] card and CPU disagree")
-        if any(used[name] <= 0 for name in PATHS[version]):
-            raise SystemExit(f"[{mode}] a kernel did not run in float32")
+        check_path_launches(version, used, mode + " float32")
 
 
 # ------------------------------------------------------------------ train
@@ -848,7 +901,7 @@ def phase_train_step_cpu_match(dev):
     print("phase 6: one float32 train step (End2End) at 128x128, batch 2, "
           "card against CPU, same seeded weights and batch", flush=True)
     batch = train_batch(2, 128, 40)
-    for version in PATHS:
+    for version in ("v8", "v12"):
         cfg = Config(yolo_type=YoloType(version), yolo_size=YoloSize.n,
                      number_class=80, scalar_type=ScalarType.float32)
         res = []
@@ -946,6 +999,114 @@ def phase_train_step_cpu_match(dev):
                              f"the CPU's")
 
 
+# ------------------------------------------------------------- float16
+def phase_fp16(dev, states, confs) -> dict:
+    """Phase 6b. Returns the kernel launches of its float16 predicts."""
+    from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
+    from yolosharp_tpu_torch.data import to_device
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from yolosharp_tpu_torch.nn import attention as nn_attention
+    from yolosharp_tpu_torch.train import (MAX_LOSS_SCALE, TrainState,
+                                           make_optimizer, make_train_step)
+
+    print("phase 6b: true_fp16 (float16 compute): v8s and v12s b32 640x640 "
+          "batch_predict through every kernel of the path in float16, then "
+          "v12n train steps at 128x128", flush=True)
+    batch = synthetic_images(SERVED_BATCH, 640, 640, 20)
+    launches = {}
+    for version in ("v8", "v12"):
+        task = build_tasks(dev, version, states[version],
+                           true_fp16=True)[False]
+        net = task.task._predict_variables()
+        if task.task.dtype != torch.float16:
+            raise SystemExit(f"true_fp16 computes in {task.task.dtype}")
+        # the largest |x| each layer of the float16 forward reaches
+        peaks = {}
+        hooks = [m.register_forward_hook(
+            lambda m, i, o, j=j: peaks.__setitem__(
+                j, float(o.float().abs().max())))
+            for j, m in enumerate(net.model[:-1])]
+        x = torch.from_numpy(np.stack(batch)).to(dev).permute(0, 3, 1, 2)
+        with torch.no_grad():
+            net((x.float() / 255.0).half().contiguous(
+                memory_format=torch.channels_last))
+        for h in hooks:
+            h.remove()
+        top = max(peaks, key=peaks.get)
+        over = [j for j, v in peaks.items() if not v <= 65504.0]
+        print(f"  [{version}s f16] largest |x| of a layer output: "
+              f"{peaks[top]:.1f} (layer {top}); layers past float16's "
+              f"65504: {over or 'none'}", flush=True)
+        reset_launch_counts()
+        for rep in range(3):
+            t0 = time.perf_counter()
+            res = task.batch_predict(batch, confs[version])
+            dt = time.perf_counter() - t0
+            n = [len(r) for r in res]
+            print(f"  [{version}s f16] batch_predict {len(batch)}x640x640 "
+                  f"#{rep}: detections per image min {min(n)} mean "
+                  f"{np.mean(n):.1f} max {max(n)}, {dt * 1e3:.2f} ms",
+                  flush=True)
+        counts = launch_counts()
+        print(f"  [{version}s f16] kernel launches: {counts}", flush=True)
+        check_path_launches(version, counts, f"{version}s f16")
+        if len(res) != len(batch) or not all(
+                np.isfinite([r.score, r.center_x, r.center_y, r.width,
+                             r.height]).all() for rs in res for r in rs):
+            raise SystemExit(f"[{version}s f16] batch_predict results are "
+                             f"wrong")
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    cfg = Config(yolo_type=YoloType.v12, yolo_size=YoloSize.n,
+                 number_class=80, true_fp16=True)
+    det = YoloTask(cfg, device=dev).task
+    net = det._ensure_variables().to(memory_format=torch.channels_last)
+    opt, scheds = make_optimizer(net, nc=80, epochs=1, steps_per_epoch=18)
+    state = TrainState(net, opt, scheds, init_scale=MAX_LOSS_SCALE)
+    step = make_train_step(det._loss_fns()[0], compute_dtype=det.dtype,
+                           dynamic_loss_scale=True)
+    tb = to_device(train_batch(2, 128, 41), dev)
+    seen = []
+    real = nn_attention.attention_bihd
+
+    def traced(q, k, v, scale):
+        out = real(q, k, v, scale)
+        seen.append((out.dtype, out.grad_fn is not None))
+        return out
+
+    nn_attention.attention_bihd = traced
+    try:
+        # the scale halves after each step whose float16 gradients
+        # overflow (the step skipped), until one applies; then one more
+        for i in range(18):
+            reset_launch_counts()
+            _, items = step(state, tb, {})
+            n = launch_counts()["fused_attention"]
+            print(f"  [v12n true_fp16 train] step {i + 1}: loss items "
+                  f"{items.tolist()}, updates applied {state.count}, loss "
+                  f"scale {state.loss_scale:g} after it, attention launches "
+                  f"{n}", flush=True)
+            if n != 8 or not bool(torch.isfinite(items).all()):
+                raise SystemExit("true_fp16 train step: not 8 attention "
+                                 "launches, or a loss not finite")
+            if state.count >= 2:
+                break
+    finally:
+        nn_attention.attention_bihd = real
+    if state.count < 2:
+        raise SystemExit("true_fp16 train: no two updates applied in 18 "
+                         "steps")
+    net.eval()
+    print(f"  attention outputs in the steps: {len(seen)}, dtypes "
+          f"{sorted({str(d) for d, _ in seen})}, all with a grad_fn: "
+          f"{all(g for _, g in seen)}", flush=True)
+    if not seen or any(d != torch.float16 or not g for d, g in seen):
+        raise SystemExit("the attention did not run in float16 under "
+                         "autograd")
+    return launches
+
+
 def write_dataset(root, n_train, n_val, seed=7) -> np.ndarray:
     """Images of 480-800 px a side, a noisy background and 1-8 solid
     rectangles, with YOLO txt labels (80 classes), under
@@ -989,11 +1150,30 @@ def write_dataset(root, n_train, n_val, seed=7) -> np.ndarray:
 def _train_config(root, version, **kw):
     from yolosharp_tpu_torch import Config, YoloSize, YoloType
 
+    kw = {"epochs": 1, **kw}
     return Config(root_path=root, train_data_path="images/train",
                   val_data_path="images/val", yolo_type=YoloType(version),
                   yolo_size=YoloSize.s, number_class=80,
-                  image_size=TRAIN_SIZE, batch_size=TRAIN_BATCH, epochs=1,
-                  **kw)
+                  image_size=TRAIN_SIZE, batch_size=TRAIN_BATCH, **kw)
+
+
+def epoch_line(st, tag) -> str:
+    """One epoch of epoch_stats: steps, median step ms after the first two,
+    img/s at it and over the loop, the loader-wait share, peak memory."""
+    steps = len(st["step_s"])
+    med = float(np.median(st["step_s"][2:])) * 1e3
+    wait, loop = sum(st["wait_s"]), st["loop_s"]
+    tail = sum(st["wait_s"][2:]) / (sum(st["wait_s"][2:])
+                                    + sum(st["step_s"][2:]))
+    return (f"{tag}: epoch {st['epoch']}: {steps} steps, {med:.1f} ms a step "
+            f"(median after the first two; first two "
+            f"{st['step_s'][0] * 1e3:.0f}, {st['step_s'][1] * 1e3:.0f} ms), "
+            f"{TRAIN_BATCH / med * 1e3:.1f} img/s at that median, "
+            f"{steps * TRAIN_BATCH / loop:.1f} img/s over the step loop "
+            f"({loop:.2f} s); loader wait {wait / loop:.3f} of the loop (the "
+            f"first batch {st['wait_s'][0]:.2f} s; after the first two steps "
+            f"{tail:.3f}); val {st['val_s']:.2f} s; peak device memory "
+            f"{st['peak_bytes'] / 2**30:.2f} GiB")
 
 
 def phase_train(dev, root, tag: str) -> dict:
@@ -1005,30 +1185,16 @@ def phase_train(dev, root, tag: str) -> dict:
           f"batch {TRAIN_BATCH}, bf16, 1 epoch", flush=True)
     out = os.path.join(root, "run_v8s")
     task = YoloTask(_train_config(root, "v8", output_path=out), device=dev)
-    torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
     task.train()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
     st = task.task.epoch_stats[0]
     steps = len(st["step_s"])
-    med = float(np.median(st["step_s"][2:])) * 1e3
-    wait, loop = sum(st["wait_s"]), st["loop_s"]
-    tail = sum(st["wait_s"][2:]) / (sum(st["wait_s"][2:])
-                                    + sum(st["step_s"][2:]))
-    print(f"  {tag}: v8s train {steps} steps, {med:.1f} ms a step (median "
-          f"after the first two; first two {st['step_s'][0] * 1e3:.0f}, "
-          f"{st['step_s'][1] * 1e3:.0f} ms), {TRAIN_BATCH / med * 1e3:.1f} "
-          f"img/s at that median, {steps * TRAIN_BATCH / loop:.1f} img/s "
-          f"over the step loop ({loop:.2f} s); loader wait {wait:.2f} s = "
-          f"{wait / loop:.3f} of the loop (the first batch "
-          f"{st['wait_s'][0]:.2f} s; after the first two steps "
-          f"{tail:.3f}, median {np.median(st['wait_s'][2:]) * 1e3:.1f} ms a "
-          f"step); val {st['val_s']:.2f} s, train() {wall:.1f} s, peak "
-          f"device memory {peak / 2**30:.2f} GiB", flush=True)
-    print(f"  kernel launches during train(): {counts}", flush=True)
+    print("  " + epoch_line(st, f"{tag}: v8s"), flush=True)
+    print(f"  train() {wall:.1f} s; kernel launches during train(): "
+          f"{counts}", flush=True)
     with open(os.path.join(out, "log.csv")) as f:
         rows = list(csv.reader(f))
     values = dict(zip([h.strip() for h in rows[0]], rows[-1]))
@@ -1106,6 +1272,135 @@ def phase_train_v12(dev, root, tag: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- mosaic
+def phase_render(dev, root, tag):
+    """Phase 8a, the render: one planned batch on the card and on the
+    CPU."""
+    from yolosharp_tpu_torch.data import YoloDataset
+    from yolosharp_tpu_torch.data.device_augment import PLAN_KEYS, render_batch
+
+    print(f"phase 8a: the mosaic's device render of one planned b{TRAIN_BATCH} "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE} batch (degrees 10, shear 2, perspective "
+          f"5e-4), card against CPU, float32", flush=True)
+    cfg = _train_config(root, "v11", degrees=10.0, shear=2.0,
+                        perspective=5e-4)
+    ds = YoloDataset(cfg)
+    batch = ds.device_batch(np.arange(TRAIN_BATCH), ds.max_label_count)
+    keys = ("aug_pool",) + PLAN_KEYS
+    on_card = {k: torch.from_numpy(batch[k]).to(dev) for k in keys}
+    got = render_batch(on_card)
+    want = render_batch({k: torch.from_numpy(batch[k]) for k in keys})
+    d = (got.cpu() - want).abs()
+    frac = float((d > 1e-2).float().mean())
+    print(f"  card vs CPU: {frac:.3e} of {d.numel()} values more than 1e-2 "
+          f"apart (at most 1e-3), max |d| {float(d.max()):.3e}; output "
+          f"{tuple(got.shape)} {got.dtype}, range [{float(got.min()):.1f}, "
+          f"{float(got.max()):.1f}]", flush=True)
+    if frac > 1e-3 or not bool(torch.isfinite(got).all()):
+        raise SystemExit("the device render disagrees with the CPU's")
+    ms = time_eager({"render": lambda: render_batch(on_card)}, iters=10)
+    print(f"  {tag}: render {ms['render']:.3f} ms a b{TRAIN_BATCH} "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE} batch (CUDA events, eager, mean of 20)",
+          flush=True)
+
+
+def phase_train_mosaic(dev, root, tag):
+    """Phase 8a, train: v11s through the mosaic, then letterbox. Returns
+    (train launches, predict launches of the served best.bin)."""
+    from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
+    from yolosharp_tpu_torch.data import device_augment
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 8a: YoloTask.train() of v11s, {TRAIN_SIZE}x{TRAIN_SIZE}, "
+          f"batch {TRAIN_BATCH}, bf16, close_mosaic=1, 2 epochs", flush=True)
+    out = os.path.join(root, "run_v11s")
+    task = YoloTask(_train_config(root, "v11", output_path=out,
+                                  close_mosaic=1, epochs=2), device=dev)
+    renders = []
+    real = device_augment.render_batch
+    device_augment.render_batch = lambda b: renders.append(1) or real(b)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        task.train()
+    finally:
+        device_augment.render_batch = real
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = task.task.epoch_stats
+    for st in stats:
+        print("  " + epoch_line(st, f"{tag}: v11s"), flush=True)
+    print(f"  renders {len(renders)} (epoch 1 steps "
+          f"{len(stats[0]['step_s'])}); train() {wall:.1f} s; kernel "
+          f"launches during train(): {counts}", flush=True)
+    with open(os.path.join(out, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    losses = [float(v) for r in rows[1:] for h, v in zip(rows[0], r)
+              if "loss" in h]
+    print(f"  log.csv losses: {losses}", flush=True)
+    if ([s["epoch"] for s in stats] != [1, 2]
+            or len(renders) != len(stats[0]["step_s"]) or not renders
+            or not np.isfinite(losses).all() or any(counts.values())):
+        raise SystemExit("v11s mosaic train(): wrong epochs, renders, "
+                         "losses or a kernel launch in training")
+    fresh = YoloTask(Config(yolo_type=YoloType.v11, yolo_size=YoloSize.s,
+                            number_class=80), device=dev)
+    fresh.load_model(os.path.join(out, "weights", "best.bin"))
+    reset_launch_counts()
+    res = fresh.image_predict(synthetic_images(1, 640, 640, 51)[0], 0.0)
+    served = launch_counts()
+    print(f"  best.bin in a fresh v11s YoloTask: image_predict gave "
+          f"{len(res)} rows, kernel launches {served}", flush=True)
+    if not res:
+        raise SystemExit("image_predict of the trained v11s returned "
+                         "nothing")
+    check_path_launches("v11", served, "v11s best.bin")
+    return counts, served
+
+
+def phase_train_host_mosaic(dev, root, tag):
+    """Phase 8b: v8s with the host mosaic at mosaic=0.5. Returns its
+    launch counts."""
+    from yolosharp_tpu_torch import YoloTask
+    from yolosharp_tpu_torch.data import augment
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 8b: YoloTask.train() of v8s, {TRAIN_SIZE}x{TRAIN_SIZE}, "
+          f"batch {TRAIN_BATCH}, bf16, 1 epoch, device_augment=False, "
+          f"mosaic=0.5 (host mosaic4 + random_perspective, and letterbox)",
+          flush=True)
+    out = os.path.join(root, "run_v8s_host_mosaic")
+    task = YoloTask(_train_config(root, "v8", output_path=out,
+                                  close_mosaic=1, device_augment=False,
+                                  mosaic=0.5), device=dev)
+    calls = {"mosaic4": 0, "letterbox": 0}
+    real = {k: getattr(augment, k) for k in calls}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return fn
+
+    for name in calls:
+        setattr(augment, name, counted(name))
+    reset_launch_counts()
+    try:
+        task.train()
+    finally:
+        for name, fn in real.items():
+            setattr(augment, name, fn)
+    counts = launch_counts()
+    st = task.task.epoch_stats[0]
+    print("  " + epoch_line(st, f"{tag}: v8s host mosaic"), flush=True)
+    print(f"  images through mosaic4 {calls['mosaic4']}, through letterbox "
+          f"{calls['letterbox']}; kernel launches {counts}", flush=True)
+    if not calls["mosaic4"] or not calls["letterbox"] or any(counts.values()):
+        raise SystemExit("host mosaic train(): no mosaic or no letterbox "
+                         "image, or a kernel launch in training")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1121,7 +1416,7 @@ def main() -> int:
 
     from yolosharp_tpu_torch.kernels import build
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     names = ("conv3x3", "c2f", "attention")
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(build.load, names))
@@ -1131,26 +1426,51 @@ def main() -> int:
         print(f"  nvcc {name}:\n" + "\n".join(
             "    " + ln for ln in log.strip().splitlines()), flush=True)
 
-    stats = phase_kernels(dev)
-    launches, per_forward = {}, {}
+    def timed(phase, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"  (phase {phase}: {time.perf_counter() - t:.1f} s wall)",
+              flush=True)
+        return out
+
+    stats = timed("2", phase_kernels, dev)
+    launches, per_forward, states, confs = {}, {}, {}, {}
+
+    def add(counts, into):
+        for name in SOURCES:
+            into[name] = into.get(name, 0) + counts.get(name, 0)
+
     for version in PATHS:
-        path_launches, forward, state, conf = phase_slice(dev, version)
-        phase_cpu_match(dev, version, state, conf)
-        for name, n in path_launches.items():
-            launches[name] = launches.get(name, 0) + n
+        path_launches, forward, state, conf = timed(
+            PHASE[version], phase_slice, dev, version, light=version == "v5u")
+        states[version], confs[version] = state, conf
+        if version in CPU_MATCH:
+            timed(CPU_MATCH[version], phase_cpu_match, dev, version, state,
+                  conf)
+        add(path_launches, launches)
+        for name in path_launches:
             per_forward.setdefault(name, {})[version] = forward[name]
-    stats["fused_attention"].update(phase_attention_autograd(dev, tag))
-    phase_train_step_cpu_match(dev)
+    stats["fused_attention"].update(
+        timed("5", phase_attention_autograd, dev, tag))
+    timed("6", phase_train_step_cpu_match, dev)
+    add(timed("6b", phase_fp16, dev, states, confs), launches)
+    train_launches = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         mix = write_dataset(root, 160, 32)
         print(f"wrote the synthetic PNG dataset (160 train, 32 val) in "
               f"{time.perf_counter() - t0:.1f} s; rows by filter None / Sub / "
               f"Up / Average / Paeth: {mix.tolist()}", flush=True)
-        train_counts = [phase_train(dev, root, tag),
-                        phase_train_v12(dev, root, tag)]
-    train_launches = {name: sum(c[name] for c in train_counts)
-                      for name in SOURCES}
+        add(timed("7", phase_train, dev, root, tag), train_launches)
+        add(timed("7b", phase_train_v12, dev, root, tag), train_launches)
+        timed("8a render", phase_render, dev, root, tag)
+        mosaic_train, served = timed("8a train", phase_train_mosaic, dev,
+                                     root, tag)
+        add(mosaic_train, train_launches)
+        add(served, launches)
+        add(timed("8b", phase_train_host_mosaic, dev, root, tag),
+            train_launches)
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules
                      if m in ("jax", "flax", "yolosharp_tpu")

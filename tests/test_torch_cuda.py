@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and its predict on a CUDA card. Every test here
+"""The port's CUDA kernels (float32, bfloat16 and float16), its predict
+and its train steps on a CUDA card. Every test here
 needs the card: it skips without one. The file imports no JAX (the GPU
 machine has none), so it runs there with
 
@@ -40,9 +41,11 @@ def _rand(rng, *shape, scale=1.0):
                             .astype(np.float32))
 
 
-# float32: another summation order; bf16: one rounding vs the plain
+# float32: another summation order; bf16 / f16: one rounding vs the plain
 # version's per-op roundings (max error relative to the largest value)
-TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": 1e-2}
+TOL = {"float32": dict(atol=1e-4, rtol=1e-4), "bfloat16": 1e-2,
+       "float16": 1e-2}
+DTYPES = ["float32", "bfloat16", "float16"]
 
 
 def _check(got, want, dtype):
@@ -54,7 +57,7 @@ def _check(got, want, dtype):
         assert rel < TOL[dtype], float(rel)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 17, 23, 3, 16), (1, 40, 40, 64, 96),
                                    (3, 9, 33, 20, 70)])
 def test_conv_kernels_match_plain_on_ragged_shapes(cuda, dtype, shape):
@@ -71,7 +74,7 @@ def test_conv_kernels_match_plain_on_ragged_shapes(cuda, dtype, shape):
                dtype)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 21, 19, 48, 32, 40),
                                    (1, 13, 11, 200, 128, 96)])
 def test_c2f_kernel_matches_plain_on_ragged_shapes(cuda, dtype, shape):
@@ -89,7 +92,7 @@ def test_c2f_kernel_matches_plain_on_ragged_shapes(cuda, dtype, shape):
     want = c2f_plain(*args)
     if dtype == "float32":
         _check(got, want, dtype)
-    else:   # four layers round to bf16 at different points
+    else:   # four layers round to 16 bits at different points
         assert (got.float() - want.float()).abs().max() \
             / want.float().abs().max() < 2e-2
 
@@ -108,7 +111,7 @@ def _check_conv(cuda, dtype, B, H, W, ci, co, acts=("silu", "identity")):
                dtype)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hw", [(9, 33), (17, 23)])
 @pytest.mark.parametrize("ci", [3, 20, 24])
 def test_conv_kernels_on_chunk_and_tile_edges(cuda, dtype, hw, ci):
@@ -122,7 +125,7 @@ def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(3, 150, 142, 40, 200),
                                    (2, 200, 200, 64, 130)])
 def test_conv_kernels_on_the_128_channel_tile(cuda, dtype, shape):
@@ -153,12 +156,12 @@ def _check_c2f(cuda, dtype, shape):
     want = c2f_plain(*args)
     if dtype == "float32":
         _check(got, want, dtype)
-    else:   # four layers round to bf16 at different points
+    else:   # four layers round to 16 bits at different points
         assert (got.float() - want.float()).abs().max() \
             / want.float().abs().max() < 2e-2
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 80, 80, 32, 16, 32),      # v8n layer 2
                                    (2, 20, 20, 512, 256, 512),   # v8s layer 8
                                    (2, 13, 11, 200, 128, 96)])
@@ -166,15 +169,15 @@ def test_c2f_kernel_on_model_widths(cuda, dtype, shape):
     _check_c2f(cuda, dtype, shape)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(32, 20, 20, 512, 256, 512),  # v8s layer 8
                                    (32, 20, 20, 256, 128, 256),  # v8n layer 8
                                    (1, 160, 160, 64, 32, 64)])   # v8s layer 2
 def test_c2f_kernel_on_the_served_tiles(cuda, dtype, shape):
-    """The bf16 tile 8 that the served batch of 32 (c = 256, 128) and a
+    """The 16-bit tile 8 that the served batch of 32 (c = 256, 128) and a
     single 640x640 request (c = 32) take."""
     B, H, W, _, c, _ = shape
-    if dtype == "bfloat16":
+    if dtype != "float32":
         assert launch_tile(B, H, W, c, True, _sms(cuda)) == 8
     _check_c2f(cuda, dtype, shape)
 
@@ -199,7 +202,7 @@ def test_float32_stays_on_the_cuda_cores(cuda):
     assert (got.double() - ref).abs().max() < 1e-5
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 1, 400, 32), (1, 2, 100, 64),
                                    (3, 2, 35, 16), (1, 3, 129, 128),
                                    (2, 4, 1, 32)])
@@ -226,10 +229,12 @@ def test_attention_kernel_matches_plain_on_ragged_shapes(cuda, dtype, shape):
         _check(got_s, want_s, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("n", [1, 15, 63, 65, 300, 400, 1600])
-def test_bf16_attention_on_the_tensor_cores(cuda, d, n):
-    """The bf16 tensor-core kernel at every head dim and ragged N, against
+def test_bf16_attention_on_the_tensor_cores(cuda, dtype, d, n):
+    """The 16-bit tensor-core kernel (bfloat16 and float16) at every head
+    dim and ragged N, against
     the plain version: strided q, k, v of one qkv tensor as AAttn gives them
     and contiguous (B, H, N, D) tensors, at B=1 (a sequence's query tiles
     split over blocks) and B=32 (one or two blocks a sequence). N=1600 at
@@ -241,14 +246,13 @@ def test_bf16_attention_on_the_tensor_cores(cuda, d, n):
         if B == 1 and n > 16:
             assert splits > 1
         qkv = torch.randn(B, n, H, 3 * d, generator=g, device=cuda).to(
-            torch.bfloat16)
+            getattr(torch, dtype))
         q, k, v = qkv.split(d, dim=-1)
         bhnd = [t.transpose(1, 2) for t in (q, k, v)]
         want = attention_plain(*bhnd, scale)
-        _check(attention_bihd(q, k, v, scale).transpose(1, 2), want,
-               "bfloat16")
+        _check(attention_bihd(q, k, v, scale).transpose(1, 2), want, dtype)
         _check(fused_attention(*[t.contiguous() for t in bhnd], scale), want,
-               "bfloat16")
+               dtype)
 
 
 def test_kernels_reject_what_they_cannot_take(cuda):
@@ -256,7 +260,7 @@ def test_kernels_reject_what_they_cannot_take(cuda):
     w = torch.zeros(3, 3, 4, 8, device=cuda)
     b = torch.zeros(8, device=cuda)
     with pytest.raises(TypeError):
-        conv3x3_silu(x.half(), w.half(), b.half())
+        conv3x3_silu(x.double(), w.double(), b.double())
     with pytest.raises(ValueError, match="contiguous"):
         conv3x3_silu(x.transpose(1, 2), w, b)
     with pytest.raises(ValueError):
@@ -270,7 +274,7 @@ def test_kernels_reject_what_they_cannot_take(cuda):
         fused_attention(torch.zeros(1, 2, 32, 16, device=cuda).transpose(
             2, 3), q, q, 0.2)
     with pytest.raises(TypeError):
-        fused_attention(q.half(), q.half(), q.half(), 0.2)
+        fused_attention(q.double(), q.double(), q.double(), 0.2)
 
 
 @pytest.mark.parametrize("end2end", [False, True])
@@ -351,16 +355,16 @@ def test_v12_predict_on_the_card_matches_the_cpu(cuda, end2end):
         assert abs(g.center_y - w.center_y) <= 1
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("n", [65, 400])
 def test_attention_under_autograd(cuda, dtype, d, n):
     """With grad on, both wrappers run the kernel's forward (one launch,
     an output with a grad_fn) and the plain backward. Their outputs against
     the plain version's, as in the grad-free tests (float32 |d| <= 2e-5 +
-    2e-4|ref|, bfloat16 max|d| / max|ref| < 1e-2); the gradients of q, k
+    2e-4|ref|, 16-bit max|d| / max|ref| < 1e-2); the gradients of q, k
     and v (strided views of one qkv tensor) against full plain autograd:
-    float32 |d| <= 1e-4 + 1e-4|ref|, bfloat16 max|d| / max|ref| < 2e-2."""
+    float32 |d| <= 1e-4 + 1e-4|ref|, 16-bit max|d| / max|ref| < 2e-2."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(n * 1000 + d)
     B, H, scale = 3, 2, d ** -0.5
@@ -436,3 +440,131 @@ def test_bf16_train_step_on_the_card(cuda, version):
             assert not torch.equal(p, q)
     assert counts["fused_attention"] == (8 if version == "v12" else 0)
     assert counts["conv3x3_silu"] == counts["c2f_fused"] == 0
+
+
+@pytest.mark.parametrize("version", ["v8", "v12"])
+def test_true_fp16_train_step_on_the_card(cuda, version):
+    """true_fp16: three float16 train steps of v8n / v12n at 128x128, batch
+    2, with the dynamic loss scale from 65536: finite loss items, the
+    attention kernel (v12) launched 8 times a forward in float16 under
+    autograd, no conv or C2f kernel launched, and the scale halved after
+    each step whose gradients overflowed (the step then skipped) and kept
+    otherwise."""
+    from yolosharp_tpu_torch.nn import attention as nn_attention
+    from yolosharp_tpu_torch.train import (MAX_LOSS_SCALE, TrainState,
+                                           make_optimizer, make_train_step)
+
+    cfg = Config(yolo_type=YoloType(version), yolo_size=YoloSize.n,
+                 number_class=17, true_fp16=True)
+    task = YoloTask(cfg, device=cuda)
+    assert task.task.dtype == torch.float16
+    net = task.task._ensure_variables().to(memory_format=torch.channels_last)
+    opt, scheds = make_optimizer(net, nc=17, epochs=1, steps_per_epoch=3)
+    state = TrainState(net, opt, scheds, init_scale=MAX_LOSS_SCALE)
+    step = make_train_step(task.task._loss_fns()[0],
+                           compute_dtype=torch.float16,
+                           dynamic_loss_scale=True)
+    rng = np.random.default_rng(1)
+    batch = {"images": torch.from_numpy(rng.integers(
+                 0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(cuda),
+             "cls": torch.tensor([[1, 5], [16, 0]], dtype=torch.int32,
+                                 device=cuda),
+             "bboxes": torch.tensor([[[0.5, 0.5, 0.3, 0.4],
+                                      [0.3, 0.6, 0.2, 0.2]],
+                                     [[0.4, 0.4, 0.5, 0.5], [0, 0, 0, 0]]],
+                                    device=cuda),
+             "mask_gt": torch.tensor([[True, True], [True, False]],
+                                     device=cuda)}
+    seen = []
+    real = nn_attention.attention_bihd
+
+    def traced(q, k, v, scale):
+        out = real(q, k, v, scale)
+        seen.append((out.dtype, out.grad_fn is not None))
+        return out
+
+    nn_attention.attention_bihd = traced
+    try:
+        for _ in range(3):
+            scale, count = state.loss_scale, state.count
+            reset_launch_counts()
+            _, items = step(state, batch, {})
+            counts = launch_counts()
+            assert torch.isfinite(items).all()
+            applied = state.count == count + 1
+            assert state.loss_scale == (scale if applied
+                                        else max(scale / 2, 1.0))
+            assert counts["fused_attention"] == (8 if version == "v12"
+                                                 else 0)
+            assert counts["conv3x3_silu"] == counts["c2f_fused"] == 0
+    finally:
+        nn_attention.attention_bihd = real
+    assert all(d == torch.float16 and g for d, g in seen)
+    assert len(seen) == (24 if version == "v12" else 0)
+
+
+@pytest.mark.parametrize("version", ["v8", "v12", "v11", "v5u"])
+def test_true_fp16_predict_on_the_card(cuda, version):
+    """true_fp16 predict of each n-size model: its path's kernels launch in
+    float16 and the rows are finite."""
+    cfg = Config(yolo_type=YoloType(version), yolo_size=YoloSize.n,
+                 number_class=17, true_fp16=True)
+    task = YoloTask(cfg, device=cuda)
+    assert task.task._predict_variables().model[0].b_fold.dtype \
+        == torch.float16
+    img = np.random.default_rng(2).integers(0, 255, (200, 264, 3),
+                                            dtype=np.uint8)
+    reset_launch_counts()
+    res = task.batch_predict([img, img[:100]], 0.0)
+    counts = launch_counts()
+    assert len(res) == 2 and all(np.isfinite(r.score) for rs in res
+                                 for r in rs)
+    assert counts["conv3x3_silu"] > 0 and counts["conv3x3s2_silu"] > 0
+    assert (counts["c2f_fused"] > 0) == (version == "v8")
+    assert (counts["fused_attention"] > 0) == (version == "v12")
+
+
+@pytest.mark.parametrize("version,end2end", [("v11", False), ("v11", True),
+                                             ("v5u", False)])
+def test_v11_v5u_predict_on_the_card_matches_the_cpu(cuda, version, end2end):
+    """v11n / v5un float32: the card's predict (through the conv kernels;
+    v11's PSA takes its einsum path, neither has a C2f block) against the
+    CPU's, same seeded weights (conv kernels x2.0, the head's final convs
+    from U(-0.3, 0.3)); conf takes ~100 candidates of the 1260 anchors."""
+    cfg = Config(yolo_type=YoloType(version), yolo_size=YoloSize.n,
+                 number_class=17, end2end=end2end,
+                 scalar_type=ScalarType.float32)
+    cpu = YoloTask(cfg, device="cpu")
+    net = cpu.task._ensure_variables()
+    rng = np.random.default_rng(0)
+    head = net.model[-1]
+    towers = [head.cv2, head.cv3] + ([head.one2one_cv2, head.one2one_cv3]
+                                     if end2end else [])
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, ConvBN):
+                m.conv.weight.mul_(2.0)
+        for p in (t for tower in towers for branch in tower
+                  for t in (branch[2].weight, branch[2].bias)):
+            p.copy_(torch.from_numpy(rng.uniform(-0.3, 0.3, p.shape)
+                                     .astype(np.float32)))
+    card = YoloTask(cfg, device=cuda)
+    card.task._ensure_variables().load_state_dict(net.state_dict())
+    img = rng.integers(0, 255, (200, 264, 3), dtype=np.uint8)
+    x = pad_to_multiple(torch.from_numpy(img)[None]).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        preds = cpu.task._predict_variables()(x.float() / 255.0)
+    flat = flatten_levels(preds["one2many"]["cls"]).sigmoid().amax(-1)
+    conf = float(np.quantile(flat.numpy(), 1 - 100 / flat.shape[1]))
+    reset_launch_counts()
+    got = card.image_predict(img, conf, 0.45)
+    counts = launch_counts()
+    assert counts["conv3x3_silu"] > 0 and counts["conv3x3s2_silu"] > 0
+    assert counts["c2f_fused"] == counts["fused_attention"] == 0
+    want = cpu.image_predict(img, conf, 0.45)
+    assert len(want) > 5 and abs(len(got) - len(want)) <= 2
+    key = lambda r: (-r.score, r.center_x, r.center_y)  # noqa: E731
+    for g, w in zip(sorted(got, key=key)[:10], sorted(want, key=key)[:10]):
+        assert g.class_id == w.class_id and abs(g.score - w.score) < 1e-3
+        assert abs(g.center_x - w.center_x) <= 1
+        assert abs(g.center_y - w.center_y) <= 1

@@ -1,10 +1,12 @@
-"""The port's training slice against the JAX package, float32 on the CPU:
-the LR schedules and parameter groups, train-mode BatchNorm (a ConvBN and
-the whole v8n: outputs and updated running statistics), one v8n train
+"""The port's training slice against the JAX package on the CPU: the LR
+schedules and parameter groups, train-mode BatchNorm (a ConvBN and the
+whole v8n: outputs and updated running statistics), one float32 v8n train
 step against make_train_step (loss items, parameter changes, BN
-statistics), the non-finite skip and the loss-scale rules, the predict
-copy's refold after training, and a tiny train() with its outputs, its
-resume and its val metrics against the JAX val on the same weights."""
+statistics), one bfloat16 step of v8n and v12n against the JAX bf16 step,
+the non-finite skip and the loss-scale rules, the predict copy's refold
+after training, a tiny train() with its outputs and its resume, train()
+through the mosaic's device render, and val metrics against the JAX val on
+the same weights."""
 
 import copy
 import os
@@ -62,12 +64,13 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _delta_close(got, want, name=""):
+def _delta_close(got, want, name="", ulp=0.0):
     """The parameter-change rule: |d_port - d_ref| <= 1e-3 max|d_ref| +
-    1e-8."""
-    tol = 1e-3 * float(np.abs(want).max()) + 1e-8
-    err = float(np.abs(got - want).max())
-    assert err <= tol, (name, err, tol)
+    1e-8 (+ ulp: the float32 spacing of each parameter, where a change of
+    ~lr on a parameter near 1 is only a few of its ulps)."""
+    tol = 1e-3 * float(np.abs(want).max()) + 1e-8 + ulp
+    err = np.abs(got - want) - tol
+    assert err.max() <= 0, (name, float(err.max()), tol)
 
 
 @pytest.mark.parametrize("cos", [False, True])
@@ -144,16 +147,22 @@ def test_train_mode_convbn_matches_fastbn():
                                np.asarray(ust["var"]), rtol=1e-5)
 
 
-def _v8n_variables(end2end, seed=0):
-    jnet = JaxNet(JaxArch(version="v8", size="n", task="detect", nc=NC,
+def net_variables(version, end2end, seed=0):
+    """(JAX YoloNet, its variables with the bias prior and jittered BN) of
+    the n-size detector of `version`."""
+    jnet = JaxNet(JaxArch(version=version, size="n", task="detect", nc=NC,
                           end2end=end2end))
     variables = jax_bias_init(jnet.init(jax.random.PRNGKey(seed),
                                         jnp.zeros((1, 64, 64, 3)), False), NC)
     return jnet, jitter_bn(variables, seed)
 
 
-def _port_net(variables, end2end):
-    net = YoloNet(ArchCfg(size="n", nc=NC, end2end=end2end))
+def _v8n_variables(end2end, seed=0):
+    return net_variables("v8", end2end, seed)
+
+
+def _port_net(variables, end2end, version="v8"):
+    net = YoloNet(ArchCfg(version=version, size="n", nc=NC, end2end=end2end))
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
     return net.to(memory_format=torch.channels_last)
 
@@ -198,14 +207,15 @@ def test_train_mode_v8n_matches_jax():
     _assert_stats(net, variables, upd["batch_stats"])
 
 
-def _batch(seed=0, b=2, m=8):
+def _batch(seed=0, b=2, m=8, size=64):
+    """A uint8 batch of b random size x size images with 5, 2, 3, 4 boxes."""
     rng = np.random.default_rng(seed)
-    images = rng.integers(0, 256, (b, 64, 64, 3), dtype=np.uint8)
+    images = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
     c = rng.uniform(0.25, 0.75, (b, m, 2))
     wh = rng.uniform(0.1, 0.5, (b, m, 2))
     mask = np.zeros((b, m), bool)
-    mask[0, :5] = True
-    mask[1, :2] = True
+    for i, n in enumerate((5, 2, 3, 4)[:b]):
+        mask[i, :n] = True
     bboxes = np.where(mask[..., None], np.concatenate([c, wh], -1), 0)
     return {"images": images, "cls": rng.integers(0, NC, (b, m)).astype(
         np.int32), "bboxes": bboxes.astype(np.float32), "mask_gt": mask}
@@ -216,40 +226,95 @@ def _port_config(**kw):
                   scalar_type=ScalarType.float32, **kw)
 
 
-def _port_state(variables):
-    net = _port_net(variables, False)
+def _port_state(variables, version="v8"):
+    net = _port_net(variables, False, version)
     opt, scheds = make_optimizer(net, nc=NC, epochs=2, steps_per_epoch=1)
     return TrainState(net, opt, scheds)
 
 
-@pytest.fixture(scope="module")
-def one_step():
-    """One v8n step (NMS model; the End2End loss pair is held to JAX in
-    test_torch_loss.py) at 64x64, batch 2, by the JAX package's jitted
-    make_train_step and by the port's make_train_step, from the same
-    weights and batch."""
-    jnet, variables = _v8n_variables(False, seed=5)
-    batch = _batch(5)
+def jax_step(version, batch, seed=5, dtype=torch.float32):
+    """(variables, new TrainState, loss, items) of one step of the n-size
+    `version` NMS model by the JAX package's jitted make_train_step in
+    compute type `dtype` (float32 or bfloat16)."""
+    jnet, variables = net_variables(version, False, seed)
     jloss = JaxYoloTask(JaxConfig(
         yolo_size=JaxSize.n, number_class=NC, scalar_type=JaxScalar.float32,
         end2end=False)).task._loss_fns()[0]
     tx = jax_train.make_optimizer(nc=NC, epochs=2, steps_per_epoch=1)
     jstate = jax_train.TrainState.create(variables, tx)
-    jstep = jax_train.make_train_step(jnet, jloss, donate=False)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jstep = jax_train.make_train_step(jnet, jloss, compute_dtype=jdtype,
+                                      donate=False)
     jnew, jl, jitems = jstep(jstate, {k: jnp.asarray(v) for k, v in
                                       batch.items()}, {})
+    return variables, jnew, float(jl), np.asarray(jitems)
 
+
+def step_pair(version, batch, seed=5, dtype=torch.float32):
+    """One step of the n-size `version` NMS model (the End2End loss pair is
+    held to JAX in test_torch_loss.py) by the JAX package (jax_step) and by
+    the port's make_train_step, from the same weights and numpy batch, in
+    compute type `dtype` (float32 or bfloat16)."""
+    variables, jnew, jl, jitems = jax_step(version, batch, seed, dtype)
+    return dict(port_step(variables, version, batch, dtype),
+                variables=variables, jnew=jnew, jloss=jl, jitems=jitems)
+
+
+def port_step(variables, version, batch, dtype=torch.float32):
+    """One step of the port's make_train_step in compute type `dtype` from
+    the JAX `variables` on the numpy `batch`."""
     loss_fn = Detector(_port_config(end2end=False),
                        device="cpu")._loss_fns()[0]
-    state = _port_state(variables)
+    state = _port_state(variables, version)
     before = {k: v.clone() for k, v in state.net.state_dict().items()}
-    step = make_train_step(loss_fn)
+    step = make_train_step(loss_fn, compute_dtype=dtype)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     loss, items = step(state, tb, {})
-    return dict(variables=variables, jnew=jnew, jloss=float(jl),
-                jitems=np.asarray(jitems), state=state, before=before,
-                loss=float(loss), items=items.numpy(), batch=tb,
-                loss_fn=loss_fn)
+    return dict(state=state, before=before, loss=float(loss),
+                items=items.float().numpy(), batch=tb, loss_fn=loss_fn)
+
+
+def check_step_pair(s, items_rtol=1e-4, grad_noise=GRAD_NOISE,
+                    stats_rtol=1e-5, min_checked=0.8, ulp=False, skip=()):
+    """The rules of test_train_step_matches_jax on a step_pair: loss items
+    to items_rtol, one update counted, parameter changes by _delta_close
+    where the gradient's sign is resolved against grad_noise of each
+    tensor's largest gradient (at least min_checked of the elements; with
+    ulp, plus one float32 spacing of each parameter: the two packages apply
+    AdamW's update in another order), BN statistics by _assert_stats to
+    stats_rtol. skip: parameters whose gradient is zero by construction,
+    left out. Returns the fraction of elements checked."""
+    np.testing.assert_allclose(s["items"], s["jitems"], rtol=items_rtol)
+    np.testing.assert_allclose(s["loss"], s["jloss"], rtol=items_rtol)
+    assert s["state"].count == s["state"].step == 1
+    want = state_dict_from_jax(s["jnew"].variables)
+    init = state_dict_from_jax(s["variables"])
+    checked = total = 0
+    for name, p in s["state"].net.named_parameters():
+        if not p.requires_grad or name in skip:
+            continue
+        g = p.grad.abs().numpy()
+        dg = grad_noise * g.max()
+        resolved = g > max(dg, (2e3 * ADAM_EPS * dg) ** 0.5)
+        before = s["before"][name].numpy()
+        got = p.detach().numpy() - before
+        ref = (want[name] - init[name]).numpy()
+        spacing = np.spacing(np.abs(before)) if ulp else np.zeros_like(before)
+        if resolved.any():
+            _delta_close(got[resolved], ref[resolved], name,
+                         spacing[resolved])
+        checked += int(resolved.sum())
+        total += g.size
+    assert checked > min_checked * total, (checked, total)
+    _assert_stats(s["state"].net, s["variables"], s["jnew"].batch_stats,
+                  stats_rtol)
+    return checked / total
+
+
+@pytest.fixture(scope="module")
+def one_step():
+    """One v8n step at 64x64, batch 2 (step_pair)."""
+    return step_pair("v8", _batch(5))
 
 
 def test_train_step_matches_jax(one_step):
@@ -267,27 +332,155 @@ def test_train_step_matches_jax(one_step):
     whose gradient is zero by construction (the identity activation and
     the max pools carry the bias into cv2's train-mode BN, which removes
     it) and ~1e-9 of rounding noise in both."""
-    s = one_step
-    np.testing.assert_allclose(s["items"], s["jitems"], rtol=1e-4)
-    np.testing.assert_allclose(s["loss"], s["jloss"], rtol=1e-4)
+    check_step_pair(one_step)
+
+
+def _sign_agreement(a, b, init, resolved):
+    """The share of the `resolved` parameter elements (name -> mask) whose
+    changes a - init and b - init have the same sign (AdamW's first update
+    is lr * sign(g))."""
+    same = sum(int(((a[n] - init[n]).sign() == (b[n] - init[n]).sign())[m]
+                   .sum()) for n, m in resolved.items())
+    return same / sum(int(m.sum()) for m in resolved.values())
+
+
+def _worst_stat(a, b, ref, kind):
+    """max over the BN tensors of `kind` of max|a - b| / max|ref|."""
+    return max(float((a[k] - b[k]).abs().max() / ref[k].abs().max())
+               for k in ref if k.endswith(kind))
+
+
+def _step_distance(a, b, init, resolved):
+    """How far step a lies from step b (each a dict of state dict "sd" and
+    loss "items"): loss items relative to b's, the sign agreement of the
+    resolved updates, and the worst BN running mean and variance over
+    their tensor's largest value."""
+    d = {"items": np.abs(a["items"] - b["items"]) / np.abs(b["items"]),
+         "agreement": _sign_agreement(a["sd"], b["sd"], init, resolved)}
+    d.update({k: _worst_stat(a["sd"], b["sd"], b["sd"], k)
+              for k in ("running_mean", "running_var")})
+    return d
+
+
+@pytest.fixture(scope="module")
+def bf16_steps():
+    """version -> (the bf16 step_pair, the port's float32 step from the same
+    weights) of v8n / v12n at 128x128, batch 4 (_batch(5, 4, size=128)),
+    made on first use."""
+    cache = {}
+
+    def get(version):
+        if version not in cache:
+            batch = _batch(5, b=4, size=128)
+            s = step_pair(version, batch, dtype=torch.bfloat16)
+            cache[version] = (s, port_step(s["variables"], version, batch))
+        return cache[version]
+    return get
+
+
+def _fastbn_train(y, bn):
+    """Train-mode BN with the JAX FastBN's arithmetic
+    (yolosharp_tpu/nn/common.py:185-200): statistics E[x] and
+    E[x^2] - E[x]^2 in float32, then y * k rounded to y's type and + b
+    rounded again."""
+    yf = y.float()
+    mean = yf.mean((0, 2, 3))
+    var = ((yf * yf).mean((0, 2, 3)) - mean * mean).clamp(min=0)
+    with torch.no_grad():
+        bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
+    k = bn.weight * torch.rsqrt(var + bn.eps)
+    b = bn.bias - mean * k
+    shape = (1, -1, 1, 1)
+    return y * k.to(y.dtype).view(shape) + b.to(y.dtype).view(shape)
+
+
+@pytest.mark.parametrize("version", ["v8", "v12"])
+def test_bf16_train_step_matches_jax(version, bf16_steps):
+    """One bfloat16 step of v8n / v12n at 128x128, batch 4, against the JAX
+    make_train_step(compute_dtype=bf16) on the same weights and uint8
+    batch. The float32 reference is the port's own float32 step: it lies
+    within 3e-6 relative of the JAX float32 step here (loss items; BN
+    statistics 2e-6), so the distance from it to the JAX bf16 step is the
+    JAX package's own bf16-vs-f32 distance, measured live.
+
+    - Bounds: loss items within 1e-2 relative, BN running means within
+      2e-2 and variances within 1e-2 of their tensor's largest value.
+    - Parameter changes where the float32 gradient fixes AdamW's first
+      update (|g| > 0.1 max|g| of its tensor): the share whose sign
+      agrees with the JAX bf16 step's at least the float32 step's share
+      less 0.1 (bf16 rounding moves it by a hundredth or more with the
+      torch thread count: v12n 0.780 on one thread, 0.792 on two).
+    - Rounding, not divergence: the port's bf16 step no further from the
+      JAX bf16 step than twice the float32 step is (largest loss item, BN
+      statistics).
+    - bfloat16, not float32: the port's bf16 step lies from its own
+      float32 step at least a quarter of the JAX bf16-vs-f32 distance
+      (largest loss item, BN running means). A port that ran this step in
+      float32 would sit ~1e-6 from it.
+
+    The two packages round at different points (FastBN applies x * k + b
+    in bf16 with two roundings, the port normalises through F.batch_norm
+    with one), so their bf16 steps are about as far from each other as
+    each is from float32 (test_bf16_gap_is_the_bn_rounding_point shows it
+    for v8n). Measured (the test prints them; one torch thread), port bf16
+    vs JAX bf16 (port f32 vs JAX bf16; port bf16 vs port f32): v8n loss
+    items 2.3e-3 / 4.1e-3 / 1.0e-3 (1.0e-3 / 4.9e-3 / 4.0e-3; up to
+    5.0e-3), agreement 0.970 (0.977), BN means 6.4e-3 (6.8e-3; 5.1e-3),
+    variances 7.4e-4 (7.5e-4); v12n loss items 3.7e-3 / 1.1e-3 / 3.2e-3
+    (3.4e-5 / 2.3e-3 / 6.6e-3; up to 3.7e-3), agreement 0.780 (0.830),
+    BN means 1.16e-2 (9.4e-3; 7.1e-3), variances 5.0e-3 (4.4e-3)."""
+    s, f = bf16_steps(version)
     assert s["state"].count == s["state"].step == 1
-    want = state_dict_from_jax(s["jnew"].variables)
+    assert np.isfinite(s["items"]).all()
     init = state_dict_from_jax(s["variables"])
-    checked = total = 0
-    for name, p in s["state"].net.named_parameters():
-        if not p.requires_grad:
-            continue
-        g = p.grad.abs().numpy()
-        dg = GRAD_NOISE * g.max()
-        resolved = g > max(dg, (2e3 * ADAM_EPS * dg) ** 0.5)
-        got = (p.detach() - s["before"][name]).numpy()
-        ref = (want[name] - init[name]).numpy()
-        if resolved.any():
-            _delta_close(got[resolved], ref[resolved], name)
-        checked += int(resolved.sum())
-        total += g.size
-    assert checked > 0.8 * total, (checked, total)
-    _assert_stats(s["state"].net, s["variables"], s["jnew"].batch_stats)
+    resolved = {}
+    for n, p in f["state"].net.named_parameters():
+        if p.requires_grad:
+            g = p.grad.abs()
+            resolved[n] = g > 0.1 * g.max()
+    port = {"sd": s["state"].net.state_dict(), "items": s["items"]}
+    jax_bf16 = {"sd": state_dict_from_jax(s["jnew"].variables),
+                "items": s["jitems"]}
+    f32 = {"sd": f["state"].net.state_dict(), "items": f["items"]}
+    got = _step_distance(port, jax_bf16, init, resolved)
+    ref = _step_distance(f32, jax_bf16, init, resolved)
+    own = _step_distance(port, f32, init, resolved)
+    print(f"{version}n bf16, port bf16 vs JAX bf16 (port f32 vs JAX bf16; "
+          "port bf16 vs port f32): " + "; ".join(
+              f"{k} {got[k]} ({ref[k]}; {own[k]})" for k in got))
+    assert got["items"].max() < 1e-2
+    assert got["running_mean"] < 2e-2 and got["running_var"] < 1e-2
+    assert got["agreement"] >= ref["agreement"] - 0.1
+    assert got["items"].max() <= 2 * ref["items"].max()
+    for kind in ("running_mean", "running_var"):
+        assert got[kind] <= 2 * ref[kind], kind
+    assert own["items"].max() >= 0.25 * ref["items"].max()
+    assert own["running_mean"] >= 0.25 * ref["running_mean"]
+
+
+def test_bf16_gap_is_the_bn_rounding_point(bf16_steps, monkeypatch):
+    """The v8n bf16 loss gap between the packages is BN's rounding point:
+    with the port's train-mode BN replaced by FastBN's arithmetic
+    (_fastbn_train), the port's bf16 step from the same weights and batch
+    gives loss items each nearer to the JAX bf16 step's than the float32
+    step's are, and all within 1e-3 relative. Measured: 2.6e-4 / 4.5e-4 /
+    1.0e-4 (the float32 step's: 1.0e-3 / 4.9e-3 / 4.0e-3). v12n's gap does
+    not close so (its attention and biased convs round at other points
+    too), and the sign agreement of the updates does not move (the two
+    backward passes round apart)."""
+    from yolosharp_tpu_torch.nn import common as port_common
+
+    s, f = bf16_steps("v8")
+    monkeypatch.setattr(port_common, "batch_norm_train", _fastbn_train)
+    fast = port_step(s["variables"], "v8", _batch(5, b=4, size=128),
+                     torch.bfloat16)
+    got = np.abs(fast["items"] - s["jitems"]) / np.abs(s["jitems"])
+    ref = np.abs(f["items"] - s["jitems"]) / np.abs(s["jitems"])
+    print(f"v8n bf16 with FastBN's rounding vs JAX bf16: {got} (port f32: "
+          f"{ref})")
+    np.testing.assert_array_less(got, ref)
+    assert got.max() < 1e-3
 
 
 def test_nonfinite_step_is_skipped(one_step):
@@ -431,13 +624,33 @@ def test_tiny_train_writes_outputs_and_resumes(train_root, tmp_path):
         assert torch.equal(got[name], v), name
 
 
-def test_mosaic_epochs_raise_before_the_first_step(train_root, tmp_path):
+def test_mosaic_epochs_raise_before_the_first_step(train_root, tmp_path,
+                                                   monkeypatch):
+    """Mosaic epochs no longer raise: with close_mosaic=1 epoch 1 trains on
+    planned batches that the step renders (the device render, here on the
+    CPU) and epoch 2 on letterbox batches; both epochs write their
+    weights, with finite losses. The name is the one this test had while
+    mosaic epochs raised; it is kept so that the test stays the same test
+    in the suite's record."""
+    from yolosharp_tpu_torch.data import device_augment
+
+    rendered = []
+    real = device_augment.render_batch
+    monkeypatch.setattr(device_augment, "render_batch",
+                        lambda b: rendered.append(1) or real(b))
     task = YoloTask(_train_config(
         train_root, str(tmp_path / "m"), close_mosaic=1,
         image_process_type=ImageProcessType.mosaic), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        task.train()
-    assert not os.path.exists(tmp_path / "m" / "weights" / "last.bin")
+    epochs = []
+    real_step = port_train.resolve_batch_images
+    monkeypatch.setattr(port_train, "resolve_batch_images",
+                        lambda b, dt: epochs.append("aug_pool" in b)
+                        or real_step(b, dt))
+    task.train()
+    assert epochs == [True, False] and len(rendered) == 1
+    assert os.path.exists(tmp_path / "m" / "weights" / "last.bin")
+    rows = (tmp_path / "m" / "log.csv").read_text().strip().splitlines()
+    assert len(rows) == 3 and "nan" not in "".join(rows).lower()
 
 
 def _self_labelled_val(root, port, seed=4):

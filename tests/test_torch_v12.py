@@ -112,11 +112,12 @@ def test_module_matches_jax(name):
     np.testing.assert_allclose(_nhwc(got_fold), want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("version,task", [("v5u", "detect"),
-                                          ("v11", "detect"),
+@pytest.mark.parametrize("version,task", [("v11", "segment"),
+                                          ("v8", "pose"),
                                           ("v12", "segment")])
 def test_build_arch_raises_for_what_is_not_ported(version, task):
-    with pytest.raises(NotImplementedError, match="v8 and v12 detect"):
+    with pytest.raises(NotImplementedError,
+                       match="v5u, v8, v11 and v12 detect"):
         build_arch(ArchCfg(version=version, size="n", task=task))
 
 

@@ -1,6 +1,7 @@
 """yolosharp_tpu_torch: the PyTorch/CUDA port of yolosharp_tpu.
 
-Same public surface as the JAX package, for v8 and v12 detection so far:
+Same public surface as the JAX package, for v5u, v8, v11 and v12 detection
+so far:
 
     from yolosharp_tpu_torch import Config, YoloTask
     task = YoloTask(Config(...))            # device="cuda" by default
@@ -13,20 +14,23 @@ formats and name map, label parsing, augmentation, loader, metrics) are
 copies under the same names. Modules:
 
 - ``config``, ``types``: Config and the result / enum types;
-- ``nn``: the v8 / v12 detection networks (train and eval BatchNorm with the
+- ``nn``: the v5u / v8 / v11 / v12 detection networks (train and eval BatchNorm with the
   JAX package's statistics, BN-folded predict);
 - ``ops``: boxes, IoU (``box_iou``, ``bbox_iou``), anchors, NMS;
 - ``loss``: the task-aligned assigner (``tal``) and the detection and
   End2End losses;
 - ``train``: AdamW groups, LR schedules, train and eval steps, TrainState;
-- ``data``: cv2-free pixel work (``image_ops``: PNG reader, resize, HSV),
-  labels, augmentations, dataset, loader;
+- ``data``: cv2-free pixel work (``image_ops``: PNG reader, resize, HSV,
+  warps), labels, augmentations (letterbox and the host mosaic), the
+  mosaic's host planner and device render (``device_augment``), dataset,
+  loader;
 - ``utils``: val metrics, early stopping, the CSV log;
 - ``ckpt``: checkpoint formats, BN folding, the JAX bridge, and
   ``resume`` (the full train state);
 - ``predict``, ``tasks``: decode and the task layer / YoloTask facade;
 - ``kernels`` + ``csrc``: the hand-written CUDA kernels (3x3 conv, fused
-  C2f, fused attention, the last also under autograd for training).
+  C2f, fused attention, the last also under autograd for training), each
+  in float32, bfloat16 and float16.
 """
 
 from .config import Config

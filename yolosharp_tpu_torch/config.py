@@ -86,15 +86,23 @@ class Config:
     # fold BatchNorm into the conv weights for predict (Convs.cs:58-61)
     fuse_inference: bool = True
     # ---- TPU-only knobs: kept so configs carry over, ignored by the port
+    # (the field order is the JAX package's, so config.txt reads the same)
     pallas_conv: bool = False
     s2d_max_cin: int = 0
     int8_predict: bool = False
+    # ---- the mosaic's render and the fp16 flag, which the port reads:
+    # mosaic epochs with mosaic >= 1 plan each batch on the host and render
+    # its pixels on the device (data/device_augment.py); False takes the
+    # host mosaic4 + random_perspective, as mosaic < 1 always does
     device_augment: bool = True
+    # > 0: mosaic partners of the device render drawn from this many extra
+    # images of the whole dataset per batch, not from the batch alone
     mosaic_partner_pool: int = 0
-    fsdp: bool = False
-    # True fp16 compute with dynamic loss scaling (Amp.cs:3-176); the
-    # port's kernels take float32 and bfloat16 only
+    fsdp: bool = False                  # TPU-only, ignored
+    # True fp16 compute with dynamic loss scaling (Amp.cs:3-176); every
+    # kernel of the port has a float16 route
     true_fp16: bool = False
+    # ---- TPU-only knobs again, ignored by the port
     host_s2d: Optional[bool] = None
     host_s2d_deep: bool = True
     host_s2d_deeper: bool = True

@@ -4,16 +4,17 @@
 // (_attn_kernel).
 //
 // q, k, v, o: (B, H, N, D) element-strided views (unit stride in D, 16-byte
-// aligned rows), one type (float32 or bfloat16); D in {16, 32, 64, 128}; any N.
-// The route is static, by type:
+// aligned rows), one type (float32, bfloat16 or float16); D in {16, 32, 64,
+// 128}; any N. The route is static, by type:
 //
-// bfloat16: attention_mma_kernel, on the tensor cores (mma.sync.m16n8k16,
-// bf16 products, f32 sums). What bounds it on an H100: a v12s layer-6 call at
+// bfloat16 and float16: attention_mma_kernel, one template on the 16-bit
+// element type (both are 2 bytes: the staging, swizzle and fragments are the
+// same), on the tensor cores (mma.sync.m16n8k16, 16-bit products, f32 sums). What bounds it on an H100: a v12s layer-6 call at
 // batch 32 (512 sequences of N = 400, D = 32) moves 52 MB (q, k, v and o once:
 // 15.6 us at 3.35 TB/s) for 10.5 GFLOP (10.6 us at 989 TFLOP/s) and 82 M
 // exponentials (22 us at 16 ex2 per clock per SM): memory, then the exp unit.
 // Design:
-// - A block stages the K and V of its sequence in shared memory as bf16 rows
+// - A block stages the K and V of its sequence in shared memory as 16-bit rows
 //   whose 16-byte chunks are XOR-swizzled (ldmatrix reads 8 rows from 8
 //   different bank groups), through 16-byte cp.async with zero fill past N.
 //   Where the whole sequence fits (kcap >= N: every main-path shape; 51 KB at
@@ -25,7 +26,7 @@
 //   row max and the rescale of the online softmax meet over the four threads
 //   of a quad by shuffles; P = exp2(S * scale * log2(e) - max) by ex2.approx,
 //   one exponential per live score (16-key subtiles past N are skipped);
-//   P stays in registers, its C fragments packed to bf16x2 as the A fragments
+//   P stays in registers, its C fragments packed to 16-bit pairs as the A fragments
 //   of P V, with V through ldmatrix.trans.
 // - Warp tiles are spread over a grid of (sequences, splits) of blocks of W
 //   warps: warp w of split s takes tiles s + splits * (w + W r). The wrapper
@@ -38,10 +39,11 @@
 // and at these shapes the kernel is bound by bytes and exponentials, not by
 // the tensor cores (the MMA share is under half of its bound at 60 % of the
 // dense peak).
-// Numerics: S sums bf16 x bf16 products (exact in f32) in f32, as the TPU
-// kernel's f32 upcast does, in another order; P is rounded to bf16 for P V,
-// as the JAX package's own off-TPU path does (_einsum_attention); the row
-// sums and the output are f32 until o is rounded once.
+// Numerics: S sums 16-bit x 16-bit products (exact in f32) in f32, as the
+// TPU kernel's f32 upcast does, in another order; P (in [0, 1]) is rounded
+// to the element type for P V, as the JAX package's own off-TPU path does
+// (_einsum_attention); the row sums and the output are f32 until o is
+// rounded once.
 //
 // float32: attention_kernel, the flash-style forward on the CUDA cores. A
 // block owns kBQ query rows of one sequence; each row belongs to G = max(1,
@@ -203,7 +205,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
-// ---- bfloat16: tensor cores ----------------------------------------------------
+// ---- bfloat16 and float16: tensor cores --------------------------------------
 
 constexpr int kMaxWarps = 8;       // warps per block (4 or 8), each on its own 16-row tiles
 constexpr int kKT = 64;            // keys per online-softmax step
@@ -216,7 +218,8 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld_u32(const T* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
@@ -242,7 +245,7 @@ __device__ __forceinline__ uint32_t swz(int j, int c) {
 // memory). FULL: nkt == kKT, with no edge guards, so that the compiler can
 // interleave the exponentials of one 16-key subtile with the P V products of
 // the one before.
-template <int D, bool FULL>
+template <typename T, int D, bool FULL>
 __device__ __forceinline__ void attn_tile(const uint32_t (&qa)[D / 16][4], float (&acc)[D / 8][4],
                                           float (&mx)[2], float (&ls)[2], uint32_t kb, uint32_t vb,
                                           const uint32_t (&koff)[D / 16],
@@ -261,8 +264,8 @@ __device__ __forceinline__ void attn_tile(const uint32_t (&qa)[D / 16][4], float
       for (int kk = 0; kk < KC; ++kk) {
         uint32_t bk[4];
         ldmatrix_x4(bk, kb + jp * 16 * D * 2 + koff[kk]);
-        mma_bf16(s[2 * jp], qa[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * jp + 1], qa[kk], bk[2], bk[3]);
+        Half16<T>::mma(s[2 * jp], qa[kk], bk[0], bk[1]);
+        Half16<T>::mma(s[2 * jp + 1], qa[kk], bk[2], bk[3]);
       }
     }
   }
@@ -309,7 +312,7 @@ __device__ __forceinline__ void attn_tile(const uint32_t (&qa)[D / 16][4], float
     acc[n][2] *= a1;
     acc[n][3] *= a1;
   }
-  // per 16-key subtile: P = exp2(S - max), packed to bf16 as the A fragment of
+  // per 16-key subtile: P = exp2(S - max), packed to T as the A fragment of
   // O += P V; ldmatrix.trans matrix lane/8 holds keys +8 (bit 0), d +8 (bit 1)
 #pragma unroll
   for (int kc = 0; kc < 4; ++kc) {
@@ -326,29 +329,29 @@ __device__ __forceinline__ void attn_tile(const uint32_t (&qa)[D / 16][4], float
       p1[3] = exp2_approx(p1[3] - m1);
       ls[0] += (p0[0] + p0[1]) + (p1[0] + p1[1]);
       ls[1] += (p0[2] + p0[3]) + (p1[2] + p1[3]);
-      const uint32_t pa[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
-                              pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+      const uint32_t pa[4] = {Half16<T>::pack(p0[0], p0[1]), Half16<T>::pack(p0[2], p0[3]),
+                              Half16<T>::pack(p1[0], p1[1]), Half16<T>::pack(p1[2], p1[3])};
 #pragma unroll
       for (int dp = 0; dp < KC; ++dp) {
         uint32_t bv[4];
         ldmatrix_x4_trans(bv, vb + kc * 16 * D * 2 + voff[dp]);
-        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
+        Half16<T>::mma(acc[2 * dp], pa, bv[0], bv[1]);
+        Half16<T>::mma(acc[2 * dp + 1], pa, bv[2], bv[3]);
       }
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int H, int N, Strides sq,
+attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o, int H, int N, Strides sq,
                      Strides sk, Strides sv, Strides so, float scale, int kcap) {
   constexpr int KC = D / 16;   // k16 steps of Q K^T, d16 pairs of P V
   constexpr int CH = D / 8;    // 16-byte chunks of a row
   extern __shared__ uint4 smem_tc[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_tc);  // [kcap][D], swizzled
-  bf16* vs = ks + kcap * D;                     // [kcap][D], swizzled
+  T* ks = reinterpret_cast<T*>(smem_tc);  // [kcap][D], swizzled
+  T* vs = ks + kcap * D;                  // [kcap][D], swizzled
   const uint32_t ks_u = smem_u32(ks);
   const uint32_t vs_u = smem_u32(vs);
 
@@ -358,10 +361,10 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;   // row of the quad in the fragment
   const int tg = lane & 3;   // thread of the quad
-  const bf16* qb = q + b * sq.b + h * sq.h;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  bf16* ob = o + b * so.b + h * so.h;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  T* ob = o + b * so.b + h * so.h;
   const float sl2 = scale * kLog2e;
 
   const int warps = blockDim.x >> 5;
@@ -426,11 +429,11 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // whole key tiles of the chunk, then its ragged end
       int k0 = 0;
       for (; k0 + kKT <= nk; k0 += kKT) {
-        attn_tile<D, true>(qa, acc, mx, ls, ks_u + k0 * D * 2, vs_u + k0 * D * 2, koff, voff,
+        attn_tile<T, D, true>(qa, acc, mx, ls, ks_u + k0 * D * 2, vs_u + k0 * D * 2, koff, voff,
                            kKT, tg, sl2);
       }
       if (k0 < nk) {
-        attn_tile<D, false>(qa, acc, mx, ls, ks_u + k0 * D * 2, vs_u + k0 * D * 2, koff, voff,
+        attn_tile<T, D, false>(qa, acc, mx, ls, ks_u + k0 * D * 2, vs_u + k0 * D * 2, koff, voff,
                             nk - k0, tg, sl2);
       }
     }
@@ -446,17 +449,19 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < D / 8; ++n) {
       const int d = n * 8 + 2 * tg;
       if (ra < N) {
-        *reinterpret_cast<uint32_t*>(ob + ra * so.n + d) = pack_bf16(acc[n][0] * i0, acc[n][1] * i0);
+        *reinterpret_cast<uint32_t*>(ob + ra * so.n + d) =
+            Half16<T>::pack(acc[n][0] * i0, acc[n][1] * i0);
       }
       if (rb < N) {
-        *reinterpret_cast<uint32_t*>(ob + rb * so.n + d) = pack_bf16(acc[n][2] * i1, acc[n][3] * i1);
+        *reinterpret_cast<uint32_t*>(ob + rb * so.n + d) =
+            Half16<T>::pack(acc[n][2] * i1, acc[n][3] * i1);
       }
     }
   }
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+template <typename T, int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
                         const Strides* st, float scale, int splits, int kcap, int warps,
                         cudaStream_t stream) {
   // the geometry comes from kernels/attention.py launch_geometry; checked here
@@ -466,13 +471,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
       (kcap < N && kcap % kKT != 0) || kcap >= N + 16 || bytes > kMaxSmem) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = attention_mma_kernel<D>;
+  auto kernel = attention_mma_kernel<T, D>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, splits);
   kernel<<<grid, warps * 32, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), H, N, st[0], st[1], st[2], st[3], scale, kcap);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), H, N, st[0], st[1], st[2], st[3], scale, kcap);
   return cudaGetLastError();
 }
 
@@ -482,7 +487,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                    cudaStream_t stream) {
   if (dtype == 0) return launch_f32<D>(q, k, v, o, B, H, N, st, scale, stream);
   if (dtype == 1) {
-    return launch_bf16<D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, stream);
+    return launch_mma<bf16, D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, stream);
+  }
+  if (dtype == 2) {
+    return launch_mma<f16, D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -490,8 +498,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). Strides are in elements,
-// (batch, head, row) for each of q, k, v, o. dtype: 0 float32, 1 bfloat16.
-// splits, kcap, warps: the bfloat16 kernel's blocks per sequence, staged keys
+// (batch, head, row) for each of q, k, v, o. dtype: 0 float32, 1 bfloat16,
+// 2 float16. splits, kcap, warps: the 16-bit kernel's blocks per sequence, staged keys
 // and warps per block (kernels/attention.py launch_geometry); the float32
 // kernel ignores them.
 extern "C" int ys_attention(const void* q, const void* k, const void* v, void* o, int B, int H,

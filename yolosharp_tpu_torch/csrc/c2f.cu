@@ -6,8 +6,8 @@
 //   y  = silu([a, bh, z] @ w2 + b2)           1x1, 3c -> C2
 //
 // x: (B, H, W, Cin) NHWC, w1: (Cin, 2c), wm1 / wm2: (3, 3, c, c) HWIO,
-// w2: (3c, C2), biases 1-D, y: (B, H, W, C2); float32 or bfloat16, sums in
-// float32, every intermediate rounded to the working type as the plain
+// w2: (3c, C2), biases 1-D, y: (B, H, W, C2); float32, bfloat16 or float16,
+// sums in float32, every intermediate rounded to the working type as the plain
 // version stores it. Replaces the Pallas kernel yolosharp_tpu/kernels/c2f.py
 // c2f_fused.
 //
@@ -18,14 +18,15 @@
 // outside the image after their SiLU (silu(bias) != 0 there), which is the
 // zero padding the plain convolutions see.
 //
-// bfloat16 (c2f_tc_kernel): five GEMMs with A in shared memory on the tensor
-// cores (mma.sync m16n8k16, float32 sums), in order
+// bfloat16 and float16 (c2f_tc_kernel, one template on the 16-bit element
+// type T; the layouts are the same for both): five GEMMs with A in shared
+// memory on the tensor cores (mma.sync m16n8k16, float32 sums), in order
 //   bh  M = (TT+4)^2  K = Cin  (x staged 32 channels a chunk)
 //   t   M = (TT+2)^2  K = 9c   (shifted ldmatrix row addresses into bh)
 //   z   M = TT^2      K = 9c   (into t; + the bh residual)
 //   a   M = TT^2      K = Cin  (x at the tile again; a takes t's room)
 //   y   M = TT^2      K = 3c   ([a | bh | z]) -> device memory
-// bh, t/a and z are stored as bf16 (exact: they are rounded to bf16 anyway),
+// bh, t/a and z are stored as T (exact: they are rounded to T anyway),
 // one pixel a row of c + 8 elements, so the 8 rows of an ldmatrix fall in 8
 // bank groups. Weights stream from L2 in 32-row x up to 256-column chunks
 // through 16-byte cp.async, double-buffered with the x chunks. Shared memory
@@ -290,20 +291,21 @@ cudaError_t launch_f32(const void* const* p, void* y, int B, int H, int W, int C
   return cudaGetLastError();
 }
 
-// --------------------------------------------------------------- bfloat16
+// ------------------------------------------- 16-bit: bfloat16 and float16
 
 constexpr int kMaxJ = 5;              // m16 tiles a warp owns in one GEMM pass
 constexpr int kXP = kKC + 8;          // x chunk row pitch (elements): 80 bytes
 constexpr int kWP = 256 + 8;          // weight chunk row pitch (elements)
 constexpr int kWBuf = kKC * kWP * 2;  // bytes of one weight chunk buffer
 
+template <typename T>
 struct TcArgs {
-  const bf16 *x, *w1, *b1, *wm1, *bm1, *wm2, *bm2, *w2, *b2;
-  bf16* y;
+  const T *x, *w1, *b1, *wm1, *bm1, *wm2, *bm2, *w2, *b2;
+  T* y;
   int H, W, Cin, c, C2;
 };
 
-// Shared memory of one block: bh, t (then a) and z as bf16 rows of c + 8,
+// Shared memory of one block: bh, t (then a) and z as 16-bit rows of c + 8,
 // two x chunks and two weight chunks.
 inline int tc_bytes(int TT, int c) {
   const int R2 = (TT + 4) * (TT + 4), R1 = (TT + 2) * (TT + 2), R0 = TT * TT;
@@ -330,9 +332,9 @@ __device__ __forceinline__ int pass_slices(int MT, int ncols) {
 // epi(m, n, v0, v1) receives the float32 sums of columns n, n + 1 plus their
 // bias (read into registers once per pass). Ends with a barrier, so the
 // next GEMM may read what epi wrote.
-template <class ARow, class AK, class AAddr, class XStage, class Epi>
-__device__ __forceinline__ void gemm(int M, int N, int K, const bf16* __restrict__ w, int ldw,
-                                     const bf16* __restrict__ bias, uint32_t wsm, ARow a_row,
+template <typename T, class ARow, class AK, class AAddr, class XStage, class Epi>
+__device__ __forceinline__ void gemm(int M, int N, int K, const T* __restrict__ w, int ldw,
+                                     const T* __restrict__ bias, uint32_t wsm, ARow a_row,
                                      AK a_k, AAddr a_addr, XStage x_stage, Epi epi) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int MT = (M + 15) / 16;
@@ -396,7 +398,8 @@ __device__ __forceinline__ void gemm(int M, int N, int K, const bf16* __restrict
           if (mt0 + j * WPS < MT) {
 #pragma unroll
             for (int ni = 0; ni < 4; ++ni)
-              mma_bf16(acc[j][ni], a[j], b[ni >> 1][(ni & 1) * 2], b[ni >> 1][(ni & 1) * 2 + 1]);
+              Half16<T>::mma(acc[j][ni], a[j], b[ni >> 1][(ni & 1) * 2],
+                             b[ni >> 1][(ni & 1) * 2 + 1]);
           }
         }
       }
@@ -431,17 +434,17 @@ __device__ __forceinline__ void gemm(int M, int N, int K, const bf16* __restrict
 
 // TT is a template argument so that every pixel index / window edge
 // divides by a constant.
-template <int TT>
-__global__ void __launch_bounds__(kThreads) c2f_tc_kernel(const TcArgs p) {
+template <typename T, int TT>
+__global__ void __launch_bounds__(kThreads) c2f_tc_kernel(const TcArgs<T> p) {
   constexpr int E2 = TT + 4, E1 = TT + 2;
   constexpr int R2 = E2 * E2, R1 = E1 * E1, R0 = TT * TT;
   static_assert(R2 <= 8 * 16 * kMaxJ, "the window's m16 tiles fit kMaxJ per warp");
   const int H = p.H, W = p.W, Cin = p.Cin, c = p.c, C2 = p.C2;
   const int P = c + 8;  // row pitch of bh, t / a, z (elements)
   extern __shared__ __align__(128) uint4 smem[];
-  bf16* bh = reinterpret_cast<bf16*>(smem);  // [R2][P]
-  bf16* ta = bh + R2 * P;                    // [R1][P]: t, then a
-  bf16* zs = ta + R1 * P;                    // [R0][P]
+  T* bh = reinterpret_cast<T*>(smem);  // [R2][P]
+  T* ta = bh + R2 * P;                 // [R1][P]: t, then a
+  T* zs = ta + R1 * P;                 // [R0][P]
   const uint32_t xs = smem_u32(zs + R0 * P);  // 2 x [R2][kXP]
   const uint32_t wsm = xs + 2 * R2 * kXP * 2;  // 2 x [kKC][kWP]
   const uint32_t bh_s = smem_u32(bh), ta_s = smem_u32(ta), zs_s = smem_u32(zs);
@@ -451,10 +454,10 @@ __global__ void __launch_bounds__(kThreads) c2f_tc_kernel(const TcArgs p) {
   const int w0 = (blockIdx.x % tiles_w) * TT;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const bf16* xb = p.x + (size_t)b * H * W * Cin;
+  const T* xb = p.x + (size_t)b * H * W * Cin;
   auto inside = [&](int hi, int wi) { return hi >= 0 && hi < H && wi >= 0 && wi < W; };
-  auto store2 = [](bf16* dst, float v0, float v1) {
-    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+  auto store2 = [](T* dst, float v0, float v1) {
+    *reinterpret_cast<uint32_t*>(dst) = Half16<T>::pack(v0, v1);
   };
   // rows r of the x chunk kc: pixel (h0 + off + r / e, w0 + off + r % e)
   auto x_rows = [&](int rows, int e, int off) {
@@ -504,9 +507,9 @@ __global__ void __launch_bounds__(kThreads) c2f_tc_kernel(const TcArgs p) {
        [&](int m) { return ta_s + (uint32_t)(((m / TT) * E1 + m % TT) * P * 2); }, tap_k(E1),
        add, none,
        [&](int m, int n, float v0, float v1) {
-         const bf16* r = bh + ((m / TT + 2) * E2 + m % TT + 2) * P + n;
-         const float u0 = round_t<bf16>(silu_fast(v0));
-         const float u1 = round_t<bf16>(silu_fast(v1));
+         const T* r = bh + ((m / TT + 2) * E2 + m % TT + 2) * P + n;
+         const float u0 = round_t<T>(silu_fast(v0));
+         const float u1 = round_t<T>(silu_fast(v1));
          store2(zs + m * P + n, to_f(r[0]) + u0, to_f(r[1]) + u1);
        });
   // a = silu(x @ w1[:, :c] + b1[:c]) on the tile, into t's room
@@ -535,28 +538,29 @@ __global__ void __launch_bounds__(kThreads) c2f_tc_kernel(const TcArgs p) {
        });
 }
 
-template <int TT>
-cudaError_t launch_tc_tile(const TcArgs& args, int B, cudaStream_t stream) {
+template <typename T, int TT>
+cudaError_t launch_tc_tile(const TcArgs<T>& args, int B, cudaStream_t stream) {
   const int bytes = tc_bytes(TT, args.c);
   if (bytes > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(c2f_tc_kernel<TT>, bytes);
+  cudaError_t err = allow_smem(c2f_tc_kernel<T, TT>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(((args.H + TT - 1) / TT) * ((args.W + TT - 1) / TT), B);
-  c2f_tc_kernel<TT><<<grid, kThreads, bytes, stream>>>(args);
+  c2f_tc_kernel<T, TT><<<grid, kThreads, bytes, stream>>>(args);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch_tc(const void* const* p, void* y, int B, int H, int W, int Cin, int c, int C2,
                       int TT, cudaStream_t stream) {
   // widths the GEMMs take: 16-byte rows, k16 steps inside one 3x3 tap
   if (c % 16 || C2 % 8 || Cin % 8) return cudaErrorInvalidValue;
-  const bf16* const* t = reinterpret_cast<const bf16* const*>(p);
-  const TcArgs args{t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], t[8],
-                    static_cast<bf16*>(y), H, W, Cin, c, C2};
+  const T* const* t = reinterpret_cast<const T* const*>(p);
+  const TcArgs<T> args{t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], t[8],
+                       static_cast<T*>(y), H, W, Cin, c, C2};
   switch (TT) {
-    case 16: return launch_tc_tile<16>(args, B, stream);
-    case 8: return launch_tc_tile<8>(args, B, stream);
-    case 4: return launch_tc_tile<4>(args, B, stream);
+    case 16: return launch_tc_tile<T, 16>(args, B, stream);
+    case 8: return launch_tc_tile<T, 8>(args, B, stream);
+    case 4: return launch_tc_tile<T, 4>(args, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -564,7 +568,8 @@ cudaError_t launch_tc(const void* const* p, void* y, int B, int H, int W, int Ci
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). dtype: 0 float32 (CUDA
-// cores, tile 8 or 4), 1 bfloat16 (tensor cores, tile 16, 8 or 4).
+// cores, tile 8 or 4), 1 bfloat16 or 2 float16 (tensor cores, tile 16, 8 or
+// 4).
 extern "C" int ys_c2f(const void* x, const void* w1, const void* b1, const void* wm1,
                       const void* bm1, const void* wm2, const void* bm2, const void* w2,
                       const void* b2, void* y, int B, int H, int W, int Cin, int c, int C2,
@@ -578,6 +583,7 @@ extern "C" int ys_c2f(const void* x, const void* w1, const void* b1, const void*
     if (tile == 4) return launch_f32<4>(p, y, B, H, W, Cin, c, C2, st);
     return cudaErrorInvalidValue;
   }
-  if (dtype == 1) return launch_tc(p, y, B, H, W, Cin, c, C2, tile, st);
+  if (dtype == 1) return launch_tc<bf16>(p, y, B, H, W, Cin, c, C2, tile, st);
+  if (dtype == 2) return launch_tc<f16>(p, y, B, H, W, Cin, c, C2, tile, st);
   return cudaErrorInvalidValue;
 }

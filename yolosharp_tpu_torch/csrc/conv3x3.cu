@@ -4,11 +4,15 @@
 // and conv3x3s2_silu (stride 2).
 //
 // x: (B, H, W, Ci) NHWC, w: (3, 3, Ci, Co) HWIO, bias: (Co,), y: (B, Ho, Wo, Co),
-// all contiguous and of one type (float32 or bfloat16); sums in float32.
+// all contiguous and of one type (float32, bfloat16 or float16); sums in
+// float32.
 // No divisibility limits: the ragged edges of the image, of Ci and of Co are
 // masked or zero-filled.
 //
-// bfloat16: an implicit GEMM on Hopper's warpgroup MMA (conv_wg_kernel).
+// bfloat16 and float16 (the 16-bit routes, one template on the element type:
+// both are 2 bytes, so layouts and descriptors are shared and only the MMA
+// type suffix and the conversions differ): an implicit GEMM on Hopper's
+// warpgroup MMA (conv_wg_kernel).
 // M runs over the flat output pixels (b, ho, wo), N over Co, K = 9 * Ci one
 // tap x 32 channels at a time. A block owns 128 pixels (two warpgroups of
 // 64) x BN = 128 or 64 channels (128 where that grid still covers every SM;
@@ -23,11 +27,11 @@
 //   scalar fill; the second k16 half of a chunk past Ci is skipped.
 // - A is stored K-major with the 64-byte swizzle, B N-major with the
 //   128-byte swizzle, the layouts wgmma reads through shared-memory
-//   descriptors: each k16 half is one wgmma.m64nBNk16 (bf16 in, float32
+//   descriptors: each k16 half is one wgmma.m64nBNk16 (16-bit in, float32
 //   sums) per warpgroup, with no ldmatrix and no operand registers. One
 //   step's wgmma group stays in flight across the next barrier. The
 //   epilogue adds the bias and the activation in float32 and rounds once to
-//   bf16 (paired stores).
+//   the element type (paired stores).
 // - The stem (Ci <= 7) packs its 9 taps x Ci channels into one K <= 64
 //   instead, on mma.sync (conv_stem_kernel).
 // Why flat M and not a halo tile of one image: an 8 x 16 halo tile covers a
@@ -189,7 +193,7 @@ cudaError_t launch_f32_ck(const void* x, const void* w, const void* b, void* y, 
   return launch_f32<S, 16>(x, w, b, y, B, H, W, Ci, Co, act, stream);
 }
 
-// --------------------------------------------------------------- bfloat16
+// ------------------------------------------- 16-bit: bfloat16 and float16
 
 constexpr int kBK = 32;     // input channels of one k step (of one tap)
 constexpr int kStages = 5;  // cp.async ring: 3 steps in flight ahead of the one in use,
@@ -205,19 +209,20 @@ __device__ __forceinline__ int b_off(int k, int nu) {
 }
 
 // Eight elements [i, i + 8) of a row of n, zero past n (unaligned rows).
-__device__ __forceinline__ uint4 load8_masked(const bf16* p, int i, int n, bool ok) {
-  __align__(16) bf16 v[8];
+template <typename T>
+__device__ __forceinline__ uint4 load8_masked(const T* p, int i, int n, bool ok) {
+  __align__(16) T v[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = ok && i + e < n ? p[e] : __float2bfloat16(0.f);
+  for (int e = 0; e < 8; ++e) v[e] = ok && i + e < n ? p[e] : from_f<T>(0.f);
   return *reinterpret_cast<const uint4*>(v);
 }
 
-// Bias, activation, one rounding to bf16, paired stores. acc[mi][ni] is the
+// Bias, activation, one rounding to T, paired stores. acc[mi][ni] is the
 // m16 x n8 tile at flat output pixels m0 + 16 mi (y row m is pixel m, Co
 // channels a row), channels co0 + 8 ni.
-template <int MI, int NI>
-__device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4], bf16* __restrict__ y,
-                                           const bf16* __restrict__ bias, int M, int Co, int m0,
+template <typename T, int MI, int NI>
+__device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4], T* __restrict__ y,
+                                           const T* __restrict__ bias, int M, int Co, int m0,
                                            int co0, int act) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
@@ -235,7 +240,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4], bf16* 
     for (int half = 0; half < 2; ++half) {
       const int m = m0 + mi * 16 + g + half * 8;
       if (m >= M) continue;
-      bf16* yp = y + (size_t)m * Co;
+      T* yp = y + (size_t)m * Co;
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) {
         const int co = co0 + ni * 8 + 2 * q;
@@ -243,10 +248,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4], bf16* 
         const float v0 = apply_act_fast(acc[mi][ni][2 * half] + bv[ni][0], act);
         const float v1 = apply_act_fast(acc[mi][ni][2 * half + 1] + bv[ni][1], act);
         if (pairs) {
-          *reinterpret_cast<uint32_t*>(yp + co) = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(yp + co) = Half16<T>::pack(v0, v1);
         } else {
-          yp[co] = __float2bfloat16(v0);
-          if (co + 1 < Co) yp[co + 1] = __float2bfloat16(v1);
+          yp[co] = from_f<T>(v0);
+          if (co + 1 < Co) yp[co + 1] = from_f<T>(v1);
         }
       }
     }
@@ -255,49 +260,61 @@ __device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4], bf16* 
 
 // ---- the implicit GEMM on Hopper's warpgroup MMA (wgmma)
 
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db);
+// D (64 x N, float32) += A (64 x 16, K-major) * B (16 x N, N-major), both
+// read from shared memory through their descriptors; TY is the PTX type of
+// A and B ("bf16" or "f16").
+#define YS_WGMMA_N64(TY)                                                                         \
+  asm volatile(                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                                \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, " \
+      "1;\n}\n"                                                                                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])            \
+      : "l"(da), "l"(db), "r"(1))
 
-// D (64 x 64, float32) += A (64 x 16, K-major) * B (16 x 64, N-major), both
-// read from shared memory through their descriptors.
+#define YS_WGMMA_N128(TY)                                                                        \
+  asm volatile(                                                                                  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "     \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "     \
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),           \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),           \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),           \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),           \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),           \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),           \
+        "+f"(d[62]), "+f"(d[63])                                                                 \
+      : "l"(da), "l"(db), "r"(1))
+
+template <typename T, int N>
+__device__ __forceinline__ void wgmma16(float (&d)[N / 2], uint64_t da, uint64_t db);
 template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+__device__ __forceinline__ void wgmma16<bf16, 64>(float (&d)[32], uint64_t da, uint64_t db) {
+  YS_WGMMA_N64("bf16");
 }
-
-// D (64 x 128, float32) += A (64 x 16, K-major) * B (16 x 128, N-major), both
-// read from shared memory through their descriptors.
 template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+__device__ __forceinline__ void wgmma16<f16, 64>(float (&d)[32], uint64_t da, uint64_t db) {
+  YS_WGMMA_N64("f16");
+}
+template <>
+__device__ __forceinline__ void wgmma16<bf16, 128>(float (&d)[64], uint64_t da, uint64_t db) {
+  YS_WGMMA_N128("bf16");
+}
+template <>
+__device__ __forceinline__ void wgmma16<f16, 128>(float (&d)[64], uint64_t da, uint64_t db) {
+  YS_WGMMA_N128("f16");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -330,10 +347,10 @@ struct Wg {
   static constexpr int kBytes = kStages * kStage + 1024;  // + alignment slack
 };
 
-template <int S, int BN>
+template <typename T, int S, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_wg_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-               const bf16* __restrict__ bias, bf16* __restrict__ y, int H, int W, int Ci, int Co,
+conv_wg_kernel(const T* __restrict__ x, const T* __restrict__ w,
+               const T* __restrict__ bias, T* __restrict__ y, int H, int W, int Ci, int Co,
                int Ho, int Wo, int M, int act) {
   using G = Wg<BN>;
   constexpr int BM = 128, AR = 2, BU = BN / 64;
@@ -383,7 +400,7 @@ conv_wg_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     for (int i = 0; i < AR; ++i) {
       const int r = (tid >> 2) + 64 * i;
       const bool ok = ((amask[i] >> tap) & 1) && ci < Ci;
-      const bf16* src = ok ? x + aoff[i] + toff : x;
+      const T* src = ok ? x + aoff[i] + toff : x;
       if (xvec)
         cp_async16(as + a_off(r, au), src, ok);
       else
@@ -395,7 +412,7 @@ conv_wg_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int k = idx / (BN / 8), nu = idx % (BN / 8);
       const int cik = ch * kBK + k, co = co0 + nu * 8;
       const bool ok = cik < Ci && co < Co;
-      const bf16* src = ok ? w + ((size_t)tap * Ci + cik) * Co + co : w;
+      const T* src = ok ? w + ((size_t)tap * Ci + cik) * Co + co : w;
       if (wvec)
         cp_async16(as + G::AB + b_off(k, nu), src, ok);
       else
@@ -437,17 +454,17 @@ conv_wg_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       // apart, 64-column blocks kBK * 128 bytes apart
       const uint64_t da = smem_desc(as + wg * 64 * 64 + ks * 32, 16, 512, 2);
       const uint64_t db = smem_desc(bs + ks * 16 * 128, kBK * 128, 1024, 1);
-      wgmma_bf16<BN>(d, da, db);
+      wgmma16<T, BN>(d, da, db);
     }
     wgmma_commit();
     wgmma_wait<1>();  // step kt's products may run on past the next barrier
   }
   wgmma_wait<0>();
   const int warp = tid >> 5;
-  store_tile<1, BN / 8>(acc, y, bias, M, Co, m0 + wg * 64 + (warp & 3) * 16, co0, act);
+  store_tile<T, 1, BN / 8>(acc, y, bias, M, Co, m0 + wg * 64 + (warp & 3) * 16, co0, act);
 }
 
-template <int S, int BN>
+template <typename T, int S, int BN>
 cudaError_t launch_wg(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
                       int Ci, int Co, int act, cudaStream_t stream) {
   using G = Wg<BN>;
@@ -455,12 +472,12 @@ cudaError_t launch_wg(const void* x, const void* w, const void* b, void* y, int 
   const long M = (long)B * Ho * Wo;
   const long blocks = (M + 127) / 128 * ((Co + BN - 1) / BN);
   if (M > INT32_MAX || blocks > INT32_MAX) return cudaErrorInvalidValue;
-  auto kernel = conv_wg_kernel<S, BN>;
+  auto kernel = conv_wg_kernel<T, S, BN>;
   cudaError_t err = allow_smem(kernel, G::kBytes);
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)blocks, kThreads, G::kBytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b),
-      static_cast<bf16*>(y), H, W, Ci, Co, Ho, Wo, (int)M, act);
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
+      static_cast<T*>(y), H, W, Ci, Co, Ho, Wo, (int)M, act);
   return cudaGetLastError();
 }
 
@@ -479,14 +496,14 @@ struct Stem {
   static constexpr int kBytes = IH * IW * 7 * 2;
 };
 
-template <int S, int KS>
+template <typename T, int S, int KS>
 __global__ void __launch_bounds__(kThreads, 3)
-conv_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const bf16* __restrict__ bias, bf16* __restrict__ y, int H, int W, int Ci,
+conv_stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const T* __restrict__ bias, T* __restrict__ y, int H, int W, int Ci,
                  int Co, int Ho, int Wo, int act) {
   using G = Stem<S>;
   extern __shared__ __align__(128) uint4 smem[];
-  bf16* raw = reinterpret_cast<bf16*>(smem);  // [IH][IW * Ci]
+  T* raw = reinterpret_cast<T*>(smem);  // [IH][IW * Ci]
   const int K = 9 * Ci;
   const int rowlen = G::IW * Ci;
 
@@ -499,8 +516,8 @@ conv_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int hi0 = h0 * S - 1, wi0 = w0 * S - 1;
-  const bf16* xb = x + (size_t)b * H * W * Ci;
-  const bf16 zero = __float2bfloat16(0.f);
+  const T* xb = x + (size_t)b * H * W * Ci;
+  const T zero = from_f<T>(0.f);
 
   for (int i = tid; i < G::IH * rowlen; i += kThreads) {
     const int r = i / rowlen, e = i - r * rowlen;
@@ -528,7 +545,7 @@ conv_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         const int k = ks * 16 + 2 * q + h * 8;
         const float v0 = k < K && co < Co ? to_f(w[(size_t)k * Co + co]) : 0.f;
         const float v1 = k + 1 < K && co < Co ? to_f(w[(size_t)(k + 1) * Co + co]) : 0.f;
-        bw[ks][ni][h] = pack_bf16(v0, v1);
+        bw[ks][ni][h] = Half16<T>::pack(v0, v1);
       }
     }
   }
@@ -543,9 +560,7 @@ conv_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
   auto at = [&](int base, int off) { return off >= 0 ? raw[base + off] : zero; };
-  auto pack2 = [](bf16 lo, bf16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-  };
+  auto pack2 = [](T lo, T hi) { return Half16<T>::bits(lo) | (Half16<T>::bits(hi) << 16); };
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
     const int base0 = warp * S * rowlen + (mi * 16 + g) * S * Ci;
@@ -558,7 +573,7 @@ conv_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                              pack2(at(base0, o[2]), at(base0, o[3])),
                              pack2(at(base1, o[2]), at(base1, o[3]))};
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a, bw[ks][ni][0], bw[ks][ni][1]);
+      for (int ni = 0; ni < 4; ++ni) Half16<T>::mma(acc[mi][ni], a, bw[ks][ni][0], bw[ks][ni][1]);
     }
   }
   const int ho = h0 + warp;
@@ -576,59 +591,59 @@ conv_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       for (int half = 0; half < 2; ++half) {
         const int wo = w0 + mi * 16 + g + half * 8;
         if (wo >= Wo) continue;
-        bf16* yp = y + (((size_t)b * Ho + ho) * Wo + wo) * Co + co;
+        T* yp = y + (((size_t)b * Ho + ho) * Wo + wo) * Co + co;
         const float v0 = apply_act_fast(acc[mi][ni][2 * half] + b0, act);
         const float v1 = apply_act_fast(acc[mi][ni][2 * half + 1] + b1, act);
         if (pairs) {
-          *reinterpret_cast<uint32_t*>(yp) = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(yp) = Half16<T>::pack(v0, v1);
         } else {
-          yp[0] = __float2bfloat16(v0);
-          if (co + 1 < Co) yp[1] = __float2bfloat16(v1);
+          yp[0] = from_f<T>(v0);
+          if (co + 1 < Co) yp[1] = from_f<T>(v1);
         }
       }
   }
 }
 
-template <int S>
+template <typename T, int S>
 cudaError_t launch_stem(const void* x, const void* w, const void* b, void* y, int B, int H,
                         int W, int Ci, int Co, int act, cudaStream_t stream) {
   using G = Stem<S>;
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
   const dim3 grid(((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW),
                   (Co + G::BN - 1) / G::BN, B);
-  auto kernel = conv_stem_kernel<S, 4>;
+  auto kernel = conv_stem_kernel<T, S, 4>;
   switch ((9 * Ci + 15) / 16) {  // k16 steps of the packed K
-    case 1: kernel = conv_stem_kernel<S, 1>; break;
-    case 2: kernel = conv_stem_kernel<S, 2>; break;
-    case 3: kernel = conv_stem_kernel<S, 3>; break;
+    case 1: kernel = conv_stem_kernel<T, S, 1>; break;
+    case 2: kernel = conv_stem_kernel<T, S, 2>; break;
+    case 3: kernel = conv_stem_kernel<T, S, 3>; break;
     default: break;
   }
   cudaError_t err = allow_smem(kernel, G::kBytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, G::kBytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b),
-      static_cast<bf16*>(y), H, W, Ci, Co, Ho, Wo, act);
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
+      static_cast<T*>(y), H, W, Ci, Co, Ho, Wo, act);
   return cudaGetLastError();
 }
 
 // The stem (bn 0, Ci <= 7), else the wgmma kernel with bn channels a block:
 // the wrapper picks bn (kernels/conv3x3.py n_tile: 128 where that grid still
 // covers every SM, else 64) and the launch checks it.
-template <int S>
+template <typename T, int S>
 cudaError_t launch_conv(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
                         int Ci, int Co, int act, int bn, cudaStream_t stream) {
   if ((bn == 0) != (Ci <= 7)) return cudaErrorInvalidValue;
-  if (bn == 0) return launch_stem<S>(x, w, b, y, B, H, W, Ci, Co, act, stream);
-  if (bn == 128) return launch_wg<S, 128>(x, w, b, y, B, H, W, Ci, Co, act, stream);
-  if (bn == 64) return launch_wg<S, 64>(x, w, b, y, B, H, W, Ci, Co, act, stream);
+  if (bn == 0) return launch_stem<T, S>(x, w, b, y, B, H, W, Ci, Co, act, stream);
+  if (bn == 128) return launch_wg<T, S, 128>(x, w, b, y, B, H, W, Ci, Co, act, stream);
+  if (bn == 64) return launch_wg<T, S, 64>(x, w, b, y, B, H, W, Ci, Co, act, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). dtype: 0 float32 (CUDA
-// cores; bn unused), 1 bfloat16 (tensor cores, bn channels a block: 0 for the
-// stem, 64 or 128).
+// cores; bn unused), 1 bfloat16 or 2 float16 (tensor cores, bn channels a
+// block: 0 for the stem, 64 or 128).
 extern "C" int ys_conv3x3(const void* x, const void* w, const void* b, void* y, int B, int H,
                           int W, int Ci, int Co, int stride, int act, int dtype, int bn,
                           void* stream) {
@@ -639,7 +654,10 @@ extern "C" int ys_conv3x3(const void* x, const void* w, const void* b, void* y, 
     return stride == 1 ? launch_f32_ck<1>(x, w, b, y, B, H, W, Ci, Co, act, st)
                        : launch_f32_ck<2>(x, w, b, y, B, H, W, Ci, Co, act, st);
   if (dtype == 1)
-    return stride == 1 ? launch_conv<1>(x, w, b, y, B, H, W, Ci, Co, act, bn, st)
-                       : launch_conv<2>(x, w, b, y, B, H, W, Ci, Co, act, bn, st);
+    return stride == 1 ? launch_conv<bf16, 1>(x, w, b, y, B, H, W, Ci, Co, act, bn, st)
+                       : launch_conv<bf16, 2>(x, w, b, y, B, H, W, Ci, Co, act, bn, st);
+  if (dtype == 2)
+    return stride == 1 ? launch_conv<f16, 1>(x, w, b, y, B, H, W, Ci, Co, act, bn, st)
+                       : launch_conv<f16, 2>(x, w, b, y, B, H, W, Ci, Co, act, bn, st);
   return cudaErrorInvalidValue;
 }

@@ -1,19 +1,191 @@
-"""Host augmentations of the letterbox path, detect task (a copy of
-yolosharp_tpu/data/augment.py:223-330 with the pixel work in ``image_ops``
-instead of cv2; the same rng draws in the same order).
+"""Host augmentations, detect task (a copy of yolosharp_tpu/data/augment.py
+with the pixel work in ``image_ops`` instead of cv2; the same rng draws in
+the same order).
 
-Parity targets: Data/Augment.cs LetterBox (703-778), Rectangle (780-857),
-FlipLR/FlipUD (860-966; the flipped xyxy corners are re-sorted, a fix of
-the reference's order) and RandomHSV (968-989). Mosaic and
-RandomPerspective are not ported yet (ROADMAP queue 1 item 7).
+Parity targets: Data/Augment.cs Mosaic (126-275), RandomPerspective
+(278-700), LetterBox (703-778), Rectangle (780-857), FlipLR/FlipUD (860-966;
+the flipped xyxy corners are re-sorted, a fix of the reference's order) and
+RandomHSV (968-989). mosaic4 and random_perspective carry keypoints and OBB
+corners as the JAX package does; the segment masks' branches come with the
+segment task and raise here.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import numpy as np
 
-from .image_ops import hsv_to_rgb_u8, resize_linear, rgb_to_hsv_u8
+from .image_ops import (hsv_to_rgb_u8, resize_linear, rgb_to_hsv_u8,
+                        warp_affine, warp_perspective)
 from .labels import LabelRecord
+
+_MASK_TODO = ("segment masks through the mosaic are not ported yet (they come "
+              "with the segment task)")
+
+
+def _box_area(b: np.ndarray) -> np.ndarray:
+    return np.clip(b[:, 2] - b[:, 0], 0, None) * np.clip(b[:, 3] - b[:, 1], 0, None)
+
+
+def mosaic4(main: LabelRecord, picks: Sequence[LabelRecord], imgsz: int,
+            rng: np.random.Generator) -> LabelRecord:
+    """2x2 mosaic onto a (2s, 2s) canvas (Augment.cs:147-275)."""
+    if main.mask is not None or any(r.mask is not None for r in picks):
+        raise NotImplementedError(_MASK_TODO)
+    s = imgsz
+    border = -s // 2
+    yc = int(rng.integers(-border, 2 * s + border))
+    xc = int(rng.integers(-border, 2 * s + border))
+    canvas = np.full((2 * s, 2 * s, 3), 114, np.uint8)
+    mr = main.mask_ratio
+
+    cls_l, box_l, kpt_l, cor_l = [], [], [], []
+    for i, rec in enumerate([main, *picks]):
+        h, w = rec.resized_shape
+        if i == 0:    # top-left
+            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+            x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+            x2b, y2b = w, h
+        elif i == 1:  # top-right
+            x1a, y1a = xc, max(yc - h, 0)
+            x2a, y2a = min(xc + w, 2 * s), yc
+            x1b, y1b = 0, h - (y2a - y1a)
+            x2b, y2b = min(w, x2a - x1a), h
+        elif i == 2:  # bottom-left
+            x1a, y1a = max(xc - w, 0), yc
+            x2a, y2a = xc, min(2 * s, yc + h)
+            x1b, y1b = w - (x2a - x1a), 0
+            x2b, y2b = w, min(y2a - y1a, h)
+        else:         # bottom-right
+            x1a, y1a = xc, yc
+            x2a, y2a = min(xc + w, 2 * s), min(2 * s, yc + h)
+            x1b, y1b = 0, 0
+            x2b, y2b = min(w, x2a - x1a), min(y2a - y1a, h)
+        canvas[y1a:y2a, x1a:x2a] = rec.img[y1b:y2b, x1b:x2b]
+        padw, padh = x1a - x1b, y1a - y1b
+        if rec.cls is None or len(rec.cls) == 0:
+            continue
+        box = rec.bboxes + [padw, padh, padw, padh]
+        cls_l.append(rec.cls)
+        box_l.append(box)
+        if rec.keypoints is not None:
+            k = rec.keypoints.copy()
+            k[..., 0] += padw
+            k[..., 1] += padh
+            kpt_l.append(k)
+        if rec.obb_corners is not None:
+            c = rec.obb_corners.copy()
+            c[..., 0] += padw
+            c[..., 1] += padh
+            cor_l.append(c)
+
+    cls = np.concatenate(cls_l) if cls_l else np.zeros(0, np.float32)
+    boxes = np.concatenate(box_l) if box_l else np.zeros((0, 4), np.float32)
+    org_areas = _box_area(boxes)
+    boxes = np.clip(boxes, 0, 2 * s)
+    areas = _box_area(boxes)
+    good = (areas > 0) & (areas > 0.7 * org_areas)
+
+    out = LabelRecord(im_file=main.im_file, img=canvas,
+                      org_shape=main.org_shape, resized_shape=(2 * s, 2 * s),
+                      mask_ratio=mr, mosaic_border=(border, border))
+    out.cls = cls[good]
+    out.bboxes = boxes[good]
+    if kpt_l:
+        out.keypoints = np.concatenate(kpt_l)[good]
+    if cor_l:
+        out.obb_corners = np.concatenate(cor_l)[good]
+    return out
+
+
+def random_perspective(label: LabelRecord, degrees: float, translate: float,
+                       scale: float, shear: float, perspective: float,
+                       rng: np.random.Generator) -> LabelRecord:
+    """Full C/P/R/S/T 3x3 matrix warp (Augment.cs:316-700), the pixels
+    through ``image_ops.warp_perspective`` / ``warp_affine``."""
+    if label.mask is not None:
+        raise NotImplementedError(_MASK_TODO)
+    img = label.img
+    h, w = label.resized_shape
+    bw, bh = label.mosaic_border
+    out_w, out_h = w + bw * 2, h + bh * 2
+
+    C = np.eye(3, dtype=np.float32)
+    C[0, 2] = -img.shape[1] / 2
+    C[1, 2] = -img.shape[0] / 2
+    P = np.eye(3, dtype=np.float32)
+    P[2, 0] = (rng.uniform(-1, 1)) * perspective
+    P[2, 1] = (rng.uniform(-1, 1)) * perspective
+    R = np.eye(3, dtype=np.float32)
+    a = rng.uniform(-1, 1) * degrees
+    sc = 1 + rng.uniform(-1, 1) * scale
+    rad = math.radians(a)
+    alpha, beta = math.cos(rad) * sc, math.sin(rad) * sc
+    R[:2] = [[alpha, beta, 0], [-beta, alpha, 0]]
+    S = np.eye(3, dtype=np.float32)
+    S[0, 1] = math.tan(rng.uniform(-1, 1) * shear * math.pi / 180)
+    S[1, 0] = math.tan(rng.uniform(-1, 1) * shear * math.pi / 180)
+    T = np.eye(3, dtype=np.float32)
+    T[0, 2] = (0.5 + rng.uniform(-1, 1) * translate) * out_w
+    T[1, 2] = (0.5 + rng.uniform(-1, 1) * translate) * out_h
+    M = T @ S @ R @ P @ C
+
+    if perspective > 0:
+        warped = warp_perspective(img, M, out_w, out_h)
+    else:
+        warped = warp_affine(img, M[:2], out_w, out_h)
+    out = label.copy()
+    out.img = warped
+    out.resized_shape = (out_h, out_w)
+    out.mosaic_border = (0, 0)
+
+    n = len(label.cls) if label.cls is not None else 0
+    if n == 0:
+        out.cls = np.zeros(0, np.float32)
+        out.bboxes = np.zeros((0, 4), np.float32)
+        return out
+
+    # boxes: transform 4 corners, take min/max (Augment.cs:546-568)
+    b = label.bboxes
+    corner_idx = [0, 1, 2, 3, 0, 3, 2, 1]
+    pts = b[:, corner_idx].reshape(-1, 2)
+    ones = np.ones((pts.shape[0], 1), np.float32)
+    xy = np.concatenate([pts, ones], 1) @ M.T
+    xy = (xy[:, :2] / xy[:, 2:3]) if perspective > 0 else xy[:, :2]
+    xy = xy.reshape(n, 4, 2)
+    boxes = np.concatenate([xy.min(1), xy.max(1)], 1)
+    boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, out_w)
+    boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, out_h)
+    good = _box_area(boxes) > 0
+
+    out.cls = label.cls[good]
+    out.bboxes = boxes[good]
+
+    if label.keypoints is not None:
+        k = label.keypoints
+        nk = k.shape[1]
+        pts = k[..., :2].reshape(-1, 2)
+        xy = np.concatenate([pts, np.ones((pts.shape[0], 1), np.float32)], 1) @ M.T
+        xy = xy[:, :2] / xy[:, 2:3]
+        vis = k[..., 2].reshape(-1).copy() if k.shape[-1] == 3 else np.ones(len(xy))
+        oob = ((xy[:, 0] < 0) | (xy[:, 1] < 0)
+               | (xy[:, 0] > out_w) | (xy[:, 1] > out_h))
+        vis[oob] = 0
+        kt = np.concatenate([xy, vis[:, None]], 1).reshape(n, nk, 3)
+        kt[..., 0] = kt[..., 0].clip(0, out_w)
+        kt[..., 1] = kt[..., 1].clip(0, out_h)
+        out.keypoints = kt[good][..., :k.shape[-1]]
+    if label.obb_corners is not None:
+        c = label.obb_corners.reshape(-1, 2)
+        xy = np.concatenate([c, np.ones((c.shape[0], 1), np.float32)], 1) @ M.T
+        xy = (xy[:, :2] / xy[:, 2:3]) if perspective > 0 else xy[:, :2]
+        ct = xy.reshape(n, 4, 2)
+        ct[..., 0] = ct[..., 0].clip(0, out_w)
+        ct[..., 1] = ct[..., 1].clip(0, out_h)
+        out.obb_corners = ct[good]
+    return out
 
 
 def _resize_pad(img: np.ndarray, target_h: int, target_w: int,

@@ -1,12 +1,15 @@
-"""Detection dataset: per-index transforms and padded batch collation (a copy
-of yolosharp_tpu/data/dataset.py:23-104 and :170-212, detect task).
+"""Detection dataset: per-index transforms, padded batch collation and the
+planned batches of the device render (a copy of
+yolosharp_tpu/data/dataset.py:23-212, detect task).
 
 Parity targets: Data/YoloDataset.cs:57-99 (transform composition,
 CloseMosaic) and Data/YoloDataLoader.cs:18-44 (collation, here to padded
-fixed shapes). The train transform is letterbox -> flips -> HSV; an image
-that would take the mosaic (``image_process_type == mosaic`` before
-``close_mosaic``) raises, as mosaic4 and random_perspective are not ported
-yet. ``Config.device_augment`` is ignored, as on the JAX letterbox path.
+fixed shapes). The train transform of an image is mosaic4 ->
+random_perspective (while the mosaic is open, with probability
+``Config.mosaic``) or letterbox, then flips -> HSV. With
+``Config.device_augment`` and ``mosaic >= 1`` the loader takes whole
+planned batches instead (``device_batch``): labels planned on the host,
+pixels rendered on the device (``device_augment``).
 """
 
 from __future__ import annotations
@@ -21,14 +24,10 @@ from ..types import ImageProcessType
 from . import augment as A
 from .labels import LabelRecord, load_labels
 
-MOSAIC_TODO = ("the mosaic augmentation (host mosaic4 + random_perspective, "
-               "then the device render) is not ported to the torch port yet "
-               "(ROADMAP queue 1 item 7); use ImageProcessType.letterbox, "
-               "close_mosaic = 0 or mosaic = 0")
-
 
 class YoloDataset:
-    """Detection dataset with the reference's letterbox augment pipeline."""
+    """Detection dataset with the reference's augment pipeline (the mosaic
+    while it is open, letterbox after)."""
 
     def __init__(self, config: Config, is_val: bool = False,
                  use_rectangle: bool = False, seed: int = 0):
@@ -63,8 +62,14 @@ class YoloDataset:
         use_mosaic = (cfg.image_process_type == ImageProcessType.mosaic
                       and not self.mosaic_closed)
         if use_mosaic and self.rng.uniform() <= cfg.mosaic:
-            raise NotImplementedError(MOSAIC_TODO)
-        rec = A.letterbox(rec, cfg.image_size, cfg.image_size)
+            picks = [self.records[int(i)] for i in
+                     self.rng.integers(0, len(self.records) - 1, 3)]
+            rec = A.mosaic4(rec, picks, cfg.image_size, self.rng)
+            rec = A.random_perspective(rec, cfg.degrees, cfg.translate,
+                                       cfg.scale, cfg.shear, cfg.perspective,
+                                       self.rng)
+        else:
+            rec = A.letterbox(rec, cfg.image_size, cfg.image_size)
         if cfg.flip_lr > 0 and self.rng.uniform() <= cfg.flip_lr:
             rec = A.flip_lr(rec)
         if cfg.flip_ud > 0 and self.rng.uniform() <= cfg.flip_ud:
@@ -89,6 +94,49 @@ class YoloDataset:
 
         out = {"images": np.stack([pad_to(r.img) for r in recs])}
         out.update(self._label_arrays(recs, max_labels, h, w))
+        return out
+
+    def use_device_augment(self) -> bool:
+        """Whether this dataset's train batches are planned on the host and
+        rendered on the device (``device_batch``)."""
+        cfg = self.config
+        return (bool(cfg.device_augment) and not self.is_val
+                and not self.mosaic_closed
+                and cfg.image_process_type == ImageProcessType.mosaic
+                and cfg.mosaic >= 1.0)
+
+    def device_batch(self, idx, max_labels: int) -> Dict[str, np.ndarray]:
+        """A planned batch: the padded labels of the planned samples, the
+        uint8 source pool (each record's resized image top-left on a
+        114-filled s x s page) as ``aug_pool``, and the plan arrays as
+        ``aug_src_idx`` ... ``aug_hsv`` (``device_augment.PLAN_KEYS``).
+        Mosaic partners come from the batch; ``Config.mosaic_partner_pool
+        = E`` appends E records drawn from the whole dataset to the pool
+        (the reference's dataset-wide partners). The JAX package's
+        partner_group (partners kept inside a data-parallel shard) has no
+        counterpart: the port trains on one device."""
+        from . import device_augment as DA
+
+        cfg = self.config
+        recs = [self.records[int(i)] for i in idx]
+        extras = int(cfg.mosaic_partner_pool or 0)
+        pool_recs = list(recs)
+        if extras > 0:
+            ex = self.rng.integers(0, len(self.records), extras)
+            pool_recs += [self.records[int(t)] for t in ex]
+        plan, labels = DA.plan_mosaic_batch(pool_recs, cfg, self.rng,
+                                            group=len(recs),
+                                            extras_per_group=extras)
+        s = cfg.image_size
+        pool = np.full((len(pool_recs), s, s, 3), 114, np.uint8)
+        for k, r in enumerate(pool_recs):
+            h, w = r.resized_shape
+            pool[k, :h, :w] = r.img
+        out = self._label_arrays(labels, max_labels, s, s)
+        out.update(aug_pool=pool, aug_src_idx=plan.src_idx,
+                   aug_rects=plan.rects, aug_pads=plan.pads,
+                   aug_minv=plan.minv, aug_persp=plan.persp,
+                   aug_flips=plan.flips, aug_hsv=plan.hsv)
         return out
 
     def _label_arrays(self, recs: List[LabelRecord], max_labels: int,

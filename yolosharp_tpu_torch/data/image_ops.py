@@ -9,6 +9,14 @@
   clamped edges) through F.interpolate(bilinear, align_corners=False) on a
   CPU tensor, rounded back to uint8. cv2 rounds its 11-bit fixed-point
   weights, so the two differ by at most one level.
+- ``warp_affine`` / ``warp_perspective``: cv2.warpAffine /
+  cv2.warpPerspective with INTER_LINEAR and a constant border, in numpy,
+  as OpenCV 5 computes them: the forward matrix inverted in float64, each
+  output pixel's source coordinate and its bilinear blend in float32,
+  corners outside the image blending in as the border value, the result
+  rounded half to even. (OpenCV 4 cut the coordinate to 1/32 px and the
+  weights to 15 bits.) Against OpenCV 5.0 a few values in 1e4 differ, by
+  one level (float32 rounding order; tests/test_torch_mosaic.py).
 - ``rgb_to_hsv_u8`` / ``hsv_to_rgb_u8``: OpenCV's 8-bit HSV (H in [0, 180)),
   with its fixed-point division tables one way and its float formula the
   other, evaluated once a process for every 8-bit input into a table, so
@@ -190,6 +198,75 @@ def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
                         align_corners=False, antialias=False)
     return (out[0].permute(1, 2, 0).round().clamp(0, 255)
             .to(torch.uint8).numpy())
+
+
+def _sample_linear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray,
+                   border: int) -> np.ndarray:
+    """Bilinear samples of img (H, W[, C]) uint8 at float32 source
+    coordinates, as OpenCV 5's warps take them: blended in float32 along x,
+    then along y, a corner outside the image taking ``border``, rounded half
+    to even."""
+    h, w = img.shape[:2]
+    src = img.reshape(h, w, -1)
+    x0 = np.floor(sx)
+    y0 = np.floor(sy)
+    a = (sx - x0)[..., None]
+    b = (sy - y0)[..., None]
+    lim = 1 << 20       # far outside any image, inside int32
+    x0 = np.clip(x0, -lim, lim).astype(np.int64)
+    y0 = np.clip(y0, -lim, lim).astype(np.int64)
+
+    def corner(dy, dx):
+        cy, cx = y0 + dy, x0 + dx
+        ok = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+        v = src[np.clip(cy, 0, h - 1), np.clip(cx, 0, w - 1)]
+        return np.where(ok[..., None], v, border).astype(np.float32)
+
+    p00, p01 = corner(0, 0), corner(0, 1)
+    p10, p11 = corner(1, 0), corner(1, 1)
+    top = p00 + a * (p01 - p00)
+    bot = p10 + a * (p11 - p10)
+    out = np.rint(top + b * (bot - top))
+    return np.clip(out, 0, 255).astype(np.uint8).reshape(
+        sx.shape + img.shape[2:])
+
+
+def _grid(out_w: int, out_h: int):
+    return (np.arange(out_w, dtype=np.float32)[None, :],
+            np.arange(out_h, dtype=np.float32)[:, None])
+
+
+def warp_affine(img: np.ndarray, M: np.ndarray, out_w: int, out_h: int,
+                border: int = 114) -> np.ndarray:
+    """cv2.warpAffine(img, M, (out_w, out_h), borderValue=border) with
+    INTER_LINEAR: M (2, 3) maps source to output pixels. It is inverted in
+    float64, as cv2 inverts it; each output pixel's source coordinate is
+    then m0 x + (m1 y + m2) in float32."""
+    m = np.asarray(M, np.float64).reshape(2, 3)
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[1, 1] * d, m[0, 0] * d
+    a12, a21 = -m[0, 1] * d, -m[1, 0] * d
+    b1 = -a11 * m[0, 2] - a12 * m[1, 2]
+    b2 = -a21 * m[0, 2] - a22 * m[1, 2]
+    mi = np.array([[a11, a12, b1], [a21, a22, b2]], np.float32)
+    x, y = _grid(out_w, out_h)
+    sx = mi[0, 0] * x + (mi[0, 1] * y + mi[0, 2])
+    sy = mi[1, 0] * x + (mi[1, 1] * y + mi[1, 2])
+    return _sample_linear(img, sx, sy, border)
+
+
+def warp_perspective(img: np.ndarray, M: np.ndarray, out_w: int,
+                     out_h: int, border: int = 114) -> np.ndarray:
+    """cv2.warpPerspective(img, M, (out_w, out_h), borderValue=border) with
+    INTER_LINEAR: M (3, 3) maps source to output pixels. Its inverse (in
+    float64) gives each output pixel's homogeneous source coordinate, in
+    float32, divided by its w."""
+    mi = np.linalg.inv(np.asarray(M, np.float64)).astype(np.float32)
+    x, y = _grid(out_w, out_h)
+    X, Y, W = (mi[r, 0] * x + (mi[r, 1] * y + mi[r, 2]) for r in range(3))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return _sample_linear(img, X / W, Y / W, border)
 
 
 # OpenCV's RGB2HSV_b tables (hsv_shift = 12): round((255 << 12) / v) and

@@ -33,12 +33,23 @@ class LabelRecord:
     org_shape: Tuple[int, int] = (0, 0)       # (h, w)
     resized_shape: Tuple[int, int] = (0, 0)
     rectangle_shape: Optional[Tuple[int, int]] = None
+    # the other tasks' labels, which the mosaic planner carries through;
+    # the detect path leaves them None
+    keypoints: Optional[np.ndarray] = None    # (n, K, kd) pixels
+    obb_corners: Optional[np.ndarray] = None  # (n, 4, 2) pixels
+    mask: Optional[np.ndarray] = None         # (mh, mw) uint8 overlap ids
+    mask_ratio: int = 4
+    mosaic_border: Tuple[int, int] = (0, 0)   # set by mosaic4
 
     def copy(self) -> "LabelRecord":
         return dataclasses.replace(
             self,
             cls=None if self.cls is None else self.cls.copy(),
-            bboxes=None if self.bboxes is None else self.bboxes.copy())
+            bboxes=None if self.bboxes is None else self.bboxes.copy(),
+            keypoints=None if self.keypoints is None else self.keypoints.copy(),
+            obb_corners=(None if self.obb_corners is None
+                         else self.obb_corners.copy()),
+            mask=None if self.mask is None else self.mask.copy())
 
 
 def get_img_files(img_path: str) -> List[str]:

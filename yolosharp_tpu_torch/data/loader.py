@@ -1,10 +1,14 @@
 """Prefetching data loader and the host-to-device prefetch (a copy of
-yolosharp_tpu/data/loader.py:21-140 without the device-augment branch).
+yolosharp_tpu/data/loader.py:21-140).
 
 Parity target: Data/YoloDataLoader.cs:6-45 (multi-worker shuffle loader
 with custom collate). Batches are padded fixed-shape numpy dicts assembled
 in a background thread from a thread pool of sample transforms, so host
-augmentation overlaps the device's work.
+augmentation overlaps the device's work; where the dataset renders its
+batches on the device (``use_device_augment``) the thread plans whole
+batches instead (``device_batch``: labels, a uint8 source pool and the
+plan arrays), which ``device_prefetch`` + ``to_device`` copy to the card
+pinned, one batch ahead, as any other batch.
 """
 
 from __future__ import annotations
@@ -112,8 +116,12 @@ class DataLoader:
                     for idx in self._batches():
                         if stop.is_set():
                             break
-                        recs = list(pool.map(self.dataset.get, idx))
-                        q.put(self.dataset.collate(recs, ml))
+                        if self.dataset.use_device_augment():
+                            # the host plans, the device renders
+                            q.put(self.dataset.device_batch(idx, ml))
+                        else:
+                            recs = list(pool.map(self.dataset.get, idx))
+                            q.put(self.dataset.collate(recs, ml))
             except Exception as exc:  # surface worker errors to consumer
                 q.put(exc)
             finally:

@@ -17,8 +17,9 @@ the layer-6 call (512 sequences) reads its strided qkv and writes o, 52 MB
 82 M exponentials (~22 us at 16 ex2 a clock per SM): bound by bytes, with
 the exp unit the practical floor. The layer-8 call is half of that.
 
-- bfloat16: a tensor-core kernel (``mma.sync`` m16n8k16, f32 sums). A block
-  stages its sequence's K and V once as bf16 in shared memory (cp.async,
+- bfloat16 and float16 (one template on the element type): a tensor-core
+  kernel (``mma.sync`` m16n8k16, f32 sums). A block stages its sequence's K
+  and V once in its 16-bit type in shared memory (cp.async,
   16-byte chunks XOR-swizzled for conflict-free ``ldmatrix``: 51 KB at
   N = 400, four blocks an SM) and its warps walk their 16-row query tiles
   against it, P held in registers as the A operand of P V, exponentials by
@@ -26,8 +27,8 @@ the exp unit the practical floor. The layer-8 call is half of that.
   one block's shared memory (``kv_keys``) are streamed in chunks.
   ``launch_geometry`` spreads each sequence's query tiles over ``splits``
   blocks so that small batches still fill the SMs, with 8 warps a block
-  where a staged sequence takes a whole SM (N = 1600 at D = 32). P is rounded to bf16
-  for P V, as the JAX package's off-TPU einsum path does.
+  where a staged sequence takes a whole SM (N = 1600 at D = 32). P is rounded
+  to the 16-bit type for P V, as the JAX package's off-TPU einsum path does.
 - float32: the flash-style CUDA-core kernel (64 query rows a block, 64-key
   float32 tiles, online softmax); TF32 would break the float32 contract.
 
@@ -55,7 +56,7 @@ from . import build
 from .build import SMEM_LIMIT
 
 HEAD_DIMS = (16, 32, 64, 128)
-# the bfloat16 kernel's layout (csrc/attention.cu), which checks what it gets
+# the 16-bit kernel's layout (csrc/attention.cu), which checks what it gets
 KEY_TILE = 64          # keys a softmax step (kKT)
 SM_SMEM = 233472       # shared memory of an SM (each block also takes 1 KB)
 STREAM_SMEM = 96 * 1024  # staged K and V of a sequence that does not fit
@@ -63,12 +64,12 @@ MAX_BLOCKS = 4         # resident blocks an SM that the splits aim at
 
 
 def smem_bytes(keys: int, D: int) -> int:
-    """Shared memory of one bf16 block: K and V rows of D bf16."""
+    """Shared memory of one 16-bit block: K and V rows of D elements."""
     return 2 * keys * D * 2
 
 
 def kv_keys(N: int, D: int) -> int:
-    """Keys of K and V the bf16 kernel stages at once: all N (rounded up to
+    """Keys of K and V the 16-bit kernel stages at once: all N (rounded up to
     16) where they fit one block's shared memory, else chunks of a multiple
     of the key tile that fit ``STREAM_SMEM``."""
     whole = -(-N // 16) * 16
@@ -79,7 +80,7 @@ def kv_keys(N: int, D: int) -> int:
 
 def launch_geometry(BH: int, N: int, D: int,
                     sms: int) -> Tuple[int, int, int]:
-    """(splits, staged keys, warps a block) of the bf16 kernel for BH
+    """(splits, staged keys, warps a block) of the 16-bit kernel for BH
     sequences of N rows on a card of sms SMs: each sequence's 16-row query
     tiles are spread over ``splits`` blocks so that the grid fills the
     blocks the SMs hold at once (by shared memory, at most MAX_BLOCKS an SM)
@@ -124,7 +125,7 @@ def _launch(name: str, q, k, v, o, scale: float) -> None:
     code, stream = build.launch_args(name, q, k, v, o, strided=True)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     geometry = (launch_geometry(B * H, N, D, build.sm_count(q.device.index))
-                if q.dtype == torch.bfloat16 else (0, 0, 0))
+                if q.dtype in build.HALF_DTYPES else (0, 0, 0))
     with torch.cuda.device(q.device):
         status = _lib().ys_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, N,

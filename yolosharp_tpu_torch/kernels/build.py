@@ -46,13 +46,16 @@ def find_nvcc() -> str:
         "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the types of the tensor-core routes: one template on the element type in
+# each .cu (both are 2 bytes: the same layouts, another MMA type suffix)
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 SMEM_LIMIT = 232448   # shared memory one block may use on Hopper
 
 
 def launch_args(name: str, *tensors, strided: bool = False):
     """Check what every CUDA kernel of the port takes (one CUDA device, one
-    dtype of float32 / bfloat16, contiguous, 16-byte aligned) and return
+    dtype of float32 / bfloat16 / float16, contiguous, 16-byte aligned) and return
     (dtype code, current stream handle). Raises on anything else.
     strided: the kernel takes element strides, so instead of contiguity it
     needs unit stride in the last dimension and 16-byte aligned rows."""
@@ -62,7 +65,8 @@ def launch_args(name: str, *tensors, strided: bool = False):
                          f"{x.device}")
     code = DTYPE_CODES.get(x.dtype)
     if code is None:
-        raise TypeError(f"{name}: takes float32 or bfloat16, got {x.dtype}")
+        raise TypeError(f"{name}: takes float32, bfloat16 or float16, got "
+                        f"{x.dtype}")
     for t in tensors:
         if t.device != x.device or t.dtype != x.dtype:
             raise ValueError(f"{name}: all tensors must be {x.dtype} on "

@@ -13,10 +13,10 @@ output, the bottleneck intermediates and the concat in shared memory, so
 only the block output goes back to device memory. The halo ring is
 recomputed by neighbouring tiles; weights stream from L2.
 
-- bfloat16: the five GEMMs (cv1 on the window, the two 3x3s through shifted
+- bfloat16 and float16 (one template on the element type): the five GEMMs (cv1 on the window, the two 3x3s through shifted
   ``ldmatrix`` rows, cv1's other half, cv2 over ``[a | bh | z]``) run on the
   tensor cores, with weight and input chunks double-buffered through
-  ``cp.async``. The intermediates are bf16 (as the plain chain rounds them),
+  ``cp.async``. The intermediates are 16-bit (as the plain chain rounds them),
   which halves their footprint: the tile is 16x16 for c <= 32 and 8x8 up to
   c = 256 (219,456 bytes of shared memory at c = 256, one block per SM),
   halved by ``launch_tile`` while the grid has fewer blocks than SMs (v8s
@@ -44,37 +44,37 @@ from . import build
 from .build import SMEM_LIMIT
 from .conv3x3 import conv3x3_plain
 
-# the bf16 layout of csrc/c2f.cu (tc_bytes), which checks the tile it is given
+# the 16-bit layout of csrc/c2f.cu (tc_bytes), which checks the tile it is given
 _CHUNK = 32           # input channels staged per chunk (kKC)
-_WPITCH = 256 + 8     # weight chunk row pitch of the bf16 route (kWP)
+_WPITCH = 256 + 8     # weight chunk row pitch of the 16-bit route (kWP)
 
 
-def tile_for(c: int, bf16: bool = False) -> int:
+def tile_for(c: int, half: bool = False) -> int:
     """Widest output tile edge for hidden width c: float32 8 for c <= 64 and
-    4 above; bfloat16 16 for c <= 32, then 8 while it fits shared memory,
-    then 4."""
-    if not bf16:
+    4 above; the 16-bit route (half) 16 for c <= 32, then 8 while it fits
+    shared memory, then 4."""
+    if not half:
         return 8 if c <= 64 else 4
     if c <= 32:
         return 16
     return 8 if smem_bytes(8, c, True) <= SMEM_LIMIT else 4
 
 
-def launch_tile(B: int, H: int, W: int, c: int, bf16: bool, sms: int) -> int:
-    """The tile edge the kernel runs: ``tile_for``, and for bfloat16 halved
-    (down to 4) while the grid of tiles x B leaves some of the card's sms
-    SMs without a block."""
-    tile = tile_for(c, bf16)
-    while bf16 and tile >= 8 and -(-H // tile) * -(-W // tile) * B < sms:
+def launch_tile(B: int, H: int, W: int, c: int, half: bool, sms: int) -> int:
+    """The tile edge the kernel runs: ``tile_for``, and for the 16-bit route
+    halved (down to 4) while the grid of tiles x B leaves some of the card's
+    sms SMs without a block."""
+    tile = tile_for(c, half)
+    while half and tile >= 8 and -(-H // tile) * -(-W // tile) * B < sms:
         tile //= 2
     return tile
 
 
-def smem_bytes(tile: int, c: int, bf16: bool = False) -> int:
-    """Shared memory of one block: float32 Geom::floats, bfloat16 tc_bytes
-    (csrc/c2f.cu)."""
+def smem_bytes(tile: int, c: int, half: bool = False) -> int:
+    """Shared memory of one block: float32 Geom::floats, the 16-bit route
+    tc_bytes (csrc/c2f.cu)."""
     r2, r1, r0 = (tile + 4) ** 2, (tile + 2) ** 2, tile ** 2
-    if not bf16:
+    if not half:
         return 4 * (r2 * _CHUNK + c * (r2 + r1 + 2 * r0))
     return (2 * (c + 8) * (r2 + r1 + r0) + 2 * r2 * (_CHUNK + 8) * 2
             + 2 * _CHUNK * _WPITCH * 2)
@@ -84,7 +84,7 @@ def c2f_supported(n: int, shortcut: bool, g: int, cin: int, c: int,
                   c2: int) -> bool:
     """Static statement of what the kernel takes, in both types: a C2f with
     one shortcut bottleneck, no groups, c % 16 == 0, C2 and Cin multiples of
-    8 (16-byte rows for the bf16 route's copies), and widest tiles of both
+    8 (16-byte rows for the 16-bit route's copies), and widest tiles of both
     routes that fit shared memory (c <= 424). Covers the v8n and v8s layers
     2 and 8 (c = 16, 32, 128, 256)."""
     if not (n == 1 and shortcut and g == 1 and cin > 0 and c > 0
@@ -136,7 +136,7 @@ def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2) -> torch.Tensor:
     if not c2f_supported(1, True, 1, cin, c, C2):
         raise ValueError(f"c2f_fused: the kernel does not take Cin={cin}, "
                          f"c={c}, C2={C2}")
-    tile = launch_tile(B, H, W, c, x.dtype == torch.bfloat16,
+    tile = launch_tile(B, H, W, c, x.dtype in build.HALF_DTYPES,
                        build.sm_count(x.device.index))
     y = torch.empty((B, H, W, C2), dtype=x.dtype, device=x.device)
     ptrs = [t.data_ptr() for t in (x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, y)]

@@ -11,8 +11,9 @@ What bounds it on the card: a YOLO 3x3 conv does 9*Ci multiply-adds per
 output value, so the limit is how fast the operands reach the multipliers.
 The route goes by dtype, statically, with no fallback:
 
-- bfloat16: a flat-M implicit GEMM on Hopper's warpgroup MMA
-  (``wgmma.m64nBNk16``, float32 sums). M runs over the flat output pixels
+- bfloat16 and float16 (one template on the element type): a flat-M
+  implicit GEMM on Hopper's warpgroup MMA (``wgmma.m64nBNk16``, float32
+  sums). M runs over the flat output pixels
   of the batch, N over Co, K over (tap, 32 channels). A block owns 128
   pixels x BN channels, BN = 128 where that grid still covers every SM,
   else 64 (``n_tile``). Each k step's A rows (the pixel each output pixel
@@ -57,7 +58,7 @@ def supported(k: int, s: int, p: int, d: int, g: int) -> bool:
 
 def n_tile(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
            sms: int) -> int:
-    """Output channels of one block of the bfloat16 kernel: 0 for the stem
+    """Output channels of one block of the 16-bit kernel: 0 for the stem
     (Ci <= 7, its own kernel), 128 where the grid of 128-pixel x 128-channel
     blocks still covers the card's sms SMs, else 64."""
     if Ci <= 7:
@@ -101,7 +102,7 @@ def _launch(name: str, x, w, b, act: str, stride: int) -> torch.Tensor:
     code, stream = build.launch_args(name, x, w, b)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     bn = (n_tile(B, H, W, Ci, Co, stride, build.sm_count(x.device.index))
-          if x.dtype == torch.bfloat16 else 0)
+          if x.dtype in build.HALF_DTYPES else 0)
     y = torch.empty((B, Ho, Wo, Co), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         status = _lib().ys_conv3x3(

@@ -1,11 +1,15 @@
-"""Area-attention blocks of the v12 detector (counterpart of
-yolosharp_tpu/nn/attention.py: AAttn, ABlock, A2C2f).
+"""Attention blocks: PSA of the v11 detector and area attention of the v12
+detector (counterpart of yolosharp_tpu/nn/attention.py: AttentionPSA,
+PSABlock, C2PSA, AAttn, ABlock, A2C2f).
 
-The attention itself runs ``kernels.attention_bihd``: the hand-written CUDA
-kernel on CUDA tensors, its plain version on CPU tensors. As in the JAX
-package, qkv / proj / pe are the reference's Conv blocks with SiLU (a
-deliberate deviation from Ultralytics, docs/IMPLEMENTATION_STATUS.md), and
-the 7x7 depthwise ``pe`` conv has a conv bias.
+The area attention runs ``kernels.attention_bihd``: the hand-written CUDA
+kernel on CUDA tensors, its plain version on CPU tensors. PSA's keys are
+half as wide as its values (C2PSA's attn_ratio 0.5: kd = hd / 2), so, as in
+the JAX package, it takes the einsum path: plain torch, the softmax in
+float32 cast back to the activations' type. As in
+the JAX package, qkv / proj / pe are the reference's Conv blocks with SiLU
+(a deliberate deviation from Ultralytics, docs/IMPLEMENTATION_STATUS.md);
+PSA's ``pe`` is a 3x3 depthwise conv, AAttn's a 7x7 one with a conv bias.
 """
 
 from __future__ import annotations
@@ -15,6 +19,67 @@ from torch import nn
 
 from ..kernels import attention_bihd
 from .common import C3k, ConvBN
+
+
+class AttentionPSA(nn.Module):
+    """Multi-head self-attention over the whole map plus a positional conv
+    (Block.cs:721-810). The qkv channels are per head [q | k | v] with q
+    and k kd = head_dim / 2 wide."""
+
+    def __init__(self, dim: int, num_heads: int = 8):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = self.head_dim // 2
+        self.scale = self.key_dim ** -0.5
+        self.qkv = ConvBN(dim, dim + 2 * self.key_dim * num_heads, 1)
+        self.proj = ConvBN(dim, dim, 1)
+        self.pe = ConvBN(dim, dim, 3, g=dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        nh, kd, hd = self.num_heads, self.key_dim, self.head_dim
+        qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(b, h * w, nh,
+                                                      2 * kd + hd)
+        q, k, v = qkv.split([kd, kd, hd], dim=-1)
+        attn = torch.einsum("bihd,bjhd->bhij", q * self.scale, k)
+        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        out = torch.einsum("bhij,bjhd->bihd", attn, v)
+        nchw = (0, 3, 1, 2)
+        out = out.reshape(b, h, w, c).permute(nchw)
+        v_map = v.reshape(b, h, w, c).permute(nchw)
+        return self.proj(out + self.pe(v_map))
+
+
+class PSABlock(nn.Module):
+    """Attention and a conv FFN (``ffn.0`` / ``ffn.1``, both with SiLU),
+    each residual (Block.cs:699-719)."""
+
+    def __init__(self, c: int, num_heads: int = 8):
+        super().__init__()
+        self.attn = AttentionPSA(c, num_heads)
+        self.ffn = nn.Sequential(ConvBN(c, 2 * c, 1), ConvBN(2 * c, c, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x)
+        return x + self.ffn(x)
+
+
+class C2PSA(nn.Module):
+    """CSP wrapper around n PSABlocks of c = c1 * e channels and c // 64
+    heads (Block.cs:664-697)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c1 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBN(2 * self.c, c2, 1)
+        self.m = nn.Sequential(*(PSABlock(self.c, self.c // 64)
+                                 for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split(self.c, dim=1)
+        return self.cv2(torch.cat([a, self.m(b)], 1))
 
 
 class AAttn(nn.Module):

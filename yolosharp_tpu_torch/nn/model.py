@@ -1,10 +1,11 @@
-"""Model assembly for the v8 and v12 detectors (counterpart of
-yolosharp_tpu/nn/model.py: _v8_layers, _v12_layers, build_arch, YoloNet).
+"""Model assembly for the v5u, v8, v11 and v12 detectors (counterpart of
+yolosharp_tpu/nn/model.py: _v8_layers, _v5u_layers, _v11_layers,
+_v12_layers, build_arch, YoloNet).
 
 Layers live in ``self.model`` (an ``nn.ModuleList`` with parameter-free
 placeholders at the Upsample and Concat indices), so state-dict keys read
-``model.{i}.…`` as in Ultralytics checkpoints; the head is index 22 (v8)
-or 21 (v12).
+``model.{i}.…`` as in Ultralytics checkpoints; the head is index 22 (v8),
+24 (v5u), 23 (v11) or 21 (v12).
 """
 
 from __future__ import annotations
@@ -15,8 +16,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from .attention import A2C2f
-from .common import C2f, C3k2, Concat, ConvBN, SPPF, Upsample
+from .attention import A2C2f, C2PSA
+from .common import C2f, C3, C3k2, Concat, ConvBN, SPPF, Upsample
 from .heads import DFL, Detect
 
 
@@ -68,6 +69,69 @@ def _v8_layers(size: str):
     return layers, (4, 6, 9, 12, 15, 18, 21), (1, 0, 3, 2), w
 
 
+def _v5u_layers(size: str):
+    """(layers, out_idx, concat_idx, widths) of the v5u backbone + neck: C3
+    blocks and a 6x6 stride-2 stem with padding 2 (autopad would give 3;
+    the 3x3 kernel does not take it, so it runs F.conv2d folded)."""
+    dm, wm = {
+        "n": (0.34, 0.25), "s": (0.34, 0.5), "m": (0.67, 0.75),
+        "l": (1.0, 1.0), "x": (1.34, 1.25),
+    }[size]
+    w = _widths(wm, None)
+    d = tuple(int(x * dm) for x in (3, 6, 9))
+
+    def conv(c2, k, s, p=None):
+        return lambda c1: ConvBN(c1, c2, k, s, p)
+
+    def c3(c2, n, shortcut=True):
+        return lambda c1: C3(c1, c2, n, shortcut)
+
+    layers = [
+        conv(w[0], 6, 2, 2), conv(w[1], 3, 2), c3(w[1], d[0]),
+        conv(w[2], 3, 2), c3(w[2], d[1]),
+        conv(w[3], 3, 2), c3(w[3], d[2]),
+        conv(w[4], 3, 2), c3(w[4], d[0]),
+        lambda c1: SPPF(c1, w[4], 5),
+        conv(w[3], 1, 1), "up", "cat", c3(w[3], d[0], False),
+        conv(w[2], 1, 1), "up", "cat", c3(w[2], d[0], False),
+        conv(w[2], 3, 2), "cat", c3(w[3], d[0], False),
+        conv(w[3], 3, 2), "cat", c3(w[4], d[0], False),
+    ]
+    return layers, (4, 6, 10, 14, 17, 20, 23), (1, 0, 3, 2), w
+
+
+def _v11_layers(size: str):
+    """(layers, out_idx, concat_idx, widths) of the v11 backbone + neck:
+    C3k2 blocks, SPPF and C2PSA."""
+    dm, wm, maxc, use_c3k = {
+        "n": (0.5, 0.25, 1024, False), "s": (0.5, 0.5, 1024, False),
+        "m": (0.5, 1.0, 512, True), "l": (1.0, 1.0, 512, True),
+        "x": (1.0, 1.5, 768, True),
+    }[size]
+    w = _widths(wm, maxc)
+    ds = int(2 * dm)
+
+    def conv(c2, k, s):
+        return lambda c1: ConvBN(c1, c2, k, s)
+
+    def c3k2(c2, c3k, e=0.5):
+        return lambda c1: C3k2(c1, c2, ds, c3k, e)
+
+    layers = [
+        conv(w[0], 3, 2), conv(w[1], 3, 2), c3k2(w[2], use_c3k, 0.25),
+        conv(w[2], 3, 2), c3k2(w[3], use_c3k, 0.25),
+        conv(w[3], 3, 2), c3k2(w[3], True),
+        conv(w[4], 3, 2), c3k2(w[4], True),
+        lambda c1: SPPF(c1, w[4], 5),
+        lambda c1: C2PSA(c1, w[4], ds),
+        "up", "cat", c3k2(w[3], use_c3k),
+        "up", "cat", c3k2(w[2], use_c3k),
+        conv(w[2], 3, 2), "cat", c3k2(w[3], use_c3k),
+        conv(w[3], 3, 2), "cat", c3k2(w[4], True),
+    ]
+    return layers, (4, 6, 10, 13, 16, 19, 22), (1, 0, 3, 2), w
+
+
 def _v12_layers(size: str):
     """(layers, out_idx, concat_idx, widths) of the v12 backbone + neck."""
     dm, wm, maxc, use_c3k, n_mult, residual, mlp_ratio = {
@@ -102,15 +166,18 @@ def _v12_layers(size: str):
     return layers, (4, 6, 8, 11, 14, 17, 20), (1, 0, 3, 2), w
 
 
-_BUILDERS = {"v8": (_v8_layers, True), "v12": (_v12_layers, False)}
+# version -> (its layers function, legacy head: v8 / v5u class towers are two
+# 3x3 ConvBNs, v11 / v12 ones depthwise)
+_BUILDERS = {"v8": (_v8_layers, True), "v5u": (_v5u_layers, True),
+             "v11": (_v11_layers, False), "v12": (_v12_layers, False)}
 
 
 def build_arch(cfg: ArchCfg):
     """(layers, out_idx, concat_idx, head) for the detect task."""
     if cfg.version not in _BUILDERS or cfg.task != "detect":
         raise NotImplementedError(
-            f"the torch port has only v8 and v12 detect so far, not "
-            f"{cfg.version} {cfg.task}")
+            f"the torch port has only v5u, v8, v11 and v12 detect so far, "
+            f"not {cfg.version} {cfg.task}")
     builder, legacy = _BUILDERS[cfg.version]
     layers, out_idx, concat_idx, w = builder(cfg.size)
     head = Detect(cfg.nc, cfg.reg_max, (w[2], w[3], w[4]), legacy,
@@ -138,8 +205,15 @@ def init_weights(net: nn.Module, generator: torch.Generator) -> None:
                     m.bias.uniform_(-bound, bound, generator=generator)
 
 
+def _out_channels(mod: nn.Module) -> int:
+    """Output channels of a layer: its last conv (cv3 of a C3, else cv2 of
+    a CSP block, else its own conv)."""
+    last = mod.cv3 if isinstance(mod, C3) else getattr(mod, "cv2", mod)
+    return last.conv.out_channels
+
+
 class YoloNet(nn.Module):
-    """v8 / v12 detection network. forward(x) takes (B, 3, H, W) in [0, 1] and
+    """v5u / v8 / v11 / v12 detection network. forward(x) takes (B, 3, H, W) in [0, 1] and
     returns the head's raw maps {"one2many": {"box", "cls"}, ["one2one"]}."""
 
     def __init__(self, cfg: ArchCfg, generator: Optional[torch.Generator] = None):
@@ -159,8 +233,7 @@ class YoloNet(nn.Module):
             else:
                 mod = layer(chans)
                 mods.append(mod)
-                chans = mod.cv2.conv.out_channels if hasattr(mod, "cv2") \
-                    else mod.conv.out_channels
+                chans = _out_channels(mod)
             if i in self.out_idx:
                 outputs.append(chans)
         mods.append(head)

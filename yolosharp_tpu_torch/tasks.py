@@ -10,8 +10,10 @@ filtered on the host. Predict runs a BN-folded copy of the master network
 in the compute dtype, refolded whenever a master parameter or buffer has
 changed (training bumps their versions).
 
-Train: the float32 master network in train mode, batches from the host
-letterbox pipeline (data/) copied to the device ahead of the step, the
+Train: the float32 master network in train mode, batches from data/
+copied to the device ahead of the step (while the mosaic is open, planned
+batches that the step renders on the device, or host mosaic4 +
+random_perspective samples; letterbox after close_mosaic), the
 train step of train.py, then val on the unfolded eval-mode master, which
 matches each batch's predictions to its ground truths in one device call,
 and the outputs of the JAX package: config.txt, log.csv, weights/best.bin,
@@ -38,7 +40,6 @@ from .ckpt import (bias_init, clone_one2one, export_state_dict, fold_bn,
 from .ckpt.resume import restore_train_state, save_train_state
 from .config import Config, resolve_device, torch_dtype
 from .data import DataLoader, YoloDataset, device_prefetch, to_device
-from .data.dataset import MOSAIC_TODO
 from .data.image_ops import read_image_rgb
 from .loss import detection_loss, e2e_gain_schedule, e2e_wrap
 from .nn import ArchCfg, YoloNet
@@ -49,7 +50,7 @@ from .predict import (decode_inference, decode_inference_topk,
                       e2e_postprocess, pad_to_multiple)
 from .train import (MAX_LOSS_SCALE, TrainState, make_eval_step,
                     make_optimizer, make_train_step)
-from .types import ImageProcessType, TaskType, YoloResult
+from .types import TaskType, YoloResult
 from .utils import (EarlyStopping, TrainLogger, ap_per_class,
                     match_predictions, summarize)
 
@@ -69,8 +70,8 @@ def _to_host(out):
 
 
 class Detector:
-    """v8 / v12 detection: train, val, predict, load and save (YoloTask's
-    detect task)."""
+    """v5u / v8 / v11 / v12 detection: train, val, predict, load and save
+    (YoloTask's detect task)."""
 
     loss_names: Tuple[str, ...] = ("box_loss", "cls_loss", "dfl_loss")
     metric_names: Tuple[str, ...] = ("precision(B)", "recall(B)", "mAP50(B)",
@@ -88,7 +89,8 @@ class Detector:
         self._fused: Optional[Tuple[tuple, YoloNet]] = None
         # per epoch of the last train(): each step's wall seconds (each
         # ends in the step's host sync) and seconds waiting on the loader
-        # before it, the seconds of the step loop and of val
+        # before it, the seconds of the step loop and of val, and on CUDA
+        # the peak device memory of the step loop (bytes)
         self.epoch_stats: List[Dict] = []
 
     # ------------------------------------------------------------- setup
@@ -269,18 +271,6 @@ class Detector:
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict:
         return to_device(batch, self.device)
 
-    def _check_mosaic(self, start_epoch: int) -> None:
-        """Raise before the first step if an epoch from start_epoch on would
-        take the mosaic (epoch <= close_mosaic), which is not ported."""
-        cfg = self.config
-        if (cfg.image_process_type == ImageProcessType.mosaic
-                and cfg.mosaic > 0
-                and start_epoch <= min(cfg.close_mosaic, cfg.epochs)):
-            raise NotImplementedError(
-                f"epochs {start_epoch}-{min(cfg.close_mosaic, cfg.epochs)} "
-                f"take the mosaic (close_mosaic = {cfg.close_mosaic}): "
-                + MOSAIC_TODO)
-
     def train(self, resume_from: Optional[str] = None) -> TrainState:
         """Train for Config.epochs (YoloBaseTaskModel.cs Train/TrainEpoch);
         resume_from: a last_state.npz, continued at its epoch + 1."""
@@ -318,7 +308,6 @@ class Detector:
             start_epoch = int(meta.get("epoch", 0)) + 1
             print(f"Resumed full train state from {resume_from} "
                   f"(continuing at epoch {start_epoch}).")
-        self._check_mosaic(start_epoch)
         train_loss_fn, _ = self._loss_fns()
         step_fn = make_train_step(train_loss_fn, compute_dtype=self.dtype,
                                   dynamic_loss_scale=cfg.true_fp16)
@@ -335,6 +324,8 @@ class Detector:
                 loss_kwargs = self._loss_kwargs(epoch)
                 items_sum = None
                 stats = {"epoch": epoch, "step_s": [], "wait_s": []}
+                if self.device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(self.device)
                 t_loop = t_prev = time.perf_counter()
                 for batch in device_prefetch(train_dl, self._to_device):
                     t_got = time.perf_counter()
@@ -345,6 +336,9 @@ class Detector:
                     t_prev = time.perf_counter()
                     stats["step_s"].append(t_prev - t_got)
                 stats["loop_s"] = t_prev - t_loop
+                if self.device.type == "cuda":
+                    stats["peak_bytes"] = torch.cuda.max_memory_allocated(
+                        self.device)
                 # the reference's items: per-batch means summed over the
                 # epoch, divided by the dataset size in the log
                 train_items = (items_sum.cpu().numpy() if items_sum is not None

@@ -134,6 +134,19 @@ def normalize_images(images: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
+def resolve_batch_images(batch: Dict, dtype) -> torch.Tensor:
+    """The step's network input (B, 3, H, W) channels-last in `dtype`: the
+    batch's host-made ``images`` (normalize_images), or, for a planned
+    batch (an ``aug_pool`` in it), the device render of
+    ``data.device_augment`` (float32 in [0, 255], unrounded) cast to
+    `dtype`, then /255, as the JAX package's resolve_batch_images."""
+    if "aug_pool" not in batch:
+        return normalize_images(batch["images"], dtype)
+    from .data.device_augment import render_batch
+
+    return render_batch(batch).permute(0, 3, 1, 2).to(dtype) / 255.0
+
+
 class TrainState:
     """What a step changes: the float32 master network (parameters and BN
     statistics), the optimizer (moments and per-parameter update counts),
@@ -192,7 +205,7 @@ def make_train_step(loss_fn, *, compute_dtype=torch.float32,
         net.train()
         scale = state.loss_scale if dynamic_loss_scale else 1.0
         opt.zero_grad(set_to_none=True)
-        preds = net(normalize_images(batch["images"], compute_dtype))
+        preds = net(resolve_batch_images(batch, compute_dtype))
         loss, items = loss_fn(preds, batch, **loss_kwargs)
         (loss * scale).backward()
         params = state.params
