@@ -1,8 +1,10 @@
-"""Where the time goes (PERF.md section 5): v8s / v12s-640 bf16 batch_predict
-of 32 on one GPU, with chip_smoke.py's seeded weights, images and conf, or
-their bf16 train step at batch 16, and v11s's on the mosaic.
+"""Where the time goes (PERF.md section 5): the 640 bf16 batch_predict of
+32 on one GPU of a chip_smoke.py path (v8s, v12s, v11s, v5us, v11m-seg),
+with its seeded weights, images and conf, or v8s's and v12s's bf16 train
+step at batch 16 and v11s's on the mosaic (`train`), or v11m-seg's at
+batch 8 on a planned mosaic batch with masks (`seg-train`).
 
-    python3 chip_profile.py [v8] [v12] [train]
+    python3 chip_profile.py [v8] [v12] [v11m-seg] [train] [seg-train]
 
 For each path and End2End mode: 5 unprofiled walls, the network forward
 alone (CUDA events), and a torch.profiler trace of 3 calls: the device's
@@ -15,8 +17,10 @@ same way; then v11s's step on one planned batch of the mosaic (a
 YoloDataset.device_batch of 16 images that chip_smoke.write_dataset
 writes), whose device render runs inside the step, traced the same way,
 and beside it a trace of the render alone, so that the render's kernels
-can be told by name among the step's. Exits non-zero without a CUDA
-device.
+can be told by name among the step's. `seg-train`: the same for
+v11m-seg on one planned batch of 8 (chip_smoke.write_seg_dataset), whose
+images and masks render inside the step, and beside it the mask render
+alone. Exits non-zero without a CUDA device.
 """
 import tempfile
 import sys
@@ -27,7 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
-from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
+from yolosharp_tpu_torch import YoloTask
 from yolosharp_tpu_torch.loss import flatten_levels
 
 if not torch.cuda.is_available():
@@ -114,15 +118,14 @@ def trace(mode, fn, unprofiled=True):
     report(mode, prof, window, 3)
 
 
-def profile_train(version, batch=None):
-    """The train step of {version}s on `batch` (a device batch; default one
-    in-memory letterbox batch)."""
+def profile_train(path, batch=None):
+    """The train step of a chip_smoke path's model on `batch` (a device
+    batch; default one in-memory letterbox batch of 16)."""
     from yolosharp_tpu_torch.data import to_device
     from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
                                            make_train_step)
 
-    det = YoloTask(Config(yolo_type=YoloType(version), yolo_size=YoloSize.s,
-                          number_class=80), device=dev).task
+    det = YoloTask(cs.path_config(path), device=dev).task
     net = det._ensure_variables().to(memory_format=torch.channels_last)
     opt, scheds = make_optimizer(net, nc=80, epochs=1, steps_per_epoch=10)
     state = TrainState(net, opt, scheds)
@@ -131,7 +134,7 @@ def profile_train(version, batch=None):
     if not mosaic:
         batch = to_device(cs.train_batch(cs.TRAIN_BATCH, cs.TRAIN_SIZE, 60,
                                          slots=32), dev)
-    mode = (f"{version}s train b{cs.TRAIN_BATCH} {cs.TRAIN_SIZE}"
+    mode = (f"{path} train b{batch['cls'].shape[0]} {cs.TRAIN_SIZE}"
             + (" mosaic (device render in the step)" if mosaic else ""))
     trace(mode, lambda: step(state, batch, {}))
 
@@ -152,6 +155,22 @@ def profile_mosaic_train():
           lambda: render_batch(batch))
 
 
+def profile_seg_train():
+    """v11m-seg's step on one planned batch of 8 (images and masks render
+    inside the step), and the mask render alone."""
+    from yolosharp_tpu_torch.data import YoloDataset, to_device
+    from yolosharp_tpu_torch.data.device_augment import render_masks
+
+    with tempfile.TemporaryDirectory() as root:
+        cs.write_seg_dataset(root, cs.SEG_BATCH, 2)
+        ds = YoloDataset(cs._seg_train_config(root))
+        batch = to_device(ds.device_batch(np.arange(cs.SEG_BATCH),
+                                          ds.max_label_count), dev)
+    profile_train(cs.SEG, batch)
+    trace(f"mask render alone b{cs.SEG_BATCH} {cs.TRAIN_SIZE}",
+          lambda: render_masks(batch))
+
+
 versions = sys.argv[1:] or ["v8", "v12"]
 for version in versions:
     if version == "train":
@@ -159,9 +178,10 @@ for version in versions:
             profile_train(v)
         profile_mosaic_train()
         continue
-    master = YoloTask(Config(yolo_type=YoloType(version),
-                             yolo_size=YoloSize.s, number_class=80,
-                             end2end=True), device=dev)
+    if version == "seg-train":
+        profile_seg_train()
+        continue
+    master = YoloTask(cs.path_config(version, end2end=True), device=dev)
     net = master.task._ensure_variables()
     cs.seed_weights(net)
     state = {k: v.detach().clone() for k, v in net.state_dict().items()}

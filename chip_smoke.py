@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Four serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
+Five serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
 C2f), v12s detection (conv3x3 s1/s2 and the fused attention), v11s and
-v5us detection (conv3x3 s1/s2 only: v11's PSA attention takes the einsum
-path, and neither has a C2f block). Training: v8s and v12s on letterbox
-batches, v11s through the mosaic (the device render) and v8s through the
-host mosaic.
+v5us detection and v11m-seg instance segmentation (conv3x3 s1/s2 only:
+v11's PSA attention takes the einsum path, and none has a C2f block).
+Training: v8s and v12s on letterbox batches, v11s through the mosaic (the
+device render) and v8s through the host mosaic, v11m-seg through the
+mosaic with masks.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build every CUDA kernel from the
@@ -29,7 +30,14 @@ Phases (any failure exits non-zero; nothing is caught):
      port (F.conv2d with bias and without the activation for the convs,
      F.scaled_dot_product_attention for the attention, none for the C2f
      block). bfloat16 and float16 take the tensor-core kernels, float32 the
-     CUDA-core kernels; float16 is held to the bf16 rule. Then the 640x640
+     CUDA-core kernels. float32: |k-p| <= 1e-4 + 1e-4|p| (attention 2e-5 +
+     2e-4|p|). bfloat16 and float16: the kernel against the plain version
+     evaluated in float64 on the same rounded inputs, max|k - ref| /
+     max|ref| within 1.25 u for the convs (they round their output once;
+     u = 2^-8 bf16, 2^-11 f16), 2.5 u for the attention (P and the output
+     rounded) and twice the plain chain's own distance for the C2f block
+     (which rounds where its plain chain does); both versions' distances
+     are printed. Then the 640x640
      shapes again at B=32 in bfloat16 and float16, timed, and at last every
      kernel
      variant the served requests of phases 3 and 4 take (the bf16 conv's N
@@ -60,7 +68,8 @@ C2f kernels serve predict only and must not launch there):
      autograd, gradients of q, k and v: float32 |d| <= 1e-4 + 1e-4|ref|,
      bfloat16 max|d| / max|ref| < 2e-2; forward + backward ms of the kernel
      route, plain autograd and SDPA (CUDA events).
-  6. one float32 train step of v8n and v12n (End2End) at 128x128, batch 2,
+  6. one float32 train step of v8n, v12n and v11n-seg (End2End; the
+     segment batch's masks are its boxes' regions) at 128x128, batch 2,
      card against CPU, same seeded weights and uint8 batch: loss items to
      1e-4 relative. The leaves whose gradient is 0 by construction (a conv
      bias that a train-mode BN removes, as in AAttn's pe; SPPF's cv1 BN
@@ -71,9 +80,11 @@ C2f kernels serve predict only and must not launch there):
      AdamW's first update, lr * g / (|g| + eps) (the count of elements
      outside the rule where they do not, a near-zero gradient whose sign or
      size the other device's rounding moves, is printed); BN running
-     statistics |d| <= 1e-5 (|ref| + max|ref|) per tensor (running means near
-     0 sit within the rounding of far larger sums; the plain |d| / |ref| is
-     printed beside it).
+     statistics against the same step's statistics in float64 on the CPU,
+     per tensor: |d| <= b (|ref| + max|ref|), b = 1e-5 or twice the CPU
+     float32 run's own distance where that is larger (running means near 0
+     sit within the rounding of far larger sums; the CPU's distance and
+     the plain |d| / |ref| are printed beside it).
   7. YoloTask.train() of v8s at full width, 640x640, batch 16, bfloat16,
      one epoch, on a synthetic dataset that this script writes as PNG with
      adaptive row filters (the filter mix is printed; 160 train and 32 val
@@ -107,6 +118,33 @@ C2f kernels serve predict only and must not launch there):
   8b. one epoch of v8s with device_augment=False and mosaic=0.5: the host
      mosaic (mosaic4 + random_perspective) and letterbox mix; ms a step and
      the loader-wait share.
+Segment (v11m-seg at its published widths: nc=80, Proto 256, cv4 64; its
+conv shapes are in phase 2's checks and the b32 bf16 / f16 timings, with
+their sums printed):
+  9a. the v11m-seg slice as phase 3, bf16: the b32 forward (CUDA events)
+     and its launches (conv3x3 s1 and s2 only), batch_predict b32 and
+     image_predict at 640x640, 480x640 and 500x375 in both End2End modes,
+     every result with a bool mask of its image's (h, w).
+  9b. its float32 predict of one image, card against CPU: the rows as
+     phase 4, and the matched results' masks with at least 99.9% of their
+     pixels equal.
+  9c. one planned b8 640x640 segment batch (the full warp) of a polygon
+     PNG dataset that this script writes (64 train and 16 val images of
+     480-800 px, 1-8 star-shaped polygons of 3-12 vertices): its masks
+     rendered on the card and on the CPU, at most 0.1% of the ids
+     differing (printed); the image and mask render ms.
+  9d. YoloTask.train() of v11m-seg, 640x640, batch 8, bf16, close_mosaic=1,
+     2 epochs (the device render of images and masks, then letterbox): per
+     epoch the median step ms, img/s, loader-wait share and peak memory;
+     val's eight metrics; finite losses; best.bin served by a fresh
+     v11m-seg YoloTask through the conv kernels, with masks.
+  9e. Segmenter.val of phase 9a's seeded v11m-seg in float32 on the card and
+     on the CPU, on 8 640x640 images labelled with its own predictions (up
+     to 8 an image: the highest-scored masks of at least 400 pixels that
+     fill at least 0.8 of their row-span polygon, written as that polygon),
+     NMS at mask_ratio 4 and End2End at mask_ratio 2 (the ground truth's
+     masks resized nearest to the proto grid): box and mask mAP50 above 0
+     on both, and each of the eight metrics within 0.02 card against CPU.
 Each phase prints its wall seconds.
 
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
@@ -157,7 +195,17 @@ TOL_F32 = {"conv": (1e-4, 1e-4), "c2f": (1e-4, 1e-4), "attn": (2e-5, 2e-4)}
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
               torch.float32: 67e12}
 HBM_BYTES = 3.35e12
-TOL_BF16 = {"conv": 1e-2, "c2f": 2e-2, "attn": 1e-2}
+# bfloat16 and float16: the kernel against a float64 evaluation of the
+# plain version on the same rounded inputs, max|k - ref| / max|ref| in
+# units of the type's unit roundoff u. The conv kernels sum in float32 and
+# round their output once (at most u; 1.25 u leaves room for the float32
+# sums and SiLU); the attention rounds P and its output (2.5 u); the C2f
+# block rounds every intermediate where its plain chain does, so it is
+# held to twice the plain chain's own distance from float64. The bounds
+# follow from where each version rounds, not from the inputs drawn.
+UNIT = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+TOL16 = {"conv": 1.25, "attn": 2.5}
+C2F_VS_PLAIN = 2.0
 SOURCES = {
     "conv3x3_silu": ("yolosharp_tpu_torch/csrc/conv3x3.cu",
                      "yolosharp_tpu/kernels/conv3x3.py:112"),
@@ -172,10 +220,16 @@ SOURCES = {
 PATHS = {"v8": ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
          "v12": ("conv3x3_silu", "conv3x3s2_silu", "fused_attention"),
          "v11": ("conv3x3_silu", "conv3x3s2_silu"),
-         "v5u": ("conv3x3_silu", "conv3x3s2_silu")}
-PHASE = {"v8": "3", "v12": "3b", "v11": "3c", "v5u": "3d"}
-# the paths held card against CPU in float32 (phases 4, 4b, 4c)
-CPU_MATCH = {"v8": "4", "v12": "4b", "v11": "4c"}
+         "v5u": ("conv3x3_silu", "conv3x3s2_silu"),
+         "v11m-seg": ("conv3x3_silu", "conv3x3s2_silu")}
+# each path's model: (version, size, task)
+ARCH = {"v8": ("v8", "s", "detect"), "v12": ("v12", "s", "detect"),
+        "v11": ("v11", "s", "detect"), "v5u": ("v5u", "s", "detect"),
+        "v11m-seg": ("v11", "m", "segment")}
+SEG = "v11m-seg"
+PHASE = {"v8": "3", "v12": "3b", "v11": "3c", "v5u": "3d", SEG: "9a"}
+# the paths held card against CPU in float32 (phases 4, 4b, 4c, 9b)
+CPU_MATCH = {"v8": "4", "v12": "4b", "v11": "4c", SEG: "9b"}
 # the stats suffix of each (dtype, batch) phase 2 times
 ERR_KEY = {torch.float32: "max_abs_err", torch.bfloat16: "max_abs_err_bf16",
            torch.float16: "max_abs_err_f16"}
@@ -229,45 +283,53 @@ def bound(flop: int, nbytes: int, dtype):
     return max(ops, mem), ("bytes" if mem >= ops else "operations")
 
 
-def compare(name, got, want, dtype, kind):
+def compare(name, got, want, dtype, kind, ref):
+    """Kernel (got) against plain (want) at the rule of its type; ref is
+    the plain version evaluated in float64 on the same inputs. Returns
+    max|k-p|."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     max_abs = float(err.max())
-    rel = max_abs / (float(want.abs().max()) + 1e-6)
+    top = float(ref.abs().max()) + 1e-12
+    dk = float((got.double() - ref).abs().max()) / top
+    dp = float((want.double() - ref).abs().max()) / top
+    finite = bool(torch.isfinite(got).all())
     if dtype == torch.float32:
         atol, rtol = TOL_F32[kind]
         bad = int((err > atol + rtol * want.abs()).sum())
-        ok = bad == 0 and bool(torch.isfinite(got).all())
+        ok = bad == 0 and finite
         rule = f"|k-p| <= {atol} + {rtol}|p| ({bad} outside)"
     else:   # bfloat16 and float16
-        ok = rel < TOL_BF16[kind] and bool(torch.isfinite(got).all())
-        rule = f"max|k-p|/max|p| = {rel:.3e} < {TOL_BF16[kind]}"
-    print(f"  {name}: max_abs_err {max_abs:.3e} max_rel {rel:.3e} {rule} "
+        u = UNIT[dtype]
+        limit = C2F_VS_PLAIN * dp if kind == "c2f" else TOL16[kind] * u
+        ok = dk <= limit and finite
+        rule = (f"vs float64 kernel {dk / u:.3f} u, plain {dp / u:.3f} u "
+                f"(u = 2^{int(np.log2(u))}); kernel <= "
+                + (f"{C2F_VS_PLAIN} x plain" if kind == "c2f"
+                   else f"{TOL16[kind]} u"))
+    print(f"  {name}: max_abs_err {max_abs:.3e} {rule} "
           f"{'OK' if ok else 'FAIL'}", flush=True)
+    if dtype == torch.float32:
+        print(f"    vs float64 (max|v - ref| / max|ref|): kernel {dk:.3e}, "
+              f"plain {dp:.3e}", flush=True)
     if not ok:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
     return max_abs
 
 
-def f64_errors(got, want, ref64):
-    """Both float32 versions against a float64 evaluation of the plain
-    version: each should be off by float32 rounding only."""
-    k = float((got.double() - ref64).abs().max())
-    p = float((want.double() - ref64).abs().max())
-    print(f"    vs float64: kernel {k:.3e}, plain {p:.3e}", flush=True)
-
-
 @torch.no_grad()
-def record_shapes(version: str) -> dict:
+def record_shapes(path: str) -> dict:
     """The shapes each kernel of one path takes on each canvas, from forward
-    hooks on the folded v{version}s net run at B=1 on the CPU (the routing
+    hooks on the path's folded net (ARCH) run at B=1 on the CPU (the routing
     is the same as on the card; the CPU runs the plain versions and launches
     nothing): {(h, w): {"s1" / "s2": {(H, W, Ci, Co)},
     "c2f": {(H, W, Cin, c, C2)}, "attn": {(areas, heads, N, D)}}}."""
     from yolosharp_tpu_torch.ckpt import fold_bn
     from yolosharp_tpu_torch.nn import AAttn, ArchCfg, C2f, ConvBN, YoloNet
 
-    net = fold_bn(YoloNet(ArchCfg(version=version, size="s", nc=80)).eval())
+    version, size, task = ARCH[path]
+    net = fold_bn(YoloNet(ArchCfg(version=version, size=size, task=task,
+                                  nc=80)).eval())
     shapes = {}
 
     def conv_hook(m, inp, out):
@@ -291,7 +353,7 @@ def record_shapes(version: str) -> dict:
         elif isinstance(m, AAttn):
             m.register_forward_hook(attn_hook)
     by_canvas = {}
-    for h, w in CANVASES if version == "v12" else CANVASES[:-1]:
+    for h, w in CANVASES if path == "v12" else CANVASES[:-1]:
         # the hooks fill this canvas's sets
         shapes = by_canvas[(h, w)] = {k: set() for k in KINDS}
         net(torch.zeros(1, 3, h, w).contiguous(
@@ -374,6 +436,9 @@ def phase_kernels(dev):
                       else 0.0})
     # per kernel and sum: the bound ms that bytes / operations set
     bound_parts = {}
+    # per kernel and sum, over the shapes the segment path takes: (shapes,
+    # kernel, plain, library and bound ms)
+    seg_sums = {}
     checked = set()     # (kind, dtype, variant) held against the plain version
 
     def check(kind, dtype, batch, shape, vs, timed=True):
@@ -443,16 +508,15 @@ def phase_kernels(dev):
             nbytes = size * (qkv.numel() + qkv.numel() // 3)   # qkv and o
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 *bhnd, scale=scale)
-        got, want = kernel(), plain()
+        got, want, ref = kernel(), plain(), ref64()
         torch.cuda.synchronize()
         tag = (f"{name} {dt} B={batch} {desc}" + (f" [{var}]" if var else "")
                + f" [{'+'.join(vs)}]")
-        err = compare(tag, got, want, dtype, tol)
+        err = compare(tag, got, want, dtype, tol, ref)
         if extra is not None:
             compare(tag + " contiguous (B, H, N, D)", extra,
-                    want.transpose(1, 2), dtype, tol)
-        if dtype == torch.float32:
-            f64_errors(got, want, ref64())
+                    want.transpose(1, 2), dtype, tol, ref.transpose(1, 2))
+        del ref
         checked.add((kind, dt, var))
         s = stats[name]
         s[ERR_KEY[dtype]] = max(s[ERR_KEY[dtype]], err)
@@ -488,6 +552,13 @@ def phase_kernels(dev):
         part[by] = part.get(by, 0.0) + bound_ms
         if suffix == "":
             s["shapes"] += 1
+        if SEG in vs:
+            seg = seg_sums.setdefault((name, suffix), [0, 0.0, 0.0, 0.0,
+                                                       0.0])
+            seg[0] += 1
+            for j, v in enumerate((ms, plain_ms, t.get("library", 0.0),
+                                   bound_ms), 1):
+                seg[j] += v
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for kind in KINDS:
@@ -520,6 +591,10 @@ def phase_kernels(dev):
     # what bounds each sum: the larger share of its bound
     for (name, suffix), part in bound_parts.items():
         stats[name]["bound_by" + suffix] = max(part, key=part.get)
+    for (name, suffix), (n, k, p, lib, bnd) in sorted(seg_sums.items()):
+        print(f"  {SEG} shapes, {name}{suffix or '_bf16'}: {n} shapes, "
+              f"device ms summed: kernel {k:.4f}, plain {p:.4f}, library "
+              f"{lib:.4f}, bound {bnd:.4f}", flush=True)
     return stats
 
 
@@ -538,10 +613,11 @@ def synthetic_images(n, h, w, seed):
 @torch.no_grad()
 def seed_weights(net, seed: int = 3):
     """Random weights that give NMS-visible detections, the recipe of
-    tests/test_golden_bus_predict.py:115-137: ConvBN kernels x2.5, the
-    head's final convs re-drawn from U(-0.3, 0.3), and BN statistics (and
-    the conv biases of biased ConvBNs) jittered so that folding does real
-    work."""
+    tests/test_golden_bus_predict.py:115-137: ConvBN kernels x2.5 (the
+    segment head's Proto and cv4 towers included), the head's final convs
+    (box, class and a segment head's mask coefficients) re-drawn from
+    U(-0.3, 0.3), and BN statistics (and the conv biases of biased ConvBNs)
+    jittered so that folding does real work."""
     from yolosharp_tpu_torch.ckpt import clone_one2one
     from yolosharp_tpu_torch.nn import ConvBN
 
@@ -562,7 +638,9 @@ def seed_weights(net, seed: int = 3):
                                         lambda s: rng.uniform(0.8, 1.5, s))
                                   ).add_(0.02)
     head = net.model[-1]
-    for tower in (head.cv2, head.cv3):
+    towers = [head.cv2, head.cv3] + ([head.cv4] if hasattr(head, "cv4")
+                                     else [])
+    for tower in towers:
         for branch in tower:
             for p in (branch[2].weight, branch[2].bias):
                 p.copy_(noise(p, lambda s: rng.uniform(-0.3, 0.3, s)))
@@ -590,24 +668,30 @@ def match(got, want):
     return len(wb), len(gb), unmatched
 
 
-def rows_of(out, end2end, conf, i=0):
-    if end2end:
-        r = out[i]
-        r = r[r[:, 4] > conf]
-        return r[:, :4], r[:, 4], r[:, 5].astype(int)
-    v = out.valid[i]
-    return out.boxes[i][v], out.scores[i][v], out.classes[i][v]
+def rows_of(task, out, conf, i=0):
+    """(boxes, scores, classes) of image i of a host predict output."""
+    t = task.task
+    if isinstance(out, dict):       # a segment output: rows and proto
+        out = out["rows" if t.arch.end2end else "nms"]
+    return t._rows(out, i, conf)[:3]
 
 
-def build_tasks(dev, version, state, **cfg):
-    from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
+def path_config(path, **cfg):
+    """The Config of a path's model (ARCH), nc=80."""
+    from yolosharp_tpu_torch import Config, TaskType, YoloSize, YoloType
+
+    version, size, task = ARCH[path]
+    return Config(task_type=TaskType(task), yolo_type=YoloType(version),
+                  yolo_size=YoloSize(size), number_class=80, **cfg)
+
+
+def build_tasks(dev, path, state, **cfg):
+    from yolosharp_tpu_torch import YoloTask
 
     tasks = {}
     for e2e in (False, True):
-        task = YoloTask(Config(yolo_type=YoloType(version),
-                               yolo_size=YoloSize.s, number_class=80,
-                               end2end=e2e, nms_pre_topk=512, **cfg),
-                        device=dev)
+        task = YoloTask(path_config(path, end2end=e2e, nms_pre_topk=512,
+                                    **cfg), device=dev)
         net = task.task._ensure_variables()
         net.load_state_dict({k: v for k, v in state.items()
                              if e2e or "one2one" not in k}, strict=True)
@@ -624,25 +708,35 @@ def check_path_launches(version, counts, mode):
                              f"{PATHS[version]}")
 
 
-def phase_slice(dev, version, light=False):
-    """{version}s-640, nc=80, bf16 (the Config default), seeded weights: a
-    few image_predict and batch_predict requests in both End2End modes
-    (light: one NMS batch_predict). Returns (launches of the path's
-    kernels, their launches in one b32 forward, state dict, conf)."""
-    from yolosharp_tpu_torch import Config, YoloSize, YoloTask, YoloType
+def check_masks(results, images, mode):
+    """Each segment result carries a bool mask of its image's (h, w)."""
+    bad = [(i, r.mask if r.mask is None else (r.mask.shape, r.mask.dtype))
+           for i, (rs, im) in enumerate(zip(results, images)) for r in rs
+           if r.mask is None or r.mask.shape != im.shape[:2]
+           or r.mask.dtype != np.bool_]
+    if bad:
+        raise SystemExit(f"[{mode}] masks not (h, w) bool: {bad[:3]}")
+
+
+def phase_slice(dev, path, light=False):
+    """The path's model at 640, nc=80, bf16 (the Config default), seeded
+    weights: a few image_predict and batch_predict requests in both
+    End2End modes (light: one NMS batch_predict). Returns (launches of the
+    path's kernels, their launches in one b32 forward, state dict, conf)."""
+    from yolosharp_tpu_torch import YoloTask
     from yolosharp_tpu_torch.kernels import (launch_counts,
                                              reset_launch_counts)
     from yolosharp_tpu_torch.loss import flatten_levels
 
-    print(f"phase {PHASE[version]}: {version}s-640 nc=80 YoloTask on cuda, "
-          f"bf16, seeded weights", flush=True)
-    master = YoloTask(Config(yolo_type=YoloType(version),
-                             yolo_size=YoloSize.s, number_class=80,
-                             end2end=True), device=dev)
+    name = path if path == SEG else f"{path}s"
+    segment = ARCH[path][2] == "segment"
+    print(f"phase {PHASE[path]}: {name}-640 nc=80 YoloTask on cuda, bf16, "
+          f"seeded weights", flush=True)
+    master = YoloTask(path_config(path, end2end=True), device=dev)
     net = master.task._ensure_variables()
     seed_weights(net)
     state = {k: v.detach().clone() for k, v in net.state_dict().items()}
-    tasks = build_tasks(dev, version, state)
+    tasks = build_tasks(dev, path, state)
 
     singles = [synthetic_images(1, 640, 640, 10)[0],
                synthetic_images(1, 480, 640, 11)[0],
@@ -671,14 +765,15 @@ def phase_slice(dev, version, light=False):
         reset_launch_counts()
         fwd(x)
         per_forward = launch_counts()
-        print(f"  [{version}] kernel launches of one b32 forward: "
+        print(f"  [{path}] kernel launches of one b32 forward: "
               f"{per_forward}", flush=True)
+        check_path_launches(path, per_forward, f"{path} b32 forward")
         start.record()
         for _ in range(5):
             fwd(x)
         end.record()
     torch.cuda.synchronize()
-    print(f"  [{version}] network forward bf16 batch 32 640x640: "
+    print(f"  [{path}] network forward bf16 batch 32 640x640: "
           f"{start.elapsed_time(end) / 5:.2f} ms (CUDA events, mean of 5)",
           flush=True)
     del preds, x
@@ -687,7 +782,7 @@ def phase_slice(dev, version, light=False):
     for e2e, task in tasks.items():
         if light and e2e:
             continue
-        mode = f"{version} {'end2end' if e2e else 'nms'}"
+        mode = f"{path} {'end2end' if e2e else 'nms'}"
         task.image_predict(singles[0], conf)        # fold + warm-up
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -699,6 +794,8 @@ def phase_slice(dev, version, light=False):
                   f"{len(res)} detections, {ms:.2f} ms", flush=True)
             if not res:
                 raise SystemExit(f"[{mode}] image_predict found nothing")
+            if segment:
+                check_masks([res], [img], mode)
         for rep in range(1 if light else 3):
             t0 = time.perf_counter()
             res = task.batch_predict(batch, conf)
@@ -712,52 +809,94 @@ def phase_slice(dev, version, light=False):
                     np.isfinite([r.score, r.center_x, r.center_y, r.width,
                                  r.height]).all() for rs in res for r in rs):
                 raise SystemExit(f"[{mode}] batch_predict results are wrong")
+            if segment:
+                check_masks(res, batch, mode)
+        if segment:
+            print(f"  [{mode}] every result has a bool mask of its image's "
+                  f"(h, w)", flush=True)
         counts = launch_counts()
         print(f"  [{mode}] kernel launches: {counts}", flush=True)
-        check_path_launches(version, counts, mode)
-        for name in PATHS[version]:
+        check_path_launches(path, counts, mode)
+        for name in PATHS[path]:
             launches[name] = launches.get(name, 0) + counts[name]
     # truncation is checked per request: the NMS pool (512) held every
     # candidate
-    out = tasks[False].task._predict_fn(
-        tasks[False].task._predict_variables(),
-        torch.from_numpy(np.stack(batch)).to(dev), conf, 0.7)
+    t = tasks[False].task
+    out = t._nms_of(t._predict_fn(t._predict_variables(),
+                                  torch.from_numpy(np.stack(batch)).to(dev),
+                                  conf, 0.7))
     if bool(out.truncated.any()):
         raise SystemExit("NMS candidate pool truncated")
     print(f"  truncated: False for all {len(batch)} images", flush=True)
     return launches, per_forward, state, conf
 
 
-def phase_cpu_match(dev, version, state, conf):
+def phase_cpu_match(dev, path, state, conf):
     """The same model, float32, one 640x640 image: the card against the
-    CPU's plain versions."""
+    CPU's plain versions; a segment model's masks too (image_predict on
+    both, each result matched by box and class)."""
     from yolosharp_tpu_torch import ScalarType
     from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from yolosharp_tpu_torch.tasks import _to_host
 
-    print(f"phase {CPU_MATCH[version]}: {version}s float32 on the card "
-          f"against float32 on the CPU (plain versions)", flush=True)
-    img = torch.from_numpy(synthetic_images(1, 640, 640, 30)[0][None])
-    cuda = build_tasks(dev, version, state, scalar_type=ScalarType.float32)
-    cpu = build_tasks("cpu", version, {k: v.cpu() for k, v in state.items()},
+    name = path if path == SEG else f"{path}s"
+    print(f"phase {CPU_MATCH[path]}: {name} float32 on the card against "
+          f"float32 on the CPU (plain versions)", flush=True)
+    image = synthetic_images(1, 640, 640, 30)[0]
+    img = torch.from_numpy(image[None])
+    cuda = build_tasks(dev, path, state, scalar_type=ScalarType.float32)
+    cpu = build_tasks("cpu", path, {k: v.cpu() for k, v in state.items()},
                       scalar_type=ScalarType.float32)
     for e2e in (False, True):
         c = 0.0 if e2e else conf
         reset_launch_counts()
-        got = _to_host(cuda[e2e].task._predict_fn(
-            cuda[e2e].task._predict_variables(), img.to(dev), c, 0.7))
+        ct, ht = cuda[e2e].task, cpu[e2e].task
+        got = ct._host(ct._predict_fn(ct._predict_variables(), img.to(dev),
+                                      c, 0.7))
         used = launch_counts()
-        want = _to_host(cpu[e2e].task._predict_fn(
-            cpu[e2e].task._predict_variables(), img, c, 0.7))
-        n_want, n_got, unmatched = match(rows_of(got, e2e, conf),
-                                         rows_of(want, e2e, conf))
-        mode = f"{version} {'end2end' if e2e else 'nms'}"
+        want = ht._host(ht._predict_fn(ht._predict_variables(), img, c,
+                                       0.7))
+        n_want, n_got, unmatched = match(rows_of(cuda[e2e], got, conf),
+                                         rows_of(cpu[e2e], want, conf))
+        mode = f"{path} {'end2end' if e2e else 'nms'}"
         print(f"  [{mode}] cpu {n_want} detections, card {n_got}, unmatched "
               f"{unmatched} (kernel launches on the card: {used})",
               flush=True)
         if n_want < 5 or abs(n_got - n_want) > 2 or unmatched > 2:
             raise SystemExit(f"[{mode}] card and CPU disagree")
-        check_path_launches(version, used, mode + " float32")
+        check_path_launches(path, used, mode + " float32")
+        if ARCH[path][2] == "segment":
+            same, total = matched_masks(cuda[e2e].image_predict(image, conf),
+                                        cpu[e2e].image_predict(image, conf))
+            print(f"  [{mode}] matched masks: {same} of {total} pixels "
+                  f"equal ({same / max(total, 1):.6f}, at least 0.999)",
+                  flush=True)
+            if total == 0 or same < 0.999 * total:
+                raise SystemExit(f"[{mode}] card and CPU masks disagree")
+
+
+def matched_masks(got, want):
+    """(pixels equal, pixels) over the masks of the results of `want`
+    matched to `got`: the same class and box corners within 1.5 px (the
+    results' boxes are integer-truncated)."""
+    def corners(rs):
+        return np.array([[r.center_x - r.width // 2,
+                          r.center_y - r.height // 2,
+                          r.center_x + r.width - r.width // 2,
+                          r.center_y + r.height - r.height // 2]
+                         for r in rs], float).reshape(-1, 4)
+
+    gb, wb = corners(got), corners(want)
+    same = total = 0
+    for i, r in enumerate(want):
+        if not len(got):
+            break
+        d = np.abs(gb - wb[i]).max(1) + 1e3 * np.array(
+            [g.class_id != r.class_id for g in got])
+        j = int(d.argmin())
+        if d[j] <= 1.5:
+            same += int((got[j].mask == r.mask).sum())
+            total += r.mask.size
+    return same, total
 
 
 # ------------------------------------------------------------------ train
@@ -829,10 +968,12 @@ def phase_attention_autograd(dev, tag: str) -> dict:
                 raise SystemExit("attention under autograd: no grad_fn or "
                                  "no kernel launch")
             want_out, want = run("plain")
-            # the forward under autograd, at the tolerances of phase 2
+            # the forward under autograd, at the rules of phase 2
+            ref = attention_plain(*bhnd(*qkv.double().split(d, dim=-1)),
+                                  scale).transpose(1, 2)
             compare(f"{layer} {str(dtype)[6:]} (B, N, H, D) = {(b, n, h, d)} "
                     f"[{var}] output", out.detach(), want_out.detach(), dtype,
-                    "attn")
+                    "attn", ref)
             got, want = got.float(), want.float()
             err = (got - want).abs()
             if dtype == torch.float32:
@@ -873,6 +1014,19 @@ def train_batch(n, size, seed, slots=3):
             "mask_gt": mask}
 
 
+def with_masks(batch, ratio=4):
+    """The batch and its overlap-id masks at 1 / ratio: each valid box's
+    region takes its slot's id + 1, later boxes over earlier ones."""
+    n, h, w = batch["images"].shape[:3]
+    masks = np.zeros((n, h // ratio, w // ratio), np.float32)
+    for i in range(n):
+        for j in np.flatnonzero(batch["mask_gt"][i]):
+            cx, cy, bw, bh = batch["bboxes"][i, j] * [w, h, w, h] / ratio
+            masks[i, int(cy - bh / 2):int(np.ceil(cy + bh / 2)),
+                  int(cx - bw / 2):int(np.ceil(cx + bw / 2))] = j + 1
+    return dict(batch, masks=masks)
+
+
 def zero_gradient_leaves(net) -> set:
     """Parameters whose gradient in a train-mode step is 0 by construction:
     the bias of a conv that a train-mode BN follows (the BN subtracts the
@@ -892,29 +1046,40 @@ def zero_gradient_leaves(net) -> set:
 
 def phase_train_step_cpu_match(dev):
     """Phase 6."""
-    from yolosharp_tpu_torch import (Config, ScalarType, YoloSize, YoloTask,
-                                     YoloType)
+    from yolosharp_tpu_torch import (Config, ScalarType, TaskType, YoloSize,
+                                     YoloTask, YoloType)
     from yolosharp_tpu_torch.data import to_device
     from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
                                            make_train_step)
 
     print("phase 6: one float32 train step (End2End) at 128x128, batch 2, "
-          "card against CPU, same seeded weights and batch", flush=True)
+          "card against CPU, same seeded weights and batch: v8n, v12n, "
+          "v11n-seg", flush=True)
     batch = train_batch(2, 128, 40)
-    for version in ("v8", "v12"):
-        cfg = Config(yolo_type=YoloType(version), yolo_size=YoloSize.n,
+    for version, task_type in (("v8", "detect"), ("v12", "detect"),
+                               ("v11", "segment")):
+        cfg = Config(task_type=TaskType(task_type),
+                     yolo_type=YoloType(version), yolo_size=YoloSize.n,
                      number_class=80, scalar_type=ScalarType.float32)
+        label = f"{version}n" + ("-seg" if task_type == "segment" else "")
+        if task_type == "segment":
+            batch = with_masks(batch)
         res = []
-        for d in (dev, torch.device("cpu")):
+        # the card, the CPU, and the CPU in float64 (only its BN statistics
+        # are read: the forward's batch statistics, exact to float32)
+        for d, dt in ((dev, torch.float32), (torch.device("cpu"),
+                                             torch.float32),
+                      (torch.device("cpu"), torch.float64)):
             task = YoloTask(cfg, device=d)
             net = task.task._ensure_variables().to(
-                memory_format=torch.channels_last)
+                dtype=dt, memory_format=torch.channels_last)
             opt, scheds = make_optimizer(net, nc=80, epochs=1,
                                          steps_per_epoch=1)
             state = TrainState(net, opt, scheds)
             before = {n: p.detach().clone() for n, p in net.named_parameters()
                       if p.requires_grad}
-            _, items = make_train_step(task.task._loss_fns()[0])(
+            _, items = make_train_step(task.task._loss_fns()[0],
+                                       compute_dtype=dt)(
                 state, to_device(batch, d), {})
             res.append({
                 "items": items.cpu(),
@@ -924,10 +1089,11 @@ def phase_train_step_cpu_match(dev):
                          if n in before},
                 "stats": {k: v.cpu() for k, v in net.state_dict().items()
                           if k.endswith(("running_mean", "running_var"))}})
-        card, cpu = res
+        card, cpu, f64 = res
+        # the semseg item is 0 on both: 0 / tiny, not 0 / 0
         rel = ((card["items"] - cpu["items"]).abs()
-               / cpu["items"].abs()).max()
-        print(f"  [{version}n] loss items card {card['items'].tolist()} cpu "
+               / cpu["items"].abs().clamp_min(1e-30)).max()
+        print(f"  [{label}] loss items card {card['items'].tolist()} cpu "
               f"{cpu['items'].tolist()}: max rel {float(rel):.3e} < 1e-4",
               flush=True)
         zero = zero_gradient_leaves(net)
@@ -937,7 +1103,7 @@ def phase_train_step_cpu_match(dev):
         noise = {n: (float(card["grad"][n].abs().max()),
                      float(cpu["grad"][n].abs().max())) for n in sorted(zero)}
         noise_bad = sum(max(v) > 1e-6 * g_all for v in noise.values())
-        print(f"  [{version}n] {len(zero)} leaves with a zero gradient by "
+        print(f"  [{label}] {len(zero)} leaves with a zero gradient by "
               f"construction, max|g| card / cpu in units of G = {g_all:.3e} "
               f"(the net's largest gradient), <= 1e-6: " + ", ".join(
                   f"{n} {c / g_all:.1e} / {h / g_all:.1e}"
@@ -966,36 +1132,55 @@ def phase_train_step_cpu_match(dev):
             fixed = (g > 2 * dg) & (2e3 * 1e-8 * dg < g * g)
             outside += int(bad.sum())
             unexplained += int((bad & fixed).sum())
-        # running means near 0 (a channel's batch mean times 0.03) differ by
-        # float32 rounding of sums far larger than themselves: each tensor
-        # is held at its own scale, |d| <= 1e-5 (|ref| + max|ref|)
-        stat_err, stat_rel = {}, {}
+        # running means near 0 (a channel's batch mean times 0.03) carry
+        # the float32 rounding of sums far larger than themselves. Each
+        # tensor is held at its own scale against the float64 statistics:
+        # the card's max |d| / (|ref| + max|ref|) within 1e-5, or within
+        # twice the CPU's float32 distance where that is larger (the CPU is
+        # 4e-6 to 9e-6 of that scale from them in the deep head towers of
+        # v8n, v12n and v11n-seg, so 1e-5 alone would hold the card nearer
+        # to float64 than float32 rounding allows)
+        def stat_dist(a, kind):
+            """{name: (max |a - ref| / (|ref| + max|ref|), max |a - ref| /
+            |ref|)} over the tensors of `kind`, ref the float64 run's."""
+            out = {}
+            for k, v in f64["stats"].items():
+                if k.endswith(kind):
+                    v = v.double()
+                    d = (a["stats"][k].double() - v).abs()
+                    out[k] = (float((d / (v.abs() + v.abs().max())).max()),
+                              float((d / v.abs().clamp_min(1e-30)).max()))
+            return out
+
+        stat_err, stat_rel, stat_bad = {}, {}, 0
         for kind in ("running_mean", "running_var"):
-            errs = [(float(((card["stats"][k] - v).abs()
-                            / (v.abs() + v.abs().max())).max()),
-                     float(((card["stats"][k] - v).abs()
-                            / v.abs().clamp_min(1e-30)).max()), k)
-                    for k, v in cpu["stats"].items() if k.endswith(kind)]
-            stat_err[kind] = max(errs)
-            stat_rel[kind] = max(e[1:] for e in errs)
+            got, ref = stat_dist(card, kind), stat_dist(cpu, kind)
+            bound = {k: max(1e-5, 2 * ref[k][0]) for k in got}
+            stat_bad += sum(got[k][0] > bound[k] for k in got)
+            worst_k = max(got, key=lambda k: got[k][0] / bound[k])
+            stat_err[kind] = (got[worst_k][0], bound[worst_k],
+                              ref[worst_k][0], worst_k)
+            stat_rel[kind] = max((v[1], k) for k, v in got.items())
         n_params = sum(v.numel() for n, v in cpu["delta"].items()
                        if n not in zero)
-        print(f"  [{version}n] the other leaves: gradients {grad_bad} elements "
+        print(f"  [{label}] the other leaves: gradients {grad_bad} elements "
               f"outside |g_card - g_cpu| <= 1e-3 max|g_cpu| per tensor "
               f"(largest |g_card - g_cpu| / max|g_cpu| {grad_worst[0]:.3e}, "
               f"{grad_worst[1]}); parameter changes: max |dp_card - "
               f"dp_cpu| / max|dp_cpu| {worst:.3e}, {outside} of {n_params} "
               f"elements outside 1e-3 max|dp| + 1e-8, {unexplained} of them "
               f"where the gradients fix the update", flush=True)
-        for kind in stat_err:
-            print(f"  [{version}n] BN {kind}: max |d| / (|ref| + max|ref|) "
-                  f"{stat_err[kind][0]:.3e} < 1e-5 ({stat_err[kind][2]}); "
-                  f"max |d| / |ref| {stat_rel[kind][0]:.3e} "
-                  f"({stat_rel[kind][1]})", flush=True)
-        if rel >= 1e-4 or noise_bad or grad_bad or unexplained or max(
-                e[0] for e in stat_err.values()) >= 1e-5 or not all(
+        for kind, (err, bnd, ref_err, k) in stat_err.items():
+            print(f"  [{label}] BN {kind} against the float64 run, the "
+                  f"tensor nearest its bound: card max |d| / (|ref| + "
+                  f"max|ref|) {err:.3e} <= {bnd:.3e} (CPU float32 "
+                  f"{ref_err:.3e}; {k}); max |d| / |ref| "
+                  f"{stat_rel[kind][0]:.3e} ({stat_rel[kind][1]})",
+                  flush=True)
+        if rel >= 1e-4 or noise_bad or grad_bad or unexplained or stat_bad \
+                or not all(
                 torch.isfinite(v).all() for v in card["delta"].values()):
-            raise SystemExit(f"[{version}n] card train step disagrees with "
+            raise SystemExit(f"[{label}] card train step disagrees with "
                              f"the CPU's")
 
 
@@ -1157,7 +1342,7 @@ def _train_config(root, version, **kw):
                   image_size=TRAIN_SIZE, batch_size=TRAIN_BATCH, **kw)
 
 
-def epoch_line(st, tag) -> str:
+def epoch_line(st, tag, batch=TRAIN_BATCH) -> str:
     """One epoch of epoch_stats: steps, median step ms after the first two,
     img/s at it and over the loop, the loader-wait share, peak memory."""
     steps = len(st["step_s"])
@@ -1168,8 +1353,8 @@ def epoch_line(st, tag) -> str:
     return (f"{tag}: epoch {st['epoch']}: {steps} steps, {med:.1f} ms a step "
             f"(median after the first two; first two "
             f"{st['step_s'][0] * 1e3:.0f}, {st['step_s'][1] * 1e3:.0f} ms), "
-            f"{TRAIN_BATCH / med * 1e3:.1f} img/s at that median, "
-            f"{steps * TRAIN_BATCH / loop:.1f} img/s over the step loop "
+            f"{batch / med * 1e3:.1f} img/s at that median, "
+            f"{steps * batch / loop:.1f} img/s over the step loop "
             f"({loop:.2f} s); loader wait {wait / loop:.3f} of the loop (the "
             f"first batch {st['wait_s'][0]:.2f} s; after the first two steps "
             f"{tail:.3f}); val {st['val_s']:.2f} s; peak device memory "
@@ -1401,6 +1586,249 @@ def phase_train_host_mosaic(dev, root, tag):
     return counts
 
 
+# --------------------------------------------------------------- segment
+SEG_BATCH = 8
+
+
+def write_seg_dataset(root, n_train, n_val, seed=8):
+    """Images of 480-800 px a side, a noisy background and 1-8 polygons of
+    3-12 vertices (star-shaped about a random centre, overlapping, clipped
+    to the image) filled in solid colours, with YOLO segment labels (80
+    classes: the class, then the polygon's normalised x y pairs) under
+    root/images/{train,val} and root/labels/{train,val}, as PNG (zlib
+    level 1)."""
+    from yolosharp_tpu_torch.data.image_ops import encode_png, fill_poly
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        os.makedirs(os.path.join(root, "images", split))
+        os.makedirs(os.path.join(root, "labels", split))
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(480, 801, 2))
+            img = np.clip(rng.normal(rng.uniform(40, 215), 20, (h, w, 3)),
+                          0, 255).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 9))):
+                k = int(rng.integers(3, 13))
+                ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+                rad = rng.uniform(0.05, 0.3) * rng.uniform(0.5, 1.0, k)
+                pts = np.clip(rng.uniform(0.15, 0.85, 2) + rad[:, None]
+                              * np.stack([np.cos(ang), np.sin(ang)], -1),
+                              0, 1)
+                shape = np.zeros((h, w), np.uint8)
+                fill_poly(shape, (pts * [w, h]).astype(np.int32), 1)
+                img[shape > 0] = rng.integers(0, 256, 3)
+                rows.append(f"{rng.integers(80)} " + " ".join(
+                    f"{v:.6f}" for v in pts.reshape(-1)))
+            with open(os.path.join(root, "images", split, f"{i:04d}.png"),
+                      "wb") as f:
+                f.write(encode_png(img, level=1))
+            with open(os.path.join(root, "labels", split, f"{i:04d}.txt"),
+                      "w") as f:
+                f.write("\n".join(rows) + "\n")
+
+
+def _seg_train_config(root, **kw):
+    kw = {"epochs": 1, **kw}
+    return path_config(SEG, root_path=root, train_data_path="images/train",
+                       val_data_path="images/val", image_size=TRAIN_SIZE,
+                       batch_size=SEG_BATCH, **kw)
+
+
+def phase_seg_render(dev, root, tag):
+    """Phase 9c: one planned v11m-seg batch's masks rendered on the card and
+    on the CPU."""
+    from yolosharp_tpu_torch.data import YoloDataset
+    from yolosharp_tpu_torch.data.device_augment import (PLAN_KEYS,
+                                                         render_batch,
+                                                         render_masks)
+
+    print(f"phase 9c: the device render of one planned b{SEG_BATCH} "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE} segment batch's masks (degrees 10, "
+          f"shear 2, perspective 5e-4), card against CPU", flush=True)
+    ds = YoloDataset(_seg_train_config(root, degrees=10.0, shear=2.0,
+                                       perspective=5e-4))
+    batch = ds.device_batch(np.arange(SEG_BATCH), ds.max_label_count)
+    keys = ("aug_pool", "aug_mask_pool", "aug_mask_lut") + PLAN_KEYS
+    on_card = {k: torch.from_numpy(batch[k]).to(dev) for k in keys}
+    got = render_masks(on_card)
+    want = render_masks({k: torch.from_numpy(batch[k]) for k in keys})
+    frac = float((got.cpu() != want).float().mean())
+    print(f"  card vs CPU: {frac:.3e} of {want.numel()} mask ids differ (at "
+          f"most 1e-3); output {tuple(got.shape)} {got.dtype}, ids up to "
+          f"{int(got.max())}, {int((got > 0).sum())} foreground", flush=True)
+    if frac > 1e-3 or not int(got.max()):
+        raise SystemExit("the device render of the masks disagrees with the "
+                         "CPU's, or is empty")
+    ms = time_eager({"images": lambda: render_batch(on_card),
+                     "masks": lambda: render_masks(on_card)}, iters=10)
+    print(f"  {tag}: render {ms['images']:.3f} ms images + {ms['masks']:.3f} "
+          f"ms masks a b{SEG_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE} batch (CUDA "
+          f"events, eager, mean of 20)", flush=True)
+
+
+def phase_seg_train(dev, root, tag):
+    """Phase 9d: YoloTask.train() of v11m-seg through the mosaic, then
+    letterbox. Returns (train launches, predict launches of the served
+    best.bin)."""
+    from yolosharp_tpu_torch import YoloTask
+    from yolosharp_tpu_torch.data import device_augment
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 9d: YoloTask.train() of {SEG}, {TRAIN_SIZE}x{TRAIN_SIZE}, "
+          f"batch {SEG_BATCH}, bf16, close_mosaic=1, 2 epochs", flush=True)
+    out = os.path.join(root, "run_v11m_seg")
+    task = YoloTask(_seg_train_config(root, output_path=out, close_mosaic=1,
+                                      epochs=2), device=dev)
+    renders = []
+    real = device_augment.render_masks
+    device_augment.render_masks = lambda b: renders.append(1) or real(b)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        task.train()
+    finally:
+        device_augment.render_masks = real
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = task.task.epoch_stats
+    for st in stats:
+        print("  " + epoch_line(st, f"{tag}: {SEG}", SEG_BATCH), flush=True)
+    print(f"  mask renders {len(renders)} (epoch 1 steps "
+          f"{len(stats[0]['step_s'])}); train() {wall:.1f} s; kernel "
+          f"launches during train(): {counts}", flush=True)
+    with open(os.path.join(out, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    head = [h.strip() for h in rows[0]]
+    for r in rows[1:]:
+        print(f"  log.csv epoch {r[0]}: " + ", ".join(
+            f"{h} {v.strip()}" for h, v in zip(head[2:], r[2:])), flush=True)
+    losses = [float(v) for r in rows[1:] for h, v in zip(head, r)
+              if "loss" in h or "semseg" in h]
+    metrics = [h for h in head if h.startswith("metrics/")]
+    if ([s["epoch"] for s in stats] != [1, 2]
+            or len(renders) != len(stats[0]["step_s"]) or not renders
+            or not np.isfinite(losses).all() or len(metrics) != 8
+            or any(counts.values())):
+        raise SystemExit(f"{SEG} train(): wrong epochs, renders, losses or "
+                         f"metrics, or a kernel launch in training")
+    fresh = YoloTask(path_config(SEG), device=dev)
+    fresh.load_model(os.path.join(out, "weights", "best.bin"))
+    image = synthetic_images(1, 640, 640, 52)[0]
+    reset_launch_counts()
+    res = fresh.image_predict(image, 0.0)
+    served = launch_counts()
+    print(f"  best.bin in a fresh {SEG} YoloTask: image_predict gave "
+          f"{len(res)} rows with masks, kernel launches {served}",
+          flush=True)
+    if not res:
+        raise SystemExit(f"image_predict of the trained {SEG} returned "
+                         f"nothing")
+    check_masks([res], [image], f"{SEG} best.bin")
+    check_path_launches(SEG, served, f"{SEG} best.bin")
+    return counts, served
+
+
+# the self-labelled val set of phase 9e: images, labels an image, the
+# smallest mask labelled (pixels), the least share of its row-span polygon
+# the mask must fill, and the most of a label's polygon an earlier one of
+# the image may cover
+SELF_VAL, SELF_LABELS, SELF_MIN_PX, SELF_FILL, SELF_OVERLAP = (8, 8, 400,
+                                                               0.8, 0.1)
+# the eight val metrics, card f32 against CPU f32: at most this far apart
+VAL_TOL = 0.02
+
+
+def row_span_polygon(mask):
+    """The polygon around a bool mask's row spans: down the left ends of
+    its rows, up the right ends (pixel edges), (n, 2) float image
+    coordinates."""
+    ys = np.flatnonzero(mask.any(1))
+    left = np.array([np.flatnonzero(mask[y])[0] for y in ys], float)
+    right = np.array([np.flatnonzero(mask[y])[-1] + 1 for y in ys], float)
+    down = np.stack([np.repeat(left, 2),
+                     np.stack([ys, ys + 1], 1).reshape(-1)], 1)
+    up = np.stack([np.repeat(right, 2),
+                   np.stack([ys + 1, ys], 1).reshape(-1)], 1)[::-1]
+    return np.concatenate([down, up])
+
+
+def write_self_labelled(root, task, conf):
+    """SELF_VAL 640x640 val images labelled with task's own predictions:
+    per image up to SELF_LABELS of its highest-scored results whose mask
+    has at least SELF_MIN_PX pixels, fills at least SELF_FILL of its
+    row-span polygon and lies at most SELF_OVERLAP under the labels taken
+    before it; each is written as its class and that polygon. Returns the
+    labels written."""
+    from yolosharp_tpu_torch.data.image_ops import encode_png, fill_poly
+
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub, "val"))
+    total = 0
+    for i, img in enumerate(synthetic_images(SELF_VAL, 640, 640, 60)):
+        h, w = img.shape[:2]
+        taken = np.zeros((h, w), np.uint8)
+        rows = []
+        for r in sorted(task.image_predict(img, conf), key=lambda r: -r.score):
+            if len(rows) == SELF_LABELS:
+                break
+            if r.mask.sum() < SELF_MIN_PX:
+                continue
+            poly = row_span_polygon(r.mask)
+            region = np.zeros((h, w), np.uint8)
+            fill_poly(region, poly.astype(np.int32), 1)
+            area = int(region.sum())
+            if (r.mask.sum() < SELF_FILL * area
+                    or (taken & region).sum() > SELF_OVERLAP * area):
+                continue
+            taken |= region
+            rows.append(f"{r.class_id} " + " ".join(
+                f"{v:.6f}" for v in (poly / [w, h]).reshape(-1)))
+        total += len(rows)
+        with open(os.path.join(root, "images", "val", f"{i:04d}.png"),
+                  "wb") as f:
+            f.write(encode_png(img, level=1))
+        with open(os.path.join(root, "labels", "val", f"{i:04d}.txt"),
+                  "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return total
+
+
+def phase_seg_val(dev, root, state, conf):
+    """Phase 9e: Segmenter.val of the seeded v11m-seg in float32 on the card
+    and on the CPU, on a val set labelled with its own predictions."""
+    from yolosharp_tpu_torch import ScalarType
+
+    print(f"phase 9e: {SEG} val, seeded weights, float32, card against CPU, "
+          f"on {SELF_VAL} 640x640 images labelled with its own predictions",
+          flush=True)
+    cfg = dict(scalar_type=ScalarType.float32, root_path=root,
+               train_data_path="images/val", val_data_path="images/val",
+               image_size=640, batch_size=SELF_VAL)
+    cuda = build_tasks(dev, SEG, state, **cfg)
+    n = write_self_labelled(root, cuda[False], conf)
+    print(f"  {n} labels (at most {SELF_LABELS} an image)", flush=True)
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    names = cuda[False].task.metric_names
+    for e2e, ratio in ((False, 4), (True, 2)):
+        mode = (f"{SEG} {'end2end' if e2e else 'nms'}, mask_ratio {ratio}"
+                + (" (the ground truth's masks resized nearest to the "
+                   "proto grid)" if ratio != 4 else ""))
+        got, want = (build_tasks(d, SEG, st, mask_ratio=ratio, **cfg)[e2e]
+                     .val()[1] for d, st in ((dev, state),
+                                             ("cpu", cpu_state)))
+        print(f"  [{mode}] card / CPU: " + ", ".join(
+            f"{k} {g:.4f} / {c:.4f}" for k, g, c in zip(names, got, want)),
+            flush=True)
+        gap = max(abs(g - c) for g, c in zip(got, want))
+        print(f"  [{mode}] largest gap {gap:.4f} (at most {VAL_TOL}); "
+              f"mAP50 box / mask above 0 on both", flush=True)
+        if (gap > VAL_TOL or len(got) != 8
+                or min(got[2], got[6], want[2], want[6]) <= 0):
+            raise SystemExit(f"[{mode}] val on the card and on the CPU "
+                             f"disagree, or a mAP50 is 0")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1440,16 +1868,19 @@ def main() -> int:
         for name in SOURCES:
             into[name] = into.get(name, 0) + counts.get(name, 0)
 
-    for version in PATHS:
+    def serve(path):
         path_launches, forward, state, conf = timed(
-            PHASE[version], phase_slice, dev, version, light=version == "v5u")
-        states[version], confs[version] = state, conf
-        if version in CPU_MATCH:
-            timed(CPU_MATCH[version], phase_cpu_match, dev, version, state,
-                  conf)
+            PHASE[path], phase_slice, dev, path, light=path == "v5u")
+        states[path], confs[path] = state, conf
+        if path in CPU_MATCH:
+            timed(CPU_MATCH[path], phase_cpu_match, dev, path, state, conf)
         add(path_launches, launches)
         for name in path_launches:
-            per_forward.setdefault(name, {})[version] = forward[name]
+            per_forward.setdefault(name, {})[path] = forward[name]
+
+    for path in PATHS:
+        if path != SEG:
+            serve(path)
     stats["fused_attention"].update(
         timed("5", phase_attention_autograd, dev, tag))
     timed("6", phase_train_step_cpu_match, dev)
@@ -1470,6 +1901,18 @@ def main() -> int:
         add(served, launches)
         add(timed("8b", phase_train_host_mosaic, dev, root, tag),
             train_launches)
+    serve(SEG)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_seg_dataset(root, 64, 16)
+        print(f"wrote the synthetic PNG polygon dataset (64 train, 16 val) "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        timed("9c", phase_seg_render, dev, root, tag)
+        seg_train, served = timed("9d", phase_seg_train, dev, root, tag)
+        add(seg_train, train_launches)
+        add(served, launches)
+    with tempfile.TemporaryDirectory() as root:
+        timed("9e", phase_seg_val, dev, root, states[SEG], confs[SEG])
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules

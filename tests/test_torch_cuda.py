@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from yolosharp_tpu_torch import (Config, ScalarType, YoloSize, YoloTask,
-                                 YoloType)
+from yolosharp_tpu_torch import (Config, ScalarType, TaskType, YoloSize,
+                                 YoloTask, YoloType)
 from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
                                          c2f_fused, c2f_plain, conv3x3_plain,
                                          conv3x3_silu, conv3x3s2_silu,
@@ -568,3 +568,94 @@ def test_v11_v5u_predict_on_the_card_matches_the_cpu(cuda, version, end2end):
         assert g.class_id == w.class_id and abs(g.score - w.score) < 1e-3
         assert abs(g.center_x - w.center_x) <= 1
         assert abs(g.center_y - w.center_y) <= 1
+
+
+# the segment head's 3x3 shapes (B, H, W, Ci, Co) at 640x640: the Proto's cv1
+# at 80x80 and cv2 at 160x160 (256 -> 256 in v11m-seg), and the cv4
+# mask-coefficient towers at the three levels (Co = 64 in v11m, 32 in v11n)
+SEGMENT_CONVS = {"proto_cv1_v11m": (2, 80, 80, 256, 256),
+                 "proto_cv2_v11m": (2, 160, 160, 256, 256),
+                 "cv4_p3_v11m": (2, 80, 80, 256, 64),
+                 "cv4_p4_v11m": (2, 40, 40, 512, 64),
+                 "cv4_p5_v11m": (2, 20, 20, 512, 64),
+                 "cv4_tower_v11m": (2, 40, 40, 64, 64),
+                 "cv4_p3_v11n": (2, 80, 80, 64, 32),
+                 "cv4_tower_v11n": (2, 20, 20, 32, 32),
+                 "proto_cv2_v11n": (2, 160, 160, 64, 64)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(SEGMENT_CONVS))
+def test_conv_kernels_on_the_segment_shapes(cuda, dtype, name):
+    """Both strides of the conv kernel against the plain version at the
+    segment head's shapes (the stride-2 call covers the same operands at a
+    quarter of the outputs)."""
+    _check_conv(cuda, dtype, *SEGMENT_CONVS[name], acts=("silu",))
+
+
+def test_bf16_conv_on_the_served_proto(cuda):
+    """The Proto's cv2 of a batch of 32 at 640x640 in bfloat16: a
+    32 x 160 x 160 x 256 input (0.42 GB, the largest activation the kernel
+    takes) through the 128-channel tile, against the plain version."""
+    B, H, W, ci, co = 32, 160, 160, 256, 256
+    assert n_tile(B, H, W, ci, co, 1, _sms(cuda)) == 128
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(B, H, W, ci, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(3, 3, ci, co, generator=g, device=cuda)
+         * (9 * ci) ** -0.5).bfloat16()
+    b = (torch.randn(co, generator=g, device=cuda) * 0.1).bfloat16()
+    assert x.numel() * x.element_size() > 4e8
+    _check(conv3x3_silu(x, w, b), conv3x3_plain(x, w, b, "silu", 1),
+           "bfloat16")
+
+
+@pytest.mark.parametrize("end2end", [False, True])
+def test_segment_predict_on_the_card_matches_the_cpu(cuda, end2end):
+    """v11n-seg float32: the card's predict (through the conv kernels, the
+    Proto and cv4 towers included) against the CPU's, same seeded weights:
+    the first ten rows by score, and each such row's mask (bool, the
+    image's height and width) equal on at least 99.9% of its pixels."""
+    cfg = Config(task_type=TaskType.segment, yolo_type=YoloType.v11,
+                 yolo_size=YoloSize.n, number_class=17, end2end=end2end,
+                 scalar_type=ScalarType.float32)
+    cpu = YoloTask(cfg, device="cpu")
+    net = cpu.task._ensure_variables()
+    rng = np.random.default_rng(1)
+    head = net.model[-1]
+    towers = [head.cv2, head.cv3, head.cv4] + (
+        [head.one2one_cv2, head.one2one_cv3, head.one2one_cv4]
+        if end2end else [])
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, ConvBN):
+                m.conv.weight.mul_(2.0)
+        for p in (t for tower in towers for branch in tower
+                  for t in (branch[2].weight, branch[2].bias)):
+            p.copy_(torch.from_numpy(rng.uniform(-0.3, 0.3, p.shape)
+                                     .astype(np.float32)))
+    card = YoloTask(cfg, device=cuda)
+    card.task._ensure_variables().load_state_dict(net.state_dict())
+    img = rng.integers(0, 255, (200, 264, 3), dtype=np.uint8)
+    x = pad_to_multiple(torch.from_numpy(img)[None]).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        preds = cpu.task._predict_variables()(x.float() / 255.0)
+    flat = flatten_levels(preds["one2many"]["cls"]).sigmoid().amax(-1)
+    conf = float(np.quantile(flat.numpy(), 1 - 100 / flat.shape[1]))
+    reset_launch_counts()
+    got = card.image_predict(img, conf, 0.45)
+    counts = launch_counts()
+    assert counts["conv3x3_silu"] > 0 and counts["conv3x3s2_silu"] > 0
+    assert counts["c2f_fused"] == counts["fused_attention"] == 0
+    want = cpu.image_predict(img, conf, 0.45)
+    assert len(want) > 5 and abs(len(got) - len(want)) <= 2
+    key = lambda r: (-r.score, r.center_x, r.center_y)  # noqa: E731
+    same = total = 0
+    for g, w in zip(sorted(got, key=key)[:10], sorted(want, key=key)[:10]):
+        assert g.class_id == w.class_id and abs(g.score - w.score) < 1e-3
+        assert abs(g.center_x - w.center_x) <= 1
+        assert abs(g.center_y - w.center_y) <= 1
+        assert g.mask.shape == w.mask.shape == img.shape[:2]
+        assert g.mask.dtype == np.bool_
+        same += int((g.mask == w.mask).sum())
+        total += w.mask.size
+    assert same >= 0.999 * total, same / total

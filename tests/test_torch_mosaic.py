@@ -183,7 +183,9 @@ def test_apply_hsv_matches_jax():
 
 def test_mosaic4_matches_jax():
     """The same scripted draws: canvas, boxes, keypoints, OBB corners and
-    the mosaic border equal."""
+    the mosaic border equal; with segment masks on the records, the
+    mosaic's overlap ids equal too (tests/test_torch_seg_data.py holds the
+    segment branches in full)."""
     recs, jrecs = _records(5, 4, kpts=True)
     # centre (yc, xc) inside the canvas, so that all four tiles are cut
     got = augment.mosaic4(recs[0], recs[1:], S, FakeRng([], [50, 70]))
@@ -192,10 +194,17 @@ def test_mosaic4_matches_jax():
     assert got.mosaic_border == want.mosaic_border == (-S // 2, -S // 2)
     assert got.resized_shape == want.resized_shape == (2 * S, 2 * S)
     _assert_labels_equal([got], [want])
-    with pytest.raises(NotImplementedError, match="segment"):
-        masked = recs[0].copy()
-        masked.mask = np.zeros((S // 4, S // 4), np.uint8)
-        augment.mosaic4(masked, recs[1:], S, FakeRng([], [50, 70]))
+    rng = np.random.default_rng(5)
+    for r, jr in zip(recs, jrecs):
+        h, w = r.resized_shape
+        r.mask = rng.integers(0, len(r.cls) + 1, (-(-h // 4), -(-w // 4)),
+                              dtype=np.uint8)
+        jr.mask = r.mask.copy()
+    got = augment.mosaic4(recs[0], recs[1:], S, FakeRng([], [50, 70]))
+    want = jax_augment.mosaic4(jrecs[0], jrecs[1:], S, FakeRng([], [50, 70]))
+    assert got.mask.shape == want.mask.shape == (S // 2, S // 2)
+    assert got.mask.max() > 0
+    np.testing.assert_array_equal(got.mask, want.mask)
 
 
 @pytest.mark.parametrize("hyps", [FULL_WARP, {}], ids=["full", "affine"])
@@ -228,8 +237,9 @@ def test_warps_match_cv2(seed):
     """warp_affine / warp_perspective against cv2.warpAffine /
     cv2.warpPerspective (INTER_LINEAR, border 114) on random images and
     random_perspective's matrices: every value within one level, at most
-    0.1% one level off (OpenCV 5.0 computes in float32 in another order;
-    measured up to 1.2e-4)."""
+    0.1% one level off (OpenCV 5.0 blends in float32 in another order;
+    measured up to 1.0e-5 since the source coordinate is its fused
+    multiply-add, 1.2e-4 before)."""
     rng = np.random.default_rng(seed)
     h, w = (int(v) for v in rng.integers(40, 200, 2))
     img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)

@@ -162,10 +162,10 @@ def test_image_and_batch_predict_results_match_jax(tasks):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Importing every module of the port, predicting on the CPU and saving
-    and loading a checkpoint loads neither jax nor flax nor cv2 (the GPU
-    machine has none of them), nor any module of the JAX package
-    yolosharp_tpu."""
+    """Importing every module of the port, predicting on the CPU (detect,
+    and segment with its masks) and saving and loading a checkpoint loads
+    neither jax nor flax nor cv2 (the GPU machine has none of them), nor
+    any module of the JAX package yolosharp_tpu."""
     path = str(tmp_path / "v8n.bin")
     pkg = os.path.join(REPO, "yolosharp_tpu_torch")
     modules = sorted(
@@ -182,8 +182,8 @@ def test_port_runs_without_jax(tmp_path):
         "import importlib, sys, numpy as np\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "from yolosharp_tpu_torch import Config, ScalarType, YoloSize, "
-        "YoloTask\n"
+        "from yolosharp_tpu_torch import Config, ScalarType, TaskType, "
+        "YoloSize, YoloTask\n"
         "assert 'yolosharp_tpu_torch' in sys.modules\n"
         "t = YoloTask(Config(yolo_size=YoloSize.n, number_class=5, "
         "scalar_type=ScalarType.float32, end2end=False), device='cpu')\n"
@@ -191,6 +191,11 @@ def test_port_runs_without_jax(tmp_path):
         "assert isinstance(r, list) and r\n"
         f"t.save_weight({path!r})\n"
         f"t.load_model({path!r})\n"
+        "s = YoloTask(Config(task_type=TaskType.segment, "
+        "yolo_size=YoloSize.n, number_class=5, "
+        "scalar_type=ScalarType.float32), device='cpu')\n"
+        "r = s.image_predict(np.zeros((64, 96, 3), np.uint8), 0.0)\n"
+        "assert r and r[0].mask.shape == (64, 96), r\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
         "'ml_dtypes', 'yolosharp_tpu') or m.startswith(('jax.', 'flax.', "
         "'yolosharp_tpu.'))]\n"

@@ -112,9 +112,9 @@ def test_module_matches_jax(name):
     np.testing.assert_allclose(_nhwc(got_fold), want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("version,task", [("v11", "segment"),
+@pytest.mark.parametrize("version,task", [("v11", "obb"),
                                           ("v8", "pose"),
-                                          ("v12", "segment")])
+                                          ("v12", "classify")])
 def test_build_arch_raises_for_what_is_not_ported(version, task):
     with pytest.raises(NotImplementedError,
                        match="v5u, v8, v11 and v12 detect"):

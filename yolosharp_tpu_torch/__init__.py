@@ -1,7 +1,7 @@
 """yolosharp_tpu_torch: the PyTorch/CUDA port of yolosharp_tpu.
 
 Same public surface as the JAX package, for v5u, v8, v11 and v12 detection
-so far:
+and instance segmentation (Config.task_type) so far:
 
     from yolosharp_tpu_torch import Config, YoloTask
     task = YoloTask(Config(...))            # device="cuda" by default
@@ -14,16 +14,17 @@ formats and name map, label parsing, augmentation, loader, metrics) are
 copies under the same names. Modules:
 
 - ``config``, ``types``: Config and the result / enum types;
-- ``nn``: the v5u / v8 / v11 / v12 detection networks (train and eval BatchNorm with the
-  JAX package's statistics, BN-folded predict);
-- ``ops``: boxes, IoU (``box_iou``, ``bbox_iou``), anchors, NMS;
-- ``loss``: the task-aligned assigner (``tal``) and the detection and
-  End2End losses;
+- ``nn``: the v5u / v8 / v11 / v12 detect and segment networks (train and
+  eval BatchNorm with the JAX package's statistics, BN-folded predict);
+- ``ops``: boxes, IoU (``box_iou``, ``bbox_iou``, ``mask_iou``), anchors,
+  NMS, masks (``crop_mask``, ``process_mask``);
+- ``loss``: the task-aligned assigner (``tal``), the detection and
+  segmentation losses and the End2End pair;
 - ``train``: AdamW groups, LR schedules, train and eval steps, TrainState;
 - ``data``: cv2-free pixel work (``image_ops``: PNG reader, resize, HSV,
-  warps), labels, augmentations (letterbox and the host mosaic), the
-  mosaic's host planner and device render (``device_augment``), dataset,
-  loader;
+  warps, polygon fill), labels, augmentations (letterbox and the host
+  mosaic), the mosaic's host planner and device render of images and
+  masks (``device_augment``), dataset, loader;
 - ``utils``: val metrics, early stopping, the CSV log;
 - ``ckpt``: checkpoint formats, BN folding, the JAX bridge, and
   ``resume`` (the full train state);
@@ -34,8 +35,8 @@ copies under the same names. Modules:
 """
 
 from .config import Config
-from .tasks import Detector, YoloTask
+from .tasks import Detector, Segmenter, YoloTask
 from .types import ScalarType, TaskType, YoloResult, YoloSize, YoloType
 
-__all__ = ["Config", "Detector", "ScalarType", "TaskType", "YoloResult",
-           "YoloSize", "YoloTask", "YoloType"]
+__all__ = ["Config", "Detector", "ScalarType", "Segmenter", "TaskType",
+           "YoloResult", "YoloSize", "YoloTask", "YoloType"]

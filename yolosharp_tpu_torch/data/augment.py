@@ -1,13 +1,16 @@
-"""Host augmentations, detect task (a copy of yolosharp_tpu/data/augment.py
-with the pixel work in ``image_ops`` instead of cv2; the same rng draws in
-the same order).
+"""Host augmentations of the detect and segment tasks (a copy of
+yolosharp_tpu/data/augment.py with the pixel work in ``image_ops`` instead
+of cv2; the same rng draws in the same order).
 
 Parity targets: Data/Augment.cs Mosaic (126-275), RandomPerspective
 (278-700), LetterBox (703-778), Rectangle (780-857), FlipLR/FlipUD (860-966;
 the flipped xyxy corners are re-sorted, a fix of the reference's order) and
-RandomHSV (968-989). mosaic4 and random_perspective carry keypoints and OBB
-corners as the JAX package does; the segment masks' branches come with the
-segment task and raise here.
+RandomHSV (968-989). The segment masks (overlap ids at 1 / mask_ratio) go
+through every transform: tiled with their ids offset in mosaic4, warped
+nearest with border 0, resized through ``image_ops.resize_mask_linear`` (as
+cv2 INTER_LINEAR blends ids), flipped, and renumbered 1..n after the
+mosaic's and the warp's box filters. mosaic4 and random_perspective also
+carry keypoints and OBB corners as the JAX package does.
 """
 
 from __future__ import annotations
@@ -17,12 +20,9 @@ from typing import Sequence
 
 import numpy as np
 
-from .image_ops import (hsv_to_rgb_u8, resize_linear, rgb_to_hsv_u8,
-                        warp_affine, warp_perspective)
+from .image_ops import (hsv_to_rgb_u8, resize_linear, resize_mask_linear,
+                        rgb_to_hsv_u8, warp_affine, warp_perspective)
 from .labels import LabelRecord
-
-_MASK_TODO = ("segment masks through the mosaic are not ported yet (they come "
-              "with the segment task)")
 
 
 def _box_area(b: np.ndarray) -> np.ndarray:
@@ -32,16 +32,17 @@ def _box_area(b: np.ndarray) -> np.ndarray:
 def mosaic4(main: LabelRecord, picks: Sequence[LabelRecord], imgsz: int,
             rng: np.random.Generator) -> LabelRecord:
     """2x2 mosaic onto a (2s, 2s) canvas (Augment.cs:147-275)."""
-    if main.mask is not None or any(r.mask is not None for r in picks):
-        raise NotImplementedError(_MASK_TODO)
     s = imgsz
     border = -s // 2
     yc = int(rng.integers(-border, 2 * s + border))
     xc = int(rng.integers(-border, 2 * s + border))
     canvas = np.full((2 * s, 2 * s, 3), 114, np.uint8)
     mr = main.mask_ratio
+    mask4 = (np.zeros((2 * s // mr, 2 * s // mr), np.uint8)
+             if main.mask is not None else None)
 
     cls_l, box_l, kpt_l, cor_l = [], [], [], []
+    mask_instance_offset = 0
     for i, rec in enumerate([main, *picks]):
         h, w = rec.resized_shape
         if i == 0:    # top-left
@@ -64,8 +65,19 @@ def mosaic4(main: LabelRecord, picks: Sequence[LabelRecord], imgsz: int,
             x1b, y1b = 0, 0
             x2b, y2b = min(w, x2a - x1a), min(y2a - y1a, h)
         canvas[y1a:y2a, x1a:x2a] = rec.img[y1b:y2b, x1b:x2b]
+        if mask4 is not None and rec.mask is not None:
+            ya, yb2 = y1a // mr, y2a // mr
+            xa, xb2 = x1a // mr, x2a // mr
+            src = rec.mask[y1b // mr:y1b // mr + (yb2 - ya),
+                           x1b // mr:x1b // mr + (xb2 - xa)]
+            dst = mask4[ya:ya + src.shape[0], xa:xa + src.shape[1]]
+            # instance ids stay unique across the 4 tiles
+            shifted = np.where(src > 0, src.astype(np.int32)
+                               + mask_instance_offset, 0)
+            np.copyto(dst, shifted.astype(np.uint8), where=src > 0)
         padw, padh = x1a - x1b, y1a - y1b
         if rec.cls is None or len(rec.cls) == 0:
+            mask_instance_offset += 0 if rec.cls is None else len(rec.cls)
             continue
         box = rec.bboxes + [padw, padh, padw, padh]
         cls_l.append(rec.cls)
@@ -80,6 +92,7 @@ def mosaic4(main: LabelRecord, picks: Sequence[LabelRecord], imgsz: int,
             c[..., 0] += padw
             c[..., 1] += padh
             cor_l.append(c)
+        mask_instance_offset += len(rec.cls)
 
     cls = np.concatenate(cls_l) if cls_l else np.zeros(0, np.float32)
     boxes = np.concatenate(box_l) if box_l else np.zeros((0, 4), np.float32)
@@ -97,16 +110,27 @@ def mosaic4(main: LabelRecord, picks: Sequence[LabelRecord], imgsz: int,
         out.keypoints = np.concatenate(kpt_l)[good]
     if cor_l:
         out.obb_corners = np.concatenate(cor_l)[good]
+    out.mask = mask4
+    if mask4 is not None:
+        # the surviving instances renumbered 1..n_good, in label order
+        out.mask = _renumber(good)[mask4]
     return out
+
+
+def _renumber(good: np.ndarray) -> np.ndarray:
+    """The id lookup that maps instance k + 1 to its rank among the
+    surviving (good) instances, and the others to 0."""
+    remap = np.zeros(len(good) + 1, np.uint8)
+    remap[np.flatnonzero(good) + 1] = np.arange(1, int(good.sum()) + 1)
+    return remap
 
 
 def random_perspective(label: LabelRecord, degrees: float, translate: float,
                        scale: float, shear: float, perspective: float,
                        rng: np.random.Generator) -> LabelRecord:
     """Full C/P/R/S/T 3x3 matrix warp (Augment.cs:316-700), the pixels
-    through ``image_ops.warp_perspective`` / ``warp_affine``."""
-    if label.mask is not None:
-        raise NotImplementedError(_MASK_TODO)
+    through ``image_ops.warp_perspective`` / ``warp_affine`` (the mask
+    nearest, with border 0, through the matrix conjugated to mask scale)."""
     img = label.img
     h, w = label.resized_shape
     bw, bh = label.mosaic_border
@@ -140,6 +164,18 @@ def random_perspective(label: LabelRecord, degrees: float, translate: float,
     out.img = warped
     out.resized_shape = (out_h, out_w)
     out.mosaic_border = (0, 0)
+    if label.mask is not None:
+        r = float(label.mask_ratio)
+        Sm = np.diag([r, r, 1]).astype(np.float32)
+        Sinv = np.diag([1 / r, 1 / r, 1]).astype(np.float32)
+        Mm = Sinv @ M @ Sm
+        mw, mh2 = int(out_w / r), int(out_h / r)
+        if perspective > 0:
+            out.mask = warp_perspective(label.mask, Mm, mw, mh2, border=0,
+                                        nearest=True)
+        else:
+            out.mask = warp_affine(label.mask, Mm[:2], mw, mh2, border=0,
+                                   nearest=True)
 
     n = len(label.cls) if label.cls is not None else 0
     if n == 0:
@@ -185,16 +221,20 @@ def random_perspective(label: LabelRecord, degrees: float, translate: float,
         ct[..., 0] = ct[..., 0].clip(0, out_w)
         ct[..., 1] = ct[..., 1].clip(0, out_h)
         out.obb_corners = ct[good]
+    if out.mask is not None:
+        out.mask = _renumber(good)[out.mask]
     return out
 
 
 def _resize_pad(img: np.ndarray, target_h: int, target_w: int,
                 resized_h: int, resized_w: int, color) -> tuple:
-    """Aspect-preserving resize into (resized) then center-pad to target."""
+    """Aspect-preserving resize into (resized) then center-pad to target; a
+    2-D uint8 (a mask) resizes bit-exact to cv2 INTER_LINEAR."""
     ih, iw = img.shape[:2]
     ratio = min(resized_w / iw, resized_h / ih)
     nw, nh = int(iw * ratio), int(ih * ratio)
-    img = resize_linear(img, nh, nw)
+    img = (resize_mask_linear(img, nh, nw) if img.ndim == 2
+           else resize_linear(img, nh, nw))
     pl = (target_w - nw) // 2
     pu = (target_h - nh) // 2
     out = np.full((target_h, target_w) + img.shape[2:], color, img.dtype)
@@ -208,21 +248,31 @@ def _shift_labels(label: LabelRecord, pl: int, pu: int) -> None:
 
 
 def letterbox(label: LabelRecord, width: int, height: int,
-              color: int = 114) -> LabelRecord:
+              mask_ratio: int = 4, color: int = 114) -> LabelRecord:
     out = label.copy()
     pl, pu, out.img = _resize_pad(label.img, height, width, height, width,
                                   color)
+    if label.mask is not None:
+        _, _, out.mask = _resize_pad(label.mask, height // mask_ratio,
+                                     width // mask_ratio,
+                                     height // mask_ratio,
+                                     width // mask_ratio, 0)
     _shift_labels(out, pl, pu)
     out.resized_shape = (height, width)
     return out
 
 
-def rectangle(label: LabelRecord, color: int = 114) -> LabelRecord:
+def rectangle(label: LabelRecord, mask_ratio: int = 4,
+              color: int = 114) -> LabelRecord:
     """Val-time aspect-preserving pad to the per-batch rectangle shape."""
     rh, rw = label.resized_shape
     th, tw = label.rectangle_shape
     out = label.copy()
     pl, pu, out.img = _resize_pad(label.img, th, tw, rh, rw, color)
+    if label.mask is not None:
+        _, _, out.mask = _resize_pad(label.mask, th // mask_ratio,
+                                     tw // mask_ratio, rh // mask_ratio,
+                                     rw // mask_ratio, 0)
     _shift_labels(out, pl, pu)
     out.resized_shape = (th, tw)
     return out
@@ -231,6 +281,8 @@ def rectangle(label: LabelRecord, color: int = 114) -> LabelRecord:
 def flip_lr(label: LabelRecord) -> LabelRecord:
     out = label.copy()
     out.img = label.img[:, ::-1].copy()
+    if label.mask is not None:
+        out.mask = label.mask[:, ::-1].copy()
     w = label.resized_shape[1]
     if out.bboxes is not None and len(out.bboxes):
         x1 = w - out.bboxes[:, 2]
@@ -242,6 +294,8 @@ def flip_lr(label: LabelRecord) -> LabelRecord:
 def flip_ud(label: LabelRecord) -> LabelRecord:
     out = label.copy()
     out.img = label.img[::-1].copy()
+    if label.mask is not None:
+        out.mask = label.mask[::-1].copy()
     h = label.resized_shape[0]
     if out.bboxes is not None and len(out.bboxes):
         y1 = h - out.bboxes[:, 3]

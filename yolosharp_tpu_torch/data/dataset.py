@@ -1,6 +1,6 @@
-"""Detection dataset: per-index transforms, padded batch collation and the
-planned batches of the device render (a copy of
-yolosharp_tpu/data/dataset.py:23-212, detect task).
+"""Detect and segment dataset: per-index transforms, padded batch
+collation and the planned batches of the device render (a copy of
+yolosharp_tpu/data/dataset.py:23-212, the detect and segment tasks).
 
 Parity targets: Data/YoloDataset.cs:57-99 (transform composition,
 CloseMosaic) and Data/YoloDataLoader.cs:18-44 (collation, here to padded
@@ -9,7 +9,10 @@ random_perspective (while the mosaic is open, with probability
 ``Config.mosaic``) or letterbox, then flips -> HSV. With
 ``Config.device_augment`` and ``mosaic >= 1`` the loader takes whole
 planned batches instead (``device_batch``): labels planned on the host,
-pixels rendered on the device (``device_augment``).
+pixels rendered on the device (``device_augment``). A segment batch also
+carries ``masks`` (B, h/r, w/r) float32 overlap ids, or, planned, the
+tile-local id pool ``aug_mask_pool`` and the plan's ``aug_mask_lut``, from
+which the train step renders ``masks``.
 """
 
 from __future__ import annotations
@@ -20,19 +23,20 @@ from typing import Dict, List
 import numpy as np
 
 from ..config import Config
-from ..types import ImageProcessType
+from ..types import ImageProcessType, TaskType
 from . import augment as A
 from .labels import LabelRecord, load_labels
 
 
 class YoloDataset:
-    """Detection dataset with the reference's augment pipeline (the mosaic
-    while it is open, letterbox after)."""
+    """Detect / segment dataset with the reference's augment pipeline (the
+    mosaic while it is open, letterbox after)."""
 
     def __init__(self, config: Config, is_val: bool = False,
                  use_rectangle: bool = False, seed: int = 0):
         self.config = config
         self.is_val = is_val
+        self.segment = config.task_type == TaskType.segment
         self.records = load_labels(config, is_val=is_val,
                                    use_rectangle=use_rectangle)
         self.rng = np.random.default_rng(seed)
@@ -57,7 +61,7 @@ class YoloDataset:
         cfg = self.config
         rec = self.records[index].copy()
         if self.is_val:
-            return A.rectangle(rec)
+            return A.rectangle(rec, cfg.mask_ratio)
 
         use_mosaic = (cfg.image_process_type == ImageProcessType.mosaic
                       and not self.mosaic_closed)
@@ -69,7 +73,8 @@ class YoloDataset:
                                        cfg.scale, cfg.shear, cfg.perspective,
                                        self.rng)
         else:
-            rec = A.letterbox(rec, cfg.image_size, cfg.image_size)
+            rec = A.letterbox(rec, cfg.image_size, cfg.image_size,
+                              cfg.mask_ratio)
         if cfg.flip_lr > 0 and self.rng.uniform() <= cfg.flip_lr:
             rec = A.flip_lr(rec)
         if cfg.flip_ud > 0 and self.rng.uniform() <= cfg.flip_ud:
@@ -79,21 +84,28 @@ class YoloDataset:
     def collate(self, recs: List[LabelRecord], max_labels: int
                 ) -> Dict[str, np.ndarray]:
         """Stack transformed records into one padded batch dict: uint8
-        images (normalised on the device) and the padded labels."""
+        images (normalised on the device), the padded labels and, for the
+        segment task, the masks (float32 ids, 0 padding)."""
         # pad to the batch max (bottom/right, gray) if shapes differ; labels
         # stay valid since every transform pads anchored top-left
         h = max(r.img.shape[0] for r in recs)
         w = max(r.img.shape[1] for r in recs)
 
-        def pad_to(img):
-            if img.shape[:2] == (h, w):
+        def pad_to(img, th, tw, fill):
+            if img.shape[:2] == (th, tw):
                 return img
-            out = np.full((h, w) + img.shape[2:], 114, img.dtype)
+            out = np.full((th, tw) + img.shape[2:], fill, img.dtype)
             out[:img.shape[0], :img.shape[1]] = img
             return out
 
-        out = {"images": np.stack([pad_to(r.img) for r in recs])}
+        out = {"images": np.stack([pad_to(r.img, h, w, 114) for r in recs])}
         out.update(self._label_arrays(recs, max_labels, h, w))
+        if self.segment:
+            mh, mw = h // self.config.mask_ratio, w // self.config.mask_ratio
+            out["masks"] = np.stack([
+                pad_to(r.mask, mh, mw, 0) if r.mask is not None
+                else np.zeros((mh, mw), np.uint8)
+                for r in recs]).astype(np.float32)
         return out
 
     def use_device_augment(self) -> bool:
@@ -109,7 +121,9 @@ class YoloDataset:
         """A planned batch: the padded labels of the planned samples, the
         uint8 source pool (each record's resized image top-left on a
         114-filled s x s page) as ``aug_pool``, and the plan arrays as
-        ``aug_src_idx`` ... ``aug_hsv`` (``device_augment.PLAN_KEYS``).
+        ``aug_src_idx`` ... ``aug_hsv`` (``device_augment.PLAN_KEYS``); for
+        the segment task each record's mask top-left on a zero s/r x s/r
+        page as ``aug_mask_pool`` and the plan's ``aug_mask_lut``.
         Mosaic partners come from the batch; ``Config.mosaic_partner_pool
         = E`` appends E records drawn from the whole dataset to the pool
         (the reference's dataset-wide partners). The JAX package's
@@ -137,6 +151,14 @@ class YoloDataset:
                    aug_rects=plan.rects, aug_pads=plan.pads,
                    aug_minv=plan.minv, aug_persp=plan.persp,
                    aug_flips=plan.flips, aug_hsv=plan.hsv)
+        if self.segment:
+            sm = s // cfg.mask_ratio
+            mpool = np.zeros((len(pool_recs), sm, sm), np.uint8)
+            for k, r in enumerate(pool_recs):
+                if r.mask is not None:
+                    mh, mw = r.mask.shape[:2]
+                    mpool[k, :min(mh, sm), :min(mw, sm)] = r.mask[:sm, :sm]
+            out.update(aug_mask_pool=mpool, aug_mask_lut=plan.mask_lut)
         return out
 
     def _label_arrays(self, recs: List[LabelRecord], max_labels: int,

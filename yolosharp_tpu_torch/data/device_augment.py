@@ -25,9 +25,13 @@ whole dataset and draws partners from the enlarged pool
 
 The render is plain PyTorch on the pool's device (the JAX package's is jnp
 code, not a Pallas kernel): every op runs on (B, s*s) tensors, with int64
-flat gather offsets. The packed and separable renders of the JAX package
-are TPU layout variants and are not ported, nor yet the segment masks'
-render (``mosaic_perspective_masks``).
+flat gather offsets. The segment masks render the same way at 1 /
+mask_ratio (``mosaic_perspective_masks``): each mask pixel maps through the
+same flip and M^-1 at full-resolution canvas coordinates, picks its tile
+by the same strict comparisons, samples its tile's id pool nearest
+(rounded half to even) and remaps the tile-local id through the plan's
+``mask_lut`` to the sample's final 1..n id. The packed and separable
+renders of the JAX package are TPU layout variants and are not ported.
 """
 
 from __future__ import annotations
@@ -382,22 +386,22 @@ def _sample_bilinear(pool_flat, page, sy, sx, s: int, fill: float):
     return top * (1 - wy) + bot * wy
 
 
-def mosaic_perspective_images(pool: torch.Tensor, plan_arrays,
-                              imgsz: int) -> torch.Tensor:
-    """(P, s, s, 3) uint8 source pool + the plan's tensors (PLAN_KEYS order,
-    on the pool's device) -> (B, s, s, 3) float32 images in [0, 255],
-    unrounded: flip -> M^-1 -> tile select -> bilinear gather -> HSV, for
-    every image of the batch at once."""
-    s = imgsz
-    src_idx, rects, pads, minv, persp, flips, hsv = plan_arrays
-    pool_flat = pool.reshape(-1, pool.shape[-1])
-    ar = torch.arange(s, dtype=torch.float32, device=pool.device)
-    xs = ar.repeat(s)                    # canvas pixel p = y * s + x
-    ys = ar.repeat_interleave(s)
+def _canvas_points(src_idx, rects, pads, minv, persp, flips, n: int,
+                   scale: float):
+    """For every point p of an n x n grid (row-major) of every image: its
+    tile (0..3, or 4 outside all rects), the pool page it reads and its
+    source coordinate in that page, canvas (B, n*n) tensors. The grid maps
+    to the full-resolution canvas at ``scale`` (the mask ratio; 1 for the
+    images): flip (array-index mirror) -> scale -> M^-1 -> tile select
+    (the first rect that holds the point, strict < at the far edges) ->
+    minus the tile's pad, in JAX's operation order."""
+    dev = minv.device
+    ar = torch.arange(n, dtype=torch.float32, device=dev)
+    xs = ar.repeat(n)                    # grid point p = y * n + x
+    ys = ar.repeat_interleave(n)
     col = lambda t: t[:, None]          # noqa: E731  (B,) -> (B, 1)
-    # the flips compose into the sampling coordinate (array-index mirror)
-    px = torch.where(col(flips[:, 0]) > 0, (s - 1) - xs, xs)
-    py = torch.where(col(flips[:, 1]) > 0, (s - 1) - ys, ys)
+    px = torch.where(col(flips[:, 0]) > 0, (n - 1) - xs, xs) * scale
+    py = torch.where(col(flips[:, 1]) > 0, (n - 1) - ys, ys) * scale
     mi = [[col(minv[:, r, c]) for c in range(3)] for r in range(3)]
     qx = mi[0][0] * px + mi[0][1] * py + mi[0][2]
     qy = mi[1][0] * px + mi[1][1] * py + mi[1][2]
@@ -405,22 +409,52 @@ def mosaic_perspective_images(pool: torch.Tensor, plan_arrays,
     z = torch.where(col(persp) > 0, qz, 1.0)
     qx = qx / z
     qy = qy / z
-
-    # the tile of each canvas point: the first whose rect holds it (the
-    # rects partition the canvas), 4 for none
     tile = torch.full_like(qx, 4, dtype=torch.int64)
     for k in reversed(range(4)):
         inr = ((qx >= col(rects[:, k, 0])) & (qx < col(rects[:, k, 2]))
                & (qy >= col(rects[:, k, 1])) & (qy < col(rects[:, k, 3])))
         tile = torch.where(inr, k, tile)
-    any_t = tile < 4
     tile_c = tile.clamp(0, 3)
     page = torch.gather(src_idx.to(torch.int64), 1, tile_c)
     sx = qx - torch.gather(pads[:, :, 0], 1, tile_c)
     sy = qy - torch.gather(pads[:, :, 1], 1, tile_c)
-    vals = _sample_bilinear(pool_flat, page, sy, sx, s, FILL)
-    img = torch.where(any_t[..., None], vals, FILL)
+    return tile, page, sx, sy
+
+
+def mosaic_perspective_images(pool: torch.Tensor, plan_arrays,
+                              imgsz: int) -> torch.Tensor:
+    """(P, s, s, 3) uint8 source pool + the plan's tensors (PLAN_KEYS order,
+    on the pool's device) -> (B, s, s, 3) float32 images in [0, 255],
+    unrounded: flip -> M^-1 -> tile select -> bilinear gather -> HSV, for
+    every image of the batch at once."""
+    s = imgsz
+    *geometry, hsv = plan_arrays
+    tile, page, sx, sy = _canvas_points(*geometry, s, 1.0)
+    vals = _sample_bilinear(pool.reshape(-1, pool.shape[-1]), page, sy, sx,
+                            s, FILL)
+    img = torch.where((tile < 4)[..., None], vals, FILL)
     return apply_hsv(img, hsv).reshape(-1, s, s, pool.shape[-1])
+
+
+def mosaic_perspective_masks(mask_pool: torch.Tensor, plan_arrays,
+                             imgsz: int, mask_ratio: int) -> torch.Tensor:
+    """(P, s/r, s/r) uint8 pool of tile-local instance ids + the plan's
+    tensors (PLAN_KEYS order with ``aug_mask_lut`` for ``aug_hsv``) ->
+    (B, s/r, s/r) float32 overlap ids of the rendered samples: nearest
+    sampling (0 outside the page or every tile), then the per-tile LUT."""
+    r = mask_ratio
+    sm = imgsz // r
+    *geometry, lut = plan_arrays
+    tile, page, sx, sy = _canvas_points(*geometry, sm, float(r))
+    ix = torch.round(sx / r).to(torch.int64)
+    iy = torch.round(sy / r).to(torch.int64)
+    ok = (tile < 4) & (ix >= 0) & (ix < sm) & (iy >= 0) & (iy < sm)
+    flat = (page * sm + iy.clamp(0, sm - 1)) * sm + ix.clamp(0, sm - 1)
+    ids = torch.where(ok, mask_pool.reshape(-1)[flat].to(torch.int64), 0)
+    b = ids.shape[0]
+    rows = torch.arange(b, device=ids.device)[:, None]
+    out = lut.to(torch.int64)[rows, tile.clamp(0, 3), ids.clamp(0, 255)]
+    return out.reshape(b, sm, sm).to(torch.float32)
 
 
 def render_batch(batch) -> torch.Tensor:
@@ -429,3 +463,13 @@ def render_batch(batch) -> torch.Tensor:
     pool = batch["aug_pool"]
     return mosaic_perspective_images(
         pool, tuple(batch[k] for k in PLAN_KEYS), pool.shape[1])
+
+
+def render_masks(batch) -> torch.Tensor:
+    """The planned batch's overlap-id masks (B, s/r, s/r) float32, from its
+    ``aug_mask_pool`` and ``aug_mask_lut``."""
+    pool = batch["aug_mask_pool"]
+    s = batch["aug_pool"].shape[1]
+    keys = PLAN_KEYS[:-1] + ("aug_mask_lut",)
+    return mosaic_perspective_masks(pool, tuple(batch[k] for k in keys), s,
+                                    s // pool.shape[1])

@@ -12,11 +12,24 @@
 - ``warp_affine`` / ``warp_perspective``: cv2.warpAffine /
   cv2.warpPerspective with INTER_LINEAR and a constant border, in numpy,
   as OpenCV 5 computes them: the forward matrix inverted in float64, each
-  output pixel's source coordinate and its bilinear blend in float32,
+  output pixel's source coordinate (a fused multiply-add) and its
+  bilinear blend in float32,
   corners outside the image blending in as the border value, the result
   rounded half to even. (OpenCV 4 cut the coordinate to 1/32 px and the
-  weights to 15 bits.) Against OpenCV 5.0 a few values in 1e4 differ, by
-  one level (float32 rounding order; tests/test_torch_mosaic.py).
+  weights to 15 bits.) Against OpenCV 5.0 ~5 values in 1e6 differ, by
+  one level (the blend's float32 rounding order; tests/test_torch_mosaic.py).
+- the segment masks' pixel work, as the JAX package does it with cv2:
+  ``fill_poly`` (cv2.fillPoly of one polygon, 8-connected), ``warp_affine``
+  / ``warp_perspective`` with ``nearest=True`` (INTER_NEAREST, the mapped
+  coordinate rounded half to even), ``resize_mask_linear`` (cv2.resize
+  INTER_LINEAR of a uint8 (H, W) array in cv2's fixed-point arithmetic:
+  11-bit weights, the vertical pass on rows >> 4 with a rounding >> 2) and
+  INTER_NEAREST's indices (``nearest_indices``: src = floor(dst / (dst_n /
+  src_n))).
+  Against cv2 5.0 (tests/test_torch_seg_data.py): fill_poly (vertices in
+  or out of the mask), both resizes and the affine warp bit-exact; the
+  perspective warp off on ~2e-7 of the pixels (a coordinate on a .5
+  boundary rounded the other way after the division).
 - ``rgb_to_hsv_u8`` / ``hsv_to_rgb_u8``: OpenCV's 8-bit HSV (H in [0, 180)),
   with its fixed-point division tables one way and its float formula the
   other, evaluated once a process for every 8-bit input into a table, so
@@ -231,17 +244,49 @@ def _sample_linear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray,
         sx.shape + img.shape[2:])
 
 
+def _sample_nearest(img: np.ndarray, sx: np.ndarray, sy: np.ndarray,
+                    border: int) -> np.ndarray:
+    """Samples of img (H, W[, C]) at float32 source coordinates rounded half
+    to even (cv2's INTER_NEAREST warps), ``border`` outside the image."""
+    h, w = img.shape[:2]
+    lim = 1 << 20
+    ix = np.clip(np.nan_to_num(np.rint(sx), nan=-lim), -lim, lim)
+    iy = np.clip(np.nan_to_num(np.rint(sy), nan=-lim), -lim, lim)
+    ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+    ok = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+    v = img[np.clip(iy, 0, h - 1), np.clip(ix, 0, w - 1)]
+    ok = ok.reshape(ok.shape + (1,) * (v.ndim - ok.ndim))
+    return np.where(ok, v, border).astype(img.dtype)
+
+
+def _sample(img, sx, sy, border, nearest):
+    return (_sample_nearest if nearest else _sample_linear)(img, sx, sy,
+                                                           border)
+
+
 def _grid(out_w: int, out_h: int):
     return (np.arange(out_w, dtype=np.float32)[None, :],
             np.arange(out_h, dtype=np.float32)[:, None])
 
 
+def _source(row: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """One source coordinate (h, w) of a warp for the float32 matrix row
+    (m0, m1, m2), as OpenCV 5 computes it: fma(m0, x, m1 y + m2), one
+    rounding to float32 after the fused multiply-add (the float32 product
+    is exact in float64)."""
+    x, y = _grid(out_w, out_h)
+    inner = (row[1] * y + row[2]).astype(np.float64)
+    return (np.float64(row[0]) * x.astype(np.float64)
+            + inner).astype(np.float32)
+
+
 def warp_affine(img: np.ndarray, M: np.ndarray, out_w: int, out_h: int,
-                border: int = 114) -> np.ndarray:
+                border: int = 114, nearest: bool = False) -> np.ndarray:
     """cv2.warpAffine(img, M, (out_w, out_h), borderValue=border) with
-    INTER_LINEAR: M (2, 3) maps source to output pixels. It is inverted in
-    float64, as cv2 inverts it; each output pixel's source coordinate is
-    then m0 x + (m1 y + m2) in float32."""
+    INTER_LINEAR (INTER_NEAREST with ``nearest``): M (2, 3) maps source to
+    output pixels. It is inverted in float64, as cv2 inverts it; each
+    output pixel's source coordinate is then _source's fma of the float32
+    inverse."""
     m = np.asarray(M, np.float64).reshape(2, 3)
     d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
     d = 1.0 / d if d != 0 else 0.0
@@ -250,23 +295,185 @@ def warp_affine(img: np.ndarray, M: np.ndarray, out_w: int, out_h: int,
     b1 = -a11 * m[0, 2] - a12 * m[1, 2]
     b2 = -a21 * m[0, 2] - a22 * m[1, 2]
     mi = np.array([[a11, a12, b1], [a21, a22, b2]], np.float32)
-    x, y = _grid(out_w, out_h)
-    sx = mi[0, 0] * x + (mi[0, 1] * y + mi[0, 2])
-    sy = mi[1, 0] * x + (mi[1, 1] * y + mi[1, 2])
-    return _sample_linear(img, sx, sy, border)
+    return _sample(img, _source(mi[0], out_w, out_h),
+                   _source(mi[1], out_w, out_h), border, nearest)
 
 
 def warp_perspective(img: np.ndarray, M: np.ndarray, out_w: int,
-                     out_h: int, border: int = 114) -> np.ndarray:
+                     out_h: int, border: int = 114,
+                     nearest: bool = False) -> np.ndarray:
     """cv2.warpPerspective(img, M, (out_w, out_h), borderValue=border) with
-    INTER_LINEAR: M (3, 3) maps source to output pixels. Its inverse (in
-    float64) gives each output pixel's homogeneous source coordinate, in
-    float32, divided by its w."""
+    INTER_LINEAR (INTER_NEAREST with ``nearest``): M (3, 3) maps source to
+    output pixels. Its inverse (in float64) gives each output pixel's
+    homogeneous source coordinate (_source, float32), divided by its w."""
     mi = np.linalg.inv(np.asarray(M, np.float64)).astype(np.float32)
-    x, y = _grid(out_w, out_h)
-    X, Y, W = (mi[r, 0] * x + (mi[r, 1] * y + mi[r, 2]) for r in range(3))
+    X, Y, W = (_source(mi[r], out_w, out_h) for r in range(3))
     with np.errstate(divide="ignore", invalid="ignore"):
-        return _sample_linear(img, X / W, Y / W, border)
+        return _sample(img, X / W, Y / W, border, nearest)
+
+
+def _linear_taps(dst: int, src: int):
+    """cv2.resize INTER_LINEAR's taps along one axis: the first source index
+    and its float32 fraction, (dst + 0.5) * src / dst - 0.5 in float64 cut
+    to float32."""
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * (src / dst)
+         - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    return s, (f - s.astype(np.float32)).astype(np.float32)
+
+
+def _fixed(f: np.ndarray) -> np.ndarray:
+    """A float32 weight as cv2's 11-bit fixed point (round half to even)."""
+    return np.rint(f * np.float32(2048)).astype(np.int64)
+
+
+def resize_mask_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """cv2.resize(img, (w, h), interpolation=INTER_LINEAR) of a uint8
+    (H, W) array, bit-exact: the horizontal pass sums two pixels times
+    11-bit weights (the edge taps clamped to one pixel at weight 2048), the
+    vertical pass blends those sums as cv2's uint8 kernel does,
+    (((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2) >> 2. An id
+    mask blends ids here, as it does through cv2."""
+    H, W = img.shape
+    if (H, W) == (h, w):
+        return img.copy()
+    sx, fx = _linear_taps(w, W)
+    lo, hi = sx < 0, sx >= W - 1
+    fx = np.where(lo | hi, np.float32(0), fx)
+    sx = np.clip(sx, 0, W - 1)
+    src = img.astype(np.int64)
+    rows = (src[:, sx] * _fixed(np.float32(1) - fx)
+            + src[:, np.minimum(sx + 1, W - 1)] * _fixed(fx))
+    rows = np.where(hi, src[:, sx] * 2048, rows)        # (H, w)
+    sy, fy = _linear_taps(h, H)
+    r0 = rows[np.clip(sy, 0, H - 1)] >> 4
+    r1 = rows[np.clip(sy + 1, 0, H - 1)] >> 4
+    b0 = _fixed(np.float32(1) - fy)[:, None]
+    b1 = _fixed(fy)[:, None]
+    out = (((b0 * r0) >> 16) + ((b1 * r1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def nearest_indices(src: int, dst: int) -> np.ndarray:
+    """cv2.resize INTER_NEAREST's source index of each of dst samples along
+    an axis of src: floor(i * (1 / (dst / src))) in float64, clamped to the
+    last."""
+    idx = np.floor(np.arange(dst) * (1.0 / (dst / src))).astype(np.int64)
+    return np.minimum(idx, src - 1)
+
+
+_XY_SHIFT = 16      # cv2's fixed-point polygon coordinates
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """cv2.clipLine to the (w, h) image: (inside, x1, y1, x2, y2)."""
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _line8(mask: np.ndarray, x1: int, y1: int, x2: int, y2: int,
+           color: int) -> None:
+    """cv2.line(mask, (x1, y1), (x2, y2), color) with LINE_8: clipped to the
+    image, then Bresenham from the left end."""
+    h, w = mask.shape
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        inside, x1, y1, x2, y2 = _clip_line(w, h, x1, y1, x2, y2)
+        if not inside:
+            return
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy, step = x2 - x1, y2 - y1, 1
+    if dy < 0:
+        dy, step = -dy, -1
+    steep = dy > dx
+    major, minor = (dy, dx) if steep else (dx, dy)
+    err, x, y = major - 2 * minor, x1, y1
+    for _ in range(major + 1):
+        mask[y, x] = color
+        if steep:
+            y += step
+            x += err < 0
+        else:
+            x += 1
+            y += step * (err < 0)
+        err += -2 * minor + (2 * major if err < 0 else 0)
+
+
+def fill_poly(mask: np.ndarray, polygon: np.ndarray, color: int) -> None:
+    """cv2.fillPoly(mask, [polygon], color) of one int32 polygon (n, 2) on a
+    uint8 (h, w) mask, in place (8-connected, no shift): every edge drawn as
+    a LINE_8 line, then each row filled between the pairs of the edges'
+    crossings sorted by x, from ceil(left) to floor(right), the crossings in
+    cv2's 16-bit fixed point (an edge's x steps by a truncated slope; an
+    edge that leaves the image starts from its clipped line, or, where the
+    clipped line is level, runs between its clipped ends at its own
+    rows)."""
+    h, w = mask.shape
+    pts = np.asarray(polygon, np.int64).reshape(-1, 2)
+    one = 1 << _XY_SHIFT
+    rows, xs = [], []
+    for i in range(len(pts)):
+        (x0, y0), (x1, y1) = (int(v) for v in pts[i - 1]), (int(v)
+                                                            for v in pts[i])
+        _line8(mask, x0, y0, x1, y1, color)
+        if y0 == y1:
+            continue
+        c0, c1 = (x0 << _XY_SHIFT, y0), (x1 << _XY_SHIFT, y1)
+        if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h and 0 <= y1 < h):
+            # the edge starts from its clipped line; where that line is
+            # level, from its clipped x at the unclipped y
+            _, a, b, c, d = _clip_line(w, h, x0, y0, x1, y1)
+            if b != d:
+                c0, c1 = (a << _XY_SHIFT, b), (c << _XY_SHIFT, d)
+            else:
+                c0, c1 = (a << _XY_SHIFT, y0), (c << _XY_SHIFT, y1)
+        num, den = c1[0] - c0[0], c1[1] - c0[1]
+        dx = abs(num) // abs(den) * (1 if (num >= 0) == (den > 0) else -1)
+        top, start = (y0, c0) if y0 < y1 else (y1, c1)
+        x_top = start[0] + (top - start[1]) * dx
+        ys = np.arange(max(top, 0), min(max(y0, y1), h), dtype=np.int64)
+        rows.append(ys)
+        xs.append(x_top + (ys - top) * dx)
+    if len(rows) < 2:
+        return
+    rows, xs = np.concatenate(rows), np.concatenate(xs)
+    order = np.lexsort((xs, rows))
+    rows, xs = rows[order], xs[order]
+    # each row crosses the closed polygon an even number of times
+    r, xl, xr = rows[0::2], xs[0::2], xs[1::2]
+    x1 = (xl + one - 1) >> _XY_SHIFT
+    x2 = xr >> _XY_SHIFT
+    keep = (x1 < w) & (x2 >= 0) & (x1 <= x2)
+    r, x1, x2 = r[keep], np.maximum(x1[keep], 0), np.minimum(x2[keep], w - 1)
+    runs = np.zeros((h, w + 1), np.int32)
+    np.add.at(runs, (r, x1), 1)
+    np.add.at(runs, (r, x2 + 1), -1)
+    mask[np.cumsum(runs[:, :w], axis=1) > 0] = color
 
 
 # OpenCV's RGB2HSV_b tables (hsv_shift = 12): round((255 << 12) / v) and

@@ -1,10 +1,12 @@
-"""Dataset scanning and YOLO-txt label parsing for detection (a copy of
-yolosharp_tpu/data/labels.py, detect task only; images are read and resized
-through ``image_ops``, without cv2 for PNG).
+"""Dataset scanning and YOLO-txt label parsing for the detect and segment
+tasks (a copy of yolosharp_tpu/data/labels.py; images are read and resized
+through ``image_ops``, without cv2 for PNG, and polygons filled by
+``image_ops.fill_poly``).
 
 Parity targets: Data/Base.cs:51-136 (image scanning / txt-list
-resolution), Data/YoloDataset.cs:153-367 (label parsing, eager resize,
-rectangle-batch shapes), Data/Struct.cs (LabelRecord).
+resolution), Data/YoloDataset.cs:153-376 (label parsing, eager resize,
+polygon -> overlap-id mask, rectangle-batch shapes), Data/Struct.cs
+(LabelRecord).
 """
 
 from __future__ import annotations
@@ -17,14 +19,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..types import TaskType
-from .image_ops import read_image_rgb, resize_linear
+from .image_ops import fill_poly, read_image_rgb, resize_linear
 
 IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff"}
 
 
 @dataclasses.dataclass
 class LabelRecord:
-    """One image and its boxes (pixel units of `img`)."""
+    """One image and its boxes (pixel units of `img`); for the segment task
+    its overlap-id mask (instance i + 1 per pixel, at 1 / mask_ratio)."""
 
     im_file: str
     img: Optional[np.ndarray] = None          # (H, W, 3) uint8, resized
@@ -33,8 +36,8 @@ class LabelRecord:
     org_shape: Tuple[int, int] = (0, 0)       # (h, w)
     resized_shape: Tuple[int, int] = (0, 0)
     rectangle_shape: Optional[Tuple[int, int]] = None
-    # the other tasks' labels, which the mosaic planner carries through;
-    # the detect path leaves them None
+    # the pose and OBB labels, which the mosaic planner carries through;
+    # the detect and segment paths leave them None
     keypoints: Optional[np.ndarray] = None    # (n, K, kd) pixels
     obb_corners: Optional[np.ndarray] = None  # (n, 4, 2) pixels
     mask: Optional[np.ndarray] = None         # (mh, mw) uint8 overlap ids
@@ -92,13 +95,18 @@ def img2label_paths(im_files: List[str]) -> List[str]:
 
 def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
                 ) -> List[LabelRecord]:
-    """Scan, parse and eagerly resize a detection split
-    (YoloDataset.cs:153-367)."""
-    if config.task_type != TaskType.detect:
+    """Scan, parse and eagerly resize a detect or segment split
+    (YoloDataset.cs:153-367). A segment row is a class and a polygon: its
+    box spans the polygon's extremes, and the polygon, scaled to the mask
+    (ceil(size / mask_ratio)) and truncated to int32, is filled with its
+    row's id + 1, later rows over earlier ones."""
+    task = config.task_type
+    if task not in (TaskType.detect, TaskType.segment):
         raise NotImplementedError(
-            f"the torch port reads detection labels only so far, not "
-            f"{config.task_type.value} (ROADMAP queue 1 item 9)")
+            f"the torch port reads detect and segment labels only so far, "
+            f"not {task.value} (ROADMAP queue 1 item 5)")
     imgsz = config.image_size
+    mask_ratio = config.mask_ratio
     scan = config.val_data_path if is_val else config.train_data_path
     img_path = os.path.abspath(os.path.join(config.root_path, scan))
 
@@ -114,7 +122,7 @@ def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
         img = resize_linear(img, rh, rw)
 
         rec = LabelRecord(im_file=im_file, img=img, org_shape=(org_h, org_w),
-                          resized_shape=(rh, rw))
+                          resized_shape=(rh, rw), mask_ratio=mask_ratio)
         rows = []
         if os.path.exists(label_file):
             with open(label_file) as f:
@@ -123,16 +131,29 @@ def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
         n = len(rows)
         cls = np.zeros(n, np.float32)
         bboxes = np.zeros((n, 4), np.float32)   # normalized xywh while parsing
+        mask = (np.zeros((math.ceil(rh / mask_ratio),
+                          math.ceil(rw / mask_ratio)), np.uint8)
+                if task == TaskType.segment else None)
         for i, parts in enumerate(rows):
             vals = [float(v) for v in parts]
             cls[i] = vals[0]
-            bboxes[i] = vals[1:5]
+            if mask is None:
+                bboxes[i] = vals[1:5]
+                continue
+            pts = np.asarray(vals[1:], np.float32).reshape(-1, 2)
+            lo, hi = pts.min(0), pts.max(0)
+            bboxes[i] = [(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2,
+                         hi[0] - lo[0], hi[1] - lo[1]]
+            poly = np.stack([pts[:, 0] * rw / mask_ratio,
+                             pts[:, 1] * rh / mask_ratio], -1)
+            fill_poly(mask, poly.astype(np.int32), i + 1)
 
         # denormalize to resized-image pixels and convert to xyxy
         cxy = bboxes[:, :2] * [rw, rh]
         wh = bboxes[:, 2:] * [rw, rh]
         rec.bboxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1)
         rec.cls = cls
+        rec.mask = mask
         records.append(rec)
 
     if use_rectangle or is_val:

@@ -1,6 +1,9 @@
-from .losses import (DetOut, bce_logits, detection_loss, e2e_gain_schedule,
-                     e2e_wrap, flatten_levels, take_gt)
+from .losses import (DetOut, bce_dice_loss, bce_logits, detection_loss,
+                     e2e_gain_schedule, e2e_wrap, flatten_levels,
+                     multi_channel_dice_loss, segmentation_loss, take_gt)
 from .tal import AssignResult, assign
 
-__all__ = ["AssignResult", "DetOut", "assign", "bce_logits", "detection_loss",
-           "e2e_gain_schedule", "e2e_wrap", "flatten_levels", "take_gt"]
+__all__ = ["AssignResult", "DetOut", "assign", "bce_dice_loss", "bce_logits",
+           "detection_loss", "e2e_gain_schedule", "e2e_wrap",
+           "flatten_levels", "multi_channel_dice_loss", "segmentation_loss",
+           "take_gt"]

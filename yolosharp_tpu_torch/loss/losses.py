@@ -1,12 +1,14 @@
-"""Detection losses and the End2End pair (counterpart of
-yolosharp_tpu/loss/losses.py:42-166 and :470-491; parity target
-YoloSharp/Utils/Loss.cs:94-484 and 1094-1176).
+"""Detection and segmentation losses and the End2End pair (counterpart of
+yolosharp_tpu/loss/losses.py:42-166, :237-349, :436-491; parity target
+YoloSharp/Utils/Loss.cs:94-484, 233-325, 688-863 and 1094-1176).
 
 Losses are functions over padded batches on the device:
   batch = {"cls": (B, M) int, "bboxes": (B, M, 4) normalised xywh,
-           "mask_gt": (B, M) bool}
-and the head's raw maps [(B, C, H, W)] x 3 levels. They run in float32
-whatever the network's type, as in the JAX package.
+           "mask_gt": (B, M) bool,
+           "masks": (B, mh, mw) segment only: overlap ids (instance + 1)}
+and the head's raw maps [(B, C, H, W)] x 3 levels (and a segment branch's
+"proto" (B, nm, mh, mw)). They run in float32 whatever the network's type,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,10 +16,13 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.anchors import bbox2dist, dfl_decode, dist2bbox, make_anchors
-from ..ops.boxes import xywh2xyxy
+from ..ops.boxes import xywh2xyxy, xyxy2xywh
 from ..ops.iou import bbox_iou
+from ..ops.masks import crop_mask
 from .tal import assign
 
 STRIDES = (8, 16, 32)
@@ -135,6 +140,142 @@ def detection_loss(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
     items = torch.stack([out.loss_box * hyp_box, out.loss_cls * hyp_cls,
                          out.loss_dfl * hyp_dfl])
     return items.sum() * b, items
+
+
+# mask-loss slots per checkpointed chunk (the JAX package's scan chunk)
+MASK_CHUNK = 256
+# the semantic-seg branch's BCE and Dice weights (Loss.cs:283-325)
+WEIGHT_BCE = WEIGHT_DICE = 0.5
+
+
+def resize_nearest_centres(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H, W) -> (B, h, w) nearest with half-pixel centres, as
+    jax.image.resize(..., "nearest"): source floor((i + 0.5) * H / h) in
+    float32 (F.interpolate's "nearest-exact" rule, in JAX's operation
+    order)."""
+    def index(n, size):
+        return torch.floor((torch.arange(n, dtype=torch.float32,
+                                         device=x.device) + 0.5)
+                           * size / n).long()
+
+    return x[:, index(h, x.shape[1])][:, :, index(w, x.shape[2])]
+
+
+def _mask_chunk(proto, masks, coeff, gt_idx, mxyxy, marea, valid):
+    """One chunk of the mask loss: the sum over its slots of the cropped
+    per-pixel BCE's mean over the proto grid, over the box's normalised
+    area. proto (B, nm, mh, mw) f32, masks (B, mh, mw) ids, the rest (B,
+    CH, ...)."""
+    b, ch = coeff.shape[:2]
+    pm = torch.einsum("bfc,bchw->bfhw", coeff.float(), proto)
+    gt = (masks[:, None] == (gt_idx[..., None, None] + 1).float()).float()
+    loss = bce_logits(pm, gt)
+    loss = crop_mask(loss.flatten(0, 1), mxyxy.flatten(0, 1)).view_as(loss)
+    loss = loss.mean((2, 3)) / marea.clamp(min=1e-7)
+    return (loss * valid).sum()
+
+
+def segmentation_loss(preds: Dict, batch: Dict, *, nc: int,
+                      reg_max: int = 16, tal_topk: int = 10,
+                      tal_topk2: int | None = None, hyp_box: float = 7.5,
+                      hyp_cls: float = 0.5, hyp_dfl: float = 1.5):
+    """v8SegmentationLoss (Loss.cs:688-863) on one branch's maps, overlap
+    masks. Returns (loss, items (5,) = box, seg, cls, dfl, semseg).
+
+    The foreground anchors go to F = max(tal_topk, tal_topk2) * M fixed
+    slots (TAL keeps at most top-k anchors per ground truth, so none is
+    lost), taken by a top-k over the 0/1
+    foreground mask (the order of tied slots is free; the loss is a sum
+    over them). The masks are resized to the proto grid when they differ
+    (nearest with half-pixel centres, as the JAX package does). The
+    (B, CH, mh, mw) intermediates are made in chunks of MASK_CHUNK slots,
+    each under a non-reentrant checkpoint, so backward recomputes a chunk
+    rather than keeping it. The semseg slot computes the BCE + Dice branch
+    (Loss.cs:745-770) when preds has "semseg" logits (B, nc, h, w) and the
+    batch "sem_masks" class ids, else 0."""
+    out = _det_core(preds, batch, nc=nc, reg_max=reg_max, tal_topk=tal_topk,
+                    tal_topk2=tal_topk2)
+    proto = preds["proto"].float()                   # (B, nm, mh, mw)
+    pred_masks = flatten_levels(preds["mask"])       # (B, A, nm)
+    b, nm, mh, mw = proto.shape
+    ih, iw = _imgsz(preds)
+    dev = proto.device
+
+    masks = batch["masks"].float()                   # (B, mh', mw') ids
+    if tuple(masks.shape[1:]) != (mh, mw):
+        masks = resize_nearest_centres(masks, mh, mw)
+
+    max_fg = max(tal_topk, tal_topk2 or 0) * batch["cls"].shape[1]
+    fg = out.fg_mask.float()
+    score, idx = fg.topk(min(max_fg, fg.shape[-1]), dim=-1)      # (B, F)
+    valid = (score > 0.0).float()
+
+    def take(t):
+        return t.gather(1, idx[..., None].expand(-1, -1, t.shape[-1]))
+
+    coeff = take(pred_masks)                                   # (B, F, nm)
+    gt_idx = out.target_gt_idx.gather(1, idx).float()          # (B, F)
+    boxes_n = take(out.target_bboxes) / torch.tensor(
+        [iw, ih, iw, ih], dtype=torch.float32, device=dev)
+    marea = xyxy2xywh(boxes_n)[..., 2:4].prod(-1)              # (B, F)
+    mxyxy = boxes_n * torch.tensor([mw, mh, mw, mh], dtype=torch.float32,
+                                   device=dev)
+    total = torch.zeros((), device=dev)
+    ch = min(MASK_CHUNK, max_fg)
+    for s in range(0, coeff.shape[1], ch):
+        part = slice(s, s + ch)
+        total = total + checkpoint(
+            _mask_chunk, proto, masks, coeff[:, part], gt_idx[:, part],
+            mxyxy[:, part], marea[:, part], valid[:, part],
+            use_reentrant=False)
+    loss_seg = total / fg.sum().clamp(min=1.0)
+
+    loss_semseg = torch.zeros((), device=dev)
+    if "semseg" in preds and "sem_masks" in batch:
+        sem_gt = F.one_hot(batch["sem_masks"].long(), nc).float()
+        sem_gt = sem_gt * (batch["masks"] > 0)[..., None].float()
+        semseg = bce_dice_loss(preds["semseg"].float(),
+                               sem_gt.permute(0, 3, 1, 2)) * hyp_box
+        loss_semseg = torch.where(fg.sum() > 0, semseg, 0.0)
+
+    items = torch.stack([out.loss_box * hyp_box, loss_seg * hyp_box,
+                         out.loss_cls * hyp_cls, out.loss_dfl * hyp_dfl,
+                         loss_semseg])
+    return items.sum() * b, items
+
+
+def multi_channel_dice_loss(pred_logits: torch.Tensor, target: torch.Tensor,
+                            smooth: float = 1e-6) -> torch.Tensor:
+    """Multi-channel Dice on (B, C, H, W) maps (Loss.cs:233-278): per
+    (image, channel) dice over the pixels, the channel mean, then the batch
+    mean."""
+    pred = pred_logits.sigmoid()
+    inter = (pred * target).sum((2, 3))                 # (B, C)
+    union = pred.sum((2, 3)) + target.sum((2, 3))
+    dice = (2.0 * inter + smooth) / (union + smooth)
+    return (1.0 - dice).mean(-1).mean()
+
+
+def bce_dice_loss(pred_logits: torch.Tensor,
+                  target: torch.Tensor) -> torch.Tensor:
+    """BCE + Dice of a semantic-seg head (Loss.cs:283-325) on (B, C, H, W)
+    maps; the target is resized to the logits' size when they differ with
+    torch's "nearest" rule, source floor(i * (H / h)) in float32
+    (Loss.cs:317-321). The Dice term is built with smooth = 1
+    (Loss.cs:301)."""
+    h, w = pred_logits.shape[2:]
+    H, W = target.shape[2:]
+    if (H, W) != (h, w):
+        def index(n, size):
+            return torch.floor(torch.arange(n, dtype=torch.float32,
+                                            device=target.device)
+                               * (size / n)).long()
+
+        target = target[:, :, index(h, H)][:, :, :, index(w, W)]
+    bce = bce_logits(pred_logits, target).mean()
+    return (WEIGHT_BCE * bce
+            + WEIGHT_DICE * multi_channel_dice_loss(pred_logits, target,
+                                                    smooth=1.0))
 
 
 def e2e_wrap(loss_fn_many, loss_fn_one):

@@ -1,5 +1,6 @@
-"""Conv / CSP building blocks of the v8 and v12 detectors as torch modules
-(counterpart of yolosharp_tpu/nn/common.py, plain branches only).
+"""Conv / CSP building blocks of the v5u, v8, v11 and v12 detectors and the
+segment head's Proto as torch modules (counterpart of
+yolosharp_tpu/nn/common.py, plain branches only).
 
 Modules run NCHW tensors in ``torch.channels_last`` memory, so
 ``x.permute(0, 2, 3, 1)`` is a free NHWC view for the kernels. Submodule
@@ -55,6 +56,17 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d in its input's type, as Conv2d (the JAX package's
+    ConvTranspose2dRaw: a dilated conv with the flipped kernel, which is
+    the same function; its HWIO kernel crosses over as (Cin, Cout, k, k))."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+                                  self.stride, self.padding)
 
 
 def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -245,6 +257,23 @@ class C3k2(nn.Module):
         for m in self.m:
             y.append(m(y[-1]))
         return self.cv2(torch.cat(y, 1))
+
+
+class Proto(nn.Module):
+    """The segment head's mask prototypes (Block.cs:51-84): cv1 3x3 ->
+    upsample (ConvTranspose k2 s2 with a bias) -> cv2 3x3 -> cv3 1x1 to c2
+    channels, at twice the input's resolution. Folded, cv1 and cv2 run
+    through the conv kernel."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c_, 3)
+        self.upsample = ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = ConvBN(c_, c_, 3)
+        self.cv3 = ConvBN(c_, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
 
 
 def max_pool_same(x: torch.Tensor, k: int, s: int = 1) -> torch.Tensor:

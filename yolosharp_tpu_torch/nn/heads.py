@@ -1,7 +1,7 @@
-"""Detection head (counterpart of yolosharp_tpu/nn/heads.py: _Branch,
-Detect). The head returns RAW per-level maps; decoding lives in
-``predict.py``. End2End heads carry ``one2one_*`` towers, run on detached
-features (Head.cs:92-101)."""
+"""Detection and segment heads (counterpart of yolosharp_tpu/nn/heads.py:
+_Branch, _SimpleBranch, Detect, Segment). The heads return RAW per-level
+maps; decoding lives in ``predict.py``. End2End heads carry ``one2one_*``
+towers, run on detached features (Head.cs:92-101)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,10 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
-from .common import Conv2d, ConvBN, DWConv
+from .common import Conv2d, ConvBN, DWConv, Proto
+
+# mask prototypes of the segment head (yolosharp_tpu/nn/model.py:200)
+NM = 32
 
 
 class _Branch(nn.Sequential):
@@ -70,16 +73,64 @@ class Detect(nn.Module):
         c3 = max(self.ch[0], min(self.nc, 100))
         return c2, c3
 
+    def towers(self, one2one: bool) -> Dict[str, nn.ModuleList]:
+        """The per-level towers of one branch, by the name of their maps."""
+        p = "one2one_" if one2one else ""
+        return {"box": getattr(self, p + "cv2"),
+                "cls": getattr(self, p + "cv3")}
+
     def forward(self, feats, skip_one2many: bool = False) -> Dict:
-        def run(cv2, cv3, xs):
-            return {"box": tuple(m(x) for m, x in zip(cv2, xs)),
-                    "cls": tuple(m(x) for m, x in zip(cv3, xs))}
+        def run(one2one, xs):
+            return {k: tuple(m(x) for m, x in zip(t, xs))
+                    for k, t in self.towers(one2one).items()}
 
         preds = {}
         if not (skip_one2many and self.end2end):
-            preds["one2many"] = run(self.cv2, self.cv3, feats)
+            preds["one2many"] = run(False, feats)
         if self.end2end:
-            detached = tuple(f.detach() for f in feats)
-            preds["one2one"] = run(self.one2one_cv2, self.one2one_cv3,
-                                   detached)
+            preds["one2one"] = run(True, tuple(f.detach() for f in feats))
+        return preds
+
+
+class _SimpleBranch(nn.Sequential):
+    """ConvBN 3x3 -> ConvBN 3x3 -> Conv2d 1x1 (always legacy): the segment
+    head's mask-coefficient towers, cv4."""
+
+    def __init__(self, cin: int, mid: int, out: int):
+        super().__init__(ConvBN(cin, mid, 3), ConvBN(mid, mid, 3),
+                         Conv2d(mid, out, 1))
+
+
+class Segment(Detect):
+    """Detect + mask prototypes (Proto on the stride-8 features, ch[0]
+    channels wide, NM out) + per-level mask-coefficient towers cv4 of c4 =
+    max(ch[0] // 4, NM) channels (Head.cs:280-330). The proto is shared:
+    the one2one branch gets it detached, and End2End predict
+    (skip_one2many) still computes it."""
+
+    def __init__(self, nc: int = 80, reg_max: int = 16,
+                 ch: Sequence[int] = (64, 128, 256), legacy: bool = True,
+                 end2end: bool = False):
+        super().__init__(nc, reg_max, ch, legacy, end2end)
+        c4 = max(self.ch[0] // 4, NM)
+
+        def towers():
+            return nn.ModuleList(_SimpleBranch(c, c4, NM) for c in self.ch)
+
+        self.cv4 = towers()
+        if end2end:
+            self.one2one_cv4 = towers()
+        self.proto = Proto(self.ch[0], self.ch[0], NM)
+
+    def towers(self, one2one: bool) -> Dict[str, nn.ModuleList]:
+        out = super().towers(one2one)
+        out["mask"] = getattr(self, ("one2one_" if one2one else "") + "cv4")
+        return out
+
+    def forward(self, feats, skip_one2many: bool = False) -> Dict:
+        proto = self.proto(feats[0])
+        preds = super().forward(feats, skip_one2many)
+        for name, p in (("one2many", proto), ("one2one", proto.detach())):
+            if name in preds:
+                preds[name]["proto"] = p
         return preds

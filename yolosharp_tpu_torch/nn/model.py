@@ -1,6 +1,6 @@
-"""Model assembly for the v5u, v8, v11 and v12 detectors (counterpart of
-yolosharp_tpu/nn/model.py: _v8_layers, _v5u_layers, _v11_layers,
-_v12_layers, build_arch, YoloNet).
+"""Model assembly for the v5u, v8, v11 and v12 detect and segment networks
+(counterpart of yolosharp_tpu/nn/model.py: _v8_layers, _v5u_layers,
+_v11_layers, _v12_layers, build_arch, YoloNet).
 
 Layers live in ``self.model`` (an ``nn.ModuleList`` with parameter-free
 placeholders at the Upsample and Concat indices), so state-dict keys read
@@ -18,7 +18,7 @@ from torch import nn
 
 from .attention import A2C2f, C2PSA
 from .common import C2f, C3, C3k2, Concat, ConvBN, SPPF, Upsample
-from .heads import DFL, Detect
+from .heads import DFL, Detect, Segment
 
 
 class ArchCfg(NamedTuple):
@@ -173,15 +173,20 @@ _BUILDERS = {"v8": (_v8_layers, True), "v5u": (_v5u_layers, True),
 
 
 def build_arch(cfg: ArchCfg):
-    """(layers, out_idx, concat_idx, head) for the detect task."""
-    if cfg.version not in _BUILDERS or cfg.task != "detect":
+    """(layers, out_idx, concat_idx, head) for the detect or segment task;
+    the segment head's Proto is ch[0] wide with NM = 32 prototypes
+    (yolosharp_tpu/nn/model.py:200-201)."""
+    if cfg.version not in _BUILDERS or cfg.task not in ("detect", "segment"):
         raise NotImplementedError(
-            f"the torch port has only v5u, v8, v11 and v12 detect so far, "
-            f"not {cfg.version} {cfg.task}")
+            f"the torch port has only v5u, v8, v11 and v12 detect and "
+            f"segment so far, not {cfg.version} {cfg.task}")
     builder, legacy = _BUILDERS[cfg.version]
     layers, out_idx, concat_idx, w = builder(cfg.size)
-    head = Detect(cfg.nc, cfg.reg_max, (w[2], w[3], w[4]), legacy,
-                  cfg.end2end)
+    ch = (w[2], w[3], w[4])
+    if cfg.task == "segment":
+        head = Segment(cfg.nc, cfg.reg_max, ch, legacy, cfg.end2end)
+    else:
+        head = Detect(cfg.nc, cfg.reg_max, ch, legacy, cfg.end2end)
     return layers, out_idx, concat_idx, head
 
 
@@ -190,15 +195,17 @@ STRIDES = (8, 16, 32)
 
 def init_weights(net: nn.Module, generator: torch.Generator) -> None:
     """torch.nn.Conv2d's default init (U(+-1/sqrt(fan_in)) for weights and
-    biases, as the JAX package's torch_kernel_init), drawn from
-    `generator`; BatchNorm stays at identity statistics and A2C2f's gamma
-    at 0.01."""
+    biases, as the JAX package's torch_kernel_init; a ConvTranspose2d's
+    fan_in is Cin k k, as the JAX package's), drawn from `generator`;
+    BatchNorm stays at identity statistics and A2C2f's gamma at 0.01."""
     with torch.no_grad():
         for m in net.modules():
             if isinstance(m, DFL):
                 continue
-            if isinstance(m, nn.Conv2d) and m.weight.requires_grad:
-                fan_in = m.weight[0].numel()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
+                    and m.weight.requires_grad:
+                fan_in = (m.weight[0].numel() if isinstance(m, nn.Conv2d)
+                          else m.weight.shape[0] * m.weight[0, 0].numel())
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
@@ -213,8 +220,9 @@ def _out_channels(mod: nn.Module) -> int:
 
 
 class YoloNet(nn.Module):
-    """v5u / v8 / v11 / v12 detection network. forward(x) takes (B, 3, H, W) in [0, 1] and
-    returns the head's raw maps {"one2many": {"box", "cls"}, ["one2one"]}."""
+    """v5u / v8 / v11 / v12 detect or segment network. forward(x) takes
+    (B, 3, H, W) in [0, 1] and returns the head's raw maps {"one2many":
+    {"box", "cls"[, "mask", "proto"]}, ["one2one"]}."""
 
     def __init__(self, cfg: ArchCfg, generator: Optional[torch.Generator] = None):
         super().__init__()

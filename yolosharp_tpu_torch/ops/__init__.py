@@ -1,8 +1,9 @@
 from .anchors import bbox2dist, dfl_decode, dist2bbox, make_anchors
 from .boxes import xywh2xyxy, xyxy2xywh
-from .iou import bbox_iou, box_iou
+from .iou import bbox_iou, box_iou, mask_iou
+from .masks import crop_mask, process_mask
 from .nms import NMSOutput, non_max_suppression
 
-__all__ = ["NMSOutput", "bbox2dist", "bbox_iou", "box_iou", "dfl_decode",
-           "dist2bbox", "make_anchors", "non_max_suppression", "xywh2xyxy",
-           "xyxy2xywh"]
+__all__ = ["NMSOutput", "bbox2dist", "bbox_iou", "box_iou", "crop_mask",
+           "dfl_decode", "dist2bbox", "make_anchors", "mask_iou",
+           "non_max_suppression", "process_mask", "xywh2xyxy", "xyxy2xywh"]

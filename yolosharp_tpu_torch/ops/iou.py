@@ -1,5 +1,6 @@
 """IoU of boxes: pairwise ``box_iou`` and elementwise ``bbox_iou`` with
-CIoU / DIoU / GIoU (counterpart of yolosharp_tpu/ops/iou.py:16-65)."""
+CIoU / DIoU / GIoU, and of masks, ``mask_iou`` (counterpart of
+yolosharp_tpu/ops/iou.py:16-72)."""
 
 from __future__ import annotations
 
@@ -63,3 +64,12 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
         c_area = cw * ch + eps
         return iou - (c_area - union) / c_area
     return iou
+
+
+def mask_iou(mask1: torch.Tensor, mask2: torch.Tensor,
+             eps: float = 1e-7) -> torch.Tensor:
+    """(N, HW) x (M, HW) binary masks (as floats) -> (N, M) IoU, the
+    intersections as one product."""
+    inter = (mask1 @ mask2.T).clamp(min=0)
+    union = mask1.sum(1)[:, None] + mask2.sum(1)[None, :] - inter
+    return inter / (union + eps)

@@ -22,13 +22,16 @@ def _anchors(branch: Dict):
 
 def decode_inference(branch: Dict, *, reg_max: int = 16,
                      end2end: bool = False) -> torch.Tensor:
-    """Raw head maps -> (B, 4 + nc, A): boxes (xywh, or xyxy when e2e) in
-    image pixels and sigmoided class scores."""
+    """Raw head maps -> (B, 4 + nc [+ nm], A): boxes (xywh, or xyxy when
+    e2e) in image pixels, sigmoided class scores [and a segment branch's
+    mask coefficients]."""
     anchors, strides = _anchors(branch)
     dist = dfl_decode(flatten_levels(branch["box"]), reg_max)
     dbox = dist2bbox(dist, anchors, xywh=not end2end) * strides
-    scores = flatten_levels(branch["cls"]).float().sigmoid()
-    return torch.cat([dbox, scores], -1).transpose(-1, -2)
+    parts = [dbox, flatten_levels(branch["cls"]).float().sigmoid()]
+    if "mask" in branch:
+        parts.append(flatten_levels(branch["mask"]).float())
+    return torch.cat(parts, -1).transpose(-1, -2)
 
 
 def decode_inference_topk(branch: Dict, *, conf_thres: float, k: int,
@@ -36,8 +39,9 @@ def decode_inference_topk(branch: Dict, *, conf_thres: float, k: int,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Select-then-decode: top-k on the RAW class logits, then the DFL and
     anchor decode of the K selected anchors only (exact: sigmoid is
-    monotone). Returns (pred (B, 4 + nc, K), truncated (B,)), truncated
-    flagging images with more than K above-threshold candidates."""
+    monotone). Returns (pred (B, 4 + nc [+ nm], K), truncated (B,)),
+    truncated flagging images with more than K above-threshold
+    candidates."""
     cls_l = flatten_levels(branch["cls"])                  # (B, A, nc)
     conf_l = cls_l.amax(-1).float()                        # (B, A)
     k = min(k, conf_l.shape[-1])
@@ -55,16 +59,20 @@ def decode_inference_topk(branch: Dict, *, conf_thres: float, k: int,
 
     dist = dfl_decode(gather(branch["box"]), reg_max)      # (B, K, 4)
     dbox = dist2bbox(dist, anc_k, xywh=True) * str_k
-    scores = gather(branch["cls"]).float().sigmoid()
-    return torch.cat([dbox, scores], -1).transpose(-1, -2), truncated
+    parts = [dbox, gather(branch["cls"]).float().sigmoid()]
+    if "mask" in branch:
+        parts.append(gather(branch["mask"]).float())
+    return torch.cat(parts, -1).transpose(-1, -2), truncated
 
 
 def e2e_postprocess(pred: torch.Tensor, *, nc: int,
                     max_det: int = 300) -> torch.Tensor:
     """NMS-free top-k select (Head.cs postprocess/get_topk_index:117-196).
-    pred: (B, A, 4 + nc) with xyxy boxes. Returns (B, min(max_det, A), 6):
-    [x1, y1, x2, y2, score, cls]."""
+    pred: (B, A, 4 + nc + E) with xyxy boxes and E extra channels (a
+    segment branch's mask coefficients). Returns (B, min(max_det, A),
+    6 + E): [x1, y1, x2, y2, score, cls, extras of the row's anchor]."""
     boxes, scores = pred[..., :4], pred[..., 4:4 + nc]
+    extras = pred[..., 4 + nc:]
     b, a, _ = scores.shape
     k = min(max_det, a)
     _, ori_index = scores.amax(-1).topk(k, dim=-1)                # (B, K)
@@ -72,9 +80,12 @@ def e2e_postprocess(pred: torch.Tensor, *, nc: int,
     flat_scores, flat_idx = sel.reshape(b, -1).topk(k, dim=-1)
     anchor_of = ori_index.gather(1, flat_idx // nc)
     cls_of = (flat_idx % nc).to(pred.dtype)
-    out_boxes = boxes.gather(1, anchor_of[..., None].expand(-1, -1, 4))
-    return torch.cat([out_boxes, flat_scores[..., None], cls_of[..., None]],
-                     -1)
+
+    def take(t):
+        return t.gather(1, anchor_of[..., None].expand(-1, -1, t.shape[-1]))
+
+    return torch.cat([take(boxes), flat_scores[..., None], cls_of[..., None],
+                      take(extras)], -1)
 
 
 def pad_to_multiple(img: torch.Tensor, multiple: int = 32,

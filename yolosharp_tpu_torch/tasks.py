@@ -1,6 +1,6 @@
-"""The task layer for detection and the YoloTask facade (counterpart of
-yolosharp_tpu/tasks.py: BaseTask / Detector / YoloTask): train, val,
-predict, load and save.
+"""The task layer for detect and segment and the YoloTask facade
+(counterpart of yolosharp_tpu/tasks.py: BaseTask / Detector / Segmenter /
+YoloTask): train, val, predict, load and save.
 
 Predict: requests arrive as uint8 HWC RGB numpy arrays, are padded with 114
 to a multiple of 32 on the host, shipped as uint8 and normalised (/255) on
@@ -8,7 +8,10 @@ the device. Results come back in one bulk transfer as YoloResults in canvas
 pixels. With End2End the NMS-free top-k runs with conf 0 and rows are
 filtered on the host. Predict runs a BN-folded copy of the master network
 in the compute dtype, refolded whenever a master parameter or buffer has
-changed (training bumps their versions).
+changed (training bumps their versions). Segment predict decodes each
+image's masks on the device from the proto and the kept rows' coefficients
+(process_mask, upsampled to the canvas) and copies them to the host once
+an image, as bool.
 
 Train: the float32 master network in train mode, batches from data/
 copied to the device ahead of the step (while the mosaic is open, planned
@@ -40,11 +43,13 @@ from .ckpt import (bias_init, clone_one2one, export_state_dict, fold_bn,
 from .ckpt.resume import restore_train_state, save_train_state
 from .config import Config, resolve_device, torch_dtype
 from .data import DataLoader, YoloDataset, device_prefetch, to_device
-from .data.image_ops import read_image_rgb
-from .loss import detection_loss, e2e_gain_schedule, e2e_wrap
+from .data.image_ops import nearest_indices, read_image_rgb
+from .loss import (detection_loss, e2e_gain_schedule, e2e_wrap,
+                   segmentation_loss)
 from .nn import ArchCfg, YoloNet
 from .ops.boxes import xywh2xyxy
-from .ops.iou import box_iou
+from .ops.iou import box_iou, mask_iou
+from .ops.masks import process_mask
 from .ops.nms import NMSOutput, non_max_suppression
 from .predict import (decode_inference, decode_inference_topk,
                       e2e_postprocess, pad_to_multiple)
@@ -84,7 +89,8 @@ class Detector:
         self.dtype = torch_dtype(config)
         self.arch = ArchCfg(
             version=config.yolo_type.value, size=config.yolo_size.value,
-            task="detect", nc=config.number_class, end2end=config.end2end)
+            task=config.task_type.value, nc=config.number_class,
+            end2end=config.end2end)
         self.net: Optional[YoloNet] = None
         self._fused: Optional[Tuple[tuple, YoloNet]] = None
         # per epoch of the last train(): each step's wall seconds (each
@@ -130,23 +136,38 @@ class Detector:
     def _predict_fn(self, net: YoloNet, img: torch.Tensor, conf: float,
                     iou: float):
         """uint8 canvas (B, H, W, 3) on the device -> NMSOutput, or the
-        (B, max_det, 6) End2End rows. `net` comes from _predict_variables;
-        End2End runs only the one2one towers (Head.cs:117-127)."""
+        (B, max_det, 6) End2End rows (_predict_output of them). `net` comes
+        from _predict_variables; End2End runs only the one2one towers
+        (Head.cs:117-127)."""
         nc = self.config.number_class
         x = img.permute(0, 3, 1, 2).float() / 255.0     # channels-last NCHW
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         preds = net(x, skip_one2many=self.arch.end2end)
+        branch = preds["one2one" if self.arch.end2end else "one2many"]
         if self.arch.end2end:
-            return self._decode_branch(preds)
-        if self.config.nms_pre_topk:
+            out = self._decode_branch(preds)
+        elif self.config.nms_pre_topk:
             # select-then-decode: exact, decodes only the top-k anchors
             dec, trunc = decode_inference_topk(
-                preds["one2many"], conf_thres=conf,
-                k=self.config.nms_pre_topk)
+                branch, conf_thres=conf, k=self.config.nms_pre_topk)
             out = non_max_suppression(dec, conf, iou, nc=nc)
-            return out._replace(truncated=out.truncated | trunc)
-        return non_max_suppression(self._decode_branch(preds), conf, iou,
-                                   nc=nc)
+            out = out._replace(truncated=out.truncated | trunc)
+        else:
+            out = non_max_suppression(self._decode_branch(preds), conf, iou,
+                                      nc=nc)
+        return self._predict_output(out, branch)
+
+    def _predict_output(self, out, branch):
+        """What a predict or val decode returns for its rows `out`."""
+        return out
+
+    def _host(self, out):
+        """The host copy of a predict output that _batch_results reads."""
+        return _to_host(out)
+
+    def _nms_of(self, out):
+        """The NMSOutput inside a host predict output (None when e2e)."""
+        return None if self.arch.end2end else out
 
     # ----------------------------------------------------------- predict
     def _thresholds(self, predict_threshold, iou_threshold):
@@ -156,19 +177,27 @@ class Detector:
                else iou_threshold)
         return conf, iou
 
+    def _serve(self, batch: torch.Tensor, shapes, conf, iou
+               ) -> List[List[YoloResult]]:
+        """Result lists of the images (original sizes `shapes`) on the
+        uint8 canvas `batch` (B, H, W, 3)."""
+        out = self._host(self._predict_fn(
+            self._predict_variables(), batch.to(self.device),
+            0.0 if self.arch.end2end else conf, iou))
+        nms = self._nms_of(out)
+        if nms is not None:
+            _warn_if_truncated(nms)
+        hw = tuple(batch.shape[1:3])
+        return [self._batch_results(out, i, conf, hw, shape)
+                for i, shape in enumerate(shapes)]
+
     def image_predict(self, image, predict_threshold=None,
                       iou_threshold=None) -> List[YoloResult]:
         conf, iou = self._thresholds(predict_threshold, iou_threshold)
-        net = self._predict_variables()
         # a copy: views such as img[..., ::-1] have negative strides
         img = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
-        img = pad_to_multiple(img[None])
-        out = _to_host(self._predict_fn(
-            net, img.to(self.device), 0.0 if self.arch.end2end else conf,
-            iou))
-        if not self.arch.end2end:
-            _warn_if_truncated(out)
-        return self._batch_results(out, 0, conf)
+        return self._serve(pad_to_multiple(img[None]), [img.shape[:2]],
+                           conf, iou)[0]
 
     def batch_predict(self, images, predict_threshold=None,
                       iou_threshold=None) -> List[List[YoloResult]]:
@@ -176,34 +205,37 @@ class Detector:
         to a common 32-multiple canvas with 114; boxes are in canvas
         pixels, as image_predict's."""
         conf, iou = self._thresholds(predict_threshold, iou_threshold)
-        net = self._predict_variables()
         arrs = [np.asarray(im, np.uint8) for im in images]
         H = -(-max(a.shape[0] for a in arrs) // 32) * 32
         W = -(-max(a.shape[1] for a in arrs) // 32) * 32
         batch = np.full((len(arrs), H, W, 3), 114, np.uint8)
         for i, a in enumerate(arrs):
             batch[i, :a.shape[0], :a.shape[1]] = a
-        out = _to_host(self._predict_fn(
-            net, torch.from_numpy(batch).to(self.device),
-            0.0 if self.arch.end2end else conf, iou))
-        if not self.arch.end2end:
-            _warn_if_truncated(out)
-        return [self._batch_results(out, i, conf) for i in range(len(arrs))]
+        return self._serve(torch.from_numpy(batch),
+                           [a.shape[:2] for a in arrs], conf, iou)
 
-    def _batch_results(self, out, i, conf) -> List[YoloResult]:
-        """Image i of a host-side predict output as YoloResults."""
-        rows: List[YoloResult] = []
+    def _keep(self, out, i, conf) -> np.ndarray:
+        """Which rows of image i of a host predict or val output are kept:
+        End2End's above conf, NMS's valid ones."""
+        return out[i][:, 4] > conf if self.arch.end2end else out.valid[i]
+
+    def _rows(self, out, i, conf):
+        """(boxes xyxy, scores, classes, extras) host arrays of the kept
+        rows of image i of a host predict or val output."""
+        keep = self._keep(out, i, conf)
         if self.arch.end2end:
-            for x1, y1, x2, y2, score, cls in out[i][:, :6]:
-                if score > conf:
-                    rows.append(self._result_from_box(x1, y1, x2, y2,
-                                                      score, cls))
-        else:
-            for j in range(int(out.valid[i].sum())):
-                x1, y1, x2, y2 = out.boxes[i][j]
-                rows.append(self._result_from_box(
-                    x1, y1, x2, y2, out.scores[i][j], out.classes[i][j]))
-        return rows
+            rows = out[i][keep]
+            return rows[:, :4], rows[:, 4], rows[:, 5].astype(int), rows[:, 6:]
+        return out.boxes[i][keep], out.scores[i][keep], \
+            out.classes[i][keep], out.extras[i][keep]
+
+    def _batch_results(self, out, i, conf, hw, orig_shape
+                       ) -> List[YoloResult]:
+        """Image i of a host predict output as YoloResults (canvas pixels;
+        hw the canvas, orig_shape the image's own (h, w))."""
+        boxes, scores, classes, _ = self._rows(out, i, conf)
+        return [self._result_from_box(*b, s, c)
+                for b, s, c in zip(boxes, scores, classes)]
 
     @staticmethod
     def _result_from_box(x1, y1, x2, y2, score, cls) -> YoloResult:
@@ -224,7 +256,8 @@ class Detector:
         skip: Tuple[str, ...] = ()
         if skip_nc_not_equal_layers:
             skip = skip_patterns_for_nc_mismatch(
-                "detect", len(net.model) - 1, sd, self.config.number_class)
+                self.arch.task, len(net.model) - 1, sd,
+                self.config.number_class)
         report = load_state_dict_into(net, sd, skip)
         if self.arch.end2end:
             clone_one2one(net)
@@ -278,7 +311,8 @@ class Detector:
         print("Start Training:")
         print(cfg.describe())
         out_dir = cfg.output_path or os.path.join(
-            "result", "detect", datetime.now().strftime("%y%m%d%H%M%S"))
+            "result", self.arch.task,
+            datetime.now().strftime("%y%m%d%H%M%S"))
         cfg.output_path = out_dir
         logger = TrainLogger(out_dir, self._log_headers())
         logger.write_config(cfg)
@@ -382,7 +416,7 @@ class Detector:
 
     # ----------------------------------------------------------------- val
     def val(self, val_dl: Optional[DataLoader] = None, epoch: int = 0):
-        """(loss items summed over the batches, [P, R, mAP50, mAP50-95]) of
+        """(loss items summed over the batches, metric_names' values) of
         the unfolded eval-mode master network on `val_dl` (default: the
         configured val split)."""
         cfg = self.config
@@ -397,7 +431,7 @@ class Detector:
         eval_step = make_eval_step(eval_loss_fn, self._decode_for_val,
                                    compute_dtype=self.dtype)
         loss_kwargs = self._loss_kwargs(epoch)
-        acc = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        acc = self._new_val_accumulator()
         items_sum = None
         count = 0
         for batch, dbatch in device_prefetch(
@@ -412,10 +446,14 @@ class Detector:
 
     def _decode_for_val(self, preds):
         dec = self._decode_branch(preds)
-        if self.arch.end2end:
-            return dec
-        return non_max_suppression(dec, self.val_conf, 0.7,
-                                   nc=self.config.number_class)
+        if not self.arch.end2end:
+            dec = non_max_suppression(dec, self.val_conf, 0.7,
+                                      nc=self.config.number_class)
+        return self._predict_output(
+            dec, preds["one2one" if self.arch.end2end else "one2many"])
+
+    def _new_val_accumulator(self) -> Dict[str, list]:
+        return {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
 
     def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
         """Match one batch's predictions to its ground truths: the IoU of
@@ -429,14 +467,8 @@ class Detector:
         iou = box_iou(gt, pred.float()).cpu().numpy()         # (B, M, K)
         decoded = _to_host(decoded)
         for i in range(batch["images"].shape[0]):
-            if self.arch.end2end:
-                rows = decoded[i]
-                keep = rows[:, 4] > self.val_conf
-                scores, classes = rows[keep, 4], rows[keep, 5].astype(int)
-            else:
-                keep = decoded.valid[i]
-                scores = decoded.scores[i][keep]
-                classes = decoded.classes[i][keep]
+            keep = self._keep(decoded, i, self.val_conf)
+            _, scores, classes, _ = self._rows(decoded, i, self.val_conf)
             gmask = batch["mask_gt"][i]
             gcls = batch["cls"][i][gmask].astype(float)
             tp = match_predictions(classes.astype(float), gcls,
@@ -459,18 +491,148 @@ class Detector:
         return [p, r, m50, m5095]
 
 
+class Segmenter(Detector):
+    """v5u / v8 / v11 / v12 instance segmentation (YoloTask's segment task,
+    the JAX package's Segmenter): the detect rows carry 32 mask
+    coefficients, decoded against the proto into masks."""
+
+    loss_names = ("box_loss", "seg_loss", "cls_loss", "dfl_loss", "semseg")
+    metric_names = ("precision(B)", "recall(B)", "mAP50(B)", "mAP50-95(B)",
+                    "precision(M)", "recall(M)", "mAP50(M)", "mAP50-95(M)")
+    val_conf = 0.01
+
+    def _loss_fns(self):
+        """(train loss, eval loss). End2End sums one2many (TAL top-k 10)
+        and one2one (top-k 7, then 1)."""
+        nc = self.config.number_class
+        if self.arch.end2end:
+            fn = e2e_wrap(
+                partial(segmentation_loss, nc=nc, tal_topk=10),
+                partial(segmentation_loss, nc=nc, tal_topk=7, tal_topk2=1))
+        else:
+            base = partial(segmentation_loss, nc=nc)
+
+            def fn(preds, batch, **kw):
+                return base(preds["one2many"], batch)
+        return fn, fn
+
+    @property
+    def _rows_key(self) -> str:
+        """The key of a predict output's rows: End2End top-k or NMS."""
+        return "rows" if self.arch.end2end else "nms"
+
+    def _predict_output(self, out, branch):
+        return {self._rows_key: out, "proto": branch["proto"]}
+
+    def _host(self, out):
+        # the rows to the host; the proto stays on the device for the masks
+        return {k: v if k == "proto" else _to_host(v) for k, v in out.items()}
+
+    def _nms_of(self, out):
+        return None if self.arch.end2end else out["nms"]
+
+    def _masks(self, proto, coeffs, boxes, hw, upsample):
+        """process_mask on the proto's device for host rows."""
+        dev = proto.device
+        return process_mask(proto, torch.from_numpy(coeffs).to(dev),
+                            torch.from_numpy(boxes).float().to(dev), hw,
+                            upsample=upsample)
+
+    def _batch_results(self, out, i, conf, hw, orig_shape
+                       ) -> List[YoloResult]:
+        """Image i's rows as YoloResults, each with its mask: (oh, ow) bool
+        of the image's own pixels (the canvas mask, upsampled from the
+        proto, cut to the image)."""
+        boxes, scores, classes, coeffs = self._rows(out[self._rows_key], i,
+                                                    conf)
+        if not len(boxes):
+            return []
+        oh, ow = orig_shape
+        masks = self._masks(out["proto"][i], coeffs, boxes, hw,
+                            True)[:, :oh, :ow].cpu().numpy()
+        results = []
+        for j in range(len(boxes)):
+            r = self._result_from_box(*boxes[j], scores[j], classes[j])
+            r.mask = masks[j]
+            results.append(r)
+        return results
+
+    def _new_val_accumulator(self) -> Dict[str, list]:
+        return dict(super()._new_val_accumulator(), tp_m=[])
+
+    def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
+        """Per image: box IoU and mask IoU of every (gt, prediction) pair,
+        the predicted masks at proto resolution against the ground truth's
+        overlap ids (resized nearest, as cv2 INTER_NEAREST, where their
+        grids differ), then match_predictions for both."""
+        h, w = batch["images"].shape[1:3]
+        scale = np.array([w, h, w, h], np.float32)
+        rows = _to_host(decoded[self._rows_key])
+        for i in range(batch["images"].shape[0]):
+            boxes, scores, classes, coeffs = self._rows(rows, i,
+                                                        self.val_conf)
+            gmask = batch["mask_gt"][i]
+            gcls = batch["cls"][i][gmask].astype(float)
+            gxywh = batch["bboxes"][i][gmask][:, :4] * scale
+            gxyxy = np.concatenate([gxywh[:, :2] - gxywh[:, 2:] / 2,
+                                    gxywh[:, :2] + gxywh[:, 2:] / 2], -1)
+            nl, n = len(gxyxy), len(boxes)
+            iou = miou = np.zeros((nl, n))
+            if n and nl:
+                iou = box_iou(torch.from_numpy(gxyxy),
+                              torch.from_numpy(boxes).float()).numpy()
+                pmask = self._masks(decoded["proto"][i], coeffs, boxes,
+                                    (h, w), False)
+                gm = dbatch["masks"][i]
+                ids = torch.arange(1, nl + 1, dtype=gm.dtype,
+                                   device=gm.device)
+                gt_masks = gm[None] == ids[:, None, None]
+                if gt_masks.shape[1:] != pmask.shape[1:]:
+                    ry, rx = (torch.from_numpy(nearest_indices(a, b)).to(
+                        gm.device) for a, b in zip(gt_masks.shape[1:],
+                                                   pmask.shape[1:]))
+                    gt_masks = gt_masks[:, ry][:, :, rx]
+                miou = mask_iou(gt_masks.reshape(nl, -1).float(),
+                                pmask.reshape(n, -1).float()).cpu().numpy()
+            cls_f = classes.astype(float)
+            acc["tp"].append(match_predictions(cls_f, gcls, iou))
+            acc["tp_m"].append(match_predictions(cls_f, gcls, miou))
+            acc["conf"].append(scores)
+            acc["pred_cls"].append(cls_f)
+            acc["target_cls"].append(gcls)
+
+    def _finalize_val(self, acc, count) -> List[float]:
+        if not acc["tp"]:
+            return [0.0] * 8
+        conf, pred_cls, target_cls = (np.concatenate(acc[k]) for k in
+                                      ("conf", "pred_cls", "target_cls"))
+        box = summarize(ap_per_class(np.concatenate(acc["tp"]), conf,
+                                     pred_cls, target_cls))
+        msk = summarize(ap_per_class(np.concatenate(acc["tp_m"]), conf,
+                                     pred_cls, target_cls))
+        print(f"{'All':>10}{count:>10}{len(target_cls):>10} "
+              f"Box P/R/mAP50/mAP50-95: "
+              f"{box[0]:.3f}/{box[1]:.3f}/{box[2]:.3f}/{box[3]:.3f} "
+              f"Mask: {msk[0]:.3f}/{msk[1]:.3f}/{msk[2]:.3f}/{msk[3]:.3f}")
+        return list(box) + list(msk)
+
+
+_TASKS = {TaskType.detect: Detector, TaskType.segment: Segmenter}
+
+
 class YoloTask:
     """Public facade (Models/YoloTask.cs:10-107): train, val, predict, load
-    and save. device: None means cuda (raises where there is none); pass
-    "cpu" to run the plain versions on the CPU."""
+    and save, for the detect and segment tasks (obb, pose and classify
+    raise NotImplementedError). device: None means cuda (raises where there
+    is none); pass "cpu" to run the plain versions on the CPU."""
 
     def __init__(self, config: Config, device=None):
-        if config.task_type != TaskType.detect:
+        if config.task_type not in _TASKS:
             raise NotImplementedError(
-                f"the torch port has only the detect task so far, not "
-                f"{config.task_type.value}")
+                f"the torch port has the detect and segment tasks so far, "
+                f"not {config.task_type.value}")
         self.config = config
-        self.task = Detector(config, device)
+        self.task = _TASKS[config.task_type](config, device)
 
     def load_model(self, path: str, skip_nc_not_equal_layers: bool = False):
         return self.task.load_model(path, skip_nc_not_equal_layers)

@@ -134,17 +134,22 @@ def normalize_images(images: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype)
 
 
-def resolve_batch_images(batch: Dict, dtype) -> torch.Tensor:
-    """The step's network input (B, 3, H, W) channels-last in `dtype`: the
-    batch's host-made ``images`` (normalize_images), or, for a planned
-    batch (an ``aug_pool`` in it), the device render of
-    ``data.device_augment`` (float32 in [0, 255], unrounded) cast to
-    `dtype`, then /255, as the JAX package's resolve_batch_images."""
+def resolve_batch_images(batch: Dict, dtype):
+    """(the step's network input (B, 3, H, W) channels-last in `dtype`, the
+    batch the loss reads): the batch's host-made ``images``
+    (normalize_images) and the batch itself, or, for a planned batch (an
+    ``aug_pool`` in it), the device render of ``data.device_augment``
+    (float32 in [0, 255], unrounded) cast to `dtype`, then /255, and the
+    batch with its ``masks`` rendered from ``aug_mask_pool`` where it has
+    one, as the JAX package's resolve_batch_images."""
     if "aug_pool" not in batch:
-        return normalize_images(batch["images"], dtype)
-    from .data.device_augment import render_batch
+        return normalize_images(batch["images"], dtype), batch
+    from .data.device_augment import render_batch, render_masks
 
-    return render_batch(batch).permute(0, 3, 1, 2).to(dtype) / 255.0
+    images = render_batch(batch).permute(0, 3, 1, 2).to(dtype) / 255.0
+    if "aug_mask_pool" in batch:
+        batch = {**batch, "masks": render_masks(batch)}
+    return images, batch
 
 
 class TrainState:
@@ -205,7 +210,8 @@ def make_train_step(loss_fn, *, compute_dtype=torch.float32,
         net.train()
         scale = state.loss_scale if dynamic_loss_scale else 1.0
         opt.zero_grad(set_to_none=True)
-        preds = net(resolve_batch_images(batch, compute_dtype))
+        images, batch = resolve_batch_images(batch, compute_dtype)
+        preds = net(images)
         loss, items = loss_fn(preds, batch, **loss_kwargs)
         (loss * scale).backward()
         params = state.params
