@@ -1,12 +1,16 @@
 """Where the time goes (PERF.md section 5): the 640 bf16 batch_predict of
-32 on one GPU of a chip_smoke.py path (v8s, v12s, v11s, v5us, v11m-seg),
-with its seeded weights, images and conf, or v8s's and v12s's bf16 train
-step at batch 16 and v11s's on the mosaic (`train`), or v11m-seg's at
-batch 8 on a planned mosaic batch with masks (`seg-train`).
+32 on one GPU of a chip_smoke.py path (v8s, v12s, v11s, v5us, v11m-seg,
+v11m-pose), with its seeded weights, images and conf, or v8s's and
+v12s's bf16 train step at batch 16 and v11s's on the mosaic (`train`), or
+v11m-seg's at batch 8 on a planned mosaic batch with masks (`seg-train`),
+or v11m-pose's on one with keypoints (`pose-train`).
 
-    python3 chip_profile.py [v8] [v12] [v11m-seg] [train] [seg-train]
+    python3 chip_profile.py [v8] [v12] [v11m-seg] [v11m-pose] [train]
+                            [seg-train] [pose-train]
 
-For each path and End2End mode: 5 unprofiled walls, the network forward
+For each path and End2End mode: 5 unprofiled walls, the host time of
+building one call's results from its rows (the YoloResults, a pose
+row's KeyPoints and a segment row's mask copy), the network forward
 alone (CUDA events), and a torch.profiler trace of 3 calls: the device's
 busy time and idle share of the traced window, and device time by kernel
 family and by kernel name. `train`: for v8s and v12s (End2End, the Config
@@ -20,7 +24,9 @@ and beside it a trace of the render alone, so that the render's kernels
 can be told by name among the step's. `seg-train`: the same for
 v11m-seg on one planned batch of 8 (chip_smoke.write_seg_dataset), whose
 images and masks render inside the step, and beside it the mask render
-alone. Exits non-zero without a CUDA device.
+alone. `pose-train`: v11m-pose's step on one planned batch of 8
+(chip_smoke.write_pose_dataset), whose images render inside the step and
+whose keypoints the planner moved. Exits non-zero without a CUDA device.
 """
 import tempfile
 import sys
@@ -127,7 +133,8 @@ def profile_train(path, batch=None):
 
     det = YoloTask(cs.path_config(path), device=dev).task
     net = det._ensure_variables().to(memory_format=torch.channels_last)
-    opt, scheds = make_optimizer(net, nc=80, epochs=1, steps_per_epoch=10)
+    opt, scheds = make_optimizer(net, nc=cs.PATH_NC.get(path, 80), epochs=1,
+                                 steps_per_epoch=10)
     state = TrainState(net, opt, scheds)
     step = make_train_step(det._loss_fns()[0], compute_dtype=det.dtype)
     mosaic = batch is not None
@@ -171,6 +178,19 @@ def profile_seg_train():
           lambda: render_masks(batch))
 
 
+def profile_pose_train():
+    """v11m-pose's step on one planned batch of 8 (the images render inside
+    the step; the keypoints come planned)."""
+    from yolosharp_tpu_torch.data import YoloDataset, to_device
+
+    with tempfile.TemporaryDirectory() as root:
+        cs.write_pose_dataset(root, cs.POSE_BATCH, 2)
+        ds = YoloDataset(cs._pose_train_config(root))
+        batch = to_device(ds.device_batch(np.arange(cs.POSE_BATCH),
+                                          ds.max_label_count), dev)
+    profile_train(cs.POSE, batch)
+
+
 versions = sys.argv[1:] or ["v8", "v12"]
 for version in versions:
     if version == "train":
@@ -180,6 +200,9 @@ for version in versions:
         continue
     if version == "seg-train":
         profile_seg_train()
+        continue
+    if version == "pose-train":
+        profile_pose_train()
         continue
     master = YoloTask(cs.path_config(version, end2end=True), device=dev)
     net = master.task._ensure_variables()
@@ -219,6 +242,18 @@ for version in versions:
         torch.cuda.synchronize()
         print(f"[{mode}] batch_predict {len(batch)}x640 unprofiled walls ms: "
               f"{[round(w, 2) for w in walls]}", flush=True)
+        # the host's share: one call's result objects built from its rows
+        t = task.task
+        canvas = torch.from_numpy(np.stack(batch))
+        out = t._host(t._predict_fn(t._predict_variables(), canvas.to(dev),
+                                    0.0 if e2e else conf,
+                                    t.config.iou_threshold))
+        t0 = time.perf_counter()
+        rows = t._results(out, conf, tuple(canvas.shape[1:3]),
+                          [im.shape[:2] for im in batch])
+        print(f"[{mode}] the results of one call built on the host from its "
+              f"rows: {(time.perf_counter() - t0) * 1e3:.2f} ms "
+              f"({sum(map(len, rows))} results)", flush=True)
         print(f"[{mode}] network forward alone (CUDA events, 5 calls): "
               f"{s.elapsed_time(e) / 5:.3f} ms", flush=True)
         with profile(activities=[ProfilerActivity.CPU,

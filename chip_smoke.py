@@ -2,21 +2,23 @@
 
     python3 chip_smoke.py
 
-Five serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
+Seven serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
 C2f), v12s detection (conv3x3 s1/s2 and the fused attention), v11s and
-v5us detection and v11m-seg instance segmentation (conv3x3 s1/s2 only:
-v11's PSA attention takes the einsum path, and none has a C2f block).
-Training: v8s and v12s on letterbox batches, v11s through the mosaic (the
-device render) and v8s through the host mosaic, v11m-seg through the
-mosaic with masks.
+v5us detection, v11m-seg instance segmentation and v11m-pose and v11s-pose
+pose estimation (conv3x3 s1/s2 only: v11's PSA attention takes the einsum
+path, and none has a C2f block). Training: v8s and v12s on letterbox
+batches, v11s through the mosaic (the device render) and v8s through the
+host mosaic, v11m-seg through the mosaic with masks, v11m-pose with
+keypoints.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build every CUDA kernel from the
      sources in yolosharp_tpu_torch/csrc (one nvcc per source, in parallel).
   2. each kernel against its plain PyTorch version at every shape any
-     path gives it (recorded with forward hooks on the folded v8s, v12s,
-     v11s and v5us nets: 640x640 for the convs; 640x640, 480x640, 500x375
-     and 1280x1280 for the attention), B=2, in float32 (TF32 off for cuDNN
+     path gives it (recorded with forward hooks on the folded nets of
+     every path: 640x640 for the convs, the 51-wide keypoint towers of
+     v11s-pose (Ci or Co = 51) included; 640x640, 480x640, 500x375 and
+     1280x1280 for the attention), B=2, in float32 (TF32 off for cuDNN
      and matmul), bfloat16 and float16, with device times (CUDA events around a CUDA graph of 10
      calls, in turns plain / kernel / library / library / kernel / plain),
      the eager times of the same calls made from Python (host launch cost
@@ -43,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught):
      variant the served requests of phases 3 and 4 take (the bf16 conv's N
      tile or stem, the C2f block's tile, the attention's route and splits;
      they depend on the batch) that was not checked yet, at the first request
-     that takes it. Each check prints the variant it ran.
+     that takes it. Each check prints the variant it ran, and the sums of
+     kernel / plain / library / bound ms are printed over the v11m-seg
+     shapes, the v11m-pose shapes and v11s-pose's Ci / Co = 51 shapes.
   3. the v8s slice: a v8s nc=80 YoloTask on cuda with seeded weights times
      its bf16 batch-32 640x640 network forward (CUDA events), counts the
      kernel launches of one such forward, and answers image_predict and
@@ -68,8 +72,10 @@ C2f kernels serve predict only and must not launch there):
      autograd, gradients of q, k and v: float32 |d| <= 1e-4 + 1e-4|ref|,
      bfloat16 max|d| / max|ref| < 2e-2; forward + backward ms of the kernel
      route, plain autograd and SDPA (CUDA events).
-  6. one float32 train step of v8n, v12n and v11n-seg (End2End; the
-     segment batch's masks are its boxes' regions) at 128x128, batch 2,
+  6. one float32 train step of v8n, v12n, v11n-seg and v11n-pose
+     (End2End; the segment batch's masks are its boxes' regions, the pose
+     batch's 17 keypoints a box lie inside it, visibility 0, 1 or 2; its
+     cv4 towers are 51 wide) at 128x128, batch 2,
      card against CPU, same seeded weights and uint8 batch: loss items to
      1e-4 relative. The leaves whose gradient is 0 by construction (a conv
      bias that a train-mode BN removes, as in AAttn's pe; SPPF's cv1 BN
@@ -145,6 +151,32 @@ their sums printed):
      NMS at mask_ratio 4 and End2End at mask_ratio 2 (the ground truth's
      masks resized nearest to the proto grid): box and mask mAP50 above 0
      on both, and each of the eight metrics within 0.02 card against CPU.
+Pose (v11m-pose at its published widths: nc=1, 17 x 3 keypoints, cv4 64,
+Ultralytics yolo11-pose.yaml at scale m; its conv shapes, and v11s-pose's,
+are in phase 2's checks):
+  10a. the v11m-pose slice as phase 3, bf16: the b32 forward (CUDA events)
+     and its launches (conv3x3 s1 and s2 only), batch_predict b32 and
+     image_predict at 640x640, 480x640 and 500x375 in both End2End modes,
+     every result with 17 finite keypoints; then one b32 batch_predict of
+     v11s-pose (NMS), whose 51-wide towers run inside a served request.
+  10b. its float32 predict of one image, card against CPU: the rows as
+     phase 4, and each matched row's keypoints within 0.5 px, visibility
+     within 1e-3.
+  10c. YoloTask.train() of v11m-pose, 640x640, batch 8, bf16,
+     close_mosaic=1, 2 epochs (the device render, whose planned batches
+     carry keypoints, then letterbox) on a PNG dataset that this script
+     writes (64 train and 16 val images of 480-800 px, 1-8 rectangles,
+     each with 17 keypoints inside it of visibility 0, 1 or 2): per epoch
+     the median step ms, img/s, loader-wait share and peak memory; val's
+     eight metrics; finite losses; best.bin served by a fresh v11m-pose
+     YoloTask through the conv kernels, with keypoints.
+  10d. PoseDetector.val of phase 10a's seeded v11m-pose in float32 on the
+     card and on the CPU, on 8 640x640 images labelled with its own
+     predictions (up to 8 an image: box and 17 keypoints, visible (2)
+     where the predicted visibility is above 0.5, else 0, and at least
+     the 3 most visible visible), NMS and End2End: box and pose mAP50
+     above 0 on both, and each of the eight metrics within 0.02 card
+     against CPU.
 Each phase prints its wall seconds.
 
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
@@ -221,15 +253,29 @@ PATHS = {"v8": ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
          "v12": ("conv3x3_silu", "conv3x3s2_silu", "fused_attention"),
          "v11": ("conv3x3_silu", "conv3x3s2_silu"),
          "v5u": ("conv3x3_silu", "conv3x3s2_silu"),
-         "v11m-seg": ("conv3x3_silu", "conv3x3s2_silu")}
+         "v11m-seg": ("conv3x3_silu", "conv3x3s2_silu"),
+         "v11m-pose": ("conv3x3_silu", "conv3x3s2_silu"),
+         "v11s-pose": ("conv3x3_silu", "conv3x3s2_silu")}
 # each path's model: (version, size, task)
 ARCH = {"v8": ("v8", "s", "detect"), "v12": ("v12", "s", "detect"),
         "v11": ("v11", "s", "detect"), "v5u": ("v5u", "s", "detect"),
-        "v11m-seg": ("v11", "m", "segment")}
-SEG = "v11m-seg"
-PHASE = {"v8": "3", "v12": "3b", "v11": "3c", "v5u": "3d", SEG: "9a"}
-# the paths held card against CPU in float32 (phases 4, 4b, 4c, 9b)
-CPU_MATCH = {"v8": "4", "v12": "4b", "v11": "4c", SEG: "9b"}
+        "v11m-seg": ("v11", "m", "segment"),
+        "v11m-pose": ("v11", "m", "pose"), "v11s-pose": ("v11", "s", "pose")}
+SEG, POSE, POSE_S = "v11m-seg", "v11m-pose", "v11s-pose"
+# each path's classes: COCO's 80, COCO-Pose's one (person) for the pose
+# models (Ultralytics yolo11-pose.yaml: nc 1, kpt_shape [17, 3])
+PATH_NC = {POSE: 1, POSE_S: 1}
+PHASE = {"v8": "3", "v12": "3b", "v11": "3c", "v5u": "3d", SEG: "9a",
+         POSE: "10a", POSE_S: "10a"}
+# the paths held card against CPU in float32 (phases 4, 4b, 4c, 9b, 10b)
+CPU_MATCH = {"v8": "4", "v12": "4b", "v11": "4c", SEG: "9b", POSE: "10b"}
+# phase 2's sums over a group of shapes: (name, which (shape, paths) it
+# holds): v11m-seg's and v11m-pose's shapes, and v11s-pose's odd ones (its
+# keypoint towers are 51 wide)
+SHAPE_GROUPS = ((SEG, lambda shape, vs: SEG in vs),
+                (POSE, lambda shape, vs: POSE in vs),
+                (f"{POSE_S} Ci/Co = 51",
+                 lambda shape, vs: POSE_S in vs and 51 in shape[2:4]))
 # the stats suffix of each (dtype, batch) phase 2 times
 ERR_KEY = {torch.float32: "max_abs_err", torch.bfloat16: "max_abs_err_bf16",
            torch.float16: "max_abs_err_f16"}
@@ -329,7 +375,7 @@ def record_shapes(path: str) -> dict:
 
     version, size, task = ARCH[path]
     net = fold_bn(YoloNet(ArchCfg(version=version, size=size, task=task,
-                                  nc=80)).eval())
+                                  nc=PATH_NC.get(path, 80))).eval())
     shapes = {}
 
     def conv_hook(m, inp, out):
@@ -436,9 +482,9 @@ def phase_kernels(dev):
                       else 0.0})
     # per kernel and sum: the bound ms that bytes / operations set
     bound_parts = {}
-    # per kernel and sum, over the shapes the segment path takes: (shapes,
-    # kernel, plain, library and bound ms)
-    seg_sums = {}
+    # per shape group (SHAPE_GROUPS), kernel and sum: (shapes, kernel,
+    # plain, library and bound ms)
+    group_sums = {}
     checked = set()     # (kind, dtype, variant) held against the plain version
 
     def check(kind, dtype, batch, shape, vs, timed=True):
@@ -552,13 +598,15 @@ def phase_kernels(dev):
         part[by] = part.get(by, 0.0) + bound_ms
         if suffix == "":
             s["shapes"] += 1
-        if SEG in vs:
-            seg = seg_sums.setdefault((name, suffix), [0, 0.0, 0.0, 0.0,
-                                                       0.0])
-            seg[0] += 1
+        for group, holds in SHAPE_GROUPS:
+            if not holds(shape, vs):
+                continue
+            acc = group_sums.setdefault((group, name, suffix),
+                                        [0, 0.0, 0.0, 0.0, 0.0])
+            acc[0] += 1
             for j, v in enumerate((ms, plain_ms, t.get("library", 0.0),
                                    bound_ms), 1):
-                seg[j] += v
+                acc[j] += v
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for kind in KINDS:
@@ -591,8 +639,9 @@ def phase_kernels(dev):
     # what bounds each sum: the larger share of its bound
     for (name, suffix), part in bound_parts.items():
         stats[name]["bound_by" + suffix] = max(part, key=part.get)
-    for (name, suffix), (n, k, p, lib, bnd) in sorted(seg_sums.items()):
-        print(f"  {SEG} shapes, {name}{suffix or '_bf16'}: {n} shapes, "
+    for (group, name, suffix), (n, k, p, lib, bnd) in sorted(
+            group_sums.items()):
+        print(f"  {group} shapes, {name}{suffix or '_bf16'}: {n} shapes, "
               f"device ms summed: kernel {k:.4f}, plain {p:.4f}, library "
               f"{lib:.4f}, bound {bnd:.4f}", flush=True)
     return stats
@@ -614,9 +663,10 @@ def synthetic_images(n, h, w, seed):
 def seed_weights(net, seed: int = 3):
     """Random weights that give NMS-visible detections, the recipe of
     tests/test_golden_bus_predict.py:115-137: ConvBN kernels x2.5 (the
-    segment head's Proto and cv4 towers included), the head's final convs
-    (box, class and a segment head's mask coefficients) re-drawn from
-    U(-0.3, 0.3), and BN statistics (and the conv biases of biased ConvBNs)
+    segment head's Proto and cv4 towers and the pose head's cv4 towers
+    included), the head's final convs (box, class, a segment head's mask
+    coefficients and a pose head's keypoints) re-drawn from U(-0.3, 0.3),
+    and BN statistics (and the conv biases of biased ConvBNs)
     jittered so that folding does real work."""
     from yolosharp_tpu_torch.ckpt import clone_one2one
     from yolosharp_tpu_torch.nn import ConvBN
@@ -676,13 +726,19 @@ def rows_of(task, out, conf, i=0):
     return t._rows(out, i, conf)[:3]
 
 
+def path_name(path) -> str:
+    """A path's model as the log names it: v8s ... v5us, v11m-seg, ..."""
+    return path if "-" in path else f"{path}s"
+
+
 def path_config(path, **cfg):
-    """The Config of a path's model (ARCH), nc=80."""
+    """The Config of a path's model (ARCH) and classes (PATH_NC)."""
     from yolosharp_tpu_torch import Config, TaskType, YoloSize, YoloType
 
     version, size, task = ARCH[path]
     return Config(task_type=TaskType(task), yolo_type=YoloType(version),
-                  yolo_size=YoloSize(size), number_class=80, **cfg)
+                  yolo_size=YoloSize(size),
+                  number_class=PATH_NC.get(path, 80), **cfg)
 
 
 def build_tasks(dev, path, state, **cfg):
@@ -708,6 +764,17 @@ def check_path_launches(version, counts, mode):
                              f"{PATHS[version]}")
 
 
+def check_keypoints(results, mode):
+    """Each pose result carries 17 KeyPoints with finite x, y and a
+    visibility in [0, 1]."""
+    bad = [(i, r.keypoints) for i, rs in enumerate(results) for r in rs
+           if r.keypoints is None or len(r.keypoints) != 17
+           or not all(np.isfinite([p.x, p.y, p.visibility]).all()
+                      and 0.0 <= p.visibility <= 1.0 for p in r.keypoints)]
+    if bad:
+        raise SystemExit(f"[{mode}] keypoints not 17 finite: {bad[:1]}")
+
+
 def check_masks(results, images, mode):
     """Each segment result carries a bool mask of its image's (h, w)."""
     bad = [(i, r.mask if r.mask is None else (r.mask.shape, r.mask.dtype))
@@ -728,10 +795,10 @@ def phase_slice(dev, path, light=False):
                                              reset_launch_counts)
     from yolosharp_tpu_torch.loss import flatten_levels
 
-    name = path if path == SEG else f"{path}s"
-    segment = ARCH[path][2] == "segment"
-    print(f"phase {PHASE[path]}: {name}-640 nc=80 YoloTask on cuda, bf16, "
-          f"seeded weights", flush=True)
+    name = path_name(path)
+    segment, pose = ARCH[path][2] == "segment", ARCH[path][2] == "pose"
+    print(f"phase {PHASE[path]}: {name}-640 nc={PATH_NC.get(path, 80)} "
+          f"YoloTask on cuda, bf16, seeded weights", flush=True)
     master = YoloTask(path_config(path, end2end=True), device=dev)
     net = master.task._ensure_variables()
     seed_weights(net)
@@ -796,6 +863,8 @@ def phase_slice(dev, path, light=False):
                 raise SystemExit(f"[{mode}] image_predict found nothing")
             if segment:
                 check_masks([res], [img], mode)
+            if pose:
+                check_keypoints([res], mode)
         for rep in range(1 if light else 3):
             t0 = time.perf_counter()
             res = task.batch_predict(batch, conf)
@@ -811,9 +880,14 @@ def phase_slice(dev, path, light=False):
                 raise SystemExit(f"[{mode}] batch_predict results are wrong")
             if segment:
                 check_masks(res, batch, mode)
+            if pose:
+                check_keypoints(res, mode)
         if segment:
             print(f"  [{mode}] every result has a bool mask of its image's "
                   f"(h, w)", flush=True)
+        if pose:
+            print(f"  [{mode}] every result has 17 finite keypoints",
+                  flush=True)
         counts = launch_counts()
         print(f"  [{mode}] kernel launches: {counts}", flush=True)
         check_path_launches(path, counts, mode)
@@ -838,7 +912,7 @@ def phase_cpu_match(dev, path, state, conf):
     from yolosharp_tpu_torch import ScalarType
     from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    name = path if path == SEG else f"{path}s"
+    name = path_name(path)
     print(f"phase {CPU_MATCH[path]}: {name} float32 on the card against "
           f"float32 on the CPU (plain versions)", flush=True)
     image = synthetic_images(1, 640, 640, 30)[0]
@@ -864,6 +938,16 @@ def phase_cpu_match(dev, path, state, conf):
         if n_want < 5 or abs(n_got - n_want) > 2 or unmatched > 2:
             raise SystemExit(f"[{mode}] card and CPU disagree")
         check_path_launches(path, used, mode + " float32")
+        if ARCH[path][2] == "pose":
+            n, dxy, dvis = matched_keypoints(
+                cuda[e2e].task._rows(got, 0, conf),
+                cpu[e2e].task._rows(want, 0, conf))
+            print(f"  [{mode}] keypoints of {n} matched rows: max |dx|, "
+                  f"|dy| {dxy:.3e} px (at most 0.5), max |d visibility| "
+                  f"{dvis:.3e} (at most 1e-3)", flush=True)
+            if n < n_want - unmatched or dxy > 0.5 or dvis > 1e-3:
+                raise SystemExit(f"[{mode}] card and CPU keypoints "
+                                 f"disagree")
         if ARCH[path][2] == "segment":
             same, total = matched_masks(cuda[e2e].image_predict(image, conf),
                                         cpu[e2e].image_predict(image, conf))
@@ -872,6 +956,27 @@ def phase_cpu_match(dev, path, state, conf):
                   flush=True)
             if total == 0 or same < 0.999 * total:
                 raise SystemExit(f"[{mode}] card and CPU masks disagree")
+
+
+def matched_keypoints(got, want):
+    """(rows matched, max |dx|, |dy| px, max |d visibility|) over the 17
+    keypoints of the rows of `want` that match a row of `got` by match()'s
+    rule; got and want are (boxes, scores, classes, keypoints) host
+    arrays."""
+    gb, gs, gc, gk = got
+    n, dxy, dvis = 0, 0.0, 0.0
+    used = np.zeros(len(gb), bool)
+    for b, s, c, k in zip(*want):
+        if not len(gb):
+            break
+        d = np.abs(gb - b).max(1) + 1e3 * (gc != c)
+        j = int(np.argmin(d + 1e6 * used))
+        if d[j] < 0.5 and abs(gs[j] - s) < 1e-3:
+            used[j] = True
+            diff = np.abs(gk[j] - k).reshape(17, 3)
+            n, dxy = n + 1, max(dxy, float(diff[:, :2].max()))
+            dvis = max(dvis, float(diff[:, 2].max()))
+    return n, dxy, dvis
 
 
 def matched_masks(got, want):
@@ -1027,6 +1132,21 @@ def with_masks(batch, ratio=4):
     return dict(batch, masks=masks)
 
 
+def with_keypoints(batch, seed=42):
+    """The batch and 17 keypoints a label (normalised x, y and visibility
+    0, 1 or 2) inside each valid box; half of the invisible ones at
+    (0, 0), as COCO writes them; zeros in the padding slots."""
+    rng = np.random.default_rng(seed)
+    n, m = batch["mask_gt"].shape
+    cxy = batch["bboxes"][..., None, :2]
+    wh = batch["bboxes"][..., None, 2:4]
+    xy = cxy + (rng.uniform(0, 1, (n, m, 17, 2)) - 0.5) * wh
+    vis = rng.integers(0, 3, (n, m, 17, 1)).astype(np.float32)
+    xy[(vis[..., 0] == 0) & (rng.uniform(0, 1, (n, m, 17)) < 0.5)] = 0.0
+    kpts = np.concatenate([xy, vis], -1) * batch["mask_gt"][..., None, None]
+    return dict(batch, keypoints=kpts.astype(np.float32))
+
+
 def zero_gradient_leaves(net) -> set:
     """Parameters whose gradient in a train-mode step is 0 by construction:
     the bias of a conv that a train-mode BN follows (the BN subtracts the
@@ -1054,16 +1174,22 @@ def phase_train_step_cpu_match(dev):
 
     print("phase 6: one float32 train step (End2End) at 128x128, batch 2, "
           "card against CPU, same seeded weights and batch: v8n, v12n, "
-          "v11n-seg", flush=True)
-    batch = train_batch(2, 128, 40)
+          "v11n-seg, v11n-pose", flush=True)
+    base = train_batch(2, 128, 40)
     for version, task_type in (("v8", "detect"), ("v12", "detect"),
-                               ("v11", "segment")):
+                               ("v11", "segment"), ("v11", "pose")):
         cfg = Config(task_type=TaskType(task_type),
                      yolo_type=YoloType(version), yolo_size=YoloSize.n,
                      number_class=80, scalar_type=ScalarType.float32)
-        label = f"{version}n" + ("-seg" if task_type == "segment" else "")
-        if task_type == "segment":
-            batch = with_masks(batch)
+        label = f"{version}n" + {"detect": "", "segment": "-seg",
+                                 "pose": "-pose"}[task_type]
+        batch = {"detect": lambda b: b, "segment": with_masks,
+                 "pose": with_keypoints}[task_type](base)
+        if task_type == "pose":
+            vis = batch["keypoints"][batch["mask_gt"]][..., 2]
+            print(f"  [{label}] label keypoints by visibility 0 / 1 / 2: "
+                  f"{np.bincount(vis.astype(int).ravel(), minlength=3)}",
+                  flush=True)
         res = []
         # the card, the CPU, and the CPU in float64 (only its BN statistics
         # are read: the forward's batch statistics, exact to float32)
@@ -1090,6 +1216,10 @@ def phase_train_step_cpu_match(dev):
                 "stats": {k: v.cpu() for k, v in net.state_dict().items()
                           if k.endswith(("running_mean", "running_var"))}})
         card, cpu, f64 = res
+        if task_type == "pose":
+            print(f"  [{label}] cv4 towers "
+                  f"{net.model[-1].cv4[0][0].conv.out_channels} channels "
+                  f"wide", flush=True)
         # the semseg item is 0 on both: 0 / tiny, not 0 / 0
         rel = ((card["items"] - cpu["items"]).abs()
                / cpu["items"].abs().clamp_min(1e-30)).max()
@@ -1829,6 +1959,196 @@ def phase_seg_val(dev, root, state, conf):
                              f"disagree, or a mAP50 is 0")
 
 
+# ------------------------------------------------------------------ pose
+POSE_BATCH = 8
+
+
+def write_pose_dataset(root, n_train, n_val, seed=9):
+    """Images of 480-800 px a side, a noisy background and 1-8 solid
+    rectangles, with YOLO pose labels (one class: the class, the box's
+    normalised xywh, then 17 keypoints inside the box of x, y and a
+    visibility drawn from {0, 1, 2}; half of the invisible ones at (0, 0),
+    as COCO writes them) under root/images/{train,val} and
+    root/labels/{train,val}, as PNG (zlib level 1)."""
+    from yolosharp_tpu_torch.data.image_ops import encode_png
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        os.makedirs(os.path.join(root, "images", split))
+        os.makedirs(os.path.join(root, "labels", split))
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(480, 801, 2))
+            img = np.clip(rng.normal(rng.uniform(40, 215), 20, (h, w, 3)),
+                          0, 255).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 9))):
+                bw, bh = rng.uniform(0.05, 0.5, 2)
+                cx = rng.uniform(bw / 2, 1 - bw / 2)
+                cy = rng.uniform(bh / 2, 1 - bh / 2)
+                img[int((cy - bh / 2) * h):int((cy + bh / 2) * h),
+                    int((cx - bw / 2) * w):int((cx + bw / 2) * w)] = \
+                    rng.integers(0, 256, 3)
+                xy = np.stack([rng.uniform(cx - bw / 2, cx + bw / 2, 17),
+                               rng.uniform(cy - bh / 2, cy + bh / 2, 17)], -1)
+                vis = rng.integers(0, 3, 17)
+                xy[(vis == 0) & (rng.uniform(0, 1, 17) < 0.5)] = 0.0
+                pts = np.concatenate([xy, vis[:, None]], -1)
+                rows.append(f"0 {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f} "
+                            + " ".join(f"{v:.6f}" for v in pts.reshape(-1)))
+            with open(os.path.join(root, "images", split, f"{i:04d}.png"),
+                      "wb") as f:
+                f.write(encode_png(img, level=1))
+            with open(os.path.join(root, "labels", split, f"{i:04d}.txt"),
+                      "w") as f:
+                f.write("\n".join(rows) + "\n")
+
+
+def _pose_train_config(root, **kw):
+    kw = {"epochs": 1, **kw}
+    return path_config(POSE, root_path=root, train_data_path="images/train",
+                       val_data_path="images/val", image_size=TRAIN_SIZE,
+                       batch_size=POSE_BATCH, **kw)
+
+
+def phase_pose_train(dev, root, tag):
+    """Phase 10c: YoloTask.train() of v11m-pose through the mosaic, then
+    letterbox. Returns (train launches, predict launches of the served
+    best.bin)."""
+    from yolosharp_tpu_torch import YoloTask
+    from yolosharp_tpu_torch.data import device_augment
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 10c: YoloTask.train() of {POSE}, {TRAIN_SIZE}x{TRAIN_SIZE}, "
+          f"batch {POSE_BATCH}, bf16, close_mosaic=1, 2 epochs", flush=True)
+    out = os.path.join(root, "run_v11m_pose")
+    task = YoloTask(_pose_train_config(root, output_path=out, close_mosaic=1,
+                                       epochs=2), device=dev)
+    visible = []    # the visible keypoints of each planned batch
+    real = device_augment.render_batch
+    device_augment.render_batch = lambda b: visible.append(
+        int((b["keypoints"][..., 2] > 0).sum())) or real(b)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        task.train()
+    finally:
+        device_augment.render_batch = real
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = task.task.epoch_stats
+    for st in stats:
+        print("  " + epoch_line(st, f"{tag}: {POSE}", POSE_BATCH), flush=True)
+    print(f"  renders {len(visible)} (epoch 1 steps "
+          f"{len(stats[0]['step_s'])}), visible keypoints a planned batch "
+          f"{visible}; train() {wall:.1f} s; kernel launches during "
+          f"train(): {counts}", flush=True)
+    with open(os.path.join(out, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    head = [h.strip() for h in rows[0]]
+    for r in rows[1:]:
+        print(f"  log.csv epoch {r[0]}: " + ", ".join(
+            f"{h} {v.strip()}" for h, v in zip(head[2:], r[2:])), flush=True)
+    losses = [float(v) for r in rows[1:] for h, v in zip(head, r)
+              if "loss" in h]
+    metrics = [h for h in head if h.startswith("metrics/")]
+    if ([s["epoch"] for s in stats] != [1, 2]
+            or len(visible) != len(stats[0]["step_s"]) or not visible
+            or not all(visible) or not np.isfinite(losses).all()
+            or len(metrics) != 8 or any(counts.values())):
+        raise SystemExit(f"{POSE} train(): wrong epochs, renders, "
+                         f"keypoints, losses or metrics, or a kernel launch "
+                         f"in training")
+    fresh = YoloTask(path_config(POSE), device=dev)
+    fresh.load_model(os.path.join(out, "weights", "best.bin"))
+    image = synthetic_images(1, 640, 640, 53)[0]
+    reset_launch_counts()
+    res = fresh.image_predict(image, 0.0)
+    served = launch_counts()
+    print(f"  best.bin in a fresh {POSE} YoloTask: image_predict gave "
+          f"{len(res)} rows with keypoints, kernel launches {served}",
+          flush=True)
+    if not res:
+        raise SystemExit(f"image_predict of the trained {POSE} returned "
+                         f"nothing")
+    check_keypoints([res], f"{POSE} best.bin")
+    check_path_launches(POSE, served, f"{POSE} best.bin")
+    return counts, served
+
+
+# the self-labelled val set of phase 10d: a keypoint is written visible (2)
+# where its predicted visibility is above POSE_VIS, else 0; a label keeps
+# at least POSE_MIN_VIS visible (its most visible ones)
+POSE_VIS, POSE_MIN_VIS = 0.5, 3
+
+
+def write_self_labelled_pose(root, task, conf):
+    """SELF_VAL 640x640 val images labelled with task's own predictions:
+    per image its SELF_LABELS highest-scored results, each written as its
+    class, its box and its 17 keypoints (visibility by POSE_VIS and
+    POSE_MIN_VIS). Returns (labels written, visible keypoints)."""
+    from yolosharp_tpu_torch.data.image_ops import encode_png
+
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub, "val"))
+    total = visible = 0
+    for i, img in enumerate(synthetic_images(SELF_VAL, 640, 640, 61)):
+        h, w = img.shape[:2]
+        rows = []
+        for r in sorted(task.image_predict(img, conf),
+                        key=lambda r: -r.score)[:SELF_LABELS]:
+            kp = np.array([(p.x, p.y, p.visibility) for p in r.keypoints])
+            vis = kp[:, 2] > POSE_VIS
+            vis[np.argsort(-kp[:, 2])[:POSE_MIN_VIS]] = True
+            kp[:, 2] = np.where(vis, 2.0, 0.0)
+            kp[:, :2] /= [w, h]
+            visible += int(vis.sum())
+            rows.append(f"{r.class_id} {r.center_x / w:.6f} "
+                        f"{r.center_y / h:.6f} {r.width / w:.6f} "
+                        f"{r.height / h:.6f} " + " ".join(
+                            f"{v:.6f}" for v in kp.reshape(-1)))
+        total += len(rows)
+        with open(os.path.join(root, "images", "val", f"{i:04d}.png"),
+                  "wb") as f:
+            f.write(encode_png(img, level=1))
+        with open(os.path.join(root, "labels", "val", f"{i:04d}.txt"),
+                  "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return total, visible
+
+
+def phase_pose_val(dev, root, state, conf):
+    """Phase 10d: PoseDetector.val of the seeded v11m-pose in float32 on the
+    card and on the CPU, on a val set labelled with its own predictions."""
+    from yolosharp_tpu_torch import ScalarType
+
+    print(f"phase 10d: {POSE} val, seeded weights, float32, card against "
+          f"CPU, on {SELF_VAL} 640x640 images labelled with its own "
+          f"predictions", flush=True)
+    cfg = dict(scalar_type=ScalarType.float32, root_path=root,
+               train_data_path="images/val", val_data_path="images/val",
+               image_size=640, batch_size=SELF_VAL)
+    cuda = build_tasks(dev, POSE, state, **cfg)
+    n, visible = write_self_labelled_pose(root, cuda[False], conf)
+    print(f"  {n} labels (at most {SELF_LABELS} an image), {visible} of "
+          f"{17 * n} keypoints visible", flush=True)
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    names = cuda[False].task.metric_names
+    for e2e in (False, True):
+        mode = f"{POSE} {'end2end' if e2e else 'nms'}"
+        got, want = (build_tasks(d, POSE, st, **cfg)[e2e].val()[1]
+                     for d, st in ((dev, state), ("cpu", cpu_state)))
+        print(f"  [{mode}] card / CPU: " + ", ".join(
+            f"{k} {g:.4f} / {c:.4f}" for k, g, c in zip(names, got, want)),
+            flush=True)
+        gap = max(abs(g - c) for g, c in zip(got, want))
+        print(f"  [{mode}] largest gap {gap:.4f} (at most {VAL_TOL}); "
+              f"mAP50 box / pose above 0 on both", flush=True)
+        if (gap > VAL_TOL or len(got) != 8
+                or min(got[2], got[6], want[2], want[6]) <= 0):
+            raise SystemExit(f"[{mode}] val on the card and on the CPU "
+                             f"disagree, or a mAP50 is 0")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1870,7 +2190,8 @@ def main() -> int:
 
     def serve(path):
         path_launches, forward, state, conf = timed(
-            PHASE[path], phase_slice, dev, path, light=path == "v5u")
+            PHASE[path], phase_slice, dev, path,
+            light=path in ("v5u", POSE_S))
         states[path], confs[path] = state, conf
         if path in CPU_MATCH:
             timed(CPU_MATCH[path], phase_cpu_match, dev, path, state, conf)
@@ -1879,7 +2200,7 @@ def main() -> int:
             per_forward.setdefault(name, {})[path] = forward[name]
 
     for path in PATHS:
-        if path != SEG:
+        if ARCH[path][2] == "detect":
             serve(path)
     stats["fused_attention"].update(
         timed("5", phase_attention_autograd, dev, tag))
@@ -1913,6 +2234,18 @@ def main() -> int:
         add(served, launches)
     with tempfile.TemporaryDirectory() as root:
         timed("9e", phase_seg_val, dev, root, states[SEG], confs[SEG])
+    serve(POSE)
+    serve(POSE_S)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_pose_dataset(root, 64, 16)
+        print(f"wrote the synthetic PNG pose dataset (64 train, 16 val) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        pose_train, served = timed("10c", phase_pose_train, dev, root, tag)
+        add(pose_train, train_launches)
+        add(served, launches)
+    with tempfile.TemporaryDirectory() as root:
+        timed("10d", phase_pose_val, dev, root, states[POSE], confs[POSE])
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules

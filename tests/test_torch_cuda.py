@@ -659,3 +659,100 @@ def test_segment_predict_on_the_card_matches_the_cpu(cuda, end2end):
         same += int((g.mask == w.mask).sum())
         total += w.mask.size
     assert same >= 0.999 * total, same / total
+
+
+# the pose head's odd-width 3x3 shapes (B, H, W, Ci, Co) at 640x640: the
+# cv4 keypoint towers of v11s-pose and every n-size pose head are c4 =
+# max(ch[0] // 4, 17 x 3) = 51 wide, so a 3x3 takes Co = 51 (bf16 rows of
+# 102 bytes, not 4-byte aligned) and then Ci = 51; the last at the served
+# batch of 32
+POSE_CONVS = {"cv4_p3_v11s": (2, 80, 80, 128, 51),
+              "cv4_tower_p3_v11s": (2, 80, 80, 51, 51),
+              "cv4_p4_v11s": (2, 40, 40, 256, 51),
+              "cv4_p5_v11s_b32": (32, 20, 20, 512, 51)}
+# chip_smoke.py's rules: float32 |k - p| <= 1e-4 + 1e-4|p|; bfloat16 and
+# float16 against the plain version evaluated in float64 on the same
+# rounded inputs, max|k - ref| / max|ref| within 1.25 u (the kernel rounds
+# its float32 sums once), u = 2^-8 and 2^-11
+UNIT = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(POSE_CONVS))
+def test_conv_kernels_on_the_odd_pose_widths(cuda, dtype, name, stride):
+    """Each stride of the conv kernel at the pose towers' Co / Ci = 51
+    shapes against the plain version, at chip_smoke's rules, with the
+    output's last channel checked too (the ragged tail of the stores)."""
+    B, H, W, ci, co = POSE_CONVS[name]
+    rng = np.random.default_rng(B * H + ci + co + stride)
+    dt = getattr(torch, dtype)
+    x = _rand(rng, B, H, W, ci).to(cuda, dt)
+    w = _rand(rng, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(cuda, dt)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    fn = conv3x3_silu if stride == 1 else conv3x3s2_silu
+    got = fn(x, w, b).float()
+    assert got.shape[-1] == co and bool(torch.isfinite(got).all())
+    if dtype == "float32":
+        torch.testing.assert_close(got, conv3x3_plain(x, w, b, "silu",
+                                                      stride), **TOL[dtype])
+        return
+    ref = conv3x3_plain(x.double(), w.double(), b.double(), "silu", stride)
+    dist = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert dist <= 1.25 * UNIT[dtype], dist / UNIT[dtype]
+    tail = float((got[..., -1].double() - ref[..., -1]).abs().max()
+                 / ref.abs().max())
+    assert tail <= 1.25 * UNIT[dtype], tail / UNIT[dtype]
+
+
+def test_v11s_pose_batch_predict_on_the_card_matches_the_cpu(cuda):
+    """v11s-pose (cv4 towers 51 wide) float32 batch_predict of two images
+    on the card, through the conv kernels, against the CPU's, same seeded
+    weights (conv kernels x2.0, the head's final convs, keypoints' too,
+    from U(-0.3, 0.3)): the first ten rows of each image by score, and
+    their 17 keypoints within 0.5 px, visibility within 1e-3."""
+    cfg = Config(task_type=TaskType.pose, yolo_type=YoloType.v11,
+                 yolo_size=YoloSize.s, number_class=1, end2end=False,
+                 scalar_type=ScalarType.float32)
+    cpu = YoloTask(cfg, device="cpu")
+    net = cpu.task._ensure_variables()
+    rng = np.random.default_rng(2)
+    head = net.model[-1]
+    assert head.cv4[0][0].conv.out_channels == 51
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, ConvBN):
+                m.conv.weight.mul_(2.0)
+        for p in (t for tower in (head.cv2, head.cv3, head.cv4)
+                  for branch in tower
+                  for t in (branch[2].weight, branch[2].bias)):
+            p.copy_(torch.from_numpy(rng.uniform(-0.3, 0.3, p.shape)
+                                     .astype(np.float32)))
+    card = YoloTask(cfg, device=cuda)
+    card.task._ensure_variables().load_state_dict(net.state_dict())
+    imgs = [rng.integers(0, 255, (256, 320, 3), dtype=np.uint8),
+            rng.integers(0, 255, (200, 264, 3), dtype=np.uint8)]
+    x = pad_to_multiple(torch.from_numpy(imgs[0])[None]).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        preds = cpu.task._predict_variables()(x.float() / 255.0)
+    flat = flatten_levels(preds["one2many"]["cls"]).sigmoid().amax(-1)
+    conf = float(np.quantile(flat.numpy(), 1 - 100 / flat.shape[1]))
+    reset_launch_counts()
+    got = card.batch_predict(imgs, conf, 0.45)
+    counts = launch_counts()
+    assert counts["conv3x3_silu"] > 0 and counts["conv3x3s2_silu"] > 0
+    assert counts["c2f_fused"] == counts["fused_attention"] == 0
+    want = cpu.batch_predict(imgs, conf, 0.45)
+    key = lambda r: (-r.score, r.center_x, r.center_y)  # noqa: E731
+    for got_i, want_i in zip(got, want):
+        assert len(want_i) > 5 and abs(len(got_i) - len(want_i)) <= 2
+        for g, w in zip(sorted(got_i, key=key)[:10],
+                        sorted(want_i, key=key)[:10]):
+            assert g.class_id == w.class_id and abs(g.score - w.score) < 1e-3
+            assert abs(g.center_x - w.center_x) <= 1
+            assert abs(g.center_y - w.center_y) <= 1
+            gk = np.array([(p.x, p.y, p.visibility) for p in g.keypoints])
+            wk = np.array([(p.x, p.y, p.visibility) for p in w.keypoints])
+            assert gk.shape == wk.shape == (17, 3)
+            assert np.abs(gk[:, :2] - wk[:, :2]).max() <= 0.5
+            assert np.abs(gk[:, 2] - wk[:, 2]).max() <= 1e-3

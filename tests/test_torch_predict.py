@@ -163,9 +163,10 @@ def test_image_and_batch_predict_results_match_jax(tasks):
 
 def test_port_runs_without_jax(tmp_path):
     """Importing every module of the port, predicting on the CPU (detect,
-    and segment with its masks) and saving and loading a checkpoint loads
-    neither jax nor flax nor cv2 (the GPU machine has none of them), nor
-    any module of the JAX package yolosharp_tpu."""
+    segment with its masks and pose with its keypoints) and saving and
+    loading a checkpoint loads neither jax nor flax nor cv2 (the GPU
+    machine has none of them), nor any module of the JAX package
+    yolosharp_tpu."""
     path = str(tmp_path / "v8n.bin")
     pkg = os.path.join(REPO, "yolosharp_tpu_torch")
     modules = sorted(
@@ -196,6 +197,11 @@ def test_port_runs_without_jax(tmp_path):
         "scalar_type=ScalarType.float32), device='cpu')\n"
         "r = s.image_predict(np.zeros((64, 96, 3), np.uint8), 0.0)\n"
         "assert r and r[0].mask.shape == (64, 96), r\n"
+        "p = YoloTask(Config(task_type=TaskType.pose, "
+        "yolo_size=YoloSize.n, number_class=1, "
+        "scalar_type=ScalarType.float32), device='cpu')\n"
+        "r = p.image_predict(np.zeros((64, 96, 3), np.uint8), 0.0)\n"
+        "assert r and len(r[0].keypoints) == 17, r\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
         "'ml_dtypes', 'yolosharp_tpu') or m.startswith(('jax.', 'flax.', "
         "'yolosharp_tpu.'))]\n"

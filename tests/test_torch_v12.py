@@ -113,7 +113,7 @@ def test_module_matches_jax(name):
 
 
 @pytest.mark.parametrize("version,task", [("v11", "obb"),
-                                          ("v8", "pose"),
+                                          ("v5u", "classify"),
                                           ("v12", "classify")])
 def test_build_arch_raises_for_what_is_not_ported(version, task):
     with pytest.raises(NotImplementedError,

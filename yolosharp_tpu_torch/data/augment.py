@@ -1,4 +1,4 @@
-"""Host augmentations of the detect and segment tasks (a copy of
+"""Host augmentations of the detect, segment and pose tasks (a copy of
 yolosharp_tpu/data/augment.py with the pixel work in ``image_ops`` instead
 of cv2; the same rng draws in the same order).
 
@@ -9,8 +9,13 @@ RandomHSV (968-989). The segment masks (overlap ids at 1 / mask_ratio) go
 through every transform: tiled with their ids offset in mosaic4, warped
 nearest with border 0, resized through ``image_ops.resize_mask_linear`` (as
 cv2 INTER_LINEAR blends ids), flipped, and renumbered 1..n after the
-mosaic's and the warp's box filters. mosaic4 and random_perspective also
-carry keypoints and OBB corners as the JAX package does.
+mosaic's and the warp's box filters. The pose keypoints go through every
+transform too: shifted by the letterbox and rectangle pads (an invisible
+keypoint at (0, 0) as well), offset and filtered with their boxes in
+mosaic4, warped with visibility 0 outside the canvas in
+random_perspective, and mirrored by the flips without a swap of left and
+right keypoints, as the JAX package does. mosaic4 and random_perspective
+also carry OBB corners.
 """
 
 from __future__ import annotations
@@ -245,6 +250,9 @@ def _resize_pad(img: np.ndarray, target_h: int, target_w: int,
 def _shift_labels(label: LabelRecord, pl: int, pu: int) -> None:
     if label.bboxes is not None and len(label.bboxes):
         label.bboxes = label.bboxes + [pl, pu, pl, pu]
+    if label.keypoints is not None and len(label.keypoints):
+        label.keypoints[..., 0] += pl
+        label.keypoints[..., 1] += pu
 
 
 def letterbox(label: LabelRecord, width: int, height: int,
@@ -288,6 +296,8 @@ def flip_lr(label: LabelRecord) -> LabelRecord:
         x1 = w - out.bboxes[:, 2]
         x2 = w - out.bboxes[:, 0]
         out.bboxes[:, 0], out.bboxes[:, 2] = x1, x2
+    if out.keypoints is not None and len(out.keypoints):
+        out.keypoints[..., 0] = w - out.keypoints[..., 0]
     return out
 
 
@@ -301,6 +311,8 @@ def flip_ud(label: LabelRecord) -> LabelRecord:
         y1 = h - out.bboxes[:, 3]
         y2 = h - out.bboxes[:, 1]
         out.bboxes[:, 1], out.bboxes[:, 3] = y1, y2
+    if out.keypoints is not None and len(out.keypoints):
+        out.keypoints[..., 1] = h - out.keypoints[..., 1]
     return out
 
 

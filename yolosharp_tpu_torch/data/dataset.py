@@ -1,6 +1,7 @@
-"""Detect and segment dataset: per-index transforms, padded batch
+"""Detect, segment and pose dataset: per-index transforms, padded batch
 collation and the planned batches of the device render (a copy of
-yolosharp_tpu/data/dataset.py:23-212, the detect and segment tasks).
+yolosharp_tpu/data/dataset.py:23-212, the detect, segment and pose
+tasks).
 
 Parity targets: Data/YoloDataset.cs:57-99 (transform composition,
 CloseMosaic) and Data/YoloDataLoader.cs:18-44 (collation, here to padded
@@ -12,7 +13,9 @@ planned batches instead (``device_batch``): labels planned on the host,
 pixels rendered on the device (``device_augment``). A segment batch also
 carries ``masks`` (B, h/r, w/r) float32 overlap ids, or, planned, the
 tile-local id pool ``aug_mask_pool`` and the plan's ``aug_mask_lut``, from
-which the train step renders ``masks``.
+which the train step renders ``masks``. A pose batch, collated or planned,
+carries ``keypoints`` (B, M, K, kd) float32, x and y normalised by the
+canvas.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from .labels import LabelRecord, load_labels
 
 
 class YoloDataset:
-    """Detect / segment dataset with the reference's augment pipeline (the
-    mosaic while it is open, letterbox after)."""
+    """Detect / segment / pose dataset with the reference's augment
+    pipeline (the mosaic while it is open, letterbox after)."""
 
     def __init__(self, config: Config, is_val: bool = False,
                  use_rectangle: bool = False, seed: int = 0):
@@ -164,10 +167,17 @@ class YoloDataset:
     def _label_arrays(self, recs: List[LabelRecord], max_labels: int,
                       h: int, w: int) -> Dict[str, np.ndarray]:
         """Padded, normalised label tensors for a batch (canvas h x w)."""
+        cfg = self.config
         b = len(recs)
         cls = np.zeros((b, max_labels), np.int32)
         bboxes = np.zeros((b, max_labels, 4), np.float32)
         mask_gt = np.zeros((b, max_labels), bool)
+        out = {"cls": cls, "bboxes": bboxes, "mask_gt": mask_gt}
+        pose = cfg.task_type == TaskType.pose
+        if pose:
+            out["keypoints"] = np.zeros(
+                (b, max_labels, cfg.keypoint_num, cfg.keypoint_dim),
+                np.float32)
         for i, r in enumerate(recs):
             n = min(len(r.cls), max_labels)
             if n == 0:
@@ -179,4 +189,9 @@ class YoloDataset:
             wh = bb[:, 2:] - bb[:, :2]
             bboxes[i, :n, :2] = cxy / [w, h]
             bboxes[i, :n, 2:4] = wh / [w, h]
-        return {"cls": cls, "bboxes": bboxes, "mask_gt": mask_gt}
+            if pose and r.keypoints is not None:
+                k = r.keypoints[:n].copy()
+                k[..., 0] /= w
+                k[..., 1] /= h
+                out["keypoints"][i, :n] = k
+        return out

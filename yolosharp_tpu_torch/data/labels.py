@@ -1,7 +1,7 @@
-"""Dataset scanning and YOLO-txt label parsing for the detect and segment
-tasks (a copy of yolosharp_tpu/data/labels.py; images are read and resized
-through ``image_ops``, without cv2 for PNG, and polygons filled by
-``image_ops.fill_poly``).
+"""Dataset scanning and YOLO-txt label parsing for the detect, segment and
+pose tasks (a copy of yolosharp_tpu/data/labels.py; images are read and
+resized through ``image_ops``, without cv2 for PNG, and polygons filled
+by ``image_ops.fill_poly``).
 
 Parity targets: Data/Base.cs:51-136 (image scanning / txt-list
 resolution), Data/YoloDataset.cs:153-376 (label parsing, eager resize,
@@ -27,7 +27,8 @@ IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff"}
 @dataclasses.dataclass
 class LabelRecord:
     """One image and its boxes (pixel units of `img`); for the segment task
-    its overlap-id mask (instance i + 1 per pixel, at 1 / mask_ratio)."""
+    its overlap-id mask (instance i + 1 per pixel, at 1 / mask_ratio), for
+    the pose task its keypoints."""
 
     im_file: str
     img: Optional[np.ndarray] = None          # (H, W, 3) uint8, resized
@@ -36,8 +37,8 @@ class LabelRecord:
     org_shape: Tuple[int, int] = (0, 0)       # (h, w)
     resized_shape: Tuple[int, int] = (0, 0)
     rectangle_shape: Optional[Tuple[int, int]] = None
-    # the pose and OBB labels, which the mosaic planner carries through;
-    # the detect and segment paths leave them None
+    # the pose task's keypoints; the OBB corners, which the mosaic planner
+    # carries through, stay None until the OBB task is ported
     keypoints: Optional[np.ndarray] = None    # (n, K, kd) pixels
     obb_corners: Optional[np.ndarray] = None  # (n, 4, 2) pixels
     mask: Optional[np.ndarray] = None         # (mh, mw) uint8 overlap ids
@@ -95,16 +96,19 @@ def img2label_paths(im_files: List[str]) -> List[str]:
 
 def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
                 ) -> List[LabelRecord]:
-    """Scan, parse and eagerly resize a detect or segment split
+    """Scan, parse and eagerly resize a detect, segment or pose split
     (YoloDataset.cs:153-367). A segment row is a class and a polygon: its
     box spans the polygon's extremes, and the polygon, scaled to the mask
     (ceil(size / mask_ratio)) and truncated to int32, is filled with its
-    row's id + 1, later rows over earlier ones."""
+    row's id + 1, later rows over earlier ones. A pose row is a class, a
+    box (columns 1-4) and K kd keypoint values from column 5 on, their
+    coordinates scaled to resized pixels."""
     task = config.task_type
-    if task not in (TaskType.detect, TaskType.segment):
+    if task not in (TaskType.detect, TaskType.segment, TaskType.pose):
         raise NotImplementedError(
-            f"the torch port reads detect and segment labels only so far, "
-            f"not {task.value} (ROADMAP queue 1 item 5)")
+            f"the torch port reads detect, segment and pose labels only so "
+            f"far, not {task.value} (ROADMAP queue 1 item 5)")
+    nkpt, ndim = config.keypoint_num, config.keypoint_dim
     imgsz = config.image_size
     mask_ratio = config.mask_ratio
     scan = config.val_data_path if is_val else config.train_data_path
@@ -134,9 +138,14 @@ def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
         mask = (np.zeros((math.ceil(rh / mask_ratio),
                           math.ceil(rw / mask_ratio)), np.uint8)
                 if task == TaskType.segment else None)
+        kpts = (np.zeros((n, nkpt, ndim), np.float32)
+                if task == TaskType.pose else None)
         for i, parts in enumerate(rows):
             vals = [float(v) for v in parts]
             cls[i] = vals[0]
+            if kpts is not None:
+                kpts[i] = np.asarray(vals[5:5 + nkpt * ndim],
+                                     np.float32).reshape(nkpt, ndim)
             if mask is None:
                 bboxes[i] = vals[1:5]
                 continue
@@ -153,6 +162,10 @@ def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
         wh = bboxes[:, 2:] * [rw, rh]
         rec.bboxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1)
         rec.cls = cls
+        if kpts is not None:
+            kpts[..., 0] *= rw
+            kpts[..., 1] *= rh
+            rec.keypoints = kpts
         rec.mask = mask
         records.append(rec)
 

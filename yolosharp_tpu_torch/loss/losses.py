@@ -1,11 +1,14 @@
-"""Detection and segmentation losses and the End2End pair (counterpart of
-yolosharp_tpu/loss/losses.py:42-166, :237-349, :436-491; parity target
-YoloSharp/Utils/Loss.cs:94-484, 233-325, 688-863 and 1094-1176).
+"""Detection, segmentation and pose losses and the End2End pair
+(counterpart of yolosharp_tpu/loss/losses.py:36-166, :237-405, :436-491;
+parity target YoloSharp/Utils/Loss.cs:94-484, 233-325, 688-1070 and
+1094-1176).
 
 Losses are functions over padded batches on the device:
   batch = {"cls": (B, M) int, "bboxes": (B, M, 4) normalised xywh,
            "mask_gt": (B, M) bool,
-           "masks": (B, mh, mw) segment only: overlap ids (instance + 1)}
+           "masks": (B, mh, mw) segment only: overlap ids (instance + 1),
+           "keypoints": (B, M, K, kd) pose only: normalised x, y
+                        (+ visibility)}
 and the head's raw maps [(B, C, H, W)] x 3 levels (and a segment branch's
 "proto" (B, nm, mh, mw)). They run in float32 whatever the network's type,
 as in the JAX package.
@@ -26,6 +29,10 @@ from ..ops.masks import crop_mask
 from .tal import assign
 
 STRIDES = (8, 16, 32)
+
+# the COCO keypoints' OKS sigmas (Loss.cs KeypointLoss, Metrics OKS_SIGMA)
+OKS_SIGMA = torch.tensor([.26, .25, .25, .35, .35, .79, .79, .72, .72, .62,
+                          .62, 1.07, 1.07, .87, .87, .89, .89]) / 10.0
 
 
 def flatten_levels(maps) -> torch.Tensor:
@@ -241,6 +248,67 @@ def segmentation_loss(preds: Dict, batch: Dict, *, nc: int,
     items = torch.stack([out.loss_box * hyp_box, loss_seg * hyp_box,
                          out.loss_cls * hyp_cls, out.loss_dfl * hyp_dfl,
                          loss_semseg])
+    return items.sum() * b, items
+
+
+def pose_loss(preds: Dict, batch: Dict, *, nc: int, kpt_num: int = 17,
+              kpt_dim: int = 3, reg_max: int = 16, tal_topk: int = 10,
+              tal_topk2: int | None = 10, hyp_box: float = 7.5,
+              hyp_cls: float = 0.5, hyp_dfl: float = 1.5,
+              hyp_pose: float = 12.0, hyp_kobj: float = 1.0):
+    """v8PoseLoss (Loss.cs:870-1070) on one branch's maps. Returns (loss,
+    items (5,) = box, pose, kobj, cls, dfl).
+
+    Each foreground anchor's keypoints decode as (raw * 2 + anchor - 0.5)
+    in grid units against its assigned ground truth's, scaled to the
+    anchor's grid; the OKS-style loss takes the COCO sigmas when K = 17
+    and kd = 3, else 1 / K, over the keypoints with a visibility other than
+    0 (all of them when kd = 2), and kobj is the BCE of the visibility
+    logit against that mask (0 when kd = 2)."""
+    out = _det_core(preds, batch, nc=nc, reg_max=reg_max, tal_topk=tal_topk,
+                    tal_topk2=tal_topk2)
+    b, a = out.fg_mask.shape
+    ih, iw = _imgsz(preds)
+    dev = out.fg_mask.device
+
+    raw = flatten_levels(preds["kpt"]).float().reshape(b, a, kpt_num,
+                                                       kpt_dim)
+    # kpts_decode (Loss.cs:977-984), grid units; the visibility stays raw
+    xy = raw[..., :2] * 2.0 + (out.anchor_points[None, :, None] - 0.5)
+    pred_kpts = torch.cat([xy, raw[..., 2:]], -1)
+
+    # ground truths to pixels, then to each anchor's grid
+    gt = batch["keypoints"].float()                       # (B, M, K, kd)
+    scale = torch.tensor([iw, ih], dtype=torch.float32, device=dev)
+    gt = torch.cat([gt[..., :2] * scale, gt[..., 2:]], -1)
+    sel = take_gt(gt, out.target_gt_idx)                  # (B, A, K, kd)
+    sel = torch.cat([sel[..., :2] / out.stride_tensor[None, :, :, None],
+                     sel[..., 2:]], -1)
+
+    fg = out.fg_mask.float()                              # (B, A)
+    area = xyxy2xywh(out.target_bboxes / out.stride_tensor)[..., 2:4] \
+        .prod(-1)                                         # (B, A)
+    kpt_mask = ((sel[..., 2] != 0).float() if kpt_dim == 3
+                else torch.ones(sel.shape[:-1], device=dev))
+    d = ((pred_kpts[..., 0] - sel[..., 0]) ** 2
+         + (pred_kpts[..., 1] - sel[..., 1]) ** 2)        # (B, A, K)
+    sigmas = (OKS_SIGMA.to(dev) if (kpt_num == 17 and kpt_dim == 3)
+              else torch.ones(kpt_num, device=dev) / kpt_num)
+    e = d / ((2 * sigmas) ** 2 * (area[..., None] + 1e-9) * 2)
+    factor = kpt_num / (kpt_mask.sum(-1) + 1e-6)          # (B, A)
+    per_anchor = (factor[..., None] * (1 - torch.exp(-e)) * kpt_mask).mean(-1)
+    n_fg = fg.sum().clamp(min=1.0)
+    loss_pose = (per_anchor * fg).sum() / n_fg
+
+    if kpt_dim == 3:
+        kobj = bce_logits(pred_kpts[..., 2], kpt_mask).mean(-1)
+        loss_kobj = (kobj * fg).sum() / n_fg
+    else:
+        loss_kobj = torch.zeros((), device=dev)
+
+    items = torch.stack([out.loss_box * hyp_box, loss_pose * hyp_pose,
+                         loss_kobj * hyp_kobj, out.loss_cls * hyp_cls,
+                         out.loss_dfl * hyp_dfl])
     return items.sum() * b, items
 
 

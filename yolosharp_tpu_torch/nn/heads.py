@@ -1,7 +1,8 @@
-"""Detection and segment heads (counterpart of yolosharp_tpu/nn/heads.py:
-_Branch, _SimpleBranch, Detect, Segment). The heads return RAW per-level
-maps; decoding lives in ``predict.py``. End2End heads carry ``one2one_*``
-towers, run on detached features (Head.cs:92-101)."""
+"""Detection, segment and pose heads (counterpart of
+yolosharp_tpu/nn/heads.py: _Branch, _SimpleBranch, Detect, Segment, Pose).
+The heads return RAW per-level maps; decoding lives in ``predict.py``.
+End2End heads carry ``one2one_*`` towers, run on detached features
+(Head.cs:92-101)."""
 
 from __future__ import annotations
 
@@ -94,7 +95,8 @@ class Detect(nn.Module):
 
 class _SimpleBranch(nn.Sequential):
     """ConvBN 3x3 -> ConvBN 3x3 -> Conv2d 1x1 (always legacy): the segment
-    head's mask-coefficient towers, cv4."""
+    head's mask-coefficient towers and the pose head's keypoint towers,
+    cv4."""
 
     def __init__(self, cin: int, mid: int, out: int):
         super().__init__(ConvBN(cin, mid, 3), ConvBN(mid, mid, 3),
@@ -134,3 +136,29 @@ class Segment(Detect):
             if name in preds:
                 preds[name]["proto"] = p
         return preds
+
+
+class Pose(Detect):
+    """Detect + per-level keypoint towers cv4 of c4 = max(ch[0] // 4, K kd)
+    channels, K kd out (Head.cs:526-563): raw "kpt" maps, decoded in
+    predict and the loss. No proto."""
+
+    def __init__(self, nc: int = 80, reg_max: int = 16,
+                 ch: Sequence[int] = (64, 128, 256), legacy: bool = True,
+                 end2end: bool = False, kpt_num: int = 17, kpt_dim: int = 3):
+        super().__init__(nc, reg_max, ch, legacy, end2end)
+        self.kpt_num, self.kpt_dim = kpt_num, kpt_dim
+        nk = kpt_num * kpt_dim
+        c4 = max(self.ch[0] // 4, nk)
+
+        def towers():
+            return nn.ModuleList(_SimpleBranch(c, c4, nk) for c in self.ch)
+
+        self.cv4 = towers()
+        if end2end:
+            self.one2one_cv4 = towers()
+
+    def towers(self, one2one: bool) -> Dict[str, nn.ModuleList]:
+        out = super().towers(one2one)
+        out["kpt"] = getattr(self, ("one2one_" if one2one else "") + "cv4")
+        return out

@@ -1,4 +1,5 @@
-"""Model assembly for the v5u, v8, v11 and v12 detect and segment networks
+"""Model assembly for the v5u, v8, v11 and v12 detect, segment and pose
+networks
 (counterpart of yolosharp_tpu/nn/model.py: _v8_layers, _v5u_layers,
 _v11_layers, _v12_layers, build_arch, YoloNet).
 
@@ -18,7 +19,7 @@ from torch import nn
 
 from .attention import A2C2f, C2PSA
 from .common import C2f, C3, C3k2, Concat, ConvBN, SPPF, Upsample
-from .heads import DFL, Detect, Segment
+from .heads import DFL, Detect, Pose, Segment
 
 
 class ArchCfg(NamedTuple):
@@ -29,6 +30,8 @@ class ArchCfg(NamedTuple):
     task: str = "detect"
     nc: int = 80
     reg_max: int = 16
+    kpt_num: int = 17
+    kpt_dim: int = 3
     end2end: bool = False
 
 
@@ -173,18 +176,23 @@ _BUILDERS = {"v8": (_v8_layers, True), "v5u": (_v5u_layers, True),
 
 
 def build_arch(cfg: ArchCfg):
-    """(layers, out_idx, concat_idx, head) for the detect or segment task;
-    the segment head's Proto is ch[0] wide with NM = 32 prototypes
-    (yolosharp_tpu/nn/model.py:200-201)."""
-    if cfg.version not in _BUILDERS or cfg.task not in ("detect", "segment"):
+    """(layers, out_idx, concat_idx, head) for the detect, segment or pose
+    task; the segment head's Proto is ch[0] wide with NM = 32 prototypes
+    (yolosharp_tpu/nn/model.py:200-206), the pose head's keypoints are
+    kpt_num x kpt_dim."""
+    if cfg.version not in _BUILDERS or cfg.task not in ("detect", "segment",
+                                                        "pose"):
         raise NotImplementedError(
-            f"the torch port has only v5u, v8, v11 and v12 detect and "
-            f"segment so far, not {cfg.version} {cfg.task}")
+            f"the torch port has only v5u, v8, v11 and v12 detect, segment "
+            f"and pose so far, not {cfg.version} {cfg.task}")
     builder, legacy = _BUILDERS[cfg.version]
     layers, out_idx, concat_idx, w = builder(cfg.size)
     ch = (w[2], w[3], w[4])
     if cfg.task == "segment":
         head = Segment(cfg.nc, cfg.reg_max, ch, legacy, cfg.end2end)
+    elif cfg.task == "pose":
+        head = Pose(cfg.nc, cfg.reg_max, ch, legacy, cfg.end2end,
+                    cfg.kpt_num, cfg.kpt_dim)
     else:
         head = Detect(cfg.nc, cfg.reg_max, ch, legacy, cfg.end2end)
     return layers, out_idx, concat_idx, head
@@ -220,9 +228,9 @@ def _out_channels(mod: nn.Module) -> int:
 
 
 class YoloNet(nn.Module):
-    """v5u / v8 / v11 / v12 detect or segment network. forward(x) takes
-    (B, 3, H, W) in [0, 1] and returns the head's raw maps {"one2many":
-    {"box", "cls"[, "mask", "proto"]}, ["one2one"]}."""
+    """v5u / v8 / v11 / v12 detect, segment or pose network. forward(x)
+    takes (B, 3, H, W) in [0, 1] and returns the head's raw maps
+    {"one2many": {"box", "cls"[, "mask", "proto" | "kpt"]}, ["one2one"]}."""
 
     def __init__(self, cfg: ArchCfg, generator: Optional[torch.Generator] = None):
         super().__init__()

@@ -1,6 +1,6 @@
 """IoU of boxes: pairwise ``box_iou`` and elementwise ``bbox_iou`` with
-CIoU / DIoU / GIoU, and of masks, ``mask_iou`` (counterpart of
-yolosharp_tpu/ops/iou.py:16-72)."""
+CIoU / DIoU / GIoU; of masks, ``mask_iou``; and of keypoints, the OKS
+``kpt_iou`` (counterpart of yolosharp_tpu/ops/iou.py:16-72, :130-139)."""
 
 from __future__ import annotations
 
@@ -73,3 +73,17 @@ def mask_iou(mask1: torch.Tensor, mask2: torch.Tensor,
     inter = (mask1 @ mask2.T).clamp(min=0)
     union = mask1.sum(1)[:, None] + mask2.sum(1)[None, :] - inter
     return inter / (union + eps)
+
+
+def kpt_iou(kpt1: torch.Tensor, kpt2: torch.Tensor, area: torch.Tensor,
+            sigma: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Object Keypoint Similarity: ground truths (N, K, 3) with their
+    areas (N,) against predictions (M, K, 2|3) -> (N, M), over the ground
+    truth's keypoints with a visibility other than 0."""
+    d = ((kpt1[:, None, :, 0] - kpt2[None, :, :, 0]) ** 2
+         + (kpt1[:, None, :, 1] - kpt2[None, :, :, 1]) ** 2)   # (N, M, K)
+    sigma = torch.as_tensor(sigma, dtype=kpt1.dtype, device=kpt1.device)
+    kpt_mask = (kpt1[..., 2] != 0).to(kpt1.dtype)              # (N, K)
+    e = d / ((2 * sigma) ** 2 * (area[:, None, None] + eps) * 2)
+    return ((torch.exp(-e) * kpt_mask[:, None]).sum(-1)
+            / (kpt_mask.sum(-1)[:, None] + eps))

@@ -1,7 +1,7 @@
 """Head-output decoding: DFL + anchors + sigmoid, select-then-decode top-k,
 and the End2End top-k postprocess (counterpart of
-yolosharp_tpu/predict.py, detect subset). Decoding runs in float32 whatever
-the network's dtype, as in the JAX package."""
+yolosharp_tpu/predict.py: detect, segment and pose). Decoding runs in
+float32 whatever the network's dtype, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -20,26 +20,48 @@ def _anchors(branch: Dict):
     return make_anchors(shapes, STRIDES, device=branch["box"][0].device)
 
 
+def decode_keypoints(raw: torch.Tensor, anchors: torch.Tensor,
+                     strides: torch.Tensor, kpt_num: int,
+                     kpt_dim: int) -> torch.Tensor:
+    """Raw keypoint channels (B, N, K kd) of N anchors (anchors (N, 2) or
+    (B, N, 2) in grid units, strides alike) -> (B, N, K kd) image pixels:
+    x, y = (raw * 2 + anchor - 0.5) * stride, and the visibility's sigmoid
+    when kd = 3 (Head.cs:546-563), in float32."""
+    b, n, _ = raw.shape
+    kpts = raw.float().reshape(b, n, kpt_num, kpt_dim)
+    xy = (kpts[..., :2] * 2.0 + (anchors[..., None, :] - 0.5)) \
+        * strides[..., None, :]
+    if kpt_dim == 3:
+        xy = torch.cat([xy, kpts[..., 2:3].sigmoid()], -1)
+    return xy.reshape(b, n, kpt_num * kpt_dim)
+
+
 def decode_inference(branch: Dict, *, reg_max: int = 16,
-                     end2end: bool = False) -> torch.Tensor:
-    """Raw head maps -> (B, 4 + nc [+ nm], A): boxes (xywh, or xyxy when
-    e2e) in image pixels, sigmoided class scores [and a segment branch's
-    mask coefficients]."""
+                     end2end: bool = False, kpt_num: int = 17,
+                     kpt_dim: int = 3) -> torch.Tensor:
+    """Raw head maps -> (B, 4 + nc [+ nm | + K kd], A): boxes (xywh, or
+    xyxy when e2e) in image pixels, sigmoided class scores [and a segment
+    branch's mask coefficients, or a pose branch's decoded keypoints]."""
     anchors, strides = _anchors(branch)
     dist = dfl_decode(flatten_levels(branch["box"]), reg_max)
     dbox = dist2bbox(dist, anchors, xywh=not end2end) * strides
     parts = [dbox, flatten_levels(branch["cls"]).float().sigmoid()]
     if "mask" in branch:
         parts.append(flatten_levels(branch["mask"]).float())
+    if "kpt" in branch:
+        parts.append(decode_keypoints(flatten_levels(branch["kpt"]), anchors,
+                                      strides, kpt_num, kpt_dim))
     return torch.cat(parts, -1).transpose(-1, -2)
 
 
 def decode_inference_topk(branch: Dict, *, conf_thres: float, k: int,
-                          reg_max: int = 16
+                          reg_max: int = 16, kpt_num: int = 17,
+                          kpt_dim: int = 3
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Select-then-decode: top-k on the RAW class logits, then the DFL and
-    anchor decode of the K selected anchors only (exact: sigmoid is
-    monotone). Returns (pred (B, 4 + nc [+ nm], K), truncated (B,)),
+    """Select-then-decode: top-k on the RAW class logits, then the DFL,
+    anchor and keypoint decode of the K selected anchors only (exact:
+    sigmoid is monotone). Returns (pred (B, 4 + nc [+ nm | + K kd], K),
+    truncated (B,)),
     truncated flagging images with more than K above-threshold
     candidates."""
     cls_l = flatten_levels(branch["cls"])                  # (B, A, nc)
@@ -62,6 +84,9 @@ def decode_inference_topk(branch: Dict, *, conf_thres: float, k: int,
     parts = [dbox, gather(branch["cls"]).float().sigmoid()]
     if "mask" in branch:
         parts.append(gather(branch["mask"]).float())
+    if "kpt" in branch:
+        parts.append(decode_keypoints(gather(branch["kpt"]), anc_k, str_k,
+                                      kpt_num, kpt_dim))
     return torch.cat(parts, -1).transpose(-1, -2), truncated
 
 
@@ -69,8 +94,9 @@ def e2e_postprocess(pred: torch.Tensor, *, nc: int,
                     max_det: int = 300) -> torch.Tensor:
     """NMS-free top-k select (Head.cs postprocess/get_topk_index:117-196).
     pred: (B, A, 4 + nc + E) with xyxy boxes and E extra channels (a
-    segment branch's mask coefficients). Returns (B, min(max_det, A),
-    6 + E): [x1, y1, x2, y2, score, cls, extras of the row's anchor]."""
+    segment branch's mask coefficients, a pose branch's keypoints).
+    Returns (B, min(max_det, A), 6 + E): [x1, y1, x2, y2, score, cls,
+    extras of the row's anchor]."""
     boxes, scores = pred[..., :4], pred[..., 4:4 + nc]
     extras = pred[..., 4 + nc:]
     b, a, _ = scores.shape

@@ -1,6 +1,6 @@
-"""The task layer for detect and segment and the YoloTask facade
+"""The task layer for detect, segment and pose and the YoloTask facade
 (counterpart of yolosharp_tpu/tasks.py: BaseTask / Detector / Segmenter /
-YoloTask): train, val, predict, load and save.
+PoseDetector / YoloTask): train, val, predict, load and save.
 
 Predict: requests arrive as uint8 HWC RGB numpy arrays, are padded with 114
 to a multiple of 32 on the host, shipped as uint8 and normalised (/255) on
@@ -11,7 +11,8 @@ in the compute dtype, refolded whenever a master parameter or buffer has
 changed (training bumps their versions). Segment predict decodes each
 image's masks on the device from the proto and the kept rows' coefficients
 (process_mask, upsampled to the canvas) and copies them to the host once
-an image, as bool.
+an image, as bool. Pose rows carry their K keypoints, decoded to canvas
+pixels on the device, as KeyPoints.
 
 Train: the float32 master network in train mode, batches from data/
 copied to the device ahead of the step (while the mosaic is open, planned
@@ -27,6 +28,7 @@ outside train().
 from __future__ import annotations
 
 import copy
+import gc
 import itertools
 import os
 import time
@@ -44,18 +46,18 @@ from .ckpt.resume import restore_train_state, save_train_state
 from .config import Config, resolve_device, torch_dtype
 from .data import DataLoader, YoloDataset, device_prefetch, to_device
 from .data.image_ops import nearest_indices, read_image_rgb
-from .loss import (detection_loss, e2e_gain_schedule, e2e_wrap,
-                   segmentation_loss)
+from .loss import (OKS_SIGMA, detection_loss, e2e_gain_schedule, e2e_wrap,
+                   pose_loss, segmentation_loss)
 from .nn import ArchCfg, YoloNet
 from .ops.boxes import xywh2xyxy
-from .ops.iou import box_iou, mask_iou
+from .ops.iou import box_iou, kpt_iou, mask_iou
 from .ops.masks import process_mask
 from .ops.nms import NMSOutput, non_max_suppression
 from .predict import (decode_inference, decode_inference_topk,
                       e2e_postprocess, pad_to_multiple)
 from .train import (MAX_LOSS_SCALE, TrainState, make_eval_step,
                     make_optimizer, make_train_step)
-from .types import TaskType, YoloResult
+from .types import KeyPoint, TaskType, YoloResult
 from .utils import (EarlyStopping, TrainLogger, ap_per_class,
                     match_predictions, summarize)
 
@@ -74,6 +76,16 @@ def _to_host(out):
     return out.cpu().numpy()
 
 
+def _image_gts(batch, i, scale):
+    """(classes, xywh pixels, xyxy pixels, valid mask) of image i's ground
+    truths in a host batch; `scale` is [w, h, w, h] of its canvas."""
+    gmask = batch["mask_gt"][i]
+    gxywh = batch["bboxes"][i][gmask][:, :4] * scale
+    gxyxy = np.concatenate([gxywh[:, :2] - gxywh[:, 2:] / 2,
+                            gxywh[:, :2] + gxywh[:, 2:] / 2], -1)
+    return batch["cls"][i][gmask].astype(float), gxywh, gxyxy, gmask
+
+
 class Detector:
     """v5u / v8 / v11 / v12 detection: train, val, predict, load and save
     (YoloTask's detect task)."""
@@ -82,6 +94,9 @@ class Detector:
     metric_names: Tuple[str, ...] = ("precision(B)", "recall(B)", "mAP50(B)",
                                      "mAP50-95(B)")
     val_conf: float = 0.1
+    # the accumulator key and the print label of val's second match (the
+    # masks' or the keypoints'), which the last four metrics summarise
+    extra_match: Optional[Tuple[str, str]] = None
 
     def __init__(self, config: Config, device=None):
         self.config = config
@@ -90,6 +105,7 @@ class Detector:
         self.arch = ArchCfg(
             version=config.yolo_type.value, size=config.yolo_size.value,
             task=config.task_type.value, nc=config.number_class,
+            kpt_num=config.keypoint_num, kpt_dim=config.keypoint_dim,
             end2end=config.end2end)
         self.net: Optional[YoloNet] = None
         self._fused: Optional[Tuple[tuple, YoloNet]] = None
@@ -124,9 +140,15 @@ class Detector:
         return self._fused[1]
 
     # ------------------------------------------------------------ decode
+    @property
+    def _kpt_shape(self) -> Dict[str, int]:
+        """The keypoint arguments of the decodes (used by a pose branch)."""
+        return {"kpt_num": self.arch.kpt_num, "kpt_dim": self.arch.kpt_dim}
+
     def _decode_branch(self, preds):
         branch = preds["one2one"] if self.arch.end2end else preds["one2many"]
-        dec = decode_inference(branch, end2end=self.arch.end2end)
+        dec = decode_inference(branch, end2end=self.arch.end2end,
+                               **self._kpt_shape)
         if self.arch.end2end:
             dec = e2e_postprocess(dec.transpose(-1, -2),
                                   nc=self.config.number_class)
@@ -149,7 +171,8 @@ class Detector:
         elif self.config.nms_pre_topk:
             # select-then-decode: exact, decodes only the top-k anchors
             dec, trunc = decode_inference_topk(
-                branch, conf_thres=conf, k=self.config.nms_pre_topk)
+                branch, conf_thres=conf, k=self.config.nms_pre_topk,
+                **self._kpt_shape)
             out = non_max_suppression(dec, conf, iou, nc=nc)
             out = out._replace(truncated=out.truncated | trunc)
         else:
@@ -187,9 +210,22 @@ class Detector:
         nms = self._nms_of(out)
         if nms is not None:
             _warn_if_truncated(nms)
-        hw = tuple(batch.shape[1:3])
-        return [self._batch_results(out, i, conf, hw, shape)
-                for i, shape in enumerate(shapes)]
+        return self._results(out, conf, tuple(batch.shape[1:3]), shapes)
+
+    def _results(self, out, conf, hw, shapes) -> List[List[YoloResult]]:
+        """The result lists of a host predict output's images (their own
+        (h, w) `shapes`, canvas hw), built with the cyclic garbage collector
+        paused: they are many small objects (a pose row holds K KeyPoints),
+        and the collections their allocations trigger would walk the whole
+        heap, most of a b32 pose call's host time."""
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            return [self._batch_results(out, i, conf, hw, shape)
+                    for i, shape in enumerate(shapes)]
+        finally:
+            if enabled:
+                gc.enable()
 
     def image_predict(self, image, predict_threshold=None,
                       iou_threshold=None) -> List[YoloResult]:
@@ -257,7 +293,8 @@ class Detector:
         if skip_nc_not_equal_layers:
             skip = skip_patterns_for_nc_mismatch(
                 self.arch.task, len(net.model) - 1, sd,
-                self.config.number_class)
+                self.config.number_class,
+                self.arch.kpt_num * self.arch.kpt_dim)
         report = load_state_dict_into(net, sd, skip)
         if self.arch.end2end:
             clone_one2one(net)
@@ -273,16 +310,19 @@ class Detector:
         save_bin(path, sd)
 
     # -------------------------------------------------------------- losses
+    def _task_loss(self):
+        """(the task's loss on one branch, the one2one branch's TAL
+        arguments under End2End)."""
+        return (partial(detection_loss, nc=self.config.number_class),
+                {"tal_topk": 1})
+
     def _loss_fns(self):
         """(train loss, eval loss). End2End sums one2many (TAL top-k 10)
-        and one2one (top-k 1)."""
-        nc = self.config.number_class
+        and one2one (_task_loss's top-k)."""
+        base, one2one = self._task_loss()
         if self.arch.end2end:
-            fn = e2e_wrap(partial(detection_loss, nc=nc, tal_topk=10),
-                          partial(detection_loss, nc=nc, tal_topk=1))
+            fn = e2e_wrap(partial(base, tal_topk=10), partial(base, **one2one))
         else:
-            base = partial(detection_loss, nc=nc)
-
             def fn(preds, batch, **kw):
                 return base(preds["one2many"], batch)
         return fn, fn
@@ -453,7 +493,10 @@ class Detector:
             dec, preds["one2one" if self.arch.end2end else "one2many"])
 
     def _new_val_accumulator(self) -> Dict[str, list]:
-        return {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        acc = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+        if self.extra_match:
+            acc[self.extra_match[0]] = []
+        return acc
 
     def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
         """Match one batch's predictions to its ground truths: the IoU of
@@ -479,16 +522,26 @@ class Detector:
             acc["target_cls"].append(gcls)
 
     def _finalize_val(self, acc, count) -> List[float]:
+        """P, R, mAP50 and mAP50-95 of the boxes, then of extra_match's."""
         if not acc["tp"]:
-            return [0.0, 0.0, 0.0, 0.0]
-        tp, conf, pred_cls, target_cls = (
-            np.concatenate(acc[k]) for k in ("tp", "conf", "pred_cls",
-                                             "target_cls"))
-        p, r, m50, m5095 = summarize(ap_per_class(tp, conf, pred_cls,
-                                                  target_cls))
-        print(f"{'All':>10}{count:>10}{len(target_cls):>10}"
-              f"{p:>10.3f}{r:>10.3f}{m50:>10.3f}{m5095:>10.3f}")
-        return [p, r, m50, m5095]
+            return [0.0] * len(self.metric_names)
+        conf, pred_cls, target_cls = (np.concatenate(acc[k]) for k in
+                                      ("conf", "pred_cls", "target_cls"))
+        keys = ["tp"] + ([self.extra_match[0]] if self.extra_match else [])
+        res = [summarize(ap_per_class(np.concatenate(acc[k]), conf,
+                                      pred_cls, target_cls)) for k in keys]
+        if self.extra_match is None:
+            p, r, m50, m5095 = res[0]
+            print(f"{'All':>10}{count:>10}{len(target_cls):>10}"
+                  f"{p:>10.3f}{r:>10.3f}{m50:>10.3f}{m5095:>10.3f}")
+        else:
+            box, ext = res
+            print(f"{'All':>10}{count:>10}{len(target_cls):>10} "
+                  f"Box P/R/mAP50/mAP50-95: "
+                  f"{box[0]:.3f}/{box[1]:.3f}/{box[2]:.3f}/{box[3]:.3f} "
+                  f"{self.extra_match[1]}: "
+                  f"{ext[0]:.3f}/{ext[1]:.3f}/{ext[2]:.3f}/{ext[3]:.3f}")
+        return [float(v) for m in res for v in m]
 
 
 class Segmenter(Detector):
@@ -500,21 +553,12 @@ class Segmenter(Detector):
     metric_names = ("precision(B)", "recall(B)", "mAP50(B)", "mAP50-95(B)",
                     "precision(M)", "recall(M)", "mAP50(M)", "mAP50-95(M)")
     val_conf = 0.01
+    extra_match = ("tp_m", "Mask")
 
-    def _loss_fns(self):
-        """(train loss, eval loss). End2End sums one2many (TAL top-k 10)
-        and one2one (top-k 7, then 1)."""
-        nc = self.config.number_class
-        if self.arch.end2end:
-            fn = e2e_wrap(
-                partial(segmentation_loss, nc=nc, tal_topk=10),
-                partial(segmentation_loss, nc=nc, tal_topk=7, tal_topk2=1))
-        else:
-            base = partial(segmentation_loss, nc=nc)
-
-            def fn(preds, batch, **kw):
-                return base(preds["one2many"], batch)
-        return fn, fn
+    def _task_loss(self):
+        """End2End's one2one branch assigns at top-k 7, then 1."""
+        return (partial(segmentation_loss, nc=self.config.number_class),
+                {"tal_topk": 7, "tal_topk2": 1})
 
     @property
     def _rows_key(self) -> str:
@@ -557,9 +601,6 @@ class Segmenter(Detector):
             results.append(r)
         return results
 
-    def _new_val_accumulator(self) -> Dict[str, list]:
-        return dict(super()._new_val_accumulator(), tp_m=[])
-
     def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
         """Per image: box IoU and mask IoU of every (gt, prediction) pair,
         the predicted masks at proto resolution against the ground truth's
@@ -571,11 +612,7 @@ class Segmenter(Detector):
         for i in range(batch["images"].shape[0]):
             boxes, scores, classes, coeffs = self._rows(rows, i,
                                                         self.val_conf)
-            gmask = batch["mask_gt"][i]
-            gcls = batch["cls"][i][gmask].astype(float)
-            gxywh = batch["bboxes"][i][gmask][:, :4] * scale
-            gxyxy = np.concatenate([gxywh[:, :2] - gxywh[:, 2:] / 2,
-                                    gxywh[:, :2] + gxywh[:, 2:] / 2], -1)
+            gcls, _, gxyxy, _ = _image_gts(batch, i, scale)
             nl, n = len(gxyxy), len(boxes)
             iou = miou = np.zeros((nl, n))
             if n and nl:
@@ -601,36 +638,94 @@ class Segmenter(Detector):
             acc["pred_cls"].append(cls_f)
             acc["target_cls"].append(gcls)
 
-    def _finalize_val(self, acc, count) -> List[float]:
-        if not acc["tp"]:
-            return [0.0] * 8
-        conf, pred_cls, target_cls = (np.concatenate(acc[k]) for k in
-                                      ("conf", "pred_cls", "target_cls"))
-        box = summarize(ap_per_class(np.concatenate(acc["tp"]), conf,
-                                     pred_cls, target_cls))
-        msk = summarize(ap_per_class(np.concatenate(acc["tp_m"]), conf,
-                                     pred_cls, target_cls))
-        print(f"{'All':>10}{count:>10}{len(target_cls):>10} "
-              f"Box P/R/mAP50/mAP50-95: "
-              f"{box[0]:.3f}/{box[1]:.3f}/{box[2]:.3f}/{box[3]:.3f} "
-              f"Mask: {msk[0]:.3f}/{msk[1]:.3f}/{msk[2]:.3f}/{msk[3]:.3f}")
-        return list(box) + list(msk)
+
+class PoseDetector(Detector):
+    """v5u / v8 / v11 / v12 pose estimation (YoloTask's pose task, the JAX
+    package's PoseDetector): the detect rows carry Config.keypoint_num
+    keypoints of keypoint_dim values (x, y [, visibility]) in canvas
+    pixels; val matches boxes and, by OKS, keypoints."""
+
+    loss_names = ("box_loss", "pose_loss", "kobj_loss", "cls_loss",
+                  "dfl_loss")
+    metric_names = ("precision(B)", "recall(B)", "mAP50(B)", "mAP50-95(B)",
+                    "precision(P)", "recall(P)", "mAP50(P)", "mAP50-95(P)")
+    val_conf = 0.01
+    extra_match = ("tp_p", "Pose")
+
+    def _task_loss(self):
+        """End2End's one2one branch assigns at top-k 7, then 1."""
+        return (partial(pose_loss, nc=self.config.number_class,
+                        **self._kpt_shape),
+                {"tal_topk": 7, "tal_topk2": 1})
+
+    def _batch_results(self, out, i, conf, hw, orig_shape
+                       ) -> List[YoloResult]:
+        """Image i's rows as YoloResults, each with its K KeyPoints (canvas
+        pixels; visibility 1.0 when keypoint_dim is 2)."""
+        boxes, scores, classes, kpts = self._rows(out, i, conf)
+        K, kd = self.arch.kpt_num, self.arch.kpt_dim
+        # Python floats in one conversion: the rows' K KeyPoints are most
+        # of a pose request's host time
+        pts = kpts.reshape(len(boxes), K, kd).tolist()
+        results = []
+        for j in range(len(boxes)):
+            r = self._result_from_box(*boxes[j], scores[j], classes[j])
+            r.keypoints = [KeyPoint(p[0], p[1], p[2] if kd == 3 else 1.0)
+                           for p in pts[j]]
+            results.append(r)
+        return results
+
+    def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
+        """Per image: the box IoU and the OKS of every (gt, prediction)
+        pair, the OKS over the gt's area x 0.53 with the COCO sigmas when
+        K = 17 (any kd; a kd = 2 gt counts every keypoint visible), else
+        1 / K, then match_predictions for both."""
+        h, w = batch["images"].shape[1:3]
+        scale = np.array([w, h, w, h], np.float32)
+        K, kd = self.arch.kpt_num, self.arch.kpt_dim
+        sigmas = OKS_SIGMA if K == 17 else torch.ones(K) / K
+        rows = _to_host(decoded)
+        for i in range(batch["images"].shape[0]):
+            boxes, scores, classes, kpts = self._rows(rows, i, self.val_conf)
+            gcls, gxywh, gxyxy, gmask = _image_gts(batch, i, scale)
+            gkpt = batch["keypoints"][i][gmask].copy()
+            if kd == 2:
+                gkpt = np.concatenate(
+                    [gkpt, np.ones(gkpt.shape[:-1] + (1,), np.float32)], -1)
+            gkpt[..., 0] *= w
+            gkpt[..., 1] *= h
+            nl, n = len(gxyxy), len(boxes)
+            iou = piou = np.zeros((nl, n))
+            if n and nl:
+                iou = box_iou(torch.from_numpy(gxyxy),
+                              torch.from_numpy(boxes).float()).numpy()
+                area = (gxywh[:, 2] * gxywh[:, 3]) * 0.53
+                pk = torch.from_numpy(kpts.reshape(n, K, kd)).float()
+                piou = kpt_iou(torch.from_numpy(gkpt), pk,
+                               torch.from_numpy(area), sigmas).numpy()
+            cls_f = classes.astype(float)
+            acc["tp"].append(match_predictions(cls_f, gcls, iou))
+            acc["tp_p"].append(match_predictions(cls_f, gcls, piou))
+            acc["conf"].append(scores)
+            acc["pred_cls"].append(cls_f)
+            acc["target_cls"].append(gcls)
 
 
-_TASKS = {TaskType.detect: Detector, TaskType.segment: Segmenter}
+_TASKS = {TaskType.detect: Detector, TaskType.segment: Segmenter,
+          TaskType.pose: PoseDetector}
 
 
 class YoloTask:
     """Public facade (Models/YoloTask.cs:10-107): train, val, predict, load
-    and save, for the detect and segment tasks (obb, pose and classify
+    and save, for the detect, segment and pose tasks (obb and classify
     raise NotImplementedError). device: None means cuda (raises where there
     is none); pass "cpu" to run the plain versions on the CPU."""
 
     def __init__(self, config: Config, device=None):
         if config.task_type not in _TASKS:
             raise NotImplementedError(
-                f"the torch port has the detect and segment tasks so far, "
-                f"not {config.task_type.value}")
+                f"the torch port has the detect, segment and pose tasks so "
+                f"far, not {config.task_type.value}")
         self.config = config
         self.task = _TASKS[config.task_type](config, device)
 
