@@ -1,12 +1,13 @@
 """Where the time goes (PERF.md section 5): the 640 bf16 batch_predict of
 32 on one GPU of a chip_smoke.py path (v8s, v12s, v11s, v5us, v11m-seg,
-v11m-pose), with its seeded weights, images and conf, or v8s's and
-v12s's bf16 train step at batch 16 and v11s's on the mosaic (`train`), or
-v11m-seg's at batch 8 on a planned mosaic batch with masks (`seg-train`),
-or v11m-pose's on one with keypoints (`pose-train`).
+v11m-pose, v12x-obb), with its seeded weights, images and conf, or v8s's
+and v12s's bf16 train step at batch 16 and v11s's on the mosaic
+(`train`), or v11m-seg's at batch 8 on a planned mosaic batch with masks
+(`seg-train`), or v11m-pose's on one with keypoints (`pose-train`), or
+v12x-obb's on one with rotated boxes (`obb-train`).
 
-    python3 chip_profile.py [v8] [v12] [v11m-seg] [v11m-pose] [train]
-                            [seg-train] [pose-train]
+    python3 chip_profile.py [v8] [v12] [v11m-seg] [v11m-pose] [v12x-obb]
+                            [train] [seg-train] [pose-train] [obb-train]
 
 For each path and End2End mode: 5 unprofiled walls, the host time of
 building one call's results from its rows (the YoloResults, a pose
@@ -26,7 +27,11 @@ v11m-seg on one planned batch of 8 (chip_smoke.write_seg_dataset), whose
 images and masks render inside the step, and beside it the mask render
 alone. `pose-train`: v11m-pose's step on one planned batch of 8
 (chip_smoke.write_pose_dataset), whose images render inside the step and
-whose keypoints the planner moved. Exits non-zero without a CUDA device.
+whose keypoints the planner moved. `obb-train`: v12x-obb's End2End step
+on one planned batch of 8 (chip_smoke.write_obb_dataset), with the device
+time of the attention's plain backward (each KernelAttention backward
+inside a record_function range, "attention_backward") beside the step's.
+Exits non-zero without a CUDA device.
 """
 import tempfile
 import sys
@@ -34,7 +39,7 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import chip_smoke as cs
 from yolosharp_tpu_torch import YoloTask
@@ -90,6 +95,21 @@ def report(mode, prof, window, calls):
         k = names.setdefault(ev.name, [0.0, 0])
         k[0] += d
         k[1] += 1
+    # the attention backward's ranges (obb-train): their device spans
+    # (kernels and the gaps between them) and the kernels inside them
+    ranges = sorted((ev.time_range.start, ev.time_range.end)
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and getattr(ev, "is_user_annotation", False)
+                    and ev.name == "attention_backward")
+    if ranges:
+        span = sum(b - a for a, b in ranges) / 1e3
+        inside = sum(e - s for s, e in spans
+                     if any(a <= s < b for a, b in ranges)) / 1e3
+        print(f"    attention backward ranges: {len(ranges) // calls} a "
+              f"call; device span {span / calls:.3f} ms per call, kernels "
+              f"inside them {inside / calls:.3f} ms per call, "
+              f"{inside / busy:.3f} of device busy", flush=True)
     tot = sum(fam.values())
     for f, d in sorted(fam.items(), key=lambda t: -t[1]):
         print(f"    {f}: {d / calls:.3f} ms per call, {d / tot:.3f} of "
@@ -191,6 +211,35 @@ def profile_pose_train():
     profile_train(cs.POSE, batch)
 
 
+def profile_obb_train():
+    """v12x-obb's End2End step on one planned batch of 8 (the images render
+    inside the step; the planner moved the corners), each attention
+    backward inside an "attention_backward" range."""
+    from yolosharp_tpu_torch.data import YoloDataset, to_device
+    from yolosharp_tpu_torch.kernels.attention import KernelAttention
+
+    b = cs.OBB_BATCHES[-1]
+    with tempfile.TemporaryDirectory() as root:
+        cs.write_obb_dataset(root, b, 2)
+        ds = YoloDataset(cs.path_config(
+            cs.OBB, root_path=root, train_data_path="images/train",
+            val_data_path="images/val", image_size=cs.TRAIN_SIZE,
+            batch_size=b))
+        batch = to_device(ds.device_batch(np.arange(b), ds.max_label_count),
+                          dev)
+    real = KernelAttention.backward
+
+    def backward(ctx, g):
+        with record_function("attention_backward"):
+            return real(ctx, g)
+
+    KernelAttention.backward = staticmethod(backward)
+    try:
+        profile_train(cs.OBB, batch)
+    finally:
+        KernelAttention.backward = staticmethod(real)
+
+
 versions = sys.argv[1:] or ["v8", "v12"]
 for version in versions:
     if version == "train":
@@ -203,6 +252,9 @@ for version in versions:
         continue
     if version == "pose-train":
         profile_pose_train()
+        continue
+    if version == "obb-train":
+        profile_obb_train()
         continue
     master = YoloTask(cs.path_config(version, end2end=True), device=dev)
     net = master.task._ensure_variables()

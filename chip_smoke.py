@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Seven serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
+Eight serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
 C2f), v12s detection (conv3x3 s1/s2 and the fused attention), v11s and
-v5us detection, v11m-seg instance segmentation and v11m-pose and v11s-pose
+v5us detection, v11m-seg instance segmentation, v11m-pose and v11s-pose
 pose estimation (conv3x3 s1/s2 only: v11's PSA attention takes the einsum
-path, and none has a C2f block). Training: v8s and v12s on letterbox
-batches, v11s through the mosaic (the device render) and v8s through the
-host mosaic, v11m-seg through the mosaic with masks, v11m-pose with
-keypoints.
+path, and none has a C2f block) and v12x-obb End2End oriented boxes
+(conv3x3 s1/s2 and the fused attention). Training: v8s and v12s on
+letterbox batches, v11s through the mosaic (the device render) and v8s
+through the host mosaic, v11m-seg through the mosaic with masks,
+v11m-pose with keypoints, v12x-obb with rotated boxes.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build every CUDA kernel from the
@@ -17,7 +18,8 @@ Phases (any failure exits non-zero; nothing is caught):
   2. each kernel against its plain PyTorch version at every shape any
      path gives it (recorded with forward hooks on the folded nets of
      every path: 640x640 for the convs, the 51-wide keypoint towers of
-     v11s-pose (Ci or Co = 51) included; 640x640, 480x640, 500x375 and
+     v11s-pose (Ci or Co = 51) and v12x-obb's 96-wide angle towers and
+     768-wide stride-2 conv included; 640x640, 480x640, 500x375 and
      1280x1280 for the attention), B=2, in float32 (TF32 off for cuDNN
      and matmul), bfloat16 and float16, with device times (CUDA events around a CUDA graph of 10
      calls, in turns plain / kernel / library / library / kernel / plain),
@@ -47,7 +49,9 @@ Phases (any failure exits non-zero; nothing is caught):
      they depend on the batch) that was not checked yet, at the first request
      that takes it. Each check prints the variant it ran, and the sums of
      kernel / plain / library / bound ms are printed over the v11m-seg
-     shapes, the v11m-pose shapes and v11s-pose's Ci / Co = 51 shapes.
+     shapes, the v11m-pose shapes, v11s-pose's Ci / Co = 51 shapes and
+     v12x-obb's shapes (the attention at 1536 and 384 sequences of N =
+     400 at b32 among them).
   3. the v8s slice: a v8s nc=80 YoloTask on cuda with seeded weights times
      its bf16 batch-32 640x640 network forward (CUDA events), counts the
      kernel launches of one such forward, and answers image_predict and
@@ -65,19 +69,23 @@ Phases (any failure exits non-zero; nothing is caught):
 Training (the attention is the only kernel on the train path; the conv and
 C2f kernels serve predict only and must not launch there):
   5. the attention under autograd at the v12s batch-16 640x640 train
-     shapes, (64, 400, 4, 32) and (16, 400, 8, 32) in (B, N, H, D), each
+     shapes, (64, 400, 4, 32) and (16, 400, 8, 32) in (B, N, H, D), and
+     at v12x-obb's batch-8 ones, (32, 400, 12, 32) and (8, 400, 12, 32)
+     (384 and 96 sequences; their bf16 sums apart from v12s's), each
      with the variant it takes: the kernel's forward (an output with a
      grad_fn, one launch) against the plain version's output at the
      tolerances of phase 2, and with the plain backward against full plain
      autograd, gradients of q, k and v: float32 |d| <= 1e-4 + 1e-4|ref|,
      bfloat16 max|d| / max|ref| < 2e-2; forward + backward ms of the kernel
      route, plain autograd and SDPA (CUDA events).
-  6. one float32 train step of v8n, v12n, v11n-seg and v11n-pose
-     (End2End; the segment batch's masks are its boxes' regions, the pose
-     batch's 17 keypoints a box lie inside it, visibility 0, 1 or 2; its
-     cv4 towers are 51 wide) at 128x128, batch 2,
-     card against CPU, same seeded weights and uint8 batch: loss items to
-     1e-4 relative. The leaves whose gradient is 0 by construction (a conv
+  6. one float32 train step of v8n, v12n, v11n-seg, v11n-pose and
+     v12n-obb (End2End; the segment batch's masks are its boxes' regions,
+     the pose batch's 17 keypoints a box lie inside it, visibility 0, 1 or
+     2; its cv4 towers are 51 wide; the OBB batch's boxes take an angle
+     from [-pi/2, 0), and its attention runs under autograd) at 128x128,
+     batch 2, card against CPU, same seeded weights and uint8 batch: loss
+     items to 1e-4 relative (the OBB step's to 1e-5). The leaves whose
+     gradient is 0 by construction (a conv
      bias that a train-mode BN removes, as in AAttn's pe; SPPF's cv1 BN
      bias) must read |g| <= 1e-6 G on both devices, G the net's largest
      gradient, and are printed. Every other leaf: gradients |g_card - g_cpu|
@@ -177,6 +185,36 @@ are in phase 2's checks):
      the 3 most visible visible), NMS and End2End: box and pose mAP50
      above 0 on both, and each of the eight metrics within 0.02 card
      against CPU.
+OBB (v12x-obb End2End, nc=15 (DOTA's classes), the JAX bench's workload 5,
+bench.py:292-354; cv4 angle towers 96 wide; its conv and attention shapes
+are in phase 2's checks):
+  11a. the v12x-obb slice as phase 3, bf16: the b32 forward (CUDA events)
+     and its launches, a full forward's and the End2End predict's (one2one
+     towers only), each equal to the count its modules give (each 3x3
+     ConvBN on the kernel route one conv launch of its stride, each AAttn
+     one attention launch); batch_predict b32 and image_predict at
+     640x640, 480x640 and 500x375 in both End2End modes (the rotated fast
+     NMS: conf calibrated to <= 300 candidates an image, the NMS pool of
+     512 untruncated), every row with w, h > 0 and an angle in [-pi/4,
+     3pi/4] (bf16 rounds the head's 3pi/4 up by up to 2^-7).
+  11b. its float32 predict of one image, card against CPU, NMS and
+     End2End: no unmatched row, the matched rows' centre and sides within
+     0.5 px and angle within 1e-4 rad.
+  11c. YoloTask.train() of v12x-obb, 640x640, bf16, close_mosaic=1, 2
+     epochs (the device render, then letterbox), at batch 4 (the JAX
+     workload's) and at batch 8, on a PNG dataset that this script writes
+     (48 train and 8 val images of 480-800 px, 1-8 solid rotated
+     rectangles drawn by the port's fill_poly, 4-corner labels, 15
+     classes): per epoch the median step ms, img/s, loader-wait share and
+     peak memory; the updates applied (a non-finite step is skipped);
+     val's four metrics; finite losses; the attention launched in
+     training and no conv kernel; best.bin served by a fresh v12x-obb
+     YoloTask through the conv and attention kernels.
+  11d. Obber.val of phase 11a's seeded v12x-obb in float32 on the card and
+     on the CPU, on the same 4 640x640 images labelled with its own
+     predictions (up to 8 an image, written as the 4 corners of each
+     rotated box), NMS and End2End: box mAP50 above 0 on both, and each of
+     the four metrics within 0.005 card against CPU.
 Each phase prints its wall seconds.
 
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
@@ -248,6 +286,7 @@ SOURCES = {
     "fused_attention": ("yolosharp_tpu_torch/csrc/attention.cu",
                         "yolosharp_tpu/kernels/attention.py:57"),
 }
+OBB = "v12x-obb"
 # the kernels each path must launch (and no other)
 PATHS = {"v8": ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
          "v12": ("conv3x3_silu", "conv3x3s2_silu", "fused_attention"),
@@ -255,27 +294,33 @@ PATHS = {"v8": ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
          "v5u": ("conv3x3_silu", "conv3x3s2_silu"),
          "v11m-seg": ("conv3x3_silu", "conv3x3s2_silu"),
          "v11m-pose": ("conv3x3_silu", "conv3x3s2_silu"),
-         "v11s-pose": ("conv3x3_silu", "conv3x3s2_silu")}
+         "v11s-pose": ("conv3x3_silu", "conv3x3s2_silu"),
+         OBB: ("conv3x3_silu", "conv3x3s2_silu", "fused_attention")}
 # each path's model: (version, size, task)
 ARCH = {"v8": ("v8", "s", "detect"), "v12": ("v12", "s", "detect"),
         "v11": ("v11", "s", "detect"), "v5u": ("v5u", "s", "detect"),
         "v11m-seg": ("v11", "m", "segment"),
-        "v11m-pose": ("v11", "m", "pose"), "v11s-pose": ("v11", "s", "pose")}
+        "v11m-pose": ("v11", "m", "pose"), "v11s-pose": ("v11", "s", "pose"),
+        OBB: ("v12", "x", "obb")}
 SEG, POSE, POSE_S = "v11m-seg", "v11m-pose", "v11s-pose"
 # each path's classes: COCO's 80, COCO-Pose's one (person) for the pose
-# models (Ultralytics yolo11-pose.yaml: nc 1, kpt_shape [17, 3])
-PATH_NC = {POSE: 1, POSE_S: 1}
+# models (Ultralytics yolo11-pose.yaml: nc 1, kpt_shape [17, 3]), DOTA's 15
+# for the OBB model (the JAX bench's workload 5, bench.py:292-354)
+PATH_NC = {POSE: 1, POSE_S: 1, OBB: 15}
 PHASE = {"v8": "3", "v12": "3b", "v11": "3c", "v5u": "3d", SEG: "9a",
-         POSE: "10a", POSE_S: "10a"}
-# the paths held card against CPU in float32 (phases 4, 4b, 4c, 9b, 10b)
-CPU_MATCH = {"v8": "4", "v12": "4b", "v11": "4c", SEG: "9b", POSE: "10b"}
+         POSE: "10a", POSE_S: "10a", OBB: "11a"}
+# the paths held card against CPU in float32 (phases 4, 4b, 4c, 9b, 10b,
+# 11b)
+CPU_MATCH = {"v8": "4", "v12": "4b", "v11": "4c", SEG: "9b", POSE: "10b",
+             OBB: "11b"}
 # phase 2's sums over a group of shapes: (name, which (shape, paths) it
-# holds): v11m-seg's and v11m-pose's shapes, and v11s-pose's odd ones (its
-# keypoint towers are 51 wide)
+# holds): v11m-seg's and v11m-pose's shapes, v11s-pose's odd ones (its
+# keypoint towers are 51 wide), and v12x-obb's (no other path takes them)
 SHAPE_GROUPS = ((SEG, lambda shape, vs: SEG in vs),
                 (POSE, lambda shape, vs: POSE in vs),
                 (f"{POSE_S} Ci/Co = 51",
-                 lambda shape, vs: POSE_S in vs and 51 in shape[2:4]))
+                 lambda shape, vs: POSE_S in vs and 51 in shape[2:4]),
+                (OBB, lambda shape, vs: OBB in vs))
 # the stats suffix of each (dtype, batch) phase 2 times
 ERR_KEY = {torch.float32: "max_abs_err", torch.bfloat16: "max_abs_err_bf16",
            torch.float16: "max_abs_err_f16"}
@@ -785,6 +830,47 @@ def check_masks(results, images, mode):
         raise SystemExit(f"[{mode}] masks not (h, w) bool: {bad[:3]}")
 
 
+# the head computes the angle (sigmoid - 0.25) pi in the compute dtype, as
+# the JAX package does: in bfloat16 its ends round by up to half a step of
+# [2, 4) (3 pi / 4 = 2.3562 rounds to 2.359375)
+ANGLE_SLACK = 2.0 ** -7
+
+
+def check_rotated(results, mode):
+    """Each OBB result is a rotated box with w, h > 0 and an angle in the
+    head's range [-pi/4, 3pi/4), widened by ANGLE_SLACK for bfloat16's
+    rounding of its ends."""
+    bad = [(i, r) for i, rs in enumerate(results) for r in rs
+           if not (r.width > 0 and r.height > 0
+                   and -np.pi / 4 - ANGLE_SLACK <= r.radian
+                   <= 3 * np.pi / 4 + ANGLE_SLACK)]
+    if bad:
+        raise SystemExit(f"[{mode}] rotated rows out of range: {bad[:2]}")
+
+
+def expected_launches(net, skip_one2many=False) -> dict:
+    """The kernel launches one forward of a folded net without C2f blocks
+    makes, derived from its modules: each 3x3 ConvBN on the kernel route
+    launches its stride's conv kernel once and each AAttn the attention
+    once; an End2End net's forward with skip_one2many (End2End predict)
+    does not run the head's one2many towers (cv2, cv3, cv4)."""
+    from yolosharp_tpu_torch.nn import AAttn, C2f, ConvBN
+
+    head = f"model.{len(net.model) - 1}.cv"
+    skip = skip_one2many and net.model[-1].end2end
+    out = dict.fromkeys(SOURCES, 0)
+    for name, m in net.named_modules():
+        if isinstance(m, C2f):
+            raise ValueError("expected_launches: a net with C2f blocks")
+        if skip and name.startswith(head):
+            continue
+        if isinstance(m, ConvBN) and m.kernel_route:
+            out["conv3x3_silu" if m.s == 1 else "conv3x3s2_silu"] += 1
+        elif isinstance(m, AAttn):
+            out["fused_attention"] += 1
+    return out
+
+
 def phase_slice(dev, path, light=False):
     """The path's model at 640, nc=80, bf16 (the Config default), seeded
     weights: a few image_predict and batch_predict requests in both
@@ -797,6 +883,7 @@ def phase_slice(dev, path, light=False):
 
     name = path_name(path)
     segment, pose = ARCH[path][2] == "segment", ARCH[path][2] == "pose"
+    obb = ARCH[path][2] == "obb"
     print(f"phase {PHASE[path]}: {name}-640 nc={PATH_NC.get(path, 80)} "
           f"YoloTask on cuda, bf16, seeded weights", flush=True)
     master = YoloTask(path_config(path, end2end=True), device=dev)
@@ -835,6 +922,23 @@ def phase_slice(dev, path, light=False):
         print(f"  [{path}] kernel launches of one b32 forward: "
               f"{per_forward}", flush=True)
         check_path_launches(path, per_forward, f"{path} b32 forward")
+        if obb:
+            # the NMS model's forward, the End2End model's (both branches)
+            # and its served one (one2one towers only), each against the
+            # counts its modules give
+            e2e_fwd = tasks[True].task._predict_variables()
+            for net_, skip, which in (
+                    (fwd, False, "NMS model"),
+                    (e2e_fwd, False, "End2End model, both branches"),
+                    (e2e_fwd, True, "End2End predict, one2one towers")):
+                reset_launch_counts()
+                net_(x, skip_one2many=skip)
+                got, want = launch_counts(), expected_launches(net_, skip)
+                print(f"  [{path}] launches of one b32 forward ({which}): "
+                      f"{got}, from the model's modules {want}", flush=True)
+                if got != want:
+                    raise SystemExit(f"[{path}] launches a forward differ "
+                                     f"from the model's")
         start.record()
         for _ in range(5):
             fwd(x)
@@ -865,6 +969,8 @@ def phase_slice(dev, path, light=False):
                 check_masks([res], [img], mode)
             if pose:
                 check_keypoints([res], mode)
+            if obb:
+                check_rotated([res], mode)
         for rep in range(1 if light else 3):
             t0 = time.perf_counter()
             res = task.batch_predict(batch, conf)
@@ -882,11 +988,17 @@ def phase_slice(dev, path, light=False):
                 check_masks(res, batch, mode)
             if pose:
                 check_keypoints(res, mode)
+            if obb:
+                check_rotated(res, mode)
         if segment:
             print(f"  [{mode}] every result has a bool mask of its image's "
                   f"(h, w)", flush=True)
         if pose:
             print(f"  [{mode}] every result has 17 finite keypoints",
+                  flush=True)
+        if obb:
+            print(f"  [{mode}] every result has w, h > 0 and an angle in "
+                  f"[-pi/4, 3pi/4] (+- {ANGLE_SLACK} for bf16 rounding)",
                   flush=True)
         counts = launch_counts()
         print(f"  [{mode}] kernel launches: {counts}", flush=True)
@@ -929,9 +1041,22 @@ def phase_cpu_match(dev, path, state, conf):
         used = launch_counts()
         want = ht._host(ht._predict_fn(ht._predict_variables(), img, c,
                                        0.7))
+        mode = f"{path} {'end2end' if e2e else 'nms'}"
+        if ARCH[path][2] == "obb":
+            n_want, n_got, unmatched, dbox, dang = match_rotated(
+                ct._rboxes(got, 0, conf), ht._rboxes(want, 0, conf))
+            print(f"  [{mode}] cpu {n_want} rotated rows, card {n_got} "
+                  f"(within 2), unmatched {unmatched} (none allowed); "
+                  f"matched rows: max "
+                  f"|d cx, cy, w, h| {dbox:.3e} px (< 0.5), max |d angle| "
+                  f"{dang:.3e} rad (< 1e-4) (kernel launches on the card: "
+                  f"{used})", flush=True)
+            if n_want < 5 or abs(n_got - n_want) > 2 or unmatched:
+                raise SystemExit(f"[{mode}] card and CPU disagree")
+            check_path_launches(path, used, mode + " float32")
+            continue
         n_want, n_got, unmatched = match(rows_of(cuda[e2e], got, conf),
                                          rows_of(cpu[e2e], want, conf))
-        mode = f"{path} {'end2end' if e2e else 'nms'}"
         print(f"  [{mode}] cpu {n_want} detections, card {n_got}, unmatched "
               f"{unmatched} (kernel launches on the card: {used})",
               flush=True)
@@ -956,6 +1081,32 @@ def phase_cpu_match(dev, path, state, conf):
                   flush=True)
             if total == 0 or same < 0.999 * total:
                 raise SystemExit(f"[{mode}] card and CPU masks disagree")
+
+
+def match_rotated(got, want):
+    """Rotated rows (xywhr (n, 5), scores, classes) of got against want:
+    each wanted row matched by one of the same class with its centre and
+    sides within 0.5 px, its angle within 1e-4 rad and its score within
+    1e-3. Returns (n_want, n_got, unmatched, max |d cx, cy, w, h| and max
+    |d angle| over the matched rows)."""
+    gb, gs, gc = got
+    wb, ws, wc = want
+    used = np.zeros(len(gb), bool)
+    unmatched, dbox, dang = 0, 0.0, 0.0
+    for b, s, c in zip(wb, ws, wc):
+        if not len(gb):
+            unmatched += 1
+            continue
+        d4 = np.abs(gb[:, :4] - b[:4]).max(1)
+        da = np.abs(gb[:, 4] - b[4])
+        d = d4 + 1e3 * (gc != c) + 1e3 * (da >= 1e-4)
+        j = int(np.argmin(d + 1e6 * used))
+        if d[j] < 0.5 and abs(gs[j] - s) < 1e-3:
+            used[j] = True
+            dbox, dang = max(dbox, float(d4[j])), max(dang, float(da[j]))
+        else:
+            unmatched += 1
+    return len(wb), len(gb), unmatched, dbox, dang
 
 
 def matched_keypoints(got, want):
@@ -1006,7 +1157,10 @@ def matched_masks(got, want):
 
 # ------------------------------------------------------------------ train
 # the attention shapes of a v12s batch-16 640x640 train forward, (B, N, H, D)
-TRAIN_ATTN = {"layer 6": (16 * 4, 400, 4, 32), "layer 8": (16, 400, 8, 32)}
+TRAIN_ATTN = {"layer 6": (16 * 4, 400, 4, 32), "layer 8": (16, 400, 8, 32),
+              # v12x-obb at batch 8: 12 heads, 384 and 96 sequences
+              f"{OBB} b8 layer 6": (8 * 4, 400, 12, 32),
+              f"{OBB} b8 layer 8": (8, 400, 12, 32)}
 TRAIN_BATCH, TRAIN_SIZE = 16, 640
 
 
@@ -1036,12 +1190,13 @@ def phase_attention_autograd(dev, tag: str) -> dict:
                                              fused_attention)
 
     print("phase 5: fused_attention under autograd (kernel forward, plain "
-          "backward) against plain autograd, v12s b16 640x640 train shapes",
-          flush=True)
+          "backward) against plain autograd, v12s b16 and v12x-obb b8 "
+          "640x640 train shapes", flush=True)
     g = torch.Generator(device=dev).manual_seed(5)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    sums = {"autograd_ms": 0.0, "autograd_plain_ms": 0.0,
-            "autograd_library_ms": 0.0}
+    # v12s's sums, as before, and v12x-obb's beside them
+    sums = {f"autograd{sfx}_{route}": 0.0 for sfx in ("", "_v12x_obb")
+            for route in ("ms", "plain_ms", "library_ms")}
     for dtype in (torch.float32, torch.bfloat16):
         for layer, (b, n, h, d) in TRAIN_ATTN.items():
             var = variant("attn", dtype, b, (1, h, n, d), sms)
@@ -1100,9 +1255,10 @@ def phase_attention_autograd(dev, tag: str) -> dict:
                   f"{t['library']:.3f} ms SDPA (CUDA events, eager, mean "
                   f"of 10)", flush=True)
             if dtype == torch.bfloat16:
-                sums["autograd_ms"] += t["kernel"]
-                sums["autograd_plain_ms"] += t["plain"]
-                sums["autograd_library_ms"] += t["library"]
+                sfx = "_v12x_obb" if layer.startswith(OBB) else ""
+                sums[f"autograd{sfx}_ms"] += t["kernel"]
+                sums[f"autograd{sfx}_plain_ms"] += t["plain"]
+                sums[f"autograd{sfx}_library_ms"] += t["library"]
     return sums
 
 
@@ -1147,6 +1303,17 @@ def with_keypoints(batch, seed=42):
     return dict(batch, keypoints=kpts.astype(np.float32))
 
 
+def with_angles(batch, seed=43):
+    """The batch's boxes as rotated boxes (B, M, 5): the same normalised
+    centre and sides and an angle from [-pi/2, 0) (minAreaRect's range) a
+    label; zeros in the padding slots."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(-np.pi / 2, 0, batch["mask_gt"].shape + (1,))
+    rb = np.concatenate([batch["bboxes"], ang], -1) \
+        * batch["mask_gt"][..., None]
+    return dict(batch, bboxes=rb.astype(np.float32))
+
+
 def zero_gradient_leaves(net) -> set:
     """Parameters whose gradient in a train-mode step is 0 by construction:
     the bias of a conv that a train-mode BN follows (the BN subtracts the
@@ -1174,17 +1341,20 @@ def phase_train_step_cpu_match(dev):
 
     print("phase 6: one float32 train step (End2End) at 128x128, batch 2, "
           "card against CPU, same seeded weights and batch: v8n, v12n, "
-          "v11n-seg, v11n-pose", flush=True)
+          "v11n-seg, v11n-pose, v12n-obb", flush=True)
     base = train_batch(2, 128, 40)
     for version, task_type in (("v8", "detect"), ("v12", "detect"),
-                               ("v11", "segment"), ("v11", "pose")):
+                               ("v11", "segment"), ("v11", "pose"),
+                               ("v12", "obb")):
         cfg = Config(task_type=TaskType(task_type),
                      yolo_type=YoloType(version), yolo_size=YoloSize.n,
                      number_class=80, scalar_type=ScalarType.float32)
         label = f"{version}n" + {"detect": "", "segment": "-seg",
-                                 "pose": "-pose"}[task_type]
+                                 "pose": "-pose", "obb": "-obb"}[task_type]
         batch = {"detect": lambda b: b, "segment": with_masks,
-                 "pose": with_keypoints}[task_type](base)
+                 "pose": with_keypoints, "obb": with_angles}[task_type](base)
+        # the loss items' bound: the OBB step's 1e-5, the others' 1e-4
+        items_tol = 1e-5 if task_type == "obb" else 1e-4
         if task_type == "pose":
             vis = batch["keypoints"][batch["mask_gt"]][..., 2]
             print(f"  [{label}] label keypoints by visibility 0 / 1 / 2: "
@@ -1224,8 +1394,8 @@ def phase_train_step_cpu_match(dev):
         rel = ((card["items"] - cpu["items"]).abs()
                / cpu["items"].abs().clamp_min(1e-30)).max()
         print(f"  [{label}] loss items card {card['items'].tolist()} cpu "
-              f"{cpu['items'].tolist()}: max rel {float(rel):.3e} < 1e-4",
-              flush=True)
+              f"{cpu['items'].tolist()}: max rel {float(rel):.3e} < "
+              f"{items_tol:g}", flush=True)
         zero = zero_gradient_leaves(net)
         g_all = max(float(g.abs().max()) for g in cpu["grad"].values())
         # the leaves whose gradient is 0 by construction: rounding noise on
@@ -1307,9 +1477,9 @@ def phase_train_step_cpu_match(dev):
                   f"{ref_err:.3e}; {k}); max |d| / |ref| "
                   f"{stat_rel[kind][0]:.3e} ({stat_rel[kind][1]})",
                   flush=True)
-        if rel >= 1e-4 or noise_bad or grad_bad or unexplained or stat_bad \
-                or not all(
-                torch.isfinite(v).all() for v in card["delta"].values()):
+        if rel >= items_tol or noise_bad or grad_bad or unexplained \
+                or stat_bad or not all(torch.isfinite(v).all()
+                                       for v in card["delta"].values()):
             raise SystemExit(f"[{label}] card train step disagrees with "
                              f"the CPU's")
 
@@ -2149,6 +2319,198 @@ def phase_pose_val(dev, root, state, conf):
                              f"disagree, or a mAP50 is 0")
 
 
+# ------------------------------------------------------------------- obb
+# phase 11c's batches (4: the JAX bench's workload 5; and 8) and data;
+# phase 11d's self-labelled images (fewer than SELF_VAL: the CPU's float32
+# val of v12x-obb runs the rotated NMS over every anchor above 0.01)
+OBB_BATCHES, OBB_TRAIN, OBB_VAL, OBB_SELF_VAL = (4, 8), 48, 8, 4
+# phase 11d: the four box metrics, card f32 against CPU f32, at most this
+# far apart
+OBB_VAL_TOL = 0.005
+
+
+def rect_corners(cx, cy, w, h, angle) -> np.ndarray:
+    """The 4 corners (4, 2) of a rotated rectangle, in the order of the
+    port's xywhr2xyxyxyxy."""
+    c, s = np.cos(angle), np.sin(angle)
+    v1 = np.array([w / 2 * c, w / 2 * s])
+    v2 = np.array([-h / 2 * s, h / 2 * c])
+    ct = np.array([cx, cy])
+    return np.stack([ct + v1 + v2, ct + v1 - v2, ct - v1 - v2, ct - v1 + v2])
+
+
+def write_obb_dataset(root, n_train, n_val, seed=11):
+    """Images of 480-800 px a side, a noisy background and 1-8 solid
+    rotated rectangles drawn by the port's fill_poly, with YOLO OBB labels
+    (15 classes: the class and the rectangle's 4 corners, normalised; some
+    corners outside the image) under root/images/{train,val} and
+    root/labels/{train,val}, as PNG (zlib level 1)."""
+    from yolosharp_tpu_torch.data.image_ops import encode_png, fill_poly
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        os.makedirs(os.path.join(root, "images", split))
+        os.makedirs(os.path.join(root, "labels", split))
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(480, 801, 2))
+            img = np.clip(rng.normal(rng.uniform(40, 215), 20, (h, w, 3)),
+                          0, 255).astype(np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 9))):
+                bw, bh = rng.uniform(0.05, 0.4, 2) * min(h, w)
+                cor = rect_corners(rng.uniform(0.1, 0.9) * w,
+                                   rng.uniform(0.1, 0.9) * h, bw, bh,
+                                   rng.uniform(-np.pi, np.pi))
+                plane = np.zeros((h, w), np.uint8)
+                fill_poly(plane, cor.astype(np.int32), 1)
+                img[plane > 0] = rng.integers(0, 256, 3)
+                rows.append(f"{rng.integers(15)} " + " ".join(
+                    f"{v:.6f}" for v in (cor / [w, h]).reshape(-1)))
+            with open(os.path.join(root, "images", split, f"{i:04d}.png"),
+                      "wb") as f:
+                f.write(encode_png(img, level=1))
+            with open(os.path.join(root, "labels", split, f"{i:04d}.txt"),
+                      "w") as f:
+                f.write("\n".join(rows) + "\n")
+
+
+def phase_obb_train(dev, root, tag, batch):
+    """Phase 11c: YoloTask.train() of v12x-obb through the mosaic (the
+    device render), then letterbox. Returns (train launches, predict
+    launches of the served best.bin)."""
+    from yolosharp_tpu_torch import YoloTask
+    from yolosharp_tpu_torch.data import device_augment
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 11c: YoloTask.train() of {OBB} (End2End), "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}, batch {batch}, bf16, close_mosaic=1, "
+          f"2 epochs, {OBB_TRAIN} train and {OBB_VAL} val images",
+          flush=True)
+    out = os.path.join(root, f"run_v12x_obb_b{batch}")
+    task = YoloTask(path_config(
+        OBB, end2end=True, root_path=root, train_data_path="images/train",
+        val_data_path="images/val", image_size=TRAIN_SIZE, batch_size=batch,
+        output_path=out, close_mosaic=1, epochs=2), device=dev)
+    labels = []     # the labels of each planned batch
+    real = device_augment.render_batch
+    device_augment.render_batch = lambda b: labels.append(
+        int(b["mask_gt"].sum())) or real(b)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        state = task.train()
+    finally:
+        device_augment.render_batch = real
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = task.task.epoch_stats
+    name = f"{OBB} b{batch}"
+    for st in stats:
+        print("  " + epoch_line(st, f"{tag}: {name}", batch), flush=True)
+    print(f"  renders {len(labels)} (epoch 1 steps "
+          f"{len(stats[0]['step_s'])}), labels a planned batch {labels}; "
+          f"{state.count} updates applied in {state.step} steps (a step "
+          f"with a non-finite gradient is skipped); train() {wall:.1f} s; "
+          f"kernel launches during train(): {counts}", flush=True)
+    with open(os.path.join(out, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    head = [h.strip() for h in rows[0]]
+    for r in rows[1:]:
+        print(f"  log.csv epoch {r[0]}: " + ", ".join(
+            f"{h} {v.strip()}" for h, v in zip(head[2:], r[2:])), flush=True)
+    losses = [float(v) for r in rows[1:] for h, v in zip(head, r)
+              if "loss" in h]
+    metrics = [h for h in head if h.startswith("metrics/")]
+    if ([s["epoch"] for s in stats] != [1, 2]
+            or len(labels) != len(stats[0]["step_s"]) or not all(labels)
+            or not np.isfinite(losses).all() or len(metrics) != 4
+            or "train/angle_loss" not in head
+            or counts["conv3x3_silu"] or counts["conv3x3s2_silu"]
+            or not counts["fused_attention"]):
+        raise SystemExit(f"{name} train(): wrong epochs, renders, labels, "
+                         f"losses or metrics, a conv kernel launch in "
+                         f"training or no attention launch")
+    fresh = YoloTask(path_config(OBB, end2end=True), device=dev)
+    fresh.load_model(os.path.join(out, "weights", "best.bin"))
+    image = synthetic_images(1, 640, 640, 54)[0]
+    reset_launch_counts()
+    res = fresh.image_predict(image, 0.0)
+    served = launch_counts()
+    print(f"  best.bin in a fresh {OBB} YoloTask: image_predict gave "
+          f"{len(res)} rotated rows, kernel launches {served}", flush=True)
+    if not res:
+        raise SystemExit(f"image_predict of the trained {name} returned "
+                         f"nothing")
+    check_rotated([res], f"{name} best.bin")
+    check_path_launches(OBB, served, f"{name} best.bin")
+    return counts, served
+
+
+def write_self_labelled_obb(root, task, conf):
+    """OBB_SELF_VAL 640x640 val images labelled with task's own
+    predictions: per image its SELF_LABELS highest-scored results, each
+    written as its class and the 4 corners of its rotated box. Returns the
+    labels written."""
+    from yolosharp_tpu_torch.data.image_ops import encode_png
+
+    for sub in ("images", "labels"):
+        os.makedirs(os.path.join(root, sub, "val"))
+    total = 0
+    for i, img in enumerate(synthetic_images(OBB_SELF_VAL, 640, 640, 62)):
+        h, w = img.shape[:2]
+        rows = []
+        for r in sorted(task.image_predict(img, conf),
+                        key=lambda r: -r.score)[:SELF_LABELS]:
+            cor = rect_corners(r.center_x, r.center_y, r.width, r.height,
+                               r.radian)
+            rows.append(f"{r.class_id} " + " ".join(
+                f"{v:.6f}" for v in (cor / [w, h]).reshape(-1)))
+        total += len(rows)
+        with open(os.path.join(root, "images", "val", f"{i:04d}.png"),
+                  "wb") as f:
+            f.write(encode_png(img, level=1))
+        with open(os.path.join(root, "labels", "val", f"{i:04d}.txt"),
+                  "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return total
+
+
+def phase_obb_val(dev, root, state, conf):
+    """Phase 11d: Obber.val of the seeded v12x-obb in float32 on the card
+    and on the CPU, on a val set labelled with its own predictions."""
+    from yolosharp_tpu_torch import ScalarType
+
+    print(f"phase 11d: {OBB} val, seeded weights, float32, card against "
+          f"CPU, both on the same {OBB_SELF_VAL} 640x640 images labelled "
+          f"with its own predictions", flush=True)
+    cfg = dict(scalar_type=ScalarType.float32, root_path=root,
+               train_data_path="images/val", val_data_path="images/val",
+               image_size=640, batch_size=OBB_SELF_VAL)
+    cuda = build_tasks(dev, OBB, state, **cfg)
+    n = write_self_labelled_obb(root, cuda[False], conf)
+    print(f"  {n} labels (at most {SELF_LABELS} an image)", flush=True)
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    names = cuda[False].task.metric_names
+    for e2e in (False, True):
+        mode = f"{OBB} {'end2end' if e2e else 'nms'}"
+        seconds, results = [], []
+        for d, st in ((dev, state), ("cpu", cpu_state)):
+            t0 = time.perf_counter()
+            results.append(build_tasks(d, OBB, st, **cfg)[e2e].val()[1])
+            seconds.append(time.perf_counter() - t0)
+        got, want = results
+        print(f"  [{mode}] card / CPU ({seconds[0]:.1f} / {seconds[1]:.1f} "
+              f"s): " + ", ".join(f"{k} {g:.4f} / {c:.4f}"
+                                  for k, g, c in zip(names, got, want)),
+              flush=True)
+        gap = max(abs(g - c) for g, c in zip(got, want))
+        print(f"  [{mode}] largest gap {gap:.4f} (at most {OBB_VAL_TOL}); "
+              f"box mAP50 above 0 on both", flush=True)
+        if gap > OBB_VAL_TOL or len(got) != 4 or min(got[2], want[2]) <= 0:
+            raise SystemExit(f"[{mode}] val on the card and on the CPU "
+                             f"disagree, or the mAP50 is 0")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2246,6 +2608,20 @@ def main() -> int:
         add(served, launches)
     with tempfile.TemporaryDirectory() as root:
         timed("10d", phase_pose_val, dev, root, states[POSE], confs[POSE])
+    serve(OBB)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_obb_dataset(root, OBB_TRAIN, OBB_VAL)
+        print(f"wrote the synthetic PNG OBB dataset ({OBB_TRAIN} train, "
+              f"{OBB_VAL} val) in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for batch in OBB_BATCHES:
+            obb_train, served = timed("11c", phase_obb_train, dev, root, tag,
+                                      batch)
+            add(obb_train, train_launches)
+            add(served, launches)
+    with tempfile.TemporaryDirectory() as root:
+        timed("11d", phase_obb_val, dev, root, states[OBB], confs[OBB])
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules

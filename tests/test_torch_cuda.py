@@ -756,3 +756,116 @@ def test_v11s_pose_batch_predict_on_the_card_matches_the_cpu(cuda):
             assert gk.shape == wk.shape == (17, 3)
             assert np.abs(gk[:, :2] - wk[:, :2]).max() <= 0.5
             assert np.abs(gk[:, 2] - wk[:, 2]).max() <= 1e-3
+
+
+# v12x-obb's 3x3 shapes (B, H, W, Ci, Co) at 640x640 that no detect, segment
+# or pose path takes: the angle towers cv4 of c4 = max(384 // 4, 1) = 96
+# channels (384 -> 96 at 80², 768 -> 96 at 40² and 20², 96 -> 96), and the
+# backbone's 768 -> 768 at stride 2; the last ones at the served batch 32
+OBB_CONVS = {"cv4_p3": (2, 80, 80, 384, 96),
+             "cv4_tower_p3_b32": (32, 80, 80, 96, 96),
+             "cv4_p5": (2, 20, 20, 768, 96),
+             "backbone_768_b32": (32, 40, 40, 768, 768)}
+# v12x-obb's attention at 640x640, (sequences, N, heads, D): 12 heads of 32;
+# layer 6 (40², area 4) and layer 8 (20², area 1) at the served batch 32
+OBB_ATTENTION = {"layer6_b32": (32 * 4, 400, 12, 32),
+                 "layer8_b32": (32, 400, 12, 32)}
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(OBB_CONVS))
+def test_conv_kernels_on_the_v12x_obb_shapes(cuda, dtype, name, stride):
+    """Each stride of the conv kernel at v12x-obb's shapes against the
+    plain version, at chip_smoke's rules (float32 1e-4 + 1e-4|p|; bf16 /
+    f16 within 1.25 u of the float64 evaluation)."""
+    B, H, W, ci, co = OBB_CONVS[name]
+    rng = np.random.default_rng(B * H + ci + co + stride)
+    dt = getattr(torch, dtype)
+    x = _rand(rng, B, H, W, ci).to(cuda, dt)
+    w = _rand(rng, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(cuda, dt)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    fn = conv3x3_silu if stride == 1 else conv3x3s2_silu
+    got = fn(x, w, b).float()
+    assert got.shape[-1] == co and bool(torch.isfinite(got).all())
+    if dtype == "float32":
+        torch.testing.assert_close(got, conv3x3_plain(x, w, b, "silu",
+                                                      stride), **TOL[dtype])
+        return
+    ref = conv3x3_plain(x.double(), w.double(), b.double(), "silu", stride)
+    dist = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert dist <= 1.25 * UNIT[dtype], dist / UNIT[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(OBB_ATTENTION))
+def test_attention_on_the_v12x_obb_shapes(cuda, dtype, name):
+    """The attention kernel on strided q, k, v of one qkv tensor (as AAttn
+    hands them over) at v12x-obb's served shapes: float32 within 2e-5 +
+    2e-4|p| of the plain version, bf16 / f16 within 2.5 u of its float64
+    evaluation (chip_smoke's rules); one launch a call."""
+    b, n, h, d = OBB_ATTENTION[name]
+    rng = np.random.default_rng(b + n)
+    dt = getattr(torch, dtype)
+    qkv = _rand(rng, b, n, h, 3 * d).to(cuda, dt)
+    q, k, v = qkv.split(d, dim=-1)
+    scale = d ** -0.5
+    before = fused_attention.launches
+    got = attention_bihd(q, k, v, scale).float()
+    assert fused_attention.launches == before + 1
+    bhnd = [t.transpose(1, 2) for t in (q, k, v)]
+    if dtype == "float32":
+        want = attention_plain(*bhnd, scale).transpose(1, 2)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-4)
+        return
+    ref = attention_plain(*[t.double() for t in bhnd], scale).transpose(1, 2)
+    dist = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert dist <= 2.5 * UNIT[dtype], dist / UNIT[dtype]
+
+
+def test_v12n_obb_batch_predict_on_the_card_matches_the_cpu(cuda):
+    """v12n-obb float32 batch_predict (the rotated fast NMS) of two images
+    on the card, through the conv and attention kernels, against the
+    CPU's, same seeded weights (conv kernels x2.0, the head's final convs
+    from U(-0.3, 0.3)): the first ten rows of each image by score, centre
+    and sides within 1 px (int-truncated), the angle within 1e-4 rad."""
+    cfg = Config(task_type=TaskType.obb, yolo_type=YoloType.v12,
+                 yolo_size=YoloSize.n, number_class=15, end2end=False,
+                 scalar_type=ScalarType.float32)
+    cpu = YoloTask(cfg, device="cpu")
+    net = cpu.task._ensure_variables()
+    rng = np.random.default_rng(3)
+    head = net.model[-1]
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, ConvBN):
+                m.conv.weight.mul_(2.0)
+        for p in (t for tower in (head.cv2, head.cv3, head.cv4)
+                  for branch in tower
+                  for t in (branch[2].weight, branch[2].bias)):
+            p.copy_(torch.from_numpy(rng.uniform(-0.3, 0.3, p.shape)
+                                     .astype(np.float32)))
+    card = YoloTask(cfg, device=cuda)
+    card.task._ensure_variables().load_state_dict(net.state_dict())
+    imgs = [rng.integers(0, 255, (256, 320, 3), dtype=np.uint8),
+            rng.integers(0, 255, (200, 264, 3), dtype=np.uint8)]
+    x = pad_to_multiple(torch.from_numpy(imgs[0])[None]).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        preds = cpu.task._predict_variables()(x.float() / 255.0)
+    flat = flatten_levels(preds["one2many"]["cls"]).sigmoid().amax(-1)
+    conf = float(np.quantile(flat.numpy(), 1 - 100 / flat.shape[1]))
+    reset_launch_counts()
+    got = card.batch_predict(imgs, conf, 0.7)
+    counts = launch_counts()
+    assert counts["conv3x3_silu"] > 0 and counts["conv3x3s2_silu"] > 0
+    assert counts["fused_attention"] > 0 and counts["c2f_fused"] == 0
+    want = cpu.batch_predict(imgs, conf, 0.7)
+    key = lambda r: (-r.score, r.center_x, r.center_y)  # noqa: E731
+    for got_i, want_i in zip(got, want):
+        assert len(want_i) > 5 and abs(len(got_i) - len(want_i)) <= 2
+        for g, w in zip(sorted(got_i, key=key)[:10],
+                        sorted(want_i, key=key)[:10]):
+            assert g.class_id == w.class_id and abs(g.score - w.score) < 1e-3
+            for a in ("center_x", "center_y", "width", "height"):
+                assert abs(getattr(g, a) - getattr(w, a)) <= 1
+            assert abs(g.radian - w.radian) <= 1e-4

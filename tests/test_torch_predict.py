@@ -163,7 +163,8 @@ def test_image_and_batch_predict_results_match_jax(tasks):
 
 def test_port_runs_without_jax(tmp_path):
     """Importing every module of the port, predicting on the CPU (detect,
-    segment with its masks and pose with its keypoints) and saving and
+    segment with its masks, pose with its keypoints and OBB with its
+    angle), the OBB labels' minimum-area rectangle, and saving and
     loading a checkpoint loads neither jax nor flax nor cv2 (the GPU
     machine has none of them), nor any module of the JAX package
     yolosharp_tpu."""
@@ -202,6 +203,14 @@ def test_port_runs_without_jax(tmp_path):
         "scalar_type=ScalarType.float32), device='cpu')\n"
         "r = p.image_predict(np.zeros((64, 96, 3), np.uint8), 0.0)\n"
         "assert r and len(r[0].keypoints) == 17, r\n"
+        "o = YoloTask(Config(task_type=TaskType.obb, "
+        "yolo_size=YoloSize.n, number_class=5, "
+        "scalar_type=ScalarType.float32), device='cpu')\n"
+        "r = o.image_predict(np.zeros((64, 96, 3), np.uint8), 0.0)\n"
+        "assert r and -1 < r[0].radian < 3, r\n"
+        "from yolosharp_tpu_torch.ops import xyxyxyxy2xywhr\n"
+        "assert xyxyxyxy2xywhr(np.float32([[[0, 0], [10, 0], [10, 5], "
+        "[0, 5]]])).shape == (1, 5)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
         "'ml_dtypes', 'yolosharp_tpu') or m.startswith(('jax.', 'flax.', "
         "'yolosharp_tpu.'))]\n"

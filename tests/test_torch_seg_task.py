@@ -3,8 +3,8 @@ train() of v8n, v11n, v12n and v5un for two epochs on a PNG polygon
 dataset (epoch 1 through the mosaic: the device render of images and
 masks, or the host mosaic4 + random_perspective; epoch 2 letterbox), its
 outputs, and the trained best.bin served by a fresh task with masks; the
-End2End gain schedule that the segment task takes; the tasks that still
-raise (obb and classify)."""
+End2End gain schedule that the segment task takes; the task that still
+raises (classify)."""
 
 import os
 
@@ -97,7 +97,8 @@ def test_segment_takes_the_end2end_gain_schedule():
     assert det.task._loss_kwargs(1) == {}
 
 
-@pytest.mark.parametrize("task", [TaskType.obb, TaskType.classify])
+@pytest.mark.parametrize("task", [TaskType.classify])
 def test_the_other_tasks_still_raise(task):
-    with pytest.raises(NotImplementedError, match="detect, segment and pose"):
+    with pytest.raises(NotImplementedError,
+                       match="detect, segment, pose and obb"):
         YoloTask(Config(task_type=task), device="cpu")

@@ -112,7 +112,7 @@ def test_module_matches_jax(name):
     np.testing.assert_allclose(_nhwc(got_fold), want, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("version,task", [("v11", "obb"),
+@pytest.mark.parametrize("version,task", [("v11", "classify"),
                                           ("v5u", "classify"),
                                           ("v12", "classify")])
 def test_build_arch_raises_for_what_is_not_ported(version, task):

@@ -1,7 +1,8 @@
 """yolosharp_tpu_torch: the PyTorch/CUDA port of yolosharp_tpu.
 
 Same public surface as the JAX package, for v5u, v8, v11 and v12 detection,
-instance segmentation and pose estimation (Config.task_type) so far:
+instance segmentation, pose estimation and oriented boxes (Config.task_type)
+so far:
 
     from yolosharp_tpu_torch import Config, YoloTask
     task = YoloTask(Config(...))            # device="cuda" by default
@@ -14,14 +15,15 @@ formats and name map, label parsing, augmentation, loader, metrics) are
 copies under the same names. Modules:
 
 - ``config``, ``types``: Config and the result / enum types;
-- ``nn``: the v5u / v8 / v11 / v12 detect, segment and pose networks
+- ``nn``: the v5u / v8 / v11 / v12 detect, segment, pose and OBB networks
   (train and eval BatchNorm with the JAX package's statistics, BN-folded
   predict);
-- ``ops``: boxes (``clip_keypoints``), IoU (``box_iou``, ``bbox_iou``,
-  ``mask_iou``, the OKS ``kpt_iou``), anchors, NMS, masks (``crop_mask``,
-  ``process_mask``);
-- ``loss``: the task-aligned assigner (``tal``), the detection,
-  segmentation and pose losses and the End2End pair;
+- ``ops``: boxes (``clip_keypoints``, the OBB corner forms), the cv2-free
+  minimum-area rectangle (``rect``), IoU (``box_iou``, ``bbox_iou``,
+  ``mask_iou``, the OKS ``kpt_iou``, ``probiou``), anchors, NMS (greedy,
+  and the rotated fast NMS), masks (``crop_mask``, ``process_mask``);
+- ``loss``: the task-aligned assigner (``tal``, axis-aligned and rotated),
+  the detection, OBB, segmentation and pose losses and the End2End pair;
 - ``train``: AdamW groups, LR schedules, train and eval steps, TrainState;
 - ``data``: cv2-free pixel work (``image_ops``: PNG reader, resize, HSV,
   warps, polygon fill), labels, augmentations (letterbox and the host
@@ -37,10 +39,11 @@ copies under the same names. Modules:
 """
 
 from .config import Config
-from .tasks import Detector, PoseDetector, Segmenter, YoloTask
+from .tasks import Detector, Obber, PoseDetector, Segmenter, YoloTask
 from .types import (KeyPoint, ScalarType, TaskType, YoloResult, YoloSize,
                     YoloType)
 
-__all__ = ["Config", "Detector", "KeyPoint", "PoseDetector", "ScalarType",
+__all__ = ["Config", "Detector", "KeyPoint", "Obber", "PoseDetector",
+           "ScalarType",
            "Segmenter", "TaskType", "YoloResult", "YoloSize", "YoloTask",
            "YoloType"]

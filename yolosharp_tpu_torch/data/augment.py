@@ -1,4 +1,4 @@
-"""Host augmentations of the detect, segment and pose tasks (a copy of
+"""Host augmentations of the detect, segment, pose and OBB tasks (a copy of
 yolosharp_tpu/data/augment.py with the pixel work in ``image_ops`` instead
 of cv2; the same rng draws in the same order).
 
@@ -14,8 +14,11 @@ transform too: shifted by the letterbox and rectangle pads (an invisible
 keypoint at (0, 0) as well), offset and filtered with their boxes in
 mosaic4, warped with visibility 0 outside the canvas in
 random_perspective, and mirrored by the flips without a swap of left and
-right keypoints, as the JAX package does. mosaic4 and random_perspective
-also carry OBB corners.
+right keypoints, as the JAX package does. The OBB corners go through every
+transform as points: offset and filtered with their boxes in mosaic4,
+warped and clipped to the canvas in random_perspective, shifted by the pads
+and mirrored by the flips (the corner order is left as it is: the collate's
+minimum-area rectangle re-derives the box).
 """
 
 from __future__ import annotations
@@ -250,9 +253,10 @@ def _resize_pad(img: np.ndarray, target_h: int, target_w: int,
 def _shift_labels(label: LabelRecord, pl: int, pu: int) -> None:
     if label.bboxes is not None and len(label.bboxes):
         label.bboxes = label.bboxes + [pl, pu, pl, pu]
-    if label.keypoints is not None and len(label.keypoints):
-        label.keypoints[..., 0] += pl
-        label.keypoints[..., 1] += pu
+    for pts in (label.keypoints, label.obb_corners):
+        if pts is not None and len(pts):
+            pts[..., 0] += pl
+            pts[..., 1] += pu
 
 
 def letterbox(label: LabelRecord, width: int, height: int,
@@ -296,8 +300,9 @@ def flip_lr(label: LabelRecord) -> LabelRecord:
         x1 = w - out.bboxes[:, 2]
         x2 = w - out.bboxes[:, 0]
         out.bboxes[:, 0], out.bboxes[:, 2] = x1, x2
-    if out.keypoints is not None and len(out.keypoints):
-        out.keypoints[..., 0] = w - out.keypoints[..., 0]
+    for pts in (out.keypoints, out.obb_corners):
+        if pts is not None and len(pts):
+            pts[..., 0] = w - pts[..., 0]
     return out
 
 
@@ -311,8 +316,9 @@ def flip_ud(label: LabelRecord) -> LabelRecord:
         y1 = h - out.bboxes[:, 3]
         y2 = h - out.bboxes[:, 1]
         out.bboxes[:, 1], out.bboxes[:, 3] = y1, y2
-    if out.keypoints is not None and len(out.keypoints):
-        out.keypoints[..., 1] = h - out.keypoints[..., 1]
+    for pts in (out.keypoints, out.obb_corners):
+        if pts is not None and len(pts):
+            pts[..., 1] = h - pts[..., 1]
     return out
 
 

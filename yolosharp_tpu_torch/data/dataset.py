@@ -1,6 +1,6 @@
-"""Detect, segment and pose dataset: per-index transforms, padded batch
-collation and the planned batches of the device render (a copy of
-yolosharp_tpu/data/dataset.py:23-212, the detect, segment and pose
+"""Detect, segment, pose and OBB dataset: per-index transforms, padded
+batch collation and the planned batches of the device render (a copy of
+yolosharp_tpu/data/dataset.py:23-212, the detect, segment, pose and OBB
 tasks).
 
 Parity targets: Data/YoloDataset.cs:57-99 (transform composition,
@@ -15,7 +15,10 @@ carries ``masks`` (B, h/r, w/r) float32 overlap ids, or, planned, the
 tile-local id pool ``aug_mask_pool`` and the plan's ``aug_mask_lut``, from
 which the train step renders ``masks``. A pose batch, collated or planned,
 carries ``keypoints`` (B, M, K, kd) float32, x and y normalised by the
-canvas.
+canvas. An OBB batch's ``bboxes`` are (B, M, 5): each label's corners
+through the cv2-free minimum-area rectangle (``ops.boxes.xyxyxyxy2xywhr``,
+OpenCV 5.0's convention), centre and size normalised by the canvas, the
+angle in radians.
 """
 
 from __future__ import annotations
@@ -27,12 +30,13 @@ import numpy as np
 
 from ..config import Config
 from ..types import ImageProcessType, TaskType
+from ..ops.boxes import xyxyxyxy2xywhr
 from . import augment as A
 from .labels import LabelRecord, load_labels
 
 
 class YoloDataset:
-    """Detect / segment / pose dataset with the reference's augment
+    """Detect / segment / pose / OBB dataset with the reference's augment
     pipeline (the mosaic while it is open, letterbox after)."""
 
     def __init__(self, config: Config, is_val: bool = False,
@@ -169,8 +173,9 @@ class YoloDataset:
         """Padded, normalised label tensors for a batch (canvas h x w)."""
         cfg = self.config
         b = len(recs)
+        obb = cfg.task_type == TaskType.obb
         cls = np.zeros((b, max_labels), np.int32)
-        bboxes = np.zeros((b, max_labels, 4), np.float32)
+        bboxes = np.zeros((b, max_labels, 5 if obb else 4), np.float32)
         mask_gt = np.zeros((b, max_labels), bool)
         out = {"cls": cls, "bboxes": bboxes, "mask_gt": mask_gt}
         pose = cfg.task_type == TaskType.pose
@@ -184,6 +189,10 @@ class YoloDataset:
                 continue
             cls[i, :n] = r.cls[:n].astype(np.int32)
             mask_gt[i, :n] = True
+            if obb:
+                bboxes[i, :n] = (xyxyxyxy2xywhr(r.obb_corners[:n])
+                                 / np.float32([w, h, w, h, 1]))
+                continue
             bb = r.bboxes[:n]
             cxy = (bb[:, :2] + bb[:, 2:]) / 2
             wh = bb[:, 2:] - bb[:, :2]

@@ -1,7 +1,7 @@
-"""Dataset scanning and YOLO-txt label parsing for the detect, segment and
-pose tasks (a copy of yolosharp_tpu/data/labels.py; images are read and
-resized through ``image_ops``, without cv2 for PNG, and polygons filled
-by ``image_ops.fill_poly``).
+"""Dataset scanning and YOLO-txt label parsing for the detect, segment,
+pose and OBB tasks (a copy of yolosharp_tpu/data/labels.py; images are
+read and resized through ``image_ops``, without cv2 for PNG, and polygons
+filled by ``image_ops.fill_poly``).
 
 Parity targets: Data/Base.cs:51-136 (image scanning / txt-list
 resolution), Data/YoloDataset.cs:153-376 (label parsing, eager resize,
@@ -28,7 +28,7 @@ IMG_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff"}
 class LabelRecord:
     """One image and its boxes (pixel units of `img`); for the segment task
     its overlap-id mask (instance i + 1 per pixel, at 1 / mask_ratio), for
-    the pose task its keypoints."""
+    the pose task its keypoints, for the OBB task its 4 corners."""
 
     im_file: str
     img: Optional[np.ndarray] = None          # (H, W, 3) uint8, resized
@@ -37,8 +37,6 @@ class LabelRecord:
     org_shape: Tuple[int, int] = (0, 0)       # (h, w)
     resized_shape: Tuple[int, int] = (0, 0)
     rectangle_shape: Optional[Tuple[int, int]] = None
-    # the pose task's keypoints; the OBB corners, which the mosaic planner
-    # carries through, stay None until the OBB task is ported
     keypoints: Optional[np.ndarray] = None    # (n, K, kd) pixels
     obb_corners: Optional[np.ndarray] = None  # (n, 4, 2) pixels
     mask: Optional[np.ndarray] = None         # (mh, mw) uint8 overlap ids
@@ -96,18 +94,21 @@ def img2label_paths(im_files: List[str]) -> List[str]:
 
 def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
                 ) -> List[LabelRecord]:
-    """Scan, parse and eagerly resize a detect, segment or pose split
+    """Scan, parse and eagerly resize a detect, segment, pose or OBB split
     (YoloDataset.cs:153-367). A segment row is a class and a polygon: its
     box spans the polygon's extremes, and the polygon, scaled to the mask
     (ceil(size / mask_ratio)) and truncated to int32, is filled with its
     row's id + 1, later rows over earlier ones. A pose row is a class, a
     box (columns 1-4) and K kd keypoint values from column 5 on, their
-    coordinates scaled to resized pixels."""
+    coordinates scaled to resized pixels. An OBB row is a class and 4
+    normalised corners: its box spans the corners' extremes, and the
+    corners are scaled to resized pixels."""
     task = config.task_type
-    if task not in (TaskType.detect, TaskType.segment, TaskType.pose):
+    if task not in (TaskType.detect, TaskType.segment, TaskType.pose,
+                    TaskType.obb):
         raise NotImplementedError(
-            f"the torch port reads detect, segment and pose labels only so "
-            f"far, not {task.value} (ROADMAP queue 1 item 5)")
+            f"the torch port reads detect, segment, pose and OBB labels only "
+            f"so far, not {task.value} (ROADMAP queue 1 item 5)")
     nkpt, ndim = config.keypoint_num, config.keypoint_dim
     imgsz = config.image_size
     mask_ratio = config.mask_ratio
@@ -140,19 +141,25 @@ def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
                 if task == TaskType.segment else None)
         kpts = (np.zeros((n, nkpt, ndim), np.float32)
                 if task == TaskType.pose else None)
+        corners = (np.zeros((n, 4, 2), np.float32)
+                   if task == TaskType.obb else None)
         for i, parts in enumerate(rows):
             vals = [float(v) for v in parts]
             cls[i] = vals[0]
             if kpts is not None:
                 kpts[i] = np.asarray(vals[5:5 + nkpt * ndim],
                                      np.float32).reshape(nkpt, ndim)
-            if mask is None:
+            if mask is None and corners is None:
                 bboxes[i] = vals[1:5]
                 continue
-            pts = np.asarray(vals[1:], np.float32).reshape(-1, 2)
+            pts = np.asarray(vals[1:9] if corners is not None else vals[1:],
+                             np.float32).reshape(-1, 2)
             lo, hi = pts.min(0), pts.max(0)
             bboxes[i] = [(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2,
                          hi[0] - lo[0], hi[1] - lo[1]]
+            if corners is not None:
+                corners[i] = pts
+                continue
             poly = np.stack([pts[:, 0] * rw / mask_ratio,
                              pts[:, 1] * rh / mask_ratio], -1)
             fill_poly(mask, poly.astype(np.int32), i + 1)
@@ -166,6 +173,10 @@ def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
             kpts[..., 0] *= rw
             kpts[..., 1] *= rh
             rec.keypoints = kpts
+        if corners is not None:
+            corners[..., 0] *= rw
+            corners[..., 1] *= rh
+            rec.obb_corners = corners
         rec.mask = mask
         records.append(rec)
 

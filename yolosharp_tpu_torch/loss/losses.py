@@ -1,10 +1,10 @@
-"""Detection, segmentation and pose losses and the End2End pair
-(counterpart of yolosharp_tpu/loss/losses.py:36-166, :237-405, :436-491;
-parity target YoloSharp/Utils/Loss.cs:94-484, 233-325, 688-1070 and
-1094-1176).
+"""Detection, OBB, segmentation and pose losses and the End2End pair
+(counterpart of yolosharp_tpu/loss/losses.py:36-405, :436-491; parity
+target YoloSharp/Utils/Loss.cs:94-1070 and 1094-1176).
 
 Losses are functions over padded batches on the device:
-  batch = {"cls": (B, M) int, "bboxes": (B, M, 4) normalised xywh,
+  batch = {"cls": (B, M) int, "bboxes": (B, M, 4) normalised xywh (OBB:
+           (B, M, 5), the angle in radians last),
            "mask_gt": (B, M) bool,
            "masks": (B, mh, mw) segment only: overlap ids (instance + 1),
            "keypoints": (B, M, K, kd) pose only: normalised x, y
@@ -16,15 +16,17 @@ as in the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.anchors import bbox2dist, dfl_decode, dist2bbox, make_anchors
+from ..ops.anchors import (bbox2dist, dfl_decode, dist2bbox, dist2rbox,
+                           make_anchors, rbox2dist)
 from ..ops.boxes import xywh2xyxy, xyxy2xywh
-from ..ops.iou import bbox_iou
+from ..ops.iou import bbox_iou, probiou
 from ..ops.masks import crop_mask
 from .tal import assign
 
@@ -146,6 +148,73 @@ def detection_loss(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
                     tal_topk2=tal_topk2)
     items = torch.stack([out.loss_box * hyp_box, out.loss_cls * hyp_cls,
                          out.loss_dfl * hyp_dfl])
+    return items.sum() * b, items
+
+
+def obb_loss(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
+             tal_topk: int = 10, tal_topk2: int | None = None,
+             hyp_box: float = 7.5, hyp_cls: float = 0.5, hyp_dfl: float = 1.5,
+             hyp_angle: float = 1.0, lambda_val: float = 3.0):
+    """v8OBBLoss (Loss.cs:486-683) on one branch's maps, in float32.
+    Returns (loss, items (4,) = box, cls, dfl, angle).
+
+    Ground truths under 2 px on a side are dropped (Loss.cs:559-561); the
+    assigner is the rotated one (probiou); the box loss is 1 - probiou in
+    grid units, the DFL targets rbox2dist's; the angle term is the
+    aspect-weighted sin^2(2 dtheta), dtheta folded into a half turn, with
+    the weight exp(-log(w / h)^2 / lambda^2) (Loss.cs:657-677)."""
+    pred_distri = flatten_levels(preds["box"]).float()
+    pred_scores = flatten_levels(preds["cls"]).float()
+    pred_angle = flatten_levels(preds["angle"]).float()        # (B, A, 1)
+    dev = pred_scores.device
+    feat_shapes = [tuple(m.shape[2:4]) for m in preds["box"]]
+    anchor_points, stride_tensor = make_anchors(feat_shapes, STRIDES,
+                                                device=dev)
+    ih, iw = _imgsz(preds)
+    b, a, _ = pred_scores.shape
+
+    bb = batch["bboxes"].float()                               # (B, M, 5)
+    scale = torch.tensor([iw, ih, iw, ih], dtype=torch.float32, device=dev)
+    gt_xywh = bb[..., :4] * scale
+    gt_bboxes = torch.cat([gt_xywh, bb[..., 4:5]], -1)
+    mask_gt = (batch["mask_gt"].bool() & (gt_xywh[..., 2] >= 2)
+               & (gt_xywh[..., 3] >= 2))
+
+    rbox = dist2rbox(dfl_decode(pred_distri, reg_max), pred_angle,
+                     anchor_points)                            # grid units
+    pred_bboxes = torch.cat([rbox, pred_angle], -1)
+    res = assign(pred_scores.detach().sigmoid(),
+                 torch.cat([rbox.detach() * stride_tensor,
+                            pred_angle.detach()], -1),
+                 anchor_points * stride_tensor, batch["cls"], gt_bboxes,
+                 mask_gt, topk=tal_topk, topk2=tal_topk2, num_classes=nc,
+                 rotated=True)
+
+    tss = res.target_scores.sum().clamp(min=1.0)
+    loss_cls = bce_logits(pred_scores, res.target_scores).sum() / tss
+
+    weight = res.target_scores.sum(-1) * res.fg_mask           # (B, A)
+    tgt = torch.cat([res.target_bboxes[..., :4] / stride_tensor,
+                     res.target_bboxes[..., 4:5]], -1)
+    iou = probiou(pred_bboxes, tgt)[..., 0]
+    loss_box = ((1.0 - iou) * weight).sum() / tss
+
+    target_ltrb = rbox2dist(tgt[..., :4], anchor_points, tgt[..., 4:5],
+                            reg_max=reg_max - 1)
+    dfl = _dfl_loss(pred_distri.reshape(b, a, 4, reg_max), target_ltrb,
+                    reg_max)
+    loss_dfl = (dfl * weight).sum() / tss
+
+    w_gt, h_gt = tgt[..., 2], tgt[..., 3]
+    log_ar = torch.log((w_gt + 1e-9) / (h_gt + 1e-9))
+    scale_w = torch.exp(-(log_ar ** 2) / (lambda_val ** 2))
+    dtheta = pred_bboxes[..., 4] - tgt[..., 4]
+    dtheta = dtheta - torch.round(dtheta / math.pi) * math.pi
+    loss_angle = ((torch.sin(2 * dtheta) ** 2 * scale_w * weight).sum()
+                  / tss)
+
+    items = torch.stack([loss_box * hyp_box, loss_cls * hyp_cls,
+                         loss_dfl * hyp_dfl, loss_angle * hyp_angle])
     return items.sum() * b, items
 
 

@@ -1,6 +1,7 @@
-"""Task-aligned assigner over padded batches, axis-aligned boxes
-(counterpart of yolosharp_tpu/loss/tal.py: ``assign``, non-rotated branch,
-``:39-52`` and ``:74-218``; parity target YoloSharp/Utils/Tal.cs:13-250).
+"""Task-aligned assigner over padded batches, axis-aligned or rotated boxes
+(counterpart of yolosharp_tpu/loss/tal.py: ``assign``; parity target
+YoloSharp/Utils/Tal.cs:13-310, RotatedTaskAlignedAssigner included: rotated
+boxes take the point-in-rotated-rectangle candidates and probiou).
 
 Ground truths are padded to M slots with a validity mask; the reference's
 "anchor matched to several ground truths" branch applies to every anchor
@@ -16,13 +17,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.boxes import xywh2xyxy, xyxy2xywh
-from ..ops.iou import bbox_iou
+from ..ops.boxes import xywh2xyxy, xywhr2xyxyxyxy, xyxy2xywh
+from ..ops.iou import bbox_iou, probiou
 
 
 class AssignResult(NamedTuple):
     target_labels: torch.Tensor   # (B, A) int64
-    target_bboxes: torch.Tensor   # (B, A, 4)
+    target_bboxes: torch.Tensor   # (B, A, 4|5)
     target_scores: torch.Tensor   # (B, A, nc)
     fg_mask: torch.Tensor         # (B, A) bool
     target_gt_idx: torch.Tensor   # (B, A) int64
@@ -44,6 +45,26 @@ def _select_candidates_in_gts(anc_points, gt_bboxes, mask_gt, min_stride,
     return deltas.amin(-1) > eps
 
 
+def _select_candidates_in_rotated_gts(anc_points, gt_bboxes, mask_gt,
+                                      min_stride, stride_val):
+    """Anchor-centre-in-rotated-rectangle test with tiny-gt inflation
+    (Tal.cs:279-308): (B, M, A) bool, for xywhr gts (B, M, 5)."""
+    wh = gt_bboxes[..., 2:4]
+    small = (wh < min_stride) & mask_gt[..., None]
+    wh = torch.where(small, torch.full_like(wh, stride_val), wh)
+    corners = xywhr2xyxyxyxy(torch.cat([gt_bboxes[..., :2], wh,
+                                        gt_bboxes[..., 4:5]], -1))
+    a, b, d = corners[..., 0, :], corners[..., 1, :], corners[..., 3, :]
+    ab, ad = b - a, d - a                                     # (B, M, 2)
+    ap = anc_points[None, None] - a[..., None, :]             # (B, M, A, 2)
+    norm_ab = (ab * ab).sum(-1)[..., None]
+    norm_ad = (ad * ad).sum(-1)[..., None]
+    ap_ab = (ap * ab[..., None, :]).sum(-1)
+    ap_ad = (ap * ad[..., None, :]).sum(-1)
+    return ((ap_ab >= 0) & (ap_ab <= norm_ab)
+            & (ap_ad >= 0) & (ap_ad <= norm_ad))
+
+
 def topk_mask(metrics: torch.Tensor, topk: int) -> torch.Tensor:
     """0/1 membership of the top-k entries along the last axis, ties to the
     smallest index."""
@@ -54,24 +75,28 @@ def topk_mask(metrics: torch.Tensor, topk: int) -> torch.Tensor:
 
 @torch.no_grad()
 def assign(pd_scores: torch.Tensor,     # (B, A, nc) sigmoided
-           pd_bboxes: torch.Tensor,     # (B, A, 4) image units, xyxy
+           pd_bboxes: torch.Tensor,     # (B, A, 4) xyxy | (B, A, 5) xywhr
            anc_points: torch.Tensor,    # (A, 2) image units
            gt_labels: torch.Tensor,     # (B, M) int
-           gt_bboxes: torch.Tensor,     # (B, M, 4) xyxy
+           gt_bboxes: torch.Tensor,     # (B, M, 4) xyxy | (B, M, 5) xywhr
            mask_gt: torch.Tensor,       # (B, M) bool
            *, topk: int = 10, topk2: Optional[int] = None,
            num_classes: int = 80, alpha: float = 0.5, beta: float = 6.0,
-           min_stride: int = 8, stride_val: int = 16,
+           rotated: bool = False, min_stride: int = 8, stride_val: int = 16,
            eps: float = 1e-9) -> AssignResult:
-    """Task-aligned assignment: align = score^alpha * IoU^beta."""
+    """Task-aligned assignment: align = score^alpha * IoU^beta, the IoU a
+    CIoU of xyxy boxes, or with `rotated` the probiou of xywhr boxes (image
+    units)."""
     topk2 = topk if topk2 is None else topk2
     b, a, nc = pd_scores.shape
     m = gt_labels.shape[1]
     mask_gt = mask_gt.bool()
     gt_labels = gt_labels.long()
 
-    mask_in_gts = _select_candidates_in_gts(anc_points, gt_bboxes, mask_gt,
-                                            min_stride, stride_val)
+    select = (_select_candidates_in_rotated_gts if rotated
+              else _select_candidates_in_gts)
+    mask_in_gts = select(anc_points, gt_bboxes, mask_gt, min_stride,
+                         stride_val)
 
     # --- box metrics (Tal.cs:114-137) ---
     labels = gt_labels.clamp(0, nc - 1)
@@ -79,8 +104,9 @@ def assign(pd_scores: torch.Tensor,     # (B, A, nc) sigmoided
         1, labels[..., None].expand(b, m, a))                 # (B, M, A)
     valid = mask_in_gts & mask_gt[..., None]
     bbox_scores = torch.where(valid, bbox_scores, 0.0)
-    iou = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :],
-                   xywh=False, CIoU=True)[..., 0]
+    gt_exp, pd_exp = gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :]
+    iou = (probiou(gt_exp, pd_exp) if rotated
+           else bbox_iou(gt_exp, pd_exp, xywh=False, CIoU=True))[..., 0]
     overlaps = torch.where(valid, iou.clamp(min=0.0), 0.0)
     align_metric = bbox_scores ** alpha * overlaps ** beta
 

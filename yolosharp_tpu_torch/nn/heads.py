@@ -1,11 +1,13 @@
-"""Detection, segment and pose heads (counterpart of
-yolosharp_tpu/nn/heads.py: _Branch, _SimpleBranch, Detect, Segment, Pose).
+"""Detection, segment, pose and OBB heads (counterpart of
+yolosharp_tpu/nn/heads.py: _Branch, _SimpleBranch, Detect, Segment, Pose,
+Obb).
 The heads return RAW per-level maps; decoding lives in ``predict.py``.
 End2End heads carry ``one2one_*`` towers, run on detached features
 (Head.cs:92-101)."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import torch
@@ -95,8 +97,8 @@ class Detect(nn.Module):
 
 class _SimpleBranch(nn.Sequential):
     """ConvBN 3x3 -> ConvBN 3x3 -> Conv2d 1x1 (always legacy): the segment
-    head's mask-coefficient towers and the pose head's keypoint towers,
-    cv4."""
+    head's mask-coefficient towers, the pose head's keypoint towers and the
+    OBB head's angle towers, cv4."""
 
     def __init__(self, cin: int, mid: int, out: int):
         super().__init__(ConvBN(cin, mid, 3), ConvBN(mid, mid, 3),
@@ -162,3 +164,36 @@ class Pose(Detect):
         out = super().towers(one2one)
         out["kpt"] = getattr(self, ("one2one_" if one2one else "") + "cv4")
         return out
+
+
+class Obb(Detect):
+    """Detect + per-level angle towers cv4 of c4 = max(ch[0] // 4, ne)
+    channels, ne = 1 out (Head.cs:410-452). The "angle" maps come out as
+    (sigmoid - 0.25) * pi, in [-pi/4, 3pi/4), in the network's dtype, as
+    the JAX head computes them."""
+
+    def __init__(self, nc: int = 80, reg_max: int = 16,
+                 ch: Sequence[int] = (64, 128, 256), legacy: bool = True,
+                 end2end: bool = False, ne: int = 1):
+        super().__init__(nc, reg_max, ch, legacy, end2end)
+        self.ne = ne
+        c4 = max(self.ch[0] // 4, ne)
+
+        def towers():
+            return nn.ModuleList(_SimpleBranch(c, c4, ne) for c in self.ch)
+
+        self.cv4 = towers()
+        if end2end:
+            self.one2one_cv4 = towers()
+
+    def towers(self, one2one: bool) -> Dict[str, nn.ModuleList]:
+        out = super().towers(one2one)
+        out["angle"] = getattr(self, ("one2one_" if one2one else "") + "cv4")
+        return out
+
+    def forward(self, feats, skip_one2many: bool = False) -> Dict:
+        preds = super().forward(feats, skip_one2many)
+        for branch in preds.values():
+            branch["angle"] = tuple((a.sigmoid() - 0.25) * math.pi
+                                    for a in branch["angle"])
+        return preds

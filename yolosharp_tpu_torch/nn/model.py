@@ -1,5 +1,5 @@
-"""Model assembly for the v5u, v8, v11 and v12 detect, segment and pose
-networks
+"""Model assembly for the v5u, v8, v11 and v12 detect, segment, pose and
+OBB networks
 (counterpart of yolosharp_tpu/nn/model.py: _v8_layers, _v5u_layers,
 _v11_layers, _v12_layers, build_arch, YoloNet).
 
@@ -19,7 +19,7 @@ from torch import nn
 
 from .attention import A2C2f, C2PSA
 from .common import C2f, C3, C3k2, Concat, ConvBN, SPPF, Upsample
-from .heads import DFL, Detect, Pose, Segment
+from .heads import DFL, Detect, Obb, Pose, Segment
 
 
 class ArchCfg(NamedTuple):
@@ -176,15 +176,15 @@ _BUILDERS = {"v8": (_v8_layers, True), "v5u": (_v5u_layers, True),
 
 
 def build_arch(cfg: ArchCfg):
-    """(layers, out_idx, concat_idx, head) for the detect, segment or pose
-    task; the segment head's Proto is ch[0] wide with NM = 32 prototypes
+    """(layers, out_idx, concat_idx, head) for the detect, segment, pose or
+    OBB task; the segment head's Proto is ch[0] wide with NM = 32 prototypes
     (yolosharp_tpu/nn/model.py:200-206), the pose head's keypoints are
-    kpt_num x kpt_dim."""
+    kpt_num x kpt_dim, the OBB head has one angle channel."""
     if cfg.version not in _BUILDERS or cfg.task not in ("detect", "segment",
-                                                        "pose"):
+                                                        "pose", "obb"):
         raise NotImplementedError(
-            f"the torch port has only v5u, v8, v11 and v12 detect, segment "
-            f"and pose so far, not {cfg.version} {cfg.task}")
+            f"the torch port has only v5u, v8, v11 and v12 detect, segment, "
+            f"pose and OBB so far, not {cfg.version} {cfg.task}")
     builder, legacy = _BUILDERS[cfg.version]
     layers, out_idx, concat_idx, w = builder(cfg.size)
     ch = (w[2], w[3], w[4])
@@ -193,6 +193,8 @@ def build_arch(cfg: ArchCfg):
     elif cfg.task == "pose":
         head = Pose(cfg.nc, cfg.reg_max, ch, legacy, cfg.end2end,
                     cfg.kpt_num, cfg.kpt_dim)
+    elif cfg.task == "obb":
+        head = Obb(cfg.nc, cfg.reg_max, ch, legacy, cfg.end2end)
     else:
         head = Detect(cfg.nc, cfg.reg_max, ch, legacy, cfg.end2end)
     return layers, out_idx, concat_idx, head
@@ -228,9 +230,10 @@ def _out_channels(mod: nn.Module) -> int:
 
 
 class YoloNet(nn.Module):
-    """v5u / v8 / v11 / v12 detect, segment or pose network. forward(x)
+    """v5u / v8 / v11 / v12 detect, segment, pose or OBB network. forward(x)
     takes (B, 3, H, W) in [0, 1] and returns the head's raw maps
-    {"one2many": {"box", "cls"[, "mask", "proto" | "kpt"]}, ["one2one"]}."""
+    {"one2many": {"box", "cls"[, "mask", "proto" | "kpt" | "angle"]},
+    ["one2one"]}."""
 
     def __init__(self, cfg: ArchCfg, generator: Optional[torch.Generator] = None):
         super().__init__()

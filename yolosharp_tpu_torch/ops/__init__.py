@@ -1,10 +1,17 @@
-from .anchors import bbox2dist, dfl_decode, dist2bbox, make_anchors
-from .boxes import clip_keypoints, xywh2xyxy, xyxy2xywh
-from .iou import bbox_iou, box_iou, kpt_iou, mask_iou
+from .anchors import (bbox2dist, dfl_decode, dist2bbox, dist2rbox,
+                      make_anchors, rbox2dist)
+from .boxes import (clip_keypoints, clip_obb_corners, cxcywhr2xyxyxyxy,
+                    sort_obb_corners, xywh2xyxy, xywhr2xyxyxyxy, xyxy2xywh,
+                    xyxyxyxy2xywhr)
+from .iou import batch_probiou, bbox_iou, box_iou, kpt_iou, mask_iou, probiou
 from .masks import crop_mask, process_mask
-from .nms import NMSOutput, non_max_suppression
+from .nms import NMSOutput, nms_rotated, non_max_suppression
+from .rect import min_area_rect
 
-__all__ = ["NMSOutput", "bbox2dist", "bbox_iou", "box_iou", "clip_keypoints",
-           "crop_mask", "dfl_decode", "dist2bbox", "kpt_iou", "make_anchors",
-           "mask_iou", "non_max_suppression", "process_mask", "xywh2xyxy",
-           "xyxy2xywh"]
+__all__ = ["NMSOutput", "batch_probiou", "bbox2dist", "bbox_iou", "box_iou",
+           "clip_keypoints", "clip_obb_corners", "crop_mask",
+           "cxcywhr2xyxyxyxy", "dfl_decode", "dist2bbox", "dist2rbox",
+           "kpt_iou", "make_anchors", "mask_iou", "min_area_rect",
+           "nms_rotated", "non_max_suppression", "probiou", "process_mask",
+           "rbox2dist", "sort_obb_corners", "xywh2xyxy", "xywhr2xyxyxyxy",
+           "xyxy2xywh", "xyxyxyxy2xywhr"]

@@ -1,5 +1,5 @@
-"""Anchor grid and distance <-> box transforms of the DFL head
-(counterpart of yolosharp_tpu/ops/anchors.py)."""
+"""Anchor grid and distance <-> box transforms of the DFL head, rotated
+ones included (counterpart of yolosharp_tpu/ops/anchors.py)."""
 
 from __future__ import annotations
 
@@ -41,6 +41,35 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor,
     """xyxy boxes -> ltrb distances from anchor points, clamped to reg_max."""
     x1y1, x2y2 = bbox.chunk(2, dim=-1)
     dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1)
+    if reg_max is not None:
+        dist = dist.clamp(0, reg_max - 0.01)
+    return dist
+
+
+def dist2rbox(pred_dist: torch.Tensor, pred_angle: torch.Tensor,
+              anchor_points: torch.Tensor) -> torch.Tensor:
+    """Rotated ltrb distances + angle (last axis) -> (cx, cy, w, h): the
+    centre offset (rb - lt) / 2 rotated by the angle, around the anchor."""
+    lt, rb = pred_dist.chunk(2, dim=-1)
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, dim=-1)
+    x = xf * cos - yf * sin
+    y = xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], -1) + anchor_points, lt + rb], -1)
+
+
+def rbox2dist(target_bboxes: torch.Tensor, anchor_points: torch.Tensor,
+              target_angle: torch.Tensor,
+              reg_max: float | None = None) -> torch.Tensor:
+    """Inverse of dist2rbox: rotated (cx, cy, w, h) + angle -> ltrb
+    distances, clamped to reg_max."""
+    xy, wh = target_bboxes.chunk(2, dim=-1)
+    ox, oy = (xy - anchor_points).chunk(2, dim=-1)
+    cos, sin = torch.cos(target_angle), torch.sin(target_angle)
+    xf = ox * cos + oy * sin
+    yf = -ox * sin + oy * cos
+    w, h = wh.chunk(2, dim=-1)
+    dist = torch.cat([w / 2 - xf, h / 2 - yf, w / 2 + xf, h / 2 + yf], -1)
     if reg_max is not None:
         dist = dist.clamp(0, reg_max - 0.01)
     return dist

@@ -1,6 +1,7 @@
 """IoU of boxes: pairwise ``box_iou`` and elementwise ``bbox_iou`` with
-CIoU / DIoU / GIoU; of masks, ``mask_iou``; and of keypoints, the OKS
-``kpt_iou`` (counterpart of yolosharp_tpu/ops/iou.py:16-72, :130-139)."""
+CIoU / DIoU / GIoU; of rotated boxes, the Gaussian ``probiou`` and the
+pairwise ``batch_probiou``; of masks, ``mask_iou``; and of keypoints, the
+OKS ``kpt_iou`` (counterpart of yolosharp_tpu/ops/iou.py)."""
 
 from __future__ import annotations
 
@@ -73,6 +74,65 @@ def mask_iou(mask1: torch.Tensor, mask2: torch.Tensor,
     inter = (mask1 @ mask2.T).clamp(min=0)
     union = mask1.sum(1)[:, None] + mask2.sum(1)[None, :] - inter
     return inter / (union + eps)
+
+
+def _covariance(obb: torch.Tensor):
+    """Gaussian covariance terms (a, b, c) of xywhr boxes (..., 5), each
+    (..., 1)."""
+    a = obb[..., 2:3] ** 2 / 12.0
+    b = obb[..., 3:4] ** 2 / 12.0
+    r = obb[..., 4:5]
+    cos, sin = torch.cos(r), torch.sin(r)
+    cos2, sin2 = cos ** 2, sin ** 2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def _probiou_terms(x1, y1, a1, b1, c1, x2, y2, a2, b2, c2, eps):
+    """1 - the Hellinger distance of two Gaussians from their
+    Bhattacharyya distance, clamped to [eps, 100] (the JAX package's
+    formula, so that its gradient, and where it is not finite, agree)."""
+    t1 = (((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2)
+          / ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps)) * 0.25
+    t2 = (((c1 + c2) * (x2 - x1) * (y1 - y2))
+          / ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps)) * 0.5
+    t3 = torch.log(((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+                   / (4 * torch.sqrt((a1 * b1 - c1 ** 2).clamp(min=0)
+                                     * (a2 * b2 - c2 ** 2).clamp(min=0))
+                      + eps) + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    hd = torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    return 1.0 - hd
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, CIoU: bool = False,
+            eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise probabilistic IoU of broadcast xywhr boxes (..., 5) ->
+    (..., 1) (https://arxiv.org/abs/2106.06072); with CIoU the aspect term
+    of CIoU, its alpha without gradient."""
+    a1, b1, c1 = _covariance(obb1)
+    a2, b2, c2 = _covariance(obb2)
+    iou = _probiou_terms(obb1[..., 0:1], obb1[..., 1:2], a1, b1, c1,
+                         obb2[..., 0:1], obb2[..., 1:2], a2, b2, c2, eps)
+    if CIoU:
+        w1, h1 = obb1[..., 2:3], obb1[..., 3:4]
+        w2, h2 = obb2[..., 2:3], obb2[..., 3:4]
+        v = (4 / math.pi ** 2) * (torch.atan(w2 / h2)
+                                  - torch.atan(w1 / h1)) ** 2
+        with torch.no_grad():
+            alpha = v / (v - iou + (1 + eps))
+        return iou - v * alpha
+    return iou
+
+
+def batch_probiou(obb1: torch.Tensor, obb2: torch.Tensor,
+                  eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise probiou: (..., N, 5) x (..., M, 5) -> (..., N, M); leading
+    dimensions broadcast (the rotated NMS passes a batch of images)."""
+    a1, b1, c1 = _covariance(obb1)                      # (..., N, 1)
+    a2, b2, c2 = (t[..., 0][..., None, :] for t in _covariance(obb2))
+    return _probiou_terms(obb1[..., 0:1], obb1[..., 1:2], a1, b1, c1,
+                          obb2[..., 0][..., None, :],
+                          obb2[..., 1][..., None, :], a2, b2, c2, eps)
 
 
 def kpt_iou(kpt1: torch.Tensor, kpt2: torch.Tensor, area: torch.Tensor,

@@ -1,7 +1,9 @@
 """Head-output decoding: DFL + anchors + sigmoid, select-then-decode top-k,
 and the End2End top-k postprocess (counterpart of
-yolosharp_tpu/predict.py: detect, segment and pose). Decoding runs in
-float32 whatever the network's dtype, as in the JAX package."""
+yolosharp_tpu/predict.py: detect, segment, pose and OBB). Decoding runs in
+float32 whatever the network's dtype, as in the JAX package. An OBB branch
+(an "angle" map) decodes its boxes by dist2rbox to centre-form xywh, in
+NMS and End2End alike, with the angle as the last extra channel."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch.nn.functional as F
 
 from .loss.losses import flatten_levels
 from .nn.model import STRIDES
-from .ops.anchors import dfl_decode, dist2bbox, make_anchors
+from .ops.anchors import dfl_decode, dist2bbox, dist2rbox, make_anchors
 
 
 def _anchors(branch: Dict):
@@ -36,21 +38,35 @@ def decode_keypoints(raw: torch.Tensor, anchors: torch.Tensor,
     return xy.reshape(b, n, kpt_num * kpt_dim)
 
 
+def _boxes(dist: torch.Tensor, angle_raw, anchors, strides, xywh: bool):
+    """(boxes in image pixels, the angle (..., 1) float32 or None) of DFL
+    distances: rotated centre-form xywh when there is an angle."""
+    if angle_raw is None:
+        return dist2bbox(dist, anchors, xywh=xywh) * strides, None
+    angle = angle_raw.float()
+    return dist2rbox(dist, angle, anchors) * strides, angle
+
+
 def decode_inference(branch: Dict, *, reg_max: int = 16,
                      end2end: bool = False, kpt_num: int = 17,
                      kpt_dim: int = 3) -> torch.Tensor:
-    """Raw head maps -> (B, 4 + nc [+ nm | + K kd], A): boxes (xywh, or
-    xyxy when e2e) in image pixels, sigmoided class scores [and a segment
-    branch's mask coefficients, or a pose branch's decoded keypoints]."""
+    """Raw head maps -> (B, 4 + nc [+ nm | + K kd | + 1], A): boxes (xywh,
+    or xyxy when e2e; rotated xywh for OBB) in image pixels, sigmoided class
+    scores [and a segment branch's mask coefficients, or a pose branch's
+    decoded keypoints, or an OBB branch's angle]."""
     anchors, strides = _anchors(branch)
     dist = dfl_decode(flatten_levels(branch["box"]), reg_max)
-    dbox = dist2bbox(dist, anchors, xywh=not end2end) * strides
+    dbox, angle = _boxes(dist, flatten_levels(branch["angle"])
+                         if "angle" in branch else None,
+                         anchors, strides, not end2end)
     parts = [dbox, flatten_levels(branch["cls"]).float().sigmoid()]
     if "mask" in branch:
         parts.append(flatten_levels(branch["mask"]).float())
     if "kpt" in branch:
         parts.append(decode_keypoints(flatten_levels(branch["kpt"]), anchors,
                                       strides, kpt_num, kpt_dim))
+    if angle is not None:
+        parts.append(angle)
     return torch.cat(parts, -1).transpose(-1, -2)
 
 
@@ -80,21 +96,25 @@ def decode_inference_topk(branch: Dict, *, conf_thres: float, k: int,
         return flat.gather(1, top_idx[..., None].expand(-1, -1, flat.shape[-1]))
 
     dist = dfl_decode(gather(branch["box"]), reg_max)      # (B, K, 4)
-    dbox = dist2bbox(dist, anc_k, xywh=True) * str_k
+    dbox, angle = _boxes(dist, gather(branch["angle"]) if "angle" in branch
+                         else None, anc_k, str_k, True)
     parts = [dbox, gather(branch["cls"]).float().sigmoid()]
     if "mask" in branch:
         parts.append(gather(branch["mask"]).float())
     if "kpt" in branch:
         parts.append(decode_keypoints(gather(branch["kpt"]), anc_k, str_k,
                                       kpt_num, kpt_dim))
+    if angle is not None:
+        parts.append(angle)
     return torch.cat(parts, -1).transpose(-1, -2), truncated
 
 
 def e2e_postprocess(pred: torch.Tensor, *, nc: int,
                     max_det: int = 300) -> torch.Tensor:
     """NMS-free top-k select (Head.cs postprocess/get_topk_index:117-196).
-    pred: (B, A, 4 + nc + E) with xyxy boxes and E extra channels (a
-    segment branch's mask coefficients, a pose branch's keypoints).
+    pred: (B, A, 4 + nc + E) with xyxy boxes (an OBB branch's xywh) and E
+    extra channels (a segment branch's mask coefficients, a pose branch's
+    keypoints, an OBB branch's angle).
     Returns (B, min(max_det, A), 6 + E): [x1, y1, x2, y2, score, cls,
     extras of the row's anchor]."""
     boxes, scores = pred[..., :4], pred[..., 4:4 + nc]

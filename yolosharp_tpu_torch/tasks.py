@@ -1,6 +1,6 @@
-"""The task layer for detect, segment and pose and the YoloTask facade
+"""The task layer for detect, segment, pose and OBB and the YoloTask facade
 (counterpart of yolosharp_tpu/tasks.py: BaseTask / Detector / Segmenter /
-PoseDetector / YoloTask): train, val, predict, load and save.
+PoseDetector / Obber / YoloTask): train, val, predict, load and save.
 
 Predict: requests arrive as uint8 HWC RGB numpy arrays, are padded with 114
 to a multiple of 32 on the host, shipped as uint8 and normalised (/255) on
@@ -12,7 +12,9 @@ changed (training bumps their versions). Segment predict decodes each
 image's masks on the device from the proto and the kept rows' coefficients
 (process_mask, upsampled to the canvas) and copies them to the host once
 an image, as bool. Pose rows carry their K keypoints, decoded to canvas
-pixels on the device, as KeyPoints.
+pixels on the device, as KeyPoints. OBB rows carry a rotated box: centre,
+size and ``radian``, from the rotated NMS (fast suppression over probiou)
+or the End2End top-k.
 
 Train: the float32 master network in train mode, batches from data/
 copied to the device ahead of the step (while the mosaic is open, planned
@@ -47,10 +49,10 @@ from .config import Config, resolve_device, torch_dtype
 from .data import DataLoader, YoloDataset, device_prefetch, to_device
 from .data.image_ops import nearest_indices, read_image_rgb
 from .loss import (OKS_SIGMA, detection_loss, e2e_gain_schedule, e2e_wrap,
-                   pose_loss, segmentation_loss)
+                   obb_loss, pose_loss, segmentation_loss)
 from .nn import ArchCfg, YoloNet
 from .ops.boxes import xywh2xyxy
-from .ops.iou import box_iou, kpt_iou, mask_iou
+from .ops.iou import batch_probiou, box_iou, kpt_iou, mask_iou
 from .ops.masks import process_mask
 from .ops.nms import NMSOutput, non_max_suppression
 from .predict import (decode_inference, decode_inference_topk,
@@ -97,6 +99,8 @@ class Detector:
     # the accumulator key and the print label of val's second match (the
     # masks' or the keypoints'), which the last four metrics summarise
     extra_match: Optional[Tuple[str, str]] = None
+    # whether the NMS suppresses rotated boxes (the angle the last extra)
+    rotated: bool = False
 
     def __init__(self, config: Config, device=None):
         self.config = config
@@ -173,11 +177,12 @@ class Detector:
             dec, trunc = decode_inference_topk(
                 branch, conf_thres=conf, k=self.config.nms_pre_topk,
                 **self._kpt_shape)
-            out = non_max_suppression(dec, conf, iou, nc=nc)
+            out = non_max_suppression(dec, conf, iou, nc=nc,
+                                      rotated=self.rotated)
             out = out._replace(truncated=out.truncated | trunc)
         else:
             out = non_max_suppression(self._decode_branch(preds), conf, iou,
-                                      nc=nc)
+                                      nc=nc, rotated=self.rotated)
         return self._predict_output(out, branch)
 
     def _predict_output(self, out, branch):
@@ -488,7 +493,8 @@ class Detector:
         dec = self._decode_branch(preds)
         if not self.arch.end2end:
             dec = non_max_suppression(dec, self.val_conf, 0.7,
-                                      nc=self.config.number_class)
+                                      nc=self.config.number_class,
+                                      rotated=self.rotated)
         return self._predict_output(
             dec, preds["one2one" if self.arch.end2end else "one2many"])
 
@@ -502,12 +508,7 @@ class Detector:
         """Match one batch's predictions to its ground truths: the IoU of
         every (gt, prediction) pair of the batch in one device call, then
         match_predictions per image on the host."""
-        h, w = batch["images"].shape[1:3]
-        scale = torch.tensor([w, h, w, h], dtype=torch.float32,
-                             device=self.device)
-        gt = xywh2xyxy(dbatch["bboxes"][..., :4] * scale)     # (B, M, 4)
-        pred = decoded[..., :4] if self.arch.end2end else decoded.boxes
-        iou = box_iou(gt, pred.float()).cpu().numpy()         # (B, M, K)
+        iou = self._val_iou(batch, dbatch, decoded).cpu().numpy()  # (B, M, K)
         decoded = _to_host(decoded)
         for i in range(batch["images"].shape[0]):
             keep = self._keep(decoded, i, self.val_conf)
@@ -520,6 +521,16 @@ class Detector:
             acc["conf"].append(scores)
             acc["pred_cls"].append(classes.astype(float))
             acc["target_cls"].append(gcls)
+
+    def _val_iou(self, batch, dbatch, decoded) -> torch.Tensor:
+        """The IoU (B, M, K) of every (ground truth, prediction) pair of a
+        batch, on the device."""
+        h, w = batch["images"].shape[1:3]
+        scale = torch.tensor([w, h, w, h], dtype=torch.float32,
+                             device=self.device)
+        gt = xywh2xyxy(dbatch["bboxes"][..., :4] * scale)     # (B, M, 4)
+        pred = decoded[..., :4] if self.arch.end2end else decoded.boxes
+        return box_iou(gt, pred.float())
 
     def _finalize_val(self, acc, count) -> List[float]:
         """P, R, mAP50 and mAP50-95 of the boxes, then of extra_match's."""
@@ -711,21 +722,69 @@ class PoseDetector(Detector):
             acc["target_cls"].append(gcls)
 
 
+class Obber(Detector):
+    """v5u / v8 / v11 / v12 oriented boxes (YoloTask's obb task, the JAX
+    package's Obber): rows carry xywh + the angle, the NMS is the rotated
+    fast NMS, and val matches by probiou."""
+
+    loss_names = ("box_loss", "cls_loss", "dfl_loss", "angle_loss")
+    val_conf = 0.01
+    rotated = True
+
+    def _task_loss(self):
+        """End2End's one2one branch assigns at top-k 7, then 1."""
+        return (partial(obb_loss, nc=self.config.number_class),
+                {"tal_topk": 7, "tal_topk2": 1})
+
+    def _rboxes(self, out, i, conf):
+        """(xywhr (n, 5), scores, classes) of image i's kept rows of a host
+        predict or val output (End2End rows: x, y, w, h, score, class,
+        angle)."""
+        boxes, scores, classes, ext = self._rows(out, i, conf)
+        if self.arch.end2end:
+            boxes = np.concatenate([boxes, ext[:, -1:]], -1)
+        return boxes, scores, classes
+
+    def _batch_results(self, out, i, conf, hw, orig_shape
+                       ) -> List[YoloResult]:
+        """Image i's rows as YoloResults: the int-truncated centre and size
+        (canvas pixels) and the angle in radians."""
+        boxes, scores, classes = self._rboxes(out, i, conf)
+        return [YoloResult(class_id=int(c), score=float(sc),
+                           center_x=int(b[0]), center_y=int(b[1]),
+                           width=int(b[2]), height=int(b[3]),
+                           radian=float(b[4]))
+                for b, sc, c in zip(boxes, scores, classes)]
+
+    def _val_iou(self, batch, dbatch, decoded) -> torch.Tensor:
+        """The probiou (B, M, K) of every (ground truth, prediction) pair:
+        the ground truths' normalised xywh scaled to the canvas, their angle
+        as it is."""
+        h, w = batch["images"].shape[1:3]
+        scale = torch.tensor([w, h, w, h], dtype=torch.float32,
+                             device=self.device)
+        bb = dbatch["bboxes"].float()
+        gt = torch.cat([bb[..., :4] * scale, bb[..., 4:5]], -1)
+        pred = (torch.cat([decoded[..., :4], decoded[..., 6:7]], -1)
+                if self.arch.end2end else decoded.boxes)
+        return batch_probiou(gt, pred.float())
+
+
 _TASKS = {TaskType.detect: Detector, TaskType.segment: Segmenter,
-          TaskType.pose: PoseDetector}
+          TaskType.pose: PoseDetector, TaskType.obb: Obber}
 
 
 class YoloTask:
     """Public facade (Models/YoloTask.cs:10-107): train, val, predict, load
-    and save, for the detect, segment and pose tasks (obb and classify
-    raise NotImplementedError). device: None means cuda (raises where there
-    is none); pass "cpu" to run the plain versions on the CPU."""
+    and save, for the detect, segment, pose and obb tasks (classify raises
+    NotImplementedError). device: None means cuda (raises where there is
+    none); pass "cpu" to run the plain versions on the CPU."""
 
     def __init__(self, config: Config, device=None):
         if config.task_type not in _TASKS:
             raise NotImplementedError(
-                f"the torch port has the detect, segment and pose tasks so "
-                f"far, not {config.task_type.value}")
+                f"the torch port has the detect, segment, pose and obb tasks "
+                f"so far, not {config.task_type.value}")
         self.config = config
         self.task = _TASKS[config.task_type](config, device)
 
