@@ -4,10 +4,12 @@ v11m-pose, v12x-obb), with its seeded weights, images and conf, or v8s's
 and v12s's bf16 train step at batch 16 and v11s's on the mosaic
 (`train`), or v11m-seg's at batch 8 on a planned mosaic batch with masks
 (`seg-train`), or v11m-pose's on one with keypoints (`pose-train`), or
-v12x-obb's on one with rotated boxes (`obb-train`).
+v12x-obb's on one with rotated boxes (`obb-train`), or the 224 bf16
+batch_predict of 32 of v8s-cls (`v8s-cls`).
 
     python3 chip_profile.py [v8] [v12] [v11m-seg] [v11m-pose] [v12x-obb]
                             [train] [seg-train] [pose-train] [obb-train]
+                            [v8s-cls] [cls-train]
 
 For each path and End2End mode: 5 unprofiled walls, the host time of
 building one call's results from its rows (the YoloResults, a pose
@@ -31,6 +33,12 @@ whose keypoints the planner moved. `obb-train`: v12x-obb's End2End step
 on one planned batch of 8 (chip_smoke.write_obb_dataset), with the device
 time of the attention's plain backward (each KernelAttention backward
 inside a record_function range, "attention_backward") beside the step's.
+`v8s-cls`: chip_smoke's seeded v8s-cls (nc = 1000) serving 32 images of
+224x224 and of 480x640 a call: the host's squash of the 32 images to
+224x224 (resize_linear) alone, the network forward alone (CUDA events),
+5 unprofiled walls and a trace of 3 calls, reported as above.
+`cls-train`: v8s-cls's (nc = 10) bf16 train step on one in-memory batch
+of 32 224x224 images (no loader), as `train`.
 Exits non-zero without a CUDA device.
 """
 import tempfile
@@ -240,8 +248,67 @@ def profile_obb_train():
         KernelAttention.backward = staticmethod(real)
 
 
+def profile_cls():
+    """v8s-cls b32 batch_predict at 224 from 224x224 and from 480x640
+    images: where a call's time goes, host resize against device."""
+    from yolosharp_tpu_torch.data.image_ops import resize_linear
+
+    task = cs.cls_task(dev, cs.CLS)
+    cs.seed_weights(task.task._ensure_variables(), scale=cs.CLS_SEED_SCALE)
+    for h, w in (cs.CLS_CANVAS, (480, 640)):
+        mode = f"{cs.CLS} b{cs.SERVED_BATCH} from {h}x{w}"
+        batch = cs.synthetic_images(cs.SERVED_BATCH, h, w, 90)
+        t0 = time.perf_counter()
+        squashed = [resize_linear(im, *cs.CLS_CANVAS) for im in batch]
+        print(f"[{mode}] the host's squash of {len(batch)} images to "
+              f"224x224: {(time.perf_counter() - t0) * 1e3:.2f} ms",
+              flush=True)
+        x = cs.cls_input(dev, squashed, task.task.dtype)
+        fwd = task.task._predict_variables()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            fwd(x)
+            s.record()
+            for _ in range(10):
+                fwd(x)
+            e.record()
+        torch.cuda.synchronize()
+        print(f"[{mode}] network forward alone (CUDA events, 10 calls): "
+              f"{s.elapsed_time(e) / 10:.3f} ms", flush=True)
+        trace(mode, lambda: task.batch_predict(batch))
+
+
+def profile_cls_train():
+    """v8s-cls's bf16 train step at b32 224 on one in-memory batch (no
+    loader), nc = 10 as chip_smoke's phase 12c."""
+    from yolosharp_tpu_torch.data import to_device
+    from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
+                                           make_train_step)
+
+    task = cs.cls_task(dev, cs.CLS, number_class=cs.CLS_CLASSES).task
+    net = task._ensure_variables().to(memory_format=torch.channels_last)
+    opt, scheds = make_optimizer(net, nc=cs.CLS_CLASSES, epochs=1,
+                                 steps_per_epoch=10)
+    state = TrainState(net, opt, scheds)
+    step = make_train_step(task._loss_fns()[0], compute_dtype=task.dtype)
+    rng = np.random.default_rng(61)
+    batch = to_device({"images": np.stack(cs.synthetic_images(
+        cs.CLS_TRAIN_BATCH, *cs.CLS_CANVAS, 61)),
+        "cls": rng.integers(0, cs.CLS_CLASSES, cs.CLS_TRAIN_BATCH).astype(
+            np.int32)}, dev)
+    trace(f"{cs.CLS} train b{cs.CLS_TRAIN_BATCH} 224",
+          lambda: step(state, batch, {}))
+
+
 versions = sys.argv[1:] or ["v8", "v12"]
 for version in versions:
+    if version == cs.CLS:
+        profile_cls()
+        continue
+    if version == "cls-train":
+        profile_cls_train()
+        continue
     if version == "train":
         for v in ("v8", "v12"):
             profile_train(v)

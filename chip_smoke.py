@@ -2,22 +2,27 @@
 
     python3 chip_smoke.py
 
-Eight serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
+Ten serving paths: v8s detection (kernels conv3x3 s1/s2 and the fused
 C2f), v12s detection (conv3x3 s1/s2 and the fused attention), v11s and
 v5us detection, v11m-seg instance segmentation, v11m-pose and v11s-pose
 pose estimation (conv3x3 s1/s2 only: v11's PSA attention takes the einsum
-path, and none has a C2f block) and v12x-obb End2End oriented boxes
-(conv3x3 s1/s2 and the fused attention). Training: v8s and v12s on
-letterbox batches, v11s through the mosaic (the device render) and v8s
-through the host mosaic, v11m-seg through the mosaic with masks,
-v11m-pose with keypoints, v12x-obb with rotated boxes.
+path, and none has a C2f block), v12x-obb End2End oriented boxes
+(conv3x3 s1/s2 and the fused attention), and at 224x224 v8s-cls
+classification (conv3x3 s1/s2 and the fused C2f, at 7x7 among others) and
+v11s-cls (conv3x3 s1/s2); then predict_stream of one model of each task
+family. Training: v8s and v12s on letterbox batches, v11s through the
+mosaic (the device render) and v8s through the host mosaic, v11m-seg
+through the mosaic with masks, v11m-pose with keypoints, v12x-obb with
+rotated boxes, v8s-cls on the AutoAugment stack.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build every CUDA kernel from the
      sources in yolosharp_tpu_torch/csrc (one nvcc per source, in parallel).
   2. each kernel against its plain PyTorch version at every shape any
      path gives it (recorded with forward hooks on the folded nets of
-     every path: 640x640 for the convs, the 51-wide keypoint towers of
+     every path: 640x640 for the convs and 224x224 for the classify
+     models' (v8s-cls's C2f at 56x56 and at 7x7 among them; these also at
+     B=32 in float32), the 51-wide keypoint towers of
      v11s-pose (Ci or Co = 51) and v12x-obb's 96-wide angle towers and
      768-wide stride-2 conv included; 640x640, 480x640, 500x375 and
      1280x1280 for the attention), B=2, in float32 (TF32 off for cuDNN
@@ -215,6 +220,43 @@ are in phase 2's checks):
      predictions (up to 8 an image, written as the 4 corners of each
      rotated box), NMS and End2End: box mAP50 above 0 on both, and each of
      the four metrics within 0.005 card against CPU.
+Classify (v8s-cls at its published widths, Ultralytics yolov8-cls.yaml
+scale s: the v8s trunk's layers 0-8 and the Classify head, nc=1000
+(ImageNet), 224x224; its shapes, and v11s-cls's, are in phase 2's checks
+and a shape group of their own):
+  12a. v8s-cls, bf16, seeded weights (ConvBN kernels x2.8, the head's
+     Linear from U(-0.3, 0.3)): the b32 forward (CUDA events) and its launches, equal to the
+     count its modules give and to 8 s1 + 5 s2 + 2 C2f (no attention);
+     image_predict at 224x224, 480x640 and 500x375 and batch_predict b32,
+     each result 5 distinct classes with descending scores; a float16
+     (true_fp16) b32 batch_predict; a v11s-cls b32 batch_predict (conv3x3
+     only).
+  12b. the float32 predict of 8 images (squashed to 224), card against
+     CPU: the softmax within 1e-5, and batch_predict's top 5 the same
+     classes wherever neighbouring scores differ by more than 1e-5.
+  12c. YoloTask.train() of v8s-cls (nc=10), 224x224, batch 32, bf16, 2
+     epochs, the default augment stack (RandomResizedCrop, flips,
+     AutoAugment, erasing 0.4), on a folder-per-class PNG set that this
+     script writes (10 classes of one stripe pattern each, 32 train and 8
+     val images a class, 160-400 px a side): per epoch the median step
+     ms, img/s, loader-wait share and peak memory; top1 / top5; finite
+     losses; no kernel launched in training; best.bin served by a fresh
+     v8s-cls YoloTask through the conv and C2f kernels.
+  12d. Classifier.val of 12c's best.bin in float32 on the card and on the
+     CPU: top1 and top5 equal, the val loss within 1e-4 relative.
+  13. predict_stream of v8s (NMS), v11m-seg (NMS), v11m-pose (NMS),
+     v12x-obb (End2End) and v8s-cls with their phase's seeded weights and
+     conf: 8 images of 300-640 px a side in float32 at batch 3 (a partial
+     last batch) on the card and on the CPU, one list an image in order,
+     rows matched (counts within 2, each CPU row by a card row of its
+     class with centre and size within 1 px and score within 1e-3, at
+     most 2 unmatched, OBB none and its angle within 1e-4 rad; keypoints
+     within 0.5 px; float32 masks > 0.5 equal on 99.9% of the pixels;
+     classify: scores within 1e-5 and the same top 1); then 64 images in
+     bf16 at batch 16, img/s beside batch_predict's of the same
+     letterboxed canvases (classify: the same images) in calls of 16 and
+     beside the letterbox and batch_predict in the caller's thread, and
+     the path's kernels launched, no other.
 Each phase prints its wall seconds.
 
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
@@ -247,10 +289,21 @@ CANVASES = ((640, 640), (480, 640), (512, 384), (1280, 1280))
 # the batches and canvases of the served requests: phase 3 in bfloat16,
 # phase 4 one 640x640 image in float32
 SERVED_BATCH = 32
+# phase 12's classify requests at 224 (b32 and single images in bfloat16,
+# b32 in float16, b8 in float32), phase 13's streams (bfloat16 at b16,
+# float32 at b3)
+CLS_CANVAS = (224, 224)
+STREAM_BATCH, STREAM_F32_BATCH = 16, 3
 SERVED = {torch.bfloat16: ((SERVED_BATCH, 640, 640), (1, 640, 640),
-                           (1, 480, 640), (1, 512, 384)),
-          torch.float16: ((SERVED_BATCH, 640, 640),),
-          torch.float32: ((1, 640, 640),)}
+                           (1, 480, 640), (1, 512, 384),
+                           (SERVED_BATCH, 224, 224), (1, 224, 224),
+                           (STREAM_BATCH, 640, 640),
+                           (STREAM_BATCH, 224, 224)),
+          torch.float16: ((SERVED_BATCH, 640, 640),
+                          (SERVED_BATCH, 224, 224)),
+          torch.float32: ((1, 640, 640), (8, 224, 224),
+                          (STREAM_F32_BATCH, 640, 640),
+                          (STREAM_F32_BATCH, 224, 224))}
 HALF = (torch.bfloat16, torch.float16)
 KINDS = ("s2", "s1", "c2f", "attn")
 # float32: the conv kernels sum 9*Ci <= 4608 products in another order than
@@ -287,6 +340,7 @@ SOURCES = {
                         "yolosharp_tpu/kernels/attention.py:57"),
 }
 OBB = "v12x-obb"
+CLS, CLS11 = "v8s-cls", "v11s-cls"
 # the kernels each path must launch (and no other)
 PATHS = {"v8": ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
          "v12": ("conv3x3_silu", "conv3x3s2_silu", "fused_attention"),
@@ -295,20 +349,24 @@ PATHS = {"v8": ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
          "v11m-seg": ("conv3x3_silu", "conv3x3s2_silu"),
          "v11m-pose": ("conv3x3_silu", "conv3x3s2_silu"),
          "v11s-pose": ("conv3x3_silu", "conv3x3s2_silu"),
-         OBB: ("conv3x3_silu", "conv3x3s2_silu", "fused_attention")}
+         OBB: ("conv3x3_silu", "conv3x3s2_silu", "fused_attention"),
+         CLS: ("conv3x3_silu", "conv3x3s2_silu", "c2f_fused"),
+         CLS11: ("conv3x3_silu", "conv3x3s2_silu")}
 # each path's model: (version, size, task)
 ARCH = {"v8": ("v8", "s", "detect"), "v12": ("v12", "s", "detect"),
         "v11": ("v11", "s", "detect"), "v5u": ("v5u", "s", "detect"),
         "v11m-seg": ("v11", "m", "segment"),
         "v11m-pose": ("v11", "m", "pose"), "v11s-pose": ("v11", "s", "pose"),
-        OBB: ("v12", "x", "obb")}
+        OBB: ("v12", "x", "obb"),
+        CLS: ("v8", "s", "classify"), CLS11: ("v11", "s", "classify")}
 SEG, POSE, POSE_S = "v11m-seg", "v11m-pose", "v11s-pose"
 # each path's classes: COCO's 80, COCO-Pose's one (person) for the pose
 # models (Ultralytics yolo11-pose.yaml: nc 1, kpt_shape [17, 3]), DOTA's 15
-# for the OBB model (the JAX bench's workload 5, bench.py:292-354)
-PATH_NC = {POSE: 1, POSE_S: 1, OBB: 15}
+# for the OBB model (the JAX bench's workload 5, bench.py:292-354),
+# ImageNet's 1000 for the classify models (Ultralytics yolov8-cls.yaml)
+PATH_NC = {POSE: 1, POSE_S: 1, OBB: 15, CLS: 1000, CLS11: 1000}
 PHASE = {"v8": "3", "v12": "3b", "v11": "3c", "v5u": "3d", SEG: "9a",
-         POSE: "10a", POSE_S: "10a", OBB: "11a"}
+         POSE: "10a", POSE_S: "10a", OBB: "11a", CLS: "12a", CLS11: "12a"}
 # the paths held card against CPU in float32 (phases 4, 4b, 4c, 9b, 10b,
 # 11b)
 CPU_MATCH = {"v8": "4", "v12": "4b", "v11": "4c", SEG: "9b", POSE: "10b",
@@ -320,7 +378,15 @@ SHAPE_GROUPS = ((SEG, lambda shape, vs: SEG in vs),
                 (POSE, lambda shape, vs: POSE in vs),
                 (f"{POSE_S} Ci/Co = 51",
                  lambda shape, vs: POSE_S in vs and 51 in shape[2:4]),
-                (OBB, lambda shape, vs: OBB in vs))
+                (OBB, lambda shape, vs: OBB in vs),
+                (f"{CLS} / {CLS11} 224", lambda shape, vs: CLS in vs
+                 or CLS11 in vs))
+# the suffix of each (dtype, batch) phase 2 times, in its stats
+SUFFIX = {(torch.float32, BATCH): "_f32", (torch.bfloat16, BATCH): "",
+          (torch.float16, BATCH): "_f16",
+          (torch.float32, SERVED_BATCH): "_f32_b32",
+          (torch.bfloat16, SERVED_BATCH): "_b32",
+          (torch.float16, SERVED_BATCH): "_f16_b32"}
 # the stats suffix of each (dtype, batch) phase 2 times
 ERR_KEY = {torch.float32: "max_abs_err", torch.bfloat16: "max_abs_err_bf16",
            torch.float16: "max_abs_err_f16"}
@@ -414,7 +480,8 @@ def record_shapes(path: str) -> dict:
     hooks on the path's folded net (ARCH) run at B=1 on the CPU (the routing
     is the same as on the card; the CPU runs the plain versions and launches
     nothing): {(h, w): {"s1" / "s2": {(H, W, Ci, Co)},
-    "c2f": {(H, W, Cin, c, C2)}, "attn": {(areas, heads, N, D)}}}."""
+    "c2f": {(H, W, Cin, c, C2)}, "attn": {(areas, heads, N, D)}}}. The
+    classify models at CLS_CANVAS only."""
     from yolosharp_tpu_torch.ckpt import fold_bn
     from yolosharp_tpu_torch.nn import AAttn, ArchCfg, C2f, ConvBN, YoloNet
 
@@ -444,7 +511,9 @@ def record_shapes(path: str) -> dict:
         elif isinstance(m, AAttn):
             m.register_forward_hook(attn_hook)
     by_canvas = {}
-    for h, w in CANVASES if path == "v12" else CANVASES[:-1]:
+    canvases = (CANVASES if path == "v12" else [CLS_CANVAS]
+                if task == "classify" else CANVASES[:-1])
+    for h, w in canvases:
         # the hooks fill this canvas's sets
         shapes = by_canvas[(h, w)] = {k: set() for k in KINDS}
         net(torch.zeros(1, 3, h, w).contiguous(
@@ -505,8 +574,10 @@ def phase_kernels(dev):
                        for s, vs in tagged.items()),
                       key=lambda t: (-t[0][0], t[0]))
 
-    # the convs and the C2f block at 640x640; the attention on every canvas
-    shapes = {k: union(k, CANVASES if k == "attn" else [CONV_CANVAS])
+    # the convs and the C2f block at 640x640 and the classify models' 224x224;
+    # the attention on every canvas
+    conv_canvases = [CONV_CANVAS, CLS_CANVAS]
+    shapes = {k: union(k, CANVASES if k == "attn" else conv_canvases)
               for k in KINDS}
     for kind in KINDS:
         print(f"  {kind} shapes recorded: " + ", ".join(
@@ -520,7 +591,7 @@ def phase_kernels(dev):
     for name in SOURCES:
         s = stats[name] = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0,
                            "max_abs_err_f16": 0.0, "shapes": 0}
-        for suffix in ("", "_f32", "_b32", "_f16", "_f16_b32"):
+        for suffix in SUFFIX.values():
             s.update({"ms" + suffix: 0.0, "plain_ms" + suffix: 0.0,
                       "ms_eager" + suffix: 0.0, "bound_ms" + suffix: 0.0,
                       "library_ms" + suffix: None if name == "c2f_fused"
@@ -629,10 +700,7 @@ def phase_kernels(dev):
         print("    eager: " + ", ".join(f"{v:.4f} ms {k}"
                                         for k, v in eager.items()),
               flush=True)
-        suffix = {torch.float32: "_f32", torch.bfloat16: "",
-                  torch.float16: "_f16"}[dtype]
-        if batch == SERVED_BATCH:
-            suffix = "_f16_b32" if dtype == torch.float16 else "_b32"
+        suffix = SUFFIX[(dtype, batch)]
         s["ms" + suffix] += ms
         s["plain_ms" + suffix] += plain_ms
         s["ms_eager" + suffix] += eager["kernel"]
@@ -661,8 +729,13 @@ def phase_kernels(dev):
         print(f"  {str(dtype)[6:]} at B={SERVED_BATCH}, the shapes of the "
               f"served batch_predict", flush=True)
         for kind in KINDS:
-            for shape, vs in union(kind, [CONV_CANVAS]):
+            for shape, vs in union(kind, conv_canvases):
                 check(kind, dtype, SERVED_BATCH, shape, vs)
+    print(f"  float32 at B={SERVED_BATCH}, the classify shapes at 224",
+          flush=True)
+    for kind in KINDS:
+        for shape, vs in union(kind, [CLS_CANVAS]):
+            check(kind, torch.float32, SERVED_BATCH, shape, vs)
     # every (kind, dtype, variant) the served requests take, at the first
     # request that takes it
     served = {}
@@ -705,14 +778,14 @@ def synthetic_images(n, h, w, seed):
 
 
 @torch.no_grad()
-def seed_weights(net, seed: int = 3):
+def seed_weights(net, seed: int = 3, scale: float = 2.5):
     """Random weights that give NMS-visible detections, the recipe of
-    tests/test_golden_bus_predict.py:115-137: ConvBN kernels x2.5 (the
-    segment head's Proto and cv4 towers and the pose head's cv4 towers
-    included), the head's final convs (box, class, a segment head's mask
-    coefficients and a pose head's keypoints) re-drawn from U(-0.3, 0.3),
-    and BN statistics (and the conv biases of biased ConvBNs)
-    jittered so that folding does real work."""
+    tests/test_golden_bus_predict.py:115-137: ConvBN kernels x `scale`
+    (2.5; the segment head's Proto and cv4 towers and the pose head's cv4
+    towers included), the head's final convs (box, class, a segment head's mask
+    coefficients and a pose head's keypoints; a classify head's Linear)
+    re-drawn from U(-0.3, 0.3), and BN statistics (and the conv biases of
+    biased ConvBNs) jittered so that folding does real work."""
     from yolosharp_tpu_torch.ckpt import clone_one2one
     from yolosharp_tpu_torch.nn import ConvBN
 
@@ -723,7 +796,7 @@ def seed_weights(net, seed: int = 3):
 
     for m in net.modules():
         if isinstance(m, ConvBN):
-            m.conv.weight.mul_(2.5)
+            m.conv.weight.mul_(scale)
             if m.conv.bias is not None:
                 m.conv.bias.add_(noise(m.conv.bias,
                                        lambda s: rng.normal(0, 0.1, s)))
@@ -733,12 +806,15 @@ def seed_weights(net, seed: int = 3):
                                         lambda s: rng.uniform(0.8, 1.5, s))
                                   ).add_(0.02)
     head = net.model[-1]
-    towers = [head.cv2, head.cv3] + ([head.cv4] if hasattr(head, "cv4")
-                                     else [])
-    for tower in towers:
-        for branch in tower:
-            for p in (branch[2].weight, branch[2].bias):
-                p.copy_(noise(p, lambda s: rng.uniform(-0.3, 0.3, s)))
+    if hasattr(head, "linear"):
+        finals = [head.linear]
+    else:
+        towers = [head.cv2, head.cv3] + ([head.cv4] if hasattr(head, "cv4")
+                                         else [])
+        finals = [branch[2] for tower in towers for branch in tower]
+    for final in finals:
+        for p in (final.weight, final.bias):
+            p.copy_(noise(p, lambda s: rng.uniform(-0.3, 0.3, s)))
     clone_one2one(net)
 
 
@@ -777,13 +853,14 @@ def path_name(path) -> str:
 
 
 def path_config(path, **cfg):
-    """The Config of a path's model (ARCH) and classes (PATH_NC)."""
+    """The Config of a path's model (ARCH) and classes (PATH_NC, unless
+    cfg names number_class)."""
     from yolosharp_tpu_torch import Config, TaskType, YoloSize, YoloType
 
     version, size, task = ARCH[path]
+    cfg = {"number_class": PATH_NC.get(path, 80), **cfg}
     return Config(task_type=TaskType(task), yolo_type=YoloType(version),
-                  yolo_size=YoloSize(size),
-                  number_class=PATH_NC.get(path, 80), **cfg)
+                  yolo_size=YoloSize(size), **cfg)
 
 
 def build_tasks(dev, path, state, **cfg):
@@ -849,20 +926,22 @@ def check_rotated(results, mode):
 
 
 def expected_launches(net, skip_one2many=False) -> dict:
-    """The kernel launches one forward of a folded net without C2f blocks
-    makes, derived from its modules: each 3x3 ConvBN on the kernel route
-    launches its stride's conv kernel once and each AAttn the attention
-    once; an End2End net's forward with skip_one2many (End2End predict)
-    does not run the head's one2many towers (cv2, cv3, cv4)."""
+    """The kernel launches one forward of a folded net makes, derived from
+    its modules: each C2f block on the fused route launches the C2f kernel
+    once (and its own convs none), each other 3x3 ConvBN on the kernel
+    route its stride's conv kernel once and each AAttn the attention once;
+    an End2End net's forward with skip_one2many (End2End predict) does not
+    run the head's one2many towers (cv2, cv3, cv4)."""
     from yolosharp_tpu_torch.nn import AAttn, C2f, ConvBN
 
     head = f"model.{len(net.model) - 1}.cv"
-    skip = skip_one2many and net.model[-1].end2end
+    skip = skip_one2many and getattr(net.model[-1], "end2end", False)
     out = dict.fromkeys(SOURCES, 0)
+    fused = [name + "." for name, m in net.named_modules()
+             if isinstance(m, C2f) and m.fused_weights]
+    out["c2f_fused"] = len(fused)
     for name, m in net.named_modules():
-        if isinstance(m, C2f):
-            raise ValueError("expected_launches: a net with C2f blocks")
-        if skip and name.startswith(head):
+        if (skip and name.startswith(head)) or name.startswith(tuple(fused)):
             continue
         if isinstance(m, ConvBN) and m.kernel_route:
             out["conv3x3_silu" if m.s == 1 else "conv3x3s2_silu"] += 1
@@ -2511,6 +2590,501 @@ def phase_obb_val(dev, root, state, conf):
                              f"disagree, or the mAP50 is 0")
 
 
+# --------------------------------------------------------------- classify
+# phase 12c's set: classes, train and val images a class, their sides
+CLS_CLASSES, CLS_TRAIN, CLS_VAL, CLS_SIDES = 10, 32, 8, (160, 401)
+CLS_TRAIN_BATCH = 32
+# the classify models' ConvBN kernel scale in seed_weights: at 2.5 the
+# trunk's activations shrink ~12x by layer 8 and every image takes the
+# same top 1 (logits 0.0035 apart across images, 0.28 across classes); at
+# 2.8 the logits vary across images (0.72 against 1.27), at 2.9 they
+# saturate (measured on the CPU in float32 at 224)
+CLS_SEED_SCALE = 2.8
+# phase 12b: the float32 probabilities, card against CPU, at most this far
+# apart; top-5 orders are compared where neighbouring scores differ more
+CLS_PROB_TOL = 1e-5
+
+
+def cls_task(dev, path, state=None, **cfg):
+    """A classify YoloTask of the path's model (ARCH, PATH_NC) at 224 on
+    `dev`, with `state` loaded where given."""
+    from yolosharp_tpu_torch import YoloTask
+
+    task = YoloTask(path_config(path, image_size=CLS_CANVAS[0], **cfg),
+                    device=dev)
+    if state is not None:
+        task.task._ensure_variables().load_state_dict(state, strict=True)
+    return task
+
+
+def check_top5(results, mode, nc):
+    """Each classify result is min(5, nc) distinct classes of [0, nc) with
+    finite scores in (0, 1], in descending order."""
+    k = min(5, nc)
+    bad = [i for i, rs in enumerate(results)
+           if len(rs) != k or len({r.class_id for r in rs}) != k
+           or not all(0 <= r.class_id < nc and 0 < r.score <= 1
+                      for r in rs)
+           or any(a.score < b.score for a, b in zip(rs, rs[1:]))]
+    if bad:
+        raise SystemExit(f"[{mode}] top-5 results wrong for images {bad}: "
+                         f"{results[bad[0]]}")
+
+
+def cls_input(dev, images, dtype):
+    """uint8 (B, 224, 224, 3) images as the predict copy's input."""
+    x = torch.from_numpy(np.stack(images)).to(dev).permute(0, 3, 1, 2)
+    return (x.float() / 255.0).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def phase_cls_slice(dev):
+    """Phase 12a: v8s-cls (nc = 1000) at 224, bf16, seeded weights: the b32
+    forward and its launches against the model's modules, batch_predict
+    b32 and image_predict at three sizes, a float16 b32 batch_predict, a
+    v11s-cls b32 batch_predict. Returns (launches of the requests, the
+    launches of one b32 forward by path, the v8s-cls state dict)."""
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 12a: {CLS} nc=1000 YoloTask on cuda, bf16, 224x224, seeded "
+          f"weights", flush=True)
+    task = cls_task(dev, CLS)
+    seed_weights(task.task._ensure_variables(), scale=CLS_SEED_SCALE)
+    state = {k: v.detach().clone()
+             for k, v in task.task.net.state_dict().items()}
+    batch = synthetic_images(SERVED_BATCH, 224, 224, 60)
+    fwd = task.task._predict_variables()
+    x = cls_input(dev, batch, task.task.dtype)
+    per_forward = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        reset_launch_counts()
+        fwd(x)
+        got, want = launch_counts(), expected_launches(fwd)
+        print(f"  [{CLS}] kernel launches of one b32 forward: {got}, from "
+              f"the model's modules {want}", flush=True)
+        if got != want or (got["conv3x3_silu"], got["conv3x3s2_silu"],
+                           got["c2f_fused"], got["fused_attention"]) != (
+                               8, 5, 2, 0):
+            raise SystemExit(f"[{CLS}] launches a forward are not the "
+                             f"modules' 8 s1 + 5 s2 + 2 C2f")
+        per_forward[CLS] = got
+        start.record()
+        for _ in range(10):
+            fwd(x)
+        end.record()
+    torch.cuda.synchronize()
+    print(f"  [{CLS}] network forward bf16 batch 32 224x224: "
+          f"{start.elapsed_time(end) / 10:.3f} ms (CUDA events, mean of 10)",
+          flush=True)
+    singles = [synthetic_images(1, 224, 224, 61)[0],
+               synthetic_images(1, 480, 640, 62)[0],
+               synthetic_images(1, 500, 375, 63)[0]]
+    task.image_predict(singles[0])      # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for img in singles:
+        t0 = time.perf_counter()
+        res = task.image_predict(img)
+        ms = (time.perf_counter() - t0) * 1e3
+        check_top5([res], f"{CLS} image_predict", 1000)
+        print(f"  [{CLS}] image_predict {img.shape[0]}x{img.shape[1]}: top 5 "
+              f"{[(r.class_id, round(r.score, 5)) for r in res]}, {ms:.2f} "
+              f"ms", flush=True)
+    for rep in range(3):
+        t0 = time.perf_counter()
+        res = task.batch_predict(batch)
+        s = time.perf_counter() - t0
+        check_top5(res, f"{CLS} batch_predict", 1000)
+        print(f"  [{CLS}] batch_predict {len(batch)}x224x224 #{rep}: "
+              f"{s * 1e3:.2f} ms, {len(batch) / s:.1f} img/s; top-1 scores "
+              f"min {min(r[0].score for r in res):.4f} max "
+              f"{max(r[0].score for r in res):.4f}", flush=True)
+    launches = launch_counts()
+    print(f"  [{CLS}] kernel launches: {launches}", flush=True)
+    check_path_launches(CLS, launches, f"{CLS} bf16")
+
+    f16 = cls_task(dev, CLS, state, true_fp16=True)
+    if f16.task.dtype != torch.float16:
+        raise SystemExit(f"true_fp16 computes in {f16.task.dtype}")
+    f16.batch_predict(batch)
+    reset_launch_counts()
+    res16 = f16.batch_predict(batch)
+    counts = launch_counts()
+    check_top5(res16, f"{CLS} float16", 1000)
+    same = np.mean([a[0].class_id == b[0].class_id
+                    for a, b in zip(res16, res)])
+    print(f"  [{CLS}] float16 b32 batch_predict: kernel launches {counts}; "
+          f"top-1 class as bf16's on {same:.3f} of the images", flush=True)
+    check_path_launches(CLS, counts, f"{CLS} float16")
+    for name in SOURCES:
+        launches[name] += counts[name]
+
+    t11 = cls_task(dev, CLS11)
+    seed_weights(t11.task._ensure_variables(), scale=CLS_SEED_SCALE)
+    with torch.no_grad():
+        reset_launch_counts()
+        t11.task._predict_variables()(x)
+        per_forward[CLS11] = launch_counts()
+    print(f"  [{CLS11}] kernel launches of one b32 forward: "
+          f"{per_forward[CLS11]}", flush=True)
+    t11.batch_predict(batch)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res11 = t11.batch_predict(batch)
+    s = time.perf_counter() - t0
+    counts = launch_counts()
+    check_top5(res11, CLS11, 1000)
+    print(f"  [{CLS11}] batch_predict {len(batch)}x224x224: {s * 1e3:.2f} ms, "
+          f"kernel launches {counts}", flush=True)
+    check_path_launches(CLS11, counts, CLS11)
+    for name in SOURCES:
+        launches[name] += counts[name]
+    return launches, per_forward, state
+
+
+def phase_cls_cpu_match(dev, state):
+    """Phase 12b: v8s-cls in float32, the card against the CPU's plain
+    versions: the softmax of 8 squashed images within CLS_PROB_TOL, and
+    batch_predict's top 5 the same classes wherever neighbouring scores
+    are more than CLS_PROB_TOL apart."""
+    from yolosharp_tpu_torch import ScalarType
+    from yolosharp_tpu_torch.data.image_ops import resize_linear
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 12b: {CLS} float32 on the card against float32 on the CPU "
+          f"(plain versions), 8 images", flush=True)
+    images = (synthetic_images(4, 224, 224, 64)
+              + synthetic_images(2, 480, 640, 65)
+              + synthetic_images(2, 500, 375, 66))
+    squashed = np.stack([resize_linear(im, 224, 224) for im in images])
+    cuda = cls_task(dev, CLS, state, scalar_type=ScalarType.float32)
+    cpu = cls_task("cpu", CLS, {k: v.cpu() for k, v in state.items()},
+                   scalar_type=ScalarType.float32)
+    reset_launch_counts()
+    got = cuda.task._probs(cuda.task._predict_variables(),
+                           torch.from_numpy(squashed).to(dev)).cpu().numpy()
+    got_res = cuda.batch_predict(images)
+    used = launch_counts()
+    want = cpu.task._probs(cpu.task._predict_variables(),
+                           torch.from_numpy(squashed)).numpy()
+    want_res = cpu.batch_predict(images)
+    dp = float(np.abs(got - want).max())
+    swapped = 0
+    for g, w in zip(got_res, want_res):
+        ws = [r.score for r in w]
+        for i, (a, b) in enumerate(zip(g, w)):
+            gap = min([abs(ws[i] - ws[j]) for j in (i - 1, i + 1)
+                       if 0 <= j < 5])
+            if a.class_id != b.class_id and gap > CLS_PROB_TOL:
+                swapped += 1
+    print(f"  max |p card - p cpu| {dp:.3e} (at most {CLS_PROB_TOL}), top-5 "
+          f"entries that differ where the gap to a neighbour exceeds "
+          f"{CLS_PROB_TOL}: {swapped} (none allowed); top-1 "
+          f"{[r[0].class_id for r in got_res]}; kernel launches on the "
+          f"card {used}", flush=True)
+    if dp > CLS_PROB_TOL or swapped or got.shape != (8, 1000):
+        raise SystemExit(f"[{CLS}] card and CPU probabilities disagree")
+    check_path_launches(CLS, used, f"{CLS} float32")
+    return used
+
+
+def write_cls_dataset(root, seed=14):
+    """A folder-per-class PNG set under root/{train,val}/class{c}:
+    CLS_CLASSES classes, CLS_TRAIN + CLS_VAL images each of CLS_SIDES px a
+    side; each class one pattern (stripes of its own period, direction and
+    colour) over a noisy background of a random grey."""
+    from yolosharp_tpu_torch.data.image_ops import encode_png
+
+    rng = np.random.default_rng(seed)
+    for c in range(CLS_CLASSES):
+        colour = np.random.default_rng(200 + c).integers(0, 256, 3)
+        period = 6 + 3 * c
+        for split, n in (("train", CLS_TRAIN), ("val", CLS_VAL)):
+            d = os.path.join(root, split, f"class{c}")
+            os.makedirs(d)
+            for i in range(n):
+                h, w = (int(v) for v in rng.integers(*CLS_SIDES, 2))
+                img = rng.normal(rng.uniform(60, 200), 25, (h, w, 3))
+                yy, xx = np.mgrid[0:h, 0:w]
+                on = ((xx if c % 2 else yy) // (period // 2)) % 2 == 0
+                img[on] = colour
+                with open(os.path.join(d, f"{i:03d}.png"), "wb") as f:
+                    f.write(encode_png(np.clip(img, 0, 255).astype(np.uint8),
+                                       level=1))
+
+
+def _cls_train_config(root, **kw):
+    from yolosharp_tpu_torch import Config, TaskType, YoloSize, YoloType
+
+    kw = {"batch_size": CLS_TRAIN_BATCH, **kw}
+    return Config(task_type=TaskType.classify, yolo_type=YoloType.v8,
+                  yolo_size=YoloSize.s, number_class=CLS_CLASSES,
+                  root_path=root, train_data_path="train",
+                  val_data_path="val", image_size=CLS_CANVAS[0], **kw)
+
+
+def phase_cls_train(dev, root, tag):
+    """Phase 12c: YoloTask.train() of v8s-cls, bf16, 224, b32, 2 epochs, the
+    default augment stack (RandomResizedCrop, flips, AutoAugment, erasing
+    0.4). Returns (train launches, predict launches of the served best.bin,
+    best.bin's path)."""
+    from yolosharp_tpu_torch import YoloTask
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 12c: YoloTask.train() of {CLS} (nc={CLS_CLASSES}), 224x224, "
+          f"batch {CLS_TRAIN_BATCH}, bf16, 2 epochs, AutoAugment", flush=True)
+    out = os.path.join(root, "run_v8s_cls")
+    task = YoloTask(_cls_train_config(root, output_path=out, epochs=2),
+                    device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    task.train()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = task.task.epoch_stats
+    for st in stats:
+        print("  " + epoch_line(st, f"{tag}: {CLS}", CLS_TRAIN_BATCH),
+              flush=True)
+    print(f"  train() {wall:.1f} s; kernel launches during train(): "
+          f"{counts}", flush=True)
+    with open(os.path.join(out, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    head = [h.strip() for h in rows[0]]
+    for r in rows[1:]:
+        print(f"  log.csv epoch {r[0]}: " + ", ".join(
+            f"{h} {v.strip()}" for h, v in zip(head[2:], r[2:])), flush=True)
+    losses = [float(v) for r in rows[1:] for h, v in zip(head, r)
+              if "loss" in h]
+    files = ["config.txt", "log.csv", "weights/best.bin", "weights/last.bin",
+             "weights/last_state.npz"]
+    missing = [f for f in files if not os.path.exists(os.path.join(out, f))]
+    steps = CLS_CLASSES * CLS_TRAIN // CLS_TRAIN_BATCH
+    if ([s["epoch"] for s in stats] != [1, 2] or missing
+            or any(len(s["step_s"]) != steps for s in stats)
+            or not np.isfinite(losses).all()
+            or head[4:6] != ["metrics/top1", "metrics/top5"]
+            or any(counts.values())):
+        raise SystemExit(f"{CLS} train(): wrong epochs or steps, missing "
+                         f"{missing}, losses {losses}, columns {head}, or a "
+                         f"kernel launch in training")
+    best = os.path.join(out, "weights", "best.bin")
+    fresh = YoloTask(_cls_train_config(root), device=dev)
+    fresh.load_model(best)
+    images = synthetic_images(8, 224, 224, 67)
+    reset_launch_counts()
+    res = fresh.batch_predict(images)
+    served = launch_counts()
+    check_top5(res, f"{CLS} best.bin", CLS_CLASSES)
+    print(f"  best.bin in a fresh {CLS} YoloTask: batch_predict of 8 gave "
+          f"top-1 {[r[0].class_id for r in res]}, kernel launches {served}",
+          flush=True)
+    check_path_launches(CLS, served, f"{CLS} best.bin")
+    return counts, served, best
+
+
+def phase_cls_val(dev, root, best):
+    """Phase 12d: Classifier.val of the trained v8s-cls in float32 on the
+    card and on the CPU (plain versions): top1 and top5 equal."""
+    from yolosharp_tpu_torch import ScalarType, YoloTask
+
+    print(f"phase 12d: {CLS} val of best.bin, float32, card against CPU, "
+          f"{CLS_CLASSES * CLS_VAL} val images", flush=True)
+    out = []
+    for d in (dev, "cpu"):
+        task = YoloTask(_cls_train_config(
+            root, scalar_type=ScalarType.float32, batch_size=16), device=d)
+        task.load_model(best)
+        t0 = time.perf_counter()
+        items, metrics = task.val()
+        out.append((items, metrics))
+        print(f"  [{d}] val loss {float(items[0]):.6f}, top1 "
+              f"{metrics[0]:.4f}, top5 {metrics[1]:.4f} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    (gi, gm), (ci, cm) = out
+    if gm != cm or abs(float(gi[0]) - float(ci[0])) > 1e-4 * abs(float(ci[0])):
+        raise SystemExit(f"[{CLS}] val on the card and on the CPU disagree")
+
+
+# --------------------------------------------------------------- stream
+# phase 13: each family's served model and End2End mode (v12x-obb End2End,
+# the others with NMS), the images' sizes (at most the canvas: no row is
+# scaled up), the float32 stream's images
+STREAM_PATHS = (("v8", False), (SEG, False), (POSE, False), (OBB, True),
+                (CLS, False))
+STREAM_SIZES = ((480, 640), (640, 480), (640, 640), (360, 500), (500, 360),
+                (300, 300), (427, 640), (640, 427))
+STREAM_N = 64
+
+
+def stream_images(n, seed):
+    """n synthetic images of the STREAM_SIZES in turn."""
+    return [synthetic_images(1, *STREAM_SIZES[i % len(STREAM_SIZES)],
+                             seed + i)[0] for i in range(n)]
+
+
+def match_stream(got, want, path):
+    """One image's stream results, card (got) against CPU (want): counts
+    within 2, each wanted row matched by one of the same class with its
+    centre and size within 1 px (both truncate to integers) and its score
+    within 1e-3 (at most 2 unmatched; OBB none, its angle within 1e-4 rad);
+    a pose row's keypoints within 0.5 px, visibility 1e-3; a segment row's
+    float32 mask > 0.5 equal on 99.9% of its pixels. Returns (n_want,
+    n_got, unmatched, equal mask pixels, mask pixels)."""
+    task = ARCH[path][2]
+    used = [False] * len(got)
+    unmatched = same = total = 0
+    for w in want:
+        best = None
+        for j, g in enumerate(got):
+            if used[j] or g.class_id != w.class_id or abs(
+                    g.score - w.score) >= 1e-3 or max(
+                    abs(g.center_x - w.center_x), abs(g.center_y - w.center_y),
+                    abs(g.width - w.width), abs(g.height - w.height)) > 1:
+                continue
+            if task == "obb" and abs(g.radian - w.radian) >= 1e-4:
+                continue
+            if best is None or abs(g.score - w.score) < abs(
+                    got[best].score - w.score):
+                best = j
+        if best is None:
+            unmatched += 1
+            continue
+        used[best] = True
+        g = got[best]
+        if task == "pose":
+            d = np.abs(np.array([[p.x, p.y, p.visibility]
+                                 for p in g.keypoints])
+                       - [[p.x, p.y, p.visibility] for p in w.keypoints])
+            if d[:, :2].max() > 0.5 or d[:, 2].max() > 1e-3:
+                unmatched += 1
+        if task == "segment":
+            same += int(((g.mask > 0.5) == (w.mask > 0.5)).sum())
+            total += w.mask.size
+    return len(want), len(got), unmatched, same, total
+
+
+def phase_stream(dev, states, confs):
+    """Phase 13: YoloTask.predict_stream of each family's served model: 8
+    images of mixed sizes in float32 at batch STREAM_F32_BATCH (a partial
+    last batch) on the card and on the CPU, their rows matched
+    (match_stream; classify: phase 12b's rule on the top 5); then
+    STREAM_N images in bf16 at batch STREAM_BATCH on the card, img/s beside
+    batch_predict's of the same letterboxed canvases (classify: the same
+    images squashed) in calls of STREAM_BATCH. Returns the launches of the
+    card's streams."""
+    from yolosharp_tpu_torch import ScalarType
+    from yolosharp_tpu_torch.data.augment import _resize_pad
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    print(f"phase 13: predict_stream of each family: 8 images float32 card "
+          f"against CPU at batch {STREAM_F32_BATCH}, then {STREAM_N} images "
+          f"bf16 at batch {STREAM_BATCH}", flush=True)
+    launches = dict.fromkeys(SOURCES, 0)
+    small = stream_images(8, 70)
+    many = stream_images(STREAM_N, 80)
+    for path, e2e in STREAM_PATHS:
+        name = path_name(path)
+        mode = f"{name} {'end2end' if e2e else 'nms'}"
+        cls = ARCH[path][2] == "classify"
+        conf = None if cls else confs[path]
+        f32 = dict(scalar_type=ScalarType.float32)
+        cpu_state = {k: v.cpu() for k, v in states[path].items()}
+        if cls:
+            card, cpu = (cls_task(dev, path, states[path], **f32),
+                         cls_task("cpu", path, cpu_state, **f32))
+        else:
+            card = build_tasks(dev, path, states[path], **f32)[e2e]
+            cpu = build_tasks("cpu", path, cpu_state, **f32)[e2e]
+        kw = dict(batch_size=STREAM_F32_BATCH, predict_threshold=conf,
+                  iou_threshold=0.7)
+        reset_launch_counts()
+        got = list(card.predict_stream(iter(small), **kw))
+        used = launch_counts()
+        want = list(cpu.predict_stream(iter(small), **kw))
+        if not len(got) == len(want) == len(small):
+            raise SystemExit(f"[{mode}] stream gave {len(got)} / {len(want)} "
+                             f"lists for {len(small)} images")
+        check_path_launches(path, used, mode + " float32 stream")
+        for name_k in SOURCES:
+            launches[name_k] += used[name_k]
+        if cls:
+            dp = max(abs(a.score - b.score) for g, w in zip(got, want)
+                     for a, b in zip(g, w))
+            top1 = sum(g[0].class_id == w[0].class_id
+                       for g, w in zip(got, want))
+            print(f"  [{mode}] float32 stream: max |d score| {dp:.3e} (at "
+                  f"most {CLS_PROB_TOL}), top-1 equal on {top1} of 8; kernel "
+                  f"launches {used}", flush=True)
+            if dp > CLS_PROB_TOL or top1 != 8:
+                raise SystemExit(f"[{mode}] card and CPU streams disagree")
+        else:
+            res = [match_stream(g, w, path) for g, w in zip(got, want)]
+            n_want, n_got, unmatched, same, total = (sum(r[k] for r in res)
+                                                     for k in range(5))
+            bad = [i for i, r in enumerate(res) if abs(r[0] - r[1]) > 2
+                   or r[2] > (0 if ARCH[path][2] == "obb" else 2)]
+            print(f"  [{mode}] float32 stream: cpu {n_want} rows, card "
+                  f"{n_got}, unmatched {unmatched}, images outside the rule "
+                  f"{bad}" + (f", mask pixels equal {same} of {total}"
+                              if total else "")
+                  + f"; kernel launches {used}", flush=True)
+            if n_want < 8 or bad or (ARCH[path][2] == "segment"
+                                     and same < 0.999 * total):
+                raise SystemExit(f"[{mode}] card and CPU streams disagree")
+        # bfloat16: the stream against batch_predict of the same canvases
+        if cls:
+            task = cls_task(dev, path, states[path])
+            inputs = many
+        else:
+            task = build_tasks(dev, path, states[path])[e2e]
+            inputs = [_resize_pad(im, 640, 640, 640, 640, 114)[2]
+                      for im in many]
+        list(task.predict_stream(iter(many[:STREAM_BATCH]),
+                                 batch_size=STREAM_BATCH,
+                                 predict_threshold=conf))      # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = list(task.predict_stream(iter(many), batch_size=STREAM_BATCH,
+                                       predict_threshold=conf))
+        t_stream = time.perf_counter() - t0
+        used = launch_counts()
+        t0 = time.perf_counter()
+        ref = [r for i in range(0, STREAM_N, STREAM_BATCH)
+               for r in task.batch_predict(inputs[i:i + STREAM_BATCH], conf)]
+        t_batch = time.perf_counter() - t0
+        rows = sum(len(r) for r in out)
+        print(f"  [{mode}] bf16 stream of {STREAM_N} at b{STREAM_BATCH}: "
+              f"{t_stream:.3f} s, {STREAM_N / t_stream:.1f} img/s ({rows} "
+              f"rows); batch_predict of the same "
+              f"{'images' if cls else 'letterboxed canvases'} in calls of "
+              f"{STREAM_BATCH}: {t_batch:.3f} s, {STREAM_N / t_batch:.1f} "
+              f"img/s ({sum(len(r) for r in ref)} rows); kernel launches of "
+              f"the stream {used}", flush=True)
+        if not cls:
+            # without the stream: each chunk letterboxed in the caller's
+            # thread, then batch_predict
+            t0 = time.perf_counter()
+            for i in range(0, STREAM_N, STREAM_BATCH):
+                task.batch_predict(
+                    [_resize_pad(im, 640, 640, 640, 640, 114)[2]
+                     for im in many[i:i + STREAM_BATCH]], conf)
+            t_serial = time.perf_counter() - t0
+            print(f"  [{mode}] letterbox then batch_predict in the caller's "
+                  f"thread, calls of {STREAM_BATCH}: {t_serial:.3f} s, "
+                  f"{STREAM_N / t_serial:.1f} img/s", flush=True)
+        if len(out) != STREAM_N or (not cls and rows == 0):
+            raise SystemExit(f"[{mode}] bf16 stream results are wrong")
+        if cls:
+            check_top5(out, mode + " stream", PATH_NC[path])
+        check_path_launches(path, used, mode + " bf16 stream")
+        for name_k in SOURCES:
+            launches[name_k] += used[name_k]
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2622,6 +3196,25 @@ def main() -> int:
             add(served, launches)
     with tempfile.TemporaryDirectory() as root:
         timed("11d", phase_obb_val, dev, root, states[OBB], confs[OBB])
+    cls_launches, cls_forward, states[CLS] = timed("12a", phase_cls_slice,
+                                                   dev)
+    add(cls_launches, launches)
+    for path, counts in cls_forward.items():
+        for name in PATHS[path]:
+            per_forward.setdefault(name, {})[path] = counts[name]
+    add(timed("12b", phase_cls_cpu_match, dev, states[CLS]), launches)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_cls_dataset(root)
+        print(f"wrote the synthetic PNG classify dataset ({CLS_CLASSES} "
+              f"classes, {CLS_TRAIN} train and {CLS_VAL} val images each) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        cls_train, served, best = timed("12c", phase_cls_train, dev, root,
+                                        tag)
+        add(cls_train, train_launches)
+        add(served, launches)
+        timed("12d", phase_cls_val, dev, root, best)
+    add(timed("13", phase_stream, dev, states, confs), launches)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules

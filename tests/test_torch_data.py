@@ -1,8 +1,8 @@
 """The port's cv2-free data path against cv2 and the JAX package: the PNG
-reader (equal to cv2.imread), resize_linear (within one level of
-cv2.resize), the OpenCV 8-bit HSV pair and random_hsv, YoloDataset +
-DataLoader on a synthetic PNG dataset (labels, mask_gt and shapes equal,
-pixels within the HSV bound), bucket_shapes and utils/metrics."""
+reader (equal to cv2.imread), resize_linear (equal to cv2.resize), the
+OpenCV 8-bit HSV pair and random_hsv, YoloDataset + DataLoader on a
+synthetic PNG dataset (labels, mask_gt and shapes equal, pixels within the
+HSV bound), bucket_shapes and utils/metrics."""
 
 import os
 import struct
@@ -225,14 +225,21 @@ def test_encode_png_round_trips_through_cv2(tmp_path, channels):
 @pytest.mark.parametrize("src,dst", [((100, 77), (64, 48)),
                                      ((37, 53), (50, 91)),
                                      ((480, 640), (48, 64)),
-                                     ((40, 30), (640, 480))])
+                                     ((40, 30), (640, 480)),
+                                     ((448, 448), (224, 224)),
+                                     ((57, 91), (224, 224)),
+                                     ((640, 480), (224, 224))])
 def test_resize_linear_within_one_level_of_cv2(src, dst):
+    """resize_linear equals cv2.resize(INTER_LINEAR) bit for bit on a
+    3-channel uint8 image (cv2's 11-bit fixed-point weights; the name dates
+    from the float resize it replaced, which was within one level): down-
+    and upscales, the exact 2x downscale among them."""
     rng = np.random.default_rng(sum(src))
     img = rng.integers(0, 256, (*src, 3), dtype=np.uint8)
     want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_LINEAR)
     got = resize_linear(img, *dst)
     assert got.shape == want.shape and got.dtype == np.uint8
-    assert np.abs(got.astype(int) - want).max() <= 1
+    np.testing.assert_array_equal(got, want)
 
 
 def test_hsv_pair_matches_opencv():

@@ -163,9 +163,10 @@ def test_image_and_batch_predict_results_match_jax(tasks):
 
 def test_port_runs_without_jax(tmp_path):
     """Importing every module of the port, predicting on the CPU (detect,
-    segment with its masks, pose with its keypoints and OBB with its
-    angle), the OBB labels' minimum-area rectangle, and saving and
-    loading a checkpoint loads neither jax nor flax nor cv2 (the GPU
+    segment with its masks, pose with its keypoints, OBB with its angle
+    and through predict_stream, classify's top 5 and its stream), the OBB
+    labels' minimum-area rectangle, and saving and loading a checkpoint
+    loads neither jax nor flax nor cv2 (the GPU
     machine has none of them), nor any module of the JAX package
     yolosharp_tpu."""
     path = str(tmp_path / "v8n.bin")
@@ -208,6 +209,17 @@ def test_port_runs_without_jax(tmp_path):
         "scalar_type=ScalarType.float32), device='cpu')\n"
         "r = o.image_predict(np.zeros((64, 96, 3), np.uint8), 0.0)\n"
         "assert r and -1 < r[0].radian < 3, r\n"
+        "r = list(o.predict_stream([np.zeros((64, 96, 3), np.uint8)] * 3, "
+        "batch_size=2, imgsz=64, predict_threshold=0.0, workers=2))\n"
+        "assert len(r) == 3 and r[2], r\n"
+        "c = YoloTask(Config(task_type=TaskType.classify, "
+        "yolo_size=YoloSize.n, number_class=5, image_size=64, "
+        "scalar_type=ScalarType.float32), device='cpu')\n"
+        "r = c.image_predict(np.zeros((64, 96, 3), np.uint8))\n"
+        "assert len(r) == 5 and r[0].score >= r[4].score, r\n"
+        "r = list(c.predict_stream([np.zeros((64, 96, 3), np.uint8)] * 3, "
+        "batch_size=2))\n"
+        "assert len(r) == 3 and len(r[2]) == 5, r\n"
         "from yolosharp_tpu_torch.ops import xyxyxyxy2xywhr\n"
         "assert xyxyxyxy2xywhr(np.float32([[[0, 0], [10, 0], [10, 5], "
         "[0, 5]]])).shape == (1, 5)\n"

@@ -28,8 +28,7 @@ from yolosharp_tpu_torch import Config, ScalarType, TaskType
 from yolosharp_tpu_torch.data import YoloDataset, augment
 from yolosharp_tpu_torch.data import device_augment as DA
 from yolosharp_tpu_torch.data.image_ops import (encode_png, fill_poly,
-                                                nearest_indices,
-                                                resize_mask_linear,
+                                                nearest_indices, resize_linear,
                                                 warp_affine, warp_perspective)
 from yolosharp_tpu_torch.data.labels import load_labels
 
@@ -145,7 +144,7 @@ def test_resize_mask_linear_matches_cv2(case):
         hi = 9 if t % 2 else 256
         img = rng.integers(0, hi, (H, W), dtype=np.uint8)
         want = cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
-        np.testing.assert_array_equal(resize_mask_linear(img, h, w), want,
+        np.testing.assert_array_equal(resize_linear(img, h, w), want,
                                       err_msg=f"{(H, W)} -> {(h, w)}")
 
 
@@ -305,7 +304,7 @@ def test_random_perspective_masks_match_jax(hyps):
                                   "flip_ud"])
 def test_resize_pad_and_flip_masks_match_jax(name):
     """letterbox and rectangle resize the mask through cv2 INTER_LINEAR in
-    the JAX package (ids blend; resize_mask_linear is bit-exact) and pad
+    the JAX package (ids blend; resize_linear is bit-exact) and pad
     it with 0; the flips mirror it: masks equal, boxes to 1e-4, for
     records of 20-64 px (the rectangle at the next 32-multiple + 16)."""
     recs, jrecs = _masked(*_records(30, 6), 2)

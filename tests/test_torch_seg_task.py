@@ -16,7 +16,7 @@ from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu_torch import (Config, ScalarType, TaskType, YoloSize,
                                  YoloTask, YoloType)
 from yolosharp_tpu_torch.data import augment, device_augment
-from yolosharp_tpu_torch.tasks import Detector, Segmenter
+from yolosharp_tpu_torch.tasks import Classifier, Detector, Segmenter
 
 NC = 3
 
@@ -99,6 +99,9 @@ def test_segment_takes_the_end2end_gain_schedule():
 
 @pytest.mark.parametrize("task", [TaskType.classify])
 def test_the_other_tasks_still_raise(task):
-    with pytest.raises(NotImplementedError,
-                       match="detect, segment, pose and obb"):
-        YoloTask(Config(task_type=task), device="cpu")
+    """Classify raised here until it was ported; the facade now gives it a
+    Classifier, with End2End off whatever Config.end2end says, as the JAX
+    package's BaseTask does."""
+    cls = YoloTask(Config(task_type=task), device="cpu")
+    assert isinstance(cls.task, Classifier)
+    assert cls.task.arch.task == "classify" and not cls.task.arch.end2end

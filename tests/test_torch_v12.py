@@ -38,7 +38,8 @@ from yolosharp_tpu_torch.ckpt import (bias_init, clone_one2one, fold_bn,
                                       state_dict_from_jax)
 from yolosharp_tpu_torch.loss import flatten_levels
 from yolosharp_tpu_torch.nn import (A2C2f, AAttn, ABlock, ArchCfg, C3k, C3k2,
-                                    ConvBN, DWConv, YoloNet, build_arch)
+                                    Classify, ConvBN, DWConv, YoloNet,
+                                    build_arch)
 from yolosharp_tpu_torch.tasks import _to_host
 
 NC = 17
@@ -116,9 +117,17 @@ def test_module_matches_jax(name):
                                           ("v5u", "classify"),
                                           ("v12", "classify")])
 def test_build_arch_raises_for_what_is_not_ported(version, task):
-    with pytest.raises(NotImplementedError,
-                       match="v5u, v8, v11 and v12 detect"):
-        build_arch(ArchCfg(version=version, size="n", task=task))
+    """These cases raised until the classify task was ported; now they
+    build the Classify head (a constructor of its input channels), and
+    build_arch raises for a version or a task that the port does not
+    have."""
+    *_, head = build_arch(ArchCfg(version=version, size="n", task=task))
+    assert isinstance(head(64), Classify)
+    for cfg in (ArchCfg(version="v10", size="n", task=task),
+                ArchCfg(version=version, size="n", task="depth")):
+        with pytest.raises(NotImplementedError,
+                           match="v5u, v8, v11 and v12 detect"):
+            build_arch(cfg)
 
 
 def test_aattn_rejects_an_area_that_does_not_divide():

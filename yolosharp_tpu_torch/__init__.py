@@ -1,13 +1,14 @@
 """yolosharp_tpu_torch: the PyTorch/CUDA port of yolosharp_tpu.
 
 Same public surface as the JAX package, for v5u, v8, v11 and v12 detection,
-instance segmentation, pose estimation and oriented boxes (Config.task_type)
-so far:
+instance segmentation, pose estimation, oriented boxes and classification
+(Config.task_type):
 
     from yolosharp_tpu_torch import Config, YoloTask
     task = YoloTask(Config(...))            # device="cuda" by default
     task.train()                            # train + val on Config's dataset
     results = task.image_predict(rgb_uint8_array)
+    for results in task.predict_stream(iter(images)): ...
 
 It imports torch and nothing of jax or of the JAX package: the numpy-only
 modules it shares with that package (Config, result types, checkpoint file
@@ -15,7 +16,8 @@ formats and name map, label parsing, augmentation, loader, metrics) are
 copies under the same names. Modules:
 
 - ``config``, ``types``: Config and the result / enum types;
-- ``nn``: the v5u / v8 / v11 / v12 detect, segment, pose and OBB networks
+- ``nn``: the v5u / v8 / v11 / v12 detect, segment, pose, OBB and classify
+  networks
   (train and eval BatchNorm with the JAX package's statistics, BN-folded
   predict);
 - ``ops``: boxes (``clip_keypoints``, the OBB corner forms), the cv2-free
@@ -23,12 +25,15 @@ copies under the same names. Modules:
   ``mask_iou``, the OKS ``kpt_iou``, ``probiou``), anchors, NMS (greedy,
   and the rotated fast NMS), masks (``crop_mask``, ``process_mask``);
 - ``loss``: the task-aligned assigner (``tal``, axis-aligned and rotated),
-  the detection, OBB, segmentation and pose losses and the End2End pair;
+  the detection, OBB, segmentation, pose and classification losses and the
+  End2End pair;
 - ``train``: AdamW groups, LR schedules, train and eval steps, TrainState;
 - ``data``: cv2-free pixel work (``image_ops``: PNG reader, resize, HSV,
-  warps, polygon fill), labels, augmentations (letterbox and the host
-  mosaic), the mosaic's host planner and device render of images and
-  masks (``device_augment``), dataset, loader;
+  warps, polygon fill, the classify ops' blur / equalize), labels,
+  augmentations (letterbox and the host mosaic; ``classify_augment``:
+  AutoAugment, RandAugment, AugMix, random erasing), the mosaic's host
+  planner and device render of images and masks (``device_augment``),
+  datasets (``YoloDataset``, ``ClassificationDataset``), loader;
 - ``utils``: val metrics, early stopping, the CSV log;
 - ``ckpt``: checkpoint formats, BN folding, the JAX bridge, and
   ``resume`` (the full train state);
@@ -39,11 +44,11 @@ copies under the same names. Modules:
 """
 
 from .config import Config
-from .tasks import Detector, Obber, PoseDetector, Segmenter, YoloTask
+from .tasks import (Classifier, Detector, Obber, PoseDetector, Segmenter,
+                    YoloTask)
 from .types import (KeyPoint, ScalarType, TaskType, YoloResult, YoloSize,
                     YoloType)
 
-__all__ = ["Config", "Detector", "KeyPoint", "Obber", "PoseDetector",
-           "ScalarType",
-           "Segmenter", "TaskType", "YoloResult", "YoloSize", "YoloTask",
-           "YoloType"]
+__all__ = ["Classifier", "Config", "Detector", "KeyPoint", "Obber",
+           "PoseDetector", "ScalarType", "Segmenter", "TaskType",
+           "YoloResult", "YoloSize", "YoloTask", "YoloType"]

@@ -7,7 +7,7 @@ Parity targets: Data/Augment.cs Mosaic (126-275), RandomPerspective
 the flipped xyxy corners are re-sorted, a fix of the reference's order) and
 RandomHSV (968-989). The segment masks (overlap ids at 1 / mask_ratio) go
 through every transform: tiled with their ids offset in mosaic4, warped
-nearest with border 0, resized through ``image_ops.resize_mask_linear`` (as
+nearest with border 0, resized through ``image_ops.resize_linear`` (as
 cv2 INTER_LINEAR blends ids), flipped, and renumbered 1..n after the
 mosaic's and the warp's box filters. The pose keypoints go through every
 transform too: shifted by the letterbox and rectangle pads (an invisible
@@ -28,8 +28,8 @@ from typing import Sequence
 
 import numpy as np
 
-from .image_ops import (hsv_to_rgb_u8, resize_linear, resize_mask_linear,
-                        rgb_to_hsv_u8, warp_affine, warp_perspective)
+from .image_ops import (hsv_to_rgb_u8, resize_linear, rgb_to_hsv_u8,
+                        warp_affine, warp_perspective)
 from .labels import LabelRecord
 
 
@@ -236,13 +236,12 @@ def random_perspective(label: LabelRecord, degrees: float, translate: float,
 
 def _resize_pad(img: np.ndarray, target_h: int, target_w: int,
                 resized_h: int, resized_w: int, color) -> tuple:
-    """Aspect-preserving resize into (resized) then center-pad to target; a
-    2-D uint8 (a mask) resizes bit-exact to cv2 INTER_LINEAR."""
+    """Aspect-preserving resize into (resized) then center-pad to target;
+    an image or a 2-D uint8 mask, bit-exact to cv2 INTER_LINEAR."""
     ih, iw = img.shape[:2]
     ratio = min(resized_w / iw, resized_h / ih)
     nw, nh = int(iw * ratio), int(ih * ratio)
-    img = (resize_mask_linear(img, nh, nw) if img.ndim == 2
-           else resize_linear(img, nh, nw))
+    img = resize_linear(img, nh, nw)
     pl = (target_w - nw) // 2
     pu = (target_h - nh) // 2
     out = np.full((target_h, target_w) + img.shape[2:], color, img.dtype)

@@ -1,7 +1,8 @@
 """Detect, segment, pose and OBB dataset: per-index transforms, padded
 batch collation and the planned batches of the device render (a copy of
 yolosharp_tpu/data/dataset.py:23-212, the detect, segment, pose and OBB
-tasks).
+tasks), and the classify task's folder-per-class ClassificationDataset
+(:214-308).
 
 Parity targets: Data/YoloDataset.cs:57-99 (transform composition,
 CloseMosaic) and Data/YoloDataLoader.cs:18-44 (collation, here to padded
@@ -24,6 +25,7 @@ angle in radians.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -32,7 +34,9 @@ from ..config import Config
 from ..types import ImageProcessType, TaskType
 from ..ops.boxes import xyxyxyxy2xywhr
 from . import augment as A
-from .labels import LabelRecord, load_labels
+from . import classify_augment as CA
+from .image_ops import read_image_rgb, resize_linear
+from .labels import LabelRecord, get_img_files, load_labels
 
 
 class YoloDataset:
@@ -204,3 +208,111 @@ class YoloDataset:
                 k[..., 1] /= h
                 out["keypoints"][i, :n] = k
         return out
+
+
+class ClassificationDataset:
+    """Folder-per-class classification dataset (a copy of
+    yolosharp_tpu/data/dataset.py:214-308, ClassificationDataset.cs): the
+    class of an image is the name of its folder. Train: RandomResizedCrop
+    (10 tries, else the whole image) to s x s, the flips, the
+    Config.auto_augment policy and random erasing (``classify_augment``);
+    val: the short side resized to s, then the centre s x s crop. Images
+    are read by ``image_ops.read_image_rgb`` (PNG without cv2) and resized
+    by ``image_ops.resize_linear`` (cv2's INTER_LINEAR, bit for bit).
+
+    ``get`` draws from one generator in a fixed order; the DataLoader calls
+    it from ``workers`` threads that share that generator, as the JAX
+    package's does, so which draws an image takes varies with the threads'
+    timing there."""
+
+    def __init__(self, config: Config, is_val: bool = False, seed: int = 0):
+        self.config = config
+        self.is_val = is_val
+        split = config.val_data_path if is_val else config.train_data_path
+        root = os.path.abspath(os.path.join(config.root_path, split))
+        if not os.path.isdir(root) and not os.path.isfile(root):
+            # a quiet fallback would make train and val the SAME data
+            print(f"WARNING: classification split '{split}' not found under "
+                  f"{config.root_path}; falling back to the root folder — "
+                  f"train and val will see identical data.")
+            root = os.path.abspath(config.root_path)
+        files = get_img_files(root)
+        self.classes = sorted({os.path.basename(os.path.dirname(p))
+                               for p in files})
+        cindex = {c: i for i, c in enumerate(self.classes)}
+        self.samples = [(p, cindex[os.path.basename(os.path.dirname(p))])
+                        for p in files]
+        if not self.samples:
+            raise FileNotFoundError(f"no classification data in {root}")
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def close_mosaic(self, closed: bool = True) -> None:
+        pass
+
+    @property
+    def max_label_count(self) -> int:
+        return 1
+
+    def use_device_augment(self) -> bool:
+        """Classify batches are made on the host."""
+        return False
+
+    def get(self, index: int) -> Dict[str, np.ndarray]:
+        cfg = self.config
+        path, ci = self.samples[index]
+        img = read_image_rgb(path)
+        s = cfg.image_size
+        if self.is_val:
+            img = center_crop(img, s)
+        else:
+            # RandomResizedCrop (ClassificationDataset.cs:90-131)
+            h, w = img.shape[:2]
+            area = h * w
+            for _ in range(10):
+                ta = area * self.rng.uniform(cfg.classify_scale_min,
+                                             cfg.classify_scale_max)
+                ar = math.exp(self.rng.uniform(
+                    math.log(cfg.classify_ratio_min),
+                    math.log(cfg.classify_ratio_max)))
+                cw = int(round(math.sqrt(ta * ar)))
+                chh = int(round(math.sqrt(ta / ar)))
+                if 0 < cw <= w and 0 < chh <= h:
+                    left = int(self.rng.integers(0, w - cw + 1))
+                    top = int(self.rng.integers(0, h - chh + 1))
+                    img = img[top:top + chh, left:left + cw]
+                    break
+            img = resize_linear(img, s, s)
+            if cfg.flip_lr > 0 and self.rng.uniform() < cfg.flip_lr:
+                img = np.ascontiguousarray(img[:, ::-1])
+            if cfg.flip_ud > 0 and self.rng.uniform() < cfg.flip_ud:
+                img = np.ascontiguousarray(img[::-1])
+            aat = cfg.auto_augment
+            if aat.value == "autoaugment":
+                img = CA.auto_augment(img, self.rng)
+            elif aat.value == "randaugment":
+                img = CA.rand_augment(img, self.rng)
+            elif aat.value == "augmix":
+                img = CA.augmix(img, self.rng)
+            if cfg.erasing > 0:
+                img = CA.random_erasing(img, self.rng, p=cfg.erasing)
+        return {"image": np.ascontiguousarray(img), "cls": ci}
+
+    def collate(self, items, max_labels: int) -> Dict[str, np.ndarray]:
+        images = np.stack([it["image"] for it in items])
+        cls = np.asarray([it["cls"] for it in items], np.int32)
+        return {"images": images, "cls": cls}
+
+
+def center_crop(img: np.ndarray, s: int) -> np.ndarray:
+    """The short side of a uint8 image resized to s (cv2's INTER_LINEAR),
+    then its centre s x s: classify's eval transform (val and
+    predict_stream)."""
+    h, w = img.shape[:2]
+    r = s / min(h, w)
+    img = resize_linear(img, max(s, int(h * r)), max(s, int(w * r)))
+    h, w = img.shape[:2]
+    top, left = (h - s) // 2, (w - s) // 2
+    return img[top:top + s, left:left + s]

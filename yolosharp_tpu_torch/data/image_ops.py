@@ -5,10 +5,14 @@
   could be); otherwise PNG decoded here with zlib and numpy (8-bit gray, RGB
   and RGBA, not interlaced, all five row filters). Anything else raises an
   error that names the file; no image is ever substituted.
-- ``resize_linear``: cv2.resize(INTER_LINEAR) geometry (half-pixel centres,
-  clamped edges) through F.interpolate(bilinear, align_corners=False) on a
-  CPU tensor, rounded back to uint8. cv2 rounds its 11-bit fixed-point
-  weights, so the two differ by at most one level.
+- ``resize_linear``: cv2.resize(INTER_LINEAR) of uint8 images and masks in
+  cv2's fixed-point arithmetic (11-bit weights, the vertical pass on rows
+  >> 4 with a rounding >> 2), bit-exact; ``resize_linear_f32`` the float32
+  resize of a tensor's maps, on its device, within one float32 rounding.
+- the classify augmentations' pixel work: ``gaussian_blur3_u8``
+  (cv2.GaussianBlur 3x3, sigma 0), ``equalize_hist_u8`` (cv2.equalizeHist)
+  and ``rotation_matrix_2d`` (cv2.getRotationMatrix2D), each bit-exact
+  against cv2 5.0 (tests/test_torch_cls_data.py).
 - ``warp_affine`` / ``warp_perspective``: cv2.warpAffine /
   cv2.warpPerspective with INTER_LINEAR and a constant border, in numpy,
   as OpenCV 5 computes them: the forward matrix inverted in float64, each
@@ -21,11 +25,9 @@
 - the segment masks' pixel work, as the JAX package does it with cv2:
   ``fill_poly`` (cv2.fillPoly of one polygon, 8-connected), ``warp_affine``
   / ``warp_perspective`` with ``nearest=True`` (INTER_NEAREST, the mapped
-  coordinate rounded half to even), ``resize_mask_linear`` (cv2.resize
-  INTER_LINEAR of a uint8 (H, W) array in cv2's fixed-point arithmetic:
-  11-bit weights, the vertical pass on rows >> 4 with a rounding >> 2) and
-  INTER_NEAREST's indices (``nearest_indices``: src = floor(dst / (dst_n /
-  src_n))).
+  coordinate rounded half to even), ``resize_linear`` of a uint8 (H, W)
+  mask (its ids blend, as through cv2) and INTER_NEAREST's indices
+  (``nearest_indices``: src = floor(dst / (dst_n / src_n))).
   Against cv2 5.0 (tests/test_torch_seg_data.py): fill_poly (vertices in
   or out of the mask), both resizes and the affine warp bit-exact; the
   perspective warp off on ~2e-7 of the pixels (a coordinate on a .5
@@ -46,7 +48,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}      # PNG colour type -> samples a pixel
@@ -201,18 +202,6 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
             + chunk(b"IEND", b""))
 
 
-def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """uint8 (H, W, C) -> (h, w, C), bilinear with cv2's INTER_LINEAR
-    geometry."""
-    if img.shape[:2] == (h, w):
-        return img.copy()
-    t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
-    out = F.interpolate(t.float(), size=(h, w), mode="bilinear",
-                        align_corners=False, antialias=False)
-    return (out[0].permute(1, 2, 0).round().clamp(0, 255)
-            .to(torch.uint8).numpy())
-
-
 def _sample_linear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray,
                    border: int) -> np.ndarray:
     """Bilinear samples of img (H, W[, C]) uint8 at float32 source
@@ -324,34 +313,119 @@ def _linear_taps(dst: int, src: int):
 
 def _fixed(f: np.ndarray) -> np.ndarray:
     """A float32 weight as cv2's 11-bit fixed point (round half to even)."""
-    return np.rint(f * np.float32(2048)).astype(np.int64)
+    return np.rint(f * np.float32(2048)).astype(np.int32)
 
 
-def resize_mask_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
     """cv2.resize(img, (w, h), interpolation=INTER_LINEAR) of a uint8
-    (H, W) array, bit-exact: the horizontal pass sums two pixels times
-    11-bit weights (the edge taps clamped to one pixel at weight 2048), the
-    vertical pass blends those sums as cv2's uint8 kernel does,
-    (((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2) >> 2. An id
-    mask blends ids here, as it does through cv2."""
-    H, W = img.shape
+    (H, W) or (H, W, C) array, bit-exact: the horizontal pass sums two
+    pixels times 11-bit weights (the edge taps clamped to one pixel at
+    weight 2048), the vertical pass blends those sums as cv2's uint8 kernel
+    does, (((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2) >> 2,
+    every channel alike. An id mask blends ids here, as it does through
+    cv2. The integer passes run as torch ops on the CPU (its intra-op
+    threads: 4-6x numpy's time at 4 threads)."""
+    H, W = img.shape[:2]
     if (H, W) == (h, w):
         return img.copy()
+
+    def cpu(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    src = cpu(img.reshape(H, W, -1)).to(torch.int32)
     sx, fx = _linear_taps(w, W)
-    lo, hi = sx < 0, sx >= W - 1
-    fx = np.where(lo | hi, np.float32(0), fx)
+    fx = np.where((sx < 0) | (sx >= W - 1), np.float32(0), fx)
     sx = np.clip(sx, 0, W - 1)
-    src = img.astype(np.int64)
-    rows = (src[:, sx] * _fixed(np.float32(1) - fx)
-            + src[:, np.minimum(sx + 1, W - 1)] * _fixed(fx))
-    rows = np.where(hi, src[:, sx] * 2048, rows)        # (H, w)
+    a0 = cpu(_fixed(np.float32(1) - fx))[:, None]
+    a1 = cpu(_fixed(fx))[:, None]
+    rows = (src.index_select(1, cpu(sx)) * a0
+            + src.index_select(1, cpu(np.minimum(sx + 1, W - 1))) * a1) >> 4
     sy, fy = _linear_taps(h, H)
-    r0 = rows[np.clip(sy, 0, H - 1)] >> 4
-    r1 = rows[np.clip(sy + 1, 0, H - 1)] >> 4
-    b0 = _fixed(np.float32(1) - fy)[:, None]
-    b1 = _fixed(fy)[:, None]
+    r0 = rows.index_select(0, cpu(np.clip(sy, 0, H - 1)))
+    r1 = rows.index_select(0, cpu(np.clip(sy + 1, 0, H - 1)))
+    b0 = cpu(_fixed(np.float32(1) - fy))[:, None, None]
+    b1 = cpu(_fixed(fy))[:, None, None]
     out = (((b0 * r0) >> 16) + ((b1 * r1) >> 16) + 2) >> 2
-    return np.clip(out, 0, 255).astype(np.uint8)
+    return out.clamp_(0, 255).to(torch.uint8).numpy().reshape(
+        (h, w) + img.shape[2:])
+
+
+def resize_linear_f32(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """cv2.resize(m, (w, h), interpolation=INTER_LINEAR) of each float32
+    (H, W) map m of a tensor (..., H, W), on the tensor's device, to within
+    one float32 rounding: the taps of the uint8 resize with each fraction
+    kept in float64 (cv2 5.0's float weights are the float64 fractions, not
+    the float32 ones of its uint8 path), each pass's blend evaluated in
+    float64 and rounded to float32. cv2's own order of products and sums is
+    not known: on values in [0, 1] up to a quarter of the outputs differ
+    from it, by at most 1.2e-7, one float32 step below 1
+    (tests/test_torch_cls_data.py). Returns float32 (..., h, w)."""
+    H, W = x.shape[-2:]
+    x = x.to(torch.float32)
+    if (H, W) == (h, w):
+        return x.clone()
+
+    def taps(dst, n):
+        f = (np.arange(dst, dtype=np.float64) + 0.5) * (n / dst) - 0.5
+        s = np.floor(f)
+        return s.astype(np.int64), f - s
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(x.device)
+
+    sx, fx = taps(w, W)
+    fx = np.where((sx < 0) | (sx >= W - 1), 0.0, fx)
+    sx = np.clip(sx, 0, W - 1)
+    x64 = x.double()
+    rows = (x64[..., dev(sx)] * dev(1 - fx)
+            + x64[..., dev(np.minimum(sx + 1, W - 1))] * dev(fx))
+    rows = rows.float().double()
+    sy, fy = taps(h, H)
+    out = (rows[..., dev(np.clip(sy, 0, H - 1)), :] * dev(1 - fy)[:, None]
+           + rows[..., dev(np.clip(sy + 1, 0, H - 1)), :]
+           * dev(fy)[:, None])
+    return out.float()
+
+
+def gaussian_blur3_u8(img: np.ndarray) -> np.ndarray:
+    """cv2.GaussianBlur(img, (3, 3), 0) of a uint8 (H, W[, C]) image: the
+    kernel (1, 2, 1) / 4 along each axis, which cv2's fixed-point uint8
+    path applies exactly, so the result is the 3x3 sum with weights
+    (1 2 1; 2 4 2; 1 2 1) rounded half up, (s + 8) >> 4; the border
+    BORDER_REFLECT_101 (numpy's "reflect")."""
+    pad = ((1, 1), (1, 1)) + ((0, 0),) * (img.ndim - 2)
+    p = np.pad(img.astype(np.int32), pad, mode="reflect")
+    rows = p[:, :-2] + 2 * p[:, 1:-1] + p[:, 2:]
+    out = rows[:-2] + 2 * rows[1:-1] + rows[2:]
+    return ((out + 8) >> 4).astype(np.uint8)
+
+
+def equalize_hist_u8(img: np.ndarray) -> np.ndarray:
+    """cv2.equalizeHist of a uint8 (H, W) image: the lowest present level
+    maps to 0 and level v to round(cdf(v) * (255 / (n - its count))) in
+    float32, rounded half to even; an image of one level stays as it is."""
+    hist = np.bincount(img.ravel(), minlength=256)
+    lo = int(np.flatnonzero(hist)[0])
+    total = img.size
+    if hist[lo] == total:
+        return img.copy()
+    scale = np.float32(255) / np.float32(total - hist[lo])
+    cdf = np.cumsum(hist) - hist[lo]
+    lut = np.clip(np.rint(cdf.astype(np.float32) * scale), 0, 255)
+    lut[:lo + 1] = 0
+    return lut.astype(np.uint8)[img]
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """cv2.getRotationMatrix2D(center, angle, scale): the (2, 3) float64
+    matrix of a rotation by `angle` degrees (counter-clockwise, y down)
+    about `center` (taken as float32, as cv2's Point2f)."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    a = float(angle) * (np.pi / 180)
+    alpha, beta = np.cos(a) * scale, np.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]],
+                    np.float64)
 
 
 def nearest_indices(src: int, dst: int) -> np.ndarray:

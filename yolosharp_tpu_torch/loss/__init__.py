@@ -1,10 +1,11 @@
 from .losses import (OKS_SIGMA, DetOut, bce_dice_loss, bce_logits,
-                     detection_loss, e2e_gain_schedule, e2e_wrap,
-                     flatten_levels, multi_channel_dice_loss, obb_loss,
-                     pose_loss, segmentation_loss, take_gt)
+                     classification_loss, detection_loss, e2e_gain_schedule,
+                     e2e_wrap, flatten_levels, multi_channel_dice_loss,
+                     obb_loss, pose_loss, segmentation_loss, take_gt)
 from .tal import AssignResult, assign
 
 __all__ = ["AssignResult", "DetOut", "OKS_SIGMA", "assign", "bce_dice_loss",
-           "bce_logits", "detection_loss", "e2e_gain_schedule", "e2e_wrap",
-           "flatten_levels", "multi_channel_dice_loss", "obb_loss",
-           "pose_loss", "segmentation_loss", "take_gt"]
+           "bce_logits", "classification_loss", "detection_loss",
+           "e2e_gain_schedule", "e2e_wrap", "flatten_levels",
+           "multi_channel_dice_loss", "obb_loss", "pose_loss",
+           "segmentation_loss", "take_gt"]

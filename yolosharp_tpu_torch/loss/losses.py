@@ -1,6 +1,6 @@
-"""Detection, OBB, segmentation and pose losses and the End2End pair
-(counterpart of yolosharp_tpu/loss/losses.py:36-405, :436-491; parity
-target YoloSharp/Utils/Loss.cs:94-1070 and 1094-1176).
+"""Detection, OBB, segmentation, pose and classification losses and the
+End2End pair (counterpart of yolosharp_tpu/loss/losses.py:36-415,
+:436-491; parity target YoloSharp/Utils/Loss.cs:94-1091 and 1094-1176).
 
 Losses are functions over padded batches on the device:
   batch = {"cls": (B, M) int, "bboxes": (B, M, 4) normalised xywh (OBB:
@@ -10,8 +10,9 @@ Losses are functions over padded batches on the device:
            "keypoints": (B, M, K, kd) pose only: normalised x, y
                         (+ visibility)}
 and the head's raw maps [(B, C, H, W)] x 3 levels (and a segment branch's
-"proto" (B, nm, mh, mw)). They run in float32 whatever the network's type,
-as in the JAX package.
+"proto" (B, nm, mh, mw)); a classify batch is {"cls": (B,) int} against
+the head's {"cls": (B, nc)} logits. They run in float32 whatever the
+network's type, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -413,6 +414,16 @@ def bce_dice_loss(pred_logits: torch.Tensor,
     return (WEIGHT_BCE * bce
             + WEIGHT_DICE * multi_channel_dice_loss(pred_logits, target,
                                                     smooth=1.0))
+
+
+def classification_loss(preds: Dict, batch: Dict):
+    """v8ClassificationLoss (Loss.cs:1073-1091, the JAX
+    classification_loss): the mean cross-entropy of the float32 logits
+    against the (B,) class ids; returns (loss, stack([loss]))."""
+    logits = preds["cls"].float()
+    labels = batch["cls"].reshape(-1).long()
+    loss = F.cross_entropy(logits, labels)
+    return loss, loss[None]
 
 
 def e2e_wrap(loss_fn_many, loss_fn_one):

@@ -1,6 +1,6 @@
-"""Detection, segment, pose and OBB heads (counterpart of
+"""Detection, segment, pose, OBB and classify heads (counterpart of
 yolosharp_tpu/nn/heads.py: _Branch, _SimpleBranch, Detect, Segment, Pose,
-Obb).
+Obb, Classify).
 The heads return RAW per-level maps; decoding lives in ``predict.py``.
 End2End heads carry ``one2one_*`` towers, run on detached features
 (Head.cs:92-101)."""
@@ -11,6 +11,7 @@ import math
 from typing import Dict, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .common import Conv2d, ConvBN, DWConv, Proto
@@ -197,3 +198,24 @@ class Obb(Detect):
             branch["angle"] = tuple((a.sigmoid() - 0.25) * math.pi
                                     for a in branch["angle"])
         return preds
+
+
+class Classify(nn.Module):
+    """Conv + global average pool + linear classifier (Head.cs:612-644, the
+    JAX Classify): a 1x1 ConvBN to 1280 channels, the mean over H and W in
+    the activations' type (summed in float32 and rounded once), then
+    ``linear`` (1280 -> nc) in float32, as the JAX head multiplies its
+    activations by a float32 kernel. Returns {"cls": float32 logits}."""
+
+    C_ = 1280
+
+    def __init__(self, c1: int, nc: int):
+        super().__init__()
+        self.conv = ConvBN(c1, self.C_, 1, 1)
+        self.linear = nn.Linear(self.C_, nc)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        y = self.conv(x).mean((2, 3))
+        w = self.linear.weight
+        return {"cls": F.linear(y.float(), w.float(),
+                                self.linear.bias.float())}

@@ -1,12 +1,13 @@
-"""Model assembly for the v5u, v8, v11 and v12 detect, segment, pose and
-OBB networks
+"""Model assembly for the v5u, v8, v11 and v12 detect, segment, pose, OBB
+and classify networks
 (counterpart of yolosharp_tpu/nn/model.py: _v8_layers, _v5u_layers,
-_v11_layers, _v12_layers, build_arch, YoloNet).
+_v11_layers, _v12_layers, _CLS_KEEP, build_arch, YoloNet).
 
 Layers live in ``self.model`` (an ``nn.ModuleList`` with parameter-free
 placeholders at the Upsample and Concat indices), so state-dict keys read
 ``model.{i}.…`` as in Ultralytics checkpoints; the head is index 22 (v8),
-24 (v5u), 23 (v11) or 21 (v12).
+24 (v5u), 23 (v11) or 21 (v12), and for classify 9 (v8) or 11 (v5u, v11,
+v12: v12 classify takes the v11 trunk).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch import nn
 
 from .attention import A2C2f, C2PSA
 from .common import C2f, C3, C3k2, Concat, ConvBN, SPPF, Upsample
-from .heads import DFL, Detect, Obb, Pose, Segment
+from .heads import DFL, Classify, Detect, Obb, Pose, Segment
 
 
 class ArchCfg(NamedTuple):
@@ -174,17 +175,29 @@ def _v12_layers(size: str):
 _BUILDERS = {"v8": (_v8_layers, True), "v5u": (_v5u_layers, True),
              "v11": (_v11_layers, False), "v12": (_v12_layers, False)}
 
+# how many leading layers of the detect trunk the classify nets keep
+# (Yolo.cs:518-592); v12 classify takes the v11 trunk
+_CLS_KEEP = {"v8": 9, "v5u": 11, "v11": 11}
+_CLS_TRUNK = {"v8": "v8", "v5u": "v5u", "v11": "v11", "v12": "v11"}
+
 
 def build_arch(cfg: ArchCfg):
-    """(layers, out_idx, concat_idx, head) for the detect, segment, pose or
-    OBB task; the segment head's Proto is ch[0] wide with NM = 32 prototypes
-    (yolosharp_tpu/nn/model.py:200-206), the pose head's keypoints are
-    kpt_num x kpt_dim, the OBB head has one angle channel."""
-    if cfg.version not in _BUILDERS or cfg.task not in ("detect", "segment",
-                                                        "pose", "obb"):
+    """(layers, out_idx, concat_idx, head) for the detect, segment, pose,
+    OBB or classify task; the segment head's Proto is ch[0] wide with NM =
+    32 prototypes (yolosharp_tpu/nn/model.py:200-206), the pose head's
+    keypoints are kpt_num x kpt_dim, the OBB head has one angle channel.
+    The classify head is a constructor of its input channels (the last
+    kept layer's)."""
+    if cfg.version not in _BUILDERS or cfg.task not in (
+            "detect", "segment", "pose", "obb", "classify"):
         raise NotImplementedError(
-            f"the torch port has only v5u, v8, v11 and v12 detect, segment, "
-            f"pose and OBB so far, not {cfg.version} {cfg.task}")
+            f"the torch port has v5u, v8, v11 and v12 detect, segment, "
+            f"pose, OBB and classify, not {cfg.version} {cfg.task}")
+    if cfg.task == "classify":
+        trunk = _CLS_TRUNK[cfg.version]
+        layers, out_idx, concat_idx, _ = _BUILDERS[trunk][0](cfg.size)
+        return (layers[:_CLS_KEEP[trunk]], out_idx, concat_idx,
+                lambda c1: Classify(c1, cfg.nc))
     builder, legacy = _BUILDERS[cfg.version]
     layers, out_idx, concat_idx, w = builder(cfg.size)
     ch = (w[2], w[3], w[4])
@@ -204,18 +217,20 @@ STRIDES = (8, 16, 32)
 
 
 def init_weights(net: nn.Module, generator: torch.Generator) -> None:
-    """torch.nn.Conv2d's default init (U(+-1/sqrt(fan_in)) for weights and
-    biases, as the JAX package's torch_kernel_init; a ConvTranspose2d's
-    fan_in is Cin k k, as the JAX package's), drawn from `generator`;
-    BatchNorm stays at identity statistics and A2C2f's gamma at 0.01."""
+    """torch.nn.Conv2d's and nn.Linear's default init (U(+-1/sqrt(fan_in))
+    for weights and biases, as the JAX package's torch_kernel_init and
+    torch_linear_init; a ConvTranspose2d's fan_in is Cin k k, as the JAX
+    package's), drawn from `generator`; BatchNorm stays at identity
+    statistics and A2C2f's gamma at 0.01."""
     with torch.no_grad():
         for m in net.modules():
             if isinstance(m, DFL):
                 continue
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) \
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
                     and m.weight.requires_grad:
-                fan_in = (m.weight[0].numel() if isinstance(m, nn.Conv2d)
-                          else m.weight.shape[0] * m.weight[0, 0].numel())
+                fan_in = (m.weight.shape[0] * m.weight[0, 0].numel()
+                          if isinstance(m, nn.ConvTranspose2d)
+                          else m.weight[0].numel())
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
@@ -230,10 +245,10 @@ def _out_channels(mod: nn.Module) -> int:
 
 
 class YoloNet(nn.Module):
-    """v5u / v8 / v11 / v12 detect, segment, pose or OBB network. forward(x)
-    takes (B, 3, H, W) in [0, 1] and returns the head's raw maps
+    """v5u / v8 / v11 / v12 detect, segment, pose, OBB or classify network.
+    forward(x) takes (B, 3, H, W) in [0, 1] and returns the head's raw maps
     {"one2many": {"box", "cls"[, "mask", "proto" | "kpt" | "angle"]},
-    ["one2one"]}."""
+    ["one2one"]}, or a classify net's {"cls": (B, nc) float32 logits}."""
 
     def __init__(self, cfg: ArchCfg, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -255,7 +270,7 @@ class YoloNet(nn.Module):
                 chans = _out_channels(mod)
             if i in self.out_idx:
                 outputs.append(chans)
-        mods.append(head)
+        mods.append(head(chans) if cfg.task == "classify" else head)
         self.model = nn.ModuleList(mods)
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
@@ -266,6 +281,8 @@ class YoloNet(nn.Module):
         for i, m in enumerate(self.model):
             if isinstance(m, Detect):
                 return m(outputs[-3:], skip_one2many=skip_one2many)
+            if isinstance(m, Classify):
+                return m(x)
             if isinstance(m, Concat):
                 x = m([x, outputs[self.concat_idx[cat_count]]])
                 cat_count += 1

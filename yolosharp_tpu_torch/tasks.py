@@ -1,6 +1,7 @@
-"""The task layer for detect, segment, pose and OBB and the YoloTask facade
-(counterpart of yolosharp_tpu/tasks.py: BaseTask / Detector / Segmenter /
-PoseDetector / Obber / YoloTask): train, val, predict, load and save.
+"""The task layer for detect, segment, pose, OBB and classify and the
+YoloTask facade (counterpart of yolosharp_tpu/tasks.py: BaseTask /
+Detector / Segmenter / PoseDetector / Obber / Classifier / YoloTask):
+train, val, predict, predict_stream, load and save.
 
 Predict: requests arrive as uint8 HWC RGB numpy arrays, are padded with 114
 to a multiple of 32 on the host, shipped as uint8 and normalised (/255) on
@@ -14,26 +15,40 @@ image's masks on the device from the proto and the kept rows' coefficients
 an image, as bool. Pose rows carry their K keypoints, decoded to canvas
 pixels on the device, as KeyPoints. OBB rows carry a rotated box: centre,
 size and ``radian``, from the rotated NMS (fast suppression over probiou)
-or the End2End top-k.
+or the End2End top-k. Classify squashes each image to s x s
+(image_predict / batch_predict) and returns its top-5 classes and their
+float32 softmax scores.
+
+predict_stream (every family): images letterboxed to s x s (classify: the
+short side to s, then the centre crop) on a pool of host threads, batched
+(a partial last batch padded with repeats, dropped again), copied pinned
+to the device on a transfer thread, and run in a depth-2 pipeline: batch N
+is dispatched before batch N-1's results are fetched and unpacked. Rows
+come back in the original image's pixels; a segment row's mask as float32
+(the canvas mask's content region resized back by resize_linear_f32, as
+the JAX package's cv2.resize).
 
 Train: the float32 master network in train mode, batches from data/
 copied to the device ahead of the step (while the mosaic is open, planned
 batches that the step renders on the device, or host mosaic4 +
-random_perspective samples; letterbox after close_mosaic), the
+random_perspective samples; letterbox after close_mosaic; classify: the
+RandomResizedCrop / AutoAugment stack of ClassificationDataset), the
 train step of train.py, then val on the unfolded eval-mode master, which
-matches each batch's predictions to its ground truths in one device call,
-and the outputs of the JAX package: config.txt, log.csv, weights/best.bin,
-weights/last.bin and weights/last_state.npz. The master stays in eval mode
-outside train().
+matches each batch's predictions to its ground truths in one device call
+(classify: top1 / top5 of the float32 softmax), and the outputs of the JAX
+package: config.txt, log.csv, weights/best.bin, weights/last.bin and
+weights/last_state.npz. The master stays in eval mode outside train().
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import itertools
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
 from functools import partial
 from typing import Dict, List, Optional, Tuple
@@ -46,10 +61,15 @@ from .ckpt import (bias_init, clone_one2one, export_state_dict, fold_bn,
                    skip_patterns_for_nc_mismatch)
 from .ckpt.resume import restore_train_state, save_train_state
 from .config import Config, resolve_device, torch_dtype
-from .data import DataLoader, YoloDataset, device_prefetch, to_device
-from .data.image_ops import nearest_indices, read_image_rgb
-from .loss import (OKS_SIGMA, detection_loss, e2e_gain_schedule, e2e_wrap,
-                   obb_loss, pose_loss, segmentation_loss)
+from .data import (ClassificationDataset, DataLoader, YoloDataset,
+                   device_prefetch, to_device)
+from .data.augment import _resize_pad
+from .data.dataset import center_crop
+from .data.image_ops import (nearest_indices, read_image_rgb, resize_linear,
+                             resize_linear_f32)
+from .loss import (OKS_SIGMA, classification_loss, detection_loss,
+                   e2e_gain_schedule, e2e_wrap, obb_loss, pose_loss,
+                   segmentation_loss)
 from .nn import ArchCfg, YoloNet
 from .ops.boxes import xywh2xyxy
 from .ops.iou import batch_probiou, box_iou, kpt_iou, mask_iou
@@ -64,12 +84,21 @@ from .utils import (EarlyStopping, TrainLogger, ap_per_class,
                     match_predictions, summarize)
 
 
-def _warn_if_truncated(nms_out) -> None:
-    """Surface NMS candidate-pool truncation (see Config.nms_pre_topk)."""
-    if np.asarray(nms_out.truncated).any():
-        print("WARNING: above-threshold NMS candidates exceeded "
-              "Config.nms_pre_topk; low-score boxes may be missing. "
-              "Raise nms_pre_topk or set it to None for exact NMS.")
+def _warn_if_truncated(nms_out, state: Optional[Dict] = None) -> None:
+    """Surface NMS candidate-pool truncation (see Config.nms_pre_topk). With
+    a stream's `state` dict it prints once a stream, and the stream's end
+    prints how many batches were truncated."""
+    if not np.asarray(nms_out.truncated).any():
+        return
+    suffix = ""
+    if state is not None:
+        state["truncated_batches"] = state.get("truncated_batches", 0) + 1
+        if state["truncated_batches"] > 1:
+            return
+        suffix = " (warning once per stream)"
+    print("WARNING: above-threshold NMS candidates exceeded "
+          "Config.nms_pre_topk; low-score boxes may be missing. "
+          "Raise nms_pre_topk or set it to None for exact NMS." + suffix)
 
 
 def _to_host(out):
@@ -88,19 +117,41 @@ def _image_gts(batch, i, scale):
     return batch["cls"][i][gmask].astype(float), gxywh, gxyxy, gmask
 
 
-class Detector:
-    """v5u / v8 / v11 / v12 detection: train, val, predict, load and save
-    (YoloTask's detect task)."""
+def _unletterbox(boxes: np.ndarray, meta) -> list:
+    """Canvas boxes' corners (n, 4) xyxy in the original image's pixels,
+    as Python floats: the letterbox undone and clipped to the image (meta
+    = (ratio, pad left, pad up, image h, image w)); the JAX package's
+    float32 arithmetic, one array op for all rows."""
+    ratio, pl, pu, ih, iw = meta
+    x = np.clip((boxes[:, 0::2] - pl) / ratio, 0, iw)
+    y = np.clip((boxes[:, 1::2] - pu) / ratio, 0, ih)
+    return np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], -1).tolist()
 
-    loss_names: Tuple[str, ...] = ("box_loss", "cls_loss", "dfl_loss")
-    metric_names: Tuple[str, ...] = ("precision(B)", "recall(B)", "mAP50(B)",
-                                     "mAP50-95(B)")
-    val_conf: float = 0.1
-    # the accumulator key and the print label of val's second match (the
-    # masks' or the keypoints'), which the last four metrics summarise
-    extra_match: Optional[Tuple[str, str]] = None
-    # whether the NMS suppresses rotated boxes (the angle the last extra)
-    rotated: bool = False
+
+@contextlib.contextmanager
+def _gc_paused():
+    """The cyclic garbage collector paused while many small result objects
+    are built (a pose row holds K KeyPoints): the collections their
+    allocations trigger would walk the whole heap, most of a b32 pose
+    call's host time."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+class BaseTask:
+    """What every task family shares (the JAX package's BaseTask): the
+    device and compute type, the float32 master network and its folded
+    predict copy, load and save, the train loop and val, whose per-task
+    parts are the hooks _loss_fns, _dataset, _decode_for_val,
+    _new_val_accumulator, _accumulate_val and _finalize_val."""
+
+    loss_names: Tuple[str, ...] = ()
+    metric_names: Tuple[str, ...] = ()
 
     def __init__(self, config: Config, device=None):
         self.config = config
@@ -110,7 +161,7 @@ class Detector:
             version=config.yolo_type.value, size=config.yolo_size.value,
             task=config.task_type.value, nc=config.number_class,
             kpt_num=config.keypoint_num, kpt_dim=config.keypoint_dim,
-            end2end=config.end2end)
+            end2end=config.end2end and config.task_type != TaskType.classify)
         self.net: Optional[YoloNet] = None
         self._fused: Optional[Tuple[tuple, YoloNet]] = None
         # per epoch of the last train(): each step's wall seconds (each
@@ -120,14 +171,21 @@ class Detector:
         self.epoch_stats: List[Dict] = []
 
     # ------------------------------------------------------------- setup
+    def _init_head(self, net: YoloNet) -> None:
+        """The head's prior, applied to a new or partly loaded network."""
+
     def _ensure_variables(self) -> YoloNet:
         """The float32 master network, built on first use from a seeded
-        generator, with the detection bias prior."""
+        generator, with the head's prior (_init_head)."""
         if self.net is None:
             net = YoloNet(self.arch, torch.Generator().manual_seed(0))
-            bias_init(net, self.config.number_class)
+            self._init_head(net)
             self.net = net.to(self.device).eval()
         return self.net
+
+    def _cast_predict(self, net: YoloNet) -> YoloNet:
+        """The predict copy in the compute dtype."""
+        return net.to(self.dtype)
 
     def _predict_variables(self) -> YoloNet:
         """The network predict runs: a copy of the master in the compute
@@ -140,158 +198,51 @@ class Detector:
             pred = copy.deepcopy(net)
             if self.config.fuse_inference:
                 fold_bn(pred)
-            self._fused = (key, pred.to(self.dtype).eval())
+            self._fused = (key, self._cast_predict(pred).eval())
         return self._fused[1]
 
-    # ------------------------------------------------------------ decode
-    @property
-    def _kpt_shape(self) -> Dict[str, int]:
-        """The keypoint arguments of the decodes (used by a pose branch)."""
-        return {"kpt_num": self.arch.kpt_num, "kpt_dim": self.arch.kpt_dim}
+    def _stream(self, images, batch_size: int, prep_one, workers: int,
+                dispatch, unpack):
+        """The predict_stream pipeline: prep_one(image) -> (uint8 (s, s, 3),
+        meta) on a pool of `workers` host threads, batches of batch_size (a
+        partial last batch padded with repeats of its last image; its metas
+        name only the real ones), each copied to the device on a transfer
+        thread (device_prefetch, pinned on CUDA), then depth 2: batch N is
+        dispatched (dispatch(uint8 batch on the device) -> output) before
+        unpack(output of batch N-1, its metas) yields its images' results,
+        in order."""
 
-    def _decode_branch(self, preds):
-        branch = preds["one2one"] if self.arch.end2end else preds["one2many"]
-        dec = decode_inference(branch, end2end=self.arch.end2end,
-                               **self._kpt_shape)
-        if self.arch.end2end:
-            dec = e2e_postprocess(dec.transpose(-1, -2),
-                                  nc=self.config.number_class)
-        return dec
+        def host_batches():
+            with ThreadPoolExecutor(max(1, workers)) as pool:
+                buf, metas = [], []
+                for out, meta in pool.map(prep_one, images):
+                    buf.append(out)
+                    metas.append(meta)
+                    if len(buf) == batch_size:
+                        yield np.stack(buf), metas
+                        buf, metas = [], []
+                if buf:
+                    buf += [buf[-1]] * (batch_size - len(buf))
+                    yield np.stack(buf), metas
 
-    @torch.inference_mode()
-    def _predict_fn(self, net: YoloNet, img: torch.Tensor, conf: float,
-                    iou: float):
-        """uint8 canvas (B, H, W, 3) on the device -> NMSOutput, or the
-        (B, max_det, 6) End2End rows (_predict_output of them). `net` comes
-        from _predict_variables; End2End runs only the one2one towers
-        (Head.cs:117-127)."""
-        nc = self.config.number_class
-        x = img.permute(0, 3, 1, 2).float() / 255.0     # channels-last NCHW
-        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        preds = net(x, skip_one2many=self.arch.end2end)
-        branch = preds["one2one" if self.arch.end2end else "one2many"]
-        if self.arch.end2end:
-            out = self._decode_branch(preds)
-        elif self.config.nms_pre_topk:
-            # select-then-decode: exact, decodes only the top-k anchors
-            dec, trunc = decode_inference_topk(
-                branch, conf_thres=conf, k=self.config.nms_pre_topk,
-                **self._kpt_shape)
-            out = non_max_suppression(dec, conf, iou, nc=nc,
-                                      rotated=self.rotated)
-            out = out._replace(truncated=out.truncated | trunc)
-        else:
-            out = non_max_suppression(self._decode_branch(preds), conf, iou,
-                                      nc=nc, rotated=self.rotated)
-        return self._predict_output(out, branch)
+        def put(item):
+            batch, metas = item
+            return to_device({"images": batch}, self.device)["images"], metas
 
-    def _predict_output(self, out, branch):
-        """What a predict or val decode returns for its rows `out`."""
-        return out
-
-    def _host(self, out):
-        """The host copy of a predict output that _batch_results reads."""
-        return _to_host(out)
-
-    def _nms_of(self, out):
-        """The NMSOutput inside a host predict output (None when e2e)."""
-        return None if self.arch.end2end else out
-
-    # ----------------------------------------------------------- predict
-    def _thresholds(self, predict_threshold, iou_threshold):
-        conf = (self.config.predict_threshold if predict_threshold is None
-                else predict_threshold)
-        iou = (self.config.iou_threshold if iou_threshold is None
-               else iou_threshold)
-        return conf, iou
-
-    def _serve(self, batch: torch.Tensor, shapes, conf, iou
-               ) -> List[List[YoloResult]]:
-        """Result lists of the images (original sizes `shapes`) on the
-        uint8 canvas `batch` (B, H, W, 3)."""
-        out = self._host(self._predict_fn(
-            self._predict_variables(), batch.to(self.device),
-            0.0 if self.arch.end2end else conf, iou))
-        nms = self._nms_of(out)
-        if nms is not None:
-            _warn_if_truncated(nms)
-        return self._results(out, conf, tuple(batch.shape[1:3]), shapes)
-
-    def _results(self, out, conf, hw, shapes) -> List[List[YoloResult]]:
-        """The result lists of a host predict output's images (their own
-        (h, w) `shapes`, canvas hw), built with the cyclic garbage collector
-        paused: they are many small objects (a pose row holds K KeyPoints),
-        and the collections their allocations trigger would walk the whole
-        heap, most of a b32 pose call's host time."""
-        enabled = gc.isenabled()
-        gc.disable()
-        try:
-            return [self._batch_results(out, i, conf, hw, shape)
-                    for i, shape in enumerate(shapes)]
-        finally:
-            if enabled:
-                gc.enable()
-
-    def image_predict(self, image, predict_threshold=None,
-                      iou_threshold=None) -> List[YoloResult]:
-        conf, iou = self._thresholds(predict_threshold, iou_threshold)
-        # a copy: views such as img[..., ::-1] have negative strides
-        img = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
-        return self._serve(pad_to_multiple(img[None]), [img.shape[:2]],
-                           conf, iou)[0]
-
-    def batch_predict(self, images, predict_threshold=None,
-                      iou_threshold=None) -> List[List[YoloResult]]:
-        """N images -> N result lists in one forward. Mixed sizes are padded
-        to a common 32-multiple canvas with 114; boxes are in canvas
-        pixels, as image_predict's."""
-        conf, iou = self._thresholds(predict_threshold, iou_threshold)
-        arrs = [np.asarray(im, np.uint8) for im in images]
-        H = -(-max(a.shape[0] for a in arrs) // 32) * 32
-        W = -(-max(a.shape[1] for a in arrs) // 32) * 32
-        batch = np.full((len(arrs), H, W, 3), 114, np.uint8)
-        for i, a in enumerate(arrs):
-            batch[i, :a.shape[0], :a.shape[1]] = a
-        return self._serve(torch.from_numpy(batch),
-                           [a.shape[:2] for a in arrs], conf, iou)
-
-    def _keep(self, out, i, conf) -> np.ndarray:
-        """Which rows of image i of a host predict or val output are kept:
-        End2End's above conf, NMS's valid ones."""
-        return out[i][:, 4] > conf if self.arch.end2end else out.valid[i]
-
-    def _rows(self, out, i, conf):
-        """(boxes xyxy, scores, classes, extras) host arrays of the kept
-        rows of image i of a host predict or val output."""
-        keep = self._keep(out, i, conf)
-        if self.arch.end2end:
-            rows = out[i][keep]
-            return rows[:, :4], rows[:, 4], rows[:, 5].astype(int), rows[:, 6:]
-        return out.boxes[i][keep], out.scores[i][keep], \
-            out.classes[i][keep], out.extras[i][keep]
-
-    def _batch_results(self, out, i, conf, hw, orig_shape
-                       ) -> List[YoloResult]:
-        """Image i of a host predict output as YoloResults (canvas pixels;
-        hw the canvas, orig_shape the image's own (h, w))."""
-        boxes, scores, classes, _ = self._rows(out, i, conf)
-        return [self._result_from_box(*b, s, c)
-                for b, s, c in zip(boxes, scores, classes)]
-
-    @staticmethod
-    def _result_from_box(x1, y1, x2, y2, score, cls) -> YoloResult:
-        # integer truncation mirrors Detector.cs:52-68
-        x, y = int(x1), int(y1)
-        w, h = int(x2) - x, int(y2) - y
-        return YoloResult(class_id=int(cls), score=float(score),
-                          center_x=x + w // 2, center_y=y + h // 2,
-                          width=w, height=h)
+        pending = []
+        for xb, metas in device_prefetch(host_batches(), put):
+            pending.append((dispatch(xb), metas))
+            if len(pending) >= 2:
+                yield from unpack(*pending.pop(0))
+        while pending:
+            yield from unpack(*pending.pop(0))
 
     # -------------------------------------------------------- checkpoint
     def load_model(self, path: str, skip_nc_not_equal_layers: bool = False):
         """LoadModel semantics (YoloBaseTaskModel.cs:27-114): .bin,
         .safetensors or .pt by name; nc-mismatched head layers skipped on
-        request; End2End towers cloned from one2many."""
+        request (a classify net's linear; a pose net's cv4 towers by K kd),
+        then given the head's prior; End2End towers cloned from one2many."""
         net = self._ensure_variables()
         sd = load_state_dict_file(path)
         skip: Tuple[str, ...] = ()
@@ -304,47 +255,32 @@ class Detector:
         if self.arch.end2end:
             clone_one2one(net)
         if report.skipped:
-            bias_init(net, self.config.number_class)
+            self._init_head(net)
         print(f"Model loaded: {report}")
         return report
 
     def save_weight(self, path: str, dtype=np.float32) -> None:
-        """SaveWeight: LEB128 .bin, one2one excluded (YoloBaseTaskModel.cs:470)."""
+        """SaveWeight: LEB128 .bin, one2one excluded
+        (YoloBaseTaskModel.cs:470)."""
         sd = export_state_dict(self._ensure_variables(), dtype=dtype)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         save_bin(path, sd)
 
     # -------------------------------------------------------------- losses
-    def _task_loss(self):
-        """(the task's loss on one branch, the one2one branch's TAL
-        arguments under End2End)."""
-        return (partial(detection_loss, nc=self.config.number_class),
-                {"tal_topk": 1})
-
     def _loss_fns(self):
-        """(train loss, eval loss). End2End sums one2many (TAL top-k 10)
-        and one2one (_task_loss's top-k)."""
-        base, one2one = self._task_loss()
-        if self.arch.end2end:
-            fn = e2e_wrap(partial(base, tal_topk=10), partial(base, **one2one))
-        else:
-            def fn(preds, batch, **kw):
-                return base(preds["one2many"], batch)
-        return fn, fn
+        """(train loss, eval loss): fn(preds, batch, **loss_kwargs) ->
+        (scalar loss, items)."""
+        raise NotImplementedError
 
     def _loss_kwargs(self, epoch: int) -> Dict:
-        """The End2End o2m / o2o gain schedule, for tasks other than detect:
-        End2End detection sums both branches at gain 1.0, as the JAX package
-        does (yolosharp_tpu/tasks.py:326-330)."""
-        if self.arch.end2end and self.arch.task != "detect":
-            o2m, o2o = e2e_gain_schedule(epoch - 1, self.config.epochs)
-            return {"o2m_gain": o2m, "o2o_gain": o2o}
         return {}
 
     # --------------------------------------------------------------- train
+    def _dataset(self, is_val: bool):
+        raise NotImplementedError
+
     def _make_datasets(self):
-        return (YoloDataset(self.config, is_val=False),
-                YoloDataset(self.config, is_val=True))
+        return self._dataset(False), self._dataset(True)
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict:
         return to_device(batch, self.device)
@@ -466,7 +402,7 @@ class Detector:
         configured val split)."""
         cfg = self.config
         if val_dl is None:
-            ds = YoloDataset(cfg, is_val=True)
+            ds = self._dataset(True)
             val_dl = DataLoader(ds, cfg.batch_size, shuffle=False,
                                 workers=cfg.workers,
                                 max_labels=cfg.max_labels
@@ -488,6 +424,259 @@ class Detector:
         val_items = (items_sum.cpu().numpy() if items_sum is not None
                      else np.zeros(len(self.loss_names)))
         return val_items, self._finalize_val(acc, count)
+
+    def _decode_for_val(self, preds):
+        """The eval network's preds -> what _accumulate_val reads."""
+        raise NotImplementedError
+
+    def _new_val_accumulator(self):
+        raise NotImplementedError
+
+    def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
+        """Add one val batch (host `batch`, device `dbatch`) to `acc`."""
+        raise NotImplementedError
+
+    def _finalize_val(self, acc, count) -> List[float]:
+        """metric_names' values of the accumulated val set."""
+        raise NotImplementedError
+
+
+class Detector(BaseTask):
+    """v5u / v8 / v11 / v12 detection: train, val, predict, predict_stream,
+    load and save (YoloTask's detect task); the base of the segment, pose
+    and OBB tasks."""
+
+    loss_names: Tuple[str, ...] = ("box_loss", "cls_loss", "dfl_loss")
+    metric_names: Tuple[str, ...] = ("precision(B)", "recall(B)", "mAP50(B)",
+                                     "mAP50-95(B)")
+    val_conf: float = 0.1
+    # the accumulator key and the print label of val's second match (the
+    # masks' or the keypoints'), which the last four metrics summarise
+    extra_match: Optional[Tuple[str, str]] = None
+    # whether the NMS suppresses rotated boxes (the angle the last extra)
+    rotated: bool = False
+
+    def _init_head(self, net: YoloNet) -> None:
+        """The detection bias prior (ckpt.fuse.bias_init)."""
+        bias_init(net, self.config.number_class)
+
+    def _dataset(self, is_val: bool):
+        return YoloDataset(self.config, is_val=is_val)
+
+    # ------------------------------------------------------------ decode
+    @property
+    def _kpt_shape(self) -> Dict[str, int]:
+        """The keypoint arguments of the decodes (used by a pose branch)."""
+        return {"kpt_num": self.arch.kpt_num, "kpt_dim": self.arch.kpt_dim}
+
+    def _decode_branch(self, preds):
+        branch = preds["one2one"] if self.arch.end2end else preds["one2many"]
+        dec = decode_inference(branch, end2end=self.arch.end2end,
+                               **self._kpt_shape)
+        if self.arch.end2end:
+            dec = e2e_postprocess(dec.transpose(-1, -2),
+                                  nc=self.config.number_class)
+        return dec
+
+    @torch.inference_mode()
+    def _predict_fn(self, net: YoloNet, img: torch.Tensor, conf: float,
+                    iou: float):
+        """uint8 canvas (B, H, W, 3) on the device -> NMSOutput, or the
+        (B, max_det, 6) End2End rows (_predict_output of them). `net` comes
+        from _predict_variables; End2End runs only the one2one towers
+        (Head.cs:117-127)."""
+        nc = self.config.number_class
+        x = img.permute(0, 3, 1, 2).float() / 255.0     # channels-last NCHW
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        preds = net(x, skip_one2many=self.arch.end2end)
+        branch = preds["one2one" if self.arch.end2end else "one2many"]
+        if self.arch.end2end:
+            out = self._decode_branch(preds)
+        elif self.config.nms_pre_topk:
+            # select-then-decode: exact, decodes only the top-k anchors
+            dec, trunc = decode_inference_topk(
+                branch, conf_thres=conf, k=self.config.nms_pre_topk,
+                **self._kpt_shape)
+            out = non_max_suppression(dec, conf, iou, nc=nc,
+                                      rotated=self.rotated)
+            out = out._replace(truncated=out.truncated | trunc)
+        else:
+            out = non_max_suppression(self._decode_branch(preds), conf, iou,
+                                      nc=nc, rotated=self.rotated)
+        return self._predict_output(out, branch)
+
+    def _predict_output(self, out, branch):
+        """What a predict or val decode returns for its rows `out`."""
+        return out
+
+    def _host(self, out):
+        """The host copy of a predict output that _batch_results reads."""
+        return _to_host(out)
+
+    def _nms_of(self, out):
+        """The NMSOutput inside a host predict output (None when e2e)."""
+        return None if self.arch.end2end else out
+
+    # ----------------------------------------------------------- predict
+    def _thresholds(self, predict_threshold, iou_threshold):
+        conf = (self.config.predict_threshold if predict_threshold is None
+                else predict_threshold)
+        iou = (self.config.iou_threshold if iou_threshold is None
+               else iou_threshold)
+        return conf, iou
+
+    def _serve(self, batch: torch.Tensor, shapes, conf, iou
+               ) -> List[List[YoloResult]]:
+        """Result lists of the images (original sizes `shapes`) on the
+        uint8 canvas `batch` (B, H, W, 3)."""
+        out = self._host(self._predict_fn(
+            self._predict_variables(), batch.to(self.device),
+            0.0 if self.arch.end2end else conf, iou))
+        nms = self._nms_of(out)
+        if nms is not None:
+            _warn_if_truncated(nms)
+        return self._results(out, conf, tuple(batch.shape[1:3]), shapes)
+
+    def _results(self, out, conf, hw, shapes) -> List[List[YoloResult]]:
+        """The result lists of a host predict output's images (their own
+        (h, w) `shapes`, canvas hw), built with the garbage collector
+        paused."""
+        with _gc_paused():
+            return [self._batch_results(out, i, conf, hw, shape)
+                    for i, shape in enumerate(shapes)]
+
+    def image_predict(self, image, predict_threshold=None,
+                      iou_threshold=None) -> List[YoloResult]:
+        conf, iou = self._thresholds(predict_threshold, iou_threshold)
+        # a copy: views such as img[..., ::-1] have negative strides
+        img = torch.from_numpy(np.ascontiguousarray(image, np.uint8))
+        return self._serve(pad_to_multiple(img[None]), [img.shape[:2]],
+                           conf, iou)[0]
+
+    def batch_predict(self, images, predict_threshold=None,
+                      iou_threshold=None) -> List[List[YoloResult]]:
+        """N images -> N result lists in one forward. Mixed sizes are padded
+        to a common 32-multiple canvas with 114; boxes are in canvas
+        pixels, as image_predict's."""
+        conf, iou = self._thresholds(predict_threshold, iou_threshold)
+        arrs = [np.asarray(im, np.uint8) for im in images]
+        H = -(-max(a.shape[0] for a in arrs) // 32) * 32
+        W = -(-max(a.shape[1] for a in arrs) // 32) * 32
+        batch = np.full((len(arrs), H, W, 3), 114, np.uint8)
+        for i, a in enumerate(arrs):
+            batch[i, :a.shape[0], :a.shape[1]] = a
+        return self._serve(torch.from_numpy(batch),
+                           [a.shape[:2] for a in arrs], conf, iou)
+
+    def _keep(self, out, i, conf) -> np.ndarray:
+        """Which rows of image i of a host predict or val output are kept:
+        End2End's above conf, NMS's valid ones."""
+        return out[i][:, 4] > conf if self.arch.end2end else out.valid[i]
+
+    def _rows(self, out, i, conf):
+        """(boxes xyxy, scores, classes, extras) host arrays of the kept
+        rows of image i of a host predict or val output."""
+        keep = self._keep(out, i, conf)
+        if self.arch.end2end:
+            rows = out[i][keep]
+            return rows[:, :4], rows[:, 4], rows[:, 5].astype(int), rows[:, 6:]
+        return out.boxes[i][keep], out.scores[i][keep], \
+            out.classes[i][keep], out.extras[i][keep]
+
+    def _batch_results(self, out, i, conf, hw, orig_shape
+                       ) -> List[YoloResult]:
+        """Image i of a host predict output as YoloResults (canvas pixels;
+        hw the canvas, orig_shape the image's own (h, w))."""
+        boxes, scores, classes, _ = self._rows(out, i, conf)
+        return [self._result_from_box(*b, s, c)
+                for b, s, c in zip(boxes, scores, classes)]
+
+    @staticmethod
+    def _result_from_box(x1, y1, x2, y2, score, cls) -> YoloResult:
+        # integer truncation mirrors Detector.cs:52-68
+        x, y = int(x1), int(y1)
+        w, h = int(x2) - x, int(y2) - y
+        return YoloResult(class_id=int(cls), score=float(score),
+                          center_x=x + w // 2, center_y=y + h // 2,
+                          width=w, height=h)
+
+    # ------------------------------------------------------------ stream
+    def predict_stream(self, images, batch_size: int = 16,
+                       imgsz: Optional[int] = None, predict_threshold=None,
+                       iou_threshold=None, workers: int = 4):
+        """Pipelined streaming inference (the JAX package's predict_stream,
+        single device): a generator over an iterable of uint8 RGB images
+        that yields one List[YoloResult] per image, in order, in the
+        ORIGINAL image's pixels. Each image is letterboxed to s x s (s =
+        imgsz or Config.image_size, rounded up to a multiple of 32) on a
+        pool of `workers` host threads; batches of batch_size run through
+        _stream's transfer thread and depth-2 pipeline. NMS truncation is
+        reported once a stream, and counted at its end."""
+        conf, iou = self._thresholds(predict_threshold, iou_threshold)
+        net = self._predict_variables()
+        s = -(-(imgsz or self.config.image_size) // 32) * 32
+        e2e = self.arch.end2end
+
+        def pack_one(im):
+            im = np.asarray(im, np.uint8)
+            ih, iw = im.shape[:2]
+            pl, pu, out = _resize_pad(im, s, s, s, s, 114)
+            return out, (min(s / iw, s / ih), pl, pu, ih, iw)
+
+        def dispatch(xb):
+            return self._predict_fn(net, xb, 0.0 if e2e else conf, iou)
+
+        tstate: Dict = {}
+
+        def unpack(out, metas):
+            out = self._host(out)
+            nms = self._nms_of(out)
+            if nms is not None:
+                _warn_if_truncated(nms, tstate)
+            with _gc_paused():
+                results = [self._stream_results(out, i, conf, meta)
+                           for i, meta in enumerate(metas)]
+            yield from results
+
+        yield from self._stream(images, batch_size, pack_one, workers,
+                                dispatch, unpack)
+        if tstate.get("truncated_batches", 0) > 1:
+            print(f"NOTE: NMS candidate truncation occurred in "
+                  f"{tstate['truncated_batches']} batches of this stream.")
+
+    def _stream_results(self, out, i, conf, meta) -> List[YoloResult]:
+        """Image i of a host stream output as YoloResults in the original
+        image's pixels (meta: ratio, pad left, pad up, h, w)."""
+        boxes, scores, classes, _ = self._rows(out, i, conf)
+        return [self._result_from_box(*b, sc, c) for b, sc, c in
+                zip(_unletterbox(boxes, meta), scores, classes)]
+
+    # -------------------------------------------------------------- losses
+    def _task_loss(self):
+        """(the task's loss on one branch, the one2one branch's TAL
+        arguments under End2End)."""
+        return (partial(detection_loss, nc=self.config.number_class),
+                {"tal_topk": 1})
+
+    def _loss_fns(self):
+        """(train loss, eval loss). End2End sums one2many (TAL top-k 10)
+        and one2one (_task_loss's top-k)."""
+        base, one2one = self._task_loss()
+        if self.arch.end2end:
+            fn = e2e_wrap(partial(base, tal_topk=10), partial(base, **one2one))
+        else:
+            def fn(preds, batch, **kw):
+                return base(preds["one2many"], batch)
+        return fn, fn
+
+    def _loss_kwargs(self, epoch: int) -> Dict:
+        """The End2End o2m / o2o gain schedule, for tasks other than detect:
+        End2End detection sums both branches at gain 1.0, as the JAX package
+        does (yolosharp_tpu/tasks.py:326-330)."""
+        if self.arch.end2end and self.arch.task != "detect":
+            o2m, o2o = e2e_gain_schedule(epoch - 1, self.config.epochs)
+            return {"o2m_gain": o2m, "o2o_gain": o2o}
+        return {}
 
     def _decode_for_val(self, preds):
         dec = self._decode_branch(preds)
@@ -612,6 +801,30 @@ class Segmenter(Detector):
             results.append(r)
         return results
 
+    def _stream_results(self, out, i, conf, meta) -> List[YoloResult]:
+        """Image i's rows in the original image's pixels, each mask as the
+        JAX package returns it: the canvas mask's content region, float32,
+        resized back to the image (h, w) by resize_linear_f32 (cv2's
+        INTER_LINEAR), on the device."""
+        ratio, pl, pu, ih, iw = meta
+        boxes, scores, classes, coeffs = self._rows(out[self._rows_key], i,
+                                                    conf)
+        if not len(boxes):
+            return []
+        s = out["proto"].shape[-1] * 4      # the proto is canvas / 4
+        masks = self._masks(out["proto"][i], coeffs, boxes, (s, s), True)
+        nw, nh = int(iw * ratio), int(ih * ratio)
+        # the content region of every row's canvas mask, resized back on the
+        # proto's device, copied to the host once
+        masks = resize_linear_f32(masks[:, pu:pu + nh, pl:pl + nw], ih,
+                                  iw).cpu().numpy()
+        results = []
+        for j, b in enumerate(_unletterbox(boxes, meta)):
+            r = self._result_from_box(*b, scores[j], classes[j])
+            r.mask = masks[j]
+            results.append(r)
+        return results
+
     def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
         """Per image: box IoU and mask IoU of every (gt, prediction) pair,
         the predicted masks at proto resolution against the ground truth's
@@ -686,6 +899,26 @@ class PoseDetector(Detector):
             results.append(r)
         return results
 
+    def _stream_results(self, out, i, conf, meta) -> List[YoloResult]:
+        """Image i's rows in the original image's pixels, each keypoint's
+        x and y un-letterboxed and clipped to the image."""
+        ratio, pl, pu, ih, iw = meta
+        boxes, scores, classes, kpts = self._rows(out, i, conf)
+        K, kd = self.arch.kpt_num, self.arch.kpt_dim
+        pts = kpts.reshape(len(boxes), K, kd)
+        # Python floats in one conversion each, as _batch_results
+        xs = np.clip((pts[..., 0] - pl) / ratio, 0, iw).tolist()
+        ys = np.clip((pts[..., 1] - pu) / ratio, 0, ih).tolist()
+        vis = (pts[..., 2].tolist() if kd == 3
+               else np.ones((len(boxes), K)).tolist())
+        results = []
+        for j, b in enumerate(_unletterbox(boxes, meta)):
+            r = self._result_from_box(*b, scores[j], classes[j])
+            r.keypoints = [KeyPoint(x, y, v)
+                           for x, y, v in zip(xs[j], ys[j], vis[j])]
+            results.append(r)
+        return results
+
     def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
         """Per image: the box IoU and the OKS of every (gt, prediction)
         pair, the OKS over the gt's area x 0.53 with the COCO sigmas when
@@ -756,6 +989,21 @@ class Obber(Detector):
                            radian=float(b[4]))
                 for b, sc, c in zip(boxes, scores, classes)]
 
+    def _stream_results(self, out, i, conf, meta) -> List[YoloResult]:
+        """Image i's rotated rows in the original image's pixels: centre and
+        size scale by 1 / ratio after the pad (not clipped), the angle is
+        unchanged."""
+        ratio, pl, pu, _, _ = meta
+        boxes, scores, classes = self._rboxes(out, i, conf)
+        xywh = np.stack([(boxes[:, 0] - pl) / ratio,
+                         (boxes[:, 1] - pu) / ratio,
+                         boxes[:, 2] / ratio, boxes[:, 3] / ratio], -1)
+        return [YoloResult(class_id=int(c), score=float(sc),
+                           center_x=int(b[0]), center_y=int(b[1]),
+                           width=int(b[2]), height=int(b[3]), radian=float(r))
+                for b, r, sc, c in zip(xywh.tolist(), boxes[:, 4].tolist(),
+                                       scores, classes)]
+
     def _val_iou(self, batch, dbatch, decoded) -> torch.Tensor:
         """The probiou (B, M, K) of every (ground truth, prediction) pair:
         the ground truths' normalised xywh scaled to the canvas, their angle
@@ -770,21 +1018,122 @@ class Obber(Detector):
         return batch_probiou(gt, pred.float())
 
 
+class Classifier(BaseTask):
+    """v5u / v8 / v11 / v12 classification (YoloTask's classify task, the
+    JAX package's Classifier): the detect trunk cut before its neck (v12
+    takes v11's) and the Classify head; cross-entropy training on
+    ClassificationDataset, val's top1 / top5 of the float32 softmax, and
+    each request's top-5 classes with their scores. End2End does not
+    apply; the thresholds are taken and unused."""
+
+    loss_names = ("cls_loss",)
+    metric_names = ("top1", "top5")
+
+    def _cast_predict(self, net: YoloNet) -> YoloNet:
+        """The predict copy in the compute dtype but for the head's Linear,
+        which stays float32 (the JAX head multiplies by its float32
+        kernel)."""
+        net = net.to(self.dtype)
+        net.model[-1].linear.float()
+        return net
+
+    def _loss_fns(self):
+        def fn(preds, batch, **kw):
+            return classification_loss(preds, batch)
+        return fn, fn
+
+    def _dataset(self, is_val: bool):
+        return ClassificationDataset(self.config, is_val=is_val)
+
+    # ----------------------------------------------------------------- val
+    def _decode_for_val(self, preds):
+        return torch.softmax(preds["cls"].float(), -1)
+
+    def _new_val_accumulator(self):
+        return {"top1": 0, "top5": 0, "n": 0}
+
+    def _accumulate_val(self, acc, batch, dbatch, decoded) -> None:
+        probs = decoded.cpu().numpy()
+        labels = np.asarray(batch["cls"]).reshape(-1)
+        top5 = np.argsort(-probs, -1)[:, :5]
+        acc["top1"] += int((top5[:, 0] == labels).sum())
+        acc["top5"] += int((top5 == labels[:, None]).any(-1).sum())
+        acc["n"] += len(labels)
+
+    def _finalize_val(self, acc, count) -> List[float]:
+        n = max(acc["n"], 1)
+        top1, top5 = acc["top1"] / n, acc["top5"] / n
+        print(f"{'All':>10}{count:>10}{top1:>10.3f}{top5:>10.3f}")
+        return [top1, top5]
+
+    # ------------------------------------------------------------- predict
+    @torch.inference_mode()
+    def _probs(self, net: YoloNet, img: torch.Tensor) -> torch.Tensor:
+        """uint8 (B, s, s, 3) on the device -> (B, nc) float32 softmax."""
+        x = img.permute(0, 3, 1, 2).float() / 255.0     # channels-last NCHW
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        return torch.softmax(net(x)["cls"].float(), -1)
+
+    @staticmethod
+    def _top5(p: np.ndarray) -> List[YoloResult]:
+        order = np.argsort(-p)
+        return [YoloResult(class_id=int(i), score=float(p[i]))
+                for i in order[:5]]
+
+    def _classify(self, batch: np.ndarray) -> List[List[YoloResult]]:
+        probs = self._probs(self._predict_variables(),
+                            torch.from_numpy(batch).to(self.device))
+        return [self._top5(p) for p in probs.cpu().numpy()]
+
+    def image_predict(self, image, predict_threshold=None,
+                      iou_threshold=None) -> List[YoloResult]:
+        """The image squashed to s x s (resize_linear, as the JAX package's
+        cv2.resize), its top 5."""
+        s = self.config.image_size
+        return self._classify(
+            resize_linear(np.asarray(image, np.uint8), s, s)[None])[0]
+
+    def batch_predict(self, images, predict_threshold=None,
+                      iou_threshold=None) -> List[List[YoloResult]]:
+        """N images, each squashed to s x s, -> N top-5 lists in one
+        forward."""
+        s = self.config.image_size
+        return self._classify(np.stack(
+            [resize_linear(np.asarray(im, np.uint8), s, s) for im in images]))
+
+    def predict_stream(self, images, batch_size: int = 16,
+                       imgsz: Optional[int] = None, predict_threshold=None,
+                       iou_threshold=None, workers: int = 4):
+        """Pipelined streaming classification: one top-5 List[YoloResult]
+        per image, in order. Each image takes the val transform (the short
+        side to s, then the centre crop: dataset.center_crop) on the host
+        pool, then _stream's transfer thread and depth-2 pipeline."""
+        net = self._predict_variables()
+        s = imgsz or self.config.image_size
+
+        def prep_one(im):
+            return center_crop(np.asarray(im, np.uint8), s), None
+
+        def unpack(probs, metas):
+            for p in probs.cpu().numpy()[:len(metas)]:
+                yield self._top5(p)
+
+        yield from self._stream(images, batch_size, prep_one, workers,
+                                partial(self._probs, net), unpack)
+
+
 _TASKS = {TaskType.detect: Detector, TaskType.segment: Segmenter,
-          TaskType.pose: PoseDetector, TaskType.obb: Obber}
+          TaskType.pose: PoseDetector, TaskType.obb: Obber,
+          TaskType.classify: Classifier}
 
 
 class YoloTask:
-    """Public facade (Models/YoloTask.cs:10-107): train, val, predict, load
-    and save, for the detect, segment, pose and obb tasks (classify raises
-    NotImplementedError). device: None means cuda (raises where there is
-    none); pass "cpu" to run the plain versions on the CPU."""
+    """Public facade (Models/YoloTask.cs:10-107): train, val, predict,
+    predict_stream, load and save, for the detect, segment, pose, obb and
+    classify tasks. device: None means cuda (raises where there is none);
+    pass "cpu" to run the plain versions on the CPU."""
 
     def __init__(self, config: Config, device=None):
-        if config.task_type not in _TASKS:
-            raise NotImplementedError(
-                f"the torch port has the detect, segment, pose and obb tasks "
-                f"so far, not {config.task_type.value}")
         self.config = config
         self.task = _TASKS[config.task_type](config, device)
 
@@ -811,3 +1160,16 @@ class YoloTask:
                       iou_threshold: Optional[float] = None):
         return self.task.batch_predict(images, predict_threshold,
                                        iou_threshold)
+
+    def predict_stream(self, images, batch_size: int = 16,
+                       imgsz: Optional[int] = None,
+                       predict_threshold: Optional[float] = None,
+                       iou_threshold: Optional[float] = None,
+                       workers: int = 4):
+        """Pipelined streaming inference (all five task families): yields
+        one List[YoloResult] per input image, original-image pixels for
+        detect / segment / obb / pose, the top-5 classes for classify."""
+        return self.task.predict_stream(
+            images, batch_size=batch_size, imgsz=imgsz,
+            predict_threshold=predict_threshold,
+            iou_threshold=iou_threshold, workers=workers)

@@ -85,8 +85,11 @@ def make_lr_schedule(*, nc: int, epochs: int, steps_per_epoch: int,
 def param_group(name: str) -> str:
     """bias | bn | weight for a parameter's state-dict name: every bias,
     then the BN scales, then the rest (conv weights, A2C2f's gamma); the
-    disjoint split of the JAX package's param_group."""
-    if name.endswith(".bias"):
+    disjoint split of the JAX package's param_group. The classify head's
+    Linear bias is a flax leaf named "linear.bias", not "bias", so the JAX
+    labeller puts it with the weights (decayed, no bias warm-up): so does
+    this."""
+    if name.endswith(".bias") and not name.endswith(".linear.bias"):
         return "bias"
     if name.endswith(".bn.weight"):
         return "bn"
