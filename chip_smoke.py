@@ -17,7 +17,8 @@ rotated boxes, v8s-cls on the AutoAugment stack.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit; build every CUDA kernel from the
-     sources in yolosharp_tpu_torch/csrc (one nvcc per source, in parallel).
+     sources in yolosharp_tpu_torch/csrc (one nvcc per source, in
+     parallel), and beside them the host C++ image decoders (c++).
   2. each kernel against its plain PyTorch version at every shape any
      path gives it (recorded with forward hooks on the folded nets of
      every path: 640x640 for the convs and 224x224 for the classify
@@ -257,6 +258,26 @@ and a shape group of their own):
      letterboxed canvases (classify: the same images) in calls of 16 and
      beside the letterbox and batch_predict in the caller's thread, and
      the path's kernels launched, no other.
+JPEG input (the host decoder of yolosharp_tpu_torch/csrc/jpeg_decode.cpp,
+built with c++ in phase 1 beside the CUDA kernels, as is the PNG row
+unfilter of csrc/png_unfilter.cpp that every PNG phase reads through):
+  14a. every committed fixture of tests/data_torch/jpeg read by
+     read_image_rgb: the SHA-256 of its RGB bytes equal to its manifest's
+     (cv2.imread's, where the fixtures were written); the progressive one
+     raises. The host decode ms of each (the median of 5) and of the
+     641x479 4:2:0 one (the median of 50).
+  14b. v8s-640 detect, bf16, phase 3's seeded weights: image_predict of
+     the 641x479 fixture's path (equal to image_predict of its decoded
+     array) and batch_predict of 32 images decoded from the fixtures
+     (cycled), conv3x3 s1 / s2 and c2f_fused launched and no other
+     kernel; then YoloTask.train() of v8s, 640x640, batch 16, 2 epochs on
+     a JPEG detect set of the fixtures (those of 32 px a side or more),
+     listed by a txt file 128 times over (labels this phase writes), and
+     val on 16 of them: per epoch the step ms, img/s, the loader-wait
+     share; finite losses.
+  14c. YoloTask.train() of v8s-cls (nc=10), 224x224, batch 32, 1 epoch on
+     a folder-per-class JPEG set of fixture copies (16 train and 2 val a
+     class): the decode on every get; the step ms and loader-wait share.
 Each phase prints its wall seconds.
 
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
@@ -3085,6 +3106,198 @@ def phase_stream(dev, states, confs):
     return launches
 
 
+# ------------------------------------------------------------------ JPEG
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data_torch", "jpeg")
+JPEG_BIG = "s420_q75_641x479.jpg"
+JPEG_LIST = 128           # entries of 14b's train list (the fixtures cycled)
+JPEG_CLS_TRAIN = 16       # 14c's train images a class
+
+
+def jpeg_fixtures():
+    """The committed fixtures' manifest: name -> entry."""
+    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
+        return json.load(f)
+
+
+def phase_jpeg_decode(tag):
+    """Phase 14a: every fixture read by read_image_rgb, its RGB bytes'
+    SHA-256 against the manifest; the host decode ms. Returns the names
+    of the decodable fixtures of 32 px a side or more."""
+    import hashlib
+
+    from yolosharp_tpu_torch.data.image_ops import read_image_rgb
+
+    print(f"phase 14a: the JPEG fixtures of {JPEG_DIR} through "
+          f"read_image_rgb (host decode, {tag})", flush=True)
+    usable = []
+    for name, entry in sorted(jpeg_fixtures().items()):
+        path = os.path.join(JPEG_DIR, name)
+        if entry["progressive"]:
+            try:
+                read_image_rgb(path)
+            except ValueError as err:
+                print(f"  {name}: raises as it must: {err}", flush=True)
+                continue
+            raise SystemExit(f"{name}: a progressive JPEG did not raise")
+        reps = 50 if name == JPEG_BIG else 5
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            img = read_image_rgb(path)
+            times.append(time.perf_counter() - t)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != entry["shape"] or digest != entry["sha256"]:
+            raise SystemExit(f"{name}: decoded {img.shape} {digest}, the "
+                             f"manifest (cv2) has {entry['shape']} "
+                             f"{entry['sha256']}")
+        print(f"  {name}: {entry['bytes']} bytes, {img.shape[1]}x"
+              f"{img.shape[0]} {entry['sampling']}, SHA-256 equal to cv2's; "
+              f"host decode {np.median(times) * 1e3:.3f} ms (median of "
+              f"{reps}; {tag})", flush=True)
+        if min(img.shape[:2]) >= 32:
+            usable.append(name)
+    return usable
+
+
+def write_jpeg_detect_set(root, names, seed=15):
+    """root/images/{train,val}/<fixture> copies of the fixtures with 1-3
+    random boxes each in root/labels, and root/train.txt listing them
+    JPEG_LIST times over (cycled), root/val.txt 16 times."""
+    import shutil
+
+    rng = np.random.default_rng(seed)
+    for split in ("train", "val"):
+        os.makedirs(os.path.join(root, "images", split))
+        os.makedirs(os.path.join(root, "labels", split))
+        for name in names:
+            shutil.copy(os.path.join(JPEG_DIR, name),
+                        os.path.join(root, "images", split, name))
+            rows = []
+            for _ in range(int(rng.integers(1, 4))):
+                bw, bh = rng.uniform(0.1, 0.6, 2)
+                cx = rng.uniform(bw / 2, 1 - bw / 2)
+                cy = rng.uniform(bh / 2, 1 - bh / 2)
+                rows.append(f"{rng.integers(80)} {cx:.6f} {cy:.6f} "
+                            f"{bw:.6f} {bh:.6f}")
+            with open(os.path.join(root, "labels", split,
+                                   name[:-4] + ".txt"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+        n = JPEG_LIST if split == "train" else 16
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(f"./images/{split}/{names[i % len(names)]}"
+                              for i in range(n)) + "\n")
+
+
+def write_jpeg_cls_set(root, names):
+    """root/jpeg_cls/{train,val}/class{c}/<i>.jpg: copies of the fixtures
+    (cycled), JPEG_CLS_TRAIN train and 2 val a class."""
+    import shutil
+
+    k = 0
+    for c in range(CLS_CLASSES):
+        for split, n in (("train", JPEG_CLS_TRAIN), ("val", 2)):
+            d = os.path.join(root, "jpeg_cls", split, f"class{c}")
+            os.makedirs(d)
+            for i in range(n):
+                shutil.copy(os.path.join(JPEG_DIR, names[k % len(names)]),
+                            os.path.join(d, f"{i}.jpg"))
+                k += 1
+
+
+def phase_jpeg(dev, root, state, conf, tag):
+    """Phase 14: JPEG input on the card (the module docstring's 14a-14c).
+    Returns (launches of 14b's requests, launches of its training)."""
+    from yolosharp_tpu_torch import YoloTask
+    from yolosharp_tpu_torch.data.image_ops import read_image_rgb
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    names = phase_jpeg_decode(tag)
+    print("phase 14b: v8s-640 bf16 serves JPEG files", flush=True)
+    task = build_tasks(dev, "v8", state)[False]
+    big = os.path.join(JPEG_DIR, JPEG_BIG)
+    reset_launch_counts()
+    by_path = task.image_predict(big, conf)
+    images = [read_image_rgb(os.path.join(JPEG_DIR, names[i % len(names)]))
+              for i in range(SERVED_BATCH)]
+    t = time.perf_counter()
+    results = task.batch_predict(images, conf)
+    call = time.perf_counter() - t
+    served = launch_counts()
+    by_array = task.image_predict(read_image_rgb(big), conf)
+    rows = [(r.class_id, r.score, r.center_x, r.center_y, r.width, r.height)
+            for r in by_path]
+    if rows != [(r.class_id, r.score, r.center_x, r.center_y, r.width,
+                 r.height) for r in by_array]:
+        raise SystemExit("image_predict of the JPEG path and of its decoded "
+                         "array disagree")
+    boxes = np.array([[r.center_x, r.center_y, r.width, r.height]
+                      for rs in results for r in rs], np.float64)
+    if len(results) != SERVED_BATCH or not boxes.size \
+            or not np.isfinite(boxes).all():
+        raise SystemExit(f"JPEG batch_predict: {len(results)} lists, "
+                         f"{len(boxes)} rows")
+    print(f"  image_predict({JPEG_BIG}): {len(by_path)} rows, equal to the "
+          f"decoded array's; batch_predict of {SERVED_BATCH} decoded "
+          f"fixtures: {len(boxes)} rows, {call * 1e3:.1f} ms; kernel "
+          f"launches {served}", flush=True)
+    check_path_launches("v8", served, "v8s JPEG predict")
+
+    write_jpeg_detect_set(root, names)
+    print(f"phase 14b: YoloTask.train() of v8s, {TRAIN_SIZE}x{TRAIN_SIZE}, "
+          f"batch {TRAIN_BATCH}, bf16, 2 epochs on {JPEG_LIST} listed JPEG "
+          f"files ({len(names)} fixtures cycled), val on 16", flush=True)
+    from yolosharp_tpu_torch import Config, YoloSize, YoloType
+
+    out = os.path.join(root, "run_jpeg")
+    cfg = Config(root_path=root, train_data_path="train.txt",
+                 val_data_path="val.txt", yolo_type=YoloType.v8,
+                 yolo_size=YoloSize.s, number_class=80,
+                 image_size=TRAIN_SIZE, batch_size=TRAIN_BATCH, epochs=2,
+                 output_path=out)
+    t = time.perf_counter()
+    trainer = YoloTask(cfg, device=dev)
+    reset_launch_counts()
+    trainer.train()
+    train_counts = launch_counts()
+    for st in trainer.task.epoch_stats:
+        print("  " + epoch_line(st, f"{tag}: v8s JPEG"), flush=True)
+    items, metrics = trainer.val()
+    with open(os.path.join(out, "log.csv")) as f:
+        logged = list(csv.reader(f))
+    head = [h.strip() for h in logged[0]]
+    losses = [float(v) for r in logged[1:] for h, v in zip(head, r)
+              if "loss" in h] + [float(v) for v in items]
+    print(f"  train() and val {time.perf_counter() - t:.1f} s; val loss "
+          f"items {[round(float(v), 4) for v in items]}, metrics "
+          f"{[round(float(m), 4) for m in metrics]}; kernel launches in "
+          f"training {train_counts}", flush=True)
+    steps = JPEG_LIST // TRAIN_BATCH
+    if [len(st["step_s"]) for st in trainer.task.epoch_stats] != [steps] * 2 \
+            or not np.isfinite(losses).all():
+        raise SystemExit(f"JPEG train(): steps "
+                         f"{[len(st['step_s']) for st in trainer.task.epoch_stats]}"
+                         f", losses {losses}")
+
+    write_jpeg_cls_set(root, names)
+    print(f"phase 14c: YoloTask.train() of {CLS} (nc={CLS_CLASSES}), "
+          f"{CLS_CANVAS[0]}x{CLS_CANVAS[1]}, batch {CLS_TRAIN_BATCH}, bf16, 1 "
+          f"epoch on a JPEG folder set ({CLS_CLASSES * JPEG_CLS_TRAIN} train "
+          f"images)", flush=True)
+    t = time.perf_counter()
+    cls = YoloTask(_cls_train_config(
+        os.path.join(root, "jpeg_cls"), epochs=1,
+        output_path=os.path.join(root, "run_jpeg_cls")), device=dev)
+    cls.train()
+    st = cls.task.epoch_stats[0]
+    print("  " + epoch_line(st, f"{tag}: {CLS} JPEG", CLS_TRAIN_BATCH),
+          flush=True)
+    print(f"  train() {time.perf_counter() - t:.1f} s", flush=True)
+    if len(st["step_s"]) != CLS_CLASSES * JPEG_CLS_TRAIN // CLS_TRAIN_BATCH:
+        raise SystemExit(f"{CLS} JPEG train(): {len(st['step_s'])} steps")
+    return served, train_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3102,9 +3315,14 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     names = ("conv3x3", "c2f", "attention")
-    with ThreadPoolExecutor(len(names)) as pool:
+    host_names = ("jpeg_decode", "png_unfilter")
+    with ThreadPoolExecutor(len(names) + len(host_names)) as pool:
+        host = [pool.submit(build.load_host, n) for n in host_names]
         list(pool.map(build.load, names))
-    print(f"phase 1: built kernels {names} from {build.SRC_DIR} in "
+        for h in host:
+            h.result()
+    print(f"phase 1: built kernels {names} and the host decoders "
+          f"{host_names} from {build.SRC_DIR} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in build.build_logs.items():
         print(f"  nvcc {name}:\n" + "\n".join(
@@ -3215,6 +3433,11 @@ def main() -> int:
         add(served, launches)
         timed("12d", phase_cls_val, dev, root, best)
     add(timed("13", phase_stream, dev, states, confs), launches)
+    with tempfile.TemporaryDirectory() as root:
+        jpeg_served, jpeg_train = timed("14", phase_jpeg, dev, root,
+                                        states["v8"], confs["v8"], tag)
+        add(jpeg_served, launches)
+        add(jpeg_train, train_launches)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules

@@ -30,11 +30,6 @@ from yolosharp_tpu_torch.data.labels import LabelRecord, bucket_shapes
 from yolosharp_tpu_torch.types import ImageProcessType
 from yolosharp_tpu_torch.utils import metrics
 
-# HSV round trip: RGB->HSV is OpenCV's integer arithmetic exactly; HSV->RGB
-# is its float formula rounding x * 255, as OpenCV's per-pixel loop does
-# (one level off at 1.2e-5 of all (h, s, v)); cv2 5.0's vectorised loop,
-# which wide images take, truncates instead, one level off at ~1/3
-HSV_LEVELS = 1
 
 
 def _chunk(kind, data):
@@ -244,7 +239,9 @@ def test_resize_linear_within_one_level_of_cv2(src, dst):
 
 def test_hsv_pair_matches_opencv():
     """Every 8-bit RGB colour to HSV exactly; HSV to RGB over every valid
-    (h, s, v) within HSV_LEVELS."""
+    (h, s, v) exactly, in rows of one pixel (cv2's scalar loop, which
+    rounds), of 1280 (its vector loop, which truncates) and of 45 (both:
+    the last 45 % 32 pixels of a row take the scalar loop)."""
     axes = np.meshgrid(np.arange(256), np.arange(256), np.arange(256),
                        indexing="ij")
     rgb = np.stack(axes, -1).reshape(-1, 1, 3).astype(np.uint8)
@@ -252,13 +249,15 @@ def test_hsv_pair_matches_opencv():
                                   cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV))
     hsv = rgb.copy()
     hsv = hsv[hsv[..., 0] < 180].reshape(-1, 1, 3)
-    got = hsv_to_rgb_u8(hsv).astype(int)
-    assert np.abs(got - cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)).max() \
-        <= HSV_LEVELS
+    for w in (1, 1280, 45):
+        rows = hsv[:len(hsv) // w * w].reshape(-1, w, 3)
+        np.testing.assert_array_equal(
+            hsv_to_rgb_u8(rows), cv2.cvtColor(rows, cv2.COLOR_HSV2RGB),
+            err_msg=str(w))
 
 
 def test_random_hsv_and_flips_match_jax():
-    """Same rng draws, same boxes, pixels within HSV_LEVELS."""
+    """Same rng draws, same boxes, same pixels."""
     rng_img = np.random.default_rng(5)
     img = _photo(rng_img, 48, 64, 3)
     boxes = np.array([[3, 4, 30, 40], [10, 0, 64, 12]], np.float32)
@@ -272,7 +271,7 @@ def test_random_hsv_and_flips_match_jax():
                                  np.random.default_rng(seed))
         want = jax_augment.random_hsv(jrec, 0.015, 0.7, 0.4,
                                       np.random.default_rng(seed))
-        assert np.abs(got.img.astype(int) - want.img).max() <= HSV_LEVELS
+        np.testing.assert_array_equal(got.img, want.img)
     for fn in ("flip_lr", "flip_ud"):
         got, want = getattr(augment, fn)(rec), getattr(jax_augment, fn)(jrec)
         np.testing.assert_array_equal(got.img, want.img)
@@ -300,7 +299,7 @@ def _configs(root, **kw):
 def test_dataset_and_loader_match_jax(dataset_root, is_val):
     """Two epochs of shuffled train batches (letterbox, flips, HSV) or one
     of val batches (rectangle shapes): labels, mask_gt and shapes equal,
-    images within HSV_LEVELS (exact for val)."""
+    images equal."""
     cfg, jcfg = _configs(dataset_root, flip_ud=0.5)
     cfg.image_process_type = ImageProcessType.letterbox
     jcfg.image_process_type = JaxIPT.letterbox
@@ -319,8 +318,7 @@ def test_dataset_and_loader_match_jax(dataset_root, is_val):
             np.testing.assert_allclose(got["bboxes"], want["bboxes"],
                                        atol=1e-6)
             assert got["images"].shape == want["images"].shape
-            diff = np.abs(got["images"].astype(int) - want["images"]).max()
-            assert diff <= (0 if is_val else HSV_LEVELS), diff
+            np.testing.assert_array_equal(got["images"], want["images"])
             n += 1
     assert n == (2 if is_val else 6)
 
@@ -328,9 +326,8 @@ def test_dataset_and_loader_match_jax(dataset_root, is_val):
 def test_max_label_count_and_mosaic_close(dataset_root):
     """The mosaic quadruples the label slots until close_mosaic; get(0)
     under the mosaic (mosaic4 -> random_perspective -> flips -> HSV) equals
-    the JAX dataset's: labels equal (boxes to 1e-4), pixels within one
-    level on >= 99% of the values (the warp and the HSV round trip, one
-    level each against cv2)."""
+    the JAX dataset's: labels equal (boxes to 1e-4), pixels equal (the
+    warp and the HSV round trip are cv2's to the bit)."""
     cfg, jcfg = _configs(dataset_root)
     ds, jds = YoloDataset(cfg), JaxDataset(jcfg)
     n_open = ds.max_label_count
@@ -339,7 +336,7 @@ def test_max_label_count_and_mosaic_close(dataset_root):
     np.testing.assert_array_equal(got.cls, want.cls)
     np.testing.assert_allclose(got.bboxes, want.bboxes, atol=1e-4)
     assert got.img.shape == want.img.shape == (64, 64, 3)
-    assert (np.abs(got.img.astype(int) - want.img) <= 1).mean() >= 0.99
+    np.testing.assert_array_equal(got.img, want.img)
     ds.close_mosaic(True)
     jds.close_mosaic(True)
     assert ds.max_label_count == jds.max_label_count < n_open

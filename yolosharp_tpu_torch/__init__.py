@@ -28,7 +28,8 @@ copies under the same names. Modules:
   the detection, OBB, segmentation, pose and classification losses and the
   End2End pair;
 - ``train``: AdamW groups, LR schedules, train and eval steps, TrainState;
-- ``data``: cv2-free pixel work (``image_ops``: PNG reader, resize, HSV,
+- ``data``: cv2-free pixel work (``image_ops``: the PNG / JPEG / BMP
+  reader, with ``jpeg``'s markers and ``csrc/jpeg_decode.cpp``, resize, HSV,
   warps, polygon fill, the classify ops' blur / equalize), labels,
   augmentations (letterbox and the host mosaic; ``classify_augment``:
   AutoAugment, RandAugment, AugMix, random erasing), the mosaic's host

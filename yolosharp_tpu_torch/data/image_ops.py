@@ -1,37 +1,41 @@
-"""The host pixel work of the data path without a hard dependency on cv2
-(the port's own module; the JAX package does this with cv2).
+"""The host pixel work of the data path without cv2 (the port's own module;
+the JAX package does this with cv2). Each function equals its cv2 5.0
+counterpart bit for bit, as cv2 computes it on an x86-64 CPU with AVX2
+and FMA3 (its vector code, IPP's AVX2 code): on a CPU without them cv2
+itself rounds some values otherwise.
 
-- ``read_image_rgb``: cv2 where it imports (the only JPEG decoder there
-  could be); otherwise PNG decoded here with zlib and numpy (8-bit gray, RGB
-  and RGBA, not interlaced, all five row filters). Anything else raises an
-  error that names the file; no image is ever substituted.
+- ``read_image_rgb``: cv2.imread(IMREAD_COLOR) -> RGB without cv2, by the
+  file's magic bytes: PNG inflated here with zlib and its rows unfiltered
+  by the host C++ of ``csrc/png_unfilter.cpp`` (8-bit gray, RGB and RGBA,
+  not interlaced, all five row filters), baseline JPEG by
+  ``jpeg.decode_jpeg_rgb`` (libjpeg-turbo's arithmetic, its EXIF
+  orientation applied) and BMP by ``decode_bmp_rgb``. Anything else
+  raises an error that names the file; no image is ever substituted.
 - ``resize_linear``: cv2.resize(INTER_LINEAR) of uint8 images and masks in
   cv2's fixed-point arithmetic (11-bit weights, the vertical pass on rows
-  >> 4 with a rounding >> 2), bit-exact; ``resize_linear_f32`` the float32
-  resize of a tensor's maps, on its device, within one float32 rounding.
+  >> 4 with a rounding >> 2); ``resize_linear_f32`` the float32 resize of
+  a tensor's maps, on its device (IPP's fused blends where both source
+  sides exceed one pixel, OpenCV's own resize otherwise).
 - the classify augmentations' pixel work: ``gaussian_blur3_u8``
   (cv2.GaussianBlur 3x3, sigma 0), ``equalize_hist_u8`` (cv2.equalizeHist)
-  and ``rotation_matrix_2d`` (cv2.getRotationMatrix2D), each bit-exact
-  against cv2 5.0 (tests/test_torch_cls_data.py).
+  and ``rotation_matrix_2d`` (cv2.getRotationMatrix2D)
+  (tests/test_torch_cls_data.py).
 - ``warp_affine`` / ``warp_perspective``: cv2.warpAffine /
   cv2.warpPerspective with INTER_LINEAR and a constant border, in numpy,
-  as OpenCV 5 computes them: the forward matrix inverted in float64, each
-  output pixel's source coordinate (a fused multiply-add) and its
-  bilinear blend in float32,
-  corners outside the image blending in as the border value, the result
-  rounded half to even. (OpenCV 4 cut the coordinate to 1/32 px and the
-  weights to 15 bits.) Against OpenCV 5.0 ~5 values in 1e6 differ, by
-  one level (the blend's float32 rounding order; tests/test_torch_mosaic.py).
+  as OpenCV 5's warp kernels compute them: the forward matrix inverted in
+  float64, each output pixel's source coordinate a fused multiply-add in
+  float32 (formed in one order in the 16-pixel vector steps of a row and
+  in another in its scalar tail), the bilinear blend fused multiply-adds
+  in float32, corners outside the image blending in as the border value,
+  the result rounded half to even (tests/test_torch_mosaic.py).
 - the segment masks' pixel work, as the JAX package does it with cv2:
   ``fill_poly`` (cv2.fillPoly of one polygon, 8-connected), ``warp_affine``
   / ``warp_perspective`` with ``nearest=True`` (INTER_NEAREST, the mapped
   coordinate rounded half to even), ``resize_linear`` of a uint8 (H, W)
   mask (its ids blend, as through cv2) and INTER_NEAREST's indices
-  (``nearest_indices``: src = floor(dst / (dst_n / src_n))).
-  Against cv2 5.0 (tests/test_torch_seg_data.py): fill_poly (vertices in
-  or out of the mask), both resizes and the affine warp bit-exact; the
-  perspective warp off on ~2e-7 of the pixels (a coordinate on a .5
-  boundary rounded the other way after the division).
+  (``nearest_indices``: src = floor(dst / (dst_n / src_n)))
+  (tests/test_torch_seg_data.py; fill_poly with vertices in or out of the
+  mask).
 - ``rgb_to_hsv_u8`` / ``hsv_to_rgb_u8``: OpenCV's 8-bit HSV (H in [0, 180)),
   with its fixed-point division tables one way and its float formula the
   other, evaluated once a process for every 8-bit input into a table, so
@@ -41,6 +45,7 @@
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import threading
 import zlib
@@ -49,24 +54,78 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..kernels.build import load_host
+from . import jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}      # PNG colour type -> samples a pixel
 
 
+BMP_SIGNATURE = b"BM"
+TIFF_SIGNATURES = (b"II*\0", b"MM\0*")
+
+
 def read_image_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of an image file."""
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    if cv2 is not None:
-        img = cv2.imread(path, cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(f"failed to read image {path}")
-        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    """(H, W, 3) uint8 RGB of a PNG, JPEG or BMP file, as
+    cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB) gives it
+    (an EXIF orientation applied), told apart by its first bytes. Anything
+    else raises, naming the file."""
     with open(path, "rb") as f:
         data = f.read()
-    return decode_png_rgb(data, path)
+    if data[:8] == PNG_SIGNATURE:
+        return decode_png_rgb(data, path)
+    if data[:2] == jpeg.SOI:
+        return jpeg.decode_jpeg_rgb(data, path)
+    if data[:2] == BMP_SIGNATURE:
+        return decode_bmp_rgb(data, path)
+    if data[:4] in TIFF_SIGNATURES:
+        raise ValueError(f"{path}: TIFF is not read without cv2 (PNG, "
+                         f"baseline JPEG and BMP are)")
+    raise ValueError(f"{path}: not a PNG, JPEG or BMP file")
+
+
+def decode_bmp_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(H, W, 3) uint8 RGB of an uncompressed BMP of 8 (paletted), 24 or 32
+    bits a pixel, bottom-up or top-down, as cv2.imread(IMREAD_COLOR) reads
+    it (a 32-bit pixel's alpha dropped). Raises on any other kind."""
+    if data[:2] != BMP_SIGNATURE or len(data) < 26:
+        raise ValueError(f"{name}: not a BMP file")
+    (offset,) = struct.unpack("<I", data[10:14])
+    (hsize,) = struct.unpack("<I", data[14:18])
+    if hsize < 40 or len(data) < 14 + hsize:
+        raise ValueError(f"{name}: BMP with a {hsize}-byte header is not "
+                         f"read without cv2 (BITMAPINFOHEADER and later)")
+    w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
+    (n_colors,) = struct.unpack("<I", data[46:50])
+    if bpp not in (8, 24, 32) or w <= 0 or h == 0:
+        raise ValueError(f"{name}: BMP of {bpp} bits a pixel, {w}x{h}; "
+                         f"without cv2 only 8-, 24- and 32-bit are read")
+    if bpp == 8 and n_colors > 256:
+        raise ValueError(f"{name}: BMP with a palette of {n_colors} colours")
+    # the R, G, B masks of BI_BITFIELDS follow a 40-byte header and open
+    # the colour fields of a longer one: at byte 54 either way
+    if not (comp == 0 or (comp == 3 and bpp == 32 and data[54:66]
+                          == struct.pack("<III", 0xFF0000, 0xFF00, 0xFF))):
+        raise ValueError(f"{name}: compressed BMP (method {comp}) is not "
+                         f"read without cv2")
+    rows = abs(h)
+    stride = (w * bpp // 8 + 3) & ~3
+    if len(data) < offset + stride * rows or (
+            bpp == 8 and len(data) < 14 + hsize + 4 * (n_colors or 256)):
+        raise ValueError(f"{name}: BMP truncated")
+    px = np.frombuffer(data, np.uint8, stride * rows, offset).reshape(
+        rows, stride)
+    if h > 0:
+        px = px[::-1]                    # bottom-up: the last row first
+    if bpp == 8:
+        n = n_colors or 256
+        pal = np.zeros((256, 4), np.uint8)
+        table = np.frombuffer(data, np.uint8, 4 * n, 14 + hsize)
+        pal[:n] = table.reshape(n, 4)
+        bgr = pal[px[:, :w]][..., :3]
+    else:
+        bgr = px[:, :w * bpp // 8].reshape(rows, w, bpp // 8)[..., :3]
+    return np.ascontiguousarray(bgr[..., ::-1])
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -76,65 +135,14 @@ def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _unfilter_rows(ftypes: np.ndarray, lines: np.ndarray,
-                   bpp: int) -> np.ndarray:
-    """Scanlines of None, Sub and Up filters reconstructed row by row."""
-    out = np.empty_like(lines)
-    prev = np.zeros(lines.shape[1], np.uint8)
-    for y, ftype in enumerate(ftypes.tolist()):
-        line = lines[y]
-        if ftype == 1:      # Sub: a running sum per channel, mod 256
-            line = line.reshape(-1, bpp).cumsum(0, dtype=np.uint8).reshape(-1)
-        elif ftype == 2:    # Up
-            line = line + prev
-        prev = out[y] = line
-    return out
-
-
-def _unfilter_diagonals(ftypes: np.ndarray, lines: np.ndarray,
-                        bpp: int) -> np.ndarray:
-    """Scanlines of any filters, Average and Paeth among them, reconstructed
-    together along the anti-diagonals x + y = d of the pixel grid: a
-    pixel's predictor reads its left, upper and upper-left neighbours, which
-    lie on the two diagonals before its own, so h + w - 1 numpy steps over
-    a diagonal's pixels replace a loop over every byte."""
-    h, stride = lines.shape
-    w = stride // bpp
-    # the grid skewed: pixel (y, x) at [x + y + 2, y + 1], so that a
-    # diagonal's pixels are contiguous; the zeros before both axes are the
-    # neighbours outside the image
-    yy, xx = np.mgrid[0:h, 0:w]
-    skew = np.zeros((h + w + 1, h + 1, bpp), np.int16)
-    raw = np.zeros_like(skew)
-    raw[xx + yy + 2, yy + 1] = lines.reshape(h, w, bpp)
-    rows = {f: np.concatenate([[0], ftypes == f]).astype(np.int16)[:, None]
-            for f in range(1, 5) if (ftypes == f).any()}
-    for d in range(h + w - 1):
-        y0, y1 = max(0, d - w + 1) + 1, min(h - 1, d) + 2
-        left, up = skew[d + 1, y0:y1], skew[d + 1, y0 - 1:y1 - 1]
-        acc = raw[d + 2, y0:y1].copy()
-        for f, row in rows.items():
-            if f == 1:
-                pred = left
-            elif f == 2:
-                pred = up
-            elif f == 3:
-                pred = (left + up) >> 1
-            else:
-                pred = _paeth(left, up, skew[d, y0 - 1:y1 - 1])
-            acc += row[y0:y1] * pred
-        skew[d + 2, y0:y1] = acc & 0xFF
-    return skew[xx + yy + 2, yy + 1].reshape(h, stride).astype(np.uint8)
-
-
 def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(H, W, 3) uint8 RGB of an 8-bit gray, RGB or RGBA PNG that is not
-    interlaced (gray repeated to three channels, alpha dropped, as
-    cv2.imread(IMREAD_COLOR) returns them)."""
+    interlaced (gray repeated to three channels, alpha dropped, an eXIf
+    chunk's orientation applied, as cv2.imread(IMREAD_COLOR) returns
+    them)."""
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{name}: not a PNG file; JPEG and the other "
-                         f"formats need cv2")
-    pos, idat, header = 8, [], None
+        raise ValueError(f"{name}: not a PNG file")
+    pos, idat, header, orientation = 8, [], None, 1
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         chunk = data[pos + 8:pos + 8 + length]
@@ -143,6 +151,8 @@ def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
             header = struct.unpack(">IIBBBBB", chunk)
         elif kind == b"IDAT":
             idat.append(chunk)
+        elif kind == b"eXIf":
+            orientation = jpeg.exif_orientation(chunk)
         elif kind == b"IEND":
             break
     if header is None:
@@ -159,17 +169,15 @@ def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if raw.size != h * (stride + 1):
         raise ValueError(f"{name}: PNG image data has {raw.size} bytes, "
                          f"expected {h * (stride + 1)}")
-    rows = raw.reshape(h, stride + 1)
-    ftypes = rows[:, 0]
-    if ftypes.max() > 4:
-        raise ValueError(f"{name}: PNG filter type {ftypes.max()} does not "
-                         f"exist")
-    unfilter = (_unfilter_diagonals if (ftypes >= 3).any()
-                else _unfilter_rows)
-    img = unfilter(ftypes, rows[:, 1:], bpp).reshape(h, w, bpp)
-    if bpp == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+    img = np.empty((h, w, bpp), np.uint8)
+    bad = load_host("png_unfilter").ys_png_unfilter(
+        raw.ctypes.data_as(ctypes.c_void_p), h, stride, bpp,
+        img.ctypes.data_as(ctypes.c_void_p))
+    if bad:
+        raise ValueError(f"{name}: PNG filter type "
+                         f"{raw[(bad - 1) * (stride + 1)]} does not exist")
+    img = np.repeat(img, 3, axis=2) if bpp == 1 else img[..., :3]
+    return jpeg.apply_orientation(img, orientation)
 
 
 def encode_png(img: np.ndarray, level: int = 6) -> bytes:
@@ -202,33 +210,76 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def _round_to_odd(s, p, c, int64, where):
+    """The float64 sum s = p + c moved to its odd neighbour where it is
+    inexact (its TwoSum error e is not 0) and its last bit even: rounded
+    to float32 it then rounds as the exact sum would."""
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    bits = s.view(int64)
+    # bits + 1 makes |s| larger, whatever its sign
+    odd = where((e > 0) == (s > 0), bits + 1, bits - 1)
+    return where((e != 0) & (bits & 1 == 0), odd, bits)
+
+
+def _fma32_t(a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor) -> torch.Tensor:
+    """fma(a, b, c) of float32 tensors, on their device, as the CPU's fused
+    multiply-add rounds it, once, to float32 (the product is exact in
+    float64; _round_to_odd makes the rounding of the sum single)."""
+    p, c = a.double() * b.double(), c.double()
+    bits = _round_to_odd(p + c, p, c, torch.int64, torch.where)
+    return bits.view(torch.float64).float()
+
+
+# the float64 bits below a float32's last bit: 1000...0 is a midpoint
+# between two float32 values, where rounding twice can go wrong
+_BELOW_F32 = (1 << 29) - 1
+_MIDPOINT = 1 << 28
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """_fma32_t of float32 arrays, broadcast as numpy does: the float64 sum
+    is rounded to float32 directly except where it lies on a midpoint of
+    two float32 values (the only place where a second rounding differs
+    from one), and there made single by _round_to_odd."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    flat = s.reshape(-1)
+    mid = np.flatnonzero(flat.view(np.int64) & _BELOW_F32 == _MIDPOINT)
+    if mid.size:
+        p, c = (np.broadcast_to(v, s.shape).reshape(-1)[mid] for v in (p, c))
+        flat[mid] = _round_to_odd(flat[mid], p, c, np.int64,
+                                  np.where).view(np.float64)
+    return s.astype(np.float32)
+
+
 def _sample_linear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray,
                    border: int) -> np.ndarray:
     """Bilinear samples of img (H, W[, C]) uint8 at float32 source
-    coordinates, as OpenCV 5's warps take them: blended in float32 along x,
-    then along y, a corner outside the image taking ``border``, rounded half
-    to even."""
+    coordinates, as OpenCV 5's warps take them: p0 + a (p1 - p0) a fused
+    multiply-add in float32, along x and then along y, a corner outside the
+    image taking ``border``, rounded half to even."""
     h, w = img.shape[:2]
-    src = img.reshape(h, w, -1)
-    x0 = np.floor(sx)
-    y0 = np.floor(sy)
-    a = (sx - x0)[..., None]
-    b = (sy - y0)[..., None]
-    lim = 1 << 20       # far outside any image, inside int32
-    x0 = np.clip(x0, -lim, lim).astype(np.int64)
-    y0 = np.clip(y0, -lim, lim).astype(np.int64)
-
-    def corner(dy, dx):
-        cy, cx = y0 + dy, x0 + dx
-        ok = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
-        v = src[np.clip(cy, 0, h - 1), np.clip(cx, 0, w - 1)]
-        return np.where(ok[..., None], v, border).astype(np.float32)
-
-    p00, p01 = corner(0, 0), corner(0, 1)
-    p10, p11 = corner(1, 0), corner(1, 1)
-    top = p00 + a * (p01 - p00)
-    bot = p10 + a * (p11 - p10)
-    out = np.rint(top + b * (bot - top))
+    # two pixels of border around the image: a corner clipped to it is
+    # outside, and a pair of corners clipped together stays outside
+    src = np.pad(img.reshape(h, w, -1), ((2, 2), (2, 2), (0, 0)),
+                 constant_values=border)
+    src = src.reshape(-1, src.shape[-1])
+    with np.errstate(invalid="ignore"):
+        fx = np.floor(sx)
+        fy = np.floor(sy)
+        a = (sx - fx)[..., None]
+        b = (sy - fy)[..., None]
+        x0 = np.clip(np.nan_to_num(fx, nan=-2), -2, w).astype(np.int64) + 2
+        y0 = np.clip(np.nan_to_num(fy, nan=-2), -2, h).astype(np.int64) + 2
+    i00 = y0 * (w + 4) + x0
+    p00, p01, p10, p11 = (src[i00 + k].astype(np.float32)
+                          for k in (0, 1, w + 4, w + 5))
+    top = _fma32(a, p01 - p00, p00)
+    bot = _fma32(a, p11 - p10, p10)
+    out = np.rint(_fma32(b, bot - top, top))
     return np.clip(out, 0, 255).astype(np.uint8).reshape(
         sx.shape + img.shape[2:])
 
@@ -253,28 +304,32 @@ def _sample(img, sx, sy, border, nearest):
                                                            border)
 
 
-def _grid(out_w: int, out_h: int):
-    return (np.arange(out_w, dtype=np.float32)[None, :],
-            np.arange(out_h, dtype=np.float32)[:, None])
+# OpenCV 5's warp kernels step 2 vectors of float32 lanes an iteration (16
+# output pixels in its AVX2 code, which it dispatches on any x86-64 CPU
+# with AVX2 and FMA3; its AVX-512 build of them is not used) and finish a
+# row's last out_w % 16 pixels in scalar code, which forms the coordinate
+# in another order
+_WARP_STEP = 16
 
 
 def _source(row: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     """One source coordinate (h, w) of a warp for the float32 matrix row
-    (m0, m1, m2), as OpenCV 5 computes it: fma(m0, x, m1 y + m2), one
-    rounding to float32 after the fused multiply-add (the float32 product
-    is exact in float64)."""
-    x, y = _grid(out_w, out_h)
-    inner = (row[1] * y + row[2]).astype(np.float64)
-    return (np.float64(row[0]) * x.astype(np.float64)
-            + inner).astype(np.float32)
+    (m0, m1, m2), as OpenCV 5's kernels form it: fma(m0, x, m1 y + m2) (the
+    row's term in float32) in the vector steps; (fma(x, m0, m1 y)) + m2 in
+    the scalar tail of each row."""
+    x = np.arange(out_w, dtype=np.float32)[None, :]
+    y = np.arange(out_h, dtype=np.float32)[:, None]
+    vec = _fma32(row[0], x, row[1] * y + row[2])
+    tail = _fma32(x, row[0], row[1] * y) + row[2]
+    return np.where(x < out_w - out_w % _WARP_STEP, vec, tail)
 
 
 def warp_affine(img: np.ndarray, M: np.ndarray, out_w: int, out_h: int,
                 border: int = 114, nearest: bool = False) -> np.ndarray:
     """cv2.warpAffine(img, M, (out_w, out_h), borderValue=border) with
-    INTER_LINEAR (INTER_NEAREST with ``nearest``): M (2, 3) maps source to
-    output pixels. It is inverted in float64, as cv2 inverts it; each
-    output pixel's source coordinate is then _source's fma of the float32
+    INTER_LINEAR (INTER_NEAREST with ``nearest``), bit-exact: M (2, 3) maps
+    source to output pixels. It is inverted in float64, as cv2 inverts it;
+    each output pixel's source coordinate is then _source's of the float32
     inverse."""
     m = np.asarray(M, np.float64).reshape(2, 3)
     d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
@@ -292,9 +347,10 @@ def warp_perspective(img: np.ndarray, M: np.ndarray, out_w: int,
                      out_h: int, border: int = 114,
                      nearest: bool = False) -> np.ndarray:
     """cv2.warpPerspective(img, M, (out_w, out_h), borderValue=border) with
-    INTER_LINEAR (INTER_NEAREST with ``nearest``): M (3, 3) maps source to
-    output pixels. Its inverse (in float64) gives each output pixel's
-    homogeneous source coordinate (_source, float32), divided by its w."""
+    INTER_LINEAR (INTER_NEAREST with ``nearest``), bit-exact: M (3, 3) maps
+    source to output pixels. Its inverse (in float64) gives each output
+    pixel's homogeneous source coordinate (_source, float32), divided by
+    its w."""
     mi = np.linalg.inv(np.asarray(M, np.float64)).astype(np.float32)
     X, Y, W = (_source(mi[r], out_w, out_h) for r in range(3))
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -352,39 +408,54 @@ def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
 
 def resize_linear_f32(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """cv2.resize(m, (w, h), interpolation=INTER_LINEAR) of each float32
-    (H, W) map m of a tensor (..., H, W), on the tensor's device, to within
-    one float32 rounding: the taps of the uint8 resize with each fraction
-    kept in float64 (cv2 5.0's float weights are the float64 fractions, not
-    the float32 ones of its uint8 path), each pass's blend evaluated in
-    float64 and rounded to float32. cv2's own order of products and sums is
-    not known: on values in [0, 1] up to a quarter of the outputs differ
-    from it, by at most 1.2e-7, one float32 step below 1
-    (tests/test_torch_cls_data.py). Returns float32 (..., h, w)."""
+    (H, W) map m of a tensor (..., H, W), on the tensor's device,
+    bit-exact. cv2 5.0 takes Intel IPP's resize where both source sides
+    are > 1: taps (i + 0.5) * src / dst - 0.5 in float64, the fraction cut
+    to float32 (0 at the edges), each pass p0 + f (p1 - p0) a fused
+    multiply-add in float32, along x and then along y. A one-pixel side
+    takes OpenCV's own resize: float32 taps, p0 (1 - f) + p1 f in float32
+    without fusing, the rows' fractions kept at the edges (the clamped row
+    blends with itself). Returns float32 (..., h, w)."""
     H, W = x.shape[-2:]
     x = x.to(torch.float32)
     if (H, W) == (h, w):
         return x.clone()
 
-    def taps(dst, n):
-        f = (np.arange(dst, dtype=np.float64) + 0.5) * (n / dst) - 0.5
-        s = np.floor(f)
-        return s.astype(np.int64), f - s
-
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(x.device)
 
-    sx, fx = taps(w, W)
-    fx = np.where((sx < 0) | (sx >= W - 1), 0.0, fx)
+    if H > 1 and W > 1:
+        def taps(dst, n):
+            f = (np.arange(dst, dtype=np.float64) + 0.5) * (n / dst) - 0.5
+            s = np.floor(f).astype(np.int64)
+            fr = np.where((s < 0) | (s >= n - 1), 0,
+                          f - s).astype(np.float32)
+            s = np.clip(s, 0, n - 1)
+            return dev(s), dev(np.minimum(s + 1, n - 1)), dev(fr)
+
+        s0, s1, fx = taps(w, W)
+        p0 = x[..., s0]
+        rows = _fma32_t(fx, x[..., s1] - p0, p0)
+        s0, s1, fy = taps(h, H)
+        p0 = rows[..., s0, :]
+        return _fma32_t(fy[:, None], rows[..., s1, :] - p0, p0)
+
+    def taps32(dst, n):
+        f = ((np.arange(dst, dtype=np.float64) + 0.5) * (n / dst)
+             - 0.5).astype(np.float32)
+        s = np.floor(f).astype(np.int64)
+        return s, (f - s).astype(np.float32)
+
+    one = np.float32(1)
+    sx, fx = taps32(w, W)
+    fx = np.where((sx < 0) | (sx >= W - 1), np.float32(0), fx)
     sx = np.clip(sx, 0, W - 1)
-    x64 = x.double()
-    rows = (x64[..., dev(sx)] * dev(1 - fx)
-            + x64[..., dev(np.minimum(sx + 1, W - 1))] * dev(fx))
-    rows = rows.float().double()
-    sy, fy = taps(h, H)
-    out = (rows[..., dev(np.clip(sy, 0, H - 1)), :] * dev(1 - fy)[:, None]
-           + rows[..., dev(np.clip(sy + 1, 0, H - 1)), :]
-           * dev(fy)[:, None])
-    return out.float()
+    rows = (x[..., dev(sx)] * dev(one - fx)
+            + x[..., dev(np.minimum(sx + 1, W - 1))] * dev(fx))
+    sy, fy = taps32(h, H)
+    return (rows[..., dev(np.clip(sy, 0, H - 1)), :] * dev(one - fy)[:, None]
+            + rows[..., dev(np.clip(sy + 1, 0, H - 1)), :]
+            * dev(fy)[:, None])
 
 
 def gaussian_blur3_u8(img: np.ndarray) -> np.ndarray:
@@ -574,9 +645,12 @@ def _rgb_to_hsv(rgb: np.ndarray) -> np.ndarray:
     return np.stack([h, s, v], -1).astype(np.uint8)
 
 
-def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+def _hsv_to_rgb(hsv: np.ndarray, truncate: bool = True) -> np.ndarray:
     """OpenCV's HSV2RGB_b: the float formula (H scaled by 6/180, S and V by
-    1/255), each channel rounded from x * 255; uint8 (..., 3) -> (..., 3)."""
+    1/255, 1 - s h and 1 - s (1 - h) fused multiply-adds), each channel
+    x * 255 truncated, as its vector loop converts it, or rounded half to
+    even (``truncate=False``), as its scalar loop does; uint8 (..., 3) ->
+    (..., 3)."""
     f32 = np.float32
     h = hsv[..., 0].astype(f32) * f32(6.0 / 180.0)
     s = hsv[..., 1].astype(f32) * f32(1.0 / 255.0)
@@ -585,15 +659,15 @@ def _hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
     sector = h.astype(np.int32)         # floor
     h -= sector
     p = v * (f32(1) - s)
-    q = v * (f32(1) - s * h)
-    t = v * (f32(1) - s * (f32(1) - h))
+    q = v * _fma32(-s, h, f32(1))
+    t = v * _fma32(-s, f32(1) - h, f32(1))
     rgb = (np.choose(sector, [v, q, p, p, t, v]),
            np.choose(sector, [t, v, v, q, p, p]),
            np.choose(sector, [p, p, t, v, v, q]))
     out = np.empty(hsv.shape, np.uint8)
     for i, c in enumerate(rgb):
         c = np.where(s == 0, v, c) * f32(255.0)
-        out[..., i] = np.clip(np.rint(c), 0, 255)
+        out[..., i] = np.clip(np.trunc(c) if truncate else np.rint(c), 0, 255)
     return out
 
 
@@ -631,7 +705,19 @@ def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
     return _convert("rgb2hsv", img)
 
 
+# cv2's HSV2RGB_b converts 32 pixels of a row a vector step (its AVX2 code)
+# and the last width % 32 of each row in scalar code, which rounds
+_HSV_STEP = 32
+
+
 def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
-    """uint8 HSV (H in [0, 180); larger H wraps as in OpenCV) -> uint8 RGB,
-    as cv2.cvtColor(hsv, COLOR_HSV2RGB)."""
-    return _convert("hsv2rgb", hsv)
+    """uint8 HSV (H in [0, 180); larger H wraps as in OpenCV) (H, W, 3) ->
+    uint8 RGB, as cv2.cvtColor(hsv, COLOR_HSV2RGB), bit-exact: the table
+    of the vector loop, and the scalar loop's rounding on each row's last
+    W % 32 pixels."""
+    out = _convert("hsv2rgb", hsv)
+    w = hsv.shape[-2]
+    tail = w - w % _HSV_STEP
+    if tail < w:
+        out[..., tail:, :] = _hsv_to_rgb(hsv[..., tail:, :], truncate=False)
+    return out

@@ -1,10 +1,12 @@
-"""Build and load the hand-written CUDA kernels in ``csrc/``.
+"""Build and load the hand-written CUDA kernels and the host C++ in
+``csrc/``.
 
 Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, cached under
-``yolosharp_tpu_torch/_build/`` by a hash of the sources and flags, and
-loaded with ``ctypes``. A missing ``nvcc`` or a failed compile raises with
-the compiler's output; nothing falls back.
+(``sm_90a``), each ``csrc/<name>.cpp`` (host code, such as the JPEG
+decoder) with ``$CXX`` or ``c++``, into a shared library with a plain C
+interface, cached under ``yolosharp_tpu_torch/_build/`` by a hash of the
+sources and flags, and loaded with ``ctypes``. A missing compiler or a
+failed compile raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -25,8 +28,11 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+# host code: integer arithmetic that must not round differently anywhere
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()   # loader threads may ask for one at once
 # compiler output of each build in this process (ptxas register / spill /
 # shared-memory report), for chip_smoke.py to print
 build_logs: Dict[str, str] = {}
@@ -101,28 +107,57 @@ def check_status(name: str, status: int) -> None:
                            f"cudaError {status}")
 
 
+def find_cxx() -> str:
+    """Path of the host C++ compiler: $CXX, then c++ / g++ / clang++ on
+    $PATH."""
+    for cand in (os.environ.get("CXX"), "c++", "g++", "clang++"):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    raise RuntimeError(
+        "no C++ compiler found: the host code of yolosharp_tpu_torch (the "
+        "JPEG decoder) is compiled from yolosharp_tpu_torch/csrc on first "
+        "use and needs one (set CXX or put c++ on PATH)")
+
+
+def _load(name: str, suffix: str, flags, compiler, deps) -> ctypes.CDLL:
+    """The library built from ``csrc/<name><suffix>`` with ``compiler()``
+    and ``flags`` (built if no build of the same sources and flags is
+    cached), loaded once a process."""
+    with _build_lock:
+        if name in _libs:
+            return _libs[name]
+        src = SRC_DIR / f"{name}{suffix}"
+        digest = hashlib.sha256(" ".join(flags).encode())
+        for path in [src, *deps]:
+            digest.update(path.name.encode())
+            digest.update(path.read_bytes())
+        out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+        if not out.exists():
+            cc = compiler()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [cc, *flags, "-o", str(tmp), str(src)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{os.path.basename(cc)} failed to build {src.name} "
+                    f"(exit {proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stdout}{proc.stderr}")
+            build_logs[name] = proc.stdout + proc.stderr
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _libs[name] = lib
+        return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
-    if name in _libs:
-        return _libs[name]
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src, *sorted(SRC_DIR.glob("*.cuh"))]:
-        digest.update(path.name.encode())
-        digest.update(path.read_bytes())
-    out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    if not out.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        build_logs[name] = proc.stdout + proc.stderr
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    _libs[name] = lib
-    return lib
+    return _load(name, ".cu", NVCC_FLAGS, find_nvcc,
+                 sorted(SRC_DIR.glob("*.cuh")))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library built from the host C++ ``csrc/<name>.cpp`` (built
+    with the host compiler if needed; no nvcc involved)."""
+    return _load(name, ".cpp", CXX_FLAGS, find_cxx, [])
