@@ -278,6 +278,47 @@ unfilter of csrc/png_unfilter.cpp that every PNG phase reads through):
   14c. YoloTask.train() of v8s-cls (nc=10), 224x224, batch 32, 1 epoch on
      a folder-per-class JPEG set of fixture copies (16 train and 2 val a
      class): the decode on every get; the step ms and loader-wait share.
+Library blocks no zoo model builds (phase 15; their 3x3 shapes, with
+their activations, are also a shape group of phase 2, checked at B=2 in
+float32, bfloat16 and float16 and timed at B=8 in bfloat16 and float16:
+kernel / plain / F.conv2d / bound ms summed):
+  15a-c. each of 24 blocks alone at the input shape a published
+     configuration gives it: HGStem(32, 48) on 640x640 RGB, HGBlock(48,
+     128, k=3, n=6) at 160x160, HGBlock(96, 512, k=3, n=6) at 80x80 and
+     HGBlock(192, 1024, k=5, n=6, lightconv) at 40x40, RepC3(256, n=3) at
+     80x80 and 40x40 (Ultralytics rtdetr-l.yaml); SCDown(256, 3, 2) at
+     80x80 and C2fCIB(512, shortcut, lk) at 20x20 (yolov10s.yaml at width
+     0.5); GhostConv(64, 3, 2) at 320x320 and C3Ghost(64) at 160x160
+     (yolov8-ghost.yaml scale s); Focus(32, 3) on 640x640 RGB (YOLOv5
+     v5.0 yolov5s.yaml); SPP(512, (5, 9, 13)) at 20x20 from 1024
+     (yolov3-spp.yaml); C3TR(512) at 20x20 (yolov5s-transformer.yaml, 4
+     heads, N = 400); Conv2, LightConv, ConvTranspose, DWConvTranspose2d,
+     CBAM, C1, C2, C3x, RepVGGDW, AGLU and Index at v8s's P3 stage (128
+     wide at 80x80), which no published config builds. Seeded as phase 3
+     (ConvBN kernels x2.5, every BatchNorm's statistics jittered). (a)
+     bf16 folded predict at B=8: the forward's ms (CUDA events, mean of
+     10) and its conv kernel launches, equal to the block's list and to
+     the count its modules give (the ReLU s1 and stem routes in HGStem /
+     HGBlock, identity in RepC3's RepConvs, Ci = 12 in Focus; C2fCIB, a
+     C2f of CIBs, must not take the C2f kernel); (b) float32 folded
+     predict at B=2, card against CPU: max|d| <= 1e-4 max|ref|; (c) one
+     float32 train-mode forward + backward at B=2 on the card and on the
+     CPU, each against float64 on the card, per tensor ||d|| / ||ref||: the
+     card's output within 1e-4 and the input's and every parameter's
+     gradient within 1e-3, or within 4 times the CPU's own distance where
+     that is larger (a train-mode BatchNorm's backward cancels); a
+     gradient zero by construction (a shift a train-mode BN removes) must
+     read under 1e-6 of the largest on both devices.
+  15d. convert_checkpoint on the card's host: phase 3's seeded v8s state
+     dict written by torch.save and as .safetensors, each converted to
+     .bin in float32 and float16, loaded into a YoloTask and served phase
+     3's b32 batch: the rows equal those of the directly loaded weights
+     (float16: of the weights rounded to float16).
+  15e. Config.profile_dir: YoloTask.train() of v8n-320 b8, one epoch of 6
+     steps on 48 PNGs this script writes: the Chrome trace holds CUDA
+     kernel events and the spans of steps 2-5.
+  15f. int8_predict, fsdp, resume_format="orbax" and a mesh_shape of more
+     than one device raise NotImplementedError at train() or predict.
 Each phase prints its wall seconds.
 
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
@@ -302,6 +343,7 @@ import torch
 import torch.nn.functional as F
 
 BATCH = 2
+BLOCK_BATCH = 8     # phase 15's bf16 predict batch, timed in phase 2 too
 CANDIDATES = 300    # above-threshold anchors per image in phase 3 (bench.py:8-13)
 CONV_CANVAS = (640, 640)
 # the request canvases of phase 3 (500x375 pads to 512x384) and, for the
@@ -401,13 +443,17 @@ SHAPE_GROUPS = ((SEG, lambda shape, vs: SEG in vs),
                  lambda shape, vs: POSE_S in vs and 51 in shape[2:4]),
                 (OBB, lambda shape, vs: OBB in vs),
                 (f"{CLS} / {CLS11} 224", lambda shape, vs: CLS in vs
-                 or CLS11 in vs))
+                 or CLS11 in vs),
+                ("phase 15 blocks", lambda shape, vs: vs[0] in BLOCK_NAMES))
 # the suffix of each (dtype, batch) phase 2 times, in its stats
 SUFFIX = {(torch.float32, BATCH): "_f32", (torch.bfloat16, BATCH): "",
           (torch.float16, BATCH): "_f16",
           (torch.float32, SERVED_BATCH): "_f32_b32",
           (torch.bfloat16, SERVED_BATCH): "_b32",
-          (torch.float16, SERVED_BATCH): "_f16_b32"}
+          (torch.float16, SERVED_BATCH): "_f16_b32",
+          (torch.bfloat16, BLOCK_BATCH): "_b8",
+          (torch.float16, BLOCK_BATCH): "_f16_b8"}
+CONV_NAMES = ("conv3x3_silu", "conv3x3s2_silu")
 # the stats suffix of each (dtype, batch) phase 2 times
 ERR_KEY = {torch.float32: "max_abs_err", torch.bfloat16: "max_abs_err_bf16",
            torch.float16: "max_abs_err_f16"}
@@ -612,7 +658,9 @@ def phase_kernels(dev):
     for name in SOURCES:
         s = stats[name] = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0,
                            "max_abs_err_f16": 0.0, "shapes": 0}
-        for suffix in SUFFIX.values():
+        for (_, batch), suffix in SUFFIX.items():
+            if batch == BLOCK_BATCH and name not in CONV_NAMES:
+                continue    # only the conv kernels take phase 15's shapes
             s.update({"ms" + suffix: 0.0, "plain_ms" + suffix: 0.0,
                       "ms_eager" + suffix: 0.0, "bound_ms" + suffix: 0.0,
                       "library_ms" + suffix: None if name == "c2f_fused"
@@ -624,10 +672,11 @@ def phase_kernels(dev):
     group_sums = {}
     checked = set()     # (kind, dtype, variant) held against the plain version
 
-    def check(kind, dtype, batch, shape, vs, timed=True):
-        """One kernel against its plain version at one shape: its error,
-        the variant it ran and (timed) its, the plain version's and the
-        library call's times, TFLOP/s and its bound."""
+    def check(kind, dtype, batch, shape, vs, timed=True, act="silu"):
+        """One kernel against its plain version at one shape (the convs
+        with activation act): its error, the variant it ran and (timed)
+        its, the plain version's and the library call's times, TFLOP/s and
+        its bound."""
         dt = str(dtype)[6:]
         var = variant(kind, dtype, batch, shape, sms)
         extra = library = None
@@ -639,15 +688,17 @@ def phase_kernels(dev):
             x = randn(batch, H, W, ci).to(dtype)
             w = randn(3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype)
             b = randn(co, scale=0.1).to(dtype)
-            name, tol, desc = wrapper.__name__, "conv", f"{H}x{W} {ci}->{co}"
-            kernel = lambda: wrapper(x, w, b)  # noqa: E731
-            plain = lambda: conv3x3_plain(x, w, b, "silu", stride)  # noqa: E731
+            name, tol = wrapper.__name__, "conv"
+            desc = f"{H}x{W} {ci}->{co}" + (f" {act}" if act != "silu" else "")
+            kernel = lambda: wrapper(x, w, b, act)  # noqa: E731
+            plain = lambda: conv3x3_plain(x, w, b, act, stride)  # noqa: E731
             ref64 = lambda: conv3x3_plain(  # noqa: E731
-                x.double(), w.double(), b.double(), "silu", stride)
+                x.double(), w.double(), b.double(), act, stride)
             ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
             flop = 2 * batch * ho * wo * 9 * ci * co
             nbytes = size * (x.numel() + w.numel() + co + batch * ho * wo * co)
-            # cuDNN on the channels-last NCHW view: conv + bias, no SiLU
+            # cuDNN on the channels-last NCHW view: conv + bias, no
+            # activation
             xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             library = lambda: F.conv2d(xc, wc, b, stride=stride,  # noqa: E731
@@ -775,6 +826,20 @@ def phase_kernels(dev):
         check(key[0], *served[key], timed=False)
     if any(key not in checked for key in served):
         raise SystemExit("a variant of the served path was not checked")
+    # phase 15's blocks: their 3x3 shapes with their activations (relu in
+    # HGStem and HGBlock, identity in RepC3's RepConvs, Ci = 12 in Focus)
+    blocks = record_block_shapes()
+    print("  phase 15 block shapes recorded: " + ", ".join(
+        f"{k} {s} {a} [{' + '.join(vs)}]" for (k, s, a), vs in blocks),
+        flush=True)
+    for dtype, batch in ((torch.float32, BATCH), (torch.bfloat16, BATCH),
+                         (torch.float16, BATCH),
+                         (torch.bfloat16, BLOCK_BATCH),
+                         (torch.float16, BLOCK_BATCH)):
+        print(f"  phase 15 block shapes, {str(dtype)[6:]} B={batch}",
+              flush=True)
+        for (kind, shape, act), vs in blocks:
+            check(kind, dtype, batch, shape, vs, act=act)
     # what bounds each sum: the larger share of its bound
     for (name, suffix), part in bound_parts.items():
         stats[name]["bound_by" + suffix] = max(part, key=part.get)
@@ -1735,11 +1800,11 @@ def write_dataset(root, n_train, n_val, seed=7) -> np.ndarray:
 def _train_config(root, version, **kw):
     from yolosharp_tpu_torch import Config, YoloSize, YoloType
 
-    kw = {"epochs": 1, **kw}
+    kw = {"epochs": 1, "yolo_size": YoloSize.s, "image_size": TRAIN_SIZE,
+          "batch_size": TRAIN_BATCH, **kw}
     return Config(root_path=root, train_data_path="images/train",
                   val_data_path="images/val", yolo_type=YoloType(version),
-                  yolo_size=YoloSize.s, number_class=80,
-                  image_size=TRAIN_SIZE, batch_size=TRAIN_BATCH, **kw)
+                  number_class=80, **kw)
 
 
 def epoch_line(st, tag, batch=TRAIN_BATCH) -> str:
@@ -3298,6 +3363,418 @@ def phase_jpeg(dev, root, state, conf, tag):
     return served, train_counts
 
 
+# Phase 15: the library blocks no zoo model builds, each alone at the input
+# shape a published configuration gives it (Ultralytics rtdetr-l.yaml,
+# yolov10s.yaml at width 0.5, yolov8-ghost.yaml at scale s, YOLOv5 v5.0's
+# yolov5s.yaml, yolov3-spp.yaml, YOLOv5's yolov5s-transformer.yaml), the
+# rest at v8s's P3 stage (128 wide at 80x80), since no published config
+# builds them: (name, class in yolosharp_tpu_torch.nn, its arguments, input
+# (C, H, W), where the shape comes from, conv kernel launches a forward)
+BLOCKS15 = (
+    ("HGStem(32, 48)", "HGStem", (3, 32, 48), (3, 640, 640),
+     "rtdetr-l.yaml layer 0", {"conv3x3s2_silu": 2}),
+    ("HGBlock(48, 128, k=3, n=6)", "HGBlock", (48, 48, 128, 3, 6),
+     (48, 160, 160), "rtdetr-l.yaml layer 1", {"conv3x3_silu": 6}),
+    ("HGBlock(96, 512, k=3, n=6)", "HGBlock", (128, 96, 512, 3, 6),
+     (128, 80, 80), "rtdetr-l.yaml layer 3", {"conv3x3_silu": 6}),
+    ("HGBlock(192, 1024, k=5, n=6, lightconv)", "HGBlock",
+     (512, 192, 1024, 5, 6, True), (512, 40, 40), "rtdetr-l.yaml layer 5",
+     {}),
+    ("RepC3(256, n=3) 80x80", "RepC3", (512, 256, 3), (512, 80, 80),
+     "rtdetr-l.yaml layer 21", {"conv3x3_silu": 3}),
+    ("RepC3(256, n=3) 40x40", "RepC3", (512, 256, 3), (512, 40, 40),
+     "rtdetr-l.yaml layer 16", {"conv3x3_silu": 3}),
+    ("SCDown(256, 3, 2)", "SCDown", (256, 256, 3, 2), (256, 80, 80),
+     "yolov10s.yaml [512, 3, 2] at width 0.5", {}),
+    ("C2fCIB(512, True, True)", "C2fCIB", (512, 512, 1, True, True),
+     (512, 20, 20), "yolov10s.yaml [1024, True, True] at width 0.5", {}),
+    ("GhostConv(64, 3, 2)", "GhostConv", (32, 64, 3, 2), (32, 320, 320),
+     "yolov8-ghost.yaml scale s", {"conv3x3s2_silu": 1}),
+    ("C3Ghost(64)", "C3Ghost", (64, 64, 1), (64, 160, 160),
+     "yolov8-ghost.yaml scale s", {}),
+    ("Focus(32, 3)", "Focus", (3, 32, 3), (3, 640, 640),
+     "YOLOv5 v5.0 yolov5s.yaml", {"conv3x3_silu": 1}),
+    ("SPP(512, (5, 9, 13))", "SPP", (1024, 512, (5, 9, 13)), (1024, 20, 20),
+     "yolov3-spp.yaml", {}),
+    ("C3TR(512)", "C3TR", (512, 512, 1), (512, 20, 20),
+     "yolov5s-transformer.yaml", {}),
+    ("Conv2(128)", "Conv2", (128, 128), (128, 80, 80), "v8s P3",
+     {"conv3x3_silu": 1}),
+    ("LightConv(128, k=5)", "LightConv", (128, 128, 5), (128, 80, 80),
+     "v8s P3", {}),
+    ("ConvTranspose(128)", "ConvTranspose", (128, 128), (128, 80, 80),
+     "v8s P3", {}),
+    ("DWConvTranspose2d(128, k=4, s=2, p=1)", "DWConvTranspose2d",
+     (128, 128, 4, 2, 1), (128, 80, 80), "v8s P3", {}),
+    ("CBAM(128)", "CBAM", (128,), (128, 80, 80), "v8s P3", {}),
+    ("C1(128)", "C1", (128, 128), (128, 80, 80), "v8s P3",
+     {"conv3x3_silu": 1}),
+    ("C2(128)", "C2", (128, 128, 1), (128, 80, 80), "v8s P3",
+     {"conv3x3_silu": 2}),
+    ("C3x(128)", "C3x", (128, 128, 1), (128, 80, 80), "v8s P3",
+     {"conv3x3_silu": 1}),
+    ("RepVGGDW(128)", "RepVGGDW", (128,), (128, 80, 80), "v8s P3", {}),
+    ("AGLU", "AGLU", (), (128, 80, 80), "v8s P3", {}),
+    ("Index(1)", "Index", (1,), (128, 80, 80), "v8s P3", {}),
+)
+BLOCK_NAMES = tuple(spec[0] for spec in BLOCKS15)
+BLOCK_TRAIN_BATCH = 2
+# float32 predict, card against CPU: the block's output within 1e-4 of its
+# largest value (each conv sums in another order; chains of up to 8
+# layers). Train: the card's and the CPU's float32 output and gradients
+# each against float64 on the card, per tensor as ||d|| / ||ref||: the card
+# within 1e-4 (output) or 1e-3 (gradients), or within 4 times the CPU's
+# own distance where that is larger (a train-mode BatchNorm's backward
+# cancels: deep in HGBlock's chain both devices' float32 gradients sit
+# 1e-3 to 1e-2 from float64, each summing in its own order). A gradient
+# that float64 puts under 1e-9 of the block's largest is zero by
+# construction and must read under 1e-6 of it on both devices.
+BLOCK_F32_TOL, BLOCK_GRAD_TOL, BLOCK_CPU_FACTOR = 1e-4, 1e-3, 4.0
+BLOCK_ZERO, BLOCK_ZERO_TOL = 1e-9, 1e-6
+
+
+def make_block(spec, seed: int = 3, scale: float = 2.5):
+    """One BLOCKS15 block with phase 3's recipe for a block alone: torch's
+    default init drawn from a seeded generator (nn.MultiheadAttention's
+    in-projection and AGLU's scalars too), ConvBN kernels x scale, every
+    BatchNorm's statistics jittered so that folding does real work."""
+    from torch import nn
+
+    from yolosharp_tpu_torch import nn as port_nn
+    from yolosharp_tpu_torch.nn import ConvBN
+    from yolosharp_tpu_torch.nn.model import init_weights
+
+    _, cls, args, *_ = spec
+    block = getattr(port_nn, cls)(*args)
+    g = torch.Generator().manual_seed(seed)
+    init_weights(block, g)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, nn.MultiheadAttention):
+                bound = m.embed_dim ** -0.5
+                m.in_proj_weight.uniform_(-bound, bound, generator=g)
+            if isinstance(m, ConvBN):
+                m.conv.weight.mul_(scale)
+            if isinstance(m, nn.BatchNorm2d):
+                c = m.num_features
+                m.running_mean.add_(torch.from_numpy(
+                    rng.normal(0, 0.05, c).astype(np.float32)))
+                m.running_var.mul_(torch.from_numpy(
+                    rng.uniform(0.8, 1.5, c).astype(np.float32))).add_(0.02)
+        for p in (getattr(block, "lambd", None), getattr(block, "kappa", None)):
+            if p is not None:
+                p.uniform_(0, 1, generator=g)
+    return block
+
+
+def block_input(spec, batch: int, seed: int = 0) -> torch.Tensor:
+    """A float32 CPU input of the block's shape: U(0, 1) for the RGB blocks,
+    N(0, 1) otherwise, channels-last."""
+    c, h, w = spec[3]
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand(batch, c, h, w, generator=g) if c == 3
+         else torch.randn(batch, c, h, w, generator=g))
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def run_block(block, x):
+    """The block's forward; Index takes a list."""
+    from yolosharp_tpu_torch.nn import Index
+
+    return block([x, x * 2]) if isinstance(block, Index) else block(x)
+
+
+def kernel_convs(block) -> list:
+    """(wrapper name, activation, Ci) of each ConvBN of a folded block on
+    the conv kernel's route, in module order."""
+    from yolosharp_tpu_torch.nn import ConvBN
+
+    return [("conv3x3_silu" if m.s == 1 else "conv3x3s2_silu", m.act,
+             m.conv.in_channels) for m in block.modules()
+            if isinstance(m, ConvBN) and m.kernel_route]
+
+
+@torch.no_grad()
+def record_block_shapes() -> list:
+    """[((kind, (H, W, Ci, Co), act), [blocks])] of the 3x3 convs on the
+    kernel route in the folded BLOCKS15 blocks at their input shapes, from
+    forward hooks run at B=1 on the CPU (the routing is the card's)."""
+    from yolosharp_tpu_torch.ckpt import fold_bn
+    from yolosharp_tpu_torch.nn import C2f, ConvBN
+
+    tagged = {}
+    for spec in BLOCKS15:
+        block = fold_bn(make_block(spec).eval())
+        if any(isinstance(m, C2f) for m in block.modules()):
+            raise SystemExit(f"{spec[0]} holds a C2f")
+
+        def hook(m, inp, out, name=spec[0]):
+            _, ci, h, w = inp[0].shape
+            key = (f"s{m.s}", (h, w, ci, m.conv.out_channels), m.act)
+            tagged.setdefault(key, []).append(name)
+
+        handles = [m.register_forward_hook(hook) for m in block.modules()
+                   if isinstance(m, ConvBN) and m.kernel_route]
+        run_block(block, block_input(spec, 1))
+        for h in handles:
+            h.remove()
+    return sorted(((k, sorted(set(v))) for k, v in tagged.items()),
+                  key=lambda t: (t[0][0], -t[0][1][0], t[0][1], t[0][2]))
+
+
+def _max_rel(got, want) -> float:
+    return float((got.float().cpu() - want.float()).abs().max()) / (
+        float(want.float().abs().max()) + 1e-30)
+
+
+def phase_blocks(dev, tag) -> dict:
+    """Phase 15 (a)-(c): each BLOCKS15 block at its published input shape.
+    Returns the conv kernel launches of its bf16 predict forwards."""
+    import copy
+
+    from yolosharp_tpu_torch.ckpt import fold_bn
+    from yolosharp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+
+    print(f"phase 15a-c: {len(BLOCKS15)} library blocks no zoo model builds, "
+          f"each alone at a published input shape, seeded as phase 3: (a) "
+          f"bf16 folded predict b{BLOCK_BATCH} on the card, its kernel "
+          f"launches against the block's list; (b) float32 folded predict "
+          f"b{BLOCK_TRAIN_BATCH}, card against CPU; (c) one float32 "
+          f"train-mode forward + backward b{BLOCK_TRAIN_BATCH}, card "
+          f"against CPU: output, input and parameter gradients ({tag})",
+          flush=True)
+    total = dict.fromkeys(SOURCES, 0)
+    for spec in BLOCKS15:
+        name, _, _, chw, source, want = spec
+        master = make_block(spec)
+        folded = fold_bn(copy.deepcopy(master).eval())
+        convs = kernel_convs(folded)
+        counted = {n: sum(1 for c in convs if c[0] == n) for n in SOURCES}
+        want = {n: want.get(n, 0) for n in SOURCES}
+        if counted != want:
+            raise SystemExit(f"{name}: its modules put {counted} on the "
+                             f"kernel route, expected {want}")
+        # (a) bf16 folded predict on the card
+        pred = copy.deepcopy(folded).to(dev, torch.bfloat16)
+        x = block_input(spec, BLOCK_BATCH).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            run_block(pred, x)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out = run_block(pred, x)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            if got != want:
+                raise SystemExit(f"{name}: one forward launched {got}, "
+                                 f"expected {want}")
+            if not bool(torch.isfinite(out.float()).all()):
+                raise SystemExit(f"{name}: bf16 output not finite")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                run_block(pred, x)
+            end.record()
+            torch.cuda.synchronize()
+            for n, c in launch_counts().items():
+                total[n] += c
+        ms = start.elapsed_time(end) / 10
+        # (b) float32 folded predict, card against CPU
+        x2 = block_input(spec, BLOCK_TRAIN_BATCH, seed=1)
+        with torch.no_grad():
+            want_f32 = run_block(folded, x2)
+            got_f32 = run_block(copy.deepcopy(folded).to(dev), x2.to(dev))
+        d_pred = _max_rel(got_f32, want_f32)
+        # (c) float32 train-mode forward + backward, card and CPU each
+        # against float64 on the card
+        r = torch.randn(want_f32.shape, generator=torch.Generator()
+                        .manual_seed(2)) / want_f32.numel() ** 0.5
+        runs = {}
+        for label, device, dtype in (("ref", dev, torch.float64),
+                                     ("cpu", "cpu", torch.float32),
+                                     ("card", dev, torch.float32)):
+            m = copy.deepcopy(master).to(device, dtype).train()
+            xt = x2.to(device, dtype, copy=True).requires_grad_(True)
+            o = run_block(m, xt)
+            (o * r.to(device, dtype)).sum().backward()
+            runs[label] = {k: None if g is None else g.detach().cpu().double()
+                           for k, g in (("output", o), ("input", xt.grad),
+                                        *((k, p.grad) for k, p in
+                                          m.named_parameters()))}
+        ref = runs["ref"]
+        top = max(float(g.abs().max()) for k, g in ref.items()
+                  if k != "output" and g is not None)
+        zero, worst, worst_key, d_train = [], 0.0, "", 0.0
+        for k, g in ref.items():
+            if g is None:
+                continue
+            big = float(g.abs().max())
+            if k != "output" and big <= BLOCK_ZERO * top:
+                # a gradient that is zero by construction (a shift that a
+                # train-mode BatchNorm downstream removes)
+                zero.append(k)
+                got_max = max(float(runs[n][k].abs().max())
+                              for n in ("cpu", "card"))
+                if got_max > BLOCK_ZERO_TOL * top:
+                    raise SystemExit(f"{name}: {k}'s gradient is zero by "
+                                     f"construction but reads {got_max:.2e}"
+                                     f" (G = {top:.2e})")
+                continue
+            d_card, d_cpu = (float((runs[n][k] - g).norm() / g.norm())
+                             for n in ("card", "cpu"))
+            tol = max(BLOCK_F32_TOL if k == "output" else BLOCK_GRAD_TOL,
+                      BLOCK_CPU_FACTOR * d_cpu)
+            if k == "output":
+                d_train = d_card
+            elif d_card / tol > worst:
+                worst, worst_key = d_card / tol, f"{k} {d_card:.2e} (CPU " \
+                    f"{d_cpu:.2e})"
+            if d_card > tol:
+                raise SystemExit(f"{name}: {k}: the card's float32 is "
+                                 f"{d_card:.2e} from float64, the CPU's "
+                                 f"{d_cpu:.2e} (limit {tol:.2e})")
+        acts = ", ".join(f"{'s1' if n == 'conv3x3_silu' else 's2'} {a} "
+                         f"Ci={ci}" for n, a, ci in convs)
+        launched = {k: v for k, v in got.items() if v}
+        print(f"  {name} [{source}] b{BLOCK_BATCH}x{chw[0]}x{chw[1]}x{chw[2]} "
+              f"-> {tuple(out.shape[1:])}: bf16 forward {ms:.4f} ms (CUDA "
+              f"events, mean of 10); launches {launched} "
+              f"({acts or 'no kernel conv'}); f32 predict "
+              f"card vs CPU max|d|/max|ref| {d_pred:.2e}; train, against "
+              f"float64: output {d_train:.2e}, {len(ref) - 1} gradients, "
+              f"the nearest its limit {worst_key or 'none'}, zero by "
+              f"construction {zero or 'none'}", flush=True)
+        if d_pred > BLOCK_F32_TOL:
+            raise SystemExit(f"{name}: float32 predict, card and CPU "
+                             f"disagree ({d_pred:.2e})")
+    print(f"  kernel launches of phase 15a's forwards: {total}", flush=True)
+    return total
+
+
+def phase_convert(dev, state, conf) -> dict:
+    """Phase 15d: convert_checkpoint on the card's host: phase 3's seeded
+    v8s state dict written by torch.save and as .safetensors, each
+    converted to .bin in float32 and float16, loaded into a YoloTask and
+    served phase 3's b32 batch; float32 must equal the directly loaded
+    weights' results, float16 those of the state rounded to float16.
+    Returns the kernel launches."""
+    from yolosharp_tpu_torch import YoloTask, convert_checkpoint
+    from yolosharp_tpu_torch.ckpt import save_safetensors
+    from yolosharp_tpu_torch.kernels import (launch_counts,
+                                             reset_launch_counts)
+
+    print("phase 15d: convert_checkpoint of phase 3's v8s weights (.pt by "
+          "torch.save, .safetensors) to .bin float32 and float16, each "
+          "served a b32 batch against the directly loaded weights",
+          flush=True)
+    batch = synthetic_images(SERVED_BATCH, 640, 640, 20)
+    # the NMS model's weights: phase 3's End2End master without one2one
+    cpu_state = {k: v.detach().cpu() for k, v in state.items()
+                 if "one2one" not in k}
+    counts = dict.fromkeys(SOURCES, 0)
+
+    def serve(load):
+        task = YoloTask(path_config("v8", end2end=False, nms_pre_topk=512),
+                        device=dev)
+        load(task)
+        reset_launch_counts()
+        res = task.batch_predict(batch, conf)
+        for n, c in launch_counts().items():
+            counts[n] += c
+        return [[(r.class_id, r.score, r.center_x, r.center_y, r.width,
+                  r.height) for r in rs] for rs in res]
+
+    def direct(sd):
+        return lambda t: t.task._ensure_variables().load_state_dict(
+            {k: v.to(dev) for k, v in sd.items()}, strict=True)
+
+    half = {k: (v.half().float() if v.is_floating_point() else v)
+            for k, v in cpu_state.items()}
+    want = {None: serve(direct(cpu_state)), np.float16: serve(direct(half))}
+    with tempfile.TemporaryDirectory() as d:
+        srcs = {"pt": os.path.join(d, "v8s.pt"),
+                "safetensors": os.path.join(d, "v8s.safetensors")}
+        torch.save(cpu_state, srcs["pt"])
+        save_safetensors(srcs["safetensors"], cpu_state)
+        for fmt, src in srcs.items():
+            for dtype in (None, np.float16):
+                dst = os.path.join(d, f"v8s_{fmt}_{dtype}.bin")
+                t = time.perf_counter()
+                n = convert_checkpoint(src, dst, dtype)
+                s = time.perf_counter() - t
+                got = serve(lambda task: task.load_model(dst))
+                rows = sum(len(r) for r in got)
+                same = got == want[dtype]
+                print(f"  {fmt} -> .bin {np.dtype(dtype or np.float32)}: "
+                      f"{n} tensors, {os.path.getsize(dst)} bytes in "
+                      f"{s * 1e3:.1f} ms; served {rows} rows, equal to the "
+                      f"directly loaded {'float16-rounded ' if dtype else ''}"
+                      f"weights': {same}", flush=True)
+                if not same or n != len(cpu_state) or not rows:
+                    raise SystemExit(f"convert_checkpoint {fmt} {dtype}: "
+                                     f"results differ")
+    return counts
+
+
+def phase_profile(dev, root, tag):
+    """Phase 15e: Config.profile_dir on the card: v8n-320 b8, one epoch of
+    six steps; the trace must exist, hold CUDA kernel events and span
+    steps 2-5."""
+    from yolosharp_tpu_torch import YoloSize, YoloTask
+
+    print("phase 15e: profile_dir: v8n-320 b8 train(), one epoch of 6 "
+          "steps on 48 PNGs, torch.profiler over steps 2-5", flush=True)
+    prof = os.path.join(root, "prof")
+    task = YoloTask(_train_config(root, "v8", yolo_size=YoloSize.n,
+                                  image_size=320, batch_size=8,
+                                  profile_dir=prof,
+                                  output_path=os.path.join(root, "run")),
+                    device=dev)
+    t = time.perf_counter()
+    task.train()
+    path = task.task.trace_path
+    steps = len(task.task.epoch_stats[0]["step_s"])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    # each span is a CPU event and, with CUDA activities, a GPU annotation
+    spans = sorted({int(e["name"].split()[-1]) for e in events
+                    if str(e.get("name", "")).startswith("train step ")})
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(float(e.get("dur", 0)) for e in kernels) / 1e3
+    print(f"  {tag}: train() {time.perf_counter() - t:.1f} s, {steps} steps; "
+          f"trace {path} ({os.path.getsize(path)} bytes): step spans "
+          f"{spans}, {len(kernels)} CUDA kernel events, {busy:.2f} ms of "
+          f"kernel time", flush=True)
+    if steps != 6 or spans != [2, 3, 4, 5] or not kernels:
+        raise SystemExit("profile_dir: the trace does not hold steps 2-5 "
+                         "with CUDA kernels")
+
+
+def phase_unported(dev):
+    """Phase 15f: the Config settings the port does not run yet raise
+    NotImplementedError where the JAX package acts on them."""
+    from yolosharp_tpu_torch import YoloTask
+
+    print("phase 15f: int8_predict, fsdp, resume_format='orbax' and a "
+          "multi-device mesh_shape raise", flush=True)
+    img = synthetic_images(1, 64, 64, 1)[0]
+    for field, value, where in (("int8_predict", True, "predict"),
+                                ("fsdp", True, "train"),
+                                ("resume_format", "orbax", "train"),
+                                ("mesh_shape", (2,), "train"),
+                                ("mesh_shape", (1, 2), "predict")):
+        task = YoloTask(path_config("v8", **{field: value}), device=dev)
+        try:
+            task.train() if where == "train" else task.image_predict(img)
+        except NotImplementedError as e:
+            print(f"  {field}={value!r} at {where}: NotImplementedError: {e}",
+                  flush=True)
+            continue
+        raise SystemExit(f"{field}={value!r} did not raise at {where}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3438,6 +3915,15 @@ def main() -> int:
                                         states["v8"], confs["v8"], tag)
         add(jpeg_served, launches)
         add(jpeg_train, train_launches)
+    t15 = time.perf_counter()
+    add(timed("15a-c", phase_blocks, dev, tag), launches)
+    add(timed("15d", phase_convert, dev, states["v8"], confs["v8"]),
+        launches)
+    with tempfile.TemporaryDirectory() as root:
+        write_dataset(root, 48, 8, seed=16)
+        timed("15e", phase_profile, dev, root, tag)
+    timed("15f", phase_unported, dev)
+    print(f"  (phase 15: {time.perf_counter() - t15:.1f} s wall)", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules

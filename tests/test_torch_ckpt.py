@@ -153,7 +153,8 @@ def test_files_written_by_the_port_load_in_the_jax_package(fmt, tmp_path):
 @pytest.mark.parametrize("wrap", ["state_dict", "model"])
 def test_pt_files_load_alike_in_both_packages(wrap, tmp_path):
     """A torch.save checkpoint: a plain state dict, and an Ultralytics-style
-    {"model": nn.Module} whose names are rebuilt from the module tree."""
+    {"model": nn.Module} whose names are rebuilt from the module tree; every
+    tensor in torch's own shape (the JAX reader makes a 0-d one 1-d)."""
     torch.manual_seed(0)
     net = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3),
                               torch.nn.BatchNorm2d(4))
@@ -166,6 +167,12 @@ def test_pt_files_load_alike_in_both_packages(wrap, tmp_path):
     assert list(got) == list(want)
     assert set(got) == set(net.state_dict())
     for k in want:
+        assert tuple(got[k].shape) == tuple(net.state_dict()[k].shape), k
+        if net.state_dict()[k].dim() == 0:
+            # the 0-d num_batches_tracked: the JAX reader makes it (1,)
+            assert want[k].shape == (1,)
+            _same(got[k], want[k].reshape(()))
+            continue
         _same(got[k], want[k])
     assert got["0.weight"].dtype == torch.bfloat16
     assert torch.equal(got["0.weight"], net[0].weight.detach())

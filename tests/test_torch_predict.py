@@ -165,7 +165,8 @@ def test_port_runs_without_jax(tmp_path):
     """Importing every module of the port, predicting on the CPU (detect,
     segment with its masks, pose with its keypoints, OBB with its angle
     and through predict_stream, classify's top 5 and its stream), the OBB
-    labels' minimum-area rectangle, and saving and loading a checkpoint
+    labels' minimum-area rectangle, saving, loading and converting a
+    checkpoint, and the folded forward of blocks no zoo model builds
     loads neither jax nor flax nor cv2 (the GPU
     machine has none of them), nor any module of the JAX package
     yolosharp_tpu."""
@@ -223,6 +224,16 @@ def test_port_runs_without_jax(tmp_path):
         "from yolosharp_tpu_torch.ops import xyxyxyxy2xywhr\n"
         "assert xyxyxyxy2xywhr(np.float32([[[0, 0], [10, 0], [10, 5], "
         "[0, 5]]])).shape == (1, 5)\n"
+        "import torch\n"
+        "from yolosharp_tpu_torch import convert_checkpoint\n"
+        "from yolosharp_tpu_torch.ckpt import fold_bn\n"
+        "from yolosharp_tpu_torch.nn import C3TR, HGStem, RepC3\n"
+        f"assert convert_checkpoint({path!r}, {path + '.f16'!r}, "
+        "np.float16) > 0\n"
+        "x = torch.zeros(1, 3, 32, 32)\n"
+        "for m in (HGStem(3, 8, 16), RepC3(16, 16, 1), C3TR(16, 32)):\n"
+        "    x = fold_bn(m.eval())(x)\n"
+        "assert x.shape == (1, 32, 8, 8), x.shape\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
         "'ml_dtypes', 'yolosharp_tpu') or m.startswith(('jax.', 'flax.', "
         "'yolosharp_tpu.'))]\n"

@@ -19,7 +19,9 @@ copies under the same names. Modules:
 - ``nn``: the v5u / v8 / v11 / v12 detect, segment, pose, OBB and classify
   networks
   (train and eval BatchNorm with the JAX package's statistics, BN-folded
-  predict);
+  predict), and the library's other blocks (Conv2, GhostConv, RepConv,
+  CBAM, C1 / C2 / C3x / RepC3 / C3Ghost / C3TR, the v10 and HGNetV2
+  blocks, AGLU, ...);
 - ``ops``: boxes (``clip_keypoints``, the OBB corner forms), the cv2-free
   minimum-area rectangle (``rect``), IoU (``box_iou``, ``bbox_iou``,
   ``mask_iou``, the OKS ``kpt_iou``, ``probiou``), anchors, NMS (greedy,
@@ -36,14 +38,16 @@ copies under the same names. Modules:
   planner and device render of images and masks (``device_augment``),
   datasets (``YoloDataset``, ``ClassificationDataset``), loader;
 - ``utils``: val metrics, early stopping, the CSV log;
-- ``ckpt``: checkpoint formats, BN folding, the JAX bridge, and
-  ``resume`` (the full train state);
+- ``ckpt``: checkpoint formats and ``convert_checkpoint`` (any of them to
+  ``.bin``), BN folding, the JAX bridge, and ``resume`` (the full train
+  state);
 - ``predict``, ``tasks``: decode and the task layer / YoloTask facade;
 - ``kernels`` + ``csrc``: the hand-written CUDA kernels (3x3 conv, fused
   C2f, fused attention, the last also under autograd for training), each
   in float32, bfloat16 and float16.
 """
 
+from .ckpt import convert_checkpoint
 from .config import Config
 from .tasks import (Classifier, Detector, Obber, PoseDetector, Segmenter,
                     YoloTask)
@@ -52,4 +56,5 @@ from .types import (KeyPoint, ScalarType, TaskType, YoloResult, YoloSize,
 
 __all__ = ["Classifier", "Config", "Detector", "KeyPoint", "Obber",
            "PoseDetector", "ScalarType", "Segmenter", "TaskType",
-           "YoloResult", "YoloSize", "YoloTask", "YoloType"]
+           "YoloResult", "YoloSize", "YoloTask", "YoloType",
+           "convert_checkpoint"]

@@ -73,9 +73,21 @@ def skip_patterns_for_nc_mismatch(task: str, head_idx: int,
     return tuple(pats)
 
 
+def _grouped_transpose_kernel(val: np.ndarray, g: int) -> np.ndarray:
+    """A grouped transposed conv's HWIO kernel (k, k, c1 / g, c2), as the
+    JAX DWConvTranspose2d holds it, in torch's (c1, c2 / g, k, k) layout:
+    input channel i * c1/g + j feeds output i * c2/g + o through
+    kernel[..., j, i * c2/g + o]."""
+    kh, kw, c1g, c2 = val.shape
+    return (val.reshape(kh, kw, c1g, g, c2 // g).transpose(3, 2, 4, 0, 1)
+            .reshape(g * c1g, c2 // g, kh, kw))
+
+
 def variables_to_state_dict(variables, reg_max: int = 16,
                             include_one2one: bool = False,
-                            dtype=np.float32) -> Dict[str, np.ndarray]:
+                            dtype=np.float32,
+                            transposed_groups: Optional[Dict[str, int]] = None
+                            ) -> Dict[str, np.ndarray]:
     """Export a JAX variables tree ({"params", "batch_stats"} of arrays, or
     of anything ``np.asarray`` takes) as a torch-named state dict.
 
@@ -84,7 +96,19 @@ def variables_to_state_dict(variables, reg_max: int = 16,
     reference expects on load (it falls back to random weights on count
     mismatch, YoloBaseTaskModel.cs:32-35). one2one branches are excluded by
     default, as in SaveWeight (YoloBaseTaskModel.cs:474-480).
+
+    Two leaves go where the JAX exporter does not send them, to torch's
+    layouts. A TransformerLayer's ``ma.in_proj_weight`` is (c, 3c) in the
+    JAX tree (``x @ w``); torch's nn.MultiheadAttention holds (3c, c), so it
+    is transposed here (the JAX exporter writes it as it is). A
+    DWConvTranspose2d's kernel sits under a name the exporter cannot tell
+    from a forward conv's, and its torch layout depends on the groups:
+    ``transposed_groups`` maps such a module's JAX path (e.g. ``"0"``, or
+    ``"3.m"``) to its groups, gcd(c1, c2). Without an entry it is exported
+    as a forward conv's (c2, c1 / g, k, k), which is torch's (c1, c2 / g,
+    k, k) only where c1 == c2.
     """
+    transposed_groups = transposed_groups or {}
     params_flat = flatten(variables["params"])
     stats_flat = flatten(variables.get("batch_stats", {}))
     head_idx = head_index(variables["params"])
@@ -101,6 +125,11 @@ def variables_to_state_dict(variables, reg_max: int = 16,
         val = np.asarray(val)
         if leaf == "scale":
             put(f"{stem}.weight", val)
+        elif leaf == "kernel" and stem in transposed_groups:
+            put(f"{stem}.weight",
+                _grouped_transpose_kernel(val, transposed_groups[stem]))
+        elif leaf == "in_proj_weight":
+            put(key, val.T)
         elif leaf == "kernel":
             if val.ndim == 4:
                 perm = (2, 3, 0, 1) if parent in _TRANSPOSE_CT else (3, 2, 0, 1)
@@ -139,11 +168,15 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(a))   # a copy; keeps 0-d shapes
 
 
-def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(variables,
+                        transposed_groups: Optional[Dict[str, int]] = None
+                        ) -> Dict[str, torch.Tensor]:
     """A JAX variables tree (of numpy arrays, or of anything ``np.asarray``
     takes) as a torch state dict (one2one towers included) that
-    ``YoloNet.load_state_dict(..., strict=True)`` takes."""
-    sd = variables_to_state_dict(variables, include_one2one=True)
+    ``YoloNet.load_state_dict(..., strict=True)`` takes;
+    ``transposed_groups`` as in ``variables_to_state_dict``."""
+    sd = variables_to_state_dict(variables, include_one2one=True,
+                                 transposed_groups=transposed_groups)
     return {k: _tensor(v) for k, v in sd.items()}
 
 

@@ -70,7 +70,9 @@ class _Tensor:
             flat[self.offset:],
             shape=self.size,
             strides=tuple(s * itemsize for s in self.stride))
-        arr = np.ascontiguousarray(arr)
+        # a copy in C order; np.ascontiguousarray, which the JAX package's
+        # reader takes, would make a 0-d tensor (num_batches_tracked) 1-d
+        arr = np.array(arr, order="C")
         return bf16_from_bits(arr) if self.storage.bf16 else arr
 
 

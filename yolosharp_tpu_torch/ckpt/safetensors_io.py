@@ -57,7 +57,8 @@ def save_safetensors(path: str, state_dict: Dict[str, Array]) -> None:
         else:
             if isinstance(arr, torch.Tensor):
                 arr = arr.detach().cpu().numpy()
-            arr = np.ascontiguousarray(arr)
+            # not np.ascontiguousarray, which makes a 0-d tensor 1-d
+            arr = np.asarray(arr, order="C")
             code = codes[arr.dtype]
         nbytes = arr.nbytes
         header[name] = {"dtype": code, "shape": list(arr.shape),

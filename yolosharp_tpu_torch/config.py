@@ -6,7 +6,11 @@ Parity target: Data/Config.cs:10-355. ``compute_dtype`` (a jax.numpy dtype)
 is not copied: ``torch_dtype`` takes its place. The fields under "TPU-only
 knobs" are routing and layout switches of the JAX package; the port keeps
 them so that a config carries over unchanged, and ignores them (on CUDA
-every layer its kernels can compute goes through them)."""
+every layer its kernels can compute goes through them). The fields marked
+"not ported yet" (int8_predict, fsdp, resume_format="orbax", a mesh_shape
+of more than one device) are JAX features the port does not run yet: set,
+they raise NotImplementedError where the JAX package would act on them
+(``tasks.refuse_unported``), not when a Config is made."""
 
 from __future__ import annotations
 
@@ -89,6 +93,7 @@ class Config:
     # (the field order is the JAX package's, so config.txt reads the same)
     pallas_conv: bool = False
     s2d_max_cin: int = 0
+    # not ported yet (ROADMAP.md queue 1, item 4): True raises at predict
     int8_predict: bool = False
     # ---- the mosaic's render and the fp16 flag, which the port reads:
     # mosaic epochs with mosaic >= 1 plan each batch on the host and render
@@ -98,7 +103,7 @@ class Config:
     # > 0: mosaic partners of the device render drawn from this many extra
     # images of the whole dataset per batch, not from the batch alone
     mosaic_partner_pool: int = 0
-    fsdp: bool = False                  # TPU-only, ignored
+    fsdp: bool = False      # not ported yet: True raises at train()
     # True fp16 compute with dynamic loss scaling (Amp.cs:3-176); every
     # kernel of the port has a float16 route
     true_fp16: bool = False
@@ -111,12 +116,17 @@ class Config:
     train_packed_depth: int = 2
     separable_render: bool = True
     xla_predict_tuning: bool = True
+    # a torch.profiler trace of train steps 2-5 of the first epoch, written
+    # here as Chrome-trace JSON
     profile_dir: Optional[str] = None
+    # "orbax" is not ported yet: it raises at train()
     resume_format: str = "npz"
     val_shape_buckets: int = 4
     occupancy_hint: bool = True
     max_labels: Optional[int] = None   # per-image gt padding (None = auto)
-    mesh_shape: Optional[Tuple[int, ...]] = None  # data-parallel mesh (auto)
+    # data-parallel mesh; not ported yet: more than one device raises at
+    # train() and predict
+    mesh_shape: Optional[Tuple[int, ...]] = None
     cache_images: bool = True          # eager RAM cache like the reference
 
     @property

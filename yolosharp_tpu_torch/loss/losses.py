@@ -1,6 +1,6 @@
-"""Detection, OBB, segmentation, pose and classification losses and the
-End2End pair (counterpart of yolosharp_tpu/loss/losses.py:36-415,
-:436-491; parity target YoloSharp/Utils/Loss.cs:94-1091 and 1094-1176).
+"""Detection, OBB, segmentation, pose and classification losses, the
+End2End pair, and the focal and BCE-blur losses no task uses (counterpart
+of yolosharp_tpu/loss/losses.py; parity target YoloSharp/Utils/Loss.cs).
 
 Losses are functions over padded batches on the device:
   batch = {"cls": (B, M) int, "bboxes": (B, M, 4) normalised xywh (OBB:
@@ -50,6 +50,26 @@ def bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Elementwise binary cross-entropy with logits."""
     return (logits.clamp(min=0) - logits * targets
             + torch.log1p(torch.exp(-logits.abs())))
+
+
+def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+               gamma: float = 1.5, alpha: float = 0.25) -> torch.Tensor:
+    """Focal loss over BCE with logits, mean over every element
+    (Loss.cs:55-92)."""
+    prob = torch.sigmoid(logits)
+    p_t = targets * prob + (1 - targets) * (1 - prob)
+    alpha_factor = targets * alpha + (1 - targets) * (1 - alpha)
+    return (bce_logits(logits, targets) * alpha_factor
+            * (1.0 - p_t) ** gamma).mean()
+
+
+def bce_blur_loss(logits: torch.Tensor, targets: torch.Tensor,
+                  alpha: float = 0.05) -> torch.Tensor:
+    """BCE with logits, damped where the prediction exceeds a missing label,
+    mean over every element (Loss.cs:29-53)."""
+    dx = torch.sigmoid(logits) - targets
+    alpha_factor = 1 - torch.exp((dx - 1) / (alpha + 1e-4))
+    return (bce_logits(logits, targets) * alpha_factor).mean()
 
 
 def _dfl_loss(pred_dist_logits: torch.Tensor, target: torch.Tensor,

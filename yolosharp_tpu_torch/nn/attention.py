@@ -1,6 +1,7 @@
-"""Attention blocks: PSA of the v11 detector and area attention of the v12
-detector (counterpart of yolosharp_tpu/nn/attention.py: AttentionPSA,
-PSABlock, C2PSA, AAttn, ABlock, A2C2f).
+"""Attention blocks: PSA of the v11 detector, area attention of the v12
+detector and the transformer blocks no zoo model builds (counterpart of
+yolosharp_tpu/nn/attention.py: AttentionPSA, PSABlock, C2PSA, AAttn, ABlock,
+A2C2f, TransformerLayer, TransformerBlock, C3TR).
 
 The area attention runs ``kernels.attention_bihd``: the hand-written CUDA
 kernel on CUDA tensors, its plain version on CPU tensors. PSA's keys are
@@ -10,15 +11,18 @@ float32 cast back to the activations' type. As in
 the JAX package, qkv / proj / pe are the reference's Conv blocks with SiLU
 (a deliberate deviation from Ultralytics, docs/IMPLEMENTATION_STATUS.md);
 PSA's ``pe`` is a 3x3 depthwise conv, AAttn's a 7x7 one with a conv bias.
+C3TR's TransformerLayer is einsum code in the JAX package too, so it is
+plain torch here.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import attention_bihd
-from .common import C3k, ConvBN
+from .common import C3, C3k, ConvBN
 
 
 class AttentionPSA(nn.Module):
@@ -163,3 +167,81 @@ class A2C2f(nn.Module):
         if self.gamma is None:
             return out
         return x + self.gamma.to(out.dtype).view(1, -1, 1, 1) * out
+
+
+def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A Linear in its input's type (float32 master weights cast, as the
+    port's Conv2d casts)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+class TransformerLayer(nn.Module):
+    """ViT-style layer without LayerNorm (Transformer.cs:53-91), on (B, N,
+    C): q / k / v Linears, then the in-projection, attention and out_proj of
+    ``ma`` (a torch nn.MultiheadAttention, so its state dict loads as
+    torch's: in_proj_weight (3c, c)), the softmax in float32 cast back, a
+    residual, then fc1 -> fc2 and a residual. The math is the JAX
+    package's; the weights run in the input's type."""
+
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = nn.Linear(c, c, bias=False)
+        self.k = nn.Linear(c, c, bias=False)
+        self.v = nn.Linear(c, c, bias=False)
+        self.ma = nn.MultiheadAttention(c, num_heads)
+        self.fc1 = nn.Linear(c, c, bias=False)
+        self.fc2 = nn.Linear(c, c, bias=False)
+
+    def attention(self, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+        """``ma``'s multi-head attention of (B, N, C) q, k, v."""
+        b, n, c = q.shape
+        nh = self.num_heads
+        hd = c // nh
+        w = self.ma.in_proj_weight.to(q.dtype)
+        bias = self.ma.in_proj_bias.to(q.dtype)
+        q, k, v = (F.linear(t, w[i * c:(i + 1) * c], bias[i * c:(i + 1) * c])
+                   .reshape(b, n, nh, hd) for i, t in enumerate((q, k, v)))
+        attn = torch.einsum("bihd,bjhd->bhij", q * hd ** -0.5, k)
+        attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
+        o = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(b, n, c)
+        return _linear(self.ma.out_proj, o)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.attention(_linear(self.q, x), _linear(self.k, x),
+                           _linear(self.v, x)) + x
+        return _linear(self.fc2, _linear(self.fc1, x)) + x
+
+
+class TransformerBlock(nn.Module):
+    """A ConvBN where c1 != c2, a learned position embedding (``linear``:
+    p + linear(p)) and num_layers TransformerLayers over the H*W sequence
+    (Transformer.cs:8-48)."""
+
+    def __init__(self, c1: int, c2: int, num_heads: int, num_layers: int):
+        super().__init__()
+        self.c2 = c2
+        self.conv = ConvBN(c1, c2) if c1 != c2 else None
+        self.linear = nn.Linear(c2, c2)
+        self.tr = nn.Sequential(*(TransformerLayer(c2, num_heads)
+                                  for _ in range(num_layers)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv is not None:
+            x = self.conv(x)
+        b, c, h, w = x.shape
+        p = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        p = self.tr(p + _linear(self.linear, p))
+        return p.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class C3TR(C3):
+    """C3 whose inner stack is a TransformerBlock of 4 heads and n layers
+    (Block.cs:499-520)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 0, e=e)
+        c_ = int(c2 * e)
+        self.m = TransformerBlock(c_, c_, 4, n)

@@ -1,5 +1,6 @@
-"""Conv / CSP building blocks of the v5u, v8, v11 and v12 detectors and the
-segment head's Proto as torch modules (counterpart of
+"""Conv / CSP building blocks of the v5u, v8, v11 and v12 detectors, the
+segment head's Proto, and the rest of the library's blocks that no zoo
+model builds (Conv2 ... AGLU, at the end), as torch modules (counterpart of
 yolosharp_tpu/nn/common.py, plain branches only).
 
 Modules run NCHW tensors in ``torch.channels_last`` memory, so
@@ -66,7 +67,9 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
-                                  self.stride, self.padding)
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
@@ -121,16 +124,24 @@ class ConvBN(nn.Module):
     def kernel_route(self) -> bool:
         return conv3x3.supported(self.k, self.s, self.p, self.d, self.g)
 
+    def unfolded_weight(self) -> torch.Tensor:
+        """The OIHW weight of the conv the BatchNorm follows, which
+        ckpt.fuse.fold_bn scales."""
+        return self.conv.weight
+
     def set_folded(self, w_oihw: torch.Tensor, bias: torch.Tensor) -> None:
         """Store folded weights in the layout this conv's route reads."""
         self.w_fold = (w_oihw.permute(2, 3, 1, 0).contiguous()
                        if self.kernel_route else w_oihw.contiguous())
         self.b_fold = bias.contiguous()
 
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.b_fold is None:
             bn = batch_norm_train if self.training else batch_norm_eval
-            return ACTS[self.act](bn(self.conv(x), self.bn))
+            return ACTS[self.act](bn(self._conv(x), self.bn))
         if self.kernel_route:
             fn = conv3x3.conv3x3_silu if self.s == 1 else conv3x3.conv3x3s2_silu
             return fn(_nhwc(x), self.w_fold, self.b_fold,
@@ -316,3 +327,412 @@ class Concat(nn.Module):
 
     def forward(self, xs) -> torch.Tensor:
         return torch.cat(xs, 1)
+
+
+# ------------------------------------------------------------------------
+# The rest of the library's blocks (yolosharp_tpu/nn/common.py:884-1716).
+# No v5u / v8 / v11 / v12 model builds them; each is a module of the
+# library, with the JAX package's math and Ultralytics' state-dict names.
+
+
+class Conv2(ConvBN):
+    """Simplified RepConv (Convs.cs:67-103): a k x k conv and a 1x1 conv
+    (``cv2``) that share one BatchNorm, both run in train and eval-BN
+    mode, as in the JAX package. Folded, the 1x1 kernel joins the centre
+    tap of the k x k one (the reference's lazy fuse; both scale by the
+    shared gamma / sqrt(var + eps)), so a 3x3 Conv2 takes the conv kernel."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1,
+                 p: Optional[int] = None, g: int = 1, d: int = 1,
+                 act: str = "silu"):
+        super().__init__(c1, c2, k, s, p, g, d, act=act)
+        self.cv2 = Conv2d(c1, c2, 1, s, 0, dilation=d, groups=g, bias=False)
+
+    def unfolded_weight(self) -> torch.Tensor:
+        w = self.conv.weight.clone()
+        c = self.k // 2
+        w[:, :, c, c] += self.cv2.weight[:, :, 0, 0]
+        return w
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) + self.cv2(x)
+
+
+class LightConv(nn.Module):
+    """A 1x1 ConvBN without activation, then a depthwise k x k one
+    (Convs.cs:119-134)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, act: str = "relu"):
+        super().__init__()
+        self.conv1 = ConvBN(c1, c2, 1, act="identity")
+        self.conv2 = DWConv(c2, c2, k, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
+class DWConvTranspose2d(ConvTranspose2d):
+    """Depthwise transpose conv, groups = gcd(c1, c2), with a bias
+    (Convs.cs:139-152). The weight is torch's (c1, c2 / g, k, k); the JAX
+    kernel (k, k, c1 / g, c2) crosses over by ``state_dict_from_jax``'s
+    ``transposed_groups``."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 p1: int = 0):
+        super().__init__(c1, c2, k, s, p1, groups=math.gcd(c1, c2))
+
+
+class Index(nn.Module):
+    """Select one tensor of a list (Convs.cs:453-466)."""
+
+    def __init__(self, index: int = 0):
+        super().__init__()
+        self.index = index
+
+    def forward(self, xs):
+        return xs[self.index]
+
+
+class ConvTranspose(nn.Module):
+    """ConvTranspose2d + optional BatchNorm + activation (Convs.cs:157-182;
+    with bn=False the transposed conv has a bias). ckpt.fuse.fold_bn folds
+    the BatchNorm into the transposed kernel's output channels."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0,
+                 bn: bool = True, act: str = "silu"):
+        super().__init__()
+        self.act = act
+        self.conv_transpose = ConvTranspose2d(c1, c2, k, s, p, bias=not bn)
+        self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03) if bn else None
+        self.register_buffer("w_fold", None, persistent=False)
+        self.register_buffer("b_fold", None, persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.b_fold is not None:
+            ct = self.conv_transpose
+            y = F.conv_transpose2d(x, self.w_fold, self.b_fold, ct.stride,
+                                   ct.padding)
+        else:
+            y = self.conv_transpose(x)
+            if self.bn is not None:
+                bn = batch_norm_train if self.training else batch_norm_eval
+                y = bn(y, self.bn)
+        return ACTS[self.act](y)
+
+
+class Focus(nn.Module):
+    """Space-to-channel stem: the four 2x2 pixel phases stacked on the
+    channels, then a ConvBN (Convs.cs:187-206)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.conv = ConvBN(4 * c1, c2, k, s)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2],
+                                    x[..., ::2, 1::2], x[..., 1::2, 1::2]],
+                                   1))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: half the channels from a k x k ConvBN, half from
+    a cheap depthwise 5x5 one over them (Convs.cs:211-228)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 act: str = "silu"):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBN(c1, c_, k, s, act=act)
+        self.cv2 = ConvBN(c_, c_, 5, 1, g=c_, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class RepConv(nn.Module):
+    """Training-mode RepVGG conv: 3x3 and 1x1 ConvBNs without activation,
+    plus an identity BatchNorm (``bn``, with the FastBN statistics rule)
+    when asked for and c1 == c2 at stride 1 (Convs.cs:233-359). The branch
+    ConvBNs fold like any other; the identity BN stays a real BN."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1,
+                 bn: bool = False, act: str = "silu"):
+        super().__init__()
+        self.act = act
+        self.conv1 = ConvBN(c1, c2, 3, s, 1, g, act="identity")
+        self.conv2 = ConvBN(c1, c2, 1, s, 0, g, act="identity")
+        self.bn = (nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
+                   if bn and c1 == c2 and s == 1 else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(x) + self.conv2(x)
+        if self.bn is not None:
+            bn = batch_norm_train if self.training else batch_norm_eval
+            y = y + bn(x, self.bn)
+        return ACTS[self.act](y)
+
+
+class ChannelAttention(nn.Module):
+    """Squeeze-excite channel gate: a biased 1x1 conv over the spatial
+    mean, sigmoid (Convs.cs:365-382)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.fc = Conv2d(channels, channels, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.fc(x.mean((2, 3), keepdim=True)))
+
+
+class SpatialAttention(nn.Module):
+    """Spatial gate: a k x k conv over the channel mean and max, sigmoid
+    (Convs.cs:387-410)."""
+
+    def __init__(self, kernel_size: int = 7):
+        super().__init__()
+        self.cv1 = Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
+                          bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        stats = torch.cat([x.mean(1, keepdim=True),
+                           x.amax(1, keepdim=True)], 1)
+        return x * torch.sigmoid(self.cv1(stats))
+
+
+class CBAM(nn.Module):
+    """Convolutional Block Attention Module: the channel gate, then the
+    spatial gate (Convs.cs:415-430)."""
+
+    def __init__(self, c1: int, kernel_size: int = 7):
+        super().__init__()
+        self.channel_attention = ChannelAttention(c1)
+        self.spatial_attention = SpatialAttention(kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.spatial_attention(self.channel_attention(x))
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck (Block.cs:540-567): GhostConv, a depthwise k x k
+    stride-2 ConvBN at s = 2, GhostConv without activation; the shortcut
+    is the input, or at s = 2 a depthwise and a 1x1 ConvBN."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            DWConv(c_, c_, k, s, act="identity") if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1, act="identity"))
+        self.shortcut = (nn.Sequential(
+            DWConv(c1, c1, k, s, act="identity"),
+            ConvBN(c1, c2, 1, 1, act="identity")) if s == 2
+            else nn.Identity())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) + self.shortcut(x)
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: cv1, then max pools of each size beside it,
+    concatenated, then cv2 (Block.cs:195-231)."""
+
+    def __init__(self, c1: int, c2: int, k: Tuple[int, ...] = (5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [max_pool_same(y, k)
+                                         for k in self.k], 1))
+
+
+class C1(nn.Module):
+    """CSP bottleneck with one conv (Block.cs:290-320): cv1, then a 3x3
+    ConvBN with a residual. The reference builds exactly one inner conv
+    whatever n is (Block.cs:306), as the JAX package does."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+        self.m = nn.Sequential(ConvBN(c2, c2, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return self.m(y) + y
+
+
+class C2(nn.Module):
+    """CSP bottleneck with two convs (Block.cs:325-366): cv1 split in two
+    halves, the first through n bottlenecks (e = 1.0), concatenated with the
+    second, cv2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * self.c, 1, 1)
+        self.cv2 = ConvBN(2 * self.c, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(self.c, self.c, shortcut, g,
+                                            (3, 3), 1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split(self.c, dim=1)
+        return self.cv2(torch.cat([self.m(a), b], 1))
+
+
+class C3x(C3):
+    """C3 with its (1, 3) bottleneck stack: the reference's override
+    (Block.cs:444-454) registers the same bottlenecks as C3."""
+
+
+class RepC3(nn.Module):
+    """Rep-style C3 (Block.cs:459-494): n RepConvs over cv1, plus cv2; cv3
+    only where c_ = c2 e differs from c2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(RepConv(c_, c_) for _ in range(n)))
+        self.cv3 = ConvBN(c_, c2, 1, 1) if c_ != c2 else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.m(self.cv1(x)) + self.cv2(x)
+        return y if self.cv3 is None else self.cv3(y)
+
+
+class C3Ghost(C3):
+    """C3 with a GhostBottleneck stack (Block.cs:525-535)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 0, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
+
+
+class SCDown(nn.Module):
+    """Separable downsample of v10 (Block.cs:812-827): a 1x1 ConvBN, then a
+    depthwise k x k stride-s one (SiLU on both, as the JAX package)."""
+
+    def __init__(self, c1: int, c2: int, k: int, s: int):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+        self.cv2 = ConvBN(c2, c2, k, s, g=c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """Depthwise 7x7 and 3x3 ConvBNs side by side, summed, SiLU
+    (Block.cs:1120-1139)."""
+
+    def __init__(self, ed: int, act: str = "silu"):
+        super().__init__()
+        self.conv = ConvBN(ed, ed, 7, 1, 3, g=ed, act=act)
+        self.conv1 = ConvBN(ed, ed, 3, 1, 1, g=ed, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """Conditional identity block of v10 (Block.cs:861-883): depthwise 3x3,
+    1x1 to 2c, RepVGGDW (lk) or a depthwise 3x3, 1x1 to c2, depthwise 3x3;
+    residual where c1 == c2 and shortcut."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True,
+                 e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            ConvBN(c1, c1, 3, g=c1), ConvBN(c1, 2 * c_, 1),
+            RepVGGDW(2 * c_) if lk else ConvBN(2 * c_, 2 * c_, 3, g=2 * c_),
+            ConvBN(2 * c_, c2, 1), ConvBN(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C3k2):
+    """C2f with CIB blocks (Block.cs:829-859). It takes C3k2's
+    split-and-concat forward and is not a C2f, so the fused C2f kernel never
+    takes it."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 lk: bool = False, e: float = 0.5):
+        super().__init__(c1, c2, n, e=e)
+        self.m = nn.ModuleList(CIB(self.c, self.c, shortcut, 1.0, lk)
+                               for _ in range(n))
+
+
+class HGStem(nn.Module):
+    """PPHGNetV2 stem (Block.cs:90-137), ReLU throughout: stem1 3x3 / 2;
+    zero pad right and bottom; stem2a, pad, stem2b (2x2 VALID convs) beside
+    a 2x2 stride-1 VALID max pool; concat; stem3 3x3 / 2; stem4 1x1."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = ConvBN(c1, cm, 3, 2, act="relu")
+        self.stem2a = ConvBN(cm, cm // 2, 2, 1, 0, act="relu")
+        self.stem2b = ConvBN(cm // 2, cm, 2, 1, 0, act="relu")
+        self.stem3 = ConvBN(cm * 2, cm, 3, 2, act="relu")
+        self.stem4 = ConvBN(cm, c2, 1, 1, act="relu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(self.stem1(x), (0, 1, 0, 1))
+        x2 = self.stem2b(F.pad(self.stem2a(x), (0, 1, 0, 1)))
+        x = torch.cat([F.max_pool2d(x, 2, 1), x2], 1)
+        return self.stem4(self.stem3(x))
+
+
+class HGBlock(nn.Module):
+    """PPHGNetV2 block (Block.cs:143-189): n k x k ConvBNs (or LightConvs)
+    in a chain, the input and every output concatenated, squeezed by sc to
+    c2 / 2 and excited by ec to c2; residual where shortcut and c1 == c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6,
+                 lightconv: bool = False, shortcut: bool = False,
+                 act: str = "relu"):
+        super().__init__()
+        self.m = nn.ModuleList(
+            LightConv(c1 if i == 0 else cm, cm, k, act) if lightconv
+            else ConvBN(c1 if i == 0 else cm, cm, k, act=act)
+            for i in range(n))
+        self.sc = ConvBN(c1 + n * cm, c2 // 2, 1, 1, act=act)
+        self.ec = ConvBN(c2 // 2, c2, 1, 1, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = [x]
+        for m in self.m:
+            y.append(m(y[-1]))
+        out = self.ec(self.sc(torch.cat(y, 1)))
+        return out + x if self.add else out
+
+
+class AGLU(nn.Module):
+    """Adaptive gated linear unit (Activation.cs:15-38):
+    exp(softplus_{beta=-1}(kappa x - log lambda) / lambda) with lambda
+    clipped at 1e-4, the softplus as the JAX package writes it,
+    -log1p(exp(-(kappa x - log lambda))) (torch's Softplus(beta=-1) takes
+    another branch past its threshold)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lambd = nn.Parameter(torch.rand(1))
+        self.kappa = nn.Parameter(torch.rand(1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lam = self.lambd.clamp(min=1e-4)
+        gate = -torch.log1p(torch.exp(-(self.kappa * x - torch.log(lam))))
+        return torch.exp(gate / lam)

@@ -24,6 +24,28 @@ def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([(p1 + p2) * 0.5, p2 - p1], dim=-1)
 
 
+def xyxy2xywhn(x: torch.Tensor, w: float = 640, h: float = 640,
+               clip: bool = False, eps: float = 0.0) -> torch.Tensor:
+    """xyxy -> xywh normalised by the image width and height; clip first
+    clips to (h - eps, w - eps)."""
+    if clip:
+        x = clip_boxes(x, (h - eps, w - eps))
+    return xyxy2xywh(x) / x.new_tensor([w, h, w, h])
+
+
+def xywhn2xyxy(x: torch.Tensor, w: float = 640, h: float = 640,
+               padw: float = 0, padh: float = 0) -> torch.Tensor:
+    """Normalised xywh -> absolute xyxy, shifted by (padw, padh)."""
+    return (xywh2xyxy(x * x.new_tensor([w, h, w, h]))
+            + x.new_tensor([padw, padh, padw, padh]))
+
+
+def clip_boxes(x: torch.Tensor, shape) -> torch.Tensor:
+    """Clip xyxy boxes to the image (height, width)."""
+    h, w = shape[0], shape[1]
+    return torch.minimum(x.clamp(min=0), x.new_tensor([w, h, w, h]))
+
+
 def clip_keypoints(kpts: torch.Tensor, shape) -> torch.Tensor:
     """Clip keypoints (..., 2|3) to the image (height, width); a keypoint
     outside it (before the clip) gets visibility 0."""

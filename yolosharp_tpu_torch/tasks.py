@@ -80,7 +80,7 @@ from .predict import (decode_inference, decode_inference_topk,
 from .train import (MAX_LOSS_SCALE, TrainState, make_eval_step,
                     make_optimizer, make_train_step)
 from .types import KeyPoint, TaskType, YoloResult
-from .utils import (EarlyStopping, TrainLogger, ap_per_class,
+from .utils import (EarlyStopping, StepTrace, TrainLogger, ap_per_class,
                     match_predictions, summarize)
 
 
@@ -99,6 +99,30 @@ def _warn_if_truncated(nms_out, state: Optional[Dict] = None) -> None:
     print("WARNING: above-threshold NMS candidates exceeded "
           "Config.nms_pre_topk; low-score boxes may be missing. "
           "Raise nms_pre_topk or set it to None for exact NMS." + suffix)
+
+
+def refuse_unported(config: Config, train: bool) -> None:
+    """Raise NotImplementedError for a Config setting that the JAX package
+    acts on and the port does not run yet (ROADMAP.md queue 1, item 4),
+    where the JAX package would act on it: a mesh_shape of more than one
+    device at train() and predict, fsdp and resume_format="orbax" at
+    train(), int8_predict at predict. Their defaults pass, so a config.txt
+    of the JAX package's defaults still reads."""
+    found = []
+    if config.mesh_shape is not None and int(np.prod(config.mesh_shape)) > 1:
+        found.append(f"mesh_shape={tuple(config.mesh_shape)}")
+    if train and config.fsdp:
+        found.append("fsdp=True")
+    if train and config.resume_format == "orbax":
+        found.append("resume_format='orbax'")
+    if not train and config.int8_predict:
+        found.append("int8_predict=True")
+    if found:
+        raise NotImplementedError(
+            f"{', '.join(found)}: not ported to yolosharp_tpu_torch yet "
+            f"(ROADMAP.md queue 1, item 4: the mesh, FSDP, orbax resume and "
+            f"int8 predict); the port runs one device, float weights and "
+            f"npz resume")
 
 
 def _to_host(out):
@@ -169,6 +193,8 @@ class BaseTask:
         # before it, the seconds of the step loop and of val, and on CUDA
         # the peak device memory of the step loop (bytes)
         self.epoch_stats: List[Dict] = []
+        # the Chrome trace the last train() wrote (Config.profile_dir)
+        self.trace_path: Optional[str] = None
 
     # ------------------------------------------------------------- setup
     def _init_head(self, net: YoloNet) -> None:
@@ -191,6 +217,7 @@ class BaseTask:
         """The network predict runs: a copy of the master in the compute
         dtype, BN-folded when Config.fuse_inference (folded in float32 once,
         then cast). Cached until a master parameter or buffer changes."""
+        refuse_unported(self.config, train=False)
         net = self._ensure_variables()
         key = (id(net), tuple(t._version for t in itertools.chain(
             net.parameters(), net.buffers())))
@@ -287,8 +314,11 @@ class BaseTask:
 
     def train(self, resume_from: Optional[str] = None) -> TrainState:
         """Train for Config.epochs (YoloBaseTaskModel.cs Train/TrainEpoch);
-        resume_from: a last_state.npz, continued at its epoch + 1."""
+        resume_from: a last_state.npz, continued at its epoch + 1. With
+        Config.profile_dir, steps 2-5 of the first epoch are traced
+        (utils.training.StepTrace)."""
         cfg = self.config
+        refuse_unported(cfg, train=True)
         print("Start Training:")
         print(cfg.describe())
         out_dir = cfg.output_path or os.path.join(
@@ -341,15 +371,26 @@ class BaseTask:
                 stats = {"epoch": epoch, "step_s": [], "wait_s": []}
                 if self.device.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(self.device)
+                trace = (StepTrace(cfg.profile_dir, self.device)
+                         if cfg.profile_dir and epoch == start_epoch
+                         else None)
                 t_loop = t_prev = time.perf_counter()
                 for batch in device_prefetch(train_dl, self._to_device):
                     t_got = time.perf_counter()
                     stats["wait_s"].append(t_got - t_prev)
+                    if trace is not None:
+                        trace.before_step(len(stats["step_s"]) + 1)
                     _, items = step_fn(state, batch, loss_kwargs)
                     items_sum = (items if items_sum is None
                                  else items_sum + items)
                     t_prev = time.perf_counter()
                     stats["step_s"].append(t_prev - t_got)
+                    if trace is not None:
+                        trace.after_step(len(stats["step_s"]))
+                        t_prev = time.perf_counter()
+                if trace is not None:   # a short epoch: close it cleanly
+                    trace.close()
+                    self.trace_path = trace.path
                 stats["loop_s"] = t_prev - t_loop
                 if self.device.type == "cuda":
                     stats["peak_bytes"] = torch.cuda.max_memory_allocated(

@@ -1,5 +1,5 @@
 from .metrics import ap_per_class, match_predictions, summarize
-from .training import EarlyStopping, TrainLogger
+from .training import EarlyStopping, StepTrace, TrainLogger
 
-__all__ = ["EarlyStopping", "TrainLogger", "ap_per_class",
+__all__ = ["EarlyStopping", "StepTrace", "TrainLogger", "ap_per_class",
            "match_predictions", "summarize"]

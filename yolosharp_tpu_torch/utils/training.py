@@ -1,6 +1,6 @@
-"""Training-loop utilities: early stopping, CSV logging, metric curves.
-A copy of yolosharp_tpu/utils/training.py without occupancy_hint (a hint
-calibrated on a TPU).
+"""Training-loop utilities: early stopping, CSV logging, metric curves (a
+copy of yolosharp_tpu/utils/training.py without occupancy_hint, a hint
+calibrated on a TPU), and the train-step trace of Config.profile_dir.
 
 Parity targets: Utils/EarlyStopping.cs:3-39, the log.csv writer
 (YoloBaseTaskModel.cs:215-243), config.txt dump (245-257), and results.png
@@ -12,7 +12,65 @@ from __future__ import annotations
 import csv
 import os
 from datetime import datetime
-from typing import Sequence
+from typing import Optional, Sequence
+
+import torch
+
+
+class StepTrace:
+    """A torch.profiler trace of train steps `first`..`last` (1-based) of
+    one epoch, as the JAX package traces steps 2-5 of the first epoch
+    (step 1 pays the warm-up): the CPU and, on a card, its CUDA kernels,
+    each step under a record_function ``train step N``. The device is
+    synchronised before the trace stops, and the trace is written as a
+    Chrome-trace JSON ``train_<time>_steps_<first>-<n>.json`` under
+    `out_dir` (n = `last`, or the last step of a shorter epoch: ``close``
+    stops it cleanly)."""
+
+    def __init__(self, out_dir: str, device: torch.device, first: int = 2,
+                 last: int = 5):
+        self.out_dir, self.device = out_dir, device
+        self.first, self.last = first, last
+        self.prof = None
+        self._step = None
+        self._n = 0
+        self.path: Optional[str] = None
+
+    def before_step(self, n: int) -> None:
+        if n == self.first:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.start()
+        if self.prof is not None:
+            self._step = torch.profiler.record_function(f"train step {n}")
+            self._step.__enter__()
+
+    def after_step(self, n: int) -> None:
+        if self._step is not None:
+            self._step.__exit__(None, None, None)
+            self._step = None
+            self._n = n
+        if n == self.last:
+            self.close()
+
+    def close(self) -> None:
+        """Stop and write the trace (if one runs)."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.out_dir, f"train_{datetime.now():%y%m%d%H%M%S}_steps_"
+                          f"{self.first}-{self._n}.json")
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        print(f"profiler trace written to {self.path}")
 
 
 class EarlyStopping:
