@@ -317,9 +317,53 @@ kernel / plain / F.conv2d / bound ms summed):
   15e. Config.profile_dir: YoloTask.train() of v8n-320 b8, one epoch of 6
      steps on 48 PNGs this script writes: the Chrome trace holds CUDA
      kernel events and the spans of steps 2-5.
-  15f. int8_predict, fsdp, resume_format="orbax" and a mesh_shape of more
-     than one device raise NotImplementedError at train() or predict.
+  15f. int8_predict raises NotImplementedError at predict; fsdp,
+     resume_format="orbax" and mesh_shape run (v8n-128 b8 train() of one
+     epoch on 16 PNGs: FSDP over the visible cards, unsharded on one; the
+     torch.distributed.checkpoint directory weights/last_state.dcp; the
+     mesh shape read nowhere, at train() and at predict).
+
+Several devices (phase 16, over N = torch.cuda.device_count() cards):
+  16a. create_mesh() over the N cards: phase 2's rule on a handful of
+     bf16 v8s / v12s shapes on every card but cuda:0; phase 3's v8s
+     weights and conf served by batch_predict(mesh=) of 32 and of 33
+     images (a padded shard) and predict_stream(mesh=) of 64, conv3x3 s1 /
+     s2 and the C2f launched on every card (launches_by_device); the
+     float32 rows of N + 1 images over the mesh against one forward on
+     cuda:0 by phase 3's rule (0.5 px, 1e-3 score); bf16 b32 img/s on
+     cuda:0 and over the mesh.
+  16b. data-parallel training, NCCL over the N cards (N >= 2) or two gloo
+     ranks sharing cuda:0 (N = 1, labelled so: no scaling number): a
+     float32 v8n and v12n End2End step at 128x128, global batch 2 a rank,
+     against the same step on cuda:0 by phase 6's rule (loss and items
+     1e-4 relative; gradients 1e-3 of a tensor's largest, the zero-by-
+     construction leaves under 1e-6 G; parameter changes where the
+     gradients fix AdamW's update, within one float32 spacing more; BN
+     statistics 1e-5 of (|ref| + max|ref|), a mean's scale at least its
+     layer's largest standard deviation), the v12n attention kernel
+     launched under autograd on every rank; then YoloTask.train() of v8s
+     640 b16 bf16 over 2 epochs (1 on one card) on phase 7's PNG set over
+     the ranks
+     (torch.profiler over rank 0's steps 2-5): each rank's step ms, img/s,
+     loader wait and peak memory, the collectives' ms a step, one log.csv
+     and one set of weights.
+  16c. one v8s float32 step under FSDP against the DP step by the same
+     rule; each rank's sharded train-state bytes (masters, AdamW state,
+     buffers, from the storage held) equal sharded_param_bytes, and each
+     rank's peak CUDA memory in the step is below the DP step's.
+  16d. two FSDP v8s steps over the ranks, the state saved after the first
+     as a torch.distributed.checkpoint directory; cuda:0 alone reads it
+     back (every network and AdamW tensor equal to the saved ones, bit for
+     bit) and takes the second step: loss, items and BN statistics by the
+     same rule against the uninterrupted run's (its parameter changes are
+     printed: a second AdamW step no longer follows the gradient's sign).
+  16e. graft_entry.entry() (the v8s-640 forward and decode) on the card;
+     graft_entry.dryrun_multichip(2) on gloo CPU ranks.
 Each phase prints its wall seconds.
+
+``python3 chip_smoke.py --multi`` runs phase 1, phase 3's v8s slice and
+phases 16a-d alone (for a machine of several cards); ``--dp-train`` runs
+phase 1 and 16b's train() alone.
 
 The run fails if jax, flax or the JAX package yolosharp_tpu was imported.
 The second-to-last line is a JSON object of the kernels; the last line is
@@ -328,6 +372,7 @@ The second-to-last line is a JSON object of the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import os
@@ -3752,27 +3797,493 @@ def phase_profile(dev, root, tag):
                          "with CUDA kernels")
 
 
-def phase_unported(dev):
-    """Phase 15f: the Config settings the port does not run yet raise
-    NotImplementedError where the JAX package acts on them."""
-    from yolosharp_tpu_torch import YoloTask
+def phase_unported(dev, root):
+    """Phase 15f: int8_predict, the one Config setting the port does not
+    run yet, raises NotImplementedError at predict; fsdp,
+    resume_format="orbax" and mesh_shape run as in the JAX package (v8n
+    train() at 128x128, batch 8, one epoch: FSDP over the visible cards,
+    unsharded on one; the torch.distributed.checkpoint directory; the mesh
+    shape read nowhere)."""
+    from yolosharp_tpu_torch import YoloSize, YoloTask
 
-    print("phase 15f: int8_predict, fsdp, resume_format='orbax' and a "
-          "multi-device mesh_shape raise", flush=True)
+    print("phase 15f: int8_predict raises; fsdp, resume_format='orbax' and "
+          "mesh_shape run", flush=True)
     img = synthetic_images(1, 64, 64, 1)[0]
-    for field, value, where in (("int8_predict", True, "predict"),
-                                ("fsdp", True, "train"),
-                                ("resume_format", "orbax", "train"),
-                                ("mesh_shape", (2,), "train"),
-                                ("mesh_shape", (1, 2), "predict")):
-        task = YoloTask(path_config("v8", **{field: value}), device=dev)
-        try:
-            task.train() if where == "train" else task.image_predict(img)
-        except NotImplementedError as e:
-            print(f"  {field}={value!r} at {where}: NotImplementedError: {e}",
-                  flush=True)
+    try:
+        YoloTask(path_config("v8", int8_predict=True),
+                 device=dev).image_predict(img)
+    except NotImplementedError as e:
+        print(f"  int8_predict=True at predict: NotImplementedError: {e}",
+              flush=True)
+    else:
+        raise SystemExit("int8_predict=True did not raise at predict")
+    rows = YoloTask(path_config("v8", mesh_shape=(1, 2)),
+                    device=dev).image_predict(img)
+    print(f"  mesh_shape=(1, 2) at predict: {len(rows)} rows", flush=True)
+    for field, value in (("fsdp", True), ("resume_format", "orbax"),
+                         ("mesh_shape", (2,))):
+        out = os.path.join(root, f"run_{field}")
+        task = YoloTask(_train_config(root, "v8", yolo_size=YoloSize.n,
+                                      image_size=128, batch_size=8,
+                                      output_path=out, **{field: value}),
+                        device=dev)
+        task.train()
+        files = sorted(os.listdir(os.path.join(out, "weights")))
+        print(f"  {field}={value!r} at train(): weights {files}", flush=True)
+        state = ("last_state.dcp" if field == "resume_format"
+                 else "last_state.npz")
+        if state not in files:
+            raise SystemExit(f"{field}={value!r}: no {state}")
+
+
+# ------------------------------------------------------------ phase 16
+MESH_BATCH, MESH_STREAM_BATCH = 32, 16
+DP_SIZE = 128          # 16b-d's float32 steps
+
+
+def dp_train_epochs() -> int:
+    """16b's train() epochs: 2 over several cards, 1 where two gloo ranks
+    share one card (every path, no scaling number, at ~0.5 s a step)."""
+    return 2 if torch.cuda.device_count() > 1 else 1
+
+
+def mesh_devices():
+    """(the devices of 16b-d's ranks, how they are joined): every card
+    under NCCL where there are several; two gloo ranks sharing cuda:0
+    where there is one (no scaling number)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"NCCL over {n} cards")
+    return ([torch.device("cuda", 0)] * 2,
+            "two gloo ranks sharing cuda:0 (one card: not a scaling number)")
+
+
+@torch.no_grad()
+def recheck_kernels(card: torch.device):
+    """Phase 2's rule on one card other than cuda:0, a handful of v8s /
+    v12s shapes in bfloat16: each kernel against the plain version
+    evaluated in float64 on the same rounded inputs."""
+    from yolosharp_tpu_torch.kernels import (attention_plain, c2f_fused,
+                                             c2f_plain, conv3x3_plain,
+                                             conv3x3_silu, conv3x3s2_silu,
+                                             fused_attention)
+
+    g = torch.Generator(device="cpu").manual_seed(int(card.index))
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(
+            card, torch.bfloat16)
+
+    dt = torch.bfloat16
+    for stride, (h, w, ci, co) in ((1, (80, 80, 128, 128)),
+                                   (1, (40, 40, 256, 256)),
+                                   (2, (160, 160, 64, 128)),
+                                   (2, (640, 640, 3, 32))):
+        x, wt, b = rnd(2, h, w, ci), rnd(3, 3, ci, co, scale=0.05), \
+            rnd(co, scale=0.1)
+        fn = conv3x3_silu if stride == 1 else conv3x3s2_silu
+        ref = conv3x3_plain(x.double(), wt.double(), b.double(), "silu",
+                            stride)
+        compare(f"[{card}] {fn.__name__} {h}x{w} {ci}->{co} b2 bf16",
+                fn(x, wt, b), conv3x3_plain(x, wt, b, "silu", stride), dt,
+                "conv", ref)
+    cin, c, c2 = 64, 32, 64
+    args = [rnd(2, 160, 160, cin), rnd(cin, 2 * c, scale=0.1),
+            rnd(2 * c, scale=0.1), rnd(3, 3, c, c, scale=0.05),
+            rnd(c, scale=0.1), rnd(3, 3, c, c, scale=0.05),
+            rnd(c, scale=0.1), rnd(3 * c, c2, scale=0.1), rnd(c2, scale=0.1)]
+    compare(f"[{card}] c2f_fused 160x160 {cin}->{c2} b2 bf16",
+            c2f_fused(*args), c2f_plain(*args), dt, "c2f",
+            c2f_plain(*[a.double() for a in args]))
+    q, k, v = (rnd(2, 4, 400, 32) for _ in range(3))
+    scale = 32 ** -0.5
+    s = torch.matmul(q.double() * scale, k.double().transpose(-1, -2))
+    ref = torch.matmul(torch.softmax(s, -1), v.double())
+    compare(f"[{card}] fused_attention (2, 4, 400, 32) bf16",
+            fused_attention(q, k, v, scale),
+            attention_plain(q, k, v, scale), dt, "attn", ref)
+
+
+def phase_mesh_serve(dev, state, conf, tag):
+    """Phase 16a. Returns the kernel launches of its bf16 mesh serving."""
+    from yolosharp_tpu_torch import ScalarType
+    from yolosharp_tpu_torch.kernels import (launch_counts,
+                                             launch_counts_by_device,
+                                             reset_launch_counts)
+    from yolosharp_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh()
+    n = mesh.size
+    print(f"phase 16a: mesh serving, v8s-640 nc=80 over create_mesh() = "
+          f"{n} card(s) {[str(d) for d in mesh.devices]}", flush=True)
+    for card in mesh.devices[1:]:
+        recheck_kernels(card)
+    if n == 1:
+        print("  one card: phase 2's kernels were checked on cuda:0 only",
+              flush=True)
+    tasks = build_tasks(dev, "v8", state)
+    task = tasks[False]
+    batch = synthetic_images(MESH_BATCH + 1, 640, 640, 60)
+    reset_launch_counts()
+    for images in (batch[:MESH_BATCH], batch):
+        res = task.batch_predict(images, conf, mesh=mesh)
+        if len(res) != len(images) or not all(res):
+            raise SystemExit(f"mesh batch_predict of {len(images)} images "
+                             f"gave {[len(r) for r in res]}")
+    stream = stream_images(STREAM_N, 70)
+    got = list(task.predict_stream(iter(stream), MESH_STREAM_BATCH,
+                                   predict_threshold=conf, mesh=mesh))
+    if len(got) != STREAM_N or not all(got):
+        raise SystemExit(f"mesh predict_stream gave {len(got)} results")
+    counts, by_card = launch_counts(), launch_counts_by_device()
+    print(f"  {tag}: launches while serving b{MESH_BATCH}, b{MESH_BATCH + 1} "
+          f"and a {STREAM_N}-image stream (b{MESH_STREAM_BATCH}) over the "
+          f"mesh: {counts}; by card {by_card}", flush=True)
+    for name in PATHS["v8"]:
+        missing = [d.index for d in mesh.devices
+                   if not by_card[name].get(d.index)]
+        if missing:
+            raise SystemExit(f"{name} launched on no card of {missing}")
+    check_path_launches("v8", counts, "16a mesh serving")
+
+    # float32 rows of every image, sharded and whole, by phase 3's rule
+    t32 = build_tasks(dev, "v8", state,
+                      scalar_type=ScalarType.float32)[False].task
+    canvas = torch.from_numpy(np.stack(batch[:n + 1]))
+    one = t32._host(t32._predict_fn(t32._predict_variables(),
+                                    canvas.to(dev), conf, 0.7))
+    parts = t32._mesh_outputs(canvas, mesh, lambda net, x: t32._host(
+        t32._predict_fn(net, x, conf, 0.7)))
+    worst = (0, 0)
+    for out, lo, hi in parts:
+        for i in range(hi - lo):
+            nw, ng, bad = match(rows_of(tasks[False], out, conf, i),
+                                rows_of(tasks[False], one, conf, lo + i))
+            worst = max(worst, (bad, nw))
+            if abs(nw - ng) > 2 or bad > max(2, nw // 50):
+                raise SystemExit(f"float32 mesh rows of image {lo + i}: "
+                                 f"{ng} against {nw}, {bad} unmatched")
+    print(f"  float32, {n + 1} images over the mesh against one forward on "
+          f"cuda:0: rows match (0.5 px, 1e-3 score; worst {worst[0]} "
+          f"unmatched of {worst[1]})", flush=True)
+
+    def seconds(fn, images):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(images)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    b32 = batch[:MESH_BATCH]
+    calls = {"cuda:0": lambda im: task.batch_predict(im, conf),
+             "mesh": lambda im: task.batch_predict(im, conf, mesh=mesh)}
+    times = {k: [] for k in calls}
+    for k in ("cuda:0", "mesh") * 2 + ("mesh", "cuda:0") * 4:
+        times[k].append(seconds(calls[k], b32))
+    # the median of each one's calls after its first, in turns
+    single, meshed = (MESH_BATCH / float(np.median(times[k][1:]))
+                      for k in ("cuda:0", "mesh"))
+    t = time.perf_counter()
+    list(task.predict_stream(iter(stream), MESH_STREAM_BATCH,
+                             predict_threshold=conf, mesh=mesh))
+    streamed = STREAM_N / (time.perf_counter() - t)
+    print(f"  {tag}: bf16 b{MESH_BATCH} batch_predict {single:.1f} img/s on "
+          f"cuda:0, {meshed:.1f} img/s over {n} card(s) ({meshed / single:.2f}"
+          f"x; medians of 5 calls each, in turns); predict_stream over the "
+          f"mesh {streamed:.1f} img/s", flush=True)
+    return counts
+
+
+def step_spec(version, size, batch, **cfg):
+    """run_steps' spec of a float32 n-size detect step from the task's
+    seeded weights on `batch`."""
+    from yolosharp_tpu_torch import (Config, ScalarType, YoloSize, YoloTask,
+                                     YoloType)
+
+    config = Config(yolo_type=YoloType(version), yolo_size=YoloSize(size),
+                    number_class=80, scalar_type=ScalarType.float32,
+                    image_size=DP_SIZE, **cfg)
+    net = YoloTask(config, device="cpu").task._ensure_variables()
+    sd = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    return dict(config=config, state_dict=sd, batch=batch), \
+        zero_gradient_leaves(net)
+
+
+def hold_step(label, got, want, init, zero, grads_got=None,
+              second=False):
+    """Phase 6's rule between two runs of one step: loss and items to 1e-4
+    relative; the leaves whose gradient is 0 by construction read |g| <=
+    1e-6 G; the others' gradients |g_got - g_want| <= 1e-3 max|g_want|
+    per tensor (where got has gradients: DP; under FSDP each rank holds
+    slices, and dg is taken as that bound); parameter changes |dp_got -
+    dp_want| <= 1e-3 max|dp_want| + 1e-8 + the parameter's float32
+    spacing wherever the gradients fix AdamW's update; BN statistics
+    |d| <= 1e-5 (|ref| + max|ref|), a mean's max|ref| at least its
+    layer's largest standard deviation. second: a second step (the AdamW
+    update m / sqrt(v) no longer follows the gradient's sign alone), the
+    parameter changes printed, not held; want without gradients takes
+    got's."""
+    items_rel = float(np.max(np.abs(got["items"] - want["items"])
+                             / np.maximum(np.abs(want["items"]), 1e-30)))
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    gw = want.get("grads") or got["grads"]
+    big = max(float(g.abs().max()) for g in gw.values())
+    noise_bad = grad_bad = unexplained = 0
+    for name, g in gw.items():
+        if name in zero:
+            noise_bad += float(g.abs().max()) > 1e-6 * big
+            if grads_got is not None:
+                noise_bad += float(grads_got[name].abs().max()) > 1e-6 * big
             continue
-        raise SystemExit(f"{field}={value!r} did not raise at {where}")
+        gmax = float(g.abs().max())
+        if grads_got is not None:
+            dg = (grads_got[name] - g).abs()
+            grad_bad += int((dg > 1e-3 * gmax).sum())
+        else:
+            dg = torch.full_like(g, 1e-3 * gmax)
+        d_got = got["state_dict"][name] - init[name]
+        d_want = want["state_dict"][name] - init[name]
+        # plus one float32 spacing of the parameter: a change near lr
+        # (1e-8 early in the warm-up) is a fraction of it
+        spacing = torch.from_numpy(np.spacing(init[name].abs().numpy()))
+        bad = (d_got - d_want).abs() > (1e-3 * d_want.abs().max() + 1e-8
+                                        + spacing)
+        fixed = (g.abs() > 2 * dg) & (2e3 * 1e-8 * dg < g * g)
+        if (bad & fixed).any() and not unexplained:
+            i = int(torch.nonzero((bad & fixed).flatten())[0])
+            print(f"    first outside: {name}[{i}] g "
+                  f"{float(g.flatten()[i]):.3e}"
+                  f" dg {float(dg.flatten()[i]):.3e} dp "
+                  f"{float(d_got.flatten()[i]):.6e} / "
+                  f"{float(d_want.flatten()[i]):.6e} (max|dp| "
+                  f"{float(d_want.abs().max()):.3e})", flush=True)
+        unexplained += int((bad & fixed).sum())
+    stat_bad, stat_worst = 0, 0.0
+    sd_w = want["state_dict"]
+    for k, ref in sd_w.items():
+        if not k.endswith(("running_mean", "running_var")):
+            continue
+        scale = float(ref.abs().max())
+        if k.endswith("running_mean"):
+            scale = max(scale, float(sd_w[k[:-4] + "var"].sqrt().max()))
+        rel = float(((got["state_dict"][k] - ref).abs()
+                     / (ref.abs() + scale)).max())
+        stat_worst = max(stat_worst, rel)
+        stat_bad += rel > 1e-5
+    print(f"  [{label}] loss {got['loss']:.6f} / {want['loss']:.6f} (rel "
+          f"{loss_rel:.2e}), items max rel {items_rel:.2e}; gradients "
+          f"{grad_bad} elements outside 1e-3, zero leaves {noise_bad} above "
+          f"1e-6 G; parameter changes {unexplained} outside the rule where "
+          f"the gradients fix them"
+          f"{' (a second step: not held)' if second else ''}"
+          f"; BN statistics worst {stat_worst:.2e}", flush=True)
+    if second:
+        unexplained = 0
+    if loss_rel > 1e-4 or items_rel > 1e-4 or noise_bad or grad_bad \
+            or unexplained or stat_bad:
+        raise SystemExit(f"[{label}] the steps disagree")
+
+
+def trace_collectives(path) -> dict:
+    """{kind: ms summed over the traced steps} of the collectives in a
+    torch.profiler Chrome trace: NCCL kernels on the card, the c10d /
+    gloo ops on the host."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        low = name.lower()
+        if e.get("cat") == "kernel" and "nccl" in low:
+            key = "card: " + name.split("(")[0][:48]
+        elif e.get("cat") == "cpu_op" and ("c10d::" in low or "gloo" in low):
+            key = "host: " + name[:48]
+        else:
+            continue
+        out[key] = out.get(key, 0.0) + float(e.get("dur", 0)) / 1e3
+    return out
+
+
+def phase_dp(dev, root, tag) -> dict:
+    """Phases 16b-d. Returns the kernel launches of 16b's train() on this
+    process (rank 0)."""
+    from yolosharp_tpu_torch.graft_entry import run_steps
+
+    devices, how = mesh_devices()
+    d = len(devices)
+    print(f"phase 16b: data-parallel train, {how}", flush=True)
+    batch = train_batch(2 * d, DP_SIZE, 80)
+    v8n, zero8 = step_spec("v8", "n", batch)
+    v12n, zero12 = step_spec("v12", "n", batch)
+    v8s, zero8s = step_spec("v8", "s", batch)
+    t = time.perf_counter()
+    one = run_steps([v8n, v12n, v8s], [dev])
+    t1 = time.perf_counter()
+    ck = os.path.join(root, "last_state.dcp")
+    dp8, dp12, dp8s, fs8s, fs8s2, dp8s2 = run_steps(
+        [v8n, v12n, v8s, dict(v8s, fsdp=True),
+         dict(v8s, fsdp=True, steps=2, save_dcp=ck), dict(v8s, steps=2)],
+        devices)
+    t2 = time.perf_counter()
+    print(f"  float32 steps at {DP_SIZE}x{DP_SIZE}, global batch {2 * d}: "
+          f"on cuda:0 {t1 - t:.1f} s, over the ranks {t2 - t1:.1f} s "
+          f"(spawn and NCCL / gloo set-up included)", flush=True)
+    hold_step(f"v8n DP x{d} vs cuda:0", dp8, one[0], v8n["state_dict"],
+              zero8, dp8["grads"])
+    hold_step(f"v12n DP x{d} vs cuda:0", dp12, one[1], v12n["state_dict"],
+              zero12, dp12["grads"])
+    attn = [r["fused_attention"] for r in dp12["launches_by_rank"]]
+    print(f"  v12n: fused_attention launches by rank {attn} (the kernel "
+          f"under autograd on every rank)", flush=True)
+    if devices[0].type == "cuda" and not all(attn):
+        raise SystemExit("a rank's v12n step did not launch the attention "
+                         "kernel")
+
+    print(f"phase 16c: FSDP, one v8s step against the DP step, {how}",
+          flush=True)
+    hold_step(f"v8s FSDP x{d} vs DP x{d}", fs8s, dp8s, v8s["state_dict"],
+              zero8s)
+    print(f"  {tag}: per-rank sharded train-state bytes "
+          f"{fs8s['state_bytes']} (masters, AdamW moments and steps, BN "
+          f"buffers, read from the storage held), sharded_param_bytes "
+          f"{fs8s['sharded_param_bytes']}, besides the full working weights "
+          f"of the sharded parameters ({fs8s['working_bytes']} bytes, on "
+          f"every rank); peak CUDA bytes a rank in the one step: DP "
+          f"{dp8s['peak_by_rank']}, FSDP {fs8s['peak_by_rank']}; the v8s "
+          f"float32 step at {DP_SIZE}, the second of two (after the "
+          f"warm-up), a rank: DP {dp8s2['step_s'][1] * 1e3:.1f} ms, FSDP "
+          f"{fs8s2['step_s'][1] * 1e3:.1f} ms", flush=True)
+    if fs8s["state_bytes"] != fs8s["sharded_param_bytes"]:
+        raise SystemExit("FSDP state bytes differ from sharded_param_bytes")
+    if not all(f < p for f, p in zip(fs8s["peak_by_rank"],
+                                     dp8s["peak_by_rank"])):
+        raise SystemExit("FSDP's peak memory is not below DP's on every "
+                         "rank")
+
+    print(f"phase 16d: sharded-directory resume: two FSDP v8s steps over "
+          f"the ranks, the state saved after the first to {ck}; cuda:0 "
+          f"alone resumes and takes the second", flush=True)
+    saved, res = run_steps([dict(v8s, resume=ck, steps=0),
+                            dict(v8s, resume=ck)], [dev])
+    if (saved["count"], res["count"], res["step"]) != (1, 2, 2):
+        raise SystemExit("the resumed counts are not the saved ones")
+    # the state read back on one card is the FSDP state saved, bit for bit
+    want = fs8s2["saved"]
+    diff = [k for k, v in want["state_dict"].items()
+            if not torch.equal(saved["state_dict"][k], v)]
+    diff += [f"{n}.{k}" for n, st in want["opt_state"].items()
+             for k, v in st.items()
+             if not torch.equal(saved["opt_state"][n][k].float(), v.float())]
+    print(f"  read back on cuda:0: {len(want['state_dict'])} network "
+          f"tensors and {sum(len(st) for st in want['opt_state'].values())} "
+          f"AdamW tensors, {len(diff)} differ from the saved FSDP state",
+          flush=True)
+    if diff:
+        raise SystemExit(f"the resumed state differs: {diff[:5]}")
+    hold_step("v8s resumed on cuda:0 vs uninterrupted FSDP, second step",
+              res, fs8s2, saved["state_dict"], zero8s, second=True)
+    return phase_dp_train(dev, root, tag)
+
+
+def phase_dp_train(dev, root, tag) -> dict:
+    """16b's YoloTask.train() over the ranks. Returns the kernel launches
+    of train() on this process (rank 0)."""
+    from yolosharp_tpu_torch import YoloTask
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from yolosharp_tpu_torch.parallel import create_mesh
+
+    devices, how = mesh_devices()
+    d = len(devices)
+    epochs = dp_train_epochs()
+    print(f"phase 16b: YoloTask.train() of v8s, {TRAIN_SIZE}x{TRAIN_SIZE}, "
+          f"global batch {TRAIN_BATCH}, bf16, {epochs} epoch(s), "
+          f"{how}; torch.profiler over rank 0's steps 2-5", flush=True)
+    out = os.path.join(root, "run_dp")
+    prof = os.path.join(root, "prof_dp")
+    task = YoloTask(_train_config(root, "v8", epochs=epochs,
+                                  output_path=out, profile_dir=prof),
+                    device=dev)
+    reset_launch_counts()
+    t = time.perf_counter()
+    task.train(mesh=create_mesh(devices=devices))
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    per = TRAIN_BATCH // d
+    for st in task.task.epoch_stats:
+        print("  " + epoch_line(st, f"{tag}: v8s rank 0 ({per} img a step)",
+                                batch=per), flush=True)
+        for r, rs in enumerate(st["ranks"]):
+            med = float(np.median(rs["step_s"][2:])) * 1e3
+            wait = sum(rs["wait_s"]) / rs["loop_s"]
+            print(f"    rank {r}: {len(rs['step_s'])} steps, {med:.1f} ms a "
+                  f"step (median after two), {per / med * 1e3:.1f} img/s a "
+                  f"rank, {TRAIN_BATCH / med * 1e3:.1f} img/s global; "
+                  f"loader wait {wait:.3f}; peak "
+                  f"{rs['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    coll = trace_collectives(task.task.trace_path)
+    print(f"  collectives in rank 0's trace of steps 2-5, ms a step: "
+          + ", ".join(f"{k} {v / 4:.3f}" for k, v in sorted(coll.items())),
+          flush=True)
+    with open(os.path.join(out, "log.csv")) as f:
+        rows = list(csv.reader(f))
+    files = sorted(os.listdir(os.path.join(out, "weights")))
+    print(f"  train() {wall:.1f} s; log.csv {len(rows) - 1} epochs; weights "
+          f"{files}; launches on rank 0 {counts}", flush=True)
+    losses = [float(v) for h, v in zip(rows[0], rows[-1]) if "loss" in h]
+    if len(rows) != epochs + 1 or not np.isfinite(losses).all() \
+            or files != ["best.bin", "last.bin", "last_state.npz"]:
+        raise SystemExit("data-parallel train() outputs are wrong")
+    return counts
+
+
+def phase_graft(dev):
+    """Phase 16e."""
+    from yolosharp_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    print(f"phase 16e: graft_entry.entry() on {args[1].device}: decode "
+          f"{tuple(out.shape)} {out.dtype}, finite "
+          f"{bool(torch.isfinite(out).all())}", flush=True)
+    if out.shape[0] != 1 or not bool(torch.isfinite(out).all()):
+        raise SystemExit("graft_entry.entry() output is wrong")
+    t = time.perf_counter()
+    graft_entry.dryrun_multichip(2)
+    print(f"  dryrun_multichip(2) on gloo CPU ranks: "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+
+def multi_only(dev, tag, timed) -> int:
+    """``python3 chip_smoke.py --multi``: phase 3's v8s slice (one NMS
+    batch_predict, for its weights and conf), then phases 16a-d alone, on
+    phase 7's PNG set; for a machine of several cards, where the other
+    phases would only repeat the one-card run."""
+    t16 = time.perf_counter()
+    _, _, state, conf = timed("3", phase_slice, dev, "v8", light=True)
+    timed("16a", phase_mesh_serve, dev, state, conf, tag)
+    with tempfile.TemporaryDirectory() as root:
+        write_dataset(root, 160, 32)
+        timed("16b-d", phase_dp, dev, root, tag)
+    print(f"  (phases 3 and 16a-d: {time.perf_counter() - t16:.1f} s wall)",
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def dp_train_only(dev, tag, timed) -> int:
+    """``python3 chip_smoke.py --dp-train``: 16b's train() alone over the
+    visible cards, on phase 7's PNG set."""
+    with tempfile.TemporaryDirectory() as root:
+        write_dataset(root, 160, 32)
+        timed("16b", phase_dp_train, dev, root, tag)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -3812,6 +4323,10 @@ def main() -> int:
               flush=True)
         return out
 
+    if "--multi" in sys.argv[1:]:
+        return multi_only(dev, tag, timed)
+    if "--dp-train" in sys.argv[1:]:
+        return dp_train_only(dev, tag, timed)
     stats = timed("2", phase_kernels, dev)
     launches, per_forward, states, confs = {}, {}, {}, {}
 
@@ -3838,7 +4353,9 @@ def main() -> int:
     timed("6", phase_train_step_cpu_match, dev)
     add(timed("6b", phase_fp16, dev, states, confs), launches)
     train_launches = {}
-    with tempfile.TemporaryDirectory() as root:
+    # phase 7's PNG set, kept for phase 16b
+    train_root = tempfile.TemporaryDirectory()
+    with contextlib.nullcontext(train_root.name) as root:
         t0 = time.perf_counter()
         mix = write_dataset(root, 160, 32)
         print(f"wrote the synthetic PNG dataset (160 train, 32 val) in "
@@ -3922,8 +4439,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         write_dataset(root, 48, 8, seed=16)
         timed("15e", phase_profile, dev, root, tag)
-    timed("15f", phase_unported, dev)
+    with tempfile.TemporaryDirectory() as root:
+        write_dataset(root, 16, 8, seed=17)
+        timed("15f", phase_unported, dev, root)
     print(f"  (phase 15: {time.perf_counter() - t15:.1f} s wall)", flush=True)
+    t16 = time.perf_counter()
+    add(timed("16a", phase_mesh_serve, dev, states["v8"], confs["v8"], tag),
+        launches)
+    with train_root as root:
+        add(timed("16b-d", phase_dp, dev, root, tag), train_launches)
+    timed("16e", phase_graft, dev)
+    print(f"  (phase 16: {time.perf_counter() - t16:.1f} s wall)", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules

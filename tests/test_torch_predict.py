@@ -166,8 +166,9 @@ def test_port_runs_without_jax(tmp_path):
     segment with its masks, pose with its keypoints, OBB with its angle
     and through predict_stream, classify's top 5 and its stream), the OBB
     labels' minimum-area rectangle, saving, loading and converting a
-    checkpoint, and the folded forward of blocks no zoo model builds
-    loads neither jax nor flax nor cv2 (the GPU
+    checkpoint, the folded forward of blocks no zoo model builds, and a
+    data-parallel train step over two gloo ranks (whose spawned rank checks
+    its own modules) loads neither jax nor flax nor cv2 (the GPU
     machine has none of them), nor any module of the JAX package
     yolosharp_tpu."""
     path = str(tmp_path / "v8n.bin")
@@ -234,6 +235,22 @@ def test_port_runs_without_jax(tmp_path):
         "for m in (HGStem(3, 8, 16), RepC3(16, 16, 1), C3TR(16, 32)):\n"
         "    x = fold_bn(m.eval())(x)\n"
         "assert x.shape == (1, 32, 8, 8), x.shape\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        "import torch_rank_fns\n"
+        "from yolosharp_tpu_torch.parallel.dist import run_ranks\n"
+        "from yolosharp_tpu_torch.tasks import Detector\n"
+        "cfg = Config(yolo_size=YoloSize.n, number_class=5, image_size=64, "
+        "scalar_type=ScalarType.float32, end2end=False)\n"
+        "sd = Detector(cfg, 'cpu')._ensure_variables().state_dict()\n"
+        "rng = np.random.default_rng(0)\n"
+        "batch = {'images': rng.integers(0, 256, (2, 64, 64, 3), "
+        "dtype=np.uint8), 'cls': np.zeros((2, 8), np.int32), "
+        "'bboxes': np.full((2, 8, 4), 0.3, np.float32), "
+        "'mask_gt': np.ones((2, 8), bool)}\n"
+        "args = (cfg, sd, batch)\n"
+        "loss = run_ranks(lambda: torch_rank_fns.step_without_jax(*args), "
+        "torch_rank_fns.step_without_jax, args, ['cpu', 'cpu'])\n"
+        "assert np.isfinite(loss), loss\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'cv2', "
         "'ml_dtypes', 'yolosharp_tpu') or m.startswith(('jax.', 'flax.', "
         "'yolosharp_tpu.'))]\n"

@@ -202,26 +202,46 @@ def test_no_trace_without_profile_dir(roots, tmp_path):
                 if f.endswith(".json")]
 
 
-# ------------------------------------------- settings not ported yet raise
+# --------------------------------- the multi-device settings on one device
 @pytest.mark.parametrize("field,value,where", [
     ("int8_predict", True, "predict"), ("fsdp", True, "train"),
     ("resume_format", "orbax", "train"), ("mesh_shape", (2,), "train"),
     ("mesh_shape", (1, 2), "predict")],
     ids=["int8_predict", "fsdp", "orbax", "mesh_train", "mesh_predict"])
 def test_settings_not_ported_raise_where_jax_acts(field, value, where,
-                                                  tmp_path):
-    """The Config and the task build (so a config.txt with them reads);
-    train() or predict raises NotImplementedError naming the ROADMAP item,
-    before any data is read."""
-    cfg = _config(str(tmp_path / "absent"), str(tmp_path / "out"),
-                  **{field: value})
+                                                  roots, tmp_path):
+    """The Config and the task build with each setting (so a config.txt
+    with them reads). int8_predict, the one left unported, raises
+    NotImplementedError naming the ROADMAP item at predict. The others
+    run as in the JAX package on one device: fsdp trains unsharded,
+    resume_format="orbax" writes weights/last_state.dcp (a
+    torch.distributed.checkpoint directory) that train(resume_from=) reads,
+    and mesh_shape is read nowhere, at train() as at predict."""
+    out = tmp_path / "out"
+    cfg = _config(roots[6], str(out), **{field: value})
     task = YoloTask(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        if where == "train":
-            task.train()
-        else:
-            task.image_predict(np.zeros((32, 32, 3), np.uint8))
-    assert not os.path.exists(tmp_path / "out")
+    img = np.zeros((32, 32, 3), np.uint8)
+    if field == "int8_predict":
+        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+            task.image_predict(img)
+        return
+    if where == "predict":
+        assert isinstance(task.image_predict(img, 0.5), list)
+        assert not os.path.exists(out)
+        return
+    task.train()
+    weights = sorted(os.listdir(out / "weights"))
+    state = "last_state.dcp" if field == "resume_format" else \
+        "last_state.npz"
+    assert weights == sorted(["best.bin", "last.bin", state])
+    if field == "resume_format":
+        assert os.path.isdir(out / "weights" / state)
+        cfg2 = _config(roots[6], str(out), **{field: value})
+        cfg2.epochs = 2
+        again = YoloTask(cfg2, device="cpu")
+        again.train(resume_from=str(out / "weights" / state))
+        assert [s["epoch"] for s in again.task.epoch_stats] == [2]
+        assert again.task.epoch_stats[0]["step_s"]
 
 
 def test_single_device_mesh_shape_runs():

@@ -44,7 +44,15 @@ copies under the same names. Modules:
 - ``predict``, ``tasks``: decode and the task layer / YoloTask facade;
 - ``kernels`` + ``csrc``: the hand-written CUDA kernels (3x3 conv, fused
   C2f, fused attention, the last also under autograd for training), each
-  in float32, bfloat16 and float16.
+  in float32, bfloat16 and float16;
+- ``parallel``: the multi-device layer: the mesh (``create_mesh``, the
+  ``mesh`` argument of batch_predict / predict_stream), the process group
+  of data-parallel train and val (``dist``: one process a card, BN
+  statistics and loss normalisers over the global batch) and FSDP
+  sharding of the train state (``fsdp``);
+- ``graft_entry``: ``entry`` and ``dryrun_multichip``, the counterparts of
+  the JAX package's ``__graft_entry__``, and ``run_step`` (a train step
+  over ranks).
 """
 
 from .ckpt import convert_checkpoint

@@ -6,11 +6,11 @@ Parity target: Data/Config.cs:10-355. ``compute_dtype`` (a jax.numpy dtype)
 is not copied: ``torch_dtype`` takes its place. The fields under "TPU-only
 knobs" are routing and layout switches of the JAX package; the port keeps
 them so that a config carries over unchanged, and ignores them (on CUDA
-every layer its kernels can compute goes through them). The fields marked
-"not ported yet" (int8_predict, fsdp, resume_format="orbax", a mesh_shape
-of more than one device) are JAX features the port does not run yet: set,
-they raise NotImplementedError where the JAX package would act on them
-(``tasks.refuse_unported``), not when a Config is made."""
+every layer its kernels can compute goes through them). int8_predict,
+the one JAX feature the port does not run yet, raises NotImplementedError
+at predict (``tasks.refuse_unported``), not when a Config is made; fsdp
+and resume_format="orbax" run (parallel/fsdp.py, ckpt/resume.py), and
+mesh_shape is read nowhere, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -103,7 +103,9 @@ class Config:
     # > 0: mosaic partners of the device render drawn from this many extra
     # images of the whole dataset per batch, not from the batch alone
     mosaic_partner_pool: int = 0
-    fsdp: bool = False      # not ported yet: True raises at train()
+    # shard the train state over the data-parallel ranks (parallel/fsdp.py);
+    # one device trains unsharded, as in the JAX package
+    fsdp: bool = False
     # True fp16 compute with dynamic loss scaling (Amp.cs:3-176); every
     # kernel of the port has a float16 route
     true_fp16: bool = False
@@ -119,13 +121,14 @@ class Config:
     # a torch.profiler trace of train steps 2-5 of the first epoch, written
     # here as Chrome-trace JSON
     profile_dir: Optional[str] = None
-    # "orbax" is not ported yet: it raises at train()
+    # "orbax": the resume state as a torch.distributed.checkpoint directory,
+    # weights/last_state.dcp (not an orbax checkpoint: JAX cannot read it)
     resume_format: str = "npz"
     val_shape_buckets: int = 4
     occupancy_hint: bool = True
     max_labels: Optional[int] = None   # per-image gt padding (None = auto)
-    # data-parallel mesh; not ported yet: more than one device raises at
-    # train() and predict
+    # read nowhere, as in the JAX package: train() takes the largest count
+    # of the visible cards that divides the batch (tasks._make_mesh)
     mesh_shape: Optional[Tuple[int, ...]] = None
     cache_images: bool = True          # eager RAM cache like the reference
 

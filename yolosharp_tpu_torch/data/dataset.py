@@ -128,29 +128,36 @@ class YoloDataset:
                 and cfg.image_process_type == ImageProcessType.mosaic
                 and cfg.mosaic >= 1.0)
 
-    def device_batch(self, idx, max_labels: int) -> Dict[str, np.ndarray]:
+    def device_batch(self, idx, max_labels: int, partner_group: int = 0
+                     ) -> Dict[str, np.ndarray]:
         """A planned batch: the padded labels of the planned samples, the
         uint8 source pool (each record's resized image top-left on a
         114-filled s x s page) as ``aug_pool``, and the plan arrays as
         ``aug_src_idx`` ... ``aug_hsv`` (``device_augment.PLAN_KEYS``); for
         the segment task each record's mask top-left on a zero s/r x s/r
         page as ``aug_mask_pool`` and the plan's ``aug_mask_lut``.
-        Mosaic partners come from the batch; ``Config.mosaic_partner_pool
-        = E`` appends E records drawn from the whole dataset to the pool
-        (the reference's dataset-wide partners). The JAX package's
-        partner_group (partners kept inside a data-parallel shard) has no
-        counterpart: the port trains on one device."""
+        Mosaic partners come from groups of ``partner_group`` rows of
+        `idx` (0: the whole of it), as the JAX package's: a data-parallel
+        rank plans its own rows only, so its partners stay inside them;
+        ``Config.mosaic_partner_pool = E`` appends E records drawn from the
+        whole dataset to the pool (the reference's dataset-wide partners),
+        E a group."""
         from . import device_augment as DA
 
         cfg = self.config
         recs = [self.records[int(i)] for i in idx]
+        b = len(recs)
+        gs = partner_group if 0 < partner_group and b % partner_group == 0 \
+            else b
         extras = int(cfg.mosaic_partner_pool or 0)
-        pool_recs = list(recs)
-        if extras > 0:
-            ex = self.rng.integers(0, len(self.records), extras)
-            pool_recs += [self.records[int(t)] for t in ex]
+        pool_recs = []
+        for g in range(b // gs):
+            pool_recs += recs[g * gs:(g + 1) * gs]
+            if extras > 0:
+                ex = self.rng.integers(0, len(self.records), extras)
+                pool_recs += [self.records[int(t)] for t in ex]
         plan, labels = DA.plan_mosaic_batch(pool_recs, cfg, self.rng,
-                                            group=len(recs),
+                                            group=gs,
                                             extras_per_group=extras)
         s = cfg.image_size
         pool = np.full((len(pool_recs), s, s, 3), 114, np.uint8)

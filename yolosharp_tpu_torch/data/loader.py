@@ -73,16 +73,29 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 class DataLoader:
     """Batches of `dataset` in a shuffled (seed 0, as the JAX loader) or
-    fixed order; the last batch is padded with repeats of its own rows."""
+    fixed order; the last batch is padded with repeats of its own rows.
+
+    With `world` > 1 (data-parallel ranks) the loader of rank r makes rows
+    [r B / world, (r + 1) B / world) of each global batch of B =
+    batch_size rows: the permutation is the same on every rank, so the
+    ranks' rows together are the single-device loader's batch. Planned
+    mosaic batches take their partners inside the rank's rows
+    (``partner_group`` = B / world)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 workers: int = 4, max_labels: Optional[int] = None):
+                 workers: int = 4, max_labels: Optional[int] = None,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"batch_size={batch_size} does not split over "
+                             f"{world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.workers = max(1, workers)
         self.rng = np.random.default_rng(0)
         self._max_labels = max_labels
+        self.rank, self.world = rank, world
+        self.partner_group = batch_size // world if world > 1 else 0
 
     @property
     def max_labels(self) -> int:
@@ -103,7 +116,8 @@ class DataLoader:
                 # batch shape fixed and the rectangle-shape groups intact
                 pad = self.batch_size - len(idx)
                 idx = np.concatenate([idx, np.resize(idx, pad)])
-            yield idx
+            per = self.batch_size // self.world
+            yield idx[self.rank * per:(self.rank + 1) * per]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         ml = self.max_labels
@@ -118,7 +132,8 @@ class DataLoader:
                             break
                         if self.dataset.use_device_augment():
                             # the host plans, the device renders
-                            q.put(self.dataset.device_batch(idx, ml))
+                            q.put(self.dataset.device_batch(
+                                idx, ml, self.partner_group))
                         else:
                             recs = list(pool.map(self.dataset.get, idx))
                             q.put(self.dataset.collate(recs, ml))

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version. Every kernel counts its launches in ``<wrapper>.launches``
-(``attention_bihd`` counts into ``fused_attention.launches``)."""
+version. Every kernel counts its launches in ``<wrapper>.launches``, and
+per card in ``<wrapper>.launches_by_device`` (``attention_bihd`` counts
+into ``fused_attention``'s)."""
 
 from .attention import (attention_bihd, attention_grads_plain, attention_plain,
                         fused_attention)
@@ -15,13 +16,20 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def launch_counts_by_device() -> dict:
+    """{wrapper name: {card index: launches since the last reset}}."""
+    return {k.__name__: dict(k.launches_by_device) for k in KERNELS}
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.launches_by_device = {}
 
 
 __all__ = ["KERNELS", "attention_bihd", "attention_grads_plain",
            "attention_plain", "c2f_fused",
            "c2f_plain", "c2f_supported", "conv3x3_plain", "conv3x3_silu",
            "conv3x3s2_silu", "fused_attention", "launch_counts",
+           "launch_counts_by_device",
            "reset_launch_counts"]

@@ -155,7 +155,7 @@ def _kernel_bihd(q, k, v, scale: float) -> torch.Tensor:
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("fused_attention", q.transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), o.transpose(1, 2), scale)
-    fused_attention.launches += 1
+    build.count_launch(fused_attention, q.device)
     return o
 
 
@@ -190,7 +190,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      v.transpose(1, 2), scale).transpose(1, 2)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("fused_attention", q, k, v, o, scale)
-    fused_attention.launches += 1
+    build.count_launch(fused_attention, q.device)
     return o
 
 
@@ -207,3 +207,4 @@ def attention_bihd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention.launches = 0
+fused_attention.launches_by_device = {}

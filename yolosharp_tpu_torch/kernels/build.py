@@ -33,6 +33,7 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _build_lock = threading.Lock()   # loader threads may ask for one at once
+_count_lock = threading.Lock()   # mesh threads launch on several cards
 # compiler output of each build in this process (ptxas register / spill /
 # shared-memory report), for chip_smoke.py to print
 build_logs: Dict[str, str] = {}
@@ -161,3 +162,12 @@ def load_host(name: str) -> ctypes.CDLL:
     """The loaded library built from the host C++ ``csrc/<name>.cpp`` (built
     with the host compiler if needed; no nvcc involved)."""
     return _load(name, ".cpp", CXX_FLAGS, find_cxx, [])
+
+
+def count_launch(wrapper, device: torch.device) -> None:
+    """Add one launch to ``wrapper.launches`` and to its card's entry of
+    ``wrapper.launches_by_device`` (mesh threads launch at once)."""
+    with _count_lock:
+        wrapper.launches += 1
+        by = wrapper.launches_by_device
+        by[device.index] = by.get(device.index, 0) + 1

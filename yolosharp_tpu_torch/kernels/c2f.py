@@ -143,8 +143,9 @@ def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2) -> torch.Tensor:
     with torch.cuda.device(x.device):
         status = _lib().ys_c2f(*ptrs, B, H, W, cin, c, C2, tile, code, stream)
     build.check_status("c2f_fused", status)
-    c2f_fused.launches += 1
+    build.count_launch(c2f_fused, x.device)
     return y
 
 
 c2f_fused.launches = 0
+c2f_fused.launches_by_device = {}

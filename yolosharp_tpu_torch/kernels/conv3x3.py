@@ -119,7 +119,7 @@ def conv3x3_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, act, 1)
     y = _launch("conv3x3_silu", x, w, b, act, 1)
-    conv3x3_silu.launches += 1
+    build.count_launch(conv3x3_silu, x.device)
     return y
 
 
@@ -130,9 +130,11 @@ def conv3x3s2_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, act, 2)
     y = _launch("conv3x3s2_silu", x, w, b, act, 2)
-    conv3x3s2_silu.launches += 1
+    build.count_launch(conv3x3s2_silu, x.device)
     return y
 
 
 conv3x3_silu.launches = 0
 conv3x3s2_silu.launches = 0
+conv3x3_silu.launches_by_device = {}
+conv3x3s2_silu.launches_by_device = {}

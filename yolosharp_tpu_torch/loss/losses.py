@@ -13,6 +13,13 @@ and the head's raw maps [(B, C, H, W)] x 3 levels (and a segment branch's
 "proto" (B, nm, mh, mw)); a classify batch is {"cls": (B,) int} against
 the head's {"cls": (B, nc)} logits. They run in float32 whatever the
 network's type, as in the JAX package.
+
+Every normaliser over the batch (the target-score sum, the foreground
+count, the batch size, a mean over the images) is summed over the
+data-parallel ranks of an active group (``parallel.dist.allsum``, the
+identity on one device), so that each rank's loss is its share of the
+global batch's and their sum the single-device loss. The assigner's and
+the mask loss's work is per image and stays per rank.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from ..ops.anchors import (bbox2dist, dfl_decode, dist2bbox, dist2rbox,
 from ..ops.boxes import xywh2xyxy, xyxy2xywh
 from ..ops.iou import bbox_iou, probiou
 from ..ops.masks import crop_mask
+from ..parallel import dist
 from .tal import assign
 
 STRIDES = (8, 16, 32)
@@ -88,6 +96,12 @@ def _dfl_loss(pred_dist_logits: torch.Tensor, target: torch.Tensor,
     return (ce_l * wl + ce_r * wr).mean(-1)
 
 
+def global_sums(*values: torch.Tensor) -> torch.Tensor:
+    """The float32 scalars `values` summed over the ranks (one collective
+    for all of them; themselves on one device)."""
+    return dist.allsum(torch.stack([v.float().reshape(()) for v in values]))
+
+
 def take_gt(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """values (B, M, ...), idx (B, A) -> (B, A, ...): each anchor's
     assigned ground truth."""
@@ -108,6 +122,8 @@ class DetOut(NamedTuple):
     anchor_points: torch.Tensor  # (A, 2) grid units
     stride_tensor: torch.Tensor  # (A, 1)
     target_scores_sum: torch.Tensor
+    fg_count: torch.Tensor       # the foreground anchors, at least 1
+    batch: torch.Tensor          # the images
 
 
 def _imgsz(preds) -> Tuple[int, int]:
@@ -118,7 +134,8 @@ def _imgsz(preds) -> Tuple[int, int]:
 def _det_core(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
               tal_topk: int = 10, tal_topk2: int | None = None) -> DetOut:
     """Shared detection path (Loss.cs
-    get_assigned_targets_and_loss:411-468)."""
+    get_assigned_targets_and_loss:411-468); the target-score sum, the
+    foreground count and the batch size are the global batch's."""
     pred_distri = flatten_levels(preds["box"]).float()   # (B, A, 4*reg_max)
     pred_scores = flatten_levels(preds["cls"]).float()   # (B, A, nc) logits
     dev = pred_scores.device
@@ -140,7 +157,9 @@ def _det_core(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
                  anchor_points * stride_tensor, batch["cls"], gt_bboxes,
                  mask_gt, topk=tal_topk, topk2=tal_topk2, num_classes=nc)
 
-    tss = res.target_scores.sum().clamp(min=1.0)
+    sums = global_sums(res.target_scores.sum(),
+                       res.fg_mask.float().sum(), pred_scores.new_tensor(b))
+    tss = sums[0].clamp(min=1.0)
     loss_cls = bce_logits(pred_scores, res.target_scores).sum() / tss
 
     weight = res.target_scores.sum(-1) * res.fg_mask      # (B, A)
@@ -155,7 +174,7 @@ def _det_core(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
 
     return DetOut(loss_box, loss_cls, loss_dfl, res.fg_mask,
                   res.target_gt_idx, res.target_bboxes, anchor_points,
-                  stride_tensor, tss)
+                  stride_tensor, tss, sums[1].clamp(min=1.0), sums[2])
 
 
 def detection_loss(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
@@ -164,12 +183,11 @@ def detection_loss(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
                    hyp_dfl: float = 1.5):
     """v8DetectionLoss (Loss.cs:328-484) on one branch's maps. Returns
     (loss, items (3,) = box, cls, dfl)."""
-    b = preds["box"][0].shape[0]
     out = _det_core(preds, batch, nc=nc, reg_max=reg_max, tal_topk=tal_topk,
                     tal_topk2=tal_topk2)
     items = torch.stack([out.loss_box * hyp_box, out.loss_cls * hyp_cls,
                          out.loss_dfl * hyp_dfl])
-    return items.sum() * b, items
+    return items.sum() * out.batch, items
 
 
 def obb_loss(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
@@ -211,7 +229,9 @@ def obb_loss(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
                  mask_gt, topk=tal_topk, topk2=tal_topk2, num_classes=nc,
                  rotated=True)
 
-    tss = res.target_scores.sum().clamp(min=1.0)
+    sums = global_sums(res.target_scores.sum(),
+                       pred_scores.new_tensor(b))
+    tss = sums[0].clamp(min=1.0)
     loss_cls = bce_logits(pred_scores, res.target_scores).sum() / tss
 
     weight = res.target_scores.sum(-1) * res.fg_mask           # (B, A)
@@ -236,7 +256,7 @@ def obb_loss(preds: Dict, batch: Dict, *, nc: int, reg_max: int = 16,
 
     items = torch.stack([loss_box * hyp_box, loss_cls * hyp_cls,
                          loss_dfl * hyp_dfl, loss_angle * hyp_angle])
-    return items.sum() * b, items
+    return items.sum() * sums[1], items
 
 
 # mask-loss slots per checkpointed chunk (the JAX package's scan chunk)
@@ -325,7 +345,7 @@ def segmentation_loss(preds: Dict, batch: Dict, *, nc: int,
             _mask_chunk, proto, masks, coeff[:, part], gt_idx[:, part],
             mxyxy[:, part], marea[:, part], valid[:, part],
             use_reentrant=False)
-    loss_seg = total / fg.sum().clamp(min=1.0)
+    loss_seg = total / out.fg_count
 
     loss_semseg = torch.zeros((), device=dev)
     if "semseg" in preds and "sem_masks" in batch:
@@ -333,12 +353,13 @@ def segmentation_loss(preds: Dict, batch: Dict, *, nc: int,
         sem_gt = sem_gt * (batch["masks"] > 0)[..., None].float()
         semseg = bce_dice_loss(preds["semseg"].float(),
                                sem_gt.permute(0, 3, 1, 2)) * hyp_box
-        loss_semseg = torch.where(fg.sum() > 0, semseg, 0.0)
+        any_fg = global_sums(fg.sum())[0] > 0
+        loss_semseg = torch.where(any_fg, semseg, 0.0)
 
     items = torch.stack([out.loss_box * hyp_box, loss_seg * hyp_box,
                          out.loss_cls * hyp_cls, out.loss_dfl * hyp_dfl,
                          loss_semseg])
-    return items.sum() * b, items
+    return items.sum() * out.batch, items
 
 
 def pose_loss(preds: Dict, batch: Dict, *, nc: int, kpt_num: int = 17,
@@ -387,7 +408,7 @@ def pose_loss(preds: Dict, batch: Dict, *, nc: int, kpt_num: int = 17,
     e = d / ((2 * sigmas) ** 2 * (area[..., None] + 1e-9) * 2)
     factor = kpt_num / (kpt_mask.sum(-1) + 1e-6)          # (B, A)
     per_anchor = (factor[..., None] * (1 - torch.exp(-e)) * kpt_mask).mean(-1)
-    n_fg = fg.sum().clamp(min=1.0)
+    n_fg = out.fg_count
     loss_pose = (per_anchor * fg).sum() / n_fg
 
     if kpt_dim == 3:
@@ -399,7 +420,7 @@ def pose_loss(preds: Dict, batch: Dict, *, nc: int, kpt_num: int = 17,
     items = torch.stack([out.loss_box * hyp_box, loss_pose * hyp_pose,
                          loss_kobj * hyp_kobj, out.loss_cls * hyp_cls,
                          out.loss_dfl * hyp_dfl])
-    return items.sum() * b, items
+    return items.sum() * out.batch, items
 
 
 def multi_channel_dice_loss(pred_logits: torch.Tensor, target: torch.Tensor,
@@ -411,7 +432,9 @@ def multi_channel_dice_loss(pred_logits: torch.Tensor, target: torch.Tensor,
     inter = (pred * target).sum((2, 3))                 # (B, C)
     union = pred.sum((2, 3)) + target.sum((2, 3))
     dice = (2.0 * inter + smooth) / (union + smooth)
-    return (1.0 - dice).mean(-1).mean()
+    per_image = (1.0 - dice).mean(-1)
+    return per_image.sum() / global_sums(
+        per_image.new_tensor(per_image.shape[0]))[0]
 
 
 def bce_dice_loss(pred_logits: torch.Tensor,
@@ -430,19 +453,22 @@ def bce_dice_loss(pred_logits: torch.Tensor,
                                * (size / n)).long()
 
         target = target[:, :, index(h, H)][:, :, :, index(w, W)]
-    bce = bce_logits(pred_logits, target).mean()
+    bce = bce_logits(pred_logits, target)
+    bce = bce.sum() / global_sums(bce.new_tensor(bce.numel()))[0]
     return (WEIGHT_BCE * bce
-            + WEIGHT_DICE * multi_channel_dice_loss(pred_logits, target,
-                                                    smooth=1.0))
+            + WEIGHT_DICE * multi_channel_dice_loss(
+                pred_logits, target, smooth=1.0))
 
 
 def classification_loss(preds: Dict, batch: Dict):
     """v8ClassificationLoss (Loss.cs:1073-1091, the JAX
     classification_loss): the mean cross-entropy of the float32 logits
-    against the (B,) class ids; returns (loss, stack([loss]))."""
+    against the (B,) class ids over the global batch; returns (loss,
+    stack([loss]))."""
     logits = preds["cls"].float()
     labels = batch["cls"].reshape(-1).long()
-    loss = F.cross_entropy(logits, labels)
+    n = global_sums(logits.new_tensor(labels.shape[0]))[0]
+    loss = F.cross_entropy(logits, labels, reduction="sum") / n
     return loss, loss[None]
 
 

@@ -33,6 +33,7 @@ from torch import nn
 
 from ..kernels import c2f as c2f_kernel
 from ..kernels import conv3x3
+from ..parallel import dist
 
 ACTS = {"silu": F.silu, "relu": F.relu, "identity": lambda x: x}
 
@@ -78,7 +79,17 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     biased variance, gradients through both (F.batch_norm), and the running
     statistics moved ``bn.momentum`` (0.03) of the way to the batch mean and
     the *biased* batch variance in float32. nn.BatchNorm2d would use the
-    unbiased one."""
+    unbiased one.
+
+    Under an active process group (parallel.dist) the statistics are the
+    global batch's, as the JAX package's over a data mesh: float32 sums of x
+    and x * x over the ranks through the differentiable all-reduce (one a
+    direction), so gradients flow through the global statistics;
+    nn.SyncBatchNorm would refuse CPU tensors and move running_var by the
+    unbiased variance."""
+    ctx = dist.active()
+    if ctx is not None and ctx.world > 1:
+        return _batch_norm_global(y, bn)
     c = y.shape[1]
     dtype = torch.promote_types(y.dtype, torch.float32)
     mean = torch.zeros(c, dtype=dtype, device=y.device)
@@ -91,6 +102,30 @@ def batch_norm_train(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
         bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
         bn.running_var.mul_(1.0 - m).add_(var * ((n - 1) / n), alpha=m)
     return out
+
+
+def _batch_norm_global(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """batch_norm_train's rule over the ranks' rows together, in float32,
+    as the JAX FastBN takes it: one all-reduce a direction of the sums of
+    x and x * x and the count, the variance E[x^2] - mean^2 (at least 0),
+    and y = x * k + (beta - mean * k), which keeps no centred copy of x
+    for the backward."""
+    x = y.float()
+    c = x.shape[1]
+    dims = (0, 2, 3)
+    count = x.new_full((1,), x.numel() // c)
+    total = dist.allsum(torch.cat([x.sum(dims), (x * x).sum(dims), count]))
+    n = total[-1].detach()
+    mean = total[:c] / n
+    var = (total[c:2 * c] / n - mean * mean).clamp(min=0.0)
+    k = bn.weight.float() * torch.rsqrt(var + bn.eps)
+    b = bn.bias.float() - mean * k
+    out = x * k.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+    m = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+    return out.to(y.dtype)
 
 
 def batch_norm_eval(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:

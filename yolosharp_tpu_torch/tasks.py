@@ -37,7 +37,20 @@ train step of train.py, then val on the unfolded eval-mode master, which
 matches each batch's predictions to its ground truths in one device call
 (classify: top1 / top5 of the float32 softmax), and the outputs of the JAX
 package: config.txt, log.csv, weights/best.bin, weights/last.bin and
-weights/last_state.npz. The master stays in eval mode outside train().
+weights/last_state.npz (weights/last_state.dcp, a
+torch.distributed.checkpoint directory, with resume_format="orbax"). The
+master stays in eval mode outside train().
+
+Several devices (parallel/): train() and val() run data-parallel over the
+largest count of the visible CUDA devices that divides the batch
+(_make_mesh, as the JAX package's), one process a device under a process
+group (parallel.dist.run_ranks: the caller is rank 0), BN statistics and
+loss normalisers over the global batch, so that a step equals the
+single-device step at the same batch; Config.fsdp shards the train state
+(parallel.fsdp). batch_predict and predict_stream take a ``mesh``
+(parallel.create_mesh): in one process, the folded net replicated on each
+of its devices, the rows split (padded to a multiple of its data axis)
+and each device run from a host thread of its own; results in order.
 """
 
 from __future__ import annotations
@@ -59,7 +72,8 @@ import torch
 from .ckpt import (bias_init, clone_one2one, export_state_dict, fold_bn,
                    load_state_dict_file, load_state_dict_into, save_bin,
                    skip_patterns_for_nc_mismatch)
-from .ckpt.resume import restore_train_state, save_train_state
+from .ckpt.resume import (restore_train_state, save_train_state,
+                          save_train_state_dcp)
 from .config import Config, resolve_device, torch_dtype
 from .data import (ClassificationDataset, DataLoader, YoloDataset,
                    device_prefetch, to_device)
@@ -75,6 +89,8 @@ from .ops.boxes import xywh2xyxy
 from .ops.iou import batch_probiou, box_iou, kpt_iou, mask_iou
 from .ops.masks import process_mask
 from .ops.nms import NMSOutput, non_max_suppression
+from .parallel import (DATA_AXIS, Mesh, ShardedParams, create_mesh, dist,
+                       replicate_tree, shard_batch, visible_devices)
 from .predict import (decode_inference, decode_inference_topk,
                       e2e_postprocess, pad_to_multiple)
 from .train import (MAX_LOSS_SCALE, TrainState, make_eval_step,
@@ -102,27 +118,49 @@ def _warn_if_truncated(nms_out, state: Optional[Dict] = None) -> None:
 
 
 def refuse_unported(config: Config, train: bool) -> None:
-    """Raise NotImplementedError for a Config setting that the JAX package
-    acts on and the port does not run yet (ROADMAP.md queue 1, item 4),
-    where the JAX package would act on it: a mesh_shape of more than one
-    device at train() and predict, fsdp and resume_format="orbax" at
-    train(), int8_predict at predict. Their defaults pass, so a config.txt
-    of the JAX package's defaults still reads."""
-    found = []
-    if config.mesh_shape is not None and int(np.prod(config.mesh_shape)) > 1:
-        found.append(f"mesh_shape={tuple(config.mesh_shape)}")
-    if train and config.fsdp:
-        found.append("fsdp=True")
-    if train and config.resume_format == "orbax":
-        found.append("resume_format='orbax'")
+    """Raise NotImplementedError at predict for int8_predict, the one
+    Config setting the JAX package acts on and the port does not run yet
+    (ROADMAP.md queue 1, item 4: int8 post-training quantisation). Its
+    default passes, so a config.txt of the JAX package's defaults reads.
+    mesh_shape is read nowhere in the JAX package, and the port ignores it
+    too."""
     if not train and config.int8_predict:
-        found.append("int8_predict=True")
-    if found:
         raise NotImplementedError(
-            f"{', '.join(found)}: not ported to yolosharp_tpu_torch yet "
-            f"(ROADMAP.md queue 1, item 4: the mesh, FSDP, orbax resume and "
-            f"int8 predict); the port runs one device, float weights and "
-            f"npz resume")
+            "int8_predict=True: not ported to yolosharp_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 4: int8 post-training quantisation); "
+            "the port predicts with float weights")
+
+
+def _rank_main(cls, config: Config, kind: str, args: tuple) -> None:
+    """A spawned rank of BaseTask._run_ranks: the same task on the rank's
+    device, its part of `kind` ("train" or "val")."""
+    cls(config, dist.active().device)._rank_entry(kind, args)
+
+
+def _on_device(dev: torch.device, fn, *args):
+    """fn(*args) with `dev` the current CUDA device (a mesh thread's)."""
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            return fn(*args)
+    return fn(*args)
+
+
+def _merge_val(acc, part) -> None:
+    """Add a val accumulator `part` to `acc` (lists extend, counts add)."""
+    for k, v in part.items():
+        if isinstance(v, list):
+            acc[k].extend(v)
+        else:
+            acc[k] += v
+
+
+def _mesh_batch(batch_size: int, mesh: Optional[Mesh]) -> int:
+    """A stream's batch size rounded up to a multiple of the mesh's data
+    axis, as the JAX package's (yolosharp_tpu/tasks.py:888-892)."""
+    if mesh is None:
+        return batch_size
+    dp = mesh.shape[DATA_AXIS]
+    return -(-batch_size // dp) * dp
 
 
 def _to_host(out):
@@ -229,15 +267,21 @@ class BaseTask:
         return self._fused[1]
 
     def _stream(self, images, batch_size: int, prep_one, workers: int,
-                dispatch, unpack):
+                dispatch, unpack, mesh: Optional[Mesh] = None):
         """The predict_stream pipeline: prep_one(image) -> (uint8 (s, s, 3),
         meta) on a pool of `workers` host threads, batches of batch_size (a
         partial last batch padded with repeats of its last image; its metas
         name only the real ones), each copied to the device on a transfer
         thread (device_prefetch, pinned on CUDA), then depth 2: batch N is
-        dispatched (dispatch(uint8 batch on the device) -> output) before
-        unpack(output of batch N-1, its metas) yields its images' results,
-        in order."""
+        dispatched (dispatch(net, uint8 batch on the net's device) ->
+        output) before unpack(output of batch N-1, its metas) yields its
+        images' results, in order. With a `mesh` (batch_size a multiple of
+        its data axis) each batch's rows are split over its devices, each
+        slice dispatched from a host thread of its own to the device's
+        replica of the predict net, and unpacked in order."""
+        nets, devices = self._replicas(mesh)
+        per = batch_size // len(nets)
+        pool = self._mesh_pool(len(nets)) if len(nets) > 1 else None
 
         def host_batches():
             with ThreadPoolExecutor(max(1, workers)) as pool:
@@ -254,15 +298,137 @@ class BaseTask:
 
         def put(item):
             batch, metas = item
-            return to_device({"images": batch}, self.device)["images"], metas
+            return [to_device({"images": batch[i * per:(i + 1) * per]},
+                              dev)["images"]
+                    for i, dev in enumerate(devices)], metas
+
+        def launch(xbs):
+            if pool is None:
+                return [dispatch(nets[0], xbs[0])]
+            return [pool.submit(_on_device, dev, dispatch, net, xb)
+                    for dev, net, xb in zip(devices, nets, xbs)]
+
+        def finish(outs, metas):
+            for i, out in enumerate(outs):
+                out = out if pool is None else out.result()
+                yield from unpack(out, metas[i * per:(i + 1) * per])
 
         pending = []
-        for xb, metas in device_prefetch(host_batches(), put):
-            pending.append((dispatch(xb), metas))
+        for xbs, metas in device_prefetch(host_batches(), put):
+            pending.append((launch(xbs), metas))
             if len(pending) >= 2:
-                yield from unpack(*pending.pop(0))
+                yield from finish(*pending.pop(0))
         while pending:
-            yield from unpack(*pending.pop(0))
+            yield from finish(*pending.pop(0))
+
+    # --------------------------------------------------------------- mesh
+    def _visible_devices(self) -> List[torch.device]:
+        """The devices train() may use: every visible CUDA device when the
+        task's device is "cuda" without an index, else the task's own."""
+        if self.device.type == "cuda" and self.device.index is None:
+            return visible_devices("cuda")
+        return [self.device]
+
+    def _make_mesh(self, batch_size: int) -> Optional[Mesh]:
+        """Data-parallel mesh over the largest count of the visible devices
+        that divides the batch, cached per batch size (the JAX package's
+        _make_mesh, yolosharp_tpu/tasks.py:333-365: no silent single-device
+        fallback; fewer devices than visible, or one, is reported). None
+        for one device."""
+        cache = self.__dict__.setdefault("_mesh_cache", {})
+        if batch_size in cache:
+            return cache[batch_size]
+        devices = self._visible_devices()
+        n_dev = len(devices)
+        d = max((k for k in range(1, n_dev + 1) if batch_size % k == 0),
+                default=1)
+        if d <= 1:
+            cache[batch_size] = None
+            if n_dev > 1:
+                print(f"WARNING: batch_size={batch_size} shares no divisor "
+                      f"with the {n_dev} visible devices; training runs "
+                      f"single-device. Pick a batch size divisible by "
+                      f"{n_dev} to use all chips.")
+            return None
+        if d < n_dev:
+            print(f"WARNING: batch_size={batch_size} is not divisible by "
+                  f"{n_dev} devices; using a {d}-device data mesh. Pick a "
+                  f"batch size divisible by {n_dev} to use all chips.")
+        for m in cache.values():
+            if m is not None and m.size == d:
+                cache[batch_size] = m
+                return m
+        cache[batch_size] = create_mesh(devices=devices[:d])
+        return cache[batch_size]
+
+    def _replicas(self, mesh: Optional[Mesh]):
+        """(the predict net on each of `mesh`'s data_devices, those): the
+        folded predict copy replicated, cached per (mesh, predict copy) as
+        the JAX package's _replicated_vars; ([the predict net], [the
+        task's device]) without a mesh."""
+        net = self._predict_variables()
+        if mesh is None:
+            return [net], [self.device]
+        key = (tuple(str(d) for d in mesh.data_devices), id(net))
+        cached = self.__dict__.get("_mesh_nets")
+        if cached is None or cached[0] != key:
+            self._mesh_nets = cached = (key, replicate_tree(net, mesh))
+        return cached[1], list(mesh.data_devices)
+
+    def _mesh_outputs(self, batch: torch.Tensor, mesh: Optional[Mesh], run):
+        """[(run(net, rows on the net's device), first row, end row)]: the
+        uint8 canvas `batch` whole through the predict net, or its rows
+        padded to a multiple of `mesh`'s data axis (parallel.shard_batch)
+        and split over its devices, each slice run from a host thread of
+        its own (NMS syncs with the host) on that device's replica;
+        (first, end) name the slice's real rows."""
+        nets, devices = self._replicas(mesh)
+        if mesh is None:
+            return [(run(nets[0], batch.to(self.device)), 0,
+                     batch.shape[0])]
+        parts, n = shard_batch(batch.numpy(), mesh)
+        per = parts[0].shape[0]
+
+        def one(i):
+            x = torch.from_numpy(parts[i]).to(devices[i])
+            return _on_device(devices[i], run, nets[i], x)
+
+        if len(parts) == 1:
+            outs = [one(0)]
+        else:
+            outs = list(self._mesh_pool(len(parts)).map(one,
+                                                        range(len(parts))))
+        return [(out, min(i * per, n), min((i + 1) * per, n))
+                for i, out in enumerate(outs)]
+
+    def _mesh_pool(self, n: int) -> ThreadPoolExecutor:
+        """The task's host threads of mesh predict, one a card, kept
+        between calls (a thread's first CUDA call on a card sets up its
+        library handles)."""
+        size, pool = self.__dict__.get("_mesh_threads", (0, None))
+        if size != n:
+            if pool is not None:
+                pool.shutdown(wait=False)
+            pool = ThreadPoolExecutor(n, thread_name_prefix="mesh")
+            self._mesh_threads = (n, pool)
+        return pool
+
+    def _run_ranks(self, mesh: Mesh, kind: str, args: tuple):
+        """`kind` ("train" or "val") data-parallel over the data_devices of
+        `mesh`: this process is rank 0 on the first, one spawned process a
+        further device (parallel.dist.run_ranks); rank 0's return value."""
+        self._ensure_variables()
+        return dist.run_ranks(
+            lambda: self._rank_entry(kind, args), _rank_main,
+            (type(self), self.config, kind, args), mesh.data_devices)
+
+    def _rank_entry(self, kind: str, args: tuple):
+        """A rank's part of `kind`: the master network broadcast from rank 0
+        (the caller's, with whatever it loaded), then train or val."""
+        dist.broadcast_module(self._ensure_variables())
+        if kind == "train":
+            return self._train(*args)
+        return self._val(None, *args)
 
     # -------------------------------------------------------- checkpoint
     def load_model(self, path: str, skip_nc_not_equal_layers: bool = False):
@@ -312,47 +478,86 @@ class BaseTask:
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict:
         return to_device(batch, self.device)
 
-    def train(self, resume_from: Optional[str] = None) -> TrainState:
+    def train(self, resume_from: Optional[str] = None,
+              mesh: Optional[Mesh] = None) -> TrainState:
         """Train for Config.epochs (YoloBaseTaskModel.cs Train/TrainEpoch);
-        resume_from: a last_state.npz, continued at its epoch + 1. With
-        Config.profile_dir, steps 2-5 of the first epoch are traced
-        (utils.training.StepTrace)."""
+        resume_from: a last_state.npz or last_state.dcp, continued at its
+        epoch + 1. With Config.profile_dir, steps 2-5 of the first epoch are
+        traced (utils.training.StepTrace). Data-parallel over `mesh`
+        (default: _make_mesh of the batch size; a rank each of its
+        data_devices) where it has more than one; rank 0 (this process)
+        writes the outputs and returns its TrainState."""
         cfg = self.config
         refuse_unported(cfg, train=True)
-        print("Start Training:")
-        print(cfg.describe())
-        out_dir = cfg.output_path or os.path.join(
+        cfg.output_path = cfg.output_path or os.path.join(
             "result", self.arch.task,
             datetime.now().strftime("%y%m%d%H%M%S"))
-        cfg.output_path = out_dir
-        logger = TrainLogger(out_dir, self._log_headers())
-        logger.write_config(cfg)
+        if dist.active() is None:
+            mesh = mesh if mesh is not None else self._make_mesh(
+                cfg.batch_size)
+            ranks = mesh.data_devices if mesh is not None else []
+            if len(ranks) > 1:
+                if cfg.batch_size % len(ranks):
+                    raise ValueError(f"batch_size={cfg.batch_size} does not "
+                                     f"split over {len(ranks)} devices")
+                print(f"Data-parallel train over {len(ranks)} devices: "
+                      f"{[str(d) for d in ranks]}")
+                return self._run_ranks(mesh, "train", (resume_from,))
+        return self._train(resume_from)
+
+    def _train(self, resume_from: Optional[str]) -> TrainState:
+        """train()'s loop on this process's device; under an active group
+        this rank's rows of each global batch (rank 0 writes the outputs,
+        decides early stopping and broadcasts it)."""
+        cfg = self.config
+        ctx = dist.active()
+        rank, world = (ctx.rank, ctx.world) if ctx is not None else (0, 1)
+        main = rank == 0
+        if main:
+            print("Start Training:")
+            print(cfg.describe())
+        out_dir = cfg.output_path
+        logger = TrainLogger(out_dir, self._log_headers()) if main else None
+        if main:
+            logger.write_config(cfg)
 
         train_ds, val_ds = self._make_datasets()
         if len(train_ds) == 0 or len(val_ds) == 0:
             raise FileNotFoundError(f"No data found in {cfg.root_path}")
+        if world > 1:
+            # each rank draws its own augmentation
+            train_ds.rng = np.random.default_rng([0, rank])
         max_labels = cfg.max_labels or train_ds.max_label_count
         train_dl = DataLoader(train_ds, cfg.batch_size, shuffle=True,
-                              workers=cfg.workers, max_labels=max_labels)
+                              workers=cfg.workers, max_labels=max_labels,
+                              rank=rank, world=world)
         val_dl = DataLoader(val_ds, cfg.batch_size, shuffle=False,
-                            workers=cfg.workers, max_labels=max_labels)
+                            workers=cfg.workers, max_labels=max_labels,
+                            rank=rank, world=world)
         nb = len(train_dl)
 
         net = self._ensure_variables().to(memory_format=torch.channels_last)
+        shards = ShardedParams(net) if cfg.fsdp and world > 1 else None
         opt, scheds = make_optimizer(
             net, nc=cfg.number_class, epochs=cfg.epochs, steps_per_epoch=nb,
             warmup_epochs=cfg.warm_up_epochs,
             warmup_bias_lr=cfg.warm_up_bias_lr, use_cos_lr=cfg.use_cos_lr,
-            lrf=cfg.lrf)
+            lrf=cfg.lrf,
+            named_params=shards.named_masters() if shards else None)
         state = TrainState(
             net, opt, scheds,
-            init_scale=MAX_LOSS_SCALE if cfg.true_fp16 else 1.0)
+            init_scale=MAX_LOSS_SCALE if cfg.true_fp16 else 1.0,
+            shards=shards)
+        if shards is not None and main:
+            print(f"FSDP: train state sharded over {world} ranks "
+                  f"(~{shards.local_bytes(opt) / 2**20:.1f} MiB/rank).")
         start_epoch = 1
         if resume_from:
             meta = restore_train_state(resume_from, state)
             start_epoch = int(meta.get("epoch", 0)) + 1
-            print(f"Resumed full train state from {resume_from} "
-                  f"(continuing at epoch {start_epoch}).")
+            if main:
+                print(f"Resumed full train state from {resume_from} "
+                      f"(continuing at epoch {start_epoch}).")
         train_loss_fn, _ = self._loss_fns()
         step_fn = make_train_step(train_loss_fn, compute_dtype=self.dtype,
                                   dynamic_loss_scale=cfg.true_fp16)
@@ -372,7 +577,7 @@ class BaseTask:
                 if self.device.type == "cuda":
                     torch.cuda.reset_peak_memory_stats(self.device)
                 trace = (StepTrace(cfg.profile_dir, self.device)
-                         if cfg.profile_dir and epoch == start_epoch
+                         if cfg.profile_dir and epoch == start_epoch and main
                          else None)
                 t_loop = t_prev = time.perf_counter()
                 for batch in device_prefetch(train_dl, self._to_device):
@@ -395,6 +600,11 @@ class BaseTask:
                 if self.device.type == "cuda":
                     stats["peak_bytes"] = torch.cuda.max_memory_allocated(
                         self.device)
+                if world > 1:
+                    # every rank's step loop, for rank 0's report
+                    stats["ranks"] = dist.all_gather_object(
+                        {k: stats.get(k) for k in ("step_s", "wait_s",
+                                                   "loop_s", "peak_bytes")})
                 # the reference's items: per-batch means summed over the
                 # epoch, divided by the dataset size in the log
                 train_items = (items_sum.cpu().numpy() if items_sum is not None
@@ -407,13 +617,27 @@ class BaseTask:
                 fitness = -float(np.sum(val_items))
                 if fitness > best_fitness:
                     best_fitness = fitness
-                    self.save_weight(os.path.join(weights_dir, "best.bin"))
-                if stopper.should_stop(fitness, epoch):
+                    if main:
+                        self.save_weight(os.path.join(weights_dir,
+                                                      "best.bin"))
+                stop = stopper.should_stop(fitness, epoch)
+                if world > 1:
+                    stop = dist.broadcast_object(stop)
+                if stop:
                     break
-                self.save_weight(os.path.join(weights_dir, "last.bin"))
-                save_train_state(os.path.join(weights_dir, "last_state.npz"),
-                                 state, {"epoch": epoch})
+                if main:
+                    self.save_weight(os.path.join(weights_dir, "last.bin"))
+                if cfg.resume_format == "orbax":
+                    save_train_state_dcp(
+                        os.path.join(weights_dir, "last_state.dcp"), state,
+                        {"epoch": epoch})
+                else:
+                    save_train_state(
+                        os.path.join(weights_dir, "last_state.npz"), state,
+                        {"epoch": epoch})
                 dt = time.time() - t0
+                if not main:
+                    continue
                 loss_str = " ".join(
                     f"{n}={v / max(len(train_ds), 1):.3f}"
                     for n, v in zip(self.loss_names, train_items))
@@ -425,8 +649,9 @@ class BaseTask:
                                  len(train_ds), len(val_ds))
         finally:
             net.eval()
-        logger.draw_curves()
-        print("Train Done.")
+        if main:
+            logger.draw_curves()
+            print("Train Done.")
         return state
 
     def _log_headers(self) -> str:
@@ -437,17 +662,36 @@ class BaseTask:
                 f"train/loss, val/loss")
 
     # ----------------------------------------------------------------- val
-    def val(self, val_dl: Optional[DataLoader] = None, epoch: int = 0):
+    def val(self, val_dl: Optional[DataLoader] = None, epoch: int = 0,
+            mesh: Optional[Mesh] = None):
         """(loss items summed over the batches, metric_names' values) of
         the unfolded eval-mode master network on `val_dl` (default: the
-        configured val split)."""
+        configured val split, data-parallel over `mesh` or _make_mesh's
+        devices where there are several, as the JAX eval step is sharded:
+        loss items summed over the ranks, the metrics' statistics gathered
+        to rank 0; the values equal one device's)."""
+        if val_dl is None and dist.active() is None:
+            mesh = mesh if mesh is not None else self._make_mesh(
+                self.config.batch_size)
+            if mesh is not None and len(mesh.data_devices) > 1:
+                return self._run_ranks(mesh, "val", (epoch,))
+        return self._val(val_dl, epoch)
+
+    def _val(self, val_dl: Optional[DataLoader], epoch: int):
+        """val() on this process's device: under an active group this
+        rank's rows of each batch, each batch's statistics gathered to
+        rank 0 in rank order (the single-device order), the metrics
+        broadcast from it."""
         cfg = self.config
+        ctx = dist.active()
+        rank, world = (ctx.rank, ctx.world) if ctx is not None else (0, 1)
         if val_dl is None:
             ds = self._dataset(True)
             val_dl = DataLoader(ds, cfg.batch_size, shuffle=False,
                                 workers=cfg.workers,
                                 max_labels=cfg.max_labels
-                                or ds.max_label_count)
+                                or ds.max_label_count,
+                                rank=rank, world=world)
         net = self._ensure_variables()
         _, eval_loss_fn = self._loss_fns()
         eval_step = make_eval_step(eval_loss_fn, self._decode_for_val,
@@ -460,11 +704,20 @@ class BaseTask:
                 val_dl, lambda b: (b, self._to_device(b))):
             items, decoded = eval_step(net, dbatch, loss_kwargs)
             items_sum = items if items_sum is None else items_sum + items
-            self._accumulate_val(acc, batch, dbatch, decoded)
-            count += batch["images"].shape[0]
+            part = self._new_val_accumulator()
+            self._accumulate_val(part, batch, dbatch, decoded)
+            for p in (dist.all_gather_object(part) if world > 1
+                      else [part]):
+                _merge_val(acc, p)
+            count += batch["images"].shape[0] * world
+        if world > 1 and items_sum is not None:
+            dist.all_reduce_(items_sum)
         val_items = (items_sum.cpu().numpy() if items_sum is not None
                      else np.zeros(len(self.loss_names)))
-        return val_items, self._finalize_val(acc, count)
+        if world == 1:
+            return val_items, self._finalize_val(acc, count)
+        metrics = self._finalize_val(acc, count) if rank == 0 else None
+        return val_items, dist.broadcast_object(metrics)
 
     def _decode_for_val(self, preds):
         """The eval network's preds -> what _accumulate_val reads."""
@@ -566,17 +819,22 @@ class Detector(BaseTask):
                else iou_threshold)
         return conf, iou
 
-    def _serve(self, batch: torch.Tensor, shapes, conf, iou
-               ) -> List[List[YoloResult]]:
+    def _serve(self, batch: torch.Tensor, shapes, conf, iou,
+               mesh: Optional[Mesh] = None) -> List[List[YoloResult]]:
         """Result lists of the images (original sizes `shapes`) on the
-        uint8 canvas `batch` (B, H, W, 3)."""
-        out = self._host(self._predict_fn(
-            self._predict_variables(), batch.to(self.device),
-            0.0 if self.arch.end2end else conf, iou))
-        nms = self._nms_of(out)
-        if nms is not None:
-            _warn_if_truncated(nms)
-        return self._results(out, conf, tuple(batch.shape[1:3]), shapes)
+        uint8 canvas `batch` (B, H, W, 3); with a `mesh`, its rows split
+        over the mesh's devices (_mesh_outputs)."""
+        hw = tuple(batch.shape[1:3])
+        nms_conf = 0.0 if self.arch.end2end else conf
+        results = []
+        for out, lo, hi in self._mesh_outputs(
+                batch, mesh, lambda net, x: self._host(
+                    self._predict_fn(net, x, nms_conf, iou))):
+            nms = self._nms_of(out)
+            if nms is not None:
+                _warn_if_truncated(nms)
+            results += self._results(out, conf, hw, shapes[lo:hi])
+        return results
 
     def _results(self, out, conf, hw, shapes) -> List[List[YoloResult]]:
         """The result lists of a host predict output's images (their own
@@ -595,10 +853,13 @@ class Detector(BaseTask):
                            conf, iou)[0]
 
     def batch_predict(self, images, predict_threshold=None,
-                      iou_threshold=None) -> List[List[YoloResult]]:
+                      iou_threshold=None, mesh: Optional[Mesh] = None
+                      ) -> List[List[YoloResult]]:
         """N images -> N result lists in one forward. Mixed sizes are padded
         to a common 32-multiple canvas with 114; boxes are in canvas
-        pixels, as image_predict's."""
+        pixels, as image_predict's. mesh (parallel.create_mesh): the rows
+        split over its devices, padded to a multiple of its data axis, one
+        forward a device, results in order."""
         conf, iou = self._thresholds(predict_threshold, iou_threshold)
         arrs = [np.asarray(im, np.uint8) for im in images]
         H = -(-max(a.shape[0] for a in arrs) // 32) * 32
@@ -607,7 +868,7 @@ class Detector(BaseTask):
         for i, a in enumerate(arrs):
             batch[i, :a.shape[0], :a.shape[1]] = a
         return self._serve(torch.from_numpy(batch),
-                           [a.shape[:2] for a in arrs], conf, iou)
+                           [a.shape[:2] for a in arrs], conf, iou, mesh)
 
     def _keep(self, out, i, conf) -> np.ndarray:
         """Which rows of image i of a host predict or val output are kept:
@@ -644,17 +905,20 @@ class Detector(BaseTask):
     # ------------------------------------------------------------ stream
     def predict_stream(self, images, batch_size: int = 16,
                        imgsz: Optional[int] = None, predict_threshold=None,
-                       iou_threshold=None, workers: int = 4):
-        """Pipelined streaming inference (the JAX package's predict_stream,
-        single device): a generator over an iterable of uint8 RGB images
-        that yields one List[YoloResult] per image, in order, in the
-        ORIGINAL image's pixels. Each image is letterboxed to s x s (s =
-        imgsz or Config.image_size, rounded up to a multiple of 32) on a
-        pool of `workers` host threads; batches of batch_size run through
-        _stream's transfer thread and depth-2 pipeline. NMS truncation is
-        reported once a stream, and counted at its end."""
+                       iou_threshold=None, workers: int = 4,
+                       mesh: Optional[Mesh] = None):
+        """Pipelined streaming inference (the JAX package's predict_stream):
+        a generator over an iterable of uint8 RGB images that yields one
+        List[YoloResult] per image, in order, in the ORIGINAL image's
+        pixels. Each image is letterboxed to s x s (s = imgsz or
+        Config.image_size, rounded up to a multiple of 32) on a pool of
+        `workers` host threads; batches of batch_size run through _stream's
+        transfer thread and depth-2 pipeline (with a `mesh`, batch_size is
+        rounded up to a multiple of its data axis and each batch split over
+        its devices). NMS truncation is reported once a stream, and counted
+        at its end."""
         conf, iou = self._thresholds(predict_threshold, iou_threshold)
-        net = self._predict_variables()
+        batch_size = _mesh_batch(batch_size, mesh)
         s = -(-(imgsz or self.config.image_size) // 32) * 32
         e2e = self.arch.end2end
 
@@ -664,7 +928,7 @@ class Detector(BaseTask):
             pl, pu, out = _resize_pad(im, s, s, s, s, 114)
             return out, (min(s / iw, s / ih), pl, pu, ih, iw)
 
-        def dispatch(xb):
+        def dispatch(net, xb):
             return self._predict_fn(net, xb, 0.0 if e2e else conf, iou)
 
         tstate: Dict = {}
@@ -680,7 +944,7 @@ class Detector(BaseTask):
             yield from results
 
         yield from self._stream(images, batch_size, pack_one, workers,
-                                dispatch, unpack)
+                                dispatch, unpack, mesh)
         if tstate.get("truncated_batches", 0) > 1:
             print(f"NOTE: NMS candidate truncation occurred in "
                   f"{tstate['truncated_batches']} batches of this stream.")
@@ -1121,10 +1385,14 @@ class Classifier(BaseTask):
         return [YoloResult(class_id=int(i), score=float(p[i]))
                 for i in order[:5]]
 
-    def _classify(self, batch: np.ndarray) -> List[List[YoloResult]]:
-        probs = self._probs(self._predict_variables(),
-                            torch.from_numpy(batch).to(self.device))
-        return [self._top5(p) for p in probs.cpu().numpy()]
+    def _classify(self, batch: np.ndarray, mesh: Optional[Mesh] = None
+                  ) -> List[List[YoloResult]]:
+        out = []
+        for probs, lo, hi in self._mesh_outputs(
+                torch.from_numpy(batch), mesh,
+                lambda net, x: self._probs(net, x).cpu().numpy()):
+            out += [self._top5(p) for p in probs[:hi - lo]]
+        return out
 
     def image_predict(self, image, predict_threshold=None,
                       iou_threshold=None) -> List[YoloResult]:
@@ -1135,21 +1403,25 @@ class Classifier(BaseTask):
             resize_linear(np.asarray(image, np.uint8), s, s)[None])[0]
 
     def batch_predict(self, images, predict_threshold=None,
-                      iou_threshold=None) -> List[List[YoloResult]]:
+                      iou_threshold=None, mesh: Optional[Mesh] = None
+                      ) -> List[List[YoloResult]]:
         """N images, each squashed to s x s, -> N top-5 lists in one
-        forward."""
+        forward (with a `mesh`: one a device, as Detector.batch_predict)."""
         s = self.config.image_size
         return self._classify(np.stack(
-            [resize_linear(np.asarray(im, np.uint8), s, s) for im in images]))
+            [resize_linear(np.asarray(im, np.uint8), s, s) for im in images]),
+            mesh)
 
     def predict_stream(self, images, batch_size: int = 16,
                        imgsz: Optional[int] = None, predict_threshold=None,
-                       iou_threshold=None, workers: int = 4):
+                       iou_threshold=None, workers: int = 4,
+                       mesh: Optional[Mesh] = None):
         """Pipelined streaming classification: one top-5 List[YoloResult]
         per image, in order. Each image takes the val transform (the short
         side to s, then the centre crop: dataset.center_crop) on the host
-        pool, then _stream's transfer thread and depth-2 pipeline."""
-        net = self._predict_variables()
+        pool, then _stream's transfer thread and depth-2 pipeline (over a
+        `mesh` as Detector.predict_stream)."""
+        batch_size = _mesh_batch(batch_size, mesh)
         s = imgsz or self.config.image_size
 
         def prep_one(im):
@@ -1160,7 +1432,7 @@ class Classifier(BaseTask):
                 yield self._top5(p)
 
         yield from self._stream(images, batch_size, prep_one, workers,
-                                partial(self._probs, net), unpack)
+                                self._probs, unpack, mesh)
 
 
 _TASKS = {TaskType.detect: Detector, TaskType.segment: Segmenter,
@@ -1184,11 +1456,13 @@ class YoloTask:
     def save_weight(self, path: str):
         return self.task.save_weight(path)
 
-    def train(self, resume_from: Optional[str] = None) -> TrainState:
-        return self.task.train(resume_from=resume_from)
+    def train(self, resume_from: Optional[str] = None,
+              mesh: Optional[Mesh] = None) -> TrainState:
+        return self.task.train(resume_from=resume_from, mesh=mesh)
 
-    def val(self, val_dl: Optional[DataLoader] = None, epoch: int = 0):
-        return self.task.val(val_dl, epoch)
+    def val(self, val_dl: Optional[DataLoader] = None, epoch: int = 0,
+            mesh: Optional[Mesh] = None):
+        return self.task.val(val_dl, epoch, mesh)
 
     def image_predict(self, image, predict_threshold: Optional[float] = None,
                       iou_threshold: Optional[float] = None):
@@ -1198,19 +1472,22 @@ class YoloTask:
                                        iou_threshold)
 
     def batch_predict(self, images, predict_threshold: Optional[float] = None,
-                      iou_threshold: Optional[float] = None):
+                      iou_threshold: Optional[float] = None,
+                      mesh: Optional[Mesh] = None):
+        """mesh: optional parallel.Mesh, the rows split over its devices."""
         return self.task.batch_predict(images, predict_threshold,
-                                       iou_threshold)
+                                       iou_threshold, mesh=mesh)
 
     def predict_stream(self, images, batch_size: int = 16,
                        imgsz: Optional[int] = None,
                        predict_threshold: Optional[float] = None,
                        iou_threshold: Optional[float] = None,
-                       workers: int = 4):
+                       workers: int = 4, mesh: Optional[Mesh] = None):
         """Pipelined streaming inference (all five task families): yields
         one List[YoloResult] per input image, original-image pixels for
-        detect / segment / obb / pose, the top-5 classes for classify."""
+        detect / segment / obb / pose, the top-5 classes for classify;
+        mesh: optional parallel.Mesh, each batch split over its devices."""
         return self.task.predict_stream(
             images, batch_size=batch_size, imgsz=imgsz,
             predict_threshold=predict_threshold,
-            iou_threshold=iou_threshold, workers=workers)
+            iou_threshold=iou_threshold, workers=workers, mesh=mesh)

@@ -18,10 +18,12 @@ rate set before every update is optax's ``adamw`` (decoupled decay
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+
+from .parallel import dist
 
 
 def lr_fit(nc: int) -> float:
@@ -106,14 +108,17 @@ MAX_LOSS_SCALE = 65536.0
 def make_optimizer(net: nn.Module, *, nc: int, epochs: int,
                    steps_per_epoch: int, warmup_epochs: int = 3,
                    warmup_bias_lr: float = 0.1, use_cos_lr: bool = False,
-                   lrf: float = 0.01):
+                   lrf: float = 0.01, named_params=None):
     """(AdamW over the three groups of `net`'s trainable parameters, their
     LR schedules in GROUPS order). Only the weight group decays, by
-    WEIGHT_DECAY."""
+    WEIGHT_DECAY. named_params: the (name, parameter) pairs to optimise
+    instead of `net`'s (the FSDP shards, parallel.fsdp.ShardedParams)."""
     params: Dict[str, List[nn.Parameter]] = {g: [] for g in GROUPS}
-    for name, p in net.named_parameters():
-        if p.requires_grad:
-            params[param_group(name)].append(p)
+    if named_params is None:
+        named_params = [(n, p) for n, p in net.named_parameters()
+                        if p.requires_grad]
+    for name, p in named_params:
+        params[param_group(name)].append(p)
     opt = torch.optim.AdamW(
         [{"params": params[g], "name": g,
           "weight_decay": WEIGHT_DECAY if g == "weight" else 0.0}
@@ -160,10 +165,12 @@ class TrainState:
     statistics), the optimizer (moments and per-parameter update counts),
     `count` (updates applied: the LR schedules' step, which a skipped step
     keeps, as optax's count), `step` (steps taken), and the fp16 dynamic
-    loss scale and its count of finite steps."""
+    loss scale and its count of finite steps. Under FSDP `shards`
+    (parallel.fsdp.ShardedParams) holds the rank's slices the optimizer
+    updates."""
 
     def __init__(self, net: nn.Module, optimizer: torch.optim.Optimizer,
-                 schedules, init_scale: float = 1.0):
+                 schedules, init_scale: float = 1.0, shards=None):
         self.net = net
         self.optimizer = optimizer
         self.schedules = list(schedules)
@@ -171,10 +178,19 @@ class TrainState:
         self.count = 0
         self.loss_scale = float(init_scale)
         self.grow_count = 0
+        self.shards = shards
 
     @property
     def params(self) -> List[nn.Parameter]:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def param_names(self) -> List[str]:
+        """The optimizer's parameters' names, in its order."""
+        if self.shards is not None:
+            names = {id(m): n for n, m in self.shards.named_masters()}
+        else:
+            names = {id(p): n for n, p in self.net.named_parameters()}
+        return [names[id(p)] for p in self.params]
 
 
 def next_loss_scale(scale: float, grow_count: int, finite: bool):
@@ -206,10 +222,24 @@ def make_train_step(loss_fn, *, compute_dtype=torch.float32,
     they were (Amp.cs:350-361); the BN statistics of the step stay updated,
     as in the JAX step. dynamic_loss_scale: backward on loss * scale, the
     gradients unscaled before the check and the update, the scale moved by
-    next_loss_scale. One host sync a step (the finite check)."""
+    next_loss_scale. One host sync a step (the finite check).
+
+    Under an active process group (parallel.dist) each rank runs its rows
+    of the global batch: BN statistics and loss normalisers are global
+    (batch_norm_train, the losses' dist.allsum), so the sum of the ranks'
+    losses is the single-device loss of the global batch and its gradient
+    the sum of theirs. The gradients, loss and items are summed over the
+    ranks before the finite check, so every rank takes or skips the same
+    steps: one flat all-reduce after backward (dist.all_reduce_flat; under
+    FSDP the shards' reduce-scatter). Not DDP: DDP averages, where the
+    global loss's gradient is the sum of the ranks' (their losses already
+    carry the global normalisers), and the overlap of its hooks with
+    backward is left out."""
 
     def step_fn(state: TrainState, batch: Dict, loss_kwargs: Dict):
         net, opt = state.net, state.optimizer
+        ctx = dist.active()
+        multi = ctx is not None and ctx.world > 1
         net.train()
         scale = state.loss_scale if dynamic_loss_scale else 1.0
         opt.zero_grad(set_to_none=True)
@@ -217,18 +247,34 @@ def make_train_step(loss_fn, *, compute_dtype=torch.float32,
         preds = net(images)
         loss, items = loss_fn(preds, batch, **loss_kwargs)
         (loss * scale).backward()
-        params = state.params
-        for p in params:
-            if p.grad is None:      # unused this step: a zero gradient
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
+        for p in net.parameters():
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)    # unused this step: zero
+        if multi:
+            extra = torch.cat([loss.detach().reshape(1),
+                               items.detach().reshape(-1)])
+            if state.shards is not None:
+                total = state.shards.reduce_gradients(extra)
+            else:
+                total = dist.all_reduce_flat(
+                    [p.grad for p in state.params], extra)
+            loss, items = total[0], total[1:].to(items.dtype)
+        grads = [p.grad for p in state.params]
         if dynamic_loss_scale:
             torch._foreach_div_(grads, scale)
-        finite = all_finite(grads)
+        if multi and state.shards is not None:
+            # each rank holds other slices: agree on the check
+            bad = torch.tensor([0.0 if all_finite(grads) else 1.0],
+                               device=grads[0].device)
+            finite = float(dist.all_reduce_(bad)) == 0.0
+        else:
+            finite = all_finite(grads)
         if finite:
             for group, sched in zip(opt.param_groups, state.schedules):
                 group["lr"] = sched(state.count)
             opt.step()
+            if state.shards is not None:
+                state.shards.gather_weights()
             state.count += 1
         if dynamic_loss_scale:
             state.loss_scale, state.grow_count = next_loss_scale(
