@@ -317,7 +317,8 @@ kernel / plain / F.conv2d / bound ms summed):
   15e. Config.profile_dir: YoloTask.train() of v8n-320 b8, one epoch of 6
      steps on 48 PNGs this script writes: the Chrome trace holds CUDA
      kernel events and the spans of steps 2-5.
-  15f. int8_predict raises NotImplementedError at predict; fsdp,
+  15f. int8_predict without calibration stats predicts the float rows
+     (no int8 launch), as the JAX package does; fsdp,
      resume_format="orbax" and mesh_shape run (v8n-128 b8 train() of one
      epoch on 16 PNGs: FSDP over the visible cards, unsharded on one; the
      torch.distributed.checkpoint directory weights/last_state.dcp; the
@@ -359,6 +360,43 @@ Several devices (phase 16, over N = torch.cuda.device_count() cards):
      printed: a second AdamW step no longer follows the gradient's sign).
   16e. graft_entry.entry() (the v8s-640 forward and decode) on the card;
      graft_entry.dryrun_multichip(2) on gloo CPU ranks.
+int8 post-training quantisation (phase 17; its kernels replace no Pallas
+kernel: the JAX int8_conv is XLA's int8 convolution):
+  17a. the quantise pass and the int8 conv (csrc/int8_conv.cu) against
+     their plain versions at every int8 shape of v8s-640, v12s-640, the
+     v5us stem (6x6 / 2), v11s-pose's 51-wide towers and v8s-cls-224, B=2
+     in float32, bfloat16 and float16 and B=32 in bfloat16: the quantise
+     pass equal to the bit; the conv equal to the bit in float32 with the
+     identity (float32 SiLU: phase 2's conv rule), and in bfloat16 /
+     float16 within 1.25 u of a float64 evaluation of the same int32 sums
+     (rounded where the plain version rounds, before the activation).
+     Timed at B=32 (CUDA graphs): conv kernel, quantise, the two, plain,
+     the conv's float route today (the conv3x3 kernel or cuDNN) and
+     torch._int_mm on the 1x1 stride-1 shapes (the same int32 sums in one
+     PyTorch call; never used by the port); bound max(2 M N K / 1979e12,
+     bytes / 3.35e12), K and the int8 bytes over the conv's Ci (the
+     kernel's padded Cp printed beside it); sums per shape group.
+  17b. v8s-640: calibrate_int8 on the card over 16 of phase 7's PNGs and
+     the same on the CPU (the same keys, absmax within 1e-4 relative);
+     the bf16 b32 network forward float against int8 (CUDA events, in
+     turns) with the int8 launches of one forward against the model's
+     modules (no conv3x3 or C2f launch), batch_predict img/s of both and
+     the share of float boxes the int8 boxes match (at least 0.7, the JAX
+     facade test's rule); float32 int8 card against CPU: each int8
+     ConvBN of the card, given the CPU's folded and int8 buffers and fed
+     the CPU net's input to it, gives the CPU's output (identity to the bit, SiLU phase 2's float32 conv rule;
+     the card's own fold and int8 weights printed beside the CPU's), the
+     head outputs of 4 images lie from the CPU int8's at most 1.5x and
+     from the CPU float's at least 0.5x the CPU int8's distance from the
+     CPU float's (INT8_CPU_FACTOR, INT8_FLOAT_FLOOR), and image_predict's
+     rows match the CPU's by the same rule.
+  17c. one int8 bf16 batch_predict at B=2 of v11m-seg, v11s-pose,
+     v12x-obb and v8s-cls, calibrated on the batch, the launches against
+     the model's modules.
+  17d. where more than one card is visible, v8s int8 batch_predict over a
+     mesh of them, the int8 conv launched on every card.
+  An int8 kernel launched by any other phase, train or predict, fails the
+  run.
 Each phase prints its wall seconds.
 
 ``python3 chip_smoke.py --multi`` runs phase 1, phase 3's v8s slice and
@@ -447,6 +485,18 @@ SOURCES = {
     "fused_attention": ("yolosharp_tpu_torch/csrc/attention.cu",
                         "yolosharp_tpu/kernels/attention.py:57"),
 }
+# phase 17's int8 kernels: no Pallas kernel behind them (the JAX int8_conv
+# is XLA's int8 convolution)
+INT8_SOURCES = {
+    "quantize_int8": ("yolosharp_tpu_torch/csrc/int8_conv.cu",
+                      "yolosharp_tpu/nn/common.py:635 (int8_conv's "
+                      "quantise, XLA; no Pallas kernel)"),
+    "int8_conv": ("yolosharp_tpu_torch/csrc/int8_conv.cu",
+                  "yolosharp_tpu/nn/common.py:635 (int8_conv, XLA's int8 "
+                  "convolution; no Pallas kernel)"),
+}
+# every kernel wrapper that counts launches (kernels.KERNELS)
+ALL_KERNELS = (*SOURCES, *INT8_SOURCES)
 OBB = "v12x-obb"
 CLS, CLS11 = "v8s-cls", "v11s-cls"
 # the kernels each path must launch (and no other)
@@ -1010,11 +1060,11 @@ def build_tasks(dev, path, state, **cfg):
 
 def check_path_launches(version, counts, mode):
     """The path's kernels launched, and no other kernel."""
-    for name in SOURCES:
-        if (counts[name] > 0) != (name in PATHS[version]):
-            raise SystemExit(f"[{mode}] {name} launched {counts[name]} "
-                             f"times; the {version} path takes "
-                             f"{PATHS[version]}")
+    for name in ALL_KERNELS:
+        if (counts.get(name, 0) > 0) != (name in PATHS[version]):
+            raise SystemExit(f"[{mode}] {name} launched "
+                             f"{counts.get(name, 0)} times; the {version} "
+                             f"path takes {PATHS[version]}")
 
 
 def check_keypoints(results, mode):
@@ -1059,22 +1109,26 @@ def check_rotated(results, mode):
 def expected_launches(net, skip_one2many=False) -> dict:
     """The kernel launches one forward of a folded net makes, derived from
     its modules: each C2f block on the fused route launches the C2f kernel
-    once (and its own convs none), each other 3x3 ConvBN on the kernel
-    route its stride's conv kernel once and each AAttn the attention once;
+    once (and its own convs none), each int8 ConvBN the quantise pass and
+    the int8 conv once, each other 3x3 ConvBN on the kernel route its
+    stride's conv kernel once and each AAttn the attention once;
     an End2End net's forward with skip_one2many (End2End predict) does not
     run the head's one2many towers (cv2, cv3, cv4)."""
     from yolosharp_tpu_torch.nn import AAttn, C2f, ConvBN
 
     head = f"model.{len(net.model) - 1}.cv"
     skip = skip_one2many and getattr(net.model[-1], "end2end", False)
-    out = dict.fromkeys(SOURCES, 0)
+    out = dict.fromkeys(ALL_KERNELS, 0)
     fused = [name + "." for name, m in net.named_modules()
              if isinstance(m, C2f) and m.fused_weights]
     out["c2f_fused"] = len(fused)
     for name, m in net.named_modules():
         if (skip and name.startswith(head)) or name.startswith(tuple(fused)):
             continue
-        if isinstance(m, ConvBN) and m.kernel_route:
+        if isinstance(m, ConvBN) and m.i8_w is not None:
+            out["quantize_int8"] += 1
+            out["int8_conv"] += 1
+        elif isinstance(m, ConvBN) and m.kernel_route:
             out["conv3x3_silu" if m.s == 1 else "conv3x3s2_silu"] += 1
         elif isinstance(m, AAttn):
             out["fused_attention"] += 1
@@ -2849,7 +2903,7 @@ def phase_cls_slice(dev):
     print(f"  [{CLS}] float16 b32 batch_predict: kernel launches {counts}; "
           f"top-1 class as bf16's on {same:.3f} of the images", flush=True)
     check_path_launches(CLS, counts, f"{CLS} float16")
-    for name in SOURCES:
+    for name in ALL_KERNELS:
         launches[name] += counts[name]
 
     t11 = cls_task(dev, CLS11)
@@ -2870,7 +2924,7 @@ def phase_cls_slice(dev):
     print(f"  [{CLS11}] batch_predict {len(batch)}x224x224: {s * 1e3:.2f} ms, "
           f"kernel launches {counts}", flush=True)
     check_path_launches(CLS11, counts, CLS11)
-    for name in SOURCES:
+    for name in ALL_KERNELS:
         launches[name] += counts[name]
     return launches, per_forward, state
 
@@ -3112,7 +3166,7 @@ def phase_stream(dev, states, confs):
     print(f"phase 13: predict_stream of each family: 8 images float32 card "
           f"against CPU at batch {STREAM_F32_BATCH}, then {STREAM_N} images "
           f"bf16 at batch {STREAM_BATCH}", flush=True)
-    launches = dict.fromkeys(SOURCES, 0)
+    launches = dict.fromkeys(ALL_KERNELS, 0)
     small = stream_images(8, 70)
     many = stream_images(STREAM_N, 80)
     for path, e2e in STREAM_PATHS:
@@ -3138,7 +3192,7 @@ def phase_stream(dev, states, confs):
             raise SystemExit(f"[{mode}] stream gave {len(got)} / {len(want)} "
                              f"lists for {len(small)} images")
         check_path_launches(path, used, mode + " float32 stream")
-        for name_k in SOURCES:
+        for name_k in ALL_KERNELS:
             launches[name_k] += used[name_k]
         if cls:
             dp = max(abs(a.score - b.score) for g, w in zip(got, want)
@@ -3211,7 +3265,7 @@ def phase_stream(dev, states, confs):
         if cls:
             check_top5(out, mode + " stream", PATH_NC[path])
         check_path_launches(path, used, mode + " bf16 stream")
-        for name_k in SOURCES:
+        for name_k in ALL_KERNELS:
             launches[name_k] += used[name_k]
     return launches
 
@@ -3590,14 +3644,15 @@ def phase_blocks(dev, tag) -> dict:
           f"train-mode forward + backward b{BLOCK_TRAIN_BATCH}, card "
           f"against CPU: output, input and parameter gradients ({tag})",
           flush=True)
-    total = dict.fromkeys(SOURCES, 0)
+    total = dict.fromkeys(ALL_KERNELS, 0)
     for spec in BLOCKS15:
         name, _, _, chw, source, want = spec
         master = make_block(spec)
         folded = fold_bn(copy.deepcopy(master).eval())
         convs = kernel_convs(folded)
-        counted = {n: sum(1 for c in convs if c[0] == n) for n in SOURCES}
-        want = {n: want.get(n, 0) for n in SOURCES}
+        counted = {n: sum(1 for c in convs if c[0] == n)
+                   for n in ALL_KERNELS}
+        want = {n: want.get(n, 0) for n in ALL_KERNELS}
         if counted != want:
             raise SystemExit(f"{name}: its modules put {counted} on the "
                              f"kernel route, expected {want}")
@@ -3718,7 +3773,7 @@ def phase_convert(dev, state, conf) -> dict:
     # the NMS model's weights: phase 3's End2End master without one2one
     cpu_state = {k: v.detach().cpu() for k, v in state.items()
                  if "one2one" not in k}
-    counts = dict.fromkeys(SOURCES, 0)
+    counts = dict.fromkeys(ALL_KERNELS, 0)
 
     def serve(load):
         task = YoloTask(path_config("v8", end2end=False, nms_pre_topk=512),
@@ -3798,25 +3853,30 @@ def phase_profile(dev, root, tag):
 
 
 def phase_unported(dev, root):
-    """Phase 15f: int8_predict, the one Config setting the port does not
-    run yet, raises NotImplementedError at predict; fsdp,
+    """Phase 15f: int8_predict without calibration stats predicts in float,
+    as the JAX package does (phase 17 runs int8); fsdp,
     resume_format="orbax" and mesh_shape run as in the JAX package (v8n
     train() at 128x128, batch 8, one epoch: FSDP over the visible cards,
     unsharded on one; the torch.distributed.checkpoint directory; the mesh
     shape read nowhere)."""
     from yolosharp_tpu_torch import YoloSize, YoloTask
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    print("phase 15f: int8_predict raises; fsdp, resume_format='orbax' and "
-          "mesh_shape run", flush=True)
+    print("phase 15f: int8_predict without stats predicts float; fsdp, "
+          "resume_format='orbax' and mesh_shape run", flush=True)
     img = synthetic_images(1, 64, 64, 1)[0]
-    try:
-        YoloTask(path_config("v8", int8_predict=True),
-                 device=dev).image_predict(img)
-    except NotImplementedError as e:
-        print(f"  int8_predict=True at predict: NotImplementedError: {e}",
-              flush=True)
-    else:
-        raise SystemExit("int8_predict=True did not raise at predict")
+    plain = YoloTask(path_config("v8"), device=dev)
+    int8 = YoloTask(path_config("v8", int8_predict=True), device=dev)
+    int8.task._ensure_variables().load_state_dict(
+        plain.task._ensure_variables().state_dict())
+    reset_launch_counts()
+    rows = int8.image_predict(img, 0.0)
+    used = launch_counts()
+    if rows != plain.image_predict(img, 0.0) or used["int8_conv"]:
+        raise SystemExit("int8_predict=True without stats is not the float "
+                         "predict")
+    print(f"  int8_predict=True without stats: {len(rows)} rows, those of "
+          f"the float predict; launches {used}", flush=True)
     rows = YoloTask(path_config("v8", mesh_shape=(1, 2)),
                     device=dev).image_predict(img)
     print(f"  mesh_shape=(1, 2) at predict: {len(rows)} rows", flush=True)
@@ -4286,6 +4346,532 @@ def dp_train_only(dev, tag, timed) -> int:
     return 0
 
 
+# ------------------------------------------------------------ phase 17
+# H100 SXM dense int8 tensor cores (NVIDIA's data sheet)
+INT8_PEAK = 1979e12
+# 17a's shape groups: (name, path, canvas, which of its int8 shapes)
+INT8_GROUPS = (("v8s-640", "v8", 640, lambda sh: True),
+               ("v12s-640", "v12", 640, lambda sh: True),
+               ("v5us stem", "v5u", 640, lambda sh: sh[4] == 6),
+               (f"{POSE_S} Ci/Co = 51", POSE_S, 640,
+                lambda sh: 51 in sh[2:4]),
+               (f"{CLS}-224", CLS, 224, lambda sh: True))
+INT8_CALIB = 16     # phase 7's PNGs 17b calibrates on
+# 17b's float32 card against CPU. What holds the card's int8 to the CPU's
+# is the layer check: each int8 ConvBN of the card, given the CPU's folded
+# and int8 buffers and fed the CPU net's input to it, gives the CPU's
+# output (to the bit with the identity activation, else within
+# TOL_F32["conv"]), with one int8_conv launch for each calibrated conv.
+# The card folds its own copy, whose weights and
+# scales may sit an ulp from the CPU's, so its own ConvBNs are not held
+# to the bit. Whole nets then drift apart like two draws of the
+# quantisation noise: a float ulp apart in a conv's input flips a rounding
+# to int8 now and then, and the next layers' roundings follow. The head
+# gates: the card's int8 lies from the CPU's int8 at most INT8_CPU_FACTOR
+# times the CPU int8's distance from the CPU float (two independent draws
+# would read sqrt(2); the drift is partial: tests/test_torch_int8.py read
+# 0.50-0.71 for the port against JAX on v8n-160, the card 0.868 on one
+# v8s-640 image), and at least INT8_FLOAT_FLOOR times that distance from
+# the CPU float (a net that did not quantise would read ~0 there, a
+# quantising one ~1). Neither head gate alone tells int8 from a float net
+# at ~1: the layer check and the launch count do.
+INT8_IMAGES = 4
+# a folded ConvBN's buffers: its float fold and its int8 weights and scales
+FOLD_BUFFERS = ("w_fold", "b_fold", "i8_w", "i8_scale", "i8_ascale")
+INT8_CPU_FACTOR = 1.5
+INT8_FLOAT_FLOOR = 0.5
+# the JAX facade test's rule (tests/test_int8.py:123-133): the share of
+# float boxes an int8 box matches within max(4 px, 5% of the larger side)
+INT8_MATCH = 0.7
+
+
+@torch.no_grad()
+def record_int8_shapes(path: str, canvas: int) -> set:
+    """{(H, W, Ci, Co, k, s, p, act)} of the int8-eligible ConvBNs of the
+    path's folded net, both End2End branches, one image on the CPU."""
+    from yolosharp_tpu_torch.ckpt import fold_bn
+    from yolosharp_tpu_torch.nn import ArchCfg, ConvBN, YoloNet
+
+    version, size, task = ARCH[path]
+    net = fold_bn(YoloNet(ArchCfg(version=version, size=size, task=task,
+                                  nc=PATH_NC.get(path, 80),
+                                  end2end=task != "classify")).eval())
+    shapes = set()
+
+    def hook(m, inp, out):
+        _, ci, h, w = inp[0].shape
+        shapes.add((h, w, ci, m.conv.out_channels, m.k, m.s, m.p, m.act))
+
+    for m in net.modules():
+        if isinstance(m, ConvBN) and m.int8_eligible:
+            m.register_forward_hook(hook)
+    net(torch.zeros(1, 3, canvas, canvas).contiguous(
+        memory_format=torch.channels_last))
+    return shapes
+
+
+def int8_bound(batch, shape, dtype, cin=None):
+    """(conv flop, conv bytes, quantise bytes) of one int8 conv: the
+    products of K = k k Ci, each input read once and the output written
+    once (x in its type; xq and wq int8 over the conv's Ci channels, or
+    over `cin`, the kernel's padded Cp, for the traffic as built)."""
+    h, w, ci, co, k, s, p, _ = shape
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    cq = ci if cin is None else cin
+    size = torch.finfo(dtype).bits // 8
+    m = batch * ho * wo
+    flop = 2 * m * co * k * k * ci
+    conv_bytes = (batch * h * w * cq + co * k * k * cq + 4 * co + size * co
+                  + size * m * co)
+    quant_bytes = batch * h * w * (size * ci + cq)
+    return flop, conv_bytes, quant_bytes
+
+
+def phase_int8_kernels(dev) -> dict:
+    """Phase 17a: the quantise pass and the int8 conv against their plain
+    versions at every int8 shape of the groups, B=2 in float32, bfloat16
+    and float16 and B=32 in bfloat16, timed at B=32: kernel, plain,
+    torch._int_mm (1x1 stride-1 shapes whose Co is a multiple of 8), bound
+    and the conv's float route today (the conv3x3 kernel or cuDNN)."""
+    from yolosharp_tpu_torch.kernels.int8_conv import (
+        ACTS, activation_scale, int8_conv, int8_conv_plain, padded_channels,
+        quantize_int8, quantize_plain, quantize_weight)
+    from yolosharp_tpu_torch.nn import ConvBN
+
+    print("phase 17a: int8 kernels against their plain versions: every "
+          "int8 shape of " + ", ".join(g[0] for g in INT8_GROUPS)
+          + f" at B={BATCH} in float32, bfloat16 and float16 and at "
+          f"B={SERVED_BATCH} in bfloat16 (timed)", flush=True)
+    tagged = {}
+    for group, path, canvas, holds in INT8_GROUPS:
+        for sh in record_int8_shapes(path, canvas):
+            if holds(sh):
+                tagged.setdefault(sh, []).append(group)
+    shapes = sorted(tagged.items(), key=lambda t: (-t[0][0], t[0]))
+    print(f"  {len(shapes)} shapes (H, W, Ci, Co, k, s, p, act)", flush=True)
+    g = torch.Generator(device=dev).manual_seed(17)
+    stats = {n: {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0,
+                 "max_abs_err_f16": 0.0, "shapes": len(shapes), "ms": 0.0,
+                 "plain_ms": 0.0, "bound_ms": 0.0, "bound_ms_padded": 0.0,
+                 "library_ms": None}
+             for n in INT8_SOURCES}
+    conv = stats["int8_conv"]
+    conv.update({"library_ms": 0.0, "ms_int_mm_shapes": 0.0,
+                 "library_shapes": 0, "bf16_route_ms": 0.0,
+                 "ms_with_quantize": 0.0})
+    parts = {n: {} for n in INT8_SOURCES}
+    group_sums = {}
+    for sh, groups in shapes:
+        h, w, ci, co, k, s, p, act = sh
+        cp = padded_channels(ci)
+        wf = torch.randn(co, ci, k, k, generator=g, device=dev) * (
+            k * k * ci) ** -0.5
+        wq, w_scale = quantize_weight(wf)
+        for dtype, batch in ((torch.float32, BATCH), (torch.bfloat16, BATCH),
+                             (torch.float16, BATCH),
+                             (torch.bfloat16, SERVED_BATCH)):
+            dt = str(dtype)[6:]
+            x = (torch.randn(batch, h, w, ci, generator=g, device=dev)
+                 * 2).to(dtype)
+            b = (torch.randn(co, generator=g, device=dev) * 0.1).to(dtype)
+            # some inputs past 127 a_scale: the clip is exercised
+            a = activation_scale(x.float().abs().amax() * 0.9)
+            scale = (a * w_scale).contiguous()
+            xq = quantize_int8(x, a, cp)
+            xq_plain = quantize_plain(x, a, cp)
+            got = int8_conv(xq_plain, wq, scale, b, s, p, act)
+            want = int8_conv_plain(xq_plain, wq, scale, b, s, p, act)
+            ref = ACTS[act](int8_conv_plain(xq_plain, wq, scale, b, s, p)
+                            .double())
+            torch.cuda.synchronize()
+            tag = (f"{h}x{w} {ci}->{co} k{k} s{s} p{p} {act} {dt} "
+                   f"B={batch} [{' + '.join(groups)}]")
+            if not torch.equal(xq, xq_plain):
+                raise SystemExit(f"quantize_int8 {tag}: differs from its "
+                                 f"plain version")
+            err = float((got.float() - want.float()).abs().max())
+            top = float(ref.abs().max()) + 1e-12
+            dk = float((got.double() - ref).abs().max()) / top
+            if dtype == torch.float32:
+                atol, rtol = TOL_F32["conv"]
+                bad = int(((got - want).abs() > atol + rtol * want.abs())
+                          .sum())
+                ok = (torch.equal(got, want.contiguous()) if act == "identity"
+                      else bad == 0)
+                rule = ("equal to the bit" if act == "identity" else
+                        f"|k-p| <= {atol} + {rtol}|p| ({bad} outside)")
+            else:
+                ok = dk <= TOL16["conv"] * UNIT[dtype]
+                rule = (f"vs float64 of the same int32 sums {dk / UNIT[dtype]:.3f}"
+                        f" u (<= {TOL16['conv']} u)")
+            finite = bool(torch.isfinite(got).all())
+            print(f"  int8_conv {tag}: max|k-p| {err:.3e}, {rule} "
+                  f"{'OK' if ok and finite else 'FAIL'}", flush=True)
+            if not (ok and finite):
+                raise SystemExit(f"int8_conv {tag}: kernel disagrees with "
+                                 f"its plain version")
+            key = ERR_KEY[dtype]
+            conv[key] = max(conv[key], err)
+            if batch != SERVED_BATCH:
+                continue
+            # the float route this conv takes without int8, in the same type
+            fl = ConvBN(ci, co, k, s, p, act=act)
+            fl.set_folded(wf, b.float())
+            fl = fl.to(dev, dtype).eval()
+            xn = x.permute(0, 3, 1, 2)
+            fns = {"plain": lambda: int8_conv_plain(
+                       quantize_plain(x, a, cp), wq, scale, b, s, p, act),
+                   "kernel": lambda: int8_conv(xq, wq, scale, b, s, p, act),
+                   "quantize": lambda: quantize_int8(x, a, cp),
+                   "plain quantize": lambda: quantize_plain(x, a, cp),
+                   "both": lambda: int8_conv(quantize_int8(x, a, cp), wq,
+                                             scale, b, s, p, act),
+                   "bf16 route": lambda: fl(xn)}
+            lib = k == 1 and s == 1 and co % 8 == 0
+            if lib:
+                a2, b2 = xq.view(-1, cp), wq.view(co, cp).t()
+                fns["library"] = lambda: torch._int_mm(a2, b2)
+                torch.testing.assert_close(
+                    torch._int_mm(a2, b2).double(),
+                    F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                             wq.permute(0, 3, 1, 2).double()).permute(
+                        0, 2, 3, 1).reshape(-1, co), rtol=0, atol=0)
+            t, _ = time_calls(fns, iters=5)
+            flop, cbytes, qbytes = int8_bound(batch, sh, dtype)
+            cb, cby = max((flop / INT8_PEAK * 1e3, "operations"),
+                          (cbytes / HBM_BYTES * 1e3, "bytes"))
+            qb = qbytes / HBM_BYTES * 1e3
+            # the same bound over the kernel's Cp-padded xq and wq
+            _, cpad, qpad = int8_bound(batch, sh, dtype, cp)
+            cb_pad = max(flop / INT8_PEAK, cpad / HBM_BYTES) * 1e3
+            qb_pad = qpad / HBM_BYTES * 1e3
+            print(f"    device (CUDA graph): {t['kernel']:.4f} ms conv "
+                  f"kernel + {t['quantize']:.4f} ms quantise "
+                  f"({t['both']:.4f} ms the two), {t['plain']:.4f} ms "
+                  f"plain (its quantise {t['plain quantize']:.4f}), "
+                  f"{t['bf16 route']:.4f} ms float route; "
+                  + (f"{t['library']:.4f} ms torch._int_mm; " if lib
+                     else "no library call; ")
+                  + f"bound {cb:.4f} ms by {cby} (conv), {qb:.4f} ms "
+                  f"(quantise); over Cp = {cp}: {cb_pad:.4f} + "
+                  f"{qb_pad:.4f} ms; {flop / t['kernel'] / 1e9:.1f} TOP/s",
+                  flush=True)
+            conv["ms"] += t["kernel"]
+            conv["plain_ms"] += t["plain"]
+            conv["bound_ms"] += cb
+            conv["bound_ms_padded"] += cb_pad
+            conv["bf16_route_ms"] += t["bf16 route"]
+            conv["ms_with_quantize"] += t["both"]
+            parts["int8_conv"][cby] = parts["int8_conv"].get(cby, 0.0) + cb
+            q = stats["quantize_int8"]
+            q["ms"] += t["quantize"]
+            q["plain_ms"] += t["plain quantize"]
+            q["bound_ms"] += qb
+            q["bound_ms_padded"] += qb_pad
+            parts["quantize_int8"]["bytes"] = \
+                parts["quantize_int8"].get("bytes", 0.0) + qb
+            if lib:
+                conv["library_ms"] += t["library"]
+                conv["ms_int_mm_shapes"] += t["kernel"]
+                conv["library_shapes"] += 1
+            for group in groups:
+                acc = group_sums.setdefault(group, [0] + [0.0] * 8)
+                acc[0] += 1
+                for j, v in enumerate((t["kernel"], t["quantize"],
+                                       t["plain"], t["bf16 route"],
+                                       t.get("library", 0.0),
+                                       t["kernel"] if lib else 0.0,
+                                       cb + qb, cb_pad + qb_pad), 1):
+                    acc[j] += v
+            del fl, fns
+    for name, part in parts.items():
+        stats[name]["bound_by"] = max(part, key=part.get)
+    for group, (n, k, qz, pl, fr, lib, klib, bnd, bpad) in \
+            group_sums.items():
+        print(f"  {group}: {n} shapes at B={SERVED_BATCH} bf16, device ms "
+              f"summed: int8 conv {k:.4f} + quantise {qz:.4f} = "
+              f"{k + qz:.4f}, plain {pl:.4f}, float route {fr:.4f}, "
+              f"torch._int_mm {lib:.4f} (kernel {klib:.4f} on those "
+              f"shapes), bound {bnd:.4f} (over the padded Cp {bpad:.4f})",
+              flush=True)
+    print(f"  all {len(shapes)} shapes: int8 conv {conv['ms']:.4f} ms + "
+          f"quantise {stats['quantize_int8']['ms']:.4f} ms against the "
+          f"float route's {conv['bf16_route_ms']:.4f} ms", flush=True)
+    return stats
+
+
+def int8_task(dev, path, state, **cfg):
+    """The path's YoloTask with int8_predict, the state loaded."""
+    from yolosharp_tpu_torch import YoloTask
+
+    task = YoloTask(path_config(path, int8_predict=True, **cfg), device=dev)
+    e2e = task.task.arch.end2end
+    task.task._ensure_variables().load_state_dict(
+        {k: v for k, v in state.items() if e2e or "one2one" not in k},
+        strict=True)
+    return task
+
+
+def head_vector(preds):
+    """A forward's one2many box and class maps (or a classify net's
+    logits) as one float64 vector."""
+    if "cls" in preds and isinstance(preds["cls"], torch.Tensor):
+        return preds["cls"].double().flatten().cpu()
+    return torch.cat([t.double().flatten().cpu() for kind in ("box", "cls")
+                      for t in preds["one2many"][kind]])
+
+
+def rms_dist(a, b) -> float:
+    return float(((a - b).pow(2).mean() / b.pow(2).mean()).sqrt())
+
+
+def matched_share(got, ref):
+    """(float boxes an int8 box matches, float boxes) under the JAX facade
+    test's rule."""
+    n = 0
+    for rows, want in zip(got, ref):
+        b = np.array([[r.center_x, r.center_y, r.width, r.height]
+                      for r in rows], np.float32).reshape(-1, 4)
+        for r in want:
+            row = np.float32([r.center_x, r.center_y, r.width, r.height])
+            if len(b) and np.abs(b - row).max(1).min() <= max(
+                    4.0, 0.05 * max(row[2], row[3])):
+                n += 1
+    return n, sum(len(w) for w in ref)
+
+
+def phase_int8(dev, root, states, confs, tag) -> tuple:
+    """Phases 17a-d. Returns (the int8 kernels' stats, their launches)."""
+    from yolosharp_tpu_torch import ScalarType
+    from yolosharp_tpu_torch.ckpt import flatten
+    from yolosharp_tpu_torch.kernels import (launch_counts,
+                                             launch_counts_by_device,
+                                             reset_launch_counts)
+    from yolosharp_tpu_torch.nn import ConvBN
+    from yolosharp_tpu_torch.parallel import create_mesh
+
+    stats = phase_int8_kernels(dev)
+    launches = dict.fromkeys(ALL_KERNELS, 0)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+
+    # 17b: v8s int8 end to end
+    print(f"phase 17b: v8s-640 int8: calibrate_int8 over {INT8_CALIB} of "
+          f"phase 7's PNGs on the card and on the CPU, then bf16 b32 "
+          f"batch_predict against the float route, float32 card against "
+          f"CPU", flush=True)
+    state, conf = states["v8"], confs["v8"]
+    pngs = sorted(os.path.join(root, "images", "train", f)
+                  for f in os.listdir(os.path.join(root, "images",
+                                                   "train")))[:INT8_CALIB]
+    t8 = int8_task(dev, "v8", state, end2end=False, nms_pre_topk=512)
+    t0 = time.perf_counter()
+    card = flatten(t8.calibrate_int8(images=pngs, n_images=INT8_CALIB))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    cpu_task = int8_task("cpu", "v8", {k: v.cpu() for k, v in
+                                       state.items()}, end2end=False)
+    t0 = time.perf_counter()
+    cpu = flatten(cpu_task.calibrate_int8(images=pngs, n_images=INT8_CALIB))
+    t_cpu = time.perf_counter() - t0
+    worst = max(abs(float(card[k]) - float(v)) / float(v)
+                for k, v in cpu.items()) if card.keys() == cpu.keys() else 1
+    print(f"  calibration: {len(card)} convs, card {t_card:.2f} s, CPU "
+          f"{t_cpu:.2f} s; same keys {card.keys() == cpu.keys()}, largest "
+          f"relative absmax difference {worst:.3e} (at most 1e-4)",
+          flush=True)
+    if card.keys() != cpu.keys() or worst > 1e-4:
+        raise SystemExit("card and CPU calibrations disagree")
+    fl8 = build_tasks(dev, "v8", state)[False]
+    batch = synthetic_images(SERVED_BATCH, 640, 640, 20)
+    x = torch.from_numpy(np.stack(batch)).to(dev).permute(0, 3, 1, 2)
+    x = (x.float() / 255.0).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    nets = {"float": fl8.task._predict_variables(),
+            "int8": t8.task._predict_variables()}
+    with torch.no_grad():
+        reset_launch_counts()
+        nets["int8"](x)
+        torch.cuda.synchronize()
+        per_forward = launch_counts()
+        want = expected_launches(nets["int8"])
+        print(f"  int8 launches of one b32 forward: {per_forward}, from the "
+              f"model's modules {want}", flush=True)
+        if per_forward != want or per_forward["int8_conv"] == 0 or any(
+                per_forward[k] for k in SOURCES):
+            raise SystemExit("the int8 forward launched other kernels than "
+                             "its modules give, or a float conv kernel")
+        add(per_forward)
+        ms = {k: [] for k in nets}
+        for k in ("float", "int8", "int8", "float"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                nets[k](x)
+            end.record()
+            torch.cuda.synchronize()
+            ms[k].append(start.elapsed_time(end) / 5)
+    fwd = {k: float(np.mean(v)) for k, v in ms.items()}
+    print(f"  {tag}: network forward bf16 b32 640x640: float {fwd['float']:.2f}"
+          f" ms, int8 {fwd['int8']:.2f} ms (CUDA events, mean of 2 x 5 in "
+          f"turns float, int8, int8, float); int8 / float "
+          f"{fwd['int8'] / fwd['float']:.3f}", flush=True)
+    served = {"float": fl8, "int8": t8}
+    for task in served.values():
+        task.batch_predict(batch, conf)     # warm
+    secs, rows = {k: [] for k in served}, {}
+    reset_launch_counts()
+    for k in ("float", "int8", "int8", "float"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows[k] = served[k].batch_predict(batch, conf)
+        secs[k].append(time.perf_counter() - t0)
+    add({k: v for k, v in launch_counts().items() if k in INT8_SOURCES})
+    ips = {k: SERVED_BATCH / float(np.mean(v)) for k, v in secs.items()}
+    n, total = matched_share(rows["int8"], rows["float"])
+    print(f"  {tag}: batch_predict b32 bf16: float {ips['float']:.1f} img/s, "
+          f"int8 {ips['int8']:.1f} img/s (host clock, mean of 2 in turns); "
+          f"int8 boxes match {n} of {total} float boxes ({n / max(total, 1):.3f},"
+          f" at least {INT8_MATCH}; JAX facade rule)", flush=True)
+    if total == 0 or n < INT8_MATCH * total:
+        raise SystemExit("int8 boxes do not match the float boxes")
+    # float32, card against CPU, the card's stats on both
+    images = synthetic_images(INT8_IMAGES, 640, 640, 30)
+    t32 = int8_task(dev, "v8", state, end2end=False, nms_pre_topk=512,
+                    scalar_type=ScalarType.float32)
+    h32 = int8_task("cpu", "v8", {k: v.cpu() for k, v in state.items()},
+                    end2end=False, nms_pre_topk=512,
+                    scalar_type=ScalarType.float32)
+    hfl = build_tasks("cpu", "v8", {k: v.cpu() for k, v in state.items()},
+                      scalar_type=ScalarType.float32)[False]
+    for task in (t32, h32):
+        task.task._set_quant_stats(card)
+    canvas = torch.from_numpy(np.stack(images)).permute(0, 3, 1, 2)
+    canvas = (canvas.float() / 255).contiguous(
+        memory_format=torch.channels_last)
+    cnet, hnet = t32.task._predict_variables(), h32.task._predict_variables()
+    cmods = dict(cnet.named_modules())
+    layers, folds = [], []
+
+    def layer_hook(name):
+        def hook(m, inp, out):
+            own = cmods[name]
+            folds.append((int((own.i8_w.cpu() != m.i8_w).sum()),
+                          float(((own.i8_scale.cpu() - m.i8_scale).abs()
+                                 / m.i8_scale).max())))
+            # the card's ConvBN with the CPU's folded and int8 buffers, so
+            # only the route differs (the card's own fold may sit an ulp
+            # from the CPU's, and its scales with it)
+            saved = {b: own._buffers[b] for b in FOLD_BUFFERS}
+            try:
+                for b in FOLD_BUFFERS:
+                    own._buffers[b] = m._buffers[b].to(dev)
+                got = own(inp[0].to(dev)).cpu()
+            finally:
+                own._buffers.update(saved)
+            atol, rtol = TOL_F32["conv"]
+            ok = (torch.equal(got, out) if m.act == "identity" else
+                  bool(((got - out).abs() <= atol + rtol * out.abs()).all()))
+            layers.append((name, ok, float((got - out).abs().max())))
+        return hook
+
+    hooks = [m.register_forward_hook(layer_hook(n))
+             for n, m in hnet.named_modules()
+             if isinstance(m, ConvBN) and m.i8_w is not None]
+    with torch.no_grad():
+        heads = {"card": head_vector(cnet(canvas.to(dev))),
+                 "cpu": head_vector(hnet(canvas)),
+                 "cpu float": head_vector(hfl.task._predict_variables()(
+                     canvas))}
+    for h in hooks:
+        h.remove()
+    bad = [ln for ln in layers if not ln[1]]
+    print(f"  float32 int8 ConvBNs of the card, each with the CPU's buffers "
+          f"on the CPU's input: {len(layers)} of {len(card)} checked, {len(bad)} "
+          f"outside the rule (identity to the bit, SiLU |k-p| <= "
+          f"{TOL_F32['conv'][0]} + {TOL_F32['conv'][1]}|p|); largest |k-p| "
+          f"{max(ln[2] for ln in layers):.3e}; the card's own fold against "
+          f"the CPU's: int8 weights differing {sum(f[0] for f in folds)}, "
+          f"scales within {max(f[1] for f in folds):.3e} relative",
+          flush=True)
+    if len(layers) != len(card) or bad:
+        raise SystemExit(f"float32 int8 ConvBNs: card and CPU disagree on "
+                         f"the same input: {bad[:3]}")
+    per = heads["cpu"].numel() // INT8_IMAGES
+    ratios = [rms_dist(heads["card"][i * per:(i + 1) * per],
+                       heads["cpu"][i * per:(i + 1) * per])
+              / rms_dist(heads["cpu"][i * per:(i + 1) * per],
+                         heads["cpu float"][i * per:(i + 1) * per])
+              for i in range(INT8_IMAGES)]
+    d, ref, quantised = (rms_dist(heads["card"], heads["cpu"]),
+                         rms_dist(heads["cpu"], heads["cpu float"]),
+                         rms_dist(heads["card"], heads["cpu float"]))
+    reset_launch_counts()
+    got = t32.image_predict(images[0], conf)
+    used = launch_counts()
+    add({k: v for k, v in used.items() if k in INT8_SOURCES})
+    want_rows = h32.image_predict(images[0], conf)
+    n, total = matched_share([got], [want_rows])
+    print(f"  float32 int8 head outputs of {INT8_IMAGES} images, card "
+          f"against CPU: RMS {d:.3e}, {d / ref:.3f} of the CPU int8's from "
+          f"the CPU float's ({ref:.3e}; at most {INT8_CPU_FACTOR}; per "
+          f"image {[round(r, 3) for r in ratios]}); card int8 from CPU float "
+          f"{quantised / ref:.3f} of it (at least {INT8_FLOAT_FLOOR}); "
+          f"image_predict: card {len(got)} rows, CPU {len(want_rows)}, {n} "
+          f"of them matched (at least {INT8_MATCH}); launches {used}",
+          flush=True)
+    if (d > INT8_CPU_FACTOR * ref or quantised < INT8_FLOAT_FLOOR * ref
+            or total == 0 or n < INT8_MATCH * total
+            or used["int8_conv"] != len(card) or any(used[k]
+                                                     for k in SOURCES)):
+        raise SystemExit("float32 int8 predict: card and CPU disagree")
+
+    # 17c: the other families, one int8 batch_predict at B=2
+    print("phase 17c: one int8 bf16 batch_predict at B=2 of v11m-seg, "
+          "v11s-pose, v12x-obb (End2End) and v8s-cls, calibrated on the "
+          "batch", flush=True)
+    for path in (SEG, POSE_S, OBB, CLS):
+        cv = 224 if path == CLS else 640
+        task = int8_task(dev, path, states[path])
+        imgs = synthetic_images(2, cv, cv, 80)
+        stats_n = len(flatten(task.calibrate_int8(images=imgs)))
+        net = task.task._predict_variables()
+        reset_launch_counts()
+        res = task.batch_predict(imgs, confs.get(path, 0.0))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = expected_launches(net, task.task.arch.end2end)
+        print(f"  [{path}] {stats_n} convs calibrated; results per image "
+              f"{[len(r) for r in res]}; launches {counts}, from the "
+              f"model's modules {want}", flush=True)
+        if counts != want or counts["int8_conv"] == 0 or len(res) != 2:
+            raise SystemExit(f"[{path}] int8 batch_predict")
+        add(counts)
+
+    # 17d: v8s int8 over a mesh of every card
+    mesh = create_mesh()
+    if mesh.size == 1:
+        print("phase 17d: one card: no mesh batch_predict", flush=True)
+    else:
+        print(f"phase 17d: v8s int8 bf16 batch_predict of {MESH_BATCH} over "
+              f"{mesh.size} cards", flush=True)
+        reset_launch_counts()
+        res = t8.batch_predict(batch, conf, mesh=mesh)
+        by_card = launch_counts_by_device()
+        print(f"  results per image min {min(len(r) for r in res)}; "
+              f"int8_conv launches by card {by_card['int8_conv']}",
+              flush=True)
+        if len(res) != SERVED_BATCH or any(
+                not by_card["int8_conv"].get(dv.index)
+                for dv in mesh.devices):
+            raise SystemExit("int8 mesh batch_predict")
+        add(launch_counts())
+    return stats, {k: launches[k] for k in INT8_SOURCES}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4302,7 +4888,7 @@ def main() -> int:
     from yolosharp_tpu_torch.kernels import build
 
     t_start = t0 = time.perf_counter()
-    names = ("conv3x3", "c2f", "attention")
+    names = ("conv3x3", "c2f", "attention", "int8_conv")
     host_names = ("jpeg_decode", "png_unfilter")
     with ThreadPoolExecutor(len(names) + len(host_names)) as pool:
         host = [pool.submit(build.load_host, n) for n in host_names]
@@ -4331,7 +4917,7 @@ def main() -> int:
     launches, per_forward, states, confs = {}, {}, {}, {}
 
     def add(counts, into):
-        for name in SOURCES:
+        for name in ALL_KERNELS:
             into[name] = into.get(name, 0) + counts.get(name, 0)
 
     def serve(path):
@@ -4448,8 +5034,11 @@ def main() -> int:
         launches)
     with train_root as root:
         add(timed("16b-d", phase_dp, dev, root, tag), train_launches)
-    timed("16e", phase_graft, dev)
-    print(f"  (phase 16: {time.perf_counter() - t16:.1f} s wall)", flush=True)
+        timed("16e", phase_graft, dev)
+        print(f"  (phase 16: {time.perf_counter() - t16:.1f} s wall)",
+              flush=True)
+        int8_stats, int8_launches = timed("17", phase_int8, dev, root,
+                                          states, confs, tag)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     foreign = sorted(m for m in sys.modules
@@ -4466,6 +5055,24 @@ def main() -> int:
                                       "train": train_launches[name]},
                  "launches_per_b32_forward": per_forward[name]}
         entry.update(stats[name])
+        kernels.append(entry)
+    # int8 is a predict-only route behind int8_predict, which only phase 17
+    # sets: every other phase, train and predict alike, must leave it idle
+    stray = {name: (launches[name], train_launches[name])
+             for name in INT8_SOURCES
+             if launches[name] or train_launches[name]}
+    if stray:
+        raise SystemExit(f"int8 kernels launched outside phase 17 "
+                         f"(predict, train): {stray}")
+    for name, (src, replaces) in INT8_SOURCES.items():
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces,
+                 "launches": (int8_launches[name] + launches[name]
+                              + train_launches[name]),
+                 "launches_by_path": {
+                     "predict": int8_launches[name] + launches[name],
+                     "train": train_launches[name]}}
+        entry.update(int8_stats[name])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -869,3 +869,85 @@ def test_v12n_obb_batch_predict_on_the_card_matches_the_cpu(cuda):
             for a in ("center_x", "center_y", "width", "height"):
                 assert abs(getattr(g, a) - getattr(w, a)) <= 1
             assert abs(g.radian - w.radian) <= 1e-4
+
+
+# ------------------------------------------------------------------ int8
+# the odd shapes of the int8 route: (B, H, W, Ci, Co, k, stride); the stem
+# (Ci = 3, and v5u's 6x6 / 2), the pose towers' 51 channels in and out, a
+# map neither 16 nor 32 divides
+INT8_SHAPES = {"stem 3x3/2": (3, 9, 33, 3, 16, 3, 2),
+               "v5u stem 6x6/2": (2, 64, 64, 3, 32, 6, 2),
+               "pose tower 3x3 51->51": (3, 9, 33, 51, 51, 3, 1),
+               "1x1 64->51": (2, 20, 20, 64, 51, 1, 1),
+               "1x1 51->80": (3, 9, 33, 51, 80, 1, 1),
+               "3x3/2 128->96": (2, 17, 23, 128, 96, 3, 2)}
+
+
+@pytest.mark.parametrize("act", ["identity", "silu"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(INT8_SHAPES))
+def test_int8_kernels_match_plain(cuda, dtype, name, act):
+    """The quantise pass equals its plain version to the bit; the int8 conv
+    too, with either activation (the same int32 sums, the same float32
+    scale and bias roundings, the same SiLU on the card)."""
+    from yolosharp_tpu_torch.kernels.int8_conv import (
+        activation_scale, int8_conv, int8_conv_plain, padded_channels,
+        quantize_int8, quantize_plain, quantize_weight)
+
+    B, H, W, ci, co, k, s = INT8_SHAPES[name]
+    p = 2 if k == 6 else k // 2
+    rng = np.random.default_rng(7)
+    dt = getattr(torch, dtype)
+    x = _rand(rng, B, H, W, ci, scale=2.0).to(cuda, dt)
+    w = _rand(rng, co, ci, k, k, scale=0.1).to(cuda)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    a = activation_scale(x.float().abs().amax() * 0.8)   # some past 127
+    wq, w_scale = quantize_weight(w)
+    cp = padded_channels(ci)
+    reset_launch_counts()
+    xq = quantize_int8(x, a, cp)
+    torch.testing.assert_close(xq, quantize_plain(x, a, cp), rtol=0, atol=0)
+    got = int8_conv(xq, wq, (a * w_scale).contiguous(), b, s, p, act)
+    want = int8_conv_plain(xq, wq, a * w_scale, b, s, p, act)
+    torch.testing.assert_close(got, want.contiguous(), rtol=0, atol=0)
+    assert launch_counts()["quantize_int8"] == 1
+    assert launch_counts()["int8_conv"] == 1
+
+
+def test_int8_predict_on_the_card_matches_the_cpu(cuda):
+    """v8n float32 int8: calibrated on the card and on the CPU (stats within
+    1e-4 relative), then the card's predict through the int8 kernels, no
+    conv3x3 or C2f launch, against the CPU's plain int8 route."""
+    cfg = Config(yolo_size=YoloSize.n, number_class=17, end2end=False,
+                 scalar_type=ScalarType.float32, int8_predict=True)
+    cpu = YoloTask(cfg, device="cpu")
+    net = cpu.task._ensure_variables()
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            if n.endswith(".conv.weight"):
+                p.mul_(2.5)
+            elif ".2." in n and n.startswith("model.22."):
+                p.copy_(torch.from_numpy(rng.uniform(-0.3, 0.3, p.shape)
+                                         .astype(np.float32)))
+    card = YoloTask(cfg, device=cuda)
+    card.task._ensure_variables().load_state_dict(net.state_dict())
+    imgs = [rng.integers(0, 255, (128, 160, 3), dtype=np.uint8)
+            for _ in range(2)]
+    want = cpu.calibrate_int8(images=imgs)
+    got = card.calibrate_int8(images=imgs)
+    from yolosharp_tpu_torch.ckpt import flatten
+    want, got = flatten(want), flatten(got)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-4 * float(v), k
+    cpu.task._set_quant_stats(got)     # the same stats on both sides
+    img = rng.integers(0, 255, (200, 264, 3), dtype=np.uint8)
+    reset_launch_counts()
+    rows = card.image_predict(img, 0.5, 0.45)
+    counts = launch_counts()
+    assert counts["int8_conv"] == counts["quantize_int8"] == len(got)
+    assert counts["conv3x3_silu"] == counts["conv3x3s2_silu"] == \
+        counts["c2f_fused"] == 0
+    ref = cpu.image_predict(img, 0.5, 0.45)
+    assert len(ref) > 3 and abs(len(rows) - len(ref)) <= 2

@@ -163,7 +163,8 @@ def test_image_and_batch_predict_results_match_jax(tasks):
 
 def test_port_runs_without_jax(tmp_path):
     """Importing every module of the port, predicting on the CPU (detect,
-    segment with its masks, pose with its keypoints, OBB with its angle
+    in float and int8 after calibrate_int8 and a calibration file's round
+    trip, segment with its masks, pose with its keypoints, OBB with its angle
     and through predict_stream, classify's top 5 and its stream), the OBB
     labels' minimum-area rectangle, saving, loading and converting a
     checkpoint, the folded forward of blocks no zoo model builds, and a
@@ -196,6 +197,13 @@ def test_port_runs_without_jax(tmp_path):
         "assert isinstance(r, list) and r\n"
         f"t.save_weight({path!r})\n"
         f"t.load_model({path!r})\n"
+        "t.config.int8_predict = True\n"
+        "t.calibrate_int8(images=[np.zeros((64, 96, 3), np.uint8)])\n"
+        f"t.save_calibration({path + '.npz'!r})\n"
+        f"t.load_calibration({path + '.npz'!r})\n"
+        "r = t.image_predict(np.zeros((64, 96, 3), np.uint8), 0.0)\n"
+        "assert r and t.task._predict_variables().model[0].i8_w "
+        "is not None\n"
         "s = YoloTask(Config(task_type=TaskType.segment, "
         "yolo_size=YoloSize.n, number_class=5, "
         "scalar_type=ScalarType.float32), device='cpu')\n"

@@ -5,8 +5,8 @@ writes loads bit-equal in JAX's load_bin, and it equals the JAX
 convert_checkpoint's file byte for byte but where the JAX .pt reader makes
 a 0-d tensor 1-d), the box helpers xyxy2xywhn / xywhn2xyxy / clip_boxes,
 focal_loss and bce_blur_loss, Config.profile_dir (train steps 2-5 traced,
-a short epoch's trace closed, no trace without it) and the settings the
-port does not run yet, which raise."""
+a short epoch's trace closed, no trace without it) and the settings of the
+JAX package's multi-device and int8 layers on one device."""
 
 import json
 import os
@@ -211,9 +211,10 @@ def test_no_trace_without_profile_dir(roots, tmp_path):
 def test_settings_not_ported_raise_where_jax_acts(field, value, where,
                                                   roots, tmp_path):
     """The Config and the task build with each setting (so a config.txt
-    with them reads). int8_predict, the one left unported, raises
-    NotImplementedError naming the ROADMAP item at predict. The others
-    run as in the JAX package on one device: fsdp trains unsharded,
+    with them reads), and each runs as in the JAX package on one device:
+    int8_predict predicts in float until calibrate_int8 or
+    load_calibration gives it stats (tests/test_torch_int8.py runs the
+    int8 route), fsdp trains unsharded,
     resume_format="orbax" writes weights/last_state.dcp (a
     torch.distributed.checkpoint directory) that train(resume_from=) reads,
     and mesh_shape is read nowhere, at train() as at predict."""
@@ -222,8 +223,11 @@ def test_settings_not_ported_raise_where_jax_acts(field, value, where,
     task = YoloTask(cfg, device="cpu")
     img = np.zeros((32, 32, 3), np.uint8)
     if field == "int8_predict":
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            task.image_predict(img)
+        plain = YoloTask(_config(roots[6], str(out)), device="cpu")
+        plain.task._ensure_variables().load_state_dict(
+            task.task._ensure_variables().state_dict())
+        assert task.image_predict(img, 0.5) == plain.image_predict(img, 0.5)
+        assert not os.path.exists(out)
         return
     if where == "predict":
         assert isinstance(task.image_predict(img, 0.5), list)

@@ -414,10 +414,15 @@ def test_bf16_train_step_matches_jax(version, bf16_steps):
     - Rounding, not divergence: the port's bf16 step no further from the
       JAX bf16 step than twice the float32 step is (largest loss item, BN
       statistics).
-    - bfloat16, not float32: the port's bf16 step lies from its own
-      float32 step at least a quarter of the JAX bf16-vs-f32 distance
-      (largest loss item, BN running means). A port that ran this step in
-      float32 would sit ~1e-6 from it.
+    - bfloat16, not float32: the port's bf16 step lies at least 1e-4
+      from its own float32 step in its largest loss item (a port that
+      ran this step in float32 would sit ~1e-6 from it, so the floor is
+      ~100x that), and its BN running means at least a quarter of the JAX
+      bf16-vs-f32 distance from it. The loss-item floor used to be a
+      quarter of the JAX distance too, but that compared the maxima of
+      different loss items, and the CPU's bf16 kernels moved it from one
+      machine to the next (v12n: 1.18e-3 against 0.25 x 6.64e-3 on one
+      machine, where another had passed).
 
     The two packages round at different points (FastBN applies x * k + b
     in bf16 with two roundings, the port normalises through F.batch_norm
@@ -429,7 +434,10 @@ def test_bf16_train_step_matches_jax(version, bf16_steps):
     5.0e-3), agreement 0.970 (0.977), BN means 6.4e-3 (6.8e-3; 5.1e-3),
     variances 7.4e-4 (7.5e-4); v12n loss items 3.7e-3 / 1.1e-3 / 3.2e-3
     (3.4e-5 / 2.3e-3 / 6.6e-3; up to 3.7e-3), agreement 0.780 (0.830),
-    BN means 1.16e-2 (9.4e-3; 7.1e-3), variances 5.0e-3 (4.4e-3)."""
+    BN means 1.16e-2 (9.4e-3; 7.1e-3), variances 5.0e-3 (4.4e-3). On a
+    second machine v12n read port bf16 vs port f32 3.81e-4 / 1.18e-3 /
+    6.28e-4 and port f32 vs JAX bf16 3.39e-5 / 2.33e-3 / 6.64e-3; v8n's
+    largest port bf16 vs port f32 item is ~4e-3 there."""
     s, f = bf16_steps(version)
     assert s["state"].count == s["state"].step == 1
     assert np.isfinite(s["items"]).all()
@@ -455,7 +463,7 @@ def test_bf16_train_step_matches_jax(version, bf16_steps):
     assert got["items"].max() <= 2 * ref["items"].max()
     for kind in ("running_mean", "running_var"):
         assert got[kind] <= 2 * ref[kind], kind
-    assert own["items"].max() >= 0.25 * ref["items"].max()
+    assert own["items"].max() >= 1e-4
     assert own["running_mean"] >= 0.25 * ref["running_mean"]
 
 

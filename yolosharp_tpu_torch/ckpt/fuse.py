@@ -18,12 +18,22 @@ identity BatchNorm has no conv to fold into and stays a real BN. The JAX
 package's fold_bn leaves a conv bias unscaled (beta - mean * mul +
 conv_bias), which differs from the eval-BN forward wherever mul != 1; this
 one equals it.
+
+int8 (Config.int8_predict): given calibration stats (``quant_stats``, the
+JAX package's flat "quant_stats" keys: each conv's dotted flax path +
+".absmax"), fold_bn quantises each int8-eligible ConvBN that has a stat from
+its float32 folded weight (``ConvBN.set_int8``) before the cast to the
+compute type, and leaves its C2f unpacked. ``start_calibration`` /
+``calibration_stats`` flag the eligible ConvBNs of a folded float32 copy
+and read back what they recorded.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -59,11 +69,43 @@ def _bn_affine(bn: nn.BatchNorm2d, conv_bias):
     return mul, b
 
 
+def stat_key(name: str) -> str:
+    """The JAX "quant_stats" key of the ConvBN at module path `name`: its
+    flax path (a YoloNet's module names without the leading "model.") +
+    ".absmax"."""
+    name = name.removeprefix("model.")
+    return f"{name}.absmax" if name else "absmax"
+
+
+def _eligible(net: nn.Module):
+    return ((name, m) for name, m in net.named_modules()
+            if isinstance(m, ConvBN) and m.int8_eligible)
+
+
+def start_calibration(net: nn.Module) -> nn.Module:
+    """Flag every int8-eligible ConvBN of an unfolded net to record the
+    running max |x| of its input once folded (call before fold_bn, which
+    then leaves the C2f blocks unpacked); returns net."""
+    for _, m in _eligible(net):
+        m.calibrating, m.absmax = True, None
+    return net
+
+
+def calibration_stats(net: nn.Module) -> Dict[str, np.ndarray]:
+    """{stat key: float32 absmax} of the flagged ConvBNs that ran."""
+    return {stat_key(name): np.float32(m.absmax.item())
+            for name, m in _eligible(net)
+            if m.calibrating and m.absmax is not None}
+
+
 @torch.no_grad()
-def fold_bn(net: nn.Module) -> nn.Module:
+def fold_bn(net: nn.Module,
+            quant_stats: Optional[Dict[str, np.ndarray]] = None
+            ) -> nn.Module:
     """Fold every ConvBN's (and ConvTranspose's) BatchNorm statistics into
     its conv (inference only), in place; returns net. Its ConvBNs, C2fs and
-    ConvTransposes then run folded."""
+    ConvTransposes then run folded; with `quant_stats`, every int8-eligible
+    ConvBN that has a stat runs as int8."""
     for m in net.modules():
         if isinstance(m, ConvBN):
             mul, b = _bn_affine(m.bn, m.conv.bias)
@@ -74,6 +116,10 @@ def fold_bn(net: nn.Module) -> nn.Module:
             m.w_fold = (m.conv_transpose.weight.float()
                         * mul[None, :, None, None]).contiguous()
             m.b_fold = b
+    for name, m in _eligible(net) if quant_stats else ():
+        absmax = quant_stats.get(stat_key(name))
+        if absmax is not None:
+            m.set_int8(torch.as_tensor(np.float32(absmax)))
     for m in net.modules():
         if isinstance(m, C2f):
             m.pack_folded()

@@ -6,10 +6,10 @@ Parity target: Data/Config.cs:10-355. ``compute_dtype`` (a jax.numpy dtype)
 is not copied: ``torch_dtype`` takes its place. The fields under "TPU-only
 knobs" are routing and layout switches of the JAX package; the port keeps
 them so that a config carries over unchanged, and ignores them (on CUDA
-every layer its kernels can compute goes through them). int8_predict,
-the one JAX feature the port does not run yet, raises NotImplementedError
-at predict (``tasks.refuse_unported``), not when a Config is made; fsdp
-and resume_format="orbax" run (parallel/fsdp.py, ckpt/resume.py), and
+every layer its kernels can compute goes through them). int8_predict runs
+as in the JAX package: predict takes the int8 route once calibrate_int8 or
+load_calibration has given it stats, and float without them; fsdp and
+resume_format="orbax" run (parallel/fsdp.py, ckpt/resume.py), and
 mesh_shape is read nowhere, as in the JAX package."""
 
 from __future__ import annotations

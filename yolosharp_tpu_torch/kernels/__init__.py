@@ -7,8 +7,11 @@ from .attention import (attention_bihd, attention_grads_plain, attention_plain,
                         fused_attention)
 from .c2f import c2f_fused, c2f_plain, c2f_supported
 from .conv3x3 import conv3x3_plain, conv3x3_silu, conv3x3s2_silu
+from .int8_conv import (int8_conv, int8_conv_plain, quantize_int8,
+                        quantize_plain)
 
-KERNELS = (conv3x3_silu, conv3x3s2_silu, c2f_fused, fused_attention)
+KERNELS = (conv3x3_silu, conv3x3s2_silu, c2f_fused, fused_attention,
+           quantize_int8, int8_conv)
 
 
 def launch_counts() -> dict:
@@ -30,6 +33,7 @@ def reset_launch_counts() -> None:
 __all__ = ["KERNELS", "attention_bihd", "attention_grads_plain",
            "attention_plain", "c2f_fused",
            "c2f_plain", "c2f_supported", "conv3x3_plain", "conv3x3_silu",
-           "conv3x3s2_silu", "fused_attention", "launch_counts",
+           "conv3x3s2_silu", "fused_attention", "int8_conv",
+           "int8_conv_plain", "launch_counts",
            "launch_counts_by_device",
-           "reset_launch_counts"]
+           "quantize_int8", "quantize_plain", "reset_launch_counts"]

@@ -20,6 +20,16 @@ Two forward modes, as in the JAX package:
   C2f the fused C2f kernel takes, runs through those kernels; on CPU tensors
   the kernels' wrappers run their plain versions. Only the predict copy is
   folded: training never routes a conv through the kernels.
+
+int8 post-training quantisation (the JAX package's quant_calibrate /
+quant_int8 / int8_conv, yolosharp_tpu/nn/common.py:590-652 and :844-876):
+a folded ConvBN that the JAX ConvBN would quantise (``int8_eligible``: no
+conv bias, no groups, no dilation, and not a DWConv or Conv2, whose JAX
+classes do not take that branch) records the running max of |x| of its
+input while ``calibrating``, and once ``ckpt.fuse.fold_bn`` has given it a
+calibrated absmax it runs as int8 (``kernels.int8_conv``), ahead of the
+3x3 conv kernel; a C2f whose ConvBNs are int8 or recording runs them one by
+one instead of the fused C2f kernel, as JAX does on the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ from torch import nn
 
 from ..kernels import c2f as c2f_kernel
 from ..kernels import conv3x3
+from ..kernels.int8_conv import (activation_scale, int8_conv, quantize_int8,
+                                 quantize_weight)
 from ..parallel import dist
 
 ACTS = {"silu": F.silu, "relu": F.relu, "identity": lambda x: x}
@@ -141,6 +153,11 @@ def batch_norm_eval(y: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
 class ConvBN(nn.Module):
     """Conv + BatchNorm + activation (the reference's Convs.Conv)."""
 
+    # whether the JAX class of this module takes the ConvBN int8 branch
+    int8_class = True
+    # the int8 buffers, float32 whatever type the net is cast to (_apply)
+    _INT8_F32 = ("i8_scale", "i8_ascale")
+
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, g: int = 1, d: int = 1,
                  use_bias: bool = False, act: str = "silu"):
@@ -154,10 +171,44 @@ class ConvBN(nn.Module):
         # otherwise) and bias, set by ckpt.fuse.fold_bn; not checkpointed
         self.register_buffer("w_fold", None, persistent=False)
         self.register_buffer("b_fold", None, persistent=False)
+        # int8 (set_int8): the (Co, k, k, Cp) int8 weights, a_scale *
+        # w_scale (Co,) and a_scale, float32; not checkpointed
+        self.register_buffer("i8_w", None, persistent=False)
+        self.register_buffer("i8_scale", None, persistent=False)
+        self.register_buffer("i8_ascale", None, persistent=False)
+        # calibration: while `calibrating`, the running max |x| of the input
+        self.calibrating = False
+        self.absmax: Optional[torch.Tensor] = None
 
     @property
     def kernel_route(self) -> bool:
         return conv3x3.supported(self.k, self.s, self.p, self.d, self.g)
+
+    @property
+    def int8_eligible(self) -> bool:
+        """The JAX ConvBN's quant_ok: no conv bias, no groups, no dilation
+        (and a JAX class that reaches it)."""
+        return (self.int8_class and self.conv.bias is None and self.g == 1
+                and self.d == 1)
+
+    def set_int8(self, absmax: torch.Tensor) -> None:
+        """Quantise the float32 folded weight (per output channel) and keep
+        the scales of a calibrated input absmax: the int8 route."""
+        w = self.w_fold.float()
+        if self.kernel_route:
+            w = w.permute(3, 2, 0, 1)
+        wq, w_scale = quantize_weight(w)
+        a_scale = activation_scale(absmax.to(w.device))
+        self.i8_w, self.i8_ascale = wq, a_scale
+        self.i8_scale = (a_scale * w_scale).contiguous()
+
+    def _apply(self, fn, recurse=True):
+        keep = {n: self._buffers[n] for n in self._INT8_F32
+                if self._buffers.get(n) is not None}
+        super()._apply(fn, recurse)
+        for n, t in keep.items():   # moved with the net, never cast
+            self._buffers[n] = t.to(self._buffers[n].device)
+        return self
 
     def unfolded_weight(self) -> torch.Tensor:
         """The OIHW weight of the conv the BatchNorm follows, which
@@ -177,6 +228,14 @@ class ConvBN(nn.Module):
         if self.b_fold is None:
             bn = batch_norm_train if self.training else batch_norm_eval
             return ACTS[self.act](bn(self._conv(x), self.bn))
+        if self.calibrating:
+            a = x.abs().amax().float()
+            self.absmax = a if self.absmax is None else torch.maximum(
+                self.absmax, a)
+        if self.i8_w is not None:
+            xq = quantize_int8(_nhwc(x), self.i8_ascale, self.i8_w.shape[-1])
+            return int8_conv(xq, self.i8_w, self.i8_scale, self.b_fold,
+                             self.s, self.p, self.act).permute(0, 3, 1, 2)
         if self.kernel_route:
             fn = conv3x3.conv3x3_silu if self.s == 1 else conv3x3.conv3x3s2_silu
             return fn(_nhwc(x), self.w_fold, self.b_fold,
@@ -188,7 +247,10 @@ class ConvBN(nn.Module):
 
 class DWConv(ConvBN):
     """Depthwise conv: groups = gcd(c1, c2). Its groups keep it off the 3x3
-    kernel, so folded it runs F.conv2d."""
+    kernel, so folded it runs F.conv2d. Never int8, even where the gcd is
+    1: the JAX DWConv overrides the ConvBN call that holds the int8 branch."""
+
+    int8_class = False
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  d: int = 1, use_bias: bool = False, act: str = "silu"):
@@ -233,8 +295,12 @@ class C2f(nn.Module):
         self.fused_weights: Tuple[str, ...] = ()
 
     def pack_folded(self) -> None:
-        """After the child ConvBNs are folded: pack the kernel's weights."""
-        if not self.kernel_route:
+        """After the child ConvBNs are folded: pack the kernel's weights,
+        unless a child is int8 or recording its calibration (then the
+        children run one by one)."""
+        if not self.kernel_route or any(
+                m.i8_w is not None or m.calibrating for m in self.modules()
+                if isinstance(m, ConvBN)):
             return
         cv1, cv2, m = self.cv1, self.cv2, self.m[0]
         packed = {
@@ -375,7 +441,10 @@ class Conv2(ConvBN):
     (``cv2``) that share one BatchNorm, both run in train and eval-BN
     mode, as in the JAX package. Folded, the 1x1 kernel joins the centre
     tap of the k x k one (the reference's lazy fuse; both scale by the
-    shared gamma / sqrt(var + eps)), so a 3x3 Conv2 takes the conv kernel."""
+    shared gamma / sqrt(var + eps)), so a 3x3 Conv2 takes the conv kernel.
+    Never int8: the JAX Conv2 is not a ConvBN."""
+
+    int8_class = False
 
     def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1,
                  p: Optional[int] = None, g: int = 1, d: int = 1,

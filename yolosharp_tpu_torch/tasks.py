@@ -17,7 +17,9 @@ pixels on the device, as KeyPoints. OBB rows carry a rotated box: centre,
 size and ``radian``, from the rotated NMS (fast suppression over probiou)
 or the End2End top-k. Classify squashes each image to s x s
 (image_predict / batch_predict) and returns its top-5 classes and their
-float32 softmax scores.
+float32 softmax scores. With Config.int8_predict and calibration stats
+(calibrate_int8 / load_calibration, the JAX package's npz), every predict
+route runs the eligible convs in int8 (kernels/int8_conv.py).
 
 predict_stream (every family): images letterboxed to s x s (classify: the
 short side to s, then the centre crop) on a pool of host threads, batched
@@ -58,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import glob
 import itertools
 import os
 import time
@@ -72,6 +75,7 @@ import torch
 from .ckpt import (bias_init, clone_one2one, export_state_dict, fold_bn,
                    load_state_dict_file, load_state_dict_into, save_bin,
                    skip_patterns_for_nc_mismatch)
+from .ckpt.fuse import calibration_stats, start_calibration
 from .ckpt.resume import (restore_train_state, save_train_state,
                           save_train_state_dcp)
 from .config import Config, resolve_device, torch_dtype
@@ -117,18 +121,17 @@ def _warn_if_truncated(nms_out, state: Optional[Dict] = None) -> None:
           "Raise nms_pre_topk or set it to None for exact NMS." + suffix)
 
 
-def refuse_unported(config: Config, train: bool) -> None:
-    """Raise NotImplementedError at predict for int8_predict, the one
-    Config setting the JAX package acts on and the port does not run yet
-    (ROADMAP.md queue 1, item 4: int8 post-training quantisation). Its
-    default passes, so a config.txt of the JAX package's defaults reads.
-    mesh_shape is read nowhere in the JAX package, and the port ignores it
-    too."""
-    if not train and config.int8_predict:
-        raise NotImplementedError(
-            "int8_predict=True: not ported to yolosharp_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 4: int8 post-training quantisation); "
-            "the port predicts with float weights")
+def _nest(flat: Dict[str, np.ndarray]) -> Dict:
+    """Dotted keys -> the nested dict they name (the JAX package's tree of
+    calibration stats)."""
+    tree: Dict = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
 
 
 def _rank_main(cls, config: Config, kind: str, args: tuple) -> None:
@@ -226,6 +229,10 @@ class BaseTask:
             end2end=config.end2end and config.task_type != TaskType.classify)
         self.net: Optional[YoloNet] = None
         self._fused: Optional[Tuple[tuple, YoloNet]] = None
+        # int8 calibration stats {flax path + ".absmax": float32} and a
+        # count of their changes (the predict copy's cache key)
+        self._quant_stats: Optional[Dict[str, np.ndarray]] = None
+        self._quant_version = 0
         # per epoch of the last train(): each step's wall seconds (each
         # ends in the step's host sync) and seconds waiting on the loader
         # before it, the seconds of the step loop and of val, and on CUDA
@@ -254,17 +261,93 @@ class BaseTask:
     def _predict_variables(self) -> YoloNet:
         """The network predict runs: a copy of the master in the compute
         dtype, BN-folded when Config.fuse_inference (folded in float32 once,
-        then cast). Cached until a master parameter or buffer changes."""
-        refuse_unported(self.config, train=False)
+        then cast); with Config.int8_predict and calibration stats, its
+        eligible convs quantised from the float32 fold (int8, as the JAX
+        package's _apply_eval; without stats it predicts in float, as JAX
+        does). Cached until a master parameter or buffer, or the stats,
+        change."""
         net = self._ensure_variables()
+        stats = self._quant_stats if self.config.int8_predict else None
         key = (id(net), tuple(t._version for t in itertools.chain(
-            net.parameters(), net.buffers())))
+            net.parameters(), net.buffers())),
+            None if stats is None else self._quant_version)
         if self._fused is None or self._fused[0] != key:
             pred = copy.deepcopy(net)
             if self.config.fuse_inference:
-                fold_bn(pred)
+                fold_bn(pred, stats)
             self._fused = (key, self._cast_predict(pred).eval())
         return self._fused[1]
+
+    # -------------------------------------------------------------- int8
+    def calibrate_int8(self, images=None, n_images: int = 16,
+                       batch_size: int = 8) -> Dict:
+        """Post-training int8 activation calibration (the JAX package's
+        calibrate_int8): eval forwards of the BN-folded float32 master
+        (both End2End branches; JAX runs its folded float32 tree on float32
+        images whatever the compute dtype), each int8-eligible conv
+        recording the max |x| of its input, running over the batches and
+        over earlier calibrations. `images`: file paths (read as
+        cv2.imread reads them, BGR, which the JAX package keeps) or HxWx3
+        uint8 arrays (used as given); None takes the sorted jpg / jpeg /
+        png / bmp files under Config.root_path. The first n_images, each
+        squashed to image_size x image_size (resize_linear, cv2's
+        INTER_LINEAR) and divided by 255, in chunks of batch_size. Predict
+        then runs those convs in int8 when Config.int8_predict is set.
+        Returns the stats as the JAX package's nested tree."""
+        cfg = self.config
+        if images is None:
+            found = []
+            for ext in ("jpg", "jpeg", "png", "bmp"):
+                found += glob.glob(os.path.join(cfg.root_path or ".", "**",
+                                                f"*.{ext}"), recursive=True)
+            if not found:
+                raise FileNotFoundError(
+                    f"calibrate_int8: no images under {cfg.root_path!r}; "
+                    f"pass images= explicitly")
+            images = sorted(found)[:n_images]
+        s = cfg.image_size
+        arrs = []
+        for im in list(images)[:n_images]:
+            if isinstance(im, (str, os.PathLike)):
+                im = read_image_rgb(str(im))[..., ::-1]
+            im = resize_linear(np.ascontiguousarray(im, np.uint8), s, s)
+            arrs.append(np.asarray(im, np.float32) / 255.0)
+        if not arrs:
+            raise ValueError("calibrate_int8: empty image list")
+        net = copy.deepcopy(self._ensure_variables())
+        fold_bn(start_calibration(net)).eval()
+        with torch.inference_mode():
+            for i in range(0, len(arrs), batch_size):
+                x = torch.from_numpy(np.stack(arrs[i:i + batch_size]))
+                net(x.to(self.device).permute(0, 3, 1, 2).contiguous(
+                    memory_format=torch.channels_last))
+        stats = calibration_stats(net)
+        for k, v in (self._quant_stats or {}).items():
+            stats[k] = np.maximum(stats[k], v) if k in stats else v
+        self._set_quant_stats(stats)
+        print(f"int8 calibration: {len(stats)} convs calibrated over "
+              f"{len(arrs)} images")
+        return _nest(stats)
+
+    def save_calibration(self, path: str) -> None:
+        """The int8 calibration stats as the JAX package's npz: one float32
+        scalar a conv, under its dotted flax path + ".absmax"."""
+        if self._quant_stats is None:
+            raise ValueError("no calibration stats: run calibrate_int8 first")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **self._quant_stats)
+
+    def load_calibration(self, path: str) -> Dict:
+        """Load stats saved by save_calibration (of either package);
+        returns them as a nested tree."""
+        with np.load(path) as z:
+            stats = {k: z[k] for k in z.files}
+        self._set_quant_stats(stats)
+        return _nest(stats)
+
+    def _set_quant_stats(self, stats: Dict[str, np.ndarray]) -> None:
+        self._quant_stats = stats
+        self._quant_version += 1
 
     def _stream(self, images, batch_size: int, prep_one, workers: int,
                 dispatch, unpack, mesh: Optional[Mesh] = None):
@@ -369,7 +452,7 @@ class BaseTask:
         net = self._predict_variables()
         if mesh is None:
             return [net], [self.device]
-        key = (tuple(str(d) for d in mesh.data_devices), id(net))
+        key = (tuple(str(d) for d in mesh.data_devices), self._fused[0])
         cached = self.__dict__.get("_mesh_nets")
         if cached is None or cached[0] != key:
             self._mesh_nets = cached = (key, replicate_tree(net, mesh))
@@ -488,7 +571,6 @@ class BaseTask:
         data_devices) where it has more than one; rank 0 (this process)
         writes the outputs and returns its TrainState."""
         cfg = self.config
-        refuse_unported(cfg, train=True)
         cfg.output_path = cfg.output_path or os.path.join(
             "result", self.arch.task,
             datetime.now().strftime("%y%m%d%H%M%S"))
@@ -1470,6 +1552,17 @@ class YoloTask:
             image = read_image_rgb(image)   # PNG, JPEG or BMP, no cv2
         return self.task.image_predict(image, predict_threshold,
                                        iou_threshold)
+
+    def calibrate_int8(self, images=None, n_images: int = 16,
+                       batch_size: int = 8):
+        return self.task.calibrate_int8(images, n_images=n_images,
+                                        batch_size=batch_size)
+
+    def save_calibration(self, path: str):
+        return self.task.save_calibration(path)
+
+    def load_calibration(self, path: str):
+        return self.task.load_calibration(path)
 
     def batch_predict(self, images, predict_threshold: Optional[float] = None,
                       iou_threshold: Optional[float] = None,
