@@ -258,26 +258,34 @@ and a shape group of their own):
      letterboxed canvases (classify: the same images) in calls of 16 and
      beside the letterbox and batch_predict in the caller's thread, and
      the path's kernels launched, no other.
-JPEG input (the host decoder of yolosharp_tpu_torch/csrc/jpeg_decode.cpp,
-built with c++ in phase 1 beside the CUDA kernels, as is the PNG row
-unfilter of csrc/png_unfilter.cpp that every PNG phase reads through):
-  14a. every committed fixture of tests/data_torch/jpeg read by
-     read_image_rgb: the SHA-256 of its RGB bytes equal to its manifest's
-     (cv2.imread's, where the fixtures were written); the progressive one
-     raises. The host decode ms of each (the median of 5) and of the
-     641x479 4:2:0 one (the median of 50).
+Image input (the host decoders of yolosharp_tpu_torch/csrc: the JPEG
+decoder of jpeg_decode.cpp, baseline and progressive, gray, YCbCr, RGB and
+CMYK; the PNG row unfilter of png_unfilter.cpp, that every PNG phase
+reads through; the TIFF LZW and PackBits decoders of tiff_decode.cpp;
+all built with c++ in phase 1 beside the CUDA kernels):
+  14a. every committed fixture of tests/data_torch/jpeg and
+     tests/data_torch/images (progressive and CMYK JPEG, every PNG kind,
+     baseline TIFF kinds) read by read_image_rgb: the SHA-256 of its RGB
+     bytes equal to its manifest's (cv2.imread's, where the fixtures were
+     written). The host decode ms of each (the median of 5); of the
+     641x479 4:2:0 baseline and progressive files and of a 640x480 RGB
+     TIFF, LZW with the predictor, that this phase writes with
+     tests/data_torch/images/writers.py (equal to the pixels it was
+     written from), the median of 50.
   14b. v8s-640 detect, bf16, phase 3's seeded weights: image_predict of
-     the 641x479 fixture's path (equal to image_predict of its decoded
-     array) and batch_predict of 32 images decoded from the fixtures
-     (cycled), conv3x3 s1 / s2 and c2f_fused launched and no other
-     kernel; then YoloTask.train() of v8s, 640x640, batch 16, 2 epochs on
-     a JPEG detect set of the fixtures (those of 32 px a side or more),
-     listed by a txt file 128 times over (labels this phase writes), and
-     val on 16 of them: per epoch the step ms, img/s, the loader-wait
-     share; finite losses.
+     the 641x479 baseline fixture's path (equal to image_predict of its
+     decoded array) and batch_predict of 32 images decoded from the
+     fixtures of both folders (cycled: JPEG, PNG and TIFF kinds),
+     conv3x3 s1 / s2 and c2f_fused launched and no other kernel; then
+     YoloTask.train() of v8s, 640x640, batch 16, 2 epochs on a detect set
+     of those fixtures (those of 32 px a side or more), listed by a txt
+     file 128 times over (labels this phase writes; the label scan
+     decodes each file once), and val on 16 of them: per epoch the step
+     ms, img/s, the loader-wait share; finite losses.
   14c. YoloTask.train() of v8s-cls (nc=10), 224x224, batch 32, 1 epoch on
-     a folder-per-class JPEG set of fixture copies (16 train and 2 val a
-     class): the decode on every get; the step ms and loader-wait share.
+     a folder-per-class set of copies of the same fixtures (16 train and 2
+     val a class; every kind in the cycle): the decode on every get; the
+     step ms and loader-wait share.
 Library blocks no zoo model builds (phase 15; their 3x3 shapes, with
 their activations, are also a shape group of phase 2, checked at B=2 in
 float32, bfloat16 and float16 and timed at B=8 in bfloat16 and float16:
@@ -3270,73 +3278,108 @@ def phase_stream(dev, states, confs):
     return launches
 
 
-# ------------------------------------------------------------------ JPEG
-JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "data_torch", "jpeg")
+# ------------------------------------------------------------------ images
+FIXTURE_DIRS = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tests", "data_torch", d)
+                for d in ("jpeg", "images")]
+JPEG_DIR = FIXTURE_DIRS[0]
 JPEG_BIG = "s420_q75_641x479.jpg"
+# the files 14a times over 50 reads: the baseline and progressive 641x479
+# fixtures, and the LZW TIFF it writes
+TIMED_50 = (JPEG_BIG, "progressive_q75_641x479.jpg", "lzw_pred2_640x480.tif")
 JPEG_LIST = 128           # entries of 14b's train list (the fixtures cycled)
 JPEG_CLS_TRAIN = 16       # 14c's train images a class
 
 
-def jpeg_fixtures():
-    """The committed fixtures' manifest: name -> entry."""
-    with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
-        return json.load(f)
+def image_fixtures():
+    """The committed fixtures of both folders: path -> manifest entry."""
+    out = {}
+    for d in FIXTURE_DIRS:
+        with open(os.path.join(d, "manifest.json")) as f:
+            for name, entry in json.load(f).items():
+                out[os.path.join(d, name)] = entry
+    return out
 
 
-def phase_jpeg_decode(tag):
+def write_lzw_tiff(root):
+    """A 640x480 RGB TIFF, LZW with the horizontal predictor in strips of 16
+    rows, written by tests/data_torch/images/writers.py from one of
+    synthetic_images; returns (path, the pixels)."""
+    sys.path.insert(0, FIXTURE_DIRS[1])
+    from writers import write_tiff
+
+    img = synthetic_images(1, 480, 640, 14)[0]
+    path = os.path.join(root, TIMED_50[2])
+    with open(path, "wb") as f:
+        f.write(write_tiff(img, compression=5, predictor=2,
+                           rows_per_strip=16))
+    return path, img
+
+
+def phase_image_decode(root, tag):
     """Phase 14a: every fixture read by read_image_rgb, its RGB bytes'
-    SHA-256 against the manifest; the host decode ms. Returns the names
-    of the decodable fixtures of 32 px a side or more."""
+    SHA-256 against the manifest; the written LZW TIFF against its
+    pixels; the host decode ms. Returns the paths of the fixtures of 32 px
+    a side or more, in the order of the cycle."""
     import hashlib
 
     from yolosharp_tpu_torch.data.image_ops import read_image_rgb
 
-    print(f"phase 14a: the JPEG fixtures of {JPEG_DIR} through "
-          f"read_image_rgb (host decode, {tag})", flush=True)
+    print(f"phase 14a: the image fixtures of {', '.join(FIXTURE_DIRS)} "
+          f"through read_image_rgb (host decode, {tag})", flush=True)
     usable = []
-    for name, entry in sorted(jpeg_fixtures().items()):
-        path = os.path.join(JPEG_DIR, name)
-        if entry["progressive"]:
-            try:
-                read_image_rgb(path)
-            except ValueError as err:
-                print(f"  {name}: raises as it must: {err}", flush=True)
-                continue
-            raise SystemExit(f"{name}: a progressive JPEG did not raise")
-        reps = 50 if name == JPEG_BIG else 5
+
+    def timed_read(path):
+        reps = 50 if os.path.basename(path) in TIMED_50 else 5
         times = []
         for _ in range(reps):
             t = time.perf_counter()
             img = read_image_rgb(path)
             times.append(time.perf_counter() - t)
+        return img, (f"host decode {np.median(times) * 1e3:.3f} ms (median "
+                     f"of {reps}; {tag})")
+
+    for path, entry in sorted(image_fixtures().items()):
+        img, ms = timed_read(path)
         digest = hashlib.sha256(img.tobytes()).hexdigest()
+        name = os.path.basename(path)
         if list(img.shape) != entry["shape"] or digest != entry["sha256"]:
             raise SystemExit(f"{name}: decoded {img.shape} {digest}, the "
                              f"manifest (cv2) has {entry['shape']} "
                              f"{entry['sha256']}")
         print(f"  {name}: {entry['bytes']} bytes, {img.shape[1]}x"
-              f"{img.shape[0]} {entry['sampling']}, SHA-256 equal to cv2's; "
-              f"host decode {np.median(times) * 1e3:.3f} ms (median of "
-              f"{reps}; {tag})", flush=True)
+              f"{img.shape[0]}, SHA-256 equal to cv2's; {ms}", flush=True)
         if min(img.shape[:2]) >= 32:
-            usable.append(name)
-    return usable
+            usable.append(path)
+    path, want = write_lzw_tiff(root)
+    img, ms = timed_read(path)
+    if not np.array_equal(img, want):
+        raise SystemExit(f"{path}: decoded pixels differ from those written "
+                         f"({int((img != want).sum())} values)")
+    print(f"  {os.path.basename(path)}: {os.path.getsize(path)} bytes, "
+          f"640x480, equal to the pixels written; {ms}", flush=True)
+    # the cycle: the folders' files interleaved, so that every kind is in
+    # the first 32
+    jpeg = [p for p in usable if p.startswith(JPEG_DIR)]
+    other = [p for p in usable if not p.startswith(JPEG_DIR)]
+    cycle = [p for pair in zip(other, jpeg) for p in pair]
+    cycle += other[len(jpeg):] + jpeg[len(other):]
+    return cycle
 
 
-def write_jpeg_detect_set(root, names, seed=15):
+def write_image_detect_set(root, paths, seed=15):
     """root/images/{train,val}/<fixture> copies of the fixtures with 1-3
     random boxes each in root/labels, and root/train.txt listing them
     JPEG_LIST times over (cycled), root/val.txt 16 times."""
     import shutil
 
     rng = np.random.default_rng(seed)
+    names = [os.path.basename(p) for p in paths]
     for split in ("train", "val"):
         os.makedirs(os.path.join(root, "images", split))
         os.makedirs(os.path.join(root, "labels", split))
-        for name in names:
-            shutil.copy(os.path.join(JPEG_DIR, name),
-                        os.path.join(root, "images", split, name))
+        for path, name in zip(paths, names):
+            shutil.copy(path, os.path.join(root, "images", split, name))
             rows = []
             for _ in range(int(rng.integers(1, 4))):
                 bw, bh = rng.uniform(0.1, 0.6, 2)
@@ -3345,7 +3388,8 @@ def write_jpeg_detect_set(root, names, seed=15):
                 rows.append(f"{rng.integers(80)} {cx:.6f} {cy:.6f} "
                             f"{bw:.6f} {bh:.6f}")
             with open(os.path.join(root, "labels", split,
-                                   name[:-4] + ".txt"), "w") as f:
+                                   os.path.splitext(name)[0] + ".txt"),
+                      "w") as f:
                 f.write("\n".join(rows) + "\n")
         n = JPEG_LIST if split == "train" else 16
         with open(os.path.join(root, f"{split}.txt"), "w") as f:
@@ -3353,37 +3397,49 @@ def write_jpeg_detect_set(root, names, seed=15):
                               for i in range(n)) + "\n")
 
 
-def write_jpeg_cls_set(root, names):
-    """root/jpeg_cls/{train,val}/class{c}/<i>.jpg: copies of the fixtures
-    (cycled), JPEG_CLS_TRAIN train and 2 val a class."""
+def write_image_cls_set(root, paths):
+    """root/image_cls/{train,val}/class{c}/<i><ext>: copies of the fixtures
+    (cycled, each keeping its extension), JPEG_CLS_TRAIN train and 2 val a
+    class. Returns the paths the train copies came from."""
     import shutil
 
-    k = 0
+    k, train = 0, []
     for c in range(CLS_CLASSES):
         for split, n in (("train", JPEG_CLS_TRAIN), ("val", 2)):
-            d = os.path.join(root, "jpeg_cls", split, f"class{c}")
+            d = os.path.join(root, "image_cls", split, f"class{c}")
             os.makedirs(d)
             for i in range(n):
-                shutil.copy(os.path.join(JPEG_DIR, names[k % len(names)]),
-                            os.path.join(d, f"{i}.jpg"))
+                path = paths[k % len(paths)]
+                shutil.copy(path, os.path.join(
+                    d, f"{i}{os.path.splitext(path)[1]}"))
+                if split == "train":
+                    train.append(path)
                 k += 1
+    return train
 
 
-def phase_jpeg(dev, root, state, conf, tag):
-    """Phase 14: JPEG input on the card (the module docstring's 14a-14c).
+def _kinds(paths):
+    """'n .ext' counts of a list of paths."""
+    exts = [os.path.splitext(p)[1] for p in paths]
+    return ", ".join(f"{exts.count(e)} {e}" for e in sorted(set(exts)))
+
+
+def phase_images(dev, root, state, conf, tag):
+    """Phase 14: image input on the card (the module docstring's 14a-14c).
     Returns (launches of 14b's requests, launches of its training)."""
     from yolosharp_tpu_torch import YoloTask
     from yolosharp_tpu_torch.data.image_ops import read_image_rgb
     from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    names = phase_jpeg_decode(tag)
-    print("phase 14b: v8s-640 bf16 serves JPEG files", flush=True)
+    paths = phase_image_decode(root, tag)
+    print("phase 14b: v8s-640 bf16 serves JPEG, PNG and TIFF files",
+          flush=True)
     task = build_tasks(dev, "v8", state)[False]
     big = os.path.join(JPEG_DIR, JPEG_BIG)
     reset_launch_counts()
     by_path = task.image_predict(big, conf)
-    images = [read_image_rgb(os.path.join(JPEG_DIR, names[i % len(names)]))
-              for i in range(SERVED_BATCH)]
+    batch = [paths[i % len(paths)] for i in range(SERVED_BATCH)]
+    images = [read_image_rgb(p) for p in batch]
     t = time.perf_counter()
     results = task.batch_predict(images, conf)
     call = time.perf_counter() - t
@@ -3399,21 +3455,22 @@ def phase_jpeg(dev, root, state, conf, tag):
                       for rs in results for r in rs], np.float64)
     if len(results) != SERVED_BATCH or not boxes.size \
             or not np.isfinite(boxes).all():
-        raise SystemExit(f"JPEG batch_predict: {len(results)} lists, "
+        raise SystemExit(f"image batch_predict: {len(results)} lists, "
                          f"{len(boxes)} rows")
     print(f"  image_predict({JPEG_BIG}): {len(by_path)} rows, equal to the "
           f"decoded array's; batch_predict of {SERVED_BATCH} decoded "
-          f"fixtures: {len(boxes)} rows, {call * 1e3:.1f} ms; kernel "
-          f"launches {served}", flush=True)
-    check_path_launches("v8", served, "v8s JPEG predict")
+          f"fixtures ({_kinds(batch)}): {len(boxes)} rows, "
+          f"{call * 1e3:.1f} ms; kernel launches {served}", flush=True)
+    check_path_launches("v8", served, "v8s image predict")
 
-    write_jpeg_detect_set(root, names)
+    write_image_detect_set(root, paths)
     print(f"phase 14b: YoloTask.train() of v8s, {TRAIN_SIZE}x{TRAIN_SIZE}, "
-          f"batch {TRAIN_BATCH}, bf16, 2 epochs on {JPEG_LIST} listed JPEG "
-          f"files ({len(names)} fixtures cycled), val on 16", flush=True)
+          f"batch {TRAIN_BATCH}, bf16, 2 epochs on {JPEG_LIST} listed files "
+          f"({len(paths)} fixtures cycled: {_kinds(paths)}), val on 16",
+          flush=True)
     from yolosharp_tpu_torch import Config, YoloSize, YoloType
 
-    out = os.path.join(root, "run_jpeg")
+    out = os.path.join(root, "run_images")
     cfg = Config(root_path=root, train_data_path="train.txt",
                  val_data_path="val.txt", yolo_type=YoloType.v8,
                  yolo_size=YoloSize.s, number_class=80,
@@ -3425,7 +3482,7 @@ def phase_jpeg(dev, root, state, conf, tag):
     trainer.train()
     train_counts = launch_counts()
     for st in trainer.task.epoch_stats:
-        print("  " + epoch_line(st, f"{tag}: v8s JPEG"), flush=True)
+        print("  " + epoch_line(st, f"{tag}: v8s images"), flush=True)
     items, metrics = trainer.val()
     with open(os.path.join(out, "log.csv")) as f:
         logged = list(csv.reader(f))
@@ -3439,26 +3496,27 @@ def phase_jpeg(dev, root, state, conf, tag):
     steps = JPEG_LIST // TRAIN_BATCH
     if [len(st["step_s"]) for st in trainer.task.epoch_stats] != [steps] * 2 \
             or not np.isfinite(losses).all():
-        raise SystemExit(f"JPEG train(): steps "
+        raise SystemExit(f"image train(): steps "
                          f"{[len(st['step_s']) for st in trainer.task.epoch_stats]}"
                          f", losses {losses}")
 
-    write_jpeg_cls_set(root, names)
+    train = write_image_cls_set(root, paths)
+    n_train = len(train)
     print(f"phase 14c: YoloTask.train() of {CLS} (nc={CLS_CLASSES}), "
           f"{CLS_CANVAS[0]}x{CLS_CANVAS[1]}, batch {CLS_TRAIN_BATCH}, bf16, 1 "
-          f"epoch on a JPEG folder set ({CLS_CLASSES * JPEG_CLS_TRAIN} train "
-          f"images)", flush=True)
+          f"epoch on a folder set of {n_train} train images "
+          f"({_kinds(train)}; each decoded at every get)", flush=True)
     t = time.perf_counter()
     cls = YoloTask(_cls_train_config(
-        os.path.join(root, "jpeg_cls"), epochs=1,
-        output_path=os.path.join(root, "run_jpeg_cls")), device=dev)
+        os.path.join(root, "image_cls"), epochs=1,
+        output_path=os.path.join(root, "run_image_cls")), device=dev)
     cls.train()
     st = cls.task.epoch_stats[0]
-    print("  " + epoch_line(st, f"{tag}: {CLS} JPEG", CLS_TRAIN_BATCH),
+    print("  " + epoch_line(st, f"{tag}: {CLS} images", CLS_TRAIN_BATCH),
           flush=True)
     print(f"  train() {time.perf_counter() - t:.1f} s", flush=True)
-    if len(st["step_s"]) != CLS_CLASSES * JPEG_CLS_TRAIN // CLS_TRAIN_BATCH:
-        raise SystemExit(f"{CLS} JPEG train(): {len(st['step_s'])} steps")
+    if len(st["step_s"]) != n_train // CLS_TRAIN_BATCH:
+        raise SystemExit(f"{CLS} image train(): {len(st['step_s'])} steps")
     return served, train_counts
 
 
@@ -4889,7 +4947,7 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     names = ("conv3x3", "c2f", "attention", "int8_conv")
-    host_names = ("jpeg_decode", "png_unfilter")
+    host_names = ("jpeg_decode", "png_unfilter", "tiff_decode")
     with ThreadPoolExecutor(len(names) + len(host_names)) as pool:
         host = [pool.submit(build.load_host, n) for n in host_names]
         list(pool.map(build.load, names))
@@ -5014,7 +5072,7 @@ def main() -> int:
         timed("12d", phase_cls_val, dev, root, best)
     add(timed("13", phase_stream, dev, states, confs), launches)
     with tempfile.TemporaryDirectory() as root:
-        jpeg_served, jpeg_train = timed("14", phase_jpeg, dev, root,
+        jpeg_served, jpeg_train = timed("14", phase_images, dev, root,
                                         states["v8"], confs["v8"], tag)
         add(jpeg_served, launches)
         add(jpeg_train, train_launches)

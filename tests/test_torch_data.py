@@ -135,10 +135,14 @@ def test_png_reader_refuses_what_it_cannot_read(tmp_path):
     cv2.imwrite(jpg, np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(ValueError, match="a.jpg: not a PNG"):
         decode_png_rgb(open(jpg, "rb").read(), jpg)
-    deep = str(tmp_path / "deep.png")
-    cv2.imwrite(deep, np.zeros((8, 8, 3), np.uint16))
-    with pytest.raises(ValueError, match="deep.png: PNG with bit depth 16"):
-        decode_png_rgb(open(deep, "rb").read(), deep)
+    bad = str(tmp_path / "bad.png")
+    data = bytearray(encode_png(np.zeros((8, 8, 3), np.uint8)))
+    data[data.index(b"IDAT") + 6] ^= 0x55          # inside the zlib stream
+    with open(bad, "wb") as f:
+        f.write(data)
+    assert cv2.imread(bad) is None
+    with pytest.raises(ValueError, match="bad.png: PNG chunk IDAT is corrupt"):
+        decode_png_rgb(open(bad, "rb").read(), bad)
     with pytest.raises(FileNotFoundError, match="missing.png"):
         read_image_rgb(str(tmp_path / "missing.png"))
 

@@ -1,15 +1,17 @@
-"""The port's cv2-free image input against cv2 5.0, on the CPU: baseline
-JPEG (jpeg.py and the host C++ of csrc/jpeg_decode.cpp, built here with
-c++) bit for bit against cv2.imread(IMREAD_COLOR) -> RGB over sampling
-factors, qualities, restart intervals, optimised tables and sizes, the
-EXIF orientations 1-8, the committed fixtures against their manifest, the
+"""The port's cv2-free image input against cv2 5.0, on the CPU: JPEG
+(jpeg.py and the host C++ of csrc/jpeg_decode.cpp, built here with c++)
+bit for bit against cv2.imread(IMREAD_COLOR) -> RGB over sampling
+factors, qualities, restart intervals, optimised tables and sizes, both
+baseline and progressive (from cv2 and PIL), Adobe CMYK, the EXIF
+orientations 1-8, the committed fixtures against their manifest, the
 files it refuses; BMP (8-bit paletted, 24- and 32-bit, both row orders)
-and PNG with an eXIf orientation; reading all three where cv2 cannot be
-imported; a JPEG detect set loaded as the JAX package's loader loads it
-(cv2 there), a JPEG classify set's get and a JPEG path served by
-image_predict."""
+and PNG with an eXIf orientation; reading JPEG, PNG, BMP and TIFF where
+cv2 cannot be imported; a JPEG detect set loaded as the JAX package's
+loader loads it (cv2 there), a JPEG classify set's get and a JPEG path
+served by image_predict."""
 
 import hashlib
+import io
 import itertools
 import json
 import os
@@ -21,6 +23,7 @@ import zlib
 import cv2
 import numpy as np
 import pytest
+from PIL import Image
 
 from test_torch_data import make_dataset
 from yolosharp_tpu.config import Config as JaxConfig
@@ -34,6 +37,8 @@ from yolosharp_tpu_torch.data.labels import load_labels
 FIXTURES = os.path.join(os.path.dirname(__file__), "data_torch", "jpeg")
 sys.path.insert(0, FIXTURES)
 from make_fixtures import SAMPLING, encode, exif_app1, smooth_image  # noqa
+sys.path.insert(0, os.path.join(os.path.dirname(FIXTURES), "images"))
+from writers import write_tiff  # noqa: E402
 
 SIZES = [(1, 1), (7, 9), (17, 33), (67, 45), (641, 479)]   # (w, h)
 
@@ -68,6 +73,84 @@ def test_decode_matches_cv2(tmp_path, sampling, quality, rst, optimize,
     np.testing.assert_array_equal(jpeg.decode_jpeg_rgb(data), want)
 
 
+@pytest.mark.parametrize(
+    "sampling,quality,rst,size",
+    list(itertools.product(list(SAMPLING) + ["gray"], [50, 95], [0, 2],
+                           [(1, 1), (17, 33), (67, 45)])),
+    ids=lambda v: f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v))
+def test_progressive_matches_cv2(tmp_path, sampling, quality, rst, size):
+    """A progressive JPEG that cv2.imencode writes (libjpeg-turbo's scan
+    script: DC first and refine, spectral selection and successive
+    approximation of the AC bands, EOB runs) at these settings:
+    read_image_rgb equal to cv2.imread -> RGB."""
+    w, h = size
+    img = smooth_image(h, w, quality + rst + w)
+    if sampling == "gray":
+        img = img[..., 0]
+    data = encode(img, sampling, quality, rst, 0, 1)
+    assert jpeg.parse_jpeg(data).progressive
+    path = str(tmp_path / "p.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    np.testing.assert_array_equal(read_image_rgb(path), cv2_rgb(path))
+
+
+def _pil_jpeg(img, mode=None, **kw):
+    bio = io.BytesIO()
+    Image.fromarray(img, mode).save(bio, "JPEG", **kw)
+    return bio.getvalue()
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("quality", [60, 92])
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+def test_pil_progressive_matches_cv2(tmp_path, subsampling, quality,
+                                     optimize):
+    """A progressive JPEG that PIL writes (4:4:4, 4:2:2, 4:2:0; optimised
+    Huffman tables or not; the tables of each scan defined before it):
+    equal to cv2.imread -> RGB."""
+    img = smooth_image(75, 121, quality + subsampling)
+    data = _pil_jpeg(img, quality=quality, progressive=True,
+                     subsampling=subsampling, optimize=optimize)
+    path = str(tmp_path / "p.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    np.testing.assert_array_equal(read_image_rgb(path), cv2_rgb(path))
+
+
+def _without_app14(data):
+    """The bytes without their Adobe APP14 segment."""
+    for marker, a, b in _segments(data):
+        if marker == 0xEE:
+            return data[:a] + data[b:]
+    return data
+
+
+@pytest.mark.parametrize("adobe", [True, False])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("subsampling", [0, 2])
+def test_cmyk_matches_cv2(tmp_path, subsampling, progressive, adobe):
+    """A CMYK JPEG that PIL writes (Adobe APP14 transform 0, the channels
+    stored inverted), baseline or progressive, 4:4:4 or 4:2:0, and the
+    same bytes without the APP14 marker (libjpeg takes four components
+    as CMYK then too): cv2's integer CMYK -> BGR, equal to cv2.imread ->
+    RGB."""
+    rng = np.random.default_rng(subsampling + 2 * progressive)
+    img = np.dstack([255 - smooth_image(37, 45, subsampling),
+                     rng.integers(0, 256, (37, 45), dtype=np.uint8)])
+    data = _pil_jpeg(img, "CMYK", quality=90, subsampling=subsampling,
+                     progressive=progressive)
+    if not adobe:
+        data = _without_app14(data)
+    info = jpeg.parse_jpeg(data)
+    assert info.color == jpeg.COLOR_CMYK
+    assert (info.adobe_transform is None) != adobe
+    path = str(tmp_path / "c.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    np.testing.assert_array_equal(read_image_rgb(path), cv2_rgb(path))
+
+
 @pytest.mark.parametrize("orientation", range(1, 9))
 def test_exif_orientation_matches_cv2(tmp_path, orientation):
     """An APP1 EXIF Orientation spliced in after SOI, little- and
@@ -100,16 +183,11 @@ def _manifest():
 
 @pytest.mark.parametrize("name", sorted(_manifest()))
 def test_fixture_matches_manifest(name):
-    """Each committed fixture: its RGB bytes hash to the manifest's (cv2's
-    when the fixtures were written) and equal cv2.imread here; the
-    progressive one raises, naming the file."""
+    """Each committed fixture, the progressive one included: its RGB bytes
+    hash to the manifest's (cv2's when the fixtures were written) and
+    equal cv2.imread here."""
     entry = _manifest()[name]
     path = os.path.join(FIXTURES, name)
-    if entry["progressive"]:
-        with pytest.raises(ValueError, match="progressive") as err:
-            read_image_rgb(path)
-        assert path in str(err.value)
-        return
     img = read_image_rgb(path)
     assert list(img.shape) == entry["shape"]
     assert hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"]
@@ -195,15 +273,25 @@ def test_sixteen_bit_quant_tables_match_cv2(tmp_path):
     np.testing.assert_array_equal(read_image_rgb(path), cv2_rgb(path))
 
 
-def _cmyk(data):
-    """The bytes with a fourth component in their frame header (a CMYK
-    frame as far as the markers go)."""
-    at = data.index(b"\xff\xc0")
-    length, = struct.unpack(">H", data[at + 2:at + 4])
-    end = at + 2 + length
-    return (data[:at + 2] + struct.pack(">H", length + 3)
-            + data[at + 4:at + 9] + b"\x04" + data[at + 10:end]
-            + b"\x04\x11\x00" + data[end:])
+def _ycck(data):
+    """PIL's CMYK JPEG with its Adobe transform set to 2 (YCCK)."""
+    at = data.index(b"Adobe") + 11
+    return data[:at] + b"\x02" + data[at + 1:]
+
+
+def _unrefined(data):
+    """A progressive JPEG without its last scan (cv2's script ends with
+    the luma AC refinement to Al 0), so libjpeg would smooth its blocks."""
+    last = data.rindex(b"\xff\xda")
+    return data[:last] + b"\xff\xd9"
+
+
+def _jpeg_in_tiff(img):
+    """A TIFF whose strip claims to be JPEG (Compression 7)."""
+    data = bytearray(write_tiff(img))
+    at = data.index(bytes([3, 1, 3, 0, 1, 0, 0, 0, 1, 0]))
+    data[at + 8] = 7
+    return bytes(data)
 
 
 def _twelve_bit(data):
@@ -212,24 +300,30 @@ def _twelve_bit(data):
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("progressive", "progressive"), ("truncated", "truncated"),
-    ("cut_in_header", "truncated"), ("cmyk", "CMYK"),
+    ("ycck", "YCCK"), ("truncated", "truncated"),
+    ("cut_in_header", "truncated"), ("sof10", "arithmetic-coded progressive"),
     ("twelve_bit", "12-bit"), ("arithmetic", "arithmetic"),
-    ("not_an_image", "not a PNG, JPEG or BMP"), ("tiff", "TIFF")])
+    ("not_an_image", "not a PNG, JPEG, BMP or TIFF"),
+    ("jpeg_in_tiff", "Compression"), ("tiff_orientation6", "Orientation"),
+    ("progressive_unrefined", "unrefined")])
 def test_unreadable_files_raise(tmp_path, kind, match):
     """What the port does not read raises ValueError naming the file (no
-    image is substituted): progressive, a scan cut short, a file cut in
-    its headers, CMYK, 12-bit and arithmetic-coded frames, text, TIFF."""
+    image is substituted): YCCK, a scan cut short, a file cut in its
+    headers, arithmetic-coded progressive (SOF10), 12-bit and
+    arithmetic-coded frames, text, JPEG-in-TIFF, a TIFF whose Orientation
+    6 cv2.imread returns no image for, a progressive file whose scans leave
+    coefficients unrefined (libjpeg smooths those)."""
     img = smooth_image(48, 64, 0)
     base = encode(img, "420", 75, 0, 0, 0)
-    if kind == "progressive":
-        data = encode(img, "420", 75, 0, 0, 1)
+    if kind == "ycck":
+        data = _ycck(_pil_jpeg(np.dstack([img, img[..., :1]]), "CMYK"))
     elif kind == "truncated":
         data = base[:len(base) * 2 // 3]
     elif kind == "cut_in_header":
         data = base[:100]
-    elif kind == "cmyk":
-        data = _cmyk(base)
+    elif kind == "sof10":
+        at = base.index(b"\xff\xc0")
+        data = base[:at] + b"\xff\xca" + base[at + 2:]
     elif kind == "twelve_bit":
         data = _twelve_bit(base)
     elif kind == "arithmetic":
@@ -237,9 +331,12 @@ def test_unreadable_files_raise(tmp_path, kind, match):
         data = base[:at] + b"\xff\xc9" + base[at + 2:]
     elif kind == "not_an_image":
         data = b"class x y w h\n" * 4
+    elif kind == "jpeg_in_tiff":
+        data = _jpeg_in_tiff(img)
+    elif kind == "tiff_orientation6":
+        data = write_tiff(img, orientation=6)
     else:
-        ok, buf = cv2.imencode(".tiff", img)
-        data = buf.tobytes()
+        data = _unrefined(encode(img, "420", 75, 0, 0, 1))
     path = str(tmp_path / f"{kind}.jpg")
     with open(path, "wb") as f:
         f.write(data)
@@ -299,11 +396,17 @@ def test_png_exif_orientation_matches_cv2(tmp_path, orientation):
 
 def test_reads_without_cv2(tmp_path):
     """In a process where ``import cv2`` fails, read_image_rgb reads a PNG,
-    a JPEG and a BMP to the arrays cv2 gives here."""
+    a JPEG, a BMP, a progressive JPEG, a paletted PNG and an LZW TIFF to
+    the arrays cv2 gives here."""
     img = smooth_image(30, 41, 7)
+    bio = io.BytesIO()
+    Image.fromarray(img).quantize(50).save(bio, "PNG")
     files = {"a.png": encode_png(img),
              "a.jpg": encode(img, "420", 80, 2, 0, 0),
-             "a.bmp": cv2.imencode(".bmp", img[..., ::-1])[1].tobytes()}
+             "a.bmp": cv2.imencode(".bmp", img[..., ::-1])[1].tobytes(),
+             "p.jpg": encode(img, "422", 80, 0, 0, 1),
+             "p.png": bio.getvalue(),
+             "a.tif": write_tiff(img, compression=5, predictor=2)}
     for name, data in files.items():
         with open(tmp_path / name, "wb") as f:
             f.write(data)
@@ -312,7 +415,7 @@ def test_reads_without_cv2(tmp_path):
         "import sys; sys.modules['cv2'] = None\n"
         "import numpy as np\n"
         "from yolosharp_tpu_torch.data.image_ops import read_image_rgb\n"
-        "for n in ('a.png', 'a.jpg', 'a.bmp'):\n"
+        "for n in ('a.png', 'a.jpg', 'a.bmp', 'p.jpg', 'p.png', 'a.tif'):\n"
         "    p = sys.argv[1] + '/' + n\n"
         "    assert np.array_equal(read_image_rgb(p), np.load(p + '.npy'))\n"
         "try:\n"

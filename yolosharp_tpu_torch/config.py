@@ -93,7 +93,8 @@ class Config:
     # (the field order is the JAX package's, so config.txt reads the same)
     pallas_conv: bool = False
     s2d_max_cin: int = 0
-    # not ported yet (ROADMAP.md queue 1, item 4): True raises at predict
+    # read by the port: predict runs the eligible convs int8 once
+    # calibrate_int8 or load_calibration has given it stats (float without)
     int8_predict: bool = False
     # ---- the mosaic's render and the fp16 flag, which the port reads:
     # mosaic epochs with mosaic >= 1 plan each batch on the host and render

@@ -1,13 +1,19 @@
-// Baseline JPEG decode on the host, bit-exact to libjpeg-turbo's defaults
-// (the decoder behind cv2.imread): Huffman entropy decode, dequantisation,
-// the integer ISLOW IDCT (jidctint.c), "fancy" upsampling (jdsample.c, with
-// the context rows of jdmainct.c) and the fixed-point YCbCr -> RGB of
-// jdcolor.c. Integer arithmetic only, so every compiler and machine gives
-// the same bytes.
+// JPEG decode on the host, bit-exact to libjpeg-turbo's defaults (the
+// decoder behind cv2.imread), in two steps. First every scan's Huffman
+// data is decoded into per-component int16 coefficient planes: a baseline
+// (sequential) scan whole, a progressive one (jdphuff.c) as its DC first /
+// DC refine / AC first / AC refine pass over its band and bits. Then, once
+// over those planes, dequantisation with the integer ISLOW IDCT
+// (jidctint.c), "fancy" upsampling (jdsample.c, with the context rows of
+// jdmainct.c) and the colour step: the fixed-point YCbCr -> RGB of
+// jdcolor.c, or for CMYK the integer CMYK -> BGR of OpenCV's imgcodecs
+// (icvCvt_CMYK2BGR_8u_C4C3R). Integer arithmetic only, so every compiler
+// and machine gives the same bytes.
 //
 // The markers are parsed in Python (yolosharp_tpu_torch/data/jpeg.py); this
-// file takes the tables, the frame's geometry and the one scan's entropy-
-// coded bytes (byte stuffing and RSTn markers included) and writes
+// file takes the frame's geometry, each scan's header, Huffman tables and
+// entropy-coded bytes (byte stuffing and RSTn markers included), the
+// quantisation table each component latched at its first scan, and writes
 // (height, width, 3) uint8 RGB into the caller's buffer.
 //
 // Build: c++ -O2 -std=c++17 -fPIC -shared -ffp-contract=off.
@@ -23,6 +29,7 @@ constexpr int kTruncated = 1;     // the data ran out (or hit a marker)
 constexpr int kBadHuffman = 2;    // a code no table holds, a bad table
 constexpr int kBadLayout = 3;     // sampling factors this file cannot take
 constexpr int kBadRestart = 4;    // no RSTn marker where one is due
+constexpr int kBadScan = 5;       // a scan header this frame cannot take
 
 // jpeg_natural_order: the zig-zag index -> the row-major index, with 16
 // extra entries so that a corrupt run past 63 stays in the block
@@ -436,55 +443,231 @@ inline uint8_t clamp255(int v) {
 
 }  // namespace
 
+namespace {
+
+// ------------------------------------------------------------ coefficients
+// One component's quantised DCT coefficients, row-major (natural order)
+// within each block, blocks in raster order over the frame's MCU grid
+// (bw x bh blocks; the dummy blocks of the last MCU row / column included).
+struct Coefs {
+  int h = 1, v = 1;          // sampling factors
+  int dw = 0, dh = 0;        // downsampled_width / _height
+  int cbw = 0, cbh = 0;      // blocks that cover the component
+  int bw = 0, bh = 0;        // blocks of the MCU grid
+  std::vector<int16_t> c;
+  int16_t* block(int bx, int by) {
+    return c.data() + (static_cast<int64_t>(by) * bw + bx) * 64;
+  }
+};
+
+// The fields of one scan header, as jpeg.py packs them (kScanFields int32
+// a scan): Ns, then for each of 4 slots the component index, its DC and AC
+// table, then Ss, Se, Ah, Al and the restart interval in force.
+constexpr int kScanFields = 18;
+
+struct ScanState {
+  BitReader br;
+  const HuffTable* dct[4] = {};
+  const HuffTable* act[4] = {};
+  int pred[4] = {0, 0, 0, 0};
+  int eobrun = 0;
+  int ss = 0, se = 63, ah = 0, al = 0;
+};
+
+// jdhuff.c decode_mcu for one block of a sequential scan
+int block_sequential(ScanState* s, int k, int16_t* blk) {
+  int t = decode_symbol(&s->br, s->dct[k]);
+  if (t < 0 || t > 15) return s->br.overrun() ? kTruncated : kBadHuffman;
+  s->pred[k] += t ? extend(s->br.get(t), t) : 0;
+  blk[0] = static_cast<int16_t>(s->pred[k]);
+  for (int i = 1; i < 64; i++) {
+    int rs = decode_symbol(&s->br, s->act[k]);
+    if (rs < 0) return s->br.overrun() ? kTruncated : kBadHuffman;
+    int r = rs >> 4;
+    t = rs & 15;
+    if (t) {
+      i += r;
+      blk[kNaturalOrder[i]] = static_cast<int16_t>(extend(s->br.get(t), t));
+    } else {
+      if (r != 15) break;
+      i += 15;
+    }
+  }
+  return s->br.overrun() ? kTruncated : kOk;
+}
+
+// jdphuff.c decode_mcu_DC_first / decode_mcu_DC_refine for one block
+int block_dc(ScanState* s, int k, int16_t* blk) {
+  if (s->ah) {
+    if (s->br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << s->al));
+  } else {
+    int t = decode_symbol(&s->br, s->dct[k]);
+    if (t < 0 || t > 15) return s->br.overrun() ? kTruncated : kBadHuffman;
+    s->pred[k] += t ? extend(s->br.get(t), t) : 0;
+    blk[0] = static_cast<int16_t>(
+        static_cast<uint32_t>(s->pred[k]) << s->al);
+  }
+  return s->br.overrun() ? kTruncated : kOk;
+}
+
+// jdphuff.c decode_mcu_AC_first for one block
+int block_ac_first(ScanState* s, int16_t* blk) {
+  if (s->eobrun > 0) {
+    s->eobrun--;
+    return kOk;
+  }
+  for (int k = s->ss; k <= s->se; k++) {
+    int rs = decode_symbol(&s->br, s->act[0]);
+    if (rs < 0) return s->br.overrun() ? kTruncated : kBadHuffman;
+    int r = rs >> 4, t = rs & 15;
+    if (t) {
+      k += r;
+      int v = extend(s->br.get(t), t);
+      blk[kNaturalOrder[k]] =
+          static_cast<int16_t>(static_cast<uint32_t>(v) << s->al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      s->eobrun = 1 << r;
+      if (r) s->eobrun += s->br.get(r);
+      s->eobrun--;
+      break;
+    }
+  }
+  return s->br.overrun() ? kTruncated : kOk;
+}
+
+// jdphuff.c decode_mcu_AC_refine for one block: a correction bit for each
+// coefficient of the band that is already nonzero (inside an EOB run too),
+// a new coefficient of +-1 << Al where a symbol places one.
+int block_ac_refine(ScanState* s, int16_t* blk) {
+  const int p1 = 1 << s->al;
+  const int m1 = -p1;
+  int k = s->ss;
+  auto correct = [&](int16_t* c) {
+    if (s->br.get(1) && (*c & p1) == 0) {
+      *c = static_cast<int16_t>(*c + (*c >= 0 ? p1 : m1));
+    }
+  };
+  if (s->eobrun == 0) {
+    for (; k <= s->se; k++) {
+      int rs = decode_symbol(&s->br, s->act[0]);
+      if (rs < 0) return s->br.overrun() ? kTruncated : kBadHuffman;
+      int r = rs >> 4, t = rs & 15, value = 0;
+      if (t) {
+        if (t != 1) return kBadHuffman;     // JWRN_HUFF_BAD_CODE
+        value = s->br.get(1) ? p1 : m1;
+      } else if (r != 15) {
+        s->eobrun = 1 << r;
+        if (r) s->eobrun += s->br.get(r);
+        break;                   // the rest of the band: the EOB run below
+      }
+      // pass r zero coefficients, correcting the nonzero ones on the way
+      do {
+        int16_t* c = blk + kNaturalOrder[k];
+        if (*c != 0) {
+          correct(c);
+        } else if (--r < 0) {
+          break;                 // the zero that takes the new value
+        }
+        k++;
+      } while (k <= s->se);
+      if (value) blk[kNaturalOrder[k]] = static_cast<int16_t>(value);
+    }
+  }
+  if (s->eobrun > 0) {
+    for (; k <= s->se; k++) {
+      int16_t* c = blk + kNaturalOrder[k];
+      if (*c != 0) correct(c);
+    }
+    s->eobrun--;
+  }
+  return s->br.overrun() ? kTruncated : kOk;
+}
+
+// Decode one scan into the coefficient planes. An interleaved scan (Ns > 1)
+// walks the MCU grid, hmax x vmax blocks of samples an MCU; a scan of one
+// component walks the blocks that cover that component, one an MCU.
+int decode_scan(std::vector<Coefs>& comps, bool progressive,
+                const int32_t* f, const uint8_t* data, int64_t len,
+                const HuffTable* dc, const HuffTable* ac, int mcux,
+                int mcuy) {
+  const int ns = f[0];
+  ScanState s{BitReader{data, data + len}};
+  int idx[4];
+  for (int k = 0; k < ns; k++) {
+    idx[k] = f[1 + 3 * k];
+    s.dct[k] = &dc[f[2 + 3 * k]];
+    s.act[k] = &ac[f[3 + 3 * k]];
+  }
+  s.ss = f[13];
+  s.se = f[14];
+  s.ah = f[15];
+  s.al = f[16];
+  const int restart_interval = f[17];
+  auto one = [&](int k, int16_t* blk) -> int {
+    if (!progressive) return block_sequential(&s, k, blk);
+    if (s.ss == 0) return block_dc(&s, k, blk);
+    return s.ah ? block_ac_refine(&s, blk) : block_ac_first(&s, blk);
+  };
+  Coefs& lone = comps[idx[0]];
+  const int64_t n_mcu = ns > 1 ? static_cast<int64_t>(mcux) * mcuy
+                               : static_cast<int64_t>(lone.cbw) * lone.cbh;
+  int next_rst = 0;
+  for (int64_t m = 0; m < n_mcu; m++) {
+    if (restart_interval && m > 0 && m % restart_interval == 0) {
+      if (!s.br.restart(next_rst)) return kBadRestart;
+      next_rst = (next_rst + 1) & 7;
+      for (int k = 0; k < 4; k++) s.pred[k] = 0;
+      s.eobrun = 0;
+    }
+    if (ns > 1) {
+      int my = static_cast<int>(m / mcux), mx = static_cast<int>(m % mcux);
+      for (int k = 0; k < ns; k++) {
+        Coefs& c = comps[idx[k]];
+        for (int by = 0; by < c.v; by++) {
+          for (int bx = 0; bx < c.h; bx++) {
+            int st = one(k, c.block(mx * c.h + bx, my * c.v + by));
+            if (st) return st;
+          }
+        }
+      }
+    } else {
+      int st = one(0, lone.block(static_cast<int>(m % lone.cbw),
+                                 static_cast<int>(m / lone.cbw)));
+      if (st) return st;
+    }
+  }
+  return kOk;
+}
+
+}  // namespace
+
 extern "C" {
 
-// Decode one baseline frame with one scan.
-//   scan, scan_len: the entropy-coded bytes after the SOS header, up to
-//     (not including) the marker that ends the scan;
-//   width, height: the frame's size; ncomp: 1 or 3 components, in the
-//     frame's order, with sampling factors comp_h / comp_v and quantisation
-//     table index comp_tq (0-3);
-//   ns, scan_comp, scan_td, scan_ta: the scan's components (indices into
-//     the frame's) and their DC / AC table indices (0-3); ns is ncomp;
-//   qtables: 4 x 64 quantisation values in natural (row-major) order;
-//   dc_bits / ac_bits: 4 x 17 code counts (index 0 unused), dc_vals /
-//     ac_vals: 4 x 256 symbols; table_present: bit t of a DC, bit 4 + t of
-//     an AC table that the file defines;
-//   restart_interval: MCUs between RSTn markers (0: none);
-//   color: 0 grayscale, 1 YCbCr, 2 RGB;
+// Decode a frame of ncomp (1, 3 or 4) components from its scans.
+//   width, height: the frame's size; comp_h / comp_v: each component's
+//     sampling factors, in the frame's order; progressive: 1 for SOF2;
+//   n_scans scans: the entropy-coded bytes of scan i are
+//     data[offsets[i] .. offsets[i + 1]) (after its SOS header, up to the
+//     marker that ends it); fields: kScanFields int32 a scan (see above);
+//     dc_bits / ac_bits: 4 x 17 code counts (index 0 unused) a scan,
+//     dc_vals / ac_vals: 4 x 256 symbols a scan, the tables defined at its
+//     SOS; tables: bit t of a DC, bit 4 + t of an AC table defined there;
+//   qtables: ncomp x 64 quantisation values in natural order, the table
+//     each component latched at its first scan;
+//   color: 0 grayscale, 1 YCbCr, 2 RGB, 3 CMYK (Adobe, as libjpeg hands
+//     the four channels over);
 //   out: height * width * 3 bytes, RGB.
-// Returns 0, or an error code (see kTruncated ... kBadRestart).
-int ys_jpeg_decode(const uint8_t* scan, int64_t scan_len, int width,
-                   int height, int ncomp, const int32_t* comp_h,
-                   const int32_t* comp_v, const int32_t* comp_tq, int ns,
-                   const int32_t* scan_comp, const int32_t* scan_td,
-                   const int32_t* scan_ta, const uint16_t* qtables,
-                   const uint8_t* dc_bits, const uint8_t* dc_vals,
-                   const uint8_t* ac_bits, const uint8_t* ac_vals,
-                   int table_present, int restart_interval, int color,
-                   uint8_t* out) {
-  if (ncomp < 1 || ncomp > 4 || ns != ncomp || width < 1 || height < 1) {
-    return kBadLayout;
-  }
-  HuffTable dc[4], ac[4];
-  for (int t = 0; t < 4; t++) {
-    if ((table_present >> t) & 1) {
-      if (!build_table(dc_bits + 17 * t, dc_vals + 256 * t, &dc[t])) {
-        return kBadHuffman;
-      }
-    }
-    if ((table_present >> (4 + t)) & 1) {
-      if (!build_table(ac_bits + 17 * t, ac_vals + 256 * t, &ac[t])) {
-        return kBadHuffman;
-      }
-    }
-  }
-  for (int k = 0; k < ns; k++) {
-    if (!((table_present >> scan_td[k]) & 1) ||
-        !((table_present >> (4 + scan_ta[k])) & 1)) {
-      return kBadHuffman;
-    }
-  }
+// Returns 0, or an error code (see kTruncated ... kBadScan).
+int ys_jpeg_decode(int width, int height, int ncomp, const int32_t* comp_h,
+                   const int32_t* comp_v, int progressive, int n_scans,
+                   const uint8_t* data, const int64_t* offsets,
+                   const int32_t* fields, const uint8_t* dc_bits,
+                   const uint8_t* dc_vals, const uint8_t* ac_bits,
+                   const uint8_t* ac_vals, const int32_t* tables,
+                   const uint16_t* qtables, int color, uint8_t* out) {
+  if (ncomp < 1 || ncomp > 4 || width < 1 || height < 1) return kBadLayout;
   int hmax = 1, vmax = 1;
   for (int c = 0; c < ncomp; c++) {
     if (comp_h[c] < 1 || comp_h[c] > 4 || comp_v[c] < 1 || comp_v[c] > 4) {
@@ -496,113 +679,105 @@ int ys_jpeg_decode(const uint8_t* scan, int64_t scan_len, int width,
   for (int c = 0; c < ncomp; c++) {
     if (hmax % comp_h[c] || vmax % comp_v[c]) return kBadLayout;
   }
-  // A lone component's scan is not interleaved: its blocks cover the
-  // component alone, one MCU each. Otherwise an MCU is hmax x vmax blocks
-  // of 8 x 8 samples of the image.
-  const bool interleaved = ns > 1;
-  const int mcux = interleaved ? (width + 8 * hmax - 1) / (8 * hmax) : 0;
-  const int mcuy = interleaved ? (height + 8 * vmax - 1) / (8 * vmax) : 0;
-  std::vector<Plane> planes(ncomp);
+  const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
+  const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+  std::vector<Coefs> comps(ncomp);
   for (int c = 0; c < ncomp; c++) {
-    Plane& p = planes[c];
+    Coefs& p = comps[c];
     p.h = comp_h[c];
     p.v = comp_v[c];
     p.dw = static_cast<int>((static_cast<int64_t>(width) * p.h + hmax - 1) /
                             hmax);
     p.dh = static_cast<int>((static_cast<int64_t>(height) * p.v + vmax - 1) /
                             vmax);
-    int bx = interleaved ? mcux * p.h : (p.dw + 7) / 8;
-    int by = interleaved ? mcuy * p.v : (p.dh + 7) / 8;
-    p.stride = bx * 8;
-    p.rows = by * 8;
-    p.px.assign(static_cast<size_t>(p.stride) * p.rows, 0);
+    p.cbw = (p.dw + 7) / 8;
+    p.cbh = (p.dh + 7) / 8;
+    p.bw = mcux * p.h;
+    p.bh = mcuy * p.v;
+    p.c.assign(static_cast<size_t>(p.bw) * p.bh * 64, 0);
   }
 
-  BitReader br{scan, scan + scan_len};
-  int pred[4] = {0, 0, 0, 0};
-  int16_t block[64];
-  const int64_t n_mcu = interleaved
-                            ? static_cast<int64_t>(mcux) * mcuy
-                            : static_cast<int64_t>(planes[scan_comp[0]].stride /
-                                                   8) *
-                                  (planes[scan_comp[0]].rows / 8);
-  int next_rst = 0;
-  auto decode_block = [&](int k, uint8_t* dst, int stride) -> int {
-    const HuffTable* dct = &dc[scan_td[k]];
-    const HuffTable* act = &ac[scan_ta[k]];
-    std::memset(block, 0, sizeof(block));
-    int s = decode_symbol(&br, dct);
-    if (s < 0 || s > 15) return br.overrun() ? kTruncated : kBadHuffman;
-    int diff = s ? extend(br.get(s), s) : 0;
-    pred[k] += diff;
-    block[0] = static_cast<int16_t>(pred[k]);
-    for (int i = 1; i < 64; i++) {
-      int rs = decode_symbol(&br, act);
-      if (rs < 0) return br.overrun() ? kTruncated : kBadHuffman;
-      int r = rs >> 4;
-      s = rs & 15;
-      if (s) {
-        i += r;
-        int v = extend(br.get(s), s);
-        block[kNaturalOrder[i]] = static_cast<int16_t>(v);
-      } else {
-        if (r != 15) break;
-        i += 15;
-      }
+  HuffTable dc[4], ac[4];
+  for (int i = 0; i < n_scans; i++) {
+    const int32_t* f = fields + kScanFields * i;
+    const int ns = f[0];
+    if (ns < 1 || ns > 4 || (progressive && f[13] > 0 && ns != 1)) {
+      return kBadScan;
     }
-    if (br.overrun()) return kTruncated;
-    int c = scan_comp[k];
-    idct_islow(block, qtables + 64 * comp_tq[c], dst, stride);
-    return kOk;
-  };
-  for (int64_t m = 0; m < n_mcu; m++) {
-    if (restart_interval && m > 0 && m % restart_interval == 0) {
-      if (!br.restart(next_rst)) return kBadRestart;
-      next_rst = (next_rst + 1) & 7;
-      for (int k = 0; k < 4; k++) pred[k] = 0;
+    for (int k = 0; k < ns; k++) {
+      if (f[1 + 3 * k] < 0 || f[1 + 3 * k] >= ncomp) return kBadScan;
     }
-    if (interleaved) {
-      int my = static_cast<int>(m / mcux), mx = static_cast<int>(m % mcux);
-      for (int k = 0; k < ns; k++) {
-        Plane& p = planes[scan_comp[k]];
-        for (int by = 0; by < p.v; by++) {
-          for (int bx = 0; bx < p.h; bx++) {
-            int row = (my * p.v + by) * 8, col = (mx * p.h + bx) * 8;
-            int st = decode_block(
-                k, p.px.data() + static_cast<int64_t>(row) * p.stride + col,
-                p.stride);
-            if (st) return st;
-          }
+    // the tables this scan decodes with, built from those of its SOS
+    const bool dc_used = !progressive || (f[13] == 0 && f[15] == 0);
+    const bool ac_used = !progressive || f[13] > 0;
+    for (int k = 0; k < ns; k++) {
+      int td = f[2 + 3 * k] & 3, ta = f[3 + 3 * k] & 3;
+      if (dc_used) {
+        if (!((tables[i] >> td) & 1) ||
+            !build_table(dc_bits + (4 * i + td) * 17,
+                         dc_vals + (4 * i + td) * 256, &dc[td])) {
+          return kBadHuffman;
         }
       }
-    } else {
-      Plane& p = planes[scan_comp[0]];
-      int bxn = p.stride / 8;
-      int row = static_cast<int>(m / bxn) * 8;
-      int col = static_cast<int>(m % bxn) * 8;
-      int st = decode_block(
-          0, p.px.data() + static_cast<int64_t>(row) * p.stride + col,
-          p.stride);
-      if (st) return st;
+      if (ac_used) {
+        if (!((tables[i] >> (4 + ta)) & 1) ||
+            !build_table(ac_bits + (4 * i + ta) * 17,
+                         ac_vals + (4 * i + ta) * 256, &ac[ta])) {
+          return kBadHuffman;
+        }
+      }
     }
+    int st = decode_scan(comps, progressive != 0, f, data + offsets[i],
+                         offsets[i + 1] - offsets[i], dc, ac, mcux, mcuy);
+    if (st) return st;
   }
 
+  // IDCT of the blocks that cover each component, then upsampling
   const int64_t npx = static_cast<int64_t>(width) * height;
   std::vector<uint8_t> full(static_cast<size_t>(npx) * ncomp);
   for (int c = 0; c < ncomp; c++) {
-    upsample(planes[c], hmax / planes[c].h, vmax / planes[c].v, width, height,
+    Coefs& p = comps[c];
+    Plane pl;
+    pl.h = p.h;
+    pl.v = p.v;
+    pl.dw = p.dw;
+    pl.dh = p.dh;
+    pl.stride = p.cbw * 8;
+    pl.rows = p.cbh * 8;
+    pl.px.resize(static_cast<size_t>(pl.stride) * pl.rows);
+    for (int by = 0; by < p.cbh; by++) {
+      for (int bx = 0; bx < p.cbw; bx++) {
+        idct_islow(p.block(bx, by), qtables + 64 * c,
+                   pl.px.data() + static_cast<int64_t>(by) * 8 * pl.stride +
+                       bx * 8,
+                   pl.stride);
+      }
+    }
+    std::vector<int16_t>().swap(p.c);
+    upsample(pl, hmax / p.h, vmax / p.v, width, height,
              full.data() + npx * c);
   }
+  const uint8_t* c0 = full.data();
   if (ncomp == 1) {
     for (int64_t i = 0; i < npx; i++) {
-      out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = full[i];
+      out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = c0[i];
+    }
+    return kOk;
+  }
+  const uint8_t* c1 = c0 + npx;
+  const uint8_t* c2 = c1 + npx;
+  if (ncomp == 4 && color == 3) {
+    // icvCvt_CMYK2BGR_8u_C4C3R on the channels as stored (Adobe-inverted)
+    const uint8_t* c3 = c2 + npx;
+    for (int64_t i = 0; i < npx; i++) {
+      int k = c3[i];
+      out[3 * i] = static_cast<uint8_t>(k - (((255 - c0[i]) * k) >> 8));
+      out[3 * i + 1] = static_cast<uint8_t>(k - (((255 - c1[i]) * k) >> 8));
+      out[3 * i + 2] = static_cast<uint8_t>(k - (((255 - c2[i]) * k) >> 8));
     }
     return kOk;
   }
   if (ncomp != 3) return kBadLayout;
-  const uint8_t* c0 = full.data();
-  const uint8_t* c1 = c0 + npx;
-  const uint8_t* c2 = c1 + npx;
   if (color == 2) {
     for (int64_t i = 0; i < npx; i++) {
       out[3 * i] = c0[i];

@@ -1,7 +1,8 @@
 // PNG scanline reconstruction on the host: the five row filters of the PNG
 // specification (None, Sub, Up, Average, Paeth) undone byte by byte, as
-// libpng does, for the inflated image data of a non-interlaced 8-bit image.
-// The zlib inflate and the chunk parsing stay in Python
+// libpng does, for the inflated image data of one image or of one Adam7
+// pass of it, at any bit depth. The zlib inflate, the chunk parsing, the
+// unpacking of samples and the Adam7 scatter stay in Python
 // (yolosharp_tpu_torch/data/image_ops.py::decode_png_rgb).
 //
 // Build: c++ -O2 -std=c++17 -fPIC -shared -ffp-contract=off.
@@ -12,8 +13,8 @@
 extern "C" {
 
 // raw: height rows of (1 + stride) bytes, each a filter type then the
-// filtered bytes; bpp: bytes a pixel (the filters' left neighbour
-// distance); out: height * stride bytes. Returns 0, or 1 + the row index
+// filtered bytes; bpp: bytes a pixel, at least 1 (the filters' left
+// neighbour distance: max(1, bits a pixel / 8)); out: height * stride bytes. Returns 0, or 1 + the row index
 // of a filter type above 4.
 int ys_png_unfilter(const uint8_t* raw, int height, int stride, int bpp,
                     uint8_t* out) {

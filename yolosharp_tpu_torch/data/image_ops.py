@@ -5,12 +5,15 @@ and FMA3 (its vector code, IPP's AVX2 code): on a CPU without them cv2
 itself rounds some values otherwise.
 
 - ``read_image_rgb``: cv2.imread(IMREAD_COLOR) -> RGB without cv2, by the
-  file's magic bytes: PNG inflated here with zlib and its rows unfiltered
-  by the host C++ of ``csrc/png_unfilter.cpp`` (8-bit gray, RGB and RGBA,
-  not interlaced, all five row filters), baseline JPEG by
+  file's magic bytes: PNG of every standard kind (gray, RGB, paletted,
+  with alpha; 1 to 16 bits; Adam7 or not) inflated here with zlib and its
+  rows unfiltered by the host C++ of ``csrc/png_unfilter.cpp``; baseline,
+  extended sequential and progressive JPEG, gray, YCbCr, RGB or CMYK, by
   ``jpeg.decode_jpeg_rgb`` (libjpeg-turbo's arithmetic, its EXIF
-  orientation applied) and BMP by ``decode_bmp_rgb``. Anything else
-  raises an error that names the file; no image is ever substituted.
+  orientation applied); BMP by ``decode_bmp_rgb``; baseline TIFF by
+  ``tiff.decode_tiff_rgb`` (libtiff's RGBA mapping). Anything else raises
+  an error that names the file and what it is; no image is ever
+  substituted.
 - ``resize_linear``: cv2.resize(INTER_LINEAR) of uint8 images and masks in
   cv2's fixed-point arithmetic (11-bit weights, the vertical pass on rows
   >> 4 with a rounding >> 2); ``resize_linear_f32`` the float32 resize of
@@ -55,21 +58,26 @@ import numpy as np
 import torch
 
 from ..kernels.build import load_host
-from . import jpeg
+from . import jpeg, tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}      # PNG colour type -> samples a pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+_PNG_CRITICAL = (b"IHDR", b"PLTE", b"IDAT", b"IEND")
+# the seven Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 BMP_SIGNATURE = b"BM"
-TIFF_SIGNATURES = (b"II*\0", b"MM\0*")
 
 
 def read_image_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a PNG, JPEG or BMP file, as
+    """(H, W, 3) uint8 RGB of a PNG, JPEG, BMP or TIFF file, as
     cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB) gives it
-    (an EXIF orientation applied), told apart by its first bytes. Anything
-    else raises, naming the file."""
+    (an EXIF or TIFF orientation applied), told apart by its first bytes.
+    Anything else raises, naming the file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
@@ -78,10 +86,9 @@ def read_image_rgb(path: str) -> np.ndarray:
         return jpeg.decode_jpeg_rgb(data, path)
     if data[:2] == BMP_SIGNATURE:
         return decode_bmp_rgb(data, path)
-    if data[:4] in TIFF_SIGNATURES:
-        raise ValueError(f"{path}: TIFF is not read without cv2 (PNG, "
-                         f"baseline JPEG and BMP are)")
-    raise ValueError(f"{path}: not a PNG, JPEG or BMP file")
+    if data[:4] in tiff.TIFF_SIGNATURES + tiff.BIGTIFF_SIGNATURES:
+        return tiff.decode_tiff_rgb(data, path)
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP or TIFF file")
 
 
 def decode_bmp_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -135,20 +142,48 @@ def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
+def _png_samples(rows: np.ndarray, width: int, depth: int,
+                 channels: int) -> np.ndarray:
+    """(h, width, channels) 8-bit samples of unfiltered PNG rows (h,
+    stride): a 16-bit sample's high byte (libpng's png_set_strip_16), the
+    packed 1-, 2- or 4-bit values unpacked (one channel)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, width, channels, 2)[..., 0]
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    return tiff.unpack_bits(rows, depth, width)[..., None]
+
+
 def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 3) uint8 RGB of an 8-bit gray, RGB or RGBA PNG that is not
-    interlaced (gray repeated to three channels, alpha dropped, an eXIf
-    chunk's orientation applied, as cv2.imread(IMREAD_COLOR) returns
-    them)."""
+    """(H, W, 3) uint8 RGB of a PNG of any standard kind, as
+    cv2.imread(IMREAD_COLOR) returns it through libpng: gray (1, 2 and
+    4 bits scaled to 8 as png_set_expand_gray_1_2_4_to_8 scales them) and
+    gray + alpha repeated to three channels, paletted (1-8 bits) through
+    its PLTE (tRNS ignored), alpha dropped, 16-bit samples as their high
+    byte, Adam7-interlaced images put together from their seven passes,
+    an eXIf chunk's orientation applied. A critical chunk whose CRC fails,
+    image data that does not inflate to the image's size, and any other
+    header raise, naming the file."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
-    pos, idat, header, orientation = 8, [], None, 1
+    pos, idat, header, orientation, palette = 8, [], None, 1, None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         chunk = data[pos + 8:pos + 8 + length]
+        if kind in _PNG_CRITICAL and (
+                len(data) < pos + 12 + length or zlib.crc32(
+                    data[pos + 4:pos + 8 + length]) != struct.unpack(
+                    ">I", data[pos + 8 + length:pos + 12 + length])[0]):
+            raise ValueError(f"{name}: PNG chunk {kind.decode()} is corrupt "
+                             f"(its CRC does not match, or it is cut short)")
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", chunk)
+        elif kind == b"PLTE":
+            palette = np.zeros((256, 3), np.uint8)      # libpng's 256 slots
+            n = min(length // 3, 256)
+            palette[:n] = np.frombuffer(chunk, np.uint8, 3 * n).reshape(n, 3)
         elif kind == b"IDAT":
             idat.append(chunk)
         elif kind == b"eXIf":
@@ -157,26 +192,54 @@ def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
             break
     if header is None:
         raise ValueError(f"{name}: PNG without an IHDR chunk")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
+    w, h, depth, color, comp, filt, interlace = header
+    if (depth not in _PNG_DEPTHS.get(color, ()) or comp or filt
+            or interlace > 1 or w == 0 or h == 0):
         raise ValueError(
             f"{name}: PNG with bit depth {depth}, colour type {color}, "
-            f"interlace {interlace}; without cv2 only 8-bit gray, RGB and "
-            f"RGBA that are not interlaced are read")
-    bpp = _CHANNELS[color]
-    stride = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
+            f"interlace {interlace} is not a PNG kind that is read")
+    if color == 3 and palette is None:
+        raise ValueError(f"{name}: paletted PNG without a PLTE chunk")
+    channels = _CHANNELS[color]
+    bpp = max(1, depth * channels // 8)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as err:
+        raise ValueError(f"{name}: PNG image data is corrupt ({err})") \
+            from None
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [((w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy)
+             for x0, y0, dx, dy in passes]
+    strides = [(pw * depth * channels + 7) // 8 for pw, _ in sizes]
+    need = sum(ph * (st + 1) for (pw, ph), st in zip(sizes, strides) if pw)
+    if raw.size != need:
         raise ValueError(f"{name}: PNG image data has {raw.size} bytes, "
-                         f"expected {h * (stride + 1)}")
-    img = np.empty((h, w, bpp), np.uint8)
-    bad = load_host("png_unfilter").ys_png_unfilter(
-        raw.ctypes.data_as(ctypes.c_void_p), h, stride, bpp,
-        img.ctypes.data_as(ctypes.c_void_p))
-    if bad:
-        raise ValueError(f"{name}: PNG filter type "
-                         f"{raw[(bad - 1) * (stride + 1)]} does not exist")
-    img = np.repeat(img, 3, axis=2) if bpp == 1 else img[..., :3]
+                         f"expected {need}")
+    img = np.empty((h, w, channels), np.uint8)
+    unfilter = load_host("png_unfilter").ys_png_unfilter
+    at = 0
+    for (x0, y0, dx, dy), (pw, ph), stride in zip(passes, sizes, strides):
+        if pw == 0 or ph == 0:
+            continue                 # an empty pass has no bytes at all
+        part = raw[at:at + ph * (stride + 1)]
+        rows = np.empty((ph, stride), np.uint8)
+        bad = unfilter(part.ctypes.data_as(ctypes.c_void_p), ph, stride, bpp,
+                       rows.ctypes.data_as(ctypes.c_void_p))
+        if bad:
+            raise ValueError(f"{name}: PNG filter type "
+                             f"{part[(bad - 1) * (stride + 1)]} does not "
+                             f"exist")
+        img[y0::dy, x0::dx] = _png_samples(rows, pw, depth, channels)
+        at += ph * (stride + 1)
+    if color == 3:
+        img = palette[img[..., 0]]
+    elif color in (0, 4):
+        gray = img[..., 0]
+        if depth < 8:
+            gray = gray * np.uint8(255 // ((1 << depth) - 1))
+        img = np.repeat(gray[..., None], 3, axis=2)
+    else:
+        img = img[..., :3]
     return jpeg.apply_orientation(img, orientation)
 
 
@@ -203,7 +266,7 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    color = {v: k for k, v in _CHANNELS.items()}[bpp]
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
     return (PNG_SIGNATURE
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))

@@ -1,16 +1,22 @@
-"""Baseline JPEG without cv2: the markers parsed here, the scan decoded by
-the host C++ of ``csrc/jpeg_decode.cpp`` (built with ``c++`` at first use,
+"""JPEG without cv2: the markers parsed here, the scans decoded by the host
+C++ of ``csrc/jpeg_decode.cpp`` (built with ``c++`` at first use,
 ``kernels.build.load_host``), to the bit what cv2.imread(IMREAD_COLOR)
 returns through libjpeg-turbo's defaults (ISLOW IDCT, fancy upsampling),
 converted to RGB, its EXIF orientation applied.
 
 ``parse_jpeg`` reads SOI, APPn (APP1's EXIF Orientation in either byte
 order, APP0's JFIF, APP14's Adobe transform), COM, DQT (8- and 16-bit
-tables), DHT, DRI, SOF0 / SOF1 and the one SOS, up to EOI. Anything this
-module does not decode raises ValueError naming the file and the reason:
-progressive (SOF2), lossless, hierarchical and arithmetic-coded frames,
-12-bit samples, 2 or 4 components (CMYK / YCCK), a frame of several scans
-and a stream cut short. No image is ever substituted.
+tables), DHT, DRI, SOF0 / SOF1 (baseline and extended sequential, one scan
+of every component) or SOF2 (progressive Huffman, any number of scans,
+with the tables and the restart interval in force at each SOS), up to EOI.
+Frames of 1 (gray), 3 (YCbCr or RGB) or 4 components (CMYK: no Adobe
+marker or transform 0, converted as cv2 converts it) are decoded. Anything
+else raises ValueError naming the file and the reason: lossless,
+hierarchical and arithmetic-coded frames, 12-bit samples, 2 components,
+YCCK (Adobe transform 2), a sequential frame of several scans, a
+progressive one whose scans leave low coefficients unrefined (libjpeg
+smooths such blocks) and a stream cut short. No image is ever
+substituted.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ _ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 _UNSUPPORTED = {
-    0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical progressive (SOF6)",
     0xC7: "hierarchical lossless (SOF7)",
     0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded progressive "
@@ -45,46 +51,61 @@ _UNSUPPORTED = {
 _ERRORS = {1: "the stream is truncated (its data ends before the last "
               "block)", 2: "a Huffman code or table is invalid",
            3: "its sampling factors are not decodable",
-           4: "a restart marker is missing"}
-COLOR_GRAY, COLOR_YCC, COLOR_RGB = 0, 1, 2
+           4: "a restart marker is missing",
+           5: "a scan header does not fit its frame"}
+COLOR_GRAY, COLOR_YCC, COLOR_RGB, COLOR_CMYK = 0, 1, 2, 3
+# natural-order positions of the DC and the first 9 AC coefficients in
+# zig-zag order: libjpeg's block smoothing looks at these (SAVED_COEFS)
+_SMOOTHED = _ZIGZAG[:10]
 
 
 @dataclass
 class JpegInfo:
-    """What the decode needs of a baseline JPEG's markers."""
+    """What the decode needs of a JPEG's markers: the frame, and for each
+    scan its header fields, Huffman tables and entropy-coded bytes."""
     width: int = 0
     height: int = 0
+    progressive: bool = False
     comp_ids: List[int] = field(default_factory=list)
     comp_h: List[int] = field(default_factory=list)
     comp_v: List[int] = field(default_factory=list)
     comp_tq: List[int] = field(default_factory=list)
-    scan_comp: List[int] = field(default_factory=list)
-    scan_td: List[int] = field(default_factory=list)
-    scan_ta: List[int] = field(default_factory=list)
-    qtables: np.ndarray = field(
-        default_factory=lambda: np.zeros((4, 64), np.uint16))
-    dc_bits: np.ndarray = field(
-        default_factory=lambda: np.zeros((4, 17), np.uint8))
-    dc_vals: np.ndarray = field(
-        default_factory=lambda: np.zeros((4, 256), np.uint8))
-    ac_bits: np.ndarray = field(
-        default_factory=lambda: np.zeros((4, 17), np.uint8))
-    ac_vals: np.ndarray = field(
-        default_factory=lambda: np.zeros((4, 256), np.uint8))
-    table_present: int = 0
-    restart_interval: int = 0
+    # the quantisation table each component latched at its first scan
+    comp_q: List[Optional[np.ndarray]] = field(default_factory=list)
+    # each scan's int32 fields for the C++ (its kScanFields): Ns, then for
+    # each of 4 slots the component index, its DC and AC table, then Ss,
+    # Se, Ah, Al and the restart interval in force
+    fields: List[List[int]] = field(default_factory=list)
+    dc_bits: List[np.ndarray] = field(default_factory=list)
+    dc_vals: List[np.ndarray] = field(default_factory=list)
+    ac_bits: List[np.ndarray] = field(default_factory=list)
+    ac_vals: List[np.ndarray] = field(default_factory=list)
+    tables: List[int] = field(default_factory=list)
+    scans: List[bytes] = field(default_factory=list)
     jfif: bool = False
     adobe_transform: Optional[int] = None
     orientation: int = 1
-    scan: bytes = b""
+
+    @property
+    def qtables(self) -> np.ndarray:
+        """(components, 64) quantisation values in natural order, the table
+        each component latched; zeros for a component no scan holds (its
+        coefficients stay 0)."""
+        return np.stack([np.zeros(64, np.uint16) if q is None else q
+                         for q in self.comp_q])
 
     @property
     def color(self) -> int:
-        """libjpeg's jpeg_color_space of the frame (jdapimin.c): JFIF means
-        YCbCr, else an Adobe transform 0 means RGB, else the ids 'R' 'G'
-        'B' do; YCbCr otherwise."""
+        """libjpeg's jpeg_color_space of the frame (jdapimin.c): one
+        component is gray; of three, JFIF means YCbCr, else an Adobe
+        transform 0 means RGB, else the ids 'R' 'G' 'B' do, YCbCr
+        otherwise; of four, CMYK without an Adobe marker or with transform
+        0, YCCK otherwise."""
         if len(self.comp_ids) == 1:
             return COLOR_GRAY
+        if len(self.comp_ids) == 4:
+            return (COLOR_CMYK if self.adobe_transform in (None, 0)
+                    else -1)
         if self.jfif:
             return COLOR_YCC
         if self.adobe_transform is not None:
@@ -115,15 +136,77 @@ def exif_orientation(tiff: bytes) -> int:
     return 1
 
 
+def _scan_end(data: bytes, pos: int, name: str) -> int:
+    """Where the entropy-coded data that starts at ``pos`` ends: the first
+    marker that is not a stuffed 0xFF 0x00 or an RSTn."""
+    end, n = pos, len(data)
+    while True:
+        end = data.find(b"\xff", end)
+        if end < 0 or end + 1 >= n:
+            raise ValueError(f"{name}: JPEG truncated: the file ends inside "
+                             f"its scan")
+        nxt = data[end + 1]
+        if nxt == 0 or 0xD0 <= nxt <= 0xD7 or nxt == 0xFF:
+            end += 1 if nxt == 0xFF else 2
+            continue
+        return end
+
+
+def _check_scan(info: JpegInfo, ns: int, ss: int, se: int, ah: int,
+                al: int, name: str) -> None:
+    """libjpeg's checks of a scan header (jdphuff.c start_pass): a DC scan
+    has Se 0, an AC scan one component and Ss <= Se <= 63, a refinement
+    takes one bit (Al = Ah - 1), Al <= 13. A sequential frame's one scan
+    holds every component."""
+    if not info.progressive:
+        if info.scans:
+            raise ValueError(f"{name}: JPEG of several sequential scans is "
+                             f"not decoded without cv2 (one scan a "
+                             f"sequential frame)")
+        if ns != len(info.comp_ids):
+            raise ValueError(f"{name}: JPEG whose sequential scan holds {ns} "
+                             f"of {len(info.comp_ids)} components is not "
+                             f"decoded without cv2 (one scan a sequential "
+                             f"frame)")
+        return
+    bad = (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
+    if bad or (ah != 0 and al != ah - 1) or al > 13:
+        raise ValueError(f"{name}: progressive JPEG with a bad scan (Ss {ss}, "
+                         f"Se {se}, Ah {ah}, Al {al}, {ns} components)")
+
+
+def _check_smoothing(info: JpegInfo, coef_bits: np.ndarray,
+                     name: str) -> None:
+    """Raise where libjpeg-turbo would smooth the blocks of a progressive
+    frame (jdcoefct.c smoothing_ok): every component's DC at least partly
+    known, the quantisers of the DC and the first 9 AC coefficients not 0,
+    and one of those 9 AC coefficients of some component not refined to
+    its last bit (Al 0) by the last scan."""
+    if not info.progressive or (coef_bits[:, 0] < 0).any():
+        return
+    for q in info.comp_q:
+        if q is None or not q[_SMOOTHED].all():
+            return
+    if (coef_bits[:, 1:10] != 0).any():
+        raise ValueError(f"{name}: progressive JPEG whose scans leave low "
+                         f"coefficients unrefined is not decoded without "
+                         f"cv2 (libjpeg smooths its blocks)")
+
+
 def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
-    """The markers of a baseline JPEG up to its EOI (see the module's
-    docstring); raises ValueError naming ``name`` on anything else."""
+    """The markers of a JPEG up to its EOI (see the module's docstring);
+    raises ValueError naming ``name`` on anything it does not decode."""
     if data[:2] != SOI:
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     info = JpegInfo()
     app1 = None
     pos, n = 2, len(data)
     seen_sof = False
+    qtables = np.zeros((4, 64), np.uint16)
+    dc_bits, ac_bits = (np.zeros((4, 17), np.uint8) for _ in range(2))
+    dc_vals, ac_vals = (np.zeros((4, 256), np.uint8) for _ in range(2))
+    present = restart_interval = 0
+    coef_bits = None
     while True:
         while pos < n and data[pos] != 0xFF:
             pos += 1                     # garbage between segments
@@ -147,21 +230,22 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
         pos += length
         if marker in _UNSUPPORTED:
             raise ValueError(f"{name}: {_UNSUPPORTED[marker]} JPEG is not "
-                             f"decoded without cv2 (baseline only)")
-        if marker in (0xC0, 0xC1):
+                             f"decoded without cv2 (baseline, extended "
+                             f"sequential and progressive Huffman only)")
+        if marker in (0xC0, 0xC1, 0xC2):
             if seen_sof:
                 raise ValueError(f"{name}: JPEG with two frames")
             seen_sof = True
+            info.progressive = marker == 0xC2
             if len(body) < 6 or len(body) < 6 + 3 * body[5]:
                 raise ValueError(f"{name}: JPEG with a short frame header")
             precision, h, w, nf = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"{name}: {precision}-bit JPEG is not "
                                  f"decoded without cv2 (8-bit only)")
-            if nf not in (1, 3):
-                kind = "CMYK / YCCK" if nf == 4 else f"{nf}-component"
-                raise ValueError(f"{name}: {kind} JPEG is not decoded "
-                                 f"without cv2 (gray and 3-component only)")
+            if nf not in (1, 3, 4):
+                raise ValueError(f"{name}: {nf}-component JPEG is not "
+                                 f"decoded without cv2 (1, 3 or 4 only)")
             if h == 0 or w == 0:
                 raise ValueError(f"{name}: JPEG of size {w}x{h}")
             info.width, info.height = w, h
@@ -171,6 +255,8 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
                 info.comp_h.append(hv >> 4)
                 info.comp_v.append(hv & 15)
                 info.comp_tq.append(tq & 3)
+            info.comp_q = [None] * nf
+            coef_bits = np.full((nf, 64), -1, np.int32)
         elif marker == 0xC4:
             at = 0
             while at < len(body):
@@ -180,12 +266,11 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
                 vals = np.frombuffer(body[at + 17:at + 17 + total], np.uint8)
                 if len(counts) < 16 or len(vals) < total or total > 256:
                     raise ValueError(f"{name}: JPEG with a bad DHT segment")
-                bits, syms = ((info.ac_bits, info.ac_vals) if tc
-                              else (info.dc_bits, info.dc_vals))
+                bits, syms = (ac_bits, ac_vals) if tc else (dc_bits, dc_vals)
                 bits[th, 1:] = counts
                 syms[th] = 0
                 syms[th, :total] = vals
-                info.table_present |= 1 << (th + (4 if tc else 0))
+                present |= 1 << (th + (4 if tc else 0))
                 at += 17 + total
         elif marker == 0xDB:
             at = 0
@@ -196,12 +281,12 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
                 if len(raw) < size:
                     raise ValueError(f"{name}: JPEG with a bad DQT segment")
                 q = np.frombuffer(raw, ">u2" if pq else np.uint8)
-                info.qtables[tq, _ZIGZAG] = q
+                qtables[tq, _ZIGZAG] = q
                 at += 1 + size
         elif marker == 0xDD:
             if len(body) < 2:
                 raise ValueError(f"{name}: JPEG with a short DRI segment")
-            (info.restart_interval,) = struct.unpack(">H", body[:2])
+            (restart_interval,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0:
             info.jfif = info.jfif or body[:5] == b"JFIF\0"
         elif marker == 0xE1:
@@ -213,41 +298,40 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
         elif marker == 0xDA:
             if not seen_sof:
                 raise ValueError(f"{name}: JPEG scan before its frame")
-            if info.scan:
-                raise ValueError(f"{name}: JPEG of several scans is not "
-                                 f"decoded without cv2 (one scan only)")
             ns = body[0] if body else 0
-            if len(body) < 1 + 2 * ns:
+            if len(body) < 4 + 2 * ns or not 1 <= ns <= 4:
                 raise ValueError(f"{name}: JPEG with a short scan header")
+            ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
+            ah, al = ahl >> 4, ahl & 15
+            _check_scan(info, ns, ss, se, ah, al, name)
+            fields = [ns] + [0] * 12 + [ss, se, ah, al, restart_interval]
             for i in range(ns):
                 cs, t = body[1 + 2 * i:3 + 2 * i]
                 if cs not in info.comp_ids:
                     raise ValueError(f"{name}: JPEG scan of an unknown "
                                      f"component {cs}")
-                info.scan_comp.append(info.comp_ids.index(cs))
-                info.scan_td.append(t >> 4 & 3)
-                info.scan_ta.append(t & 3)
-            if ns != len(info.comp_ids):
-                raise ValueError(f"{name}: JPEG whose scan holds {ns} of "
-                                 f"{len(info.comp_ids)} components is not "
-                                 f"decoded without cv2 (one scan only)")
-            # the entropy-coded data: up to the first marker that is not
-            # a stuffed 0xFF 0x00 or an RSTn
-            end = pos
-            while True:
-                end = data.find(b"\xff", end)
-                if end < 0 or end + 1 >= n:
-                    raise ValueError(f"{name}: JPEG truncated: the file "
-                                     f"ends inside its scan")
-                nxt = data[end + 1]
-                if nxt == 0 or 0xD0 <= nxt <= 0xD7 or nxt == 0xFF:
-                    end += 1 if nxt == 0xFF else 2
-                    continue
-                break
-            info.scan = data[pos:end]
+                c = info.comp_ids.index(cs)
+                fields[1 + 3 * i:4 + 3 * i] = [c, t >> 4 & 3, t & 3]
+                if info.comp_q[c] is None:       # latch_quant_tables
+                    info.comp_q[c] = qtables[info.comp_tq[c]].copy()
+                if info.progressive:
+                    coef_bits[c, ss:se + 1] = al
+            end = _scan_end(data, pos, name)
+            info.fields.append(fields)
+            info.dc_bits.append(dc_bits.copy())
+            info.dc_vals.append(dc_vals.copy())
+            info.ac_bits.append(ac_bits.copy())
+            info.ac_vals.append(ac_vals.copy())
+            info.tables.append(present)
+            info.scans.append(data[pos:end])
             pos = end
-    if not info.scan:
+    if not info.scans:
         raise ValueError(f"{name}: JPEG without a scan")
+    if info.color < 0:
+        raise ValueError(f"{name}: YCCK JPEG (Adobe transform "
+                         f"{info.adobe_transform}) is not decoded without "
+                         f"cv2 (gray, YCbCr, RGB and CMYK only)")
+    _check_smoothing(info, coef_bits, name)
     if app1 is not None:
         info.orientation = exif_orientation(app1[6:])   # the first EXIF
     return info
@@ -272,7 +356,7 @@ def _ptr(a: np.ndarray):
 
 
 def decode_jpeg_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a baseline JPEG, equal to
+    """(H, W, 3) uint8 RGB of a JPEG, equal to
     cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB): grayscale
     repeated to three channels, the EXIF orientation applied. Raises
     ValueError naming ``name`` on what it does not decode (see the
@@ -280,17 +364,22 @@ def decode_jpeg_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     info = parse_jpeg(data, name)
     lib = load_host("jpeg_decode")
     out = np.empty((info.height, info.width, 3), np.uint8)
-    i32 = [np.asarray(v, np.int32) for v in (
-        info.comp_h, info.comp_v, info.comp_tq, info.scan_comp,
-        info.scan_td, info.scan_ta)]
-    scan = np.frombuffer(info.scan, np.uint8)
+    comp_h, comp_v = (np.asarray(v, np.int32)
+                      for v in (info.comp_h, info.comp_v))
+    offsets = np.cumsum([0] + [len(s) for s in info.scans]).astype(np.int64)
+    scans = np.frombuffer(b"".join(info.scans), np.uint8)
+    fields = np.asarray(info.fields, np.int32)
+    dc_bits, dc_vals, ac_bits, ac_vals = (
+        np.ascontiguousarray(np.stack(v)) for v in (
+            info.dc_bits, info.dc_vals, info.ac_bits, info.ac_vals))
+    tables = np.asarray(info.tables, np.int32)
+    qtables = info.qtables
     status = lib.ys_jpeg_decode(
-        _ptr(scan), ctypes.c_int64(len(scan)), info.width, info.height,
-        len(info.comp_ids), _ptr(i32[0]), _ptr(i32[1]), _ptr(i32[2]),
-        len(info.scan_comp), _ptr(i32[3]), _ptr(i32[4]), _ptr(i32[5]),
-        _ptr(info.qtables), _ptr(info.dc_bits), _ptr(info.dc_vals),
-        _ptr(info.ac_bits), _ptr(info.ac_vals), info.table_present,
-        info.restart_interval, info.color, _ptr(out))
+        info.width, info.height, len(info.comp_ids), _ptr(comp_h),
+        _ptr(comp_v), int(info.progressive), len(info.scans), _ptr(scans),
+        _ptr(offsets), _ptr(fields), _ptr(dc_bits), _ptr(dc_vals),
+        _ptr(ac_bits), _ptr(ac_vals), _ptr(tables), _ptr(qtables),
+        info.color, _ptr(out))
     if status:
         raise ValueError(f"{name}: JPEG not decoded: "
                          f"{_ERRORS.get(status, f'error {status}')}")

@@ -1,6 +1,6 @@
 """Dataset scanning and YOLO-txt label parsing for the detect, segment,
 pose and OBB tasks (a copy of yolosharp_tpu/data/labels.py; images are
-read (PNG, JPEG, BMP) and resized through ``image_ops`` without cv2, and
+read (PNG, JPEG, BMP, TIFF) and resized through ``image_ops`` without cv2, and
 polygons filled by ``image_ops.fill_poly``).
 
 Parity targets: Data/Base.cs:51-136 (image scanning / txt-list

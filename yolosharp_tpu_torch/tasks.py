@@ -1549,7 +1549,7 @@ class YoloTask:
     def image_predict(self, image, predict_threshold: Optional[float] = None,
                       iou_threshold: Optional[float] = None):
         if isinstance(image, str):
-            image = read_image_rgb(image)   # PNG, JPEG or BMP, no cv2
+            image = read_image_rgb(image)   # PNG, JPEG, BMP or TIFF, no cv2
         return self.task.image_predict(image, predict_threshold,
                                        iou_threshold)
 
