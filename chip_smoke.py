@@ -262,26 +262,32 @@ Image input (the host decoders of yolosharp_tpu_torch/csrc: the JPEG
 decoder of jpeg_decode.cpp, baseline and progressive, gray, YCbCr, RGB and
 CMYK; the PNG row unfilter of png_unfilter.cpp, that every PNG phase
 reads through; the TIFF LZW and PackBits decoders of tiff_decode.cpp;
-all built with c++ in phase 1 beside the CUDA kernels):
+the WebP VP8L and VP8 decoders of webp_decode.cpp; all built with c++ in
+phase 1 beside the CUDA kernels; BMP, PNM and PAM in numpy):
   14a. every committed fixture of tests/data_torch/jpeg and
      tests/data_torch/images (progressive and CMYK JPEG, every PNG kind,
-     baseline TIFF kinds) read by read_image_rgb: the SHA-256 of its RGB
-     bytes equal to its manifest's (cv2.imread's, where the fixtures were
-     written). The host decode ms of each (the median of 5); of the
-     641x479 4:2:0 baseline and progressive files and of a 640x480 RGB
-     TIFF, LZW with the predictor, that this phase writes with
-     tests/data_torch/images/writers.py (equal to the pixels it was
-     written from), the median of 50.
+     baseline TIFF kinds, 1- / 4- / 16-bit, bit-field, RLE and OS/2 BMP,
+     PNM, PAM, lossy / lossless / alpha / EXIF / animated WebP and WebP
+     bytes under a .jpg name) read by read_image_rgb: the SHA-256 of its
+     RGB bytes equal to its manifest's (cv2.imread's, where the fixtures
+     were written). The host decode ms of each (the median of 5); of the
+     641x479 4:2:0 baseline and progressive files, the 640x480 lossy and
+     lossless WebP files and a 640x480 RGB TIFF, LZW with the predictor,
+     that this phase writes with tests/data_torch/images/writers.py
+     (equal to the pixels it was written from), the median of 50.
   14b. v8s-640 detect, bf16, phase 3's seeded weights: image_predict of
-     the 641x479 baseline fixture's path (equal to image_predict of its
-     decoded array) and batch_predict of 32 images decoded from the
-     fixtures of both folders (cycled: JPEG, PNG and TIFF kinds),
-     conv3x3 s1 / s2 and c2f_fused launched and no other kernel; then
-     YoloTask.train() of v8s, 640x640, batch 16, 2 epochs on a detect set
-     of those fixtures (those of 32 px a side or more), listed by a txt
-     file 128 times over (labels this phase writes; the label scan
-     decodes each file once), and val on 16 of them: per epoch the step
-     ms, img/s, the loader-wait share; finite losses.
+     the 641x479 baseline fixture's path and of the WebP fixture named
+     .jpg (each equal to image_predict of its decoded array) and
+     batch_predict of 32 images decoded from the fixtures of both
+     folders (cycled over every file extension: JPEG, PNG, TIFF, BMP,
+     PNM, PAM and WebP kinds), conv3x3 s1 / s2 and c2f_fused launched and
+     no other kernel; then YoloTask.train() of v8s, 640x640, batch 16, 2
+     epochs on a detect set of those fixtures (those of 32 px a side or
+     more; a PNM, PAM or WebP file under a .png name, as the loaders
+     admit only the JAX package's extensions and cv2 reads by content),
+     listed by a txt file 128 times over (labels this phase writes; the
+     label scan decodes each file once), and val on 16 of them: per epoch
+     the step ms, img/s, the loader-wait share; finite losses.
   14c. YoloTask.train() of v8s-cls (nc=10), 224x224, batch 32, 1 epoch on
      a folder-per-class set of copies of the same fixtures (16 train and 2
      val a class; every kind in the cycle): the decode on every get; the
@@ -391,10 +397,10 @@ kernel: the JAX int8_conv is XLA's int8 convolution):
      modules (no conv3x3 or C2f launch), batch_predict img/s of both and
      the share of float boxes the int8 boxes match (at least 0.7, the JAX
      facade test's rule); float32 int8 card against CPU: each int8
-     ConvBN of the card, given the CPU's folded and int8 buffers and fed
-     the CPU net's input to it, gives the CPU's output (identity to the bit, SiLU phase 2's float32 conv rule;
-     the card's own fold and int8 weights printed beside the CPU's), the
-     head outputs of 4 images lie from the CPU int8's at most 1.5x and
+     ConvBN of the card holds the CPU's folded and int8 buffers to the
+     bit and, fed the CPU net's input to it, gives the CPU's output
+     (identity to the bit, SiLU phase 2's float32 conv rule), the
+     head outputs of 4 images lie from the CPU int8's at most 1.0x and
      from the CPU float's at least 0.5x the CPU int8's distance from the
      CPU float's (INT8_CPU_FACTOR, INT8_FLOAT_FLOOR), and image_predict's
      rows match the CPU's by the same rule.
@@ -3285,8 +3291,13 @@ FIXTURE_DIRS = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
 JPEG_DIR = FIXTURE_DIRS[0]
 JPEG_BIG = "s420_q75_641x479.jpg"
 # the files 14a times over 50 reads: the baseline and progressive 641x479
-# fixtures, and the LZW TIFF it writes
-TIMED_50 = (JPEG_BIG, "progressive_q75_641x479.jpg", "lzw_pred2_640x480.tif")
+# fixtures, the LZW TIFF and the ASCII P3 it writes, the 640x480 WebPs
+TIMED_50 = (JPEG_BIG, "progressive_q75_641x479.jpg", "lzw_pred2_640x480.tif",
+            "webp_lossy_q80_640x480.webp",
+            "webp_lossless_48colours_640x480.webp", "ascii_640x480.ppm")
+WEBP_AS_JPG = "webp_bytes_64x48.jpg"   # 14b's WebP image_predict path
+# the extensions the loaders admit (the JAX package's IMG_EXTS)
+LOADER_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
 JPEG_LIST = 128           # entries of 14b's train list (the fixtures cycled)
 JPEG_CLS_TRAIN = 16       # 14c's train images a class
 
@@ -3316,10 +3327,24 @@ def write_lzw_tiff(root):
     return path, img
 
 
+def write_ascii_ppm(root):
+    """A 640x480 ASCII P3 (maxval 255, one row a line) of one of
+    synthetic_images, written by tests/data_torch/images/writers.py;
+    returns (path, the pixels)."""
+    sys.path.insert(0, FIXTURE_DIRS[1])
+    from writers import write_pnm
+
+    img = synthetic_images(1, 480, 640, 16)[0]
+    path = os.path.join(root, TIMED_50[5])
+    with open(path, "wb") as f:
+        f.write(write_pnm(img, 3))
+    return path, img
+
+
 def phase_image_decode(root, tag):
     """Phase 14a: every fixture read by read_image_rgb, its RGB bytes'
-    SHA-256 against the manifest; the written LZW TIFF against its
-    pixels; the host decode ms. Returns the paths of the fixtures of 32 px
+    SHA-256 against the manifest; the written LZW TIFF and ASCII P3
+    against their pixels; the host decode ms. Returns the paths of the fixtures of 32 px
     a side or more, in the order of the cycle."""
     import hashlib
 
@@ -3351,20 +3376,35 @@ def phase_image_decode(root, tag):
               f"{img.shape[0]}, SHA-256 equal to cv2's; {ms}", flush=True)
         if min(img.shape[:2]) >= 32:
             usable.append(path)
-    path, want = write_lzw_tiff(root)
-    img, ms = timed_read(path)
-    if not np.array_equal(img, want):
-        raise SystemExit(f"{path}: decoded pixels differ from those written "
-                         f"({int((img != want).sum())} values)")
-    print(f"  {os.path.basename(path)}: {os.path.getsize(path)} bytes, "
-          f"640x480, equal to the pixels written; {ms}", flush=True)
-    # the cycle: the folders' files interleaved, so that every kind is in
-    # the first 32
-    jpeg = [p for p in usable if p.startswith(JPEG_DIR)]
-    other = [p for p in usable if not p.startswith(JPEG_DIR)]
-    cycle = [p for pair in zip(other, jpeg) for p in pair]
-    cycle += other[len(jpeg):] + jpeg[len(other):]
+    for write in (write_lzw_tiff, write_ascii_ppm):
+        path, want = write(root)
+        img, ms = timed_read(path)
+        if not np.array_equal(img, want):
+            raise SystemExit(f"{path}: decoded pixels differ from those "
+                             f"written ({int((img != want).sum())} values)")
+        print(f"  {os.path.basename(path)}: {os.path.getsize(path)} bytes, "
+              f"640x480, equal to the pixels written; {ms}", flush=True)
+    # the cycle: one file of each extension (the JPEG folder's apart) in
+    # turn, so that every kind is in the first 32
+    groups = {}
+    for p in usable:
+        key = ("jpeg dir" if p.startswith(JPEG_DIR)
+               else os.path.splitext(p)[1].lower())
+        groups.setdefault(key, []).append(p)
+    lists = [groups[k] for k in sorted(groups)]
+    cycle = []
+    for i in range(max(len(v) for v in lists)):
+        cycle += [v[i] for v in lists if i < len(v)]
     return cycle
+
+
+def dataset_name(path):
+    """A fixture's name in a dataset: its own, or for an extension the
+    loaders do not admit (PNM, PAM, WebP) the name with ``.png`` after its
+    extension's letters (``p6_64x48_ppm.png``): cv2 and the port read it
+    by its content."""
+    stem, ext = os.path.splitext(os.path.basename(path))
+    return stem + ext if ext.lower() in LOADER_EXTS else f"{stem}_{ext[1:]}.png"
 
 
 def write_image_detect_set(root, paths, seed=15):
@@ -3374,7 +3414,7 @@ def write_image_detect_set(root, paths, seed=15):
     import shutil
 
     rng = np.random.default_rng(seed)
-    names = [os.path.basename(p) for p in paths]
+    names = [dataset_name(p) for p in paths]
     for split in ("train", "val"):
         os.makedirs(os.path.join(root, "images", split))
         os.makedirs(os.path.join(root, "labels", split))
@@ -3411,7 +3451,7 @@ def write_image_cls_set(root, paths):
             for i in range(n):
                 path = paths[k % len(paths)]
                 shutil.copy(path, os.path.join(
-                    d, f"{i}{os.path.splitext(path)[1]}"))
+                    d, f"{i}{os.path.splitext(dataset_name(path))[1]}"))
                 if split == "train":
                     train.append(path)
                 k += 1
@@ -3432,12 +3472,14 @@ def phase_images(dev, root, state, conf, tag):
     from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     paths = phase_image_decode(root, tag)
-    print("phase 14b: v8s-640 bf16 serves JPEG, PNG and TIFF files",
-          flush=True)
+    print("phase 14b: v8s-640 bf16 serves JPEG, PNG, TIFF, BMP, PNM, PAM and "
+          "WebP files", flush=True)
     task = build_tasks(dev, "v8", state)[False]
     big = os.path.join(JPEG_DIR, JPEG_BIG)
+    webp_jpg = os.path.join(FIXTURE_DIRS[1], WEBP_AS_JPG)
     reset_launch_counts()
     by_path = task.image_predict(big, conf)
+    by_webp_path = task.image_predict(webp_jpg, conf)
     batch = [paths[i % len(paths)] for i in range(SERVED_BATCH)]
     images = [read_image_rgb(p) for p in batch]
     t = time.perf_counter()
@@ -3445,20 +3487,25 @@ def phase_images(dev, root, state, conf, tag):
     call = time.perf_counter() - t
     served = launch_counts()
     by_array = task.image_predict(read_image_rgb(big), conf)
-    rows = [(r.class_id, r.score, r.center_x, r.center_y, r.width, r.height)
-            for r in by_path]
-    if rows != [(r.class_id, r.score, r.center_x, r.center_y, r.width,
-                 r.height) for r in by_array]:
-        raise SystemExit("image_predict of the JPEG path and of its decoded "
-                         "array disagree")
+    by_webp_array = task.image_predict(read_image_rgb(webp_jpg), conf)
+
+    def rows_of(res):
+        return [(r.class_id, r.score, r.center_x, r.center_y, r.width,
+                 r.height) for r in res]
+
+    if rows_of(by_path) != rows_of(by_array) or \
+            rows_of(by_webp_path) != rows_of(by_webp_array):
+        raise SystemExit("image_predict of a file's path and of its decoded "
+                         "array disagree (the JPEG or the WebP named .jpg)")
     boxes = np.array([[r.center_x, r.center_y, r.width, r.height]
                       for rs in results for r in rs], np.float64)
     if len(results) != SERVED_BATCH or not boxes.size \
             or not np.isfinite(boxes).all():
         raise SystemExit(f"image batch_predict: {len(results)} lists, "
                          f"{len(boxes)} rows")
-    print(f"  image_predict({JPEG_BIG}): {len(by_path)} rows, equal to the "
-          f"decoded array's; batch_predict of {SERVED_BATCH} decoded "
+    print(f"  image_predict({JPEG_BIG}): {len(by_path)} rows, "
+          f"image_predict({WEBP_AS_JPG}): {len(by_webp_path)} rows, each "
+          f"equal to its decoded array's; batch_predict of {SERVED_BATCH} decoded "
           f"fixtures ({_kinds(batch)}): {len(boxes)} rows, "
           f"{call * 1e3:.1f} ms; kernel launches {served}", flush=True)
     check_path_launches("v8", served, "v8s image predict")
@@ -4416,27 +4463,27 @@ INT8_GROUPS = (("v8s-640", "v8", 640, lambda sh: True),
                (f"{CLS}-224", CLS, 224, lambda sh: True))
 INT8_CALIB = 16     # phase 7's PNGs 17b calibrates on
 # 17b's float32 card against CPU. What holds the card's int8 to the CPU's
-# is the layer check: each int8 ConvBN of the card, given the CPU's folded
-# and int8 buffers and fed the CPU net's input to it, gives the CPU's
-# output (to the bit with the identity activation, else within
-# TOL_F32["conv"]), with one int8_conv launch for each calibrated conv.
-# The card folds its own copy, whose weights and
-# scales may sit an ulp from the CPU's, so its own ConvBNs are not held
-# to the bit. Whole nets then drift apart like two draws of the
-# quantisation noise: a float ulp apart in a conv's input flips a rounding
-# to int8 now and then, and the next layers' roundings follow. The head
-# gates: the card's int8 lies from the CPU's int8 at most INT8_CPU_FACTOR
-# times the CPU int8's distance from the CPU float (two independent draws
-# would read sqrt(2); the drift is partial: tests/test_torch_int8.py read
-# 0.50-0.71 for the port against JAX on v8n-160, the card 0.868 on one
-# v8s-640 image), and at least INT8_FLOAT_FLOOR times that distance from
-# the CPU float (a net that did not quantise would read ~0 there, a
-# quantising one ~1). Neither head gate alone tells int8 from a float net
-# at ~1: the layer check and the launch count do.
+# is the layer check: the card folds and quantises its own copy, and each
+# int8 ConvBN of it holds the CPU's folded and int8 buffers to the bit
+# (the int8 scales divide as utils.numerics.divide_by_constant does on
+# both devices) and, fed the CPU net's input to it, gives the CPU's output
+# (to the bit with the identity activation, else within TOL_F32["conv"]),
+# with one int8_conv launch for each calibrated conv. Whole nets then
+# drift apart like two draws of the quantisation noise: a float ulp apart
+# in a conv's input flips a rounding to int8 now and then, and the next
+# layers' roundings follow. The head gates: the card's int8 lies from the
+# CPU's int8 at most INT8_CPU_FACTOR times the CPU int8's distance from
+# the CPU float (two independent draws would read sqrt(2); the drift is
+# partial: tests/test_torch_int8.py read 0.50-0.71 for the port against
+# JAX on v8n-160, the card 0.868 on one v8s-640 image), and at least
+# INT8_FLOAT_FLOOR times that distance from the CPU float (a net that did
+# not quantise would read ~0 there, a quantising one ~1). Neither head
+# gate alone tells int8 from a float net at ~1: the layer check and the
+# launch count do.
 INT8_IMAGES = 4
 # a folded ConvBN's buffers: its float fold and its int8 weights and scales
 FOLD_BUFFERS = ("w_fold", "b_fold", "i8_w", "i8_scale", "i8_ascale")
-INT8_CPU_FACTOR = 1.5
+INT8_CPU_FACTOR = 1.0
 INT8_FLOAT_FLOOR = 0.5
 # the JAX facade test's rule (tests/test_int8.py:123-133): the share of
 # float boxes an int8 box matches within max(4 px, 5% of the larger side)
@@ -4817,19 +4864,10 @@ def phase_int8(dev, root, states, confs, tag) -> tuple:
     def layer_hook(name):
         def hook(m, inp, out):
             own = cmods[name]
-            folds.append((int((own.i8_w.cpu() != m.i8_w).sum()),
-                          float(((own.i8_scale.cpu() - m.i8_scale).abs()
-                                 / m.i8_scale).max())))
-            # the card's ConvBN with the CPU's folded and int8 buffers, so
-            # only the route differs (the card's own fold may sit an ulp
-            # from the CPU's, and its scales with it)
-            saved = {b: own._buffers[b] for b in FOLD_BUFFERS}
-            try:
-                for b in FOLD_BUFFERS:
-                    own._buffers[b] = m._buffers[b].to(dev)
-                got = own(inp[0].to(dev)).cpu()
-            finally:
-                own._buffers.update(saved)
+            # the card's own fold and int8 buffers against the CPU's
+            folds.append(sum(int((own._buffers[b].cpu() != m._buffers[b])
+                                 .sum()) for b in FOLD_BUFFERS))
+            got = own(inp[0].to(dev)).cpu()
             atol, rtol = TOL_F32["conv"]
             ok = (torch.equal(got, out) if m.act == "identity" else
                   bool(((got - out).abs() <= atol + rtol * out.abs()).all()))
@@ -4847,17 +4885,17 @@ def phase_int8(dev, root, states, confs, tag) -> tuple:
     for h in hooks:
         h.remove()
     bad = [ln for ln in layers if not ln[1]]
-    print(f"  float32 int8 ConvBNs of the card, each with the CPU's buffers "
-          f"on the CPU's input: {len(layers)} of {len(card)} checked, {len(bad)} "
-          f"outside the rule (identity to the bit, SiLU |k-p| <= "
-          f"{TOL_F32['conv'][0]} + {TOL_F32['conv'][1]}|p|); largest |k-p| "
-          f"{max(ln[2] for ln in layers):.3e}; the card's own fold against "
-          f"the CPU's: int8 weights differing {sum(f[0] for f in folds)}, "
-          f"scales within {max(f[1] for f in folds):.3e} relative",
-          flush=True)
-    if len(layers) != len(card) or bad:
+    print(f"  float32 int8 ConvBNs of the card, its own fold and int8 "
+          f"buffers, on the CPU's input: {len(layers)} of {len(card)} "
+          f"checked, {len(bad)} outside the rule (identity to the bit, SiLU "
+          f"|k-p| <= {TOL_F32['conv'][0]} + {TOL_F32['conv'][1]}|p|); "
+          f"largest |k-p| {max(ln[2] for ln in layers):.3e}; buffer values "
+          f"({', '.join(FOLD_BUFFERS)}) differing from the CPU's: "
+          f"{sum(folds)} (0 required)", flush=True)
+    if len(layers) != len(card) or bad or sum(folds):
         raise SystemExit(f"float32 int8 ConvBNs: card and CPU disagree on "
-                         f"the same input: {bad[:3]}")
+                         f"the same input or in their fold: {bad[:3]}, "
+                         f"{sum(folds)} buffer values")
     per = heads["cpu"].numel() // INT8_IMAGES
     ratios = [rms_dist(heads["card"][i * per:(i + 1) * per],
                        heads["cpu"][i * per:(i + 1) * per])
@@ -4947,7 +4985,7 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     names = ("conv3x3", "c2f", "attention", "int8_conv")
-    host_names = ("jpeg_decode", "png_unfilter", "tiff_decode")
+    host_names = ("jpeg_decode", "png_unfilter", "tiff_decode", "webp_decode")
     with ThreadPoolExecutor(len(names) + len(host_names)) as pool:
         host = [pool.submit(build.load_host, n) for n in host_names]
         list(pool.map(build.load, names))

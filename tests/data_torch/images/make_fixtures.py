@@ -1,17 +1,25 @@
 """Write the committed image fixtures of this folder and their manifest:
 the JPEG kinds beyond baseline (progressive, Adobe CMYK), the PNG kinds
-beyond 8-bit gray / RGB / RGBA, and baseline TIFF kinds.
+beyond 8-bit gray / RGB / RGBA, baseline TIFF kinds, BMP kinds beyond 8-,
+24- and 32-bit (1 / 4 / 16 bits, bit fields, RLE, OS/2), PNM and PAM, and
+WebP (lossy, lossless, alpha, EXIF, animated, the simple loop filter, and
+WebP bytes under a .jpg name).
 
-    python tests/data_torch/images/make_fixtures.py          # write them
+    python tests/data_torch/images/make_fixtures.py          # missing ones
+    python tests/data_torch/images/make_fixtures.py --all    # all of them
     python tests/data_torch/images/make_fixtures.py --time   # time decodes
 
 Needs cv2 and PIL (the machines that only read the fixtures need neither):
 cv2.imencode and PIL write what they write, ``writers.py`` the kinds
 neither writes (Adam7 PNG, tiled, planar, big-endian, min-is-white,
-old-style LZW and oriented TIFF). Each file holds the smooth synthetic
-content of ../jpeg/make_fixtures.py. Its manifest entry records how it was
-written, its size, the shape of cv2.imread(IMREAD_COLOR) -> RGB and the
-SHA-256 of those RGB bytes: the port's reader must give the same bytes.
+old-style LZW and oriented TIFF, the BMP kinds, ASCII and odd-maxval PNM,
+PAM), tests/libwebp_encode.py the VP8 options only libwebp's advanced API
+sets. Each file holds the smooth synthetic content of
+../jpeg/make_fixtures.py. The fixtures on disk are kept unless ``--all``
+is given; the manifest is rewritten from them: its entry records how each
+was written, its size, the shape of cv2.imread(IMREAD_COLOR) -> RGB and
+the SHA-256 of those RGB bytes: the port's reader must give the same
+bytes.
 ``--time`` writes nothing: it prints the host ms of the port's
 read_image_rgb and of cv2.imread for each fixture (the median of 50), on
 this machine's CPU."""
@@ -31,7 +39,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "jpeg"))
 from make_fixtures import encode, smooth_image  # noqa: E402
-from writers import write_png, write_tiff  # noqa: E402
+from writers import (BI_BITFIELDS, BI_RLE4, BI_RLE8,  # noqa: E402
+                     rle_encode, write_bmp, write_pam, write_png, write_pnm,
+                     write_tiff)
 
 
 def _pil(img, fmt, mode=None, **kw):
@@ -167,13 +177,195 @@ FIXTURES = {
 }
 
 
-def main():
+def _index(img, n):
+    """(h, w) palette indices of `img` in n levels of its gray, and the n
+    colours (B, G, R) of a palette along the content's colours."""
+    gray = img.astype(np.int32).sum(-1) * n // (3 * 256)
+    pal = np.stack([np.linspace(20, 250, n), np.linspace(240, 10, n),
+                    (np.arange(n) * 97) % 256], -1).astype(np.uint8)
+    return gray, pal
+
+
+def _rle_ops(idx):
+    """RLE ops of (h, w) indices (stored bottom-up) that use a delta to
+    skip a run of index 0 and an end-of-line to end each row early where
+    it ends in index 0."""
+    ops = []
+    for row in idx[::-1]:
+        x, w = 0, len(row)
+        end = w
+        while end > 0 and row[end - 1] == 0:
+            end -= 1
+        while x < end:
+            if row[x] == 0 and x + 3 < end and not row[x:x + 3].any():
+                n = 3
+                while x + n < end and row[x + n] == 0:
+                    n += 1
+                ops.append(("delta", n, 0))
+                x += n
+                continue
+            n = 1
+            while x + n < end and n < 255 and row[x + n] == row[x]:
+                n += 1
+            ops.append(("run", n, int(row[x])))
+            x += n
+        ops.append(("eol",))
+    ops.append(("eob",))
+    return ops
+
+
+def _webp(img, **kw):
+    bio = io.BytesIO()
+    Image.fromarray(img).save(bio, "WEBP", **kw)
+    return bio.getvalue()
+
+
+def _exif(orientation):
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    return exif.tobytes()
+
+
+def _animation(i):
+    frames = [Image.fromarray(smooth_image(48, 64, i + k)) for k in range(3)]
+    bio = io.BytesIO()
+    frames[0].save(bio, "WEBP", save_all=True, append_images=frames[1:],
+                   duration=100, quality=80)
+    return bio.getvalue()
+
+
+def _libwebp(img, **kw):
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+    import libwebp_encode
+
+    return libwebp_encode.encode(img, **kw)
+
+
+def _gray(i, h=48, w=64):
+    return smooth_image(h, w, i)[..., 1]
+
+
+FIXTURES.update({
+    "bmp1_os2_64x48.bmp": (
+        "writers.write_bmp, OS/2 12-byte header, 1-bit, 2 colours",
+        lambda i: write_bmp(_index(smooth_image(48, 64, i), 2)[0], 1,
+                            header=12, palette=_index(smooth_image(
+                                48, 64, i), 2)[1])),
+    "bmp4_short_palette_64x48.bmp": (
+        "writers.write_bmp, 4-bit, a palette of 12 colours",
+        lambda i: write_bmp(_index(smooth_image(48, 64, i), 12)[0], 4,
+                            palette=_index(smooth_image(48, 64, i), 12)[1])),
+    "bmp16_565_64x48.bmp": (
+        "writers.write_bmp, 16-bit BI_BITFIELDS 5-6-5, 40-byte header",
+        lambda i: write_bmp(_565(smooth_image(48, 64, i)), 16,
+                            compression=BI_BITFIELDS,
+                            masks=(0xF800, 0x7E0, 0x1F))),
+    "bmp16_555_v5_topdown_64x48.bmp": (
+        "writers.write_bmp, 16-bit BI_RGB (5-5-5), V5 header, top-down",
+        lambda i: write_bmp(_555(smooth_image(48, 64, i)), 16, header=124,
+                            top_down=True)),
+    "bmp32_bitfields10_v4_64x48.bmp": (
+        "writers.write_bmp, 32-bit BI_BITFIELDS 10-10-10 masks, V4 header",
+        lambda i: write_bmp(_ten_bit(smooth_image(48, 64, i)), 32,
+                            header=108, compression=BI_BITFIELDS,
+                            masks=(0x3FF00000, 0xFFC00, 0x3FF, 0))),
+    "bmp_rle8_deltas_64x48.bmp": (
+        "writers.write_bmp, RLE8: runs, deltas, early end-of-lines",
+        lambda i: write_bmp(np.zeros((48, 64), int), 8, compression=BI_RLE8,
+                            palette=_index(smooth_image(48, 64, i), 40)[1],
+                            rle=rle_encode(None, 8, _rle_ops(np.where(
+                                _index(smooth_image(48, 64, i), 40)[0] < 12,
+                                0, _index(smooth_image(48, 64, i), 40)[0]))))),
+    "bmp_rle4_64x48.bmp": (
+        "writers.write_bmp, RLE4, runs and absolute runs",
+        lambda i: write_bmp(np.zeros((48, 64), int), 4, compression=BI_RLE4,
+                            palette=_index(smooth_image(48, 64, i), 16)[1],
+                            rle=rle_encode(_index(smooth_image(48, 64, i),
+                                                  16)[0], 4))),
+    "p2_maxval100_40x30.pgm": (
+        "writers.write_pnm, P2 (ASCII), maxval 100, comments",
+        lambda i: write_pnm(_gray(i, 30, 40) * 100 // 255, 2, 100,
+                            comment="fixture", per_line=17)),
+    "p3_maxval1000_40x30.ppm": (
+        "writers.write_pnm, P3 (ASCII), maxval 1000",
+        lambda i: write_pnm(smooth_image(30, 40, i).astype(int) * 1000 // 255,
+                            3, 1000)),
+    "p4_64x48.pbm": (
+        "writers.write_pnm, P4 (binary bitmap)",
+        lambda i: write_pnm(_gray(i) < 128, 4)),
+    "p5_maxval65535_64x48.pgm": (
+        "writers.write_pnm, P5, 16-bit samples",
+        lambda i: write_pnm(_gray(i).astype(np.int64) * 257 + 3, 5, 65535)),
+    "p6_64x48.ppm": (
+        "writers.write_pnm, P6",
+        lambda i: write_pnm(smooth_image(48, 64, i), 6)),
+    "pam_rgb_64x48.pam": (
+        "writers.write_pam, TUPLTYPE RGB, MAXVAL 255",
+        lambda i: write_pam(smooth_image(48, 64, i), 255, "RGB")),
+    "pam_gray16_64x48.pam": (
+        "writers.write_pam, TUPLTYPE GRAYSCALE, MAXVAL 65535",
+        lambda i: write_pam(_gray(i)[..., None].astype(np.int64) * 257,
+                            65535, "GRAYSCALE")),
+    "pam_blackandwhite_64x48.pam": (
+        "writers.write_pam, TUPLTYPE BLACKANDWHITE (cv2's bit mode)",
+        lambda i: write_pam((_gray(i) < 128)[..., None], 1,
+                            "BLACKANDWHITE")),
+    "webp_lossy_q80_640x480.webp": (
+        "PIL, lossy, quality 80, method 4",
+        lambda i: _webp(smooth_image(480, 640, i), quality=80)),
+    "webp_lossless_48colours_640x480.webp": (
+        "PIL, lossless, the content quantised to 48 colours",
+        lambda i: _webp(np.asarray(Image.fromarray(smooth_image(
+            480, 640, i)).quantize(48).convert("RGB")), lossless=True)),
+    "webp_alpha_lossy_96x64.webp": (
+        "PIL, RGBA: VP8X, compressed ALPH, VP8 quality 70",
+        lambda i: _webp(np.dstack([smooth_image(64, 96, i),
+                                   _gray(i + 1, 64, 96)]), quality=70)),
+    "webp_exif6_64x48.webp": (
+        "PIL, lossy, an EXIF chunk with Orientation 6",
+        lambda i: _webp(smooth_image(48, 64, i), quality=85,
+                        exif=_exif(6))),
+    "webp_animated_64x48.webp": (
+        "PIL, an animation of 3 lossy frames (imread: the first)",
+        _animation),
+    "webp_simple_filter_96x64.webp": (
+        "libwebp WebPEncode: simple loop filter, strength 70, 4 segments",
+        lambda i: _libwebp(smooth_image(64, 96, i), filter_type=0,
+                           filter_strength=70, segments=4)),
+    "webp_bytes_64x48.jpg": (
+        "PIL, lossy WebP quality 75 under a .jpg name",
+        lambda i: _webp(smooth_image(48, 64, i), quality=75)),
+})
+
+
+def _565(img):
+    b, g, r = (img[..., 2].astype(int), img[..., 1].astype(int),
+               img[..., 0].astype(int))
+    return ((r >> 3) << 11) | ((g >> 2) << 5) | (b >> 3)
+
+
+def _555(img):
+    b, g, r = (img[..., 2].astype(int), img[..., 1].astype(int),
+               img[..., 0].astype(int))
+    return ((r >> 3) << 10) | ((g >> 3) << 5) | (b >> 3)
+
+
+def _ten_bit(img):
+    r, g, b = (img[..., c].astype(np.uint64) * 4 + 1 for c in range(3))
+    return (r << np.uint64(20)) | (g << np.uint64(10)) | b
+
+
+def main(rewrite=False):
     manifest = {}
     for i, (name, (how, make)) in enumerate(FIXTURES.items()):
-        data = make(100 + i)
         path = os.path.join(HERE, name)
-        with open(path, "wb") as f:
-            f.write(data)
+        if rewrite or not os.path.exists(path):
+            data = make(100 + i)
+            with open(path, "wb") as f:
+                f.write(data)
+        else:
+            with open(path, "rb") as f:
+                data = f.read()
         rgb = cv2.cvtColor(cv2.imread(path, cv2.IMREAD_COLOR),
                            cv2.COLOR_BGR2RGB)
         manifest[name] = dict(written=how, bytes=len(data),
@@ -211,4 +403,4 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--time"]:
         time_decodes()
     else:
-        main()
+        main(rewrite=sys.argv[1:] == ["--all"])

@@ -246,3 +246,184 @@ def write_tiff(img, compression=1, predictor=1, planar=1, tile=None,
     head = (b"MM" if big_endian else b"II") + struct.pack(e + "HI", 42,
                                                           ifd_at)
     return bytes(head + body + ifd + ext)
+
+
+# ----------------------------------------------------------------- BMP
+BI_RGB, BI_RLE8, BI_RLE4, BI_BITFIELDS = 0, 1, 2, 3
+
+
+def pack_bits_msb(idx, bpp):
+    """(h, stride) bytes of (h, w) indices of 1, 4, 8 or 16 bits (16-bit
+    little-endian), the first pixel in a byte's high bits, each row padded
+    to 4 bytes as a BMP row is."""
+    h, w = idx.shape[:2]
+    if bpp == 16:
+        rows = idx.astype("<u2").view(np.uint8).reshape(h, 2 * w)
+    elif bpp == 32:
+        rows = idx.astype("<u4").view(np.uint8).reshape(h, 4 * w)
+    elif bpp == 24:
+        rows = idx.reshape(h, 3 * w).astype(np.uint8)
+    else:
+        per = 8 // bpp
+        v = idx.astype(np.uint8)
+        v = np.pad(v, ((0, 0), (0, (-w) % per)))
+        v = v.reshape(h, -1, per)
+        rows = np.zeros(v.shape[:2], np.uint8)
+        for i in range(per):
+            rows |= v[..., i] << (8 - bpp * (i + 1))
+    return np.pad(rows, ((0, 0), (0, (-rows.shape[1]) % 4)))
+
+
+def rle_encode(idx, bpp, ops=None):
+    """BI_RLE8 (bpp 8) or BI_RLE4 (bpp 4) data of (h, w) indices, stored
+    bottom-up: runs of equal pixels (RLE4: alternating pairs) as encoded
+    runs, the rest in absolute runs, an end-of-line after each row and an
+    end-of-bitmap at the end. ``ops`` replaces that: a list of ("run", n,
+    value), ("abs", values), ("eol",), ("delta", dx, dy), ("eob",) and
+    ("raw", bytes) written as given."""
+    out = bytearray()
+    if ops is None:
+        ops = []
+        for row in idx[::-1]:
+            x, w = 0, len(row)
+            while x < w:
+                n = 1
+                while x + n < w and n < 255 and row[x + n] == row[x]:
+                    n += 1
+                if n >= 3 or w - x < 3:
+                    ops.append(("run", n, int(row[x])))
+                    x += n
+                else:
+                    m = min(w - x, 255, max(3, n))
+                    ops.append(("abs", [int(v) for v in row[x:x + m]]))
+                    x += m
+            ops.append(("eol",))
+        ops.append(("eob",))
+    for op in ops:
+        kind = op[0]
+        if kind == "run":
+            n, v = op[1], op[2]
+            out += bytes([n, v if bpp == 8 else (v & 15) * 17])
+        elif kind == "pairrun":           # RLE4: two alternating values
+            out += bytes([op[1], (op[2] << 4) | op[3]])
+        elif kind == "abs":
+            vals = op[1]
+            out += bytes([0, len(vals)])
+            if bpp == 8:
+                data = bytes(vals)
+            else:
+                v = list(vals) + [0] * (len(vals) % 2)
+                data = bytes((v[i] << 4) | v[i + 1]
+                             for i in range(0, len(v), 2))
+            out += data + b"\0" * (len(data) % 2)
+        elif kind == "eol":
+            out += b"\0\0"
+        elif kind == "eob":
+            out += b"\0\1"
+        elif kind == "delta":
+            out += bytes([0, 2, op[1], op[2]])
+        elif kind == "raw":
+            out += op[1]
+    return bytes(out)
+
+
+def write_bmp(pixels, bpp, header=40, compression=BI_RGB, palette=None,
+              masks=None, top_down=False, clr_used=None, rle=None,
+              pal_entry=None):
+    """BMP bytes of ``pixels``: (h, w) palette indices for 1, 4 and 8
+    bits, (h, w) 16- or 32-bit values for 16 and 32, (h, w, 3) B, G, R for
+    24. ``header``: 12 (OS/2 BITMAPCOREHEADER: 16-bit sizes, 3-byte
+    palette entries), 40, 52, 56, 108 or 124 bytes. ``palette``: (n, 3)
+    B, G, R (n may be below 2**bpp; ``clr_used`` defaults to n, 0 writes
+    0). ``masks``: the R, G, B (and A) masks of BI_BITFIELDS, after a
+    40-byte header or inside a longer one. ``rle``: the data of BI_RLE8 /
+    BI_RLE4 (rle_encode), else the rows are packed. Rows are stored
+    bottom-up unless ``top_down`` (a negative height)."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    if rle is not None:
+        data = rle
+    else:
+        rows = pack_bits_msb(px, bpp)
+        data = (rows if top_down else rows[::-1]).tobytes()
+    pal = b""
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        ent = pal_entry or (3 if header == 12 else 4)
+        p = np.zeros((len(palette), ent), np.uint8)
+        p[:, :3] = palette
+        pal = p.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        n = len(palette) if palette is not None else 0
+        used = n if clr_used is None else clr_used
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h,
+                           1, bpp, compression, len(data), 2835, 2835,
+                           used, 0)
+        extra = b""
+        if masks is not None:
+            extra = struct.pack("<%dI" % len(masks), *masks)
+        if header == 40:
+            info += extra
+        else:
+            info += extra.ljust(header - 40, b"\0")[:header - 40]
+            if header >= 108:           # LCS_sRGB colour space
+                info = info[:56] + struct.pack("<I", 0x73524742) + info[60:]
+    offset = 14 + len(info) + len(pal)
+    head = b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset)
+    return head + info + pal + data
+
+
+# ------------------------------------------------------------ PNM / PAM
+def write_pnm(samples, kind, maxval=255, comment=None, per_line=None,
+              packed_ascii_bits=False):
+    """PNM bytes of (h, w) or (h, w, 3) samples below maxval + 1: ``kind``
+    1 / 4 bitmap (samples 0 or 1, 1 black), 2 / 5 graymap, 3 / 6 pixmap;
+    1-3 ASCII, 4-6 binary (16-bit big-endian samples above maxval 255).
+    ``comment`` puts a ``#`` line after the magic number and another
+    inside the header; ``per_line`` breaks the ASCII data after that many
+    samples (default: one row a line); ``packed_ascii_bits`` writes P1
+    digits without separators."""
+    s = np.asarray(samples)
+    h, w = s.shape[:2]
+    head = b"P%d\n" % kind
+    if comment:
+        head += b"# " + comment.encode() + b"\n"
+    head += b"%d %d\n" % (w, h)
+    if comment:
+        head += b"#" + comment.encode() + b"\r\n"
+    if kind not in (1, 4):
+        head += b"%d\n" % maxval
+    flat = s.reshape(h, -1)
+    if kind == 4:
+        bits = np.packbits(flat.astype(np.uint8), axis=1)
+        return head + bits.tobytes()
+    if kind in (5, 6):
+        dt = ">u2" if maxval > 255 else np.uint8
+        return head + flat.astype(dt).tobytes()
+    lines = []
+    for row in flat:
+        vals = [str(int(v)) for v in row]
+        step = per_line or len(vals)
+        sep = "" if packed_ascii_bits else " "
+        for i in range(0, len(vals), step):
+            lines.append(sep.join(vals[i:i + step]))
+    return head + "\n".join(lines).encode() + b"\n"
+
+
+def write_pam(samples, maxval=255, tupltype=None, comment=None):
+    """PAM (P7) bytes of (h, w, depth) samples below maxval + 1 with the
+    given TUPLTYPE line (none where ``tupltype`` is None), 16-bit
+    big-endian above maxval 255."""
+    s = np.asarray(samples)
+    h, w, d = s.shape
+    head = b"P7\n"
+    if comment:
+        head += b"# " + comment.encode() + b"\n"
+    head += b"WIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\n" % (w, h, d, maxval)
+    if tupltype:
+        head += b"TUPLTYPE " + tupltype.encode() + b"\n"
+    head += b"ENDHDR\n"
+    dt = ">u2" if maxval > 255 else np.uint8
+    return head + s.astype(dt).tobytes()

@@ -951,3 +951,72 @@ def test_int8_predict_on_the_card_matches_the_cpu(cuda):
         counts["c2f_fused"] == 0
     ref = cpu.image_predict(img, 0.5, 0.45)
     assert len(ref) > 3 and abs(len(rows) - len(ref)) <= 2
+
+
+def test_quotients_on_the_card_equal_the_cpu(cuda):
+    """divide_by_constant (all 256 uint8 levels and 10^6 seeded float32
+    values in [0, 255]) and the int8 scales and weights (10^6 seeded
+    absmax values and output channels) round on the card as on the CPU,
+    bit for bit (the CPU results are held to the jitted JAX route in
+    tests/test_torch_quotients.py)."""
+    from yolosharp_tpu_torch.kernels.int8_conv import (activation_scale,
+                                                       quantize_weight)
+    from yolosharp_tpu_torch.utils.numerics import divide_by_constant
+    rng = np.random.default_rng(0)
+    levels = torch.arange(256, dtype=torch.uint8).reshape(1, 4, 64, 1)
+    for x in (levels.repeat(1, 1, 1, 3), torch.from_numpy(
+            (rng.random(10 ** 6) * 255).astype(np.float32))):
+        assert torch.equal(divide_by_constant(x.to(cuda), 255.0).cpu(),
+                           divide_by_constant(x, 255.0))
+    a = torch.from_numpy((rng.random(10 ** 6) * 10 ** rng.uniform(
+        -7, 2, 10 ** 6)).astype(np.float32))
+    assert torch.equal(activation_scale(a[:1].to(cuda)).cpu(),
+                       activation_scale(a[:1]))
+    scaled = divide_by_constant(torch.clamp(a, min=1e-6), 127.0)
+    assert torch.equal(divide_by_constant(torch.clamp(a.to(cuda), min=1e-6),
+                                          127.0).cpu(), scaled)
+    w = torch.from_numpy((rng.standard_normal((10 ** 6, 2, 1, 1)) * 10 **
+                          rng.uniform(-13, 1, (10 ** 6, 1, 1, 1))).astype(
+                              np.float32))
+    wq, ws = quantize_weight(w.to(cuda))
+    wq_h, ws_h = quantize_weight(w)
+    assert torch.equal(ws.cpu(), ws_h) and torch.equal(wq.cpu(), wq_h)
+
+
+def test_fold_on_the_card_equals_the_cpu(cuda):
+    """fold_bn with int8 stats of a seeded v8n on the card: every ConvBN's
+    folded weights and bias and its int8 weights and scales equal the
+    CPU fold's bit for bit (the BatchNorm factors are computed on the
+    host, as the JAX fold computes them in numpy)."""
+    import copy
+
+    from yolosharp_tpu_torch.ckpt import fold_bn
+    from yolosharp_tpu_torch.ckpt.fuse import stat_key
+    from yolosharp_tpu_torch.nn import YoloNet
+    from yolosharp_tpu_torch.nn.model import ArchCfg
+
+    torch.manual_seed(0)
+    net = YoloNet(ArchCfg(version="v8", size="n", nc=80)).eval()
+    rng = np.random.default_rng(0)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.from_numpy(rng.normal(
+                    0, 0.1, m.num_features).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(
+                    0.01, 3, m.num_features).astype(np.float32)))
+    stats = {stat_key(n): np.float32(rng.uniform(0.5, 20))
+             for n, m in net.named_modules()
+             if isinstance(m, ConvBN) and m.int8_eligible}
+    host = fold_bn(copy.deepcopy(net), stats)
+    card = fold_bn(copy.deepcopy(net).to(cuda), stats)
+    cm = dict(card.named_modules())
+    checked = 0
+    for name, m in host.named_modules():
+        if isinstance(m, ConvBN):
+            for b in ("w_fold", "b_fold", "i8_w", "i8_scale", "i8_ascale"):
+                if m._buffers.get(b) is not None:
+                    assert torch.equal(cm[name]._buffers[b].cpu(),
+                                       m._buffers[b]), (name, b)
+                    checked += 1
+    assert checked > 100

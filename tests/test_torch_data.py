@@ -141,8 +141,10 @@ def test_png_reader_refuses_what_it_cannot_read(tmp_path):
     with open(bad, "wb") as f:
         f.write(data)
     assert cv2.imread(bad) is None
-    with pytest.raises(ValueError, match="bad.png: PNG chunk IDAT is corrupt"):
+    with pytest.raises(ValueError,
+                       match="bad.png: PNG chunk IDAT is corrupt") as err:
         decode_png_rgb(open(bad, "rb").read(), bad)
+    assert isinstance(err.value, FileNotFoundError)
     with pytest.raises(FileNotFoundError, match="missing.png"):
         read_image_rgb(str(tmp_path / "missing.png"))
 

@@ -286,6 +286,7 @@ def test_tiff_transposing_orientations_raise(tmp_path, orientation):
     with pytest.raises(ValueError, match="Orientation") as err:
         read_image_rgb(path)
     assert path in str(err.value)
+    assert isinstance(err.value, FileNotFoundError)
 
 
 def _jpeg_in_tiff():
@@ -306,7 +307,9 @@ def test_tiff_that_is_not_read_raises(tmp_path, kind, match):
     """What the TIFF reader does not read raises ValueError naming the
     file and the tag or the fault: JPEG-in-TIFF, YCbCr, float samples,
     2-bit gray (which cv2 refuses too), 5 samples, a strip cut short,
-    LZW codes the table does not hold, BigTIFF."""
+    LZW codes the table does not hold, BigTIFF. The error is a
+    FileNotFoundError too, as the JAX loader raises where cv2.imread
+    returns None."""
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
     if kind == "jpeg_in_tiff":
@@ -342,6 +345,7 @@ def test_tiff_that_is_not_read_raises(tmp_path, kind, match):
     with pytest.raises(ValueError, match=match) as err:
         read_image_rgb(path)
     assert path in str(err.value)
+    assert isinstance(err.value, FileNotFoundError)
 
 
 def _manifest():

@@ -303,7 +303,7 @@ def _twelve_bit(data):
     ("ycck", "YCCK"), ("truncated", "truncated"),
     ("cut_in_header", "truncated"), ("sof10", "arithmetic-coded progressive"),
     ("twelve_bit", "12-bit"), ("arithmetic", "arithmetic"),
-    ("not_an_image", "not a PNG, JPEG, BMP or TIFF"),
+    ("not_an_image", "not a PNG, JPEG, BMP, TIFF, PNM, PAM or WebP"),
     ("jpeg_in_tiff", "Compression"), ("tiff_orientation6", "Orientation"),
     ("progressive_unrefined", "unrefined")])
 def test_unreadable_files_raise(tmp_path, kind, match):
@@ -312,7 +312,9 @@ def test_unreadable_files_raise(tmp_path, kind, match):
     headers, arithmetic-coded progressive (SOF10), 12-bit and
     arithmetic-coded frames, text, JPEG-in-TIFF, a TIFF whose Orientation
     6 cv2.imread returns no image for, a progressive file whose scans leave
-    coefficients unrefined (libjpeg smooths those)."""
+    coefficients unrefined (libjpeg smooths those). The error is a
+    FileNotFoundError too, as the JAX loader raises where cv2.imread
+    returns None."""
     img = smooth_image(48, 64, 0)
     base = encode(img, "420", 75, 0, 0, 0)
     if kind == "ycck":
@@ -343,6 +345,7 @@ def test_unreadable_files_raise(tmp_path, kind, match):
     with pytest.raises(ValueError, match=match) as err:
         read_image_rgb(path)
     assert path in str(err.value)
+    assert isinstance(err.value, FileNotFoundError)
 
 
 def _top_down(data):

@@ -83,7 +83,8 @@ def test_convert_checkpoint_round_trips(fmt, dtype, tmp_path):
             np.testing.assert_array_equal(a, want, err_msg=f"{name} {k}")
         a = _numpy(by_jax[k])
         if fmt == "pt" and v.dim() == 0:
-            # the JAX .pt reader makes a 0-d tensor 1-d (ROADMAP queue 3)
+            # the JAX .pt reader makes a 0-d tensor 1-d (ROADMAP, standing
+            # notes: JAX faults the port does not copy)
             assert a.shape == (1,)
             a = a.reshape(())
         np.testing.assert_array_equal(a, want, err_msg=f"JAX's {k}")

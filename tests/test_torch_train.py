@@ -474,9 +474,27 @@ def test_bf16_gap_is_the_bn_rounding_point(bf16_steps, monkeypatch):
     gives loss items each nearer to the JAX bf16 step's than the float32
     step's are, and all within 1e-3 relative. Measured: 2.6e-4 / 4.5e-4 /
     1.0e-4 (the float32 step's: 1.0e-3 / 4.9e-3 / 4.0e-3). v12n's gap does
-    not close so (its attention and biased convs round at other points
-    too), and the sign agreement of the updates does not move (the two
-    backward passes round apart)."""
+    not close so, and the sign agreement of the updates does not move (the
+    two backward passes round apart).
+
+    Where v12n's step leaves JAX's, found by walking one bf16 train-mode
+    forward module by module with FastBN's rounding patched in and every
+    module's output replaced by JAX's, so that each is fed JAX's input
+    (the JAX intermediates of ``capture_intermediates``, 128 px, batch 4):
+    - every SiLU, from layer 0 on and in v8n too: XLA on the CPU rounds
+      bf16 ``x * (1 / (1 + exp(-x)))`` to bf16 after each op, the port's
+      F.silu once (40% of layer 0's outputs a bf16 ulp apart; the op by op
+      form matches 98.5% of all bf16 inputs, XLA's exp the rest). The
+      convs and FastBN's arithmetic match to the bit;
+    - the first v12-only point, layer 6 (the first A2C2f), in its first
+      ABlock's AAttn: the attention core (attention_bihd, a deliberate
+      deviation: P rounded to bf16 before P.V; 30% of its outputs a bf16
+      ulp from JAX's on the same q, k, v) and the BatchNorm of the pe
+      ConvBN, the one biased conv (9% on the same conv output). The A2C2f
+      gamma and the biased conv itself round as JAX's.
+    Neither point is the port's own choice against JAX's (the kernels
+    compute SiLU in float32 once, as a fused TPU step does), so the
+    assertions stay as they are."""
     from yolosharp_tpu_torch.nn import common as port_common
 
     s, f = bf16_steps("v8")

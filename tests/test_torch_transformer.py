@@ -87,7 +87,8 @@ def test_eval_and_folded_forwards_match_jax(pair):
 def test_layer_matches_jax_and_in_proj_is_torch_layout():
     """The layer alone on (B, N, C); the port's exporter writes
     ma.in_proj_weight as torch's (3c, c), the JAX exporter as the JAX
-    tree's (c, 3c) (ROADMAP queue 3)."""
+    tree's (c, 3c) (ROADMAP, standing notes: JAX faults the port does not
+    copy)."""
     jmod = ja.TransformerLayer(C, 4)
     x = np.random.default_rng(2).uniform(-1, 1, (2, 24, C)).astype(
         np.float32)

@@ -61,12 +61,20 @@ def bias_init(net: nn.Module, nc: int) -> nn.Module:
 
 
 def _bn_affine(bn: nn.BatchNorm2d, conv_bias):
-    """(mul, beta + (conv_bias - mean) * mul) of one BatchNorm, float32."""
-    mul = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
-    b = bn.bias.float() - bn.running_mean.float() * mul
+    """(mul, beta + (conv_bias - mean) * mul) of one BatchNorm, float32,
+    on the BatchNorm's device. Computed on the host, as the JAX fold
+    computes it in numpy: PyTorch's CUDA sqrt is not correctly rounded
+    (0.7% of float32 inputs an ulp off on an H100), so a fold on the card
+    would quantise other int8 weights than the CPU's."""
+    cpu = {k: t.detach().float().cpu() for k, t in (
+        ("gamma", bn.weight), ("beta", bn.bias), ("mean", bn.running_mean),
+        ("var", bn.running_var))}
+    mul = cpu["gamma"] / torch.sqrt(cpu["var"] + bn.eps)
+    b = cpu["beta"] - cpu["mean"] * mul
     if conv_bias is not None:
-        b = b + conv_bias.float() * mul
-    return mul, b
+        b = b + conv_bias.detach().float().cpu() * mul
+    dev = bn.weight.device
+    return mul.to(dev), b.to(dev)
 
 
 def stat_key(name: str) -> str:

@@ -10,9 +10,12 @@ itself rounds some values otherwise.
   rows unfiltered by the host C++ of ``csrc/png_unfilter.cpp``; baseline,
   extended sequential and progressive JPEG, gray, YCbCr, RGB or CMYK, by
   ``jpeg.decode_jpeg_rgb`` (libjpeg-turbo's arithmetic, its EXIF
-  orientation applied); BMP by ``decode_bmp_rgb``; baseline TIFF by
-  ``tiff.decode_tiff_rgb`` (libtiff's RGBA mapping). Anything else raises
-  an error that names the file and what it is; no image is ever
+  orientation applied); every BMP kind by ``bmp.decode_bmp_rgb``;
+  baseline TIFF by ``tiff.decode_tiff_rgb`` (libtiff's RGBA mapping); PNM
+  and PAM by ``pnm.decode_pnm_rgb``; lossy, lossless and extended WebP by
+  ``webp.decode_webp_rgb`` (host C++, ``csrc/webp_decode.cpp``).
+  Anything else raises ImageReadError (a FileNotFoundError and a
+  ValueError) that names the file and what it is; no image is ever
   substituted.
 - ``resize_linear``: cv2.resize(INTER_LINEAR) of uint8 images and masks in
   cv2's fixed-point arithmetic (11-bit weights, the vertical pass on rows
@@ -58,7 +61,9 @@ import numpy as np
 import torch
 
 from ..kernels.build import load_host
-from . import jpeg, tiff
+from . import jpeg, pnm, tiff, webp
+from .bmp import BMP_SIGNATURE, decode_bmp_rgb
+from .errors import ImageReadError
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples
@@ -70,14 +75,12 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-BMP_SIGNATURE = b"BM"
-
-
 def read_image_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a PNG, JPEG, BMP or TIFF file, as
-    cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB) gives it
-    (an EXIF or TIFF orientation applied), told apart by its first bytes.
-    Anything else raises, naming the file."""
+    """(H, W, 3) uint8 RGB of a PNG, JPEG, BMP, TIFF, PNM / PAM or WebP
+    file, as cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB)
+    gives it (an EXIF or TIFF orientation applied), told apart by its
+    first bytes as cv2 tells them apart, whatever the file's name.
+    Anything else raises ImageReadError, naming the file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
@@ -88,51 +91,12 @@ def read_image_rgb(path: str) -> np.ndarray:
         return decode_bmp_rgb(data, path)
     if data[:4] in tiff.TIFF_SIGNATURES + tiff.BIGTIFF_SIGNATURES:
         return tiff.decode_tiff_rgb(data, path)
-    raise ValueError(f"{path}: not a PNG, JPEG, BMP or TIFF file")
-
-
-def decode_bmp_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """(H, W, 3) uint8 RGB of an uncompressed BMP of 8 (paletted), 24 or 32
-    bits a pixel, bottom-up or top-down, as cv2.imread(IMREAD_COLOR) reads
-    it (a 32-bit pixel's alpha dropped). Raises on any other kind."""
-    if data[:2] != BMP_SIGNATURE or len(data) < 26:
-        raise ValueError(f"{name}: not a BMP file")
-    (offset,) = struct.unpack("<I", data[10:14])
-    (hsize,) = struct.unpack("<I", data[14:18])
-    if hsize < 40 or len(data) < 14 + hsize:
-        raise ValueError(f"{name}: BMP with a {hsize}-byte header is not "
-                         f"read without cv2 (BITMAPINFOHEADER and later)")
-    w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
-    (n_colors,) = struct.unpack("<I", data[46:50])
-    if bpp not in (8, 24, 32) or w <= 0 or h == 0:
-        raise ValueError(f"{name}: BMP of {bpp} bits a pixel, {w}x{h}; "
-                         f"without cv2 only 8-, 24- and 32-bit are read")
-    if bpp == 8 and n_colors > 256:
-        raise ValueError(f"{name}: BMP with a palette of {n_colors} colours")
-    # the R, G, B masks of BI_BITFIELDS follow a 40-byte header and open
-    # the colour fields of a longer one: at byte 54 either way
-    if not (comp == 0 or (comp == 3 and bpp == 32 and data[54:66]
-                          == struct.pack("<III", 0xFF0000, 0xFF00, 0xFF))):
-        raise ValueError(f"{name}: compressed BMP (method {comp}) is not "
-                         f"read without cv2")
-    rows = abs(h)
-    stride = (w * bpp // 8 + 3) & ~3
-    if len(data) < offset + stride * rows or (
-            bpp == 8 and len(data) < 14 + hsize + 4 * (n_colors or 256)):
-        raise ValueError(f"{name}: BMP truncated")
-    px = np.frombuffer(data, np.uint8, stride * rows, offset).reshape(
-        rows, stride)
-    if h > 0:
-        px = px[::-1]                    # bottom-up: the last row first
-    if bpp == 8:
-        n = n_colors or 256
-        pal = np.zeros((256, 4), np.uint8)
-        table = np.frombuffer(data, np.uint8, 4 * n, 14 + hsize)
-        pal[:n] = table.reshape(n, 4)
-        bgr = pal[px[:, :w]][..., :3]
-    else:
-        bgr = px[:, :w * bpp // 8].reshape(rows, w, bpp // 8)[..., :3]
-    return np.ascontiguousarray(bgr[..., ::-1])
+    if pnm.is_pnm(data):
+        return pnm.decode_pnm_rgb(data, path)
+    if webp.is_webp(data):
+        return webp.decode_webp_rgb(data, path)
+    raise ImageReadError(f"{path}: not a PNG, JPEG, BMP, TIFF, PNM, PAM or "
+                         f"WebP file")
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -166,7 +130,7 @@ def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     image data that does not inflate to the image's size, and any other
     header raise, naming the file."""
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{name}: not a PNG file")
+        raise ImageReadError(f"{name}: not a PNG file")
     pos, idat, header, orientation, palette = 8, [], None, 1, None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
@@ -175,7 +139,7 @@ def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
                 len(data) < pos + 12 + length or zlib.crc32(
                     data[pos + 4:pos + 8 + length]) != struct.unpack(
                     ">I", data[pos + 8 + length:pos + 12 + length])[0]):
-            raise ValueError(f"{name}: PNG chunk {kind.decode()} is corrupt "
+            raise ImageReadError(f"{name}: PNG chunk {kind.decode()} is corrupt "
                              f"(its CRC does not match, or it is cut short)")
         pos += 12 + length
         if kind == b"IHDR":
@@ -191,21 +155,21 @@ def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
         elif kind == b"IEND":
             break
     if header is None:
-        raise ValueError(f"{name}: PNG without an IHDR chunk")
+        raise ImageReadError(f"{name}: PNG without an IHDR chunk")
     w, h, depth, color, comp, filt, interlace = header
     if (depth not in _PNG_DEPTHS.get(color, ()) or comp or filt
             or interlace > 1 or w == 0 or h == 0):
-        raise ValueError(
+        raise ImageReadError(
             f"{name}: PNG with bit depth {depth}, colour type {color}, "
             f"interlace {interlace} is not a PNG kind that is read")
     if color == 3 and palette is None:
-        raise ValueError(f"{name}: paletted PNG without a PLTE chunk")
+        raise ImageReadError(f"{name}: paletted PNG without a PLTE chunk")
     channels = _CHANNELS[color]
     bpp = max(1, depth * channels // 8)
     try:
         raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as err:
-        raise ValueError(f"{name}: PNG image data is corrupt ({err})") \
+        raise ImageReadError(f"{name}: PNG image data is corrupt ({err})") \
             from None
     passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
     sizes = [((w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy)
@@ -213,7 +177,7 @@ def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     strides = [(pw * depth * channels + 7) // 8 for pw, _ in sizes]
     need = sum(ph * (st + 1) for (pw, ph), st in zip(sizes, strides) if pw)
     if raw.size != need:
-        raise ValueError(f"{name}: PNG image data has {raw.size} bytes, "
+        raise ImageReadError(f"{name}: PNG image data has {raw.size} bytes, "
                          f"expected {need}")
     img = np.empty((h, w, channels), np.uint8)
     unfilter = load_host("png_unfilter").ys_png_unfilter
@@ -226,7 +190,7 @@ def decode_png_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
         bad = unfilter(part.ctypes.data_as(ctypes.c_void_p), ph, stride, bpp,
                        rows.ctypes.data_as(ctypes.c_void_p))
         if bad:
-            raise ValueError(f"{name}: PNG filter type "
+            raise ImageReadError(f"{name}: PNG filter type "
                              f"{part[(bad - 1) * (stride + 1)]} does not "
                              f"exist")
         img[y0::dy, x0::dx] = _png_samples(rows, pw, depth, channels)

@@ -11,7 +11,7 @@ of every component) or SOF2 (progressive Huffman, any number of scans,
 with the tables and the restart interval in force at each SOS), up to EOI.
 Frames of 1 (gray), 3 (YCbCr or RGB) or 4 components (CMYK: no Adobe
 marker or transform 0, converted as cv2 converts it) are decoded. Anything
-else raises ValueError naming the file and the reason: lossless,
+else raises ImageReadError naming the file and the reason: lossless,
 hierarchical and arithmetic-coded frames, 12-bit samples, 2 components,
 YCCK (Adobe transform 2), a sequential frame of several scans, a
 progressive one whose scans leave low coefficients unrefined (libjpeg
@@ -29,6 +29,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..kernels.build import load_host
+from .errors import ImageReadError
 
 SOI = b"\xff\xd8"
 # the zig-zag index of each row-major coefficient position, inverted:
@@ -143,7 +144,7 @@ def _scan_end(data: bytes, pos: int, name: str) -> int:
     while True:
         end = data.find(b"\xff", end)
         if end < 0 or end + 1 >= n:
-            raise ValueError(f"{name}: JPEG truncated: the file ends inside "
+            raise ImageReadError(f"{name}: JPEG truncated: the file ends inside "
                              f"its scan")
         nxt = data[end + 1]
         if nxt == 0 or 0xD0 <= nxt <= 0xD7 or nxt == 0xFF:
@@ -160,18 +161,18 @@ def _check_scan(info: JpegInfo, ns: int, ss: int, se: int, ah: int,
     holds every component."""
     if not info.progressive:
         if info.scans:
-            raise ValueError(f"{name}: JPEG of several sequential scans is "
+            raise ImageReadError(f"{name}: JPEG of several sequential scans is "
                              f"not decoded without cv2 (one scan a "
                              f"sequential frame)")
         if ns != len(info.comp_ids):
-            raise ValueError(f"{name}: JPEG whose sequential scan holds {ns} "
+            raise ImageReadError(f"{name}: JPEG whose sequential scan holds {ns} "
                              f"of {len(info.comp_ids)} components is not "
                              f"decoded without cv2 (one scan a sequential "
                              f"frame)")
         return
     bad = (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
     if bad or (ah != 0 and al != ah - 1) or al > 13:
-        raise ValueError(f"{name}: progressive JPEG with a bad scan (Ss {ss}, "
+        raise ImageReadError(f"{name}: progressive JPEG with a bad scan (Ss {ss}, "
                          f"Se {se}, Ah {ah}, Al {al}, {ns} components)")
 
 
@@ -188,16 +189,16 @@ def _check_smoothing(info: JpegInfo, coef_bits: np.ndarray,
         if q is None or not q[_SMOOTHED].all():
             return
     if (coef_bits[:, 1:10] != 0).any():
-        raise ValueError(f"{name}: progressive JPEG whose scans leave low "
+        raise ImageReadError(f"{name}: progressive JPEG whose scans leave low "
                          f"coefficients unrefined is not decoded without "
                          f"cv2 (libjpeg smooths its blocks)")
 
 
 def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
     """The markers of a JPEG up to its EOI (see the module's docstring);
-    raises ValueError naming ``name`` on anything it does not decode."""
+    raises ImageReadError naming ``name`` on anything it does not decode."""
     if data[:2] != SOI:
-        raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
+        raise ImageReadError(f"{name}: not a JPEG file (no SOI marker)")
     info = JpegInfo()
     app1 = None
     pos, n = 2, len(data)
@@ -213,7 +214,7 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
         while pos < n and data[pos] == 0xFF:
             pos += 1                     # fill bytes
         if pos >= n:
-            raise ValueError(f"{name}: JPEG truncated: no EOI marker")
+            raise ImageReadError(f"{name}: JPEG truncated: no EOI marker")
         marker = data[pos]
         pos += 1
         if marker == 0xD9:
@@ -221,33 +222,33 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:
             continue                     # stray RSTn / TEM: no length
         if pos + 2 > n:
-            raise ValueError(f"{name}: JPEG truncated in a marker segment")
+            raise ImageReadError(f"{name}: JPEG truncated in a marker segment")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
         body = data[pos + 2:pos + length]
         if length < 2 or pos + length > n:
-            raise ValueError(f"{name}: JPEG truncated in a marker segment "
+            raise ImageReadError(f"{name}: JPEG truncated in a marker segment "
                              f"0xFF{marker:02X}")
         pos += length
         if marker in _UNSUPPORTED:
-            raise ValueError(f"{name}: {_UNSUPPORTED[marker]} JPEG is not "
+            raise ImageReadError(f"{name}: {_UNSUPPORTED[marker]} JPEG is not "
                              f"decoded without cv2 (baseline, extended "
                              f"sequential and progressive Huffman only)")
         if marker in (0xC0, 0xC1, 0xC2):
             if seen_sof:
-                raise ValueError(f"{name}: JPEG with two frames")
+                raise ImageReadError(f"{name}: JPEG with two frames")
             seen_sof = True
             info.progressive = marker == 0xC2
             if len(body) < 6 or len(body) < 6 + 3 * body[5]:
-                raise ValueError(f"{name}: JPEG with a short frame header")
+                raise ImageReadError(f"{name}: JPEG with a short frame header")
             precision, h, w, nf = struct.unpack(">BHHB", body[:6])
             if precision != 8:
-                raise ValueError(f"{name}: {precision}-bit JPEG is not "
+                raise ImageReadError(f"{name}: {precision}-bit JPEG is not "
                                  f"decoded without cv2 (8-bit only)")
             if nf not in (1, 3, 4):
-                raise ValueError(f"{name}: {nf}-component JPEG is not "
+                raise ImageReadError(f"{name}: {nf}-component JPEG is not "
                                  f"decoded without cv2 (1, 3 or 4 only)")
             if h == 0 or w == 0:
-                raise ValueError(f"{name}: JPEG of size {w}x{h}")
+                raise ImageReadError(f"{name}: JPEG of size {w}x{h}")
             info.width, info.height = w, h
             for i in range(nf):
                 cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
@@ -265,7 +266,7 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
                 total = int(counts.sum())
                 vals = np.frombuffer(body[at + 17:at + 17 + total], np.uint8)
                 if len(counts) < 16 or len(vals) < total or total > 256:
-                    raise ValueError(f"{name}: JPEG with a bad DHT segment")
+                    raise ImageReadError(f"{name}: JPEG with a bad DHT segment")
                 bits, syms = (ac_bits, ac_vals) if tc else (dc_bits, dc_vals)
                 bits[th, 1:] = counts
                 syms[th] = 0
@@ -279,13 +280,13 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
                 size = 128 if pq else 64
                 raw = body[at + 1:at + 1 + size]
                 if len(raw) < size:
-                    raise ValueError(f"{name}: JPEG with a bad DQT segment")
+                    raise ImageReadError(f"{name}: JPEG with a bad DQT segment")
                 q = np.frombuffer(raw, ">u2" if pq else np.uint8)
                 qtables[tq, _ZIGZAG] = q
                 at += 1 + size
         elif marker == 0xDD:
             if len(body) < 2:
-                raise ValueError(f"{name}: JPEG with a short DRI segment")
+                raise ImageReadError(f"{name}: JPEG with a short DRI segment")
             (restart_interval,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0:
             info.jfif = info.jfif or body[:5] == b"JFIF\0"
@@ -297,10 +298,10 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
                 info.adobe_transform = body[11]
         elif marker == 0xDA:
             if not seen_sof:
-                raise ValueError(f"{name}: JPEG scan before its frame")
+                raise ImageReadError(f"{name}: JPEG scan before its frame")
             ns = body[0] if body else 0
             if len(body) < 4 + 2 * ns or not 1 <= ns <= 4:
-                raise ValueError(f"{name}: JPEG with a short scan header")
+                raise ImageReadError(f"{name}: JPEG with a short scan header")
             ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
             ah, al = ahl >> 4, ahl & 15
             _check_scan(info, ns, ss, se, ah, al, name)
@@ -308,7 +309,7 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
             for i in range(ns):
                 cs, t = body[1 + 2 * i:3 + 2 * i]
                 if cs not in info.comp_ids:
-                    raise ValueError(f"{name}: JPEG scan of an unknown "
+                    raise ImageReadError(f"{name}: JPEG scan of an unknown "
                                      f"component {cs}")
                 c = info.comp_ids.index(cs)
                 fields[1 + 3 * i:4 + 3 * i] = [c, t >> 4 & 3, t & 3]
@@ -326,9 +327,9 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
             info.scans.append(data[pos:end])
             pos = end
     if not info.scans:
-        raise ValueError(f"{name}: JPEG without a scan")
+        raise ImageReadError(f"{name}: JPEG without a scan")
     if info.color < 0:
-        raise ValueError(f"{name}: YCCK JPEG (Adobe transform "
+        raise ImageReadError(f"{name}: YCCK JPEG (Adobe transform "
                          f"{info.adobe_transform}) is not decoded without "
                          f"cv2 (gray, YCbCr, RGB and CMYK only)")
     _check_smoothing(info, coef_bits, name)
@@ -359,7 +360,7 @@ def decode_jpeg_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(H, W, 3) uint8 RGB of a JPEG, equal to
     cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB): grayscale
     repeated to three channels, the EXIF orientation applied. Raises
-    ValueError naming ``name`` on what it does not decode (see the
+    ImageReadError naming ``name`` on what it does not decode (see the
     module's docstring)."""
     info = parse_jpeg(data, name)
     lib = load_host("jpeg_decode")
@@ -381,6 +382,6 @@ def decode_jpeg_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
         _ptr(ac_bits), _ptr(ac_vals), _ptr(tables), _ptr(qtables),
         info.color, _ptr(out))
     if status:
-        raise ValueError(f"{name}: JPEG not decoded: "
+        raise ImageReadError(f"{name}: JPEG not decoded: "
                          f"{_ERRORS.get(status, f'error {status}')}")
     return apply_orientation(out, info.orientation)

@@ -107,8 +107,9 @@ def load_labels(config, is_val: bool = False, use_rectangle: bool = False,
     if task not in (TaskType.detect, TaskType.segment, TaskType.pose,
                     TaskType.obb):
         raise NotImplementedError(
-            f"the torch port reads detect, segment, pose and OBB labels only "
-            f"so far, not {task.value} (ROADMAP queue 1 item 5)")
+            f"load_labels reads detect, segment, pose and OBB splits, not "
+            f"{task.value}: a classify split is read by "
+            f"data.dataset.ClassificationDataset")
     nkpt, ndim = config.keypoint_num, config.keypoint_dim
     imgsz = config.image_size
     mask_ratio = config.mask_ratio

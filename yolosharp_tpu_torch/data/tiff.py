@@ -15,7 +15,7 @@ ColorMap (each entry's high byte, unless every entry is below 256), RGB of
 alpha (ExtraSamples 2) premultiplied first ((c a + 127) // 255). The
 Orientation tag 1-4 is applied as cv2 applies it; 5-8 raise, where
 cv2.imread returns None. Anything else (JPEG-in-TIFF, YCbCr, CMYK, float or
-32-bit samples, other compressions, BigTIFF) raises ValueError naming the
+32-bit samples, other compressions, BigTIFF) raises ImageReadError naming the
 file and the tag. No image is ever substituted.
 """
 
@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from ..kernels.build import load_host
+from .errors import ImageReadError
 
 TIFF_SIGNATURES = (b"II*\0", b"MM\0*")
 BIGTIFF_SIGNATURES = (b"II+\0", b"MM\0+")
@@ -71,22 +72,22 @@ def _codecs():
 def parse_ifd(data: bytes, name: str = "<bytes>"
               ) -> Tuple[str, Dict[int, tuple]]:
     """(byte order "<" or ">", {tag: values}) of the first image file
-    directory; raises ValueError naming ``name`` on a file that is not a
+    directory; raises ImageReadError naming ``name`` on a file that is not a
     classic TIFF or is cut short."""
     if data[:4] not in TIFF_SIGNATURES:
         if data[:4] in BIGTIFF_SIGNATURES:
-            raise ValueError(f"{name}: BigTIFF is not read without cv2")
-        raise ValueError(f"{name}: not a TIFF file")
+            raise ImageReadError(f"{name}: BigTIFF is not read without cv2")
+        raise ImageReadError(f"{name}: not a TIFF file")
     e = "<" if data[:2] == b"II" else ">"
     (at,) = struct.unpack(e + "I", data[4:8])
     if at + 2 > len(data):
-        raise ValueError(f"{name}: TIFF truncated: its directory is missing")
+        raise ImageReadError(f"{name}: TIFF truncated: its directory is missing")
     (n,) = struct.unpack(e + "H", data[at:at + 2])
     tags: Dict[int, tuple] = {}
     for i in range(n):
         entry = at + 2 + 12 * i
         if entry + 12 > len(data):
-            raise ValueError(f"{name}: TIFF truncated in its directory")
+            raise ImageReadError(f"{name}: TIFF truncated in its directory")
         tag, typ, count = struct.unpack(e + "HHI", data[entry:entry + 8])
         if typ not in _TYPES:
             continue                     # a field this reader never needs
@@ -95,7 +96,7 @@ def parse_ifd(data: bytes, name: str = "<bytes>"
         if size * count > 4:
             (where,) = struct.unpack(e + "I", data[entry + 8:entry + 12])
         if where + size * count > len(data):
-            raise ValueError(f"{name}: TIFF truncated: tag {tag} points "
+            raise ImageReadError(f"{name}: TIFF truncated: tag {tag} points "
                              f"past the end of the file")
         tags[tag] = struct.unpack(e + code * count,
                                   data[where:where + size * count])
@@ -122,10 +123,10 @@ def _inflate(raw: bytes, size: int, name: str) -> bytes:
     try:
         out = zlib.decompressobj().decompress(raw, size)
     except zlib.error as err:
-        raise ValueError(f"{name}: TIFF Deflate data is corrupt ({err})") \
+        raise ImageReadError(f"{name}: TIFF Deflate data is corrupt ({err})") \
             from None
     if len(out) < size:
-        raise ValueError(f"{name}: TIFF Deflate data ends {size - len(out)} "
+        raise ImageReadError(f"{name}: TIFF Deflate data ends {size - len(out)} "
                          f"bytes short of its chunk")
     return out
 
@@ -135,11 +136,11 @@ def _chunk_bytes(data: bytes, offset: int, count: int, size: int,
     """size bytes of one strip or tile, decompressed."""
     raw = data[offset:offset + count]
     if len(raw) < count:
-        raise ValueError(f"{name}: TIFF truncated: a strip or tile runs past "
+        raise ImageReadError(f"{name}: TIFF truncated: a strip or tile runs past "
                          f"the end of the file")
     if compression == 1:
         if len(raw) < size:
-            raise ValueError(f"{name}: TIFF strip or tile of {len(raw)} "
+            raise ImageReadError(f"{name}: TIFF strip or tile of {len(raw)} "
                              f"bytes, expected {size}")
         return np.frombuffer(raw, np.uint8, size)
     if compression in (8, 32946):
@@ -148,9 +149,9 @@ def _chunk_bytes(data: bytes, offset: int, count: int, size: int,
     out = np.empty(size, np.uint8)
     got = _codecs()[compression](_ptr(src), src.size, _ptr(out), size)
     if got == _CORRUPT:
-        raise ValueError(f"{name}: TIFF LZW data is corrupt")
+        raise ImageReadError(f"{name}: TIFF LZW data is corrupt")
     if got != size:
-        raise ValueError(f"{name}: TIFF {_COMPRESSIONS[compression]} data "
+        raise ImageReadError(f"{name}: TIFF {_COMPRESSIONS[compression]} data "
                          f"ends short of its strip or tile")
     return out
 
@@ -167,7 +168,7 @@ def _check(tags, name):
     """The tags this reader takes; raises naming the first one it does
     not. Returns (bits, samples a pixel, photometric)."""
     def refuse(tag, label, value, what):
-        raise ValueError(f"{name}: TIFF with {label} ({tag}) = {value} is "
+        raise ImageReadError(f"{name}: TIFF with {label} ({tag}) = {value} is "
                          f"not read without cv2 ({what})")
 
     compression = _get(tags, COMPRESSION, (1,))[0]
@@ -181,7 +182,7 @@ def _check(tags, name):
     if photometric is None:            # libtiff's default by colour count
         photometric = {1: 1, 3: 2}.get(spp - len(extra))
         if photometric is None:
-            raise ValueError(f"{name}: TIFF without a Photometric (262) tag "
+            raise ImageReadError(f"{name}: TIFF without a Photometric (262) tag "
                              f"is not read without cv2")
     if photometric not in _PHOTOMETRIC_BITS:
         refuse(PHOTOMETRIC, "PhotometricInterpretation", photometric,
@@ -210,11 +211,11 @@ def _check(tags, name):
         refuse(PLANAR, "PlanarConfiguration", tags[PLANAR][0], "1 or 2")
     orientation = _get(tags, ORIENTATION, (1,))[0]
     if orientation not in (1, 2, 3, 4):
-        raise ValueError(f"{name}: TIFF with Orientation (274) = "
+        raise ImageReadError(f"{name}: TIFF with Orientation (274) = "
                          f"{orientation}: cv2.imread returns no image for it "
                          f"(1-4 are read)")
     if photometric == 3 and len(_get(tags, COLOR_MAP, ())) != 3 << bits:
-        raise ValueError(f"{name}: palette TIFF without a ColorMap (320) of "
+        raise ImageReadError(f"{name}: palette TIFF without a ColorMap (320) of "
                          f"{3 << bits} entries")
     return bits, spp, photometric
 
@@ -238,11 +239,11 @@ def _samples(data: bytes, tags, e: str, bits: int, spp: int,
         offsets, counts = _get(tags, STRIP_OFFSETS), _get(tags, STRIP_COUNTS)
         across = 1
     if not cw or not ch:
-        raise ValueError(f"{name}: TIFF with an empty strip or tile size")
+        raise ImageReadError(f"{name}: TIFF with an empty strip or tile size")
     down = (h + ch - 1) // ch
     offsets, counts = offsets or (), counts or ()
     if min(len(offsets), len(counts)) < across * down * planes:
-        raise ValueError(f"{name}: TIFF with {len(offsets)} strip or tile "
+        raise ImageReadError(f"{name}: TIFF with {len(offsets)} strip or tile "
                          f"offsets and {len(counts)} byte counts, expected "
                          f"{across * down * planes}")
     dtype = np.dtype(e + "u2") if bits == 16 else np.dtype(np.uint8)
@@ -277,11 +278,11 @@ def _samples(data: bytes, tags, e: str, bits: int, spp: int,
 def decode_tiff_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(H, W, 3) uint8 RGB of a baseline TIFF's first page, equal to
     cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB). Raises
-    ValueError naming ``name`` on what it does not read (see the module's
+    ImageReadError naming ``name`` on what it does not read (see the module's
     docstring)."""
     e, tags = parse_ifd(data, name)
     if WIDTH not in tags or HEIGHT not in tags:
-        raise ValueError(f"{name}: TIFF without ImageWidth / ImageLength")
+        raise ImageReadError(f"{name}: TIFF without ImageWidth / ImageLength")
     bits, spp, photometric = _check(tags, name)
     s = _samples(data, tags, e, bits, spp, name)
     if photometric in (0, 1):            # setupMap + makebwmap

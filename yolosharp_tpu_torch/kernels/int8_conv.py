@@ -38,6 +38,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils.numerics import divide_by_constant
 from . import build
 from .conv3x3 import ACT_CODES
 
@@ -50,8 +51,10 @@ def padded_channels(ci: int) -> int:
 
 
 def activation_scale(absmax: torch.Tensor) -> torch.Tensor:
-    """a_scale = max(absmax, 1e-6) / 127, a 0-d float32 tensor."""
-    return torch.clamp(absmax.float().reshape(()), min=1e-6) / 127.0
+    """a_scale = max(absmax, 1e-6) / 127, a 0-d float32 tensor, rounded as
+    the jitted JAX reference rounds it (divide_by_constant)."""
+    return divide_by_constant(torch.clamp(absmax.float().reshape(()),
+                                          min=1e-6), 127.0)
 
 
 @torch.no_grad()
@@ -59,7 +62,8 @@ def quantize_weight(w: torch.Tensor):
     """(wq (Co, k, k, Cp) int8, w_scale (Co,) float32) of a float32 OIHW
     kernel, per output channel."""
     w = w.float()
-    w_scale = torch.clamp(w.abs().amax(dim=(1, 2, 3)), min=1e-12) / 127.0
+    w_scale = divide_by_constant(
+        torch.clamp(w.abs().amax(dim=(1, 2, 3)), min=1e-12), 127.0)
     wq = torch.clamp(torch.round(w / w_scale.view(-1, 1, 1, 1)), -127, 127)
     wq = wq.permute(0, 2, 3, 1).to(torch.int8)
     cp = padded_channels(w.shape[1])

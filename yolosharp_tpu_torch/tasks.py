@@ -102,6 +102,7 @@ from .train import (MAX_LOSS_SCALE, TrainState, make_eval_step,
 from .types import KeyPoint, TaskType, YoloResult
 from .utils import (EarlyStopping, StepTrace, TrainLogger, ap_per_class,
                     match_predictions, summarize)
+from .utils.numerics import divide_by_constant
 
 
 def _warn_if_truncated(nms_out, state: Optional[Dict] = None) -> None:
@@ -862,7 +863,7 @@ class Detector(BaseTask):
         from _predict_variables; End2End runs only the one2one towers
         (Head.cs:117-127)."""
         nc = self.config.number_class
-        x = img.permute(0, 3, 1, 2).float() / 255.0     # channels-last NCHW
+        x = divide_by_constant(img.permute(0, 3, 1, 2), 255.0)  # channels-last
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         preds = net(x, skip_one2many=self.arch.end2end)
         branch = preds["one2one" if self.arch.end2end else "one2many"]
@@ -1457,7 +1458,7 @@ class Classifier(BaseTask):
     @torch.inference_mode()
     def _probs(self, net: YoloNet, img: torch.Tensor) -> torch.Tensor:
         """uint8 (B, s, s, 3) on the device -> (B, nc) float32 softmax."""
-        x = img.permute(0, 3, 1, 2).float() / 255.0     # channels-last NCHW
+        x = divide_by_constant(img.permute(0, 3, 1, 2), 255.0)  # channels-last
         x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
         return torch.softmax(net(x)["cls"].float(), -1)
 
