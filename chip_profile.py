@@ -61,7 +61,7 @@ print(cs.card(), flush=True)
 
 def family(name):
     if "conv_stem_kernel" in name or "conv_f32_kernel" in name \
-            or "conv_wg_kernel" in name:
+            or "conv_tc_kernel" in name:
         return "conv3x3"
     if "c2f" in name:
         return "c2f"

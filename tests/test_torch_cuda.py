@@ -19,7 +19,8 @@ from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
                                          reset_launch_counts)
 from yolosharp_tpu_torch.kernels.attention import launch_geometry
 from yolosharp_tpu_torch.kernels.c2f import launch_tile
-from yolosharp_tpu_torch.kernels.conv3x3 import n_tile
+from yolosharp_tpu_torch.kernels import conv3x3 as conv_module
+from yolosharp_tpu_torch.kernels.conv3x3 import ConvPlan, conv_plan, padded
 from yolosharp_tpu_torch.loss import flatten_levels
 from yolosharp_tpu_torch.nn import ConvBN
 from yolosharp_tpu_torch.predict import pad_to_multiple
@@ -129,13 +130,105 @@ def _sms(device):
 @pytest.mark.parametrize("shape", [(3, 150, 142, 40, 200),
                                    (2, 200, 200, 64, 130)])
 def test_conv_kernels_on_the_128_channel_tile(cuda, dtype, shape):
-    """Grids large enough that the bf16 kernel takes its 128-channel tile at
-    both strides: Ci = 40 ends in a chunk of 8 channels, Co = 200 leaves a
-    ragged second tile, Co = 130 is not a multiple of 8 (the scalar fill)."""
+    """Grids large enough for the 16-bit kernel's 128-channel tile at both
+    strides, under conv_plan's tile and under the 128-channel tile of the
+    same band (16-bit: within 1.25 u of float64): Ci = 40 ends in a chunk
+    of 8 channels, Co = 200 leaves a ragged second tile, Co = 130 is not a
+    multiple of 8 (zero-padded to 136 for the kernel)."""
     B, H, W, ci, co = shape
-    for s in (1, 2):
-        assert n_tile(B, H, W, ci, co, s, _sms(cuda)) == 128
     _check_conv(cuda, dtype, *shape)
+    if dtype == "float32":
+        return
+    rng = np.random.default_rng(B + H + ci + co)
+    dt = getattr(torch, dtype)
+    x = _rand(rng, B, H, W, ci).to(cuda, dt)
+    w = _rand(rng, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(cuda, dt)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    for s in (1, 2):
+        plan = conv_plan(B, H, W, padded(ci), padded(co), s, _sms(cuda))
+        for bn in {plan.bn, 128}:
+            assert _conv_to_float64(x, w, b, "silu", s,
+                                    plan._replace(bn=bn)) <= 1.25, (s, bn)
+
+
+def _conv_to_float64(x, w, b, act, stride, plan=None):
+    """The 16-bit kernel (with ``plan`` where given, else conv_plan's)
+    against a float64 evaluation of the plain version on the same inputs:
+    max|k - ref| / max|ref| in units of the type's u (chip_smoke phase 2's
+    rule: at most 1.25 u, the kernel rounds its float32 sums once)."""
+    name = "conv3x3_silu" if stride == 1 else "conv3x3s2_silu"
+    got = conv_module._launch(name, x, w, b, act, stride, plan)
+    ref = conv3x3_plain(x.double(), w.double(), b.double(), act, stride)
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    u = UNIT[str(x.dtype)[6:]]
+    return float((got.double() - ref).abs().max() / ref.abs().max()) / u
+
+
+# shapes (B, H, W, Ci, Co) that stress the tensor-core kernel's tile: W + 2
+# and W + 1 not multiples of 8, bands that end at an image's last row of the
+# flat batch, W wider than a TMA box (320 at stride 1, 640 at stride 2),
+# H = W = 1, odd H and W at stride 2, Ci = 12, 51 and 768, Co % 8 != 0
+TC_STRESS = {"w23": (2, 17, 23, 64, 64), "bands": (3, 12, 20, 64, 136),
+             "w320": (1, 320, 320, 32, 32), "w640": (1, 640, 640, 16, 32),
+             "1x1": (2, 1, 1, 64, 64), "1x5": (2, 1, 5, 16, 24),
+             "5x1": (2, 5, 1, 16, 24), "odd": (2, 7, 9, 32, 48),
+             "ci12": (2, 20, 20, 12, 32), "ci51": (2, 40, 40, 51, 51),
+             "ci768": (2, 20, 20, 768, 96), "co70": (3, 9, 33, 20, 70)}
+
+
+@pytest.mark.parametrize("act", ["silu", "relu", "identity"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("name", list(TC_STRESS))
+def test_tensor_core_conv_on_its_tile_edges(cuda, name, dtype, act):
+    """Both strides of the 16-bit kernel at TC_STRESS's shapes within
+    1.25 u of float64 (w640 at stride 2 only: 640 + 2 is past a box)."""
+    B, H, W, ci, co = TC_STRESS[name]
+    rng = np.random.default_rng(B * H * W + ci + co)
+    dt = getattr(torch, dtype)
+    x = _rand(rng, B, H, W, ci).to(cuda, dt)
+    w = _rand(rng, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(cuda, dt)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    for stride in ((2,) if name == "w640" else (1, 2)):
+        assert _conv_to_float64(x, w, b, act, stride) <= 1.25, stride
+
+
+# other tiles than conv_plan's at one shape: 1- to 11-row bands, W chunks of
+# 5, 7 and 20 columns (one consumer warpgroup of one or two m64 subtiles,
+# or both warpgroups on a tile of over 128 flat rows), both N tiles
+FORCED_PLANS = [ConvPlan(64, 1, 5), ConvPlan(128, 2, 7), ConvPlan(64, 3, 20),
+                ConvPlan(128, 1, 20), ConvPlan(64, 5, 20), ConvPlan(64, 11, 20),
+                ConvPlan(128, 6, 20)]
+
+
+@pytest.mark.parametrize("plan", FORCED_PLANS,
+                         ids=lambda p: f"bn{p.bn}-rows{p.rows}-wt{p.wt}")
+@pytest.mark.parametrize("stride", [1, 2])
+def test_tensor_core_conv_on_forced_tiles(cuda, stride, plan):
+    """bfloat16 20x20 (stride 1) or 40x40 (stride 2) 96 -> 136 under tiles
+    the plan would not take, within 1.25 u of float64."""
+    H = 20 * stride
+    rng = np.random.default_rng(stride + plan.rows)
+    x = _rand(rng, 2, H, H, 96).to(cuda, torch.bfloat16)
+    w = _rand(rng, 3, 3, 96, 136, scale=(9 * 96) ** -0.5).to(
+        cuda, torch.bfloat16)
+    b = _rand(rng, 136, scale=0.1).to(cuda, torch.bfloat16)
+    assert _conv_to_float64(x, w, b, "silu", stride, plan) <= 1.25
+
+
+def test_conv_descriptor_starts_at_any_row(cuda):
+    """The descriptor probe: a 128 x 64 bfloat16 tile loaded by TMA under
+    the 128-byte swizzle and read by wgmma from every row r0 < 64 through
+    the kernel's A descriptor (base offset 0: the swizzle follows the
+    absolute address) gives A[r0 : r0 + 64] @ B, as a tap's shifted rows
+    need."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(128, 64, generator=g, device=cuda).bfloat16()
+    b = torch.randn(64, 64, generator=g, device=cuda).bfloat16()
+    out = conv_module.desc_probe(a, b, 64).double()
+    ref = a.double() @ b.double()
+    for r0 in range(64):
+        torch.testing.assert_close(out[r0], ref[r0:r0 + 64], atol=1e-3,
+                                   rtol=1e-5, msg=f"row start {r0}")
 
 
 def _c2f_args(rng, B, H, W, cin, c, c2):
@@ -598,7 +691,7 @@ def test_bf16_conv_on_the_served_proto(cuda):
     32 x 160 x 160 x 256 input (0.42 GB, the largest activation the kernel
     takes) through the 128-channel tile, against the plain version."""
     B, H, W, ci, co = 32, 160, 160, 256, 256
-    assert n_tile(B, H, W, ci, co, 1, _sms(cuda)) == 128
+    assert conv_plan(B, H, W, ci, co, 1, _sms(cuda)).bn == 128
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(B, H, W, ci, generator=g, device=cuda).bfloat16()
     w = (torch.randn(3, 3, ci, co, generator=g, device=cuda)
@@ -981,6 +1074,32 @@ def test_quotients_on_the_card_equal_the_cpu(cuda):
     wq, ws = quantize_weight(w.to(cuda))
     wq_h, ws_h = quantize_weight(w)
     assert torch.equal(ws.cpu(), ws_h) and torch.equal(wq.cpu(), wq_h)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_train_normalisation_on_the_card_equals_the_cpu(cuda, dtype,
+                                                        monkeypatch):
+    """train.normalize_images of every uint8 level, and the planned
+    batch's /255 in train.resolve_batch_images on a render (stubbed) of
+    10^6 seeded float32 values in [0, 255], round on the card as on the
+    CPU, bit for bit, in each working type (the CPU results are held to
+    the jitted JAX step in tests/test_torch_quotients.py)."""
+    from yolosharp_tpu_torch import train
+    from yolosharp_tpu_torch.data import device_augment
+    dt = getattr(torch, dtype)
+    levels = torch.arange(256, dtype=torch.uint8).reshape(1, 4, 64, 1)
+    levels = levels.repeat(1, 1, 1, 3)
+    assert torch.equal(train.normalize_images(levels.to(cuda), dt).cpu(),
+                       train.normalize_images(levels, dt))
+    render = torch.from_numpy((np.random.default_rng(1).random(
+        (1, 1000, 1000, 3)) * 255).astype(np.float32))
+    got = {}
+    for device in (cuda, torch.device("cpu")):
+        monkeypatch.setattr(device_augment, "render_batch",
+                            lambda batch, d=device: render.to(d))
+        got[device.type] = train.resolve_batch_images(
+            {"aug_pool": None}, dt)[0].cpu()
+    assert torch.equal(got["cuda"], got["cpu"])
 
 
 def test_fold_on_the_card_equals_the_cpu(cuda):

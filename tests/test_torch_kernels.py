@@ -17,7 +17,8 @@ from yolosharp_tpu_torch.kernels import (build, c2f_fused, c2f_plain,
                                          launch_counts)
 from yolosharp_tpu_torch.kernels.c2f import (SMEM_LIMIT, launch_tile,
                                              smem_bytes, tile_for)
-from yolosharp_tpu_torch.kernels.conv3x3 import n_tile
+from yolosharp_tpu_torch.kernels.conv3x3 import (TC_ROWS, ConvPlan, chunk,
+                                                 conv_plan, padded, tc_smem)
 from yolosharp_tpu_torch.nn import ArchCfg, C2f, YoloNet
 
 # the tolerance of tests/test_pallas_conv.py: float32 sums in another order
@@ -172,19 +173,114 @@ def test_c2f_bf16_tile_for_v8s_layer8_is_the_stated_one():
     assert tile_for(256) == 4 and tile_for(32) == 8
 
 
+# every 3x3 conv shape (H, W, Ci, Co) of every path on the 640x640 canvas and
+# the classify models' 224x224 one, and of chip_smoke's phase 15 blocks
+S1_SHAPES = [
+    (320, 320, 12, 32), (160, 160, 16, 32), (160, 160, 32, 16),
+    (160, 160, 32, 32), (160, 160, 48, 48), (160, 160, 256, 256),
+    (80, 80, 32, 32), (80, 80, 32, 64), (80, 80, 51, 51), (80, 80, 64, 32),
+    (80, 80, 64, 64), (80, 80, 96, 96), (80, 80, 128, 51), (80, 80, 128, 64),
+    (80, 80, 128, 96), (80, 80, 128, 128), (80, 80, 256, 64),
+    (80, 80, 256, 256), (80, 80, 384, 96), (56, 56, 16, 32), (56, 56, 32, 16),
+    (40, 40, 51, 51), (40, 40, 64, 64), (40, 40, 64, 128), (40, 40, 96, 96),
+    (40, 40, 128, 64), (40, 40, 128, 128), (40, 40, 192, 192),
+    (40, 40, 256, 51), (40, 40, 256, 64), (40, 40, 256, 128),
+    (40, 40, 256, 256), (40, 40, 512, 64), (40, 40, 768, 96),
+    (28, 28, 32, 64), (28, 28, 64, 32), (28, 28, 64, 64), (20, 20, 51, 51),
+    (20, 20, 64, 64), (20, 20, 96, 96), (20, 20, 128, 128),
+    (20, 20, 192, 192), (20, 20, 256, 256), (20, 20, 512, 51),
+    (20, 20, 512, 64), (20, 20, 512, 128), (20, 20, 768, 96),
+    (14, 14, 64, 64), (14, 14, 128, 128), (7, 7, 128, 128)]
+S2_SHAPES = [
+    (640, 640, 3, 32), (640, 640, 3, 64), (640, 640, 3, 96),
+    (320, 320, 32, 32), (320, 320, 32, 64), (320, 320, 64, 32),
+    (320, 320, 64, 128), (320, 320, 96, 192), (224, 224, 3, 32),
+    (160, 160, 64, 128), (160, 160, 128, 128), (160, 160, 256, 256),
+    (160, 160, 384, 384), (112, 112, 32, 64), (80, 80, 128, 128),
+    (80, 80, 128, 256), (80, 80, 256, 256), (80, 80, 384, 384),
+    (80, 80, 512, 512), (80, 80, 768, 768), (56, 56, 64, 128),
+    (56, 56, 128, 128), (40, 40, 256, 256), (40, 40, 256, 512),
+    (40, 40, 512, 512), (40, 40, 768, 768), (28, 28, 128, 256),
+    (28, 28, 256, 256), (14, 14, 256, 512)]
+# the batches the paths run: single requests, phase 2's B=2, the blocks'
+# b8, the stream's b16, the served b32
+PLAN_BATCHES = (1, 2, 8, 16, 32)
+
+
+def _check_plan(B, H, W, ci, co, stride, sms=132):
+    """The plan the wrapper passes for one call, checked as the kernel's
+    launch checks it: the stem exactly for Ci <= 7; else an N tile of 64
+    or 128 (128 only where Co > 64), a TMA box of (BK, P, R + 3 - S, 1)
+    with P = Wt + 3 - S <= 256, R P <= 256 flat rows, the shared memory
+    within the card's, and bands and W chunks that cover the output with
+    none empty."""
+    cip, cop = (ci, co) if ci <= 7 else (padded(ci), padded(co))
+    plan = conv_plan(B, H, W, cip, cop, stride, sms)
+    if ci <= 7:
+        assert plan == ConvPlan(0)
+        return plan
+    bn, rows, wt = plan
+    assert bn in ((64, 128) if co > 64 else (64,))
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    p = wt + 3 - stride
+    box = (chunk(stride), p, rows + 3 - stride, 1)
+    assert max(box) <= 256 and box[0] * 2 in (64, 128)
+    assert 1 <= rows <= ho and 1 <= wt <= wo and rows * p <= TC_ROWS
+    assert tc_smem(stride, rows, wt, bn) <= build.SMEM_LIMIT
+    bands, chunks = -(-ho // rows), -(-wo // wt)
+    assert (bands - 1) * rows < ho <= bands * rows
+    assert (chunks - 1) * wt < wo <= chunks * wt
+    return plan
+
+
+@pytest.mark.parametrize("stride,shapes", [(1, S1_SHAPES), (2, S2_SHAPES)],
+                         ids=["s1", "s2"])
+def test_conv_plan_fits_every_path_shape(stride, shapes):
+    """The 16-bit conv's plan at every shape of every path and each batch
+    the paths run, on a 132-SM card."""
+    for B in PLAN_BATCHES:
+        for shape in shapes:
+            _check_plan(B, *shape, stride)
+
+
 @pytest.mark.parametrize("shape,stride,want", [
-    ((2, 640, 640, 3, 32), 2, 0),        # the stem kernel
-    ((32, 80, 80, 128, 128), 1, 128),    # 1600 blocks of 128 x 128
-    ((2, 80, 80, 128, 128), 1, 64),      # 100 blocks: too few for 132 SMs
-    ((32, 20, 20, 512, 64), 1, 64),      # Co <= 64
-    ((32, 160, 160, 64, 128), 2, 128),
-    ((2, 160, 160, 128, 128), 2, 64),
-    ((3, 150, 142, 40, 200), 2, 128),    # a card test's ragged shape
-])
+    ((2, 640, 640, 3, 32), 2, ConvPlan(0)),         # the stem kernel
+    ((32, 80, 80, 128, 128), 1, ConvPlan(128, 6, 40)),   # 6 x 42 = 252 rows
+    ((2, 80, 80, 128, 128), 1, None),
+    ((32, 20, 20, 512, 64), 1, None),                # Co <= 64: BN 64
+    ((32, 160, 160, 64, 128), 2, ConvPlan(128, 12, 20)),  # 12 x 21 rows
+    ((2, 160, 160, 128, 128), 2, None),
+    ((3, 150, 142, 40, 200), 2, None),               # a card test's ragged shape
+], ids=["shape0-2-0", "shape1-1-128", "shape2-1-64", "shape3-1-64",
+        "shape4-2-128", "shape5-2-64", "shape6-2-128"])
 def test_conv_n_tile_covers_the_sms(shape, stride, want):
-    """The bf16 conv's N tile on a 132-SM card: 128 channels where that
-    grid of 128-pixel blocks still gives every SM a block, else 64."""
-    assert n_tile(*shape, stride, 132) == want
+    """The 16-bit conv's plan on a 132-SM card: valid (as _check_plan), the
+    stated tile where one is given, and at a small batch a grid that
+    gives most SMs a block: the plan trades tile size for blocks."""
+    plan = _check_plan(*shape, stride)
+    if want is not None:
+        assert plan == want
+    if plan.bn:
+        B, H, W, _, co = shape
+        ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+        blocks = (B * -(-ho // plan.rows) * -(-wo // plan.wt)
+                  * -(-co // plan.bn))
+        assert blocks >= 0.75 * 132 or plan.rows * plan.wt == 1
+
+
+def test_conv_plan_pads_odd_widths_and_sizes_the_box():
+    """Ci and Co not multiples of 8 reach the plan (and the kernel) padded;
+    the box rows of a stride-2 plan are its parity planes' R + 1; the
+    shared memory of the largest stride-1 and stride-2 tiles."""
+    assert padded(51) == 56 and padded(12) == 16 and padded(64) == 64
+    assert chunk(1) == 64 and chunk(2) == 32
+    # S = 1, R = 3 rows of P = 82: (256 + 2 * 82 + 2) rows of 128 bytes a
+    # slot, two slots, 4 weight slots of 64 x 128 x 2 bytes, 20 barriers
+    assert tc_smem(1, 3, 80, 128) == 1024 + 2 * 54272 + 4 * 16384 + 160
+    # S = 2, R = 3 rows of P = 81: planes 336 rows apart, a slot of 3 x 336
+    # + 256 + 82 rows of 64 bytes
+    assert tc_smem(2, 3, 80, 128) == 1024 + 2 * 87040 + 4 * 8192 + 160
+    assert tc_smem(2, 3, 80, 128) <= build.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("shape,bf16,want", [

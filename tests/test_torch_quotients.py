@@ -10,11 +10,11 @@ multiply by a rounded reciprocal, so the eager or numpy quotient is not
 the reference: on uint8 levels float32 true division agrees on 130 of 256
 (checked below). ``utils.numerics.divide_by_constant`` writes XLA's route
 out; these tests hold it to the jitted JAX expressions on all 256 uint8
-levels and on 10^6 seeded float32 values, and the predict
-and int8 sites that use it on 10^6 seeded absmax values and channels.
-The train and eval normalisation (``train.normalize_images``) keeps
-PyTorch's division (ROADMAP, faults: "The train and eval normalisation
-still rounds by device"), so it is not held here. The
+levels and on 10^6 seeded float32 values, the predict
+and int8 sites that use it on 10^6 seeded absmax values and channels, and
+the train and eval normalisation (``train.normalize_images`` and the
+planned batch's /255 in ``train.resolve_batch_images``) in float32,
+bfloat16 and float16. The
 host quotient of calibrate_int8 is numpy in both packages (the same line).
 tests/test_torch_cuda.py holds the card to these CPU results.
 """
@@ -22,9 +22,12 @@ tests/test_torch_cuda.py holds the card to these CPU results.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from yolosharp_tpu import train as jax_train
+from yolosharp_tpu_torch import train as torch_train
+from yolosharp_tpu_torch.data import device_augment
 from yolosharp_tpu_torch.kernels.int8_conv import (activation_scale,
                                                    quantize_weight)
 from yolosharp_tpu_torch.utils.numerics import divide_by_constant
@@ -40,6 +43,19 @@ def _bits(a) -> np.ndarray:
 def _torch_bits(t: torch.Tensor) -> np.ndarray:
     assert t.dtype == torch.float32
     return _bits(t.contiguous().numpy())
+
+
+# the working types of the train and eval steps, in both packages
+DTYPES = [(torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16),
+          (torch.float16, jnp.float16)]
+
+
+def _same_bits(got: torch.Tensor, want, dtype: torch.dtype) -> None:
+    """got (a torch tensor of dtype) equal to want (a JAX array of the same
+    type) bit for bit: both widened to float32, which is exact."""
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(
+        _torch_bits(got.float()), _bits(np.asarray(want).astype(np.float32)))
 
 
 def test_divide_by_constant_matches_jitted_normalize_images():
@@ -112,3 +128,40 @@ def test_quantize_weight_matches_the_jitted_int8_conv():
     np.testing.assert_array_equal(_torch_bits(scale), _bits(scale_j))
     np.testing.assert_array_equal(
         wq[:, 0, 0, :2].numpy(), np.asarray(wq_j)[0, 0].T)
+
+
+@pytest.mark.parametrize("dtype,jdtype", DTYPES,
+                         ids=["float32", "bfloat16", "float16"])
+def test_normalize_images_matches_the_jitted_jax_normalize_images(
+        dtype, jdtype):
+    """train.normalize_images of every uint8 level equals the JAX
+    package's normalize_images under jax.jit, in each working type (the
+    port's (B, 3, H, W) against JAX's NHWC)."""
+    want = jax.jit(lambda a: jax_train.normalize_images(a, jdtype))(LEVELS)
+    got = torch_train.normalize_images(torch.from_numpy(LEVELS), dtype)
+    _same_bits(got.permute(0, 2, 3, 1), want, dtype)
+
+
+@pytest.mark.parametrize("dtype,jdtype", DTYPES,
+                         ids=["float32", "bfloat16", "float16"])
+def test_planned_batch_quotient_matches_the_jitted_jax_step(
+        monkeypatch, dtype, jdtype):
+    """The planned batch's /255 in train.resolve_batch_images on a render
+    (stubbed) that holds every uint8 level and 10^6 seeded float32 values
+    in [0, 255] equals the jitted JAX resolve_batch_images' quotient
+    ``images.astype(dtype) / 255.0`` in each working type; on the levels
+    that is also the jitted JAX normalize_images."""
+    rng = np.random.default_rng(3)
+    render = np.concatenate(
+        [LEVELS.astype(np.float32).reshape(-1, 3),
+         (rng.random((10 ** 6 // 3 * 3)) * 255).astype(np.float32)
+         .reshape(-1, 3)]).reshape(1, -1, 1, 3)
+    monkeypatch.setattr(device_augment, "render_batch",
+                        lambda batch: torch.from_numpy(render))
+    got, _ = torch_train.resolve_batch_images({"aug_pool": None}, dtype)
+    got = got.permute(0, 2, 3, 1)
+    want = jax.jit(lambda a: a.astype(jdtype) / 255.0)(render)
+    _same_bits(got, want, dtype)
+    levels = jax.jit(lambda a: jax_train.normalize_images(a, jdtype))(LEVELS)
+    _same_bits(got[:, :LEVELS.size // 3].reshape(LEVELS.shape), levels,
+               dtype)

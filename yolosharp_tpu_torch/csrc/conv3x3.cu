@@ -6,51 +6,72 @@
 // x: (B, H, W, Ci) NHWC, w: (3, 3, Ci, Co) HWIO, bias: (Co,), y: (B, Ho, Wo, Co),
 // all contiguous and of one type (float32, bfloat16 or float16); sums in
 // float32.
-// No divisibility limits: the ragged edges of the image, of Ci and of Co are
-// masked or zero-filled.
 //
-// bfloat16 and float16 (the 16-bit routes, one template on the element type:
-// both are 2 bytes, so layouts and descriptors are shared and only the MMA
-// type suffix and the conversions differ): an implicit GEMM on Hopper's
-// warpgroup MMA (conv_wg_kernel).
-// M runs over the flat output pixels (b, ho, wo), N over Co, K = 9 * Ci one
-// tap x 32 channels at a time. A block owns 128 pixels (two warpgroups of
-// 64) x BN = 128 or 64 channels (128 where that grid still covers every SM;
-// the wrapper picks BN).
-// - Each k step copies A (128 pixels x 32 channels of one tap, 64 bytes a
-//   row) and B (the weight rows [tap * Ci + ci][co]) into a 5-slot shared
-//   ring with 16-byte cp.async, three steps ahead. A thread's A rows are
-//   fixed for the whole K walk, so it computes their tap-(0, 0) input
-//   offsets and which taps fall inside the image once; a tap outside (the
-//   zero padding) or channels past Ci are zero-filled by the copy, and
-//   stride 2 only changes the offsets. Ci % 8 != 0 and Co % 8 != 0 take a
-//   scalar fill; the second k16 half of a chunk past Ci is skipped.
-// - A is stored K-major with the 64-byte swizzle, B N-major with the
-//   128-byte swizzle, the layouts wgmma reads through shared-memory
-//   descriptors: each k16 half is one wgmma.m64nBNk16 (16-bit in, float32
-//   sums) per warpgroup, with no ldmatrix and no operand registers. One
-//   step's wgmma group stays in flight across the next barrier. The
-//   epilogue adds the bias and the activation in float32 and rounds once to
-//   the element type (paired stores).
+// bfloat16 and float16, Ci >= 8 (one template on the element type: both are
+// 2 bytes, so layouts and descriptors are shared and only the MMA type
+// suffix and the conversions differ): conv_tc_kernel, an implicit GEMM on
+// Hopper's warpgroup MMA whose input tile is loaded once per channel chunk
+// for all nine taps, the Pallas kernel's own flat-row trick
+// (yolosharp_tpu/kernels/conv3x3.py:10-20). Ci and Co are multiples of 8
+// here (the wrapper zero-pads the rare others: TMA needs 16-byte strides).
+// - A block owns R output rows x Wt columns of one image x BN = 64 or 128
+//   channels (the wrapper's plan, kernels/conv3x3.py conv_plan). Its input
+//   tile is stored as rows of P pixels: at stride 1 the padded band, R + 2
+//   rows of P = Wt + 2; at stride 2 four parity planes (even / odd rows x
+//   even / odd columns) of R + 1 rows of P = Wt + 1, each a TMA box of the
+//   input viewed with doubled strides. Flat output row m = i P + j then
+//   reads, at each tap, the tile row m + the tap's offset, so each tap's A
+//   operand is one contiguous run of rows: the nine wgmma of a k16 step
+//   read the same tile through shifted descriptors. Rows with j >= Wt are
+//   junk, computed and never stored; R P <= 256.
+// - The zero padding, the image edges, a band past the image's last row and
+//   channels past Ci come from TMA's zero fill of out-of-bounds boxes (the
+//   box coordinates start at -1), so no thread masks a tap. A box never
+//   leaves its image: the batch index is a box coordinate.
+// - Warp specialisation in a persistent grid: one block an SM walks its
+//   tiles. One producer thread issues the TMA loads (the input tile into one
+//   of two A slots a chunk, each tap's BK x BN weights into a ring of 4-8
+//   slots, as many as the shared memory holds) against mbarriers, running
+//   ahead into the next tile; two consumer warpgroups (each 128 flat rows,
+//   MS = 2 m64 subtiles; one warpgroup, MS = 1 or 2, for a tile of up to
+//   128 rows) only wait, issue wgmma.m64nBNk16 from the swizzled slots and
+//   keep one group in flight; setmaxnreg moves registers from the producer
+//   to them. The wgmma are issued unconditionally (k16 steps past Ci read
+//   TMA's zeros): a wgmma on a branch makes ptxas serialise them.
+// - BK, the channels of a chunk: 64 at stride 1 (128-byte rows, the
+//   128-byte swizzle), 32 at stride 2 (64-byte rows and swizzle: four
+//   planes of R + 1 rows fill twice the shared memory a flop). A tap starts
+//   its rows at any pixel row, off the swizzle atom: the swizzle follows the
+//   absolute shared-memory address, so a base offset of 0 reads it right at
+//   every start (ys_conv3x3_desc_probe shows it on the card).
+// - The epilogue adds the bias and the activation in float32 and rounds
+//   once to the element type (paired stores).
+// What bounds it: per chunk a block copies its input tile once (S = 1 at
+// 80^2: 5 x 82 pixel rows for 240 outputs, against 9 x 128 rows for 128
+// outputs in the flat-M kernel this one replaced) and the weights of nine
+// taps once for up to 256 flat rows, so the L2 -> shared copies no longer
+// bound it. What is left, as the clocks fitted to its times on an H100
+// (kernels/conv3x3.py COST_*) apportion it: the epilogue (~0.5 clocks an
+// output element an SM, not overlapped with the next tile's products; a
+// ping-pong schedule that overlaps it lost more to its 128-row tiles, see
+// PERF.md), each k step's barrier round trip (~280 clocks: many short
+// steps at stride 2 and at small Ci), and junk rows (P - Wt of every P,
+// the subtile rows past R P); the largest layers run at ~0.55 of the bf16
+// peak. At 640^2 bf16 batch 32 on an H100 80GB HBM3 (700 W) its stride-1
+// and stride-2 shapes sum to 0.92x and 0.75x of F.conv2d's time (PERF.md).
 // - The stem (Ci <= 7) packs its 9 taps x Ci channels into one K <= 64
 //   instead, on mma.sync (conv_stem_kernel).
-// Why flat M and not a halo tile of one image: an 8 x 16 halo tile covers a
-// 20 x 20 map with half its rows empty; flat M fills every tile at any map
-// size, at the price of reading each input pixel once per tap from L2.
-// What bounds it: each k step copies 16 KB (BN = 128) from L2 into shared
-// memory for 1 MFLOP, 64 flop per byte, and A is copied once per tap. At
-// 80^2 128->128, batch 32, on an H100 80GB HBM3 at 700 W it runs at 271
-// TFLOP/s (28% of the bf16 peak) while two blocks per SM copy ~17 bytes a
-// cycle from L2, about what L2 delivers to one SM: fewer bytes per flop
-// (wider tiles, A shared across taps) is what would take it further. The
-// tensor cores read the operands from shared memory directly; an mma.sync
-// version, whose warps loaded 3 KB of fragments per 16 products, ran at
-// 0.6-0.8x this kernel's speed at batch 32.
 //
 // float32: the CUDA-core kernel (conv_f32_kernel) — TF32 would break the
 // float32 contract. A block owns 8 x 16 output pixels x 64 channels, stages
 // the halo tile and the weight slice 16 channels at a time as float32, and
 // every thread accumulates a 4-pixel x 8-channel micro-tile.
+#include <cuda.h>
+
+#include <algorithm>
+#include <cstring>
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace ys;
@@ -195,70 +216,7 @@ cudaError_t launch_f32_ck(const void* x, const void* w, const void* b, void* y, 
 
 // ------------------------------------------- 16-bit: bfloat16 and float16
 
-constexpr int kBK = 32;     // input channels of one k step (of one tap)
-constexpr int kStages = 5;  // cp.async ring: 3 steps in flight ahead of the one in use,
-                            // one more that the previous step's wgmma may still read
-
-// Byte offset of 16-byte unit u (0..3) of A row r (64 bytes a row), XOR-swizzled
-// by the row's 128-byte line: the 64-byte swizzle of a K-major wgmma operand.
-__device__ __forceinline__ int a_off(int r, int u) { return r * 64 + ((u ^ ((r >> 1) & 3)) << 4); }
-// Byte offset of unit nu of B row k: BN / 64 column blocks of [kBK][64] with
-// 128-byte rows and the 128-byte swizzle of an N-major wgmma operand.
-__device__ __forceinline__ int b_off(int k, int nu) {
-  return ((nu >> 3) * kBK + k) * 128 + (((nu & 7) ^ (k & 7)) << 4);
-}
-
-// Eight elements [i, i + 8) of a row of n, zero past n (unaligned rows).
-template <typename T>
-__device__ __forceinline__ uint4 load8_masked(const T* p, int i, int n, bool ok) {
-  __align__(16) T v[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = ok && i + e < n ? p[e] : from_f<T>(0.f);
-  return *reinterpret_cast<const uint4*>(v);
-}
-
-// Bias, activation, one rounding to T, paired stores. acc[mi][ni] is the
-// m16 x n8 tile at flat output pixels m0 + 16 mi (y row m is pixel m, Co
-// channels a row), channels co0 + 8 ni.
-template <typename T, int MI, int NI>
-__device__ __forceinline__ void store_tile(const float (&acc)[MI][NI][4], T* __restrict__ y,
-                                           const T* __restrict__ bias, int M, int Co, int m0,
-                                           int co0, int act) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  float bv[NI][2];
-#pragma unroll
-  for (int ni = 0; ni < NI; ++ni) {
-    const int co = co0 + ni * 8 + 2 * q;
-    bv[ni][0] = co < Co ? to_f(bias[co]) : 0.f;
-    bv[ni][1] = co + 1 < Co ? to_f(bias[co + 1]) : 0.f;
-  }
-  const bool pairs = (Co & 1) == 0;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + mi * 16 + g + half * 8;
-      if (m >= M) continue;
-      T* yp = y + (size_t)m * Co;
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int co = co0 + ni * 8 + 2 * q;
-        if (co >= Co) continue;
-        const float v0 = apply_act_fast(acc[mi][ni][2 * half] + bv[ni][0], act);
-        const float v1 = apply_act_fast(acc[mi][ni][2 * half + 1] + bv[ni][1], act);
-        if (pairs) {
-          *reinterpret_cast<uint32_t*>(yp + co) = Half16<T>::pack(v0, v1);
-        } else {
-          yp[co] = from_f<T>(v0);
-          if (co + 1 < Co) yp[co + 1] = from_f<T>(v1);
-        }
-      }
-    }
-  }
-}
-
-// ---- the implicit GEMM on Hopper's warpgroup MMA (wgmma)
+// ---- Hopper building blocks: wgmma, mbarriers, TMA
 
 // D (64 x N, float32) += A (64 x 16, K-major) * B (16 x N, N-major), both
 // read from shared memory through their descriptors; TY is the PTX type of
@@ -328,156 +286,470 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Shared-memory matrix descriptor: start address, leading / stride byte
-// offsets, swizzle (1: 128-byte, 2: 64-byte).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int swz) {
+// offsets, base offset (the phase of the swizzle pattern at the start
+// address), swizzle (1: 128-byte, 2: 64-byte).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int swz,
+                                              uint32_t base_offset = 0) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)swz << 62);
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)(base_offset & 7) << 49) |
+         ((uint64_t)swz << 62);
+}
+// The K-major A operand of BK channels a pixel row: 128-byte rows under the
+// 128-byte swizzle (BK = 64) or 64-byte rows under the 64-byte swizzle (BK =
+// 32), which XOR a row's 16-byte units with bits 7-9 (7-8) of its address;
+// 8-row groups 8 rows apart. A tap starts its 64 rows at any pixel row of
+// the tile, so the start is only row-aligned: the swizzle follows the
+// absolute address (TMA writes it so, and wgmma reads it so with a base
+// offset of 0 at every row start: conv3x3_desc_probe), so no base offset.
+template <int BK>
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
+  return smem_desc(addr, 16, 8 * BK * 2, BK == 64 ? 1 : 2);
 }
 
-// Implicit GEMM: C[m][co] = sum_k A[m][k] B[k][co] with m the flat output pixel
-// (b, ho, wo), k = (chunk, tap, ci) and A[m][k] = x[b][ho*S-1+kh][wo*S-1+kw][ci].
-// A block owns 128 pixels x BN channels: two warpgroups of 64 pixels each.
-// Each k step (one tap x 32 channels) lands in a kStages-slot cp.async ring;
-// its two k16 halves are two wgmma, read straight from the swizzled slot.
-template <int BN>
-struct Wg {
-  static constexpr int AB = 128 * kBK * 2;                // A slot [128][kBK]
-  static constexpr int BB = kBK * BN * 2;                 // B slot
-  static constexpr int kStage = AB + BB;                  // a multiple of 1024
-  static constexpr int kBytes = kStages * kStage + 1024;  // + alignment slack
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of the given parity has completed. A wait of more
+// than ~10 s (a lost TMA transaction or a miscounted barrier) traps, so a
+// fault ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+// TMA tensor loads into shared memory, completing on an mbarrier; the
+// coordinates are signed, and elements outside the tensor read as zero.
+__device__ __forceinline__ void tma3(uint32_t dst, const CUtensorMap* m, uint32_t bar, int c0,
+                                     int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma4(uint32_t dst, const CUtensorMap* m, uint32_t bar, int c0,
+                                     int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled of the CUDA driver API, found through the runtime's
+// entry-point query so that the library links no libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int kEncodeFailed = 10000;  // + the CUresult of a failed encode
+
+// A tensor map over a 16-bit tensor of `rank` dims (innermost first; strides
+// in elements of dims 1..) with the given box and swizzle. 0 or an error.
+int encode(CUtensorMap* m, CUtensorMapDataType type, int rank, const void* base,
+           const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+           CUtensorMapSwizzle swz) {
+  EncodeTiled enc = encoder();
+  if (!enc) return kEncodeFailed;
+  cuuint64_t d[5], s[4];
+  cuuint32_t bx[5], one[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    one[i] = 1;
+    if (i) s[i - 1] = strides[i - 1] * 2;
+  }
+  const CUresult r = enc(m, type, rank, const_cast<void*>(base), d, s, bx, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
+}
+
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<T, bf16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// ---- the implicit GEMM with the input tile shared by the nine taps
+
+// input channels of a chunk: 64 at stride 1 (128-byte A rows, half the
+// barrier round trips a flop), 32 at stride 2 (its four parity planes fill
+// twice the shared memory a flop)
+template <int S>
+__host__ __device__ constexpr int chunk_of() {
+  return S == 1 ? 64 : 32;
+}
+// weight ring: one tap x BK channels x BN a slot; as many slots as the
+// shared memory left by the input tile holds, at least kMinBStages
+constexpr int kMinBStages = 4, kMaxBStages = 8;
+constexpr int kConsumers = 2;    // warpgroups that issue wgmma
+constexpr int kTcThreads = 128 * (kConsumers + 1);
+constexpr int kTcRows = 128 * kConsumers;  // flat rows of a block
+
+// What a launch computes, the tile of a block, and the shared-memory layout.
+// A block owns output rows [h0, h0 + R) x columns [w0, w0 + Wt) of one image
+// x BN channels. Its input tile is laid out as rows of P pixels (S = 1: the
+// padded band, P = Wt + 2, R + 2 rows; S = 2: four parity planes of R + 1
+// rows of P = Wt + 1, rows (even, odd) x columns (even, odd)), so that each
+// tap's A operand, the pixel that output (i, j) reads at that tap for every
+// flat row m = i P + j, is one contiguous run of rows starting at the tap's
+// offset. Rows with j >= Wt are junk: computed, never stored.
+struct TcGeo {
+  int H, W, Ci, Co, Ho, Wo;
+  int R, Wt, P, rows;             // rows = R * P <= kTcRows
+  int wgs;                        // consumer warpgroups with rows (of MS m64 subtiles each)
+  int nco, nwt, nbands, nchunks;  // tiles of Co, W chunks, bands, channel chunks
+  int ntiles;                     // B * nbands * nwt * nco, walked by a persistent grid
+  int plane;                      // S = 2: rows from one parity plane to the next
+  int nbs;                        // slots of the weight ring
+  int a_stage;                    // bytes of an A slot (a multiple of 1024)
+  int a_tx;                       // bytes the TMA loads write into an A slot
+  int planes;                     // bit p: plane p is loaded (S = 2, H or W of 1: no odd plane)
+  int taps;                       // bit t: tap t is computed (the others read only zeros)
+  int act;
 };
 
-template <typename T, int S, int BN>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_wg_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               const T* __restrict__ bias, T* __restrict__ y, int H, int W, int Ci, int Co,
-               int Ho, int Wo, int M, int act) {
-  using G = Wg<BN>;
-  constexpr int BM = 128, AR = 2, BU = BN / 64;
-  extern __shared__ __align__(128) uint4 smem[];
-  const uint32_t raw_base = smem_u32(smem);
-  const uint32_t sbase = (raw_base + 1023) & ~1023u;
-  char* const sptr = reinterpret_cast<char*>(smem) + (sbase - raw_base);
+struct TcMaps {
+  CUtensorMap a[4];  // S = 1: a[0], the input; S = 2: plane (row parity, column parity)
+  CUtensorMap w;     // the weights as (Co, Ci, 9)
+};
 
-  const int ntiles = (Co + BN - 1) / BN;
-  const int m0 = (blockIdx.x / ntiles) * BM;
-  const int co0 = (blockIdx.x % ntiles) * BN;
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const bool xvec = (Ci & 7) == 0;
-  const bool wvec = (Co & 7) == 0;
-  const int KT = 9 * ((Ci + kBK - 1) / kBK);
-
-  const int au = tid & 3;
-  long aoff[AR];
-  int amask[AR];
+// Bias, activation, one rounding to T, paired stores of one warp's 16 flat
+// rows m0.. of a 64 x BN accumulator.
+template <typename T, int BN>
+__device__ __forceinline__ void store_rows(const float (&d)[BN / 2], T* __restrict__ y,
+                                           const T* __restrict__ bias, const TcGeo& g, int m0,
+                                           int b, int h0, int w0, int co0) {
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2, q = lane & 3;
+  float bv[BN / 8][2];
 #pragma unroll
-  for (int i = 0; i < AR; ++i) {
-    const int m = m0 + (tid >> 2) + 64 * i;
-    amask[i] = 0;
-    aoff[i] = 0;
-    if (m < M) {
-      const int hw = Ho * Wo;
-      const int b = m / hw, rem = m - b * hw;
-      const int ho = rem / Wo, wo = rem - ho * Wo;
-      const int hi = ho * S - 1, wi = wo * S - 1;
+  for (int ni = 0; ni < BN / 8; ++ni) {
+    const int co = co0 + ni * 8 + 2 * q;
+    bv[ni][0] = co < g.Co ? to_f(bias[co]) : 0.f;
+    bv[ni][1] = co + 1 < g.Co ? to_f(bias[co + 1]) : 0.f;
+  }
+  const bool pairs = (g.Co & 1) == 0;
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int h = hi + tap / 3, v = wi + tap % 3;
-        if (h >= 0 && h < H && v >= 0 && v < W) amask[i] |= 1 << tap;
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + gr + half * 8;
+    const int i = m / g.P, j = m - i * g.P;
+    if (m >= g.rows || j >= g.Wt || w0 + j >= g.Wo || h0 + i >= g.Ho) continue;
+    T* yp = y + (((size_t)b * g.Ho + h0 + i) * g.Wo + w0 + j) * g.Co;
+#pragma unroll
+    for (int ni = 0; ni < BN / 8; ++ni) {
+      const int co = co0 + ni * 8 + 2 * q;
+      if (co >= g.Co) continue;
+      const float v0 = apply_act_fast(d[ni * 4 + 2 * half] + bv[ni][0], g.act);
+      const float v1 = apply_act_fast(d[ni * 4 + 2 * half + 1] + bv[ni][1], g.act);
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(yp + co) = Half16<T>::pack(v0, v1);
+      } else {
+        yp[co] = from_f<T>(v0);
+        if (co + 1 < g.Co) yp[co + 1] = from_f<T>(v1);
       }
-      aoff[i] = (((long)b * H + hi) * W + wi) * Ci;
     }
   }
-
-  auto stage = [&](int kt, int s) {
-    const int ch = kt / 9, tap = kt - ch * 9;
-    const int ci = ch * kBK + au * 8;
-    const long toff = ((long)(tap / 3) * W + tap % 3) * Ci + ci;
-    const uint32_t as = sbase + s * G::kStage;
-    char* const ap = sptr + s * G::kStage;
-#pragma unroll
-    for (int i = 0; i < AR; ++i) {
-      const int r = (tid >> 2) + 64 * i;
-      const bool ok = ((amask[i] >> tap) & 1) && ci < Ci;
-      const T* src = ok ? x + aoff[i] + toff : x;
-      if (xvec)
-        cp_async16(as + a_off(r, au), src, ok);
-      else
-        *reinterpret_cast<uint4*>(ap + a_off(r, au)) = load8_masked(src, ci, Ci, ok);
-    }
-#pragma unroll
-    for (int j = 0; j < BU; ++j) {
-      const int idx = tid + kThreads * j;
-      const int k = idx / (BN / 8), nu = idx % (BN / 8);
-      const int cik = ch * kBK + k, co = co0 + nu * 8;
-      const bool ok = cik < Ci && co < Co;
-      const T* src = ok ? w + ((size_t)tap * Ci + cik) * Co + co : w;
-      if (wvec)
-        cp_async16(as + G::AB + b_off(k, nu), src, ok);
-      else
-        *reinterpret_cast<uint4*>(ap + G::AB + b_off(k, nu)) = load8_masked(src, co, Co, ok);
-    }
-  };
-
-  float acc[1][BN / 8][4];
-#pragma unroll
-  for (int ni = 0; ni < BN / 8; ++ni)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[0][ni][j] = 0.f;
-  float(&d)[BN / 2] = reinterpret_cast<float(&)[BN / 2]>(acc);
-
-  constexpr int kAhead = kStages - 2;  // k steps in flight ahead of the one in use
-#pragma unroll
-  for (int s = 0; s < kAhead; ++s) {
-    if (s < KT) stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kAhead - 1>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // copies -> wgmma's view
-    __syncthreads();
-    // the slot of step kt - 2 is free: its wgmma finished before step kt - 1's
-    // wait returned, and every thread is past this barrier
-    if (kt + kAhead < KT) stage(kt + kAhead, (kt + kAhead) % kStages);
-    cp_async_commit();
-    const uint32_t as = sbase + (kt % kStages) * G::kStage;
-    const uint32_t bs = as + G::AB;
-    // a second k16 half past Ci is all zero and skipped
-    const int nks = Ci - (kt / 9) * kBK > 16 ? 2 : 1;
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      if (ks >= nks) break;
-      // A: 64 rows of the warpgroup, 64-byte swizzle, 8-row groups 512 bytes
-      // apart; B: k rows 16 ks.., 128-byte swizzle, 8-row groups 1024 bytes
-      // apart, 64-column blocks kBK * 128 bytes apart
-      const uint64_t da = smem_desc(as + wg * 64 * 64 + ks * 32, 16, 512, 2);
-      const uint64_t db = smem_desc(bs + ks * 16 * 128, kBK * 128, 1024, 1);
-      wgmma16<T, BN>(d, da, db);
-    }
-    wgmma_commit();
-    wgmma_wait<1>();  // step kt's products may run on past the next barrier
-  }
-  wgmma_wait<0>();
-  const int warp = tid >> 5;
-  store_tile<T, 1, BN / 8>(acc, y, bias, M, Co, m0 + wg * 64 + (warp & 3) * 16, co0, act);
 }
 
-template <typename T, int S, int BN>
-cudaError_t launch_wg(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
-                      int Ci, int Co, int act, cudaStream_t stream) {
-  using G = Wg<BN>;
-  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
-  const long M = (long)B * Ho * Wo;
-  const long blocks = (M + 127) / 128 * ((Co + BN - 1) / BN);
-  if (M > INT32_MAX || blocks > INT32_MAX) return cudaErrorInvalidValue;
-  auto kernel = conv_wg_kernel<T, S, BN>;
-  cudaError_t err = allow_smem(kernel, G::kBytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kThreads, G::kBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(y), H, W, Ci, Co, Ho, Wo, (int)M, act);
+// Warpgroups 0..wgs-1 issue wgmma, each on MS m64 subtiles of flat rows (the
+// rows past `rows` computed and not stored; a warpgroup past wgs idles); the
+// last warpgroup's first thread is the producer. The wgmma of a tap are
+// issued unconditionally (k16 steps past Ci read TMA's zeros): a wgmma on a
+// branch makes the compiler serialise them. Per channel chunk the producer loads the input tile once (one
+// TMA box, or four for the parity planes) into one of two A slots, then the
+// weights of each tap into a ring of nbs slots; the consumers wait on the full
+// barriers, run each tap's wgmma from the shifted A descriptor, keep one
+// group in flight, and release a slot once the group that read it is done.
+template <typename T, int S, int BN, int MS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+conv_tc_kernel(const __grid_constant__ TcMaps maps, const T* __restrict__ bias,
+               T* __restrict__ y, const __grid_constant__ TcGeo g) {
+  constexpr int kBK = chunk_of<S>();
+  constexpr int kARow = kBK * 2;  // bytes of an A row: one pixel's kBK channels
+  constexpr int kBSlot = kBK * BN * 2;
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const uint32_t a0 = (smem_u32(tc_smem) + 1023) & ~1023u;
+  const uint32_t b0 = a0 + 2 * g.a_stage;
+  const uint32_t bars = b0 + g.nbs * kBSlot;
+  // a_full[2], a_empty[2], b_full[kMaxBStages], b_empty[kMaxBStages]
+  const uint32_t a_full = bars, a_empty = bars + 16, b_full = bars + 32,
+                 b_empty = bars + 32 + 8 * kMaxBStages;
+
+  // tile t -> (image b, first output row h0, column w0, channel co0), the
+  // N tile fastest: blocks working at once share their input tile in L2
+  int b, h0, w0, co0;
+  auto tile_at = [&](int t) {
+    co0 = (t % g.nco) * BN;
+    t /= g.nco;
+    w0 = (t % g.nwt) * g.Wt;
+    t /= g.nwt;
+    h0 = (t % g.nbands) * g.R;
+    b = t / g.nbands;
+  };
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, 4 * g.wgs);
+    }
+    for (int s = 0; s < g.nbs; ++s) {
+      mbar_init(b_full + 8 * s, 1);
+      mbar_init(b_empty + 8 * s, 4 * g.wgs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {
+    // ---- producer
+    setmaxnreg_dec<40>();
+    if (tid == 128 * kConsumers) {
+      int as = 0, aph = 0, bs = 0, bph = 0;
+      for (int t = blockIdx.x; t < g.ntiles; t += gridDim.x) {
+        tile_at(t);
+        for (int c = 0; c < g.nchunks; ++c) {
+          const int c0 = c * kBK;
+          mbar_wait(a_empty + 8 * as, aph ^ 1);
+          mbar_expect(a_full + 8 * as, g.a_tx);
+          const uint32_t dst = a0 + as * g.a_stage;
+          if (S == 1) {
+            tma4(dst, &maps.a[0], a_full + 8 * as, c0, w0 - 1, h0 - 1, b);
+          } else {
+#pragma unroll
+            for (int p = 0; p < 4; ++p)  // odd columns start one left, odd rows one up
+              if ((g.planes >> p) & 1)
+                tma4(dst + p * g.plane * kARow, &maps.a[p], a_full + 8 * as, c0, w0 - (p & 1),
+                     h0 - (p >> 1), b);
+          }
+          if (++as == 2) {
+            as = 0;
+            aph ^= 1;
+          }
+          for (int tap = 0; tap < 9; ++tap) {
+            if (!((g.taps >> tap) & 1)) continue;
+            mbar_wait(b_empty + 8 * bs, bph ^ 1);
+            mbar_expect(b_full + 8 * bs, kBSlot);
+            const uint32_t bd = b0 + bs * kBSlot;
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j)
+              tma3(bd + j * kBK * 128, &maps.w, b_full + 8 * bs, co0 + 64 * j, c0, tap);
+            if (++bs == g.nbs) {
+              bs = 0;
+              bph ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else if (warp < 4 * g.wgs) {
+    // ---- consumers
+    setmaxnreg_inc<232>();
+    const int mw = 64 * MS * (warp >> 2);  // this warpgroup's first flat row
+    const int last_tap = 31 - __clz(g.taps);
+    float acc0[BN / 2], acc1[BN / 2];
+    int as = 0, aph = 0, bs = 0, bph = 0;
+    for (int t = blockIdx.x; t < g.ntiles; t += gridDim.x) {
+      tile_at(t);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc0[i] = acc1[i] = 0.f;
+      int rel_b = -1, rel_a = -1;  // slots whose reads the group in flight may still make
+      for (int c = 0; c < g.nchunks; ++c) {
+        mbar_wait(a_full + 8 * as, aph);
+        const uint32_t abase = a0 + as * g.a_stage + mw * kARow;
+        for (int tap = 0; tap < 9; ++tap) {
+          if (!((g.taps >> tap) & 1)) continue;
+          const int dy = tap / 3, dx = tap - 3 * dy;
+          const int off = S == 1 ? dy * g.P + dx
+                                 : ((dy == 1 ? 0 : 2) + (dx == 1 ? 0 : 1)) * g.plane +
+                                       (dy == 2 ? g.P : 0) + (dx == 2 ? 1 : 0);
+          const uint32_t at = abase + off * kARow;
+          mbar_wait(b_full + 8 * bs, bph);
+          const uint32_t bsm = b0 + bs * kBSlot;
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kBK / 16; ++ks) {
+            // B: k rows 16 ks.., 128-byte swizzle, 8-row groups 1024 bytes
+            // apart, 64-column blocks kBK * 128 bytes apart
+            const uint64_t db = smem_desc(bsm + ks * 16 * 128, kBK * 128, 1024, 1);
+            wgmma16<T, BN>(acc0, a_desc<kBK>(at + ks * 32), db);
+            if constexpr (MS == 2)
+              wgmma16<T, BN>(acc1, a_desc<kBK>(at + 64 * kARow + ks * 32), db);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous tap's group is done: release its slots
+          if (lane == 0) {
+            if (rel_b >= 0) mbar_arrive(b_empty + 8 * rel_b);
+            if (rel_a >= 0) mbar_arrive(a_empty + 8 * rel_a);
+          }
+          rel_b = bs;
+          rel_a = tap == last_tap ? as : -1;
+          if (++bs == g.nbs) {
+            bs = 0;
+            bph ^= 1;
+          }
+        }
+        if (++as == 2) {
+          as = 0;
+          aph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) {  // the producer may fill the last slots with the next tile
+        mbar_arrive(b_empty + 8 * rel_b);
+        mbar_arrive(a_empty + 8 * rel_a);
+      }
+      const int m0 = mw + (warp & 3) * 16;
+      store_rows<T, BN>(acc0, y, bias, g, m0, b, h0, w0, co0);
+      if constexpr (MS == 2) store_rows<T, BN>(acc1, y, bias, g, m0 + 64, b, h0, w0, co0);
+    }
+  }
+}
+
+// The tile plan's geometry and shared memory (kernels/conv3x3.py tc_smem
+// mirrors it); false where the plan does not fit.
+template <int S, int BN, int MS>
+bool tc_geometry(TcGeo& g, int B, int H, int W, int Ci, int Co, int R, int Wt, long& blocks,
+                 int& smem) {
+  constexpr int kBK = chunk_of<S>(), kARow = kBK * 2;
+  g.H = H;
+  g.W = W;
+  g.Ci = Ci;
+  g.Co = Co;
+  g.Ho = (H - 1) / S + 1;
+  g.Wo = (W - 1) / S + 1;
+  g.R = R;
+  g.Wt = Wt;
+  g.P = Wt + 3 - S;
+  g.rows = R * g.P;
+  if (R < 1 || Wt < 1 || g.P > 256 || g.rows > kTcRows) return false;
+  g.wgs = (g.rows + 64 * MS - 1) / (64 * MS);
+  if (g.wgs > kConsumers) return false;
+  g.nco = (Co + BN - 1) / BN;
+  g.nwt = (g.Wo + Wt - 1) / Wt;
+  g.nbands = (g.Ho + R - 1) / R;
+  g.nchunks = (Ci + kBK - 1) / kBK;
+  const int reach = 64 * MS * g.wgs;  // flat rows the wgmma read from a tap's start
+  int rows;
+  if (S == 1) {
+    g.plane = 0;
+    g.planes = 1;
+    g.taps = 0x1FF;
+    g.a_tx = (R + 2) * g.P * kARow;
+    rows = reach + 2 * g.P + 2;  // the last tap starts 2 P + 2 rows in
+  } else {
+    g.plane = ((R + 1) * g.P + 15) / 16 * 16;
+    g.planes = 0;
+    g.taps = 0;
+    for (int p = 0; p < 4; ++p)
+      if ((!(p >> 1) || H > 1) && (!(p & 1) || W > 1)) g.planes |= 1 << p;
+    for (int t = 0; t < 9; ++t)
+      if ((t / 3 == 1 || H > 1) && (t % 3 == 1 || W > 1)) g.taps |= 1 << t;
+    g.a_tx = __builtin_popcount(g.planes) * (R + 1) * g.P * kARow;
+    rows = 3 * g.plane + reach + g.P + 1;  // plane 3's last tap starts P + 1 rows in
+  }
+  g.a_stage = (rows * kARow + 1023) / 1024 * 1024;
+  const int bslot = kBK * BN * 2, fixed = 1024 + 2 * g.a_stage + 8 * (4 + 2 * kMaxBStages);
+  g.nbs = std::min(kMaxBStages, (232448 - fixed) / bslot);
+  if (g.nbs < kMinBStages) return false;
+  smem = fixed + g.nbs * bslot;
+  blocks = (long)B * g.nbands * g.nwt * g.nco;
+  g.ntiles = (int)blocks;
+  return blocks <= INT32_MAX;
+}
+
+template <typename T, int S, int BN, int MS>
+cudaError_t launch_tc(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
+                      int Ci, int Co, int Cop, int R, int Wt, int act, cudaStream_t stream) {
+  TcGeo g;
+  long blocks;
+  int smem;
+  if (!tc_geometry<S, BN, MS>(g, B, H, W, Ci, Co, R, Wt, blocks, smem))
+    return cudaErrorInvalidValue;
+  g.act = act;
+  TcMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  constexpr int kBK = chunk_of<S>();
+  const uint32_t abox[4] = {kBK, (uint32_t)g.P, (uint32_t)(R + 3 - S), 1};
+  const CUtensorMapSwizzle a_swz = kBK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B;
+  int err = 0;
+  if (S == 1) {
+    const uint64_t dims[4] = {(uint64_t)Ci, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint64_t str[3] = {(uint64_t)Ci, (uint64_t)W * Ci, (uint64_t)H * W * Ci};
+    err = encode(&maps.a[0], tma_type<T>(), 4, x, dims, str, abox, a_swz);
+  } else {
+    for (int p = 0; p < 4 && !err; ++p) {
+      if (!((g.planes >> p) & 1)) continue;
+      const int py = p >> 1, px = p & 1;
+      const uint64_t dims[4] = {(uint64_t)Ci, (uint64_t)(W - px + 1) / 2,
+                                (uint64_t)(H - py + 1) / 2, (uint64_t)B};
+      const uint64_t str[3] = {2 * (uint64_t)Ci, 2 * (uint64_t)W * Ci, (uint64_t)H * W * Ci};
+      const T* base = static_cast<const T*>(x) + ((size_t)py * W + px) * Ci;
+      err = encode(&maps.a[p], tma_type<T>(), 4, base, dims, str, abox, a_swz);
+    }
+  }
+  if (!err) {
+    const uint64_t dims[3] = {(uint64_t)Cop, (uint64_t)Ci, 9};
+    const uint64_t str[2] = {(uint64_t)Cop, (uint64_t)Ci * Cop};
+    const uint32_t box[3] = {64, kBK, 1};
+    err = encode(&maps.w, tma_type<T>(), 3, w, dims, str, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err) return static_cast<cudaError_t>(err);
+  auto kernel = conv_tc_kernel<T, S, BN, MS>;
+  cudaError_t e = allow_smem(kernel, smem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // persistent: one block an SM walks the tiles
+  kernel<<<(unsigned)std::min<long>(blocks, sms), kTcThreads, smem, stream>>>(
+      maps, static_cast<const T*>(b), static_cast<T*>(y), g);
   return cudaGetLastError();
 }
 
@@ -626,27 +898,77 @@ cudaError_t launch_stem(const void* x, const void* w, const void* b, void* y, in
   return cudaGetLastError();
 }
 
-// The stem (bn 0, Ci <= 7), else the wgmma kernel with bn channels a block:
-// the wrapper picks bn (kernels/conv3x3.py n_tile: 128 where that grid still
-// covers every SM, else 64) and the launch checks it.
+// The stem (bn 0, Ci <= 7), else the tensor-core kernel with bn channels a
+// block and R x Wt output pixels (the wrapper's plan, kernels/conv3x3.py
+// conv_plan); the launch checks it.
 template <typename T, int S>
 cudaError_t launch_conv(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
-                        int Ci, int Co, int act, int bn, cudaStream_t stream) {
+                        int Ci, int Co, int Cop, int act, int bn, int R, int Wt,
+                        cudaStream_t stream) {
   if ((bn == 0) != (Ci <= 7)) return cudaErrorInvalidValue;
   if (bn == 0) return launch_stem<T, S>(x, w, b, y, B, H, W, Ci, Co, act, stream);
-  if (bn == 128) return launch_wg<T, S, 128>(x, w, b, y, B, H, W, Ci, Co, act, stream);
-  if (bn == 64) return launch_wg<T, S, 64>(x, w, b, y, B, H, W, Ci, Co, act, stream);
+  if ((Ci & 7) || (Cop & 7) || Cop < Co) return cudaErrorInvalidValue;
+  // one m64 subtile a consumer warpgroup up to 128 flat rows, else two
+  const bool two = R * (Wt + 3 - S) > 128;
+  if (bn == 128)
+    return two ? launch_tc<T, S, 128, 2>(x, w, b, y, B, H, W, Ci, Co, Cop, R, Wt, act, stream)
+               : launch_tc<T, S, 128, 1>(x, w, b, y, B, H, W, Ci, Co, Cop, R, Wt, act, stream);
+  if (bn == 64)
+    return two ? launch_tc<T, S, 64, 2>(x, w, b, y, B, H, W, Ci, Co, Cop, R, Wt, act, stream)
+               : launch_tc<T, S, 64, 1>(x, w, b, y, B, H, W, Ci, Co, Cop, R, Wt, act, stream);
   return cudaErrorInvalidValue;
+}
+
+// The descriptor probe: D = A[r0 : r0 + 64] B for r0 = blockIdx.x, with A
+// (128 x 64) loaded by TMA under the 128-byte swizzle and read through
+// a_desc<64> from row r0, as conv_tc_kernel reads a tap's rows.
+__global__ void __launch_bounds__(128)
+desc_probe_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                  float* __restrict__ out) {
+  extern __shared__ __align__(1024) uint8_t probe_smem[];
+  const uint32_t a = (smem_u32(probe_smem) + 1023) & ~1023u;
+  const uint32_t b = a + 128 * 128, bar = b + 64 * 128;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bar, 128 * 128 + 64 * 128);
+    tma3(a, &amap, bar, 0, 0, 0);
+    tma3(b, &bmap, bar, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma16<bf16, 64>(d, a_desc<64>(a + blockIdx.x * 128 + ks * 32),
+                      smem_desc(b + ks * 16 * 128, 64 * 128, 1024, 1));
+  wgmma_commit();
+  wgmma_wait<0>();
+  const int warp = tid >> 5, lane = tid & 31, gr = lane >> 2, q = lane & 3;
+  float* o = out + (size_t)blockIdx.x * 64 * 64;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[(warp * 16 + gr + (j >> 1) * 8) * 64 + ni * 8 + 2 * q + (j & 1)] = d[ni * 4 + j];
 }
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 on success). dtype: 0 float32 (CUDA
-// cores; bn unused), 1 bfloat16 or 2 float16 (tensor cores, bn channels a
-// block: 0 for the stem, 64 or 128).
+// Returns the CUDA error of the launch (0 on success; 10000 + a CUresult
+// where a TMA tensor map could not be encoded). dtype: 0 float32 (CUDA
+// cores; bn, R, Wt, Cop unused), 1 bfloat16 or 2 float16 (tensor cores: bn
+// 0 for the stem, else 64 or 128 channels a block, R x Wt output pixels a
+// block; Ci and Cop, the weights' Co, multiples of 8).
 extern "C" int ys_conv3x3(const void* x, const void* w, const void* b, void* y, int B, int H,
-                          int W, int Ci, int Co, int stride, int act, int dtype, int bn,
-                          void* stream) {
+                          int W, int Ci, int Co, int Cop, int stride, int act, int dtype, int bn,
+                          int R, int Wt, void* stream) {
   if (B == 0 || H == 0 || W == 0 || Co == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stride != 1 && stride != 2) return cudaErrorInvalidValue;
@@ -654,10 +976,36 @@ extern "C" int ys_conv3x3(const void* x, const void* w, const void* b, void* y, 
     return stride == 1 ? launch_f32_ck<1>(x, w, b, y, B, H, W, Ci, Co, act, st)
                        : launch_f32_ck<2>(x, w, b, y, B, H, W, Ci, Co, act, st);
   if (dtype == 1)
-    return stride == 1 ? launch_conv<bf16, 1>(x, w, b, y, B, H, W, Ci, Co, act, bn, st)
-                       : launch_conv<bf16, 2>(x, w, b, y, B, H, W, Ci, Co, act, bn, st);
+    return stride == 1
+               ? launch_conv<bf16, 1>(x, w, b, y, B, H, W, Ci, Co, Cop, act, bn, R, Wt, st)
+               : launch_conv<bf16, 2>(x, w, b, y, B, H, W, Ci, Co, Cop, act, bn, R, Wt, st);
   if (dtype == 2)
-    return stride == 1 ? launch_conv<f16, 1>(x, w, b, y, B, H, W, Ci, Co, act, bn, st)
-                       : launch_conv<f16, 2>(x, w, b, y, B, H, W, Ci, Co, act, bn, st);
+    return stride == 1
+               ? launch_conv<f16, 1>(x, w, b, y, B, H, W, Ci, Co, Cop, act, bn, R, Wt, st)
+               : launch_conv<f16, 2>(x, w, b, y, B, H, W, Ci, Co, Cop, act, bn, R, Wt, st);
   return cudaErrorInvalidValue;
+}
+
+// The descriptor probe (tests/test_torch_cuda.py): a (128, 64) and b (64, 64)
+// bfloat16, row-major; out (nr0, 64, 64) float32 gets A[r0 : r0 + 64] B for
+// each r0 < nr0 <= 64, read through the kernel's A descriptor.
+extern "C" int ys_conv3x3_desc_probe(const void* a, const void* b, void* out, int nr0,
+                                     void* stream) {
+  if (nr0 < 1 || nr0 > 64) return cudaErrorInvalidValue;
+  CUtensorMap am, bm;
+  const uint64_t dims[3] = {64, 128, 1}, str[2] = {64, 64 * 128};
+  const uint32_t abox[3] = {64, 128, 1}, bbox[3] = {64, 64, 1};
+  int err = encode(&am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a, dims, str, abox,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
+  const uint64_t bdims[3] = {64, 64, 1}, bstr[2] = {64, 64 * 64};
+  if (!err)
+    err = encode(&bm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, b, bdims, bstr, bbox,
+                 CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  const int smem = 1024 + 128 * 128 + 64 * 128 + 64;
+  cudaError_t e = allow_smem(desc_probe_kernel, smem);
+  if (e != cudaSuccess) return e;
+  desc_probe_kernel<<<nr0, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+      am, bm, static_cast<float*>(out));
+  return cudaGetLastError();
 }

@@ -11,26 +11,28 @@ What bounds it on the card: a YOLO 3x3 conv does 9*Ci multiply-adds per
 output value, so the limit is how fast the operands reach the multipliers.
 The route goes by dtype, statically, with no fallback:
 
-- bfloat16 and float16 (one template on the element type): a flat-M
-  implicit GEMM on Hopper's warpgroup MMA (``wgmma.m64nBNk16``, float32
-  sums). M runs over the flat output pixels
-  of the batch, N over Co, K over (tap, 32 channels). A block owns 128
-  pixels x BN channels, BN = 128 where that grid still covers every SM,
-  else 64 (``n_tile``). Each k step's A rows (the pixel each output pixel
-  reads at that tap, zero-filled outside the image) and weight rows are
-  copied with 16-byte ``cp.async`` into a 5-slot shared-memory ring three
-  steps ahead, stored in the swizzled layouts that wgmma reads through
-  shared-memory descriptors: no ldmatrix, no im2col, and stride 2 only
-  changes the addresses. Bound by the L2 -> shared copies: 64 flop per
-  copied byte at BN = 128, A copied once per tap. The stem (Ci <= 7)
-  packs its 9 taps x Ci channels into one K <= 64 on ``mma.sync``.
+- bfloat16 and float16 (one template on the element type), Ci >= 8: an
+  implicit GEMM on Hopper's warpgroup MMA (``wgmma``, float32 sums) whose
+  input tile is loaded once per channel chunk for all nine taps, the TPU
+  kernel's flat-row trick: a block's R output rows x Wt columns of one
+  image are stored as rows of P pixels (the padded band at stride 1, four
+  parity planes at stride 2), so every tap's operand is one run of rows
+  read through a shifted shared-memory descriptor, and the junk columns
+  (P - Wt a row) are never stored. A producer thread feeds it with TMA
+  (the zero padding is TMA's out-of-bounds fill) against mbarriers; two
+  consumer warpgroups only run wgmma; one block an SM walks the tiles.
+  ``conv_plan`` picks R, Wt and the N tile per call from the shape and the
+  card's SM count, by a cost model fitted to the kernel's times on the
+  card (``chip_conv_plans.py``); Ci or Co not a multiple of 8 is
+  zero-padded here (TMA needs 16-byte strides). With the tile copied once
+  and not nine times, what bounds it is its epilogue, not overlapped with
+  the next tile's products, and each k step's barrier round trip (the
+  source note of ``csrc/conv3x3.cu``). The stem (Ci <= 7) packs its 9
+  taps x Ci channels into one K <= 64 on ``mma.sync``.
 - float32: the CUDA-core kernel (TF32 would break the float32 contract). A
   block owns 8x16 output pixels x 64 channels, stages the halo tile and the
   weight slice 16 channels at a time, and each thread keeps a 4-pixel x
   8-channel micro-tile (32 multiply-adds per 6 shared loads).
-
-Neither needs the TPU kernel's layout tricks (flat-row im2col, junk
-columns, parity planes for stride 2, H % R == 0): edges are masked.
 
 On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA
 tensor they launch the kernel or raise.
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -56,17 +59,120 @@ def supported(k: int, s: int, p: int, d: int, g: int) -> bool:
     return k == 3 and s in (1, 2) and p == 1 and d == 1 and g == 1
 
 
-def n_tile(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
-           sms: int) -> int:
-    """Output channels of one block of the 16-bit kernel: 0 for the stem
-    (Ci <= 7, its own kernel), 128 where the grid of 128-pixel x 128-channel
-    blocks still covers the card's sms SMs, else 64."""
+# the 16-bit kernel's constants (csrc/conv3x3.cu)
+TC_ROWS = 256          # flat rows of a block: two consumer warpgroups x 128
+TC_BSTAGES = 4         # slots of the weight ring at least (up to 8 where
+                       # the shared memory holds them)
+
+
+class ConvPlan(NamedTuple):
+    """What one 16-bit launch runs: ``bn`` output channels a block (0: the
+    stem kernel, Ci <= 7), ``rows`` output rows and ``wt`` output columns a
+    block."""
+    bn: int
+    rows: int = 0
+    wt: int = 0
+
+
+def chunk(stride: int) -> int:
+    """Input channels a k step of the 16-bit kernel reads (its BK)."""
+    return 64 if stride == 1 else 32
+
+
+def subtiles(flat: int) -> int:
+    """The m64 subtiles of flat rows the 16-bit kernel computes for a block
+    of ``flat`` rows: one a consumer warpgroup up to 128 rows, else two a
+    warpgroup on both."""
+    return -(-flat // 64) if flat <= 128 else 4
+
+
+def tc_smem(stride: int, rows: int, wt: int, bn: int) -> int:
+    """Dynamic shared memory of one block of the 16-bit kernel (its
+    tc_geometry) with the least weight ring: two input-tile slots, four
+    weight slots, the barriers; the kernel takes more weight slots, up to 8,
+    where the card's shared memory holds them."""
+    bk = chunk(stride)
+    p = wt + 3 - stride
+    reach = 64 * subtiles(rows * p)
+    if stride == 1:
+        tile = reach + 2 * p + 2
+    else:
+        plane = -(-(rows + 1) * p // 16) * 16
+        tile = 3 * plane + reach + p + 1
+    slot = -(-tile * bk * 2 // 1024) * 1024
+    return 1024 + 2 * slot + TC_BSTAGES * bk * bn * 2 + 8 * (4 + 2 * 8)
+
+
+# plan_cost's clocks, fitted (non-negative least squares on the relative
+# error) to the bf16 times of candidate plans at every 16-bit shape of
+# every path at B=32 and B=2 on an H100 (chip_conv_plans.py):
+# a wgmma.m64n64k16, a k step's barrier round trip, a KB of input tile, an
+# output element's epilogue, a tile round and the launch
+COST_MMA, COST_STEP, COST_TILE_KB, COST_OUT, COST_ROUND, COST_LAUNCH = (
+    24.28, 281.8, 5.519, 0.5042, 1958.0, 11470.0)
+
+
+def plan_features(B: int, Ho: int, Wo: int, Ci: int, Co: int, stride: int,
+                  sms: int, plan: ConvPlan) -> tuple:
+    """(tile rounds of the persistent grid, then per tile: wgmma.m64n64k16
+    issued, k steps, KB of input tile copied, output elements)."""
+    bn, rows, wt = plan
+    bk = chunk(stride)
+    p = wt + 3 - stride
+    tiles = B * -(-Ho // rows) * -(-Wo // wt) * -(-Co // bn)
+    chunks = -(-Ci // bk)
+    mma = chunks * bk // 16 * 9 * subtiles(rows * p) * (bn // 64)
+    tile_kb = (chunks * (rows + 3 - stride) * p * bk * 2
+               * (1 if stride == 1 else 4) / 1e3)
+    return -(-tiles // sms), mma, chunks * 9, tile_kb, rows * wt * bn
+
+
+def plan_cost(B: int, Ho: int, Wo: int, Ci: int, Co: int, stride: int,
+              sms: int, plan: ConvPlan) -> float:
+    """A model of the launch's time in SM clocks: the persistent grid's
+    rounds of tiles, each tile as long as its wgmma, k steps, input-tile
+    copy and epilogue take (COST_*), plus the launch."""
+    rounds, mma, steps, tile_kb, out = plan_features(B, Ho, Wo, Ci, Co,
+                                                     stride, sms, plan)
+    return (rounds * (COST_MMA * mma + COST_STEP * steps
+                      + COST_TILE_KB * tile_kb + COST_OUT * out + COST_ROUND)
+            + COST_LAUNCH)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
+              sms: int) -> ConvPlan:
+    """The 16-bit kernel's tile for one call on a card of sms SMs: the stem
+    where Ci <= 7, else the N tile (128 only where Co > 64), the W chunk
+    (Wt + 2 or + 1 pixels a tile row, at most 256) and the band's rows
+    (R P <= 256 flat rows, the shared memory within the card's) that
+    plan_cost rates fastest. Ci and Co are the padded widths the kernel
+    takes."""
     if Ci <= 7:
-        return 0
-    m = B * ((H - 1) // stride + 1) * ((W - 1) // stride + 1)
-    if Co > 64 and -(-m // 128) * -(-Co // 128) >= sms:
-        return 128
-    return 64
+        return ConvPlan(0)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    best = None
+    for bn in ((64, 128) if Co > 64 else (64,)):
+        for splits in range(1, min(Wo, 16) + 1):
+            wt = -(-Wo // splits)
+            p = wt + 3 - stride
+            if p > TC_ROWS or (splits > 1 and wt == -(-Wo // (splits - 1))):
+                continue
+            for rows in sorted({-(-Ho // n) for n in range(1, Ho + 1)}):
+                if rows * p > TC_ROWS or \
+                        tc_smem(stride, rows, wt, bn) > build.SMEM_LIMIT:
+                    continue
+                plan = ConvPlan(bn, rows, wt)
+                key = (plan_cost(B, Ho, Wo, Ci, Co, stride, sms, plan),
+                       -rows * wt, -bn)
+                if best is None or key < best[0]:
+                    best = (key, plan)
+    return best[1]
+
+
+def padded(c: int) -> int:
+    """A channel count rounded up to the 16-bit kernel's multiple of 8."""
+    return -(-c // 8) * 8
 
 
 def conv3x3_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -83,12 +189,19 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("conv3x3")
     fn = lib.ys_conv3x3
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
+    probe = lib.ys_conv3x3_desc_probe
+    probe.restype = ctypes.c_int
+    probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
-def _launch(name: str, x, w, b, act: str, stride: int) -> torch.Tensor:
+def _launch(name: str, x, w, b, act: str, stride: int,
+            plan: ConvPlan = None) -> torch.Tensor:
+    """The kernel's launch; the 16-bit route runs ``plan`` where one is
+    given (tests hold other tiles than conv_plan's to the plain version),
+    else conv_plan's."""
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, Ci) and w (3, 3, Ci, "
                          f"Co), got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -101,15 +214,42 @@ def _launch(name: str, x, w, b, act: str, stride: int) -> torch.Tensor:
         raise ValueError(f"{name}: unknown activation {act!r}")
     code, stream = build.launch_args(name, x, w, b)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    bn = (n_tile(B, H, W, Ci, Co, stride, build.sm_count(x.device.index))
-          if x.dtype in build.HALF_DTYPES else 0)
     y = torch.empty((B, Ho, Wo, Co), dtype=x.dtype, device=x.device)
+    cop = Co
+    if x.dtype not in build.HALF_DTYPES:
+        plan = ConvPlan(0)   # the float32 kernel has one tile
+    else:
+        cip, cop = (Ci, Co) if Ci <= 7 else (padded(Ci), padded(Co))
+        if (cip, cop) != (Ci, Co):   # TMA needs 16-byte strides
+            x = F.pad(x, (0, cip - Ci))
+            w = F.pad(w, (0, cop - Co, 0, cip - Ci))
+        plan = plan or conv_plan(B, H, W, cip, cop, stride,
+                                 build.sm_count(x.device.index))
+        Ci = cip
     with torch.cuda.device(x.device):
         status = _lib().ys_conv3x3(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, H, W,
-            Ci, Co, stride, ACT_CODES[act], code, bn, stream)
+            Ci, Co, cop, stride, ACT_CODES[act], code, *plan, stream)
     build.check_status(name, status)
     return y
+
+
+def desc_probe(a: torch.Tensor, b: torch.Tensor, nr0: int) -> torch.Tensor:
+    """The kernel's A descriptor at every row start: (nr0, 64, 64) float32
+    A[r0 : r0 + 64] @ b for r0 < nr0, with a (128, 64) bfloat16 loaded as the
+    kernel loads its input tile (TMA, 128-byte swizzle) and read from row r0
+    as a tap reads its rows, b (64, 64) bfloat16."""
+    build.launch_args("conv3x3 desc_probe", a, b)
+    if a.dtype != torch.bfloat16 or tuple(a.shape) != (128, 64) \
+            or tuple(b.shape) != (64, 64):
+        raise ValueError("desc_probe: a (128, 64) and b (64, 64) bfloat16")
+    out = torch.empty((nr0, 64, 64), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        status = _lib().ys_conv3x3_desc_probe(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), nr0,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    build.check_status("conv3x3 desc_probe", status)
+    return out
 
 
 def conv3x3_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

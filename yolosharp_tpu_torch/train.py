@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from .parallel import dist
+from .utils.numerics import divide_by_constant
 
 
 def lr_fit(nc: int) -> float:
@@ -138,10 +139,7 @@ def normalize_images(images: torch.Tensor, dtype) -> torch.Tensor:
     are taken as normalised."""
     x = images.permute(0, 3, 1, 2)
     if images.dtype == torch.uint8:
-        # PyTorch's division, not utils.numerics.divide_by_constant as in
-        # predict: it rounds by device until ROADMAP queue 3 item 1 ("The
-        # train and eval normalisation still rounds by device") moves it
-        return x.to(dtype) / 255.0
+        return divide_by_constant(x, 255.0, dtype)
     return x.to(dtype)
 
 
@@ -157,8 +155,8 @@ def resolve_batch_images(batch: Dict, dtype):
         return normalize_images(batch["images"], dtype), batch
     from .data.device_augment import render_batch, render_masks
 
-    # rounds by device, as normalize_images does (ROADMAP queue 3 item 1)
-    images = render_batch(batch).permute(0, 3, 1, 2).to(dtype) / 255.0
+    images = divide_by_constant(render_batch(batch).permute(0, 3, 1, 2),
+                                255.0, dtype)
     if "aug_mask_pool" in batch:
         batch = {**batch, "masks": render_masks(batch)}
     return images, batch
