@@ -51,7 +51,7 @@ Phases (any failure exits non-zero; nothing is caught):
      shapes again at B=32 in bfloat16 and float16, timed, and at last every
      kernel
      variant the served requests of phases 3 and 4 take (the bf16 conv's N
-     tile or stem, the C2f block's tile, the attention's route and splits;
+     tile or stem, the C2f block's plan, the attention's route and splits;
      they depend on the batch) that was not checked yet, at the first request
      that takes it. Each check prints the variant it ran, and the sums of
      kernel / plain / library / bound ms are printed over the v11m-seg
@@ -703,12 +703,13 @@ def record_shapes(path: str) -> dict:
 def variant(kind, dtype, batch, shape, sms) -> str:
     """What the launch picks for one call, as the wrappers pick it for a
     card of sms SMs: the 16-bit conv's N tile and its block's output rows x
-    columns (or its stem kernel), the C2f
-    block's tile, the attention's route by type and its 16-bit splits,
-    staged keys and warps; '' where the kernel is the same for every
-    call."""
+    columns (or its stem kernel), the C2f block's plan (its shape class,
+    K chunk, N tile, m64 subtiles a warpgroup and 3x3 tile; no cluster: one
+    block an SM) or float32 tile, the attention's route by type and its
+    16-bit splits, staged keys and warps; '' where the kernel is the same
+    for every call."""
     from yolosharp_tpu_torch.kernels.attention import launch_geometry
-    from yolosharp_tpu_torch.kernels.c2f import launch_tile
+    from yolosharp_tpu_torch.kernels.c2f import c2f_plan, plan_class, tile_for
     from yolosharp_tpu_torch.kernels.conv3x3 import conv_plan, padded
 
     half = dtype in HALF
@@ -720,8 +721,12 @@ def variant(kind, dtype, batch, shape, sms) -> str:
                                  int(kind[1]), sms)
         return f"BN {bn} tile {rows}x{wt}"
     if kind == "c2f":
-        H, W, _, c, _ = shape
-        return f"c={c} tile {launch_tile(batch, H, W, c, half, sms)}"
+        H, W, cin, c, c2 = shape
+        if not half:
+            return f"c={c} tile {tile_for(c)}"
+        bk, bn, ms, rows, wt = c2f_plan(batch, H, W, cin, c, c2, sms)
+        return (f"c={c} {plan_class(c)}: BK {bk} BN {bn} MS {ms} tile "
+                f"{rows}x{wt}, cluster 1")
     if kind == "attn":
         if not half:
             return "CUDA cores"

@@ -18,7 +18,7 @@ from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
                                          fused_attention, launch_counts,
                                          reset_launch_counts)
 from yolosharp_tpu_torch.kernels.attention import launch_geometry
-from yolosharp_tpu_torch.kernels.c2f import launch_tile
+from yolosharp_tpu_torch.kernels.c2f import C2fPlan, c2f_plan
 from yolosharp_tpu_torch.kernels import conv3x3 as conv_module
 from yolosharp_tpu_torch.kernels.conv3x3 import ConvPlan, conv_plan, padded
 from yolosharp_tpu_torch.loss import flatten_levels
@@ -231,27 +231,30 @@ def test_conv_descriptor_starts_at_any_row(cuda):
                                    rtol=1e-5, msg=f"row start {r0}")
 
 
-def _c2f_args(rng, B, H, W, cin, c, c2):
+def _c2f_args(rng, B, H, W, cin, c, c2, bias=0.1):
     return [_rand(rng, B, H, W, cin), _rand(rng, cin, 2 * c, scale=cin ** -0.5),
-            _rand(rng, 2 * c, scale=0.1),
+            _rand(rng, 2 * c, scale=bias),
             _rand(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
-            _rand(rng, c, scale=0.1),
+            _rand(rng, c, scale=bias),
             _rand(rng, 3, 3, c, c, scale=(9 * c) ** -0.5),
-            _rand(rng, c, scale=0.1), _rand(rng, 3 * c, c2, scale=(3 * c) ** -0.5),
-            _rand(rng, c2, scale=0.1)]
+            _rand(rng, c, scale=bias), _rand(rng, 3 * c, c2, scale=(3 * c) ** -0.5),
+            _rand(rng, c2, scale=bias)]
 
 
-def _check_c2f(cuda, dtype, shape):
-    rng = np.random.default_rng(sum(shape))
-    args = [a.to(cuda, getattr(torch, dtype))
-            for a in _c2f_args(rng, *shape)]
-    got = c2f_fused(*args)
-    want = c2f_plain(*args)
+def _check_c2f_out(got, want, dtype):
     if dtype == "float32":
         _check(got, want, dtype)
     else:   # four layers round to 16 bits at different points
         assert (got.float() - want.float()).abs().max() \
             / want.float().abs().max() < 2e-2
+
+
+def _check_c2f(cuda, dtype, shape, plan=None, bias=0.1):
+    rng = np.random.default_rng(sum(shape))
+    args = [a.to(cuda, getattr(torch, dtype))
+            for a in _c2f_args(rng, *shape, bias=bias)]
+    got = c2f_fused(*args, plan=plan)
+    _check_c2f_out(got, c2f_plain(*args), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -267,12 +270,75 @@ def test_c2f_kernel_on_model_widths(cuda, dtype, shape):
                                    (32, 20, 20, 256, 128, 256),  # v8n layer 8
                                    (1, 160, 160, 64, 32, 64)])   # v8s layer 2
 def test_c2f_kernel_on_the_served_tiles(cuda, dtype, shape):
-    """The 16-bit tile 8 that the served batch of 32 (c = 256, 128) and a
-    single 640x640 request (c = 32) take."""
-    B, H, W, _, c, _ = shape
+    """The 16-bit plans that the served batch of 32 (c = 256, 128: 128-wide
+    N tiles, one m64 subtile a warpgroup) and a single 640x640 request
+    (c = 32: 32-channel chunks, 64-wide N tiles) take."""
+    B, H, W, cin, c, c2 = shape
     if dtype != "float32":
-        assert launch_tile(B, H, W, c, True, _sms(cuda)) == 8
+        plan = c2f_plan(B, H, W, cin, c, c2, _sms(cuda))
+        assert plan.bk == (32 if c <= 32 else 64)
+        assert (plan.bn, plan.ms) == ((64, 2) if c <= 32 else (128, 1))
     _check_c2f(cuda, dtype, shape)
+
+
+# every (K chunk, N tile, subtiles) the kernel is built for, each with a 3x3
+# tile that leaves ragged bands and columns, and a hidden width c: within the
+# plan's N tile and K chunk, or above them
+PLANS = [(C2fPlan(32, 64, 1, 3, 5), 32), (C2fPlan(32, 64, 2, 5, 17), 32),
+         (C2fPlan(64, 64, 1, 4, 6), 128), (C2fPlan(64, 64, 2, 9, 9), 128),
+         (C2fPlan(64, 128, 1, 2, 13), 128), (C2fPlan(64, 128, 1, 4, 16), 128),
+         (C2fPlan(64, 64, 1, 3, 10), 32), (C2fPlan(64, 128, 1, 3, 11), 64)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("plan,c", PLANS,
+                         ids=lambda p: "-".join(map(str, p)) if isinstance(
+                             p, tuple) else f"c{p}")
+def test_c2f_kernel_at_every_plan(cuda, dtype, plan, c):
+    """Each plan the planner can return, held to the plain version on a map
+    its tiles do not divide."""
+    _check_c2f(cuda, dtype, (3, 19, 23, 96, c, 2 * c), plan=plan)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [
+    (1, 13, 7, 48, 16, 40),       # W = 7, c = 16, Cin != 2c
+    (33, 9, 1, 64, 32, 64),       # W = 1, B = 33
+    (1, 1, 9, 256, 64, 128),      # H = 1
+    (33, 7, 7, 512, 256, 512),    # v8s-cls's 7x7 at B = 33
+    (2, 17, 29, 120, 128, 200),   # c = 128, Cin and C2 not multiples of 64
+    (1, 41, 37, 64, 64, 96),      # c = 64
+])
+def test_c2f_kernel_on_ragged_maps(cuda, dtype, shape):
+    """The planner's plan on maps no tile divides, with biases of +-3, so
+    that a pad ring that did not read as zero (silu(3) = 2.86) shows."""
+    _check_c2f(cuda, dtype, shape, bias=3.0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [(2, 20, 20, 512, 256, 512),
+                                   (2, 40, 40, 64, 32, 64)])
+def test_c2f_kernel_twice_in_one_cuda_graph(cuda, dtype, shape):
+    """Two launches in one CUDA graph, replayed three times, on other inputs
+    each: the persistent grid and its barrier carry no state from one call
+    to the next."""
+    rng = np.random.default_rng(11)
+    dt = getattr(torch, dtype)
+    ins = [[a.to(cuda, dt) for a in _c2f_args(rng, *shape)] for _ in range(2)]
+    outs = [c2f_fused(*args) for args in ins]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c2f_fused(*args) for args in ins]
+    for _ in range(3):
+        for args in ins:
+            for a in args:
+                a.copy_(torch.randn_like(a.float()).mul_(a.float().std())
+                        .to(dt))
+        graph.replay()
+        torch.cuda.synchronize()
+        for args, got in zip(ins, outs):
+            _check_c2f_out(got, c2f_plain(*args), dtype)
 
 
 def test_float32_stays_on_the_cuda_cores(cuda):

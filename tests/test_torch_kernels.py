@@ -15,8 +15,10 @@ from yolosharp_tpu_torch.kernels import (build, c2f_fused, c2f_plain,
                                          c2f_supported, conv3x3_plain,
                                          conv3x3_silu, conv3x3s2_silu,
                                          launch_counts)
-from yolosharp_tpu_torch.kernels.c2f import (SMEM_LIMIT, launch_tile,
-                                             smem_bytes, tile_for)
+from yolosharp_tpu_torch.kernels.c2f import (SMEM_LIMIT, C2fPlan, c2f_plan,
+                                             gemms, plan_class, smem_bytes,
+                                             tile_for)
+from yolosharp_tpu_torch.kernels.c2f import tc_smem as c2f_smem
 from yolosharp_tpu_torch.kernels.conv3x3 import (TC_ROWS, ConvPlan, chunk,
                                                  conv_plan, padded, tc_smem)
 from yolosharp_tpu_torch.nn import ArchCfg, C2f, YoloNet
@@ -149,28 +151,85 @@ def test_c2f_route_takes_v8_layers_2_and_8(size):
 
 @pytest.mark.parametrize("bf16", [False, True])
 def test_c2f_tiles_fit_shared_memory_for_every_admitted_width(bf16):
-    """Every (Cin, c, C2) that c2f_supported admits has a tile whose block
-    fits the 232,448 bytes of shared memory in both types, and (bf16) a
-    window of at most 640 pixels, the kernel's 8 warps x 5 m16 tiles."""
+    """Every (Cin, c, C2) that c2f_supported admits has a float32 tile whose
+    block fits the 232,448 bytes of shared memory, and (bf16) a 16-bit plan
+    at B = 1, 2 and 32 whose block fits them too, whose 3x3 tile stays
+    within the two consumer warpgroups' 256 flat rows, and whose persistent
+    grid (at most one block an SM, no cluster) is resident at once, as its
+    grid barriers need."""
     admitted = 0
     for c in range(4, 520, 4):
         for cin, c2 in ((c, 2 * c), (2 * c, c), (8, 8)):
             if not c2f_supported(1, True, 1, cin, c, c2):
                 continue
             admitted += 1
-            tile = tile_for(c, bf16)
-            assert smem_bytes(tile, c, bf16) <= SMEM_LIMIT == 232448
-            assert not bf16 or (tile + 4) ** 2 <= 640
+            if not bf16:
+                assert smem_bytes(tile_for(c), c) <= SMEM_LIMIT == 232448
+                continue
+            for B in (1, 2, 32):
+                plan = c2f_plan(B, 13, 11, cin, c, c2, 132)
+                assert 0 < c2f_smem(B, 13, 11, plan) <= SMEM_LIMIT == 232448
+                assert plan.rows * (plan.wt + 2) <= 2 * 64 * plan.ms
+                assert plan.bk == (32 if c <= 32 else 64)
+                assert plan.bn in (64, 128) and plan.ms in (1, 2)
+                assert 2 * 64 * plan.ms >= max(g.rows for g in gemms(
+                    B, 13, 11, cin, c, c2, plan))
     assert admitted > 3 * 20
 
 
+# the plans kernels/c2f.py states for the model's shapes on a 132-SM card:
+# v8s layer 2 (160x160, 64/32/64), v8s-cls's 56x56 (64/32/64), v8s layer 8
+# (20x20, 512/256/512) and v8s-cls's 7x7 (512/256/512), at B = 1, 2, 32
+STATED_PLANS = {
+    (160, 160, 64, 32, 64): {1: C2fPlan(32, 64, 2, 10, 20),
+                             2: C2fPlan(32, 64, 2, 10, 20),
+                             32: C2fPlan(32, 64, 2, 6, 40)},
+    (56, 56, 64, 32, 64): {1: C2fPlan(32, 64, 1, 4, 7),
+                           2: C2fPlan(32, 64, 1, 7, 7),
+                           32: C2fPlan(32, 64, 2, 14, 14)},
+    (20, 20, 512, 256, 512): {1: C2fPlan(64, 64, 1, 2, 7),
+                              2: C2fPlan(64, 64, 1, 5, 5),
+                              32: C2fPlan(64, 128, 1, 10, 10)},
+    (7, 7, 512, 256, 512): {1: C2fPlan(64, 64, 1, 1, 2),
+                            2: C2fPlan(64, 64, 1, 2, 2),
+                            32: C2fPlan(64, 64, 1, 7, 7)},
+}
+
+
 def test_c2f_bf16_tile_for_v8s_layer8_is_the_stated_one():
-    """The bf16 tile the source note states: 16 for c <= 32, 8 for c = 256,
-    whose bf16 block takes 219,456 bytes (float32: 4 for c > 64)."""
-    assert tile_for(16, True) == tile_for(32, True) == 16
-    assert tile_for(256, True) == 8
-    assert smem_bytes(8, 256, True) == 219456
+    """The plan the source note states for v8s layer 8 at the served batch
+    of 32: 64-channel chunks, 128-wide N tiles, one m64 subtile a
+    warpgroup (two would spill), 10 x 10 pixel 3x3 tiles (120 of 128 flat
+    rows), so each 3x3 GEMM is 256 tiles, two rounds of the 132 SMs;
+    float32 tiles of 4 above c = 64 and 8 up to it."""
+    plan = c2f_plan(32, 20, 20, 512, 256, 512, 132)
+    assert plan == C2fPlan(64, 128, 1, 10, 10)
+    assert [g.tiles for g in gemms(32, 20, 20, 512, 256, 512, plan)] == \
+        [400, 256, 256, 400]
+    assert plan_class(256) == "deep" and plan_class(32) == "narrow"
     assert tile_for(256) == 4 and tile_for(32) == 8
+
+
+@pytest.mark.parametrize("batch", [1, 2, 32])
+@pytest.mark.parametrize("shape", list(STATED_PLANS),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_c2f_plan_of_the_model_shapes(shape, batch):
+    """v8s layers 2 and 8 and v8s-cls's two shapes take the stated plan at
+    each batch on a 132-SM card, decided by shape and batch alone (the same
+    answer however often and in whatever order it is asked)."""
+    want = STATED_PLANS[shape][batch]
+    assert c2f_plan(batch, *shape, 132) == want
+    c2f_plan.cache_clear()
+    assert c2f_plan(batch, *shape, 132) == want
+
+
+@pytest.mark.parametrize("shape,want", [((1, 20, 20, 256), 4),
+                                        ((1, 80, 80, 32), 8)])
+def test_c2f_float32_tile_is_fixed_by_width(shape, want):
+    """The float32 kernel's tile: 8 up to c = 64, 4 above, at every batch
+    and map."""
+    assert tile_for(shape[3]) == want
+    assert smem_bytes(want, shape[3]) <= SMEM_LIMIT
 
 
 # every 3x3 conv shape (H, W, Ci, Co) of every path on the 640x640 canvas and
@@ -281,18 +340,3 @@ def test_conv_plan_pads_odd_widths_and_sizes_the_box():
     # + 256 + 82 rows of 64 bytes
     assert tc_smem(2, 3, 80, 128) == 1024 + 2 * 87040 + 4 * 8192 + 160
     assert tc_smem(2, 3, 80, 128) <= build.SMEM_LIMIT
-
-
-@pytest.mark.parametrize("shape,bf16,want", [
-    ((2, 20, 20, 256), True, 4),     # v8s layer 8 at B=2: 18 blocks of 8x8
-    ((32, 20, 20, 256), True, 8),    # ... at the served batch of 32
-    ((2, 160, 160, 32), True, 16),   # v8s layer 2 at B=2: 200 blocks
-    ((1, 160, 160, 32), True, 8),    # one 640x640 request
-    ((1, 4, 4, 32), True, 4),        # halved down to 4, no further
-    ((1, 20, 20, 256), False, 4),    # float32 takes tile_for as it is
-    ((1, 80, 80, 32), False, 8),
-])
-def test_c2f_launch_tile_halves_while_sms_idle(shape, bf16, want):
-    """The C2f tile the wrapper passes to the kernel on a 132-SM card."""
-    assert launch_tile(*shape, bf16, 132) == want
-    assert smem_bytes(want, shape[3], bf16) <= SMEM_LIMIT

@@ -11,46 +11,58 @@
 // version stores it. Replaces the Pallas kernel yolosharp_tpu/kernels/c2f.py
 // c2f_fused.
 //
-// A block owns a TT x TT tile of output pixels of one image. Two chained 3x3
-// convolutions need a 2-pixel halo, so the block computes bh on the
-// (TT+4)^2 window, t on the (TT+2)^2 window and a, z and y on the tile, all
-// in shared memory: only y goes back to device memory. bh and t are zeroed
-// outside the image after their SiLU (silu(bias) != 0 there), which is the
-// zero padding the plain convolutions see.
-//
 // bfloat16 and float16 (c2f_tc_kernel, one template on the 16-bit element
-// type T; the layouts are the same for both): five GEMMs with A in shared
-// memory on the tensor cores (mma.sync m16n8k16, float32 sums), in order
-//   bh  M = (TT+4)^2  K = Cin  (x staged 32 channels a chunk)
-//   t   M = (TT+2)^2  K = 9c   (shifted ldmatrix row addresses into bh)
-//   z   M = TT^2      K = 9c   (into t; + the bh residual)
-//   a   M = TT^2      K = Cin  (x at the tile again; a takes t's room)
-//   y   M = TT^2      K = 3c   ([a | bh | z]) -> device memory
-// bh, t/a and z are stored as T (exact: they are rounded to T anyway),
-// one pixel a row of c + 8 elements, so the 8 rows of an ldmatrix fall in 8
-// bank groups. Weights stream from L2 in 32-row x up to 256-column chunks
-// through 16-byte cp.async, double-buffered with the x chunks. Shared memory
-// is 2 (c + 8)((TT+4)^2 + (TT+2)^2 + TT^2) bytes + 2 x chunk buffers.
-// The tile edge comes from the wrapper (kernels/c2f.py launch_tile: 16 for
-// c <= 32, 8 while the block fits shared memory, else 4, halved while the
-// grid has fewer blocks than the card has SMs); the launch checks its bytes.
-// What bounds it (clock64 stamps per phase, H100 80GB HBM3, 700 W, batch
-// 32): at c = 32 (v8s layer 2, 160^2, tile 16) a block spends ~37% of its
-// time in the epilogues (SiLU, pad-ring test and stores of 56K outputs
-// against GEMMs only 32 columns wide; hence the SFU SiLU and the constant
-// tile edge) and ~28% in products. At c = 256 (layer 8, 20^2, tile 8) ~50%
-// goes to products and ~28% to issuing and waiting for the weight copies:
-// each 8 x 8 tile streams all 3.6 MB of the block's weights from L2 for 64
-// output pixels, one block per SM, and the halo plus the ragged third tile
-// of a 20-wide map make it compute 1.83x the block's FLOPs. There the
-// unfused plain version, which reuses each weight over every pixel, is ~4x
-// faster.
+// type T; the layouts are the same for both): the block's four GEMMs in one
+// persistent, cooperative launch on Hopper's warpgroup MMA, in order over
+// the whole batch, each ending at a grid barrier:
+//   cv1  y1 = silu(x @ w1 + b1)           M = B H W pixels, K = Cin, N = 2c
+//   t    silu(conv3x3(bh) + bm1)          flat-row tiles, K = 9c, N = c
+//   z    bh + silu(conv3x3(t) + bm2)      the same tiles, K = 9c, N = c
+//   cv2  y = silu([y1 | z] @ w2 + b2)     M = B H W, K = 3c, N = C2
+// y1 (= [a | bh]), t and z go to a scratch buffer of the wrapper (B H W 4c
+// elements: 26 MB at v8s layer 8 and batch 32, held by the 50 MB L2), so no
+// block recomputes a halo and each weight tile serves a tile of up to 256
+// pixel rows, where the tile-per-SM kernel this one replaced streamed all
+// 3.7 MB of layer 8's weights for every 64 pixels and computed 1.83x its
+// products. The 3x3 GEMMs take the TPU kernel's flat-row layout (a band of
+// R + 2 rows of P = Wt + 2 pixels; every tap one shifted wgmma descriptor
+// into it; junk columns computed and never stored), and their zero padding
+// is TMA's out-of-bounds fill of boxes that start at -1, so no thread masks
+// a pad ring. Each GEMM is tiled as conv3x3.cu's conv_tc_kernel is: one
+// block an SM walks the tiles, a producer thread loads the A tiles (BK
+// channels a chunk, up to 6 in flight) and each tap's BK x BN weights by
+// TMA against mbarriers, two consumer warpgroups issue wgmma (MS m64
+// subtiles each, BN = 64 or 128 columns). The epilogue adds the bias, takes
+// the SiLU in one MUFU operation (tanh.approx), rounds to T where the plain
+// chain rounds, stages the tile in shared memory under the 128-byte swizzle
+// and writes it with TMA stores. The plan (BK, BN, MS and the 3x3 tile)
+// comes from the wrapper (kernels/c2f.py c2f_plan).
+// What bounds it (H100 80GB HBM3, bf16, batch 32; numbers in PERF.md): at v8s
+// layer 2 (160^2, c = 32) the consumers, not the bytes: with the products
+// and the epilogues switched off (a debug build) the loads alone take about
+// half of the launch, and the epilogues, which the next tile's products do
+// not overlap, most of the rest. Fusing t and z into one pass a tile (t on
+// a halo window in shared memory, the narrow class's other design) halved
+// the 3x3 GEMMs' traffic but lengthened each tile's serial chain, and did
+// not pay; nor did letting each consumer warpgroup stage and store its own
+// rows, so that one's epilogue could overlap the other's products. At layer
+// 8 (20^2, c = 256) the products, at about a third of the peak, and three
+// grid barriers; 128-wide N tiles take one m64 subtile a warpgroup (two
+// would hold 128 accumulators a thread, which spill).
 //
-// float32 (c2f_f32_kernel): the CUDA-core kernel. The footprint (float32
-// intermediates) grows with c, so the tile is 8 for c <= 64 and 4 above; the
-// input is staged in chunks of 32 channels. Each thread computes 4-pixel x
-// 4-channel micro-tiles; weights are read from device memory through the
-// caches.
+// float32 (c2f_f32_kernel): the CUDA-core kernel. A block owns a TT x TT
+// tile of output pixels of one image. Two chained 3x3 convolutions need a
+// 2-pixel halo, so the block computes bh on the (TT+4)^2 window, t on the
+// (TT+2)^2 window and a, z and y on the tile, all in shared memory: only y
+// goes back to device memory. bh and t are zeroed outside the image after
+// their SiLU (silu(bias) != 0 there), which is the zero padding the plain
+// convolutions see. The footprint (float32 intermediates) grows with c, so
+// the tile is 8 for c <= 64 and 4 above; the input is staged in chunks of 32
+// channels. Each thread computes 4-pixel x 4-channel micro-tiles; weights
+// are read from device memory through the caches.
+#include <algorithm>
+#include <cstring>
+
 #include "common.cuh"
 
 using namespace ys;
@@ -291,289 +303,629 @@ cudaError_t launch_f32(const void* const* p, void* y, int B, int H, int W, int C
   return cudaGetLastError();
 }
 
+
 // ------------------------------------------- 16-bit: bfloat16 and float16
 
-constexpr int kMaxJ = 5;              // m16 tiles a warp owns in one GEMM pass
-constexpr int kXP = kKC + 8;          // x chunk row pitch (elements): 80 bytes
-constexpr int kWP = 256 + 8;          // weight chunk row pitch (elements)
-constexpr int kWBuf = kKC * kWP * 2;  // bytes of one weight chunk buffer
+constexpr int kTcConsumers = 2;  // warpgroups that issue wgmma
+constexpr int kTcThreads = 128 * (kTcConsumers + 1);
+constexpr int kMinBStages = 4, kMaxBStages = 8;  // slots of the weight ring
+constexpr int kMaxAStages = 6;                   // slots of A tiles (at least 2)
+constexpr int kBlockBarrier = 1;                 // the named barrier of all threads
+constexpr int kEpiBarrier = 2;                   // the consumers' (those with rows)
 
-template <typename T>
-struct TcArgs {
-  const T *x, *w1, *b1, *wm1, *bm1, *wm2, *bm2, *w2, *b2;
-  T* y;
-  int H, W, Cin, c, C2;
+// The block's four GEMMs, in the order the launch runs them.
+enum Gemm : int { kCv1 = 0, kT = 1, kZ = 2, kCv2 = 3, kGemms = 4 };
+
+// One GEMM of the launch and its tiles. 1x1 (cv1, cv2): a tile is `rows`
+// consecutive pixels of the batch (flat over B, H, W) x BN channels. 3x3
+// (t, z): a tile is R output rows x Wt columns of one image x BN channels;
+// its input is the padded band of R + 2 rows of P = Wt + 2 pixels, so
+// output (i, j) is flat row m = i P + j and tap (dy, dx) reads row
+// m + dy P + dx: one run of rows a tap, read through a shifted descriptor.
+// Rows with j >= Wt are junk, computed and never stored.
+struct GemmGeo {
+  int spatial;  // 1 for the 3x3 GEMMs
+  int N, nco;   // output channels, their tiles of BN
+  int wgs;      // consumer warpgroups with rows; the other passes the slots on
+  int rows;     // flat rows of a tile: R P (3x3) or 64 MS wgs (1x1)
+  int R, Wt, P, nwt, nbands;
+  int ntiles;
+  int nk0, nk1;  // K chunks of the first and the second A source
+  int kb1;       // the weight row of the second source's first chunk
+  int a_tx;      // bytes one A load writes
 };
 
-// Shared memory of one block: bh, t (then a) and z as 16-bit rows of c + 8,
-// two x chunks and two weight chunks.
-inline int tc_bytes(int TT, int c) {
-  const int R2 = (TT + 4) * (TT + 4), R1 = (TT + 2) * (TT + 2), R0 = TT * TT;
-  return 2 * (c + 8) * (R2 + R1 + R0) + 2 * R2 * kXP * 2 + 2 * kWBuf;
+struct C2fGeo {
+  int H, W, c, npix;
+  int a_stage;  // bytes of an A slot (a multiple of 1024)
+  int nas;      // A slots: as many as leave room for kMinBStages weight slots
+  int nbs;      // slots of the weight ring
+  GemmGeo gm[kGemms];
+};
+
+// Loads: x, y1 (= [a | bh], cv1's output) and z as 2-d (channels, pixels);
+// bh (y1's last c channels) and t as 4-d (channels, W, H, B), whose
+// out-of-bounds boxes read the zero padding; the weights as (N, K, taps).
+// Stores (64 channels a box, the rows of a tile): y1 and y 2-d, t and z 4-d,
+// whose boxes are cut at the tensor's edges.
+struct C2fMaps {
+  CUtensorMap x, y1, z, bh, t;
+  CUtensorMap w1, wm1, wm2, w2;
+  CUtensorMap y1s, ts, zs, ys;
+};
+
+template <typename T>
+struct C2fOut {
+  const T *b1, *bm1, *bm2, *b2;
+  T *y1, *t, *z, *y;  // y1, t and z: the wrapper's scratch (in L2 at the deep shapes)
+  unsigned* bar;      // the grid barrier: arrivals, generation
+};
+
+__device__ __forceinline__ void sync_block() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kBlockBarrier), "n"(kTcThreads) : "memory");
 }
 
-// 32-column slices of one GEMM pass (1, 2, 4 or 8): as wide as the columns
-// left need, narrowed until each warp owns at most kMaxJ m16 tiles.
-__device__ __forceinline__ int pass_slices(int MT, int ncols) {
-  int s = 1;
-  while (s < 8 && s * 32 < ncols) s *= 2;
-  while (s > 1 && (MT + 8 / s - 1) / (8 / s) > kMaxJ) s /= 2;
-  return s;
+// The consumer warpgroups with rows in this GEMM (n threads).
+__device__ __forceinline__ void sync_consumers(int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kEpiBarrier), "r"(n) : "memory");
 }
 
-// out[m][n] = sum_k A[m][k] w[k][n] for m < M, n < N on the tensor cores.
-// A's shared address of row m's 8 elements at k (k % 8 == 0) is
-// a_addr(a_row(m), a_k(k, buf)): a_row runs once per row and pass, a_k once
-// per k16 step (buf is the chunk buffer the x staging of chunk k / 32 went
-// to), so the inner loop does no integer division. x_stage(kc, buf) issues
-// the cp.async copies of A's chunk kc where A is staged.
-// w (K x N, row pitch ldw, 16-byte aligned rows) streams through shared
-// memory 32 rows at a time; rows >= K and columns >= N are zero-filled.
-// epi(m, n, v0, v1) receives the float32 sums of columns n, n + 1 plus their
-// bias (read into registers once per pass). Ends with a barrier, so the
-// next GEMM may read what epi wrote.
-template <typename T, class ARow, class AK, class AAddr, class XStage, class Epi>
-__device__ __forceinline__ void gemm(int M, int N, int K, const T* __restrict__ w, int ldw,
-                                     const T* __restrict__ bias, uint32_t wsm, ARow a_row,
-                                     AK a_k, AAddr a_addr, XStage x_stage, Epi epi) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int MT = (M + 15) / 16;
-  const int nk = (K + kKC - 1) / kKC;
-  const int bk = ((lane >> 3) & 1) * 8 + (lane & 7);  // ldmatrix.trans row
-  const int bn = (lane >> 4) * 8;                     // and column offset
-  const int ak = (lane >> 4) * 8;                     // ldmatrix A k offset
-  const int g = lane >> 2, q = lane & 3;
-  for (int n0 = 0; n0 < N;) {
-    const int S = pass_slices(MT, N - n0);
-    const int NB = 32 * S, WPS = 8 / S;
-    const int slice = warp % S, mt0 = warp / S;
-    const int ushift = __ffs(S) + 1;  // log2(NB / 8)
-    auto w_stage = [&](int kc, int buf) {
-      const uint32_t dst = wsm + buf * kWBuf;
-      for (int i = tid; i < kKC << ushift; i += kThreads) {
-        const int r = i >> ushift, u = i & ((1 << ushift) - 1);
-        const int k = kc * kKC + r, n = n0 + u * 8;
-        const bool ok = k < K && n < N;
-        cp_async16(dst + (r * kWP + u * 8) * 2, ok ? w + (size_t)k * ldw + n : w, ok);
-      }
-    };
-    float acc[kMaxJ][4][4];
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][ni][e] = 0.f;
-    decltype(a_row(0)) rows[kMaxJ];
-#pragma unroll
-    for (int j = 0; j < kMaxJ; ++j)
-      rows[j] = a_row(min((mt0 + j * WPS) * 16 + (lane & 15), M - 1));
+__device__ __forceinline__ void st_shared32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
 
-    x_stage(0, 0);
-    w_stage(0, 0);
-    cp_async_commit();
-    for (int kc = 0; kc < nk; ++kc) {
-      if (kc + 1 < nk) {
-        x_stage(kc + 1, (kc + 1) & 1);
-        w_stage(kc + 1, (kc + 1) & 1);
+// TMA stores from shared memory (one bulk group a tile): elements outside
+// the tensor are not written.
+__device__ __forceinline__ void tma_store2(const CUtensorMap* m, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(m)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void tma_store4(const CUtensorMap* m, uint32_t src, int c0, int c1,
+                                           int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(m)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the stores in flight have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... and written the device memory
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Every block of the grid has arrived: the global stores each thread made
+// before are visible to every block's loads (TMA included) after. bar[0]
+// counts the arrivals and is reset by the last one, which then moves bar[1],
+// the generation, on, so the barrier needs no reset between launches. The
+// launch is cooperative, so every block is resident; a wait of more than
+// ~10 s traps all the same instead of hanging the card.
+__device__ __forceinline__ void sync_grid(unsigned* bar) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  sync_block();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g0 = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      const long long start = clock64();
+      while (*gen == g0)
+        if (clock64() - start > 20000000000LL) __trap();
+    }
+    __threadfence();
+  }
+  sync_block();
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+struct Tile {
+  int b, h0, w0, pix0, co0;
+};
+
+// tile t of a GEMM, the N tile fastest: blocks working at once share their
+// A tile in L2
+__device__ __forceinline__ Tile tile_of(const GemmGeo& q, int t, int BN) {
+  Tile r;
+  r.co0 = (t % q.nco) * BN;
+  t /= q.nco;
+  if (q.spatial) {
+    r.w0 = (t % q.nwt) * q.Wt;
+    t /= q.nwt;
+    r.h0 = (t % q.nbands) * q.R;
+    r.b = t / q.nbands;
+    r.pix0 = 0;
+  } else {
+    r.pix0 = t * q.rows;
+    r.b = r.h0 = r.w0 = 0;
+  }
+  return r;
+}
+
+// SiLU of a value that is rounded to 16 bits right after, in one MUFU
+// operation: silu(v) = v/2 (1 + tanh(v/2)) through tanh.approx (relative
+// error ~2^-11, so at most |v| 2^-12 off), against two for ex2 and rcp: the
+// MUFU rate bounds the epilogues at c = 32.
+__device__ __forceinline__ float silu16(float v) {
+  const float h = 0.5f * v;
+  float th;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(h));
+  return fmaf(h, th, h);
+}
+
+// The value of the low T of a pair of T.
+template <typename T>
+__device__ __forceinline__ float unpack_lo(uint32_t pair) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return __uint_as_float(pair << 16);
+  else
+    return __half2float(__ushort_as_half((unsigned short)(pair & 0xFFFFu)));
+}
+
+// Bias, SiLU and the roundings of this warp's 16 rows m0.. of a 64 x BN
+// accumulator of GEMM G, as the plain chain stores them: y1 = silu(.),
+// t = silu(.), z = bh + silu(.) with both terms rounded to T, y = silu(.).
+// The rounded pairs go to the tile's staging buffer: the tile's output
+// pixels (1x1: flat row m; 3x3: i Wt + j, the junk rows left out) as
+// 128-byte rows of 64 channels under the 128-byte swizzle, one block of
+// rows per 64 channels, which the TMA stores read. bv holds the tile's
+// biases (loaded before its mainloop); z's residual pairs are all loaded
+// before the first is used.
+template <typename T, int BN, int G>
+__device__ __forceinline__ void stage_rows(const float (&d)[BN / 2], const float (&bv)[BN / 8][2],
+                                           const C2fGeo& g, const GemmGeo& q,
+                                           const C2fOut<T>& o, int m0, const Tile& tl,
+                                           uint32_t stage, int block_bytes) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, qd = lane & 3;
+  int sr[2];
+  long pix[2];
+  bool ok[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + gr + half * 8;
+    if (G == kT || G == kZ) {
+      const int i = m / q.P, j = m - i * q.P;
+      ok[half] = i < q.R && j < q.Wt && tl.w0 + j < g.W && tl.h0 + i < g.H;
+      sr[half] = i * q.Wt + j;
+      pix[half] = ((long)tl.b * g.H + tl.h0 + i) * g.W + tl.w0 + j;
+    } else {
+      sr[half] = m;
+      pix[half] = (long)tl.pix0 + m;
+      ok[half] = pix[half] < g.npix;
+    }
+  }
+  uint32_t res[2][BN / 8];  // z: bh's pairs, two T each
+  if (G == kZ) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const T* r = o.y1 + pix[half] * 2 * g.c + g.c + tl.co0 + 2 * qd;
+#pragma unroll
+      for (int ni = 0; ni < BN / 8; ++ni)
+        res[half][ni] = ok[half] && tl.co0 + ni * 8 < q.N
+                            ? *reinterpret_cast<const uint32_t*>(r + ni * 8)
+                            : 0u;
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const uint32_t row = stage + sr[half] * 128;
+    const int sw = sr[half] & 7;
+#pragma unroll
+    for (int ni = 0; ni < BN / 8; ++ni) {
+      if (tl.co0 + ni * 8 >= q.N) break;  // the same for the whole warp
+      float v0 = silu16(d[ni * 4 + 2 * half] + bv[ni][0]);
+      float v1 = silu16(d[ni * 4 + 2 * half + 1] + bv[ni][1]);
+      if (G == kZ) {
+        const uint32_t r = res[half][ni];
+        v0 = unpack_lo<T>(r) + round_t<T>(v0);
+        v1 = unpack_lo<T>(r >> 16) + round_t<T>(v1);
       }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const uint32_t wb = wsm + (kc & 1) * kWBuf;
-      const int ksteps = min(2, (K - kc * kKC + 15) / 16);
-      for (int ks = 0; ks < ksteps; ++ks) {
-        uint32_t b[2][4];
+      if (ok[half])
+        st_shared32(row + (ni >> 3) * block_bytes + ((((ni & 7) ^ sw) << 4) | (qd * 4)),
+                    Half16<T>::pack(v0, v1));
+    }
+  }
+}
+
+// The whole block in one persistent launch: the four GEMMs run in order over
+// the batch, each ending at a grid barrier (the next reads what every block
+// wrote). Warp specialisation as in conv3x3.cu's conv_tc_kernel: the last
+// warpgroup's first thread is the producer, which for every tile and K chunk
+// loads the A tile by TMA into a ring of nas slots and each tap's BK x BN
+// weights into a ring of nbs slots, against mbarriers; warpgroups
+// 0..wgs-1 wait, issue wgmma from the swizzled slots (MS m64 subtiles each,
+// one group in flight) and release a slot once the group that read it is
+// done; a consumer warpgroup without rows in a GEMM passes the slots on.
+template <typename T, int BK, int BN, int MS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+c2f_tc_kernel(const __grid_constant__ C2fMaps maps, const __grid_constant__ C2fGeo g,
+              const C2fOut<T> o) {
+  constexpr int kARow = BK * 2;  // bytes of an A row: one pixel's BK channels
+  constexpr int kBSlot = BK * BN * 2;
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  const uint32_t a0 = (smem_u32(tc_smem) + 1023) & ~1023u;
+  // the staging buffer: BN / 64 blocks of 128 MS rows of 128 bytes
+  constexpr int kStageBlock = 128 * MS * 128;
+  const uint32_t stage = a0 + g.nas * g.a_stage;
+  const uint32_t b0 = stage + BN / 64 * kStageBlock;
+  const uint32_t bars = b0 + g.nbs * kBSlot;
+  // a_full[kMaxAStages], a_empty[kMaxAStages], b_full[kMaxBStages], b_empty[kMaxBStages]
+  const uint32_t a_full = bars, a_empty = bars + 8 * kMaxAStages,
+                 b_full = bars + 16 * kMaxAStages, b_empty = b_full + 8 * kMaxBStages;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < g.nas; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, 4 * kTcConsumers);
+    }
+    for (int s = 0; s < g.nbs; ++s) {
+      mbar_init(b_full + 8 * s, 1);
+      mbar_init(b_empty + 8 * s, 4 * kTcConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int as = 0, aph = 0, bs = 0, bph = 0;
+  auto next_a = [&] {
+    if (++as == g.nas) {
+      as = 0;
+      aph ^= 1;
+    }
+  };
+  auto next_b = [&] {
+    if (++bs == g.nbs) {
+      bs = 0;
+      bph ^= 1;
+    }
+  };
+  if (warp >= 4 * kTcConsumers) {
+    // ---- producer
+    setmaxnreg_dec<40>();
+    for (int gi = 0; gi < kGemms; ++gi) {
+      const GemmGeo& q = g.gm[gi];
+      if (tid == 128 * kTcConsumers) {
+        const CUtensorMap* wmap =
+            gi == kCv1 ? &maps.w1 : gi == kT ? &maps.wm1 : gi == kZ ? &maps.wm2 : &maps.w2;
+        const int taps = q.spatial ? 9 : 1;
+        for (int t = blockIdx.x; t < q.ntiles; t += gridDim.x) {
+          const Tile tl = tile_of(q, t, BN);
+          for (int kc = 0; kc < q.nk0 + q.nk1; ++kc) {
+            const bool second = kc >= q.nk0;
+            const int c0 = (second ? kc - q.nk0 : kc) * BK;
+            mbar_wait(a_empty + 8 * as, aph ^ 1);
+            mbar_expect(a_full + 8 * as, q.a_tx);
+            const uint32_t dst = a0 + as * g.a_stage, full = a_full + 8 * as;
+            if (gi == kCv1)
+              tma2(dst, &maps.x, full, c0, tl.pix0);
+            else if (gi == kCv2)
+              tma2(dst, second ? &maps.z : &maps.y1, full, c0, tl.pix0);
+            else  // the band starts one row up and one column left: the padding
+              tma4(dst, gi == kT ? &maps.bh : &maps.t, full, c0, tl.w0 - 1, tl.h0 - 1, tl.b);
+            next_a();
+            const int krow = second ? q.kb1 + c0 : c0;
+            for (int tap = 0; tap < taps; ++tap) {
+              mbar_wait(b_empty + 8 * bs, bph ^ 1);
+              mbar_expect(b_full + 8 * bs, kBSlot);
+              const uint32_t bd = b0 + bs * kBSlot;
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj)
-          ldmatrix_x4_trans(b[nj], wb + ((ks * 16 + bk) * kWP + slice * 32 + nj * 16 + bn) * 2);
-        // every fragment of the step is loaded before the first product
-        const auto kk = a_k(kc * kKC + ks * 16 + ak, kc & 1);
-        uint32_t a[kMaxJ][4];
-#pragma unroll
-        for (int j = 0; j < kMaxJ; ++j)
-          if (mt0 + j * WPS < MT) ldmatrix_x4(a[j], a_addr(rows[j], kk));
-#pragma unroll
-        for (int j = 0; j < kMaxJ; ++j) {
-          if (mt0 + j * WPS < MT) {
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni)
-              Half16<T>::mma(acc[j][ni], a[j], b[ni >> 1][(ni & 1) * 2],
-                             b[ni >> 1][(ni & 1) * 2 + 1]);
+              for (int j = 0; j < BN / 64; ++j)
+                tma3(bd + j * BK * 128, wmap, b_full + 8 * bs, tl.co0 + 64 * j, krow, tap);
+              next_b();
+            }
           }
         }
       }
-      __syncthreads();
+      if (gi + 1 < kGemms) sync_grid(o.bar);
     }
-    float bv[4][2];
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<232>();
+    const int wg = warp >> 2;
+    const int mw = 64 * MS * wg;  // this warpgroup's first flat row
+    float acc0[BN / 2], acc1[BN / 2];
+    for (int gi = 0; gi < kGemms; ++gi) {
+      const GemmGeo q = g.gm[gi];
+      const int taps = q.spatial ? 9 : 1;
+      const int nk = q.nk0 + q.nk1;
+      const T* bias = gi == kCv1 ? o.b1 : gi == kT ? o.bm1 : gi == kZ ? o.bm2 : o.b2;
+      if (wg < q.wgs) {
+        for (int t = blockIdx.x; t < q.ntiles; t += gridDim.x) {
+          const Tile tl = tile_of(q, t, BN);
+          float bv[BN / 8][2];  // in flight during the mainloop
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = n0 + slice * 32 + ni * 8 + 2 * q;
-      bv[ni][0] = n < N ? to_f(bias[n]) : 0.f;
-      bv[ni][1] = n < N ? to_f(bias[n + 1]) : 0.f;
-    }
+          for (int ni = 0; ni < BN / 8; ++ni) {
+            const int co = tl.co0 + ni * 8 + 2 * (lane & 3);
+            bv[ni][0] = co < q.N ? to_f(bias[co]) : 0.f;
+            bv[ni][1] = co < q.N ? to_f(bias[co + 1]) : 0.f;
+          }
 #pragma unroll
-    for (int j = 0; j < kMaxJ; ++j) {
-      const int mt = mt0 + j * WPS;
-      if (mt >= MT) continue;
+          for (int i = 0; i < BN / 2; ++i) acc0[i] = acc1[i] = 0.f;
+          int rel_b = -1, rel_a = -1;  // slots whose reads the group in flight may still make
+          for (int kc = 0; kc < nk; ++kc) {
+            mbar_wait(a_full + 8 * as, aph);
+            const uint32_t abase = a0 + as * g.a_stage + mw * kARow;
+            for (int tap = 0; tap < taps; ++tap) {
+              const int off = q.spatial ? (tap / 3) * q.P + tap % 3 : 0;
+              const uint32_t at = abase + off * kARow;
+              mbar_wait(b_full + 8 * bs, bph);
+              const uint32_t bsm = b0 + bs * kBSlot;
+              wgmma_fence();
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = n0 + slice * 32 + ni * 8 + 2 * q;
+              for (int ks = 0; ks < BK / 16; ++ks) {
+                // B: k rows 16 ks.., 128-byte swizzle, 8-row groups 1024
+                // bytes apart, 64-column blocks BK * 128 bytes apart
+                const uint64_t db = smem_desc(bsm + ks * 16 * 128, BK * 128, 1024, 1);
+                wgmma16<T, BN>(acc0, a_desc<BK>(at + ks * 32), db);
+                if constexpr (MS == 2)
+                  wgmma16<T, BN>(acc1, a_desc<BK>(at + 64 * kARow + ks * 32), db);
+              }
+              wgmma_commit();
+              wgmma_wait<1>();  // the previous tap's group is done: release its slots
+              if (lane == 0) {
+                if (rel_b >= 0) mbar_arrive(b_empty + 8 * rel_b);
+                if (rel_a >= 0) mbar_arrive(a_empty + 8 * rel_a);
+              }
+              rel_b = bs;
+              rel_a = tap == taps - 1 ? as : -1;
+              next_b();
+            }
+            next_a();
+          }
+          wgmma_wait<0>();
+          if (lane == 0) {  // the producer may fill the last slots with the next tile
+            mbar_arrive(b_empty + 8 * rel_b);
+            mbar_arrive(a_empty + 8 * rel_a);
+          }
+          // the last tile's stores have read the staging buffer
+          if (tid == 0) bulk_wait_read();
+          sync_consumers(128 * q.wgs);
+          const int m0 = mw + (warp & 3) * 16;
+          auto staged = [&](auto kind) {
+            constexpr int G = decltype(kind)::value;
+            stage_rows<T, BN, G>(acc0, bv, g, q, o, m0, tl, stage, kStageBlock);
+            if constexpr (MS == 2)
+              stage_rows<T, BN, G>(acc1, bv, g, q, o, m0 + 64, tl, stage, kStageBlock);
+          };
+          switch (gi) {
+            case kCv1: staged(std::integral_constant<int, kCv1>()); break;
+            case kT: staged(std::integral_constant<int, kT>()); break;
+            case kZ: staged(std::integral_constant<int, kZ>()); break;
+            default: staged(std::integral_constant<int, kCv2>());
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          sync_consumers(128 * q.wgs);
+          if (tid == 0) {
+            const CUtensorMap* m =
+                gi == kCv1 ? &maps.y1s : gi == kT ? &maps.ts : gi == kZ ? &maps.zs : &maps.ys;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = mt * 16 + g + half * 8;
-          if (m < M && n < N)
-            epi(m, n, acc[j][ni][2 * half] + bv[ni][0], acc[j][ni][2 * half + 1] + bv[ni][1]);
+            for (int jb = 0; jb < BN / 64; ++jb) {
+              const int co = tl.co0 + 64 * jb;
+              if (co >= q.N) continue;
+              const uint32_t src = stage + jb * kStageBlock;
+              if (q.spatial)
+                tma_store4(m, src, co, tl.w0, tl.h0, tl.b);
+              else
+                tma_store2(m, src, co, tl.pix0);
+            }
+            bulk_commit();
+          }
+        }
+        if (tid == 0) bulk_wait();  // the GEMM's output is in device memory
+      } else {
+        // no rows in this GEMM: pass every slot on as it fills
+        for (int t = blockIdx.x; t < q.ntiles; t += gridDim.x) {
+          for (int kc = 0; kc < nk; ++kc) {
+            mbar_wait(a_full + 8 * as, aph);
+            for (int tap = 0; tap < taps; ++tap) {
+              mbar_wait(b_full + 8 * bs, bph);
+              if (lane == 0) mbar_arrive(b_empty + 8 * bs);
+              next_b();
+            }
+            if (lane == 0) mbar_arrive(a_empty + 8 * as);
+            next_a();
+          }
         }
       }
+      if (gi + 1 < kGemms) sync_grid(o.bar);
     }
-    n0 += NB;
   }
-  __syncthreads();
 }
 
-// TT is a template argument so that every pixel index / window edge
-// divides by a constant.
-template <typename T, int TT>
-__global__ void __launch_bounds__(kThreads) c2f_tc_kernel(const TcArgs<T> p) {
-  constexpr int E2 = TT + 4, E1 = TT + 2;
-  constexpr int R2 = E2 * E2, R1 = E1 * E1, R0 = TT * TT;
-  static_assert(R2 <= 8 * 16 * kMaxJ, "the window's m16 tiles fit kMaxJ per warp");
-  const int H = p.H, W = p.W, Cin = p.Cin, c = p.c, C2 = p.C2;
-  const int P = c + 8;  // row pitch of bh, t / a, z (elements)
-  extern __shared__ __align__(128) uint4 smem[];
-  T* bh = reinterpret_cast<T*>(smem);  // [R2][P]
-  T* ta = bh + R2 * P;                 // [R1][P]: t, then a
-  T* zs = ta + R1 * P;                 // [R0][P]
-  const uint32_t xs = smem_u32(zs + R0 * P);  // 2 x [R2][kXP]
-  const uint32_t wsm = xs + 2 * R2 * kXP * 2;  // 2 x [kKC][kWP]
-  const uint32_t bh_s = smem_u32(bh), ta_s = smem_u32(ta), zs_s = smem_u32(zs);
-
-  const int tiles_w = (W + TT - 1) / TT;
-  const int h0 = (blockIdx.x / tiles_w) * TT;
-  const int w0 = (blockIdx.x % tiles_w) * TT;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const T* xb = p.x + (size_t)b * H * W * Cin;
-  auto inside = [&](int hi, int wi) { return hi >= 0 && hi < H && wi >= 0 && wi < W; };
-  auto store2 = [](T* dst, float v0, float v1) {
-    *reinterpret_cast<uint32_t*>(dst) = Half16<T>::pack(v0, v1);
+// The plan's geometry and shared memory (kernels/c2f.py tc_smem mirrors
+// it); false where the plan does not fit.
+template <int BK, int MS>
+bool tc_geometry(C2fGeo& g, int B, int H, int W, int Cin, int c, int C2, int BN, int R,
+                 int Wt, int& smem) {
+  const long npix = (long)B * H * W;
+  if (npix > INT32_MAX / 4) return false;
+  g.H = H;
+  g.W = W;
+  g.c = c;
+  g.npix = (int)npix;
+  auto cdiv = [](long a, long b) { return (int)((a + b - 1) / b); };
+  // 1x1: both consumer warpgroups where the batch has the pixels
+  const int wgs1 = g.npix > 64 * MS ? 2 : 1;
+  auto one = [&](GemmGeo& q, int N, int nk0, int nk1, int kb1) {
+    q.spatial = 0;
+    q.N = N;
+    q.nco = cdiv(N, BN);
+    q.wgs = wgs1;
+    q.rows = 64 * MS * wgs1;
+    q.R = q.Wt = q.P = q.nwt = q.nbands = 0;
+    q.ntiles = cdiv(npix, q.rows) * q.nco;
+    q.nk0 = nk0;
+    q.nk1 = nk1;
+    q.kb1 = kb1;
+    q.a_tx = q.rows * BK * 2;
   };
-  // rows r of the x chunk kc: pixel (h0 + off + r / e, w0 + off + r % e)
-  auto x_rows = [&](int rows, int e, int off) {
-    return [=](int kc, int buf) {
-      const uint32_t dst = xs + buf * R2 * kXP * 2;
-      for (int i = tid; i < rows * (kKC / 8); i += kThreads) {
-        const int r = i >> 2, u = i & 3;
-        const int hi = h0 + off + r / e, wi = w0 + off + r % e;
-        const int ci = kc * kKC + u * 8;
-        const bool ok = hi >= 0 && hi < H && wi >= 0 && wi < W && ci < Cin;
-        cp_async16(dst + (r * kXP + u * 8) * 2, ok ? xb + ((size_t)hi * W + wi) * Cin + ci : xb,
-                   ok);
-      }
-    };
+  auto three = [&](GemmGeo& q) {
+    q.spatial = 1;
+    q.N = c;
+    q.nco = cdiv(c, BN);
+    q.R = R;
+    q.Wt = Wt;
+    q.P = Wt + 2;
+    q.rows = R * q.P;
+    q.wgs = cdiv(q.rows, 64 * MS);
+    q.nwt = cdiv(W, Wt);
+    q.nbands = cdiv(H, R);
+    q.ntiles = B * q.nbands * q.nwt * q.nco;
+    q.nk0 = cdiv(c, BK);
+    q.nk1 = q.kb1 = 0;
+    q.a_tx = (R + 2) * q.P * BK * 2;
   };
-  // A row handles and k offsets, in bytes: address = row + k offset
-  auto add = [](uint32_t row, uint32_t koff) { return row + koff; };
-  auto x_row = [](int m) { return (uint32_t)(m * kXP * 2); };
-  auto x_k = [&](int k, int buf) {
-    return xs + (uint32_t)((buf * R2 * kXP + (k & (kKC - 1))) * 2);
-  };
-  // 3x3 over a window of edge e: k = tap * c + ci shifts the pixel
-  auto tap_k = [&](int e) {
-    return [=](int k, int) {
-      const int tap = k / c, ci = k - tap * c;
-      return (uint32_t)((((tap / 3) * e + tap % 3) * P + ci) * 2);
-    };
-  };
-  auto none = [](int, int) {};
-
-  // bh = silu(x @ w1[:, c:] + b1[c:]) on the (TT+4)^2 window, zero outside the image
-  gemm(R2, c, Cin, p.w1 + c, 2 * c, p.b1 + c, wsm, x_row, x_k, add, x_rows(R2, E2, -2),
-       [&](int m, int n, float v0, float v1) {
-         const bool in = inside(h0 - 2 + m / E2, w0 - 2 + m % E2);
-         store2(bh + m * P + n, in ? silu_fast(v0) : 0.f, in ? silu_fast(v1) : 0.f);
-       });
-  // t = silu(conv3x3(bh) + bm1) on the (TT+2)^2 window, zero outside the image
-  gemm(R1, c, 9 * c, p.wm1, c, p.bm1, wsm,
-       [&](int m) { return bh_s + (uint32_t)(((m / E1) * E2 + m % E1) * P * 2); }, tap_k(E2),
-       add, none,
-       [&](int m, int n, float v0, float v1) {
-         const bool in = inside(h0 - 1 + m / E1, w0 - 1 + m % E1);
-         store2(ta + m * P + n, in ? silu_fast(v0) : 0.f, in ? silu_fast(v1) : 0.f);
-       });
-  // z = bh + silu(conv3x3(t) + bm2) on the tile
-  gemm(R0, c, 9 * c, p.wm2, c, p.bm2, wsm,
-       [&](int m) { return ta_s + (uint32_t)(((m / TT) * E1 + m % TT) * P * 2); }, tap_k(E1),
-       add, none,
-       [&](int m, int n, float v0, float v1) {
-         const T* r = bh + ((m / TT + 2) * E2 + m % TT + 2) * P + n;
-         const float u0 = round_t<T>(silu_fast(v0));
-         const float u1 = round_t<T>(silu_fast(v1));
-         store2(zs + m * P + n, to_f(r[0]) + u0, to_f(r[1]) + u1);
-       });
-  // a = silu(x @ w1[:, :c] + b1[:c]) on the tile, into t's room
-  gemm(R0, c, Cin, p.w1, 2 * c, p.b1, wsm, x_row, x_k, add, x_rows(R0, TT, 0),
-       [&](int m, int n, float v0, float v1) {
-         store2(ta + m * P + n, silu_fast(v0), silu_fast(v1));
-       });
-  // y = silu([a | bh | z] @ w2 + b2) -> device memory
-  // over [a | bh | z]: row handle (a / z row, bh centre row), k -> (part, ci)
-  gemm(R0, C2, 3 * c, p.w2, C2, p.b2, wsm,
-       [&](int m) {
-         return make_uint2(m * P * 2, ((m / TT + 2) * E2 + m % TT + 2) * P * 2);
-       },
-       [&](int k, int) {
-         const int part = k / c;
-         return make_uint2(part, (k - part * c) * 2);
-       },
-       [&](uint2 row, uint2 kk) {
-         return (kk.x == 1 ? bh_s + row.y : (kk.x == 0 ? ta_s : zs_s) + row.x) + kk.y;
-       },
-       none,
-       [&](int m, int n, float v0, float v1) {
-         const int ho = h0 + m / TT, wo = w0 + m % TT;
-         if (ho < H && wo < W)
-           store2(p.y + (((size_t)b * H + ho) * W + wo) * C2 + n, silu_fast(v0), silu_fast(v1));
-       });
+  if (R < 1 || Wt < 1 || Wt + 2 > 256 || R + 2 > 256 || R * (Wt + 2) > 64 * MS * kTcConsumers)
+    return false;
+  one(g.gm[kCv1], 2 * c, cdiv(Cin, BK), 0, 0);
+  three(g.gm[kT]);
+  three(g.gm[kZ]);
+  one(g.gm[kCv2], C2, cdiv(2 * c, BK), cdiv(c, BK), 2 * c);
+  // an A slot: the rows the wgmma read (a tap starts up to 2 P + 2 rows in)
+  const int reach1 = 64 * MS * wgs1, reach3 = 64 * MS * g.gm[kT].wgs + 2 * (Wt + 2) + 2;
+  g.a_stage = (std::max(reach1, reach3) * BK * 2 + 1023) / 1024 * 1024;
+  // the A slots first (up to kMaxAStages, so that the narrow GEMMs keep
+  // several tiles' loads in flight), then the weight ring in what is left
+  const int bslot = BK * BN * 2,
+            fixed = 1024 + BN / 64 * 128 * MS * 128 + 16 * (kMaxAStages + kMaxBStages);
+  g.nas = std::min(kMaxAStages, (232448 - fixed - kMinBStages * bslot) / g.a_stage);
+  if (g.nas < 2) return false;
+  g.nbs = std::min(kMaxBStages, (232448 - fixed - g.nas * g.a_stage) / bslot);
+  if (g.nbs < kMinBStages) return false;
+  smem = fixed + g.nas * g.a_stage + g.nbs * bslot;
+  return true;
 }
 
-template <typename T, int TT>
-cudaError_t launch_tc_tile(const TcArgs<T>& args, int B, cudaStream_t stream) {
-  const int bytes = tc_bytes(TT, args.c);
-  if (bytes > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(c2f_tc_kernel<T, TT>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(((args.H + TT - 1) / TT) * ((args.W + TT - 1) / TT), B);
-  c2f_tc_kernel<T, TT><<<grid, kThreads, bytes, stream>>>(args);
+template <typename T, int BK, int BN, int MS>
+cudaError_t launch_tc(const void* const* p, void* y, void* scratch, void* bar, int B, int H,
+                      int W, int Cin, int c, int C2, int R, int Wt, cudaStream_t stream) {
+  C2fGeo g;
+  int smem;
+  if (!tc_geometry<BK, MS>(g, B, H, W, Cin, c, C2, BN, R, Wt, smem))
+    return cudaErrorInvalidValue;
+  const T* const* t = reinterpret_cast<const T* const*>(p);
+  T* s = static_cast<T*>(scratch);  // y1 (npix, 2c), t (npix, c), z (npix, c)
+  const size_t npix = g.npix;
+  const C2fOut<T> out{t[2], t[4], t[6], t[8], s, s + npix * 2 * c, s + npix * 3 * c,
+                      static_cast<T*>(y), static_cast<unsigned*>(bar)};
+  C2fMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  const CUtensorMapSwizzle a_swz = BK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_64B;
+  const uint32_t box2[2] = {(uint32_t)BK, (uint32_t)g.gm[kCv1].rows};
+  const GemmGeo& q3 = g.gm[kT];
+  const uint32_t box4[4] = {(uint32_t)BK, (uint32_t)q3.P, (uint32_t)(R + 2), 1};
+  const uint32_t wbox[3] = {64, (uint32_t)BK, 1};
+  const uint64_t hw = (uint64_t)H * W;
+  auto flat = [&](CUtensorMap* m, const void* base, int C) {
+    const uint64_t dims[2] = {(uint64_t)C, npix}, str[1] = {(uint64_t)C};
+    return encode(m, tma_type<T>(), 2, base, dims, str, box2, a_swz);
+  };
+  auto image = [&](CUtensorMap* m, const void* base, int ld) {
+    const uint64_t dims[4] = {(uint64_t)c, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint64_t str[3] = {(uint64_t)ld, (uint64_t)ld * W, (uint64_t)ld * hw};
+    return encode(m, tma_type<T>(), 4, base, dims, str, box4, a_swz);
+  };
+  auto weights = [&](CUtensorMap* m, const void* base, int N, int K, int taps) {
+    const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)taps};
+    const uint64_t str[2] = {(uint64_t)N, (uint64_t)N * K};
+    return encode(m, tma_type<T>(), 3, base, dims, str, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  int err = flat(&maps.x, t[0], Cin);
+  if (!err) err = flat(&maps.y1, out.y1, 2 * c);
+  if (!err) err = flat(&maps.z, out.z, c);
+  if (!err) err = image(&maps.bh, out.y1 + c, 2 * c);
+  if (!err) err = image(&maps.t, out.t, c);
+  if (!err) err = weights(&maps.w1, t[1], 2 * c, Cin, 1);
+  if (!err) err = weights(&maps.wm1, t[3], c, c, 9);
+  if (!err) err = weights(&maps.wm2, t[5], c, c, 9);
+  if (!err) err = weights(&maps.w2, t[7], C2, 3 * c, 1);
+  // the stores: 64 channels x a tile's rows (1x1) or its R x Wt pixels (3x3)
+  const uint32_t sbox2[2] = {64, box2[1]}, sbox4[4] = {64, (uint32_t)Wt, (uint32_t)R, 1};
+  auto flat_out = [&](CUtensorMap* m, void* base, int C) {
+    const uint64_t dims[2] = {(uint64_t)C, npix}, str[1] = {(uint64_t)C};
+    return encode(m, tma_type<T>(), 2, base, dims, str, sbox2, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  auto image_out = [&](CUtensorMap* m, void* base) {
+    const uint64_t dims[4] = {(uint64_t)c, (uint64_t)W, (uint64_t)H, (uint64_t)B};
+    const uint64_t str[3] = {(uint64_t)c, (uint64_t)c * W, (uint64_t)c * hw};
+    return encode(m, tma_type<T>(), 4, base, dims, str, sbox4, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  if (!err) err = flat_out(&maps.y1s, out.y1, 2 * c);
+  if (!err) err = flat_out(&maps.ys, out.y, C2);
+  if (!err) err = image_out(&maps.ts, out.t);
+  if (!err) err = image_out(&maps.zs, out.z);
+  if (err) return static_cast<cudaError_t>(err);
+  auto kernel = c2f_tc_kernel<T, BK, BN, MS>;
+  cudaError_t e = allow_smem(kernel, smem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  int tiles = 0;
+  for (const GemmGeo& q : g.gm) tiles = std::max(tiles, q.ntiles);
+  // persistent and cooperative: one block an SM, every block resident (the
+  // grid barriers wait for all of them)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)std::min(tiles, sms));
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, maps, g, out);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+// BK 32 (with BN 64) or 64; BN 64 (MS 1 or 2 m64 subtiles a warpgroup) or 128
+// (MS 1: two would hold 128 accumulators a thread, which spill)
 template <typename T>
-cudaError_t launch_tc(const void* const* p, void* y, int B, int H, int W, int Cin, int c, int C2,
-                      int TT, cudaStream_t stream) {
-  // widths the GEMMs take: 16-byte rows, k16 steps inside one 3x3 tap
-  if (c % 16 || C2 % 8 || Cin % 8) return cudaErrorInvalidValue;
-  const T* const* t = reinterpret_cast<const T* const*>(p);
-  const TcArgs<T> args{t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], t[8],
-                       static_cast<T*>(y), H, W, Cin, c, C2};
-  switch (TT) {
-    case 16: return launch_tc_tile<T, 16>(args, B, stream);
-    case 8: return launch_tc_tile<T, 8>(args, B, stream);
-    case 4: return launch_tc_tile<T, 4>(args, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_tc_plan(const void* const* p, void* y, void* scratch, void* bar, int B,
+                           int H, int W, int Cin, int c, int C2, int bk, int bn, int ms, int R,
+                           int Wt, cudaStream_t st) {
+  // 16-byte rows for TMA: every channel count a multiple of 8
+  if ((c & 15) || (C2 & 7) || (Cin & 7) || !scratch || !bar) return cudaErrorInvalidValue;
+#define YS_C2F_PLAN(BK, BN, MS)                                                                 \
+  if (bk == BK && bn == BN && ms == MS)                                                         \
+    return launch_tc<T, BK, BN, MS>(p, y, scratch, bar, B, H, W, Cin, c, C2, R, Wt, st);
+  YS_C2F_PLAN(32, 64, 1)
+  YS_C2F_PLAN(32, 64, 2)
+  YS_C2F_PLAN(64, 64, 1)
+  YS_C2F_PLAN(64, 64, 2)
+  YS_C2F_PLAN(64, 128, 1)
+#undef YS_C2F_PLAN
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Returns the CUDA error of the launch (0 on success). dtype: 0 float32 (CUDA
-// cores, tile 8 or 4), 1 bfloat16 or 2 float16 (tensor cores, tile 16, 8 or
-// 4).
+// Returns the CUDA error of the launch (0 on success; 10000 + a CUresult
+// where a TMA tensor map could not be encoded). dtype: 0 float32 (CUDA
+// cores: tile 8 or 4; scratch, bar and the plan unused), 1 bfloat16 or 2
+// float16 (tensor cores: the plan bk, bn, ms, rows x wt of
+// kernels/c2f.py c2f_plan; scratch holds B H W 4c elements, bar two
+// unsigned ints, zero before the first launch and left so by each).
 extern "C" int ys_c2f(const void* x, const void* w1, const void* b1, const void* wm1,
                       const void* bm1, const void* wm2, const void* bm2, const void* w2,
-                      const void* b2, void* y, int B, int H, int W, int Cin, int c, int C2,
-                      int tile, int dtype, void* stream) {
+                      const void* b2, void* y, void* scratch, void* bar, int B, int H, int W,
+                      int Cin, int c, int C2, int dtype, int tile, int bk, int bn, int ms,
+                      int rows, int wt, void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;
   if (c % 4 || C2 % 4) return cudaErrorInvalidValue;
   const void* p[9] = {x, w1, b1, wm1, bm1, wm2, bm2, w2, b2};
@@ -583,7 +935,11 @@ extern "C" int ys_c2f(const void* x, const void* w1, const void* b1, const void*
     if (tile == 4) return launch_f32<4>(p, y, B, H, W, Cin, c, C2, st);
     return cudaErrorInvalidValue;
   }
-  if (dtype == 1) return launch_tc<bf16>(p, y, B, H, W, Cin, c, C2, tile, st);
-  if (dtype == 2) return launch_tc<f16>(p, y, B, H, W, Cin, c, C2, tile, st);
+  if (dtype == 1)
+    return launch_tc_plan<bf16>(p, y, scratch, bar, B, H, W, Cin, c, C2, bk, bn, ms, rows, wt,
+                                st);
+  if (dtype == 2)
+    return launch_tc_plan<f16>(p, y, scratch, bar, B, H, W, Cin, c, C2, bk, bn, ms, rows, wt,
+                               st);
   return cudaErrorInvalidValue;
 }

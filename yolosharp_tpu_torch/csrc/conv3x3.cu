@@ -216,203 +216,6 @@ cudaError_t launch_f32_ck(const void* x, const void* w, const void* b, void* y, 
 
 // ------------------------------------------- 16-bit: bfloat16 and float16
 
-// ---- Hopper building blocks: wgmma, mbarriers, TMA
-
-// D (64 x N, float32) += A (64 x 16, K-major) * B (16 x N, N-major), both
-// read from shared memory through their descriptors; TY is the PTX type of
-// A and B ("bf16" or "f16").
-#define YS_WGMMA_N64(TY)                                                                         \
-  asm volatile(                                                                                  \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                               \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                                \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, " \
-      "1;\n}\n"                                                                                   \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])            \
-      : "l"(da), "l"(db), "r"(1))
-
-#define YS_WGMMA_N128(TY)                                                                        \
-  asm volatile(                                                                                  \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                               \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                               \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "     \
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "     \
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"     \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),           \
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),           \
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),           \
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),           \
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),           \
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),           \
-        "+f"(d[62]), "+f"(d[63])                                                                 \
-      : "l"(da), "l"(db), "r"(1))
-
-template <typename T, int N>
-__device__ __forceinline__ void wgmma16(float (&d)[N / 2], uint64_t da, uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma16<bf16, 64>(float (&d)[32], uint64_t da, uint64_t db) {
-  YS_WGMMA_N64("bf16");
-}
-template <>
-__device__ __forceinline__ void wgmma16<f16, 64>(float (&d)[32], uint64_t da, uint64_t db) {
-  YS_WGMMA_N64("f16");
-}
-template <>
-__device__ __forceinline__ void wgmma16<bf16, 128>(float (&d)[64], uint64_t da, uint64_t db) {
-  YS_WGMMA_N128("bf16");
-}
-template <>
-__device__ __forceinline__ void wgmma16<f16, 128>(float (&d)[64], uint64_t da, uint64_t db) {
-  YS_WGMMA_N128("f16");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Shared-memory matrix descriptor: start address, leading / stride byte
-// offsets, base offset (the phase of the swizzle pattern at the start
-// address), swizzle (1: 128-byte, 2: 64-byte).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, int swz,
-                                              uint32_t base_offset = 0) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)(base_offset & 7) << 49) |
-         ((uint64_t)swz << 62);
-}
-// The K-major A operand of BK channels a pixel row: 128-byte rows under the
-// 128-byte swizzle (BK = 64) or 64-byte rows under the 64-byte swizzle (BK =
-// 32), which XOR a row's 16-byte units with bits 7-9 (7-8) of its address;
-// 8-row groups 8 rows apart. A tap starts its 64 rows at any pixel row of
-// the tile, so the start is only row-aligned: the swizzle follows the
-// absolute address (TMA writes it so, and wgmma reads it so with a base
-// offset of 0 at every row start: conv3x3_desc_probe), so no base offset.
-template <int BK>
-__device__ __forceinline__ uint64_t a_desc(uint32_t addr) {
-  return smem_desc(addr, 16, 8 * BK * 2, BK == 64 ? 1 : 2);
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Wait until the phase of the given parity has completed. A wait of more
-// than ~10 s (a lost TMA transaction or a miscounted barrier) traps, so a
-// fault ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > 20000000000LL) __trap();
-  }
-}
-// TMA tensor loads into shared memory, completing on an mbarrier; the
-// coordinates are signed, and elements outside the tensor read as zero.
-__device__ __forceinline__ void tma3(uint32_t dst, const CUtensorMap* m, uint32_t bar, int c0,
-                                     int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-      "{%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void tma4(uint32_t dst, const CUtensorMap* m, uint32_t bar, int c0,
-                                     int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
-      "{%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// cuTensorMapEncodeTiled of the CUDA driver API, found through the runtime's
-// entry-point query so that the library links no libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                : nullptr;
-  }();
-  return fn;
-}
-
-constexpr int kEncodeFailed = 10000;  // + the CUresult of a failed encode
-
-// A tensor map over a 16-bit tensor of `rank` dims (innermost first; strides
-// in elements of dims 1..) with the given box and swizzle. 0 or an error.
-int encode(CUtensorMap* m, CUtensorMapDataType type, int rank, const void* base,
-           const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
-           CUtensorMapSwizzle swz) {
-  EncodeTiled enc = encoder();
-  if (!enc) return kEncodeFailed;
-  cuuint64_t d[5], s[4];
-  cuuint32_t bx[5], one[5];
-  for (int i = 0; i < rank; ++i) {
-    d[i] = dims[i];
-    bx[i] = box[i];
-    one[i] = 1;
-    if (i) s[i - 1] = strides[i - 1] * 2;
-  }
-  const CUresult r = enc(m, type, rank, const_cast<void*>(base), d, s, bx, one,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
-}
-
-template <typename T>
-constexpr CUtensorMapDataType tma_type() {
-  return std::is_same<T, bf16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-}
-
 // ---- the implicit GEMM with the input tile shared by the nine taps
 
 // input channels of a chunk: 64 at stride 1 (128-byte A rows, half the
