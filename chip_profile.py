@@ -30,9 +30,11 @@ images and masks render inside the step, and beside it the mask render
 alone. `pose-train`: v11m-pose's step on one planned batch of 8
 (chip_smoke.write_pose_dataset), whose images render inside the step and
 whose keypoints the planner moved. `obb-train`: v12x-obb's End2End step
-on one planned batch of 8 (chip_smoke.write_obb_dataset), with the device
-time of the attention's plain backward (each KernelAttention backward
-inside a record_function range, "attention_backward") beside the step's.
+on one planned batch of 8 (chip_smoke.write_obb_dataset). In every train
+mode each attention backward (KernelAttention's: in bf16 the kernel
+fused_attention_bwd, in float32 the plain one) runs inside a
+record_function range, "attention_backward", whose device time is
+reported beside the step's.
 `v8s-cls`: chip_smoke's seeded v8s-cls (nc = 1000) serving 32 images of
 224x224 and of 480x640 a call: the host's squash of the 32 images to
 224x224 (resize_linear) alone, the network forward alone (CUDA events),
@@ -65,7 +67,7 @@ def family(name):
         return "conv3x3"
     if "c2f" in name:
         return "c2f"
-    if "attention" in name:
+    if "attention" in name or "attn16_kernel" in name:
         return "attention"
     if name.startswith("Memcpy") or name.startswith("Memset"):
         return "memcpy/memset"
@@ -129,18 +131,22 @@ def report(mode, prof, window, calls):
 
 def trace(mode, fn, unprofiled=True):
     """2 warm-up calls of fn, 5 unprofiled walls (each call ends in a host
-    sync), then a torch.profiler trace of 3 calls, reported."""
+    sync; with the peak device memory they allocate), then a
+    torch.profiler trace of 3 calls, reported."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     if unprofiled:
         walls = []
+        torch.cuda.reset_peak_memory_stats(dev)
         for _ in range(5):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"[{mode}] unprofiled calls ms: {[round(w, 2) for w in walls]}",
+        print(f"[{mode}] unprofiled calls ms: {[round(w, 2) for w in walls]}"
+              f"; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB",
               flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -171,7 +177,19 @@ def profile_train(path, batch=None):
                                          slots=32), dev)
     mode = (f"{path} train b{batch['cls'].shape[0]} {cs.TRAIN_SIZE}"
             + (" mosaic (device render in the step)" if mosaic else ""))
-    trace(mode, lambda: step(state, batch, {}))
+    from yolosharp_tpu_torch.kernels.attention import KernelAttention
+
+    real = KernelAttention.backward
+
+    def backward(ctx, g):
+        with record_function("attention_backward"):
+            return real(ctx, g)
+
+    KernelAttention.backward = staticmethod(backward)
+    try:
+        trace(mode, lambda: step(state, batch, {}))
+    finally:
+        KernelAttention.backward = staticmethod(real)
 
 
 def profile_mosaic_train():
@@ -221,10 +239,8 @@ def profile_pose_train():
 
 def profile_obb_train():
     """v12x-obb's End2End step on one planned batch of 8 (the images render
-    inside the step; the planner moved the corners), each attention
-    backward inside an "attention_backward" range."""
+    inside the step; the planner moved the corners)."""
     from yolosharp_tpu_torch.data import YoloDataset, to_device
-    from yolosharp_tpu_torch.kernels.attention import KernelAttention
 
     b = cs.OBB_BATCHES[-1]
     with tempfile.TemporaryDirectory() as root:
@@ -235,17 +251,7 @@ def profile_obb_train():
             batch_size=b))
         batch = to_device(ds.device_batch(np.arange(b), ds.max_label_count),
                           dev)
-    real = KernelAttention.backward
-
-    def backward(ctx, g):
-        with record_function("attention_backward"):
-            return real(ctx, g)
-
-    KernelAttention.backward = staticmethod(backward)
-    try:
-        profile_train(cs.OBB, batch)
-    finally:
-        KernelAttention.backward = staticmethod(real)
+    profile_train(cs.OBB, batch)
 
 
 def profile_cls():

@@ -512,8 +512,16 @@ INT8_SOURCES = {
                   "yolosharp_tpu/nn/common.py:635 (int8_conv, XLA's int8 "
                   "convolution; no Pallas kernel)"),
 }
+# the attention's backward: no Pallas kernel behind it (the JAX custom
+# VJP's backward is einsum code); launched by every 16-bit v12 train step
+BWD_SOURCES = {
+    "fused_attention_bwd": ("yolosharp_tpu_torch/csrc/attention_bwd.cu",
+                            "yolosharp_tpu/kernels/attention.py:100 "
+                            "(_pallas_attn_bwd, einsum code; no Pallas "
+                            "kernel)"),
+}
 # every kernel wrapper that counts launches (kernels.KERNELS)
-ALL_KERNELS = (*SOURCES, *INT8_SOURCES)
+ALL_KERNELS = (*SOURCES, *BWD_SOURCES, *INT8_SOURCES)
 OBB = "v12x-obb"
 CLS, CLS11 = "v8s-cls", "v11s-cls"
 # the kernels each path must launch (and no other)
@@ -1485,83 +1493,268 @@ def time_eager(fns: dict, iters: int = 5) -> dict:
     return {name: float(np.mean(t)) for name, t in times.items()}
 
 
-def phase_attention_autograd(dev, tag: str) -> dict:
-    """Phase 5; returns the bf16 sums of the three routes' forward +
-    backward ms over the two shapes."""
-    from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
-                                             fused_attention)
+def attention64(q, k, v, g, scale):
+    """(o, dq, dk, dv) of softmax(q k^T scale) v over (B, N, H, D) tensors
+    for the output gradient g, evaluated in float64 on the given (rounded)
+    inputs; (o,) where g is None."""
+    qf, kf, vf = (t.double() for t in (q, k, v))
+    s = torch.einsum("bihd,bjhd->bhij", qf * scale, kf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhij,bjhd->bihd", p, vf)
+    if g is None:
+        return (o,)
+    gf = g.double()
+    dv = torch.einsum("bhij,bihd->bjhd", p, gf)
+    dp = torch.einsum("bihd,bjhd->bhij", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return (o, scale * torch.einsum("bhij,bjhd->bihd", ds, kf),
+            scale * torch.einsum("bhij,bihd->bjhd", ds, qf), dv)
 
-    print("phase 5: fused_attention under autograd (kernel forward, plain "
-          "backward) against plain autograd, v12s b16 and v12x-obb b8 "
-          "640x640 train shapes", flush=True)
+
+def sdpa_backward(q, k, v, g, scale):
+    """One call of PyTorch's flash attention backward on (B, N, H, D)
+    tensors, returning (dq, dk, dv) as (B, H, N, D) tensors; its output and
+    logsumexp come from the op's own forward, run once here (not part of
+    the call)."""
+    qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g))
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed, off, _ = (
+        aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, False,
+                                                 False, scale=scale))
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        gt, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, False, seed, off,
+        scale=scale)
+
+
+def phase_attention_autograd(dev, tag: str):
+    """Phase 5; returns the bf16 sums of the three routes' forward +
+    backward ms over the two shapes (fused_attention's stats) and the
+    backward kernel's stats."""
+    from yolosharp_tpu_torch.kernels import (attention_bihd,
+                                             attention_bwd_plain,
+                                             attention_plain,
+                                             attention_stats_plain,
+                                             fused_attention,
+                                             fused_attention_bwd)
+    from yolosharp_tpu_torch.kernels import attention as attn_mod
+    from yolosharp_tpu_torch.kernels.attention import KINDS, attention_plan
+
+    print("phase 5: fused_attention under autograd (kernel forward; "
+          "float32: the plain backward, bfloat16 / float16: the kernel "
+          "fused_attention_bwd) against plain autograd and float64, v12s "
+          "b16 and v12x-obb b8 640x640 train shapes", flush=True)
     g = torch.Generator(device=dev).manual_seed(5)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # v12s's sums, as before, and v12x-obb's beside them
     sums = {f"autograd{sfx}_{route}": 0.0 for sfx in ("", "_v12x_obb")
             for route in ("ms", "plain_ms", "library_ms")}
-    for dtype in (torch.float32, torch.bfloat16):
-        for layer, (b, n, h, d) in TRAIN_ATTN.items():
-            var = variant("attn", dtype, b, (1, h, n, d), sms)
-            scale = d ** -0.5
-            qkv = torch.randn(b, n, h, 3 * d, generator=g,
-                              device=dev).to(dtype)
-            grad_out = torch.randn(b, n, h, d, generator=g,
-                                   device=dev).to(dtype)
+    first = next(iter(TRAIN_ATTN))
+    bwd = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0,
+           "max_abs_err_f16": 0.0, "shapes": 0, "ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "library_ms": 0.0, "ms_f16": 0.0,
+           "plain_ms_f16": 0.0, "library_ms_f16": 0.0, "bound_ms_f16": 0.0,
+           "f16_timed_shape": first,
+           "fwd_bwd_ms": 0.0, "fwd_bwd_plain_ms": 0.0,
+           "fwd_bwd_library_ms": 0.0, "fwd_bwd_ms_eager": 0.0,
+           "fwd_bwd_library_ms_eager": 0.0}
+    parts = {}
+    plain_calls = []
+    real_plain = attn_mod.attention_grads_plain
 
-            def bhnd(q, k, v):
-                return [x.transpose(1, 2) for x in (q, k, v)]
+    def counted_plain(*a, **kw):
+        plain_calls.append(a[0].dtype)
+        return real_plain(*a, **kw)
 
-            routes = {
-                "plain": lambda q, k, v: attention_plain(
-                    *bhnd(q, k, v), scale).transpose(1, 2),
-                "kernel": lambda q, k, v: attention_bihd(q, k, v, scale),
-                "library": lambda q, k, v: F.scaled_dot_product_attention(
-                    *bhnd(q, k, v), scale=scale).transpose(1, 2)}
+    attn_mod.attention_grads_plain = counted_plain
+    try:
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            half = dtype != torch.float32
+            dt = str(dtype)[6:]
+            for layer, (b, n, h, d) in TRAIN_ATTN.items():
+                var = variant("attn", dtype, b, (1, h, n, d), sms)
+                scale = d ** -0.5
+                qkv = torch.randn(b, n, h, 3 * d, generator=g,
+                                  device=dev).to(dtype)
+                grad_out = torch.randn(b, n, h, d, generator=g,
+                                       device=dev).to(dtype)
 
-            def run(route):
-                t = qkv.clone().requires_grad_()
-                out = routes[route](*t.split(d, dim=-1))
-                out.backward(grad_out)
-                return out, t.grad
+                def bhnd(q, k, v):
+                    return [x.transpose(1, 2) for x in (q, k, v)]
 
-            before = fused_attention.launches
-            out, got = run("kernel")
-            if out.grad_fn is None or fused_attention.launches != before + 1:
-                raise SystemExit("attention under autograd: no grad_fn or "
-                                 "no kernel launch")
-            want_out, want = run("plain")
-            # the forward under autograd, at the rules of phase 2
-            ref = attention_plain(*bhnd(*qkv.double().split(d, dim=-1)),
-                                  scale).transpose(1, 2)
-            compare(f"{layer} {str(dtype)[6:]} (B, N, H, D) = {(b, n, h, d)} "
-                    f"[{var}] output", out.detach(), want_out.detach(), dtype,
-                    "attn", ref)
-            got, want = got.float(), want.float()
-            err = (got - want).abs()
-            if dtype == torch.float32:
-                bad = int((err > 1e-4 + 1e-4 * want.abs()).sum())
-                ok, rule = bad == 0, f"|k-p| <= 1e-4 + 1e-4|p| ({bad} outside)"
-            else:
-                rel = float(err.max() / want.abs().max())
-                ok, rule = rel < 2e-2, f"max|k-p|/max|p| = {rel:.3e} < 2e-2"
-            ok = ok and bool(torch.isfinite(got).all())
-            print(f"  {layer} {str(dtype)[6:]} (B, N, H, D) = {(b, n, h, d)} "
-                  f"[{var}]: dq dk dv max_abs_err {float(err.max()):.3e} {rule} "
-                  f"{'OK' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise SystemExit("attention gradients disagree with plain "
-                                 "autograd")
-            t = time_eager({r: (lambda r=r: run(r)) for r in routes})
-            print(f"    {tag}: forward + backward {t['kernel']:.3f} ms "
-                  f"kernel route, {t['plain']:.3f} ms plain autograd, "
-                  f"{t['library']:.3f} ms SDPA (CUDA events, eager, mean "
-                  f"of 10)", flush=True)
-            if dtype == torch.bfloat16:
-                sfx = "_v12x_obb" if layer.startswith(OBB) else ""
-                sums[f"autograd{sfx}_ms"] += t["kernel"]
-                sums[f"autograd{sfx}_plain_ms"] += t["plain"]
-                sums[f"autograd{sfx}_library_ms"] += t["library"]
-    return sums
+                routes = {
+                    "plain": lambda q, k, v: attention_plain(
+                        *bhnd(q, k, v), scale).transpose(1, 2),
+                    "kernel": lambda q, k, v: attention_bihd(q, k, v, scale),
+                    "library": lambda q, k, v: F.scaled_dot_product_attention(
+                        *bhnd(q, k, v), scale=scale).transpose(1, 2)}
+
+                def run(route):
+                    t = qkv.clone().requires_grad_()
+                    out = routes[route](*t.split(d, dim=-1))
+                    out.backward(grad_out)
+                    return out, t.grad
+
+                before = (fused_attention.launches,
+                          fused_attention_bwd.launches, len(plain_calls))
+                out, got = run("kernel")
+                torch.cuda.synchronize()
+                after = (fused_attention.launches,
+                         fused_attention_bwd.launches, len(plain_calls))
+                want_bwd = (1, 1, 0) if half else (1, 0, 1)
+                launched = tuple(a - z for a, z in zip(after, before))
+                if out.grad_fn is None or launched != want_bwd:
+                    raise SystemExit(
+                        f"attention under autograd ({dt}): (forward, "
+                        f"backward kernel, plain backward) calls "
+                        f"{launched}, want {want_bwd}")
+                tag_s = f"{layer} {dt} (B, N, H, D) = {(b, n, h, d)} [{var}]"
+                if half:
+                    tag_s += " [backward " + ", ".join(
+                        f"{p.kind} grid {p.grid} stages {p.stages} rows "
+                        f"{p.tile} units {p.units}"
+                        for p in (attention_plan(kind, b * h, n, d, sms)
+                                  for kind in KINDS)) + "]"
+                want_out, want = run("plain")
+                # float64 on the same rounded inputs: the output's reference
+                # (the forward under autograd, at the rules of phase 2) and,
+                # in 16 bits, the gradients'
+                q, k, v = qkv.split(d, dim=-1)
+                refs = attention64(q, k, v, grad_out if half else None,
+                                   scale)
+                compare(f"{tag_s} output", out.detach(), want_out.detach(),
+                        dtype, "attn", refs[0])
+                err = (got.float() - want.float()).abs()
+                if not half:
+                    bad = int((err > 1e-4 + 1e-4 * want.float().abs()).sum())
+                    ok, rule = bad == 0, (f"|k-p| <= 1e-4 + 1e-4|p| ({bad} "
+                                          f"outside)")
+                else:
+                    rel = float(err.max() / want.float().abs().max())
+                    ok, rule = rel < 2e-2, (f"max|k-p|/max|p| = {rel:.3e} "
+                                            f"< 2e-2")
+                ok = ok and bool(torch.isfinite(got).all())
+                print(f"  {tag_s}: dq dk dv against plain autograd "
+                      f"max_abs_err {float(err.max()):.3e} {rule} "
+                      f"{'OK' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise SystemExit("attention gradients disagree with "
+                                     "plain autograd")
+                if half:
+                    # the backward kernel against float64, per gradient,
+                    # beside the plain float32 backward's own distance
+                    plain32 = real_plain(*(t.float() for t in (q, k, v)),
+                                         grad_out.float(), scale)
+                    u = UNIT[dtype]
+                    kd, pd = [], []
+                    for a, p32, r in zip(got.split(d, dim=-1), plain32,
+                                         refs[1:]):
+                        top = float(r.abs().max())
+                        kd.append(float((a.double() - r).abs().max()) / top)
+                        pd.append(float((p32.double() - r).abs().max()) / top)
+                    ok = all(x <= max(TOL16["attn"] * u, 2 * y)
+                             for x, y in zip(kd, pd))
+                    del refs, plain32
+                    # the kernel alone against its plain twin, on the same
+                    # row statistics, and its bits in two calls
+                    stats = attention_stats_plain(q, k, v, scale)
+                    kern = fused_attention_bwd(q, k, v, grad_out, *stats,
+                                               scale)
+                    again = fused_attention_bwd(q, k, v, grad_out, *stats,
+                                                scale)
+                    same = all(bool(torch.equal(x, y))
+                               for x, y in zip(kern, again))
+                    print(f"    fused_attention_bwd vs float64 (max|k - ref| "
+                          f"/ max|ref|, dq dk dv): kernel "
+                          + ", ".join(f"{x / u:.3f}" for x in kd)
+                          + " u, plain float32 "
+                          + ", ".join(f"{y / u:.2e}" for y in pd)
+                          + f" u; gate max({TOL16['attn']} u, 2 x plain); "
+                          f"two calls equal bits: {same} "
+                          f"{'OK' if ok and same else 'FAIL'}", flush=True)
+                    if not ok or not same:
+                        raise SystemExit("fused_attention_bwd fails its "
+                                         "float64 gate or is not "
+                                         "deterministic")
+                    twin = attention_bwd_plain(q, k, v, grad_out, *stats,
+                                               scale)
+                    diff = max(float((a.float() - z.float()).abs().max())
+                               for a, z in zip(kern, twin))
+                    bwd[ERR_KEY[dtype]] = max(bwd[ERR_KEY[dtype]], diff)
+                    bwd["max_abs_err"] = max(bwd["max_abs_err"], diff)
+                    del twin, again
+                # times: bf16 at every shape, f16 (within 2% of bf16 on
+                # the H100) at the first; float32 forward + backward at each
+                timed = dtype != torch.float16 or layer == first
+                if half and timed:
+                    lib = sdpa_backward(q, k, v, grad_out, scale)
+                    lib_diff = max(
+                        float((a.transpose(1, 2).float() - z.float()).abs()
+                              .max()) for a, z in zip(lib(), kern))
+                    tb, _ = time_calls({
+                        "plain": lambda: attention_bwd_plain(
+                            q, k, v, grad_out, *stats, scale),
+                        "kernel": lambda: fused_attention_bwd(
+                            q, k, v, grad_out, *stats, scale),
+                        "library": lib})
+                    seqs = b * h
+                    size = 2
+                    bound_ms, by = bound(5 * 2 * seqs * n * n * d,
+                                         7 * seqs * n * d * size, dtype)
+                    print(f"    backward alone, device (CUDA graph): "
+                          f"{tb['kernel']:.4f} ms kernel, {tb['plain']:.4f} "
+                          f"ms plain twin, {tb['library']:.4f} ms aten flash "
+                          f"attention backward (max|lib - k| "
+                          f"{lib_diff:.3e}); bound {bound_ms:.4f} ms by {by} "
+                          f"({7 * seqs * n * d * size / 1e6:.1f} MB, "
+                          f"{10 * seqs * n * n * d / 1e9:.2f} GFLOP), "
+                          f"{bound_ms / tb['kernel']:.3f} of it; max|k - "
+                          f"twin| {diff:.3e}", flush=True)
+                    sfx = "" if dtype == torch.bfloat16 else "_f16"
+                    bwd["ms" + sfx] += tb["kernel"]
+                    bwd["plain_ms" + sfx] += tb["plain"]
+                    bwd["library_ms" + sfx] += tb["library"]
+                    bwd["bound_ms" + sfx] += bound_ms
+                    parts[by] = parts.get(by, 0.0) + bound_ms
+                    bwd["shapes"] += 1
+                if half:
+                    del kern, stats
+                if not timed:
+                    continue
+                t, eager = time_calls({r: (lambda r=r: run(r))
+                                       for r in routes})
+                print(f"    {tag}: forward + backward, device (CUDA graph): "
+                      f"{t['kernel']:.4f} ms kernel route, {t['plain']:.4f} "
+                      f"ms plain autograd, {t['library']:.4f} ms SDPA; "
+                      f"eager: {eager['kernel']:.3f} / {eager['plain']:.3f} "
+                      f"/ {eager['library']:.3f} ms (CUDA events, mean of "
+                      f"10)", flush=True)
+                if dtype == torch.bfloat16:
+                    sfx = "_v12x_obb" if layer.startswith(OBB) else ""
+                    sums[f"autograd{sfx}_ms"] += eager["kernel"]
+                    sums[f"autograd{sfx}_plain_ms"] += eager["plain"]
+                    sums[f"autograd{sfx}_library_ms"] += eager["library"]
+                    bwd["fwd_bwd_ms"] += t["kernel"]
+                    bwd["fwd_bwd_plain_ms"] += t["plain"]
+                    bwd["fwd_bwd_library_ms"] += t["library"]
+                    bwd["fwd_bwd_ms_eager"] += eager["kernel"]
+                    bwd["fwd_bwd_library_ms_eager"] += eager["library"]
+    finally:
+        attn_mod.attention_grads_plain = real_plain
+    if any(dt != torch.float32 for dt in plain_calls):
+        raise SystemExit(f"a 16-bit backward ran attention_grads_plain: "
+                         f"{plain_calls}")
+    bwd["bound_by"] = max(parts, key=parts.get)
+    print(f"  fused_attention_bwd bf16 sums over the four shapes, device ms: "
+          f"kernel {bwd['ms']:.4f}, plain twin {bwd['plain_ms']:.4f}, aten "
+          f"flash backward {bwd['library_ms']:.4f}, bound "
+          f"{bwd['bound_ms']:.4f} ({bwd['bound_by']}); f16 at {first}: "
+          f"kernel {bwd['ms_f16']:.4f}, aten {bwd['library_ms_f16']:.4f}; "
+          f"forward + backward "
+          f"(CUDA graph) kernel route {bwd['fwd_bwd_ms']:.4f}, plain "
+          f"{bwd['fwd_bwd_plain_ms']:.4f}, SDPA {bwd['fwd_bwd_library_ms']:.4f}"
+          f"; eager kernel route {bwd['fwd_bwd_ms_eager']:.3f}, SDPA "
+          f"{bwd['fwd_bwd_library_ms_eager']:.3f}", flush=True)
+    return sums, bwd
 
 
 def train_batch(n, size, seed, slots=3):
@@ -1900,13 +2093,15 @@ def phase_fp16(dev, states, confs) -> dict:
             reset_launch_counts()
             _, items = step(state, tb, {})
             n = launch_counts()["fused_attention"]
+            nb = launch_counts()["fused_attention_bwd"]
             print(f"  [v12n true_fp16 train] step {i + 1}: loss items "
                   f"{items.tolist()}, updates applied {state.count}, loss "
                   f"scale {state.loss_scale:g} after it, attention launches "
-                  f"{n}", flush=True)
-            if n != 8 or not bool(torch.isfinite(items).all()):
+                  f"{n}, its float16 backward kernel {nb}", flush=True)
+            if n != 8 or nb != 8 or not bool(torch.isfinite(items).all()):
                 raise SystemExit("true_fp16 train step: not 8 attention "
-                                 "launches, or a loss not finite")
+                                 "forward and backward launches, or a loss "
+                                 "not finite")
             if state.count >= 2:
                 break
     finally:
@@ -2082,10 +2277,11 @@ def phase_train_v12(dev, root, tag: str) -> dict:
           f"{TRAIN_BATCH / med * 1e3:.1f} img/s; loss items of the last "
           f"step {items[-1].tolist()}", flush=True)
     print(f"  kernel launches: {counts} ({len(times)} forwards)", flush=True)
-    if counts["fused_attention"] != 8 * len(times) or not bool(
+    if counts["fused_attention"] != 8 * len(times) or counts[
+            "fused_attention_bwd"] != 8 * len(times) or not bool(
             torch.isfinite(items).all()) or len(times) != 10:
-        raise SystemExit("v12s train: not 8 attention launches a forward, "
-                         "or a loss not finite")
+        raise SystemExit("v12s train: not 8 attention forward and backward "
+                         "launches a step, or a loss not finite")
     return counts
 
 
@@ -2758,10 +2954,12 @@ def phase_obb_train(dev, root, tag, batch):
             or not np.isfinite(losses).all() or len(metrics) != 4
             or "train/angle_loss" not in head
             or counts["conv3x3_silu"] or counts["conv3x3s2_silu"]
-            or not counts["fused_attention"]):
+            or not counts["fused_attention"]
+            or not counts["fused_attention_bwd"]):
         raise SystemExit(f"{name} train(): wrong epochs, renders, labels, "
                          f"losses or metrics, a conv kernel launch in "
-                         f"training or no attention launch")
+                         f"training or no attention forward or backward "
+                         f"launch")
     fresh = YoloTask(path_config(OBB, end2end=True), device=dev)
     fresh.load_model(os.path.join(out, "weights", "best.bin"))
     image = synthetic_images(1, 640, 640, 54)[0]
@@ -4214,14 +4412,14 @@ def phase_mesh_serve(dev, state, conf, tag):
     return counts
 
 
-def step_spec(version, size, batch, **cfg):
-    """run_steps' spec of a float32 n-size detect step from the task's
-    seeded weights on `batch`."""
+def step_spec(version, size, batch, dtype=None, **cfg):
+    """run_steps' spec of a float32 (or dtype's) detect step from the
+    task's seeded weights on `batch`."""
     from yolosharp_tpu_torch import (Config, ScalarType, YoloSize, YoloTask,
                                      YoloType)
 
     config = Config(yolo_type=YoloType(version), yolo_size=YoloSize(size),
-                    number_class=80, scalar_type=ScalarType.float32,
+                    number_class=80, scalar_type=dtype or ScalarType.float32,
                     image_size=DP_SIZE, **cfg)
     net = YoloTask(config, device="cpu").task._ensure_variables()
     sd = {k: v.detach().clone() for k, v in net.state_dict().items()}
@@ -4327,6 +4525,7 @@ def trace_collectives(path) -> dict:
 def phase_dp(dev, root, tag) -> dict:
     """Phases 16b-d. Returns the kernel launches of 16b's train() on this
     process (rank 0)."""
+    from yolosharp_tpu_torch import ScalarType
     from yolosharp_tpu_torch.graft_entry import run_steps
 
     devices, how = mesh_devices()
@@ -4336,14 +4535,16 @@ def phase_dp(dev, root, tag) -> dict:
     v8n, zero8 = step_spec("v8", "n", batch)
     v12n, zero12 = step_spec("v12", "n", batch)
     v8s, zero8s = step_spec("v8", "s", batch)
+    # a bfloat16 v12n step: its attention backward is the kernel
+    v12n16, _ = step_spec("v12", "n", batch, dtype=ScalarType.bfloat16)
     t = time.perf_counter()
     one = run_steps([v8n, v12n, v8s], [dev])
     t1 = time.perf_counter()
     ck = os.path.join(root, "last_state.dcp")
-    dp8, dp12, dp8s, fs8s, fs8s2, dp8s2 = run_steps(
+    dp8, dp12, dp8s, fs8s, fs8s2, dp8s2, dp12b = run_steps(
         [v8n, v12n, v8s, dict(v8s, fsdp=True),
-         dict(v8s, fsdp=True, steps=2, save_dcp=ck), dict(v8s, steps=2)],
-        devices)
+         dict(v8s, fsdp=True, steps=2, save_dcp=ck), dict(v8s, steps=2),
+         v12n16], devices)
     t2 = time.perf_counter()
     print(f"  float32 steps at {DP_SIZE}x{DP_SIZE}, global batch {2 * d}: "
           f"on cuda:0 {t1 - t:.1f} s, over the ranks {t2 - t1:.1f} s "
@@ -4358,6 +4559,15 @@ def phase_dp(dev, root, tag) -> dict:
     if devices[0].type == "cuda" and not all(attn):
         raise SystemExit("a rank's v12n step did not launch the attention "
                          "kernel")
+    bwd = [r["fused_attention_bwd"] for r in dp12b["launches_by_rank"]]
+    print(f"  v12n bfloat16 DP x{d}: fused_attention_bwd launches by rank "
+          f"{bwd} (8 a step: the backward kernel on every rank); loss "
+          f"{dp12b['loss']:.6f}", flush=True)
+    if devices[0].type == "cuda" and (
+            any(n != 8 for n in bwd) or not np.isfinite(dp12b["loss"])):
+        raise SystemExit("a rank's bfloat16 v12n step did not launch the "
+                         "attention backward kernel 8 times, or its loss "
+                         "is not finite")
 
     print(f"phase 16c: FSDP, one v8s step against the DP step, {how}",
           flush=True)
@@ -5038,7 +5248,7 @@ def main() -> int:
     from yolosharp_tpu_torch.kernels import build
 
     t_start = t0 = time.perf_counter()
-    names = ("conv3x3", "c2f", "attention", "int8_conv")
+    names = ("conv3x3", "c2f", "attention", "attention_bwd", "int8_conv")
     host_names = ("jpeg_decode", "png_unfilter", "tiff_decode", "webp_decode")
     with ThreadPoolExecutor(len(names) + len(host_names)) as pool:
         host = [pool.submit(build.load_host, n) for n in host_names]
@@ -5084,8 +5294,8 @@ def main() -> int:
     for path in PATHS:
         if ARCH[path][2] == "detect":
             serve(path)
-    stats["fused_attention"].update(
-        timed("5", phase_attention_autograd, dev, tag))
+    autograd_sums, bwd_stats = timed("5", phase_attention_autograd, dev, tag)
+    stats["fused_attention"].update(autograd_sums)
     timed("6", phase_train_step_cpu_match, dev)
     add(timed("6b", phase_fp16, dev, states, confs), launches)
     train_launches = {}
@@ -5205,6 +5415,17 @@ def main() -> int:
                                       "train": train_launches[name]},
                  "launches_per_b32_forward": per_forward[name]}
         entry.update(stats[name])
+        kernels.append(entry)
+    for name, (src, replaces) in BWD_SOURCES.items():
+        if not train_launches[name] or launches[name]:
+            raise SystemExit(f"{name}: launched {train_launches[name]} times "
+                             f"by the train phases and {launches[name]} by "
+                             f"predict (want > 0 and 0)")
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": train_launches[name],
+                 "launches_by_path": {"predict": 0,
+                                      "train": train_launches[name]}}
+        entry.update(bwd_stats)
         kernels.append(entry)
     # int8 is a predict-only route behind int8_predict, which only phase 17
     # sets: every other phase, train and predict alike, must leave it idle

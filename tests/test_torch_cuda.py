@@ -12,12 +12,16 @@ import torch
 
 from yolosharp_tpu_torch import (Config, ScalarType, TaskType, YoloSize,
                                  YoloTask, YoloType)
-from yolosharp_tpu_torch.kernels import (attention_bihd, attention_plain,
-                                         c2f_fused, c2f_plain, conv3x3_plain,
+from yolosharp_tpu_torch.kernels import (attention_bihd, attention_bwd_plain,
+                                         attention_grads_plain, attention_plain,
+                                         attention_stats_plain, c2f_fused,
+                                         c2f_plain, conv3x3_plain,
                                          conv3x3_silu, conv3x3s2_silu,
-                                         fused_attention, launch_counts,
-                                         reset_launch_counts)
-from yolosharp_tpu_torch.kernels.attention import launch_geometry
+                                         fused_attention, fused_attention_bwd,
+                                         launch_counts, reset_launch_counts)
+from yolosharp_tpu_torch.kernels import attention as attn_module
+from yolosharp_tpu_torch.kernels.attention import (attention_plan,
+                                                   launch_geometry)
 from yolosharp_tpu_torch.kernels.c2f import C2fPlan, c2f_plan
 from yolosharp_tpu_torch.kernels import conv3x3 as conv_module
 from yolosharp_tpu_torch.kernels.conv3x3 import ConvPlan, conv_plan, padded
@@ -519,7 +523,9 @@ def test_v12_predict_on_the_card_matches_the_cpu(cuda, end2end):
 @pytest.mark.parametrize("n", [65, 400])
 def test_attention_under_autograd(cuda, dtype, d, n):
     """With grad on, both wrappers run the kernel's forward (one launch,
-    an output with a grad_fn) and the plain backward. Their outputs against
+    an output with a grad_fn) and the backward (16-bit: the kernel
+    fused_attention_bwd, one launch; float32: the plain backward). Their
+    outputs against
     the plain version's, as in the grad-free tests (float32 |d| <= 2e-5 +
     2e-4|ref|, 16-bit max|d| / max|ref| < 1e-2); the gradients of q, k
     and v (strided views of one qkv tensor) against full plain autograd:
@@ -537,12 +543,16 @@ def test_attention_under_autograd(cuda, dtype, d, n):
         return out, t.grad
 
     before = fused_attention.launches
+    bwd_before = fused_attention_bwd.launches
     out, got = grads(lambda q, k, v: attention_bihd(q, k, v, scale))
     assert out.grad_fn is not None and fused_attention.launches == before + 1
     out_h, got_h = grads(lambda q, k, v: fused_attention(
         *(x.transpose(1, 2) for x in (q, k, v)), scale).transpose(1, 2))
     assert out_h.grad_fn is not None
     assert fused_attention.launches == before + 2
+    # 16-bit: the backward kernel, one launch a backward; float32: plain
+    assert fused_attention_bwd.launches == bwd_before + (
+        0 if dtype == "float32" else 2)
     want_out, want = grads(lambda q, k, v: attention_plain(
         *(x.transpose(1, 2) for x in (q, k, v)), scale).transpose(1, 2))
     for o in (out, out_h):
@@ -559,12 +569,145 @@ def test_attention_under_autograd(cuda, dtype, d, n):
             assert rel < 2e-2, float(rel)
 
 
+def _grads64(q, k, v, g, scale):
+    """(dq, dk, dv) of softmax(q k^T scale) v over (B, N, H, D) tensors in
+    float64 on the given (rounded) inputs."""
+    qf, kf, vf, gf = (t.double() for t in (q, k, v, g))
+    s = torch.einsum("bihd,bjhd->bhij", qf * scale, kf)
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bihd,bjhd->bhij", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return (scale * torch.einsum("bhij,bjhd->bihd", ds, kf),
+            scale * torch.einsum("bhij,bihd->bjhd", ds, qf),
+            torch.einsum("bhij,bihd->bjhd", p, gf))
+
+
+def _kernel_grads(qkv, grad_out, d, scale):
+    t = qkv.clone().requires_grad_()
+    attention_bihd(*t.split(d, dim=-1), scale).backward(grad_out)
+    return t.grad
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 17, 65, 400, 1600])
+def test_attention_backward_kernel_against_float64(cuda, dtype, d, n):
+    """fused_attention_bwd under autograd, q, k and v strided views of one
+    qkv tensor as AAttn gives them, against the backward evaluated in
+    float64 on the same rounded inputs: per gradient, max|k - ref| /
+    max|ref| within the larger of 2.5 u (u = 2^-8 bf16, 2^-11 f16: P and
+    dS are rounded to the type as the A operands of the dV, dQ and dK
+    products, and each gradient once) and twice the plain float32
+    backward's own distance. At N = 1, dq and dk are 0 (one key: dS = P
+    (dP - P dP) = 0) and the kernel's are held to 1e-5, rounding residue.
+    N = 1600 streams through the ring; D = 128 holds 32 query rows a
+    dK / dV stage."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(7 * n + d)
+    B, H, scale = 2, 3, d ** -0.5
+    qkv = torch.randn(B, n, H, 3 * d, generator=g, device=cuda).to(dt)
+    grad_out = torch.randn(B, n, H, d, generator=g, device=cuda).to(dt)
+    got = _kernel_grads(qkv, grad_out, d, scale).split(d, dim=-1)
+    q, k, v = qkv.split(d, dim=-1)
+    refs = _grads64(q, k, v, grad_out, scale)
+    plain = attention_grads_plain(*(t.float() for t in (q, k, v)),
+                                  grad_out.float(), scale)
+    u = 2.0 ** -8 if dtype == "bfloat16" else 2.0 ** -11
+    for name, a, p, r in zip(("dq", "dk", "dv"), got, plain, refs):
+        assert torch.isfinite(a).all(), name
+        top = float(r.abs().max())
+        if top == 0.0:
+            assert n == 1 and name != "dv"
+            assert float(a.abs().max()) <= 1e-5, name
+            continue
+        dk_ = float((a.double() - r).abs().max()) / top
+        dp_ = float((p.double() - r).abs().max()) / top
+        print(f"{name}: kernel {dk_ / u:.3f} u, plain float32 "
+              f"{dp_ / u:.2e} u")
+        assert dk_ <= max(2.5 * u, 2 * dp_), (name, dk_ / u, dp_ / u)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_attention_backward_is_deterministic(cuda, dtype):
+    """No atomics: two backwards of one input give the same bits, at the
+    v12s b16 layer-6 train shape (256 sequences, N = 400, D = 32)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(64, 400, 4, 96, generator=g, device=cuda).to(dt)
+    grad_out = torch.randn(64, 400, 4, 32, generator=g, device=cuda).to(dt)
+    a = _kernel_grads(qkv, grad_out, 32, 32 ** -0.5)
+    b = _kernel_grads(qkv, grad_out, 32, 32 ** -0.5)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_attention_backward_twice_in_one_cuda_graph(cuda, dtype):
+    """fused_attention_bwd allocates nothing itself (dq, dk, dv and its D
+    buffer come from the wrapper's torch.empty), so two launches capture in
+    one CUDA graph; each replay gives the eager result, bit for bit."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    qkv = torch.randn(4, 130, 2, 96, generator=g, device=cuda).to(dt)
+    grad_out = torch.randn(4, 130, 2, 32, generator=g, device=cuda).to(dt)
+    q, k, v = qkv.split(32, dim=-1)
+    stats = attention_stats_plain(q, k, v, 0.2)
+    want = fused_attention_bwd(q, k, v, grad_out, *stats, 0.2)
+    twice = fused_attention_bwd(q, k, v, grad_out * 2, *stats, 0.2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_attention_bwd(q, k, v, grad_out, *stats, 0.2)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        one = fused_attention_bwd(q, k, v, grad_out, *stats, 0.2)
+        two = fused_attention_bwd(q, k, v, grad_out * 2, *stats, 0.2)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(one + two, want + twice):
+            assert torch.equal(a, b)
+    # the kernel against its plain twin on the same statistics
+    for a, b in zip(want, attention_bwd_plain(q, k, v, grad_out, *stats,
+                                              0.2)):
+        rel = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert rel < 1e-2, float(rel)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_attention_backward_launches_and_route(cuda, dtype, monkeypatch):
+    """Each 16-bit backward under autograd is one launch of
+    fused_attention_bwd (its dQ and dK / dV kernels) and never calls the
+    plain attention_grads_plain; float32 takes the plain backward and
+    launches no backward kernel. The plans it launches with fit."""
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(a[0].dtype)
+        return attention_grads_plain(*a, **kw)
+
+    monkeypatch.setattr(attn_module, "attention_grads_plain", counted)
+    dt = getattr(torch, dtype)
+    qkv = torch.randn(3, 200, 2, 96, device=cuda).to(dt)
+    grad_out = torch.randn(3, 200, 2, 32, device=cuda).to(dt)
+    for _ in range(2):
+        before = fused_attention_bwd.launches
+        _kernel_grads(qkv, grad_out, 32, 0.2)
+        half = dtype != "float32"
+        assert fused_attention_bwd.launches == before + (1 if half else 0)
+        assert len(calls) == (0 if half else 1)
+        calls.clear()
+    for kind in ("dq", "dkdv"):
+        plan = attention_plan(kind, 6, 200, 32, _sms(cuda))
+        assert plan.units == 12 and plan.grid == min(12, _sms(cuda))
+
+
 @pytest.mark.parametrize("version", ["v8", "v12"])
 def test_bf16_train_step_on_the_card(cuda, version):
     """One bfloat16 train step of v8n / v12n at 128x128, batch 2, on the
     card: finite loss items, every parameter with a gradient updated, the
-    attention kernel's forward (8 AAttn a v12 forward) launched under
-    autograd and no conv or C2f kernel launched."""
+    attention kernel's forward and backward (8 AAttn a v12 forward) launched
+    under autograd and no conv or C2f kernel launched."""
     from yolosharp_tpu_torch.train import (TrainState, make_optimizer,
                                            make_train_step)
 
@@ -598,6 +741,7 @@ def test_bf16_train_step_on_the_card(cuda, version):
         if p.grad.abs().max() > 0:
             assert not torch.equal(p, q)
     assert counts["fused_attention"] == (8 if version == "v12" else 0)
+    assert counts["fused_attention_bwd"] == (8 if version == "v12" else 0)
     assert counts["conv3x3_silu"] == counts["c2f_fused"] == 0
 
 
@@ -606,7 +750,8 @@ def test_true_fp16_train_step_on_the_card(cuda, version):
     """true_fp16: three float16 train steps of v8n / v12n at 128x128, batch
     2, with the dynamic loss scale from 65536: finite loss items, the
     attention kernel (v12) launched 8 times a forward in float16 under
-    autograd, no conv or C2f kernel launched, and the scale halved after
+    autograd and its float16 backward kernel 8 times a backward, no conv or
+    C2f kernel launched, and the scale halved after
     each step whose gradients overflowed (the step then skipped) and kept
     otherwise."""
     from yolosharp_tpu_torch.nn import attention as nn_attention
@@ -655,6 +800,8 @@ def test_true_fp16_train_step_on_the_card(cuda, version):
                                         else max(scale / 2, 1.0))
             assert counts["fused_attention"] == (8 if version == "v12"
                                                  else 0)
+            assert counts["fused_attention_bwd"] == (8 if version == "v12"
+                                                     else 0)
             assert counts["conv3x3_silu"] == counts["c2f_fused"] == 0
     finally:
         nn_attention.attention_bihd = real

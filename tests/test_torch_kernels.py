@@ -122,6 +122,44 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+def test_builds_of_two_libraries_run_side_by_side(monkeypatch, tmp_path):
+    """Each library has its own build lock: two loader threads compile two
+    libraries at once (each compile waits for the other to start), and a
+    library built once is not compiled again."""
+    import subprocess
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in ("a", "b"):
+        (src / f"{name}.cu").write_text(name)
+    monkeypatch.setattr(build, "SRC_DIR", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_build_locks", {})
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: path)
+    both = threading.Barrier(2, timeout=10)
+    compiled = []
+
+    def fake_compile(cmd, **kw):
+        compiled.append(cmd[-1])
+        both.wait()
+        with open(cmd[cmd.index("-o") + 1], "wb"):
+            pass
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(build.subprocess, "run", fake_compile)
+
+    def load(name):
+        return build._load(name, ".cu", ("-O3",), lambda: "nvcc", [])
+
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(load, ("a", "b")))
+    assert sorted(compiled) == [str(src / "a.cu"), str(src / "b.cu")]
+    assert load("a") == libs[0] and len(compiled) == 2
+
+
 def test_c2f_supported_covers_v8s_layers():
     # v8s layer 2 (Cin 64, c 32, C2 64) and layer 8 (Cin 512, c 256, C2 512)
     assert c2f_supported(1, True, 1, 64, 32, 64)

@@ -1,7 +1,7 @@
 // Fused softmax attention: o = softmax(q k^T * scale) v for every (batch, head)
 // sequence, with the (N, N) scores kept out of device memory. Replaces the
 // Pallas kernel yolosharp_tpu/kernels/attention.py fused_attention
-// (_attn_kernel).
+// (_attn_kernel). Its backward is csrc/attention_bwd.cu.
 //
 // q, k, v, o: (B, H, N, D) element-strided views (unit stride in D, 16-byte
 // aligned rows), one type (float32, bfloat16 or float16); D in {16, 32, 64,
@@ -28,6 +28,10 @@
 //   one exponential per live score (16-key subtiles past N are skipped);
 //   P stays in registers, its C fragments packed to 16-bit pairs as the A fragments
 //   of P V, with V through ldmatrix.trans.
+// - Under autograd the wrapper passes `lse` and `o32`: each row's
+//   log2-sum-exp m + log2(l) (f32, 4 bytes a row) and its output in f32
+//   before the rounding to T, for the backward (which takes the row terms
+//   D_i = g_i . o_i from it); the inference forward passes null pointers.
 // - Warp tiles are spread over a grid of (sequences, splits) of blocks of W
 //   warps: warp w of split s takes tiles s + splits * (w + W r). The wrapper
 //   picks splits from the card's SM count so that small batches still cover
@@ -38,7 +42,13 @@
 // D = 32, P must go from the accumulators straight into the next product,
 // and at these shapes the kernel is bound by bytes and exponentials, not by
 // the tensor cores (the MMA share is under half of its bound at 60 % of the
-// dense peak).
+// dense peak). A warp-specialised wgmma forward (a TMA ring fed by a
+// producer warpgroup, two consumer warpgroups, 128-row units of a persistent
+// grid: the backward's skeleton, csrc/attention16.cuh) was slower than this
+// kernel on an H100 at every batch-32 shape: each warpgroup waits on its
+// wgmma where these warps interleave a subtile's exponentials with the
+// products of the one before, and its 8-16 consumer warps an SM hide less
+// latency than 16 independent ones.
 // Numerics: S sums 16-bit x 16-bit products (exact in f32) in f32, as the
 // TPU kernel's f32 upcast does, in another order; P (in [0, 1]) is rounded
 // to the element type for P V, as the JAX package's own off-TPU path does
@@ -205,6 +215,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
+
 // ---- bfloat16 and float16: tensor cores --------------------------------------
 
 constexpr int kMaxWarps = 8;       // warps per block (4 or 8), each on its own 16-row tiles
@@ -342,11 +353,14 @@ __device__ __forceinline__ void attn_tile(const uint32_t (&qa)[D / 16][4], float
   }
 }
 
-template <typename T, int D>
+// STATS: also write the rows' statistics for the backward (under autograd);
+// the inference forward is compiled without that epilogue.
+template <typename T, int D, bool STATS>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int H, int N, Strides sq,
-                     Strides sk, Strides sv, Strides so, float scale, int kcap) {
+                     Strides sk, Strides sv, Strides so, float scale, int kcap,
+                     float* __restrict__ lse, float* __restrict__ o32, int np) {
   constexpr int KC = D / 16;   // k16 steps of Q K^T, d16 pairs of P V
   constexpr int CH = D / 8;    // 16-byte chunks of a row
   extern __shared__ uint4 smem_tc[];
@@ -444,7 +458,23 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
+    if (STATS && tg == 0) {  // the rows' log2-sum-exp, for the backward
+      float* lp = lse + (long long)blockIdx.x * np;
+      if (ra < N) lp[ra] = mx[0] + log2f(l0);
+      if (rb < N) lp[rb] = mx[1] + log2f(l1);
+    }
     const float i0 = 1.f / l0, i1 = 1.f / l1;
+    if (STATS) {  // the output before its rounding, for the backward
+      float* op = o32 + (long long)blockIdx.x * N * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int d = n * 8 + 2 * tg;
+        if (ra < N) *reinterpret_cast<float2*>(op + (long long)ra * D + d) =
+            make_float2(acc[n][0] * i0, acc[n][1] * i0);
+        if (rb < N) *reinterpret_cast<float2*>(op + (long long)rb * D + d) =
+            make_float2(acc[n][2] * i1, acc[n][3] * i1);
+      }
+    }
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int d = n * 8 + 2 * tg;
@@ -463,34 +493,38 @@ attention_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
                         const Strides* st, float scale, int splits, int kcap, int warps,
-                        cudaStream_t stream) {
+                        float* lse, float* o32, int np, cudaStream_t stream) {
   // the geometry comes from kernels/attention.py launch_geometry; checked here
   const int bytes = mma_smem_bytes<D>(kcap);
   if ((warps != 4 && warps != kMaxWarps) || splits < 1 || splits > (N + 15) / 16 || kcap < 16 ||
       kcap % 16 != 0 ||
-      (kcap < N && kcap % kKT != 0) || kcap >= N + 16 || bytes > kMaxSmem) {
+      (kcap < N && kcap % kKT != 0) || kcap >= N + 16 || bytes > kMaxSmem ||
+      (lse == nullptr) != (o32 == nullptr) || (lse != nullptr && (np < N || np % 4 != 0))) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = attention_mma_kernel<T, D>;
+  auto kernel =
+      lse != nullptr ? attention_mma_kernel<T, D, true> : attention_mma_kernel<T, D, false>;
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, splits);
   kernel<<<grid, warps * 32, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, N, st[0], st[1], st[2], st[3], scale, kcap);
+      static_cast<T*>(o), H, N, st[0], st[1], st[2], st[3], scale, kcap, lse, o32, np);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
                    const Strides* st, float scale, int dtype, int splits, int kcap, int warps,
-                   cudaStream_t stream) {
+                   float* lse, float* o32, int np, cudaStream_t stream) {
   if (dtype == 0) return launch_f32<D>(q, k, v, o, B, H, N, st, scale, stream);
   if (dtype == 1) {
-    return launch_mma<bf16, D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, stream);
+    return launch_mma<bf16, D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, lse, o32,
+                               np, stream);
   }
   if (dtype == 2) {
-    return launch_mma<f16, D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, stream);
+    return launch_mma<f16, D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, lse, o32,
+                              np, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -499,22 +533,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 // Returns the CUDA error of the launch (0 on success). Strides are in elements,
 // (batch, head, row) for each of q, k, v, o. dtype: 0 float32, 1 bfloat16,
-// 2 float16. splits, kcap, warps: the 16-bit kernel's blocks per sequence, staged keys
-// and warps per block (kernels/attention.py launch_geometry); the float32
-// kernel ignores them.
+// 2 float16. splits, kcap, warps: the 16-bit kernel's blocks per sequence,
+// staged keys and warps per block (kernels/attention.py launch_geometry);
+// lse, o32: where non-null (16-bit only), each row's log2-sum-exp (row s *
+// np + i of sequence s = b * H + h) and its float32 output ((s, i, d) of a
+// contiguous (B H, N, D) array); the float32 kernel ignores the six.
 extern "C" int ys_attention(const void* q, const void* k, const void* v, void* o, int B, int H,
                             int N, int D, long long qb, long long qh, long long qn, long long kb,
                             long long kh, long long kn, long long vb, long long vh, long long vn,
                             long long ob, long long oh, long long on, float scale, int dtype,
-                            int splits, int kcap, int warps, void* stream) {
+                            int splits, int kcap, int warps, float* lse, float* o32, int np,
+                            void* stream) {
   if (B == 0 || H == 0 || N == 0) return 0;
   const Strides st[4] = {{qb, qh, qn}, {kb, kh, kn}, {vb, vh, vn}, {ob, oh, on}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, s);
-    case 32: return launch<32>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, s);
-    case 64: return launch<64>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, s);
-    case 128: return launch<128>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, s);
+    case 16:
+      return launch<16>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, lse, o32, np,
+                       s);
+    case 32:
+      return launch<32>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, lse, o32, np,
+                       s);
+    case 64:
+      return launch<64>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, lse, o32, np,
+                       s);
+    case 128:
+      return launch<128>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, lse, o32, np,
+                         s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -32,7 +32,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off")
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_build_lock = threading.Lock()   # loader threads may ask for one at once
+# one lock a library: loader threads may ask for one library at once, and
+# build different libraries side by side
+_build_locks: Dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 _count_lock = threading.Lock()   # mesh threads launch on several cards
 # compiler output of each build in this process (ptxas register / spill /
 # shared-memory report), for chip_smoke.py to print
@@ -125,7 +128,9 @@ def _load(name: str, suffix: str, flags, compiler, deps) -> ctypes.CDLL:
     """The library built from ``csrc/<name><suffix>`` with ``compiler()``
     and ``flags`` (built if no build of the same sources and flags is
     cached), loaded once a process."""
-    with _build_lock:
+    with _locks_lock:
+        lock = _build_locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = SRC_DIR / f"{name}{suffix}"
