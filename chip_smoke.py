@@ -27,7 +27,8 @@ Phases (any failure exits non-zero; nothing is caught):
      v11s-pose (Ci or Co = 51) and v12x-obb's 96-wide angle towers and
      768-wide stride-2 conv included; 640x640, 480x640, 500x375 and
      1280x1280 for the attention), B=2, in float32 (TF32 off for cuDNN
-     and matmul), bfloat16 and float16, with device times (CUDA events around a CUDA graph of 10
+     and matmul; the float32 conv run twice, its bits equal, its
+     f32_plan printed), bfloat16 and float16, with device times (CUDA events around a CUDA graph of 10
      calls, in turns plain / kernel / library / library / kernel / plain),
      the eager times of the same calls made from Python (host launch cost
      included), and the TFLOP/s each reaches (convs
@@ -70,7 +71,9 @@ Phases (any failure exits non-zero; nothing is caught):
      the path must not launch).
   3d. v5us: one b32 batch_predict (NMS), the same launch check.
   4. / 4b. / 4c. the v8s, v12s and v11s float32 predict of one image on
-     the card against the CPU's float32 predict through the plain versions.
+     the card against the CPU's float32 predict through the plain versions;
+     v8s (4) once more under PyTorch's default flags (cuDNN's TF32 on),
+     which the port's own scope turns off around its work.
 
 Training (the attention is the only kernel on the train path; the conv and
 C2f kernels serve predict only and must not launch there):
@@ -392,7 +395,12 @@ kernel: the JAX int8_conv is XLA's int8 convolution):
      torch._int_mm on the 1x1 stride-1 shapes (the same int32 sums in one
      PyTorch call; never used by the port); bound max(2 M N K / 1979e12,
      bytes / 3.35e12), K and the int8 bytes over the conv's Ci (the
-     kernel's padded Cp printed beside it); sums per shape group.
+     kernel's padded Cp printed beside it); sums per shape group. Each
+     shape on its route (int8_route: the wgmma GEMM, the wgmma flat-row
+     tile, or mma.sync) and plan, timed beside the mma.sync kernel every
+     shape took before the wgmma routes; sums per route, the redesign's
+     aims marked held or missed; first the 8-bit descriptor probe and the
+     epilogue's SiLU against the IEEE-division SiLU at all 2^32 floats.
   17b. v8s-640: calibrate_int8 on the card over 16 of phase 7's PNGs and
      the same on the CPU (the same keys, absmax within 1e-4 relative);
      the bf16 b32 network forward float against int8 (CUDA events, in
@@ -718,7 +726,8 @@ def variant(kind, dtype, batch, shape, sms) -> str:
     for every call."""
     from yolosharp_tpu_torch.kernels.attention import launch_geometry
     from yolosharp_tpu_torch.kernels.c2f import c2f_plan, plan_class, tile_for
-    from yolosharp_tpu_torch.kernels.conv3x3 import conv_plan, padded
+    from yolosharp_tpu_torch.kernels.conv3x3 import (conv_plan, f32_plan,
+                                                     f32_tile, padded)
 
     half = dtype in HALF
     if kind in ("s1", "s2") and half:
@@ -728,6 +737,12 @@ def variant(kind, dtype, batch, shape, sms) -> str:
         bn, rows, wt = conv_plan(batch, H, W, padded(ci), padded(co),
                                  int(kind[1]), sms)
         return f"BN {bn} tile {rows}x{wt}"
+    if kind in ("s1", "s2"):
+        H, W, ci, co = shape
+        tn, sw, splits = f32_plan(batch, H, W, ci, co, int(kind[1]), sms)
+        th, tw = f32_tile(tn, sw)
+        return (f"f32 {'stem ' if ci <= 4 else ''}TN {tn} tile {th}x{tw} "
+                f"splits {splits}")
     if kind == "c2f":
         H, W, cin, c, c2 = shape
         if not half:
@@ -879,6 +894,14 @@ def phase_kernels(dev):
         tag = (f"{name} {dt} B={batch} {desc}" + (f" [{var}]" if var else "")
                + f" [{'+'.join(vs)}]")
         err = compare(tag, got, want, dtype, tol, ref)
+        if kind in ("s1", "s2") and dtype == torch.float32:
+            # no atomics, the splits added in a fixed order: the same bits
+            # from one run to the next
+            again = kernel()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise SystemExit(f"{tag}: two runs of the float32 kernel "
+                                 f"differ")
         if extra is not None:
             compare(tag + " contiguous (B, H, N, D)", extra,
                     want.transpose(1, 2), dtype, tol, ref.transpose(1, 2))
@@ -1332,7 +1355,6 @@ def phase_cpu_match(dev, path, state, conf):
     CPU's plain versions; a segment model's masks too (image_predict on
     both, each result matched by box and class)."""
     from yolosharp_tpu_torch import ScalarType
-    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     name = path_name(path)
     print(f"phase {CPU_MATCH[path]}: {name} float32 on the card against "
@@ -1342,6 +1364,31 @@ def phase_cpu_match(dev, path, state, conf):
     cuda = build_tasks(dev, path, state, scalar_type=ScalarType.float32)
     cpu = build_tasks("cpu", path, {k: v.cpu() for k, v in state.items()},
                       scalar_type=ScalarType.float32)
+    # phase 4 runs twice: under this script's flags (TF32 off for the
+    # library yardsticks) and under PyTorch's defaults (cuDNN's TF32 on),
+    # which the port must turn off by itself around its own work
+    flag_sets = [False, True] if path == "v8" else [False]
+    for default_flags in flag_sets:
+        torch.backends.cudnn.allow_tf32 = default_flags
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(f"  flags: torch.backends.cudnn.allow_tf32 = "
+              f"{torch.backends.cudnn.allow_tf32}, "
+              f"torch.backends.cuda.matmul.allow_tf32 = "
+              f"{torch.backends.cuda.matmul.allow_tf32}"
+              + (" (PyTorch's defaults)" if default_flags else ""),
+              flush=True)
+        try:
+            _cpu_match_modes(dev, path, conf, image, img, cuda, cpu,
+                             default_flags)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+
+
+def _cpu_match_modes(dev, path, conf, image, img, cuda, cpu, default_flags):
+    """phase_cpu_match's NMS and End2End checks under the flags set; the
+    caller's cuDNN flag must read the same after the port's call."""
+    from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
+
     for e2e in (False, True):
         c = 0.0 if e2e else conf
         reset_launch_counts()
@@ -1349,9 +1396,13 @@ def phase_cpu_match(dev, path, state, conf):
         got = ct._host(ct._predict_fn(ct._predict_variables(), img.to(dev),
                                       c, 0.7))
         used = launch_counts()
+        if torch.backends.cudnn.allow_tf32 != default_flags:
+            raise SystemExit("the port's predict left the caller's cuDNN "
+                             "TF32 flag changed")
         want = ht._host(ht._predict_fn(ht._predict_variables(), img, c,
                                        0.7))
-        mode = f"{path} {'end2end' if e2e else 'nms'}"
+        mode = (f"{path} {'end2end' if e2e else 'nms'}"
+                + (", PyTorch's default flags" if default_flags else ""))
         if ARCH[path][2] == "obb":
             n_want, n_got, unmatched, dbox, dang = match_rotated(
                 ct._rboxes(got, 0, conf), ht._rboxes(want, 0, conf))
@@ -4796,21 +4847,92 @@ def int8_bound(batch, shape, dtype, cin=None):
     return flop, conv_bytes, quant_bytes
 
 
+# phase 17a's aims for the int8 conv at B=32 bf16, set when it moved to
+# wgmma: the sum of all shapes at most this many ms, at least this share
+# of its bound
+INT8_AIM_MS, INT8_AIM_SHARE = 3.5, 0.33
+
+
+def int8_mma_call(xq, wq, scale, b, stride, pad, act):
+    """The int8 conv on the mma.sync kernel (route "mma") whatever the
+    shape's route: the kernel every shape took before the wgmma routes,
+    timed beside them. Not counted as a launch of int8_conv."""
+    from yolosharp_tpu_torch.kernels import build
+    from yolosharp_tpu_torch.kernels.conv3x3 import ACT_CODES
+    from yolosharp_tpu_torch.kernels.int8_conv import ROUTES, _lib
+
+    B, H, W, cp = xq.shape
+    co, k = wq.shape[0], wq.shape[1]
+    ho, wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    y = torch.empty((B, ho, wo, co), dtype=b.dtype, device=xq.device)
+    status = _lib().ys_int8_conv(
+        xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
+        y.data_ptr(), B, H, W, cp, co, k, stride, pad, ACT_CODES[act],
+        build.DTYPE_CODES[b.dtype], ROUTES.index("mma"), 0, 0, 0, 0,
+        torch.cuda.current_stream(xq.device).cuda_stream)
+    build.check_status("int8 mma.sync", status)
+    return y
+
+
+def int8_desc_probe(dev) -> None:
+    """The 8-bit descriptor probe: a 128 x bk int8 tile loaded by TMA under
+    the 64- or 128-byte swizzle, read by wgmma s8 from every row start r0
+    < 64 (a tap starts at any pixel row, off the swizzle atom), gives
+    A[r0 : r0 + 64] B^T exactly."""
+    from yolosharp_tpu_torch.kernels.int8_conv import desc_probe
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    for bk in (64, 128):
+        a = torch.randint(-127, 128, (128, bk), generator=g, device=dev,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (64, bk), generator=g, device=dev,
+                          dtype=torch.int8)
+        out = desc_probe(a, b, 64).double()
+        ref = a.double() @ b.double().t()
+        bad = [r0 for r0 in range(64)
+               if not torch.equal(out[r0], ref[r0:r0 + 64])]
+        print(f"  8-bit descriptor probe, {bk}-byte rows: every row start "
+              f"0..63 {'exact' if not bad else f'WRONG at {bad[:8]}'}",
+              flush=True)
+        if bad:
+            raise SystemExit("the 8-bit wgmma descriptor reads wrong rows")
+
+
+def int8_silu_check(dev) -> None:
+    """The int8 epilogue's branch-free SiLU against v / (1 + expf(-v)) with
+    the IEEE division at all 2^32 float32 inputs: equal bits at every one
+    (the int8 conv's SiLU is its plain version's on the card)."""
+    from yolosharp_tpu_torch.kernels.int8_conv import silu_check
+
+    bad = silu_check(dev)
+    print(f"  the epilogue's SiLU at all 2^32 float32 inputs: {bad} differ "
+          f"from the IEEE-division SiLU in their bits", flush=True)
+    if bad:
+        raise SystemExit("the int8 epilogue's SiLU differs from silu()")
+
+
 def phase_int8_kernels(dev) -> dict:
     """Phase 17a: the quantise pass and the int8 conv against their plain
     versions at every int8 shape of the groups, B=2 in float32, bfloat16
-    and float16 and B=32 in bfloat16, timed at B=32: kernel, plain,
-    torch._int_mm (1x1 stride-1 shapes whose Co is a multiple of 8), bound
-    and the conv's float route today (the conv3x3 kernel or cuDNN)."""
+    and float16 and B=32 in bfloat16, each on its route (int8_route) and
+    plan (int8_plan), timed at B=32: kernel, the mma.sync kernel every
+    shape took before the wgmma routes, plain, torch._int_mm (1x1
+    stride-1 shapes whose Co is a multiple of 8), bound and the conv's
+    float route today (the conv3x3 kernel or cuDNN); sums by route."""
     from yolosharp_tpu_torch.kernels.int8_conv import (
-        ACTS, activation_scale, int8_conv, int8_conv_plain, padded_channels,
-        quantize_int8, quantize_plain, quantize_weight)
+        ACTS, activation_scale, int8_conv, int8_conv_plain, int8_plan,
+        int8_route, padded_channels, quantize_int8, quantize_plain,
+        quantize_weight)
     from yolosharp_tpu_torch.nn import ConvBN
 
     print("phase 17a: int8 kernels against their plain versions: every "
           "int8 shape of " + ", ".join(g[0] for g in INT8_GROUPS)
           + f" at B={BATCH} in float32, bfloat16 and float16 and at "
-          f"B={SERVED_BATCH} in bfloat16 (timed)", flush=True)
+          f"B={SERVED_BATCH} in bfloat16 (timed), each on its route",
+          flush=True)
+    int8_desc_probe(dev)
+    int8_silu_check(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tagged = {}
     for group, path, canvas, holds in INT8_GROUPS:
         for sh in record_int8_shapes(path, canvas):
@@ -4830,9 +4952,13 @@ def phase_int8_kernels(dev) -> dict:
                  "ms_with_quantize": 0.0})
     parts = {n: {} for n in INT8_SOURCES}
     group_sums = {}
+    # route -> [shapes, kernel, mma.sync kernel, torch._int_mm, kernel on
+    # the _int_mm shapes, bound] at B=32 bf16
+    route_sums = {}
     for sh, groups in shapes:
         h, w, ci, co, k, s, p, act = sh
         cp = padded_channels(ci)
+        route = int8_route(k, s, p, cp, co)
         wf = torch.randn(co, ci, k, k, generator=g, device=dev) * (
             k * k * ci) ** -0.5
         wq, w_scale = quantize_weight(wf)
@@ -4853,8 +4979,13 @@ def phase_int8_kernels(dev) -> dict:
             ref = ACTS[act](int8_conv_plain(xq_plain, wq, scale, b, s, p)
                             .double())
             torch.cuda.synchronize()
+            plan = int8_plan(route, batch, h, w, cp, co, s, sms,
+                             b.element_size())
             tag = (f"{h}x{w} {ci}->{co} k{k} s{s} p{p} {act} {dt} "
-                   f"B={batch} [{' + '.join(groups)}]")
+                   f"B={batch} [{route}"
+                   + (f" BK {plan.bk} BN {plan.bn}" if plan.bn else "")
+                   + (f" tile {plan.rows}x{plan.wt}" if plan.rows else "")
+                   + f"] [{' + '.join(groups)}]")
             if not torch.equal(xq, xq_plain):
                 raise SystemExit(f"quantize_int8 {tag}: differs from its "
                                  f"plain version")
@@ -4891,6 +5022,8 @@ def phase_int8_kernels(dev) -> dict:
             fns = {"plain": lambda: int8_conv_plain(
                        quantize_plain(x, a, cp), wq, scale, b, s, p, act),
                    "kernel": lambda: int8_conv(xq, wq, scale, b, s, p, act),
+                   "mma.sync": lambda: int8_mma_call(xq, wq, scale, b, s, p,
+                                                     act),
                    "quantize": lambda: quantize_int8(x, a, cp),
                    "plain quantize": lambda: quantize_plain(x, a, cp),
                    "both": lambda: int8_conv(quantize_int8(x, a, cp), wq,
@@ -4914,8 +5047,14 @@ def phase_int8_kernels(dev) -> dict:
             _, cpad, qpad = int8_bound(batch, sh, dtype, cp)
             cb_pad = max(flop / INT8_PEAK, cpad / HBM_BYTES) * 1e3
             qb_pad = qpad / HBM_BYTES * 1e3
+            rs = route_sums.setdefault(route, [0] + [0.0] * 5)
+            for j, v in enumerate((1, t["kernel"], t["mma.sync"],
+                                   t.get("library", 0.0),
+                                   t["kernel"] if lib else 0.0, cb)):
+                rs[j] += v
             print(f"    device (CUDA graph): {t['kernel']:.4f} ms conv "
-                  f"kernel + {t['quantize']:.4f} ms quantise "
+                  f"kernel [mma.sync kernel {t['mma.sync']:.4f}] + "
+                  f"{t['quantize']:.4f} ms quantise "
                   f"({t['both']:.4f} ms the two), {t['plain']:.4f} ms "
                   f"plain (its quantise {t['plain quantize']:.4f}), "
                   f"{t['bf16 route']:.4f} ms float route; "
@@ -4966,6 +5105,30 @@ def phase_int8_kernels(dev) -> dict:
     print(f"  all {len(shapes)} shapes: int8 conv {conv['ms']:.4f} ms + "
           f"quantise {stats['quantize_int8']['ms']:.4f} ms against the "
           f"float route's {conv['bf16_route_ms']:.4f} ms", flush=True)
+    old = 0.0
+    for route, (n, k, mma, lib, klib, bnd) in sorted(route_sums.items()):
+        old += mma
+        print(f"  route {route}: {n} shapes at B={SERVED_BATCH} bf16, device "
+              f"ms summed: kernel {k:.4f} [mma.sync kernel {mma:.4f}], "
+              f"torch._int_mm {lib:.4f} (kernel {klib:.4f} on its shapes), "
+              f"bound {bnd:.4f} ({bnd / k:.3f} of it)", flush=True)
+    conv["ms_mma_sync"] = old
+    mm = conv["ms_int_mm_shapes"]
+    aims = [(f"1x1 shapes below torch._int_mm: {mm:.4f} ms against "
+             f"{conv['library_ms']:.4f}", mm < conv["library_ms"]),
+            (f"all {len(shapes)} shapes at most {INT8_AIM_MS} ms and at "
+             f"least {INT8_AIM_SHARE} of the bound: {conv['ms']:.4f} ms "
+             f"[mma.sync kernel {old:.4f}], "
+             f"{conv['bound_ms'] / conv['ms']:.3f} of "
+             f"{conv['bound_ms']:.4f}",
+             conv["ms"] <= INT8_AIM_MS
+             and conv["bound_ms"] >= INT8_AIM_SHARE * conv["ms"]),
+            (f"conv + quantise below the float route: "
+             f"{conv['ms_with_quantize']:.4f} ms against "
+             f"{conv['bf16_route_ms']:.4f}",
+             conv["ms_with_quantize"] < conv["bf16_route_ms"])]
+    for text, held in aims:
+        print(f"  aim {'held' if held else 'missed'}: {text}", flush=True)
     return stats
 
 
@@ -5087,7 +5250,9 @@ def phase_int8(dev, root, states, confs, tag) -> tuple:
     print(f"  {tag}: network forward bf16 b32 640x640: float {fwd['float']:.2f}"
           f" ms, int8 {fwd['int8']:.2f} ms (CUDA events, mean of 2 x 5 in "
           f"turns float, int8, int8, float); int8 / float "
-          f"{fwd['int8'] / fwd['float']:.3f}", flush=True)
+          f"{fwd['int8'] / fwd['float']:.3f}: the int8 forward "
+          f"{'beats' if fwd['int8'] < fwd['float'] else 'loses to'} the "
+          f"float forward", flush=True)
     served = {"float": fl8, "int8": t8}
     for task in served.values():
         task.batch_predict(batch, conf)     # warm

@@ -1352,3 +1352,201 @@ def test_fold_on_the_card_equals_the_cpu(cuda):
                                        m._buffers[b]), (name, b)
                     checked += 1
     assert checked > 100
+
+
+# ------------------------------------------- float32 under PyTorch's flags
+@pytest.fixture
+def cuda_default_flags(cuda):
+    """The card with PyTorch's default TF32 flags (cuDNN's TF32 on, the
+    float32 matmul's off), as a caller that sets none leaves them; the
+    suite's own (both off) back afterwards."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def test_float32_holds_under_pytorch_default_flags(cuda_default_flags):
+    """With cuDNN's TF32 left on by the caller, v8n float32 predict on the
+    card meets test_predict_on_the_card_matches_the_cpu's gate against the
+    CPU, and one float32 train step (graft_entry.run_step) gives the
+    CPU's loss items within 1e-4 relative and each gradient within 1e-3 of
+    its tensor's largest (chip_smoke phase 6's rule); cuDNN's flag is back
+    on afterwards. The port turns TF32 off inside its own work."""
+    from yolosharp_tpu_torch.graft_entry import run_step
+
+    cuda = cuda_default_flags
+    test_predict_on_the_card_matches_the_cpu(cuda, False)
+    assert torch.backends.cudnn.allow_tf32 is True
+    cfg = Config(yolo_size=YoloSize.n, number_class=17,
+                 scalar_type=ScalarType.float32, end2end=False)
+    torch.manual_seed(0)
+    sd = {k: v.clone() for k, v in
+          YoloTask(cfg, device="cpu").task._ensure_variables()
+          .state_dict().items()}
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.integers(0, 256, (2, 128, 128, 3), np.uint8),
+             "cls": np.array([[1, 5, 0], [16, 0, 0]], np.int32),
+             "bboxes": np.array(
+                 [[[0.5, 0.5, 0.3, 0.4], [0.3, 0.6, 0.2, 0.2], [0, 0, 0, 0]],
+                  [[0.4, 0.4, 0.5, 0.5], [0, 0, 0, 0], [0, 0, 0, 0]]],
+                 np.float32),
+             "mask_gt": np.array([[True, True, False],
+                                  [True, False, False]])}
+    from yolosharp_tpu_torch.nn.common import SPPF
+
+    got = run_step(cfg, sd, batch, devices=[cuda])
+    want = run_step(cfg, sd, batch, devices=["cpu"])
+    assert torch.backends.cudnn.allow_tf32 is True
+    np.testing.assert_allclose(got["items"], want["items"], rtol=1e-4)
+    # gradients 0 by construction (chip_smoke.zero_gradient_leaves: the BN
+    # bias of SPPF's cv1, which has no activation) are rounding noise on
+    # both devices: held to 1e-6 of the net's largest gradient G
+    net = YoloTask(cfg, device="cpu").task._ensure_variables()
+    zero = {f"{n}.cv1.bn.bias" for n, m in net.named_modules()
+            if isinstance(m, SPPF) and m.cv1.act == "identity"}
+    big = max(float(g.abs().max()) for g in want["grads"].values())
+    for name, g in want["grads"].items():
+        err = float((got["grads"][name].cpu() - g).abs().max())
+        limit = 1e-6 * big if name in zero else 1e-3 * float(g.abs().max())
+        assert err <= limit, (name, err, limit)
+
+
+# ------------------------------------------------- the int8 wgmma routes
+def _int8_case(cuda, B, H, W, ci, co, k, s, dt, seed=0):
+    """Seeded (xq, wq, scale, b, padding) of one int8 conv on the card."""
+    from yolosharp_tpu_torch.kernels.int8_conv import (activation_scale,
+                                                       padded_channels,
+                                                       quantize_int8,
+                                                       quantize_weight)
+
+    rng = np.random.default_rng(seed)
+    x = _rand(rng, B, H, W, ci, scale=2.0).to(cuda, dt)
+    w = _rand(rng, co, ci, k, k, scale=0.1).to(cuda)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    a = activation_scale(x.float().abs().amax() * 0.8)
+    wq, w_scale = quantize_weight(w)
+    xq = quantize_int8(x, a, padded_channels(ci))
+    return xq, wq, (a * w_scale).contiguous(), b, k // 2
+
+
+# (B, H, W, Ci, Co, k, stride) at each wgmma route's tile edges: Cp 32 to
+# 512 (112 and 51 -> 64 not a multiple of the 128-byte chunk), Co 51, 7 and
+# 130 (neither N tile divides them), maps neither 16 nor 32 divides, M not
+# a multiple of the GEMM's 256 rows
+INT8_EDGES = {"gemm 51->51": (3, 9, 33, 51, 51, 1, 1),
+              "gemm 112->130": (2, 17, 23, 112, 130, 1, 1),
+              "gemm 512->7": (1, 7, 7, 512, 7, 1, 1),
+              "flat s1 32->7": (3, 9, 33, 32, 7, 3, 1),
+              "flat s1 51->51": (2, 20, 20, 51, 51, 3, 1),
+              "flat s1 256->130": (2, 11, 13, 256, 130, 3, 1),
+              "flat s2 64->51": (3, 17, 23, 64, 51, 3, 2),
+              "flat s2 512->96": (2, 9, 9, 512, 96, 3, 2)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", list(INT8_EDGES))
+def test_int8_routes_at_forced_plans_in_a_graph(cuda, dtype, name):
+    """Each wgmma route at its tile edges, with every N tile it takes and,
+    on the flat route, band heights and W chunks from one pixel row up to the
+    most that fit: two launches captured in one CUDA graph, each equal to
+    the plain version to the bit (the same int32 sums, the same epilogue
+    roundings), one counted launch a call."""
+    from yolosharp_tpu_torch.kernels.int8_conv import (I8Plan, int8_conv,
+                                                       int8_conv_plain,
+                                                       int8_route,
+                                                       int8_smem)
+
+    B, H, W, ci, co, k, s = INT8_EDGES[name]
+    dt = getattr(torch, dtype)
+    xq, wq, scale, b, p = _int8_case(cuda, B, H, W, ci, co, k, s, dt)
+    cp = xq.shape[-1]
+    route = int8_route(k, s, p, cp, co)
+    assert route == name.split()[0]
+    want = int8_conv_plain(xq, wq, scale, b, s, p, "silu").contiguous()
+    bns = (64, 128) if co > 64 and route == "gemm" else (64,)
+    if route == "gemm":
+        plans = [I8Plan(128, bn) for bn in bns]
+    else:
+        bk = 64 if s == 2 or cp <= 64 else 128
+        ho, wo = (H - 1) // s + 1, (W - 1) // s + 1
+        plans = [I8Plan(bk, bn, r, wt) for bn in bns
+                 for r, wt in ((1, 1), (1, wo), (ho, wo), (2, -(-wo // 2)))
+                 if r * (wt + 3 - s) <= 256]
+    for plan in plans:
+        assert int8_smem(route, s, plan, b.element_size()) <= 232448
+        outs = []
+        graph = torch.cuda.CUDAGraph()
+        before = int8_conv.launches
+        with torch.cuda.graph(graph):
+            for _ in range(2):
+                outs.append(int8_conv(xq, wq, scale, b, s, p, "silu",
+                                      plan=plan))
+        assert int8_conv.launches == before + 2
+        graph.replay()
+        torch.cuda.synchronize()
+        for got in outs:
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       msg=f"{name} {plan}")
+
+
+def test_int8_silu_equals_the_plain_silu_at_every_float(cuda):
+    """The int8 epilogue's branch-free SiLU (silu_rn) gives the bits of
+    v / (1 + expf(-v)) with the IEEE division, the plain version's SiLU,
+    at all 2^32 float32 inputs."""
+    from yolosharp_tpu_torch.kernels.int8_conv import silu_check
+
+    assert silu_check(cuda) == 0
+
+
+@pytest.mark.parametrize("bk", [64, 128])
+def test_int8_descriptor_starts_at_any_row(cuda, bk):
+    """The 8-bit descriptor probe: a 128 x bk int8 tile loaded by TMA under
+    the 64- or 128-byte swizzle and read by wgmma s8 from every row r0 <
+    64 (base offset 0, as a tap starts at any pixel row), against K-major
+    int8 weights, gives A[r0 : r0 + 64] @ B^T exactly."""
+    from yolosharp_tpu_torch.kernels.int8_conv import desc_probe
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randint(-127, 128, (128, bk), generator=g, device=cuda,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (64, bk), generator=g, device=cuda,
+                      dtype=torch.int8)
+    out = desc_probe(a, b, 64)
+    ref = a.double() @ b.double().t()
+    for r0 in range(64):
+        assert torch.equal(out[r0].double(), ref[r0:r0 + 64]), r0
+
+
+# ------------------------------------------------ the float32 conv's plans
+@pytest.mark.parametrize("shape", [(3, 20, 20, 96, 40, 1), (2, 17, 23, 64, 52, 2),
+                                   (3, 9, 33, 51, 51, 1), (2, 33, 9, 12, 20, 2),
+                                   (1, 7, 7, 128, 128, 1), (2, 40, 36, 3, 32, 2),
+                                   (1, 23, 17, 4, 20, 1)])
+def test_float32_conv_at_forced_plans_and_splits(cuda, shape):
+    """The float32 conv at every tile and at 1, 2 and 5 splits of the Ci
+    sum (the stem, Ci <= 4, at its tiles in one chunk): within 1e-4 + 1e-4
+    |p| of the plain version, and the same bits from one run to the next
+    (the splits add in a fixed order)."""
+    from yolosharp_tpu_torch.kernels.conv3x3 import (F32_ODD_TILE,
+                                                     F32_STEM_TILES,
+                                                     F32_TILES, F32Plan)
+
+    B, H, W, ci, co, s = shape
+    rng = np.random.default_rng(3)
+    x = _rand(rng, B, H, W, ci).to(cuda)
+    w = _rand(rng, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(cuda)
+    b = _rand(rng, co, scale=0.1).to(cuda)
+    name = "conv3x3_silu" if s == 1 else "conv3x3s2_silu"
+    want = conv3x3_plain(x, w, b, "silu", s)
+    tiles = F32_TILES if ci % 4 == 0 and co % 4 == 0 else (F32_ODD_TILE,)
+    if ci <= 4:
+        tiles = F32_STEM_TILES
+    for tn, sw in tiles:
+        for splits in ((1,) if ci <= 4 else (1, 2, 5)):
+            plan = F32Plan(tn, sw, splits)
+            got = conv_module._launch(name, x, w, b, "silu", s, plan)
+            again = conv_module._launch(name, x, w, b, "silu", s, plan)
+            torch.cuda.synchronize()
+            _check(got, want, "float32")
+            assert torch.equal(got, again), plan

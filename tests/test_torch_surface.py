@@ -4,31 +4,26 @@ and without a dtype; every tensor keeps its shape and type, the .bin it
 writes loads bit-equal in JAX's load_bin, and it equals the JAX
 convert_checkpoint's file byte for byte but where the JAX .pt reader makes
 a 0-d tensor 1-d), the box helpers xyxy2xywhn / xywhn2xyxy / clip_boxes,
-focal_loss and bce_blur_loss, Config.profile_dir (train steps 2-5 traced,
-a short epoch's trace closed, no trace without it) and the settings of the
-JAX package's multi-device and int8 layers on one device."""
-
-import json
-import os
+focal_loss and bce_blur_loss, and a mesh_shape of one device at predict.
+Config.profile_dir is in test_torch_surface_trace.py, the settings of the
+JAX package's multi-device and int8 layers on one device in
+test_torch_surface_settings.py."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_torch_data import make_dataset
+from test_torch_surface_trace import _config
 from yolosharp_tpu.ckpt import binio as jax_binio
 from yolosharp_tpu.ckpt import convert_checkpoint as jax_convert_checkpoint
 from yolosharp_tpu.loss import losses as jax_losses
 from yolosharp_tpu.ops import boxes as jax_boxes
-from yolosharp_tpu_torch import (Config, ScalarType, YoloSize, YoloTask,
-                                 convert_checkpoint)
+from yolosharp_tpu_torch import YoloTask, convert_checkpoint
 from yolosharp_tpu_torch.ckpt import (load_bin, load_state_dict_file,
                                       save_bin, save_safetensors)
 from yolosharp_tpu_torch.loss import bce_blur_loss, focal_loss
 from yolosharp_tpu_torch.ops import clip_boxes, xywhn2xyxy, xyxy2xywhn
-
-NC = 3
 
 
 # ----------------------------------------------------------- checkpoints
@@ -151,102 +146,6 @@ def test_focal_and_blur_losses_match_jax(fn, kw):
     got = float(port(torch.from_numpy(logits), torch.from_numpy(targets),
                      **kw))
     assert got == pytest.approx(want, rel=1e-6)
-
-
-# ----------------------------------------------------------- profile_dir
-@pytest.fixture(scope="module")
-def roots(tmp_path_factory):
-    """Two detect sets of 32x32 PNGs: 12 train images (6 steps at batch 2)
-    and 6 (3 steps), 2 val images each."""
-    out = {}
-    for n in (12, 6):
-        root = str(tmp_path_factory.mktemp(f"train{n}"))
-        make_dataset(root, n, 2, [(32, 32)], NC, seed=n)
-        out[n] = root
-    return out
-
-
-def _config(root, out, **kw):
-    return Config(root_path=root, train_data_path="images/train",
-                  val_data_path="images/val", output_path=out,
-                  image_size=32, batch_size=2, epochs=1, workers=1,
-                  yolo_size=YoloSize.n, number_class=NC,
-                  scalar_type=ScalarType.float32, **kw)
-
-
-@pytest.mark.parametrize("n,steps", [(12, (2, 3, 4, 5)), (6, (2, 3))],
-                         ids=["six_steps", "short_epoch"])
-def test_profile_dir_traces_steps_2_to_5(roots, tmp_path, n, steps):
-    """A Chrome trace of steps 2-5 (a 3-step epoch: steps 2-3, the trace
-    closed when the epoch ends), each step a 'train step N' span."""
-    prof = str(tmp_path / "prof")
-    task = YoloTask(_config(roots[n], str(tmp_path / "out"),
-                            profile_dir=prof), device="cpu")
-    task.train()
-    path = task.task.trace_path
-    assert len(task.task.epoch_stats[0]["step_s"]) == n // 2
-    assert os.path.dirname(path) == prof and os.listdir(prof) == [
-        os.path.basename(path)]
-    assert path.endswith(f"_steps_{steps[0]}-{steps[-1]}.json")
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted(int(e["name"].split()[-1]) for e in events
-                   if e.get("name", "").startswith("train step "))
-    assert tuple(spans) == steps
-
-
-def test_no_trace_without_profile_dir(roots, tmp_path):
-    task = YoloTask(_config(roots[6], str(tmp_path / "out")), device="cpu")
-    task.train()
-    assert task.task.trace_path is None
-    assert not [f for _, _, fs in os.walk(tmp_path) for f in fs
-                if f.endswith(".json")]
-
-
-# --------------------------------- the multi-device settings on one device
-@pytest.mark.parametrize("field,value,where", [
-    ("int8_predict", True, "predict"), ("fsdp", True, "train"),
-    ("resume_format", "orbax", "train"), ("mesh_shape", (2,), "train"),
-    ("mesh_shape", (1, 2), "predict")],
-    ids=["int8_predict", "fsdp", "orbax", "mesh_train", "mesh_predict"])
-def test_settings_not_ported_raise_where_jax_acts(field, value, where,
-                                                  roots, tmp_path):
-    """The Config and the task build with each setting (so a config.txt
-    with them reads), and each runs as in the JAX package on one device:
-    int8_predict predicts in float until calibrate_int8 or
-    load_calibration gives it stats (tests/test_torch_int8.py runs the
-    int8 route), fsdp trains unsharded,
-    resume_format="orbax" writes weights/last_state.dcp (a
-    torch.distributed.checkpoint directory) that train(resume_from=) reads,
-    and mesh_shape is read nowhere, at train() as at predict."""
-    out = tmp_path / "out"
-    cfg = _config(roots[6], str(out), **{field: value})
-    task = YoloTask(cfg, device="cpu")
-    img = np.zeros((32, 32, 3), np.uint8)
-    if field == "int8_predict":
-        plain = YoloTask(_config(roots[6], str(out)), device="cpu")
-        plain.task._ensure_variables().load_state_dict(
-            task.task._ensure_variables().state_dict())
-        assert task.image_predict(img, 0.5) == plain.image_predict(img, 0.5)
-        assert not os.path.exists(out)
-        return
-    if where == "predict":
-        assert isinstance(task.image_predict(img, 0.5), list)
-        assert not os.path.exists(out)
-        return
-    task.train()
-    weights = sorted(os.listdir(out / "weights"))
-    state = "last_state.dcp" if field == "resume_format" else \
-        "last_state.npz"
-    assert weights == sorted(["best.bin", "last.bin", state])
-    if field == "resume_format":
-        assert os.path.isdir(out / "weights" / state)
-        cfg2 = _config(roots[6], str(out), **{field: value})
-        cfg2.epochs = 2
-        again = YoloTask(cfg2, device="cpu")
-        again.train(resume_from=str(out / "weights" / state))
-        assert [s["epoch"] for s in again.task.epoch_stats] == [2]
-        assert again.task.epoch_stats[0]["step_s"]
 
 
 def test_single_device_mesh_shape_runs():

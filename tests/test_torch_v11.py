@@ -2,8 +2,8 @@
 same weights: the new modules one by one (AttentionPSA, PSABlock, C2PSA,
 and v5u's C3 and 6x6 stem), the v11n and v5un models (inner layers and the
 head maps, eval-BN and folded), the v11l / v5ul state-dict names and
-shapes, YoloTask predict (NMS and End2End), and one float32 v11n train
-step.
+shapes and YoloTask predict (NMS and End2End). One float32 v11n train step
+is in test_torch_v11_train.py.
 
 C2PSA builds its attention with attn_ratio 0.5 (keys half as wide as the
 values), so the JAX package and the port take the einsum path there; the
@@ -23,7 +23,6 @@ from test_torch_model import jitter_bn
 from test_torch_predict import (IOU, _rows, assert_match,
                                 assert_results_match, canvas,
                                 synthetic_image)
-from test_torch_train import _batch, check_step_pair, step_pair
 from test_torch_v12 import ATOL, RTOL, _nchw, _nhwc, module_state_dict
 from util_calib import calibrate_task
 from yolosharp_tpu.ckpt.mapping import clone_one2one as jax_clone_one2one
@@ -236,24 +235,3 @@ def test_image_and_batch_predict_match_jax(tasks):
                                conf, IOU)
     assert len(batch) == 2
     assert_results_match(batch[0], want)
-
-
-def test_v11n_train_step_matches_jax():
-    """One float32 v11n step at 64x64, batch 2 against the JAX step, at
-    the rules of tests/test_torch_train.py (check_step_pair), widened where
-    v11n's deeper float32 graph (the PSA attention's softmax, the C3k2 and
-    C2PSA depth, train-mode BN over the 8 values a channel of the 2x2
-    stride-32 maps) carries more rounding than v8n's; the JAX package's
-    FastBN variance (E[x^2] - E[x]^2) is the larger share of it. Measured:
-    loss items 9.8e-5 relative apart, so held to 3e-4; running means
-    1.7e-5 of their tensor's largest apart, held to 5e-5; the update's sign
-    differs between the two packages on elements up to 4.7e-3 of their
-    tensor's largest gradient, so the changes (within one float32 spacing
-    of the parameter more) are held where |g| > 1e-2 max|g|, on at least
-    60% of the elements. SPPF's cv1 BN bias (layer 9) is left out: its
-    gradient is zero by construction (the identity activation and the max
-    pools carry it into cv2's train-mode BN, which removes it), and
-    rounding noise in both."""
-    check_step_pair(step_pair("v11", _batch(5)), items_rtol=3e-4,
-                    stats_rtol=5e-5, ulp=True, grad_noise=1e-2,
-                    min_checked=0.6, skip=("model.9.cv1.bn.bias",))

@@ -352,11 +352,12 @@ inline EncodeTiled encoder() {
 
 constexpr int kEncodeFailed = 10000;  // + the CUresult of a failed encode
 
-// A tensor map over a 16-bit tensor of `rank` dims (innermost first; strides
-// in elements of dims 1..) with the given box and swizzle. 0 or an error.
+// A tensor map over a tensor of `rank` dims (innermost first; strides in
+// elements of dims 1..) of `elem`-byte elements (16-bit by default) with the
+// given box and swizzle. 0 or an error.
 inline int encode(CUtensorMap* m, CUtensorMapDataType type, int rank, const void* base,
                   const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
-                  CUtensorMapSwizzle swz) {
+                  CUtensorMapSwizzle swz, int elem = 2) {
   EncodeTiled enc = encoder();
   if (!enc) return kEncodeFailed;
   cuuint64_t d[5], s[4];
@@ -365,7 +366,7 @@ inline int encode(CUtensorMap* m, CUtensorMapDataType type, int rank, const void
     d[i] = dims[i];
     bx[i] = box[i];
     one[i] = 1;
-    if (i) s[i - 1] = strides[i - 1] * 2;
+    if (i) s[i - 1] = strides[i - 1] * elem;
   }
   const CUresult r = enc(m, type, rank, const_cast<void*>(base), d, s, bx, one,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

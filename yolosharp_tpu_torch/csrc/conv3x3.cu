@@ -62,10 +62,25 @@
 // - The stem (Ci <= 7) packs its 9 taps x Ci channels into one K <= 64
 //   instead, on mma.sync (conv_stem_kernel).
 //
-// float32: the CUDA-core kernel (conv_f32_kernel) — TF32 would break the
-// float32 contract. A block owns 8 x 16 output pixels x 64 channels, stages
-// the halo tile and the weight slice 16 channels at a time as float32, and
-// every thread accumulates a 4-pixel x 8-channel micro-tile.
+// float32: conv_f32_kernel, float32 FMAs on the CUDA cores (TF32 in any
+// form would break the float32 contract), so what bounds it is the 67
+// TFLOP/s float32 pipe. What held the kernel it replaced at 0.15-0.17 of
+// that bound (H100 80GB HBM3, 700 W, B=2): one-float staging with an
+// integer divide an element, load and products in series, a 4 x 8 tile a
+// thread (32 FMAs per 6 shared loads) and one tile for every shape (a 20 x
+// 20 x 512 layer at B=2 gave 96 blocks for 132 SMs). The design: a thread
+// keeps an 8-pixel x 8-channel tile, its input read as float4 units of 4
+// channels of a pixel (the columns of a staged row split by parity at
+// stride 2, so a thread's pixels are consecutive units) and its weights as
+// two float4, ~20 FMAs a 16-byte shared load; the channel chunks come
+// through a two-stage ring of 16-byte cp.async copies, so chunk c + 1's
+// copy overlaps chunk c's products; f32_plan (kernels/conv3x3.py) picks a
+// tile of 32 to 256 channels and 8 x 8 to 32 x 8 pixels and splits the Ci
+// sum over blocks where the tiles alone leave SMs idle, the splits added
+// in a fixed order by f32_split_sum (no atomics: the same bits every run).
+// The stem (Ci <= 4) runs one chunk of 4 channels with plain loads. On that
+// card at B=2 the stride-1 and stride-2 shapes of every path sum to about
+// 0.4 of the bound and below F.conv2d's full-float32 time (PERF.md §6).
 #include <cuda.h>
 
 #include <algorithm>
@@ -80,138 +95,299 @@ namespace {
 
 // ---------------------------------------------------------------- float32
 
-constexpr int kTH = 8;     // output rows per block
-constexpr int kTW = 16;    // output columns per block
-constexpr int kTCO = 64;   // output channels per block
-constexpr int kThreads = 256;
+// float32: conv_f32_kernel<S, TN, SW, VEC, CK>. A block of 256
+// threads owns TH x TW output pixels x TN channels; thread (cg, strip), cg =
+// tid % (TN / 8), keeps an 8-pixel x 8-channel register tile: the 8
+// consecutive output columns of its strip (row strip / SW, columns 8 (strip
+// % SW)..) x channels 4 cg.. and TN / 2 + 4 cg.. (so that the 8 threads of
+// a shared-memory phase read 8 consecutive float4 of the weights). The input
+// channels go in chunks of CK (8; 4 for the stem, Ci <= 4) through a
+// two-stage ring: chunk c + 1 is copied by 16-byte cp.async (VEC: Ci and Co
+// multiples of 4; else plain loads) while chunk c's products run. The input tile is stored as float4
+// units of 4 channels of one pixel, [channel group][row][column], the
+// columns of each row split by parity at stride 2 (even, then odd), so that
+// a thread's taps read runs of consecutive float4: at stride 1 ten units a
+// (group, kernel row) for its 8 pixels x 3 taps, at stride 2 nine even and
+// eight odd. Each float4 of input feeds 4 x 8 FMAs, each weight float4 8 x
+// 4. The Ci sum may be split over `splits` blocks (kernels/conv3x3.py
+// f32_plan fills the card with it where the tiles alone leave SMs idle):
+// each writes its partial sums to a workspace, and f32_split_sum adds them
+// in split order, then the bias and the activation: no atomics, so a result
+// is the same bits from run to run.
+constexpr int kThreads = 256;  // a block of the float32 kernel and of the 16-bit stem
+constexpr int kStemCi = 4;  // the stem: Ci <= 4, one chunk of 4 channels
 
-template <int S, int CK>
-struct Geom {
-  static constexpr int IH = (kTH - 1) * S + 3;  // staged input rows
-  static constexpr int IW = (kTW - 1) * S + 3;  // staged input columns
-  static constexpr int XS = (CK * IH * IW + 3) / 4 * 4;  // floats, 16-B aligned
-  static constexpr int WS = 9 * CK * kTCO;
-  static constexpr int kBytes = (XS + WS) * 4;
+template <int S, int TN, int SW, int CK>
+struct F32Tile {
+  static constexpr int NG = TN / 8;                  // channel groups of threads
+  static constexpr int TH = kThreads / NG / SW;  // output rows
+  static constexpr int TW = 8 * SW;                  // output columns
+  static constexpr int IH = (TH - 1) * S + 3;
+  static constexpr int IW = (TW - 1) * S + 3;
+  static constexpr int IWE = S == 1 ? IW : (IW + 1) / 2;  // even columns first at stride 2
+  static constexpr int XROW = IW;                     // float4 units a staged row
+  static constexpr int XS = CK / 4 * IH * XROW;   // float4 units of the input tile
+  static constexpr int WS = CK * 9 * TN / 4;      // float4 units of the weights
+  static constexpr int STAGE = XS + WS;
+  static constexpr int kBytes = 2 * STAGE * 16;
 };
 
-template <typename T, int S, int CK>
-__global__ void __launch_bounds__(kThreads)
-conv_f32_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
-                T* __restrict__ y, int H, int W, int Ci, int Co, int Ho, int Wo, int act) {
-  using G = Geom<S, CK>;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [CK][IH][IW]
-  float* ws = xs + G::XS;                       // [9 * CK][kTCO]
-
-  const int tiles_w = (Wo + kTW - 1) / kTW;
-  const int h0 = (blockIdx.x / tiles_w) * kTH;
-  const int w0 = (blockIdx.x % tiles_w) * kTW;
-  const int co0 = blockIdx.y * kTCO;
-  const int b = blockIdx.z;
+template <int S, int TN, int SW, bool VEC, int CK>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ y,
+                float* __restrict__ part, int B, int H, int W, int Ci, int Co, int Ho,
+                int Wo, int splits, int act) {
+  using G = F32Tile<S, TN, SW, CK>;
+  extern __shared__ float4 f32_smem[];
   const int tid = threadIdx.x;
-  const int tx = tid & 7;            // channels co0 + 8 tx .. + 8
-  const int ty = tid >> 3;           // pixels: row ty / 4, columns 4 (ty % 4) .. + 4
-  const int r = ty >> 2;
-  const int c0 = (ty & 3) * 4;
-  const int hi0 = h0 * S - 1;
-  const int wi0 = w0 * S - 1;
-  const T* xb = x + (size_t)b * H * W * Ci;
+  const int cg = tid % G::NG, strip = tid / G::NG;
+  const int r = strip / SW, sc = (strip % SW) * 8;  // output row, first column in the tile
 
-  float acc[4][8];
+  // block -> (channel tile, column tile, row tile, split, image), the
+  // channel tile fastest: blocks working at once share their input in L2
+  int t = blockIdx.x;
+  const int nco = (Co + TN - 1) / TN, ntw = (Wo + G::TW - 1) / G::TW,
+            nth = (Ho + G::TH - 1) / G::TH;
+  const int co0 = (t % nco) * TN;
+  t /= nco;
+  const int w0 = (t % ntw) * G::TW;
+  t /= ntw;
+  const int h0 = (t % nth) * G::TH;
+  t /= nth;
+  const int split = t % splits, b = t / splits;
+  const int nck = (Ci + CK - 1) / CK;
+  const int per = (nck + splits - 1) / splits;
+  const int cbeg = split * per, cend = min(nck, cbeg + per);
+
+  const int hi0 = h0 * S - 1, wi0 = w0 * S - 1;
+  const float* xb = x + (size_t)b * H * W * Ci;
+
+  auto load = [&](int stage, int c) {
+    float4* xs = f32_smem + stage * G::STAGE;
+    float4* ws = xs + G::XS;
+    const int ci0 = c * CK;
+    for (int u = tid; u < CK / 4 * G::IH * G::IW; u += kThreads) {
+      const int g4 = u / (G::IH * G::IW), rem = u - g4 * (G::IH * G::IW);
+      const int pr = rem / G::IW, q = rem - pr * G::IW;
+      const int hi = hi0 + pr, wi = wi0 + q, ci = ci0 + 4 * g4;
+      const bool ok = hi >= 0 && hi < H && wi >= 0 && wi < W && ci < Ci;
+      const int col = S == 1 ? q : (q & 1 ? G::IWE + (q >> 1) : q >> 1);
+      float4* dst = xs + (g4 * G::IH + pr) * G::XROW + col;
+      const float* src = xb + ((size_t)hi * W + wi) * Ci + ci;
+      if (VEC) {
+        cp_async16(smem_u32(dst), ok ? src : x, ok);
+      } else {
+        float v[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) v[e] = ok && ci + e < Ci ? src[e] : 0.f;
+        *dst = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    for (int u = tid; u < G::WS; u += kThreads) {
+      const int n4 = u % (TN / 4), ct = u / (TN / 4);  // ct = channel * 9 + tap
+      const int cc = ct / 9, tap = ct - cc * 9;
+      const int ci = ci0 + cc, co = co0 + 4 * n4;
+      const bool ok = ci < Ci && co < Co;
+      const float* src = w + ((size_t)tap * Ci + ci) * Co + co;
+      if (VEC) {
+        cp_async16(smem_u32(ws + u), ok ? src : w, ok);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = ok && co + e < Co ? src[e] : 0.f;
+        ws[u] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int ci0 = 0; ci0 < Ci; ci0 += CK) {
-    // consecutive threads read consecutive channels of one pixel
-    for (int i = tid; i < CK * G::IH * G::IW; i += kThreads) {
-      const int c = i % CK;
-      const int pix = i / CK;
-      const int pr = pix / G::IW;
-      const int pq = pix % G::IW;
-      const int hi = hi0 + pr;
-      const int wi = wi0 + pq;
-      const int ci = ci0 + c;
-      float v = 0.f;
-      if (hi >= 0 && hi < H && wi >= 0 && wi < W && ci < Ci)
-        v = to_f(xb[((size_t)hi * W + wi) * Ci + ci]);
-      xs[(c * G::IH + pr) * G::IW + pq] = v;
+  // one float4 of 4 input channels of pixel i times channel e's weights
+  auto fma8 = [&](float (&a)[8], const float4& wa, const float4& wb, float v) {
+    a[0] = fmaf(v, wa.x, a[0]);
+    a[1] = fmaf(v, wa.y, a[1]);
+    a[2] = fmaf(v, wa.z, a[2]);
+    a[3] = fmaf(v, wa.w, a[3]);
+    a[4] = fmaf(v, wb.x, a[4]);
+    a[5] = fmaf(v, wb.y, a[5]);
+    a[6] = fmaf(v, wb.z, a[6]);
+    a[7] = fmaf(v, wb.w, a[7]);
+  };
+  auto tap = [&](const float4 (&px)[8], const float4* wt) {
+    // wt: this thread's weights of one tap, channel stride 9 * TN / 4 units
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float4 wa = wt[e * 9 * (TN / 4)], wb = wt[e * 9 * (TN / 4) + G::NG];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float v = e == 0 ? px[i].x : e == 1 ? px[i].y : e == 2 ? px[i].z : px[i].w;
+        fma8(acc[i], wa, wb, v);
+      }
     }
-    for (int i = tid; i < G::WS; i += kThreads) {
-      const int n = i % kTCO;
-      const int kk = i / kTCO;  // tap * CK + c
-      const int c = kk % CK;
-      const int tap = kk / CK;
-      const int ci = ci0 + c;
-      const int co = co0 + n;
-      float v = 0.f;
-      if (ci < Ci && co < Co) v = to_f(w[((size_t)tap * Ci + ci) * Co + co]);
-      ws[i] = v;
-    }
-    __syncthreads();
+  };
 
-    for (int c = 0; c < CK; ++c) {
-#pragma unroll
+  if (cbeg < cend) load(0, cbeg);
+  cp_async_commit();
+  for (int c = cbeg; c < cend; ++c) {
+    const int stage = (c - cbeg) & 1;
+    if (c + 1 < cend) load(stage ^ 1, c + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk c has landed in every thread's view
+    const float4* xs = f32_smem + stage * G::STAGE;
+    const float4* ws = xs + G::XS;
+    // one (channel group, kernel row) an iteration: its 768 FMAs give the
+    // scheduler enough to overlap; unrolled further, the tiles'
+    // instantiations made the library's build several times longer
+#pragma unroll 1
+    for (int g4 = 0; g4 < CK / 4; ++g4) {
+#pragma unroll 1
       for (int kh = 0; kh < 3; ++kh) {
-        const float* xrow = xs + (c * G::IH + r * S + kh) * G::IW + c0 * S;
+        const float4* row = xs + (g4 * G::IH + r * S + kh) * G::XROW;
+        const float4* wk = ws + (g4 * 4 * 9 + kh * 3) * (TN / 4) + cg;
+        if constexpr (S == 1) {
+          float4 a[10];
 #pragma unroll
-        for (int kw = 0; kw < 3; ++kw) {
-          float a[4];
+          for (int i = 0; i < 10; ++i) a[i] = row[sc + i];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = xrow[i * S + kw];
-          const float4* wp =
-              reinterpret_cast<const float4*>(ws + ((kh * 3 + kw) * CK + c) * kTCO + tx * 8);
-          const float4 wa = wp[0];
-          const float4 wb = wp[1];
-          const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+          for (int kw = 0; kw < 3; ++kw) {
+            float4 px[8];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 8; ++i) px[i] = a[i + kw];
+            tap(px, wk + kw * (TN / 4));
+          }
+        } else {
+          float4 e[9];
 #pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
+          for (int i = 0; i < 9; ++i) e[i] = row[sc + i];
+          float4 px[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) px[i] = e[i];
+          tap(px, wk);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) px[i] = e[i + 1];
+          tap(px, wk + 2 * (TN / 4));
+#pragma unroll
+          for (int i = 0; i < 8; ++i) px[i] = row[G::IWE + sc + i];
+          tap(px, wk + (TN / 4));
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // every thread is done with this stage before it is refilled
   }
+  cp_async_wait<0>();
 
   const int ho = h0 + r;
   if (ho >= Ho) return;
+  const int cob[2] = {co0 + 4 * cg, co0 + TN / 2 + 4 * cg};
+  float bv[2][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int wo = w0 + c0 + i;
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) bv[hf][e] = cob[hf] + e < Co ? bias[cob[hf] + e] : 0.f;
+  const size_t npix = (size_t)B * Ho * Wo;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int wo = w0 + sc + i;
     if (wo >= Wo) continue;
-    T* yp = y + (((size_t)b * Ho + ho) * Wo + wo) * Co;
+    const size_t pix = ((size_t)b * Ho + ho) * Wo + wo;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int co = co0 + tx * 8 + j;
-      if (co < Co) yp[co] = from_f<T>(apply_act(acc[i][j] + to_f(bias[co]), act));
+    for (int hf = 0; hf < 2; ++hf) {
+      const int co = cob[hf];
+      if (co >= Co) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = acc[i][4 * hf + e];
+      float* dst;
+      if (splits > 1) {
+        dst = part + ((size_t)split * npix + pix) * Co + co;  // raw partial sums
+      } else {
+        dst = y + pix * Co + co;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = apply_act(v[e] + bv[hf][e], act);
+      }
+      if (VEC) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (co + e < Co) dst[e] = v[e];
+      }
     }
   }
 }
 
-template <int S, int CK>
-cudaError_t launch_f32(const void* x, const void* w, const void* b, void* y, int B, int H,
-                       int W, int Ci, int Co, int act, cudaStream_t stream) {
-  using G = Geom<S, CK>;
-  const int Ho = (H - 1) / S + 1;
-  const int Wo = (W - 1) / S + 1;
-  auto kernel = conv_f32_kernel<float, S, CK>;
+// y = act(part[0] + part[1] + ... + bias), the splits added in order.
+__global__ void __launch_bounds__(256)
+f32_split_sum(const float* __restrict__ part, const float* __restrict__ bias,
+              float* __restrict__ y, long long n, int Co, int splits, int act) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = part[i];
+  for (int k = 1; k < splits; ++k) s += part[k * n + i];
+  y[i] = apply_act(s + bias[i % Co], act);
+}
+
+template <int S, int TN, int SW, bool VEC, int CK = 8>
+cudaError_t launch_f32_tile(const float* x, const float* w, const float* b, float* y, float* part,
+                            int B, int H, int W, int Ci, int Co, int splits, int act,
+                            cudaStream_t stream) {
+  using G = F32Tile<S, TN, SW, CK>;
+  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+  const long long blocks = (long long)((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW) *
+                           ((Co + TN - 1) / TN) * splits * B;
+  if (blocks > INT32_MAX || splits < 1 || (splits > 1 && !part)) return cudaErrorInvalidValue;
+  auto kernel = conv_f32_kernel<S, TN, SW, VEC, CK>;
   cudaError_t err = allow_smem(kernel, G::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(((Ho + kTH - 1) / kTH) * ((Wo + kTW - 1) / kTW), (Co + kTCO - 1) / kTCO, B);
-  kernel<<<grid, kThreads, G::kBytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<float*>(y), H, W, Ci, Co, Ho, Wo, act);
+  kernel<<<(unsigned)blocks, kThreads, G::kBytes, stream>>>(x, w, b, y, part, B, H, W, Ci, Co,
+                                                               Ho, Wo, splits, act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n = (long long)B * Ho * Wo * Co;
+  f32_split_sum<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, b, y, n, Co, splits, act);
   return cudaGetLastError();
 }
 
+// The float32 route: the tile tn channels x sw strips of 8 columns a row,
+// the Ci sum split `splits` ways (the wrapper's plan, kernels/conv3x3.py
+// f32_plan); the stem (Ci <= 4) in one chunk of 4 channels with plain
+// loads. The launch checks the plan.
 template <int S>
-cudaError_t launch_f32_ck(const void* x, const void* w, const void* b, void* y, int B, int H,
-                          int W, int Ci, int Co, int act, cudaStream_t stream) {
-  // the 3-channel stem would waste 13 of 16 staged channels
-  if (Ci <= 4) return launch_f32<S, 4>(x, w, b, y, B, H, W, Ci, Co, act, stream);
-  return launch_f32<S, 16>(x, w, b, y, B, H, W, Ci, Co, act, stream);
+cudaError_t launch_f32(const void* xv, const void* wv, const void* bv, void* yv, void* pv, int B,
+                       int H, int W, int Ci, int Co, int act, int tn, int sw, int splits,
+                       cudaStream_t st) {
+  const float *x = static_cast<const float*>(xv), *w = static_cast<const float*>(wv),
+              *b = static_cast<const float*>(bv);
+  float *y = static_cast<float*>(yv), *p = static_cast<float*>(pv);
+  if (Ci <= kStemCi) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    if (tn == 32 && sw == 4)
+      return launch_f32_tile<S, 32, 4, false, 4>(x, w, b, y, p, B, H, W, Ci, Co, 1, act, st);
+    if (tn == 64 && sw == 2)
+      return launch_f32_tile<S, 64, 2, false, 4>(x, w, b, y, p, B, H, W, Ci, Co, 1, act, st);
+    return cudaErrorInvalidValue;
+  }
+  if (Ci % 4 || Co % 4) {
+    if (tn == 64 && sw == 2)
+      return launch_f32_tile<S, 64, 2, false>(x, w, b, y, p, B, H, W, Ci, Co, splits, act, st);
+    return cudaErrorInvalidValue;
+  }
+#define YS_F32_TILE(TN, SW)                                                                   \
+  if (tn == TN && sw == SW)                                                                   \
+    return launch_f32_tile<S, TN, SW, true>(x, w, b, y, p, B, H, W, Ci, Co, splits, act, st);
+  YS_F32_TILE(32, 4)
+  YS_F32_TILE(64, 1)
+  YS_F32_TILE(64, 2)
+  YS_F32_TILE(128, 1)
+  YS_F32_TILE(256, 1)
+#undef YS_F32_TILE
+  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------- 16-bit: bfloat16 and float16
@@ -766,18 +942,21 @@ desc_probe_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constan
 
 // Returns the CUDA error of the launch (0 on success; 10000 + a CUresult
 // where a TMA tensor map could not be encoded). dtype: 0 float32 (CUDA
-// cores; bn, R, Wt, Cop unused), 1 bfloat16 or 2 float16 (tensor cores: bn
-// 0 for the stem, else 64 or 128 channels a block, R x Wt output pixels a
-// block; Ci and Cop, the weights' Co, multiples of 8).
-extern "C" int ys_conv3x3(const void* x, const void* w, const void* b, void* y, int B, int H,
-                          int W, int Ci, int Co, int Cop, int stride, int act, int dtype, int bn,
-                          int R, int Wt, void* stream) {
+// cores; bn, R, Wt the plan's channel tile (0: the stem), strips of 8
+// columns a row and Ci splits; part: the splits' (splits, B, Ho, Wo, Co)
+// float32 workspace where splits > 1; Cop unused), 1 bfloat16 or 2 float16
+// (tensor cores: bn 0 for the stem, else 64 or 128 channels a block, R x Wt
+// output pixels a block; Ci and Cop, the weights' Co, multiples of 8; part
+// unused).
+extern "C" int ys_conv3x3(const void* x, const void* w, const void* b, void* y, void* part,
+                          int B, int H, int W, int Ci, int Co, int Cop, int stride, int act,
+                          int dtype, int bn, int R, int Wt, void* stream) {
   if (B == 0 || H == 0 || W == 0 || Co == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stride != 1 && stride != 2) return cudaErrorInvalidValue;
-  if (dtype == 0)
-    return stride == 1 ? launch_f32_ck<1>(x, w, b, y, B, H, W, Ci, Co, act, st)
-                       : launch_f32_ck<2>(x, w, b, y, B, H, W, Ci, Co, act, st);
+  if (dtype == 0)  // bn, R, Wt: the float32 plan's tn, sw, splits
+    return stride == 1 ? launch_f32<1>(x, w, b, y, part, B, H, W, Ci, Co, act, bn, R, Wt, st)
+                       : launch_f32<2>(x, w, b, y, part, B, H, W, Ci, Co, act, bn, R, Wt, st);
   if (dtype == 1)
     return stride == 1
                ? launch_conv<bf16, 1>(x, w, b, y, B, H, W, Ci, Co, Cop, act, bn, R, Wt, st)

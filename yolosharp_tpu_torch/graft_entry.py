@@ -3,7 +3,8 @@
 and the data-parallel train step they and the tests run over ranks.
 
 entry() -> (fn, args): the v8s detect forward at 640 and its decode on the
-card.
+card. It and every step below run under utils.numerics.full_float32
+(cuDNN's TF32 off whatever the caller's flags).
 
 dryrun_multichip(n): n gloo CPU ranks (spawned by parallel.dist.run_ranks)
 take one data-parallel step each of detect, FSDP detect, pose (4 x 3
@@ -34,6 +35,7 @@ from .parallel import (ShardedParams, create_mesh, dist,
                        sharded_param_bytes, visible_devices)
 from .train import TrainState, make_optimizer, make_train_step
 from .types import ScalarType, TaskType, YoloSize, YoloType
+from .utils.numerics import full_float32
 
 
 def entry():
@@ -50,6 +52,7 @@ def entry():
     x = torch.zeros((1, 3, 640, 640), device=dev).contiguous(
         memory_format=torch.channels_last)
 
+    @full_float32()
     @torch.inference_mode()
     def fn(net, images):
         return decode_inference(net(images)["one2many"])
@@ -57,6 +60,7 @@ def entry():
     return fn, (net, x)
 
 
+@full_float32()
 def _rank_step(config: Config, state_dict: Dict, batch: Dict,
                loss_kwargs: Optional[Dict] = None, fsdp: bool = False,
                steps: int = 1, save_dcp: Optional[str] = None,

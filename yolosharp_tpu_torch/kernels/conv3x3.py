@@ -29,10 +29,21 @@ The route goes by dtype, statically, with no fallback:
   the next tile's products, and each k step's barrier round trip (the
   source note of ``csrc/conv3x3.cu``). The stem (Ci <= 7) packs its 9
   taps x Ci channels into one K <= 64 on ``mma.sync``.
-- float32: the CUDA-core kernel (TF32 would break the float32 contract). A
-  block owns 8x16 output pixels x 64 channels, stages the halo tile and the
-  weight slice 16 channels at a time, and each thread keeps a 4-pixel x
-  8-channel micro-tile (32 multiply-adds per 6 shared loads).
+- float32: the CUDA-core kernel, float32 FMAs in every form (TF32 would
+  break the float32 contract; the bound is the 67 TFLOP/s float32 pipe,
+  which every path's shapes at B=2 reach ~0.4 of on an H100 80GB HBM3 at
+  700 W, below cuDNN's full-float32 ``F.conv2d``, PERF.md §6). A
+  block of 256 threads owns TH x TW output pixels x TN channels, each
+  thread an 8-pixel x 8-channel register tile read as float4 from both
+  operands (the input staged as float4 units of 4 channels a pixel, the
+  columns split by parity at stride 2, so a thread's pixels are
+  consecutive units); the input channels go 8 at a time through a
+  two-stage ring of 16-byte ``cp.async`` copies, so the next chunk's copy
+  overlaps this one's products. ``f32_plan`` picks the tile and a split of
+  the Ci sum over blocks (added in a fixed order by a second pass: the same
+  bits from run to run) per call, so that the grid fills the card at B=1
+  and B=2 too. The stem (Ci <= 4) runs one chunk of 4 channels, and Ci or
+  Co not a multiple of 4 one tile, with plain loads.
 
 On a CPU tensor the wrappers run the plain PyTorch version; on a CUDA
 tensor they launch the kernel or raise.
@@ -170,6 +181,100 @@ def conv_plan(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
     return best[1]
 
 
+class F32Plan(NamedTuple):
+    """What one float32 launch runs: ``tn`` output channels a block, ``sw``
+    strips of 8 output columns a tile row (the tile is 256 / (tn / 8) / sw
+    rows x 8 sw columns), and the Ci sum split over ``splits`` blocks."""
+    tn: int
+    sw: int
+    splits: int = 1
+
+
+# the float32 kernel's constants (csrc/conv3x3.cu conv_f32_kernel): its
+# tiles (tn, sw), input channels a chunk (the stem, Ci <= 4: one chunk of
+# 4, plain loads)
+F32_THREADS, F32_CK, F32_STEM_CK = 256, 8, 4
+F32_TILES = ((32, 4), (64, 1), (64, 2), (128, 1), (256, 1))
+F32_ODD_TILE = (64, 2)        # Ci or Co not a multiple of 4: plain loads
+F32_STEM_TILES = ((32, 4), (64, 2))
+# f32_plan's clocks (SM clocks of an H100): a chunk's barrier and copy
+# latency not hidden, the second pass's launch, and the card's bytes a
+# clock (3.35 TB/s at ~1.75 GHz) for the split sums' workspace traffic
+F32_COST_CHUNK, F32_COST_LAUNCH, F32_BYTES_PER_CLOCK = 300.0, 5000.0, 1900.0
+F32_COST_SLACK = 0.05
+
+
+def f32_tile(tn: int, sw: int):
+    """(output rows, output columns) of a float32 block."""
+    return F32_THREADS // (tn // 8) // sw, 8 * sw
+
+
+def f32_smem(stride: int, tn: int, sw: int, ck: int = F32_CK) -> int:
+    """Dynamic shared memory of a float32 block: two stages of the input
+    tile (float4 units) and the weights of ck channels x 9 taps x tn."""
+    th, tw = f32_tile(tn, sw)
+    ih, iw = (th - 1) * stride + 3, (tw - 1) * stride + 3
+    return 2 * 16 * (ck // 4 * ih * iw + ck * 9 * tn // 4)
+
+
+def f32_cost(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
+             sms: int, plan: F32Plan) -> float:
+    """A model of a float32 launch's time in SM clocks: the grid's rounds
+    (one block an SM: the 8 x 8 register tile and its operands take more
+    than the 128 registers a thread that two blocks of 256 threads would
+    leave), each as long as its chunks' FMAs at 128 a clock an SM take plus
+    a chunk's unhidden latency, plus the split sums' second pass."""
+    tn, sw, splits = plan
+    ck = F32_STEM_CK if Ci <= F32_STEM_CK else F32_CK
+    th, tw = f32_tile(tn, sw)
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    blocks = B * -(-ho // th) * -(-wo // tw) * -(-Co // tn) * splits
+    chunks = -(-(-(-Ci // ck)) // splits)
+    fma = th * tw * tn * 9 * ck
+    cost = -(-blocks // sms) * chunks * (fma / 128 + F32_COST_CHUNK)
+    if splits > 1:
+        cost += F32_COST_LAUNCH + (2 * splits * B * ho * wo * Co * 4
+                                   / F32_BYTES_PER_CLOCK)
+    return cost
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
+             sms: int) -> F32Plan:
+    """The float32 kernel's plan for one call on a card of sms SMs: the
+    tile and the split of the Ci sum that f32_cost rates fastest (the stem,
+    Ci <= 4, takes one chunk and one of F32_STEM_TILES; Ci or Co not a
+    multiple of 4 the one tile with plain loads)."""
+    if Ci <= F32_STEM_CK:
+        tiles = F32_STEM_TILES
+    elif Ci % 4 == 0 and Co % 4 == 0:
+        tiles = F32_TILES
+    else:
+        tiles = (F32_ODD_TILE,)
+    ck = F32_STEM_CK if Ci <= F32_STEM_CK else F32_CK
+    nck = -(-Ci // ck)
+    ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    rated = []
+    for tn, sw in tiles:
+        if f32_smem(stride, tn, sw, ck) > build.SMEM_LIMIT:
+            continue
+        th, tw = f32_tile(tn, sw)
+        for splits in range(1, min(nck, 16) + 1):
+            if splits > 1 and -(-nck // splits) == -(-nck // (splits - 1)):
+                continue
+            plan = F32Plan(tn, sw, splits)
+            blocks = B * -(-ho // th) * -(-wo // tw) * -(-Co // tn) * splits
+            rated.append((f32_cost(B, H, W, Ci, Co, stride, sms, plan),
+                          min(blocks, sms), plan))
+    # of the plans within F32_COST_SLACK of the fastest, the one that
+    # gives the most SMs a block (the model's rounds are whole, so a part
+    # of the card it leaves idle costs nothing there), then the fewest
+    # splits and the widest tile
+    least = min(r[0] for r in rated)
+    return min((r for r in rated if r[0] <= least * (1 + F32_COST_SLACK)),
+               key=lambda r: (-r[1], r[2].splits, -r[2].tn, r[0]))[2]
+
+
 def padded(c: int) -> int:
     """A channel count rounded up to the 16-bit kernel's multiple of 8."""
     return -(-c // 8) * 8
@@ -189,7 +294,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("conv3x3")
     fn = lib.ys_conv3x3
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
     probe = lib.ys_conv3x3_desc_probe
     probe.restype = ctypes.c_int
@@ -198,10 +303,11 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(name: str, x, w, b, act: str, stride: int,
-            plan: ConvPlan = None) -> torch.Tensor:
-    """The kernel's launch; the 16-bit route runs ``plan`` where one is
-    given (tests hold other tiles than conv_plan's to the plain version),
-    else conv_plan's."""
+            plan=None) -> torch.Tensor:
+    """The kernel's launch; it runs ``plan`` where one is given (a ConvPlan
+    on the 16-bit route, an F32Plan on the float32 one: tests hold other
+    tiles than the planner's to the plain version), else conv_plan's or
+    f32_plan's."""
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, Ci) and w (3, 3, Ci, "
                          f"Co), got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -215,21 +321,25 @@ def _launch(name: str, x, w, b, act: str, stride: int,
     code, stream = build.launch_args(name, x, w, b)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     y = torch.empty((B, Ho, Wo, Co), dtype=x.dtype, device=x.device)
-    cop = Co
+    cop, part = Co, None
+    sms = build.sm_count(x.device.index)
     if x.dtype not in build.HALF_DTYPES:
-        plan = ConvPlan(0)   # the float32 kernel has one tile
+        plan = plan or f32_plan(B, H, W, Ci, Co, stride, sms)
+        if plan.splits > 1:   # the splits' partial sums
+            part = torch.empty((plan.splits, B, Ho, Wo, Co),
+                               dtype=torch.float32, device=x.device)
     else:
         cip, cop = (Ci, Co) if Ci <= 7 else (padded(Ci), padded(Co))
         if (cip, cop) != (Ci, Co):   # TMA needs 16-byte strides
             x = F.pad(x, (0, cip - Ci))
             w = F.pad(w, (0, cop - Co, 0, cip - Ci))
-        plan = plan or conv_plan(B, H, W, cip, cop, stride,
-                                 build.sm_count(x.device.index))
+        plan = plan or conv_plan(B, H, W, cip, cop, stride, sms)
         Ci = cip
     with torch.cuda.device(x.device):
         status = _lib().ys_conv3x3(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, H, W,
-            Ci, Co, cop, stride, ACT_CODES[act], code, *plan, stream)
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            0 if part is None else part.data_ptr(), B, H, W, Ci, Co, cop,
+            stride, ACT_CODES[act], code, *plan, stream)
     build.check_status(name, status)
     return y
 

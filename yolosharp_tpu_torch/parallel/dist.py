@@ -225,7 +225,9 @@ def _abort() -> None:
 
 def numerics() -> dict:
     """This process's settings that change float results (TF32, cuDNN's
-    algorithm choice), which every spawned rank takes over."""
+    algorithm choice), which every spawned rank takes over. A rank's train
+    and val steps run under utils.numerics.full_float32 all the same, so
+    its float32 convolutions skip TF32 whatever flags it was handed."""
     return {"cudnn_tf32": torch.backends.cudnn.allow_tf32,
             "matmul_tf32": torch.backends.cuda.matmul.allow_tf32,
             "cudnn_benchmark": torch.backends.cudnn.benchmark,

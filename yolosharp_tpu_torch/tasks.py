@@ -102,7 +102,7 @@ from .train import (MAX_LOSS_SCALE, TrainState, make_eval_step,
 from .types import KeyPoint, TaskType, YoloResult
 from .utils import (EarlyStopping, StepTrace, TrainLogger, ap_per_class,
                     match_predictions, summarize)
-from .utils.numerics import divide_by_constant
+from .utils.numerics import divide_by_constant, full_float32
 
 
 def _warn_if_truncated(nms_out, state: Optional[Dict] = None) -> None:
@@ -280,6 +280,7 @@ class BaseTask:
         return self._fused[1]
 
     # -------------------------------------------------------------- int8
+    @full_float32()
     def calibrate_int8(self, images=None, n_images: int = 16,
                        batch_size: int = 8) -> Dict:
         """Post-training int8 activation calibration (the JAX package's
@@ -588,6 +589,7 @@ class BaseTask:
                 return self._run_ranks(mesh, "train", (resume_from,))
         return self._train(resume_from)
 
+    @full_float32()
     def _train(self, resume_from: Optional[str]) -> TrainState:
         """train()'s loop on this process's device; under an active group
         this rank's rows of each global batch (rank 0 writes the outputs,
@@ -760,6 +762,7 @@ class BaseTask:
                 return self._run_ranks(mesh, "val", (epoch,))
         return self._val(val_dl, epoch)
 
+    @full_float32()
     def _val(self, val_dl: Optional[DataLoader], epoch: int):
         """val() on this process's device: under an active group this
         rank's rows of each batch, each batch's statistics gathered to
@@ -855,6 +858,7 @@ class Detector(BaseTask):
                                   nc=self.config.number_class)
         return dec
 
+    @full_float32()
     @torch.inference_mode()
     def _predict_fn(self, net: YoloNet, img: torch.Tensor, conf: float,
                     iou: float):
@@ -1455,6 +1459,7 @@ class Classifier(BaseTask):
         return [top1, top5]
 
     # ------------------------------------------------------------- predict
+    @full_float32()
     @torch.inference_mode()
     def _probs(self, net: YoloNet, img: torch.Tensor) -> torch.Tensor:
         """uint8 (B, s, s, 3) on the device -> (B, nc) float32 softmax."""
