@@ -27,8 +27,9 @@ Phases (any failure exits non-zero; nothing is caught):
      v11s-pose (Ci or Co = 51) and v12x-obb's 96-wide angle towers and
      768-wide stride-2 conv included; 640x640, 480x640, 500x375 and
      1280x1280 for the attention), B=2, in float32 (TF32 off for cuDNN
-     and matmul; the float32 conv run twice, its bits equal, its
-     f32_plan printed), bfloat16 and float16, with device times (CUDA events around a CUDA graph of 10
+     and matmul; the float32 conv and C2f run twice, their bits equal,
+     their f32_plan / f32_c2f_plan printed, the float32 attention's
+     f32_geometry printed), bfloat16 and float16, with device times (CUDA events around a CUDA graph of 10
      calls, in turns plain / kernel / library / library / kernel / plain),
      the eager times of the same calls made from Python (host launch cost
      included), and the TFLOP/s each reaches (convs
@@ -719,13 +720,16 @@ def record_shapes(path: str) -> dict:
 def variant(kind, dtype, batch, shape, sms) -> str:
     """What the launch picks for one call, as the wrappers pick it for a
     card of sms SMs: the 16-bit conv's N tile and its block's output rows x
-    columns (or its stem kernel), the C2f block's plan (its shape class,
-    K chunk, N tile, m64 subtiles a warpgroup and 3x3 tile; no cluster: one
-    block an SM) or float32 tile, the attention's route by type and its
-    16-bit splits, staged keys and warps; '' where the kernel is the same
-    for every call."""
-    from yolosharp_tpu_torch.kernels.attention import launch_geometry
-    from yolosharp_tpu_torch.kernels.c2f import c2f_plan, plan_class, tile_for
+    columns (or its stem kernel), the float32 conv's tile and split, the
+    C2f block's plan (its shape class, K chunk, N tile, m64 subtiles a
+    warpgroup and 3x3 tile; no cluster: one block an SM) or float32 plan
+    (each GEMM's N tile and split, the 3x3 tile), the attention's route by
+    type and its splits, staged keys and warps; '' where the kernel is the
+    same for every call."""
+    from yolosharp_tpu_torch.kernels.attention import (f32_geometry,
+                                                       launch_geometry)
+    from yolosharp_tpu_torch.kernels.c2f import (c2f_plan, f32_c2f_plan,
+                                                 plan_class)
     from yolosharp_tpu_torch.kernels.conv3x3 import (conv_plan, f32_plan,
                                                      f32_tile, padded)
 
@@ -746,14 +750,20 @@ def variant(kind, dtype, batch, shape, sms) -> str:
     if kind == "c2f":
         H, W, cin, c, c2 = shape
         if not half:
-            return f"c={c} tile {tile_for(c)}"
+            p = f32_c2f_plan(batch, H, W, cin, c, c2, sms)
+            return (f"c={c} f32: cv1 TN {p.cv1.tn} splits {p.cv1.splits}, "
+                    f"3x3 TN {p.m.tn} tile {p.m.rows}x{p.m.wt} splits "
+                    f"{p.m.splits}, cv2 TN {p.cv2.tn} splits {p.cv2.splits}")
         bk, bn, ms, rows, wt = c2f_plan(batch, H, W, cin, c, c2, sms)
         return (f"c={c} {plan_class(c)}: BK {bk} BN {bn} MS {ms} tile "
                 f"{rows}x{wt}, cluster 1")
     if kind == "attn":
-        if not half:
-            return "CUDA cores"
         areas, nh, n, d = shape
+        if not half:
+            splits, keys, warps, group = f32_geometry(batch * areas * nh, n,
+                                                      d, sms)
+            return (f"f32 splits {splits} keys {keys} warps {warps} "
+                    f"group {group}")
         splits, keys, warps = launch_geometry(batch * areas * nh, n, d, sms)
         return f"mma.sync splits {splits} keys {keys} warps {warps}"
     return ""
@@ -894,7 +904,7 @@ def phase_kernels(dev):
         tag = (f"{name} {dt} B={batch} {desc}" + (f" [{var}]" if var else "")
                + f" [{'+'.join(vs)}]")
         err = compare(tag, got, want, dtype, tol, ref)
-        if kind in ("s1", "s2") and dtype == torch.float32:
+        if kind in ("s1", "s2", "c2f") and dtype == torch.float32:
             # no atomics, the splits added in a fixed order: the same bits
             # from one run to the next
             again = kernel()

@@ -20,8 +20,9 @@ from yolosharp_tpu_torch.kernels import (attention_bihd, attention_bwd_plain,
                                          launch_counts)
 from yolosharp_tpu_torch.kernels.attention import (
     HEAD_DIMS, KEY_TILE, KINDS, MAX_BLOCKS, MAX_STAGES, SM_SMEM, SMEM_LIMIT,
-    STREAM_SMEM, UNIT_ROWS, attention_plan, kv_keys, launch_geometry,
-    lse_rows, plan_smem, smem_bytes, stage_bytes, stream_tile)
+    STREAM_SMEM, UNIT_ROWS, F32_KEY_TILE, attention_plan, f32_geometry,
+    f32_layout, f32_smem_bytes, kv_keys, launch_geometry, lse_rows,
+    plan_smem, smem_bytes, stage_bytes, stream_tile)
 
 # the tolerance of tests/test_pallas_attention.py: float32 sums in another
 # order
@@ -289,3 +290,53 @@ def test_fused_attention_bwd_takes_the_plain_twin_on_the_cpu():
         fused_attention_bwd(*(m.float(),) * 4, *mstats, 0.25)
     with pytest.raises(ValueError, match="lse and o32"):
         fused_attention_bwd(m, m, m, m, mstats[0], mstats[0], 0.25)
+
+
+@pytest.mark.parametrize("S,n,d", MODEL_SHAPES)
+def test_float32_attention_geometry_of_the_model_shapes(S, n, d):
+    """The float32 kernel's geometry at every model shape on 132 SMs:
+    blocks of 8 warps (32-row warp tiles at D = 32); a sequence of N <= 400
+    staged whole (N rounded to 16), N = 1600 streamed in 64-key multiples
+    through two stages; the splits fill the SMs without a second wave of
+    blocks, every block has warp tiles, and where a block has fewer tiles
+    than warps its warps share tiles in groups that leave none idle for
+    want of a tile."""
+    splits, keys, warps, group = f32_geometry(S, n, d, 132)
+    _, wr, _ = f32_layout(d)
+    tiles = -(-n // wr)
+    assert warps == 8 and wr == 32
+    assert (keys >= n) == (n <= 400)
+    if keys >= n:
+        assert keys == -(-n // 16) * 16
+        assert f32_smem_bytes(keys, 1, warps, d) <= SMEM_LIMIT
+    else:
+        assert keys % F32_KEY_TILE == 0
+        assert f32_smem_bytes(keys, 2, warps, d) <= SMEM_LIMIT
+    assert 1 <= splits <= tiles
+    assert S * splits <= 132 or splits == 1
+    assert S * splits > 132 // 2 or splits == tiles
+    per_block = -(-tiles // splits)
+    assert group & (group - 1) == 0
+    assert group == 1 or group * per_block <= warps
+    assert 2 * group * per_block > warps or 2 * group > -(-n // 64)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_float32_attention_geometry_is_what_the_kernel_takes(d):
+    """What csrc/attention.cu's float32 launch checks, at every head dim
+    and a range of N and sequences: 1 <= splits <= the warp tiles, staged
+    keys a multiple of 16 that cover N (one stage within a block's shared
+    memory) or a multiple of the 64-key step (two stages within it), 1 to
+    8 warps, and warp groups that divide the warps."""
+    _, wr, _ = f32_layout(d)
+    for n in (1, 15, 16, 17, 63, 65, 300, 400, 1000, 1600, 3000, 6400):
+        for bh in (1, 8, 16, 64, 256, 512, 4096):
+            splits, keys, warps, group = f32_geometry(bh, n, d, 132)
+            assert group >= 1 and warps % group == 0
+            assert 1 <= splits <= -(-n // wr)
+            assert 1 <= warps <= 8 and keys >= 16 and keys % 16 == 0
+            assert keys < n + 16
+            stages = 1 if keys >= n else 2
+            assert f32_smem_bytes(keys, stages, warps, d) <= SMEM_LIMIT
+            if stages == 2:
+                assert keys % F32_KEY_TILE == 0

@@ -21,8 +21,10 @@ from yolosharp_tpu_torch.kernels import (attention_bihd, attention_bwd_plain,
                                          launch_counts, reset_launch_counts)
 from yolosharp_tpu_torch.kernels import attention as attn_module
 from yolosharp_tpu_torch.kernels.attention import (attention_plan,
+                                                   f32_geometry,
                                                    launch_geometry)
-from yolosharp_tpu_torch.kernels.c2f import C2fPlan, c2f_plan
+from yolosharp_tpu_torch.kernels.c2f import (C2fF32Plan, C2fPlan, F32Gemm,
+                                             c2f_plan, f32_c2f_plan)
 from yolosharp_tpu_torch.kernels import conv3x3 as conv_module
 from yolosharp_tpu_torch.kernels.conv3x3 import ConvPlan, conv_plan, padded
 from yolosharp_tpu_torch.loss import flatten_levels
@@ -343,6 +345,95 @@ def test_c2f_kernel_twice_in_one_cuda_graph(cuda, dtype, shape):
         torch.cuda.synchronize()
         for args, got in zip(ins, outs):
             _check_c2f_out(got, c2f_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 13, 7, 48, 16, 40),       # c = 16, W = 7, Cin != 2c
+    (2, 37, 29, 64, 32, 64),      # c = 32, ragged bands and columns
+    (3, 9, 1, 256, 128, 96),      # c = 128, W = 1
+    (2, 20, 20, 512, 256, 512),   # c = 256, v8s layer 8
+    (2, 11, 17, 64, 320, 64),     # c = 320, 3c % 32 = 16
+])
+def test_c2f_float32_kernel_on_ragged_maps(cuda, shape):
+    """The float32 kernel's planned launch on maps no tile divides, with
+    biases of +-3 (a pad ring that did not read as zero shows), held to the
+    plain version, and its bits equal in a second call."""
+    rng = np.random.default_rng(sum(shape))
+    args = [a.to(cuda) for a in _c2f_args(rng, *shape, bias=3.0)]
+    got = c2f_fused(*args)
+    _check(got, c2f_plain(*args), "float32")
+    assert torch.equal(got, c2f_fused(*args))
+
+
+# float32 plans forced onto one shape (3 x 19 x 23, Cin 96, c 128, C2 256):
+# every tile width of each GEMM, splits of each K sum that leave the last
+# split fewer chunks, 3x3 tiles whose bands and columns are ragged
+F32_PLANS = [
+    C2fF32Plan(F32Gemm(64), F32Gemm(32, 1, 19, 23), F32Gemm(64)),
+    C2fF32Plan(F32Gemm(128, 2), F32Gemm(64, 6, 7, 10), F32Gemm(128, 4)),
+    C2fF32Plan(F32Gemm(256, 3), F32Gemm(128, 16, 4, 23), F32Gemm(256, 12)),
+    C2fF32Plan(F32Gemm(64, 3), F32Gemm(256, 2, 3, 11), F32Gemm(64, 6)),
+]
+
+
+@pytest.mark.parametrize("plan", F32_PLANS, ids=lambda p: "-".join(
+    map(str, p.ints())))
+def test_c2f_float32_kernel_at_forced_plans(cuda, plan):
+    """Each tile width, split and ragged 3x3 tile of the float32 kernel
+    against the plain version; the split sums are added in a fixed order,
+    so a second call gives the same bits."""
+    rng = np.random.default_rng(5)
+    args = [a.to(cuda) for a in _c2f_args(rng, 3, 19, 23, 96, 128, 256)]
+    got = c2f_fused(*args, plan=plan)
+    _check(got, c2f_plain(*args), "float32")
+    assert torch.equal(got, c2f_fused(*args, plan=plan))
+
+
+def test_c2f_float32_kernel_refuses_a_bad_plan(cuda):
+    """A plan the launch cannot run (a split without K chunks, a 3x3 tile
+    beyond its flat rows, 1x1s of two widths) raises: no silent
+    fallback."""
+    rng = np.random.default_rng(5)
+    args = [a.to(cuda) for a in _c2f_args(rng, 1, 9, 9, 64, 32, 64)]
+    for plan in (C2fF32Plan(F32Gemm(64, 3), F32Gemm(32, 1, 9, 9),
+                            F32Gemm(64)),
+                 C2fF32Plan(F32Gemm(64), F32Gemm(32, 1, 9, 200),
+                            F32Gemm(64)),
+                 C2fF32Plan(F32Gemm(64), F32Gemm(32, 1, 9, 9),
+                            F32Gemm(128))):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            c2f_fused(*args, plan=plan)
+
+
+def test_c2f_float32_kernel_plans_the_phase2_shapes(cuda):
+    """The planner's float32 plans of v8s layers 2 and 8 and v8s-cls's 56 x
+    56 and 7 x 7 at B = 2 and 32 run and hold to the plain version."""
+    rng = np.random.default_rng(3)
+    for B in (2, 32):
+        for shape in ((160, 160, 64, 32, 64), (20, 20, 512, 256, 512),
+                      (56, 56, 64, 32, 64), (7, 7, 512, 256, 512)):
+            args = [a.to(cuda) for a in _c2f_args(rng, B, *shape)]
+            f32_c2f_plan(B, *shape, _sms(cuda))
+            _check(c2f_fused(*args), c2f_plain(*args), "float32")
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 33, 77, 400, 1000, 1600])
+def test_float32_attention_kernel(cuda, d, n):
+    """The float32 kernel at every head dim, N ragged against its 64-key
+    steps and 32-row warp tiles, N past the keys one block stages (the
+    sequence streamed through two stages: f32_geometry's keys < N), on
+    strided q / k / v of one qkv tensor as AAttn hands them over."""
+    B, H = 2, 3
+    rng = np.random.default_rng(d + n)
+    qkv = _rand(rng, B, n, H, 3 * d, scale=2.0).to(cuda)
+    q, k, v = qkv.split(d, dim=-1)
+    got = attention_bihd(q, k, v, d ** -0.5)
+    want = attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), d ** -0.5).transpose(1, 2)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-4)
+    if 2 * n * d * 4 > 128 * 1024:   # K and V beyond what a block stages
+        assert f32_geometry(B * H, n, d, _sms(cuda))[1] < n
 
 
 def test_float32_stays_on_the_cuda_cores(cuda):

@@ -120,3 +120,36 @@ def test_entry_points_run_without_tf32(entry, caller_tf32, tmp_path):
         calls[entry]()
     handle.remove()
     assert _flags() == caller_tf32
+
+
+@pytest.mark.parametrize("entry", ["batch_predict", "predict_stream"])
+def test_segment_masks_are_built_without_tf32(entry, caller_tf32,
+                                              monkeypatch):
+    """A segment result's masks (process_mask: a float32 matmul of the
+    proto on the device) are built inside the float32 scope, in
+    batch_predict and in predict_stream's unpacking, though the forward's
+    own scope has closed by then; the caller's flags are back after."""
+    from yolosharp_tpu_torch import TaskType, tasks
+
+    task = YoloTask(Config(task_type=TaskType.segment, yolo_size=YoloSize.n,
+                           number_class=NC, image_size=64,
+                           scalar_type=ScalarType.float32), device="cpu")
+    seen = []
+    process_mask = tasks.process_mask
+
+    def recorded(*args, **kwargs):
+        seen.append(_flags())
+        return process_mask(*args, **kwargs)
+
+    monkeypatch.setattr(tasks, "process_mask", recorded)
+    images = _images(2, seed=1)
+    if entry == "batch_predict":
+        results = task.batch_predict(images, predict_threshold=0.001)
+    else:
+        results = list(task.predict_stream(iter(images), batch_size=2,
+                                           predict_threshold=0.001,
+                                           workers=1))
+    assert len(results) == 2 and any(r.mask is not None
+                                     for rs in results for r in rs)
+    assert seen and all(f[:2] == (False, False) for f in seen), seen
+    assert _flags() == caller_tf32

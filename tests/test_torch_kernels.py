@@ -16,8 +16,9 @@ from yolosharp_tpu_torch.kernels import (build, c2f_fused, c2f_plain,
                                          conv3x3_silu, conv3x3s2_silu,
                                          launch_counts)
 from yolosharp_tpu_torch.kernels.c2f import (SMEM_LIMIT, C2fPlan, c2f_plan,
-                                             gemms, plan_class, smem_bytes,
-                                             tile_for)
+                                             f32_c2f_plan, f32_gemms,
+                                             f32_rows, f32_scratch, f32_smem,
+                                             gemms, plan_class)
 from yolosharp_tpu_torch.kernels.c2f import tc_smem as c2f_smem
 from yolosharp_tpu_torch.kernels.conv3x3 import (TC_ROWS, ConvPlan, chunk,
                                                  conv_plan, padded, tc_smem)
@@ -172,7 +173,8 @@ def test_c2f_supported_covers_v8s_layers():
     assert not c2f_supported(1, False, 1, 64, 32, 64)
     assert not c2f_supported(1, True, 2, 64, 32, 64)
     assert not c2f_supported(1, True, 1, 64, 30, 64)
-    assert not c2f_supported(1, True, 1, 1024, 512, 1024)
+    # any c: neither route's shared memory grows with it
+    assert c2f_supported(1, True, 1, 1024, 512, 1024)
 
 
 @pytest.mark.parametrize("size", ["n", "s"])
@@ -189,8 +191,10 @@ def test_c2f_route_takes_v8_layers_2_and_8(size):
 
 @pytest.mark.parametrize("bf16", [False, True])
 def test_c2f_tiles_fit_shared_memory_for_every_admitted_width(bf16):
-    """Every (Cin, c, C2) that c2f_supported admits has a float32 tile whose
-    block fits the 232,448 bytes of shared memory, and (bf16) a 16-bit plan
+    """Every (Cin, c, C2) that c2f_supported admits has (float32) a plan at
+    B = 1, 2 and 32 whose two ring stages fit the 232,448 bytes of shared
+    memory and whose 3x3 tile stays within its flat rows, and (bf16) a
+    16-bit plan
     at B = 1, 2 and 32 whose block fits them too, whose 3x3 tile stays
     within the two consumer warpgroups' 256 flat rows, and whose persistent
     grid (at most one block an SM, no cluster) is resident at once, as its
@@ -202,7 +206,11 @@ def test_c2f_tiles_fit_shared_memory_for_every_admitted_width(bf16):
                 continue
             admitted += 1
             if not bf16:
-                assert smem_bytes(tile_for(c), c) <= SMEM_LIMIT == 232448
+                for B in (1, 2, 32):
+                    plan = f32_c2f_plan(B, 13, 11, cin, c, c2, 132)
+                    assert f32_smem(plan) <= SMEM_LIMIT == 232448
+                    m = plan.m
+                    assert m.rows * (m.wt + 2) <= f32_rows(m.tn)
                 continue
             for B in (1, 2, 32):
                 plan = c2f_plan(B, 13, 11, cin, c, c2, 132)
@@ -238,14 +246,12 @@ def test_c2f_bf16_tile_for_v8s_layer8_is_the_stated_one():
     """The plan the source note states for v8s layer 8 at the served batch
     of 32: 64-channel chunks, 128-wide N tiles, one m64 subtile a
     warpgroup (two would spill), 10 x 10 pixel 3x3 tiles (120 of 128 flat
-    rows), so each 3x3 GEMM is 256 tiles, two rounds of the 132 SMs;
-    float32 tiles of 4 above c = 64 and 8 up to it."""
+    rows), so each 3x3 GEMM is 256 tiles, two rounds of the 132 SMs."""
     plan = c2f_plan(32, 20, 20, 512, 256, 512, 132)
     assert plan == C2fPlan(64, 128, 1, 10, 10)
     assert [g.tiles for g in gemms(32, 20, 20, 512, 256, 512, plan)] == \
         [400, 256, 256, 400]
     assert plan_class(256) == "deep" and plan_class(32) == "narrow"
-    assert tile_for(256) == 4 and tile_for(32) == 8
 
 
 @pytest.mark.parametrize("batch", [1, 2, 32])
@@ -261,13 +267,64 @@ def test_c2f_plan_of_the_model_shapes(shape, batch):
     assert c2f_plan(batch, *shape, 132) == want
 
 
-@pytest.mark.parametrize("shape,want", [((1, 20, 20, 256), 4),
-                                        ((1, 80, 80, 32), 8)])
+@pytest.mark.parametrize("shape,want", [((1, 20, 20, 256), 128),
+                                        ((1, 80, 80, 32), 48)])
 def test_c2f_float32_tile_is_fixed_by_width(shape, want):
-    """The float32 kernel's tile: 8 up to c = 64, 4 above, at every batch
-    and map."""
-    assert tile_for(shape[3]) == want
-    assert smem_bytes(want, shape[3]) <= SMEM_LIMIT
+    """The float32 plan at these (B, H, W, c) shapes (Cin = C2 = 2c): each
+    GEMM's items (tiles x splits) number at least `want` of the 132 SMs,
+    its ring fits shared memory, and the plan is decided by the shape
+    alone (the same answer however often it is asked)."""
+    B, H, W, c = shape
+    plan = f32_c2f_plan(B, H, W, 2 * c, c, 2 * c, 132)
+    assert f32_smem(plan) <= SMEM_LIMIT
+    items = [t * s for t, s, _, _, _ in
+             f32_gemms(B, H, W, 2 * c, c, 2 * c, plan)]
+    assert min(items) >= want, (plan, items)
+    f32_c2f_plan.cache_clear()
+    assert f32_c2f_plan(B, H, W, 2 * c, c, 2 * c, 132) == plan
+
+
+# the C2f shapes (H, W, Cin, c, C2) that take the kernel in the zoo: v8n's
+# and v8s's layers 2 and 8 (n = 1, shortcut; the larger sizes repeat their
+# bottleneck) on the 640x640 canvas and the classify models' 224x224 one
+ZOO_C2F = [(160, 160, 32, 16, 32), (20, 20, 256, 128, 256),
+           (160, 160, 64, 32, 64), (20, 20, 512, 256, 512),
+           (56, 56, 32, 16, 32), (7, 7, 256, 128, 256),
+           (56, 56, 64, 32, 64), (7, 7, 512, 256, 512)]
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8, 32])
+@pytest.mark.parametrize("shape", ZOO_C2F,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_c2f_float32_plan_tiles_every_zoo_shape(shape, batch):
+    """At every zoo C2f shape and served batch the float32 plan tiles each
+    GEMM's whole output (the 3x3 bands cover the map within a tile's flat
+    rows), leaves no split without K chunks, fills nine tenths of the 132
+    SMs with the launch's largest GEMM (and each GEMM a third of them
+    where its tiles and chunks allow), and fits shared memory; its scratch
+    holds y1, t, z and the largest split's sums."""
+    H, W, cin, c, c2 = shape
+    plan = f32_c2f_plan(batch, H, W, cin, c, c2, 132)
+    assert f32_smem(plan) <= SMEM_LIMIT
+    m = plan.m
+    assert 1 <= m.rows <= H and 1 <= m.wt <= W
+    assert m.rows * (m.wt + 2) <= f32_rows(m.tn)
+    npix = batch * H * W
+    gs = f32_gemms(batch, H, W, cin, c, c2, plan)
+    for g, (tiles, splits, chunks, n, spatial) in zip(
+            (plan.cv1, m, m, plan.cv2), gs):
+        if spatial:
+            covered = (-(-H // m.rows) * m.rows, -(-W // m.wt) * m.wt)
+            assert covered[0] >= H and covered[1] >= W
+        else:
+            assert tiles * f32_rows(g.tn) * g.tn >= npix * n
+        assert 1 <= splits <= chunks
+        assert (splits - 1) * -(-chunks // splits) < chunks   # none empty
+        assert 3 * tiles * splits >= min(132, tiles * chunks)
+    assert max(t * s for t, s, _, _, _ in gs) >= 0.9 * 132
+    part = max(s * npix * n for _, s, _, n, _ in gs if s > 1) \
+        if any(s > 1 for _, s, _, _, _ in gs) else 0
+    assert f32_scratch(batch, H, W, cin, c, c2, plan) == npix * 4 * c + part
 
 
 # every 3x3 conv shape (H, W, Ci, Co) of every path on the 640x640 canvas and

@@ -30,11 +30,12 @@ copies under the same names. Modules:
   the detection, OBB, segmentation, pose and classification losses and the
   End2End pair;
 - ``train``: AdamW groups, LR schedules, train and eval steps, TrainState;
-- ``data``: cv2-free pixel work (``image_ops``: the PNG / JPEG / BMP
-  reader, with ``jpeg``'s markers and ``csrc/jpeg_decode.cpp``, resize, HSV,
-  warps, polygon fill, the classify ops' blur / equalize), labels,
-  augmentations (letterbox and the host mosaic; ``classify_augment``:
-  AutoAugment, RandAugment, AugMix, random erasing), the mosaic's host
+- ``data``: cv2-free pixel work (``image_ops``: the PNG / JPEG / BMP /
+  TIFF / PNM / PAM / WebP reader, with ``jpeg``'s markers and
+  ``csrc/jpeg_decode.cpp``, ``bmp``, ``tiff``, ``pnm`` and ``webp``,
+  resize, HSV, warps, polygon fill, the classify ops' blur / equalize),
+  labels, augmentations (letterbox and the host mosaic;
+  ``classify_augment``: AutoAugment, RandAugment, AugMix, random erasing), the mosaic's host
   planner and device render of images and masks (``device_augment``),
   datasets (``YoloDataset``, ``ClassificationDataset``), loader;
 - ``utils``: val metrics, early stopping, the CSV log;
@@ -42,9 +43,11 @@ copies under the same names. Modules:
   ``.bin``), BN folding, the JAX bridge, and ``resume`` (the full train
   state);
 - ``predict``, ``tasks``: decode and the task layer / YoloTask facade;
-- ``kernels`` + ``csrc``: the hand-written CUDA kernels (3x3 conv, fused
-  C2f, fused attention, the last also under autograd for training), each
-  in float32, bfloat16 and float16;
+- ``kernels`` + ``csrc``: the hand-written CUDA kernels: the 3x3 conv, the
+  fused C2f and the fused attention, each in float32, bfloat16 and float16
+  (the attention also under autograd for training, its 16-bit backward
+  the kernel ``fused_attention_bwd``), and the int8 pair of
+  ``int8_predict`` (``quantize_int8``, ``int8_conv``);
 - ``parallel``: the multi-device layer: the mesh (``create_mesh``, the
   ``mesh`` argument of batch_predict / predict_stream), the process group
   of data-parallel train and val (``dist``: one process a card, BN
@@ -59,10 +62,10 @@ from .ckpt import convert_checkpoint
 from .config import Config
 from .tasks import (Classifier, Detector, Obber, PoseDetector, Segmenter,
                     YoloTask)
-from .types import (KeyPoint, ScalarType, TaskType, YoloResult, YoloSize,
-                    YoloType)
+from .types import (AutoAugmentType, ImageProcessType, KeyPoint, ScalarType,
+                    TaskType, YoloResult, YoloSize, YoloType)
 
-__all__ = ["Classifier", "Config", "Detector", "KeyPoint", "Obber",
-           "PoseDetector", "ScalarType", "Segmenter", "TaskType",
-           "YoloResult", "YoloSize", "YoloTask", "YoloType",
-           "convert_checkpoint"]
+__all__ = ["AutoAugmentType", "Classifier", "Config", "Detector",
+           "ImageProcessType", "KeyPoint", "Obber", "PoseDetector",
+           "ScalarType", "Segmenter", "TaskType", "YoloResult", "YoloSize",
+           "YoloTask", "YoloType", "convert_checkpoint"]

@@ -55,15 +55,39 @@
 // (_einsum_attention); the row sums and the output are f32 until o is
 // rounded once.
 //
-// float32: attention_kernel, the flash-style forward on the CUDA cores. A
-// block owns kBQ query rows of one sequence; each row belongs to G = max(1,
-// D / 32) neighbouring threads, each holding a DT-wide slice of q (pre-scaled)
-// and of the float32 output sum in registers. The block walks the keys in
-// tiles of kBK, staged in shared memory as float32 (ragged last tile
-// zero-filled), and folds them into the running max / running sum / output of
-// each row kKC keys at a time (online softmax). The partial dot products of a
-// row's G threads meet by warp shuffles. Query rows and keys past N are
-// masked. TF32 would break the float32 contract (2e-5 + 2e-4 |p|).
+// float32: attention_f32_kernel, the flash-style forward on the CUDA cores
+// (float32 FMAs; TF32 would break the float32 contract, 2e-5 + 2e-4 |p|),
+// so what bounds it is the 67 TFLOP/s float32 pipe: at the 1280^2 canvas
+// the v12s calls (N = 1600, D = 32) are ~95% of phase 2's bound at B = 2.
+// The kernel it replaced (one query row a thread) fed each float4 of K or
+// V read from shared memory into 4 FMAs, so the shared-memory pipe, not the
+// FMA pipe, bound it (0.23 of the bound). Design:
+// - Register micro-tiles on both products. A warp owns a tile of 32 query
+//   rows (16 at D >= 64) in row groups of NX lanes; in S = Q K^T a lane
+//   holds 8 rows x 8 keys (x 4 at D >= 64), so each Q unit it reads feeds 8
+//   keys and each K unit 8 rows (16 FMAs a 16-byte load); P goes through
+//   the warp's own rows of shared memory, and in O += P V a lane holds 8
+//   rows x D / NX columns (~11 FMAs a load at D = 32). The layouts put the
+//   units a shared-memory phase reads in distinct bank groups (K and V rows
+//   XOR-swizzled, Q and P rows padded).
+// - K and V are staged by 16-byte cp.async: the whole sequence once where it
+//   fits beside the warps' Q and P (N = 400 at D = 32: 102 KB), else streamed
+//   through two stages of kcap keys, the next chunk's copy in flight while
+//   the warps use the current one.
+// - The online softmax runs on scores pre-scaled to log2 units (q * scale *
+//   log2(e)), one ex2.approx a score; each lane keeps its share of the row
+//   sums, added over the row group at the end.
+// - Warp tiles are spread over a grid of (sequences, splits) blocks of 8
+//   warps (4 at D >= 64), as the 16-bit kernel's; where a block has fewer
+//   tiles than warps, groups of warps share a tile's key steps and merge
+//   their rows' max, sum and output sums through shared memory. The
+//   wrapper picks splits, kcap and the group (kernels/attention.py
+//   f32_geometry) and this file checks them.
+// On that card (H100 80GB HBM3, 700 W) chip_smoke phase 2's 14 B = 2
+// shapes sum to 0.966 ms against SDPA's 1.660 and the bound's 0.327 (0.34
+// of it), each faster than SDPA; N = 1600 runs at 0.44 of its bound, where
+// the rounds of 32-row warp tiles leave ~22% of the warps idle, and the
+// N <= 400 shapes give an SM a warp or two (PERF.md §6).
 #include <math.h>
 
 #include "common.cuh"
@@ -76,142 +100,331 @@ struct Strides {
   long long b, h, n;  // elements
 };
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- float32: CUDA cores -------------------------------------------------------
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per staged tile
-constexpr int kKC = 16;  // keys per online-softmax step
+constexpr int kF32KT = 64;  // keys a softmax step of the float32 kernel
 
+// The float32 kernel's layout at head dim D: a row group of NX lanes owns 8
+// query rows (rows rg, rg + RG, ..., of its warp tile of WR rows); in
+// S = Q K^T a lane holds its 8 rows x KT keys (keys x, x + NX, ...), in
+// O += P V its 8 rows x DT columns (x DT..). Q (pre-scaled) and P are
+// staged a warp in shared memory, their rows QS and PS floats apart.
 template <int D>
-struct Geom {
-  static constexpr int G = D >= 32 ? D / 32 : 1;  // threads per query row
-  static constexpr int DT = D / G;                // head-dim slice of a thread
-  // A staged key holds its G slices SEG floats apart; the 4-float pad puts the
-  // G slices that one warp reads at once in different banks.
-  static constexpr int SEG = G > 1 ? DT + 4 : DT;
-  static constexpr int ROW = G * SEG;
-  static constexpr int kThreads = kBQ * G;
-  static constexpr int kBytes = 2 * kBK * ROW * 4;
+struct F32Attn {
+  static constexpr int NX = D <= 32 ? 8 : 16;
+  static constexpr int RG = 32 / NX;
+  static constexpr int WR = 8 * RG;
+  static constexpr int KT = kF32KT / NX;
+  static constexpr int DT = D / NX;
+  static constexpr int QS = D + 8;
+  static constexpr int PS = kF32KT + NX;
+  static constexpr int WARP_FLOATS = WR * (QS + PS);
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Geom<D>::kThreads)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int H, int N, Strides sq, Strides sk, Strides sv, Strides so,
-                 float scale) {
-  using Gm = Geom<D>;
-  constexpr int G = Gm::G;
-  constexpr int DT = Gm::DT;
-  constexpr int SEG = Gm::SEG;
-  constexpr int ROW = Gm::ROW;
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [kBK][ROW]
-  float* vs = ks + kBK * ROW;                   // [kBK][ROW]
+// float4 unit c of staged K or V row j: the unit index is XORed with the
+// row's place among the rows that share a 128-byte line, so the 8 rows a
+// shared-memory phase reads at one unit fall in 8 different bank groups.
+template <int D>
+__device__ __forceinline__ int fswz(int j, int c) {
+  constexpr int CH = D / 4;                    // units of a row
+  constexpr int GROUP = CH >= 8 ? 1 : 8 / CH;  // rows of one 128-byte line
+  constexpr int MASK = (CH >= 8 ? 8 : CH) - 1;
+  return j * CH + (c ^ ((j / GROUP) & MASK));
+}
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x - b * H;
-  const int tid = threadIdx.x;
-  const int gi = tid % G;
-  const int row = blockIdx.y * kBQ + tid / G;
-  const bool live = row < N;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  float qr[DT];
-  float acc[DT];
+// One step of the online softmax for a warp tile against keys k0 .. k0 +
+// live of the staged chunk (ks, vs; live <= kF32KT). FULL: live ==
+// kF32KT, with no edge guards. wq, wp: the warp's Q and P.
+template <int D, bool FULL>
+__device__ __forceinline__ void f32_attn_tile(const float* wq, float* wp, const float4* ks,
+                                              const float4* vs, int k0, int live, int rg, int x,
+                                              float (&m)[8], float (&l)[8],
+                                              float (&acc)[8][F32Attn<D>::DT]) {
+  using A = F32Attn<D>;
+  constexpr int KT = A::KT, DT = A::DT, NX = A::NX, RG = A::RG;
+  // S = Q K^T in log2 units: 8 rows x KT keys, each Q unit read once for
+  // KT keys and each K unit for 8 rows
+  int krow[KT];
 #pragma unroll
-  for (int d = 0; d < DT; d += 4) {
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    if (live) load4(q + b * sq.b + h * sq.h + row * sq.n + gi * DT + d, t);
+  for (int j = 0; j < KT; ++j) krow[j] = k0 + (FULL ? x + NX * j : min(x + NX * j, live - 1));
+  float s[8][KT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qr[d + i] = t[i] * scale;
-      acc[d + i] = 0.f;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < KT; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d4 = 0; d4 < D / 4; ++d4) {
+    float4 kv[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) kv[j] = ks[fswz<D>(krow[j], d4)];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 qv = *reinterpret_cast<const float4*>(wq + (rg + RG * i) * A::QS + 4 * d4);
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        float t = fmaf(qv.x, kv[j].x, s[i][j]);
+        t = fmaf(qv.y, kv[j].y, t);
+        t = fmaf(qv.z, kv[j].z, t);
+        s[i][j] = fmaf(qv.w, kv[j].w, t);
+      }
     }
   }
-  float m = -INFINITY;  // running max of the scores
-  float l = 0.f;        // running sum of exp(score - m)
-
-  for (int k0 = 0; k0 < N; k0 += kBK) {
-    const int nk = min(kBK, N - k0);
-    // neighbouring threads read neighbouring 4-element chunks of one key
-    for (int i = tid; i < kBK * (D / 4); i += Gm::kThreads) {
-      const int j = i / (D / 4);
-      const int d = (i - j * (D / 4)) * 4;
-      float tk[4] = {0.f, 0.f, 0.f, 0.f};
-      float tv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (j < nk) {
-        load4(kb + (k0 + j) * sk.n + d, tk);
-        load4(vb + (k0 + j) * sv.n + d, tv);
-      }
-      const int dst = j * ROW + (d / DT) * SEG + d % DT;
-      *reinterpret_cast<float4*>(ks + dst) = make_float4(tk[0], tk[1], tk[2], tk[3]);
-      *reinterpret_cast<float4*>(vs + dst) = make_float4(tv[0], tv[1], tv[2], tv[3]);
+  // the online softmax: new row maxima over the row group's lanes, the
+  // rescale, P = 2^(S - max) to the warp's P rows
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (!FULL && x + NX * j >= live) s[i][j] = -INFINITY;
+      mx = fmaxf(mx, s[i][j]);
     }
-    __syncthreads();
-
-    for (int j0 = 0; j0 < nk; j0 += kKC) {
-      float s[kKC];
-      float mc = m;
 #pragma unroll
-      for (int jj = 0; jj < kKC; ++jj) {
-        const float* kp = ks + (j0 + jj) * ROW + gi * SEG;
-        float dot = 0.f;
+    for (int off = 1; off < NX; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    // mx is finite (key k0 is live); the first step rescales by 0
+    const float mn = fmaxf(m[i], mx), alpha = exp2_approx(m[i] - mn);
+    m[i] = mn;
+    l[i] *= alpha;
 #pragma unroll
-        for (int d = 0; d < DT; d += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(kp + d);
-          dot = fmaf(qr[d], kv.x, dot);
-          dot = fmaf(qr[d + 1], kv.y, dot);
-          dot = fmaf(qr[d + 2], kv.z, dot);
-          dot = fmaf(qr[d + 3], kv.w, dot);
-        }
+    for (int d = 0; d < DT; ++d) acc[i][d] *= alpha;
+    float* pr = wp + (rg + RG * i) * A::PS + x;
 #pragma unroll
-        for (int off = 1; off < G; off <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        s[jj] = j0 + jj < nk ? dot : -INFINITY;
-        mc = fmaxf(mc, s[jj]);
-      }
-      // mc is finite: key j0 < nk is live. The first step has m = -inf, alpha 0.
-      const float alpha = expf(m - mc);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < kKC; ++jj) {
-        const float p = expf(s[jj] - mc);  // 0 for masked keys, whose V rows are 0
-        l += p;
-        const float* vp = vs + (j0 + jj) * ROW + gi * SEG;
-#pragma unroll
-        for (int d = 0; d < DT; d += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(vp + d);
-          acc[d] = fmaf(p, vv.x, acc[d]);
-          acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
-        }
-      }
-      m = mc;
+    for (int j = 0; j < KT; ++j) {
+      const float p = exp2_approx(s[i][j] - mn);
+      l[i] += p;
+      pr[NX * j] = p;
     }
-    __syncthreads();
   }
-
-  if (!live) return;
-  const float inv = 1.f / l;
-  T* op = o + b * so.b + h * so.h + row * so.n + gi * DT;
+  __syncwarp();
+  // O += P V: 4 keys a step, each P unit read once for DT columns and each
+  // V unit for 8 rows; V rows past the sequence are staged as zeros
+  const int kend = FULL ? kF32KT : (live + 3) & ~3;
+#pragma unroll 4
+  for (int kk = 0; kk < kend; kk += 4) {
+    float4 pv[8];
 #pragma unroll
-  for (int d = 0; d < DT; ++d) op[d] = from_f<T>(acc[d] * inv);
+    for (int i = 0; i < 8; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(wp + (rg + RG * i) * A::PS + kk);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int vr = k0 + kk + e;
+      float vv[DT];
+      if constexpr (DT == 2) {
+        const float2 t = reinterpret_cast<const float2*>(vs + fswz<D>(vr, x >> 1))[x & 1];
+        vv[0] = t.x;
+        vv[1] = t.y;
+      } else {
+#pragma unroll
+        for (int c = 0; c < DT / 4; ++c) {
+          const float4 t = vs[fswz<D>(vr, x * (DT / 4) + c)];
+          vv[4 * c] = t.x;
+          vv[4 * c + 1] = t.y;
+          vv[4 * c + 2] = t.z;
+          vv[4 * c + 3] = t.w;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float p = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+        for (int d = 0; d < DT; ++d) acc[i][d] = fmaf(p, vv[d], acc[i][d]);
+      }
+    }
+  }
+  __syncwarp();  // the P rows are read before the next step writes them
+}
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int H, int N, Strides sq,
+                     Strides sk, Strides sv, Strides so, float sl2, int kcap, int ksplit) {
+  using A = F32Attn<D>;
+  constexpr int CH = D / 4;  // float4 units of a row
+  constexpr int DT = A::DT, RG = A::RG, NX = A::NX;
+  extern __shared__ float4 attn_f32_smem[];
+  const int nchunks = (N + kcap - 1) / kcap;
+  const int stages = nchunks > 1 ? 2 : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int rg = lane / NX, x = lane % NX;
+  float* wq = reinterpret_cast<float*>(attn_f32_smem + stages * 2 * kcap * CH) +
+              warp * A::WARP_FLOATS;
+  float* wp = wq + A::WR * A::QS;
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  float* ob = o + b * so.b + h * so.h;
+  // the warps go in groups of ksplit, each group on one warp tile, its
+  // warps on every ksplit-th key step of it (part); the parts' sums meet in
+  // shared memory at the end
+  const int groups = warps / ksplit, group = warp / ksplit, part = warp - group * ksplit;
+  const int wtiles = (N + A::WR - 1) / A::WR;
+  const int split = blockIdx.y, stride = gridDim.y * groups;
+  const int rounds = split < wtiles ? (wtiles - split + stride - 1) / stride : 0;
+
+  // chunk ch of K and V into stage s, rows past N zero up to a multiple of 16
+  auto stage_chunk = [&](int s, int ch) {
+    const int c0 = ch * kcap, nk = min(kcap, N - c0), rows = (nk + 15) & ~15;
+    float4* ks = attn_f32_smem + s * 2 * kcap * CH;
+    float4* vs = ks + kcap * CH;
+    for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
+      const int j = i / CH, c = i - j * CH;
+      const bool ok = j < nk;
+      const long long key = c0 + (ok ? j : 0);
+      const int dst = fswz<D>(j, c);
+      cp_async16(smem_u32(ks + dst), kb + key * sk.n + c * 4, ok);
+      cp_async16(smem_u32(vs + dst), vb + key * sv.n + c * 4, ok);
+    }
+    cp_async_commit();
+  };
+
+  for (int r = 0; r < rounds; ++r) {
+    const int t = split + gridDim.y * (group + groups * r);
+    const bool live = t < wtiles;
+    const int row0 = t * A::WR;
+    if (live) {  // the warp's Q rows, pre-scaled to log2 units; rows past N zero
+      for (int i = lane; i < A::WR * CH; i += 32) {
+        const int j = i / CH, c = i - j * CH;
+        float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row0 + j < N) qv = *reinterpret_cast<const float4*>(qb + (row0 + j) * sq.n + 4 * c);
+        *reinterpret_cast<float4*>(wq + j * A::QS + 4 * c) =
+            make_float4(qv.x * sl2, qv.y * sl2, qv.z * sl2, qv.w * sl2);
+      }
+      __syncwarp();
+    }
+    float m[8], l[8], acc[8][DT];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+#pragma unroll
+      for (int d = 0; d < DT; ++d) acc[i][d] = 0.f;
+    }
+    // a sequence that fits is staged once; a longer one streams through two
+    // stages, chunk ch + 1's copy in flight while chunk ch is used
+    if (nchunks > 1 || r == 0) stage_chunk(0, 0);
+    for (int ch = 0; ch < nchunks; ++ch) {
+      if (nchunks > 1 && ch + 1 < nchunks) stage_chunk((ch + 1) & 1, ch + 1);
+      if (nchunks > 1 && ch + 1 < nchunks)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      __syncthreads();  // the chunk has landed in every thread's view
+      if (live) {
+        const float4* ks = attn_f32_smem + (ch & 1) * 2 * kcap * CH;
+        const float4* vs = ks + kcap * CH;
+        const int nk = min(kcap, N - ch * kcap);
+        // this part's key steps: every ksplit-th of the sequence's (kcap is a
+        // multiple of the step where the sequence streams)
+        const int step0 = ch * kcap / kF32KT;
+        int k0 = ((part - step0) % ksplit + ksplit) % ksplit * kF32KT;
+        for (; k0 + kF32KT <= nk; k0 += ksplit * kF32KT)
+          f32_attn_tile<D, true>(wq, wp, ks, vs, k0, kF32KT, rg, x, m, l, acc);
+        if (k0 < nk) f32_attn_tile<D, false>(wq, wp, ks, vs, k0, nk - k0, rg, x, m, l, acc);
+      }
+      if (nchunks > 1) __syncthreads();  // every warp is done with the stage before its refill
+    }
+    // each row's sum over its row group's lanes
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int off = 1; off < NX; off <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    if (ksplit > 1) {
+      // the parts meet: each writes its rows' max, sum and output sums over
+      // its own Q and P rows (rows of D + 2 floats), and part 0 merges them
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float* pr = wq + (rg + RG * i) * (D + 2);
+#pragma unroll
+          for (int d = 0; d < DT; ++d) pr[x * DT + d] = acc[i][d];
+          if (x == 0) {
+            pr[D] = m[i];
+            pr[D + 1] = l[i];
+          }
+        }
+      }
+      __syncthreads();
+      if (live && part == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int rr = rg + RG * i;
+          float mx = -INFINITY;
+          for (int p = 0; p < ksplit; ++p)
+            mx = fmaxf(mx, wq[p * A::WARP_FLOATS + rr * (D + 2) + D]);
+          float lt = 0.f, sum[DT];
+#pragma unroll
+          for (int d = 0; d < DT; ++d) sum[d] = 0.f;
+          for (int p = 0; p < ksplit; ++p) {
+            const float* pr = wq + p * A::WARP_FLOATS + rr * (D + 2);
+            const float f = exp2_approx(pr[D] - mx);
+            lt = fmaf(pr[D + 1], f, lt);
+#pragma unroll
+            for (int d = 0; d < DT; ++d) sum[d] = fmaf(pr[x * DT + d], f, sum[d]);
+          }
+          l[i] = lt;
+#pragma unroll
+          for (int d = 0; d < DT; ++d) acc[i][d] = sum[d];
+        }
+      }
+      __syncthreads();  // the partials are read before the next round's Q rows
+      if (part != 0) continue;
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = row0 + rg + RG * i;
+      if (row >= N) continue;
+      const float inv = 1.f / l[i];
+      float* op = ob + row * so.n + x * DT;
+      if constexpr (DT == 2) {
+        *reinterpret_cast<float2*>(op) = make_float2(acc[i][0] * inv, acc[i][1] * inv);
+      } else {
+#pragma unroll
+        for (int c = 0; c < DT / 4; ++c)
+          *reinterpret_cast<float4*>(op + 4 * c) =
+              make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv, acc[i][4 * c + 2] * inv,
+                          acc[i][4 * c + 3] * inv);
+      }
+    }
+  }
+}
+
+// Shared bytes of one float32 block (kernels/attention.py f32_smem_bytes):
+// one or two stages of K and V rows of kcap keys, and each warp's Q and P.
+template <int D>
+constexpr int f32_smem_bytes(int kcap, int stages, int warps) {
+  return stages * 2 * kcap * D * 4 + warps * F32Attn<D>::WARP_FLOATS * 4;
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
-                       const Strides* st, float scale, cudaStream_t stream) {
-  using Gm = Geom<D>;
-  auto kernel = attention_kernel<float, D>;
-  cudaError_t err = allow_smem(kernel, Gm::kBytes);
+                       const Strides* st, float scale, int splits, int kcap, int warps,
+                       int ksplit, cudaStream_t stream) {
+  // the geometry comes from kernels/attention.py f32_geometry; checked here
+  const int stages = kcap < N ? 2 : 1;
+  const int bytes = f32_smem_bytes<D>(kcap, stages, warps);
+  const int wtiles = (N + F32Attn<D>::WR - 1) / F32Attn<D>::WR;
+  if (warps < 1 || warps > 8 || splits < 1 || splits > wtiles || kcap < 16 || kcap % 16 != 0 ||
+      (kcap < N && kcap % kF32KT != 0) || kcap >= N + 16 || bytes > 232448 || ksplit < 1 ||
+      warps % ksplit != 0)
+    return cudaErrorInvalidValue;
+  auto kernel = attention_f32_kernel<D>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (N + kBQ - 1) / kBQ);
-  kernel<<<grid, Gm::kThreads, Gm::kBytes, stream>>>(
+  const dim3 grid(B * H, splits);
+  kernel<<<grid, warps * 32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, N, st[0], st[1], st[2], st[3], scale);
+      static_cast<float*>(o), H, N, st[0], st[1], st[2], st[3], scale * kLog2e, kcap, ksplit);
   return cudaGetLastError();
 }
 
@@ -221,13 +434,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 constexpr int kMaxWarps = 8;       // warps per block (4 or 8), each on its own 16-row tiles
 constexpr int kKT = 64;            // keys per online-softmax step
 constexpr int kMaxSmem = 232448;   // shared memory one block may use
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <typename T>
 __device__ __forceinline__ uint32_t ld_u32(const T* p) {
@@ -516,8 +722,12 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
                    const Strides* st, float scale, int dtype, int splits, int kcap, int warps,
-                   float* lse, float* o32, int np, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, B, H, N, st, scale, stream);
+                   int ksplit, float* lse, float* o32, int np, cudaStream_t stream) {
+  if (dtype == 0) {
+    if (lse != nullptr || o32 != nullptr) return cudaErrorInvalidValue;
+    return launch_f32<D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, ksplit, stream);
+  }
+  if (ksplit != 1) return cudaErrorInvalidValue;
   if (dtype == 1) {
     return launch_mma<bf16, D>(q, k, v, o, B, H, N, st, scale, splits, kcap, warps, lse, o32,
                                np, stream);
@@ -533,33 +743,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 
 // Returns the CUDA error of the launch (0 on success). Strides are in elements,
 // (batch, head, row) for each of q, k, v, o. dtype: 0 float32, 1 bfloat16,
-// 2 float16. splits, kcap, warps: the 16-bit kernel's blocks per sequence,
-// staged keys and warps per block (kernels/attention.py launch_geometry);
+// 2 float16. splits, kcap, warps: the blocks per sequence, staged keys and
+// warps per block (kernels/attention.py launch_geometry, f32_geometry);
+// ksplit: the float32 kernel's warps on one warp tile (1 in 16 bits);
 // lse, o32: where non-null (16-bit only), each row's log2-sum-exp (row s *
 // np + i of sequence s = b * H + h) and its float32 output ((s, i, d) of a
-// contiguous (B H, N, D) array); the float32 kernel ignores the six.
+// contiguous (B H, N, D) array).
 extern "C" int ys_attention(const void* q, const void* k, const void* v, void* o, int B, int H,
                             int N, int D, long long qb, long long qh, long long qn, long long kb,
                             long long kh, long long kn, long long vb, long long vh, long long vn,
                             long long ob, long long oh, long long on, float scale, int dtype,
-                            int splits, int kcap, int warps, float* lse, float* o32, int np,
-                            void* stream) {
+                            int splits, int kcap, int warps, int ksplit, float* lse, float* o32,
+                            int np, void* stream) {
   if (B == 0 || H == 0 || N == 0) return 0;
   const Strides st[4] = {{qb, qh, qn}, {kb, kh, kn}, {vb, vh, vn}, {ob, oh, on}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, lse, o32, np,
-                       s);
+      return launch<16>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, ksplit, lse,
+                       o32, np, s);
     case 32:
-      return launch<32>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, lse, o32, np,
-                       s);
+      return launch<32>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, ksplit, lse,
+                       o32, np, s);
     case 64:
-      return launch<64>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, lse, o32, np,
-                       s);
+      return launch<64>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, ksplit, lse,
+                       o32, np, s);
     case 128:
-      return launch<128>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, lse, o32, np,
-                         s);
+      return launch<128>(q, k, v, o, B, H, N, st, scale, dtype, splits, kcap, warps, ksplit, lse,
+                         o32, np, s);
     default: return cudaErrorInvalidValue;
   }
 }

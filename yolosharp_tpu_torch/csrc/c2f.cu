@@ -50,257 +50,575 @@
 // grid barriers; 128-wide N tiles take one m64 subtile a warpgroup (two
 // would hold 128 accumulators a thread, which spill).
 //
-// float32 (c2f_f32_kernel): the CUDA-core kernel. A block owns a TT x TT
-// tile of output pixels of one image. Two chained 3x3 convolutions need a
-// 2-pixel halo, so the block computes bh on the (TT+4)^2 window, t on the
-// (TT+2)^2 window and a, z and y on the tile, all in shared memory: only y
-// goes back to device memory. bh and t are zeroed outside the image after
-// their SiLU (silu(bias) != 0 there), which is the zero padding the plain
-// convolutions see. The footprint (float32 intermediates) grows with c, so
-// the tile is 8 for c <= 64 and 4 above; the input is staged in chunks of 32
-// channels. Each thread computes 4-pixel x 4-channel micro-tiles; weights
-// are read from device memory through the caches.
+// float32 (c2f_f32_kernel): the same four GEMMs in order over the whole
+// batch in one cooperative launch, each ending at a grid barrier, with y1,
+// t and z in the wrapper's scratch buffer, so no block recomputes a halo
+// (the kernel this one replaced computed cv1 on (T+4)^2 and the first 3x3
+// on (T+2)^2 pixels for a T x T tile: 4x and 2.25x the products at c = 256)
+// and its shared memory no longer grows with c. Float32 FMAs on the CUDA
+// cores (TF32 in any form would break the float32 contract), so what
+// bounds it is the 67 TFLOP/s float32 pipe. Each GEMM is tiled as
+// conv3x3.cu's conv_f32_kernel is (the register tile of f32_tile.cuh): a
+// block of 256 threads, one an SM, owns TM = 16384 / TN flat rows x TN
+// output channels (TN 32 to 256; the 1x1s' TN is a template argument, as
+// a runtime choice among their bodies slowed every body of the kernel), a
+// thread an 8-row x 8-channel tile, input read as float4 units of 4
+// channels of a pixel and weights as two float4.
+// - 1x1 (cv1, cv2 over [y1 | z]): the rows are pixels of the flat batch; a
+//   thread's 8 rows are NS (= 256 / (TN / 8)) apart, so the threads of a
+//   shared-memory phase read neighbouring units.
+// - 3x3 (t, z): the 16-bit route's flat-row band: a tile is R output rows x
+//   Wt columns of one image; its input is the padded band of rows of P =
+//   Wt + 2 pixels, so output (i, j) is flat row m = i P + j and tap (dy, dx)
+//   reads row m + dy P + dx; a thread's 8 consecutive rows read 10 units a
+//   kernel row for its three taps. Rows with j >= Wt or m >= R P are junk,
+//   computed and never stored. The padding is the zero fill of the copies
+//   that fall outside the image. A pad unit after every 8 staged units puts
+//   the strips that share a shared-memory phase in different banks.
+// - The K chunks (32 channels for the 1x1s, 8 channels x 9 taps for the
+//   3x3s) come through a two-stage ring of 16-byte cp.async copies, one
+//   sequence across a block's items, neighbouring threads copying
+//   neighbouring units of a pixel. Each chunk's copies are issued a part
+//   at a time between the products of the chunk before: issued at once,
+//   their issue held the threads for 1-3 us a chunk while no thread
+//   computed.
+// - Where the tiles alone leave SMs idle (v8s layer 8 at B = 2: 800 pixels)
+//   the K sum of a tile is split over blocks: each writes its partial sums
+//   to the scratch buffer and, after a grid barrier, the whole grid adds
+//   them in split order with the GEMM's epilogue: no atomics, so a result is
+//   the same bits from run to run.
+// - The epilogue loads its biases and z's residuals before its first store
+//   and takes the SiLU on the special function unit (silu_fast).
+// The plan (each GEMM's TN and split, the 3x3 tile) comes from the wrapper
+// (kernels/c2f.py f32_c2f_plan, a cost model whose clocks chip_c2f_plans.py
+// --f32 fits on the card). What bounds it (H100 80GB HBM3, 700 W, B = 2;
+// per-step %globaltimer stamps): the products run at ~0.73 of the FMA
+// peak inside a chunk; around them each GEMM pays a grid barrier (~2 us),
+// its first copy and its rounds of items over 132 SMs, which the small
+// maps (v8s-cls's 7 x 7 and 56 x 56) cannot fill. On that card chip_smoke
+// phase 2's four B = 2 shapes sum to 0.410 ms against the plain chain's
+// 0.786 and the bound's 0.098 (0.24 of it), the classify b32 shapes to
+// 0.531 against 0.790 (PERF.md §6). Float32 throughout; the epilogues
+// compute what the plain chain stores (round_t of float32 is the
+// identity).
 #include <algorithm>
 #include <cstring>
 
 #include "common.cuh"
+#include "f32_tile.cuh"
 
 using namespace ys;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kKC = 32;  // input channels staged per chunk
+// The block's four GEMMs, in the order the launch runs them.
+enum Gemm : int { kCv1 = 0, kT = 1, kZ = 2, kCv2 = 3, kGemms = 4 };
 
-template <int TT>
-struct Geom {
-  static constexpr int E2 = TT + 4, E1 = TT + 2;
-  static constexpr int R2 = E2 * E2, R1 = E1 * E1, R0 = TT * TT;
-  static int floats(int c) { return R2 * kKC + c * (R2 + R1 + 2 * R0); }
+// Every block of the grid has arrived: the global stores each thread made
+// before are visible to every block's loads (TMA included) after. bar[0]
+// counts the arrivals (an acquire-release add, after the block's barrier)
+// and is reset by the last one, which then moves bar[1], the generation,
+// on with a release; the others spin on acquire loads of it. So the
+// barrier needs no reset between launches, and no full fence (one took
+// ~3% more of the float32 launch at B = 2). The launch is cooperative, so
+// every block is resident; a wait of more than ~10 s traps all the same
+// instead of hanging the card. THREADS: the block's threads (named
+// barrier 1).
+constexpr int kBlockBarrier = 1;  // the named barrier of all threads
+
+template <int THREADS>
+__device__ __forceinline__ void sync_grid(unsigned* bar) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kBlockBarrier), "n"(THREADS) : "memory");
+  if (threadIdx.x == 0) {
+    unsigned g0, arrived, g;
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(g0) : "l"(bar + 1) : "memory");
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
+                 : "=r"(arrived)
+                 : "l"(bar)
+                 : "memory");
+    if (arrived == gridDim.x - 1) {
+      asm volatile("st.relaxed.gpu.global.u32 [%0], 0;" ::"l"(bar) : "memory");
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar + 1) : "memory");
+    } else {
+      const long long start = clock64();
+      for (int n = 0;; ++n) {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(g) : "l"(bar + 1) : "memory");
+        if (g != g0) break;
+        if ((n & 1023) == 1023 && clock64() - start > 20000000000LL) __trap();
+      }
+    }
+  }
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kBlockBarrier), "n"(THREADS) : "memory");
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Launches one cooperative kernel of `grid` blocks (every block resident:
+// the grid barriers wait for all of them).
+template <typename K, typename... Args>
+cudaError_t launch_cooperative(K kernel, int grid, int threads, int smem, cudaStream_t stream,
+                               Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- float32
+
+constexpr int kF32Threads = 256;
+constexpr int kF32Rows = 16384;  // a tile's flat rows x its channels (256 threads x 8 x 8)
+constexpr int kF32Ck1 = 32;      // input channels a K chunk of the 1x1 GEMMs
+constexpr int kF32Ck3 = 8;       // ... of the 3x3 GEMMs (each with its nine taps)
+
+// One GEMM of the float32 launch and its tiles.
+struct F32Gemm {
+  int tn;           // output channels a tile; the tile has kF32Rows / tn flat rows
+  int splits;       // blocks the K sum of a tile is split over
+  int R, Wt, P;     // 3x3: output rows and columns of a tile, P = Wt + 2 (1x1: 0)
+  int nwt, nbands;  // 3x3: column tiles and row bands of an image
+  int mtiles, ntiles, nchunks;
 };
 
-template <typename T, int TT>
-__global__ void __launch_bounds__(kThreads)
-c2f_f32_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-               const T* __restrict__ wm1, const T* __restrict__ bm1, const T* __restrict__ wm2,
-               const T* __restrict__ bm2, const T* __restrict__ w2, const T* __restrict__ b2,
-               T* __restrict__ y, int H, int W, int Cin, int c, int C2) {
-  using G = Geom<TT>;
-  constexpr int E2 = G::E2, E1 = G::E1, R2 = G::R2, R1 = G::R1, R0 = G::R0;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [R2][kKC] input chunk
-  float* bh = xs + R2 * kKC;                    // [R2][c]
-  float* ts = bh + R2 * c;                      // [R1][c]
-  float* as = ts + R1 * c;                      // [R0][c]
-  float* zs = as + R0 * c;                      // [R0][c]
+struct F32Args {
+  const float *x, *w1, *b1, *wm1, *bm1, *wm2, *bm2, *w2, *b2;
+  float *y, *y1, *t, *z, *part;  // y1, t, z and the split sums: the wrapper's scratch
+  unsigned* bar;                 // the grid barrier: arrivals, generation
+  int B, H, W, Cin, c, C2, npix;
+  F32Gemm g[kGemms];
+};
 
-  const int tiles_w = (W + TT - 1) / TT;
-  const int h0 = (blockIdx.x / tiles_w) * TT;
-  const int w0 = (blockIdx.x % tiles_w) * TT;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int G4 = c / 4;          // channel groups of 4
-  const int c2x = 2 * c;
-  const T* xb = x + (size_t)b * H * W * Cin;
+// The operands of GEMM gi: A's channels [0, ksplit) from a0 (rows of lda0
+// elements), the rest from a1 (cv2 reads [y1 | z]); the weights (K, N) or
+// (3, 3, K, N); the output rows of ldo elements; z's residual bh.
+struct F32Op {
+  const float* a0;
+  int lda0, ksplit;
+  const float* a1;
+  int lda1, K, N;
+  const float *w, *bias;
+  float* out;
+  int ldo;
+  const float* res;  // rows of 2c elements
+};
 
-  // ---- cv1: bh on the (TT+4)^2 window, a on the tile; sums kept in smem
-  const int n_bh = (R2 / 4) * G4;
-  const int n_a = (R0 / 4) * G4;
-  for (int ci0 = 0; ci0 < Cin; ci0 += kKC) {
-    for (int i = tid; i < R2 * kKC; i += kThreads) {
-      const int k = i % kKC;
-      const int p = i / kKC;
-      const int hi = h0 - 2 + p / E2;
-      const int wi = w0 - 2 + p % E2;
-      const int ci = ci0 + k;
-      float v = 0.f;
-      if (hi >= 0 && hi < H && wi >= 0 && wi < W && ci < Cin)
-        v = to_f(xb[((size_t)hi * W + wi) * Cin + ci]);
-      xs[i] = v;
-    }
-    __syncthreads();
-    const int kn = min(kKC, Cin - ci0);
-    for (int item = tid; item < n_bh + n_a; item += kThreads) {
-      const bool is_a = item >= n_bh;
-      const int it = is_a ? item - n_bh : item;
-      const int pg = it / G4;
-      const int g = it % G4;
-      int src[4];
-      float* dst[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = pg * 4 + i;
-        src[i] = is_a ? ((p / TT + 2) * E2 + p % TT + 2) : p;
-        dst[i] = (is_a ? as : bh) + p * c + g * 4;
-      }
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = ci0 == 0 ? 0.f : dst[i][j];
-      const T* wp = w1 + (size_t)ci0 * c2x + (is_a ? 0 : c) + g * 4;
-      for (int k = 0; k < kn; ++k) {
-        float wv[4];
-        load4(wp + (size_t)k * c2x, wv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = xs[src[i] * kKC + k];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, wv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dst[i][j] = acc[i][j];
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < R2 * c; i += kThreads) {
-    const int p = i / c;
-    const int n = i % c;
-    const int hi = h0 - 2 + p / E2;
-    const int wi = w0 - 2 + p % E2;
-    const bool inside = hi >= 0 && hi < H && wi >= 0 && wi < W;
-    bh[i] = inside ? round_t<T>(silu(bh[i] + to_f(b1[c + n]))) : 0.f;
-  }
-  for (int i = tid; i < R0 * c; i += kThreads)
-    as[i] = round_t<T>(silu(as[i] + to_f(b1[i % c])));
-  __syncthreads();
-
-  // ---- bottleneck cv1: t on the (TT+2)^2 window
-  for (int item = tid; item < (R1 / 4) * G4; item += kThreads) {
-    const int pg = item / G4;
-    const int g = item % G4;
-    int base[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = pg * 4 + i;
-      base[i] = (p / E1) * E2 + p % E1;  // tap (0, 0) in the bh window
-    }
-    float acc[4][4] = {};
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = (tap / 3) * E2 + tap % 3;
-      const T* wp = wm1 + (size_t)tap * c * c + g * 4;
-      for (int k = 0; k < c; ++k) {
-        float wv[4];
-        load4(wp + (size_t)k * c, wv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = bh[(base[i] + off) * c + k];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, wv[j], acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = pg * 4 + i;
-      const int hi = h0 - 1 + p / E1;
-      const int wi = w0 - 1 + p % E1;
-      const bool inside = hi >= 0 && hi < H && wi >= 0 && wi < W;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = g * 4 + j;
-        ts[p * c + n] = inside ? round_t<T>(silu(acc[i][j] + to_f(bm1[n]))) : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- bottleneck cv2 + residual: z on the tile
-  for (int item = tid; item < (R0 / 4) * G4; item += kThreads) {
-    const int pg = item / G4;
-    const int g = item % G4;
-    int base[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = pg * 4 + i;
-      base[i] = (p / TT) * E1 + p % TT;  // tap (0, 0) in the t window
-    }
-    float acc[4][4] = {};
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = (tap / 3) * E1 + tap % 3;
-      const T* wp = wm2 + (size_t)tap * c * c + g * 4;
-      for (int k = 0; k < c; ++k) {
-        float wv[4];
-        load4(wp + (size_t)k * c, wv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = ts[(base[i] + off) * c + k];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, wv[j], acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = pg * 4 + i;
-      const int center = ((p / TT + 2) * E2 + p % TT + 2) * c;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = g * 4 + j;
-        const float u = round_t<T>(silu(acc[i][j] + to_f(bm2[n])));
-        zs[p * c + n] = round_t<T>(bh[center + n] + u);
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- cv2 over the concat [a, bh, z]: the block output
-  const int G2 = C2 / 4;
-  for (int item = tid; item < (R0 / 4) * G2; item += kThreads) {
-    const int pg = item / G2;
-    const int g = item % G2;
-    const float* srcs[3][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = pg * 4 + i;
-      srcs[0][i] = as + p * c;
-      srcs[1][i] = bh + ((p / TT + 2) * E2 + p % TT + 2) * c;
-      srcs[2][i] = zs + p * c;
-    }
-    float acc[4][4] = {};
-#pragma unroll
-    for (int part = 0; part < 3; ++part) {
-      const T* wp = w2 + (size_t)part * c * C2 + g * 4;
-      for (int k = 0; k < c; ++k) {
-        float wv[4];
-        load4(wp + (size_t)k * C2, wv);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = srcs[part][i][k];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, wv[j], acc[i][j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = pg * 4 + i;
-      const int ho = h0 + p / TT;
-      const int wo = w0 + p % TT;
-      if (ho >= H || wo >= W) continue;
-      T* yp = y + (((size_t)b * H + ho) * W + wo) * C2 + g * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) yp[j] = from_f<T>(silu(acc[i][j] + to_f(b2[g * 4 + j])));
-    }
+__device__ __forceinline__ F32Op f32_op(const F32Args& a, int gi) {
+  const int c = a.c;
+  switch (gi) {
+    case kCv1:
+      return {a.x, a.Cin, a.Cin, a.x, a.Cin, a.Cin, 2 * c, a.w1, a.b1, a.y1, 2 * c, nullptr};
+    case kT: return {a.y1 + c, 2 * c, c, a.y1 + c, 2 * c, c, c, a.wm1, a.bm1, a.t, c, nullptr};
+    case kZ: return {a.t, c, c, a.t, c, c, c, a.wm2, a.bm2, a.z, c, a.y1 + c};
+    default: return {a.y1, 2 * c, 2 * c, a.z, c, 3 * c, a.C2, a.w2, a.b2, a.y, a.C2, nullptr};
   }
 }
 
+// The output of 4 channels from their float32 sums s and biases bv:
+// silu(s + bv). The SiLU on the special function unit (a few float32 ulp,
+// well inside the 1e-4 + 1e-4 |p| the kernel is held to): the precise
+// one's division took about a fifth of the launch at v8s layer 2.
+__device__ __forceinline__ float4 f32_act(const float4& s, const float4& bv) {
+  return make_float4(silu_fast(s.x + bv.x), silu_fast(s.y + bv.y), silu_fast(s.z + bv.z),
+                     silu_fast(s.w + bv.w));
+}
 
-template <int TT>
-cudaError_t launch_f32(const void* const* p, void* y, int B, int H, int W, int Cin, int c,
-                       int C2, cudaStream_t stream) {
-  const int bytes = Geom<TT>::floats(c) * 4;
-  auto kernel = c2f_f32_kernel<float, TT>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(((H + TT - 1) / TT) * ((W + TT - 1) / TT), B);
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// a staged unit of the 3x3 band: one pad unit after every 8
+__device__ __forceinline__ int band_unit(int r) { return r + (r >> 3); }
+
+// A units of one group of 4 channels in a stage (host: f32_stage_units):
+// 1x1, the tile's TM pixels and a pad unit, so that the 8 groups of a pixel
+// that neighbouring threads copy fall in different bank groups; 3x3, the
+// padded band (TM + 2P + 2 pixels and a pad unit every 8), rounded to 4
+// units past a multiple of 8 for the same reason between its 2 groups.
+__host__ __device__ __forceinline__ int f32_a_units(int taps, int tm, int P) {
+  if (taps == 1) return tm + 1;
+  const int n = tm + 2 * P + 2;
+  return ((n + (n >> 3) + 1 + 7) & ~7) + 4;
+}
+
+// One (tile, split) item of a GEMM: its first output channel, split, first
+// pixel (1x1) or image and band origin (3x3), and its K chunks.
+struct F32Item {
+  int n0, split, p0, b, h0, w0, cbeg, cend;
+};
+
+// This block's items of one GEMM (TAPS 1: 1x1, 9: 3x3) at TN channels a
+// tile, each a run of K chunks through the two-stage ring, then its
+// epilogue or (splits > 1) its raw partial sums. The block's chunks are one
+// sequence across its items, so the next item's first chunk is copied
+// while this item's last chunk is used.
+template <int TAPS, int TN>
+__device__ void f32_gemm(const F32Args& a, const F32Gemm q, const F32Op& o, float4* smem) {
+  constexpr int NG = TN / 8, NS = kF32Threads / NG, TM = 8 * NS;
+  constexpr int CK = TAPS == 1 ? kF32Ck1 : kF32Ck3;
+  constexpr int WU = CK * TAPS * TN / 4;  // weight units a stage
+  const int units = f32_a_units(TAPS, TM, q.P);
+  const int stage_units = CK / 4 * units + WU;
+  const int tid = threadIdx.x, cg = tid % NG, strip = tid / NG;
+  const int items = q.mtiles * q.ntiles * q.splits;
+  const int per = (q.nchunks + q.splits - 1) / q.splits;
+  auto item_of = [&](int item) {
+    // the N tile fastest: blocks working at once share their A tile in L2
+    F32Item it;
+    it.n0 = (item % q.ntiles) * TN;
+    item /= q.ntiles;
+    it.split = item % q.splits;
+    const int mt = item / q.splits;
+    it.p0 = it.b = it.h0 = it.w0 = 0;
+    if constexpr (TAPS == 1) {
+      it.p0 = mt * TM;
+    } else {
+      it.w0 = (mt % q.nwt) * q.Wt;
+      const int r = mt / q.nwt;
+      it.h0 = (r % q.nbands) * q.R;
+      it.b = r / q.nbands;
+    }
+    it.cbeg = it.split * per;
+    it.cend = min(q.nchunks, it.cbeg + per);
+    return it;
+  };
+
+  // part `part` of `parts` of chunk ch of item it into stage s:
+  // neighbouring threads copy neighbouring 16-byte units of one pixel's
+  // channels, then of the next pixel's
+  auto load = [&](int s, const F32Item& it, int ch, int part, int parts) {
+    const int u0 = tid + part * kF32Threads, du = kF32Threads * parts;
+    float4* xs = smem + s * stage_units;
+    float4* ws = xs + CK / 4 * units;
+    const int k0 = ch * CK;
+    if constexpr (TAPS == 1) {
+      const bool second = k0 >= o.ksplit;
+      const float* src = second ? o.a1 : o.a0;
+      const int lda = second ? o.lda1 : o.lda0, kc = second ? k0 - o.ksplit : k0;
+      for (int u = u0; u < CK / 4 * TM; u += du) {
+        const int g4 = u % (CK / 4), r = u / (CK / 4);
+        const long long p = (long long)it.p0 + r;
+        const bool ok = p < a.npix && k0 + 4 * g4 < o.K;
+        cp_async16(smem_u32(xs + g4 * units + r), ok ? src + p * lda + kc + 4 * g4 : src, ok);
+      }
+    } else {
+      const int n = TM + 2 * q.P + 2;
+      for (int u = u0; u < CK / 4 * n; u += du) {
+        const int g4 = u % (CK / 4), r = u / (CK / 4);
+        const int row = r / q.P, col = r - row * q.P;
+        const int hi = it.h0 - 1 + row, wi = it.w0 - 1 + col;
+        const bool ok = hi >= 0 && hi < a.H && wi >= 0 && wi < a.W;
+        const long long p = ((long long)it.b * a.H + hi) * a.W + wi;
+        cp_async16(smem_u32(xs + g4 * units + band_unit(r)),
+                   ok ? o.a0 + p * o.lda0 + k0 + 4 * g4 : o.a0, ok);
+      }
+    }
+    for (int u = u0; u < WU; u += du) {
+      const int n4 = u % (TN / 4), kt = u / (TN / 4);  // kt = channel (x 9 + tap)
+      const int n = it.n0 + 4 * n4;
+      const float* src;
+      bool ok;
+      if constexpr (TAPS == 1) {
+        const int k = k0 + kt;
+        ok = k < o.K && n < o.N;
+        src = o.w + (long long)k * o.N + n;
+      } else {
+        const int cc = kt / 9, tap = kt - cc * 9;
+        ok = n < o.N;
+        src = o.w + ((long long)tap * o.K + k0 + cc) * o.N + n;
+      }
+      cp_async16(smem_u32(ws + u), ok ? src : o.w, ok);
+    }
+  };
+
+  // the item's sums: the epilogue, or its split's raw partial sums. The
+  // biases and z's residuals are loaded before the first store: a store
+  // may alias them, so a load after it would wait for it
+  auto store = [&](const F32Item& it, const float (&acc)[8][8]) {
+    long long pix[8];
+    bool ok[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if constexpr (TAPS == 1) {
+        pix[i] = (long long)it.p0 + strip + NS * i;
+        ok[i] = pix[i] < a.npix;
+      } else {
+        const int m = 8 * strip + i, ti = m / q.P, tj = m - ti * q.P;
+        ok[i] = ti < q.R && tj < q.Wt && it.h0 + ti < a.H && it.w0 + tj < a.W;
+        pix[i] = ((long long)it.b * a.H + it.h0 + ti) * a.W + it.w0 + tj;
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int n = it.n0 + TN / 2 * hf + 4 * cg;
+      if (n >= o.N) continue;
+      float4 bv = make_float4(0.f, 0.f, 0.f, 0.f), rv[8];
+      if (q.splits == 1) {
+        bv = *reinterpret_cast<const float4*>(o.bias + n);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          rv[i] = o.res && ok[i]
+                      ? __ldcg(reinterpret_cast<const float4*>(o.res + pix[i] * (2 * o.N) + n))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (!ok[i]) continue;
+        const float4 s = make_float4(acc[i][4 * hf], acc[i][4 * hf + 1], acc[i][4 * hf + 2],
+                                     acc[i][4 * hf + 3]);
+        if (q.splits > 1)  // raw partial sums, added in order by f32_split_sum
+          __stcg(reinterpret_cast<float4*>(a.part + ((long long)it.split * a.npix + pix[i]) * o.N +
+                                           n),
+                 s);
+        else  // z: bh + silu(.), the plain chain's order
+          *reinterpret_cast<float4*>(o.out + pix[i] * o.ldo + n) =
+              o.res ? add4(rv[i], f32_act(s, bv)) : f32_act(s, bv);
+      }
+    }
+  };
+
+  int item = blockIdx.x;
+  if (item >= items) return;
+  F32Item cur = item_of(item);
+  int ch = cur.cbeg, stage = 0;
+  load(0, cur, ch, 0, 1);
+  cp_async_commit();
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  while (true) {
+    // the block's next chunk: this item's next, else its next item's first
+    F32Item nxt = cur;
+    int nitem = item, nch = ch + 1;
+    if (nch >= cur.cend) {
+      nitem = item + gridDim.x;
+      if (nitem < items) {
+        nxt = item_of(nitem);
+        nch = nxt.cbeg;
+      }
+    }
+    const bool more = nitem < items;
+    cp_async_wait<0>();
+    // chunk ch has landed in every thread's view, and every thread is done
+    // with the other stage, which the products below refill
+    __syncthreads();
+    const float4* xs = smem + stage * stage_units;
+    const float4* ws = xs + CK / 4 * units;
+    // the next chunk's copies are issued a part at a time between the
+    // products: issued at once, they stall their threads (each SM keeps
+    // only so many copies in flight) while no thread computes
+    if constexpr (TAPS == 1) {
+#pragma unroll 1
+      for (int g2 = 0; g2 < CK / 8; ++g2) {
+        if (more) load(stage ^ 1, nxt, nch, g2, CK / 8);
+#pragma unroll
+        for (int g4 = 2 * g2; g4 < 2 * g2 + 2; ++g4) {
+          float4 px[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) px[i] = xs[g4 * units + strip + NS * i];
+          fma_group<TN / 4, NG>(acc, px, ws + 4 * g4 * (TN / 4) + cg);
+        }
+      }
+    } else {
+      // one (channel group, kernel row) an iteration, as conv_f32_kernel
+#pragma unroll 1
+      for (int g4 = 0; g4 < CK / 4; ++g4) {
+#pragma unroll 1
+        for (int kh = 0; kh < 3; ++kh) {
+          if (more) load(stage ^ 1, nxt, nch, g4 * 3 + kh, CK / 4 * 3);
+          const float4* row = xs + g4 * units;
+          const int r0 = 8 * strip + kh * q.P;
+          float4 a10[10];
+#pragma unroll
+          for (int i = 0; i < 10; ++i) a10[i] = row[band_unit(r0 + i)];
+          const float4* wk = ws + (g4 * 4 * 9 + kh * 3) * (TN / 4) + cg;
+#pragma unroll
+          for (int kw = 0; kw < 3; ++kw) {
+            float4 px[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) px[i] = a10[i + kw];
+            fma_group<9 * (TN / 4), NG>(acc, px, wk + kw * (TN / 4));
+          }
+        }
+      }
+    }
+    cp_async_commit();
+    if (ch + 1 >= cur.cend) {
+      store(cur, acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    if (!more) break;
+    cur = nxt;
+    item = nitem;
+    ch = nch;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+}
+
+// The split sums of one GEMM, over the whole grid: out = epilogue(part[0] +
+// part[1] + ...), the splits in order.
+__device__ void f32_split_sum(const F32Args& a, const F32Gemm q, const F32Op& o) {
+  // 32-bit offsets: the launch admits splits x B H W x N below 2^31
+  const int n4 = o.N / 4, total = a.npix * n4, plane = a.npix * o.N;
+  for (int i = blockIdx.x * kF32Threads + threadIdx.x; i < total; i += gridDim.x * kF32Threads) {
+    const int pix = i / n4, n = (i - pix * n4) * 4;
+    const float* pp = a.part + pix * o.N + n;
+    float4 s = __ldcg(reinterpret_cast<const float4*>(pp));
+#pragma unroll 4
+    for (int k = 1; k < q.splits; ++k) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(pp + k * plane));
+      s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+    }
+    const float4 v = f32_act(s, *reinterpret_cast<const float4*>(o.bias + n));
+    const float* res = o.res + (long long)pix * (2 * o.N) + n;
+    *reinterpret_cast<float4*>(o.out + (long long)pix * o.ldo + n) =
+        o.res ? add4(__ldcg(reinterpret_cast<const float4*>(res)), v) : v;
+  }
+}
+
+// TN1: the 1x1 GEMMs' tile width, a template argument (one 1x1 body a
+// kernel: with a runtime choice among three the launch at v8s layer 2 was
+// ~10% slower)
+template <int TN1>
+__global__ void __launch_bounds__(kF32Threads, 1)
+c2f_f32_kernel(const __grid_constant__ F32Args a) {
+  extern __shared__ float4 f32_smem[];
+  for (int gi = 0; gi < kGemms; ++gi) {
+    const F32Gemm q = a.g[gi];  // in registers: an indexed constant load would repeat in the loops
+    const F32Op o = f32_op(a, gi);
+    if (gi == kT || gi == kZ) {
+      switch (q.tn) {
+        case 32: f32_gemm<9, 32>(a, q, o, f32_smem); break;
+        case 64: f32_gemm<9, 64>(a, q, o, f32_smem); break;
+        case 128: f32_gemm<9, 128>(a, q, o, f32_smem); break;
+        default: f32_gemm<9, 256>(a, q, o, f32_smem);
+      }
+    } else {
+      f32_gemm<1, TN1>(a, q, o, f32_smem);
+    }
+    if (q.splits > 1) {
+      sync_grid<kF32Threads>(a.bar);
+      f32_split_sum(a, q, o);
+    }
+    if (gi + 1 < kGemms) sync_grid<kF32Threads>(a.bar);
+  }
+}
+
+// One stage of a float32 GEMM's ring in float4 units: its A units and
+// weights (kernels/c2f.py f32_stage_bytes mirrors it).
+int f32_stage_units(int taps, int tn, int P) {
+  const int tm = kF32Rows / tn, ck = taps == 1 ? kF32Ck1 : kF32Ck3;
+  return ck / 4 * f32_a_units(taps, tm, P) + ck * taps * tn / 4;
+}
+
+// plan: the wrapper's (kernels/c2f.py C2fF32Plan.ints): cv1's TN and split,
+// the 3x3s' TN, rows, columns and split, cv2's TN (cv1's) and split;
+// checked here.
+// scratch: B H W 4c floats for y1, t and z, then the split sums.
+cudaError_t launch_f32(const void* const* p, void* y, void* scratch, long long scratch_elems,
+                       void* bar, int B, int H, int W, int Cin, int c, int C2, const int* plan,
+                       cudaStream_t stream) {
+  if (!scratch || !bar || (Cin & 3) || (c & 15) || (C2 & 3)) return cudaErrorInvalidValue;
+  const long long npix = (long long)B * H * W;
+  if (npix > INT32_MAX / 4) return cudaErrorInvalidValue;
+  F32Args a;
   const float* const* f = reinterpret_cast<const float* const*>(p);
-  kernel<<<grid, kThreads, bytes, stream>>>(f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8],
-                                            static_cast<float*>(y), H, W, Cin, c, C2);
-  return cudaGetLastError();
+  a.x = f[0];
+  a.w1 = f[1];
+  a.b1 = f[2];
+  a.wm1 = f[3];
+  a.bm1 = f[4];
+  a.wm2 = f[5];
+  a.bm2 = f[6];
+  a.w2 = f[7];
+  a.b2 = f[8];
+  float* s = static_cast<float*>(scratch);
+  a.y = static_cast<float*>(y);
+  a.y1 = s;
+  a.t = s + npix * 2 * c;
+  a.z = s + npix * 3 * c;
+  a.part = s + npix * 4 * c;
+  a.bar = static_cast<unsigned*>(bar);
+  a.B = B;
+  a.H = H;
+  a.W = W;
+  a.Cin = Cin;
+  a.c = c;
+  a.C2 = C2;
+  a.npix = (int)npix;
+  auto cdiv = [](long long x, long long d) { return (int)((x + d - 1) / d); };
+  auto pow2 = [](int v, int lo) { return v >= lo && v <= 256 && (v & (v - 1)) == 0; };
+  bool ok = true;
+  auto one = [&](F32Gemm& g, int tn, int splits, int N, int K) {
+    ok = ok && pow2(tn, 64);
+    g.tn = ok ? tn : 64;
+    g.splits = splits;
+    g.R = g.Wt = g.P = g.nwt = g.nbands = 0;
+    g.mtiles = cdiv(npix, kF32Rows / g.tn);
+    g.ntiles = cdiv(N, g.tn);
+    g.nchunks = cdiv(K, kF32Ck1);
+  };
+  auto three = [&](F32Gemm& g, int tn, int R, int Wt, int splits) {
+    ok = ok && pow2(tn, 32) && R >= 1 && Wt >= 1 && (long long)R * (Wt + 2) <= kF32Rows / tn;
+    g.tn = ok ? tn : 32;
+    g.splits = splits;
+    g.R = R;
+    g.Wt = Wt;
+    g.P = Wt + 2;
+    g.nwt = cdiv(W, Wt);
+    g.nbands = cdiv(H, R);
+    g.mtiles = B * g.nbands * g.nwt;
+    g.ntiles = cdiv(c, g.tn);
+    g.nchunks = c / kF32Ck3;
+  };
+  one(a.g[kCv1], plan[0], plan[1], 2 * c, Cin);
+  three(a.g[kT], plan[2], plan[3], plan[4], plan[5]);
+  a.g[kZ] = a.g[kT];
+  one(a.g[kCv2], plan[6], plan[7], C2, 3 * c);
+  if (!ok) return cudaErrorInvalidValue;
+  const int Ns[kGemms] = {2 * c, c, c, C2};
+  long long need = npix * 4 * c;
+  int units = 0, items = 0;
+  for (int gi = 0; gi < kGemms; ++gi) {
+    const F32Gemm& g = a.g[gi];
+    const int per = (g.nchunks + g.splits - 1) / std::max(g.splits, 1);
+    if (g.splits < 1 || g.splits > g.nchunks || (g.splits - 1) * per >= g.nchunks)
+      return cudaErrorInvalidValue;  // no split without chunks
+    if (g.splits > 1 && npix * Ns[gi] * g.splits >= INT32_MAX) return cudaErrorInvalidValue;
+    if (g.splits > 1) need = std::max(need, npix * 4 * c + g.splits * npix * Ns[gi]);
+    units = std::max(units, f32_stage_units(gi == kT || gi == kZ ? 9 : 1, g.tn, g.P));
+    items = std::max(items, g.mtiles * g.ntiles * g.splits);
+  }
+  const int smem = 2 * units * 16;
+  if (need > scratch_elems || smem > 232448 || a.g[kCv1].tn != a.g[kCv2].tn)
+    return cudaErrorInvalidValue;
+  auto kernel = a.g[kCv1].tn == 64    ? c2f_f32_kernel<64>
+                : a.g[kCv1].tn == 128 ? c2f_f32_kernel<128>
+                                      : c2f_f32_kernel<256>;
+  cudaError_t e = allow_smem(kernel, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kF32Threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // one block an SM (the plan's cost model counts so)
+  return launch_cooperative(kernel, std::min(items, sms), kF32Threads, smem, stream, a);
 }
 
 
@@ -310,11 +628,7 @@ constexpr int kTcConsumers = 2;  // warpgroups that issue wgmma
 constexpr int kTcThreads = 128 * (kTcConsumers + 1);
 constexpr int kMinBStages = 4, kMaxBStages = 8;  // slots of the weight ring
 constexpr int kMaxAStages = 6;                   // slots of A tiles (at least 2)
-constexpr int kBlockBarrier = 1;                 // the named barrier of all threads
 constexpr int kEpiBarrier = 2;                   // the consumers' (those with rows)
-
-// The block's four GEMMs, in the order the launch runs them.
-enum Gemm : int { kCv1 = 0, kT = 1, kZ = 2, kCv2 = 3, kGemms = 4 };
 
 // One GEMM of the launch and its tiles. 1x1 (cv1, cv2): a tile is `rows`
 // consecutive pixels of the batch (flat over B, H, W) x BN channels. 3x3
@@ -361,10 +675,6 @@ struct C2fOut {
   unsigned* bar;      // the grid barrier: arrivals, generation
 };
 
-__device__ __forceinline__ void sync_block() {
-  asm volatile("bar.sync %0, %1;\n" ::"n"(kBlockBarrier), "n"(kTcThreads) : "memory");
-}
-
 // The consumer warpgroups with rows in this GEMM (n threads).
 __device__ __forceinline__ void sync_consumers(int n) {
   asm volatile("bar.sync %0, %1;\n" ::"n"(kEpiBarrier), "r"(n) : "memory");
@@ -400,34 +710,6 @@ __device__ __forceinline__ void bulk_wait_read() {
 // ... and written the device memory
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Every block of the grid has arrived: the global stores each thread made
-// before are visible to every block's loads (TMA included) after. bar[0]
-// counts the arrivals and is reset by the last one, which then moves bar[1],
-// the generation, on, so the barrier needs no reset between launches. The
-// launch is cooperative, so every block is resident; a wait of more than
-// ~10 s traps all the same instead of hanging the card.
-__device__ __forceinline__ void sync_grid(unsigned* bar) {
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
-  sync_block();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g0 = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      const long long start = clock64();
-      while (*gen == g0)
-        if (clock64() - start > 20000000000LL) __trap();
-    }
-    __threadfence();
-  }
-  sync_block();
-  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 struct Tile {
@@ -628,7 +910,7 @@ c2f_tc_kernel(const __grid_constant__ C2fMaps maps, const __grid_constant__ C2fG
           }
         }
       }
-      if (gi + 1 < kGemms) sync_grid(o.bar);
+      if (gi + 1 < kGemms) sync_grid<kTcThreads>(o.bar);
     }
   } else {
     // ---- consumers
@@ -739,7 +1021,7 @@ c2f_tc_kernel(const __grid_constant__ C2fMaps maps, const __grid_constant__ C2fG
           }
         }
       }
-      if (gi + 1 < kGemms) sync_grid(o.bar);
+      if (gi + 1 < kGemms) sync_grid<kTcThreads>(o.bar);
     }
   }
 }
@@ -876,21 +1158,8 @@ cudaError_t launch_tc(const void* const* p, void* y, void* scratch, void* bar, i
   if (e != cudaSuccess) return e;
   int tiles = 0;
   for (const GemmGeo& q : g.gm) tiles = std::max(tiles, q.ntiles);
-  // persistent and cooperative: one block an SM, every block resident (the
-  // grid barriers wait for all of them)
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)std::min(tiles, sms));
-  cfg.blockDim = dim3(kTcThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, maps, g, out);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  // persistent: one block an SM
+  return launch_cooperative(kernel, std::min(tiles, sms), kTcThreads, smem, stream, maps, g, out);
 }
 
 // BK 32 (with BN 64) or 64; BN 64 (MS 1 or 2 m64 subtiles a warpgroup) or 128
@@ -917,29 +1186,27 @@ cudaError_t launch_tc_plan(const void* const* p, void* y, void* scratch, void* b
 
 // Returns the CUDA error of the launch (0 on success; 10000 + a CUresult
 // where a TMA tensor map could not be encoded). dtype: 0 float32 (CUDA
-// cores: tile 8 or 4; scratch, bar and the plan unused), 1 bfloat16 or 2
-// float16 (tensor cores: the plan bk, bn, ms, rows x wt of
-// kernels/c2f.py c2f_plan; scratch holds B H W 4c elements, bar two
-// unsigned ints, zero before the first launch and left so by each).
+// cores: plan holds the 8 ints of kernels/c2f.py C2fF32Plan.ints; scratch
+// holds B H W 4c floats and the split sums, scratch_elems of them), 1
+// bfloat16 or 2 float16 (tensor cores: plan holds bk, bn, ms, rows, wt of
+// kernels/c2f.py c2f_plan; scratch holds B H W 4c elements). bar: two
+// unsigned ints, zero before the first launch and left so by each.
 extern "C" int ys_c2f(const void* x, const void* w1, const void* b1, const void* wm1,
                       const void* bm1, const void* wm2, const void* bm2, const void* w2,
                       const void* b2, void* y, void* scratch, void* bar, int B, int H, int W,
-                      int Cin, int c, int C2, int dtype, int tile, int bk, int bn, int ms,
-                      int rows, int wt, void* stream) {
+                      int Cin, int c, int C2, int dtype, const int* plan,
+                      long long scratch_elems, void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;
-  if (c % 4 || C2 % 4) return cudaErrorInvalidValue;
+  if (c % 4 || C2 % 4 || !plan) return cudaErrorInvalidValue;
   const void* p[9] = {x, w1, b1, wm1, bm1, wm2, bm2, w2, b2};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (tile == 8) return launch_f32<8>(p, y, B, H, W, Cin, c, C2, st);
-    if (tile == 4) return launch_f32<4>(p, y, B, H, W, Cin, c, C2, st);
-    return cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    return launch_f32(p, y, scratch, scratch_elems, bar, B, H, W, Cin, c, C2, plan, st);
   if (dtype == 1)
-    return launch_tc_plan<bf16>(p, y, scratch, bar, B, H, W, Cin, c, C2, bk, bn, ms, rows, wt,
-                                st);
+    return launch_tc_plan<bf16>(p, y, scratch, bar, B, H, W, Cin, c, C2, plan[0], plan[1],
+                                plan[2], plan[3], plan[4], st);
   if (dtype == 2)
-    return launch_tc_plan<f16>(p, y, scratch, bar, B, H, W, Cin, c, C2, bk, bn, ms, rows, wt,
-                               st);
+    return launch_tc_plan<f16>(p, y, scratch, bar, B, H, W, Cin, c, C2, plan[0], plan[1],
+                               plan[2], plan[3], plan[4], st);
   return cudaErrorInvalidValue;
 }

@@ -88,6 +88,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "f32_tile.cuh"
 
 using namespace ys;
 
@@ -207,28 +208,9 @@ conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  // one float4 of 4 input channels of pixel i times channel e's weights
-  auto fma8 = [&](float (&a)[8], const float4& wa, const float4& wb, float v) {
-    a[0] = fmaf(v, wa.x, a[0]);
-    a[1] = fmaf(v, wa.y, a[1]);
-    a[2] = fmaf(v, wa.z, a[2]);
-    a[3] = fmaf(v, wa.w, a[3]);
-    a[4] = fmaf(v, wb.x, a[4]);
-    a[5] = fmaf(v, wb.y, a[5]);
-    a[6] = fmaf(v, wb.z, a[6]);
-    a[7] = fmaf(v, wb.w, a[7]);
-  };
+  // wt: this thread's weights of one tap, channel stride 9 * TN / 4 units
   auto tap = [&](const float4 (&px)[8], const float4* wt) {
-    // wt: this thread's weights of one tap, channel stride 9 * TN / 4 units
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float4 wa = wt[e * 9 * (TN / 4)], wb = wt[e * 9 * (TN / 4) + G::NG];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float v = e == 0 ? px[i].x : e == 1 ? px[i].y : e == 2 ? px[i].z : px[i].w;
-        fma8(acc[i], wa, wb, v);
-      }
-    }
+    fma_group<9 * (TN / 4), G::NG>(acc, px, wt);
   };
 
   if (cbeg < cend) load(0, cbeg);

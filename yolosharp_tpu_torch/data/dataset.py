@@ -224,7 +224,8 @@ class ClassificationDataset:
     (10 tries, else the whole image) to s x s, the flips, the
     Config.auto_augment policy and random erasing (``classify_augment``);
     val: the short side resized to s, then the centre s x s crop. Images
-    are read by ``image_ops.read_image_rgb`` (PNG, JPEG, BMP, TIFF) and resized
+    are read by ``image_ops.read_image_rgb`` (PNG, JPEG, BMP, TIFF, PNM /
+    PAM, WebP) and resized
     by ``image_ops.resize_linear`` (cv2's INTER_LINEAR, bit for bit).
 
     ``get`` draws from one generator in a fixed order; the DataLoader calls

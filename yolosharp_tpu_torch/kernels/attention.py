@@ -30,8 +30,14 @@ the exponentials the practical floor. The layer-8 call is half of that.
   blocks so that small batches still fill the SMs, with 8 warps a block
   where a staged sequence takes a whole SM (N = 1600 at D = 32). P is rounded
   to the 16-bit type for P V, as the JAX package's off-TPU einsum path does.
-- float32: the flash-style CUDA-core kernel (64 query rows a block, 64-key
-  float32 tiles, online softmax); TF32 would break the float32 contract.
+- float32: a flash-style CUDA-core kernel (float32 FMAs; TF32 would break
+  the float32 contract) on register micro-tiles: a warp owns 32 query rows
+  (16 at D >= 64), a lane 8 rows x 8 keys of S = Q K^T and 8 rows x D / 8
+  columns of O, P through the warp's rows of shared memory; K and V staged
+  once by ``cp.async`` where the sequence fits (``f32_geometry``), else
+  streamed through two stages; exponentials by ``ex2.approx`` on scores
+  pre-scaled to log2 units; where a block has fewer warp tiles than warps,
+  groups of warps share a tile's key steps and merge their sums.
 
 On a CPU tensor the wrappers run the plain PyTorch version (autograd runs
 through it); on a CUDA tensor they launch the kernel or raise. Both count
@@ -103,6 +109,56 @@ def launch_geometry(BH: int, N: int, D: int,
     per_sm = max(1, min(MAX_BLOCKS, SM_SMEM // (smem_bytes(keys, D) + 1024)))
     splits = max(1, min(-(-N // 16), sms * per_sm // BH))
     return splits, keys, 8 if per_sm == 1 else 4
+
+
+# the float32 kernel's layout (csrc/attention.cu F32Attn), which checks what
+# it gets: keys a softmax step, warps a block (by head dim)
+F32_KEY_TILE = 64
+
+
+def f32_layout(D: int) -> tuple:
+    """(lanes a row group, query rows of a warp tile, floats of a warp's
+    staged Q and P) of the float32 kernel at head dim D."""
+    nx = 8 if D <= 32 else 16
+    wr = 8 * 32 // nx
+    return nx, wr, wr * ((D + 8) + (F32_KEY_TILE + nx))
+
+
+def f32_smem_bytes(keys: int, stages: int, warps: int, D: int) -> int:
+    """Shared memory of one float32 block: one or two stages of K and V
+    rows of `keys` keys, and each warp's Q and P."""
+    return stages * 2 * keys * D * 4 + warps * f32_layout(D)[2] * 4
+
+
+def f32_geometry(BH: int, N: int, D: int,
+                 sms: int) -> tuple[int, int, int, int]:
+    """(splits, staged keys, warps a block, warps a warp tile) of the
+    float32 kernel for BH sequences of N rows on a card of sms SMs. Blocks
+    of 8 warps (4 at D >= 64, whose tiles are larger), one an SM; the whole
+    sequence (N rounded up to 16) is staged once where it fits beside the
+    warps' Q and P, else the largest multiple of the key tile that two
+    stages hold; each sequence's warp tiles are spread over ``splits``
+    blocks so that the grid covers the SMs without a second wave, one block
+    per sequence where the batch alone does that; where a block has fewer
+    warp tiles than warps, the warps go in groups (a power of two, at most
+    the key steps) that share a tile's key steps."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"f32_geometry: head dim {D} is not one of "
+                         f"{HEAD_DIMS}")
+    warps = 8 if D <= 32 else 4
+    whole = -(-N // 16) * 16
+    if f32_smem_bytes(whole, 1, warps, D) <= SMEM_LIMIT:
+        keys = whole
+    else:
+        free = SMEM_LIMIT - f32_smem_bytes(0, 2, warps, D)
+        keys = free // (2 * 2 * D * 4) // F32_KEY_TILE * F32_KEY_TILE
+    tiles = -(-N // f32_layout(D)[1])
+    splits = max(1, min(tiles, sms // BH))
+    ksplit = 1
+    while (2 * ksplit * -(-tiles // splits) <= warps
+           and 2 * ksplit <= -(-N // F32_KEY_TILE)):
+        ksplit *= 2
+    return splits, keys, warps, ksplit
 
 
 # the backward's Hopper kernels (csrc/attention16.cuh Cfg), which check it
@@ -180,7 +236,7 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong] * 12
-                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
     return lib
 
@@ -220,8 +276,10 @@ def _launch(name: str, q, k, v, o, scale: float, stats=None) -> None:
     B, H, N, D = q.shape
     code, stream = build.launch_args(name, q, k, v, o, strided=True)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    geometry = (launch_geometry(B * H, N, D, build.sm_count(q.device.index))
-                if q.dtype in build.HALF_DTYPES else (0, 0, 0))
+    sms = build.sm_count(q.device.index)
+    geometry = (launch_geometry(B * H, N, D, sms) + (1,)
+                if q.dtype in build.HALF_DTYPES
+                else f32_geometry(B * H, N, D, sms))
     lse, o32 = stats if stats is not None else (None, None)
     with torch.cuda.device(q.device):
         status = _lib().ys_attention(

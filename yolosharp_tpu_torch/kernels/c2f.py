@@ -25,9 +25,20 @@ by products on 3.7 MB of weights that a tile of one SM cannot amortise.
   which the L2 holds at the deep shapes: no tile recomputes a halo, and
   each weight tile serves up to 256 pixel rows. The narrow class pays for
   that in traffic (about 3.5x the block's own bytes).
-- float32: the CUDA-core kernel; a block owns an 8x8 tile (4x4 above c =
-  64) with a 2-pixel halo and keeps the float32 intermediates in shared
-  memory.
+- float32: the same four GEMMs in one cooperative launch on the CUDA
+  cores (float32 FMAs; TF32 would break the float32 contract), each tiled
+  as the float32 conv (``csrc/f32_tile.cuh``: an 8-row x 8-channel register
+  tile a thread, float4 operands, a two-stage ``cp.async`` ring whose
+  copies are issued between the products), the 3x3s on the same flat-row
+  bands, the intermediates in the same scratch buffer, which also holds
+  the split sums: where a GEMM's tiles alone leave SMs idle its K sum is
+  split over blocks and the splits are added in a fixed order after a grid
+  barrier. ``f32_c2f_plan`` picks each GEMM's tile width and split and the
+  3x3 tile by a cost model (``F32_COST``, fitted by ``chip_c2f_plans.py
+  --f32``); the two 1x1s share their width, a template argument of the
+  kernel. On a 132-SM card it gives (C2fF32Plan.ints: cv1 tn, split; 3x3
+  tn, rows, wt, split; cv2 tn, split) (64, 1, 32, 27, 15, 1, 64, 1) at
+  v8s layer 2, B = 2, and (256, 4, 32, 20, 20, 8, 256, 5) at layer 8.
 
 ``c2f_plan`` owns the 16-bit choice, per shape and batch: the K chunk
 (32 channels up to c = 32, else 64), the N tile (128 only in the deep
@@ -44,9 +55,9 @@ by a cost model whose clocks ``chip_c2f_plans.py`` fits on the card. On a
 - 7x7 512/256/512 (v8s-cls): B = 1 (64, 64, 1, 1, 2), B = 2
   (64, 64, 1, 2, 2), B = 32 (64, 64, 1, 7, 7).
 
-The kernel takes every shape the module routes to it at every batch: on
-the card it beats the plain chain at each of these at B = 2 and 32
-(PERF.md), so no shape is left to the plain chain.
+The kernel takes every shape the module routes to it at every batch, in
+both types and at any c (neither route's shared memory grows with c): no
+shape is left to the plain chain.
 
 On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises.
@@ -64,21 +75,6 @@ import torch.nn.functional as F
 from . import build
 from .build import SMEM_LIMIT
 from .conv3x3 import conv3x3_plain
-
-_CHUNK = 32           # input channels the float32 kernel stages a chunk
-
-
-def tile_for(c: int) -> int:
-    """The float32 kernel's output tile edge for hidden width c: 8 for
-    c <= 64, 4 above."""
-    return 8 if c <= 64 else 4
-
-
-def smem_bytes(tile: int, c: int) -> int:
-    """Shared memory of one block of the float32 kernel (Geom::floats)."""
-    r2, r1, r0 = (tile + 4) ** 2, (tile + 2) ** 2, tile ** 2
-    return 4 * (r2 * _CHUNK + c * (r2 + r1 + 2 * r0))
-
 
 # the 16-bit kernel's constants (csrc/c2f.cu)
 TC_CONSUMERS = 2      # warpgroups that issue wgmma
@@ -229,6 +225,245 @@ def c2f_plan(B: int, H: int, W: int, cin: int, c: int, c2: int,
                               -p.rows * p.wt, -p.bn, -p.ms))
 
 
+# the float32 kernel's constants (csrc/c2f.cu c2f_f32_kernel): a tile is
+# F32_ROWS / tn flat rows x tn channels (256 threads, 8 x 8 sums each); K
+# chunks of 32 channels (1x1) or 8 channels x 9 taps (3x3); the tiles'
+# widths; the most blocks a K sum is split over
+F32_ROWS = 16384
+F32_CK1, F32_CK3 = 32, 8
+F32_TN1 = (64, 128, 256)
+F32_TN3 = (32, 64, 128, 256)
+F32_MAX_SPLITS = 32
+# the float32 cost model's clocks a feature (f32_gemm_features; SM clocks
+# of an H100): an FMA of a tile (1 / the FMAs an SM's register tiles sustain a
+# clock), a byte staged, a chunk's barriers, an item's epilogue, a GEMM's
+# first copy, a split's grid barrier, a byte of the split sums, and the
+# launch; fitted to the kernel's times on the card (non-negative least
+# squares on the relative error) by ``chip_c2f_plans.py --f32``
+F32_COST = (0.01416, 0.0, 0.0, 3538.0, 9022.0, 148.5, 0.0008021, 0.0)
+F32_COST_SLACK = 0.05
+
+
+class F32Gemm(NamedTuple):
+    """One GEMM of the float32 launch: ``tn`` output channels a tile (the
+    tile is F32_ROWS / tn flat rows), its K sum split over ``splits``
+    blocks, and (3x3) a tile of ``rows`` output rows x ``wt`` columns."""
+    tn: int
+    splits: int = 1
+    rows: int = 0
+    wt: int = 0
+
+
+class C2fF32Plan(NamedTuple):
+    """What one float32 launch runs: cv1's GEMM, the two 3x3s' (t and z
+    take the same tile) and cv2's (the 1x1s share their tile width: the
+    kernel is built for one a launch)."""
+    cv1: F32Gemm
+    m: F32Gemm
+    cv2: F32Gemm
+
+    def ints(self) -> tuple:
+        """The eight ints ys_c2f takes."""
+        return (self.cv1.tn, self.cv1.splits, self.m.tn, self.m.rows,
+                self.m.wt, self.m.splits, self.cv2.tn, self.cv2.splits)
+
+
+def f32_rows(tn: int) -> int:
+    """Flat rows of a float32 tile of tn channels."""
+    return F32_ROWS // tn
+
+
+def f32_a_units(spatial: bool, tm: int, wt: int = 0) -> int:
+    """16-byte units of one group of 4 channels of a stage's A tile
+    (f32_a_units): the tile's pixels and a pad unit; for the 3x3 the padded
+    band of rows of wt + 2 pixels (a pad unit after every 8), rounded to 4
+    units past a multiple of 8."""
+    if not spatial:
+        return tm + 1
+    n = tm + 2 * (wt + 2) + 2
+    return ((n + n // 8 + 1 + 7) & ~7) + 4
+
+
+def f32_stage_bytes(spatial: bool, tn: int, wt: int = 0) -> int:
+    """One stage of a float32 GEMM's ring (f32_stage_units): the A units
+    of a chunk and its weights."""
+    ck, taps = (F32_CK3, 9) if spatial else (F32_CK1, 1)
+    return 16 * (ck // 4 * f32_a_units(spatial, f32_rows(tn), wt)
+                 + ck * taps * tn // 4)
+
+
+def f32_smem(plan: C2fF32Plan) -> int:
+    """Dynamic shared memory of the float32 launch: two stages of its
+    largest GEMM."""
+    return 2 * max(f32_stage_bytes(False, plan.cv1.tn),
+                   f32_stage_bytes(True, plan.m.tn, plan.m.wt),
+                   f32_stage_bytes(False, plan.cv2.tn))
+
+
+def f32_gemms(B: int, H: int, W: int, cin: int, c: int, c2: int,
+              plan: C2fF32Plan) -> tuple:
+    """(tiles, splits, K chunks, N, spatial) of cv1, t, z and cv2."""
+    npix = B * H * W
+
+    def one(g, n, k):
+        return (_cdiv(npix, f32_rows(g.tn)) * _cdiv(n, g.tn), g.splits,
+                _cdiv(k, F32_CK1), n, False)
+
+    m = plan.m
+    three = (B * _cdiv(H, m.rows) * _cdiv(W, m.wt) * _cdiv(c, m.tn),
+             m.splits, c // F32_CK3, c, True)
+    return (one(plan.cv1, 2 * c, cin), three, three, one(plan.cv2, c2, 3 * c))
+
+
+def f32_scratch(B: int, H: int, W: int, cin: int, c: int, c2: int,
+                plan: C2fF32Plan) -> int:
+    """Floats of the float32 launch's scratch buffer: y1, t and z (B H W
+    4c), then the largest GEMM's split sums."""
+    npix = B * H * W
+    part = max(s * npix * n if s > 1 else 0
+               for _, s, _, n, _ in f32_gemms(B, H, W, cin, c, c2, plan))
+    return npix * 4 * c + part
+
+
+def f32_chunk_bytes(spatial: bool, tn: int, wt: int = 0) -> int:
+    """Bytes one K chunk of a float32 tile stages: its A tile (for the 3x3
+    the band) and its weights."""
+    tm = f32_rows(tn)
+    if not spatial:
+        return 4 * F32_CK1 * (tm + tn)
+    return 4 * F32_CK3 * (tm + 2 * (wt + 2) + 2 + 9 * tn)
+
+
+def f32_gemm_features(npix: int, tiles: int, splits: int, chunks: int,
+                      n: int, tn: int, spatial: bool, sms: int,
+                      wt: int = 0) -> tuple:
+    """One float32 GEMM's terms of F32_COST: over its rounds of (tile,
+    split) items on one block an SM, the FMAs and bytes its chunks take
+    (the register tile's FMAs, the staged A tile and weights), the chunks
+    and the items; the GEMM itself; a split's grid barrier and the bytes
+    its sums write and read; no launch."""
+    ck, taps = (F32_CK3, 9) if spatial else (F32_CK1, 1)
+    rounds = _cdiv(tiles * splits, sms)
+    steps = rounds * _cdiv(chunks, splits)
+    split = splits > 1
+    return (steps * f32_rows(tn) * tn * ck * taps,
+            steps * f32_chunk_bytes(spatial, tn, wt), steps, rounds, 1,
+            int(split), (splits + 1) * npix * n * 4 if split else 0, 0)
+
+
+def f32_gemm_cost(*args, **kw) -> float:
+    """One float32 GEMM's time in SM clocks by the model (F32_COST)."""
+    return sum(k * f for k, f in zip(F32_COST, f32_gemm_features(*args,
+                                                                 **kw)))
+
+
+def f32_plan_features(B: int, H: int, W: int, cin: int, c: int, c2: int,
+                      sms: int, plan: C2fF32Plan) -> tuple:
+    """The launch's terms of F32_COST: its four GEMMs' and the launch."""
+    npix = B * H * W
+    gs = f32_gemms(B, H, W, cin, c, c2, plan)
+    feats = [f32_gemm_features(npix, tiles, s, chunks, n, g.tn, spatial,
+                               sms, g.wt)
+             for g, (tiles, s, chunks, n, spatial)
+             in zip((plan.cv1, plan.m, plan.m, plan.cv2), gs)]
+    total = [sum(f[i] for f in feats) for i in range(len(F32_COST))]
+    total[-1] = 1
+    return tuple(total)
+
+
+def _f32_rank(options):
+    """(cost, blocks, staged bytes, gemm) options from the fastest: within
+    F32_COST_SLACK of the cheapest, the fewest splits, then the most blocks
+    (more SMs pull the operands in sooner), then the fewest bytes staged,
+    then the rest by cost."""
+    least = min(o[0] for o in options)
+    near = [o for o in options if o[0] <= least * (1 + F32_COST_SLACK)]
+    far = [o for o in options if o[0] > least * (1 + F32_COST_SLACK)]
+    return ([o[3] for o in sorted(near, key=lambda o: (o[3].splits, -o[1],
+                                                       o[2], o[0]))]
+            + [o[3] for o in sorted(far, key=lambda o: o[0])])
+
+
+def _f32_splits(chunks: int):
+    """The splits of a sum of `chunks` K chunks that leave no split empty
+    and change the chunks a split takes."""
+    for s in range(1, min(chunks, F32_MAX_SPLITS) + 1):
+        if s == 1 or _cdiv(chunks, s) != _cdiv(chunks, s - 1):
+            yield s
+
+
+def _f32_1x1_cost(npix: int, n: int, k: int, g: F32Gemm, sms: int) -> float:
+    """A 1x1 GEMM's time by the model: N = n, K = k, tile and split g."""
+    return f32_gemm_cost(npix, _cdiv(npix, f32_rows(g.tn)) * _cdiv(n, g.tn),
+                         g.splits, _cdiv(k, F32_CK1), n, g.tn, False, sms)
+
+
+def f32_options(kind: str, B: int, H: int, W: int, cin: int, c: int,
+                c2: int, sms: int) -> list:
+    """The F32Gemm choices of one GEMM kind ('cv1', 'm' for both 3x3s,
+    'cv2') whose two ring stages fit the shared memory, from the one the
+    model rates fastest (_f32_rank)."""
+    npix = B * H * W
+    options = []
+    if kind in ("cv1", "cv2"):
+        n, k = (2 * c, cin) if kind == "cv1" else (c2, 3 * c)
+        chunks = _cdiv(k, F32_CK1)
+        for tn in F32_TN1:
+            if 2 * f32_stage_bytes(False, tn) > SMEM_LIMIT:
+                continue
+            tiles = _cdiv(npix, f32_rows(tn)) * _cdiv(n, tn)
+            for s in _f32_splits(chunks):
+                g = F32Gemm(tn, s)
+                options.append((_f32_1x1_cost(npix, n, k, g, sms),
+                                min(tiles * s, sms),
+                                tiles * chunks * f32_chunk_bytes(False, tn),
+                                g))
+        return _f32_rank(options)
+    chunks = c // F32_CK3
+    for tn in F32_TN3:
+        tm = f32_rows(tn)
+        for nw in range(1, W + 1):
+            wt = _cdiv(W, nw)
+            if (nw > 1 and wt == _cdiv(W, nw - 1)) or wt + 2 > tm \
+                    or 2 * f32_stage_bytes(True, tn, wt) > SMEM_LIMIT:
+                continue
+            rmax = min(H, tm // (wt + 2))
+            rows = _cdiv(H, _cdiv(H, rmax))     # the bands evened out
+            tiles = B * _cdiv(H, rows) * nw * _cdiv(c, tn)
+            for s in _f32_splits(chunks):
+                options.append((f32_gemm_cost(npix, tiles, s, chunks, c, tn,
+                                              True, sms, wt),
+                                min(tiles * s, sms),
+                                tiles * chunks * f32_chunk_bytes(True, tn, wt),
+                                F32Gemm(tn, s, rows, wt)))
+    if not options:
+        raise ValueError(f"c2f_fused: no float32 3x3 tile fits a {W}-wide "
+                         f"map")
+    return _f32_rank(options)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_c2f_plan(B: int, H: int, W: int, cin: int, c: int, c2: int,
+                 sms: int) -> C2fF32Plan:
+    """The float32 launch's plan for one call on a card of sms SMs: the
+    3x3s' first f32_options, and the 1x1 tile width whose first cv1 and
+    cv2 options the model rates fastest together, with those (the GEMMs run
+    one after another, so each is chosen on its own but for the shared
+    width)."""
+    npix = B * H * W
+    cv1 = f32_options("cv1", B, H, W, cin, c, c2, sms)
+    cv2 = f32_options("cv2", B, H, W, cin, c, c2, sms)
+    pairs = []
+    for tn in F32_TN1:
+        a = next(g for g in cv1 if g.tn == tn)
+        b = next(g for g in cv2 if g.tn == tn)
+        pairs.append((_f32_1x1_cost(npix, 2 * c, cin, a, sms)
+                      + _f32_1x1_cost(npix, c2, 3 * c, b, sms),
+                      cv1.index(a) + cv2.index(b), a, b))
+    _, _, a, b = min(pairs, key=lambda p: (p[0], p[1]))
+    return C2fF32Plan(a, f32_options("m", B, H, W, cin, c, c2, sms)[0], b)
+
+
 def plan_class(c: int) -> str:
     """The shape class a hidden width falls in: 'narrow' (c <= 64, bound by
     bytes at the model's shapes) or 'deep' (bound by products)."""
@@ -239,13 +474,10 @@ def c2f_supported(n: int, shortcut: bool, g: int, cin: int, c: int,
                   c2: int) -> bool:
     """Static statement of what the kernel takes, in both types: a C2f with
     one shortcut bottleneck, no groups, c % 16 == 0, C2 and Cin multiples of
-    8 (16-byte rows for TMA), and a float32 tile that fits shared memory
-    (c <= 424; the 16-bit kernel streams its K and takes any c). Covers the
-    v8n and v8s layers 2 and 8 (c = 16, 32, 128, 256)."""
-    if not (n == 1 and shortcut and g == 1 and cin > 0 and c > 0
-            and c % 16 == 0 and c2 % 8 == 0 and cin % 8 == 0):
-        return False
-    return smem_bytes(tile_for(c), c) <= SMEM_LIMIT
+    8 (16-byte rows for TMA); any c (both routes stream their K). Covers
+    the v8n and v8s layers 2 and 8 (c = 16, 32, 128, 256)."""
+    return (n == 1 and shortcut and g == 1 and cin > 0 and c > 0
+            and c % 16 == 0 and c2 % 8 == 0 and cin % 8 == 0)
 
 
 def c2f_plain(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2) -> torch.Tensor:
@@ -262,14 +494,14 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("c2f")
     fn = lib.ys_c2f
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 13
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
     return lib
 
 
-# the grid barrier of the 16-bit kernel a card: two counters the kernel
-# leaves at (0, generation); one launch at a time uses it, as the port
-# launches on one stream a card
+# the grid barrier of the kernel a card (both routes): two counters the
+# kernel leaves at (0, generation); one launch at a time uses it, as the
+# port launches on one stream a card
 _barriers = {}
 
 
@@ -283,9 +515,10 @@ def _barrier(device: torch.device) -> torch.Tensor:
 
 def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2,
               plan: C2fPlan = None) -> torch.Tensor:
-    """Fused C2f(n=1, shortcut=True) forward (inference, folded BN). The
-    16-bit route runs ``plan`` where one is given (tests hold other plans
-    than c2f_plan's to the plain version), else c2f_plan's."""
+    """Fused C2f(n=1, shortcut=True) forward (inference, folded BN). It
+    runs ``plan`` where one is given (a C2fPlan on the 16-bit route, a
+    C2fF32Plan on the float32 one: tests hold other plans than the
+    planner's to the plain version), else c2f_plan's or f32_c2f_plan's."""
     if x.device.type == "cpu":
         return c2f_plain(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2)
     if x.dim() != 4:
@@ -308,22 +541,20 @@ def c2f_fused(x, w1, b1, wm1, bm1, wm2, bm2, w2, b2,
         raise ValueError(f"c2f_fused: the kernel does not take Cin={cin}, "
                          f"c={c}, C2={C2}")
     y = torch.empty((B, H, W, C2), dtype=x.dtype, device=x.device)
-    scratch = bar = None
+    sms = build.sm_count(x.device.index)
     if x.dtype in build.HALF_DTYPES:
-        plan = plan or c2f_plan(B, H, W, cin, c, C2,
-                                build.sm_count(x.device.index))
-        scratch = torch.empty(B * H * W * 4 * c, dtype=x.dtype,
-                              device=x.device)
-        bar = _barrier(x.device)
-        tile = 0
+        plan = plan or c2f_plan(B, H, W, cin, c, C2, sms)
+        ints, size = tuple(plan), B * H * W * 4 * c
     else:
-        plan = C2fPlan(0, 0, 0, 0, 0)
-        tile = tile_for(c)
-    ptrs = [t.data_ptr() for t in (x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, y)]
-    ptrs += [None if t is None else t.data_ptr() for t in (scratch, bar)]
+        plan = plan or f32_c2f_plan(B, H, W, cin, c, C2, sms)
+        ints, size = plan.ints(), f32_scratch(B, H, W, cin, c, C2, plan)
+    scratch = torch.empty(size, dtype=x.dtype, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, w1, b1, wm1, bm1, wm2, bm2, w2, b2, y,
+                                   scratch, _barrier(x.device))]
     with torch.cuda.device(x.device):
-        status = _lib().ys_c2f(*ptrs, B, H, W, cin, c, C2, code, tile, *plan,
-                               stream)
+        status = _lib().ys_c2f(*ptrs, B, H, W, cin, c, C2, code,
+                               (ctypes.c_int * 8)(*ints, *[0] * (8 - len(ints))),
+                               size, stream)
     build.check_status("c2f_fused", status)
     build.count_launch(c2f_fused, x.device)
     return y

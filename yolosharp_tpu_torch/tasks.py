@@ -926,8 +926,9 @@ class Detector(BaseTask):
     def _results(self, out, conf, hw, shapes) -> List[List[YoloResult]]:
         """The result lists of a host predict output's images (their own
         (h, w) `shapes`, canvas hw), built with the garbage collector
-        paused."""
-        with _gc_paused():
+        paused and under full_float32 (a segment result's masks are a
+        float32 matmul on the device)."""
+        with full_float32(), _gc_paused():
             return [self._batch_results(out, i, conf, hw, shape)
                     for i, shape in enumerate(shapes)]
 
@@ -1025,7 +1026,7 @@ class Detector(BaseTask):
             nms = self._nms_of(out)
             if nms is not None:
                 _warn_if_truncated(nms, tstate)
-            with _gc_paused():
+            with full_float32(), _gc_paused():
                 results = [self._stream_results(out, i, conf, meta)
                            for i, meta in enumerate(metas)]
             yield from results
@@ -1555,7 +1556,8 @@ class YoloTask:
     def image_predict(self, image, predict_threshold: Optional[float] = None,
                       iou_threshold: Optional[float] = None):
         if isinstance(image, str):
-            image = read_image_rgb(image)   # PNG, JPEG, BMP or TIFF, no cv2
+            # PNG, JPEG, BMP, TIFF, PNM / PAM or WebP, no cv2
+            image = read_image_rgb(image)
         return self.task.image_predict(image, predict_threshold,
                                        iou_threshold)
 
