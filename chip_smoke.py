@@ -53,13 +53,16 @@ Phases (any failure exits non-zero; nothing is caught):
      shapes again at B=32 in bfloat16 and float16, timed, and at last every
      kernel
      variant the served requests of phases 3 and 4 take (the bf16 conv's N
-     tile or stem, the C2f block's plan, the attention's route and splits;
+     tile or stem plan, the C2f block's plan, the attention's route and splits;
      they depend on the batch) that was not checked yet, at the first request
      that takes it. Each check prints the variant it ran, and the sums of
      kernel / plain / library / bound ms are printed over the v11m-seg
      shapes, the v11m-pose shapes, v11s-pose's Ci / Co = 51 shapes and
      v12x-obb's shapes (the attention at 1536 and 384 sequences of N =
-     400 at b32 among them).
+     400 at b32 among them). The 16-bit stems (Ci <= 7, csrc/stem.cuh) are
+     printed as rows of their own and summed, kernel / plain / F.conv2d /
+     bound, at B=2, b32 and b8 (HGStem's ReLU), and held at the ragged
+     shapes of the card tests too.
   3. the v8s slice: a v8s nc=80 YoloTask on cuda with seeded weights times
      its bf16 batch-32 640x640 network forward (CUDA events), counts the
      kernel launches of one such forward, and answers image_predict and
@@ -390,7 +393,11 @@ kernel: the JAX int8_conv is XLA's int8 convolution):
      pass equal to the bit; the conv equal to the bit in float32 with the
      identity (float32 SiLU: phase 2's conv rule), and in bfloat16 /
      float16 within 1.25 u of a float64 evaluation of the same int32 sums
-     (rounded where the plain version rounds, before the activation).
+     (rounded where the plain version rounds, before the activation). The
+     stems (route "stem": quantise and conv in one launch of
+     csrc/stem.cuh's kernel) equal to their plain version (the plain
+     quantise, then the plain conv) to the bit in every type, with the
+     identity and SiLU, at the three stem shapes and at ragged ones.
      Timed at B=32 (CUDA graphs): conv kernel, quantise, the two, plain,
      the conv's float route today (the conv3x3 kernel or cuDNN) and
      torch._int_mm on the 1x1 stride-1 shapes (the same int32 sums in one
@@ -398,9 +405,10 @@ kernel: the JAX int8_conv is XLA's int8 convolution):
      bytes / 3.35e12), K and the int8 bytes over the conv's Ci (the
      kernel's padded Cp printed beside it); sums per shape group. Each
      shape on its route (int8_route: the wgmma GEMM, the wgmma flat-row
-     tile, or mma.sync) and plan, timed beside the mma.sync kernel every
-     shape took before the wgmma routes; sums per route, the redesign's
-     aims marked held or missed; first the 8-bit descriptor probe and the
+     tile, the stem kernel, or mma.sync) and plan, timed beside the
+     mma.sync kernel every shape took before the wgmma routes (on the stem
+     route, beside that kernel and its quantise pass); sums per route, the
+     redesigns' aims marked held or missed; first the 8-bit descriptor probe and the
      epilogue's SiLU against the IEEE-division SiLU at all 2^32 floats.
   17b. v8s-640: calibrate_int8 on the card over 16 of phase 7's PNGs and
      the same on the CPU (the same keys, absmax within 1e-4 relative);
@@ -583,6 +591,11 @@ SUFFIX = {(torch.float32, BATCH): "_f32", (torch.bfloat16, BATCH): "",
           (torch.bfloat16, BLOCK_BATCH): "_b8",
           (torch.float16, BLOCK_BATCH): "_f16_b8"}
 CONV_NAMES = ("conv3x3_silu", "conv3x3s2_silu")
+# phase 2's ragged 16-bit stems (the card tests' shapes): (kind, (H, W, Ci,
+# Co), activation)
+STEM_RAGGED = (("s1", (17, 23, 3, 16), "silu"), ("s2", (17, 23, 3, 16), "relu"),
+               ("s1", (9, 33, 3, 70), "silu"), ("s2", (9, 33, 3, 70), "identity"),
+               ("s2", (9, 33, 7, 70), "silu"))
 # the stats suffix of each (dtype, batch) phase 2 times
 ERR_KEY = {torch.float32: "max_abs_err", torch.bfloat16: "max_abs_err_bf16",
            torch.float16: "max_abs_err_f16"}
@@ -717,10 +730,17 @@ def record_shapes(path: str) -> dict:
     return by_canvas
 
 
+def stem_variant(plan) -> str:
+    """A stem plan (kernels/conv3x3.py StemPlan) as phases 2 and 17a print
+    it."""
+    return (f"stem tile {plan.rows}x{32 * plan.strips} ring {plan.ring} "
+            f"blocks/SM {plan.blocks} cg {plan.cg}")
+
+
 def variant(kind, dtype, batch, shape, sms) -> str:
     """What the launch picks for one call, as the wrappers pick it for a
     card of sms SMs: the 16-bit conv's N tile and its block's output rows x
-    columns (or its stem kernel), the float32 conv's tile and split, the
+    columns (or its stem plan), the float32 conv's tile and split, the
     C2f block's plan (its shape class, K chunk, N tile, m64 subtiles a
     warpgroup and 3x3 tile; no cluster: one block an SM) or float32 plan
     (each GEMM's N tile and split, the 3x3 tile), the attention's route by
@@ -737,7 +757,8 @@ def variant(kind, dtype, batch, shape, sms) -> str:
     if kind in ("s1", "s2") and half:
         H, W, ci, co = shape
         if ci <= 7:
-            return "stem"
+            return stem_variant(conv_plan(batch, H, W, ci, co, int(kind[1]),
+                                          sms))
         bn, rows, wt = conv_plan(batch, H, W, padded(ci), padded(co),
                                  int(kind[1]), sms)
         return f"BN {bn} tile {rows}x{wt}"
@@ -828,6 +849,9 @@ def phase_kernels(dev):
     # the convs' bf16 b32 rows: (name, shape, variant, kernel, plain, library,
     # bound ms)
     conv_rows = []
+    # the 16-bit stems' rows (Ci <= 7): (dtype, batch, name, shape, variant,
+    # kernel, plain, library, bound ms)
+    stem_rows = []
 
     def check(kind, dtype, batch, shape, vs, timed=True, act="silu"):
         """One kernel against its plain version at one shape (the convs
@@ -951,6 +975,9 @@ def phase_kernels(dev):
         if suffix == "_b32" and kind in ("s1", "s2"):
             conv_rows.append((name, desc, var, ms, plain_ms, t["library"],
                               bound_ms))
+        if kind in ("s1", "s2") and shape[2] <= 7 and dtype in HALF:
+            stem_rows.append((dtype, batch, name, desc, var, ms, plain_ms,
+                              t["library"], bound_ms))
         for group, holds in SHAPE_GROUPS:
             if not holds(shape, vs):
                 continue
@@ -1008,6 +1035,28 @@ def phase_kernels(dev):
               flush=True)
         for (kind, shape, act), vs in blocks:
             check(kind, dtype, batch, shape, vs, act=act)
+    # the card tests' ragged stems (tests/test_torch_cuda.py): maps neither
+    # 16 nor 32 divides, Co = 16 and 70 (the output's odd 16-byte units),
+    # Ci = 7 (a row wider than a TMA box: the plain loads)
+    print("  the 16-bit stem at the card tests' ragged shapes, B=3",
+          flush=True)
+    for dtype in HALF:
+        for kind, shape, act in STEM_RAGGED:
+            check(kind, dtype, 3, shape, ["ragged"], timed=False, act=act)
+    print("  the 16-bit stems (Ci <= 7, csrc/stem.cuh), device ms: kernel / "
+          "plain / F.conv2d / bound (the kernel's share of its bound)",
+          flush=True)
+    stem_sums = {}
+    for dt, batch, name, desc, var, k, p, lib, bnd in stem_rows:
+        print(f"    {name} {str(dt)[6:]} B={batch} {desc} [{var}]: {k:.4f} / "
+              f"{p:.4f} / {lib:.4f} / {bnd:.4f} ({bnd / k:.3f})", flush=True)
+        acc = stem_sums.setdefault((str(dt)[6:], batch), [0, 0.0, 0.0, 0.0,
+                                                          0.0])
+        for j, v in enumerate((1, k, p, lib, bnd)):
+            acc[j] += v
+    for (dt, batch), (n, k, p, lib, bnd) in sorted(stem_sums.items()):
+        print(f"    stems {dt} B={batch}: {n} shapes, summed {k:.4f} / "
+              f"{p:.4f} / {lib:.4f} / {bnd:.4f} ({bnd / k:.3f})", flush=True)
     print("  the convs' bfloat16 B=32 rows, device ms: kernel / plain / "
           "F.conv2d / bound, and the kernel against F.conv2d", flush=True)
     for name, desc, var, k, p, lib, bnd in conv_rows:
@@ -1188,8 +1237,9 @@ def check_rotated(results, mode):
 def expected_launches(net, skip_one2many=False) -> dict:
     """The kernel launches one forward of a folded net makes, derived from
     its modules: each C2f block on the fused route launches the C2f kernel
-    once (and its own convs none), each int8 ConvBN the quantise pass and
-    the int8 conv once, each other 3x3 ConvBN on the kernel route its
+    once (and its own convs none), each int8 ConvBN the int8 conv once and,
+    but for a stem (route "stem": it quantises in the conv's own launch),
+    the quantise pass once, each other 3x3 ConvBN on the kernel route its
     stride's conv kernel once and each AAttn the attention once;
     an End2End net's forward with skip_one2many (End2End predict) does not
     run the head's one2many towers (cv2, cv3, cv4)."""
@@ -1205,7 +1255,7 @@ def expected_launches(net, skip_one2many=False) -> dict:
         if (skip and name.startswith(head)) or name.startswith(tuple(fused)):
             continue
         if isinstance(m, ConvBN) and m.i8_w is not None:
-            out["quantize_int8"] += 1
+            out["quantize_int8"] += m.int8_route != "stem"
             out["int8_conv"] += 1
         elif isinstance(m, ConvBN) and m.kernel_route:
             out["conv3x3_silu" if m.s == 1 else "conv3x3s2_silu"] += 1
@@ -4840,27 +4890,34 @@ def record_int8_shapes(path: str, canvas: int) -> set:
     return shapes
 
 
-def int8_bound(batch, shape, dtype, cin=None):
+def int8_bound(batch, shape, dtype, cin=None, fused=False):
     """(conv flop, conv bytes, quantise bytes) of one int8 conv: the
     products of K = k k Ci, each input read once and the output written
     once (x in its type; xq and wq int8 over the conv's Ci channels, or
-    over `cin`, the kernel's padded Cp, for the traffic as built)."""
+    over `cin`, the kernel's padded Cp, for the traffic as built; fused:
+    the stem route, which reads x in its type and no xq)."""
     h, w, ci, co, k, s, p, _ = shape
     ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
     cq = ci if cin is None else cin
     size = torch.finfo(dtype).bits // 8
     m = batch * ho * wo
     flop = 2 * m * co * k * k * ci
-    conv_bytes = (batch * h * w * cq + co * k * k * cq + 4 * co + size * co
-                  + size * m * co)
+    conv_bytes = ((size * ci if fused else cq) * batch * h * w
+                  + co * k * k * cq + 4 * co + size * co + size * m * co)
     quant_bytes = batch * h * w * (size * ci + cq)
     return flop, conv_bytes, quant_bytes
 
 
 # phase 17a's aims for the int8 conv at B=32 bf16, set when it moved to
 # wgmma: the sum of all shapes at most this many ms, at least this share
-# of its bound
+# of its bound; the stem route's (quantise included) at most this many ms
 INT8_AIM_MS, INT8_AIM_SHARE = 3.5, 0.33
+INT8_STEM_AIM_MS = 0.6
+# the ragged int8 stems phase 17a holds at B=3 (the card tests' kind):
+# (H, W, Ci, Co, k, s, p, act)
+INT8_STEM_RAGGED = ((9, 33, 3, 16, 3, 2, 1, "silu"),
+                    (17, 23, 3, 70, 3, 1, 1, "identity"),
+                    (13, 17, 3, 16, 6, 2, 2, "silu"))
 
 
 def int8_mma_call(xq, wq, scale, b, stride, pad, act):
@@ -4924,15 +4981,17 @@ def int8_silu_check(dev) -> None:
 def phase_int8_kernels(dev) -> dict:
     """Phase 17a: the quantise pass and the int8 conv against their plain
     versions at every int8 shape of the groups, B=2 in float32, bfloat16
-    and float16 and B=32 in bfloat16, each on its route (int8_route) and
-    plan (int8_plan), timed at B=32: kernel, the mma.sync kernel every
-    shape took before the wgmma routes, plain, torch._int_mm (1x1
-    stride-1 shapes whose Co is a multiple of 8), bound and the conv's
+    and float16 and B=32 in bfloat16, each on its route (int8_route, the
+    ConvBN's: the stems quantise in the conv's launch) and plan (int8_plan,
+    stem_plan), timed at B=32: kernel, the mma.sync kernel every shape took
+    before the wgmma routes (and the stem route), plain, torch._int_mm
+    (1x1 stride-1 shapes whose Co is a multiple of 8), bound and the conv's
     float route today (the conv3x3 kernel or cuDNN); sums by route."""
+    from yolosharp_tpu_torch.kernels.conv3x3 import stem_plan
     from yolosharp_tpu_torch.kernels.int8_conv import (
-        ACTS, activation_scale, int8_conv, int8_conv_plain, int8_plan,
-        int8_route, padded_channels, quantize_int8, quantize_plain,
-        quantize_weight)
+        ACTS, activation_scale, int8_conv, int8_conv_plain, int8_conv_stem,
+        int8_plan, int8_route, padded_channels, quantize_int8,
+        quantize_plain, quantize_weight)
     from yolosharp_tpu_torch.nn import ConvBN
 
     print("phase 17a: int8 kernels against their plain versions: every "
@@ -4962,13 +5021,17 @@ def phase_int8_kernels(dev) -> dict:
                  "ms_with_quantize": 0.0})
     parts = {n: {} for n in INT8_SOURCES}
     group_sums = {}
-    # route -> [shapes, kernel, mma.sync kernel, torch._int_mm, kernel on
-    # the _int_mm shapes, bound] at B=32 bf16
+    # route -> [shapes, kernel, mma.sync kernel (the stem route: with its
+    # quantise pass), torch._int_mm, kernel on the _int_mm shapes, bound,
+    # float route] at B=32 bf16
     route_sums = {}
+    # the stems at B=32 bf16: (shape, kernel, float route ms)
+    stem_times = []
     for sh, groups in shapes:
         h, w, ci, co, k, s, p, act = sh
         cp = padded_channels(ci)
-        route = int8_route(k, s, p, cp, co)
+        route = int8_route(k, s, p, cp, co, ci)
+        stem = route == "stem"
         wf = torch.randn(co, ci, k, k, generator=g, device=dev) * (
             k * k * ci) ** -0.5
         wq, w_scale = quantize_weight(wf)
@@ -4984,17 +5047,24 @@ def phase_int8_kernels(dev) -> dict:
             scale = (a * w_scale).contiguous()
             xq = quantize_int8(x, a, cp)
             xq_plain = quantize_plain(x, a, cp)
-            got = int8_conv(xq_plain, wq, scale, b, s, p, act)
+            got = (int8_conv_stem(x, a, wq, scale, b, s, p, act) if stem
+                   else int8_conv(xq_plain, wq, scale, b, s, p, act))
             want = int8_conv_plain(xq_plain, wq, scale, b, s, p, act)
             ref = ACTS[act](int8_conv_plain(xq_plain, wq, scale, b, s, p)
                             .double())
             torch.cuda.synchronize()
-            plan = int8_plan(route, batch, h, w, cp, co, s, sms,
-                             b.element_size())
+            if stem:
+                plan = stem_plan(batch, h, w, ci, co, s, sms, k, p,
+                                 x.element_size(), b.element_size(), True)
+                desc = stem_variant(plan)
+            else:
+                plan = int8_plan(route, batch, h, w, cp, co, s, sms,
+                                 b.element_size())
+                desc = ((f" BK {plan.bk} BN {plan.bn}" if plan.bn else "")
+                        + (f" tile {plan.rows}x{plan.wt}" if plan.rows
+                           else ""))
             tag = (f"{h}x{w} {ci}->{co} k{k} s{s} p{p} {act} {dt} "
-                   f"B={batch} [{route}"
-                   + (f" BK {plan.bk} BN {plan.bn}" if plan.bn else "")
-                   + (f" tile {plan.rows}x{plan.wt}" if plan.rows else "")
+                   f"B={batch} [" + (desc if stem else route + desc)
                    + f"] [{' + '.join(groups)}]")
             if not torch.equal(xq, xq_plain):
                 raise SystemExit(f"quantize_int8 {tag}: differs from its "
@@ -5002,7 +5072,10 @@ def phase_int8_kernels(dev) -> dict:
             err = float((got.float() - want.float()).abs().max())
             top = float(ref.abs().max()) + 1e-12
             dk = float((got.double() - ref).abs().max()) / top
-            if dtype == torch.float32:
+            if stem:   # the same int8 values, sums and epilogue
+                ok = torch.equal(got, want.contiguous())
+                rule = "equal to the bit (quantise included)"
+            elif dtype == torch.float32:
                 atol, rtol = TOL_F32["conv"]
                 bad = int(((got - want).abs() > atol + rtol * want.abs())
                           .sum())
@@ -5031,7 +5104,9 @@ def phase_int8_kernels(dev) -> dict:
             xn = x.permute(0, 3, 1, 2)
             fns = {"plain": lambda: int8_conv_plain(
                        quantize_plain(x, a, cp), wq, scale, b, s, p, act),
-                   "kernel": lambda: int8_conv(xq, wq, scale, b, s, p, act),
+                   "kernel": (lambda: int8_conv_stem(x, a, wq, scale, b, s,
+                                                     p, act)) if stem else
+                   (lambda: int8_conv(xq, wq, scale, b, s, p, act)),
                    "mma.sync": lambda: int8_mma_call(xq, wq, scale, b, s, p,
                                                      act),
                    "quantize": lambda: quantize_int8(x, a, cp),
@@ -5049,23 +5124,38 @@ def phase_int8_kernels(dev) -> dict:
                              wq.permute(0, 3, 1, 2).double()).permute(
                         0, 2, 3, 1).reshape(-1, co), rtol=0, atol=0)
             t, _ = time_calls(fns, iters=5)
-            flop, cbytes, qbytes = int8_bound(batch, sh, dtype)
+            flop, cbytes, qbytes = int8_bound(batch, sh, dtype, fused=stem)
+            if stem:    # no quantise pass: its launch is the kernel's
+                qbytes = 0
             cb, cby = max((flop / INT8_PEAK * 1e3, "operations"),
                           (cbytes / HBM_BYTES * 1e3, "bytes"))
             qb = qbytes / HBM_BYTES * 1e3
             # the same bound over the kernel's Cp-padded xq and wq
-            _, cpad, qpad = int8_bound(batch, sh, dtype, cp)
+            _, cpad, qpad = int8_bound(batch, sh, dtype, cp, fused=stem)
+            if stem:
+                qpad = 0
             cb_pad = max(flop / INT8_PEAK, cpad / HBM_BYTES) * 1e3
             qb_pad = qpad / HBM_BYTES * 1e3
-            rs = route_sums.setdefault(route, [0] + [0.0] * 5)
+            rs = route_sums.setdefault(route, [0] + [0.0] * 7)
             for j, v in enumerate((1, t["kernel"], t["mma.sync"],
                                    t.get("library", 0.0),
-                                   t["kernel"] if lib else 0.0, cb)):
+                                   t["kernel"] if lib else 0.0, cb,
+                                   t["bf16 route"],
+                                   t["quantize"] if stem else 0.0)):
                 rs[j] += v
-            print(f"    device (CUDA graph): {t['kernel']:.4f} ms conv "
-                  f"kernel [mma.sync kernel {t['mma.sync']:.4f}] + "
-                  f"{t['quantize']:.4f} ms quantise "
-                  f"({t['both']:.4f} ms the two), {t['plain']:.4f} ms "
+            if stem:
+                stem_times.append((sh, t["kernel"], t["bf16 route"]))
+                print(f"    device (CUDA graph): {t['kernel']:.4f} ms the "
+                      f"stem kernel, quantise included [before: mma.sync "
+                      f"kernel {t['mma.sync']:.4f} + quantise pass "
+                      f"{t['quantize']:.4f} = {t['both']:.4f} ms], ",
+                      end="", flush=True)
+            else:
+                print(f"    device (CUDA graph): {t['kernel']:.4f} ms conv "
+                      f"kernel [mma.sync kernel {t['mma.sync']:.4f}] + "
+                      f"{t['quantize']:.4f} ms quantise "
+                      f"({t['both']:.4f} ms the two), ", end="", flush=True)
+            print(f"{t['plain']:.4f} ms "
                   f"plain (its quantise {t['plain quantize']:.4f}), "
                   f"{t['bf16 route']:.4f} ms float route; "
                   + (f"{t['library']:.4f} ms torch._int_mm; " if lib
@@ -5079,15 +5169,17 @@ def phase_int8_kernels(dev) -> dict:
             conv["bound_ms"] += cb
             conv["bound_ms_padded"] += cb_pad
             conv["bf16_route_ms"] += t["bf16 route"]
-            conv["ms_with_quantize"] += t["both"]
+            conv["ms_with_quantize"] += t["kernel" if stem else "both"]
             parts["int8_conv"][cby] = parts["int8_conv"].get(cby, 0.0) + cb
             q = stats["quantize_int8"]
-            q["ms"] += t["quantize"]
-            q["plain_ms"] += t["plain quantize"]
-            q["bound_ms"] += qb
-            q["bound_ms_padded"] += qb_pad
-            parts["quantize_int8"]["bytes"] = \
-                parts["quantize_int8"].get("bytes", 0.0) + qb
+            if not stem:    # the stems launch no quantise pass
+                q["ms"] += t["quantize"]
+                q["plain_ms"] += t["plain quantize"]
+                q["bound_ms"] += qb
+                q["bound_ms_padded"] += qb_pad
+                q["quantised_shapes"] = q.get("quantised_shapes", 0) + 1
+                parts["quantize_int8"]["bytes"] = \
+                    parts["quantize_int8"].get("bytes", 0.0) + qb
             if lib:
                 conv["library_ms"] += t["library"]
                 conv["ms_int_mm_shapes"] += t["kernel"]
@@ -5095,13 +5187,37 @@ def phase_int8_kernels(dev) -> dict:
             for group in groups:
                 acc = group_sums.setdefault(group, [0] + [0.0] * 8)
                 acc[0] += 1
-                for j, v in enumerate((t["kernel"], t["quantize"],
+                for j, v in enumerate((t["kernel"],
+                                       0.0 if stem else t["quantize"],
                                        t["plain"], t["bf16 route"],
                                        t.get("library", 0.0),
                                        t["kernel"] if lib else 0.0,
                                        cb + qb, cb_pad + qb_pad), 1):
                     acc[j] += v
             del fl, fns
+    print("  the stem route at ragged shapes, B=3, equal to the bit",
+          flush=True)
+    for h, w, ci, co, k, s, p, act in INT8_STEM_RAGGED:
+        wq, w_scale = quantize_weight(torch.randn(
+            co, ci, k, k, generator=g, device=dev) * (k * k * ci) ** -0.5)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = (torch.randn(3, h, w, ci, generator=g, device=dev)
+                 * 2).to(dtype)
+            b = (torch.randn(co, generator=g, device=dev) * 0.1).to(dtype)
+            a = activation_scale(x.float().abs().amax() * 0.9)
+            scale = (a * w_scale).contiguous()
+            got = int8_conv_stem(x, a, wq, scale, b, s, p, act)
+            want = int8_conv_plain(quantize_plain(x, a, padded_channels(ci)),
+                                   wq, scale, b, s, p, act)
+            ok = torch.equal(got, want.contiguous())
+            print(f"  int8_conv {h}x{w} {ci}->{co} k{k} s{s} p{p} {act} "
+                  f"{str(dtype)[6:]} B=3 [stem]: "
+                  f"{'equal to the bit OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SystemExit("the int8 stem route disagrees with its "
+                                 "plain version")
+    q = stats["quantize_int8"]
+    q["shapes"] = q.pop("quantised_shapes", 0)   # the stems quantise in-kernel
     for name, part in parts.items():
         stats[name]["bound_by"] = max(part, key=part.get)
     for group, (n, k, qz, pl, fr, lib, klib, bnd, bpad) in \
@@ -5116,12 +5232,24 @@ def phase_int8_kernels(dev) -> dict:
           f"quantise {stats['quantize_int8']['ms']:.4f} ms against the "
           f"float route's {conv['bf16_route_ms']:.4f} ms", flush=True)
     old = 0.0
-    for route, (n, k, mma, lib, klib, bnd) in sorted(route_sums.items()):
+    for route, (n, k, mma, lib, klib, bnd, fr, qz) in sorted(
+            route_sums.items()):
         old += mma
+        if route == "stem":
+            print(f"  route stem: {n} shapes at B={SERVED_BATCH} bf16, device "
+                  f"ms summed: conv (quantise included) {k:.4f} [before: "
+                  f"mma.sync kernel {mma:.4f} + quantise pass {qz:.4f} = "
+                  f"{mma + qz:.4f}], float route {fr:.4f}, bound {bnd:.4f} "
+                  f"({bnd / k:.3f} of it)", flush=True)
+            conv.update({"stem_route_ms": k, "stem_route_before_ms": mma + qz,
+                         "stem_route_bound_ms": bnd,
+                         "stem_route_float_ms": fr})
+            continue
         print(f"  route {route}: {n} shapes at B={SERVED_BATCH} bf16, device "
               f"ms summed: kernel {k:.4f} [mma.sync kernel {mma:.4f}], "
               f"torch._int_mm {lib:.4f} (kernel {klib:.4f} on its shapes), "
-              f"bound {bnd:.4f} ({bnd / k:.3f} of it)", flush=True)
+              f"bound {bnd:.4f} ({bnd / k:.3f} of it), float route "
+              f"{fr:.4f}", flush=True)
     conv["ms_mma_sync"] = old
     mm = conv["ms_int_mm_shapes"]
     aims = [(f"1x1 shapes below torch._int_mm: {mm:.4f} ms against "
@@ -5137,6 +5265,15 @@ def phase_int8_kernels(dev) -> dict:
              f"{conv['ms_with_quantize']:.4f} ms against "
              f"{conv['bf16_route_ms']:.4f}",
              conv["ms_with_quantize"] < conv["bf16_route_ms"])]
+    stem_ms = sum(k for _, k, _ in stem_times)
+    aims.append((f"the {len(stem_times)} stems (quantise included) at most "
+                 f"{INT8_STEM_AIM_MS} ms: {stem_ms:.4f}",
+                 stem_ms <= INT8_STEM_AIM_MS))
+    for sh, k, fr in stem_times:
+        what = ("the 16-bit stem" if sh[4] == 3 else "its float route "
+                "(cuDNN)")
+        aims.append((f"the {sh[0]}^2 {sh[4]}x{sh[4]}/{sh[5]} stem no slower "
+                     f"than {what}: {k:.4f} ms against {fr:.4f}", k <= fr))
     for text, held in aims:
         print(f"  aim {'held' if held else 'missed'}: {text}", flush=True)
     return stats

@@ -1343,7 +1343,13 @@ def test_int8_predict_on_the_card_matches_the_cpu(cuda):
     reset_launch_counts()
     rows = card.image_predict(img, 0.5, 0.45)
     counts = launch_counts()
-    assert counts["int8_conv"] == counts["quantize_int8"] == len(got)
+    # the stem quantises in its conv's launch (route "stem")
+    stems = sum(m.int8_route == "stem"
+                for m in card.task._predict_variables().modules()
+                if isinstance(m, ConvBN))
+    assert stems == 1
+    assert counts["int8_conv"] == len(got)
+    assert counts["quantize_int8"] == len(got) - stems
     assert counts["conv3x3_silu"] == counts["conv3x3s2_silu"] == \
         counts["c2f_fused"] == 0
     ref = cpu.image_predict(img, 0.5, 0.45)
@@ -1641,3 +1647,144 @@ def test_float32_conv_at_forced_plans_and_splits(cuda, shape):
             torch.cuda.synchronize()
             _check(got, want, "float32")
             assert torch.equal(got, again), plan
+
+
+# ------------------------------------------------------------- the stems
+# (B, H, W, Ci, Co, stride) of the 16-bit stem (csrc/stem.cuh) and plans
+# other than stem_plan's: rows x 32-column strips, ring slots, blocks an SM,
+# channels a chunk (a chunk under Co loops in the block); W Ci of 33 x 3 or
+# 7 channels takes the plain loads, 96 x 3 the TMA boxes
+STEM_FORCED = [((2, 64, 96, 3, 200, 2), (4, 2, 2, 1, 64)),
+               ((2, 64, 96, 3, 32, 2), (1, 8, 3, 2, 32)),
+               ((2, 64, 96, 3, 64, 1), (16, 1, 2, 1, 32)),
+               ((3, 17, 23, 3, 16, 1), (2, 4, 4, 2, 32)),
+               ((3, 9, 33, 3, 70, 2), (8, 1, 2, 2, 32)),
+               ((3, 9, 33, 7, 70, 2), (16, 1, 4, 1, 96)),
+               ((2, 40, 48, 5, 40, 1), (4, 2, 3, 2, 64))]
+
+
+def _stem_case(cuda, B, H, W, ci, co, dt, seed=0):
+    rng = np.random.default_rng(seed + B * H * W + ci * co)
+    x = _rand(rng, B, H, W, ci).to(cuda, dt)
+    w = _rand(rng, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(cuda, dt)
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", range(len(STEM_FORCED)))
+def test_stem_kernel_at_forced_plans(cuda, dtype, case):
+    """The 16-bit stem under its planner's plan and a forced one, with each
+    activation: within 1.25 u of a float64 evaluation of the plain version
+    (the kernel sums in float32 and rounds once), two launches captured in
+    one CUDA graph equal to the eager one, one counted launch a call."""
+    from yolosharp_tpu_torch.kernels.conv3x3 import StemPlan, _launch
+
+    (B, H, W, ci, co, s), forced = STEM_FORCED[case]
+    dt = getattr(torch, dtype)
+    u = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}[dtype]
+    x, w, b = _stem_case(cuda, B, H, W, ci, co, dt)
+    wrapper = conv3x3_silu if s == 1 else conv3x3s2_silu
+    for act in ("silu", "relu", "identity"):
+        ref = conv3x3_plain(x.double(), w.double(), b.double(), act, s)
+        for plan in (None, StemPlan(*forced)):
+            before = wrapper.launches
+            got = (wrapper(x, w, b, act) if plan is None else
+                   _launch("stem", x, w, b, act, s, plan))
+            torch.cuda.synchronize()
+            dk = float((got.double() - ref).abs().max()
+                       / ref.abs().max()) / u
+            assert dk <= 1.25, (act, plan, dk)
+            assert wrapper.launches == before + (plan is None)
+    outs = []
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(2):
+            outs.append(wrapper(x, w, b, "silu"))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = wrapper(x, w, b, "silu")
+    for got in outs:
+        torch.testing.assert_close(got, eager, rtol=0, atol=0)
+
+
+# (B, H, W, Ci, Co, k, stride, padding) of the int8 stem route and a plan
+# other than stem_plan's
+INT8_STEM_CASES = [((3, 9, 33, 3, 16, 3, 2, 1), (8, 1, 2, 2, 32)),
+                   ((2, 64, 64, 3, 32, 6, 2, 2), (4, 2, 3, 1, 32)),
+                   ((3, 17, 23, 3, 70, 3, 1, 1), (2, 4, 4, 2, 32)),
+                   ((2, 13, 17, 3, 16, 6, 2, 2), (16, 1, 2, 2, 32)),
+                   ((2, 20, 24, 5, 24, 5, 1, 2), (1, 8, 4, 1, 32)),
+                   ((2, 64, 96, 3, 32, 3, 2, 0), (8, 1, 4, 2, 32))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", range(len(INT8_STEM_CASES)))
+def test_int8_stem_route_matches_plain(cuda, dtype, case):
+    """The int8 stem route (quantise and conv in one launch) equals its
+    plain version, the plain quantise pass then the plain int8 conv, to the
+    bit, with each activation, under stem_plan's plan and a forced one;
+    one int8_conv launch a call and no quantise pass. Two inputs: drawn
+    (some past 127 a_scale), and on the quotient's rounding ties (a_scale
+    2^-4, x = (n + 1/2) / 16, where the kernel's fast quantise defers to
+    the IEEE division)."""
+    from yolosharp_tpu_torch.kernels.conv3x3 import StemPlan
+    from yolosharp_tpu_torch.kernels.int8_conv import (activation_scale,
+                                                       quantize_weight)
+
+    (B, H, W, ci, co, k, s, p), forced = INT8_STEM_CASES[case]
+    rng = np.random.default_rng(case)
+    dt = getattr(torch, dtype)
+    drawn = _rand(rng, B, H, W, ci, scale=2.0).to(cuda, dt)
+    ties = torch.from_numpy((rng.integers(-140, 140, (B, H, W, ci)) + 0.5)
+                            .astype(np.float32) / 16).to(cuda, dt)
+    wq, w_scale = quantize_weight(_rand(rng, co, ci, k, k, scale=0.1)
+                                  .to(cuda))
+    b = _rand(rng, co, scale=0.1).to(cuda, dt)
+    for x, a in ((drawn, activation_scale(drawn.float().abs().amax() * 0.8)),
+                 (ties, activation_scale(torch.tensor(127 / 16,
+                                                      device=cuda)))):
+        _int8_stem_acts(x, a, wq, w_scale, b, s, p, StemPlan(*forced))
+
+
+def _int8_stem_acts(x, a, wq, w_scale, b, s, p, forced):
+    """One input of the int8 stem route with each activation, under its
+    planner's plan and the forced one, against the plain version."""
+    from yolosharp_tpu_torch.kernels.int8_conv import (int8_conv_stem,
+                                                       int8_stem_plain)
+
+    scale = (a * w_scale).contiguous()
+    for act in ("identity", "silu", "relu"):
+        want = int8_stem_plain(x, a, wq, scale, b, s, p, act).contiguous()
+        for plan in (None, forced):
+            reset_launch_counts()
+            got = int8_conv_stem(x, a, wq, scale, b, s, p, act, plan=plan)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       msg=f"{act} {plan}")
+            counts = launch_counts()
+            assert counts["int8_conv"] == 1 and counts["quantize_int8"] == 0
+
+
+def test_int8_stem_refuses_what_it_cannot_take(cuda):
+    """int8_conv_stem raises on more than 7 input channels, on k k Ci past
+    128, on weights of another Cp and on a bias of another type."""
+    from yolosharp_tpu_torch.kernels.int8_conv import (activation_scale,
+                                                       int8_conv_stem,
+                                                       quantize_weight)
+
+    x = torch.randn(1, 8, 8, 8, device=cuda)
+    a = activation_scale(x.abs().amax())
+    wq, ws = quantize_weight(torch.randn(16, 8, 3, 3, device=cuda))
+    with pytest.raises(ValueError, match="Ci <= 7"):
+        int8_conv_stem(x, a, wq, a * ws, torch.zeros(16, device=cuda), 1, 1)
+    x3 = x[..., :3].contiguous()
+    wq7, ws7 = quantize_weight(torch.randn(16, 3, 7, 7, device=cuda))
+    with pytest.raises(ValueError, match="Ci <= 7"):
+        int8_conv_stem(x3, a, wq7, a * ws7, torch.zeros(16, device=cuda), 2,
+                       3)
+    wq3, ws3 = quantize_weight(torch.randn(16, 3, 3, 3, device=cuda))
+    with pytest.raises(ValueError, match="of x's type"):
+        int8_conv_stem(x3, a, wq3, a * ws3,
+                       torch.zeros(16, device=cuda, dtype=torch.bfloat16), 2,
+                       1)

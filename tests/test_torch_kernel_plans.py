@@ -71,21 +71,23 @@ RAGGED_INT8 = [(9, 33, 51, 51, 3, 1, 1), (17, 23, 128, 96, 3, 2, 1),
 
 def test_int8_route_of_every_phase17_shape():
     """35 1x1 stride-1 shapes (36 convs: v8s's identity 1x1 shares one)
-    take the GEMM, 36 3x3 shapes with Cp >= 32 the flat-row tile, and 4 the
-    mma.sync kernel: the two 3-channel stems, the 16-channel 3x3 (Cp 16)
-    and v5u's 6x6/2 stem."""
+    take the GEMM, 36 3x3 shapes with Cp >= 32 the flat-row tile, 3 the
+    stem kernel (the two 3-channel 3x3/2 stems and v5u's 6x6/2 stem, which
+    quantise in the conv's launch), and 1 the mma.sync kernel: the
+    16-channel 3x3 (Cp 16)."""
     routes = {}
     for h, w, ci, co, k, s, p in INT8_SHAPES:
-        routes.setdefault(int8_route(k, s, p, padded_channels(ci), co),
+        routes.setdefault(int8_route(k, s, p, padded_channels(ci), co, ci),
                           []).append((h, w, ci, co, k, s, p))
     assert {r: len(v) for r, v in routes.items()} == {
-        "gemm": 35, "flat": 36, "mma": 4}
+        "gemm": 35, "flat": 36, "stem": 3, "mma": 1}
     assert all(sh[4:] == (1, 1, 0) for sh in routes["gemm"])
     assert all(sh[4] == 3 and sh[6] == 1 and padded_channels(sh[2]) >= 32
                for sh in routes["flat"])
-    assert sorted(routes["mma"]) == [
-        (160, 160, 16, 32, 3, 1, 1), (224, 224, 3, 32, 3, 2, 1),
-        (640, 640, 3, 32, 3, 2, 1), (640, 640, 3, 32, 6, 2, 2)]
+    assert sorted(routes["stem"]) == [
+        (224, 224, 3, 32, 3, 2, 1), (640, 640, 3, 32, 3, 2, 1),
+        (640, 640, 3, 32, 6, 2, 2)]
+    assert routes["mma"] == [(160, 160, 16, 32, 3, 1, 1)]
     # the route reads the shape only: any other k, s or p leaves the
     # wgmma routes, and so does a Cp of 16
     assert int8_route(1, 2, 0, 64, 64) == "mma"

@@ -20,8 +20,9 @@ from yolosharp_tpu_torch.kernels.c2f import (SMEM_LIMIT, C2fPlan, c2f_plan,
                                              f32_rows, f32_scratch, f32_smem,
                                              gemms, plan_class)
 from yolosharp_tpu_torch.kernels.c2f import tc_smem as c2f_smem
-from yolosharp_tpu_torch.kernels.conv3x3 import (TC_ROWS, ConvPlan, chunk,
-                                                 conv_plan, padded, tc_smem)
+from yolosharp_tpu_torch.kernels.conv3x3 import (TC_ROWS, ConvPlan,
+                                                 StemPlan, chunk, conv_plan,
+                                                 padded, stem_plan, tc_smem)
 from yolosharp_tpu_torch.nn import ArchCfg, C2f, YoloNet
 
 # the tolerance of tests/test_pallas_conv.py: float32 sums in another order
@@ -363,7 +364,8 @@ PLAN_BATCHES = (1, 2, 8, 16, 32)
 
 def _check_plan(B, H, W, ci, co, stride, sms=132):
     """The plan the wrapper passes for one call, checked as the kernel's
-    launch checks it: the stem exactly for Ci <= 7; else an N tile of 64
+    launch checks it: the stem kernel's stem_plan for Ci <= 7
+    (tests/test_torch_stem.py checks it); else an N tile of 64
     or 128 (128 only where Co > 64), a TMA box of (BK, P, R + 3 - S, 1)
     with P = Wt + 3 - S <= 256, R P <= 256 flat rows, the shared memory
     within the card's, and bands and W chunks that cover the output with
@@ -371,7 +373,7 @@ def _check_plan(B, H, W, ci, co, stride, sms=132):
     cip, cop = (ci, co) if ci <= 7 else (padded(ci), padded(co))
     plan = conv_plan(B, H, W, cip, cop, stride, sms)
     if ci <= 7:
-        assert plan == ConvPlan(0)
+        assert plan == stem_plan(B, H, W, ci, co, stride, sms)
         return plan
     bn, rows, wt = plan
     assert bn in ((64, 128) if co > 64 else (64,))
@@ -398,7 +400,7 @@ def test_conv_plan_fits_every_path_shape(stride, shapes):
 
 
 @pytest.mark.parametrize("shape,stride,want", [
-    ((2, 640, 640, 3, 32), 2, ConvPlan(0)),         # the stem kernel
+    ((2, 640, 640, 3, 32), 2, StemPlan(16, 1, 4, 2, 32)),  # the stem kernel
     ((32, 80, 80, 128, 128), 1, ConvPlan(128, 6, 40)),   # 6 x 42 = 252 rows
     ((2, 80, 80, 128, 128), 1, None),
     ((32, 20, 20, 512, 64), 1, None),                # Co <= 64: BN 64
@@ -414,7 +416,7 @@ def test_conv_n_tile_covers_the_sms(shape, stride, want):
     plan = _check_plan(*shape, stride)
     if want is not None:
         assert plan == want
-    if plan.bn:
+    if isinstance(plan, ConvPlan):
         B, H, W, _, co = shape
         ho, wo = (H - 1) // stride + 1, (W - 1) // stride + 1
         blocks = (B * -(-ho // plan.rows) * -(-wo // plan.wt)

@@ -735,17 +735,6 @@ __device__ __forceinline__ Tile tile_of(const GemmGeo& q, int t, int BN) {
   return r;
 }
 
-// SiLU of a value that is rounded to 16 bits right after, in one MUFU
-// operation: silu(v) = v/2 (1 + tanh(v/2)) through tanh.approx (relative
-// error ~2^-11, so at most |v| 2^-12 off), against two for ex2 and rcp: the
-// MUFU rate bounds the epilogues at c = 32.
-__device__ __forceinline__ float silu16(float v) {
-  const float h = 0.5f * v;
-  float th;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(h));
-  return fmaf(h, th, h);
-}
-
 // The value of the low T of a pair of T.
 template <typename T>
 __device__ __forceinline__ float unpack_lo(uint32_t pair) {

@@ -59,8 +59,14 @@
 // the subtile rows past R P); the largest layers run at ~0.55 of the bf16
 // peak. At 640^2 bf16 batch 32 on an H100 80GB HBM3 (700 W) its stride-1
 // and stride-2 shapes sum to 0.92x and 0.75x of F.conv2d's time (PERF.md).
-// - The stem (Ci <= 7) packs its 9 taps x Ci channels into one K <= 64
-//   instead, on mma.sync (conv_stem_kernel).
+// - The stem (Ci <= 7) takes csrc/stem.cuh's streaming kernel instead
+//   (ys_conv3x3_stem): K packed (9 taps x Ci channels, 27 -> 32) on
+//   mma.sync, persistent blocks fed a ring of input bands by TMA, every
+//   output channel of a pixel in one block, whole 16-byte output lines. It
+//   replaced a kernel of small blocks that staged its band with scalar
+//   loads and wrote every 32-byte sector half at a time (0.18-0.22 of the
+//   byte bound at b32 640^2); the note of csrc/stem.cuh says what bounds
+//   it.
 //
 // float32: conv_f32_kernel, float32 FMAs on the CUDA cores (TF32 in any
 // form would break the float32 contract), so what bounds it is the 67
@@ -89,6 +95,7 @@
 
 #include "common.cuh"
 #include "f32_tile.cuh"
+#include "stem.cuh"
 
 using namespace ys;
 
@@ -115,7 +122,7 @@ namespace {
 // each writes its partial sums to a workspace, and f32_split_sum adds them
 // in split order, then the bias and the activation: no atomics, so a result
 // is the same bits from run to run.
-constexpr int kThreads = 256;  // a block of the float32 kernel and of the 16-bit stem
+constexpr int kThreads = 256;  // a block of the float32 kernel
 constexpr int kStemCi = 4;  // the stem: Ci <= 4, one chunk of 4 channels
 
 template <int S, int TN, int SW, int CK>
@@ -714,161 +721,14 @@ cudaError_t launch_tc(const void* x, const void* w, const void* b, void* y, int 
   return cudaGetLastError();
 }
 
-// The stem (Ci <= 7): the 9 taps x Ci channels are packed into one K of at
-// most 64 (k = tap * Ci + ci, the HWIO order) in KS k16 steps, instead of a
-// zero-padded k16 step per tap. A block owns 8 x 32 output pixels x 32
-// channels: it stages the input rows the tile reads as they lie in memory
-// (IW * Ci elements a row), and each lane gathers its A fragments from them
-// through offsets computed once (k -> tap, ci); its B fragments stay in
-// registers. The stem reads 3 and writes 32 channels a pixel, so it is
-// bound by memory latency: the block is small, for many blocks per SM.
-template <int S>
-struct Stem {
-  static constexpr int TH = 8, TW = 32, BN = 32;
-  static constexpr int IH = (TH - 1) * S + 3, IW = (TW - 1) * S + 3;
-  static constexpr int kBytes = IH * IW * 7 * 2;
-};
-
-template <typename T, int S, int KS>
-__global__ void __launch_bounds__(kThreads, 3)
-conv_stem_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const T* __restrict__ bias, T* __restrict__ y, int H, int W, int Ci,
-                 int Co, int Ho, int Wo, int act) {
-  using G = Stem<S>;
-  extern __shared__ __align__(128) uint4 smem[];
-  T* raw = reinterpret_cast<T*>(smem);  // [IH][IW * Ci]
-  const int K = 9 * Ci;
-  const int rowlen = G::IW * Ci;
-
-  const int tiles_w = (Wo + G::TW - 1) / G::TW;
-  const int h0 = (blockIdx.x / tiles_w) * G::TH;
-  const int w0 = (blockIdx.x % tiles_w) * G::TW;
-  const int co0 = blockIdx.y * G::BN;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int hi0 = h0 * S - 1, wi0 = w0 * S - 1;
-  const T* xb = x + (size_t)b * H * W * Ci;
-  const T zero = from_f<T>(0.f);
-
-  for (int i = tid; i < G::IH * rowlen; i += kThreads) {
-    const int r = i / rowlen, e = i - r * rowlen;
-    const int hi = hi0 + r, wi = wi0 + e / Ci;
-    const bool ok = hi >= 0 && hi < H && wi >= 0 && wi < W;
-    raw[i] = ok ? xb[((long)hi * W + wi0) * Ci + e] : zero;
-  }
-  // this lane's A elements k = 16 ks + 2q + {0, 1, 8, 9}: offsets from the
-  // pixel's tap-(0, 0) element, -1 past K; its B fragments (column g)
-  int koff[KS][4];
-  uint32_t bw[KS][4][2];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = ks * 16 + 2 * q + (j & 1) + (j >> 1) * 8;
-      const int tap = k / Ci, ci = k - tap * Ci;
-      koff[ks][j] = k < K ? (tap / 3) * rowlen + (tap % 3) * Ci + ci : -1;
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int co = co0 + ni * 8 + g;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = ks * 16 + 2 * q + h * 8;
-        const float v0 = k < K && co < Co ? to_f(w[(size_t)k * Co + co]) : 0.f;
-        const float v1 = k + 1 < K && co < Co ? to_f(w[(size_t)(k + 1) * Co + co]) : 0.f;
-        bw[ks][ni][h] = Half16<T>::pack(v0, v1);
-      }
-    }
-  }
-  __syncthreads();
-
-  // warp owns output row h0 + warp: two m16 tiles of 16 columns
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-  auto at = [&](int base, int off) { return off >= 0 ? raw[base + off] : zero; };
-  auto pack2 = [](T lo, T hi) { return Half16<T>::bits(lo) | (Half16<T>::bits(hi) << 16); };
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int base0 = warp * S * rowlen + (mi * 16 + g) * S * Ci;
-    const int base1 = base0 + 8 * S * Ci;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const int* o = koff[ks];
-      const uint32_t a[4] = {pack2(at(base0, o[0]), at(base0, o[1])),
-                             pack2(at(base1, o[0]), at(base1, o[1])),
-                             pack2(at(base0, o[2]), at(base0, o[3])),
-                             pack2(at(base1, o[2]), at(base1, o[3]))};
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) Half16<T>::mma(acc[mi][ni], a, bw[ks][ni][0], bw[ks][ni][1]);
-    }
-  }
-  const int ho = h0 + warp;
-  if (ho >= Ho) return;
-  const bool pairs = (Co & 1) == 0;
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int co = co0 + ni * 8 + 2 * q;
-    if (co >= Co) continue;
-    const float b0 = to_f(bias[co]);
-    const float b1 = co + 1 < Co ? to_f(bias[co + 1]) : 0.f;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int wo = w0 + mi * 16 + g + half * 8;
-        if (wo >= Wo) continue;
-        T* yp = y + (((size_t)b * Ho + ho) * Wo + wo) * Co + co;
-        const float v0 = apply_act_fast(acc[mi][ni][2 * half] + b0, act);
-        const float v1 = apply_act_fast(acc[mi][ni][2 * half + 1] + b1, act);
-        if (pairs) {
-          *reinterpret_cast<uint32_t*>(yp) = Half16<T>::pack(v0, v1);
-        } else {
-          yp[0] = from_f<T>(v0);
-          if (co + 1 < Co) yp[1] = from_f<T>(v1);
-        }
-      }
-  }
-}
-
-template <typename T, int S>
-cudaError_t launch_stem(const void* x, const void* w, const void* b, void* y, int B, int H,
-                        int W, int Ci, int Co, int act, cudaStream_t stream) {
-  using G = Stem<S>;
-  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
-  const dim3 grid(((Ho + G::TH - 1) / G::TH) * ((Wo + G::TW - 1) / G::TW),
-                  (Co + G::BN - 1) / G::BN, B);
-  auto kernel = conv_stem_kernel<T, S, 4>;
-  switch ((9 * Ci + 15) / 16) {  // k16 steps of the packed K
-    case 1: kernel = conv_stem_kernel<T, S, 1>; break;
-    case 2: kernel = conv_stem_kernel<T, S, 2>; break;
-    case 3: kernel = conv_stem_kernel<T, S, 3>; break;
-    default: break;
-  }
-  cudaError_t err = allow_smem(kernel, G::kBytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, G::kBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(y), H, W, Ci, Co, Ho, Wo, act);
-  return cudaGetLastError();
-}
-
-// The stem (bn 0, Ci <= 7), else the tensor-core kernel with bn channels a
-// block and R x Wt output pixels (the wrapper's plan, kernels/conv3x3.py
-// conv_plan); the launch checks it.
+// The tensor-core kernel with bn channels a block and R x Wt output pixels
+// (the wrapper's plan, kernels/conv3x3.py conv_plan); the launch checks it.
+// The stem (Ci <= 7) has an entry of its own (ys_conv3x3_stem).
 template <typename T, int S>
 cudaError_t launch_conv(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
                         int Ci, int Co, int Cop, int act, int bn, int R, int Wt,
                         cudaStream_t stream) {
-  if ((bn == 0) != (Ci <= 7)) return cudaErrorInvalidValue;
-  if (bn == 0) return launch_stem<T, S>(x, w, b, y, B, H, W, Ci, Co, act, stream);
-  if ((Ci & 7) || (Cop & 7) || Cop < Co) return cudaErrorInvalidValue;
+  if (Ci <= 7 || (Ci & 7) || (Cop & 7) || Cop < Co) return cudaErrorInvalidValue;
   // one m64 subtile a consumer warpgroup up to 128 flat rows, else two
   const bool two = R * (Wt + 3 - S) > 128;
   if (bn == 128)
@@ -878,6 +738,22 @@ cudaError_t launch_conv(const void* x, const void* w, const void* b, void* y, in
     return two ? launch_tc<T, S, 64, 2>(x, w, b, y, B, H, W, Ci, Co, Cop, R, Wt, act, stream)
                : launch_tc<T, S, 64, 1>(x, w, b, y, B, H, W, Ci, Co, Cop, R, Wt, act, stream);
   return cudaErrorInvalidValue;
+}
+
+// The 16-bit stem on csrc/stem.cuh's streaming kernel: K = 9 Ci in two k16
+// steps (Ci <= 3) or four (Ci <= 7); the plan's rows, strips, ring slots,
+// blocks an SM and channels a chunk.
+template <typename T>
+cudaError_t launch_stem16(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
+                          int Ci, int Co, int S, int act, int R, int NB, int ns, int blocks,
+                          int cg, cudaStream_t stream) {
+  const int kst = 9 * Ci <= 32 ? 2 : 4;
+  StemGeo g;
+  if (blocks < 1 || blocks > 2 ||
+      !stem_geometry(g, B, H, W, Ci, Co, 0, 3, S, 1, 2, 2, false, kst, R, NB, ns, cg, act))
+    return cudaErrorInvalidValue;
+  return kst == 2 ? launch_stem_kernel<T, false, 2>(x, w, b, nullptr, nullptr, y, g, blocks, stream)
+                  : launch_stem_kernel<T, false, 4>(x, w, b, nullptr, nullptr, y, g, blocks, stream);
 }
 
 // The descriptor probe: D = A[r0 : r0 + 64] B for r0 = blockIdx.x, with A
@@ -924,12 +800,12 @@ desc_probe_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constan
 
 // Returns the CUDA error of the launch (0 on success; 10000 + a CUresult
 // where a TMA tensor map could not be encoded). dtype: 0 float32 (CUDA
-// cores; bn, R, Wt the plan's channel tile (0: the stem), strips of 8
+// cores; bn, R, Wt the plan's channel tile, strips of 8
 // columns a row and Ci splits; part: the splits' (splits, B, Ho, Wo, Co)
 // float32 workspace where splits > 1; Cop unused), 1 bfloat16 or 2 float16
-// (tensor cores: bn 0 for the stem, else 64 or 128 channels a block, R x Wt
-// output pixels a block; Ci and Cop, the weights' Co, multiples of 8; part
-// unused).
+// (tensor cores: bn 64 or 128 channels a block, R x Wt output pixels a
+// block; Ci and Cop, the weights' Co, multiples of 8; part unused; the stem,
+// Ci <= 7, is ys_conv3x3_stem).
 extern "C" int ys_conv3x3(const void* x, const void* w, const void* b, void* y, void* part,
                           int B, int H, int W, int Ci, int Co, int Cop, int stride, int act,
                           int dtype, int bn, int R, int Wt, void* stream) {
@@ -947,6 +823,26 @@ extern "C" int ys_conv3x3(const void* x, const void* w, const void* b, void* y, 
     return stride == 1
                ? launch_conv<f16, 1>(x, w, b, y, B, H, W, Ci, Co, Cop, act, bn, R, Wt, st)
                : launch_conv<f16, 2>(x, w, b, y, B, H, W, Ci, Co, Cop, act, bn, R, Wt, st);
+  return cudaErrorInvalidValue;
+}
+
+// The 16-bit stem (Ci <= 7): x (B, H, W, Ci), w (3, 3, Ci, Co), b (Co,), y
+// (B, Ho, Wo, Co) of dtype 1 bfloat16 or 2 float16; stride 1 or 2, padding
+// 1; the plan of kernels/conv3x3.py stem_plan. Returns the CUDA error of the
+// launch (10000 + a CUresult where the band's tensor map could not be
+// encoded).
+extern "C" int ys_conv3x3_stem(const void* x, const void* w, const void* b, void* y, int B,
+                               int H, int W, int Ci, int Co, int stride, int act, int dtype,
+                               int rows, int strips, int ring, int blocks, int cg, void* stream) {
+  if (B == 0 || H == 0 || W == 0 || Co == 0) return 0;
+  if (stride != 1 && stride != 2) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_stem16<bf16>(x, w, b, y, B, H, W, Ci, Co, stride, act, rows, strips, ring,
+                               blocks, cg, st);
+  if (dtype == 2)
+    return launch_stem16<f16>(x, w, b, y, B, H, W, Ci, Co, stride, act, rows, strips, ring,
+                              blocks, cg, st);
   return cudaErrorInvalidValue;
 }
 

@@ -26,8 +26,8 @@
 // rounding half to even (__float2int_rn), as jnp.round / torch.round. Bound by
 // the bytes it moves.
 //
-// The conv takes one of three routes, static by shape (kernels/int8_conv.py
-// int8_route; the tile from int8_plan):
+// The conv takes one of four routes, static by shape (kernels/int8_conv.py
+// int8_route; the tile from int8_plan or stem_plan):
 // - 1x1 stride 1 (route 1, a GEMM: M = B*H*W, K = Cp, N = Co) and 3x3 pad 1
 //   stride 1 or 2 with Cp >= 32 (route 2): int8_tc_kernel, one persistent
 //   warp-specialised kernel on wgmma.mma_async.m64nNk32.s32.s8.s8, the
@@ -46,8 +46,20 @@
 //   the warp's shared memory and stores whole 16-byte units of each output
 //   row, so the output, the larger half of the bytes, leaves in full
 //   sectors.
-// - everything else (route 0: the stems with Ci = 3 padded to Cp = 16, v5u's
-//   6x6/2, any other k): int8_mma_kernel, an implicit GEMM on
+// - the stems (route "stem": Ci <= 7 and k k Ci <= 128, the 3x3/2 stems
+//   at 640^2 and 224^2 and v5u's 6x6/2 with padding 2): csrc/stem.cuh's
+//   streaming kernel (ys_int8_stem), shared with the 16-bit stem. It reads
+//   the ConvBN's input in its working type, 3 channels a pixel, not a
+//   16-channel int8 copy: each tile's input band arrives by TMA into a ring,
+//   is quantised in shared memory exactly as quantize_kernel quantises
+//   (bitwise the same int8 values), and K is packed (27 -> 32 bytes, 108 ->
+//   128) on mma.sync.m16n8k32 s8, so no product runs on the zero channels;
+//   every output channel of a pixel is computed in one block, and its
+//   epilogue (dequant, the other routes' order) stages each strip and
+//   stores whole 16-byte units. The stem's quantise pass is gone. What bounds it is the bytes: 3 channels of
+//   T read, Co of T written a pixel.
+// - everything else (route 0: the 3x3 with Cp = 16, any other k or padding
+//   with more than 7 channels): int8_mma_kernel, an implicit GEMM on
 //   mma.sync.m16n8k32 s8 x s8 -> s32. A block owns 128 pixels x 64 channels
 //   (4 warps, 64 x 32 each). Each K step of 64 bytes copies one 16-byte row
 //   a pixel (the pixel each output pixel reads at that tap; zero-filled
@@ -55,8 +67,7 @@
 //   cp.async into a 3-slot ring of shared memory (rows of 80 bytes, so the 8
 //   rows of an ldmatrix fall in 8 bank groups), two steps ahead of the MMAs;
 //   it copies a pixel's row once a tap and issues mma.sync at about half of
-//   what wgmma reaches, and the stems compute 16/3 of their products on
-//   zeros. Packing the stems' taps into K is later work.
+//   what wgmma reaches.
 // Every route's int32 sums are exact (K * 127^2 < 2^31 for K up to ~133,000)
 // and its epilogue takes the JAX order: __int2float_rn, __fmul_rn by scale,
 // round to T, __fadd_rn of the bias, round to T, the activation, round to T
@@ -80,6 +91,7 @@
 #include <cstring>
 
 #include "common.cuh"
+#include "stem.cuh"
 
 using namespace ys;
 
@@ -90,11 +102,6 @@ constexpr int kBM = 128, kBN = 64, kBK = 64;  // block tile; K bytes a step
 constexpr int kStages = 3;
 constexpr int kRow = kBK + 16;                // shared row: 64 bytes + 16 pad
 constexpr int kA = kBM * kRow, kB = kBN * kRow;
-
-__device__ __forceinline__ int8_t quant1(float v, float s) {
-  const int q = __float2int_rn(__fdiv_rn(v, s));
-  return static_cast<int8_t>(min(max(q, -127), 127));
-}
 
 // Sixteen consecutive elements from a 16-byte aligned address.
 __device__ __forceinline__ void load16(const float* p, float o[16]) {
@@ -135,15 +142,6 @@ quantize_kernel(const T* __restrict__ x, const float* __restrict__ a_scale,
 #pragma unroll
   for (int j = 0; j < 16; ++j) out.b[j] = quant1(v[j], s);
   *reinterpret_cast<int4*>(xq + p * Cp + c0) = out.u;
-}
-
-// Four 8x8 b16 matrices = a 16 x 32 (A) or 8 x 64 / 16 x 32 (B) int8 tile.
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 struct ConvShape {
@@ -300,52 +298,6 @@ cudaError_t launch_mma(const void* xq, const void* wq, const void* scale, const 
 }
 
 // ---- the Hopper routes: wgmma s8 fed by TMA, one block an SM
-
-// SiLU to the bit of silu() (v / (1 + expf(-v)) with the IEEE division)
-// without the division's slow-path branch: a branch in every element splits
-// the epilogue into basic blocks one element long, and a warp then waits out
-// each element's latency in turn. The quotient x / y (y = 1 + expf(-v) >= 1,
-// both scaled by 2^-64 where y > 2^64 so that 1 / y stays normal) starts
-// from rcp.approx and one correction, then of it and its two neighbours the
-// one with the least residual |x - c y| (an exact FMA) is the quotient
-// rounded to nearest: no quotient of two floats lies on a tie. Selected
-// apart: 0 and |v| < 2^-90 (y = 2 there: v / 2 is v * 0.5 rounded), the
-// infinities, and y = inf (v < -88.7: -0). tests/test_torch_cuda.py and
-// chip_smoke phase 17a hold it to silu() at all 2^32 float32 inputs
-// (int8_silu_check).
-__device__ __forceinline__ float silu_rn(float v) {
-  const float y = 1.f + expf(-v);
-  const float sc = y > 0x1p64f ? 0x1p-64f : 1.f;
-  const float xs = v * sc, ys = y * sc;
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(ys));
-  float q = xs * r;
-  q = fmaf(fmaf(-q, ys, xs), r, q);
-  const float qm = __int_as_float(__float_as_int(q) - 1);
-  const float qp = __int_as_float(__float_as_int(q) + 1);
-  const float e0 = fabsf(fmaf(-q, ys, xs)), em = fabsf(fmaf(-qm, ys, xs)),
-              ep = fabsf(fmaf(-qp, ys, xs));
-  float out = em < e0 ? qm : q;
-  out = ep < fminf(e0, em) ? qp : out;
-  out = y == INFINITY ? copysignf(0.f, v) : out;
-  out = fabsf(v) < 0x1p-90f ? v * 0.5f : out;
-  out = v == INFINITY ? v : out;
-  return v == -INFINITY ? __int_as_float(0x7fffffff) : out;
-}
-
-// The epilogue of one int32 sum, in the JAX order: __int2float_rn, times
-// the float32 scale, round to T, plus the bias, round to T, the activation
-// ACT (rounded to T by the store). ACT is a template argument and SiLU
-// silu_rn: a runtime switch or branch per element would serialise the
-// elements (silu_rn's note).
-template <typename T, int ACT>
-__device__ __forceinline__ float dequant(int acc, float sc, float bv) {
-  float v = round_t<T>(__fmul_rn(__int2float_rn(acc), sc));
-  v = round_t<T>(__fadd_rn(v, bv));
-  if constexpr (ACT == kSilu) return silu_rn(v);
-  if constexpr (ACT == kRelu) return fmaxf(v, 0.f);
-  return v;
-}
 
 // D (64 x N, int32) += A (64 x 32, K-major) * B (32 x N, K-major), both
 // int8 read from shared memory through their descriptors.
@@ -827,6 +779,24 @@ cudaError_t launch_route(const void* xq, const void* wq, const void* scale, cons
   return cudaErrorInvalidValue;
 }
 
+// The stem route: csrc/stem.cuh's kernel in k32 steps of the packed K (one
+// for K <= 32, else four: K <= 128); the plan of kernels/conv3x3.py
+// stem_plan.
+template <typename T>
+cudaError_t launch_stem8(const void* x, const void* a_scale, const void* wq, const void* scale,
+                         const void* b, void* y, int B, int H, int W, int Ci, int Cp, int Co,
+                         int k, int s, int p, int act, int R, int NB, int ns, int blocks, int cg,
+                         cudaStream_t stream) {
+  const int kst = k * k * Ci <= 32 ? 1 : 4;
+  StemGeo g;
+  if (blocks < 1 || blocks > 2 || Cp < Ci ||
+      !stem_geometry(g, B, H, W, Ci, Co, Cp, k, s, p, sizeof(T), sizeof(T), true, kst, R, NB,
+                     ns, cg, act))
+    return cudaErrorInvalidValue;
+  return kst == 1 ? launch_stem_kernel<T, true, 1>(x, wq, b, scale, a_scale, y, g, blocks, stream)
+                  : launch_stem_kernel<T, true, 4>(x, wq, b, scale, a_scale, y, g, blocks, stream);
+}
+
 // The 8-bit descriptor probe: out[r0] = A[r0 : r0 + 64] B^T (int32) for r0 =
 // blockIdx.x, A (128 x BK) and B (64 x BK) int8 loaded by TMA under the
 // kernel's swizzle and read through desc8<BK> as a tap reads its rows and
@@ -950,6 +920,30 @@ extern "C" int ys_int8_conv(const void* xq, const void* wq, const void* scale, c
     return launch_route<bf16>(xq, wq, scale, b, y, B, H, W, sh, act, route, bk, bn, R, Wt, st);
   if (dtype == 2)
     return launch_route<f16>(xq, wq, scale, b, y, B, H, W, sh, act, route, bk, bn, R, Wt, st);
+  return cudaErrorInvalidValue;
+}
+
+// The stem route, quantise and conv in one launch: x (B, H, W, Ci) NHWC of
+// the dtype's type (0 float32, 1 bfloat16, 2 float16), Ci <= 7; a_scale one
+// float32; wq (Co, k, k, Cp) int8; scale (Co,) float32; b (Co,) and y (B, Ho,
+// Wo, Co) of x's type; the plan of kernels/conv3x3.py stem_plan. Returns the
+// CUDA error of the launch (10000 + a CUresult where the band's tensor map
+// could not be encoded).
+extern "C" int ys_int8_stem(const void* x, const void* a_scale, const void* wq, const void* scale,
+                            const void* b, void* y, int B, int H, int W, int Ci, int Cp, int Co,
+                            int k, int s, int p, int act, int dtype, int rows, int strips,
+                            int ring, int blocks, int cg, void* stream) {
+  if (B == 0 || H == 0 || W == 0 || Co == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_stem8<float>(x, a_scale, wq, scale, b, y, B, H, W, Ci, Cp, Co, k, s, p, act,
+                               rows, strips, ring, blocks, cg, st);
+  if (dtype == 1)
+    return launch_stem8<bf16>(x, a_scale, wq, scale, b, y, B, H, W, Ci, Cp, Co, k, s, p, act,
+                              rows, strips, ring, blocks, cg, st);
+  if (dtype == 2)
+    return launch_stem8<f16>(x, a_scale, wq, scale, b, y, B, H, W, Ci, Cp, Co, k, s, p, act,
+                             rows, strips, ring, blocks, cg, st);
   return cudaErrorInvalidValue;
 }
 

@@ -27,8 +27,13 @@ The route goes by dtype, statically, with no fallback:
   zero-padded here (TMA needs 16-byte strides). With the tile copied once
   and not nine times, what bounds it is its epilogue, not overlapped with
   the next tile's products, and each k step's barrier round trip (the
-  source note of ``csrc/conv3x3.cu``). The stem (Ci <= 7) packs its 9
-  taps x Ci channels into one K <= 64 on ``mma.sync``.
+  source note of ``csrc/conv3x3.cu``). The stem (Ci <= 7) takes the
+  streaming kernel of ``csrc/stem.cuh`` instead, which it shares with the
+  int8 stem: bound by the bytes it moves (3 channels read, 32-96 written a
+  pixel), it keeps persistent blocks fed a ring of input bands by TMA,
+  packs its 9 taps x Ci channels into one K on ``mma.sync``, computes every
+  output channel of a pixel in one block and writes whole 16-byte output
+  lines; ``stem_plan`` picks its tile, ring and blocks an SM.
 - float32: the CUDA-core kernel, float32 FMAs in every form (TF32 would
   break the float32 contract; the bound is the 67 TFLOP/s float32 pipe,
   which every path's shapes at B=2 reach ~0.4 of on an H100 80GB HBM3 at
@@ -77,12 +82,101 @@ TC_BSTAGES = 4         # slots of the weight ring at least (up to 8 where
 
 
 class ConvPlan(NamedTuple):
-    """What one 16-bit launch runs: ``bn`` output channels a block (0: the
-    stem kernel, Ci <= 7), ``rows`` output rows and ``wt`` output columns a
-    block."""
+    """What one 16-bit launch of the tensor-core kernel (Ci >= 8) runs:
+    ``bn`` output channels a block, ``rows`` output rows and ``wt`` output
+    columns a block."""
     bn: int
     rows: int = 0
     wt: int = 0
+
+
+class StemPlan(NamedTuple):
+    """What one launch of the stem kernel (csrc/stem.cuh; the 16-bit conv
+    at Ci <= 7 and the int8 stem route) runs: a tile of ``rows`` output rows
+    x ``strips`` strips of 32 output columns, ``ring`` input-band slots in
+    flight, ``blocks`` blocks an SM, and the output channels ``cg`` an
+    epilogue chunk (the whole Co wherever it fits)."""
+    rows: int
+    strips: int
+    ring: int
+    blocks: int
+    cg: int
+
+
+# the stem kernel's constants (csrc/stem.cuh): consumer warps, output
+# columns a strip, band slots at most; its tiles (rows, strips); a Hopper
+# SM's shared memory (two blocks take 1 KB of it each besides their own)
+STEM_WARPS, STEM_STRIP, STEM_MAX_RING = 8, 32, 4
+STEM_TILES = ((16, 1), (8, 1), (4, 2), (2, 4), (1, 8))
+SM_SMEM = 233472
+
+
+def stem_ksteps(k: int, ci: int, int8: bool) -> int:
+    """The k steps of the stem kernel's packed K = k k Ci: k16 steps in 16
+    bits (2 to K = 32, else 4), k32 steps in int8 (1 to K = 32, else 4)."""
+    if int8:
+        return 1 if k * k * ci <= 32 else 4
+    return 2 if k * k * ci <= 32 else 4
+
+
+def stem_band(k: int, stride: int, pad: int, ci: int, rows: int, isz: int):
+    """(rows, elements a row) of one strip's input band: (rows - 1) s + k
+    rows of the strip's (31 s + k) Ci elements from the 16-byte unit its
+    first element (column 32 j s - pad) lies in, rounded up to 16 bytes."""
+    unit = 16 // isz
+    shift = (-pad * ci) % unit
+    iw = shift + ((STEM_STRIP - 1) * stride + k) * ci
+    return (rows - 1) * stride + k, -(-iw // unit) * unit
+
+
+def stem_smem(k: int, stride: int, pad: int, ci: int, co: int,
+              plan: StemPlan, isz: int = 2, osz: int = 2,
+              int8: bool = False) -> int:
+    """Dynamic shared memory of one stem block (its stem_geometry): the ring
+    of band slots, the int8 route's two quantised copies, the weights as B
+    fragments, bias and scale, the warps' staging rows, the barriers."""
+    ih, iwb = stem_band(k, stride, pad, ci, plan.rows, isz)
+    sub = -(-ih * iwb * isz // 128) * 128     # a strip's band, 128-aligned
+    slot = plan.strips * sub
+    q = -(-plan.strips * sub // isz // 128) * 128 if int8 else 0
+    wfrag = stem_ksteps(k, ci, int8) * -(-co // 8) * 32 * 8
+    cop32 = -(-co // 32) * 32
+    stage = STEM_WARPS * STEM_STRIP * (plan.cg * osz + 16)
+    return (128 + plan.ring * slot + 2 * q + wfrag + 8 * cop32 + stage
+            + 16 * STEM_MAX_RING)
+
+
+@functools.lru_cache(maxsize=None)
+def stem_plan(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
+              sms: int, k: int = 3, pad: int = 1, isz: int = 2, osz: int = 2,
+              int8: bool = False) -> StemPlan:
+    """The stem kernel's plan for one call on a card of sms SMs: channel
+    chunks of the whole Co up to 128 (64 for a float32 output), the ring's
+    four slots (fewer where the shared memory runs out), two blocks an SM
+    where two fit, and of STEM_TILES the tile whose persistent grid gives
+    its busiest warp the fewest strips (its rounds of tiles times the
+    strips a warp takes a tile), then the one that reads the fewest input
+    rows an output row (the band's halo), then the larger tile."""
+    ho = (H + 2 * pad - k) // stride + 1
+    wo = (W + 2 * pad - k) // stride + 1
+    cg = min(-(-Co // 32) * 32, 128 if osz == 2 else 64)
+    best = None
+    for rows, strips in STEM_TILES:
+        for ring in range(STEM_MAX_RING, 1, -1):
+            plan = StemPlan(rows, strips, ring, 1, cg)
+            smem = stem_smem(k, stride, pad, Ci, Co, plan, isz, osz, int8)
+            if smem <= build.SMEM_LIMIT:
+                break
+        else:
+            continue
+        blocks = 2 if 2 * (smem + 1024) <= SM_SMEM else 1
+        tiles = B * -(-ho // rows) * -(-wo // (STEM_STRIP * strips))
+        rounds = -(-tiles // (sms * blocks))
+        key = (rounds * -(-rows * strips // STEM_WARPS),
+               ((rows - 1) * stride + k) / rows, -rows * strips)
+        if best is None or key < best[0]:
+            best = (key, plan._replace(blocks=blocks))
+    return best[1]
 
 
 def chunk(stride: int) -> int:
@@ -154,13 +248,13 @@ def plan_cost(B: int, Ho: int, Wo: int, Ci: int, Co: int, stride: int,
 def conv_plan(B: int, H: int, W: int, Ci: int, Co: int, stride: int,
               sms: int) -> ConvPlan:
     """The 16-bit kernel's tile for one call on a card of sms SMs: the stem
-    where Ci <= 7, else the N tile (128 only where Co > 64), the W chunk
-    (Wt + 2 or + 1 pixels a tile row, at most 256) and the band's rows
-    (R P <= 256 flat rows, the shared memory within the card's) that
-    plan_cost rates fastest. Ci and Co are the padded widths the kernel
-    takes."""
+    kernel's stem_plan where Ci <= 7, else the N tile (128 only where Co >
+    64), the W chunk (Wt + 2 or + 1 pixels a tile row, at most 256) and the
+    band's rows (R P <= 256 flat rows, the shared memory within the card's)
+    that plan_cost rates fastest. Ci and Co are the padded widths the
+    kernel takes (the stem's unpadded)."""
     if Ci <= 7:
-        return ConvPlan(0)
+        return stem_plan(B, H, W, Ci, Co, stride, sms)
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     best = None
     for bn in ((64, 128) if Co > 64 else (64,)):
@@ -296,6 +390,10 @@ def _lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                    + [ctypes.c_void_p])
+    stem = lib.ys_conv3x3_stem
+    stem.restype = ctypes.c_int
+    stem.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+                     + [ctypes.c_void_p])
     probe = lib.ys_conv3x3_desc_probe
     probe.restype = ctypes.c_int
     probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
@@ -305,9 +403,9 @@ def _lib() -> ctypes.CDLL:
 def _launch(name: str, x, w, b, act: str, stride: int,
             plan=None) -> torch.Tensor:
     """The kernel's launch; it runs ``plan`` where one is given (a ConvPlan
-    on the 16-bit route, an F32Plan on the float32 one: tests hold other
-    tiles than the planner's to the plain version), else conv_plan's or
-    f32_plan's."""
+    on the 16-bit route, a StemPlan on its stem, an F32Plan on the float32
+    route: tests hold other tiles than the planner's to the plain
+    version), else conv_plan's or f32_plan's."""
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"{name}: x must be (B, H, W, Ci) and w (3, 3, Ci, "
                          f"Co), got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -328,8 +426,16 @@ def _launch(name: str, x, w, b, act: str, stride: int,
         if plan.splits > 1:   # the splits' partial sums
             part = torch.empty((plan.splits, B, Ho, Wo, Co),
                                dtype=torch.float32, device=x.device)
+    elif Ci <= 7:
+        plan = plan or conv_plan(B, H, W, Ci, Co, stride, sms)
+        with torch.cuda.device(x.device):
+            status = _lib().ys_conv3x3_stem(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B, H,
+                W, Ci, Co, stride, ACT_CODES[act], code, *plan, stream)
+        build.check_status(name, status)
+        return y
     else:
-        cip, cop = (Ci, Co) if Ci <= 7 else (padded(Ci), padded(Co))
+        cip, cop = padded(Ci), padded(Co)
         if (cip, cop) != (Ci, Co):   # TMA needs 16-byte strides
             x = F.pad(x, (0, cip - Ci))
             w = F.pad(w, (0, cop - Co, 0, cip - Ci))

@@ -28,10 +28,19 @@ The conv's route is static, a function of the shape alone (``int8_route``):
 - ``"flat"``, 3x3 padding 1 stride 1 or 2 with Cp >= 32: the 16-bit conv's
   flat-row tile (the input tile loaded by TMA once a channel chunk for all
   nine taps, four parity planes at stride 2), on ``wgmma`` s8;
-- ``"mma"``, everything else (the 3-channel stems padded to Cp = 16, v5u's
-  6x6/2 stem, any other k): the ``mma.sync`` implicit GEMM.
+- ``"stem"``, a conv whose input has Ci <= 7 channels and k k Ci <= 128
+  (the 3x3/2 stems at 640 and 224, v5u's 6x6/2 stem): ``int8_conv_stem``,
+  quantise and conv in one launch of the streaming stem kernel of
+  ``csrc/stem.cuh`` (shared with the 16-bit stem): it reads the ConvBN's
+  input in its working type, 3 channels a pixel, quantises each staged
+  band in shared memory exactly as ``quantize_int8`` does, and packs K
+  (27 -> 32, 108 -> 128) on ``mma.sync`` s8; the stem launches no quantise
+  pass. Only the ConvBN, which knows its Ci, takes it;
+- ``"mma"``, everything else (the 3x3 with Cp = 16, any other k or padding
+  with more channels): the ``mma.sync`` implicit GEMM.
 
-The two ``wgmma`` routes are one persistent warp-specialised kernel (a TMA
+The stem route's plan is ``conv3x3.stem_plan``'s. The two ``wgmma`` routes
+are one persistent warp-specialised kernel (a TMA
 producer thread, two consumer warpgroups, one block an SM); ``int8_plan``
 picks its tile (channel chunk, N tile, the flat-row tile's output rows and
 columns) from the shape, the batch and the card's SM count. Its bound at
@@ -67,7 +76,8 @@ import torch.nn.functional as F
 from ..utils.numerics import divide_by_constant
 from . import build
 from .conv3x3 import (ACT_CODES, COST_LAUNCH, COST_MMA, COST_OUT,
-                      COST_ROUND, COST_STEP, COST_TILE_KB)
+                      COST_ROUND, COST_STEP, COST_TILE_KB, StemPlan,
+                      stem_plan)
 
 ACTS = {"identity": lambda y: y, "silu": F.silu, "relu": F.relu}
 
@@ -78,15 +88,23 @@ def padded_channels(ci: int) -> int:
 
 
 ROUTES = ("mma", "gemm", "flat")   # their codes in csrc/int8_conv.cu
+# the stem route (its own entry, ys_int8_stem): input channels and K
+STEM_CI, STEM_K = 7, 128
 TC_ROWS = 256        # flat rows of a 3x3 wgmma block: two warpgroups x 128
 GEMM_ROWS = 128      # rows of a GEMM block: two warpgroups x 64
 TC_CONSUMER_WARPS = 8
 TC_MIN_BSTAGES, TC_MAX_BSTAGES = 4, 8
 
 
-def int8_route(k: int, s: int, p: int, cp: int, co: int) -> str:
+def int8_route(k: int, s: int, p: int, cp: int, co: int,
+               ci: int = None) -> str:
     """The conv's route for a k x k / stride s / padding p conv of Cp
-    (padded) input and Co output channels: "gemm", "flat" or "mma"."""
+    (padded) input and Co output channels: "stem" where ci, the input's own
+    channels, is given (a ConvBN quantising its input) and ci <= STEM_CI and
+    k k ci <= STEM_K; else "gemm", "flat" or "mma" (an int8 input of Cp
+    channels)."""
+    if ci is not None and ci <= STEM_CI and k * k * ci <= STEM_K:
+        return "stem"
     if k == 1 and s == 1 and p == 0:
         return "gemm"
     if k == 3 and p == 1 and s in (1, 2) and cp >= 32:
@@ -218,6 +236,15 @@ def quantize_plain(x: torch.Tensor, a_scale: torch.Tensor,
     return F.pad(xq.to(torch.int8), (0, cp - x.shape[-1]))
 
 
+def int8_stem_plain(x: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
+                    scale: torch.Tensor, b: torch.Tensor, stride: int,
+                    pad: int, act: str = "identity") -> torch.Tensor:
+    """The stem route's plain version: the plain quantise pass, then the
+    plain int8 conv."""
+    return int8_conv_plain(quantize_plain(x, a_scale, wq.shape[-1]), wq,
+                           scale, b, stride, pad, act)
+
+
 def int8_conv_plain(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                     b: torch.Tensor, stride: int, pad: int,
                     act: str = "identity") -> torch.Tensor:
@@ -241,6 +268,9 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_void_p])
     lib.ys_int8_conv.restype = ctypes.c_int
     lib.ys_int8_conv.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 15
+                                 + [ctypes.c_void_p])
+    lib.ys_int8_stem.restype = ctypes.c_int
+    lib.ys_int8_stem.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 16
                                  + [ctypes.c_void_p])
     lib.ys_int8_silu_check.restype = ctypes.c_int
     lib.ys_int8_silu_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -340,6 +370,63 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
             torch.cuda.current_stream(xq.device).cuda_stream)
     build.check_status("int8_conv", status)
     build.count_launch(int8_conv, xq.device)
+    return y
+
+
+def int8_conv_stem(x: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
+                   scale: torch.Tensor, b: torch.Tensor, stride: int,
+                   pad: int, act: str = "silu",
+                   plan: StemPlan = None) -> torch.Tensor:
+    """The stem route: quantise x (B, H, W, Ci) NHWC (Ci <= 7; float32,
+    bfloat16 or float16, b's type) by a_scale (a 0-d float32 tensor) as
+    quantize_int8 does, and run the int8 conv + dequantise + bias +
+    activation of wq (Co, k, k, Cp) int8, scale (Co,) float32 = a_scale *
+    w_scale, b (Co,), in one launch. Returns (B, Ho, Wo, Co) NHWC in b's
+    type. Counted as a launch of int8_conv. The plan is stem_plan's, or
+    ``plan`` where one is given (tests hold other tiles to the plain
+    version)."""
+    if x.device.type == "cpu":
+        return int8_stem_plain(x, a_scale, wq, scale, b, stride, pad, act)
+    if x.dim() != 4 or wq.dim() != 4 or wq.shape[1] != wq.shape[2]:
+        raise ValueError(f"int8_conv_stem: x must be (B, H, W, Ci) and wq "
+                         f"(Co, k, k, Cp), got {tuple(x.shape)} and "
+                         f"{tuple(wq.shape)}")
+    B, H, W, ci = x.shape
+    co, k, cp = wq.shape[0], wq.shape[1], wq.shape[3]
+    if int8_route(k, stride, pad, cp, co, ci) != "stem" or \
+            cp != padded_channels(ci) or wq.dtype != torch.int8:
+        raise ValueError(f"int8_conv_stem: takes Ci <= {STEM_CI} and k k Ci "
+                         f"<= {STEM_K} with int8 wq of Cp = "
+                         f"{padded_channels(ci)}; got x {tuple(x.shape)}, "
+                         f"wq {wq.dtype} {tuple(wq.shape)}")
+    if x.dtype != b.dtype or tuple(b.shape) != (co,) \
+            or scale.dtype != torch.float32 or tuple(scale.shape) != (co,):
+        raise ValueError(f"int8_conv_stem: b ({co},) of x's type and scale "
+                         f"({co},) float32; got x {x.dtype}, b {b.dtype} "
+                         f"{tuple(b.shape)}, scale {scale.dtype} "
+                         f"{tuple(scale.shape)}")
+    code = build.DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise TypeError(f"int8_conv_stem: takes float32, bfloat16 or "
+                        f"float16, got {x.dtype}")
+    if a_scale.dtype != torch.float32 or a_scale.numel() != 1:
+        raise ValueError("int8_conv_stem: a_scale must be one float32 value")
+    if act not in ACT_CODES:
+        raise ValueError(f"int8_conv_stem: unknown activation {act!r}")
+    _check_cuda("int8_conv_stem", x, a_scale, wq, scale, b)
+    ho, wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    y = torch.empty((B, ho, wo, co), dtype=b.dtype, device=x.device)
+    plan = plan or stem_plan(B, H, W, ci, co, stride,
+                             build.sm_count(x.device.index), k, pad,
+                             x.element_size(), b.element_size(), True)
+    with torch.cuda.device(x.device):
+        status = _lib().ys_int8_stem(
+            x.data_ptr(), a_scale.data_ptr(), wq.data_ptr(),
+            scale.data_ptr(), b.data_ptr(), y.data_ptr(), B, H, W, ci, cp,
+            co, k, stride, pad, ACT_CODES[act], code, *plan,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_status("int8_conv_stem", status)
+    build.count_launch(int8_conv, x.device)
     return y
 
 

@@ -27,9 +27,11 @@ a folded ConvBN that the JAX ConvBN would quantise (``int8_eligible``: no
 conv bias, no groups, no dilation, and not a DWConv or Conv2, whose JAX
 classes do not take that branch) records the running max of |x| of its
 input while ``calibrating``, and once ``ckpt.fuse.fold_bn`` has given it a
-calibrated absmax it runs as int8 (``kernels.int8_conv``), ahead of the
-3x3 conv kernel; a C2f whose ConvBNs are int8 or recording runs them one by
-one instead of the fused C2f kernel, as JAX does on the CPU.
+calibrated absmax it runs as int8 (``kernels.int8_conv``; a stem, whose
+input has at most 7 channels, quantises in its conv's own launch,
+``int8_conv_stem``), ahead of the 3x3 conv kernel; a C2f whose ConvBNs are
+int8 or recording runs them one by one instead of the fused C2f kernel, as
+JAX does on the CPU.
 """
 
 from __future__ import annotations
@@ -43,8 +45,8 @@ from torch import nn
 
 from ..kernels import c2f as c2f_kernel
 from ..kernels import conv3x3
-from ..kernels.int8_conv import (activation_scale, int8_conv, quantize_int8,
-                                 quantize_weight)
+from ..kernels.int8_conv import (activation_scale, int8_conv, int8_conv_stem,
+                                 int8_route, quantize_int8, quantize_weight)
 from ..parallel import dist
 
 ACTS = {"silu": F.silu, "relu": F.relu, "identity": lambda x: x}
@@ -191,6 +193,16 @@ class ConvBN(nn.Module):
         return (self.int8_class and self.conv.bias is None and self.g == 1
                 and self.d == 1)
 
+    @property
+    def int8_route(self) -> Optional[str]:
+        """The route of this ConvBN's int8 conv (kernels/int8_conv.py
+        int8_route): "stem" quantises its input in the conv's own launch;
+        None while it is not int8."""
+        if self.i8_w is None:
+            return None
+        return int8_route(self.k, self.s, self.p, self.i8_w.shape[-1],
+                          self.i8_w.shape[0], self.conv.in_channels)
+
     def set_int8(self, absmax: torch.Tensor) -> None:
         """Quantise the float32 folded weight (per output channel) and keep
         the scales of a calibrated input absmax: the int8 route."""
@@ -233,6 +245,10 @@ class ConvBN(nn.Module):
             self.absmax = a if self.absmax is None else torch.maximum(
                 self.absmax, a)
         if self.i8_w is not None:
+            if self.int8_route == "stem":
+                return int8_conv_stem(_nhwc(x), self.i8_ascale, self.i8_w,
+                                      self.i8_scale, self.b_fold, self.s,
+                                      self.p, self.act).permute(0, 3, 1, 2)
             xq = quantize_int8(_nhwc(x), self.i8_ascale, self.i8_w.shape[-1])
             return int8_conv(xq, self.i8_w, self.i8_scale, self.b_fold,
                              self.s, self.p, self.act).permute(0, 3, 1, 2)
