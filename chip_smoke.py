@@ -269,16 +269,23 @@ and a shape group of their own):
      beside the letterbox and batch_predict in the caller's thread, and
      the path's kernels launched, no other.
 Image input (the host decoders of yolosharp_tpu_torch/csrc: the JPEG
-decoder of jpeg_decode.cpp, baseline and progressive, gray, YCbCr, RGB and
-CMYK; the PNG row unfilter of png_unfilter.cpp, that every PNG phase
-reads through; the TIFF LZW and PackBits decoders of tiff_decode.cpp;
+decoder of jpeg_decode.cpp, baseline, progressive, of several scans,
+Huffman or arithmetic-coded, gray, YCbCr, RGB, CMYK and YCCK, cut streams,
+restart recovery and block smoothing as libjpeg-turbo's; the PNG row
+unfilter of png_unfilter.cpp, that every PNG phase reads through; the TIFF
+LZW, PackBits and CCITT decoders of tiff_decode.cpp (JPEG-in-TIFF through
+the JPEG decoder, YCbCr and CMYK mapped in numpy);
 the WebP VP8L and VP8 decoders of webp_decode.cpp; all built with c++ in
 phase 1 beside the CUDA kernels; BMP, PNM and PAM in numpy):
   14a. every committed fixture of tests/data_torch/jpeg and
-     tests/data_torch/images (progressive and CMYK JPEG, every PNG kind,
-     baseline TIFF kinds, 1- / 4- / 16-bit, bit-field, RLE and OS/2 BMP,
-     PNM, PAM, lossy / lossless / alpha / EXIF / animated WebP and WebP
-     bytes under a .jpg name) read by read_image_rgb: the SHA-256 of its
+     tests/data_torch/images (progressive, CMYK and YCCK JPEG, JPEG cut
+     short, without EOI, with restart markers misnumbered or missing,
+     progressive left unrefined, of three scans, arithmetic-coded; every
+     PNG kind; baseline TIFF kinds, uncompressed YCbCr, an LZW strip cut
+     short, JPEG-in-TIFF, CCITT MH / T.4 / T.6, CMYK; 1- / 4- / 16-bit,
+     bit-field, RLE and OS/2 BMP, PNM, PAM, lossy / lossless / alpha /
+     EXIF / animated WebP and WebP bytes under a .jpg name) read by
+     read_image_rgb: the SHA-256 of its
      RGB bytes equal to its manifest's (cv2.imread's, where the fixtures
      were written). The host decode ms of each (the median of 5); of the
      641x479 4:2:0 baseline and progressive files, the 640x480 lossy and
@@ -289,8 +296,10 @@ phase 1 beside the CUDA kernels; BMP, PNM and PAM in numpy):
      the 641x479 baseline fixture's path and of the WebP fixture named
      .jpg (each equal to image_predict of its decoded array) and
      batch_predict of 32 images decoded from the fixtures of both
-     folders (cycled over every file extension: JPEG, PNG, TIFF, BMP,
-     PNM, PAM and WebP kinds), conv3x3 s1 / s2 and c2f_fused launched and
+     folders (a cut JPEG, a CCITT T.4 TIFF, a YCbCr JPEG-in-TIFF and a
+     CMYK TIFF first, then cycled over every file extension: JPEG, PNG,
+     TIFF, BMP, PNM, PAM and WebP kinds), conv3x3 s1 / s2 and c2f_fused
+     launched and
      no other kernel; then YoloTask.train() of v8s, 640x640, batch 16, 2
      epochs on a detect set of those fixtures (those of 32 px a side or
      more; a PNM, PAM or WebP file under a .png name, as the loaders
@@ -3659,6 +3668,11 @@ TIMED_50 = (JPEG_BIG, "progressive_q75_641x479.jpg", "lzw_pred2_640x480.tif",
             "webp_lossy_q80_640x480.webp",
             "webp_lossless_48colours_640x480.webp", "ascii_640x480.ppm")
 WEBP_AS_JPG = "webp_bytes_64x48.jpg"   # 14b's WebP image_predict path
+# kinds read through libjpeg's and libtiff's recovery and rarer codecs that
+# lead 14b's and 14c's cycle: every served batch, train list and classify
+# set holds them
+FIRST_KINDS = ("cut_baseline_q75_64x48.jpg", "ccitt_g3_2d_64x48.tif",
+               "jpeg_ycbcr420_64x48.tif", "cmyk_lzw_64x48.tif")
 # the extensions the loaders admit (the JAX package's IMG_EXTS)
 LOADER_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
 JPEG_LIST = 128           # entries of 14b's train list (the fixtures cycled)
@@ -3747,15 +3761,20 @@ def phase_image_decode(root, tag):
                              f"written ({int((img != want).sum())} values)")
         print(f"  {os.path.basename(path)}: {os.path.getsize(path)} bytes, "
               f"640x480, equal to the pixels written; {ms}", flush=True)
-    # the cycle: one file of each extension (the JPEG folder's apart) in
-    # turn, so that every kind is in the first 32
+    # the cycle: FIRST_KINDS, then one file of each extension (the JPEG
+    # folder's apart) in turn, so that every kind is in the first 32
+    first = [os.path.join(FIXTURE_DIRS[1], n) for n in FIRST_KINDS]
+    if not set(first) <= set(usable):
+        raise SystemExit(f"14a: {FIRST_KINDS} are not all usable fixtures")
     groups = {}
     for p in usable:
+        if p in first:
+            continue
         key = ("jpeg dir" if p.startswith(JPEG_DIR)
                else os.path.splitext(p)[1].lower())
         groups.setdefault(key, []).append(p)
     lists = [groups[k] for k in sorted(groups)]
-    cycle = []
+    cycle = list(first)
     for i in range(max(len(v) for v in lists)):
         cycle += [v[i] for v in lists if i < len(v)]
     return cycle
@@ -3872,6 +3891,8 @@ def phase_images(dev, root, state, conf, tag):
           f"fixtures ({_kinds(batch)}): {len(boxes)} rows, "
           f"{call * 1e3:.1f} ms; kernel launches {served}", flush=True)
     check_path_launches("v8", served, "v8s image predict")
+    print(f"  the batch, the train list and 14c's class 0 lead with "
+          f"{', '.join(FIRST_KINDS)}", flush=True)
 
     write_image_detect_set(root, paths)
     print(f"phase 14b: YoloTask.train() of v8s, {TRAIN_SIZE}x{TRAIN_SIZE}, "

@@ -9,6 +9,15 @@ WebP bytes under a .jpg name).
     python tests/data_torch/images/make_fixtures.py --all    # all of them
     python tests/data_torch/images/make_fixtures.py --time   # time decodes
 
+The kinds cv2.imread reads with libjpeg-turbo's and libtiff's recovery
+and rarer codecs: JPEG cut short (baseline and progressive), without EOI,
+with restart markers misnumbered or missing, progressive with low
+coefficients left unrefined (block smoothing), YCCK, sequential of several
+scans, arithmetic-coded (sequential with restarts, progressive); TIFF of
+uncompressed YCbCr (4:2:0, 4:2:2), an LZW strip that ends short,
+JPEG-in-TIFF (YCbCr, PIL's RGB, cv2's gray), CCITT (modified Huffman, T.4
+2D, T.6 with FillOrder 2) and CMYK (PIL's LZW, planar).
+
 Needs cv2 and PIL (the machines that only read the fixtures need neither):
 cv2.imencode and PIL write what they write, ``writers.py`` the kinds
 neither writes (Adam7 PNG, tiled, planar, big-endian, min-is-white,
@@ -28,6 +37,7 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 import time
 
@@ -40,13 +50,20 @@ sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "jpeg"))
 from make_fixtures import encode, smooth_image  # noqa: E402
 from writers import (BI_BITFIELDS, BI_RLE4, BI_RLE8,  # noqa: E402
-                     rle_encode, write_bmp, write_pam, write_png, write_pnm,
-                     write_tiff)
+                     jpeg_coefficients, quant_table, rle_encode, write_bmp,
+                     write_jpeg, write_jpeg_tiff, write_pam, write_png,
+                     write_pnm, write_tiff, ycc_planes)
 
 
 def _pil(img, fmt, mode=None, **kw):
     bio = io.BytesIO()
     Image.fromarray(img, mode).save(bio, fmt, **kw)
+    return bio.getvalue()
+
+
+def _pil_image(im, **kw):
+    bio = io.BytesIO()
+    im.save(bio, "TIFF", **kw)
     return bio.getvalue()
 
 
@@ -335,6 +352,178 @@ FIXTURES.update({
     "webp_bytes_64x48.jpg": (
         "PIL, lossy WebP quality 75 under a .jpg name",
         lambda i: _webp(smooth_image(48, 64, i), quality=75)),
+})
+
+
+def _cut(data, frac):
+    """A JPEG cut inside its first scan's data, frac of the way through
+    (cv2 reads it, warning "Premature end of JPEG file")."""
+    sos = data.index(b"\xff\xda")
+    return data[:sos + int((len(data) - sos) * frac)]
+
+
+def _renumber_restart(data, k, new):
+    """The k-th RSTn of a JPEG's scan data given the number new, or
+    removed (new None)."""
+    pos = data.index(b"\xff\xda")
+    for _ in range(k + 1):
+        pos = data.index(b"\xff", pos + 2)
+        while not 0xD0 <= data[pos + 1] <= 0xD7:
+            pos = data.index(b"\xff", pos + 2)
+    if new is None:
+        return data[:pos] + data[pos + 2:]
+    return data[:pos + 1] + bytes([0xD0 + new]) + data[pos + 2:]
+
+
+def _unrefined(data):
+    """A progressive JPEG without its last scan (cv2's script ends with the
+    luma AC refinement to Al 0), so libjpeg smooths its blocks."""
+    return data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"
+
+
+# the progressive scan script of libjpeg's jpeg_simple_progression (3
+# components)
+PROGRESSION = ([((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+                ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)])
+
+
+def _numpy_jpeg(img, factors, quality, scans=None, **kw):
+    """writers.write_jpeg of an RGB image's YCbCr planes."""
+    qt = [quant_table(False, quality), quant_table(True, quality)]
+    coefs = jpeg_coefficients(ycc_planes(img), factors, qt, [0, 1, 1])
+    return write_jpeg(coefs, qt, [0, 1, 1], factors, img.shape[1],
+                      img.shape[0], scans or [((0, 1, 2), 0, 63, 0, 0)], **kw)
+
+
+def _ycck(i, quality=90):
+    """writers.write_jpeg of CMYK as YCCK (Adobe transform 2): Y, Cb, Cr
+    of the inverted C, M, Y, then K; 4:2:0 chroma."""
+    cmyk = _cmyk(48, 64, i)
+    planes = ycc_planes(255 - cmyk[..., :3]) + [
+        cmyk[..., 3].astype(np.float64)]
+    qt = [quant_table(False, quality), quant_table(True, quality)]
+    tq = [0, 1, 1, 0]
+    factors = [(2, 2), (1, 1), (1, 1), (2, 2)]
+    return write_jpeg(jpeg_coefficients(planes, factors, qt, tq), qt, tq,
+                      factors, 64, 48, [((0, 1, 2, 3), 0, 63, 0, 0)],
+                      adobe_transform=2)
+
+
+def _ycbcr_tiff(i, subsampling):
+    ycc = np.clip(np.round(np.stack(ycc_planes(smooth_image(48, 64, i)),
+                                    -1)), 0, 255).astype(np.uint8)
+    return write_tiff(ycc, photometric=6, subsampling=subsampling,
+                      rows_per_strip=16)
+
+
+def _short_lzw(i):
+    """An LZW TIFF (strips of 16 rows, the predictor) whose second strip's
+    byte count is cut to 60%: libtiff decodes it short, leaves zeros and
+    drops that strip's predictor."""
+    data = bytearray(write_tiff(smooth_image(48, 64, i), compression=5,
+                                predictor=2, rows_per_strip=16))
+    count_at = data.index(struct.pack("<HHI", 279, 4, 3))
+    at = struct.unpack("<I", data[count_at + 8:count_at + 12])[0] + 4
+    (count,) = struct.unpack("<I", data[at:at + 4])
+    data[at:at + 4] = struct.pack("<I", count * 6 // 10)
+    return bytes(data)
+
+
+def _bilevel(i):
+    return Image.fromarray(smooth_image(48, 64, i)[..., 0] > 128)
+
+
+FIXTURES.update({
+    "cut_baseline_q75_64x48.jpg": (
+        "cv2.imencode 4:2:0 q75, cut 60% into its scan",
+        lambda i: _cut(encode(smooth_image(48, 64, i), "420", 75, 0, 0, 0),
+                       0.6)),
+    "cut_progressive_q75_64x48.jpg": (
+        "cv2.imencode progressive 4:2:0 q75, cut 45% into its scans",
+        lambda i: _cut(encode(smooth_image(48, 64, i), "420", 75, 0, 0, 1),
+                       0.45)),
+    "no_eoi_q85_64x48.jpg": (
+        "cv2.imencode 4:4:4 q85 without its EOI marker",
+        lambda i: encode(smooth_image(48, 64, i), "444", 85, 0, 0, 0)[:-2]),
+    "rst_misnumbered_64x48.jpg": (
+        "cv2.imencode 4:2:0 q80, restart interval 1, RST2 numbered RST5",
+        lambda i: _renumber_restart(encode(smooth_image(48, 64, i), "420", 80,
+                                           1, 0, 0), 2, 5)),
+    "rst_missing_64x48.jpg": (
+        "cv2.imencode progressive 4:2:2 q80, restart interval 1, its "
+        "fourth RSTn removed",
+        lambda i: _renumber_restart(encode(smooth_image(48, 64, i), "422", 80,
+                                           1, 0, 1), 3, None)),
+    "progressive_unrefined_64x48.jpg": (
+        "cv2.imencode progressive 4:2:0 q75 without its last scan (block "
+        "smoothing)",
+        lambda i: _unrefined(encode(smooth_image(48, 64, i), "420", 75, 0, 0,
+                                    1))),
+    "ycck_q90_64x48.jpg": (
+        "writers.write_jpeg, YCCK (Adobe transform 2), 4:2:0 chroma, q90",
+        _ycck),
+    "sequential_3scans_64x48.jpg": (
+        "writers.write_jpeg, baseline 4:2:0 q80 in three scans of one "
+        "component each",
+        lambda i: _numpy_jpeg(smooth_image(48, 64, i), [(2, 2), (1, 1),
+                                                        (1, 1)], 80,
+                              [((0,), 0, 63, 0, 0), ((1,), 0, 63, 0, 0),
+                               ((2,), 0, 63, 0, 0)])),
+    "arith_rst2_64x48.jpg": (
+        "writers.write_jpeg, arithmetic-coded (SOF9) 4:2:0 q80, restart "
+        "interval 2",
+        lambda i: _numpy_jpeg(smooth_image(48, 64, i), [(2, 2), (1, 1),
+                                                        (1, 1)], 80,
+                              arithmetic=True, restart=2)),
+    "arith_progressive_64x48.jpg": (
+        "writers.write_jpeg, arithmetic-coded progressive (SOF10) 4:4:4 "
+        "q85, jpeg_simple_progression's scans",
+        lambda i: _numpy_jpeg(smooth_image(48, 64, i), [(1, 1)] * 3, 85,
+                              PROGRESSION, arithmetic=True,
+                              progressive=True)),
+    "ycbcr420_64x48.tif": (
+        "writers.write_tiff, uncompressed YCbCr 2x2 subsampled, strips of "
+        "16 rows",
+        lambda i: _ycbcr_tiff(i, (2, 2))),
+    "ycbcr422_64x48.tif": (
+        "writers.write_tiff, uncompressed YCbCr 2x1 subsampled, strips of "
+        "16 rows",
+        lambda i: _ycbcr_tiff(i, (2, 1))),
+    "lzw_short_strip_64x48.tif": (
+        "writers.write_tiff, LZW with the predictor, its second strip cut "
+        "to 60%", _short_lzw),
+    "jpeg_ycbcr420_64x48.tif": (
+        "writers.write_jpeg_tiff, JPEG-in-TIFF YCbCr 4:2:0 q80, strips of "
+        "16 rows, JPEGTables",
+        lambda i: write_jpeg_tiff(smooth_image(48, 64, i), 16,
+                                  [(2, 2), (1, 1), (1, 1)], 80)),
+    "jpeg_rgb_pil_64x48.tif": (
+        "PIL, RGB, JPEG-in-TIFF (Photometric 2)",
+        lambda i: _pil(smooth_image(48, 64, i), "TIFF", compression="jpeg")),
+    "jpeg_gray_cv2_64x48.tif": (
+        "cv2.imencode, gray, IMWRITE_TIFF_COMPRESSION 7",
+        lambda i: _cv2(_gray(i), ".tif", (cv2.IMWRITE_TIFF_COMPRESSION, 7))),
+    "ccitt_mh_64x48.tif": (
+        "PIL, 1-bit, CCITT modified Huffman (Compression 2)",
+        lambda i: _pil_image(_bilevel(i), compression="tiff_ccitt")),
+    "ccitt_g3_2d_64x48.tif": (
+        "PIL, 1-bit, CCITT T.4 2D (Compression 3, Group3Options 1)",
+        lambda i: _pil_image(_bilevel(i), compression="group3",
+                             tiffinfo={292: 1})),
+    "ccitt_g4_lsb_64x48.tif": (
+        "PIL, 1-bit, CCITT T.6 (Compression 4), FillOrder 2",
+        lambda i: _pil_image(_bilevel(i), compression="group4",
+                             tiffinfo={266: 2})),
+    "cmyk_lzw_64x48.tif": (
+        "PIL, CMYK, LZW",
+        lambda i: _pil(_cmyk(48, 64, i), "TIFF", "CMYK",
+                       compression="tiff_lzw")),
+    "cmyk_planar_64x48.tif": (
+        "writers.write_tiff, CMYK, PlanarConfiguration 2, uncompressed",
+        lambda i: write_tiff(_cmyk(48, 64, i), photometric=5, planar=2)),
 })
 
 

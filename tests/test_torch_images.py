@@ -7,8 +7,9 @@ codes) / Deflate / PackBits, the predictor, gray (min-is-black and -white,
 unassociated alpha, Orientation 1-4 (5-8 raise, where cv2.imread returns
 None); the files cv2 and PIL write, those that tests/data_torch/images/
 writers.py writes where neither does, the committed fixtures against
-their manifest, the kinds that still raise, and a detect set of mixed
-formats loaded as the JAX package's loader loads it (cv2 there)."""
+their manifest, the kinds that still raise (cv2 returns None for them),
+the ones that no longer do, and a detect set of mixed formats loaded as
+the JAX package's loader loads it (cv2 there)."""
 
 import hashlib
 import io
@@ -299,23 +300,19 @@ def _jpeg_in_tiff():
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("jpeg_in_tiff", "Compression"), ("ycbcr", "Photometric"),
-    ("float", "SampleFormat"), ("gray2", "BitsPerSample"),
-    ("five_samples", "SamplesPerPixel"), ("truncated_strip", "truncated"),
-    ("corrupt_lzw", "LZW"), ("bigtiff", "BigTIFF")])
+    ("jpeg_in_tiff", "Compression"), ("float", "SampleFormat"),
+    ("gray2", "BitsPerSample"), ("five_samples", "SamplesPerPixel"),
+    ("truncated_strip", "truncated"), ("bigtiff", "BigTIFF")])
 def test_tiff_that_is_not_read_raises(tmp_path, kind, match):
-    """What the TIFF reader does not read raises ValueError naming the
-    file and the tag or the fault: JPEG-in-TIFF, YCbCr, float samples,
-    2-bit gray (which cv2 refuses too), 5 samples, a strip cut short,
-    LZW codes the table does not hold, BigTIFF. The error is a
-    FileNotFoundError too, as the JAX loader raises where cv2.imread
-    returns None."""
+    """What cv2.imread returns None for, the TIFF reader refuses with a
+    ValueError naming the file and the tag or the fault: a strip that
+    claims to be JPEG and is not, float samples, 2-bit gray, 5 samples, an
+    uncompressed strip cut short, BigTIFF. The error is a FileNotFoundError
+    too, as the JAX loader raises where cv2.imread returns None."""
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
     if kind == "jpeg_in_tiff":
         data = _jpeg_in_tiff()
-    elif kind == "ycbcr":
-        data = write_tiff(img, photometric=6)
     elif kind == "float":
         data = bytearray(write_tiff(img[..., :1]))
         # one more directory entry would move the data: patch BitsPerSample
@@ -333,19 +330,36 @@ def test_tiff_that_is_not_read_raises(tmp_path, kind, match):
         at = data.index(bytes([0x11, 1, 4, 0, 1, 0, 0, 0, 8, 0, 0, 0]))
         data[at + 8:at + 12] = (len(data) - 10).to_bytes(4, "little")
         data = bytes(data)
-    elif kind == "corrupt_lzw":
-        data = bytearray(write_tiff(img, compression=5))
-        data[9] ^= 0xFF
-        data = bytes(data)
     else:
         data = b"II+\0" + bytes(12)
     path = str(tmp_path / f"{kind}.tif")
     with open(path, "wb") as f:
         f.write(data)
+    assert cv2_rgb(path) is None
     with pytest.raises(ValueError, match=match) as err:
         read_image_rgb(path)
     assert path in str(err.value)
     assert isinstance(err.value, FileNotFoundError)
+
+
+@pytest.mark.parametrize("kind", ["ycbcr", "corrupt_lzw"])
+def test_tiff_once_refused_matches_cv2(tmp_path, kind):
+    """TIFFs the reader refused until cv2.imread was found to read them (so
+    the JAX loader reads them too), now equal to cv2.imread: samples
+    tagged YCbCr (Photometric 6, read as libtiff's default 2x2 blocks) and
+    LZW data whose first code is EOI (libtiff's "Not enough data": zeros)."""
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    if kind == "ycbcr":
+        data = write_tiff(img, photometric=6)
+    else:
+        data = bytearray(write_tiff(img, compression=5))
+        data[9] ^= 0xFF
+        data = bytes(data)
+    path, want = _read_both(tmp_path, data, f"{kind}.tif")
+    assert want is not None
+    np.testing.assert_array_equal(read_image_rgb(path), want)
+    np.testing.assert_array_equal(decode_tiff_rgb(data), want)
 
 
 def _manifest():

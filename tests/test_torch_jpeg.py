@@ -4,7 +4,8 @@ bit for bit against cv2.imread(IMREAD_COLOR) -> RGB over sampling
 factors, qualities, restart intervals, optimised tables and sizes, both
 baseline and progressive (from cv2 and PIL), Adobe CMYK, the EXIF
 orientations 1-8, the committed fixtures against their manifest, the
-files it refuses; BMP (8-bit paletted, 24- and 32-bit, both row orders)
+files it refuses (where cv2 returns None) and those it once refused;
+BMP (8-bit paletted, 24- and 32-bit, both row orders)
 and PNG with an eXIf orientation; reading JPEG, PNG, BMP and TIFF where
 cv2 cannot be imported; a JPEG detect set loaded as the JAX package's
 loader loads it (cv2 there), a JPEG classify set's get and a JPEG path
@@ -281,7 +282,7 @@ def _ycck(data):
 
 def _unrefined(data):
     """A progressive JPEG without its last scan (cv2's script ends with
-    the luma AC refinement to Al 0), so libjpeg would smooth its blocks."""
+    the luma AC refinement to Al 0), so libjpeg smooths its blocks."""
     last = data.rindex(b"\xff\xda")
     return data[:last] + b"\xff\xd9"
 
@@ -300,52 +301,69 @@ def _twelve_bit(data):
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("ycck", "YCCK"), ("truncated", "truncated"),
-    ("cut_in_header", "truncated"), ("sof10", "arithmetic-coded progressive"),
-    ("twelve_bit", "12-bit"), ("arithmetic", "arithmetic"),
+    ("cut_in_header", "truncated"),
+    ("sof10", "arithmetic-coded progressive"), ("twelve_bit", "12-bit"),
     ("not_an_image", "not a PNG, JPEG, BMP, TIFF, PNM, PAM or WebP"),
-    ("jpeg_in_tiff", "Compression"), ("tiff_orientation6", "Orientation"),
-    ("progressive_unrefined", "unrefined")])
+    ("jpeg_in_tiff", "Compression"), ("tiff_orientation6", "Orientation")])
 def test_unreadable_files_raise(tmp_path, kind, match):
-    """What the port does not read raises ValueError naming the file (no
-    image is substituted): YCCK, a scan cut short, a file cut in its
-    headers, arithmetic-coded progressive (SOF10), 12-bit and
-    arithmetic-coded frames, text, JPEG-in-TIFF, a TIFF whose Orientation
-    6 cv2.imread returns no image for, a progressive file whose scans leave
-    coefficients unrefined (libjpeg smooths those). The error is a
-    FileNotFoundError too, as the JAX loader raises where cv2.imread
-    returns None."""
+    """What cv2.imread returns None for, the port refuses with a ValueError
+    naming the file (no image is substituted): a file cut in its headers,
+    a sequential scan under an arithmetic-coded progressive (SOF10) frame,
+    12-bit samples, text, a TIFF strip that claims to be JPEG and is not,
+    a TIFF Orientation 6. The error is a FileNotFoundError too, as the JAX
+    loader raises where cv2.imread returns None."""
     img = smooth_image(48, 64, 0)
     base = encode(img, "420", 75, 0, 0, 0)
-    if kind == "ycck":
-        data = _ycck(_pil_jpeg(np.dstack([img, img[..., :1]]), "CMYK"))
-    elif kind == "truncated":
-        data = base[:len(base) * 2 // 3]
-    elif kind == "cut_in_header":
+    if kind == "cut_in_header":
         data = base[:100]
     elif kind == "sof10":
         at = base.index(b"\xff\xc0")
         data = base[:at] + b"\xff\xca" + base[at + 2:]
     elif kind == "twelve_bit":
         data = _twelve_bit(base)
-    elif kind == "arithmetic":
-        at = base.index(b"\xff\xc0")
-        data = base[:at] + b"\xff\xc9" + base[at + 2:]
     elif kind == "not_an_image":
         data = b"class x y w h\n" * 4
     elif kind == "jpeg_in_tiff":
         data = _jpeg_in_tiff(img)
-    elif kind == "tiff_orientation6":
+    else:
         data = write_tiff(img, orientation=6)
+    path = str(tmp_path / f"{kind}.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    assert cv2.imread(path, cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match=match) as err:
+        read_image_rgb(path)
+    assert path in str(err.value)
+    assert isinstance(err.value, FileNotFoundError)
+
+
+@pytest.mark.parametrize("kind", ["ycck", "truncated", "arithmetic",
+                                  "progressive_unrefined"])
+def test_once_refused_files_match_cv2(tmp_path, kind):
+    """Files the port refused until cv2.imread was found to read them (so
+    the JAX loader reads them too), now equal to cv2.imread: YCCK (Adobe
+    transform 2, jdcolor.c's ycck_cmyk_convert), a scan cut short (fake
+    EOIs, the MCUs past the cut gray), Huffman data under an
+    arithmetic-coded (SOF9) frame (jdarith.c decodes it as garbage up to
+    its first bad code), a progressive file without its last scan (block
+    smoothing)."""
+    img = smooth_image(48, 64, 0)
+    base = encode(img, "420", 75, 0, 0, 0)
+    if kind == "ycck":
+        data = _ycck(_pil_jpeg(np.dstack([img, img[..., :1]]), "CMYK"))
+    elif kind == "truncated":
+        data = base[:len(base) * 2 // 3]
+    elif kind == "arithmetic":
+        at = base.index(b"\xff\xc0")
+        data = base[:at] + b"\xff\xc9" + base[at + 2:]
     else:
         data = _unrefined(encode(img, "420", 75, 0, 0, 1))
     path = str(tmp_path / f"{kind}.jpg")
     with open(path, "wb") as f:
         f.write(data)
-    with pytest.raises(ValueError, match=match) as err:
-        read_image_rgb(path)
-    assert path in str(err.value)
-    assert isinstance(err.value, FileNotFoundError)
+    want = cv2_rgb(path)
+    np.testing.assert_array_equal(read_image_rgb(path), want)
+    np.testing.assert_array_equal(jpeg.decode_jpeg_rgb(data), want)
 
 
 def _top_down(data):

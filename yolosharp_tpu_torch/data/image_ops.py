@@ -8,10 +8,13 @@ itself rounds some values otherwise.
   file's magic bytes: PNG of every standard kind (gray, RGB, paletted,
   with alpha; 1 to 16 bits; Adam7 or not) inflated here with zlib and its
   rows unfiltered by the host C++ of ``csrc/png_unfilter.cpp``; baseline,
-  extended sequential and progressive JPEG, gray, YCbCr, RGB or CMYK, by
-  ``jpeg.decode_jpeg_rgb`` (libjpeg-turbo's arithmetic, its EXIF
-  orientation applied); every BMP kind by ``bmp.decode_bmp_rgb``;
-  baseline TIFF by ``tiff.decode_tiff_rgb`` (libtiff's RGBA mapping); PNM
+  extended sequential (of one scan or several) and progressive JPEG,
+  Huffman or arithmetic-coded, gray, YCbCr, RGB, CMYK or YCCK, cut short
+  or corrupt as libjpeg-turbo recovers from it, by ``jpeg.decode_jpeg_rgb``
+  (libjpeg-turbo's arithmetic, its EXIF orientation applied); every BMP
+  kind by ``bmp.decode_bmp_rgb``; TIFF of gray, palette, RGB, CMYK and
+  YCbCr, uncompressed, LZW, Deflate, PackBits, CCITT or JPEG, by
+  ``tiff.decode_tiff_rgb`` (libtiff's RGBA mapping); PNM
   and PAM by ``pnm.decode_pnm_rgb``; lossy, lossless and extended WebP by
   ``webp.decode_webp_rgb`` (host C++, ``csrc/webp_decode.cpp``).
   Anything else raises ImageReadError (a FileNotFoundError and a
@@ -79,8 +82,12 @@ def read_image_rgb(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB of a PNG, JPEG, BMP, TIFF, PNM / PAM or WebP
     file, as cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB)
     gives it (an EXIF or TIFF orientation applied), told apart by its
-    first bytes as cv2 tells them apart, whatever the file's name.
-    Anything else raises ImageReadError, naming the file."""
+    first bytes as cv2 tells them apart, whatever the file's name. A file
+    cv2 reads through its codecs' recovery (a JPEG cut short or with
+    restart markers out of order, an LZW strip that ends short) reads the
+    same. What cv2.imread returns None for, and the kinds no decoder here
+    takes (jpeg.py's and tiff.py's docstrings list them), raise
+    ImageReadError naming the file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
@@ -96,7 +103,9 @@ def read_image_rgb(path: str) -> np.ndarray:
     if webp.is_webp(data):
         return webp.decode_webp_rgb(data, path)
     raise ImageReadError(f"{path}: not a PNG, JPEG, BMP, TIFF, PNM, PAM or "
-                         f"WebP file")
+                         f"WebP file (cv2.imread reads GIF, JPEG 2000, Sun "
+                         f"raster, PFM, HDR and AVIF too; the port does "
+                         f"not yet)")
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:

@@ -6,17 +6,24 @@ converted to RGB, its EXIF orientation applied.
 
 ``parse_jpeg`` reads SOI, APPn (APP1's EXIF Orientation in either byte
 order, APP0's JFIF, APP14's Adobe transform), COM, DQT (8- and 16-bit
-tables), DHT, DRI, SOF0 / SOF1 (baseline and extended sequential, one scan
-of every component) or SOF2 (progressive Huffman, any number of scans,
-with the tables and the restart interval in force at each SOS), up to EOI.
-Frames of 1 (gray), 3 (YCbCr or RGB) or 4 components (CMYK: no Adobe
-marker or transform 0, converted as cv2 converts it) are decoded. Anything
-else raises ImageReadError naming the file and the reason: lossless,
-hierarchical and arithmetic-coded frames, 12-bit samples, 2 components,
-YCCK (Adobe transform 2), a sequential frame of several scans, a
-progressive one whose scans leave low coefficients unrefined (libjpeg
-smooths such blocks) and a stream cut short. No image is ever
-substituted.
+tables), DHT, DAC, DRI, SOF0 / SOF1 (baseline and extended sequential:
+one scan of every component, or scans of some components each), SOF2
+(progressive), SOF9 (arithmetic-coded sequential) or SOF10
+(arithmetic-coded progressive), with the tables, conditioning and restart
+interval in force at each SOS, as libjpeg reads them: past the end of the
+file fake EOIs, so a stream cut inside a scan decodes. The scans are
+decoded as libjpeg-turbo 3.1 decodes them: the MCUs past the data a scan
+holds keep their coefficients (zero, or an earlier scan's), restart
+markers misnumbered or missing are resynchronised (jdmarker.c), a bad
+Huffman or arithmetic code is recovered from as jdhuff.c / jdarith.c do,
+and a progressive frame whose scans leave low coefficients inexact has its
+blocks smoothed (jdcoefct.c). Frames of 1 (gray), 3 (YCbCr or RGB) or 4
+components (CMYK: no Adobe marker or transform 0; YCCK: transform 2;
+converted to BGR as cv2 converts CMYK) are decoded. What cv2.imread
+returns None for raises ImageReadError naming the file and the reason: a
+file cut before its first scan, lossless (SOF3; cv2 reads it only as
+gray), hierarchical frames, 12-bit samples, 2 components, a bad
+progression, an unknown marker. No image is ever substituted.
 """
 
 from __future__ import annotations
@@ -42,22 +49,34 @@ _ZIGZAG = np.array([
 _UNSUPPORTED = {
     0xC3: "lossless (SOF3)",
     0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical progressive (SOF6)",
-    0xC7: "hierarchical lossless (SOF7)",
-    0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded progressive "
-    "(SOF10)", 0xCB: "arithmetic-coded lossless (SOF11)",
-    0xCC: "arithmetic-coded (DAC)", 0xCD: "arithmetic-coded hierarchical "
-    "(SOF13)", 0xCE: "arithmetic-coded hierarchical (SOF14)",
+    0xC7: "hierarchical lossless (SOF7)", 0xC8: "JPG extension (0xFFC8)",
+    0xCB: "arithmetic-coded lossless (SOF11)",
+    0xCD: "arithmetic-coded hierarchical (SOF13)",
+    0xCE: "arithmetic-coded hierarchical (SOF14)",
     0xCF: "arithmetic-coded hierarchical (SOF15)",
     0xDC: "a DNL marker"}
-_ERRORS = {1: "the stream is truncated (its data ends before the last "
-              "block)", 2: "a Huffman code or table is invalid",
+# SOFn -> (progressive, arithmetic-coded)
+_FRAMES = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+           0xC9: (False, True), 0xCA: (True, True)}
+_ERRORS = {2: "a Huffman table is invalid",
            3: "its sampling factors are not decodable",
-           4: "a restart marker is missing",
-           5: "a scan header does not fit its frame"}
-COLOR_GRAY, COLOR_YCC, COLOR_RGB, COLOR_CMYK = 0, 1, 2, 3
+           5: "a scan header does not fit its frame",
+           6: "a scan ends at an unknown marker"}
+COLOR_GRAY, COLOR_YCC, COLOR_RGB, COLOR_CMYK, COLOR_YCCK = 0, 1, 2, 3, 4
 # natural-order positions of the DC and the first 9 AC coefficients in
 # zig-zag order: libjpeg's block smoothing looks at these (SAVED_COEFS)
 _SMOOTHED = _ZIGZAG[:10]
+# what jdatasrc.c hands the decoder once a file ends: a fake EOI, again and
+# again
+_EOI = b"\xff\xd9"
+
+
+class _Refused(Exception):
+    """What _parse refuses, and where in the (padded) data."""
+
+    def __init__(self, pos: int, reason: str):
+        super().__init__(reason)
+        self.pos, self.reason = pos, reason
 
 
 @dataclass
@@ -67,6 +86,7 @@ class JpegInfo:
     width: int = 0
     height: int = 0
     progressive: bool = False
+    arithmetic: bool = False
     comp_ids: List[int] = field(default_factory=list)
     comp_h: List[int] = field(default_factory=list)
     comp_v: List[int] = field(default_factory=list)
@@ -86,6 +106,11 @@ class JpegInfo:
     jfif: bool = False
     adobe_transform: Optional[int] = None
     orientation: int = 1
+    # where libjpeg smooths the blocks (progressive only): of each component
+    # its coef_bits_latch (the Al of the last scan of each of the first 10
+    # coefficients, -1 for none), then the latch of the bits before its last
+    # scan
+    coef_bits: Optional[np.ndarray] = None
 
     @property
     def qtables(self) -> np.ndarray:
@@ -106,7 +131,7 @@ class JpegInfo:
             return COLOR_GRAY
         if len(self.comp_ids) == 4:
             return (COLOR_CMYK if self.adobe_transform in (None, 0)
-                    else -1)
+                    else COLOR_YCCK)
         if self.jfif:
             return COLOR_YCC
         if self.adobe_transform is not None:
@@ -137,157 +162,201 @@ def exif_orientation(tiff: bytes) -> int:
     return 1
 
 
-def _scan_end(data: bytes, pos: int, name: str) -> int:
-    """Where the entropy-coded data that starts at ``pos`` ends: the first
-    marker that is not a stuffed 0xFF 0x00 or an RSTn."""
-    end, n = pos, len(data)
+def _scan_end(data: bytes, pos: int) -> int:
+    """Where the entropy-coded data that starts at ``pos`` ends: at the
+    first marker that is not a stuffed 0xFF 0x00, an RSTn or one below 0xC0
+    (those the entropy decoder meets and resyncs past). The data is padded
+    with fake EOIs, so there is one."""
+    end = pos
     while True:
         end = data.find(b"\xff", end)
-        if end < 0 or end + 1 >= n:
-            raise ImageReadError(f"{name}: JPEG truncated: the file ends inside "
-                             f"its scan")
         nxt = data[end + 1]
-        if nxt == 0 or 0xD0 <= nxt <= 0xD7 or nxt == 0xFF:
-            end += 1 if nxt == 0xFF else 2
-            continue
-        return end
+        if nxt == 0xFF:
+            end += 1
+        elif nxt < 0xC0 or 0xD0 <= nxt <= 0xD7:
+            end += 2
+        else:
+            return end
 
 
 def _check_scan(info: JpegInfo, ns: int, ss: int, se: int, ah: int,
-                al: int, name: str) -> None:
-    """libjpeg's checks of a scan header (jdphuff.c start_pass): a DC scan
-    has Se 0, an AC scan one component and Ss <= Se <= 63, a refinement
-    takes one bit (Al = Ah - 1), Al <= 13. A sequential frame's one scan
-    holds every component."""
-    if not info.progressive:
-        if info.scans:
-            raise ImageReadError(f"{name}: JPEG of several sequential scans is "
-                             f"not decoded without cv2 (one scan a "
-                             f"sequential frame)")
-        if ns != len(info.comp_ids):
-            raise ImageReadError(f"{name}: JPEG whose sequential scan holds {ns} "
-                             f"of {len(info.comp_ids)} components is not "
-                             f"decoded without cv2 (one scan a sequential "
-                             f"frame)")
-        return
+                al: int, pos: int) -> None:
+    """libjpeg's checks of a progressive scan header (jdphuff.c /
+    jdarith.c start_pass): a DC scan has Se 0, an AC scan one component
+    and Ss <= Se <= 63, a refinement takes one bit (Al = Ah - 1), Al <= 13.
+    A sequential scan's Ss, Se, Ah and Al are not checked (a warning)."""
     bad = (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
-    if bad or (ah != 0 and al != ah - 1) or al > 13:
-        raise ImageReadError(f"{name}: progressive JPEG with a bad scan (Ss {ss}, "
-                         f"Se {se}, Ah {ah}, Al {al}, {ns} components)")
+    if info.progressive and (bad or (ah != 0 and al != ah - 1) or al > 13):
+        kind = "arithmetic-coded " if info.arithmetic else ""
+        raise _Refused(pos, f"{kind}progressive JPEG with a bad scan "
+                            f"(Ss {ss}, Se {se}, Ah {ah}, Al {al}, {ns} "
+                            "components)")
 
 
-def _check_smoothing(info: JpegInfo, coef_bits: np.ndarray,
-                     name: str) -> None:
-    """Raise where libjpeg-turbo would smooth the blocks of a progressive
-    frame (jdcoefct.c smoothing_ok): every component's DC at least partly
-    known, the quantisers of the DC and the first 9 AC coefficients not 0,
-    and one of those 9 AC coefficients of some component not refined to
-    its last bit (Al 0) by the last scan."""
+def _smoothing(info: JpegInfo, coef_bits: np.ndarray, prev_bits: np.ndarray
+               ) -> Optional[np.ndarray]:
+    """libjpeg-turbo's coef_bits_latch and its latch of the bits before each
+    component's last scan (components x 20) where it smooths the blocks of a
+    progressive frame (jdcoefct.c smoothing_ok), else None:
+    every component's quantisation table latched with the DC and the first
+    9 AC quantisers not 0, every component's DC at least partly known, and
+    one of those 9 AC coefficients of some component not refined to its
+    last bit (Al 0) by the last scan."""
     if not info.progressive or (coef_bits[:, 0] < 0).any():
-        return
+        return None
     for q in info.comp_q:
         if q is None or not q[_SMOOTHED].all():
-            return
-    if (coef_bits[:, 1:10] != 0).any():
-        raise ImageReadError(f"{name}: progressive JPEG whose scans leave low "
-                         f"coefficients unrefined is not decoded without "
-                         f"cv2 (libjpeg smooths its blocks)")
+            return None
+    if not (coef_bits[:, 1:10] != 0).any():
+        return None
+    prev = prev_bits[:, :10] if len(info.scans) > 1 else np.full_like(
+        prev_bits[:, :10], -1)
+    return np.ascontiguousarray(np.concatenate([coef_bits[:, :10], prev], 1))
+
+
+def _frame(info: JpegInfo, marker: int, body: bytes, pos: int) -> None:
+    """An SOFn segment (jdmarker.c get_sof)."""
+    info.progressive, info.arithmetic = _FRAMES[marker]
+    if len(body) < 6:
+        raise _Refused(pos, "JPEG with a short frame header")
+    precision, h, w, nf = struct.unpack(">BHHB", body[:6])
+    if h == 0 or w == 0 or nf == 0:
+        raise _Refused(pos, f"JPEG of size {w}x{h}, {nf} components")
+    if len(body) != 6 + 3 * nf:
+        raise _Refused(pos, "JPEG with a frame header of the wrong "
+                            "length")
+    if precision != 8:
+        raise _Refused(pos, f"{precision}-bit JPEG is not "
+                            "decoded without cv2 (8-bit only)")
+    if nf not in (1, 3, 4):
+        raise _Refused(pos, f"{nf}-component JPEG is not "
+                            "decoded without cv2 (1, 3 or 4 only)")
+    info.width, info.height = w, h
+    for i in range(nf):
+        cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
+        info.comp_ids.append(cid)
+        info.comp_h.append(hv >> 4)
+        info.comp_v.append(hv & 15)
+        info.comp_tq.append(tq)
+    info.comp_q = [None] * nf
 
 
 def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
-    """The markers of a JPEG up to its EOI (see the module's docstring);
-    raises ImageReadError naming ``name`` on anything it does not decode."""
+    """The markers of a JPEG (see _parse); an error met past the end of a
+    file cut short says so."""
+    n = len(data)
+    try:
+        return _parse(data)
+    except _Refused as err:
+        if err.pos > n:
+            raise ImageReadError(f"{name}: JPEG truncated at byte {n}: "
+                                 f"{err.reason}") from None
+        raise ImageReadError(f"{name}: {err.reason}") from None
+
+
+def _parse(data: bytes) -> JpegInfo:
+    """The markers of a JPEG (see the module's docstring) as libjpeg reads
+    them for cv2.imread: a sequential frame whose first scan holds every
+    component up to that scan's data (cv2 has the image before it reads
+    further, and errors past it do not take it away), any other frame up to
+    its EOI; past the end of the file a fake EOI, again and again (so a
+    file cut inside a scan decodes). Raises _Refused on anything it does
+    not decode."""
     if data[:2] != SOI:
-        raise ImageReadError(f"{name}: not a JPEG file (no SOI marker)")
+        raise _Refused(0, "not a JPEG file (no SOI marker)")
     info = JpegInfo()
     app1 = None
-    pos, n = 2, len(data)
+    pos = 2
+    data = data + _EOI * 4
     seen_sof = False
     qtables = np.zeros((4, 64), np.uint16)
     dc_bits, ac_bits = (np.zeros((4, 17), np.uint8) for _ in range(2))
     dc_vals, ac_vals = (np.zeros((4, 256), np.uint8) for _ in range(2))
     present = restart_interval = 0
+    dc_cond, ac_k = [0x10] * 16, [5] * 16   # DAC defaults: L 0, U 1, Kx 5
     coef_bits = None
     while True:
-        while pos < n and data[pos] != 0xFF:
+        while data[pos] != 0xFF:
             pos += 1                     # garbage between segments
-        while pos < n and data[pos] == 0xFF:
+        while data[pos] == 0xFF:
             pos += 1                     # fill bytes
-        if pos >= n:
-            raise ImageReadError(f"{name}: JPEG truncated: no EOI marker")
         marker = data[pos]
         pos += 1
         if marker == 0xD9:
             break
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
-            continue                     # stray RSTn / TEM: no length
-        if pos + 2 > n:
-            raise ImageReadError(f"{name}: JPEG truncated in a marker segment")
+        if 0xD0 <= marker <= 0xD7 or marker in (0x00, 0x01):
+            continue                     # stray RSTn / TEM / FF 00
+        if not (0xC0 <= marker <= 0xFE) or marker in (0xD8, 0xDE, 0xDF) or \
+                0xF0 <= marker <= 0xFD:
+            raise _Refused(pos, "JPEG with an unknown marker "
+                                f"0xFF{marker:02X}")
         (length,) = struct.unpack(">H", data[pos:pos + 2])
+        if length < 2:
+            raise _Refused(pos, "JPEG with a marker segment "
+                                f"0xFF{marker:02X} of length {length}")
+        if pos + length + 4 > len(data):
+            data += _EOI * ((pos + length + 4 - len(data)) // 2 + 1)
         body = data[pos + 2:pos + length]
-        if length < 2 or pos + length > n:
-            raise ImageReadError(f"{name}: JPEG truncated in a marker segment "
-                             f"0xFF{marker:02X}")
         pos += length
         if marker in _UNSUPPORTED:
-            raise ImageReadError(f"{name}: {_UNSUPPORTED[marker]} JPEG is not "
-                             f"decoded without cv2 (baseline, extended "
-                             f"sequential and progressive Huffman only)")
-        if marker in (0xC0, 0xC1, 0xC2):
+            raise _Refused(pos, f"{_UNSUPPORTED[marker]} JPEG is not "
+                                "decoded without cv2 (baseline, extended "
+                                "sequential and progressive, Huffman or "
+                                "arithmetic-coded, only)")
+        if marker in _FRAMES:
             if seen_sof:
-                raise ImageReadError(f"{name}: JPEG with two frames")
+                raise _Refused(pos, "JPEG with two frames")
             seen_sof = True
-            info.progressive = marker == 0xC2
-            if len(body) < 6 or len(body) < 6 + 3 * body[5]:
-                raise ImageReadError(f"{name}: JPEG with a short frame header")
-            precision, h, w, nf = struct.unpack(">BHHB", body[:6])
-            if precision != 8:
-                raise ImageReadError(f"{name}: {precision}-bit JPEG is not "
-                                 f"decoded without cv2 (8-bit only)")
-            if nf not in (1, 3, 4):
-                raise ImageReadError(f"{name}: {nf}-component JPEG is not "
-                                 f"decoded without cv2 (1, 3 or 4 only)")
-            if h == 0 or w == 0:
-                raise ImageReadError(f"{name}: JPEG of size {w}x{h}")
-            info.width, info.height = w, h
-            for i in range(nf):
-                cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
-                info.comp_ids.append(cid)
-                info.comp_h.append(hv >> 4)
-                info.comp_v.append(hv & 15)
-                info.comp_tq.append(tq & 3)
-            info.comp_q = [None] * nf
-            coef_bits = np.full((nf, 64), -1, np.int32)
+            _frame(info, marker, body, pos)
+            coef_bits = np.full((len(info.comp_ids), 64), -1, np.int32)
+            prev_bits = np.zeros_like(coef_bits)
         elif marker == 0xC4:
             at = 0
-            while at < len(body):
-                tc, th = body[at] >> 4, body[at] & 3
+            while len(body) - at > 16:
+                index = body[at]
                 counts = np.frombuffer(body[at + 1:at + 17], np.uint8)
                 total = int(counts.sum())
+                if total > 256 or total > len(body) - at - 17:
+                    raise _Refused(pos, "JPEG with a bad DHT segment")
+                tc, th = index >> 4 & 1, index & ~0x10
+                if th > 3:
+                    raise _Refused(pos, "JPEG with a DHT table index "
+                                        f"{th}")
                 vals = np.frombuffer(body[at + 17:at + 17 + total], np.uint8)
-                if len(counts) < 16 or len(vals) < total or total > 256:
-                    raise ImageReadError(f"{name}: JPEG with a bad DHT segment")
                 bits, syms = (ac_bits, ac_vals) if tc else (dc_bits, dc_vals)
                 bits[th, 1:] = counts
                 syms[th] = 0
                 syms[th, :total] = vals
                 present |= 1 << (th + (4 if tc else 0))
                 at += 17 + total
+            if at != len(body):
+                raise _Refused(pos, "JPEG with a bad DHT segment")
+        elif marker == 0xCC:
+            if len(body) % 2:
+                raise _Refused(pos, "JPEG with a bad DAC segment")
+            for at in range(0, len(body), 2):
+                index, val = body[at:at + 2]      # Tc << 4 | Tb, then Cs
+                if index > 31 or (index < 16 and val & 15 > val >> 4):
+                    raise _Refused(pos, "JPEG with a bad DAC segment")
+                if index < 16:
+                    dc_cond[index] = val
+                else:
+                    ac_k[index - 16] = val
         elif marker == 0xDB:
             at = 0
             while at < len(body):
-                pq, tq = body[at] >> 4, body[at] & 3
+                pq, tq = body[at] >> 4, body[at] & 15
                 size = 128 if pq else 64
                 raw = body[at + 1:at + 1 + size]
-                if len(raw) < size:
-                    raise ImageReadError(f"{name}: JPEG with a bad DQT segment")
+                if len(raw) < size or tq > 3:
+                    raise _Refused(pos, "JPEG with a bad DQT segment")
                 q = np.frombuffer(raw, ">u2" if pq else np.uint8)
                 qtables[tq, _ZIGZAG] = q
                 at += 1 + size
         elif marker == 0xDD:
-            if len(body) < 2:
-                raise ImageReadError(f"{name}: JPEG with a short DRI segment")
-            (restart_interval,) = struct.unpack(">H", body[:2])
+            if len(body) != 2:
+                raise _Refused(pos, "JPEG with a bad DRI segment")
+            (restart_interval,) = struct.unpack(">H", body)
         elif marker == 0xE0:
             info.jfif = info.jfif or body[:5] == b"JFIF\0"
         elif marker == 0xE1:
@@ -298,41 +367,49 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
                 info.adobe_transform = body[11]
         elif marker == 0xDA:
             if not seen_sof:
-                raise ImageReadError(f"{name}: JPEG scan before its frame")
+                raise _Refused(pos, "JPEG scan before its frame")
             ns = body[0] if body else 0
-            if len(body) < 4 + 2 * ns or not 1 <= ns <= 4:
-                raise ImageReadError(f"{name}: JPEG with a short scan header")
+            if len(body) != 4 + 2 * ns or not 1 <= ns <= 4:
+                raise _Refused(pos, "JPEG with a bad scan header")
             ss, se, ahl = body[1 + 2 * ns:4 + 2 * ns]
             ah, al = ahl >> 4, ahl & 15
-            _check_scan(info, ns, ss, se, ah, al, name)
-            fields = [ns] + [0] * 12 + [ss, se, ah, al, restart_interval]
+            _check_scan(info, ns, ss, se, ah, al, pos)
+            fields = ([ns] + [0] * 12 + [ss, se, ah, al, restart_interval]
+                      + dc_cond + ac_k)
             for i in range(ns):
                 cs, t = body[1 + 2 * i:3 + 2 * i]
                 if cs not in info.comp_ids:
-                    raise ImageReadError(f"{name}: JPEG scan of an unknown "
-                                     f"component {cs}")
+                    raise _Refused(pos, "JPEG scan of an unknown "
+                                        f"component {cs}")
                 c = info.comp_ids.index(cs)
-                fields[1 + 3 * i:4 + 3 * i] = [c, t >> 4 & 3, t & 3]
+                fields[1 + 3 * i:4 + 3 * i] = [c, t >> 4, t & 15]
                 if info.comp_q[c] is None:       # latch_quant_tables
-                    info.comp_q[c] = qtables[info.comp_tq[c]].copy()
-                if info.progressive:
+                    tq = info.comp_tq[c]
+                    if tq > 3:
+                        raise _Refused(pos, "JPEG component of "
+                                            f"quantisation table {tq}")
+                    info.comp_q[c] = qtables[tq].copy()
+                if info.progressive:          # jdphuff.c start_pass
+                    lo, hi = min(ss, 1), max(se, 9) + 1
+                    prev_bits[c, lo:hi] = coef_bits[c, lo:hi] if info.scans \
+                        else 0
                     coef_bits[c, ss:se + 1] = al
-            end = _scan_end(data, pos, name)
+            end = _scan_end(data, pos)
             info.fields.append(fields)
             info.dc_bits.append(dc_bits.copy())
             info.dc_vals.append(dc_vals.copy())
             info.ac_bits.append(ac_bits.copy())
             info.ac_vals.append(ac_vals.copy())
             info.tables.append(present)
-            info.scans.append(data[pos:end])
+            info.scans.append(data[pos:end + 2])   # with its marker
             pos = end
+            if not info.progressive and len(info.scans) == 1 and \
+                    ns == len(info.comp_ids):
+                break                    # one scan: the image is out
     if not info.scans:
-        raise ImageReadError(f"{name}: JPEG without a scan")
-    if info.color < 0:
-        raise ImageReadError(f"{name}: YCCK JPEG (Adobe transform "
-                         f"{info.adobe_transform}) is not decoded without "
-                         f"cv2 (gray, YCbCr, RGB and CMYK only)")
-    _check_smoothing(info, coef_bits, name)
+        raise _Refused(pos, "JPEG without a scan")
+    if info.progressive:
+        info.coef_bits = _smoothing(info, coef_bits, prev_bits)
     if app1 is not None:
         info.orientation = exif_orientation(app1[6:])   # the first EXIF
     return info
@@ -356,12 +433,14 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def decode_jpeg_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
+def decode_jpeg_rgb(data: bytes, name: str = "<bytes>",
+                    color: Optional[int] = None) -> np.ndarray:
     """(H, W, 3) uint8 RGB of a JPEG, equal to
     cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB): grayscale
-    repeated to three channels, the EXIF orientation applied. Raises
-    ImageReadError naming ``name`` on what it does not decode (see the
-    module's docstring)."""
+    repeated to three channels, the EXIF orientation applied. ``color``
+    overrides the colour space the markers give (libtiff sets it for
+    JPEG-in-TIFF). Raises ImageReadError naming ``name`` on what it does
+    not decode (see the module's docstring)."""
     info = parse_jpeg(data, name)
     lib = load_host("jpeg_decode")
     out = np.empty((info.height, info.width, 3), np.uint8)
@@ -375,12 +454,14 @@ def decode_jpeg_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
             info.dc_bits, info.dc_vals, info.ac_bits, info.ac_vals))
     tables = np.asarray(info.tables, np.int32)
     qtables = info.qtables
+    coef_bits = None if info.coef_bits is None else _ptr(info.coef_bits)
     status = lib.ys_jpeg_decode(
         info.width, info.height, len(info.comp_ids), _ptr(comp_h),
-        _ptr(comp_v), int(info.progressive), len(info.scans), _ptr(scans),
-        _ptr(offsets), _ptr(fields), _ptr(dc_bits), _ptr(dc_vals),
-        _ptr(ac_bits), _ptr(ac_vals), _ptr(tables), _ptr(qtables),
-        info.color, _ptr(out))
+        _ptr(comp_v), int(info.progressive) | 2 * int(info.arithmetic),
+        len(info.scans), _ptr(scans), _ptr(offsets), _ptr(fields),
+        _ptr(dc_bits), _ptr(dc_vals), _ptr(ac_bits), _ptr(ac_vals),
+        _ptr(tables), _ptr(qtables), coef_bits,
+        info.color if color is None else color, _ptr(out))
     if status:
         raise ImageReadError(f"{name}: JPEG not decoded: "
                          f"{_ERRORS.get(status, f'error {status}')}")

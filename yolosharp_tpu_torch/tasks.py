@@ -1556,7 +1556,9 @@ class YoloTask:
     def image_predict(self, image, predict_threshold: Optional[float] = None,
                       iou_threshold: Optional[float] = None):
         if isinstance(image, str):
-            # PNG, JPEG, BMP, TIFF, PNM / PAM or WebP, no cv2
+            # PNG, JPEG (cut short, arithmetic-coded, YCCK ... as cv2
+            # reads them), BMP, TIFF (CCITT, JPEG, YCbCr, CMYK too), PNM /
+            # PAM or WebP, no cv2
             image = read_image_rgb(image)
         return self.task.image_predict(image, predict_threshold,
                                        iou_threshold)
