@@ -275,8 +275,11 @@ restart recovery and block smoothing as libjpeg-turbo's; the PNG row
 unfilter of png_unfilter.cpp, that every PNG phase reads through; the TIFF
 LZW, PackBits and CCITT decoders of tiff_decode.cpp (JPEG-in-TIFF through
 the JPEG decoder, YCbCr and CMYK mapped in numpy);
-the WebP VP8L and VP8 decoders of webp_decode.cpp; all built with c++ in
-phase 1 beside the CUDA kernels; BMP, PNM and PAM in numpy):
+the WebP VP8L and VP8 decoders of webp_decode.cpp; the JPEG 2000
+codestream decoder of jp2_decode.cpp (OpenJPEG's tiers 1 and 2, 5/3 and
+9/7 DWT, RCT / ICT); GIF's LZW in gif_decode.cpp; HDR scanlines in
+hdr_decode.cpp; all built with c++ in phase 1 beside the CUDA kernels;
+BMP, PNM, PAM, Sun raster and PFM in numpy):
   14a. every committed fixture of tests/data_torch/jpeg and
      tests/data_torch/images (progressive, CMYK and YCCK JPEG, JPEG cut
      short, without EOI, with restart markers misnumbered or missing,
@@ -284,26 +287,33 @@ phase 1 beside the CUDA kernels; BMP, PNM and PAM in numpy):
      PNG kind; baseline TIFF kinds, uncompressed YCbCr, an LZW strip cut
      short, JPEG-in-TIFF, CCITT MH / T.4 / T.6, CMYK; 1- / 4- / 16-bit,
      bit-field, RLE and OS/2 BMP, PNM, PAM, lossy / lossless / alpha /
-     EXIF / animated WebP and WebP bytes under a .jpg name) read by
+     EXIF / animated WebP and WebP bytes under a .jpg name; JPEG 2000 of
+     every progression order, tiled, layered, gray, RGBA, 16-bit, sYCC,
+     palette, every code-block style, SOP / EPH / POC / RGN / COC / QCC;
+     GIF, Sun raster, PFM, HDR; JPEG without DHT segments) read by
      read_image_rgb: the SHA-256 of its
      RGB bytes equal to its manifest's (cv2.imread's, where the fixtures
      were written). The host decode ms of each (the median of 5); of the
      641x479 4:2:0 baseline and progressive files, the 640x480 lossy and
-     lossless WebP files and a 640x480 RGB TIFF, LZW with the predictor,
-     that this phase writes with tests/data_torch/images/writers.py
-     (equal to the pixels it was written from), the median of 50.
+     lossless WebP files, the 640x480 lossy JPEG 2000 fixture and a
+     640x480 RGB TIFF, LZW with the predictor, an ASCII P3 and a GIF that
+     this phase writes with tests/data_torch/images/writers.py (equal to
+     the pixels they were written from), the median of 50.
   14b. v8s-640 detect, bf16, phase 3's seeded weights: image_predict of
      the 641x479 baseline fixture's path and of the WebP fixture named
      .jpg (each equal to image_predict of its decoded array) and
      batch_predict of 32 images decoded from the fixtures of both
-     folders (a cut JPEG, a CCITT T.4 TIFF, a YCbCr JPEG-in-TIFF and a
-     CMYK TIFF first, then cycled over every file extension: JPEG, PNG,
-     TIFF, BMP, PNM, PAM and WebP kinds), conv3x3 s1 / s2 and c2f_fused
+     folders (a lossy JP2 under a .jpg name, a GIF, a Sun raster, an HDR,
+     a PFM and a DHT-less JPEG file, a cut JPEG, a CCITT T.4 TIFF, a YCbCr
+     JPEG-in-TIFF and a CMYK TIFF first, then cycled over every file
+     extension: JPEG, PNG, TIFF, BMP, PNM, PAM, WebP, JPEG 2000, GIF, Sun
+     raster, PFM and HDR kinds), conv3x3 s1 / s2 and c2f_fused
      launched and
      no other kernel; then YoloTask.train() of v8s, 640x640, batch 16, 2
      epochs on a detect set of those fixtures (those of 32 px a side or
-     more; a PNM, PAM or WebP file under a .png name, as the loaders
-     admit only the JAX package's extensions and cv2 reads by content),
+     more; a PNM, PAM, WebP, JPEG 2000, GIF, Sun raster, PFM or HDR file
+     under a .png name, as the loaders admit only the JAX package's
+     extensions and cv2 reads by content),
      listed by a txt file 128 times over (labels this phase writes; the
      label scan decodes each file once), and val on 16 of them: per epoch
      the step ms, img/s, the loader-wait share; finite losses.
@@ -3663,15 +3673,20 @@ FIXTURE_DIRS = [os.path.join(os.path.dirname(os.path.abspath(__file__)),
 JPEG_DIR = FIXTURE_DIRS[0]
 JPEG_BIG = "s420_q75_641x479.jpg"
 # the files 14a times over 50 reads: the baseline and progressive 641x479
-# fixtures, the LZW TIFF and the ASCII P3 it writes, the 640x480 WebPs
+# fixtures, the LZW TIFF, the ASCII P3 and the GIF it writes, the 640x480
+# WebPs and the 640x480 lossy JPEG 2000
 TIMED_50 = (JPEG_BIG, "progressive_q75_641x479.jpg", "lzw_pred2_640x480.tif",
             "webp_lossy_q80_640x480.webp",
-            "webp_lossless_48colours_640x480.webp", "ascii_640x480.ppm")
+            "webp_lossless_48colours_640x480.webp", "ascii_640x480.ppm",
+            "gif_332_640x480.gif", "jp2_lossy_r16_640x480.jp2")
 WEBP_AS_JPG = "webp_bytes_64x48.jpg"   # 14b's WebP image_predict path
 # kinds read through libjpeg's and libtiff's recovery and rarer codecs that
 # lead 14b's and 14c's cycle: every served batch, train list and classify
 # set holds them
-FIRST_KINDS = ("cut_baseline_q75_64x48.jpg", "ccitt_g3_2d_64x48.tif",
+FIRST_KINDS = ("jp2_lossy_named_64x48.jpg", "gif_global_64x48.gif",
+               "ras_cv2_rgb_63x48.ras", "hdr_rle_64x48.hdr",
+               "pfm_le_64x48.pfm", "dhtless_baseline_420_64x48.jpg",
+               "cut_baseline_q75_64x48.jpg", "ccitt_g3_2d_64x48.tif",
                "jpeg_ycbcr420_64x48.tif", "cmyk_lzw_64x48.tif")
 # the extensions the loaders admit (the JAX package's IMG_EXTS)
 LOADER_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff")
@@ -3718,6 +3733,25 @@ def write_ascii_ppm(root):
     return path, img
 
 
+def write_gif_332(root):
+    """A 640x480 GIF of one of synthetic_images in a 3-3-2 palette (256
+    colours), written by tests/data_torch/images/writers.py; returns
+    (path, the pixels)."""
+    sys.path.insert(0, FIXTURE_DIRS[1])
+    from writers import write_gif
+
+    img = synthetic_images(1, 480, 640, 18)[0]
+    idx = ((img[..., 0] >> 5) << 5 | (img[..., 1] >> 5) << 2
+           | img[..., 2] >> 6).astype(np.uint8)
+    v = np.arange(256)
+    palette = np.stack([(v >> 5) * 255 // 7, (v >> 2 & 7) * 255 // 7,
+                        (v & 3) * 85], -1).astype(np.uint8)
+    path = os.path.join(root, TIMED_50[6])
+    with open(path, "wb") as f:
+        f.write(write_gif([dict(indices=idx)], 640, 480, palette))
+    return path, palette[idx]
+
+
 def phase_image_decode(root, tag):
     """Phase 14a: every fixture read by read_image_rgb, its RGB bytes'
     SHA-256 against the manifest; the written LZW TIFF and ASCII P3
@@ -3753,7 +3787,7 @@ def phase_image_decode(root, tag):
               f"{img.shape[0]}, SHA-256 equal to cv2's; {ms}", flush=True)
         if min(img.shape[:2]) >= 32:
             usable.append(path)
-    for write in (write_lzw_tiff, write_ascii_ppm):
+    for write in (write_lzw_tiff, write_ascii_ppm, write_gif_332):
         path, want = write(root)
         img, ms = timed_read(path)
         if not np.array_equal(img, want):
@@ -3782,7 +3816,8 @@ def phase_image_decode(root, tag):
 
 def dataset_name(path):
     """A fixture's name in a dataset: its own, or for an extension the
-    loaders do not admit (PNM, PAM, WebP) the name with ``.png`` after its
+    loaders do not admit (PNM, PAM, WebP, JPEG 2000, GIF, Sun raster, PFM,
+    HDR) the name with ``.png`` after its
     extension's letters (``p6_64x48_ppm.png``): cv2 and the port read it
     by its content."""
     stem, ext = os.path.splitext(os.path.basename(path))
@@ -3854,8 +3889,8 @@ def phase_images(dev, root, state, conf, tag):
     from yolosharp_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     paths = phase_image_decode(root, tag)
-    print("phase 14b: v8s-640 bf16 serves JPEG, PNG, TIFF, BMP, PNM, PAM and "
-          "WebP files", flush=True)
+    print("phase 14b: v8s-640 bf16 serves JPEG, PNG, TIFF, BMP, PNM, PAM, "
+          "WebP, JPEG 2000, GIF, Sun raster, HDR and PFM files", flush=True)
     task = build_tasks(dev, "v8", state)[False]
     big = os.path.join(JPEG_DIR, JPEG_BIG)
     webp_jpg = os.path.join(FIXTURE_DIRS[1], WEBP_AS_JPG)
@@ -5582,7 +5617,7 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     names = ("conv3x3", "c2f", "attention", "attention_bwd", "int8_conv")
-    host_names = ("jpeg_decode", "png_unfilter", "tiff_decode", "webp_decode")
+    host_names = build.HOST_LIBRARIES
     with ThreadPoolExecutor(len(names) + len(host_names)) as pool:
         host = [pool.submit(build.load_host, n) for n in host_names]
         list(pool.map(build.load, names))

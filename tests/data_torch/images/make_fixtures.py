@@ -9,6 +9,18 @@ WebP bytes under a .jpg name).
     python tests/data_torch/images/make_fixtures.py --all    # all of them
     python tests/data_torch/images/make_fixtures.py --time   # time decodes
 
+The kinds cv2.imread reads through OpenJPEG and its own decoders: JPEG
+2000 (PIL's lossless, lossy, tiled, layered files in every progression
+order, gray, gray + alpha, RGBA, 16-bit, a 640x480 lossy one; cv2's own;
+sYCC, palette, cdef and 12-bit JP2 boxes around PIL codestreams; the
+j2k_writer.py encoder's code-block styles, SOP / EPH / POC / tile-parts
+and RGN / COC / QCC; JP2 bytes under a .jpg name), GIF (writers.py's
+global and local tables, interlaced, transparent, a small frame, two
+frames, a full LZW table; PIL's; GIF bytes under a .png name), Sun raster
+(cv2's, 1-bit with and without a colour map, 8-bit indexed, 32-bit), PFM
+(both byte orders) and Radiance HDR (new-style RLE, flat, old-style RLE,
+narrow), and JPEGs without DHT segments.
+
 The kinds cv2.imread reads with libjpeg-turbo's and libtiff's recovery
 and rarer codecs: JPEG cut short (baseline and progressive), without EOI,
 with restart markers misnumbered or missing, progressive with low
@@ -50,9 +62,13 @@ sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(os.path.dirname(HERE), "jpeg"))
 from make_fixtures import encode, smooth_image  # noqa: E402
 from writers import (BI_BITFIELDS, BI_RLE4, BI_RLE8,  # noqa: E402
-                     jpeg_coefficients, quant_table, rle_encode, write_bmp,
-                     write_jpeg, write_jpeg_tiff, write_pam, write_png,
-                     write_pnm, write_tiff, ycc_planes)
+                     float_to_rgbe, jp2_box, jp2_wrap, jpeg_coefficients,
+                     quant_table, rle_encode, siz_fields, write_bmp,
+                     write_gif, write_hdr, write_jpeg, write_jpeg_tiff,
+                     write_pam, write_pfm, write_png, write_pnm, write_sunras,
+                     write_tiff, ycc_planes)
+from j2k_writer import (LAZY, PTERM, RESET, SEGSYM, TERMALL,  # noqa: E402
+                        VSC, write_j2k)
 
 
 def _pil(img, fmt, mode=None, **kw):
@@ -542,6 +558,324 @@ def _555(img):
 def _ten_bit(img):
     r, g, b = (img[..., c].astype(np.uint64) * 4 + 1 for c in range(3))
     return (r << np.uint64(20)) | (g << np.uint64(10)) | b
+
+
+def _jp2(img, **kw):
+    """PIL's JPEG 2000 (OpenJPEG) of an array (its mode as fromarray
+    infers it: L, LA, RGB, RGBA or I;16)."""
+    bio = io.BytesIO()
+    Image.fromarray(img).save(bio, "JPEG2000", **kw)
+    return bio.getvalue()
+
+
+def _palette_jp2(i):
+    """A JP2 of 4-bit indices (a 1-component codestream) with a 16-entry
+    RGB palette (pclr) mapped through cmap."""
+    idx = smooth_image(48, 64, i)[..., 1] // 16
+    pal = np.random.default_rng(i).integers(0, 256, (16, 3), np.uint8)
+    pclr = jp2_box(b"pclr", struct.pack(">HB", 16, 3) + bytes([7, 7, 7])
+                + pal.tobytes())
+    cmap = jp2_box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, c)
+                                  for c in range(3)))
+    return jp2_wrap(_jp2(idx, no_jp2=True), 16, pclr + cmap, nc=1)
+
+
+def _cdef_jp2(i):
+    """An RGB JP2 whose cdef box swaps its first and third channels."""
+    cdef = jp2_box(b"cdef", struct.pack(">H", 3) + b"".join(
+        struct.pack(">HHH", c, 0, a) for c, a in ((0, 3), (1, 2), (2, 1))))
+    return jp2_wrap(_jp2(smooth_image(48, 64, i), no_jp2=True, mct=1), 16,
+                    cdef)
+
+
+def _noisy(i, h=48, w=64, sigma=12):
+    rng = np.random.default_rng(i)
+    return np.clip(smooth_image(h, w, i) + rng.normal(0, sigma, (h, w, 3)),
+                   0, 255).astype(np.uint8)
+
+
+def _indices(i, n, h=48, w=64):
+    """(h, w) indices in n levels of the smooth content's first channel."""
+    return (smooth_image(h, w, i)[..., 0].astype(int) * n // 256).astype(
+        np.uint8)
+
+
+def _palette(i, n):
+    return np.random.default_rng(i).integers(0, 256, (n, 3), np.uint8)
+
+
+def _gif_small_frame(i):
+    idx = _indices(i, 32, 30, 40)
+    return write_gif([dict(indices=idx, left=13, top=9)], 64, 48,
+                     _palette(i, 32), background=7)
+
+
+def _gif_animated(i):
+    idx = _indices(i, 64)
+    return write_gif([dict(indices=idx, disposal=2),
+                      dict(indices=63 - idx[:20, :30], left=5, top=5,
+                           palette=_palette(i + 1, 64))],
+                     64, 48, _palette(i, 64), loop=0)
+
+
+def _gif_full_table(i):
+    """Noise in 256 colours: the LZW table fills at 4096 entries and the
+    coder goes on without a Clear code (12-bit codes, no new entries)."""
+    rng = np.random.default_rng(i)
+    idx = rng.integers(0, 256, (80, 100), np.uint8)
+    return write_gif([dict(indices=idx, no_clear_when_full=True)], 100, 80,
+                     _palette(i, 256))
+
+
+def _hdr(i, w=64, h=48, scale=1.0, runs=False):
+    img = smooth_image(h, w, i).astype(np.float64) / 255 * scale
+    if runs:
+        img[:, w // 2:] = img[:, w // 2:w // 2 + 1]
+    return float_to_rgbe(img)
+
+
+def _hdr_old_padded(i):
+    """Old-style RLE scanlines (repeat markers 1, 1, 1, n) padded with
+    zero bytes to the flat size: cv2 reads them flat, the markers as
+    pixels."""
+    rgbe = _hdr(i, runs=True)
+    data = write_hdr(rgbe, "old")
+    flat = len(write_hdr(rgbe, "flat"))
+    return data + bytes(flat - len(data))
+
+
+def _pfm_values(i, h=48, w=64):
+    rng = np.random.default_rng(i)
+    v = smooth_image(h, w, i).astype(np.float32) + rng.uniform(
+        -0.5, 0.5, (h, w, 3)).astype(np.float32)
+    v[0, :4] = [[0.5, 1.5, 2.5], [254.5, 255.5, -3.0],
+                [np.nan, np.inf, -np.inf], [1e12, 300.0, 127.5]]
+    return v
+
+
+def _dhtless(data):
+    """A JPEG without its DHT segments (a motion-JPEG frame)."""
+    out, pos = bytearray(data[:2]), 2
+    while pos < len(data):
+        if data[pos] == 0xFF and data[pos + 1] == 0xC4:
+            (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+            pos += 2 + length
+            continue
+        if data[pos] == 0xFF and data[pos + 1] == 0xDA:
+            return bytes(out + data[pos:])
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        out += data[pos:pos + 2 + length]
+        pos += 2 + length
+    return bytes(out)
+
+
+FIXTURES.update({
+    "jp2_lossless_rct_64x48.jp2": (
+        "PIL (OpenJPEG), lossless 5/3 with the RCT, 6 resolutions",
+        lambda i: _jp2(smooth_image(48, 64, i), mct=1)),
+    "jp2_irreversible_r20_64x48.jp2": (
+        "PIL, irreversible 9/7 with the ICT, rate 20",
+        lambda i: _jp2(_noisy(i), irreversible=True, mct=1,
+                       quality_mode="rates", quality_layers=[20])),
+    "jp2_tiled_layers3_64x48.jp2": (
+        "PIL, 9/7, tiles of 32x16, three quality layers (rates 40, 20, "
+        "8)",
+        lambda i: _jp2(_noisy(i), irreversible=True, mct=1,
+                       tile_size=(32, 16), quality_mode="rates",
+                       quality_layers=[40, 20, 8])),
+    "jp2_rlcp_db35_64x48.jp2": (
+        "PIL, 9/7, RLCP, quality 35 dB, 4 resolutions",
+        lambda i: _jp2(_noisy(i), irreversible=True, mct=1,
+                       progression="RLCP", quality_mode="dB",
+                       quality_layers=[35], num_resolutions=4)),
+    "jp2_rpcl_precincts_64x48.jp2": (
+        "PIL, 9/7, RPCL, precincts of 32, code-blocks of 16x8, two layers",
+        lambda i: _jp2(_noisy(i), irreversible=True, mct=1,
+                       progression="RPCL", precinct_size=(32, 32),
+                       codeblock_size=(16, 8), quality_mode="rates",
+                       quality_layers=[30, 10])),
+    "jp2_pcrl_precincts_64x48.jp2": (
+        "PIL, lossless, PCRL, precincts of 16, tiles of 48x40",
+        lambda i: _jp2(smooth_image(48, 64, i), progression="PCRL",
+                       precinct_size=(16, 16), num_resolutions=3,
+                       tile_size=(48, 40))),
+    "jp2_cprl_plt_64x48.jp2": (
+        "PIL, 9/7, CPRL, PLT markers, code-blocks of 8x32",
+        lambda i: _jp2(_noisy(i), irreversible=True, progression="CPRL",
+                       plt=True, codeblock_size=(8, 32),
+                       quality_mode="rates", quality_layers=[15])),
+    "j2k_raw_codestream_64x48.j2k": (
+        "PIL, a raw J2K codestream (no JP2 boxes), 9/7, rate 10",
+        lambda i: _jp2(_noisy(i), irreversible=True, mct=1, no_jp2=True,
+                       quality_mode="rates", quality_layers=[10])),
+    "jp2_gray_64x48.jp2": (
+        "PIL, gray (colr greyscale), 9/7, rate 12",
+        lambda i: _jp2(_noisy(i)[..., 0], irreversible=True,
+                       quality_mode="rates", quality_layers=[12])),
+    "jp2_gray_alpha_64x48.jp2": (
+        "PIL, gray + alpha (cdef), lossless",
+        lambda i: _jp2(smooth_image(48, 64, i)[..., :2])),
+    "jp2_rgba_64x48.jp2": (
+        "PIL, RGBA (cdef alpha), 9/7, rate 16",
+        lambda i: _jp2(np.dstack([_noisy(i), smooth_image(48, 64, i)[
+            ..., :1]]), irreversible=True, mct=1,
+            quality_mode="rates", quality_layers=[16])),
+    "jp2_gray16_64x48.jp2": (
+        "PIL, 16-bit gray, lossless (cv2 shifts by 8)",
+        lambda i: _jp2(smooth_image(48, 64, i)[..., 0].astype(np.uint16)
+                       * 257)),
+    "jp2_cv2_lossy_64x48.jp2": (
+        "cv2.imencode .jp2 at its default (lossy) compression",
+        lambda i: _cv2(smooth_image(48, 64, i), ".jp2")),
+    "jp2_sycc_64x48.jp2": (
+        "a PIL codestream in a JP2 whose colr says sYCC (cv2's YUV -> BGR)",
+        lambda i: jp2_wrap(_jp2(smooth_image(48, 64, i), no_jp2=True), 18)),
+    "jp2_palette_64x48.jp2": (
+        "4-bit indices (PIL codestream) with a pclr / cmap RGB palette",
+        _palette_jp2),
+    "jp2_cdef_swap_64x48.jp2": (
+        "RGB (PIL codestream) whose cdef swaps the first and third channel",
+        _cdef_jp2),
+    "jp2_12bit_64x48.jp2": (
+        "a PIL lossless codestream declared 12 bits (cv2 shifts by 4)",
+        lambda i: jp2_wrap(siz_fields(siz_fields(siz_fields(
+            _jp2(smooth_image(48, 64, i), no_jp2=True), 0, 12), 1, 12),
+            2, 12))),
+    "j2k_styles_all_64x48.j2k": (
+        "j2k_writer, 5/3 + RCT, every code-block style (bypass, RESET, "
+        "TERMALL, vertically causal, PTERM, segmentation symbols), three "
+        "layers",
+        lambda i: write_j2k(_noisy(i), levels=3, cblk=(4, 4), layers=3,
+                            mct=True, styles=LAZY | RESET | TERMALL | VSC
+                            | PTERM | SEGSYM)),
+    "j2k_bypass_vsc_64x48.j2k": (
+        "j2k_writer, 5/3, bypass and vertically causal code-blocks, RLCP, "
+        "two layers",
+        lambda i: write_j2k(_noisy(i), levels=2, cblk=(5, 4), layers=2,
+                            order=1, styles=LAZY | VSC)),
+    "j2k_sop_eph_poc_64x48.j2k": (
+        "j2k_writer, SOP and EPH markers, a POC (RLCP over resolutions "
+        "0-1, then LRCP), precincts, tiles of 40x32 in three tile-parts "
+        "each",
+        lambda i: write_j2k(_noisy(i), levels=3, cblk=(3, 3), layers=2,
+                            mct=True, sop=True, eph=True, tile=(40, 32),
+                            tile_parts=3, precincts=[(4, 4), (4, 4),
+                                                     (5, 5), (5, 5)],
+                            poc=[(0, 0, 2, 2, 3, 1), (0, 0, 2, 4, 3, 0)])),
+    "j2k_roi_coc_qcc_64x48.j2k": (
+        "j2k_writer, an RGN region (maximum shift) on component 0, a COC "
+        "(2 levels, code-blocks 8x8, segmentation symbols) and a QCC (3 "
+        "guard bits) on component 2",
+        lambda i: write_j2k(_noisy(i), levels=3, cblk=(4, 4), layers=2,
+                            roi=(0, lambda b, x, y: b == 0 or x < 8),
+                            comp_styles={2: (2, (3, 3), SEGSYM)},
+                            qcc_guard={2: 3})),
+    "jp2_lossy_named_64x48.jpg": (
+        "PIL JP2, 9/7 rate 20, under a .jpg name",
+        lambda i: _jp2(_noisy(i), irreversible=True, mct=1,
+                       quality_mode="rates", quality_layers=[20])),
+    "gif_global_64x48.gif": (
+        "writers.write_gif, GIF89a, a 256-colour global table",
+        lambda i: write_gif([dict(indices=_indices(i, 256))], 64, 48,
+                            _palette(i, 256))),
+    "gif_local_interlaced_64x48.gif": (
+        "writers.write_gif, GIF87a, interlaced, a 16-colour local table "
+        "only (black canvas)",
+        lambda i: write_gif([dict(indices=_indices(i, 16), interlace=True,
+                                  palette=_palette(i, 16))], 64, 48,
+                            version=b"GIF87a")),
+    "gif_transparent_64x48.gif": (
+        "writers.write_gif, a transparent index (its pixels take the "
+        "background colour), Clear codes every 100 codes",
+        lambda i: write_gif([dict(indices=_indices(i, 32), transparent=9,
+                                  clear_every=100)], 64, 48,
+                            _palette(i, 32), background=3)),
+    "gif_small_frame_64x48.gif": (
+        "writers.write_gif, a 40x30 frame at (13, 9) on a 64x48 screen of "
+        "background 7",
+        _gif_small_frame),
+    "gif_animated_64x48.gif": (
+        "writers.write_gif, two frames and a NETSCAPE loop (cv2 reads the "
+        "first)",
+        _gif_animated),
+    "gif_full_table_100x80.gif": (
+        "writers.write_gif, 256-colour noise, the LZW table full without a "
+        "Clear code",
+        _gif_full_table),
+    "gif_pil_64x48.gif": (
+        "PIL, quantised to 64 colours",
+        lambda i: _pil_quantized(smooth_image(48, 64, i), 64, "GIF")),
+    "gif_named_64x48.png": (
+        "writers.write_gif under a .png name",
+        lambda i: write_gif([dict(indices=_indices(i, 128))], 64, 48,
+                            _palette(i, 128))),
+    "ras_cv2_rgb_63x48.ras": (
+        "cv2.imencode .ras, 24-bit standard, odd width (padded rows)",
+        lambda i: _cv2(smooth_image(48, 63, i), ".ras")),
+    "ras_cv2_gray_64x48.sr": (
+        "cv2.imencode .sr, 8-bit gray",
+        lambda i: _cv2(smooth_image(48, 64, i)[..., 1], ".sr")),
+    "ras_1bit_63x48.ras": (
+        "writers.write_sunras, 1-bit, no colour map (0 black, 1 white)",
+        lambda i: write_sunras(smooth_image(48, 63, i)[..., 0] > 128, 1)),
+    "ras_1bit_cmap_64x48.ras": (
+        "writers.write_sunras, 1-bit, a 2-entry RGB colour map, type 0",
+        lambda i: write_sunras(smooth_image(48, 64, i)[..., 0] > 128, 1, 0,
+                               _palette(i, 2))),
+    "ras_8bit_cmap_64x48.ras": (
+        "writers.write_sunras, 8-bit indices, a 200-entry colour map (the "
+        "indices past it black)",
+        lambda i: write_sunras(smooth_image(48, 64, i)[..., 1], 8, 1,
+                               _palette(i, 200))),
+    "ras_32bit_64x48.ras": (
+        "writers.write_sunras, 32-bit X, B, G, R",
+        lambda i: write_sunras(smooth_image(48, 64, i), 32)),
+    "pfm_le_64x48.pfm": (
+        "writers.write_pfm, PF, scale -1 (little-endian), halves, NaN, "
+        "infinities and values past 255",
+        lambda i: write_pfm(_pfm_values(i), -1.0)),
+    "pfm_be_scale2_64x48.pfm": (
+        "writers.write_pfm, PF, scale 2 (big-endian, values halved)",
+        lambda i: write_pfm(_pfm_values(i), 2.0)),
+    "hdr_rle_64x48.hdr": (
+        "writers.write_hdr, #?RADIANCE, new-style RLE scanlines",
+        lambda i: write_hdr(_hdr(i, runs=True), "new")),
+    "hdr_flat_rgbe_64x48.hdr": (
+        "writers.write_hdr, #?RGBE, flat scanlines, values up to 3.0",
+        lambda i: write_hdr(_hdr(i, scale=3.0), "flat", magic=b"#?RGBE")),
+    "hdr_old_rle_64x48.hdr": (
+        "writers.write_hdr, old-style RLE padded to the flat size (read "
+        "flat, the repeat markers as pixels)",
+        _hdr_old_padded),
+    "hdr_narrow_6x40.hdr": (
+        "writers.write_hdr, 6 pixels wide (flat whatever the coding)",
+        lambda i: write_hdr(_hdr(i, 6, 40), "flat")),
+    "dhtless_baseline_420_64x48.jpg": (
+        "cv2.imencode 4:2:0 q75 without its DHT segments (the standard "
+        "tables apply)",
+        lambda i: _dhtless(encode(smooth_image(48, 64, i), "420", 75, 0, 0,
+                                  0))),
+    "dhtless_rst_444_64x48.jpg": (
+        "cv2.imencode 4:4:4 q85, restart interval 2, without its DHT "
+        "segments",
+        lambda i: _dhtless(encode(smooth_image(48, 64, i), "444", 85, 2, 0,
+                                  0))),
+    "dhtless_gray_64x48.jpg": (
+        "cv2.imencode gray q80 without its DHT segment",
+        lambda i: _dhtless(encode(smooth_image(48, 64, i)[..., 1], "gray",
+                                  80, 0, 0, 0))),
+    "dhtless_optimized_64x48.jpg": (
+        "cv2.imencode 4:2:0 q75 with optimised tables, its DHT segments "
+        "removed (decoded with the standard tables: libjpeg's corrupt-data "
+        "recovery)",
+        lambda i: _dhtless(encode(smooth_image(48, 64, i), "420", 75, 0, 1,
+                                  0))),
+    "jp2_lossy_r16_640x480.jp2": (
+        "PIL, 9/7 with the ICT, rate 16, 640x480 (the decode chip_smoke "
+        "times)",
+        lambda i: _jp2(_noisy(i, 480, 640, 6), irreversible=True, mct=1,
+                       quality_mode="rates", quality_layers=[16])),
+})
 
 
 def main(rewrite=False):

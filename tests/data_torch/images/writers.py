@@ -2,7 +2,10 @@
 colour type, bit depth and filter mix, Adam7-interlaced or not, and TIFF
 with strips or tiles, either planar configuration, either byte order, LZW
 (current or old-style codes), Deflate or PackBits, the horizontal
-predictor, any photometric, orientation, extra samples and colour map.
+predictor, any photometric, orientation, extra samples and colour map;
+GIF (any tables, interlace, transparency, frames, LZW code patterns),
+Sun raster (every type, depth and colour map), PFM, Radiance HDR (flat,
+old- and new-style RLE) and JP2 boxes around a codestream.
 numpy, zlib and struct only, so chip_smoke.py can write its files on a
 machine without cv2; the tests hold what they write against cv2.imread."""
 
@@ -1053,3 +1056,276 @@ def write_jpeg_tiff(rgb, rows_per_strip, factors, quality, photometric=6):
     return write_tiff(rgb, compression=7, photometric=photometric,
                       rows_per_strip=rows_per_strip, chunks=strips,
                       tags=more)
+
+
+def gif_lzw(indices, min_code_size, clear_every=None,
+            no_clear_when_full=False):
+    """GIF LZW codes of a flat index sequence, packed LSB first: a Clear
+    code first, the code width growing as the decoder's does, a Clear
+    again each ``clear_every`` codes (or when the table fills at 4096),
+    End last. ``no_clear_when_full`` keeps coding with a full table and
+    12-bit codes, adding no entry (the deferred clear GIF allows)."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    codes, table, nxt, width = [clear], {}, end + 1, min_code_size + 1
+    widths = [width]
+    prefix, emitted = None, 0
+    for v in [int(i) for i in indices] + [None]:
+        if prefix is None:
+            prefix = (v,)
+            continue
+        cand = prefix + (v,) if v is not None else None
+        if cand is not None and cand in table:
+            prefix = cand
+            continue
+        codes.append(prefix[0] if len(prefix) == 1 else table[prefix])
+        widths.append(width)
+        emitted += 1
+        if v is None:
+            break
+        if nxt < 4096:
+            table[cand] = nxt
+            nxt += 1
+            if nxt > 1 << width and width < 12:
+                width += 1
+        if (nxt >= 4096 and not no_clear_when_full) or (
+                clear_every and emitted % clear_every == 0):
+            codes.append(clear)
+            widths.append(width)
+            table, nxt, width = {}, end + 1, min_code_size + 1
+        prefix = (v,)
+    codes.append(end)
+    widths.append(width)
+    acc = nbits = 0
+    out = bytearray()
+    for c, w in zip(codes, widths):
+        acc |= c << nbits
+        nbits += w
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _gif_blocks(data):
+    out = bytearray()
+    for i in range(0, len(data), 255):
+        part = data[i:i + 255]
+        out += bytes([len(part)]) + part
+    return bytes(out + b"\0")
+
+
+def write_gif(frames, width, height, global_palette=None, background=0,
+              version=b"GIF89a", loop=None):
+    """GIF bytes of frames, each a dict: ``indices`` (h, w) uint8, and
+    optionally ``left``, ``top``, ``palette`` (a local table, (n, 3) with
+    n a power of two from 2 to 256), ``interlace``, ``transparent`` (an
+    index), ``disposal`` (0-3), ``min_code_size``, ``clear_every``,
+    ``no_clear_when_full`` (see gif_lzw). A Graphic Control Extension is
+    written for a frame with ``transparent`` or ``disposal``."""
+    out = bytearray(version)
+    flags = 0
+    if global_palette is not None:
+        n = len(global_palette)
+        flags = 0x80 | 0x70 | (n.bit_length() - 2)
+    out += struct.pack("<HHBBB", width, height, flags, background, 0)
+    if global_palette is not None:
+        out += np.asarray(global_palette, np.uint8).tobytes()
+    if loop is not None:
+        out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", loop) \
+            + b"\0"
+    for f in frames:
+        idx = np.asarray(f["indices"], np.uint8)
+        h, w = idx.shape
+        if "transparent" in f or "disposal" in f:
+            packed = (f.get("disposal", 0) << 2) | int("transparent" in f)
+            out += b"\x21\xf9\x04" + struct.pack(
+                "<BHB", packed, 10, f.get("transparent", 0)) + b"\0"
+        flags = 0
+        if f.get("palette") is not None:
+            flags |= 0x80 | (len(f["palette"]).bit_length() - 2)
+        if f.get("interlace"):
+            flags |= 0x40
+        out += b"\x2c" + struct.pack("<HHHHB", f.get("left", 0),
+                                     f.get("top", 0), w, h, flags)
+        if f.get("palette") is not None:
+            out += np.asarray(f["palette"], np.uint8).tobytes()
+        rows = idx
+        if f.get("interlace"):
+            order = (list(range(0, h, 8)) + list(range(4, h, 8))
+                     + list(range(2, h, 4)) + list(range(1, h, 2)))
+            rows = idx[order]
+        mcs = f.get("min_code_size", max(2, int(idx.max()).bit_length()))
+        out += bytes([mcs]) + _gif_blocks(gif_lzw(
+            rows.reshape(-1), mcs, f.get("clear_every"),
+            f.get("no_clear_when_full", False)))
+    return bytes(out + b"\x3b")
+
+
+def _ras_rle(data):
+    """Sun raster byte encoding: a run of 3 or more (or any run of 0x80)
+    as 0x80, count - 1, value; a lone 0x80 as 0x80 0x00."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and data[j] == data[i] and j - i < 256:
+            j += 1
+        n = j - i
+        if n >= 3 or data[i] == 0x80:
+            if n == 1:
+                out += b"\x80\x00"
+            else:
+                out += bytes([0x80, n - 1, data[i]])
+        else:
+            out += bytes(data[i:j])
+        i = j
+    return bytes(out)
+
+
+def write_sunras(pixels, depth, ras_type=1, colormap=None, length=None):
+    """Sun raster bytes of (h, w) indices (depth 1 or 8) or (h, w, 3) RGB
+    (depth 24: stored B, G, R, or R, G, B for type 3; depth 32: X, B, G,
+    R): type 0 (old), 1 (standard), 2 (byte-encoded) or 3 (RGB); a
+    colormap (n, 3) RGB written as its R, G and B planes; each row padded
+    to 16 bits (the padding encoded with the row in type 2)."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    if depth == 1:
+        rows = pack_rows(px[..., None], 1)
+    elif depth == 8:
+        rows = px.astype(np.uint8).reshape(h, w)
+    elif depth == 24:
+        rows = (px if ras_type == 3 else px[..., ::-1]).reshape(h, w * 3)
+    else:
+        rows = np.concatenate([np.zeros((h, w, 1), np.uint8),
+                               px[..., ::-1]], -1).reshape(h, w * 4)
+    rows = np.asarray(rows, np.uint8)
+    if rows.shape[1] % 2:
+        rows = np.pad(rows, ((0, 0), (0, 1)))
+    body = rows.tobytes()
+    if ras_type == 2:
+        body = _ras_rle(body)
+    cmap = b""
+    if colormap is not None:
+        cmap = np.asarray(colormap, np.uint8).T.tobytes()
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth,
+                       len(body) if length is None else length, ras_type,
+                       1 if colormap is not None else 0, len(cmap))
+    return head + cmap + body
+
+
+def write_pfm(values, scale=-1.0, header=None):
+    """PFM bytes of (h, w, 3) or (h, w) float32 values (PF or Pf), rows
+    bottom to top, little-endian for a negative scale, big-endian for a
+    positive one."""
+    v = np.asarray(values, np.float32)
+    h, w = v.shape[:2]
+    kind = b"PF" if v.ndim == 3 else b"Pf"
+    order = "<f4" if scale < 0 else ">f4"
+    if header is None:
+        header = kind + b"\n%d %d\n%s\n" % (w, h, repr(float(scale)).encode())
+    return header + v[::-1].astype(order).tobytes()
+
+
+def float_to_rgbe(rgb):
+    """(h, w, 4) RGBE bytes of (h, w, 3) float values (Walter's
+    float2rgbe: the mantissas of the largest channel's frexp)."""
+    v = np.asarray(rgb, np.float64)
+    m = v.max(-1)
+    mant, exp = np.frexp(m)
+    scale = np.where(m > 1e-32, mant * 256.0 / np.where(m > 0, m, 1), 0)
+    out = np.zeros(v.shape[:2] + (4,), np.uint8)
+    out[..., :3] = (v * scale[..., None]).astype(np.uint8)
+    out[..., 3] = np.where(m > 1e-32, exp + 128, 0)
+    return out
+
+
+def _hdr_new_rle(line):
+    """One new-style RLE scanline of (w, 4) RGBE bytes: 2, 2, w >> 8,
+    w & 255, then each channel as runs (128 + n, v) and dumps (n, ...)."""
+    w = len(line)
+    out = bytearray([2, 2, w >> 8, w & 255])
+    for c in range(4):
+        ch = line[:, c]
+        i = 0
+        while i < w:
+            j = i
+            while j < w and ch[j] == ch[i] and j - i < 127:
+                j += 1
+            if j - i >= 3:
+                out += bytes([128 + j - i, ch[i]])
+                i = j
+                continue
+            k = i
+            while k < w and k - i < 128:
+                if k + 2 < w and ch[k] == ch[k + 1] == ch[k + 2]:
+                    break
+                k += 1
+            out += bytes([k - i]) + ch[i:k].tobytes()
+            i = k
+    return bytes(out)
+
+
+def _hdr_old_rle(line):
+    """One old-style (Radiance 1) scanline: a pixel repeated as the pixel
+    then (1, 1, 1, count) markers, count < 256."""
+    out, i, w = bytearray(), 0, len(line)
+    while i < w:
+        j = i + 1
+        while j < w and (line[j] == line[i]).all() and j - i < 255:
+            j += 1
+        out += line[i].tobytes()
+        if j - i > 2:
+            out += bytes([1, 1, 1, j - i - 1])
+        else:
+            out += line[i + 1:j].tobytes()
+        i = j
+    return bytes(out)
+
+
+def write_hdr(rgbe, rle="new", header=None, magic=b"#?RADIANCE"):
+    """Radiance HDR bytes of (h, w, 4) RGBE bytes: the header (``magic``,
+    FORMAT=32-bit_rle_rgbe, a blank line, -Y h +X w) unless ``header`` is
+    given, then the scanlines flat (``rle`` "flat"), old-style RLE ("old")
+    or new-style RLE ("new")."""
+    px = np.asarray(rgbe, np.uint8)
+    h, w = px.shape[:2]
+    if header is None:
+        header = (magic + b"\nSOFTWARE=writers.py\nFORMAT=32-bit_rle_rgbe"
+                  b"\n\n-Y %d +X %d\n" % (h, w))
+    lines = {"flat": lambda line: line.tobytes(), "old": _hdr_old_rle,
+             "new": _hdr_new_rle}[rle]
+    return header + b"".join(lines(px[y]) for y in range(h))
+
+
+def jp2_box(kind, body):
+    """A JP2 box of ``kind`` (4 bytes) holding ``body``."""
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def jp2_wrap(codestream, enumcs=16, extra=b"", colr=None, nc=3, h=48, w=64):
+    """A JP2 file of a raw J2K codestream: the signature, ftyp, jp2h (ihdr,
+    the colr box of enumerated colour space ``enumcs``, or the ``colr``
+    bytes given (b"" for none), then the ``extra`` boxes) and jp2c."""
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, 7, 7, 0, 0))
+    if colr is None:
+        colr = jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, enumcs))
+    return (jp2_box(b"jP  ", b"\r\n\x87\n")
+            + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + jp2_box(b"jp2h", ihdr + colr + extra)
+            + jp2_box(b"jp2c", codestream))
+
+
+def siz_fields(codestream, comp, prec=None, sgnd=None, dx=None):
+    """The J2K codestream with component ``comp``'s SIZ precision,
+    signedness or horizontal subsampling changed."""
+    data = bytearray(codestream)
+    at = 42 + 3 * comp                  # SOC, SIZ, Lsiz .. Csiz, then Ssiz
+    p = (data[at] & 0x7F) + 1 if prec is None else prec
+    s = data[at] >> 7 if sgnd is None else sgnd
+    data[at] = s << 7 | (p - 1)
+    if dx:
+        data[at + 1] = dx
+    return bytes(data)

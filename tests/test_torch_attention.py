@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu.kernels.attention import _pallas_attn_bwd
 from yolosharp_tpu.kernels.attention import attention_bihd as jax_bihd
 from yolosharp_tpu.kernels.attention import fused_attention as jax_fused

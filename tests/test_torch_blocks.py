@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from test_torch_model import jitter_bn
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu.ckpt.fuse import fold_bn as jax_fold_bn
 from yolosharp_tpu.nn import common as jc
 from yolosharp_tpu.nn.common import fused_inference

@@ -8,6 +8,7 @@ gradients, eval-BN and folded forwards, float32 ATOL = RTOL = 1e-4."""
 import pytest
 
 from test_torch_blocks import X, check_eval_and_folded, check_train, make_pair
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu.nn import common as jc
 from yolosharp_tpu_torch.ckpt import fold_bn
 from yolosharp_tpu_torch.kernels import c2f_supported

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from test_torch_data import make_dataset
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu_torch import Config, ScalarType, YoloSize, YoloTask
 from yolosharp_tpu_torch.nn import ConvBN
 from yolosharp_tpu_torch.utils.numerics import full_float32

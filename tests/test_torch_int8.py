@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu.ckpt.mapping import flatten
 from yolosharp_tpu.config import Config as JaxConfig
 from yolosharp_tpu.nn.common import ConvBN as JaxConvBN

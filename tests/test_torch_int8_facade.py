@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from test_torch_predict import synthetic_image
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from util_calib import calibrate_task
 from yolosharp_tpu.ckpt.mapping import flatten
 from yolosharp_tpu.config import Config as JaxConfig

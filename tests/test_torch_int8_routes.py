@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from test_torch_predict import synthetic_image
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu_torch import Config, ScalarType
 from yolosharp_tpu_torch import TaskType as PortTaskType
 from yolosharp_tpu_torch import YoloSize as PortYoloSize

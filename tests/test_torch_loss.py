@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu.kernels.attention import _pallas_attn_bwd
 from yolosharp_tpu.loss.losses import detection_loss as jax_detection_loss
 from yolosharp_tpu.loss.losses import e2e_wrap as jax_e2e_wrap

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_model import jitter_bn
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from util_calib import calibrate_task
 from yolosharp_tpu.ckpt.mapping import clone_one2one as jax_clone_one2one
 from yolosharp_tpu.config import Config as JaxConfig

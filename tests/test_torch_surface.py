@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from test_torch_surface_trace import _config
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu.ckpt import binio as jax_binio
 from yolosharp_tpu.ckpt import convert_checkpoint as jax_convert_checkpoint
 from yolosharp_tpu.loss import losses as jax_losses

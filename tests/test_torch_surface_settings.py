@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from test_torch_surface_trace import _config, roots  # noqa: F401
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu_torch import YoloTask
 
 NC = 3

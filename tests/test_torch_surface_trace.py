@@ -10,6 +10,7 @@ import os
 import pytest
 
 from test_torch_data import make_dataset
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu_torch import Config, ScalarType, YoloSize, YoloTask
 
 NC = 3

@@ -15,6 +15,7 @@ import torch
 
 from test_torch_blocks import (ATOL, RTOL, _call, _nchw, _nhwc,
                                block_state_dict, init_variables)
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from yolosharp_tpu.ckpt import mapping as jax_mapping
 from yolosharp_tpu.ckpt.fuse import fold_bn as jax_fold_bn
 from yolosharp_tpu.nn import attention as ja

@@ -23,6 +23,7 @@ from test_torch_model import jitter_bn
 from test_torch_predict import (IOU, _rows, assert_match,
                                 assert_results_match, canvas,
                                 synthetic_image)
+from test_torch_train import _one_thread  # noqa: F401  (autouse)
 from test_torch_v12 import ATOL, RTOL, _nchw, _nhwc, module_state_dict
 from util_calib import calibrate_task
 from yolosharp_tpu.ckpt.mapping import clone_one2one as jax_clone_one2one

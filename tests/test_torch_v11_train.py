@@ -2,7 +2,8 @@
 the CPU (split from test_torch_v11.py so that its JAX compile runs beside
 the other files' on the test workers)."""
 
-from test_torch_train import _batch, check_step_pair, step_pair
+from test_torch_train import (_batch, _one_thread,  # noqa: F401
+                              check_step_pair, step_pair)
 
 
 def test_v11n_train_step_matches_jax():

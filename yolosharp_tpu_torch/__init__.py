@@ -31,8 +31,11 @@ copies under the same names. Modules:
   End2End pair;
 - ``train``: AdamW groups, LR schedules, train and eval steps, TrainState;
 - ``data``: cv2-free pixel work (``image_ops``: the PNG / JPEG / BMP /
-  TIFF / PNM / PAM / WebP reader, with ``jpeg``'s markers and
-  ``csrc/jpeg_decode.cpp``, ``bmp``, ``tiff``, ``pnm`` and ``webp``,
+  TIFF / PNM / PAM / WebP / JPEG 2000 / GIF / Sun raster / PFM / HDR
+  reader, with ``jpeg``'s markers and ``csrc/jpeg_decode.cpp``, ``bmp``,
+  ``tiff``, ``pnm``, ``webp``, ``jp2`` (``csrc/jp2_decode.cpp``), ``gif``
+  (``csrc/gif_decode.cpp``), ``sunras``, ``pfm`` and ``hdr``
+  (``csrc/hdr_decode.cpp``),
   resize, HSV, warps, polygon fill, the classify ops' blur / equalize),
   labels, augmentations (letterbox and the host mosaic;
   ``classify_augment``: AutoAugment, RandAugment, AugMix, random erasing), the mosaic's host

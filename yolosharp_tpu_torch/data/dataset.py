@@ -225,8 +225,9 @@ class ClassificationDataset:
     Config.auto_augment policy and random erasing (``classify_augment``);
     val: the short side resized to s, then the centre s x s crop. Images
     are read by ``image_ops.read_image_rgb`` (PNG, JPEG of every kind
-    cv2.imread reads, arithmetic-coded and cut short included; BMP; TIFF
-    with CCITT, JPEG, YCbCr and CMYK; PNM / PAM; WebP) and resized
+    cv2.imread reads, arithmetic-coded, cut short and without DHT
+    segments included; BMP; TIFF with CCITT, JPEG, YCbCr and CMYK; PNM /
+    PAM; WebP; JPEG 2000; GIF; Sun raster; PFM; Radiance HDR) and resized
     by ``image_ops.resize_linear`` (cv2's INTER_LINEAR, bit for bit).
 
     ``get`` draws from one generator in a fixed order; the DataLoader calls

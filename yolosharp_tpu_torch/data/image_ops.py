@@ -16,10 +16,16 @@ itself rounds some values otherwise.
   YCbCr, uncompressed, LZW, Deflate, PackBits, CCITT or JPEG, by
   ``tiff.decode_tiff_rgb`` (libtiff's RGBA mapping); PNM
   and PAM by ``pnm.decode_pnm_rgb``; lossy, lossless and extended WebP by
-  ``webp.decode_webp_rgb`` (host C++, ``csrc/webp_decode.cpp``).
-  Anything else raises ImageReadError (a FileNotFoundError and a
-  ValueError) that names the file and what it is; no image is ever
-  substituted.
+  ``webp.decode_webp_rgb`` (host C++, ``csrc/webp_decode.cpp``); JP2 and
+  raw J2K JPEG 2000 by ``jp2.decode_jp2_rgb`` (host C++,
+  ``csrc/jp2_decode.cpp``: OpenJPEG's tiers 1 and 2, DWT and component
+  transforms); GIF's first frame by ``gif.decode_gif_rgb`` (LZW in
+  ``csrc/gif_decode.cpp``); Sun raster by ``sunras.decode_sunras_rgb``;
+  PFM by ``pfm.decode_pfm_rgb``; Radiance HDR by ``hdr.decode_hdr_rgb``
+  (scanlines in ``csrc/hdr_decode.cpp``). AVIF, the one kind cv2 reads
+  that no decoder here takes, and anything else raise ImageReadError (a
+  FileNotFoundError and a ValueError) that names the file and what it is;
+  no image is ever substituted.
 - ``resize_linear``: cv2.resize(INTER_LINEAR) of uint8 images and masks in
   cv2's fixed-point arithmetic (11-bit weights, the vertical pass on rows
   >> 4 with a rounding >> 2); ``resize_linear_f32`` the float32 resize of
@@ -64,7 +70,7 @@ import numpy as np
 import torch
 
 from ..kernels.build import load_host
-from . import jpeg, pnm, tiff, webp
+from . import gif, hdr, jp2, jpeg, pfm, pnm, sunras, tiff, webp
 from .bmp import BMP_SIGNATURE, decode_bmp_rgb
 from .errors import ImageReadError
 
@@ -79,14 +85,15 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
 
 
 def read_image_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a PNG, JPEG, BMP, TIFF, PNM / PAM or WebP
-    file, as cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB)
+    """(H, W, 3) uint8 RGB of a PNG, JPEG, BMP, TIFF, PNM / PAM, WebP, JPEG
+    2000, GIF, Sun raster, PFM or Radiance HDR file, as
+    cv2.cvtColor(cv2.imread(path, IMREAD_COLOR), COLOR_BGR2RGB)
     gives it (an EXIF or TIFF orientation applied), told apart by its
     first bytes as cv2 tells them apart, whatever the file's name. A file
     cv2 reads through its codecs' recovery (a JPEG cut short or with
     restart markers out of order, an LZW strip that ends short) reads the
     same. What cv2.imread returns None for, and the kinds no decoder here
-    takes (jpeg.py's and tiff.py's docstrings list them), raise
+    takes (jpeg.py's, tiff.py's and jp2.py's docstrings list them), raise
     ImageReadError naming the file."""
     with open(path, "rb") as f:
         data = f.read()
@@ -102,10 +109,20 @@ def read_image_rgb(path: str) -> np.ndarray:
         return pnm.decode_pnm_rgb(data, path)
     if webp.is_webp(data):
         return webp.decode_webp_rgb(data, path)
+    if jp2.is_jpeg2000(data):
+        return jp2.decode_jp2_rgb(data, path)
+    if gif.is_gif(data):
+        return gif.decode_gif_rgb(data, path)
+    if sunras.is_sunras(data):
+        return sunras.decode_sunras_rgb(data, path)
+    if pfm.is_pfm(data):
+        return pfm.decode_pfm_rgb(data, path)
+    if hdr.is_hdr(data):
+        return hdr.decode_hdr_rgb(data, path)
     raise ImageReadError(f"{path}: not a PNG, JPEG, BMP, TIFF, PNM, PAM or "
-                         f"WebP file (cv2.imread reads GIF, JPEG 2000, Sun "
-                         f"raster, PFM, HDR and AVIF too; the port does "
-                         f"not yet)")
+                         f"WebP file, nor a JPEG 2000, GIF, Sun raster, PFM "
+                         f"or HDR one (cv2.imread reads AVIF too; the port "
+                         f"does not yet)")
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:

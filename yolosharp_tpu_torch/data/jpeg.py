@@ -11,7 +11,11 @@ one scan of every component, or scans of some components each), SOF2
 (progressive), SOF9 (arithmetic-coded sequential) or SOF10
 (arithmetic-coded progressive), with the tables, conditioning and restart
 interval in force at each SOS, as libjpeg reads them: past the end of the
-file fake EOIs, so a stream cut inside a scan decodes. The scans are
+file fake EOIs, so a stream cut inside a scan decodes; a sequential
+Huffman frame decodes with the standard tables (ITU T.81 K.3) in the DC
+and AC slots 0 and 1 no DHT defines, as jdhuff.c's std_huff_tables fills
+them (a motion-JPEG frame carries none; a progressive frame gets no such
+tables and is refused, as by cv2). The scans are
 decoded as libjpeg-turbo 3.1 decodes them: the MCUs past the data a scan
 holds keep their coefficients (zero, or an earlier scan's), restart
 markers misnumbered or missing are resynchronised (jdmarker.c), a bad
@@ -66,6 +70,23 @@ COLOR_GRAY, COLOR_YCC, COLOR_RGB, COLOR_CMYK, COLOR_YCCK = 0, 1, 2, 3, 4
 # natural-order positions of the DC and the first 9 AC coefficients in
 # zig-zag order: libjpeg's block smoothing looks at these (SAVED_COEFS)
 _SMOOTHED = _ZIGZAG[:10]
+# the DHT body of ITU T.81 Annex K.3's tables: DC and AC luminance in slot
+# 0, chrominance in slot 1 (libjpeg's jstdhuff.c)
+_STD_DHT = bytes.fromhex(
+    "00" "00010501010101010100000000000000" "000102030405060708090a0b"
+    "10" "0002010303020403050504040000017d"
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f024336272"
+    "82090a161718191a25262728292a3435363738393a434445464748494a53545556575859"
+    "5a636465666768696a737475767778797a838485868788898a92939495969798999aa2a3"
+    "a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+    "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"
+    "01" "00030101010101010101010000000000" "000102030405060708090a0b"
+    "11" "00020102040403040705040400010277"
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d1"
+    "0a162434e125f11718191a262728292a35363738393a434445464748494a535455565758"
+    "595a636465666768696a737475767778797a82838485868788898a92939495969798999a"
+    "a2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
+    "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
 # what jdatasrc.c hands the decoder once a file ends: a fake EOI, again and
 # again
 _EOI = b"\xff\xd9"
@@ -254,6 +275,32 @@ def parse_jpeg(data: bytes, name: str = "<bytes>") -> JpegInfo:
         raise ImageReadError(f"{name}: {err.reason}") from None
 
 
+def _dht(body: bytes, pos: int, dc_bits: np.ndarray, dc_vals: np.ndarray,
+         ac_bits: np.ndarray, ac_vals: np.ndarray) -> int:
+    """The Huffman tables of a DHT segment's body written into their slots;
+    the slots it defines, as bit t of a DC and bit 4 + t of an AC table."""
+    at = present = 0
+    while len(body) - at > 16:
+        index = body[at]
+        counts = np.frombuffer(body[at + 1:at + 17], np.uint8)
+        total = int(counts.sum())
+        if total > 256 or total > len(body) - at - 17:
+            raise _Refused(pos, "JPEG with a bad DHT segment")
+        tc, th = index >> 4 & 1, index & ~0x10
+        if th > 3:
+            raise _Refused(pos, f"JPEG with a DHT table index {th}")
+        vals = np.frombuffer(body[at + 17:at + 17 + total], np.uint8)
+        bits, syms = (ac_bits, ac_vals) if tc else (dc_bits, dc_vals)
+        bits[th, 1:] = counts
+        syms[th] = 0
+        syms[th, :total] = vals
+        present |= 1 << (th + (4 if tc else 0))
+        at += 17 + total
+    if at != len(body):
+        raise _Refused(pos, "JPEG with a bad DHT segment")
+    return present
+
+
 def _parse(data: bytes) -> JpegInfo:
     """The markers of a JPEG (see the module's docstring) as libjpeg reads
     them for cv2.imread: a sequential frame whose first scan holds every
@@ -272,6 +319,11 @@ def _parse(data: bytes) -> JpegInfo:
     qtables = np.zeros((4, 64), np.uint16)
     dc_bits, ac_bits = (np.zeros((4, 17), np.uint8) for _ in range(2))
     dc_vals, ac_vals = (np.zeros((4, 256), np.uint8) for _ in range(2))
+    # the standard tables wait in slots 0 and 1: a sequential Huffman frame
+    # decodes with them where no DHT defines the slot (jdhuff.c's
+    # std_huff_tables; motion-JPEG frames carry no DHT), a progressive one
+    # does not (jdphuff.c)
+    _dht(_STD_DHT, 0, dc_bits, dc_vals, ac_bits, ac_vals)
     present = restart_interval = 0
     dc_cond, ac_k = [0x10] * 16, [5] * 16   # DAC defaults: L 0, U 1, Kx 5
     coef_bits = None
@@ -308,29 +360,12 @@ def _parse(data: bytes) -> JpegInfo:
                 raise _Refused(pos, "JPEG with two frames")
             seen_sof = True
             _frame(info, marker, body, pos)
+            if not info.progressive and not info.arithmetic:
+                present |= 0x33
             coef_bits = np.full((len(info.comp_ids), 64), -1, np.int32)
             prev_bits = np.zeros_like(coef_bits)
         elif marker == 0xC4:
-            at = 0
-            while len(body) - at > 16:
-                index = body[at]
-                counts = np.frombuffer(body[at + 1:at + 17], np.uint8)
-                total = int(counts.sum())
-                if total > 256 or total > len(body) - at - 17:
-                    raise _Refused(pos, "JPEG with a bad DHT segment")
-                tc, th = index >> 4 & 1, index & ~0x10
-                if th > 3:
-                    raise _Refused(pos, "JPEG with a DHT table index "
-                                        f"{th}")
-                vals = np.frombuffer(body[at + 17:at + 17 + total], np.uint8)
-                bits, syms = (ac_bits, ac_vals) if tc else (dc_bits, dc_vals)
-                bits[th, 1:] = counts
-                syms[th] = 0
-                syms[th, :total] = vals
-                present |= 1 << (th + (4 if tc else 0))
-                at += 17 + total
-            if at != len(body):
-                raise _Refused(pos, "JPEG with a bad DHT segment")
+            present |= _dht(body, pos, dc_bits, dc_vals, ac_bits, ac_vals)
         elif marker == 0xCC:
             if len(body) % 2:
                 raise _Refused(pos, "JPEG with a bad DAC segment")

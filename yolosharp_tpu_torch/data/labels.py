@@ -1,7 +1,8 @@
 """Dataset scanning and YOLO-txt label parsing for the detect, segment,
 pose and OBB tasks (a copy of yolosharp_tpu/data/labels.py; images are
-read (PNG, JPEG, BMP, TIFF, PNM / PAM, WebP) and resized through ``image_ops`` without cv2, and
-polygons filled by ``image_ops.fill_poly``).
+read (PNG, JPEG, BMP, TIFF, PNM / PAM, WebP, JPEG 2000, GIF, Sun raster,
+PFM, HDR) and resized through ``image_ops`` without cv2, and polygons
+filled by ``image_ops.fill_poly``).
 
 Parity targets: Data/Base.cs:51-136 (image scanning / txt-list
 resolution), Data/YoloDataset.cs:153-376 (label parsing, eager resize,

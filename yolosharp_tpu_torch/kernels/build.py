@@ -163,6 +163,11 @@ def load(name: str) -> ctypes.CDLL:
                  sorted(SRC_DIR.glob("*.cuh")))
 
 
+# the host C++ libraries of csrc/, one an image decoder (or its part)
+HOST_LIBRARIES = ("png_unfilter", "jpeg_decode", "tiff_decode", "webp_decode",
+                  "jp2_decode", "gif_decode", "hdr_decode")
+
+
 def load_host(name: str) -> ctypes.CDLL:
     """The loaded library built from the host C++ ``csrc/<name>.cpp`` (built
     with the host compiler if needed; no nvcc involved)."""

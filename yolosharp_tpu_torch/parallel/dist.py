@@ -266,7 +266,7 @@ def prebuild(devices) -> None:
     the host C++ libraries and, for CUDA devices, the kernels."""
     from ..kernels import build
 
-    for name in ("png_unfilter", "jpeg_decode", "tiff_decode", "webp_decode"):
+    for name in build.HOST_LIBRARIES:
         with contextlib.suppress(RuntimeError):    # no host compiler
             build.load_host(name)
     if any(torch.device(d).type == "cuda" for d in devices):

@@ -1556,9 +1556,10 @@ class YoloTask:
     def image_predict(self, image, predict_threshold: Optional[float] = None,
                       iou_threshold: Optional[float] = None):
         if isinstance(image, str):
-            # PNG, JPEG (cut short, arithmetic-coded, YCCK ... as cv2
-            # reads them), BMP, TIFF (CCITT, JPEG, YCbCr, CMYK too), PNM /
-            # PAM or WebP, no cv2
+            # PNG, JPEG (cut short, arithmetic-coded, YCCK, without DHT
+            # ... as cv2 reads them), BMP, TIFF (CCITT, JPEG, YCbCr, CMYK
+            # too), PNM / PAM, WebP, JPEG 2000, GIF, Sun raster, PFM or
+            # HDR, no cv2
             image = read_image_rgb(image)
         return self.task.image_predict(image, predict_threshold,
                                        iou_threshold)
